@@ -1,24 +1,30 @@
 """rls_tpu_torch — the PyTorch and CUDA port of rls_tpu for NVIDIA Hopper.
 
-The flagship slice: batched FISTA with a 2-D anisotropic TV prox on a
-separable-convolution deblurring problem, carried by two hand-written
-CUDA kernels (``csrc/tv_fgp.cu``, ``csrc/fista_tv_fused.cu``) that are
-built with ``nvcc`` at first use. Names follow the JAX package
+The PGM-TV family: batched FISTA, OptISTA and POGM with a 2-D
+anisotropic TV prox on a separable-convolution deblurring problem,
+carried by three hand-written CUDA kernels (``csrc/tv_fgp.cu``,
+``csrc/fista_tv_fused.cu``, ``csrc/fista_tv_tiled.cu``) that are built
+with ``nvcc`` at first use. Names follow the JAX package
 ``rls_tpu``, which stays the reference. This package imports ``torch``
 and never ``jax``.
 """
 
 from .kernels.auto import solve_batched_fast
-from .kernels.fista_tv_fused import solve_fista_tv_fused
+from .kernels.fista_tv_fused import solve_fista_tv_fused, solve_pgm_tv_fused
+from .kernels.fista_tv_tiled import solve_fista_tv_tiled
 from .models.prox import L1Regularization, TVRegularization
 from .models.solvers.base import solve, solve_batched, solve_batched_unrolled
 from .models.solvers.fista import FISTA
+from .models.solvers.optista import OptISTA
+from .models.solvers.pogm import POGM
 from .ops.conv_direct import SeparableConvOperator
 from .ops.grad import GradientOperator
 from .utils.power_iterations import power_iterations
 
 __all__ = [
     "FISTA",
+    "OptISTA",
+    "POGM",
     "TVRegularization",
     "L1Regularization",
     "SeparableConvOperator",
@@ -28,5 +34,7 @@ __all__ = [
     "solve_batched_unrolled",
     "solve_batched_fast",
     "solve_fista_tv_fused",
+    "solve_pgm_tv_fused",
+    "solve_fista_tv_tiled",
     "power_iterations",
 ]

@@ -1,8 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes`` (seconds per build, where
-a build that includes PyTorch's headers takes minutes). The build runs at
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all at once,
+and the objects are linked into ONE shared library with a plain C
+interface, loaded with ``ctypes`` (seconds per build, where a build that
+includes PyTorch's headers takes minutes). The build runs at
 first use, lands in ``rls_tpu_torch/_build/`` (gitignored) and is keyed by
 a hash of the sources and the flags, so an edited source rebuilds and an
 unchanged one loads the cached library.
@@ -34,20 +35,30 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 # argtypes of every C entry point: pointers and the stream as c_void_p
 # (a bare Python int would be passed as a 32-bit int and cut the pointer)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # (x, lam, out, scratch, B, H, W, iterations, stream)
     "tv_fgp_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (x0hat, scal, tab, t2, taps, kh, kw, out, scratch, B, H, W,
-    #  iterations, tv_iterations, stream)
+    # (x0hat, scal, tab, t2, taps, kh, kw, out, scratch, counts, B, H, W,
+    #  iterations, tv_iterations, method, restart, early, warm, rel_tol,
+    #  sigma_fac, stream)
     "fista_tv_fused_launch": (
-        _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _F, _F, _P,
+    ),
+    # (x0hat, scal, tab, t2, taps, kh, kw, carries, window, partial,
+    #  norm_part, state, counts, B, H, W, tile_rows, halo, iterations,
+    #  tv_iterations, it, method, restart, early, rel_tol, sigma_fac, stream)
+    "fista_tv_tiled_launch": (
+        _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _I, _F, _F, _P,
     ),
 }
 
@@ -73,25 +84,36 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise on the first that failed."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def _build(target: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cu = sorted(str(p) for p in CSRC.glob("*.cu"))
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    # compile into a private directory, link to a private name, then
+    # rename: a concurrent loader never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for cu in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, cu.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(cu)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            objs.append(obj)
+        _run(procs)
+        lib = os.path.join(tmp, target.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
+        _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
+        os.replace(lib, target)
 
 
 @functools.lru_cache(maxsize=None)

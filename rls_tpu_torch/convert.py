@@ -3,7 +3,8 @@
 ``convert(obj)`` turns an ``rls_tpu`` object into its ``rls_tpu_torch``
 counterpart: ``SeparableConvOperator``, ``NormalOperator``,
 ``TVRegularization``, ``L1Regularization``, ``PositiveRegularization``,
-``RealRegularization``, the three normalization strategies and ``FISTA``.
+``RealRegularization``, the three normalization strategies, ``FISTA``,
+``OptISTA`` and ``POGM``.
 Fields are read by attribute name with ``np.asarray`` (``ah``, ``aw``,
 ``bh``, ``bw``, ``taps_hw()``, ``lam``, ``rho``, ``iterations``,
 ``iterations_tv``, ...), and objects are recognised by class name, so
@@ -21,6 +22,8 @@ import torch
 
 from .models import prox, regularization
 from .models.solvers.fista import FISTA
+from .models.solvers.optista import OptISTA
+from .models.solvers.pogm import POGM
 from .ops.base import NormalOperator
 from .ops.conv_direct import SeparableConvOperator
 
@@ -35,6 +38,15 @@ def _scalar(v):
 
 def _tensor(v):
     return torch.from_numpy(np.array(v))
+
+
+# solver class name → (port class, converters of its fields beyond the
+# common A, AHA, reg, proj, rho, theta, rel_tol, normalize_reg, iterations)
+_SOLVERS = {
+    "FISTA": (FISTA, {"restart": str, "track_residual": bool}),
+    "OptISTA": (OptISTA, {}),
+    "POGM": (POGM, {"restart": str, "sigma_fac": _scalar}),
+}
 
 
 def convert(obj):
@@ -71,12 +83,13 @@ def convert(obj):
     if name in ("NoNormalization", "MeasurementBasedNormalization",
                 "SystemMatrixBasedNormalization"):
         return getattr(regularization, name)()
-    if name == "FISTA":
+    if name in _SOLVERS:
         A = None if obj.A is None else convert(obj.A)
         AHA = convert(obj.AHA)
         if A is not None and isinstance(AHA, NormalOperator) and obj.AHA.A is obj.A:
             AHA = NormalOperator(A, AHA.weights)  # keep `solver.A is AHA.A`
-        return FISTA(
+        cls, extra = _SOLVERS[name]
+        return cls(
             A=A,
             AHA=AHA,
             reg=convert(obj.reg),
@@ -86,7 +99,6 @@ def convert(obj):
             rel_tol=None if obj.rel_tol is None else _scalar(obj.rel_tol),
             normalize_reg=convert(obj.normalize_reg),
             iterations=int(obj.iterations),
-            restart=obj.restart,
-            track_residual=bool(obj.track_residual),
+            **{k: f(getattr(obj, k)) for k, f in extra.items()},
         )
     raise TypeError(f"no rls_tpu_torch counterpart for {name}")

@@ -1,42 +1,47 @@
-// The whole batched FISTA-TV solve in one launch, one problem per CTA.
+// The whole batched PGM-TV solve in one launch, one problem per CTA.
 //
 // Replaces the TPU kernel rls_tpu/kernels/fista_tv_fused.py:_kernel (and
 // _kernel_grouped / _kernel_interleaved, which compute the same function;
-// launched by fista_tv_fused, :676) on the fixed FISTA schedule of
-// _pgm_loop (:388-392):
-//   x_mom = x + a_i (x - x_prev)              a_i = tab[i, 0] (f64 table)
-//   res   = A^H A x_mom - x0hat
-//   x_new = FGP_fold(x_mom - rho res, rho lam)
-// A^H A is the separable convolution's Gram as four zero-padded stencil
-// passes (make_sepconv_stencil_ops, rls_tpu/kernels/_fgp_common.py:364-369),
-// the TPU kernel's own exact-f32 route; FGP_fold is _fgp_unrolled_fold
-// (:733-773) with its momentum constants [1 + t2, t2] passed in, rounded
-// to f32 exactly as the TPU kernel bakes them. nvcc may FMA-contract the
-// plane arithmetic: about 1 ulp per op against the plain PyTorch version.
+// launched by fista_tv_fused, :676) in all its schedules: FISTA, OptISTA
+// and POGM on the f64 momentum table (_pgm_loop), FISTA and POGM with
+// gradient restart and the early-exit freeze (_fista_loop_dynamic,
+// _pogm_loop_dynamic), and FISTA with warm TV duals (_fista_loop_warm).
+// One iteration is rls::pgm_iteration (pgm_tv_common.cuh) on the whole
+// image:
+//   FISTA:   x_mom = x + a (x - x_prev); x_new = FGP(x_mom - rho res, rho lam)
+//   OptISTA: y_new = FGP(y - rho g res, rho g lam); z, x from the table
+//   POGM:    y_new = x - rho res; x_mid = ...; x_new = FGP(x_mid, gamma lam)
+// with res = A^H A (x_mom | x) - x0hat as four zero-padded stencil passes
+// (make_sepconv_stencil_ops, the TPU kernel's exact-f32 route) and FGP the
+// fold form of _fgp_unrolled_fold (rls_tpu/kernels/_fgp_common.py:733-773),
+// its momentum constants [1 + t2, t2] passed in, rounded to f32 as the
+// TPU kernel bakes them. The JAX dynamic and warm loops default to the
+// fori FGP; the fold form is the same f32 math up to <= 1 ulp. The
+// dynamic schedules' theta, sigma and gamma are per-problem scalars that
+// every thread of the CTA computes alike, from block sums of the restart
+// dots and ||res||^2; every thread then takes the same branch.
 //
 // What bounds it on an H100: a 256^2 f32 plane is 256 KiB, more than the
-// 227 KB of shared memory a block may use, and the solve keeps ten planes
-// per problem live (x, x_prev, x_mom, two stencil temporaries, xg and the
-// four duals; the TPU kernel held ~12 in VMEM). They live in global
-// scratch that the wrapper allocates. Each FISTA iteration is 1 + 4 + 1 +
-// 2 (tv_iterations - 1) + 1 block-wide sweeps separated by
-// __syncthreads(), about 600 bytes of plane traffic per pixel at 10 dual
-// iterations; at batch 64 the live set (~2.5 MiB per problem) exceeds the
-// 50 MB L2, so the kernel is bound by memory traffic and by the latency of
-// one CTA per SM (64 of 132 SMs busy). The Gram costs 4 x 9 = 36 FMAs per
-// pixel on the CUDA cores, against 512 for a dense 256-wide f32 banded
-// product. Splitting a problem across CTAs (row tiles with halos, as in
-// rls_tpu/kernels/fista_tv_tiled.py:9-23) and shared-memory residency are
-// later work.
+// 227 KB of shared memory a block may use, and an iteration touches up to
+// 13 planes per problem (x, the carries x_prev | y, z, w, x_mom, two
+// stencil temporaries, xg, y_new and the four duals; the TPU kernel held
+// ~12 in VMEM). They live in global scratch that the wrapper allocates.
+// Each iteration is about 1 + 4 + 1 + 2 tv_iterations block-wide sweeps
+// separated by __syncthreads(), ~600 bytes of plane traffic per pixel at
+// 10 dual iterations; at batch 64 the live set exceeds the 50 MB L2, so
+// the kernel is bound by memory traffic and by the latency of one CTA per
+// SM (64 of 132 SMs busy). Splitting a problem across CTAs is the tiled
+// kernel (fista_tv_tiled.cu); shared-memory residency is later work.
 #include <cuda_runtime.h>
 
-#include "fgp_common.cuh"
+#include "pgm_tv_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kMaxTaps = 63;  // per axis; the wrapper checks it
 
+template <int kMethod, bool kDynamic>
 __global__ void __launch_bounds__(kThreads)
 fista_tv_fused_kernel(const float* __restrict__ x0hat,
                       const float* __restrict__ scal,
@@ -44,119 +49,89 @@ fista_tv_fused_kernel(const float* __restrict__ x0hat,
                       const float* __restrict__ t2tab,
                       const float* __restrict__ taps, int kh, int kw,
                       float* __restrict__ out, float* __restrict__ scratch,
-                      int B, int H, int W, int iterations, int tv_iterations) {
+                      int* __restrict__ counts, int B, int H, int W,
+                      rls::Schedule sc) {
     __shared__ float s_taps[2 * kMaxTaps];
+    __shared__ double s_red[3 * (kThreads / 32)];
     for (int k = threadIdx.x; k < kh + kw; k += blockDim.x) s_taps[k] = taps[k];
 
     const int b = blockIdx.x;
     const int n = H * W;
-    const size_t plane = (size_t)B * n;
-    const size_t off = (size_t)b * n;
-    const float* x0 = x0hat + off;
-    float* x = out + off;
-    float* xp = scratch + off;
-    float* xm = scratch + plane + off;
-    float* t1 = scratch + 2 * plane + off;
-    float* t2 = scratch + 3 * plane + off;
-    float* xg = scratch + 4 * plane + off;
-    float* pv = scratch + 5 * plane + off;
-    float* ph = scratch + 6 * plane + off;
-    float* rv = scratch + 7 * plane + off;
-    float* rh = scratch + 8 * plane + off;
-    float* y = t1;  // the FGP's y plane reuses a stencil temporary
+    const size_t plane = static_cast<size_t>(B) * n;
+    const size_t off = static_cast<size_t>(b) * n;
+    auto sp = [&](int k) { return scratch + k * plane + off; };
+
+    // the whole image is the window; the carries are updated in place
+    // (the last sweep reads and writes each carry at its own pixel only)
+    rls::Window w;
+    w.rows = H;
+    w.W = W;
+    w.i0 = 0;
+    w.i1 = H;
+    w.x0 = x0hat + off;
+    float* carry[4] = {out + off, sp(0), sp(1), sp(2)};
+    for (int k = 0; k < 4; ++k) {
+        w.in[k] = carry[k];
+        w.out[k] = carry[k];
+    }
+    w.xm = sp(3);
+    w.t1 = sp(4);
+    w.t2 = sp(5);
+    w.xg = sp(6);
+    w.yn = sp(7);
+    w.pv = sp(8);
+    w.ph = sp(9);
+    w.rv = sp(10);
+    w.rh = sp(11);
 
     const float rho = scal[2 * b];
-    const float lam_tv = __fmul_rn(rho, scal[2 * b + 1]);
-
+    const float lam = scal[2 * b + 1];
+    double acc[3] = {0.0, 0.0, 0.0};
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const float z = x0[i] * 0.f;
-        x[i] = z;
-        xp[i] = z;
+        const float x0 = w.x0[i];
+        const float z = x0 * 0.f;
+        for (int k = 0; k < 4; ++k) carry[k][i] = z;
+        if (sc.warm) {
+            w.pv[i] = z;
+            w.ph[i] = z;
+        }
+        acc[2] += static_cast<double>(x0 * x0);
     }
     __syncthreads();
+    float norm_x0 = 0.f;
+    if (sc.early) {
+        rls::block_sum3(acc, s_red);
+        norm_x0 = __fsqrt_rn(static_cast<float>(acc[2]));
+    }
 
-    for (int it = 0; it < iterations; ++it) {
-        const float a = tab[4 * it];
-        // momentum; x_prev takes x (each pixel is read and written by the
-        // same thread, so no barrier is needed between the two)
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const float xv = x[i];
-            xm[i] = xv + a * (xv - xp[i]);
-            xp[i] = xv;
+    rls::State s = rls::initial_state();
+    for (int it = 0; it < sc.iterations; ++it) {
+        const rls::Coeffs c = rls::coeffs(sc, s, tab, it, rho, lam);
+        acc[0] = acc[1] = acc[2] = 0.0;
+        rls::pgm_iteration<kMethod, kDynamic>(w, sc, c, s_taps, kh, kw, t2tab, acc);
+        if (kDynamic) {
+            rls::block_sum3(acc, s_red);
+            const float sums[3] = {static_cast<float>(acc[0]), static_cast<float>(acc[1]),
+                                   static_cast<float>(acc[2])};
+            s = rls::epilogue(sc, s, c, sums, norm_x0);
         }
-        __syncthreads();
-
-        // Gram: column pass, its adjoint, row pass, its adjoint; the last
-        // pass writes the gradient step xg = x_mom - rho (A^H A x_mom - x0hat)
-        rls::stencil_v_pass(xm, t1, s_taps, kh, false, H, W);
-        __syncthreads();
-        rls::stencil_v_pass(t1, t2, s_taps, kh, true, H, W);
-        __syncthreads();
-        rls::stencil_h_pass(t2, t1, s_taps + kh, kw, false, H, W);
-        __syncthreads();
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const int r = i / W;
-            const float res =
-                rls::stencil_h(t1, r, i - r * W, s_taps + kh, kw, true, W) - x0[i];
-            xg[i] = xm[i] - rho * res;
-        }
-        __syncthreads();
-
-        // fold FGP on xg with clip bounds +-lam_tv (0 on the masked last
-        // row / column); iteration 0 starts from zero duals, so it is one
-        // gradient of y = xg / 8 and a clip
-        if (tv_iterations == 0) {
-            for (int i = threadIdx.x; i < n; i += blockDim.x) x[i] = xg[i];
-            __syncthreads();
-            continue;
-        }
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const int r = i / W;
-            const int c = i - r * W;
-            const float y0 = xg[i] * 0.125f;
-            const float qv =
-                r < H - 1 ? rls::clip(xg[i + W] * 0.125f - y0, -lam_tv, lam_tv) : 0.f;
-            const float qh =
-                c < W - 1 ? rls::clip(xg[i + 1] * 0.125f - y0, -lam_tv, lam_tv) : 0.f;
-            pv[i] = qv;
-            rv[i] = qv;
-            ph[i] = qh;
-            rh[i] = qh;
-        }
-        __syncthreads();
-        for (int k = 1; k < tv_iterations; ++k) {
-            const float c1 = t2tab[2 * k];
-            const float c2 = t2tab[2 * k + 1];
-            for (int i = threadIdx.x; i < n; i += blockDim.x) {
-                const int r = i / W;
-                const int c = i - r * W;
-                y[i] = (xg[i] - rls::grad_t(rv, rh, i, r, c, W)) * 0.125f;
-            }
-            __syncthreads();
-            for (int i = threadIdx.x; i < n; i += blockDim.x) {
-                const int r = i / W;
-                const int c = i - r * W;
-                const float qv = r < H - 1
-                    ? rls::clip(rv[i] + rls::grad_v(y, i, W), -lam_tv, lam_tv)
-                    : 0.f;
-                const float qh = c < W - 1
-                    ? rls::clip(rh[i] + rls::grad_h(y, i), -lam_tv, lam_tv)
-                    : 0.f;
-                rv[i] = c1 * qv - c2 * pv[i];
-                rh[i] = c1 * qh - c2 * ph[i];
-                pv[i] = qv;
-                ph[i] = qh;
-            }
-            __syncthreads();
-        }
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const int r = i / W;
-            const int c = i - r * W;
-            x[i] = xg[i] - rls::grad_t(pv, ph, i, r, c, W);
-        }
-        __syncthreads();
+    }
+    if (threadIdx.x == 0) {
+        counts[2 * b] = static_cast<int>(s.fires);
+        counts[2 * b + 1] = kDynamic ? static_cast<int>(s.live_iters) : sc.iterations;
     }
 }
+
+template <int kMethod, bool kDynamic>
+struct Launcher {
+    static void run(dim3 grid, cudaStream_t stream, const float* x0hat, const float* scal,
+                    const float* tab, const float* t2tab, const float* taps, int kh,
+                    int kw, float* out, float* scratch, int* counts, int B, int H, int W,
+                    rls::Schedule sc) {
+        fista_tv_fused_kernel<kMethod, kDynamic><<<grid, kThreads, 0, stream>>>(
+            x0hat, scal, tab, t2tab, taps, kh, kw, out, scratch, counts, B, H, W, sc);
+    }
+};
 
 }  // namespace
 
@@ -164,17 +139,25 @@ extern "C" {
 
 // x0hat, out: (B, H, W) f32; scal: (B, 2) [rho, lam_eff]; tab:
 // (iterations, 4) momentum table; t2tab: (tv_iterations, 2) [1 + t2, t2];
-// taps: kh + kw floats; scratch: 9 planes of (B, H, W).
+// taps: kh + kw floats; scratch: 12 planes of (B, H, W); counts: (B, 2)
+// int32 [restarts fired, live iterations]; method 0 FISTA, 1 OptISTA,
+// 2 POGM; restart 0 none, 1 gradient, 2 gradient_mapping; early: freeze a
+// problem once ||res|| / ||x0hat|| < rel_tol; warm: carry the TV duals.
 int fista_tv_fused_launch(const void* x0hat, const void* scal, const void* tab,
                           const void* t2tab, const void* taps, int kh, int kw,
-                          void* out, void* scratch, int B, int H, int W,
-                          int iterations, int tv_iterations, void* stream) {
+                          void* out, void* scratch, void* counts, int B, int H,
+                          int W, int iterations, int tv_iterations, int method,
+                          int restart, int early, int warm, float rel_tol,
+                          float sigma_fac, void* stream) {
     if (kh > kMaxTaps || kw > kMaxTaps) return static_cast<int>(cudaErrorInvalidValue);
-    fista_tv_fused_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x0hat), static_cast<const float*>(scal),
-        static_cast<const float*>(tab), static_cast<const float*>(t2tab),
-        static_cast<const float*>(taps), kh, kw, static_cast<float*>(out),
-        static_cast<float*>(scratch), B, H, W, iterations, tv_iterations);
+    const rls::Schedule sc = {method, restart, early, warm,
+                              rel_tol, sigma_fac, iterations, tv_iterations};
+    rls::pick_launcher<Launcher>(method, sc.dynamic())(
+        dim3(B), static_cast<cudaStream_t>(stream), static_cast<const float*>(x0hat),
+        static_cast<const float*>(scal), static_cast<const float*>(tab),
+        static_cast<const float*>(t2tab), static_cast<const float*>(taps), kh, kw,
+        static_cast<float*>(out), static_cast<float*>(scratch), static_cast<int*>(counts),
+        B, H, W, sc);
     return static_cast<int>(cudaGetLastError());
 }
 

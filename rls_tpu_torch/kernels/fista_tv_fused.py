@@ -1,23 +1,34 @@
-"""The whole batched FISTA-TV solve as ONE launch: the hand-written CUDA
+"""The whole batched PGM-TV solve as ONE launch: the hand-written CUDA
 kernel ``csrc/fista_tv_fused.cu`` and its plain PyTorch version.
 
 Counterpart of ``rls_tpu/kernels/fista_tv_fused.py``: ``_momentum_table``
-(:43-103), ``check_pgm_tv_fused`` (:893-976), ``fista_tv_fused`` (:676)
-with ``_pgm_loop``'s FISTA branch (:388-392), ``solve_pgm_tv_fused`` and
-``solve_fista_tv_fused`` (:1069-1212, :888). Each iteration:
+(:43-103), ``fista_tv_fused`` (:676) with its loops ``_pgm_loop``
+(:375-416), ``_fista_loop_dynamic`` (:247-291, scalars :187),
+``_pogm_loop_dynamic`` (:294-372, coefficients :215, restart decision
+:238) and ``_fista_loop_warm`` (:419-457), ``check_pgm_tv_fused``
+(:893-976) and ``solve_pgm_tv_fused`` (:1069-1212).
 
-    x_mom = x + a_i (x − x_prev)
-    res   = AᴴA x_mom − x0hat          (four zero-padded stencil passes)
-    x_new = FGP_fold(x_mom − ρ·res, ρλ)
+Methods and schedules, all in one kernel (one CTA per problem):
 
-with ``a_i`` column 0 of the f64 momentum table and the fold FGP of
-``rls_tpu/kernels/_fgp_common.py:733-773``. The Gram is the TPU kernel's
-exact stencil route (``make_sepconv_stencil_ops``): 4×k taps per pixel in
-f32, where the TPU's bf16 hi/lo Gram exists only for the TPU's MXU.
+* fixed (``restart="none"``, no early exit): FISTA, OptISTA and POGM
+  driven by the f64 momentum table, one row per iteration;
+* dynamic: FISTA with ``restart="gradient"`` / ``"gradient_mapping"``
+  and POGM with ``restart="gradient"`` (σ ← σ·sigma_fac), with their f32
+  θ/σ/γ recurrences in the kernel, and the early-exit freeze mask
+  (``rel_tol``) of FISTA and POGM;
+* warm (FISTA, fixed schedule): the TV duals carried across iterations.
 
-Not yet ported (rejected with a ValueError that says so): OptISTA, POGM,
-``restart != "none"``, ``early_exit``, ``warm_tv`` and ``interleave``.
-The composed drivers still run every one of them.
+Every schedule runs the fold FGP (``_fgp_common.fgp_fold``); the JAX
+dynamic and warm loops default to its fori form, the same f32 math up to
+≤ 1 ulp. The Gram is the exact stencil route (four zero-padded passes,
+``make_sepconv_stencil_ops``). The JAX kernel's ``_kernel_grouped`` and
+``_kernel_interleaved`` compute the same function as ``_kernel`` and have
+no counterpart: ``interleave`` is accepted where the JAX function accepts
+it and runs this kernel.
+
+Both versions also return per-problem counts, (B, 2) int32: the
+iterations in which the restart test fired (while live), and the
+iterations that were live (not frozen by early exit).
 """
 
 from __future__ import annotations
@@ -27,7 +38,10 @@ import torch
 
 from ..models.prox import TVRegularization
 from ..models.regularization import normalization_factor
+from ..models.solvers.base import theta_next
 from ..models.solvers.fista import FISTA
+from ..models.solvers.optista import OptISTA
+from ..models.solvers.pogm import POGM
 from ..ops.base import NormalOperator
 from ..ops.conv_direct import SeparableConvOperator
 from . import _fgp_common
@@ -40,44 +54,201 @@ __all__ = [
     "solve_fista_tv_fused",
 ]
 
-# tap counts the kernel's shared-memory tap buffer holds per axis
+# tap counts the kernels' shared-memory tap buffer holds per axis
 MAX_TAPS = 63
+METHODS = ("fista", "optista", "pogm")
+RESTARTS = ("none", "gradient", "gradient_mapping")
+# solver class → momentum-table method
+_METHOD_OF = ((FISTA, "fista"), (OptISTA, "optista"), (POGM, "pogm"))
 
 
-def _momentum_table(method: str, iterations: int, theta0: float = 1.0):
+def _momentum_table(method: str, iterations: int, theta0: float = 1.0, dtype=np.float32):
     """Per-iteration momentum scalars, computed in f64 on the host and
-    rounded to f32 (``rls_tpu/kernels/fista_tv_fused.py:43-103``):
-    col 0 α (inertia), col 1 β, col 2 γ (1 for FISTA), col 3 extra.
-    Only the FISTA schedule is ported."""
-    if method != "fista":
-        raise ValueError(f"momentum table for {method!r} is not yet ported")
+    rounded to `dtype` (``rls_tpu/kernels/fista_tv_fused.py:43-103``):
+    col 0 α (inertia), col 1 β, col 2 γ (prox/gradient scale on ρ, 1 for
+    FISTA), col 3 extra (OptISTA 1/γ; POGM α/γ_old, the z coupling)."""
     tab = np.zeros((iterations, 4), np.float64)
-    th_old = th = float(theta0)
-    for i in range(iterations):
-        tab[i, 0] = (th_old - 1.0) / th
-        tab[i, 2] = 1.0
-        th_old, th = th, (1.0 + np.sqrt(1.0 + 4.0 * th * th)) / 2.0
-    return tab.astype(np.float32)
+    if method == "fista":
+        th_old = th = float(theta0)
+        for i in range(iterations):
+            tab[i, 0] = (th_old - 1.0) / th
+            tab[i, 2] = 1.0
+            th_old, th = th, (1.0 + np.sqrt(1.0 + 4.0 * th * th)) / 2.0
+    elif method == "optista":
+        # θ_N: N−1 standard steps, then the 8θ² variant (OptISTA.jl:145-149)
+        tn = float(theta0)
+        for _ in range(iterations - 1):
+            tn = (1.0 + np.sqrt(1.0 + 4.0 * tn * tn)) / 2.0
+        tn = (1.0 + np.sqrt(1.0 + 8.0 * tn * tn)) / 2.0
+        th = float(theta0)
+        for i in range(iterations):
+            gamma = 2.0 * th / tn**2 * (tn**2 - 2.0 * th**2 + th)
+            th_old = th
+            c = 8.0 if i == iterations - 1 else 4.0
+            th = (1.0 + np.sqrt(1.0 + c * th_old**2)) / 2.0
+            tab[i] = ((th_old - 1.0) / th, th_old / th, gamma, 1.0 / gamma)
+    elif method == "pogm":
+        th = float(theta0)
+        gamma_over_rho_old = None  # γ₋₁ = 1 is ρ-dependent, but α₀ = 0
+        for i in range(iterations):
+            th_old = th
+            th = (1.0 + np.sqrt(1.0 + 4.0 * th_old**2)) / 2.0
+            alpha = (th_old - 1.0) / th
+            gamma_over_rho = (2.0 * th_old + th - 1.0) / th
+            tab[i] = (
+                alpha,
+                th_old / th,  # β with σ = 1 (no restart)
+                gamma_over_rho,
+                0.0 if gamma_over_rho_old is None else alpha / gamma_over_rho_old,
+            )
+            gamma_over_rho_old = gamma_over_rho
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return tab.astype(dtype)
 
 
-def fista_tv_fused_torch(x0hat, scal, tab, t2tab, taps):
-    """Plain version: `x0hat` (B, H, W), `scal` (B, 2) = [ρ, λ_eff],
-    `tab` the momentum table (one row per FISTA iteration), `t2tab` the
-    fold-FGP constants (one row per dual iteration)."""
+def fista_tv_fused_torch(
+    x0hat, scal, tab, t2tab, taps, method="fista", restart="none",
+    rel_tol=None, sigma_fac=1.0, warm_tv=False,
+):
+    """Plain version: `x0hat` (B, H, W), `scal` (B, 2) = [ρ, λ_eff], `tab`
+    the momentum table (one row per iteration, read by the fixed
+    schedules), `t2tab` the fold-FGP constants (one row per dual
+    iteration). Returns ``(x, counts)``; the dtype is x0hat's."""
     taps_h, taps_w = taps
-    rho = scal[:, 0].view(-1, 1, 1)
-    lam = scal[:, 1].view(-1, 1, 1)
-    lam_tv = rho * lam
-    x = x0hat * 0.0
-    x_prev = x
-    for i in range(tab.shape[0]):
-        x_mom = x + tab[i, 0] * (x - x_prev)
-        res = _fgp_common.sepconv_stencil_normal(x_mom, taps_h, taps_w) - x0hat
-        x_prev, x = x, _fgp_common.fgp_fold(x_mom - rho * res, lam_tv, t2tab)
-    return x
+    B = x0hat.shape[0]
+    iterations = tab.shape[0]
+    early = rel_tol is not None
+    dynamic = restart != "none" or early
+    rho, lam = scal[:, 0], scal[:, 1]
+
+    def col(v):
+        return v.view(-1, 1, 1)
+
+    def normal(u):
+        return _fgp_common.sepconv_stencil_normal(u, taps_h, taps_w)
+
+    duals = None
+    if warm_tv:
+        duals = (x0hat * 0.0, x0hat * 0.0)
+
+    def prox(xg, lam_tv):
+        nonlocal duals
+        if warm_tv:
+            out, duals = _fgp_common.fgp_fold_warm(xg, col(lam_tv), t2tab, duals)
+            return out
+        return _fgp_common.fgp_fold(xg, col(lam_tv), t2tab)
+
+    def vsum(u):
+        return u.sum(dim=(1, 2))
+
+    x = m1 = m2 = w = x0hat * 0.0  # (x, x_prev) or (x, y, z) and POGM's w
+    one = torch.ones_like(rho)
+    th_in = th_old = sig = gam_old = one
+    done = torch.zeros_like(rho)
+    fires = torch.zeros(B, dtype=torch.int32, device=x0hat.device)
+    live_iters = torch.zeros_like(fires)
+    if early:
+        norm_x0 = torch.sqrt(vsum(x0hat * x0hat))
+    for i in range(iterations):
+        live = 1.0 - done
+        live_iters += (live > 0).to(torch.int32)
+        if method == "fista":
+            a = (th_old - 1.0) / th_in if dynamic else tab[i, 0]
+            x_mom = x + col(a) * (x - m1)
+            res = normal(x_mom) - x0hat
+            x_new = prox(x_mom - col(rho) * res, rho * lam)
+            if not dynamic:
+                x, m1 = x_new, x
+                continue
+            th = th_in
+            if restart != "none":
+                if restart == "gradient_mapping":
+                    dot = vsum((x_mom - x_new) * (x_new - x))
+                else:
+                    dot = vsum(res * (x_new - x))
+                fire = dot > 0.0
+                fires += (fire & (live > 0)).to(torch.int32)
+                th = torch.where(fire, one, th)
+            th_old_new, th_new = th, theta_next(th)
+            if early:
+                rel = torch.sqrt(vsum(res * res)) / norm_x0
+                done = torch.maximum(done, (rel < rel_tol).to(done.dtype))
+                th_old_new = th_old + live * (th_old_new - th_old)
+                th_new = th_in + live * (th_new - th_in)
+                x, m1 = x + col(live) * (x_new - x), m1 + col(live) * (x - m1)
+            else:
+                x, m1 = x_new, x
+            th_in, th_old = th_new, th_old_new
+            continue
+
+        res = normal(x) - x0hat
+        if method == "optista":
+            a, bcoef, g, e = tab[i]
+            c = rho * g
+            y_new = prox(m1 - col(c) * res, c * lam)
+            z_new = x + (y_new - m1) * e
+            x, m1, m2 = (1.0 + a + bcoef) * z_new - a * m2 - bcoef * x, y_new, z_new
+            continue
+
+        # POGM; m1, m2 = y, z
+        y_new = x - col(rho) * res
+        if dynamic:
+            th = theta_next(th_in, 8.0 if restart != "none" and i == iterations - 1 else 4.0)
+            a = (th_in - 1.0) / th
+            bcoef = sig * th_in / th
+            if restart != "none":
+                gam = rho * (1.0 + a + bcoef)
+            else:
+                gam = rho * (2.0 * th_in + th - 1.0) / th
+            e = rho * a / gam_old
+            lam_tv = gam * lam
+        else:
+            a, bcoef, g, e = tab[i]
+            lam_tv = rho * g * lam
+        x_mid = (
+            col(1.0 + a + bcoef) * y_new - col(a) * m1 - col(bcoef + e) * x + col(e) * m2
+        )
+        x_new = prox(x_mid, lam_tv)
+        if not dynamic:
+            x, m1, m2 = x_new, y_new, x_mid
+            continue
+        w_new, sig_new = w, sig
+        if restart != "none":
+            r = rho / gam
+            w_mid = w + y_new + col(r) * (x_new - x_mid)
+            c1 = vsum(w_mid * (x_new - x_mid))
+            c2 = vsum(w_mid * res)
+            fire = (c1 / gam - c2) < 0.0
+            fires += (fire & (live > 0)).to(torch.int32)
+            sig_new = torch.where(fire, one, sig * sigma_fac)
+            th = torch.where(fire, one, th)
+            w_new = col(r) * (x_mid - x_new) - y_new
+        if early:
+            rel = torch.sqrt(vsum(res * res)) / norm_x0
+            done = torch.maximum(done, (rel < rel_tol).to(done.dtype))
+            lv = col(live)
+            x_new = x + lv * (x_new - x)
+            y_new = m1 + lv * (y_new - m1)
+            x_mid = m2 + lv * (x_mid - m2)
+            w_new = w + lv * (w_new - w)
+            th = th_in + live * (th - th_in)
+            sig_new = sig + live * (sig_new - sig)
+            gam = gam_old + live * (gam - gam_old)
+        x, m1, m2, w = x_new, y_new, x_mid, w_new
+        th_in, sig, gam_old = th, sig_new, gam
+    return x, torch.stack([fires, live_iters], dim=1)
 
 
-def _launch(x0hat, scal, tab, t2tab, taps):
+def _codes(method, restart, rel_tol, warm_tv):
+    """The kernels' integer schedule codes."""
+    return (
+        METHODS.index(method), RESTARTS.index(restart), int(rel_tol is not None),
+        int(warm_tv),
+    )
+
+
+def _launch(x0hat, scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac, warm_tv):
     from .. import _build
 
     B, H, W = x0hat.shape
@@ -86,125 +257,230 @@ def _launch(x0hat, scal, tab, t2tab, taps):
     dev = x0hat.device
     taps_t = torch.tensor(list(taps_h) + list(taps_w), dtype=torch.float32, device=dev)
     out = torch.empty_like(x0hat)
-    # x_prev, x_mom, two stencil temporaries, xg, pv, ph, rv, rh
-    scratch = torch.empty((9, B, H, W), dtype=torch.float32, device=dev)
+    counts = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    # carries (x_prev | y, z, w) and the window planes of the iteration:
+    # x_mom, two stencil temporaries, xg, y_new, pv, ph, rv, rh
+    scratch = torch.empty((12, B, H, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = lib.fista_tv_fused_launch(
             x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), t2tab.data_ptr(),
             taps_t.data_ptr(), len(taps_h), len(taps_w),
-            out.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
             B, H, W, tab.shape[0], t2tab.shape[0],
+            *_codes(method, restart, rel_tol, warm_tv),
+            float(rel_tol or 0.0), float(sigma_fac),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(code, "fista_tv_fused_launch")
     fista_tv_fused.launches += 1
-    return out
+    return out, counts
 
 
-def fista_tv_fused(x0hat_b, taps, rho, lam, iterations: int, tv_iterations: int):
-    """Batched fixed-schedule FISTA-TV on a separable conv.
-
-    x0hat_b: (B, H, W) float32, Aᴴb per problem; taps: (taps_h, taps_w);
-    rho, lam: scalars or (B,) (λ already normalization-scaled). The plain
-    version runs for a CPU tensor, the CUDA kernel for a CUDA tensor.
-    ``fista_tv_fused.launches`` counts the kernel's launches.
-    """
-    B, H, W = x0hat_b.shape
-    dev = x0hat_b.device
-
-    def per_problem(v):
-        return torch.broadcast_to(
-            torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1), (B,)
+def check_schedule(method, restart, rel_tol, warm_tv):
+    """The method/schedule combinations the PGM-TV kernels take, with the
+    JAX function's rejections (``fista_tv_fused.py:760-777``)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if restart not in RESTARTS:
+        raise ValueError(f"unknown restart mode {restart!r}")
+    dynamic = restart != "none" or rel_tol is not None
+    if dynamic and method not in ("fista", "pogm"):
+        raise ValueError("restart/early-exit are FISTA/POGM-only in the fused path")
+    if restart == "gradient_mapping" and method != "fista":
+        raise ValueError("gradient_mapping restart is a FISTA mode; use the composed path")
+    if warm_tv and method != "fista":
+        raise ValueError(
+            "warm_tv carries λ-scaled duals across iterations, which needs "
+            "a constant prox scale — FISTA only (OptISTA/POGM scale by γ_i)"
+        )
+    if warm_tv and dynamic:
+        raise ValueError(
+            "warm_tv is not implemented for the dynamic (restart/early-exit) schedules"
         )
 
+
+def kernel_args(x0hat_b, rho, lam, method, iterations, tv_iterations, dtype=np.float32):
+    """(scal, tab, t2tab) for the kernels and their plain versions: ρ and λ
+    per problem, the momentum table and the fold-FGP constants, in
+    `dtype` on x0hat's device."""
+    B = x0hat_b.shape[0]
+    dev = x0hat_b.device
+    tdt = torch.from_numpy(np.zeros((), dtype)).dtype
+
+    def per_problem(v):
+        return torch.broadcast_to(torch.as_tensor(v, dtype=tdt, device=dev).reshape(-1), (B,))
+
     scal = torch.stack([per_problem(rho), per_problem(lam)], dim=1)
-    tab = torch.as_tensor(_momentum_table("fista", iterations), device=dev)
-    t2tab = torch.as_tensor(_fgp_common.fgp_t2_table(tv_iterations), device=dev)
-    if dev.type == "cpu":
-        return fista_tv_fused_torch(x0hat_b, scal, tab, t2tab, taps)
-    if dev.type != "cuda":
-        raise ValueError(f"fista_tv_fused: unsupported device {dev}")
+    tab = torch.as_tensor(_momentum_table(method, iterations, dtype=dtype), device=dev)
+    t2tab = torch.as_tensor(_fgp_common.fgp_t2_table(tv_iterations, dtype), device=dev)
+    return scal, tab, t2tab
+
+
+def check_cuda_input(name, x0hat_b, taps):
+    """What a CUDA kernel of this family takes; raises otherwise."""
+    if x0hat_b.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x0hat_b.device}")
     if x0hat_b.dtype != torch.float32:
-        raise ValueError(f"fista_tv_fused: the CUDA kernel takes float32, got {x0hat_b.dtype}")
+        raise ValueError(f"{name}: the CUDA kernel takes float32, got {x0hat_b.dtype}")
     if max(len(t) for t in taps) > MAX_TAPS:
-        raise ValueError(f"fista_tv_fused: at most {MAX_TAPS} taps per axis")
-    return _launch(x0hat_b.contiguous(), scal, tab, t2tab, taps)
+        raise ValueError(f"{name}: at most {MAX_TAPS} taps per axis")
+
+
+def fista_tv_fused(
+    x0hat_b, taps, rho, lam, iterations: int, tv_iterations: int, method="fista",
+    restart="none", rel_tol=None, sigma_fac=1.0, warm_tv=False, with_counts=False,
+):
+    """Batched PGM-TV on a separable conv, one CTA per problem.
+
+    x0hat_b: (B, H, W) float32, Aᴴb per problem; taps: (taps_h, taps_w);
+    rho, lam: scalars or (B,) (λ already normalization-scaled); method
+    "fista" | "optista" | "pogm"; restart "none" | "gradient" |
+    "gradient_mapping"; rel_tol: the early-exit tolerance (None: off);
+    warm_tv: carry the TV duals (FISTA, fixed schedule). The plain version
+    runs for a CPU tensor, the CUDA kernel for a CUDA tensor.
+    ``fista_tv_fused.launches`` counts the kernel's launches. Returns x,
+    or ``(x, counts)`` with `with_counts`.
+    """
+    check_schedule(method, restart, rel_tol, warm_tv)
+    scal, tab, t2tab = kernel_args(x0hat_b, rho, lam, method, iterations, tv_iterations)
+    sched = (method, restart, rel_tol, sigma_fac, warm_tv)
+    if x0hat_b.device.type == "cpu":
+        out = fista_tv_fused_torch(x0hat_b, scal, tab, t2tab, taps, *sched)
+    else:
+        check_cuda_input("fista_tv_fused", x0hat_b, taps)
+        out = _launch(x0hat_b.contiguous(), scal, tab, t2tab, taps, *sched)
+    return out if with_counts else out[0]
 
 
 fista_tv_fused.launches = 0
 
 
-def check_pgm_tv_fused(solver):
-    """Validate `solver` for the fused PGM-TV path.
+def check_pgm_tv(solver, path="fused"):
+    """Validate `solver` for a PGM-TV kernel; returns its method.
 
-    Raises ValueError naming the first unsupported piece. The TPU-only
-    requirements of ``rls_tpu`` (compensated factors, concrete-tracer
-    tests, the VMEM gate) have no counterpart; a float32 operator takes
-    the place of the compensated-factor requirement.
+    Raises ValueError naming the first unsupported piece. Shared by the
+    fused and the tiled path (``check_pgm_tv_fused``, :893-976, and
+    ``check_fista_tv_tiled``, ``fista_tv_tiled.py:917-1014``). The
+    TPU-only requirements of ``rls_tpu`` (compensated factors,
+    concrete-tracer tests, VMEM gates and tile sizes) have no counterpart;
+    a float32 operator takes the place of the compensated-factor
+    requirement.
     """
-    if not isinstance(solver, FISTA):
-        raise ValueError(
-            "fused path requires FISTA (fused OptISTA and POGM are not yet ported)"
-        )
+    method = next((m for cls, m in _METHOD_OF if isinstance(solver, cls)), None)
+    if method is None:
+        raise ValueError(f"{path} path requires FISTA, OptISTA, or POGM")
     # the kernel applies the GRAM of A, so AHA must actually be A's
     # NormalOperator — a bare operator passed as AHA means "this IS AᴴA
     # already", which the kernel cannot honor (it would square it)
     if not isinstance(solver.AHA, NormalOperator):
         raise ValueError(
-            "fused path requires AHA to be the NormalOperator of a "
+            f"{path} path requires AHA to be the NormalOperator of a "
             "SeparableConvOperator (construct the solver from A, not AHA)"
         )
     if solver.AHA.weights is not None:
-        raise ValueError("fused path does not support weighted normal ops")
+        raise ValueError(f"{path} path does not support weighted normal ops")
     op = solver.AHA.A
     if not isinstance(op, SeparableConvOperator):
-        raise ValueError("fused path requires SeparableConvOperator")
+        raise ValueError(f"{path} path requires SeparableConvOperator")
     if solver.A is None:
-        raise ValueError("fused path requires solver.A (for x0hat = Aᴴb)")
+        raise ValueError(f"{path} path requires solver.A (for x0hat = Aᴴb)")
     if op.dtype != torch.float32:
-        raise ValueError(f"fused path requires a float32 operator, got {op.dtype}")
+        raise ValueError(f"{path} path requires a float32 operator, got {op.dtype}")
     if op.taps is None:
-        raise ValueError("fused path requires an operator built with tap metadata")
+        raise ValueError(f"{path} path requires an operator built with tap metadata")
     reg = solver.reg
     if not isinstance(reg, TVRegularization):
-        raise ValueError("fused path requires TVRegularization")
+        raise ValueError(f"{path} path requires TVRegularization")
     H, W = op.im_shape
     if reg.shape != (H, W) or tuple(sorted(reg.dims)) != (0, 1):
-        raise ValueError("fused path requires 2-D TV over both axes")
+        raise ValueError(f"{path} path requires 2-D TV over both axes")
     if solver.proj:
-        raise ValueError("fused path does not support projection terms")
-    if solver.restart != "none":
+        raise ValueError(f"{path} path does not support projection terms")
+    restart = getattr(solver, "restart", "none")
+    if restart not in RESTARTS:
+        raise ValueError(f"{path} path does not support restart={restart!r}")
+    if restart == "gradient" and method not in ("fista", "pogm"):
         raise ValueError(
-            f"fused restart={solver.restart!r} is not yet ported; use the "
-            "composed path"
+            f"{path} gradient restart is implemented for FISTA "
+            "(reference FISTA.jl:171-176) and POGM (POGM.jl:222-232) "
+            "only; use the composed path"
         )
+    if restart == "gradient_mapping" and method != "fista":
+        raise ValueError("gradient_mapping restart is a FISTA mode; use the composed path")
     if float(solver.theta) != 1.0:
-        raise ValueError("fused path requires the default theta=1 schedule")
+        raise ValueError(f"{path} path requires the default theta=1 schedule")
+    return method
 
 
-def solve_pgm_tv_fused(solver, B_mat, early_exit=False, warm_tv=False, interleave=1):
-    """Drop-in fast path for `solve_batched_unrolled(solver, B)` when the
-    solver is FISTA + SeparableConvOperator + 2-D TV (the flagship).
-    Returns the n×K solution matrix like the composed driver."""
-    check_pgm_tv_fused(solver)
-    for flag, name in ((early_exit, "early_exit"), (warm_tv, "warm_tv"),
-                       (interleave != 1, "interleave")):
-        if flag:
-            raise ValueError(f"fused {name} is not yet ported")
+def check_pgm_tv_fused(solver):
+    """`check_pgm_tv` for the fused kernel; returns the method."""
+    return check_pgm_tv(solver, "fused")
+
+
+def solver_schedule(solver, method, early_exit=False, warm_tv=False, path="fused"):
+    """(restart, rel_tol, sigma_fac) of a checked solver, with the rules of
+    ``solve_pgm_tv_fused`` (:1100-1111): ``early_exit`` (FISTA and POGM)
+    freezes a problem once ‖res‖/‖x0hat‖ < solver.rel_tol; ``warm_tv``
+    needs FISTA with restart="none"."""
+    restart = getattr(solver, "restart", "none")
+    if warm_tv and (method != "fista" or restart != "none"):
+        raise ValueError("warm_tv requires FISTA with restart='none'")
+    rel_tol = None
+    if early_exit:
+        if method not in ("fista", "pogm"):
+            raise ValueError(f"early_exit is FISTA/POGM-only in the {path} path")
+        if solver.rel_tol is None:
+            raise ValueError("early_exit needs a concrete solver.rel_tol")
+        rel_tol = float(solver.rel_tol)
+    return restart, rel_tol, float(getattr(solver, "sigma_fac", 1.0))
+
+
+def prepare(solver, B_mat):
+    """(x0hat_b (K, H, W), λ_eff (K,)) of the problems in B_mat's columns;
+    the seed is the exact-f32 stencil adjoint (``rmv_stencil``) when
+    solver.A is the operator, as the JAX fused wrapper seeds it."""
     op = solver.AHA.A
     op.check_device(B_mat)
     H, W = op.im_shape
     bt = B_mat.T  # (K, n)
     if solver.A is op:
-        # exact-f32 Aᴴb seed (rmv_stencil), as the JAX kernel seeds it
         x0hat_b = op.rmv_stencil(bt).reshape(-1, H, W)
     else:
         x0hat_b = solver.A.rmv(bt).reshape(-1, H, W)
     scale = normalization_factor(solver.normalize_reg, solver.A, bt)
-    lam_eff = solver.reg.get_lam() * scale
+    return x0hat_b, solver.reg.get_lam() * scale
+
+
+def solve_pgm_tv_fused(solver, B_mat, early_exit=False, warm_tv=False, interleave=1):
+    """Drop-in fast path for `solve_batched_unrolled(solver, B)` when the
+    solver is FISTA / OptISTA / POGM + SeparableConvOperator + 2-D TV.
+    Returns the n×K solution matrix like the composed driver.
+    ``solver.restart`` other than "none" rides the in-kernel dynamic
+    schedule; see `solver_schedule` for ``early_exit`` and ``warm_tv``.
+    ``interleave`` > 1 is accepted where the JAX function accepts it (the
+    fixed schedule, H and W multiples of 64, a batch it divides) and runs
+    the same kernel: the JAX interleaved kernel is a rescheduling with the
+    same result."""
+    method = check_pgm_tv_fused(solver)
+    restart, rel_tol, sigma_fac = solver_schedule(solver, method, early_exit, warm_tv)
+    H, W = solver.AHA.A.im_shape
+    if interleave > 1:
+        if restart != "none" or rel_tol is not None or warm_tv:
+            raise ValueError(
+                "interleave > 1 is the fixed-schedule fold path: no "
+                "restart/early-exit/warm_tv"
+            )
+        if H % 64 or W % 64:
+            raise ValueError("interleave > 1 needs H, W % 64 == 0, as the JAX function does")
+        if B_mat.shape[1] % interleave:
+            raise ValueError(
+                f"batch {B_mat.shape[1]} not divisible by interleave {interleave}"
+            )
+    x0hat_b, lam_eff = prepare(solver, B_mat)
     out = fista_tv_fused(
-        x0hat_b, op.taps_hw(), solver.rho, lam_eff,
-        solver.iterations, solver.reg.iterations_tv,
+        x0hat_b, solver.AHA.A.taps_hw(), solver.rho, lam_eff, solver.iterations,
+        solver.reg.iterations_tv, method=method, restart=restart, rel_tol=rel_tol,
+        sigma_fac=sigma_fac, warm_tv=warm_tv,
     )
     return out.reshape(out.shape[0], H * W).T
 

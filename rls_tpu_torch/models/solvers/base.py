@@ -24,7 +24,13 @@ import dataclasses
 import torch
 
 from ...ops.base import NormalOperator, as_operator
-from ..regularization import ProjectionRegularization, find_sinks
+from ...utils.power_iterations import power_iterations
+from ..prox import L1Regularization
+from ..regularization import (
+    ProjectionRegularization,
+    find_sinks,
+    normalization_factor,
+)
 
 __all__ = [
     "LinearSolver",
@@ -34,6 +40,9 @@ __all__ = [
     "solve_batched_unrolled",
     "split_projection_terms",
     "prepare_operators",
+    "create_args",
+    "init_scalars",
+    "theta_next",
     "state_where",
 ]
 
@@ -94,6 +103,50 @@ def prepare_operators(A, AHA):
     else:
         AHA_op = as_operator(AHA)
     return A_op, AHA_op
+
+
+def theta_next(theta, c: float = 4.0):
+    """``(1 + √(1 + c·θ²)) / 2`` in θ's dtype, in the reference's op order
+    (c = 4 is the FISTA/OptISTA/POGM recurrence, c = 8 their last-step
+    variant)."""
+    return (1.0 + torch.sqrt(1.0 + c * theta * theta)) / 2.0
+
+
+def init_scalars(solver, b, x0):
+    """The state pieces FISTA, OptISTA and POGM share: (x0hat, x, the
+    per-problem ``full`` broadcaster, norm_x0, rel_tol, λ scale)."""
+    x0hat = solver.A.rmv(b) if solver.A is not None else b
+    lead = x0hat.shape[:-1]
+    if x0 is not None:
+        x = torch.broadcast_to(x0.to(x0hat.dtype), x0hat.shape).clone()
+    else:
+        x = torch.zeros_like(x0hat)
+    norm_x0 = torch.linalg.vector_norm(x0hat, dim=-1)
+    rdt = norm_x0.dtype
+
+    def full(v):
+        return torch.as_tensor(v, dtype=rdt, device=x0hat.device).expand(lead)
+
+    rel_tol = full(solver.rel_tol if solver.rel_tol is not None else torch.finfo(rdt).eps)
+    scale = normalization_factor(solver.normalize_reg, solver.A, b).to(rdt).expand(lead)
+    return x0hat, x, full, norm_x0, rel_tol, scale
+
+
+def create_args(name, A, AHA, reg, rho):
+    """Operators, the one parameterized term, the projections and the
+    default step 0.95 / λmax(AᴴA) (the reference ctors)."""
+    A_op, AHA_op = prepare_operators(A, AHA)
+    if reg is None:
+        reg = L1Regularization(0.0)
+    params, proj = split_projection_terms(reg)
+    if len(params) != 1:
+        raise ValueError(
+            f"{name} does not allow more additional regularization terms, "
+            f"found {len(params)}"
+        )
+    if rho is None:
+        rho = 0.95 / power_iterations(AHA_op)
+    return dict(A=A_op, AHA=AHA_op, reg=params[0], proj=proj, rho=rho)
 
 
 def state_where(mask, new, old):

@@ -16,10 +16,8 @@ from typing import Any, Optional, Tuple
 import torch
 
 from ...ops.base import LinearOperator
-from ...utils.power_iterations import power_iterations
-from ..prox import L1Regularization
-from ..regularization import NoNormalization, normalization_factor
-from .base import LinearSolver, prepare_operators, split_projection_terms
+from ..regularization import NoNormalization
+from .base import LinearSolver, create_args, init_scalars, theta_next
 
 __all__ = ["FISTA", "FISTAState"]
 
@@ -80,23 +78,8 @@ class FISTA(LinearSolver):
         rho = 0.95 / power_iterations(AHA)."""
         if restart not in ("none", "gradient", "gradient_mapping"):
             raise ValueError(f"unknown restart mode {restart!r}")
-        A_op, AHA_op = prepare_operators(A, AHA)
-        if reg is None:
-            reg = L1Regularization(0.0)
-        params, proj = split_projection_terms(reg)
-        if len(params) != 1:
-            raise ValueError(
-                f"FISTA does not allow more additional regularization terms, "
-                f"found {len(params)}"
-            )
-        if rho is None:
-            rho = 0.95 / power_iterations(AHA_op)
         return cls(
-            A=A_op,
-            AHA=AHA_op,
-            reg=params[0],
-            proj=proj,
-            rho=rho,
+            **create_args("FISTA", A, AHA, reg, rho),
             theta=theta,
             rel_tol=rel_tol,
             normalize_reg=normalize_reg,
@@ -107,20 +90,7 @@ class FISTA(LinearSolver):
 
     # -- protocol --------------------------------------------------------
     def init(self, b, x0=None) -> FISTAState:
-        x0hat = self.A.rmv(b) if self.A is not None else b
-        lead = x0hat.shape[:-1]
-        if x0 is not None:
-            x = torch.broadcast_to(x0.to(x0hat.dtype), x0hat.shape).clone()
-        else:
-            x = torch.zeros_like(x0hat)
-        norm_x0 = torch.linalg.vector_norm(x0hat, dim=-1)
-        rdt = norm_x0.dtype
-
-        def full(v):
-            return torch.as_tensor(v, dtype=rdt, device=x0hat.device).expand(lead)
-
-        rel_tol = self.rel_tol if self.rel_tol is not None else torch.finfo(rdt).eps
-        scale = normalization_factor(self.normalize_reg, self.A, b).to(rdt)
+        x0hat, x, full, norm_x0, rel_tol, scale = init_scalars(self, b, x0)
         return FISTAState(
             x=x,
             x0hat=x0hat,
@@ -130,9 +100,9 @@ class FISTA(LinearSolver):
             theta_old=full(self.theta),
             norm_x0=norm_x0,
             rel_res_norm=full(float("inf")),
-            lam_scale=scale.expand(lead),
-            rel_tol=full(rel_tol),
-            iteration=torch.zeros(lead, dtype=torch.int32, device=x0hat.device),
+            lam_scale=scale,
+            rel_tol=rel_tol,
+            iteration=torch.zeros(x0hat.shape[:-1], dtype=torch.int32, device=x0hat.device),
         )
 
     def step(self, state: FISTAState) -> FISTAState:
@@ -167,7 +137,7 @@ class FISTA(LinearSolver):
             theta = torch.where(obtuse, torch.ones_like(theta), theta)
 
         theta_old = theta
-        theta_new = (1.0 + torch.sqrt(1.0 + 4.0 * theta_old**2)) / 2.0
+        theta_new = theta_next(theta_old)
         return dataclasses.replace(
             state,
             x=x,

@@ -4,21 +4,38 @@ file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-(``--noconftest``: the suite's conftest configures JAX.) Odd sizes and
-asymmetric taps cover what the flagship's symmetric 256² run cannot."""
+(``--noconftest``: the suite's conftest configures JAX.) Odd sizes,
+ragged row tiles and asymmetric taps cover what the flagship's symmetric
+256² run cannot. Tolerance: 1e-5 of max|x| (about 1 ulp of FMA
+contraction per op over a few iterations); the per-problem restart and
+freeze counts must agree exactly."""
 
 import numpy as np
 import pytest
 import torch
 
 import rls_tpu_torch as rtt
-from rls_tpu_torch.kernels import _fgp_common
 from rls_tpu_torch.kernels import fista_tv_fused as fused
+from rls_tpu_torch.kernels import fista_tv_tiled as tiled
 from rls_tpu_torch.kernels import tv_fgp
 
 pytestmark = pytest.mark.cuda
 
 TAPS = ((0.1, 0.5, 0.25, -0.2, 0.05), (0.3, 0.6, 0.1))
+# a well-conditioned blur (‖AᴴA‖ ≤ 1), on which the restarts fire
+MILD = ((0.1 / 1.2, 1.0 / 1.2, 0.1 / 1.2),) * 2
+# (method, restart, rel_tol, sigma_fac, warm_tv)
+SCHEDULES = {
+    "fista": ("fista", "none", None, 1.0, False),
+    "optista": ("optista", "none", None, 1.0, False),
+    "pogm": ("pogm", "none", None, 1.0, False),
+    "fista-gradient": ("fista", "gradient", None, 1.0, False),
+    "fista-gradient_mapping": ("fista", "gradient_mapping", None, 1.0, False),
+    "pogm-gradient": ("pogm", "gradient", None, 0.8, False),
+    "fista-early": ("fista", "none", 0.05, 1.0, False),
+    "pogm-early-gradient": ("pogm", "gradient", 0.05, 0.8, False),
+    "fista-warm": ("fista", "none", None, 1.0, True),
+}
 
 
 @pytest.fixture
@@ -46,20 +63,70 @@ def test_tv_fgp_kernel_matches_plain(dev, shape, iterations):
     _close(got, tv_fgp.prox_tv2d_fgp_torch(x, lam, iterations), 1e-5)
 
 
-@pytest.mark.parametrize("shape", [(24, 20), (9, 33)])
-@pytest.mark.parametrize("tv_iterations", [0, 1, 4])
-def test_fused_kernel_matches_plain(dev, shape, tv_iterations):
-    rng = np.random.default_rng(4)
+def _inputs(dev, shape, seed=4):
+    rng = np.random.default_rng(seed)
     x0 = torch.from_numpy(rng.normal(size=(3, *shape)).astype(np.float32)).to(dev)
     rho = torch.tensor([0.9, 0.5, 0.7], device=dev)
     lam = torch.tensor([1e-2, 0.0, 0.1], device=dev)
+    return x0, rho, lam
+
+
+def _plain(x0, taps, rho, lam, iterations, tv_iterations, schedule):
+    method, restart, rel_tol, sigma_fac, warm = schedule
+    scal, tab, t2 = fused.kernel_args(x0, rho, lam, method, iterations, tv_iterations)
+    return fused.fista_tv_fused_torch(x0, scal, tab, t2, taps, method, restart, rel_tol,
+                                      sigma_fac, warm)
+
+
+@pytest.mark.parametrize("shape", [(24, 20), (9, 33)])
+@pytest.mark.parametrize("tv_iterations", [0, 1, 4])
+def test_fused_kernel_matches_plain(dev, shape, tv_iterations):
+    x0, rho, lam = _inputs(dev, shape)
     before = fused.fista_tv_fused.launches
     got = fused.fista_tv_fused(x0, TAPS, rho, lam, 8, tv_iterations)
     assert fused.fista_tv_fused.launches == before + 1
-    scal = torch.stack([rho, lam], dim=1)
-    tab = torch.as_tensor(fused._momentum_table("fista", 8), device=dev)
-    t2 = torch.as_tensor(_fgp_common.fgp_t2_table(tv_iterations), device=dev)
-    _close(got, fused.fista_tv_fused_torch(x0, scal, tab, t2, TAPS), 1e-5)
+    want, _ = _plain(x0, TAPS, rho, lam, 8, tv_iterations, SCHEDULES["fista"])
+    _close(got, want, 1e-5)
+
+
+def _kw(schedule):
+    method, restart, rel_tol, sigma_fac, warm = schedule
+    return dict(method=method, restart=restart, rel_tol=rel_tol, sigma_fac=sigma_fac)
+
+
+@pytest.mark.parametrize("name", sorted(SCHEDULES))
+@pytest.mark.parametrize("shape,taps", [((24, 20), MILD), ((9, 33), TAPS)])
+def test_fused_schedules_match_plain(dev, name, shape, taps):
+    schedule = SCHEDULES[name]
+    x0, rho, lam = _inputs(dev, shape)
+    got, counts = fused.fista_tv_fused(
+        x0, taps, rho, lam, 12, 4, warm_tv=schedule[4], with_counts=True, **_kw(schedule)
+    )
+    want, want_counts = _plain(x0, taps, rho, lam, 12, 4, schedule)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("name", sorted(n for n in SCHEDULES if not SCHEDULES[n][4]))
+@pytest.mark.parametrize("shape,tile_rows,taps", [((40, 20), 8, MILD), ((33, 17), 5, TAPS)])
+@pytest.mark.parametrize("tv_iterations", [0, 4])
+def test_tiled_kernel_matches_plain(dev, name, shape, tile_rows, taps, tv_iterations):
+    schedule = SCHEDULES[name]
+    x0, rho, lam = _inputs(dev, shape)
+    before = tiled.fista_tv_tiled.launches
+    got, counts = tiled.fista_tv_tiled(
+        x0, taps, rho, lam, 12, tv_iterations, tile_rows=tile_rows, with_counts=True,
+        **_kw(schedule),
+    )
+    dynamic = schedule[1] != "none" or schedule[2] is not None
+    assert tiled.fista_tv_tiled.launches == before + 12 + int(dynamic)
+    want, want_counts = _plain(x0, taps, rho, lam, 12, tv_iterations, schedule)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+    # no atomics: the same result run to run
+    again = tiled.fista_tv_tiled(x0, taps, rho, lam, 12, tv_iterations,
+                                 tile_rows=tile_rows, **_kw(schedule))
+    assert torch.equal(again, got)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -71,3 +138,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         rtt.solve_batched_fast(solver, torch.zeros(64, 2, device=dev))
     with pytest.raises(ValueError, match="float32"):
         tv_fgp.prox_tv2d_fgp(torch.zeros(2, 64, device=dev, dtype=torch.float64), 0.1, (8, 8), 3)
+    with pytest.raises(ValueError, match="float32"):
+        tiled.fista_tv_tiled(torch.zeros(2, 8, 8, device=dev, dtype=torch.float64), TAPS,
+                             0.9, 0.1, 3, 2)

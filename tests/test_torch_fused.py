@@ -1,7 +1,8 @@
 """The flagship slice of rls_tpu_torch against rls_tpu on the same numpy
 inputs: the plain version of the fused FISTA-TV kernel against the JAX
-fused kernel in the fold form the chip runs (interpret mode), the f64
-momentum table, the dispatch of solve_batched_fast with its named
+fused kernel in the fold form the chip runs (interpret mode), FISTA's
+restart modes and the rejections the port shares with the JAX function,
+the f64 momentum table, the dispatch of solve_batched_fast with its named
 rejections, and the import hygiene of the package."""
 
 import importlib
@@ -113,22 +114,41 @@ def test_solve_batched_fast_names_every_rejection():
         got = rtt.solve_batched_fast(tsolver, Bt)
     msg = str(rec[0].message)
     assert "pgm_tv: fused path requires TVRegularization" in msg
+    assert "fista_tv_tiled: tiled path requires TVRegularization" in msg
     for name in auto._NOT_YET_PORTED:
         assert f"{name}: not yet ported" in msg
-    assert len(auto._NOT_YET_PORTED) == 11
+    assert len(auto._NOT_YET_PORTED) == 10
     np.testing.assert_array_equal(got.numpy(), rtt.solve_batched_unrolled(tsolver, Bt).numpy())
 
 
 @pytest.mark.parametrize("restart", ["gradient", "gradient_mapping"])
 def test_fused_rejects_what_is_not_yet_ported(restart):
+    """FISTA's restart modes ride the fused kernel's dynamic schedule and
+    match the JAX fused kernel (fold FGP, 1e-5); what the JAX function
+    rejects, the port rejects with the same reason: warm_tv or interleave
+    beside a restart, early exit for OptISTA, gradient_mapping for POGM."""
     solver, B = _problem(12, restart=restart)
     tsolver = convert(solver)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tfused.check_pgm_tv_fused(tsolver)
-    plain, _ = _problem(12)
-    for kw in ({"early_exit": True}, {"warm_tv": True}, {"interleave": 2}):
-        with pytest.raises(ValueError, match="not yet ported"):
-            tfused.solve_pgm_tv_fused(convert(plain), torch.from_numpy(B), **kw)
+    Bt, Bj = torch.from_numpy(B), jnp.asarray(B)
+    assert tfused.check_pgm_tv_fused(tsolver) == "fista" == jfused.check_pgm_tv_fused(solver)
+    want = jfused.solve_pgm_tv_fused(solver, Bj, interpret=True, fgp_unroll=True)
+    got = tfused.solve_pgm_tv_fused(tsolver, Bt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    cases = [
+        (solver, {"warm_tv": True}, "warm_tv requires FISTA with restart='none'"),
+        (solver, {"interleave": 2}, "interleave > 1 is the fixed-schedule"),
+    ]
+    if restart == "gradient":
+        other = rt.OptISTA.create(solver.A, reg=solver.reg, rho=0.9, rel_tol=1e-3)
+        cases.append((other, {"early_exit": True}, "early_exit is FISTA/POGM-only"))
+    else:
+        other = rt.POGM.create(solver.A, reg=solver.reg, rho=0.9, restart=restart)
+        cases.append((other, {}, "gradient_mapping restart is a FISTA mode"))
+    for jsolver, kw, match in cases:
+        with pytest.raises(ValueError, match=match):
+            tfused.solve_pgm_tv_fused(convert(jsolver), Bt, **kw)
+        with pytest.raises(ValueError, match=match):
+            jfused.solve_pgm_tv_fused(jsolver, Bj, interpret=True, fgp_unroll=True, **kw)
 
 
 @pytest.mark.parametrize("iterations", [1, 8, 50])
