@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: CUDA must be present; TF32 is switched off for matmuls and
      cuDNN; the card's name and power limit are printed;
-  2. build: the three CUDA kernels are compiled from rls_tpu_torch/csrc
+  2. build: the five CUDA kernels are compiled from rls_tpu_torch/csrc
      (one nvcc per source, all at once);
   3. each kernel against its plain PyTorch version on the card, with both
      times: the TV prox and the fused solve (FISTA, OptISTA, POGM) at the
@@ -15,7 +15,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      early exit, warm TV duals) at batch 8, with the per-problem restart
      and freeze counts of kernel and plain version side by side; the tiled
      solve at 512² (batch 16, 50 × 10), once at 1024² (batch 8), and its
-     dynamic schedules at 512² (batch 4);
+     dynamic schedules at 512² (batch 4); the fused ADMM-TV solve at
+     BASELINE configuration #3's shapes (16 distinct problems of 256², 12
+     outer × 6 CG × 8 dual iterations) and the tiled ADMM-TV solve at 512²
+     (batch 16, 10 × 5 × 10), each with a Positive case at batch 4 and the
+     live CG steps of kernel and plain version side by side;
   4. the flagship through the public API: batched FISTA-TV deblurring,
      256², 9×9 Gaussian, 50×10 iterations, ρ = 0.95, λ = 5e-4, batch 64,
      through solve_batched_fast (fused kernel, one launch) and
@@ -26,12 +30,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      Gaussian σ = 2, ρ = 0.95, λ = 5e-4, 50 × 10, batch 16) through
      solve_batched_fast, which must run the tiled kernel, held on two
      columns against a float64 solve of the plain version on the card;
-  6. the kernel table as one JSON line, then the result line
+  6. the two ADMM-TV cells of tools/bench_suite.py: admm_tv_deblur256_b16
+     (ρ = 0.1, λ = 2e-3, 12 × 6 × 8) through solve_batched_fast (one fused
+     launch) and through solve_batched_unrolled (the composed ADMM, one TV
+     kernel launch per outer iteration), and admm_tv_512_tiled_b16 (ρ =
+     0.1, λ = 5e-4, 10 × 5 × 10) through solve_batched_fast (the tiled
+     kernel), each held on two columns against a float64 solve of the
+     plain version on the card, with a torch.profiler breakdown of the
+     device time of one solve of each;
+  7. the kernel table as one JSON line (launches on the main path, error
+     against the plain version, kernel and plain times, and the least
+     time the card could take, `bound_ms`), then the result line
      {"ok": true, "device": {...}}.
 
 The flagship problem is rebuilt with numpy exactly as bench.py:36-68
-builds it, the 512² and 1024² problems as tools/bench_suite.py:308-379
-builds them (replaying its seeded generator).
+builds it, the other cells as tools/bench_suite.py:127-151 and :308-379
+build them (replaying its seeded generator).
 """
 
 from __future__ import annotations
@@ -58,6 +72,20 @@ BATCH_DYN = 8  # the dynamic and warm schedules of the fused kernel
 TOL_TV = 1e-5
 TOL_FUSED_NORM = 2e-5
 TOL_FUSED_MAX = 1e-3
+# ADMM's scaled dual u integrates every CG difference over the outer
+# iterations, so an ADMM kernel is held to the plain version's own spread
+# under a 1-ulp change of x0hat, measured in the same run: within
+# ADMM_SPREAD times that spread, in 2-norm and at the worst pixel
+ADMM_SPREAD = 2.0
+# BASELINE configuration #3 (tools/bench_suite.py:127-151) and its 512²
+# sibling (:340-354): (n, batch, λ, outer, CG, dual iterations); ρ = 0.1
+ADMM_RHO, ADMM_TOL = 0.1, 1e-5
+ADMM256 = (256, 16, 2e-3, 12, 6, 8)
+ADMM512 = (512, 16, 5e-4, 10, 5, 10)
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): f32
+# outside the tensor cores, and HBM3
+PEAK_F32_OPS = 67e12
+PEAK_BYTES = 3.35e12
 # against the f64 reference (the bars the TPU flagship is held to)
 TOL_PARITY = 1e-3
 TOL_RESIDUAL = 1e-4
@@ -88,16 +116,20 @@ def phantoms(n=N, batch=BATCH):
 
 
 def bench_suite_phantoms():
-    """The 512² (batch 16) and 1024² (batch 8) phantoms of
-    tools/bench_suite.py:326-331, :367-372: its generator default_rng(0)
-    replayed through the draws of the cells before them (:81-294)."""
+    """The phantoms of tools/bench_suite.py: the ADMM-TV deblurring image
+    (256², :132-135), the 512² batch of 16 (:326-331) and the 1024² batch
+    of 8 (:367-372), as (256², (16, 512²), (8, 1024²)) f32 arrays, from its
+    generator default_rng(0) replayed through the draws of the other cells
+    (:81-294)."""
     rng = np.random.default_rng(0)
     rng.normal(size=(64, 64)), rng.normal(size=(64,)), rng.normal(size=(64, 16))
     for _ in range(8):
         rng.integers(0, 256 - 20, 2), rng.uniform(0.3, 1.0)
     rng.choice(256 * 256, size=int(0.35 * 256 * 256), replace=False)
+    img3 = np.zeros((256, 256), np.float32)
     for _ in range(6):
-        rng.integers(0, 256 - 40, 2), rng.uniform(0.3, 1.0)
+        i0, j0 = rng.integers(0, 256 - 40, 2)
+        img3[i0 : i0 + 30, j0 : j0 + 30] += rng.uniform(0.3, 1.0)
     rng.normal(size=(256, 512)), rng.normal(size=(512, 16)), rng.uniform(size=(512, 16))
     rng.normal(size=(1024, 256)), rng.uniform(size=(1024, 256)), rng.normal(size=(256,))
     rng.normal(size=(8192, 2048)), rng.normal(size=(2048,))
@@ -110,7 +142,7 @@ def bench_suite_phantoms():
                 w, h = rng.integers(lo, hi, size=2)
                 imgs[b, i0 : i0 + w, j0 : j0 + h] += rng.normal()
         out.append(imgs.reshape(batch, n * n))
-    return out
+    return (img3.reshape(-1), *out)
 
 
 def build_solver(n, device, cls="FISTA", dtype=None):
@@ -121,8 +153,8 @@ def build_solver(n, device, cls="FISTA", dtype=None):
     import rls_tpu_torch as rtt
 
     op = rtt.SeparableConvOperator.from_kernel(
-        gaussian_kernel(), im_shape=(n, n), dtype=dtype or torch.float32
-    ).to(device)
+        gaussian_kernel(), im_shape=(n, n), dtype=dtype or torch.float32, device=device
+    )
     kw = {"track_residual": False} if cls == "FISTA" else {}
     return getattr(rtt, cls).create(
         op,
@@ -131,6 +163,24 @@ def build_solver(n, device, cls="FISTA", dtype=None):
         rho=RHO,
         rel_tol=0.0,
         **kw,
+    )
+
+
+def build_admm(cell, device, dtype=None):
+    """The ADMM-TV deblurring solver of an ADMM cell (9×9 Gaussian σ = 2,
+    ρ = 0.1, tol_inner 1e-5, masked CG), TV on the CUDA kernel."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    n, _, lam, iters, cg, tv = cell
+    op = rtt.SeparableConvOperator.from_kernel(
+        gaussian_kernel(), im_shape=(n, n), dtype=dtype or torch.float32, device=device
+    )
+    return rtt.ADMM.create(
+        op,
+        reg=rtt.TVRegularization(lam, shape=(n, n), iterations_tv=tv, backend="cuda"),
+        iterations=iters, iterations_cg=cg, unroll_cg=True, rho=ADMM_RHO, tol_inner=ADMM_TOL,
     )
 
 
@@ -207,14 +257,65 @@ def alternate_ms(plain, kernel, reps):
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
-def hold_to_plain(name, kernel, plain, x0hat, show_counts=False):
+def bound(ops, nbytes):
+    """(ms, "operations" | "bytes"): the least time the card could take for
+    `ops` f32 operations and `nbytes` of device-memory traffic."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def stencil_ops(kh, kw):
+    """f32 operations per pixel of AᴴA as four stencil passes (K products
+    and K − 1 sums each)."""
+    return 2 * (2 * kh - 1) + 2 * (2 * kw - 1)
+
+
+def fold_fgp_ops(tv):
+    """Per pixel, the fold FGP with `tv` dual iterations from zero duals:
+    the first a gradient of xg/8 and two clips (7), each later one the
+    adjoint, the scaled step, two gradients, two clips and the momentum
+    (19), then x = xg − gtᵀ(p) (4)."""
+    return 0 if tv == 0 else 19 * tv - 8
+
+
+def fgp_loop_ops(tv):
+    """Per pixel, the fori FGP of the TV prox kernel: 23 per dual iteration
+    (adjoint, λ scale, two gradients with 1/8λ, clip and mask, momentum),
+    5 for the result."""
+    return 23 * tv + 5
+
+
+def pgm_ops(kh, kw, tv, method="fista", restart="none", early=False, warm=False):
+    """Per pixel and live iteration of a PGM-TV schedule: AᴴA, the prox
+    and the method's own steps (FISTA: momentum 3, residual and gradient
+    step 3; OptISTA: residual 1, prox input 2, z 3, x 5; POGM: residual 1,
+    y 2, x_mid 7); a restart's dots (FISTA 3, gradient mapping 4; POGM's
+    w and its two dots 11); the early-exit ‖res‖² (2); a warm start's
+    full first dual iteration (12 more than from zero duals)."""
+    own = {"fista": 6, "optista": 11, "pogm": 10}[method]
+    extra = {"none": 0, "gradient": 11 if method == "pogm" else 3, "gradient_mapping": 4}[restart]
+    return stencil_ops(kh, kw) + own + fold_fgp_ops(tv) + extra + 2 * early + 12 * warm
+
+
+def admm_ops(kh, kw, tv, iterations, live_steps, positive):
+    """Per pixel of one problem's ADMM-TV solve, counting only the CG steps
+    that were live: per outer iteration the CG start (β, AᴴA + ρI, r and
+    two squared norms: stencil + 10) and the z-update (x + u, the prox,
+    u: fold FGP + 3, and the projection); per live step the matvec, p·q,
+    the x, r and p updates and r·r (stencil + 12)."""
+    s = stencil_ops(kh, kw)
+    return iterations * (s + 10 + fold_fgp_ops(tv) + 3 + int(positive)) + live_steps * (s + 12)
+
+
+def hold_to_plain(name, kernel, plain, x0hat, show_counts=False, spread=None):
     """Run `kernel(x0hat)` and `plain(x0hat)` (each → (x, counts)), and
     the plain version once more with x0hat moved by 1 ulp; print the
     error and the plain version's own spread (with `show_counts`, also the
-    per-problem counts of restarts fired and live iterations of all
-    three, which must agree between kernel and plain); hold the kernel to
-    TOL_FUSED_NORM in 2-norm and TOL_FUSED_MAX of max|x| per pixel.
-    Returns max|kernel − plain|."""
+    per-problem counts of all three, which must agree between kernel and
+    plain: restarts fired and live iterations, or, for a (B,) count, the
+    live CG steps); hold the kernel to TOL_FUSED_NORM in 2-norm and
+    TOL_FUSED_MAX of max|x| per pixel, or with `spread` to `spread` times
+    the plain version's spread in both. Returns max|kernel − plain|."""
     import torch
 
     got, counts = kernel(x0hat)
@@ -224,13 +325,17 @@ def hold_to_plain(name, kernel, plain, x0hat, show_counts=False):
     err = float((got - want).abs().max())
     norm = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
     scale = float(want.abs().max())
+    ulp_max = float((ulp - want).abs().max())
+    ulp_norm = float(torch.linalg.norm(ulp - want) / torch.linalg.norm(want))
     print(
         f"{name}: max|kernel - plain| = {err:.3e} (max|x| {scale:.3f}), rel. 2-norm "
-        f"{norm:.3e}; plain under a 1-ulp input change: max "
-        f"{float((ulp - want).abs().max()):.3e}, rel. 2-norm "
-        f"{float(torch.linalg.norm(ulp - want) / torch.linalg.norm(want)):.3e}"
+        f"{norm:.3e}; plain under a 1-ulp input change: max {ulp_max:.3e}, rel. 2-norm "
+        f"{ulp_norm:.3e}"
     )
-    if show_counts:
+    if show_counts and counts.ndim == 1:
+        print(f"{name}: live CG steps kernel {counts.tolist()} plain {want_counts.tolist()} "
+              f"plain(1 ulp) {ulp_counts.tolist()}")
+    elif show_counts:
         print(
             f"{name}: restarts kernel {counts[:, 0].tolist()} plain "
             f"{want_counts[:, 0].tolist()} plain(1 ulp) {ulp_counts[:, 0].tolist()}; "
@@ -239,12 +344,195 @@ def hold_to_plain(name, kernel, plain, x0hat, show_counts=False):
         )
     require(torch.isfinite(got).all(), f"{name} kernel gave non-finite values")
     require(counts.tolist() == want_counts.tolist(),
-            f"{name}: the kernel's restart / freeze counts differ from the plain version's")
-    require(
-        norm <= TOL_FUSED_NORM and err <= TOL_FUSED_MAX * scale,
-        f"{name} kernel disagrees: max {err:.3e}, rel. 2-norm {norm:.3e}",
-    )
+            f"{name}: the kernel's counts differ from the plain version's")
+    if spread is None:
+        ok = norm <= TOL_FUSED_NORM and err <= TOL_FUSED_MAX * scale
+    else:
+        ok = norm <= spread * ulp_norm and err <= spread * ulp_max
+    require(ok, f"{name} kernel disagrees: max {err:.3e}, rel. 2-norm {norm:.3e}")
     return err
+
+
+def parity_f64(name, x, B, xs_true, op64, x64):
+    """Hold the first columns of a solve `x` (n × K) to the float64
+    solutions `x64` (k × n) of the same measurements: the worst column-wise
+    relative error (≤ TOL_PARITY) and |‖A x − b‖ − ‖A x64 − b‖| / ‖b‖ with
+    A in float64 (≤ TOL_RESIDUAL); and the reconstruction against the
+    phantoms `xs_true` (K × n) must beat the blurred input."""
+    import torch
+
+    k = x64.shape[0]
+    require(bool(torch.isfinite(x).all()), f"{name}: non-finite values")
+    xc = x[:, :k].T.double()
+    b64 = B[:, :k].T.double()
+    rel = float(max(torch.linalg.norm(xc[j] - x64[j]) / torch.linalg.norm(x64[j])
+                    for j in range(k)))
+    def resid(v, j):
+        return torch.linalg.norm(op64.mv(v) - b64[j])
+
+    res = float(max(
+        abs(resid(xc[j], j) - resid(x64[j], j)) / torch.linalg.norm(b64[j])
+        for j in range(k)
+    ))
+    rec = float(torch.linalg.norm(x.T - xs_true) / torch.linalg.norm(xs_true))
+    blur = float(torch.linalg.norm(B.T - xs_true) / torch.linalg.norm(xs_true))
+    print(f"{name}: recon_rel_err {rec:.4f} (blurred {blur:.4f}), max_rel_err vs f64 {rel:.3e}, "
+          f"residual_rel_diff vs f64 {res:.3e}")
+    require(rec < blur, f"{name}: the reconstruction is no better than the blur")
+    require(rel <= TOL_PARITY, f"{name}: max_rel_err vs f64 {rel:.3e}")
+    require(res <= TOL_RESIDUAL, f"{name}: residual_rel_diff vs f64 {res:.3e}")
+
+
+def admm_f64(cell, B, k, device):
+    """(A in float64, the float64 plain ADMM-TV solve of B's first k
+    columns, (k, n²))."""
+    import torch
+
+    from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
+
+    n, _, lam, iters, cg, tv = cell
+    s64 = build_admm(cell, device, dtype=torch.float64)
+    x0 = s64.A.rmv_stencil(B[:, :k].T.double()).reshape(k, n, n)
+    scal, t2 = admm_fused.kernel_args(x0, ADMM_RHO, lam, tv, dtype=np.float64)
+    x64 = admm_fused.admm_tv_fused_torch(x0, scal, t2, s64.A.taps_hw(), iters, cg, ADMM_TOL)[0]
+    return s64.A, x64.reshape(k, -1)
+
+
+def device_breakdown(name, fn):
+    """torch.profiler over one call of `fn` after a warm-up: print the
+    wall time of one call without the profiler, the device time by kernel
+    (the five largest) and the device's busy share of that wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+        if ms > 0:
+            rows.append((ms, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    top = "; ".join(f"{key[:60]} {ms:.3f} ms ({count}×)" for ms, count, key in rows[:5])
+    print(f"profile[{name}]: wall {wall:.2f} ms without the profiler, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%); {top or 'the profiler saw no device time'}")
+
+
+def launch_counts(reset=False):
+    """The launch counters of the five kernel wrappers, by name; with
+    `reset`, set them to 0 first."""
+    from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, fista_tv_fused
+    from rls_tpu_torch.kernels import fista_tv_tiled, tv_fgp
+
+    fns = (tv_fgp.prox_tv2d_fgp, fista_tv_fused.fista_tv_fused, fista_tv_tiled.fista_tv_tiled,
+           admm_tv_fused.admm_tv_fused, admm_tv_tiled.admm_tv_tiled)
+    if reset:
+        for fn in fns:
+            fn.launches = 0
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def admm_kernel_phase(dev, cases):
+    """Each ADMM-TV kernel against its plain version: `cases` holds
+    (cell, kernel wrapper, phantoms (batch, n²)); x0hat is the exact
+    adjoint of the blurred phantoms. Each is held to the plain version's
+    1-ulp spread with equal live CG steps, at the cell's batch and with
+    the Positive projection at batch 4, and timed in turns with its plain
+    version; then the other kernel at the same size is timed alone.
+    Returns {wrapper name: {"err", "ms": (plain, kernel), "live"}}."""
+    import torch
+
+    from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
+
+    def pair(cell, wrapper, taps, prox="none"):
+        _, _, lam, iters, cg, tv = cell
+
+        def kernel(x0):
+            return wrapper(x0, taps, ADMM_RHO, lam, iters, cg, tv, ADMM_TOL, prox=prox,
+                           with_counts=True)
+
+        def plain(x0):
+            scal, t2 = admm_fused.kernel_args(x0, ADMM_RHO, lam, tv)
+            return admm_fused.admm_tv_fused_torch(x0, scal, t2, taps, iters, cg, ADMM_TOL, prox)
+
+        return kernel, plain
+
+    out, x0s = {}, []
+    for cell, wrapper, imgs in cases:
+        n, batch = cell[:2]
+        op = build_admm(cell, dev).A
+        taps = op.taps_hw()
+        x0 = op.rmv_stencil(op.mv(torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)))
+        x0 = x0.reshape(batch, n, n)
+        x0s.append((cell, taps, x0))
+        label = f"{wrapper.__name__}[{n}², batch {batch}]"
+        kernel, plain = pair(cell, wrapper, taps)
+        err = hold_to_plain(label, kernel, plain, x0, show_counts=True, spread=ADMM_SPREAD)
+        err = max(err, hold_to_plain(
+            f"{wrapper.__name__}[{n}², batch 4, positive]", *pair(cell, wrapper, taps, "positive"),
+            x0[:4].contiguous(), show_counts=True, spread=ADMM_SPREAD))
+        live = kernel(x0)[1].tolist()
+        ms = alternate_ms(lambda: plain(x0), lambda: kernel(x0), reps=3)
+        print(f"{label}: kernel {ms[1]:.3f} ms, plain {ms[0]:.3f} ms")
+        out[wrapper.__name__] = {"err": err, "ms": ms, "live": live}
+    # each size on the other kernel, timed only (the dispatch stays
+    # ≤ 256² → fused)
+    wrappers = [w for _, w, _ in cases]
+    for (cell, taps, x0), wrapper in zip(x0s, wrappers[::-1]):
+        kernel, _ = pair(cell, wrapper, taps)
+        ms = cuda_ms(lambda: kernel(x0), reps=3)
+        print(f"{wrapper.__name__} at {cell[0]}², batch {cell[1]}: {ms:.3f} ms "
+              f"({cell[1] / (ms / 1e3):.1f} problems/s)")
+    return out
+
+
+def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
+    """An ADMM-TV cell of tools/bench_suite.py through solve_batched_fast:
+    the phantoms `imgs` (batch, n²) blurred by the cell's operator, the
+    launch counters set to 0 just before the solve and read just after
+    (they must equal `launches`, every other counter 0), two columns held
+    to a float64 solve of the plain version on the card, problems/s, and
+    the device breakdown of one solve. With `composed`, the same through
+    solve_batched_unrolled (the composed ADMM: one TV kernel launch per
+    outer iteration)."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    n, batch, _, iters = cell[:4]
+    solver = build_admm(cell, dev)
+    xs = torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+    B = solver.A.mv(xs).T.contiguous()
+    op64, x64 = admm_f64(cell, B, 2, dev)
+    runs = [(name, rtt.solve_batched_fast, launches)]
+    if composed:
+        runs.append((f"{name} composed", rtt.solve_batched_unrolled, {"prox_tv2d_fgp": iters}))
+    counts = []
+    for label, solve, want in runs:
+        launch_counts(reset=True)
+        x = solve(solver, B)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        counts.append(got)
+        print(f"launches ({label}): {got}")
+        require(got == {**{k: 0 for k in got}, **want},
+                f"{label}: expected the launches {want} and no others")
+        require(tuple(x.shape) == (n * n, batch), f"{label}: shape {tuple(x.shape)}")
+        parity_f64(label, x, B, xs, op64, x64)
+        ms = cuda_ms(lambda: solve(solver, B), reps=3)
+        print(f"{label}: {batch / (ms / 1e3):.1f} problems/s ({ms:.2f} ms per batch of {batch})")
+    device_breakdown(name, lambda: rtt.solve_batched_fast(solver, B))
+    return counts[0]
 
 
 def main() -> int:
@@ -256,9 +544,12 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import rls_tpu_torch as rtt
     from rls_tpu_torch import _build
+    from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
+    from rls_tpu_torch.kernels import admm_tv_tiled as admm_tiled
     from rls_tpu_torch.kernels import fista_tv_fused as fused
     from rls_tpu_torch.kernels import fista_tv_tiled as tiled
     from rls_tpu_torch.kernels import tv_fgp
+    from rls_tpu_torch.kernels.admm_tv_tiled import launches_per_solve
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -326,6 +617,15 @@ def main() -> int:
 
         return kernel, plain
 
+    ntap_h, ntap_w = (len(t) for t in taps)
+
+    def pgm_bound(x0, counts, method, restart="none", rel_tol=None, warm_tv=False, **_):
+        """The bound of one fused PGM-TV solve: every live iteration
+        (counts[:, 1]) of every problem, x0hat in and x out."""
+        per_px = pgm_ops(ntap_h, ntap_w, TV_ITERS, method, restart, rel_tol is not None, warm_tv)
+        live = int(counts[:, 1].sum())
+        return bound(live * per_px * N * N, 4 * 2 * x0.numel())
+
     fused_err, fused_ms = {}, {}
     for method in ("fista", "optista", "pogm"):
         kernel, plain = fused_pair(method)
@@ -333,10 +633,11 @@ def main() -> int:
         fused_ms[method] = alternate_ms(lambda: plain(x0hat), lambda: kernel(x0hat), reps=3)
         print(
             f"fista_tv_fused[{method}]: kernel {fused_ms[method][1]:.3f} ms, "
-            f"plain {fused_ms[method][0]:.3f} ms"
+            f"plain {fused_ms[method][0]:.3f} ms, bound %.4f ms (%s)"
+            % pgm_bound(x0hat, kernel(x0hat)[1], method)
         )
 
-    # 3c. the dynamic and warm schedules, batch 8
+    # 3c. the dynamic and warm schedules, batch 8, with both times
     x0_dyn = x0hat[:BATCH_DYN].contiguous()
     for name, kw in (
         ("fista gradient restart", dict(method="fista", restart="gradient")),
@@ -346,10 +647,15 @@ def main() -> int:
         ("pogm early exit", dict(method="pogm", rel_tol=1e-3)),
         ("fista warm_tv", dict(method="fista", warm_tv=True)),
     ):
-        hold_to_plain(f"fista_tv_fused[{name}]", *fused_pair(**kw), x0_dyn, show_counts=True)
+        kernel, plain = fused_pair(**kw)
+        hold_to_plain(f"fista_tv_fused[{name}]", kernel, plain, x0_dyn, show_counts=True)
+        plain_ms, kernel_ms = alternate_ms(lambda: plain(x0_dyn), lambda: kernel(x0_dyn), reps=1)
+        print(f"fista_tv_fused[{name}, batch {BATCH_DYN}]: kernel {kernel_ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound %.4f ms (%s)"
+              % pgm_bound(x0_dyn, kernel(x0_dyn)[1], **kw))
 
     # 3d. the tiled kernel against its plain version: 512² and 1024²
-    (imgs512, imgs1024) = bench_suite_phantoms()
+    img_admm, imgs512, imgs1024 = bench_suite_phantoms()
     tiled_err, tiled_ms = {}, None
     for n, imgs in ((512, imgs512), (1024, imgs1024)):
         s_n = build_solver(n, dev)
@@ -391,6 +697,12 @@ def main() -> int:
                     x0_n[:4].contiguous(), show_counts=True,
                 )
         del x0_n, b_n
+
+    # 3e. the ADMM-TV kernels against their plain versions
+    admm = admm_kernel_phase(dev, (
+        (ADMM256, admm_fused.admm_tv_fused, phantoms(batch=ADMM256[1])),
+        (ADMM512, admm_tiled.admm_tv_tiled, imgs512),
+    ))
 
     # 4. the flagship through the public API; the counts start at 0 here
     ref = np.load(os.path.join(ROOT, "bench_ref_f64.npz"))
@@ -455,8 +767,7 @@ def main() -> int:
           f"fista_tv_fused {fused.fista_tv_fused.launches}")
     require(launches_tiled == ITERS, f"the 512² cell ran the tiled kernel {launches_tiled}×")
     require(fused.fista_tv_fused.launches == 0, "the 512² cell ran the fused kernel")
-    require(tuple(x5.shape) == (n5 * n5, 16) and bool(torch.isfinite(x5).all()),
-            f"512²: bad result {tuple(x5.shape)}")
+    require(tuple(x5.shape) == (n5 * n5, 16), f"512²: bad result {tuple(x5.shape)}")
     # two columns against a float64 solve of the plain version on the card
     s64 = build_solver(n5, dev, dtype=torch.float64)
     b64 = B5[:, :2].T.double()
@@ -464,61 +775,70 @@ def main() -> int:
     scal64, tab64, t2_64 = fused.kernel_args(x0_64, RHO, LAM, "fista", ITERS, TV_ITERS,
                                              dtype=np.float64)
     x64 = tiled.fista_tv_tiled_torch(x0_64, scal64, tab64, t2_64, taps)[0].reshape(2, -1)
-    xc = x5[:, :2].T.double()
-    rel5 = float(max(torch.linalg.norm(xc[j] - x64[j]) / torch.linalg.norm(x64[j])
-                     for j in range(2)))
-    res5 = float(max(
-        abs(torch.linalg.norm(s64.A.mv(xc[j]) - b64[j]) - torch.linalg.norm(s64.A.mv(x64[j])
-                                                                            - b64[j]))
-        / torch.linalg.norm(b64[j])
-        for j in range(2)
-    ))
-    rec5 = float(torch.linalg.norm(x5.T - xs5) / torch.linalg.norm(xs5))
-    blur5 = float(torch.linalg.norm(B5.T - xs5) / torch.linalg.norm(xs5))
+    parity_f64("fista_tv_512_tiled_b16", x5, B5, xs5, s64.A, x64)
     ms5 = cuda_ms(lambda: rtt.solve_batched_fast(s5, B5), reps=3)
-    print(
-        f"fista_tv_512_tiled_b16: recon_rel_err {rec5:.4f} (blurred {blur5:.4f}), "
-        f"max_rel_err vs f64 {rel5:.3e}, residual_rel_diff vs f64 {res5:.3e}, "
-        f"{16 / (ms5 / 1e3):.1f} problems/s ({ms5:.2f} ms per batch of 16)"
-    )
-    require(rec5 < blur5, "512²: the reconstruction is no better than the blur")
-    require(rel5 <= TOL_PARITY, f"512²: max_rel_err vs f64 {rel5:.3e}")
-    require(res5 <= TOL_RESIDUAL, f"512²: residual_rel_diff vs f64 {res5:.3e}")
-    print(f"phases 3-5: {time.perf_counter() - t_start:.1f} s")
+    print(f"fista_tv_512_tiled_b16: {16 / (ms5 / 1e3):.1f} problems/s "
+          f"({ms5:.2f} ms per batch of 16)")
 
-    # 6. the kernel table, then the result line
-    kernels = [
-        {
-            "name": "tv_fgp",
+    # 6. the ADMM-TV cells through the public API
+    for name, cell, imgs, want, composed in (
+        ("admm_tv_deblur256_b16_fused", ADMM256,
+         np.broadcast_to(img_admm, (ADMM256[1], img_admm.size)), {"admm_tv_fused": 1}, True),
+        ("admm_tv_512_tiled_b16", ADMM512, imgs512,
+         {"admm_tv_tiled": launches_per_solve(*ADMM512[3:5])}, False),
+    ):
+        kernel = next(iter(want))
+        admm[kernel]["launches"] = admm_cell_phase(name, cell, dev, imgs, want, composed)[kernel]
+    print(f"phases 3-6: {time.perf_counter() - t_start:.1f} s")
+
+    # 7. the kernel table, then the result line
+    # the least time for each kernel's timed call: every input read once,
+    # every output written once, and the f32 operations this run's data
+    # needs (for ADMM, the CG steps that were live)
+    f32 = 4
+    flag_px = BATCH * N * N
+    n5px = 16 * n5 * n5
+    fista_ops = ITERS * pgm_ops(ntap_h, ntap_w, TV_ITERS)
+    bounds = {
+        "tv_fgp": bound(fgp_loop_ops(TV_ITERS) * flag_px, f32 * (2 * flag_px + BATCH)),
+        "fista_tv_fused": bound(fista_ops * flag_px, f32 * 2 * flag_px),
+        "fista_tv_tiled": bound(fista_ops * n5px, f32 * 2 * n5px),
+    }
+    for name, cell in (("admm_tv_fused", ADMM256), ("admm_tv_tiled", ADMM512)):
+        n, batch, _, iters, _, tv = cell
+        ops = sum(admm_ops(ntap_h, ntap_w, tv, iters, v, False) for v in admm[name]["live"])
+        bounds[name] = bound(ops * n * n, f32 * (2 * batch * n * n + batch))
+    rows = (
+        ("tv_fgp", "tv_fgp.cu", "rls_tpu/kernels/tv_pallas.py:69", launches_tv, err_tv,
+         (plain_tv, ms_tv)),
+        ("fista_tv_fused", "fista_tv_fused.cu", "rls_tpu/kernels/fista_tv_fused.py:676",
+         launches_fused, max(fused_err.values()), fused_ms["fista"]),
+        ("fista_tv_tiled", "fista_tv_tiled.cu", "rls_tpu/kernels/fista_tv_tiled.py:704",
+         launches_tiled, max(tiled_err.values()), tiled_ms),
+        ("admm_tv_fused", "admm_tv_fused.cu", "rls_tpu/kernels/admm_tv_fused.py:156",
+         admm["admm_tv_fused"]["launches"], admm["admm_tv_fused"]["err"],
+         admm["admm_tv_fused"]["ms"]),
+        ("admm_tv_tiled", "admm_tv_tiled.cu", "rls_tpu/kernels/admm_tv_tiled.py:183",
+         admm["admm_tv_tiled"]["launches"], admm["admm_tv_tiled"]["err"],
+         admm["admm_tv_tiled"]["ms"]),
+    )
+    kernels = []
+    for name, src, replaces, launches, err, (plain_ms, ms) in rows:
+        bound_ms, bound_by = bounds[name]
+        kernels.append({
+            "name": name,
             "route": "cuda",
-            "source": "rls_tpu_torch/csrc/tv_fgp.cu",
-            "replaces": "rls_tpu/kernels/tv_pallas.py:69",
-            "launches": launches_tv,
-            "max_abs_err": err_tv,
-            "ms": ms_tv,
-            "plain_ms": plain_tv,
-        },
-        {
-            "name": "fista_tv_fused",
-            "route": "cuda",
-            "source": "rls_tpu_torch/csrc/fista_tv_fused.cu",
-            "replaces": "rls_tpu/kernels/fista_tv_fused.py:676",
-            "launches": launches_fused,
-            "max_abs_err": max(fused_err.values()),
-            "ms": fused_ms["fista"][1],
-            "plain_ms": fused_ms["fista"][0],
-        },
-        {
-            "name": "fista_tv_tiled",
-            "route": "cuda",
-            "source": "rls_tpu_torch/csrc/fista_tv_tiled.cu",
-            "replaces": "rls_tpu/kernels/fista_tv_tiled.py:704",
-            "launches": launches_tiled,
-            "max_abs_err": max(tiled_err.values()),
-            "ms": tiled_ms[1],
-            "plain_ms": tiled_ms[0],
-        },
-    ]
+            "source": f"rls_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes any of these solves
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

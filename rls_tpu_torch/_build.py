@@ -60,6 +60,17 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _I, _I, _F, _F, _P,
     ),
+    # (x0hat, scal, t2, taps, kh, kw, out, scratch, counts, B, H, W,
+    #  iterations, cg_iterations, tv_iterations, tol_inner, positive, stream)
+    "admm_tv_fused_launch": (
+        _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+    ),
+    # (x0hat, scal, t2, taps, kh, kw, planes, window, partial, state, counts,
+    #  B, H, W, tile_rows, iterations, cg_iterations, tv_iterations,
+    #  tol_inner, positive, stream)
+    "admm_tv_tiled_launch": (
+        _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
+    ),
 }
 
 

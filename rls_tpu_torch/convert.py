@@ -1,18 +1,20 @@
 """Carry a problem built with ``rls_tpu`` over to the port.
 
-``convert(obj)`` turns an ``rls_tpu`` object into its ``rls_tpu_torch``
-counterpart: ``SeparableConvOperator``, ``NormalOperator``,
-``TVRegularization``, ``L1Regularization``, ``PositiveRegularization``,
-``RealRegularization``, the three normalization strategies, ``FISTA``,
-``OptISTA`` and ``POGM``.
+``convert(obj, device="cuda")`` turns an ``rls_tpu`` object into its
+``rls_tpu_torch`` counterpart: ``SeparableConvOperator``,
+``NormalOperator``, ``IdentityOperator`` and ``GradientOperator`` (ADMM's
+``reg_trafo``), ``TVRegularization``, ``L1Regularization``,
+``PositiveRegularization``, ``RealRegularization``, the three
+normalization strategies, ``FISTA``, ``OptISTA``, ``POGM`` and ``ADMM``.
 Fields are read by attribute name with ``np.asarray`` (``ah``, ``aw``,
 ``bh``, ``bw``, ``taps_hw()``, ``lam``, ``rho``, ``iterations``,
 ``iterations_tv``, ...), and objects are recognised by class name, so
 this module imports neither ``jax`` nor ``rls_tpu``. The converted
-tensors land on the CPU with the source arrays' dtype; move operators
-with ``.to(device)``.
+tensors keep the source arrays' dtype and land on ``device``: the card
+by default, the CPU with ``device="cpu"``.
 
-TV backends map ``"xla"`` → ``"torch"`` and ``"pallas"`` → ``"cuda"``.
+TV backends map ``"xla"`` → ``"torch"`` and ``"pallas"`` → ``"cuda"``. An
+ADMM preconditioner is a JAX callable and is refused.
 """
 
 from __future__ import annotations
@@ -21,11 +23,13 @@ import numpy as np
 import torch
 
 from .models import prox, regularization
+from .models.solvers.admm import ADMM
 from .models.solvers.fista import FISTA
 from .models.solvers.optista import OptISTA
 from .models.solvers.pogm import POGM
-from .ops.base import NormalOperator
+from .ops.base import IdentityOperator, NormalOperator
 from .ops.conv_direct import SeparableConvOperator
+from .ops.grad import GradientOperator
 
 __all__ = ["convert"]
 
@@ -36,8 +40,17 @@ def _scalar(v):
     return float(np.asarray(v))
 
 
-def _tensor(v):
-    return torch.from_numpy(np.array(v))
+def _optional(v):
+    return None if v is None else _scalar(v)
+
+
+def _tensor(v, device):
+    return torch.from_numpy(np.array(v)).to(device)
+
+
+def _dtype(jdt):
+    """The torch dtype of a JAX / numpy dtype."""
+    return torch.from_numpy(np.zeros((), np.dtype(jdt))).dtype
 
 
 # solver class name → (port class, converters of its fields beyond the
@@ -49,21 +62,57 @@ _SOLVERS = {
 }
 
 
-def convert(obj):
-    """The ``rls_tpu_torch`` counterpart of the ``rls_tpu`` object `obj`."""
+def _operators(obj, device):
+    """(A, AHA) of a solver, keeping ``solver.A is solver.AHA.A``."""
+    A = None if obj.A is None else convert(obj.A, device)
+    AHA = convert(obj.AHA, device)
+    if A is not None and isinstance(AHA, NormalOperator) and obj.AHA.A is obj.A:
+        AHA = NormalOperator(A, AHA.weights, device=device)
+    return A, AHA
+
+
+def _admm(obj, device):
+    if obj.precon is not None:
+        raise NotImplementedError("an ADMM preconditioner (a JAX callable) is not carried over")
+    A, AHA = _operators(obj, device)
+    return ADMM(
+        A=A,
+        AHA=AHA,
+        reg=tuple(convert(r, device) for r in obj.reg),
+        reg_trafo=tuple(convert(t, device) for t in obj.reg_trafo),
+        proj=tuple(convert(p, device) for p in obj.proj),
+        rho0=tuple(_scalar(r) for r in obj.rho0),
+        normalize_reg=convert(obj.normalize_reg, device),
+        abs_tol=_optional(obj.abs_tol),
+        rel_tol=_optional(obj.rel_tol),
+        tol_inner=_scalar(obj.tol_inner),
+        vary_rho=str(obj.vary_rho),
+        iterations=int(obj.iterations),
+        iterations_cg=int(obj.iterations_cg),
+        unroll_cg=bool(obj.unroll_cg),
+    )
+
+
+def convert(obj, device="cuda"):
+    """The ``rls_tpu_torch`` counterpart of the ``rls_tpu`` object `obj`,
+    its tensors on `device`."""
     name = type(obj).__name__
     if name == "SeparableConvOperator":
         return SeparableConvOperator(
-            ah=_tensor(obj.ah),
-            aw=_tensor(obj.aw),
-            bh=_tensor(obj.bh),
-            bw=_tensor(obj.bw),
+            ah=_tensor(obj.ah, device),
+            aw=_tensor(obj.aw, device),
+            bh=_tensor(obj.bh, device),
+            bw=_tensor(obj.bw, device),
             im_shape=obj.im_shape,
             taps=None if obj.taps_len is None else obj.taps_hw(),
         )
     if name == "NormalOperator":
-        weights = None if obj.weights is None else _tensor(obj.weights)
-        return NormalOperator(convert(obj.A), weights)
+        weights = None if obj.weights is None else _tensor(obj.weights, device)
+        return NormalOperator(convert(obj.A, device), weights, device=device)
+    if name == "IdentityOperator":
+        return IdentityOperator(obj.n, _dtype(obj._dtype), device=device)
+    if name == "GradientOperator":
+        return GradientOperator(obj.im_shape, obj.dims, _dtype(obj._dtype), device=device)
     if name == "TVRegularization":
         if obj.pair_planes:
             raise NotImplementedError("split-real TV (pair_planes) is not yet ported")
@@ -83,21 +132,20 @@ def convert(obj):
     if name in ("NoNormalization", "MeasurementBasedNormalization",
                 "SystemMatrixBasedNormalization"):
         return getattr(regularization, name)()
+    if name == "ADMM":
+        return _admm(obj, device)
     if name in _SOLVERS:
-        A = None if obj.A is None else convert(obj.A)
-        AHA = convert(obj.AHA)
-        if A is not None and isinstance(AHA, NormalOperator) and obj.AHA.A is obj.A:
-            AHA = NormalOperator(A, AHA.weights)  # keep `solver.A is AHA.A`
+        A, AHA = _operators(obj, device)
         cls, extra = _SOLVERS[name]
         return cls(
             A=A,
             AHA=AHA,
-            reg=convert(obj.reg),
-            proj=tuple(convert(p) for p in obj.proj),
+            reg=convert(obj.reg, device),
+            proj=tuple(convert(p, device) for p in obj.proj),
             rho=_scalar(obj.rho),
             theta=_scalar(obj.theta),
-            rel_tol=None if obj.rel_tol is None else _scalar(obj.rel_tol),
-            normalize_reg=convert(obj.normalize_reg),
+            rel_tol=_optional(obj.rel_tol),
+            normalize_reg=convert(obj.normalize_reg, device),
             iterations=int(obj.iterations),
             **{k: f(getattr(obj, k)) for k, f in extra.items()},
         )

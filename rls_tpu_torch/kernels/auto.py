@@ -6,8 +6,9 @@ first kernel whose check passes runs. Execution errors are NOT swallowed.
 When no fused kernel applies, a warning names every rejection and the call
 falls back to the composed ``solve_batched_unrolled`` driver.
 
-The ``pgm_tv`` and ``fista_tv_tiled`` rows are ported; the other rows of
-``rls_tpu``'s table are named in the warning as not yet ported. The fused
+The ``pgm_tv``, ``fista_tv_tiled``, ``admm_tv`` and ``admm_tv_tiled``
+rows are ported; the other rows of ``rls_tpu``'s table are named in the
+warning as not yet ported. The fused
 paths use an f64 momentum table, so their results can differ from the
 composed path's f32 recurrence at the ~1e-3 level over ~50 iterations.
 
@@ -20,42 +21,44 @@ larger images they run batches of 16 or 8 (``tools/bench_suite.py``'s
 512² and 1024² cells), which one CTA per problem would leave on 8 or 16
 SMs, while the tiled kernel spreads each problem over its row tiles. The
 check sees the solver and not the batch, so the rule is on the image:
-more than `FUSED_MAX_PIXELS` pixels go to the tiled kernel.
+more than `FUSED_MAX_PIXELS` pixels go to the tiled kernel. The ADMM-TV
+rows follow the same rule (``check_admm_tv_fused`` applies it).
 """
 
 from __future__ import annotations
 
 import warnings
 
-from .fista_tv_fused import check_pgm_tv_fused, solve_pgm_tv_fused
+from .admm_tv_fused import check_admm_tv_fused, solve_admm_tv_fused
+from .admm_tv_tiled import check_admm_tv_tiled, solve_admm_tv_tiled
+from .fista_tv_fused import (
+    FUSED_MAX_PIXELS,
+    check_fused_pixels,
+    check_pgm_tv_fused,
+    solve_pgm_tv_fused,
+)
 from .fista_tv_tiled import check_fista_tv_tiled, solve_fista_tv_tiled
 
-__all__ = ["solve_batched_fast", "select_fast_path"]
-
-FUSED_MAX_PIXELS = 256 * 256
+__all__ = ["solve_batched_fast", "select_fast_path", "FUSED_MAX_PIXELS"]
 
 
 def _check_pgm_tv(solver):
     check_pgm_tv_fused(solver)
-    H, W = solver.AHA.A.im_shape
-    if H * W > FUSED_MAX_PIXELS:
-        raise ValueError(
-            f"a {H}x{W} image goes to the row-tiled kernel (one CTA per problem "
-            f"serves images of at most {FUSED_MAX_PIXELS} pixels)"
-        )
+    check_fused_pixels(*solver.AHA.A.im_shape)
 
 
+# the ported rows of rls_tpu/kernels/auto.py:42-58, in its order
 _FUSED_WRAPPERS = (
     ("pgm_tv", _check_pgm_tv, solve_pgm_tv_fused),
     ("fista_tv_tiled", check_fista_tv_tiled, solve_fista_tv_tiled),
+    ("admm_tv", check_admm_tv_fused, solve_admm_tv_fused),
+    ("admm_tv_tiled", check_admm_tv_tiled, solve_admm_tv_tiled),
 )
 
 # the remaining rows of rls_tpu/kernels/auto.py:42-58, in table order
 _NOT_YET_PORTED = (
     "cgnr_dense",
     "pgm_dense",
-    "admm_tv",
-    "admm_tv_tiled",
     "splitbregman_l1_tv",
     "fista_l1_dft",
     "fista_l21_sense",

@@ -56,6 +56,9 @@ __all__ = [
 
 # tap counts the kernels' shared-memory tap buffer holds per axis
 MAX_TAPS = 63
+# the largest image (in pixels) a one-CTA-per-problem kernel takes in the
+# dispatch (see kernels/auto.py); larger images go to a row-tiled kernel
+FUSED_MAX_PIXELS = 256 * 256
 METHODS = ("fista", "optista", "pogm")
 RESTARTS = ("none", "gradient", "gradient_mapping")
 # solver class → momentum-table method
@@ -299,10 +302,9 @@ def check_schedule(method, restart, rel_tol, warm_tv):
         )
 
 
-def kernel_args(x0hat_b, rho, lam, method, iterations, tv_iterations, dtype=np.float32):
-    """(scal, tab, t2tab) for the kernels and their plain versions: ρ and λ
-    per problem, the momentum table and the fold-FGP constants, in
-    `dtype` on x0hat's device."""
+def problem_scalars(x0hat_b, rho, lam, dtype=np.float32):
+    """(B, 2) [ρ, λ] per problem in `dtype` on x0hat's device; `rho` and
+    `lam` are scalars or (B,)."""
     B = x0hat_b.shape[0]
     dev = x0hat_b.device
     tdt = torch.from_numpy(np.zeros((), dtype)).dtype
@@ -310,7 +312,15 @@ def kernel_args(x0hat_b, rho, lam, method, iterations, tv_iterations, dtype=np.f
     def per_problem(v):
         return torch.broadcast_to(torch.as_tensor(v, dtype=tdt, device=dev).reshape(-1), (B,))
 
-    scal = torch.stack([per_problem(rho), per_problem(lam)], dim=1)
+    return torch.stack([per_problem(rho), per_problem(lam)], dim=1)
+
+
+def kernel_args(x0hat_b, rho, lam, method, iterations, tv_iterations, dtype=np.float32):
+    """(scal, tab, t2tab) for the kernels and their plain versions: ρ and λ
+    per problem, the momentum table and the fold-FGP constants, in
+    `dtype` on x0hat's device."""
+    dev = x0hat_b.device
+    scal = problem_scalars(x0hat_b, rho, lam, dtype)
     tab = torch.as_tensor(_momentum_table(method, iterations, dtype=dtype), device=dev)
     t2tab = torch.as_tensor(_fgp_common.fgp_t2_table(tv_iterations, dtype), device=dev)
     return scal, tab, t2tab
@@ -417,6 +427,16 @@ def check_pgm_tv_fused(solver):
     return check_pgm_tv(solver, "fused")
 
 
+def check_fused_pixels(H: int, W: int) -> None:
+    """The dispatch's rule between a one-CTA-per-problem kernel and its
+    row-tiled sibling: more than `FUSED_MAX_PIXELS` pixels go tiled."""
+    if H * W > FUSED_MAX_PIXELS:
+        raise ValueError(
+            f"a {H}x{W} image goes to the row-tiled kernel (one CTA per problem "
+            f"serves images of at most {FUSED_MAX_PIXELS} pixels)"
+        )
+
+
 def solver_schedule(solver, method, early_exit=False, warm_tv=False, path="fused"):
     """(restart, rel_tol, sigma_fac) of a checked solver, with the rules of
     ``solve_pgm_tv_fused`` (:1100-1111): ``early_exit`` (FISTA and POGM)
@@ -435,10 +455,11 @@ def solver_schedule(solver, method, early_exit=False, warm_tv=False, path="fused
     return restart, rel_tol, float(getattr(solver, "sigma_fac", 1.0))
 
 
-def prepare(solver, B_mat):
-    """(x0hat_b (K, H, W), λ_eff (K,)) of the problems in B_mat's columns;
-    the seed is the exact-f32 stencil adjoint (``rmv_stencil``) when
-    solver.A is the operator, as the JAX fused wrapper seeds it."""
+def prepare(solver, B_mat, reg=None):
+    """(x0hat_b (K, H, W), λ_eff (K,)) of the problems in B_mat's columns,
+    λ_eff of `reg` (default: solver.reg); the seed is the exact-f32
+    stencil adjoint (``rmv_stencil``) when solver.A is the operator, as
+    the JAX fused wrappers seed it."""
     op = solver.AHA.A
     op.check_device(B_mat)
     H, W = op.im_shape
@@ -448,7 +469,7 @@ def prepare(solver, B_mat):
     else:
         x0hat_b = solver.A.rmv(bt).reshape(-1, H, W)
     scale = normalization_factor(solver.normalize_reg, solver.A, bt)
-    return x0hat_b, solver.reg.get_lam() * scale
+    return x0hat_b, (solver.reg if reg is None else reg).get_lam() * scale
 
 
 def solve_pgm_tv_fused(solver, B_mat, early_exit=False, warm_tv=False, interleave=1):

@@ -130,8 +130,10 @@ class TVRegularization(ParameterizedRegularization):
         if self.dims is None and self.shape is not None:
             object.__setattr__(self, "dims", tuple(range(len(self.shape))))
 
-    def _grad_op(self, dtype):
-        return GradientOperator(im_shape=self.shape, dims=tuple(self.dims), dtype=dtype)
+    def _grad_op(self, x):
+        return GradientOperator(
+            im_shape=self.shape, dims=tuple(self.dims), dtype=x.dtype, device=x.device
+        )
 
     def prox(self, x, lam=None):
         lam = self.lam if lam is None else lam
@@ -144,11 +146,11 @@ class TVRegularization(ParameterizedRegularization):
             from ..kernels.tv_fgp import prox_tv2d_fgp
 
             return prox_tv2d_fgp(x, lam, self.shape, self.iterations_tv)
-        return prox_tv_fgp(x, lam, self._grad_op(x.dtype), self.iterations_tv)
+        return prox_tv_fgp(x, lam, self._grad_op(x), self.iterations_tv)
 
     def value(self, x, lam=None):
         lam = self.lam if lam is None else lam
-        g = self._grad_op(x.dtype).mv(x)
+        g = self._grad_op(x).mv(x)
         return _lam(lam, g) * g.abs().sum(dim=-1)
 
 

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``rls_tpu/models/solvers/base.py``: the protocol,
 ``split_projection_terms`` and ``prepare_operators`` (:61-126); ``solve``
 and ``solve_unrolled`` (:246-334); ``solve_batched_unrolled`` (:337-350);
-``solve_batched`` with its active mask (:409-480).
+``solve_batched`` with its active mask (:409-480); ``pcg``, the inner
+solver of ADMM (:171-230).
 
   * solver = plain dataclass over operator modules and scalars,
   * state  = dataclass of tensors produced by ``solver.init(b)``; every
@@ -44,6 +45,7 @@ __all__ = [
     "init_scalars",
     "theta_next",
     "state_where",
+    "pcg",
 ]
 
 
@@ -151,9 +153,12 @@ def create_args(name, A, AHA, reg, rho):
 
 def state_where(mask, new, old):
     """Per-problem select between two states: `mask` has the batch shape,
-    every field carries the batch axes first."""
+    every field (a tensor, or a tuple of tensors, one per term) carries the
+    batch axes first."""
 
     def sel(a, b):
+        if isinstance(a, tuple):
+            return tuple(sel(ai, bi) for ai, bi in zip(a, b))
         m = mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
         return torch.where(m, a, b)
 
@@ -164,6 +169,72 @@ def state_where(mask, new, old):
             for f in dataclasses.fields(old)
         },
     )
+
+
+def _vdot(a, b):
+    """⟨a, b⟩ = Σ conj(a)·b per problem (over the last axis)."""
+    return (a.conj() * b).sum(dim=-1)
+
+
+def _col(v):
+    """A per-problem scalar shaped to broadcast against (..., n)."""
+    return v.unsqueeze(-1)
+
+
+def pcg(matvec, b, x0, maxiter: int, reltol, precon=None, unroll: bool = False):
+    """Preconditioned CG on a hermitian PSD `matvec`, per problem: b and
+    x0 are (..., n), the leading axes a batch of independent problems; a
+    problem stops at ‖r‖ ≤ reltol·‖b‖. `precon` is a callable ``r -> z``.
+
+    ``unroll=True`` is the masked form: exactly `maxiter` steps, and a step
+    of a problem that has converged takes α = 0 and keeps p (the guards
+    ``pq == 0 → 1``, ``rz == 0 → β = 0``). Otherwise the early-exit form:
+    steps run while any problem is live, and a problem is frozen once it
+    has converged or taken `maxiter` steps, which is what ``vmap`` of the
+    JAX ``lax.while_loop`` computes."""
+    P = precon if precon is not None else (lambda v: v)
+    r = b - matvec(x0)
+    z = P(r)
+    target = reltol * torch.linalg.vector_norm(b, dim=-1)
+    x, p, rz = x0, z, _vdot(r, z)
+
+    if unroll:
+        for _ in range(maxiter):
+            q = matvec(p)
+            pq = _vdot(p, q)
+            active = torch.linalg.vector_norm(r, dim=-1) > target
+            denom = torch.where(pq == 0, torch.ones_like(pq), pq)
+            alpha = torch.where(active, rz / denom, torch.zeros_like(rz)).to(x.dtype)
+            x = x + _col(alpha) * p
+            r = r - _col(alpha) * q
+            z = P(r)
+            rz_new = _vdot(r, z)
+            safe = torch.where(rz == 0, torch.ones_like(rz), rz)
+            beta = torch.where(rz == 0, torch.zeros_like(rz), rz_new / safe)
+            # freeze the search direction too: once converged, rz_new == rz
+            # makes beta = 1 and p would grow by z every remaining step
+            p = torch.where(_col(active), z + _col(beta) * p, p)
+            rz = rz_new
+        return x
+
+    i = 0
+    while True:
+        live = (torch.linalg.vector_norm(r, dim=-1) > target) & (i < maxiter)
+        if not bool(live.any()):
+            return x
+        q = matvec(p)
+        alpha = rz / _vdot(p, q)
+        x_new = x + _col(alpha) * p
+        r_new = r - _col(alpha) * q
+        z = P(r_new)
+        rz_new = _vdot(r_new, z)
+        p_new = z + _col(rz_new / rz) * p
+        keep = _col(live)
+        x = torch.where(keep, x_new, x)
+        r = torch.where(keep, r_new, r)
+        p = torch.where(keep, p_new, p)
+        rz = torch.where(live, rz_new, rz)
+        i += 1
 
 
 def solve(solver: LinearSolver, b, x0=None):

@@ -11,6 +11,11 @@ may carry any leading batch axes (the batch is an explicit leading
 dimension, not ``torch.vmap``). An operator never copies its input to its
 own device: a tensor on another device raises.
 
+Every constructor that makes tensors takes ``device=``, default
+``"cuda"``: the port runs on the card unless the caller asks for the CPU
+(``device="cpu"``). On a machine without a card the default raises
+torch's own error.
+
 Protocol:
   * ``mv(x)``     — ``A @ x``
   * ``rmv(y)``    — ``Aᴴ @ y``
@@ -69,9 +74,12 @@ class LinearOperator(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        """Device of the operator's buffers (CPU for buffer-free ones)."""
+        """Device of the operator's buffers; a buffer-free operator reports
+        the device it was built for (``_device``)."""
         buf = next(self.buffers(), None)
-        return buf.device if buf is not None else torch.device("cpu")
+        if buf is not None:
+            return buf.device
+        return getattr(self, "_device", torch.device("cpu"))
 
     def check_device(self, t: torch.Tensor) -> None:
         """Raise unless `t` lies on this operator's device (buffer-free
@@ -105,9 +113,9 @@ class LinearOperator(nn.Module):
 class DenseOperator(LinearOperator):
     """Dense matrix operator (plain ``Matrix`` system matrices)."""
 
-    def __init__(self, mat):
+    def __init__(self, mat, device="cuda"):
         super().__init__()
-        self.register_buffer("mat", torch.as_tensor(mat))
+        self.register_buffer("mat", torch.as_tensor(mat, device=device))
 
     @property
     def in_size(self) -> int:
@@ -137,10 +145,11 @@ class DenseOperator(LinearOperator):
 class IdentityOperator(LinearOperator):
     """opEye analog."""
 
-    def __init__(self, n: int, dtype=torch.complex64):
+    def __init__(self, n: int, dtype=torch.complex64, device="cuda"):
         super().__init__()
         self.n = int(n)
         self._dtype = dtype
+        self._device = torch.device(device)
 
     @property
     def in_size(self) -> int:
@@ -164,19 +173,19 @@ class IdentityOperator(LinearOperator):
         return x
 
     def row_norms_sq(self):
-        return torch.ones((self.n,), dtype=torch.float32)
+        return torch.ones((self.n,), dtype=torch.float32, device=self.device)
 
 
 class NormalOperator(LinearOperator):
     """Wraps A (and optional weights W) as the normal operator AᴴWA."""
 
-    def __init__(self, A: LinearOperator, weights=None):
+    def __init__(self, A: LinearOperator, weights=None, device="cuda"):
         super().__init__()
         self.A = A
         if weights is None:
             self.weights: Optional[torch.Tensor] = None
         else:
-            self.register_buffer("weights", torch.as_tensor(weights))
+            self.register_buffer("weights", torch.as_tensor(weights, device=device))
 
     @property
     def in_size(self) -> int:
@@ -232,11 +241,12 @@ def adjoint_operator(op: LinearOperator) -> LinearOperator:
     return _AdjointOperator(op)
 
 
-def as_operator(A) -> LinearOperator:
-    """Coerce a raw matrix / operator into a LinearOperator."""
+def as_operator(A, device="cuda") -> LinearOperator:
+    """Coerce a raw matrix / operator into a LinearOperator (a matrix goes
+    to `device`; an operator stays where it is)."""
     if isinstance(A, LinearOperator):
         return A
-    A = torch.as_tensor(A)
+    A = torch.as_tensor(A, device=device)
     if A.ndim != 2:
         raise ValueError(f"expected 2-D matrix, got shape {tuple(A.shape)}")
-    return DenseOperator(A)
+    return DenseOperator(A, device=device)

@@ -3,8 +3,9 @@
 PyTorch counterpart of ``SeparableConvOperator``
 (``rls_tpu/ops/conv_direct.py:106-296``) and ``_banded`` (:83-95):
 ``from_taps`` / ``from_kernel`` build the banded factors in f64 on the
-host; ``mv``, ``rmv`` and ``normal`` are plain banded products; ``taps_hw``
-and the exact shift-and-add adjoint ``rmv_stencil`` are kept.
+host and put them on ``device`` (default ``"cuda"``); ``mv``, ``rmv`` and
+``normal`` are plain banded products; ``taps_hw`` and the exact
+shift-and-add adjoint ``rmv_stencil`` are kept.
 
 Dropped: the ``cat`` factors and the ``_split_bf16`` hi/lo compensation
 (:239-252). They exist because the TPU rounds every matmul input to bf16;
@@ -88,7 +89,7 @@ class SeparableConvOperator(LinearOperator):
         )
 
     @classmethod
-    def from_taps(cls, taps_h, taps_w, im_shape, dtype=torch.float32):
+    def from_taps(cls, taps_h, taps_w, im_shape, dtype=torch.float32, device="cuda"):
         h, w = im_shape
         a_h = _banded(h, taps_h)
         a_w = _banded(w, taps_w)
@@ -102,16 +103,16 @@ class SeparableConvOperator(LinearOperator):
             for mat, tp in ((a_h, np.ravel(taps_h)), (a_w, np.ravel(taps_w)))
         )
         return cls(
-            ah=torch.as_tensor(a_h, dtype=dtype),
-            aw=torch.as_tensor(a_w, dtype=dtype),
-            bh=torch.as_tensor(b_h, dtype=dtype),
-            bw=torch.as_tensor(b_w, dtype=dtype),
+            ah=torch.as_tensor(a_h, dtype=dtype, device=device),
+            aw=torch.as_tensor(a_w, dtype=dtype, device=device),
+            bh=torch.as_tensor(b_h, dtype=dtype, device=device),
+            bw=torch.as_tensor(b_w, dtype=dtype, device=device),
             im_shape=(h, w),
             taps=taps,
         )
 
     @classmethod
-    def from_kernel(cls, kernel, im_shape, dtype=torch.float32, rank_tol=1e-6):
+    def from_kernel(cls, kernel, im_shape, dtype=torch.float32, rank_tol=1e-6, device="cuda"):
         """Factor a 2-D kernel via SVD; requires numerical rank 1."""
         k = np.asarray(kernel, np.float64)
         u, s, vt = np.linalg.svd(k)
@@ -125,7 +126,7 @@ class SeparableConvOperator(LinearOperator):
         # fix sign so the dominant tap is positive (pure convention)
         if taps_h[len(taps_h) // 2] < 0:
             taps_h, taps_w = -taps_h, -taps_w
-        return cls.from_taps(taps_h, taps_w, im_shape, dtype)
+        return cls.from_taps(taps_h, taps_w, im_shape, dtype, device)
 
     @property
     def in_size(self) -> int:

@@ -3,7 +3,9 @@
 PyTorch counterpart of ``GradientOperator`` (``rls_tpu/ops/grad.py:35-90``).
 Forward differences along each requested axis are concatenated:
 ``y = vcat_d (x[..., 1:, ...] - x[..., :-1, ...])``; the adjoint is the
-negative divergence. Leading batch axes pass through.
+negative divergence. Leading batch axes pass through. The operator holds
+no tensors; ``device`` (default ``"cuda"``) is what it reports as its
+device.
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ def _axis_block_size(shape: tuple[int, ...], d: int) -> int:
 class GradientOperator(LinearOperator):
     """Directional forward-difference operator on a flattened image."""
 
-    def __init__(self, im_shape, dims=None, dtype=torch.complex64):
+    def __init__(self, im_shape, dims=None, dtype=torch.complex64, device="cuda"):
         super().__init__()
+        self._device = torch.device(device)
         self.im_shape = tuple(int(s) for s in im_shape)
         if dims is None:
             dims = tuple(range(len(self.im_shape)))

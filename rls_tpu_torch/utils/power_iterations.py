@@ -30,7 +30,8 @@ def power_iterations(
     """Estimate the max eigenvalue of the (hermitian PSD) operator ``AHA``.
 
     ``AHA`` is a LinearOperator (uses .mv / .in_size / .dtype / .device)
-    or a callable ``x -> AHA x`` (then ``n`` and ``dtype`` must be given).
+    or a callable ``x -> AHA x`` (then ``n`` and ``dtype`` must be given,
+    and the start vector goes to ``device``, the card by default).
     Returns a 0-d tensor of the real dtype.
     """
     if callable(AHA) and not hasattr(AHA, "mv"):
@@ -38,7 +39,7 @@ def power_iterations(
         if n is None:
             raise ValueError("power_iterations with a callable needs n=")
         dt = dtype or torch.complex64
-        dev = torch.device(device or "cpu")
+        dev = torch.device(device or "cuda")
     else:
         op = AHA.mv
         n = AHA.in_size

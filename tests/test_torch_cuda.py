@@ -8,13 +8,15 @@ file imports no JAX, so it runs where JAX is absent:
 ragged row tiles and asymmetric taps cover what the flagship's symmetric
 256² run cannot. Tolerance: 1e-5 of max|x| (about 1 ulp of FMA
 contraction per op over a few iterations); the per-problem restart and
-freeze counts must agree exactly."""
+freeze counts, and the ADMM kernels' live CG steps, must agree exactly."""
 
 import numpy as np
 import pytest
 import torch
 
 import rls_tpu_torch as rtt
+from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
+from rls_tpu_torch.kernels import admm_tv_tiled as admm_tiled
 from rls_tpu_torch.kernels import fista_tv_fused as fused
 from rls_tpu_torch.kernels import fista_tv_tiled as tiled
 from rls_tpu_torch.kernels import tv_fgp
@@ -130,7 +132,7 @@ def test_tiled_kernel_matches_plain(dev, name, shape, tile_rows, taps, tv_iterat
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    op = rtt.SeparableConvOperator.from_taps(*TAPS, (8, 8))
+    op = rtt.SeparableConvOperator.from_taps(*TAPS, (8, 8), device="cpu")
     solver = rtt.FISTA.create(
         op, reg=rtt.TVRegularization(1e-3, shape=(8, 8), backend="cuda"), rho=0.9
     )
@@ -141,3 +143,83 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="float32"):
         tiled.fista_tv_tiled(torch.zeros(2, 8, 8, device=dev, dtype=torch.float64), TAPS,
                              0.9, 0.1, 3, 2)
+
+
+# ADMM-TV: (prox, tol_inner); a tol_inner of 0.05 makes the CG freeze
+ADMM_CASES = {
+    "none": ("none", 1e-5),
+    "positive": ("positive", 1e-5),
+    "freeze": ("none", 5e-2),
+    "positive-freeze": ("positive", 5e-2),
+}
+
+
+def _admm_inputs(dev, shape, seed=6):
+    rng = np.random.default_rng(seed)
+    x0 = torch.from_numpy(rng.normal(size=(3, *shape)).astype(np.float32)).to(dev)
+    rho = torch.tensor([0.1, 0.0, 0.4], device=dev)
+    lam = torch.tensor([1e-2, 5e-2, 0.1], device=dev)
+    return x0, rho, lam
+
+
+def _admm_plain(x0, taps, rho, lam, iterations, cg, tv_iterations, prox, tol):
+    scal, t2 = admm_fused.kernel_args(x0, rho, lam, tv_iterations)
+    return admm_fused.admm_tv_fused_torch(x0, scal, t2, taps, iterations, cg, tol, prox)
+
+
+@pytest.mark.parametrize("case", sorted(ADMM_CASES))
+@pytest.mark.parametrize("shape,taps", [((24, 20), MILD), ((9, 33), TAPS)])
+@pytest.mark.parametrize("tv_iterations", [0, 4])
+def test_admm_fused_kernel_matches_plain(dev, case, shape, taps, tv_iterations):
+    prox, tol = ADMM_CASES[case]
+    x0, rho, lam = _admm_inputs(dev, shape)
+    before = admm_fused.admm_tv_fused.launches
+    got, counts = admm_fused.admm_tv_fused(x0, taps, rho, lam, 6, 5, tv_iterations, tol,
+                                           prox=prox, with_counts=True)
+    assert admm_fused.admm_tv_fused.launches == before + 1
+    want, want_counts = _admm_plain(x0, taps, rho, lam, 6, 5, tv_iterations, prox, tol)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+    if case.endswith("freeze"):
+        assert min(counts.tolist()) < 6 * 5
+
+
+@pytest.mark.parametrize("case", sorted(ADMM_CASES))
+@pytest.mark.parametrize("shape,tile_rows,taps", [((40, 20), 8, MILD), ((33, 17), 5, TAPS)])
+@pytest.mark.parametrize("tv_iterations", [0, 4])
+def test_admm_tiled_kernel_matches_plain(dev, case, shape, tile_rows, taps, tv_iterations):
+    prox, tol = ADMM_CASES[case]
+    x0, rho, lam = _admm_inputs(dev, shape)
+    before = admm_tiled.admm_tv_tiled.launches
+    got, counts = admm_tiled.admm_tv_tiled(x0, taps, rho, lam, 6, 5, tv_iterations, tol,
+                                           prox=prox, tile_rows=tile_rows, with_counts=True)
+    assert admm_tiled.admm_tv_tiled.launches == before + admm_tiled.launches_per_solve(6, 5)
+    want, want_counts = _admm_plain(x0, taps, rho, lam, 6, 5, tv_iterations, prox, tol)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+    # no atomics: the same result run to run
+    again = admm_tiled.admm_tv_tiled(x0, taps, rho, lam, 6, 5, tv_iterations, tol, prox=prox,
+                                     tile_rows=tile_rows)
+    assert torch.equal(again, got)
+
+
+def test_admm_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x64 = torch.zeros(2, 8, 8, device=dev, dtype=torch.float64)
+    for fn in (admm_fused.admm_tv_fused, admm_tiled.admm_tv_tiled):
+        with pytest.raises(ValueError, match="float32"):
+            fn(x64, TAPS, 0.1, 0.1, 2, 2, 2, 1e-5)
+        with pytest.raises(ValueError, match="unknown prox"):
+            fn(x64.float(), TAPS, 0.1, 0.1, 2, 2, 2, 1e-5, prox="real")
+
+
+@pytest.mark.parametrize("iterations,cg", [(0, 3), (2, 0), (1, 1)])
+def test_admm_kernels_short_schedules(dev, iterations, cg):
+    """No outer iteration, no CG step, one of each: both kernels give the
+    plain version's result and counts."""
+    x0, rho, lam = _admm_inputs(dev, (20, 12))
+    want, want_counts = _admm_plain(x0, MILD, rho, lam, iterations, cg, 3, "positive", 1e-5)
+    for fn, kw in ((admm_fused.admm_tv_fused, {}), (admm_tiled.admm_tv_tiled, {"tile_rows": 6})):
+        got, counts = fn(x0, MILD, rho, lam, iterations, cg, 3, 1e-5, prox="positive",
+                         with_counts=True, **kw)
+        _close(got, want, 1e-5)
+        assert counts.tolist() == want_counts.tolist()

@@ -79,7 +79,7 @@ def test_fused_plain_matches_jax_fused(jax_fused, case):
     solver, B, want = jax_fused[case]
     tol = _CASES[case][2]
     before = tfused.fista_tv_fused.launches
-    got = rtt.solve_fista_tv_fused(convert(solver), torch.from_numpy(B))
+    got = rtt.solve_fista_tv_fused(convert(solver, device="cpu"), torch.from_numpy(B))
     assert got.shape == want.shape and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
     assert tfused.fista_tv_fused.launches == before  # CPU: plain version
@@ -90,7 +90,7 @@ def test_slice_solve_batched_fast_matches_jax(jax_fused):
     dispatch. On CPU the fused row runs its plain version (no launch), and
     no fallback warning is raised."""
     solver, B, want = jax_fused["24"]
-    tsolver = convert(solver)
+    tsolver = convert(solver, device="cpu")
     before = (tfused.fista_tv_fused.launches, tv_fgp.prox_tv2d_fgp.launches)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
@@ -101,23 +101,25 @@ def test_slice_solve_batched_fast_matches_jax(jax_fused):
     # Gram products: the JAX operator without its bf16 hi/lo compensation)
     solver_c, _ = _problem(24, compensated=False)
     want_c = np.asarray(jax_unrolled(solver_c, jnp.asarray(B)))
-    got_c = rtt.solve_batched_unrolled(convert(solver_c), torch.from_numpy(B))
+    got_c = rtt.solve_batched_unrolled(convert(solver_c, device="cpu"), torch.from_numpy(B))
     np.testing.assert_allclose(got_c.numpy(), want_c, rtol=0, atol=1e-5)
     assert (tfused.fista_tv_fused.launches, tv_fgp.prox_tv2d_fgp.launches) == before
 
 
 def test_solve_batched_fast_names_every_rejection():
     solver, B = _problem(12, reg=rt.L1Regularization(1e-3))
-    tsolver = convert(solver)
+    tsolver = convert(solver, device="cpu")
     Bt = torch.from_numpy(B)
     with pytest.warns(UserWarning) as rec:
         got = rtt.solve_batched_fast(tsolver, Bt)
     msg = str(rec[0].message)
     assert "pgm_tv: fused path requires TVRegularization" in msg
     assert "fista_tv_tiled: tiled path requires TVRegularization" in msg
+    assert "admm_tv: fused path requires an ADMM solver" in msg
+    assert "admm_tv_tiled: tiled path requires an ADMM solver" in msg
     for name in auto._NOT_YET_PORTED:
         assert f"{name}: not yet ported" in msg
-    assert len(auto._NOT_YET_PORTED) == 10
+    assert len(auto._NOT_YET_PORTED) == 8
     np.testing.assert_array_equal(got.numpy(), rtt.solve_batched_unrolled(tsolver, Bt).numpy())
 
 
@@ -128,7 +130,7 @@ def test_fused_rejects_what_is_not_yet_ported(restart):
     rejects, the port rejects with the same reason: warm_tv or interleave
     beside a restart, early exit for OptISTA, gradient_mapping for POGM."""
     solver, B = _problem(12, restart=restart)
-    tsolver = convert(solver)
+    tsolver = convert(solver, device="cpu")
     Bt, Bj = torch.from_numpy(B), jnp.asarray(B)
     assert tfused.check_pgm_tv_fused(tsolver) == "fista" == jfused.check_pgm_tv_fused(solver)
     want = jfused.solve_pgm_tv_fused(solver, Bj, interpret=True, fgp_unroll=True)
@@ -146,7 +148,7 @@ def test_fused_rejects_what_is_not_yet_ported(restart):
         cases.append((other, {}, "gradient_mapping restart is a FISTA mode"))
     for jsolver, kw, match in cases:
         with pytest.raises(ValueError, match=match):
-            tfused.solve_pgm_tv_fused(convert(jsolver), Bt, **kw)
+            tfused.solve_pgm_tv_fused(convert(jsolver, device="cpu"), Bt, **kw)
         with pytest.raises(ValueError, match=match):
             jfused.solve_pgm_tv_fused(jsolver, Bj, interpret=True, fgp_unroll=True, **kw)
 

@@ -68,7 +68,7 @@ def test_composed_pgm_matches_jax(case, dtype, tol):
                               normalize_reg=rt.MeasurementBasedNormalization(), **kw)
         want_u = np.asarray(rt.solve_batched_unrolled(jsolver, jnp.asarray(B)))
         want_b = np.asarray(rt.solve_batched(jsolver, jnp.asarray(B)))
-    tsolver = convert(jsolver)
+    tsolver = convert(jsolver, device="cpu")
     assert type(tsolver) is getattr(rtt, cls)
     Bt = torch.from_numpy(B)
     got_u = rtt.solve_batched_unrolled(tsolver, Bt)
@@ -85,7 +85,8 @@ def test_pogm_restart_changes_the_trajectory():
     for kw in ({}, {"restart": "gradient", "sigma_fac": 0.8}):
         jsolver, B = _problem("POGM", n=12, compensated=False, backend="xla",
                               iterations=8, **kw)
-        runs.append(rtt.solve_batched_unrolled(convert(jsolver), torch.from_numpy(B)))
+        tsolver = convert(jsolver, device="cpu")
+        runs.append(rtt.solve_batched_unrolled(tsolver, torch.from_numpy(B)))
     assert float((runs[0] - runs[1]).abs().max()) > 1e-5
 
 
@@ -123,7 +124,7 @@ def test_fused_schedules_match_jax_fused(case):
     solver, B = _problem(cls, **skw)
     want = np.asarray(jfused.solve_pgm_tv_fused(
         solver, jnp.asarray(B), interpret=True, fgp_unroll=True, **fkw))
-    tsolver = convert(solver)
+    tsolver = convert(solver, device="cpu")
     Bt = torch.from_numpy(B)
     before = tfused.fista_tv_fused.launches
     got = rtt.solve_pgm_tv_fused(tsolver, Bt, **fkw)
@@ -154,7 +155,7 @@ def test_interleave_runs_the_one_kernel():
     gives the interleave=1 result; JAX's interleaved kernel agrees to its
     hi/lo Gram's 1e-4 (64²)."""
     solver, B = _problem("POGM", n=64, taps=GAUSS5, iterations=6)
-    tsolver = convert(solver)
+    tsolver = convert(solver, device="cpu")
     Bt = torch.from_numpy(B[:, :2])
     one = rtt.solve_pgm_tv_fused(tsolver, Bt)
     two = rtt.solve_pgm_tv_fused(tsolver, Bt, interleave=2)
@@ -166,7 +167,8 @@ def test_interleave_runs_the_one_kernel():
         rtt.solve_pgm_tv_fused(tsolver, torch.from_numpy(B), interleave=2)
     small, Bs = _problem("FISTA", n=24)
     with pytest.raises(ValueError, match="% 64"):
-        rtt.solve_pgm_tv_fused(convert(small), torch.from_numpy(Bs[:, :2]), interleave=2)
+        rtt.solve_pgm_tv_fused(convert(small, device="cpu"), torch.from_numpy(Bs[:, :2]),
+                               interleave=2)
 
 
 @pytest.mark.parametrize("cls", ["OptISTA", "POGM"])
@@ -178,5 +180,5 @@ def test_slice_solve_batched_fast_matches_jax(cls):
     want = np.asarray(jax_fast(solver, jnp.asarray(B), warn=False))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        got = rtt.solve_batched_fast(convert(solver), torch.from_numpy(B))
+        got = rtt.solve_batched_fast(convert(solver, device="cpu"), torch.from_numpy(B))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)

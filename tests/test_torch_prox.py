@@ -32,7 +32,7 @@ def test_prox_tv_fgp_matches_jax(rng, dtype, tol):
             np.asarray(jax_prox_tv_fgp(jnp.asarray(x), lam, jg, 7))
             for x, lam in zip(X, lams)
         ])
-    tg = rtt.GradientOperator(im_shape=SHAPE, dtype=getattr(torch, dtype))
+    tg = rtt.GradientOperator(im_shape=SHAPE, dtype=getattr(torch, dtype), device="cpu")
     got = tprox.prox_tv_fgp(torch.from_numpy(X), torch.from_numpy(lams), tg, 7)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
     np.testing.assert_array_equal(got[1].numpy(), X[1])  # λ = 0
@@ -63,7 +63,7 @@ def test_tv_regularization_matches_jax(rng, backend):
     n = SHAPE[0] * SHAPE[1]
     x = rng.normal(size=(n,)).astype(np.float32)
     jreg = rt.TVRegularization(0.1, shape=SHAPE, iterations_tv=6, backend=backend)
-    treg = convert(jreg)
+    treg = convert(jreg, device="cpu")
     assert treg.backend == {"xla": "torch", "pallas": "cuda"}[backend]
     want = np.asarray(jreg.prox(jnp.asarray(x)))
     got = treg.prox(torch.from_numpy(x)).numpy()
@@ -82,7 +82,7 @@ def test_l1_and_projections_match_jax(rng, dtype):
         x = (x + 1j * rng.normal(size=x.shape)).astype(np.complex64)
     lams = np.array([0.3, 0.05], np.float32)
     jreg = rt.L1Regularization(0.3)
-    treg = convert(jreg)
+    treg = convert(jreg, device="cpu")
     xt = torch.from_numpy(x)
     for i, lam in enumerate(lams):
         np.testing.assert_allclose(
@@ -95,5 +95,6 @@ def test_l1_and_projections_match_jax(rng, dtype):
     for name in ("PositiveRegularization", "RealRegularization"):
         jp = getattr(rt, name)()
         np.testing.assert_array_equal(
-            convert(jp).prox(xt).numpy(), np.stack([np.asarray(jp.prox(jnp.asarray(v))) for v in x])
+            convert(jp, device="cpu").prox(xt).numpy(),
+            np.stack([np.asarray(jp.prox(jnp.asarray(v))) for v in x]),
         )

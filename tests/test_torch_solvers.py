@@ -45,7 +45,7 @@ def test_composed_fista_matches_jax(rng, restart, dtype, tol):
         want_one = np.asarray(rt.solve(jsolver, jnp.asarray(B[:, 0])))
         want_b = np.asarray(rt.solve_batched(jsolver, jnp.asarray(B)))
         want_u = np.asarray(rt.solve_batched_unrolled(jsolver, jnp.asarray(B)))
-    tsolver = convert(jsolver)
+    tsolver = convert(jsolver, device="cpu")
     Bt = torch.from_numpy(B)
     got_one = rtt.solve(tsolver, Bt[:, 0])
     got_b = rtt.solve_batched(tsolver, Bt)
@@ -67,7 +67,7 @@ def test_solve_batched_freezes_converged_problems(rng):
     jsolver = rt.FISTA.create(jsolver.A, reg=jsolver.reg, iterations=30, rho=0.9,
                               rel_tol=1e-3)
     B[:, 1] = 0.0
-    tsolver = convert(jsolver)
+    tsolver = convert(jsolver, device="cpu")
     got = rtt.solve_batched(tsolver, torch.from_numpy(B))
     np.testing.assert_array_equal(got[:, 1].numpy(), 0.0)
     for j in (0, 2):
@@ -85,7 +85,8 @@ def test_power_iterations_matches_eigvalsh(taps):
     both packages), so that case runs to a tighter rtol."""
     th = np.exp(-((np.arange(5) - 2) ** 2) / 2.0) if taps == "symmetric" else np.array(
         [0.1, 0.5, 0.25, -0.2, 0.05])
-    op = rtt.SeparableConvOperator.from_taps(th, th[::-1], (10, 9), dtype=torch.float64)
+    op = rtt.SeparableConvOperator.from_taps(th, th[::-1], (10, 9), dtype=torch.float64,
+                                             device="cpu")
     dense = op.to_dense().numpy()
     want = np.linalg.eigvalsh(dense.T @ dense)[-1]
     kw = {} if taps == "symmetric" else {"rtol": 1e-7, "maxiter": 300}

@@ -46,7 +46,8 @@ def test_tiled_plain_matches_jax_tiled(case):
     want = np.asarray(jtiled.solve_fista_tv_tiled(
         solver, jnp.asarray(B), tile_rows=8, interpret=True, **fkw))
     before = ttiled.fista_tv_tiled.launches
-    got = rtt.solve_fista_tv_tiled(convert(solver), torch.from_numpy(B), tile_rows=8, **fkw)
+    got = rtt.solve_fista_tv_tiled(convert(solver, device="cpu"), torch.from_numpy(B),
+                                   tile_rows=8, **fkw)
     assert ttiled.fista_tv_tiled.launches == before  # CPU: plain version
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
@@ -82,7 +83,7 @@ def test_tile_windows_reproduce_the_whole_image(taps, tv_iterations, tile_rows):
 
 
 def _rtt_solver(n, cls="FISTA", **kw):
-    op = rtt.SeparableConvOperator.from_taps(GAUSS5, GAUSS5, (n, n))
+    op = rtt.SeparableConvOperator.from_taps(GAUSS5, GAUSS5, (n, n), device="cpu")
     reg = rtt.TVRegularization(5e-4, shape=(n, n), iterations_tv=10, backend="cuda")
     return getattr(rtt, cls).create(op, reg=reg, iterations=50, rho=0.95, **kw)
 
@@ -106,7 +107,7 @@ def test_dispatch_sends_large_images_to_the_tiled_kernel(n, row):
 def test_tiled_rejections_name_the_reason():
     with pytest.raises(ValueError, match="tiled path requires TVRegularization"):
         ttiled.check_fista_tv_tiled(rtt.FISTA.create(
-            rtt.SeparableConvOperator.from_taps(GAUSS5, GAUSS5, (16, 16)),
+            rtt.SeparableConvOperator.from_taps(GAUSS5, GAUSS5, (16, 16), device="cpu"),
             reg=rtt.L1Regularization(1e-3), rho=0.9))
     with pytest.raises(ValueError, match="gradient_mapping restart is a FISTA mode"):
         ttiled.check_fista_tv_tiled(_rtt_solver(16, "POGM", restart="gradient_mapping"))
