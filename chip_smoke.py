@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: CUDA must be present; TF32 is switched off for matmuls and
      cuDNN; the card's name and power limit are printed;
-  2. build: the five CUDA kernels are compiled from rls_tpu_torch/csrc
+  2. build: the seven CUDA sources are compiled from rls_tpu_torch/csrc
      (one nvcc per source, all at once);
   3. each kernel against its plain PyTorch version on the card, with both
      times: the TV prox and the fused solve (FISTA, OptISTA, POGM) at the
@@ -38,14 +38,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernel), each held on two columns against a float64 solve of the
      plain version on the card, with a torch.profiler breakdown of the
      device time of one solve of each;
+  3g. each dense kernel against its plain version, held to the plain
+     version's own spread under b·(1 + 2⁻²³) in the same run and to the
+     restart-count rule (DENSE_SPREAD): the fused CGNR on the 64×64 cell,
+     the 1024×512 cell, with Positive at batch 4 and on a complex A
+     through the split-real embedding; the dense FISTA / OptISTA / POGM on
+     the LASSO cell (600 iterations, and 100 for the restart schedules,
+     the table methods and FISTA-L2 with Positive); the plane kernel on a
+     complex A (FISTA with gradient restart and Real, POGM) and on the real
+     A with a complex b;
+  8. the dense cells through solve_batched_fast, each running its kernel
+     once by the launch counters, with problems/s:
+     cgnr_l2_dense64_fused_b16 (printed against a float64 DirectSolver;
+     the refined CGNR, 3 rounds on 4 columns, held to TOL_PARITY and
+     TOL_RESIDUAL), cgnr_l2_dense_1024x512_b64 (held on 4 columns, with a
+     torch.linalg.solve yardstick), fista_l1_dense_cs_b16_fused (held to
+     TOL_RESIDUAL on 2 columns against a float64 solve of the plain
+     version), its OptISTA and POGM at 100 iterations, and the complex
+     FISTA case;
   7. the kernel table as one JSON line (launches on the main path, error
      against the plain version, kernel and plain times, and the least
      time the card could take, `bound_ms`), then the result line
      {"ok": true, "device": {...}}.
 
-The flagship problem is rebuilt with numpy exactly as bench.py:36-68
-builds it, the other cells as tools/bench_suite.py:127-151 and :308-379
-build them (replaying its seeded generator).
+Phase 8 runs after phase 6; the table and the result line come last. The
+flagship problem is rebuilt with numpy exactly as bench.py:36-68 builds
+it, the other cells as tools/bench_suite.py:79-102, :127-151, :204-225
+and :308-379 build them (replaying its seeded generator).
 """
 
 from __future__ import annotations
@@ -82,6 +101,24 @@ ADMM_SPREAD = 2.0
 ADMM_RHO, ADMM_TOL = 0.1, 1e-5
 ADMM256 = (256, 16, 2e-3, 12, 6, 8)
 ADMM512 = (512, 16, 5e-4, 10, 5, 10)
+# the dense cells: tools/bench_suite.py:79-102 (CGNR, 64×64, λ = 1e-6, 200
+# iterations = 64 steps, batch 16) and :204-225 (FISTA-L1 on 256×512, λ =
+# 1e-4, ρ = 0.95/‖A‖₂², 600 iterations, batch 16; its restart schedules,
+# OptISTA, POGM and the complex cases run 100 iterations), and the 1024×512
+# CGNR at the JAX kernels' largest size class (λ = 1e-3, 64 iterations,
+# batch 64). On the 64×64 CGNR and the 600-iteration LASSO a 1-ulp change
+# of b moves the f32 solve by ~1e-2, so each dense kernel is held to the
+# plain version's own spread under b·(1 + 2⁻²³), measured in the same run:
+# within max(DENSE_SPREAD × spread, DENSE_FLOOR) in relative 2-norm and
+# 1e-3 of max|x| at any entry, and its restart counts to Σ|kernel − plain|
+# ≤ 2·Σ|plain − plain(1 ulp)| + 1. The accuracy bars of these cells are
+# the refined CGNR's and the well-conditioned 1024×512 CGNR's (TOL_PARITY
+# and TOL_RESIDUAL against a float64 DirectSolver) and the LASSO's
+# residual (TOL_RESIDUAL against a float64 solve of the plain version).
+CGNR64_LAM, CGNR64_ITERS = 1e-6, 200
+CGNR1K_LAM, CGNR1K_ITERS = 1e-3, 64
+LASSO_LAM, LASSO_ITERS, SHORT_ITERS = 1e-4, 600, 100
+DENSE_SPREAD, DENSE_FLOOR = 2.0, 1e-5
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): f32
 # outside the tensor cores, and HBM3
 PEAK_F32_OPS = 67e12
@@ -115,14 +152,18 @@ def phantoms(n=N, batch=BATCH):
     return imgs.reshape(batch, n * n)
 
 
-def bench_suite_phantoms():
-    """The phantoms of tools/bench_suite.py: the ADMM-TV deblurring image
-    (256², :132-135), the 512² batch of 16 (:326-331) and the 1024² batch
-    of 8 (:367-372), as (256², (16, 512²), (8, 1024²)) f32 arrays, from its
-    generator default_rng(0) replayed through the draws of the other cells
-    (:81-294)."""
+def bench_suite_draws():
+    """The seeded draws of tools/bench_suite.py that this run rebuilds,
+    from its generator default_rng(0) replayed through the other cells'
+    draws (:81-294): the dense CGNR cell's A (64×64) and XT1 (64×16,
+    :80-96), the ADMM-TV deblurring image (256², :132-135), the dense LASSO
+    cell's A (256×512) and sparse X (512×16, 5% nonzero, :208-211), and the
+    512² batch of 16 (:326-331) and 1024² batch of 8 (:367-372) of
+    phantoms; all float32, the images flattened."""
     rng = np.random.default_rng(0)
-    rng.normal(size=(64, 64)), rng.normal(size=(64,)), rng.normal(size=(64, 16))
+    a64 = (rng.normal(size=(64, 64)).astype(np.float32) / np.float32(8.0)).astype(np.float32)
+    rng.normal(size=(64,))
+    xt1 = rng.normal(size=(64, 16)).astype(np.float32)
     for _ in range(8):
         rng.integers(0, 256 - 20, 2), rng.uniform(0.3, 1.0)
     rng.choice(256 * 256, size=int(0.35 * 256 * 256), replace=False)
@@ -130,10 +171,11 @@ def bench_suite_phantoms():
     for _ in range(6):
         i0, j0 = rng.integers(0, 256 - 40, 2)
         img3[i0 : i0 + 30, j0 : j0 + 30] += rng.uniform(0.3, 1.0)
-    rng.normal(size=(256, 512)), rng.normal(size=(512, 16)), rng.uniform(size=(512, 16))
+    a2b = (rng.normal(size=(256, 512)) / np.sqrt(256)).astype(np.float32)
+    x2b = (rng.normal(size=(512, 16)) * (rng.uniform(size=(512, 16)) < 0.05)).astype(np.float32)
     rng.normal(size=(1024, 256)), rng.uniform(size=(1024, 256)), rng.normal(size=(256,))
     rng.normal(size=(8192, 2048)), rng.normal(size=(2048,))
-    out = []
+    out = {"cgnr64": (a64, xt1), "admm": img3.reshape(-1), "lasso": (a2b, x2b)}
     for n, batch, margin, lo, hi in ((512, 16, 64, 16, 128), (1024, 8, 128, 32, 256)):
         imgs = np.zeros((batch, n, n), np.float32)
         for b in range(batch):
@@ -141,8 +183,36 @@ def bench_suite_phantoms():
                 i0, j0 = rng.integers(0, n - margin, size=2)
                 w, h = rng.integers(lo, hi, size=2)
                 imgs[b, i0 : i0 + w, j0 : j0 + h] += rng.normal()
-        out.append(imgs.reshape(batch, n * n))
-    return (img3.reshape(-1), *out)
+        out[n] = imgs.reshape(batch, n * n)
+    return out
+
+
+def dense_systems(draws):
+    """The dense systems of phases 3g and 8, as numpy (A, B with one
+    problem per column): the two cells of tools/bench_suite.py
+    (cgnr_l2_dense64_fused_b16, fista_l1_dense_cs_b16_fused), the 1024×512
+    CGNR cell (A = N(0,1)/√1024, XT = N(0,1) 512×64, default_rng(1)), a
+    complex A of 256×512 with entries (N + iN)/√(2·256) and the LASSO
+    cell's X as its phantoms (default_rng(2)), and the LASSO cell's real A
+    with a complex b (a second sparse X from the same generator as the
+    imaginary part)."""
+    a64, xt1 = draws["cgnr64"]
+    a2b, x2b = draws["lasso"]
+    rng = np.random.default_rng(1)
+    a1k = (rng.normal(size=(1024, 512)) / np.sqrt(1024)).astype(np.float32)
+    x1k = rng.normal(size=(512, 64)).astype(np.float32)
+    rng = np.random.default_rng(2)
+    ac = ((rng.normal(size=(256, 512)) + 1j * rng.normal(size=(256, 512)))
+          / np.sqrt(2 * 256)).astype(np.complex64)
+    xi = (rng.normal(size=(512, 16)) * (rng.uniform(size=(512, 16)) < 0.05)).astype(np.float32)
+    return {
+        # bench_suite multiplies the float64 quotient A / √64 (numpy ≥ 2)
+        "cgnr64": (a64, (a64.astype(np.float64) @ xt1).astype(np.float32)),
+        "cgnr1k": (a1k, (a1k.astype(np.float64) @ x1k).astype(np.float32)),
+        "lasso": (a2b, a2b @ x2b),
+        "cplx": (ac, (ac @ x2b.astype(np.complex64)).astype(np.complex64)),
+        "real_a_cplx_b": (a2b, (a2b @ x2b + 1j * (a2b @ xi)).astype(np.complex64)),
+    }
 
 
 def build_solver(n, device, cls="FISTA", dtype=None):
@@ -429,13 +499,14 @@ def device_breakdown(name, fn):
 
 
 def launch_counts(reset=False):
-    """The launch counters of the five kernel wrappers, by name; with
+    """The launch counters of the eight kernel wrappers, by name; with
     `reset`, set them to 0 first."""
-    from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, fista_tv_fused
-    from rls_tpu_torch.kernels import fista_tv_tiled, tv_fgp
+    from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_tv_fused
+    from rls_tpu_torch.kernels import fista_tv_tiled, pgm_dense_fused, tv_fgp
 
     fns = (tv_fgp.prox_tv2d_fgp, fista_tv_fused.fista_tv_fused, fista_tv_tiled.fista_tv_tiled,
-           admm_tv_fused.admm_tv_fused, admm_tv_tiled.admm_tv_tiled)
+           admm_tv_fused.admm_tv_fused, admm_tv_tiled.admm_tv_tiled, cgnr_fused.cgnr_fused,
+           pgm_dense_fused.pgm_dense_fused, pgm_dense_fused.pgm_dense_fused_cplx)
     if reset:
         for fn in fns:
             fn.launches = 0
@@ -533,6 +604,295 @@ def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
         print(f"{label}: {batch / (ms / 1e3):.1f} problems/s ({ms:.2f} ms per batch of {batch})")
     device_breakdown(name, lambda: rtt.solve_batched_fast(solver, B))
     return counts[0]
+
+
+def dense_pgm_ops(m, n, iterations, cplx=False):
+    """f32 operations of one dense PGM solve per problem: x0hat = Aᴴb
+    (2mn, ×4 complex), and per iteration the matvec pair (4mn, ×4 complex)
+    and the entry-wise work: FISTA's momentum (3), residual (1), gradient
+    step (2), the L1 prox (6) and a restart dot (3), doubled on the two
+    planes of complex data."""
+    c = 4 if cplx else 1
+    return c * 2 * m * n + iterations * (c * 4 * m * n + (2 if cplx else 1) * 15 * n)
+
+
+def hold_dense(name, kernel, plain, b, counts=True):
+    """Run `kernel(*b)` and `plain(*b)` (each → (x, counts)), and the plain
+    version once more on b·(1 + 2⁻²³); print the error and the plain
+    version's own spread, and the per-problem restart counts of all three
+    with `counts`. The kernel must lie within max(DENSE_SPREAD × spread,
+    DENSE_FLOOR) in relative 2-norm and within TOL_FUSED_MAX of max|x| at
+    any entry, and its counts must obey Σ|kernel − plain| ≤ 2·Σ|plain −
+    plain(1 ulp)| + 1. Returns max|kernel − plain|."""
+    import torch
+
+    got, kc = kernel(*b)
+    want, pc = plain(*b)
+    ulp, uc = plain(*(t * (1.0 + 2.0**-23) for t in b))
+    torch.cuda.synchronize()
+    norm = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    spread = float(torch.linalg.norm(ulp - want) / torch.linalg.norm(want))
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    bar = max(DENSE_SPREAD * spread, DENSE_FLOOR)
+    print(f"{name}: max|kernel - plain| = {err:.3e} (max|x| {scale:.3f}), rel. 2-norm "
+          f"{norm:.3e}; plain under b(1 + 2^-23): rel. 2-norm {spread:.3e} (bar {bar:.3e})")
+    require(bool(torch.isfinite(got).all()), f"{name} kernel gave non-finite values")
+    require(norm <= bar and err <= TOL_FUSED_MAX * scale,
+            f"{name} kernel disagrees: max {err:.3e}, rel. 2-norm {norm:.3e}")
+    if counts:
+        d_kernel = int((kc - pc).abs().sum())
+        d_plain = int((pc - uc).abs().sum())
+        print(f"{name}: restarts kernel {kc.tolist()} plain {pc.tolist()} "
+              f"plain(1 ulp) {uc.tolist()}")
+        require(d_kernel <= 2 * d_plain + 1,
+                f"{name}: the restart counts differ by {d_kernel} (plain's own: {d_plain})")
+    return err
+
+
+def dense_kernel_phase(dev, systems):
+    """Phase 3g: each dense kernel against its plain version at the dense
+    cells' shapes (`hold_dense`), and each kernel timed in turns with its
+    plain version at its main-path shape (the 1024×512 CGNR cell, the
+    600-iteration LASSO cell, the complex FISTA case). Returns {kernel:
+    {"err", "ms": (plain, kernel)}}."""
+    import torch
+
+    from rls_tpu_torch.kernels import cgnr_fused as cg
+    from rls_tpu_torch.kernels import pgm_dense_fused as pd
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    out = {k: {"err": 0.0} for k in ("cgnr_fused", "pgm_dense_fused", "pgm_dense_fused_cplx")}
+
+    def note(kernel, err):
+        out[kernel]["err"] = max(out[kernel]["err"], err)
+
+    # CGNR: the two cells, Positive at batch 4, and the complex A through
+    # the split-real embedding
+    a_c, b_c = systems["cplx"]
+    emb_a, emb_b = cg.split_real_embedding(t(a_c), t(b_c.T))
+    cases = (
+        ("cgnr_l2_dense64_fused_b16", *map(t, systems["cgnr64"]), CGNR64_LAM, CGNR64_ITERS,
+         "none"),
+        ("cgnr_l2_dense_1024x512_b64", *map(t, systems["cgnr1k"]), CGNR1K_LAM, CGNR1K_ITERS,
+         "none"),
+        ("1024x512, batch 4, positive", t(systems["cgnr1k"][0]), t(systems["cgnr1k"][1][:, :4]),
+         CGNR1K_LAM, CGNR1K_ITERS, "positive"),
+        ("complex 256x512 embedded, batch 16", emb_a, emb_b.T, CGNR1K_LAM, 64, "none"),
+    )
+    for label, A, B, lam, iters, prox in cases:
+        bt = B.T.contiguous()
+        lam_v = torch.full((bt.shape[0],), lam, device=dev)
+        steps = min(iters, A.shape[1])
+
+        def kernel(b, A=A, lam_v=lam_v, steps=steps, prox=prox):
+            return cg.cgnr_fused(b, A, lam_v, steps, prox), None
+
+        def plain(b, A=A, lam_v=lam_v, steps=steps, prox=prox):
+            return cg.cgnr_fused_torch(b, A, lam_v, steps, prox), None
+
+        note("cgnr_fused", hold_dense(f"cgnr_fused[{label}]", kernel, plain, (bt,),
+                                      counts=False))
+        if label.startswith("cgnr_l2_dense_1024"):
+            out["cgnr_fused"]["ms"] = alternate_ms(lambda: plain(bt), lambda: kernel(bt), reps=3)
+
+    # dense PGM on the LASSO cell's real A
+    a2b, b2b = systems["lasso"]
+    A, bt = t(a2b), t(b2b.T)
+    rho = 0.95 / float(np.linalg.norm(a2b, 2)) ** 2
+    for method, restart, kind, prox, iters in (
+        ("fista", "none", "l1", "none", LASSO_ITERS),
+        ("fista", "gradient", "l1", "none", SHORT_ITERS),
+        ("fista", "gradient_mapping", "l1", "none", SHORT_ITERS),
+        ("optista", "none", "l1", "none", SHORT_ITERS),
+        ("pogm", "none", "l1", "none", SHORT_ITERS),
+        ("fista", "none", "l2", "positive", SHORT_ITERS),
+    ):
+        sched = (iters, method, kind, restart, prox)
+
+        def kernel(b, sched=sched):
+            return pd.pgm_dense_fused(b, A, LASSO_LAM, rho, 1.0, *sched, with_counts=True)
+
+        def plain(b, sched=sched):
+            scal, tab = pd.kernel_args(b, LASSO_LAM, rho, 1.0, sched[1], sched[0])
+            return pd.pgm_dense_fused_torch(b, A, scal, tab, *sched)
+
+        label = f"pgm_dense_fused[{method}-{kind}, restart {restart}, {prox}, {iters} it.]"
+        note("pgm_dense_fused", hold_dense(label, kernel, plain, (bt,)))
+        if iters == LASSO_ITERS:
+            out["pgm_dense_fused"]["ms"] = alternate_ms(lambda: plain(bt), lambda: kernel(bt),
+                                                        reps=2)
+
+    # complex data as planes: the complex A, and the real A with a complex b
+    for label, key, method, restart, prox in (
+        ("complex A, fista-l1, gradient restart, real", "cplx", "fista", "gradient", "real"),
+        ("complex A, pogm-l1", "cplx", "pogm", "none", "none"),
+        ("real A, complex b, fista-l1, gradient restart", "real_a_cplx_b", "fista", "gradient",
+         "none"),
+    ):
+        a, b = systems[key]
+        ar, ai = t(a.real.astype(np.float32)), t(a.imag.astype(np.float32))
+        br, bi = t(b.real.T.astype(np.float32)), t(b.imag.T.astype(np.float32))
+        rho_c = 0.95 / float(np.linalg.norm(a, 2)) ** 2
+        sched = (SHORT_ITERS, method, "l1", restart, prox)
+
+        def kernel(br, bi, ar=ar, ai=ai, rho_c=rho_c, sched=sched):
+            xr, xi, n = pd.pgm_dense_fused_cplx(br, bi, ar, ai, LASSO_LAM, rho_c, 1.0, *sched,
+                                                with_counts=True)
+            return torch.stack([xr, xi]), n
+
+        def plain(br, bi, ar=ar, ai=ai, rho_c=rho_c, sched=sched):
+            scal, tab = pd.kernel_args(br, LASSO_LAM, rho_c, 1.0, sched[1], sched[0])
+            xr, xi, n = pd.pgm_dense_fused_cplx_torch(br, bi, ar, ai, scal, tab, *sched)
+            return torch.stack([xr, xi]), n
+
+        note("pgm_dense_fused_cplx", hold_dense(f"pgm_dense_fused_cplx[{label}]", kernel, plain,
+                                                (br, bi)))
+        if key == "cplx" and method == "fista":
+            out["pgm_dense_fused_cplx"]["ms"] = alternate_ms(
+                lambda: plain(br, bi), lambda: kernel(br, bi), reps=2)
+    for name, row in out.items():
+        print(f"{name}: kernel {row['ms'][1]:.3f} ms, plain {row['ms'][0]:.3f} ms")
+    return out
+
+
+def dense_parity(name, x, B, A64, x64, hold=True):
+    """The first k = len(x64) columns of a dense solve `x` (n × K) against
+    the float64 solutions `x64` (n × k) of the same columns of B: the worst
+    column's relative error and |‖A x − b‖ − ‖A x64 − b‖| / ‖b‖ with A in
+    float64; held to TOL_PARITY and TOL_RESIDUAL with `hold`. Returns
+    both."""
+    import torch
+
+    k = x64.shape[1]
+    require(bool(torch.isfinite(x).all()), f"{name}: non-finite values")
+    xc = x[:, :k].to(x64.dtype)
+    b = B[:, :k].to(x64.dtype)
+    rel = float(max(torch.linalg.norm(xc[:, j] - x64[:, j]) / torch.linalg.norm(x64[:, j])
+                    for j in range(k)))
+    res = float(max(
+        abs(torch.linalg.norm(A64 @ xc[:, j] - b[:, j]) - torch.linalg.norm(A64 @ x64[:, j]
+                                                                            - b[:, j]))
+        / torch.linalg.norm(b[:, j])
+        for j in range(k)
+    ))
+    print(f"{name}: parity_max_rel_err vs f64 {rel:.3e}, parity_residual_rel_diff vs f64 "
+          f"{res:.3e}{'' if hold else ' (printed, not held)'}")
+    if hold:
+        require(rel <= TOL_PARITY, f"{name}: parity_max_rel_err vs f64 {rel:.3e}")
+        require(res <= TOL_RESIDUAL, f"{name}: parity_residual_rel_diff vs f64 {res:.3e}")
+    return rel, res
+
+
+def dense_cell_phase(dev, systems):
+    """Phase 8: the dense cells through solve_batched_fast, each with the
+    launch counters set to 0 just before the solve and read just after
+    (exactly one launch of its kernel, none of any other), problems/s, and
+    the accuracy bars. Returns the launches of each dense kernel summed
+    over these runs, and the torch.linalg.solve yardstick of the 1024×512
+    cell in ms."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import pgm_dense_fused as pd
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    launched = {"cgnr_fused": 0, "pgm_dense_fused": 0, "pgm_dense_fused_cplx": 0}
+
+    def run(name, solver, B, kernel):
+        launch_counts(reset=True)
+        x = rtt.solve_batched_fast(solver, B)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        print(f"launches ({name}): {got}")
+        require(got == {**{k: 0 for k in got}, kernel: 1},
+                f"{name}: expected one launch of {kernel} and no others")
+        launched[kernel] += 1
+        require(tuple(x.shape) == (solver.A.in_size, B.shape[1]),
+                f"{name}: shape {tuple(x.shape)}")
+        require(bool(torch.isfinite(x).all()), f"{name}: non-finite values")
+        ms = cuda_ms(lambda: rtt.solve_batched_fast(solver, B), reps=3)
+        print(f"{name}: {B.shape[1] / (ms / 1e3):.1f} problems/s ({ms:.3f} ms per batch of "
+              f"{B.shape[1]})")
+        return x
+
+    def direct64(A, B, lam, k):
+        ds = rtt.DirectSolver.create(rtt.DenseOperator(A.double(), device=dev),
+                                     reg=rtt.L2Regularization(lam))
+        return rtt.solve_batched_unrolled(ds, B[:, :k].double())
+
+    # the two CGNR cells
+    library_ms = None
+    for name, key, lam, iters in (
+        ("cgnr_l2_dense64_fused_b16", "cgnr64", CGNR64_LAM, CGNR64_ITERS),
+        ("cgnr_l2_dense_1024x512_b64", "cgnr1k", CGNR1K_LAM, CGNR1K_ITERS),
+    ):
+        A, B = map(t, systems[key])
+        solver = rtt.CGNR.create(rtt.DenseOperator(A, device=dev), reg=rtt.L2Regularization(lam),
+                                 iterations=iters)
+        x = run(name, solver, B, "cgnr_fused")
+        x64 = direct64(A, B, lam, 4)
+        if key == "cgnr64":
+            # the fused f32 CG on cond(AᴴA) ≈ 4e4: printed, not held; the
+            # refined solve carries this cell's accuracy bar
+            dense_parity(name, x, B, A.double(), x64, hold=False)
+            xr = rtt.solve_cgnr_refined(solver, B[:, :4].T.contiguous(), rounds=3).T
+            dense_parity(f"{name} solve_cgnr_refined (3 rounds, 4 columns)", xr, B,
+                         A.double(), x64)
+        else:
+            dense_parity(name, x, B, A.double(), x64)
+            # the yardstick: one torch.linalg.solve on the regularized Gram,
+            # built outside the timed call as the kernel's inputs are
+            G = A.T @ A + lam * torch.eye(A.shape[1], device=dev)
+            AtB = A.T @ B
+            torch.linalg.solve(G, AtB)  # warm-up: the solver library's set-up
+            library_ms = cuda_ms(lambda: torch.linalg.solve(G, AtB), reps=10)
+            print(f"{name}: torch.linalg.solve(G, AᵀB) {library_ms:.3f} ms (yardstick)")
+
+    # the LASSO cell, with the table methods and the complex case
+    a2b, b2b = systems["lasso"]
+    A, B = t(a2b), t(b2b)
+    rho = 0.95 / float(np.linalg.norm(a2b, 2)) ** 2
+    op = rtt.DenseOperator(A, device=dev)
+    solver = rtt.FISTA.create(op, reg=rtt.L1Regularization(LASSO_LAM), iterations=LASSO_ITERS,
+                              rho=rho, track_residual=False)
+    name = "fista_l1_dense_cs_b16_fused"
+    x = run(name, solver, B, "pgm_dense_fused")
+    # two columns against a float64 solve of the plain version, and the
+    # plain f32 version's own residual difference
+    b2 = B[:, :2].T.contiguous()
+    sched = (LASSO_ITERS, "fista", "l1", "none", "none")
+    scal64, tab64 = pd.kernel_args(b2.double(), LASSO_LAM, rho, 1.0, "fista", LASSO_ITERS,
+                                   dtype=np.float64)
+    x64 = pd.pgm_dense_fused_torch(b2.double(), A.double(), scal64, tab64, *sched)[0].T
+    scal, tab = pd.kernel_args(b2, LASSO_LAM, rho, 1.0, "fista", LASSO_ITERS)
+    x_plain = pd.pgm_dense_fused_torch(b2, A, scal, tab, *sched)[0].T
+    _, res_plain = dense_parity(f"{name} (plain f32 version)", x_plain, B, A.double(), x64,
+                                hold=False)
+    _, res = dense_parity(name, x, B, A.double(), x64, hold=False)
+    bar = TOL_RESIDUAL
+    if res_plain > TOL_RESIDUAL:
+        bar = 2 * res_plain
+        print(f"{name}: the plain f32 version itself misses {TOL_RESIDUAL:.0e} "
+              f"({res_plain:.3e}); the kernel is held to twice that, {bar:.3e}")
+    require(res <= bar, f"{name}: parity_residual_rel_diff vs f64 {res:.3e} > {bar:.3e}")
+    for cls in ("OptISTA", "POGM"):
+        s_cls = getattr(rtt, cls).create(op, reg=rtt.L1Regularization(LASSO_LAM),
+                                         iterations=SHORT_ITERS, rho=rho)
+        run(f"{name} [{cls}, {SHORT_ITERS} iterations]", s_cls, B, "pgm_dense_fused")
+    a_c, b_c = systems["cplx"]
+    s_c = rtt.FISTA.create(
+        rtt.DenseOperator(t(a_c), device=dev),
+        reg=[rtt.L1Regularization(LASSO_LAM), rtt.RealRegularization()],
+        iterations=SHORT_ITERS, rho=0.95 / float(np.linalg.norm(a_c, 2)) ** 2,
+        restart="gradient", track_residual=False,
+    )
+    run("complex A 256x512, fista-l1, gradient restart, real", s_c, t(b_c), "pgm_dense_fused_cplx")
+    return launched, library_ms
 
 
 def main() -> int:
@@ -655,7 +1015,8 @@ def main() -> int:
               % pgm_bound(x0_dyn, kernel(x0_dyn)[1], **kw))
 
     # 3d. the tiled kernel against its plain version: 512² and 1024²
-    img_admm, imgs512, imgs1024 = bench_suite_phantoms()
+    draws = bench_suite_draws()
+    img_admm, imgs512, imgs1024 = draws["admm"], draws[512], draws[1024]
     tiled_err, tiled_ms = {}, None
     for n, imgs in ((512, imgs512), (1024, imgs1024)):
         s_n = build_solver(n, dev)
@@ -703,6 +1064,10 @@ def main() -> int:
         (ADMM256, admm_fused.admm_tv_fused, phantoms(batch=ADMM256[1])),
         (ADMM512, admm_tiled.admm_tv_tiled, imgs512),
     ))
+
+    # 3g. the dense kernels against their plain versions
+    systems = dense_systems(draws)
+    dense = dense_kernel_phase(dev, systems)
 
     # 4. the flagship through the public API; the counts start at 0 here
     ref = np.load(os.path.join(ROOT, "bench_ref_f64.npz"))
@@ -789,7 +1154,10 @@ def main() -> int:
     ):
         kernel = next(iter(want))
         admm[kernel]["launches"] = admm_cell_phase(name, cell, dev, imgs, want, composed)[kernel]
-    print(f"phases 3-6: {time.perf_counter() - t_start:.1f} s")
+
+    # 8. the dense cells through the public API
+    dense_launched, library_ms = dense_cell_phase(dev, systems)
+    print(f"phases 3-6, 8: {time.perf_counter() - t_start:.1f} s")
 
     # 7. the kernel table, then the result line
     # the least time for each kernel's timed call: every input read once,
@@ -808,6 +1176,19 @@ def main() -> int:
         n, batch, _, iters, _, tv = cell
         ops = sum(admm_ops(ntap_h, ntap_w, tv, iters, v, False) for v in admm[name]["live"])
         bounds[name] = bound(ops * n * n, f32 * (2 * batch * n * n + batch))
+    # the dense kernels at their timed shapes: A, b and λ or [λ, ρ, θ] read,
+    # x written; CGNR 2mn for Aᴴb and 4mn + 10n per step, the dense PGM
+    # solves as `dense_pgm_ops` counts them
+    (m, n), p = systems["cgnr1k"][0].shape, systems["cgnr1k"][1].shape[1]
+    steps = min(CGNR1K_ITERS, n)
+    bounds["cgnr_fused"] = bound(p * (2 * m * n + steps * (4 * m * n + 10 * n)),
+                                 f32 * (m * n + p * (m + n + 1)))
+    (m, n), p = systems["lasso"][0].shape, systems["lasso"][1].shape[1]
+    bounds["pgm_dense_fused"] = bound(p * dense_pgm_ops(m, n, LASSO_ITERS),
+                                      f32 * (m * n + p * (m + n + 3)))
+    (m, n), p = systems["cplx"][0].shape, systems["cplx"][1].shape[1]
+    bounds["pgm_dense_fused_cplx"] = bound(p * dense_pgm_ops(m, n, SHORT_ITERS, cplx=True),
+                                           f32 * (2 * m * n + p * (2 * m + 2 * n + 3)))
     rows = (
         ("tv_fgp", "tv_fgp.cu", "rls_tpu/kernels/tv_pallas.py:69", launches_tv, err_tv,
          (plain_tv, ms_tv)),
@@ -821,7 +1202,19 @@ def main() -> int:
         ("admm_tv_tiled", "admm_tv_tiled.cu", "rls_tpu/kernels/admm_tv_tiled.py:183",
          admm["admm_tv_tiled"]["launches"], admm["admm_tv_tiled"]["err"],
          admm["admm_tv_tiled"]["ms"]),
+        ("cgnr_fused", "cgnr_fused.cu", "rls_tpu/kernels/cgnr_fused.py:174",
+         dense_launched["cgnr_fused"], dense["cgnr_fused"]["err"], dense["cgnr_fused"]["ms"]),
+        ("pgm_dense_fused", "pgm_dense_fused.cu", "rls_tpu/kernels/pgm_dense_fused.py:355",
+         dense_launched["pgm_dense_fused"], dense["pgm_dense_fused"]["err"],
+         dense["pgm_dense_fused"]["ms"]),
+        ("pgm_dense_fused_cplx", "pgm_dense_fused.cu", "rls_tpu/kernels/pgm_dense_fused.py:458",
+         dense_launched["pgm_dense_fused_cplx"], dense["pgm_dense_fused_cplx"]["err"],
+         dense["pgm_dense_fused_cplx"]["ms"]),
     )
+    # one PyTorch call computes the same function only for CGNR's
+    # regularized normal equations (torch.linalg.solve); none computes a
+    # TV or a LASSO solve
+    library = {"cgnr_fused": library_ms}
     kernels = []
     for name, src, replaces, launches, err, (plain_ms, ms) in rows:
         bound_ms, bound_by = bounds[name]
@@ -836,8 +1229,7 @@ def main() -> int:
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # no single PyTorch call computes any of these solves
-            "library_ms": None,
+            "library_ms": library.get(name),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -71,6 +71,16 @@ _SIGNATURES = {
     "admm_tv_tiled_launch": (
         _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
+    # (b, A, lam, out, scratch, P, m, n, steps, positive, stream)
+    "cgnr_fused_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (b, A, scal, tab, out, scratch, counts, P, m, n, steps, method, kind,
+    #  restart, proj, stream)
+    "pgm_dense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (br, bi, ar, ai, scal, tab, out, scratch, counts, P, m, n, steps,
+    #  method, kind, restart, proj, stream)
+    "pgm_dense_fused_cplx_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
 }
 
 

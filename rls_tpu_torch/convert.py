@@ -2,10 +2,12 @@
 
 ``convert(obj, device="cuda")`` turns an ``rls_tpu`` object into its
 ``rls_tpu_torch`` counterpart: ``SeparableConvOperator``,
-``NormalOperator``, ``IdentityOperator`` and ``GradientOperator`` (ADMM's
-``reg_trafo``), ``TVRegularization``, ``L1Regularization``,
-``PositiveRegularization``, ``RealRegularization``, the three
-normalization strategies, ``FISTA``, ``OptISTA``, ``POGM`` and ``ADMM``.
+``DenseOperator``, ``NormalOperator``, ``IdentityOperator`` and
+``GradientOperator`` (ADMM's ``reg_trafo``), ``TVRegularization``,
+``L1Regularization``, ``L2Regularization``, ``PositiveRegularization``,
+``RealRegularization``, the three normalization strategies, ``FISTA``,
+``OptISTA``, ``POGM``, ``ADMM``, ``CGNR``, ``DirectSolver`` and
+``PseudoInverse`` (with the SVD ``rls_tpu`` took, where it took one).
 Fields are read by attribute name with ``np.asarray`` (``ah``, ``aw``,
 ``bh``, ``bw``, ``taps_hw()``, ``lam``, ``rho``, ``iterations``,
 ``iterations_tv``, ...), and objects are recognised by class name, so
@@ -24,10 +26,12 @@ import torch
 
 from .models import prox, regularization
 from .models.solvers.admm import ADMM
+from .models.solvers.cgnr import CGNR
+from .models.solvers.direct import DirectSolver, PseudoInverse
 from .models.solvers.fista import FISTA
 from .models.solvers.optista import OptISTA
 from .models.solvers.pogm import POGM
-from .ops.base import IdentityOperator, NormalOperator
+from .ops.base import DenseOperator, IdentityOperator, NormalOperator
 from .ops.conv_direct import SeparableConvOperator
 from .ops.grad import GradientOperator
 
@@ -46,6 +50,15 @@ def _optional(v):
 
 def _tensor(v, device):
     return torch.from_numpy(np.array(v)).to(device)
+
+
+def _optional_tensor(v, device):
+    return None if v is None else _tensor(v, device)
+
+
+def _lam(v, device):
+    """A λ: a float, or a tensor where it has axes (a vector λ)."""
+    return _scalar(v) if np.ndim(v) == 0 else _tensor(v, device)
 
 
 def _dtype(jdt):
@@ -93,6 +106,33 @@ def _admm(obj, device):
     )
 
 
+def _cgnr(obj, device):
+    A, AHA = _operators(obj, device)
+    return CGNR(
+        A=A,
+        AHA=AHA,
+        l2=convert(obj.l2, device),
+        constr=tuple(convert(c, device) for c in obj.constr),
+        normalize_reg=convert(obj.normalize_reg, device),
+        rel_tol=_optional(obj.rel_tol),
+        iterations=int(obj.iterations),
+    )
+
+
+def _direct(obj, device):
+    common = dict(
+        l2=convert(obj.l2, device),
+        proj=tuple(convert(p, device) for p in obj.proj),
+        normalize_reg=convert(obj.normalize_reg, device),
+        U=_optional_tensor(obj.U, device),
+        S=_optional_tensor(obj.S, device),
+        Vh=_optional_tensor(obj.Vh, device),
+    )
+    if type(obj).__name__ == "PseudoInverse":
+        return PseudoInverse(**common)
+    return DirectSolver(A=convert(obj.A, device), **common)
+
+
 def convert(obj, device="cuda"):
     """The ``rls_tpu_torch`` counterpart of the ``rls_tpu`` object `obj`,
     its tensors on `device`."""
@@ -106,6 +146,8 @@ def convert(obj, device="cuda"):
             im_shape=obj.im_shape,
             taps=None if obj.taps_len is None else obj.taps_hw(),
         )
+    if name == "DenseOperator":
+        return DenseOperator(_tensor(obj.mat, device), device=device)
     if name == "NormalOperator":
         weights = None if obj.weights is None else _tensor(obj.weights, device)
         return NormalOperator(convert(obj.A, device), weights, device=device)
@@ -125,6 +167,8 @@ def convert(obj, device="cuda"):
         )
     if name == "L1Regularization":
         return prox.L1Regularization(_scalar(obj.lam))
+    if name == "L2Regularization":
+        return prox.L2Regularization(_lam(obj.lam, device))
     if name == "PositiveRegularization":
         return prox.PositiveRegularization()
     if name == "RealRegularization":
@@ -134,6 +178,10 @@ def convert(obj, device="cuda"):
         return getattr(regularization, name)()
     if name == "ADMM":
         return _admm(obj, device)
+    if name == "CGNR":
+        return _cgnr(obj, device)
+    if name in ("DirectSolver", "PseudoInverse"):
+        return _direct(obj, device)
     if name in _SOLVERS:
         A, AHA = _operators(obj, device)
         cls, extra = _SOLVERS[name]

@@ -6,11 +6,14 @@ first kernel whose check passes runs. Execution errors are NOT swallowed.
 When no fused kernel applies, a warning names every rejection and the call
 falls back to the composed ``solve_batched_unrolled`` driver.
 
-The ``pgm_tv``, ``fista_tv_tiled``, ``admm_tv`` and ``admm_tv_tiled``
-rows are ported; the other rows of ``rls_tpu``'s table are named in the
-warning as not yet ported. The fused
-paths use an f64 momentum table, so their results can differ from the
-composed path's f32 recurrence at the ~1e-3 level over ~50 iterations.
+The ``cgnr_dense``, ``pgm_tv``, ``pgm_dense``, ``fista_tv_tiled``,
+``admm_tv`` and ``admm_tv_tiled`` rows are ported; the other rows of
+``rls_tpu``'s table are named in the warning as not yet ported. The dense
+rows take a ``DenseOperator`` and the TV rows a
+``SeparableConvOperator``, so each check rejects the other family. The
+fused OptISTA and POGM paths use an f64 momentum table, so their results
+can differ from the composed path's f32 recurrence at the ~1e-3 level
+over ~50 iterations.
 
 Fused or tiled: the JAX table sends an image to its tiled kernel when the
 monolithic kernel's working set exceeds the TPU's VMEM (past ~384²). The
@@ -30,6 +33,7 @@ from __future__ import annotations
 import warnings
 
 from .admm_tv_fused import check_admm_tv_fused, solve_admm_tv_fused
+from .cgnr_fused import check_cgnr_fused, solve_cgnr_fused
 from .admm_tv_tiled import check_admm_tv_tiled, solve_admm_tv_tiled
 from .fista_tv_fused import (
     FUSED_MAX_PIXELS,
@@ -38,6 +42,7 @@ from .fista_tv_fused import (
     solve_pgm_tv_fused,
 )
 from .fista_tv_tiled import check_fista_tv_tiled, solve_fista_tv_tiled
+from .pgm_dense_fused import check_pgm_dense_fused, solve_pgm_dense_fused
 
 __all__ = ["solve_batched_fast", "select_fast_path", "FUSED_MAX_PIXELS"]
 
@@ -49,7 +54,9 @@ def _check_pgm_tv(solver):
 
 # the ported rows of rls_tpu/kernels/auto.py:42-58, in its order
 _FUSED_WRAPPERS = (
+    ("cgnr_dense", check_cgnr_fused, solve_cgnr_fused),
     ("pgm_tv", _check_pgm_tv, solve_pgm_tv_fused),
+    ("pgm_dense", check_pgm_dense_fused, solve_pgm_dense_fused),
     ("fista_tv_tiled", check_fista_tv_tiled, solve_fista_tv_tiled),
     ("admm_tv", check_admm_tv_fused, solve_admm_tv_fused),
     ("admm_tv_tiled", check_admm_tv_tiled, solve_admm_tv_tiled),
@@ -57,8 +64,6 @@ _FUSED_WRAPPERS = (
 
 # the remaining rows of rls_tpu/kernels/auto.py:42-58, in table order
 _NOT_YET_PORTED = (
-    "cgnr_dense",
-    "pgm_dense",
     "splitbregman_l1_tv",
     "fista_l1_dft",
     "fista_l21_sense",

@@ -1,7 +1,8 @@
 """Proximal maps of the flagship slice.
 
 PyTorch counterpart of ``rls_tpu/models/prox.py``: ``soft_threshold`` and
-``L1Regularization`` (:57-80), ``prox_tv_fgp`` (:133-166),
+``L1Regularization`` (:57-80), ``L2Regularization`` (:82-97),
+``prox_tv_fgp`` (:133-166),
 ``TVRegularization`` (:205-280), ``PositiveRegularization`` and
 ``RealRegularization`` (:514-533).
 
@@ -13,6 +14,8 @@ FGP on ``GradientOperator``. The TPU's VMEM size gate (:256) has no
 counterpart: the CUDA kernel keeps its planes in global memory.
 
 A λ is a scalar or carries x's leading batch axes (one λ per problem).
+``L2Regularization`` also takes the reference's vector λ, one per entry
+of x (a diagonal Tikhonov matrix).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from .regularization import ParameterizedRegularization, ProjectionRegularizatio
 
 __all__ = [
     "L1Regularization",
+    "L2Regularization",
     "TVRegularization",
     "PositiveRegularization",
     "RealRegularization",
@@ -81,6 +85,32 @@ class L1Regularization(ParameterizedRegularization):
     def value(self, x, lam=None):
         lam = self.lam if lam is None else lam
         return _lam(lam, x) * x.abs().sum(dim=-1)
+
+
+def _lam_l2(lam, x):
+    """`_lam` shaped to broadcast against x: one λ per problem (x's
+    leading shape) gains a trailing axis; a vector λ, one per entry of x,
+    broadcasts as it is."""
+    lam = _lam(lam, x)
+    return lam.unsqueeze(-1) if lam.ndim and lam.shape == x.shape[:-1] else lam
+
+
+@dataclasses.dataclass(frozen=True)
+class L2Regularization(ParameterizedRegularization):
+    """Tikhonov term ½·2λ‖x‖²; λ is a scalar, one per problem, or a vector
+    (a diagonal Tikhonov matrix, reference ProxL2.jl)."""
+
+    lam: Any
+
+    def prox(self, x, lam=None):
+        lam = self.lam if lam is None else lam
+        return x / (1.0 + 2.0 * _lam_l2(lam, x))
+
+    def value(self, x, lam=None):
+        lam = _lam(self.lam if lam is None else lam, x)
+        if lam.ndim and lam.shape != x.shape[:-1]:
+            return (lam * x.abs() ** 2).sum(dim=-1)
+        return lam * (x.abs() ** 2).sum(dim=-1)
 
 
 def prox_tv_fgp(x, lam, grad_op: GradientOperator, iterations: int):

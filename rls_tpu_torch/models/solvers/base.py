@@ -43,6 +43,7 @@ __all__ = [
     "prepare_operators",
     "create_args",
     "init_scalars",
+    "effective_lam",
     "theta_next",
     "state_where",
     "pcg",
@@ -132,6 +133,15 @@ def init_scalars(solver, b, x0):
     rel_tol = full(solver.rel_tol if solver.rel_tol is not None else torch.finfo(rdt).eps)
     scale = normalization_factor(solver.normalize_reg, solver.A, b).to(rdt).expand(lead)
     return x0hat, x, full, norm_x0, rel_tol, scale
+
+
+def effective_lam(reg, scale, dtype):
+    """The λ of `reg` (a number, or the real part of a tensor) times the
+    float32 normalization `scale`, one per problem, cast to the real
+    `dtype`. A Python-number λ takes the scale's float32, as it does in
+    ``rls_tpu`` (a weakly typed scalar times a float32 array)."""
+    lam = reg.get_lam()
+    return ((lam.real if torch.is_tensor(lam) else lam) * scale).to(dtype)
 
 
 def create_args(name, A, AHA, reg, rho):

@@ -244,11 +244,13 @@ def _port_solver(n, **kw):
 def test_dispatch_sends_large_images_to_the_tiled_kernel(n, row):
     name, run, reasons = auto.select_fast_path(_port_solver(n))
     assert name == row
-    assert reasons[:2] == ["pgm_tv: fused path requires FISTA, OptISTA, or POGM",
+    assert reasons[:4] == ["cgnr_dense: fused CGNR path requires a CGNR solver",
+                           "pgm_tv: fused path requires FISTA, OptISTA, or POGM",
+                           "pgm_dense: fused dense PGM path covers FISTA/OptISTA/POGM solvers",
                            "fista_tv_tiled: tiled path requires FISTA, OptISTA, or POGM"]
     if row == "admm_tv_tiled":
         assert run is tadmm_tiled.solve_admm_tv_tiled
-        assert reasons[2] == (
+        assert reasons[4] == (
             f"admm_tv: a {n}x{n} image goes to the row-tiled kernel (one CTA per "
             f"problem serves images of at most {auto.FUSED_MAX_PIXELS} pixels)"
         )

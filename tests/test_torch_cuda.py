@@ -8,7 +8,10 @@ file imports no JAX, so it runs where JAX is absent:
 ragged row tiles and asymmetric taps cover what the flagship's symmetric
 256² run cannot. Tolerance: 1e-5 of max|x| (about 1 ulp of FMA
 contraction per op over a few iterations); the per-problem restart and
-freeze counts, and the ADMM kernels' live CG steps, must agree exactly."""
+freeze counts, and the ADMM kernels' live CG steps, must agree exactly.
+The dense kernels (CGNR, dense PGM) sum in double like their plain
+versions and are held to the same 1e-5 of max|x| on small systems, with
+equal restart counts."""
 
 import numpy as np
 import pytest
@@ -17,6 +20,8 @@ import torch
 import rls_tpu_torch as rtt
 from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
 from rls_tpu_torch.kernels import admm_tv_tiled as admm_tiled
+from rls_tpu_torch.kernels import cgnr_fused as cgnr
+from rls_tpu_torch.kernels import pgm_dense_fused as pgm_dense
 from rls_tpu_torch.kernels import fista_tv_fused as fused
 from rls_tpu_torch.kernels import fista_tv_tiled as tiled
 from rls_tpu_torch.kernels import tv_fgp
@@ -223,3 +228,102 @@ def test_admm_kernels_short_schedules(dev, iterations, cg):
                          with_counts=True, **kw)
         _close(got, want, 1e-5)
         assert counts.tolist() == want_counts.tolist()
+
+
+def _dense(dev, m=40, n=24, P=3, seed=8, cplx=False):
+    """A well-conditioned dense system (m × n, scaled to ‖A‖ ≈ 1 + √(n/m))
+    and P right-hand sides; as (re, im) planes with `cplx`."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    A, b = draw(m, n) / np.sqrt(m), draw(P, m)
+    if not cplx:
+        return A, b
+    return (A, draw(m, n) / np.sqrt(m)), (b, draw(P, m))
+
+
+@pytest.mark.parametrize("steps", [0, 1, 24, 60])
+@pytest.mark.parametrize("prox", ["none", "positive"])
+def test_cgnr_kernel_matches_plain(dev, steps, prox):
+    A, b = _dense(dev)
+    lam = torch.tensor([1e-3, 0.0, 0.2], device=dev)
+    before = cgnr.cgnr_fused.launches
+    got = cgnr.cgnr_fused(b, A, lam, steps, prox)
+    assert cgnr.cgnr_fused.launches == before + 1
+    want = cgnr.cgnr_fused_torch(b, A, lam, steps, prox)
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, 1e-5)
+    # no atomics: the same result run to run
+    assert torch.equal(cgnr.cgnr_fused(b, A, lam, steps, prox), got)
+
+
+def test_cgnr_kernel_past_convergence_is_the_identity(dev):
+    """On A = I with λ = 0 one step solves exactly (r = p = 0 after it);
+    the guarded divisions make every later step the identity, and b = 0
+    (ζ = 0 from the start) stays at x = 0."""
+    b = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 8)).astype(np.float32))
+    b = b.to(dev)
+    b[1] = 0.0
+    eye = torch.eye(8, device=dev)
+    got = cgnr.cgnr_fused(b, eye, torch.zeros(2, device=dev), 20)
+    assert torch.equal(got, b)
+
+
+@pytest.mark.parametrize("method,restart", [("fista", "none"), ("fista", "gradient"),
+                                            ("fista", "gradient_mapping"), ("optista", "none"),
+                                            ("pogm", "none")])
+@pytest.mark.parametrize("kind", ["l1", "l2"])
+@pytest.mark.parametrize("prox", ["none", "positive"])
+def test_pgm_dense_kernel_matches_plain(dev, method, restart, kind, prox):
+    A, b = _dense(dev)
+    lam = torch.tensor([1e-2, 0.0, 0.1], device=dev)
+    args = (lam, 0.5, 1.0, 30, method, kind, restart, prox)
+    before = pgm_dense.pgm_dense_fused.launches
+    got, counts = pgm_dense.pgm_dense_fused(b, A, *args, with_counts=True)
+    assert pgm_dense.pgm_dense_fused.launches == before + 1
+    scal, tab = pgm_dense.kernel_args(b, lam, 0.5, 1.0, method, 30)
+    want, want_counts = pgm_dense.pgm_dense_fused_torch(b, A, scal, tab, 30, method, kind,
+                                                        restart, prox)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+    if restart != "none":
+        assert max(counts.tolist()) > 0
+    assert torch.equal(pgm_dense.pgm_dense_fused(b, A, *args), got)
+
+
+@pytest.mark.parametrize("method,restart", [("fista", "none"), ("fista", "gradient"),
+                                            ("fista", "gradient_mapping"), ("optista", "none"),
+                                            ("pogm", "none")])
+@pytest.mark.parametrize("kind", ["l1", "l2"])
+@pytest.mark.parametrize("prox", ["none", "positive", "real"])
+def test_pgm_dense_cplx_kernel_matches_plain(dev, method, restart, kind, prox):
+    (ar, ai), (br, bi) = _dense(dev, cplx=True)
+    lam = torch.tensor([1e-2, 0.0, 0.1], device=dev)
+    args = (lam, 0.4, 1.0, 30, method, kind, restart, prox)
+    before = pgm_dense.pgm_dense_fused_cplx.launches
+    xr, xi, counts = pgm_dense.pgm_dense_fused_cplx(br, bi, ar, ai, *args, with_counts=True)
+    assert pgm_dense.pgm_dense_fused_cplx.launches == before + 1
+    scal, tab = pgm_dense.kernel_args(br, lam, 0.4, 1.0, method, 30)
+    wr, wi, want_counts = pgm_dense.pgm_dense_fused_cplx_torch(br, bi, ar, ai, scal, tab, 30,
+                                                               method, kind, restart, prox)
+    _close(torch.stack([xr, xi]), torch.stack([wr, wi]), 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+    if prox != "none":
+        assert not bool(xi.any())
+
+
+def test_dense_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    A, b = _dense(dev)
+    lam = torch.zeros(3, device=dev)
+    with pytest.raises(ValueError, match="device"):
+        cgnr.cgnr_fused(b, A.cpu(), lam, 3)
+    with pytest.raises(ValueError, match="float32"):
+        cgnr.cgnr_fused(b.double(), A, lam, 3)
+    with pytest.raises(ValueError, match="device"):
+        pgm_dense.pgm_dense_fused(b, A.cpu(), 0.1, 0.5, 1.0, 3)
+    with pytest.raises(ValueError, match="restart"):
+        pgm_dense.pgm_dense_fused(b, A, 0.1, 0.5, 1.0, 3, method="pogm", restart="gradient")
+    with pytest.raises(ValueError, match="float32"):
+        pgm_dense.pgm_dense_fused_cplx(b, b, A.double(), A.double(), 0.1, 0.5, 1.0, 3)

@@ -117,9 +117,11 @@ def test_solve_batched_fast_names_every_rejection():
     assert "fista_tv_tiled: tiled path requires TVRegularization" in msg
     assert "admm_tv: fused path requires an ADMM solver" in msg
     assert "admm_tv_tiled: tiled path requires an ADMM solver" in msg
+    assert "cgnr_dense: fused CGNR path requires a CGNR solver" in msg
+    assert "pgm_dense: fused dense PGM path requires a dense operator A" in msg
     for name in auto._NOT_YET_PORTED:
         assert f"{name}: not yet ported" in msg
-    assert len(auto._NOT_YET_PORTED) == 8
+    assert len(auto._NOT_YET_PORTED) == 6
     np.testing.assert_array_equal(got.numpy(), rtt.solve_batched_unrolled(tsolver, Bt).numpy())
 
 

@@ -99,8 +99,10 @@ def test_dispatch_sends_large_images_to_the_tiled_kernel(n, row):
     if row == "fista_tv_tiled":
         assert run is ttiled.solve_fista_tv_tiled
         assert reasons == [
+            "cgnr_dense: fused CGNR path requires a CGNR solver",
             f"pgm_tv: a {n}x{n} image goes to the row-tiled kernel (one CTA per "
-            f"problem serves images of at most {auto.FUSED_MAX_PIXELS} pixels)"
+            f"problem serves images of at most {auto.FUSED_MAX_PIXELS} pixels)",
+            "pgm_dense: fused dense PGM path requires a dense operator A",
         ]
 
 
