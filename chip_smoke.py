@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: CUDA must be present; TF32 is switched off for matmuls and
      cuDNN; the card's name and power limit are printed;
-  2. build: the seven CUDA sources are compiled from rls_tpu_torch/csrc
+  2. build: the ten CUDA sources are compiled from rls_tpu_torch/csrc
      (one nvcc per source, all at once);
   3. each kernel against its plain PyTorch version on the card, with both
      times: the TV prox and the fused solve (FISTA, OptISTA, POGM) at the
@@ -47,6 +47,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the table methods and FISTA-L2 with Positive); the plane kernel on a
      complex A (FISTA with gradient restart and Real, POGM) and on the real
      A with a complex b;
+  3h. each FFT kernel against its plain version, held to the plain
+     version's own spread under b·(1 + 2⁻²³) (FFT_SPREAD), with both
+     times: the fused FISTA-L1-DFT on 16 distinct 256² CS problems with λ
+     per problem (60 iterations), the fused FISTA-L21-SENSE and the fused
+     SplitBregman L21 + TV (4 × 8 × 8, TV 5, with the live CG steps of
+     kernel and plain version side by side) on the 8 SENSE slices of 128²
+     with 6 coils;
   8. the dense cells through solve_batched_fast, each running its kernel
      once by the launch counters, with problems/s:
      cgnr_l2_dense64_fused_b16 (printed against a float64 DirectSolver;
@@ -56,15 +63,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      TOL_RESIDUAL on 2 columns against a float64 solve of the plain
      version), its OptISTA and POGM at 100 iterations, and the complex
      FISTA case;
+  9. the compressed-sensing and SENSE cells through solve_batched_fast,
+     each running its kernel once by the launch counters, with problems/s
+     (slices/s), two columns held to TOL_PARITY and TOL_RESIDUAL against
+     a float64 solve of the plain version on the card, and the error
+     against the true images beside the float64 solve's own:
+     fista_l1_cs_dft256_b16 (BASELINE #2, also through
+     solve_batched_unrolled, the composed torch.fft path),
+     fista_l21_sense128_6coil_b8 (FISTA with complex L1 on the SENSE
+     problem) and splitbregman_sense128_6coil_b8 (BASELINE #4, also
+     composed); each cell's composed solve is timed as its kernel's
+     yardstick;
   7. the kernel table as one JSON line (launches on the main path, error
-     against the plain version, kernel and plain times, and the least
-     time the card could take, `bound_ms`), then the result line
-     {"ok": true, "device": {...}}.
+     against the plain version, kernel and plain times, the least time
+     the card could take, `bound_ms`, and a library yardstick where one
+     exists), then the result line {"ok": true, "device": {...}}.
 
-Phase 8 runs after phase 6; the table and the result line come last. The
-flagship problem is rebuilt with numpy exactly as bench.py:36-68 builds
-it, the other cells as tools/bench_suite.py:79-102, :127-151, :204-225
-and :308-379 build them (replaying its seeded generator).
+Phase 3h runs after 3g, phases 8 and 9 after phase 6; the table and the
+result line come last. The flagship problem is rebuilt with numpy exactly
+as bench.py:36-68 builds it, the other cells as tools/bench_suite.py:79-102,
+:104-125, :127-151, :153-194, :204-225 and :308-379 build them (replaying
+its seeded generators).
 """
 
 from __future__ import annotations
@@ -126,6 +145,22 @@ PEAK_BYTES = 3.35e12
 # against the f64 reference (the bars the TPU flagship is held to)
 TOL_PARITY = 1e-3
 TOL_RESIDUAL = 1e-4
+# BASELINE #2 (tools/bench_suite.py:104-125): a 256² image, 35 % of its
+# spectrum sampled, L1 λ = 2e-3, ρ = 0.95, 60 iterations, 16 columns
+CS_N, CS_BATCH, CS_LAM, CS_ITERS = 256, 16, 2e-3, 60
+# the SENSE problem of tools/bench_suite.py:153-184 (128², 6 coils, 8
+# slices), solved by FISTA with complex L1 as examples/mri_sense_split_real.py:53-55
+# solves it (λ = 1e-4, ρ = 0.95, 80 iterations) and by BASELINE #4's
+# SplitBregman (:185-194: L21 λ = 1e-4 and TV λ = 1e-4 over 5 dual
+# iterations, ρ = 0.01 each, 4 outer × 8 inner × 8 CG steps, tol_inner 1e-5)
+SENSE_N, SENSE_C, SENSE_SLICES = 128, 6, 8
+SENSE_LAM, SENSE_ITERS = 1e-4, 80
+SB_LAM, SB_TV, SB_RHO, SB_SCHED, SB_TOL = 1e-4, 5, 0.01, (4, 8, 8), 1e-5
+# The FFT kernels are held to the plain version's own spread under
+# b·(1 + 2⁻²³), measured in the same run: within max(FFT_SPREAD × spread,
+# FFT_FLOOR) in relative 2-norm and TOL_FUSED_MAX of max|x| at any entry,
+# and SplitBregman's live CG steps must equal the plain version's.
+FFT_SPREAD, FFT_FLOOR = 2.0, 1e-6
 
 
 def require(cond, msg):
@@ -156,7 +191,8 @@ def bench_suite_draws():
     """The seeded draws of tools/bench_suite.py that this run rebuilds,
     from its generator default_rng(0) replayed through the other cells'
     draws (:81-294): the dense CGNR cell's A (64×64) and XT1 (64×16,
-    :80-96), the ADMM-TV deblurring image (256², :132-135), the dense LASSO
+    :80-96), the compressed-sensing image (256²) and its sorted sample
+    indices (35 %, :107-111), the ADMM-TV deblurring image (256², :132-135), the dense LASSO
     cell's A (256×512) and sparse X (512×16, 5% nonzero, :208-211), and the
     512² batch of 16 (:326-331) and 1024² batch of 8 (:367-372) of
     phantoms; all float32, the images flattened."""
@@ -164,9 +200,11 @@ def bench_suite_draws():
     a64 = (rng.normal(size=(64, 64)).astype(np.float32) / np.float32(8.0)).astype(np.float32)
     rng.normal(size=(64,))
     xt1 = rng.normal(size=(64, 16)).astype(np.float32)
+    img2 = np.zeros((CS_N, CS_N), np.float32)
     for _ in range(8):
-        rng.integers(0, 256 - 20, 2), rng.uniform(0.3, 1.0)
-    rng.choice(256 * 256, size=int(0.35 * 256 * 256), replace=False)
+        i0, j0 = rng.integers(0, CS_N - 20, 2)
+        img2[i0 : i0 + 12, j0 : j0 + 12] += rng.uniform(0.3, 1.0)
+    idx2 = np.sort(rng.choice(CS_N * CS_N, size=int(0.35 * CS_N * CS_N), replace=False))
     img3 = np.zeros((256, 256), np.float32)
     for _ in range(6):
         i0, j0 = rng.integers(0, 256 - 40, 2)
@@ -175,7 +213,8 @@ def bench_suite_draws():
     x2b = (rng.normal(size=(512, 16)) * (rng.uniform(size=(512, 16)) < 0.05)).astype(np.float32)
     rng.normal(size=(1024, 256)), rng.uniform(size=(1024, 256)), rng.normal(size=(256,))
     rng.normal(size=(8192, 2048)), rng.normal(size=(2048,))
-    out = {"cgnr64": (a64, xt1), "admm": img3.reshape(-1), "lasso": (a2b, x2b)}
+    out = {"cgnr64": (a64, xt1), "admm": img3.reshape(-1), "lasso": (a2b, x2b),
+           "cs": (img2.reshape(-1), idx2)}
     for n, batch, margin, lo, hi in ((512, 16, 64, 16, 128), (1024, 8, 128, 32, 256)):
         imgs = np.zeros((batch, n, n), np.float32)
         for b in range(batch):
@@ -499,14 +538,17 @@ def device_breakdown(name, fn):
 
 
 def launch_counts(reset=False):
-    """The launch counters of the eight kernel wrappers, by name; with
+    """The launch counters of the eleven kernel wrappers, by name; with
     `reset`, set them to 0 first."""
-    from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_tv_fused
-    from rls_tpu_torch.kernels import fista_tv_tiled, pgm_dense_fused, tv_fgp
+    from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
+    from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
+    from rls_tpu_torch.kernels import splitbregman_fused, tv_fgp
 
     fns = (tv_fgp.prox_tv2d_fgp, fista_tv_fused.fista_tv_fused, fista_tv_tiled.fista_tv_tiled,
            admm_tv_fused.admm_tv_fused, admm_tv_tiled.admm_tv_tiled, cgnr_fused.cgnr_fused,
-           pgm_dense_fused.pgm_dense_fused, pgm_dense_fused.pgm_dense_fused_cplx)
+           pgm_dense_fused.pgm_dense_fused, pgm_dense_fused.pgm_dense_fused_cplx,
+           fista_l1_dft_fused.fista_l1_dft_fused, sense_fused.fista_l21_sense_fused,
+           splitbregman_fused.splitbregman_l1_tv_fused)
     if reset:
         for fn in fns:
             fn.launches = 0
@@ -895,6 +937,326 @@ def dense_cell_phase(dev, systems):
     return launched, library_ms
 
 
+def cs_phantoms(img2):
+    """BASELINE #2's image and CS_BATCH − 1 more drawn the same way (8
+    squares of 12², amplitudes U(0.3, 1)) from default_rng(3): (CS_BATCH,
+    n²) float32, distinct problems for the kernel phase."""
+    rng = np.random.default_rng(3)
+    imgs = np.zeros((CS_BATCH, CS_N, CS_N), np.float32)
+    imgs[0] = img2.reshape(CS_N, CS_N)
+    for b in range(1, CS_BATCH):
+        for _ in range(8):
+            i0, j0 = rng.integers(0, CS_N - 20, 2)
+            imgs[b, i0 : i0 + 12, j0 : j0 + 12] += rng.uniform(0.3, 1.0)
+    return imgs.reshape(CS_BATCH, -1)
+
+
+def sense_problem():
+    """tools/bench_suite.py:153-184's SENSE problem, from its own
+    default_rng(0): smooth complex coil maps normalized to a unit sum of
+    squares, the 45 % k-space mask with its fully sampled 20×20 centre,
+    and 8 complex phantoms. Returns numpy (maps (C, H, W) complex64, mask
+    (H, W), X (8, 2·H·W) split [re; im] float32)."""
+    H = W = SENSE_N
+    rng4 = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:H, 0:W] / H
+    maps = np.stack(
+        [(np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) * 2.0) + 0.15)
+         * np.exp(1j * (cx * yy - cy * xx) * 2)
+         for cy, cx in rng4.uniform(0, 1, size=(SENSE_C, 2))]
+    ).astype(np.complex64)
+    maps /= np.sqrt((np.abs(maps) ** 2).sum(0))
+    mask = (rng4.uniform(size=(H, W)) < 0.45).astype(np.float32)
+    mask[H // 2 - 10 : H // 2 + 10, W // 2 - 10 : W // 2 + 10] = 1.0
+
+    def phantom(seed):
+        im = np.zeros((H, W), np.complex64)
+        r = np.random.default_rng(seed)
+        for _ in range(5):
+            i0, j0 = r.integers(4, H - 36, 2)
+            im[i0 : i0 + 28, j0 : j0 + 28] += r.uniform(0.4, 1.0) * np.exp(1j * r.uniform(0, 1))
+        return im
+
+    xs = np.stack([phantom(s) for s in range(SENSE_SLICES)])
+    X = np.concatenate([xs.real.reshape(SENSE_SLICES, -1), xs.imag.reshape(SENSE_SLICES, -1)],
+                       axis=1).astype(np.float32)
+    return maps, mask, X
+
+
+def fft_ops(hw):
+    """f32 operations of one complex 2-D FFT of hw points, counted at
+    5·n·log₂n whatever the kernel implements."""
+    return 5 * hw * int(np.log2(hw))
+
+
+def rfft_ops(hw):
+    """f32 operations of one 2-D FFT of hw points whose input or output is
+    real: half a complex one."""
+    return fft_ops(hw) // 2
+
+
+def dft_ops(hw, iterations):
+    """Per problem, the FISTA-L1 DFT solve: per iteration the normal op and
+    the momentum (3), the residual and gradient step (3) and the soft
+    threshold (7) per pixel. Re(Fᴴ M F x) of a real x is the real-output
+    inverse of the real-input forward transform times the symmetrised mask
+    (M + M reflected) / 2, so the normal op is two real 2-D FFTs and the
+    weights on the half spectrum (1 per pixel)."""
+    return iterations * (2 * rfft_ops(hw) + 14 * hw)
+
+
+def sense_normal_ops(hw, coils):
+    """One SENSE normal op: per coil two complex 2-D FFTs, the coil product
+    (6), the mask (2) and the conjugate accumulation (8) per pixel."""
+    return coils * (2 * fft_ops(hw) + 16 * hw)
+
+
+def sense_ops(hw, coils, iterations):
+    """Per slice, the FISTA-L21 SENSE solve: per iteration the normal op,
+    the momentum (6), the gradient step (6) and the group threshold (9)
+    per pixel."""
+    return iterations * (sense_normal_ops(hw, coils) + 21 * hw)
+
+
+def sb_ops(hw, coils, iterations, inner, tv, live_steps):
+    """Per slice, the SplitBregman solve, counting only the CG steps that
+    were live: per inner iteration β and ‖β‖² (14), the CG start (a normal
+    op, r and r·r: 10), the L21 z-update and u (16), and one fold FGP per
+    plane and its u (2 × (fold FGP + 3)); per outer iteration the reset (0)
+    and the Bregman update (a normal op and 4); per live step the matvec
+    (a normal op and 4), p·q (4), the x and r updates with r·r (12) and p
+    (4)."""
+    n = sense_normal_ops(hw, coils)
+    per_inner = n + (14 + 10 + 16 + 2 * (fold_fgp_ops(tv) + 3)) * hw
+    return iterations * (inner * per_inner + n + 4 * hw) + live_steps * (n + 24 * hw)
+
+
+def hold_fft(name, kernel, plain, x0, x0_ulp, counts=False):
+    """Run `kernel(x0)` and `plain(x0)` (each → (x, counts)), and the plain
+    version once more on x0_ulp, the seed of b·(1 + 2⁻²³); print the error,
+    whether the two agree bit for bit, and the plain version's own spread
+    (with `counts`, also the live CG steps of all three, which must agree
+    between kernel and plain); hold the kernel to max(FFT_SPREAD × spread,
+    FFT_FLOOR) in relative 2-norm and TOL_FUSED_MAX of max|x| per entry.
+    Returns (max|kernel − plain|, the kernel's counts)."""
+    import torch
+
+    got, kc = kernel(x0)
+    want, pc = plain(x0)
+    ulp, uc = plain(x0_ulp)
+    torch.cuda.synchronize()
+    norm = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    spread = float(torch.linalg.norm(ulp - want) / torch.linalg.norm(want))
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    bar = max(FFT_SPREAD * spread, FFT_FLOOR)
+    print(f"{name}: max|kernel - plain| = {err:.3e} (max|x| {scale:.3f}), rel. 2-norm {norm:.3e}, "
+          f"bitwise {bool(torch.equal(got, want))}; plain under b(1 + 2^-23): rel. 2-norm "
+          f"{spread:.3e} (bar {bar:.3e})")
+    require(bool(torch.isfinite(got).all()), f"{name} kernel gave non-finite values")
+    if counts:
+        print(f"{name}: live CG steps kernel {kc.tolist()} plain {pc.tolist()} "
+              f"plain(1 ulp) {uc.tolist()}")
+        require(kc.tolist() == pc.tolist(),
+                f"{name}: the kernel's live CG steps differ from the plain version's")
+    require(norm <= bar and err <= TOL_FUSED_MAX * scale,
+            f"{name} kernel disagrees: max {err:.3e}, rel. 2-norm {norm:.3e}")
+    return err, kc
+
+
+def fft_kernel_phase(dev, draws):
+    """Phase 3h: each FFT kernel against its plain version at its main-path
+    shape, held by `hold_fft` and timed in turns with it: FISTA-L1 on 16
+    distinct 256² CS problems with λ per problem, FISTA-L21 and
+    SplitBregman on the 8 SENSE slices. Returns {kernel: {"err", "ms":
+    (plain, kernel), "live"}}."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import _dft_common as dc
+    from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+    from rls_tpu_torch.kernels import sense_fused as k9
+    from rls_tpu_torch.kernels import splitbregman_fused as k10
+
+    out = {}
+    bump = 1.0 + 2.0**-23
+
+    def record(name, kernel, plain, x0, x0u, counts=False, reps=2):
+        err, live = hold_fft(name, kernel, plain, x0, x0u, counts)
+        ms = alternate_ms(lambda: plain(x0), lambda: kernel(x0), reps=reps)
+        print(f"{name}: kernel {ms[1]:.3f} ms, plain {ms[0]:.3f} ms")
+        out[name.split("[")[0]] = {"err": err, "ms": ms, "live": live}
+
+    # row 8: 16 distinct problems, one λ each
+    img2, idx2 = draws["cs"]
+    op = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
+    b = op.mv(torch.from_numpy(cs_phantoms(img2)).to(dev))
+    x0 = op.rmv(b).reshape(CS_BATCH, CS_N, CS_N)
+    x0u = op.rmv(b * bump).reshape(x0.shape)
+    lam = torch.linspace(0.5, 2.0, CS_BATCH, device=dev) * CS_LAM
+    scal = k8.problem_scalars(x0, RHO, lam)
+    tab = torch.as_tensor(k8._momentum_table("fista", CS_ITERS), device=dev)
+    tables = dc.dft_tables(op.mask)
+    record(f"fista_l1_dft_fused[{CS_N}², batch {CS_BATCH}, {CS_ITERS} it.]",
+           lambda x: (k8.fista_l1_dft_fused(x, op.mask, RHO, lam, CS_ITERS), None),
+           lambda x: (k8.fista_l1_dft_fused_torch(x, scal, tab, tables), None), x0, x0u)
+
+    # rows 9 and 10: the 8 SENSE slices
+    maps, mask, X = sense_problem()
+    op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N), device=dev)
+    b = op.mv(torch.from_numpy(X).to(dev))
+    shape = (SENSE_SLICES, 2, SENSE_N, SENSE_N)
+    x0, x0u = op.rmv(b).reshape(shape), op.rmv(b * bump).reshape(shape)
+    coils = (op.coils_r, op.coils_i)
+    tables = dc.dft_tables(op.mask)
+    scal = k9.problem_scalars(x0, RHO, SENSE_LAM)
+    tab = torch.as_tensor(k9._momentum_table("fista", SENSE_ITERS), device=dev)
+    record(f"sense_fused[{SENSE_N}², {SENSE_C} coils, {SENSE_SLICES} slices, {SENSE_ITERS} it.]",
+           lambda x: (k9.fista_l21_sense_fused(x, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS),
+                      None),
+           lambda x: (k9.fista_l21_sense_fused_torch(x, scal, tab, coils, tables), None), x0, x0u)
+    scal, t2 = k10.kernel_args(x0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
+    record(f"splitbregman_fused[{SENSE_N}², {SENSE_C} coils, {SENSE_SLICES} slices, "
+           f"{'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]",
+           lambda x: k10.splitbregman_l1_tv_fused(x, op.mask, *coils, SB_RHO, SB_RHO, SB_LAM,
+                                                  SB_LAM, *SB_SCHED, SB_TV, SB_TOL,
+                                                  with_counts=True),
+           lambda x: k10.splitbregman_l1_tv_fused_torch(x, scal, t2, coils, tables, *SB_SCHED,
+                                                        SB_TOL),
+           x0, x0u, counts=True, reps=1)
+    return out
+
+
+def parity_fft(name, x, B, xs_true, op64, x64):
+    """Hold the first k = len(x64) columns of a solve `x` (n × K) to the
+    float64 solutions `x64` (k × n): the worst column's relative error
+    (≤ TOL_PARITY) and |‖A x − b‖ − ‖A x64 − b‖| / ‖b‖ with A in float64
+    (≤ TOL_RESIDUAL); print the reconstruction error against the true
+    images `xs_true` (K × n) beside the float64 solve's own and the
+    zero-filled Aᴴb's, which the reconstruction must beat."""
+    import torch
+
+    k = x64.shape[0]
+    require(bool(torch.isfinite(x).all()), f"{name}: non-finite values")
+    xc = x[:, :k].T.double()
+    b64 = B[:, :k].T.double()
+    rel = float(max(torch.linalg.norm(xc[j] - x64[j]) / torch.linalg.norm(x64[j])
+                    for j in range(k)))
+    r_x = torch.linalg.norm(op64.mv(xc) - b64, dim=1)
+    r_64 = torch.linalg.norm(op64.mv(x64) - b64, dim=1)
+    res = float(((r_x - r_64).abs() / torch.linalg.norm(b64, dim=1)).max())
+
+    def err(v, truth):
+        return float(torch.linalg.norm(v - truth) / torch.linalg.norm(truth))
+
+    truth = xs_true.double()
+    rec = err(x.T.double(), truth)
+    zf = err(op64.rmv(B.T.double()), truth)
+    print(f"{name}: recon_rel_err {rec:.4e} (float64 solve {err(x64, truth[:k]):.4e}, zero-filled "
+          f"{zf:.4f}), max_rel_err vs f64 {rel:.3e}, residual_rel_diff vs f64 {res:.3e}")
+    require(rec < zf, f"{name}: the reconstruction is no better than the zero-filled Aᴴb")
+    require(rel <= TOL_PARITY, f"{name}: max_rel_err vs f64 {rel:.3e}")
+    require(res <= TOL_RESIDUAL, f"{name}: residual_rel_diff vs f64 {res:.3e}")
+
+
+def fft_cell_phase(dev, draws):
+    """Phase 9: the three CS / SENSE cells through solve_batched_fast, each
+    with the launch counters set to 0 just before the solve and read just
+    after (one launch of its kernel, none of any other), problems/s, and
+    two columns held by `parity_fft` to a float64 solve of the plain
+    version on the card; BASELINE #2 and #4 also through
+    solve_batched_unrolled (the composed torch.fft path: no kernel). Every
+    cell's composed solve is timed: the yardstick of its kernel. Returns
+    ({kernel: launches}, {kernel: composed ms})."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import _dft_common as dc
+    from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+    from rls_tpu_torch.kernels import sense_fused as k9
+    from rls_tpu_torch.kernels import splitbregman_fused as k10
+
+    launched, composed_ms = {}, {}
+
+    def run(name, solver, B, xs_true, kernel, ref, composed, unit="problems/s"):
+        K = B.shape[1]
+        launch_counts(reset=True)
+        x = rtt.solve_batched_fast(solver, B)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        print(f"launches ({name}): {got}")
+        require(got == {**{k: 0 for k in got}, kernel: 1},
+                f"{name}: expected one launch of {kernel} and no others")
+        launched[kernel] = 1
+        require(tuple(x.shape) == (solver.A.in_size, K), f"{name}: shape {tuple(x.shape)}")
+        parity_fft(name, x, B, xs_true, *ref)
+        ms = cuda_ms(lambda: rtt.solve_batched_fast(solver, B), reps=3)
+        print(f"{name}: {K / (ms / 1e3):.1f} {unit} ({ms:.3f} ms per batch of {K})")
+        if composed:
+            launch_counts(reset=True)
+            xc = rtt.solve_batched_unrolled(solver, B)
+            torch.cuda.synchronize()
+            got = launch_counts()
+            require(not any(got.values()), f"{name} composed: kernel launches {got}")
+            parity_fft(f"{name} composed", xc, B, xs_true, *ref)
+        rtt.solve_batched_unrolled(solver, B)  # warm-up: cuFFT's plans
+        composed_ms[kernel] = cuda_ms(lambda: rtt.solve_batched_unrolled(solver, B), reps=2)
+        print(f"{name}: solve_batched_unrolled (torch.fft) {K / (composed_ms[kernel] / 1e3):.1f} "
+              f"{unit} ({composed_ms[kernel]:.3f} ms per batch of {K})")
+
+    # fista_l1_cs_dft256_b16: the bench tiles its one column 16 times
+    img2, idx2 = draws["cs"]
+    op = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
+    xt = torch.from_numpy(img2).to(dev)
+    B = op.mv(xt)[:, None].repeat(1, CS_BATCH).contiguous()
+    solver = rtt.FISTA.create(op, reg=rtt.L1Regularization(CS_LAM), iterations=CS_ITERS, rho=RHO,
+                              rel_tol=0.0, track_residual=False)
+    op64 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N),
+                                                          dtype=torch.float64, device=dev)
+    x0 = op64.rmv(B[:, :2].T.double()).reshape(2, CS_N, CS_N)
+    scal = k8.problem_scalars(x0, RHO, CS_LAM, np.float64)
+    tab = torch.as_tensor(k8._momentum_table("fista", CS_ITERS, dtype=np.float64), device=dev)
+    x64 = k8.fista_l1_dft_fused_torch(x0, scal, tab, dc.dft_tables(op64.mask, torch.float64))
+    run("fista_l1_cs_dft256_b16", solver, B, xt[None].repeat(CS_BATCH, 1), "fista_l1_dft_fused",
+        (op64, x64.reshape(2, -1)), composed=True)
+
+    # the SENSE cells
+    maps, mask, X = sense_problem()
+    op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N), device=dev)
+    op64 = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N),
+                                               dtype=torch.float64, device=dev)
+    xs = torch.from_numpy(X).to(dev)
+    B = op.mv(xs).T.contiguous()
+    x0 = op64.rmv(B[:, :2].T.double()).reshape(2, 2, SENSE_N, SENSE_N)
+    coils64, tables64 = (op64.coils_r, op64.coils_i), dc.dft_tables(op64.mask, torch.float64)
+    solver = rtt.FISTA.create(op, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
+                              iterations=SENSE_ITERS, rho=RHO)
+    scal = k9.problem_scalars(x0, RHO, SENSE_LAM, np.float64)
+    tab = torch.as_tensor(k9._momentum_table("fista", SENSE_ITERS, dtype=np.float64), device=dev)
+    x64 = k9.fista_l21_sense_fused_torch(x0, scal, tab, coils64, tables64).reshape(2, -1)
+    run("fista_l21_sense128_6coil_b8", solver, B, xs, "fista_l21_sense_fused", (op64, x64),
+        composed=False, unit="slices/s")
+    n = SENSE_N * SENSE_N
+    solver = rtt.SplitBregman.create(
+        op,
+        reg=[rtt.L21Regularization(SB_LAM, slices=2),
+             rtt.TVRegularization(SB_LAM, shape=(2, SENSE_N, SENSE_N), dims=(1, 2),
+                                  iterations_tv=SB_TV)],
+        reg_trafo=[rtt.IdentityOperator(2 * n, torch.float32, device=dev),
+                   rtt.IdentityOperator(2 * n, torch.float32, device=dev)],
+        iterations=SB_SCHED[0], iterations_inner=SB_SCHED[1], iterations_cg=SB_SCHED[2],
+        unroll_cg=True, rho=[SB_RHO, SB_RHO], tol_inner=SB_TOL,
+    )
+    scal, t2 = k10.kernel_args(x0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV, np.float64)
+    x64, live64 = k10.splitbregman_l1_tv_fused_torch(x0, scal, t2, coils64, tables64, *SB_SCHED,
+                                                     SB_TOL)
+    print(f"splitbregman_sense128_6coil_b8: float64 plain solve's live CG steps {live64.tolist()}"
+          f" of {SB_SCHED[0] * SB_SCHED[1] * SB_SCHED[2]}")
+    run("splitbregman_sense128_6coil_b8", solver, B, xs, "splitbregman_l1_tv_fused",
+        (op64, x64.reshape(2, -1)), composed=True, unit="slices/s")
+    return launched, composed_ms
+
+
 def main() -> int:
     import torch
 
@@ -1069,6 +1431,9 @@ def main() -> int:
     systems = dense_systems(draws)
     dense = dense_kernel_phase(dev, systems)
 
+    # 3h. the FFT kernels against their plain versions
+    fft = fft_kernel_phase(dev, draws)
+
     # 4. the flagship through the public API; the counts start at 0 here
     ref = np.load(os.path.join(ROOT, "bench_ref_f64.npz"))
     fused.fista_tv_fused.launches = 0
@@ -1157,7 +1522,10 @@ def main() -> int:
 
     # 8. the dense cells through the public API
     dense_launched, library_ms = dense_cell_phase(dev, systems)
-    print(f"phases 3-6, 8: {time.perf_counter() - t_start:.1f} s")
+
+    # 9. the compressed-sensing and SENSE cells through the public API
+    fft_launched, composed_ms = fft_cell_phase(dev, draws)
+    print(f"phases 3-6, 8, 9: {time.perf_counter() - t_start:.1f} s")
 
     # 7. the kernel table, then the result line
     # the least time for each kernel's timed call: every input read once,
@@ -1189,6 +1557,20 @@ def main() -> int:
     (m, n), p = systems["cplx"][0].shape, systems["cplx"][1].shape[1]
     bounds["pgm_dense_fused_cplx"] = bound(p * dense_pgm_ops(m, n, SHORT_ITERS, cplx=True),
                                            f32 * (2 * m * n + p * (2 * m + 2 * n + 3)))
+    # the FFT kernels at their timed shapes, an FFT counted at 5·n·log₂n
+    # (2.5·n·log₂n where its input or output is real, row 8's image):
+    # x0hat, the mask (or the spectral weights), the coil maps and the
+    # scalars read, x written; SplitBregman's live CG steps of the timed run
+    cs_hw, s_hw = CS_N * CS_N, SENSE_N * SENSE_N
+    bounds["fista_l1_dft_fused"] = bound(CS_BATCH * dft_ops(cs_hw, CS_ITERS),
+                                         f32 * ((2 * CS_BATCH + 1) * cs_hw + 2 * CS_BATCH))
+    s_bytes = f32 * ((4 * SENSE_SLICES + 2 * SENSE_C + 1) * s_hw)
+    bounds["sense_fused"] = bound(SENSE_SLICES * sense_ops(s_hw, SENSE_C, SENSE_ITERS),
+                                  s_bytes + f32 * 2 * SENSE_SLICES)
+    sb_live = fft["splitbregman_fused"]["live"].tolist()
+    bounds["splitbregman_fused"] = bound(
+        sum(sb_ops(s_hw, SENSE_C, *SB_SCHED[:2], SB_TV, v) for v in sb_live),
+        s_bytes + f32 * 4 * SENSE_SLICES)
     rows = (
         ("tv_fgp", "tv_fgp.cu", "rls_tpu/kernels/tv_pallas.py:69", launches_tv, err_tv,
          (plain_tv, ms_tv)),
@@ -1210,11 +1592,28 @@ def main() -> int:
         ("pgm_dense_fused_cplx", "pgm_dense_fused.cu", "rls_tpu/kernels/pgm_dense_fused.py:458",
          dense_launched["pgm_dense_fused_cplx"], dense["pgm_dense_fused_cplx"]["err"],
          dense["pgm_dense_fused_cplx"]["ms"]),
+        ("fista_l1_dft_fused", "fista_l1_dft_fused.cu",
+         "rls_tpu/kernels/fista_l1_dft_fused.py:110", fft_launched["fista_l1_dft_fused"],
+         fft["fista_l1_dft_fused"]["err"], fft["fista_l1_dft_fused"]["ms"]),
+        ("sense_fused", "sense_fused.cu", "rls_tpu/kernels/sense_fused.py:85",
+         fft_launched["fista_l21_sense_fused"], fft["sense_fused"]["err"],
+         fft["sense_fused"]["ms"]),
+        ("splitbregman_fused", "splitbregman_fused.cu",
+         "rls_tpu/kernels/splitbregman_fused.py:217", fft_launched["splitbregman_l1_tv_fused"],
+         fft["splitbregman_fused"]["err"], fft["splitbregman_fused"]["ms"]),
     )
     # one PyTorch call computes the same function only for CGNR's
     # regularized normal equations (torch.linalg.solve); none computes a
-    # TV or a LASSO solve
-    library = {"cgnr_fused": library_ms}
+    # TV or a LASSO solve. For the three FFT kernels the yardstick is the
+    # same solve with its normal op on torch.fft (cuFFT), the composed
+    # solve_batched_unrolled at the kernel's shapes: many calls, not one,
+    # and the time a later PR's kernel has to beat
+    library = {
+        "cgnr_fused": library_ms,
+        "fista_l1_dft_fused": composed_ms["fista_l1_dft_fused"],
+        "sense_fused": composed_ms["fista_l21_sense_fused"],
+        "splitbregman_fused": composed_ms["splitbregman_l1_tv_fused"],
+    }
     kernels = []
     for name, src, replaces, launches, err, (plain_ms, ms) in rows:
         bound_ms, bound_by = bounds[name]

@@ -2,13 +2,18 @@
 
 Batched deblurring with a 2-D anisotropic TV prior on a separable
 convolution: the PGM-TV family (FISTA, OptISTA, POGM) and ADMM with its
-CG inner solve; and the dense-matrix solvers: CGNR (with its refined
-solve), DirectSolver, PseudoInverse, and FISTA / OptISTA / POGM with an
-L1 or L2 prox on real or complex data. Seven hand-written CUDA kernels
-carry them (``csrc/tv_fgp.cu``, ``csrc/fista_tv_fused.cu``,
-``csrc/fista_tv_tiled.cu``, ``csrc/admm_tv_fused.cu``,
-``csrc/admm_tv_tiled.cu``, ``csrc/cgnr_fused.cu``,
-``csrc/pgm_dense_fused.cu``), built with ``nvcc`` at first use.
+CG inner solve; the dense-matrix solvers: CGNR (with its refined solve),
+DirectSolver, PseudoInverse, and FISTA / OptISTA / POGM with an L1 or L2
+prox on real or complex data; and compressed sensing and multi-coil
+SENSE MRI on the split-real DFT operators (``torch.fft``): FISTA with L1
+or complex L1 (``L21Regularization``) and SplitBregman with L21 + TV.
+Ten hand-written CUDA kernels carry them (``csrc/tv_fgp.cu``,
+``csrc/fista_tv_fused.cu``, ``csrc/fista_tv_tiled.cu``,
+``csrc/admm_tv_fused.cu``, ``csrc/admm_tv_tiled.cu``,
+``csrc/cgnr_fused.cu``, ``csrc/pgm_dense_fused.cu``,
+``csrc/fista_l1_dft_fused.cu``, ``csrc/sense_fused.cu``,
+``csrc/splitbregman_fused.cu``; the last three on an FFT of their own),
+built with ``nvcc`` at first use.
 Names follow the JAX package ``rls_tpu``, which stays the reference. This
 package imports ``torch`` and never ``jax``. Operators are built on the
 card unless the caller passes ``device="cpu"``.
@@ -19,11 +24,15 @@ from .kernels.admm_tv_tiled import solve_admm_tv_tiled
 from .kernels.auto import solve_batched_fast
 from .kernels.cgnr_fused import solve_cgnr_fused
 from .kernels.fista_tv_fused import solve_fista_tv_fused, solve_pgm_tv_fused
+from .kernels.fista_l1_dft_fused import solve_fista_l1_dft_fused
 from .kernels.fista_tv_tiled import solve_fista_tv_tiled
 from .kernels.pgm_dense_fused import solve_pgm_dense_fused
+from .kernels.sense_fused import solve_fista_l21_sense_fused
+from .kernels.splitbregman_fused import solve_splitbregman_l1_tv_fused
 from .models.prox import (
     L1Regularization,
     L2Regularization,
+    L21Regularization,
     PositiveRegularization,
     RealRegularization,
     TVRegularization,
@@ -35,8 +44,11 @@ from .models.solvers.direct import DirectSolver, PseudoInverse
 from .models.solvers.fista import FISTA
 from .models.solvers.optista import OptISTA
 from .models.solvers.pogm import POGM
+from .models.solvers.splitbregman import SplitBregman
 from .ops.base import DenseOperator, IdentityOperator
 from .ops.conv_direct import SeparableConvOperator
+from .ops.dft_real import SenseDFT2RealOperator, SubsampledDFT2RealOperator
+from .ops.fourier import ConvolutionOperator, FFTOperator, SubsampledFFTOperator
 from .ops.grad import GradientOperator
 from .utils.power_iterations import power_iterations
 
@@ -48,13 +60,20 @@ __all__ = [
     "FISTA",
     "OptISTA",
     "POGM",
+    "SplitBregman",
     "TVRegularization",
     "L1Regularization",
     "L2Regularization",
+    "L21Regularization",
     "PositiveRegularization",
     "RealRegularization",
     "DenseOperator",
     "SeparableConvOperator",
+    "SubsampledDFT2RealOperator",
+    "SenseDFT2RealOperator",
+    "FFTOperator",
+    "SubsampledFFTOperator",
+    "ConvolutionOperator",
     "GradientOperator",
     "IdentityOperator",
     "pcg",
@@ -70,5 +89,8 @@ __all__ = [
     "solve_cgnr_fused",
     "solve_cgnr_refined",
     "solve_pgm_dense_fused",
+    "solve_fista_l1_dft_fused",
+    "solve_fista_l21_sense_fused",
+    "solve_splitbregman_l1_tv_fused",
     "power_iterations",
 ]

@@ -81,6 +81,17 @@ _SIGNATURES = {
     "pgm_dense_fused_cplx_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # (x0hat, scal, tab, tw, weights, out, scratch, B, H, W, iterations, stream)
+    "fista_l1_dft_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (x0hat, scal, tab, tw, weights, coils_r, coils_i, out, scratch, B, H, W,
+    #  C, iterations, stream)
+    "sense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (x0hat, scal, t2, tw, weights, coils_r, coils_i, out, scratch, counts, B,
+    #  H, W, C, iterations, iterations_inner, cg_iterations, tv_iterations,
+    #  tol_inner, stream)
+    "splitbregman_fused_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
 }
 
 

@@ -3,20 +3,27 @@
 ``convert(obj, device="cuda")`` turns an ``rls_tpu`` object into its
 ``rls_tpu_torch`` counterpart: ``SeparableConvOperator``,
 ``DenseOperator``, ``NormalOperator``, ``IdentityOperator`` and
-``GradientOperator`` (ADMM's ``reg_trafo``), ``TVRegularization``,
-``L1Regularization``, ``L2Regularization``, ``PositiveRegularization``,
+``GradientOperator`` (ADMM's ``reg_trafo``), the split-real
+``SubsampledDFT2RealOperator`` and ``SenseDFT2RealOperator``,
+``FFTOperator``, ``SubsampledFFTOperator``, ``ConvolutionOperator``,
+``TVRegularization``, ``L1Regularization``, ``L2Regularization``,
+``L21Regularization``, ``PositiveRegularization``,
 ``RealRegularization``, the three normalization strategies, ``FISTA``,
-``OptISTA``, ``POGM``, ``ADMM``, ``CGNR``, ``DirectSolver`` and
-``PseudoInverse`` (with the SVD ``rls_tpu`` took, where it took one).
-Fields are read by attribute name with ``np.asarray`` (``ah``, ``aw``,
-``bh``, ``bw``, ``taps_hw()``, ``lam``, ``rho``, ``iterations``,
-``iterations_tv``, ...), and objects are recognised by class name, so
+``OptISTA``, ``POGM``, ``ADMM``, ``SplitBregman``, ``CGNR``,
+``DirectSolver`` and ``PseudoInverse`` (with the SVD ``rls_tpu`` took,
+where it took one). Fields are read by attribute name with ``np.asarray``
+(``ah``, ``aw``, ``bh``, ``bw``, ``taps_hw()``, ``mask``, ``coils_r``,
+``coils_i``, ``im_shape``, ``sample_idx``, ``otf``, ``lam``, ``slices``,
+``rho``, ``rho0``, ``iterations``, ``iterations_tv``, ...), and objects
+are recognised by class name, so
 this module imports neither ``jax`` nor ``rls_tpu``. The converted
 tensors keep the source arrays' dtype and land on ``device``: the card
 by default, the CPU with ``device="cpu"``.
 
 TV backends map ``"xla"`` → ``"torch"`` and ``"pallas"`` → ``"cuda"``. An
-ADMM preconditioner is a JAX callable and is refused.
+ADMM or SplitBregman preconditioner is a JAX callable and is refused. The
+DFT operators' bf16 compensation factors (``cat``) are not carried: the
+port computes the DFT with ``torch.fft``.
 """
 
 from __future__ import annotations
@@ -31,8 +38,11 @@ from .models.solvers.direct import DirectSolver, PseudoInverse
 from .models.solvers.fista import FISTA
 from .models.solvers.optista import OptISTA
 from .models.solvers.pogm import POGM
+from .models.solvers.splitbregman import SplitBregman
 from .ops.base import DenseOperator, IdentityOperator, NormalOperator
 from .ops.conv_direct import SeparableConvOperator
+from .ops.dft_real import SenseDFT2RealOperator, SubsampledDFT2RealOperator
+from .ops.fourier import ConvolutionOperator, FFTOperator, SubsampledFFTOperator
 from .ops.grad import GradientOperator
 
 __all__ = ["convert"]
@@ -85,10 +95,16 @@ def _operators(obj, device):
 
 
 def _admm(obj, device):
+    """ADMM or SplitBregman: the fields they share, and each one's own."""
+    name = type(obj).__name__
     if obj.precon is not None:
-        raise NotImplementedError("an ADMM preconditioner (a JAX callable) is not carried over")
+        raise NotImplementedError(f"a {name} preconditioner (a JAX callable) is not carried over")
     A, AHA = _operators(obj, device)
-    return ADMM(
+    if name == "ADMM":
+        cls, own = ADMM, dict(vary_rho=str(obj.vary_rho))
+    else:
+        cls, own = SplitBregman, dict(iterations_inner=int(obj.iterations_inner))
+    return cls(
         A=A,
         AHA=AHA,
         reg=tuple(convert(r, device) for r in obj.reg),
@@ -99,10 +115,10 @@ def _admm(obj, device):
         abs_tol=_optional(obj.abs_tol),
         rel_tol=_optional(obj.rel_tol),
         tol_inner=_scalar(obj.tol_inner),
-        vary_rho=str(obj.vary_rho),
         iterations=int(obj.iterations),
         iterations_cg=int(obj.iterations_cg),
         unroll_cg=bool(obj.unroll_cg),
+        **own,
     )
 
 
@@ -155,6 +171,17 @@ def convert(obj, device="cuda"):
         return IdentityOperator(obj.n, _dtype(obj._dtype), device=device)
     if name == "GradientOperator":
         return GradientOperator(obj.im_shape, obj.dims, _dtype(obj._dtype), device=device)
+    if name == "SubsampledDFT2RealOperator":
+        return SubsampledDFT2RealOperator(_tensor(obj.mask, device), obj.im_shape)
+    if name == "SenseDFT2RealOperator":
+        return SenseDFT2RealOperator(_tensor(obj.coils_r, device), _tensor(obj.coils_i, device),
+                                     _tensor(obj.mask, device), obj.im_shape)
+    if name == "FFTOperator":
+        return FFTOperator(obj.im_shape, device=device)
+    if name == "SubsampledFFTOperator":
+        return SubsampledFFTOperator(_tensor(obj.sample_idx, device), obj.im_shape, device=device)
+    if name == "ConvolutionOperator":
+        return ConvolutionOperator(_tensor(obj.otf, device), obj.im_shape)
     if name == "TVRegularization":
         if obj.pair_planes:
             raise NotImplementedError("split-real TV (pair_planes) is not yet ported")
@@ -169,6 +196,8 @@ def convert(obj, device="cuda"):
         return prox.L1Regularization(_scalar(obj.lam))
     if name == "L2Regularization":
         return prox.L2Regularization(_lam(obj.lam, device))
+    if name == "L21Regularization":
+        return prox.L21Regularization(_scalar(obj.lam), slices=int(obj.slices))
     if name == "PositiveRegularization":
         return prox.PositiveRegularization()
     if name == "RealRegularization":
@@ -176,7 +205,7 @@ def convert(obj, device="cuda"):
     if name in ("NoNormalization", "MeasurementBasedNormalization",
                 "SystemMatrixBasedNormalization"):
         return getattr(regularization, name)()
-    if name == "ADMM":
+    if name in ("ADMM", "SplitBregman"):
         return _admm(obj, device)
     if name == "CGNR":
         return _cgnr(obj, device)

@@ -204,6 +204,8 @@ struct Window {
 // The fold FGP on xg with clip bounds +-lam (0 on the window's last row /
 // column), from zero duals or, with `warm`, from the carried pv, ph. It
 // leaves the final duals in pv, ph; the caller forms x = xg - gt(pv, ph).
+// The momentum's two products and difference are rounded on their own, as
+// the plain version rounds them (nvcc would otherwise contract them).
 __device__ __forceinline__ void fold_fgp(const float* xg, float* pv,
                                          float* ph, float* rv, float* rh,
                                          float* y, float lam,
@@ -247,8 +249,8 @@ __device__ __forceinline__ void fold_fgp(const float* xg, float* pv,
             const int c = i - r * W;
             const float qv = r < H - 1 ? clip(rv[i] + grad_v(y, i, W), -lam, lam) : 0.f;
             const float qh = c < W - 1 ? clip(rh[i] + grad_h(y, i), -lam, lam) : 0.f;
-            rv[i] = c1 * qv - c2 * pv[i];
-            rh[i] = c1 * qh - c2 * ph[i];
+            rv[i] = fsub(fmul(c1, qv), fmul(c2, pv[i]));
+            rh[i] = fsub(fmul(c1, qh), fmul(c2, ph[i]));
             pv[i] = qv;
             ph[i] = qh;
         }

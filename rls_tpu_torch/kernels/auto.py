@@ -7,10 +7,14 @@ When no fused kernel applies, a warning names every rejection and the call
 falls back to the composed ``solve_batched_unrolled`` driver.
 
 The ``cgnr_dense``, ``pgm_tv``, ``pgm_dense``, ``fista_tv_tiled``,
-``admm_tv`` and ``admm_tv_tiled`` rows are ported; the other rows of
-``rls_tpu``'s table are named in the warning as not yet ported. The dense
-rows take a ``DenseOperator`` and the TV rows a
-``SeparableConvOperator``, so each check rejects the other family. The
+``admm_tv``, ``admm_tv_tiled``, ``splitbregman_l1_tv``, ``fista_l1_dft``
+and ``fista_l21_sense`` rows are ported; the other rows of ``rls_tpu``'s
+table are named in the warning as not yet ported. The dense rows take a
+``DenseOperator``, the TV rows a ``SeparableConvOperator`` and the FFT
+rows a ``SubsampledDFT2RealOperator`` or ``SenseDFT2RealOperator``, so
+each check rejects the other families. The FFT rows take images whose
+sides are powers of two (their in-kernel FFT's sizes); any other size is
+rejected with that reason and falls back to the composed path. The
 fused OptISTA and POGM paths use an f64 momentum table, so their results
 can differ from the composed path's f32 recurrence at the ~1e-3 level
 over ~50 iterations.
@@ -41,8 +45,11 @@ from .fista_tv_fused import (
     check_pgm_tv_fused,
     solve_pgm_tv_fused,
 )
+from .fista_l1_dft_fused import check_fista_l1_dft_fused, solve_fista_l1_dft_fused
 from .fista_tv_tiled import check_fista_tv_tiled, solve_fista_tv_tiled
 from .pgm_dense_fused import check_pgm_dense_fused, solve_pgm_dense_fused
+from .sense_fused import check_fista_l21_sense_fused, solve_fista_l21_sense_fused
+from .splitbregman_fused import check_splitbregman_l1_tv_fused, solve_splitbregman_l1_tv_fused
 
 __all__ = ["solve_batched_fast", "select_fast_path", "FUSED_MAX_PIXELS"]
 
@@ -60,13 +67,13 @@ _FUSED_WRAPPERS = (
     ("fista_tv_tiled", check_fista_tv_tiled, solve_fista_tv_tiled),
     ("admm_tv", check_admm_tv_fused, solve_admm_tv_fused),
     ("admm_tv_tiled", check_admm_tv_tiled, solve_admm_tv_tiled),
+    ("splitbregman_l1_tv", check_splitbregman_l1_tv_fused, solve_splitbregman_l1_tv_fused),
+    ("fista_l1_dft", check_fista_l1_dft_fused, solve_fista_l1_dft_fused),
+    ("fista_l21_sense", check_fista_l21_sense_fused, solve_fista_l21_sense_fused),
 )
 
 # the remaining rows of rls_tpu/kernels/auto.py:42-58, in table order
 _NOT_YET_PORTED = (
-    "splitbregman_l1_tv",
-    "fista_l1_dft",
-    "fista_l21_sense",
     "pdhg",
     "kaczmarz_greedy",
     "kaczmarz_streamed",

@@ -2,7 +2,7 @@
 
 PyTorch counterpart of ``rls_tpu/models/prox.py``: ``soft_threshold`` and
 ``L1Regularization`` (:57-80), ``L2Regularization`` (:82-97),
-``prox_tv_fgp`` (:133-166),
+``L21Regularization`` (:100-125), ``prox_tv_fgp`` (:133-166),
 ``TVRegularization`` (:205-280), ``PositiveRegularization`` and
 ``RealRegularization`` (:514-533).
 
@@ -31,6 +31,7 @@ from .regularization import ParameterizedRegularization, ProjectionRegularizatio
 __all__ = [
     "L1Regularization",
     "L2Regularization",
+    "L21Regularization",
     "TVRegularization",
     "PositiveRegularization",
     "RealRegularization",
@@ -111,6 +112,35 @@ class L2Regularization(ParameterizedRegularization):
         if lam.ndim and lam.shape != x.shape[:-1]:
             return (lam * x.abs() ** 2).sum(dim=-1)
         return lam * (x.abs() ** 2).sum(dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class L21Regularization(ParameterizedRegularization):
+    """Group soft threshold (reference ProxL21.jl). The last axis is viewed
+    as `slices` stacked groups of length ``len / slices``; group g collects
+    x[g::sliceLength], so the norms run over the `slices` axis. With
+    ``slices=2`` on a split [re; im] vector this is the complex L1 prox."""
+
+    lam: Any
+    slices: int = 1
+
+    def _group_scale(self, x, lam):
+        sl = x.shape[-1] // self.slices
+        x2 = x.reshape(*x.shape[:-1], self.slices, sl)
+        gn = torch.sqrt((x2.abs() ** 2).sum(dim=-2))
+        safe = torch.where(gn == 0, torch.ones_like(gn), gn)
+        scale = torch.clamp((gn - _lam_col(lam, x)) / safe, min=0)
+        return x2, gn, scale
+
+    def prox(self, x, lam=None):
+        lam = self.lam if lam is None else lam
+        x2, _, scale = self._group_scale(x, lam)
+        return (x2 * scale.unsqueeze(-2)).reshape(x.shape)
+
+    def value(self, x, lam=None):
+        lam = self.lam if lam is None else lam
+        _, gn, _ = self._group_scale(x, lam)
+        return _lam(lam, x) * gn.sum(dim=-1)
 
 
 def prox_tv_fgp(x, lam, grad_op: GradientOperator, iterations: int):

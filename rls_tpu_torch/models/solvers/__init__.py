@@ -7,6 +7,7 @@ from .direct import DirectSolver, PseudoInverse
 from .fista import FISTA
 from .optista import OptISTA
 from .pogm import POGM
+from .splitbregman import SplitBregman
 
 __all__ = [
     "ADMM",
@@ -17,6 +18,7 @@ __all__ = [
     "FISTA",
     "OptISTA",
     "POGM",
+    "SplitBregman",
     "pcg",
     "solve",
     "solve_batched",

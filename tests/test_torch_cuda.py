@@ -11,7 +11,10 @@ contraction per op over a few iterations); the per-problem restart and
 freeze counts, and the ADMM kernels' live CG steps, must agree exactly.
 The dense kernels (CGNR, dense PGM) sum in double like their plain
 versions and are held to the same 1e-5 of max|x| on small systems, with
-equal restart counts."""
+equal restart counts. The FFT kernels (FISTA-L1-DFT, FISTA-L21-SENSE)
+round every operation as their plain versions do and must agree bit for
+bit; the SplitBregman kernel, whose CG sums are double sums in another
+order, is held to 1e-5 of max|x| with equal live CG steps."""
 
 import numpy as np
 import pytest
@@ -25,6 +28,10 @@ from rls_tpu_torch.kernels import pgm_dense_fused as pgm_dense
 from rls_tpu_torch.kernels import fista_tv_fused as fused
 from rls_tpu_torch.kernels import fista_tv_tiled as tiled
 from rls_tpu_torch.kernels import tv_fgp
+from rls_tpu_torch.kernels import _dft_common as dft
+from rls_tpu_torch.kernels import fista_l1_dft_fused as l1dft
+from rls_tpu_torch.kernels import sense_fused as sense
+from rls_tpu_torch.kernels import splitbregman_fused as sb
 
 pytestmark = pytest.mark.cuda
 
@@ -327,3 +334,91 @@ def test_dense_wrappers_refuse_what_the_kernels_do_not_take(dev):
         pgm_dense.pgm_dense_fused(b, A, 0.1, 0.5, 1.0, 3, method="pogm", restart="gradient")
     with pytest.raises(ValueError, match="float32"):
         pgm_dense.pgm_dense_fused_cplx(b, b, A.double(), A.double(), 0.1, 0.5, 1.0, 3)
+
+
+# the FFT kernels: H ≠ W, every kernel against its plain version. Rows 8
+# and 9 round every operation as the plain version does and agree bit for
+# bit; the SplitBregman kernel does too, but its CG sums are double sums
+# taken in another order than the plain version's, which may round apart,
+# so it is held to 1e-5 of max|x| with equal live CG steps.
+# The last four shapes take several shared-memory chunks per pass
+# (rows × W or columns × H above 4096 points) and reach both ends of the
+# size gate: 1024 lines of 16 points and 16 lines of 1024.
+FFT_SHAPES = [(16, 32), (64, 8), (2, 4), (256, 128), (1024, 16), (16, 1024), (512, 512)]
+
+
+def _fft_inputs(dev, shape, C=3, seed=6):
+    rng = np.random.default_rng(seed)
+    H, W = shape
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    maps = rng.normal(size=(C, H, W)) + 1j * rng.normal(size=(C, H, W))
+    maps /= np.sqrt((np.abs(maps) ** 2).sum(0))
+    mask = t(rng.uniform(size=shape) < 0.5)
+    return mask, t(maps.real), t(maps.imag), rng
+
+
+@pytest.mark.parametrize("shape", FFT_SHAPES)
+def test_fista_l1_dft_kernel_matches_plain(dev, shape):
+    mask, _, _, rng = _fft_inputs(dev, shape)
+    x0 = torch.from_numpy(rng.normal(size=(3, *shape)).astype(np.float32)).to(dev)
+    lam = torch.tensor([1e-2, 0.0, 0.1], device=dev)
+    before = l1dft.fista_l1_dft_fused.launches
+    got = l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 9)
+    assert l1dft.fista_l1_dft_fused.launches == before + 1
+    scal = fused.problem_scalars(x0, 0.9, lam)
+    tab = torch.as_tensor(fused._momentum_table("fista", 9), device=dev)
+    want = l1dft.fista_l1_dft_fused_torch(x0, scal, tab, dft.dft_tables(mask))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("shape", FFT_SHAPES)
+@pytest.mark.parametrize("coils", [1, 3])
+def test_sense_kernel_matches_plain(dev, shape, coils):
+    mask, cr, ci, rng = _fft_inputs(dev, shape, C=coils)
+    x0 = torch.from_numpy(rng.normal(size=(2, 2, *shape)).astype(np.float32)).to(dev)
+    lam = torch.tensor([1e-2, 0.2], device=dev)
+    before = sense.fista_l21_sense_fused.launches
+    got = sense.fista_l21_sense_fused(x0, mask, cr, ci, 0.9, lam, 9)
+    assert sense.fista_l21_sense_fused.launches == before + 1
+    scal = fused.problem_scalars(x0, 0.9, lam)
+    tab = torch.as_tensor(fused._momentum_table("fista", 9), device=dev)
+    want = sense.fista_l21_sense_fused_torch(x0, scal, tab, (cr, ci), dft.dft_tables(mask))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("shape", FFT_SHAPES)
+@pytest.mark.parametrize("tol_inner,tv_iterations", [(1e-5, 4), (5e-2, 0), (1e-5, 1)])
+def test_splitbregman_kernel_matches_plain(dev, shape, tol_inner, tv_iterations):
+    mask, cr, ci, rng = _fft_inputs(dev, shape)
+    x0 = torch.from_numpy(rng.normal(size=(3, 2, *shape)).astype(np.float32)).to(dev)
+    rho1 = torch.tensor([0.01, 0.0, 0.05], device=dev)
+    sched = (2, 3, 4, tv_iterations, tol_inner)
+    before = sb.splitbregman_l1_tv_fused.launches
+    got, counts = sb.splitbregman_l1_tv_fused(x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, *sched,
+                                              with_counts=True)
+    assert sb.splitbregman_l1_tv_fused.launches == before + 1
+    scal, t2 = sb.kernel_args(x0, rho1, 0.02, 1e-3, 2e-3, tv_iterations)
+    want, want_counts = sb.splitbregman_l1_tv_fused_torch(
+        x0, scal, t2, (cr, ci), dft.dft_tables(mask), *sched[:3], tol_inner)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+def test_fft_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    mask, cr, ci, _ = _fft_inputs(dev, (16, 16))
+    x0 = torch.zeros(2, 16, 16, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        l1dft.fista_l1_dft_fused(x0.double(), mask.double(), 0.9, 0.1, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        l1dft.fista_l1_dft_fused(x0, mask.cpu(), 0.9, 0.1, 2)
+    with pytest.raises(ValueError, match="powers of two"):
+        l1dft.fista_l1_dft_fused(torch.zeros(2, 24, 24, device=dev),
+                                 torch.ones(24, 24, device=dev), 0.9, 0.1, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sense.fista_l21_sense_fused(torch.zeros(2, 2, 16, 16, device=dev), mask, cr.cpu(), ci,
+                                    0.9, 0.1, 2)

@@ -119,9 +119,12 @@ def test_solve_batched_fast_names_every_rejection():
     assert "admm_tv_tiled: tiled path requires an ADMM solver" in msg
     assert "cgnr_dense: fused CGNR path requires a CGNR solver" in msg
     assert "pgm_dense: fused dense PGM path requires a dense operator A" in msg
+    assert "splitbregman_l1_tv: fused path requires a SplitBregman solver" in msg
+    assert "fista_l1_dft: fused path requires SubsampledDFT2RealOperator" in msg
+    assert "fista_l21_sense: fused path requires SenseDFT2RealOperator" in msg
     for name in auto._NOT_YET_PORTED:
         assert f"{name}: not yet ported" in msg
-    assert len(auto._NOT_YET_PORTED) == 6
+    assert len(auto._NOT_YET_PORTED) == 3
     np.testing.assert_array_equal(got.numpy(), rtt.solve_batched_unrolled(tsolver, Bt).numpy())
 
 
