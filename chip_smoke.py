@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: CUDA must be present; TF32 is switched off for matmuls and
      cuDNN; the card's name and power limit are printed;
-  2. build: the ten CUDA sources are compiled from rls_tpu_torch/csrc
-     (one nvcc per source, all at once);
+  2. build: the thirteen CUDA sources are compiled from
+     rls_tpu_torch/csrc (one nvcc per source, all at once);
   3. each kernel against its plain PyTorch version on the card, with both
      times: the TV prox and the fused solve (FISTA, OptISTA, POGM) at the
      flagship shapes (64 problems of 256², 50 × 10 iterations); the fused
@@ -74,16 +74,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
      problem) and splitbregman_sense128_6coil_b8 (BASELINE #4, also
      composed); each cell's composed solve is timed as its kernel's
      yardstick;
+  3i. the PDHG, Kaczmarz and greedy Kaczmarz kernels against their plain
+     versions: the fused PDHG (tv8 on 16 distinct 256² problems at the
+     PDHG cell's 200 iterations, tviso and L1 with Positive at 50, held to
+     the plain version's 1-ulp spread); the Kaczmarz sweep through
+     Kaczmarz(backend="cuda") (cyclic and shuffled, the tall 1024×256
+     system, batch 16: the sweep kernel's main path, its launches
+     counted); the streamed solve on the tall system (dense and padded
+     CSR, 16 distinct b), the 64 MiB system (4 b), a complex system and a
+     real A with a complex b; the greedy sweep with forced rows and with
+     sampled draws, whose rows must equal the plain version's; each held
+     by `hold_dense` and timed in turns with its plain version, beside the
+     composed solve at its shapes;
+ 10. the PDHG and Kaczmarz cells through solve_batched_fast, each
+     running its named dispatch row (pdhg, kaczmarz_streamed,
+     kaczmarz_greedy) by the launch counters, with problems/s, two
+     columns held to a float64 plain solve on the card (the PDHG cell to
+     twice its plain f32 version's own departure where that exceeds
+     TOL_PARITY) and the error against the true image beside the float64
+     solve's own: pdhg_tv8_deblur256_b16_fused (also composed),
+     kaczmarz_rand_pos_tall_b16_streamed, kaczmarz_rand_pos_tall_b16_csr,
+     kaczmarz_streamed_64MiB_b4 and this script's
+     kaczmarz_greedy_tall_b16;
   7. the kernel table as one JSON line (launches on the main path, error
      against the plain version, kernel and plain times, the least time
      the card could take, `bound_ms`, and a library yardstick where one
      exists), then the result line {"ok": true, "device": {...}}.
 
-Phase 3h runs after 3g, phases 8 and 9 after phase 6; the table and the
-result line come last. The flagship problem is rebuilt with numpy exactly
-as bench.py:36-68 builds it, the other cells as tools/bench_suite.py:79-102,
-:104-125, :127-151, :153-194, :204-225 and :308-379 build them (replaying
-its seeded generators).
+Phases 3h and 3i run after 3g, phases 8–10 after phase 6; the table and
+the result line come last. The flagship problem is rebuilt with numpy
+exactly as bench.py:36-68 builds it, the other cells as
+tools/bench_suite.py:79-102, :104-125, :127-151, :153-194, :204-306 and
+:308-379 build them (replaying its seeded generators).
 """
 
 from __future__ import annotations
@@ -161,6 +183,33 @@ SB_LAM, SB_TV, SB_RHO, SB_SCHED, SB_TOL = 1e-4, 5, 0.01, (4, 8, 8), 1e-5
 # FFT_FLOOR) in relative 2-norm and TOL_FUSED_MAX of max|x| at any entry,
 # and SplitBregman's live CG steps must equal the plain version's.
 FFT_SPREAD, FFT_FLOOR = 2.0, 1e-6
+# the PDHG cell of tools/bench_suite.py:227-252 (pdhg_tv8_deblur256_b16_fused):
+# 256², the 9-tap Gaussian exp(−(i−4)²/8) normalized as both factors, TV
+# λ = 5e-3, σ = 1/16, τ from the power iteration, 200 iterations, the ADMM
+# image tiled 16 times; its kernel is held to PDHG_SPREAD times the plain
+# version's own 1-ulp spread (tv8 at 200 iterations on 16 distinct
+# problems, tviso and L1 at PDHG_SHORT iterations). Against float64 the
+# cell's x is held to PDHG_X_BAR, not TOL_PARITY: the 8-direction
+# projection's sign(p) jumps at p = 0, and f32 rounds the differences of
+# flat regions to exactly 0 where float64 does not, so every sound f32
+# solve departs by ~1e-2 (on an H100, 700 W: 1.045e-2 the plain version
+# and the kernel, 1.079e-2 the composed solve; the isotropic scheme in its
+# place reads 3.2e-2). The weighted TV objective (TOL_PARITY) and the
+# residual (TOL_RESIDUAL) do not jump; the kernel run at λ·PDHG_WRONG_LAM
+# must miss them.
+PDHG_N, PDHG_BATCH, PDHG_LAM, PDHG_SIGMA, PDHG_ITERS, PDHG_SHORT = 256, 16, 5e-3, 0.0625, 200, 50
+PDHG_SPREAD, PDHG_X_BAR, PDHG_WRONG_LAM = 2.0, 2e-2, 1.1
+# the Kaczmarz cells of tools/bench_suite.py:254-306: L2 λ = 1e-6 + Positive,
+# randomized with a precomputed order; the tall system (1024×256) 20 sweeps
+# of 64 rows (fraction 0.0625), batch 16, dense and padded CSR; the 64 MiB
+# system (8192×2048) 8 sweeps of 1024 rows (fraction 0.125), batch 4; and
+# this script's greedy cell on the tall system, 20 sweeps of 64 steps,
+# batch 16. The sweep kernel (row 12a) runs KZ_SWEEPS cyclic or shuffled
+# sweeps of the tall system through Kaczmarz(backend="cuda"). Each kernel
+# is held by `hold_dense` (DENSE_SPREAD × the plain version's spread under
+# b·(1 + 2⁻²³), DENSE_FLOOR).
+KZ_LAM, KZ_TALL, KZ_64MIB, KZ_GREEDY = 1e-6, (20, 0.0625, 16), (8, 0.125, 4), (20, 0.0625, 16)
+KZ_SWEEPS = 4
 
 
 def require(cond, msg):
@@ -193,9 +242,11 @@ def bench_suite_draws():
     draws (:81-294): the dense CGNR cell's A (64×64) and XT1 (64×16,
     :80-96), the compressed-sensing image (256²) and its sorted sample
     indices (35 %, :107-111), the ADMM-TV deblurring image (256², :132-135), the dense LASSO
-    cell's A (256×512) and sparse X (512×16, 5% nonzero, :208-211), and the
-    512² batch of 16 (:326-331) and 1024² batch of 8 (:367-372) of
-    phantoms; all float32, the images flattened."""
+    cell's A (256×512) and sparse X (512×16, 5% nonzero, :208-211), the tall
+    Kaczmarz system (1024×256 N(0,1), 70 % zeroed) and its |N(0,1)| x
+    (:255-258), the 64 MiB one (8192×2048 N(0,1)/√2048) and its x
+    (:292-294), and the 512² batch of 16 (:326-331) and 1024² batch of 8
+    (:367-372) of phantoms; all float32, the images flattened."""
     rng = np.random.default_rng(0)
     a64 = (rng.normal(size=(64, 64)).astype(np.float32) / np.float32(8.0)).astype(np.float32)
     rng.normal(size=(64,))
@@ -211,10 +262,13 @@ def bench_suite_draws():
         img3[i0 : i0 + 30, j0 : j0 + 30] += rng.uniform(0.3, 1.0)
     a2b = (rng.normal(size=(256, 512)) / np.sqrt(256)).astype(np.float32)
     x2b = (rng.normal(size=(512, 16)) * (rng.uniform(size=(512, 16)) < 0.05)).astype(np.float32)
-    rng.normal(size=(1024, 256)), rng.uniform(size=(1024, 256)), rng.normal(size=(256,))
-    rng.normal(size=(8192, 2048)), rng.normal(size=(2048,))
+    ak = rng.normal(size=(1024, 256)).astype(np.float32)
+    ak[rng.uniform(size=ak.shape) < 0.7] = 0.0
+    xtk = np.abs(rng.normal(size=(256,)).astype(np.float32))
+    ak2 = (rng.normal(size=(8192, 2048)) / np.sqrt(2048)).astype(np.float32)
+    xtk2 = np.abs(rng.normal(size=(2048,)).astype(np.float32))
     out = {"cgnr64": (a64, xt1), "admm": img3.reshape(-1), "lasso": (a2b, x2b),
-           "cs": (img2.reshape(-1), idx2)}
+           "cs": (img2.reshape(-1), idx2), "kz_tall": (ak, xtk), "kz_64mib": (ak2, xtk2)}
     for n, batch, margin, lo, hi in ((512, 16, 64, 16, 128), (1024, 8, 128, 32, 256)):
         imgs = np.zeros((batch, n, n), np.float32)
         for b in range(batch):
@@ -438,8 +492,8 @@ def hold_to_plain(name, kernel, plain, x0hat, show_counts=False, spread=None):
     ulp_norm = float(torch.linalg.norm(ulp - want) / torch.linalg.norm(want))
     print(
         f"{name}: max|kernel - plain| = {err:.3e} (max|x| {scale:.3f}), rel. 2-norm "
-        f"{norm:.3e}; plain under a 1-ulp input change: max {ulp_max:.3e}, rel. 2-norm "
-        f"{ulp_norm:.3e}"
+        f"{norm:.3e}, bitwise {bool(torch.equal(got, want))}; plain under a 1-ulp input "
+        f"change: max {ulp_max:.3e}, rel. 2-norm {ulp_norm:.3e}"
     )
     if show_counts and counts.ndim == 1:
         print(f"{name}: live CG steps kernel {counts.tolist()} plain {want_counts.tolist()} "
@@ -538,17 +592,20 @@ def device_breakdown(name, fn):
 
 
 def launch_counts(reset=False):
-    """The launch counters of the eleven kernel wrappers, by name; with
+    """The launch counters of the fifteen kernel wrappers, by name; with
     `reset`, set them to 0 first."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
+    from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
     from rls_tpu_torch.kernels import splitbregman_fused, tv_fgp
 
     fns = (tv_fgp.prox_tv2d_fgp, fista_tv_fused.fista_tv_fused, fista_tv_tiled.fista_tv_tiled,
            admm_tv_fused.admm_tv_fused, admm_tv_tiled.admm_tv_tiled, cgnr_fused.cgnr_fused,
            pgm_dense_fused.pgm_dense_fused, pgm_dense_fused.pgm_dense_fused_cplx,
            fista_l1_dft_fused.fista_l1_dft_fused, sense_fused.fista_l21_sense_fused,
-           splitbregman_fused.splitbregman_l1_tv_fused)
+           splitbregman_fused.splitbregman_l1_tv_fused, pdhg_fused.pdhg_fused,
+           kaczmarz_streamed.kaczmarz_sweep, kaczmarz_streamed.kaczmarz_solve,
+           kaczmarz_greedy.kaczmarz_greedy_sweep)
     if reset:
         for fn in fns:
             fn.launches = 0
@@ -1257,6 +1314,458 @@ def fft_cell_phase(dev, draws):
     return launched, composed_ms
 
 
+def pdhg_cell_solver(dev, dtype=None, tau=None):
+    """The PDHG cell's solver (PDHG_*): the 9-tap Gaussian on both axes,
+    8-direction TV; τ from the port's power iteration unless given."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    g = np.exp(-((np.arange(9) - 4) ** 2) / 8.0)
+    g = g / g.sum()
+    op = rtt.SeparableConvOperator.from_taps(g, g, (PDHG_N, PDHG_N),
+                                             dtype=dtype or torch.float32, device=dev)
+    return rtt.PDHG.create(op, reg=rtt.TVRegularization(PDHG_LAM, shape=(PDHG_N, PDHG_N)),
+                           iterations=PDHG_ITERS, sigma=PDHG_SIGMA, tau=tau)
+
+
+def pdhg_ops(kh, kw, kind):
+    """f32 operations per pixel and iteration of the fused PDHG: A and Aᴴ
+    (two stencil passes each), the y₁ update (4), the x update (3); tv8: 8
+    differences, the dual step (16), the sequential projection (per plane
+    the group norm 15, sqrt, sign, min and 2 products: 20) and Φᴴ (15);
+    tviso: 2 differences, the dual step (4), two clips (5 each) and Φᴴ
+    (3); l1: the dual step (2) and the clip (5)."""
+    own = {"tv8": 8 + 16 + 8 * 20 + 15, "tviso": 2 + 4 + 10 + 3, "l1": 2 + 5}[kind]
+    return 2 * (2 * kh - 1) + 2 * (2 * kw - 1) + 4 + 3 + own
+
+
+def pdhg_kernel_phase(dev, solver):
+    """Phase 3i, row 11: the fused PDHG kernel against its plain version on
+    16 distinct 256² problems (bench.py's phantoms blurred by the cell's
+    operator), tv8 at the cell's 200 iterations, tviso and L1 (with
+    Positive) at PDHG_SHORT, each held by `hold_to_plain` to PDHG_SPREAD ×
+    the plain version's 1-ulp spread; tv8 timed in turns with its plain
+    version. Returns {"err", "ms": (plain, kernel)}."""
+    import torch
+
+    from rls_tpu_torch.kernels import pdhg_fused as pd
+
+    op = solver.A
+    taps = op.taps_hw()
+    xs = torch.from_numpy(phantoms(n=PDHG_N, batch=PDHG_BATCH)).to(dev)
+    u = op.mv(xs).reshape(PDHG_BATCH, PDHG_N, PDHG_N).contiguous()
+    none = torch.zeros(0)
+
+    def pair(kind, prox, iters):
+        def kernel(x):
+            return pd.pdhg_fused(x, taps, solver.sigma, solver.tau, PDHG_LAM, iters, kind,
+                                 prox), none
+
+        def plain(x):
+            scal = pd.kernel_scalars(x, solver.sigma, solver.tau, PDHG_LAM)
+            return pd.pdhg_fused_torch(x, scal, taps, iters, kind, prox), none
+
+        return kernel, plain
+
+    out = {"err": 0.0}
+    for kind, prox, iters in (("tv8", "none", PDHG_ITERS), ("tviso", "none", PDHG_SHORT),
+                              ("l1", "positive", PDHG_SHORT)):
+        kernel, plain = pair(kind, prox, iters)
+        label = f"pdhg_fused[{kind}, {prox}, {PDHG_N}², batch {PDHG_BATCH}, {iters} it.]"
+        out["err"] = max(out["err"], hold_to_plain(label, kernel, plain, u, spread=PDHG_SPREAD))
+        if kind == "tv8":
+            out["ms"] = alternate_ms(lambda: plain(u), lambda: kernel(u), reps=1)
+            print(f"{label}: kernel {out['ms'][1]:.3f} ms, plain {out['ms'][0]:.3f} ms")
+    return out
+
+
+def kaczmarz_systems(draws, dev):
+    """The Kaczmarz systems on the card: the tall A (1024×256) with 16
+    distinct x (|N(0,1)|, default_rng(3)) and the cell's x, the 64 MiB A
+    with 4 distinct x (default_rng(4)) and the cell's x, a complex A
+    (512×128, (N + iN)/16, default_rng(5)) with 4 complex x, and 4 complex
+    b for the tall real A; each b = A x with A in float32. Values: (A, B of
+    distinct b, B of the cell, the cell's x)."""
+    import torch
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ak, xtk = draws["kz_tall"]
+    ak2, xtk2 = draws["kz_64mib"]
+    x16 = np.abs(np.random.default_rng(3).normal(size=(256, 16))).astype(np.float32)
+    x4 = np.abs(np.random.default_rng(4).normal(size=(2048, 4))).astype(np.float32)
+    rng = np.random.default_rng(5)
+    ac = ((rng.normal(size=(512, 128)) + 1j * rng.normal(size=(512, 128))) / 16).astype(
+        np.complex64)
+    xc = (rng.normal(size=(128, 4)) + 1j * rng.normal(size=(128, 4))).astype(np.complex64)
+    xcb = (rng.normal(size=(256, 4)) + 1j * rng.normal(size=(256, 4))).astype(np.complex64)
+    return {
+        "tall": (t(ak), t(ak @ x16), t(np.tile((ak @ xtk)[:, None], (1, 16))), t(xtk)),
+        "64mib": (t(ak2), t(ak2 @ x4), t(np.tile((ak2 @ xtk2)[:, None], (1, 4))), t(xtk2)),
+        "complex": (t(ac), t(ac @ xc)),
+        "complex_b": t(ak.astype(np.complex64) @ xcb),
+    }
+
+
+def kaczmarz_solver(op, cell, greedy=False, positive=True, **kw):
+    """The Kaczmarz cells' solver on operator `op`: L2 λ = KZ_LAM (+ Positive),
+    `cell` = (sweeps, sub-matrix fraction, batch); randomized with a
+    precomputed order unless told otherwise, or greedy."""
+    import rls_tpu_torch as rtt
+
+    sweeps, fraction, _ = cell
+    reg = [rtt.L2Regularization(KZ_LAM)] + ([rtt.PositiveRegularization()] if positive else [])
+    if greedy:
+        kw.update(greedy_randomized=True)
+    else:
+        kw.setdefault("randomized", True)
+        kw.setdefault("precompute_order", kw["randomized"])
+    return rtt.Kaczmarz.create(op, reg=reg, iterations=sweeps, sub_matrix_fraction=fraction,
+                               **kw)
+
+
+def as_float64(solver):
+    """`solver` on its operator in float64 (dense), with the same row
+    orders."""
+    import dataclasses
+
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    mat = solver.A.to_dense()
+    mat = mat.to(torch.complex128 if mat.is_complex() else torch.float64)
+    s64 = type(solver).create(
+        rtt.DenseOperator(mat, device=mat.device),
+        reg=[solver.l2, *solver.reg], iterations=solver.iterations,
+        randomized=solver.randomized, greedy_randomized=solver.greedy,
+        sub_matrix_fraction=solver.sub_matrix_size / solver.A.out_size, theta=solver.theta,
+        seed=solver.seed,
+    )
+    return dataclasses.replace(s64, perm=solver.perm, precomputed_order=solver.precomputed_order)
+
+
+def streamed_plain(solver, B, dtype=None):
+    """`solve_kaczmarz_streamed(solver, B)` with the kernel's plain version
+    (in float32, or `dtype`): n × K."""
+    import torch
+
+    from rls_tpu_torch.kernels import kaczmarz_streamed as ks
+
+    if not solver.A.dtype.is_complex and B.is_complex():
+        re = streamed_plain(solver, torch.cat([B.real, B.imag], dim=1), dtype)
+        K = B.shape[1]
+        return torch.complex(re[:, :K], re[:, K:])
+    rows, cols, idx, x0, vl0, u, denom, eps, sweeps, reuse = ks.solver_operands(
+        solver, B, dtype or torch.float32)
+    x, _ = ks.kaczmarz_solve_torch(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse,
+                                   ks.sweep_projection(solver), cols)
+    sol = torch.complex(x[:, 0], x[:, 1]) if x.shape[1] == 2 else x[:, 0]
+    if solver.tikhonov_inv_sqrt is not None:
+        sol = sol * solver.tikhonov_inv_sqrt.to(sol.dtype)[None, :]
+    return sol.T
+
+
+def kaczmarz_ops(n, steps):
+    """f32 operations of `steps` row steps of one problem on real rows of n
+    entries: the dot (2n), α (5), the axpy (2n) and the dual bump (2)."""
+    return steps * (4 * n + 7)
+
+
+def greedy_ops(m, n, steps):
+    """f32 operations of `steps` greedy steps of one problem: |r|², its sum
+    and r²·denom and their max (4m), the threshold (2m), log w and the
+    Gumbel noise (4 per row, counted on every row), the argmax (m), α, the
+    axpy (2n), the dual bump (2) and r −= r_row·Gt[row] (2m); the hash is
+    integer work and not counted."""
+    return steps * (13 * m + 2 * n + 3)
+
+
+def kaczmarz_kernel_phase(dev, kz):
+    """Phase 3i, rows 12a, 12b and 13, each held by `hold_dense`:
+    12a through Kaczmarz(backend="cuda") (cyclic and shuffled, KZ_SWEEPS
+    sweeps of the tall system, batch 16: the main path of the sweep kernel,
+    its launches counted), one sweep timed in turns with its plain version
+    and the composed one-sweep solve; 12b through solve_kaczmarz_streamed
+    on the tall system (dense and padded CSR, 16 distinct b), the 64 MiB
+    system (4 b), a complex system and the tall real A with complex b, the
+    tall dense solve timed in turns with its plain version; 13 through
+    greedy_solve with forced rows and with sampled draws, whose rows must
+    equal the plain version's, one sweep timed in turns and the composed
+    one-sweep greedy solve. Returns {kernel: {"err", "ms", ...}}."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import kaczmarz_greedy as kg
+    from rls_tpu_torch.kernels import kaczmarz_streamed as ks
+
+    A, B16, _, _ = kz["tall"]
+    out = {k: {"err": 0.0} for k in ("kaczmarz_sweep", "kaczmarz_solve", "kaczmarz_greedy_sweep")}
+
+    def note(name, err):
+        out[name]["err"] = max(out[name]["err"], err)
+
+    # 12a: the sweep kernel through Kaczmarz(backend="cuda")
+    dense = rtt.DenseOperator(A, device=dev)
+    out["kaczmarz_sweep"]["launches"] = 0
+    for order in ("cyclic", "shuffled"):
+        s = kaczmarz_solver(dense, (KZ_SWEEPS, 1.0, 16), randomized=False,
+                            shuffle_rows=order == "shuffled", backend="cuda")
+        launch_counts(reset=True)
+        x = rtt.solve_batched_unrolled(s, B16)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        print(f"launches (Kaczmarz backend=cuda, {order}, {KZ_SWEEPS} sweeps): {got}")
+        require(got == {**{k: 0 for k in got}, "kaczmarz_sweep": KZ_SWEEPS},
+                f"{order}: expected {KZ_SWEEPS} launches of kaczmarz_sweep and no others")
+        require(tuple(x.shape) == (256, 16) and bool(torch.isfinite(x).all()),
+                f"{order}: bad result {tuple(x.shape)}")
+        out["kaczmarz_sweep"]["launches"] += KZ_SWEEPS
+        note("kaczmarz_sweep", hold_dense(
+            f"kaczmarz_sweep[{order}, 1024x256, batch 16, {KZ_SWEEPS} sweeps]",
+            lambda b, s=s: (rtt.solve_batched_unrolled(s, b).T, None),
+            lambda b, s=s: (streamed_plain(s, b).T, None), (B16,), counts=False))
+    s1 = kaczmarz_solver(dense, (1, 1.0, 16), randomized=False, backend="cuda")
+    rows, _, idx, x0, vl0, u, denom, eps, _, _ = ks.solver_operands(s1, B16)
+    out["kaczmarz_sweep"]["ms"] = alternate_ms(
+        lambda: ks.kaczmarz_solve_torch(rows, idx, x0, vl0, u, denom, eps, 1, True),
+        lambda: ks.kaczmarz_sweep(rows[0], x0[:, 0], vl0[:, 0], u[:, 0], denom, eps, idx[0]),
+        reps=2)
+    s1 = kaczmarz_solver(dense, (1, 1.0, 16), randomized=False)
+    rtt.solve_batched_unrolled(s1, B16)
+    out["kaczmarz_sweep"]["library_ms"] = cuda_ms(lambda: rtt.solve_batched_unrolled(s1, B16), 1)
+
+    # 12b: the streamed solve
+    A2, B4 = kz["64mib"][:2]
+    Ac, Bc = kz["complex"]
+    cases = (
+        ("1024x256 dense, batch 16", kaczmarz_solver(dense, KZ_TALL), B16),
+        ("1024x256 padded CSR, batch 16",
+         kaczmarz_solver(rtt.PaddedCSROperator.from_dense(A.cpu().numpy(), device=dev), KZ_TALL),
+         B16),
+        ("8192x2048 dense (64 MiB), batch 4",
+         kaczmarz_solver(rtt.DenseOperator(A2, device=dev), KZ_64MIB), B4),
+        ("complex 512x128 dense, cyclic, 3 sweeps, batch 4",
+         kaczmarz_solver(rtt.DenseOperator(Ac, device=dev), (3, 1.0, 4), randomized=False,
+                         positive=False), Bc),
+        ("1024x256 real A, complex b, batch 4",
+         kaczmarz_solver(dense, KZ_TALL, positive=False), kz["complex_b"]),
+    )
+    for label, s, B in cases:
+        note("kaczmarz_solve", hold_dense(
+            f"kaczmarz_solve[{label}]", lambda b, s=s: (rtt.solve_kaczmarz_streamed(s, b).T, None),
+            lambda b, s=s: (streamed_plain(s, b).T, None), (B,), counts=False))
+    rows, _, idx, x0, vl0, u, denom, eps, sweeps, reuse = ks.solver_operands(cases[0][1], B16)
+    out["kaczmarz_solve"]["ms"] = alternate_ms(
+        lambda: ks.kaczmarz_solve_torch(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse,
+                                        "positive"),
+        lambda: ks.kaczmarz_solve(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse, "positive"),
+        reps=2)
+    # the rows the timed solve visits, and how many distinct ones it reads
+    out["kaczmarz_solve"]["visited"] = (int((idx >= 0).sum()), int(torch.unique(idx).numel()))
+
+    # 13: the greedy sweep, forced and sampled
+    sg = kaczmarz_solver(dense, KZ_GREEDY, greedy=True)
+    T, S = sg.iterations, sg.sub_matrix_size
+    forced = torch.from_numpy(np.random.default_rng(6).integers(0, 1024, size=(T, S))
+                              .astype(np.int32)).to(dev)
+    for label, fr in (("forced rows", forced), ("sampled draws", None)):
+        _, rk = kg.greedy_solve(sg, B16, forced_rows=fr)
+        _, rp = kg.greedy_solve(sg, B16, sweep=kg.kaczmarz_greedy_sweep_torch, forced_rows=fr)
+        differ = int((rk != rp).sum())
+        print(f"kaczmarz_greedy_sweep[{label}]: {rk.numel()} rows drawn ({T} sweeps × {S} steps "
+              f"× 16 problems), {differ} differ from the plain version's, "
+              f"{int(torch.unique(rk).numel())} distinct")
+        require(differ == 0, f"kaczmarz_greedy_sweep[{label}]: {differ} drawn rows differ")
+        note("kaczmarz_greedy_sweep", hold_dense(
+            f"kaczmarz_greedy_sweep[{label}, 1024x256, batch 16, {T}×{S}]",
+            lambda b, fr=fr: (kg.greedy_solve(sg, b, forced_rows=fr)[0].T, None),
+            lambda b, fr=fr: (kg.greedy_solve(sg, b, sweep=kg.kaczmarz_greedy_sweep_torch,
+                                              forced_rows=fr)[0].T, None),
+            (B16,), counts=False))
+    Ag, Gt, dg, ng, eg, fn, bt = kg.greedy_operands(sg, B16)
+    z = (torch.zeros(16, 256, device=dev), torch.zeros(16, 1024, device=dev), bt)
+    # the rows the timed sweep draws, and how many distinct ones it reads
+    drawn = kg.kaczmarz_greedy_sweep(Ag, Gt, dg, ng, *z, eg, fn, None, S, sg.seed, 0)[3]
+    out["kaczmarz_greedy_sweep"]["visited"] = (S, int(torch.unique(drawn).numel()))
+    print(f"kaczmarz_greedy_sweep (timed sweep): {drawn.numel()} rows drawn, "
+          f"{out['kaczmarz_greedy_sweep']['visited'][1]} distinct")
+    out["kaczmarz_greedy_sweep"]["ms"] = alternate_ms(
+        lambda: kg.kaczmarz_greedy_sweep_torch(Ag, Gt, dg, ng, *z, eg, fn, None, S, sg.seed, 0),
+        lambda: kg.kaczmarz_greedy_sweep(Ag, Gt, dg, ng, *z, eg, fn, None, S, sg.seed, 0),
+        reps=2)
+    g1 = kaczmarz_solver(dense, (1,) + KZ_GREEDY[1:], greedy=True)
+    rtt.solve_batched_unrolled(g1, B16)
+    out["kaczmarz_greedy_sweep"]["library_ms"] = cuda_ms(
+        lambda: rtt.solve_batched_unrolled(g1, B16), 1)
+    for name, row in out.items():
+        print(f"{name}: kernel {row['ms'][1]:.3f} ms, plain {row['ms'][0]:.3f} ms"
+              + (f", composed {row['library_ms']:.3f} ms" if "library_ms" in row else ""))
+    return out
+
+
+def parity_cols(name, x, B, mv64, x64, xs_true, bar=TOL_PARITY, res_bar=TOL_RESIDUAL):
+    """The first k columns of a solve `x` (n × K) against the float64
+    solutions `x64` (n × k): the worst column's relative error (≤ `bar`,
+    TOL_PARITY unless a cell's own f32 arithmetic cannot meet it) and
+    |‖A x − b‖ − ‖A x64 − b‖| / ‖b‖ with A in float64 (≤ `res_bar`);
+    printed with the error against the true image `xs_true` (n, the same
+    for every column) beside the float64 solve's own. Returns both."""
+    import torch
+
+    k = x64.shape[1]
+    require(bool(torch.isfinite(x).all()), f"{name}: non-finite values")
+    xc = x[:, :k].to(x64.dtype)
+    b = B[:, :k].to(x64.dtype)
+    rel = float(max(torch.linalg.norm(xc[:, j] - x64[:, j]) / torch.linalg.norm(x64[:, j])
+                    for j in range(k)))
+    r_x = torch.linalg.norm(mv64(xc.T) - b.T, dim=1)
+    r_64 = torch.linalg.norm(mv64(x64.T) - b.T, dim=1)
+    res = float(((r_x - r_64).abs() / torch.linalg.norm(b, dim=0)).max())
+    truth = xs_true.to(x64.dtype)[:, None]
+    rec = float(torch.linalg.norm(x.to(x64.dtype) - truth) / torch.linalg.norm(
+        truth.expand(-1, x.shape[1])))
+    rec64 = float(torch.linalg.norm(x64 - truth) / torch.linalg.norm(truth.expand(-1, k)))
+    print(f"{name}: recon_rel_err {rec:.4e} (float64 solve {rec64:.4e}), parity_max_rel_err vs "
+          f"f64 {rel:.3e}, parity_residual_rel_diff vs f64 {res:.3e}")
+    require(rel <= bar, f"{name}: parity_max_rel_err vs f64 {rel:.3e} > {bar:.3e}")
+    require(res <= res_bar, f"{name}: parity_residual_rel_diff vs f64 {res:.3e}")
+    return rel, res
+
+
+def pdhg_objective(op64, B, x):
+    """½‖A x − b‖² + λ·Σₖ wₖ‖Dₖ x‖₁ in float64 for each column of x (n × k)
+    and B: the PDHG cell's weighted 8-direction TV objective."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.models.solvers.pdhg import W8
+
+    xt = x.T.double()
+    grad = rtt.Grad8Operator((PDHG_N, PDHG_N), torch.float64, device=xt.device)
+    w = torch.tensor(W8, dtype=torch.float64, device=xt.device).repeat_interleave(PDHG_N ** 2)
+    r = op64.mv(xt) - B.T.double()
+    return 0.5 * (r * r).sum(dim=-1) + PDHG_LAM * (w * grad.mv(xt).abs()).sum(dim=-1)
+
+
+def kernel_cell_phase(dev, draws, pdhg_solver, kz):
+    """Phase 10: the PDHG and Kaczmarz cells through solve_batched_fast,
+    each with the launch counters set to 0 just before the solve and read
+    just after (the named dispatch row, its launches and no others),
+    problems/s, and two columns held by `parity_cols` against a float64
+    solve of the plain version on the card. The PDHG cell's composed solve
+    (solve_batched_unrolled) is timed as its kernel's yardstick, the tall
+    cell's composed Kaczmarz solve as the streamed kernel's. Returns
+    ({kernel: launches}, {kernel: composed ms})."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import auto
+    from rls_tpu_torch.kernels import kaczmarz_greedy as kg
+    from rls_tpu_torch.kernels import pdhg_fused as pd
+
+    launched, composed = {}, {}
+
+    def run(name, solver, B, row, want):
+        require(auto.select_fast_path(solver)[0] == row, f"{name}: dispatch is not {row}")
+        launch_counts(reset=True)
+        x = rtt.solve_batched_fast(solver, B)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        print(f"launches ({name}): {got}")
+        require(got == {**{k: 0 for k in got}, **want},
+                f"{name}: expected the launches {want} and no others")
+        for k, v in want.items():
+            launched[k] = launched.get(k, 0) + v
+        require(tuple(x.shape) == (solver.A.in_size, B.shape[1]), f"{name}: shape {x.shape}")
+        ms = cuda_ms(lambda: rtt.solve_batched_fast(solver, B), reps=2)
+        print(f"{name}: {B.shape[1] / (ms / 1e3):.1f} problems/s ({ms:.3f} ms per batch of "
+              f"{B.shape[1]})")
+        return x
+
+    # pdhg_tv8_deblur256_b16_fused: the ADMM image blurred, tiled 16 times
+    op = pdhg_solver.A
+    xt = torch.from_numpy(draws["admm"]).to(dev)
+    B = op.mv(xt)[:, None].repeat(1, PDHG_BATCH).contiguous()
+    x = run("pdhg_tv8_deblur256_b16_fused", pdhg_solver, B, "pdhg", {"pdhg_fused": 1})
+    s64 = pdhg_cell_solver(dev, torch.float64, tau=pdhg_solver.tau)
+    u64 = B[:, :2].T.double().reshape(2, PDHG_N, PDHG_N)
+    scal64 = pd.kernel_scalars(u64, PDHG_SIGMA, pdhg_solver.tau, PDHG_LAM, np.float64)
+    x64 = pd.pdhg_fused_torch(u64, scal64, s64.A.taps_hw(), PDHG_ITERS, "tv8").reshape(2, -1).T
+    obj64 = pdhg_objective(s64.A, B[:, :2], x64)
+
+    def objective(name, x):
+        diff = float(((pdhg_objective(s64.A, B[:, :2], x[:, :2]) - obj64).abs() / obj64).max())
+        print(f"{name}: objective vs f64 {diff:.3e}")
+        return diff
+
+    # x against float64 at PDHG_X_BAR (see there), the objective at
+    # TOL_PARITY, the residual at TOL_RESIDUAL; the plain f32 version's own
+    # readings printed beside them
+    u32 = B[:, :2].T.reshape(2, PDHG_N, PDHG_N).contiguous()
+    x32 = pd.pdhg_fused_torch(u32, pd.kernel_scalars(u32, PDHG_SIGMA, pdhg_solver.tau, PDHG_LAM),
+                              op.taps_hw(), PDHG_ITERS, "tv8").reshape(2, -1).T
+    parity_cols("pdhg_tv8_deblur256_b16 (plain f32 version)", x32, B, s64.A.mv, x64, xt,
+                bar=float("inf"), res_bar=float("inf"))
+    objective("pdhg_tv8_deblur256_b16 (plain f32 version)", x32)
+    parity_cols("pdhg_tv8_deblur256_b16_fused", x, B, s64.A.mv, x64, xt, PDHG_X_BAR)
+    require(objective("pdhg_tv8_deblur256_b16_fused", x) <= TOL_PARITY,
+            f"pdhg_tv8_deblur256_b16_fused: objective vs f64 above {TOL_PARITY:.0e}")
+    launch_counts(reset=True)
+    xc = rtt.solve_batched_unrolled(pdhg_solver, B)
+    torch.cuda.synchronize()
+    require(not any(launch_counts().values()), "the composed PDHG launched a kernel")
+    parity_cols("pdhg_tv8_deblur256_b16 composed", xc, B, s64.A.mv, x64, xt, PDHG_X_BAR)
+    require(objective("pdhg_tv8_deblur256_b16 composed", xc) <= TOL_PARITY,
+            f"pdhg_tv8_deblur256_b16 composed: objective vs f64 above {TOL_PARITY:.0e}")
+    # a wrong kernel: λ off by PDHG_WRONG_LAM must miss the objective or the
+    # residual bar
+    xw = pd.pdhg_fused(u32, op.taps_hw(), PDHG_SIGMA, pdhg_solver.tau, PDHG_LAM * PDHG_WRONG_LAM,
+                       PDHG_ITERS, "tv8").reshape(2, -1).T
+    label = f"pdhg_tv8_deblur256_b16 (the kernel at λ·{PDHG_WRONG_LAM})"
+    _, res_w = parity_cols(label, xw, B, s64.A.mv, x64, xt, bar=float("inf"),
+                           res_bar=float("inf"))
+    require(objective(label, xw) > TOL_PARITY or res_w > TOL_RESIDUAL,
+            f"{label} passes the cell's bars: they cannot tell a wrong λ")
+    composed["pdhg_fused"] = cuda_ms(lambda: rtt.solve_batched_unrolled(pdhg_solver, B), 1)
+    print(f"pdhg_tv8_deblur256_b16: solve_batched_unrolled {composed['pdhg_fused']:.3f} ms per "
+          f"batch of {PDHG_BATCH} ({PDHG_BATCH / (composed['pdhg_fused'] / 1e3):.1f} problems/s)")
+
+    # the Kaczmarz cells
+    A, _, Bt, xtk = kz["tall"]
+    A2, _, B2, xtk2 = kz["64mib"]
+    dense = rtt.DenseOperator(A, device=dev)
+    csr = rtt.PaddedCSROperator.from_dense(A.cpu().numpy(), device=dev)
+    for name, s, B, xs in (
+        ("kaczmarz_rand_pos_tall_b16_streamed", kaczmarz_solver(dense, KZ_TALL), Bt, xtk),
+        ("kaczmarz_rand_pos_tall_b16_csr", kaczmarz_solver(csr, KZ_TALL), Bt, xtk),
+        ("kaczmarz_streamed_64MiB_b4",
+         kaczmarz_solver(rtt.DenseOperator(A2, device=dev), KZ_64MIB), B2, xtk2),
+    ):
+        x = run(name, s, B, "kaczmarz_streamed", {"kaczmarz_solve": 1})
+        s64 = as_float64(s)
+        x64 = streamed_plain(s64, B[:, :2].double(), torch.float64)
+        parity_cols(name, x, B, s64.A.mv, x64, xs)
+        if name.endswith("tall_b16_streamed"):
+            rtt.solve_batched_unrolled(s, B)
+            composed["kaczmarz_solve"] = cuda_ms(lambda: rtt.solve_batched_unrolled(s, B), 1)
+            print(f"{name}: solve_batched_unrolled (composed) {composed['kaczmarz_solve']:.3f} ms")
+    # kaczmarz_greedy_tall_b16: this script's own greedy cell
+    sg = kaczmarz_solver(dense, KZ_GREEDY, greedy=True)
+    name = "kaczmarz_greedy_tall_b16"
+    x = run(name, sg, Bt, "kaczmarz_greedy", {"kaczmarz_greedy_sweep": sg.iterations})
+    _, rows = kg.greedy_solve(sg, Bt)  # the same draws as the run above
+    s64 = as_float64(sg)
+    x64 = torch.cat([kg.greedy_solve(s64, Bt[:, j:j + 1].double(),
+                                     sweep=kg.kaczmarz_greedy_sweep_torch,
+                                     forced_rows=rows[:, j, :], dtype=torch.float64)[0]
+                     for j in range(2)], dim=1)
+    parity_cols(name, x, Bt, s64.A.mv, x64, xtk)
+    return launched, composed
+
+
 def main() -> int:
     import torch
 
@@ -1434,6 +1943,14 @@ def main() -> int:
     # 3h. the FFT kernels against their plain versions
     fft = fft_kernel_phase(dev, draws)
 
+    # 3i. the PDHG, Kaczmarz and greedy Kaczmarz kernels against their plain
+    # versions (with the sweep kernel's main path, Kaczmarz(backend="cuda"))
+    pdhg_solver = pdhg_cell_solver(dev)
+    print(f"pdhg_tv8_deblur256_b16: tau {pdhg_solver.tau:.6f} from the power iteration")
+    pdhg = pdhg_kernel_phase(dev, pdhg_solver)
+    kz = kaczmarz_systems(draws, dev)
+    kacz = kaczmarz_kernel_phase(dev, kz)
+
     # 4. the flagship through the public API; the counts start at 0 here
     ref = np.load(os.path.join(ROOT, "bench_ref_f64.npz"))
     fused.fista_tv_fused.launches = 0
@@ -1525,7 +2042,10 @@ def main() -> int:
 
     # 9. the compressed-sensing and SENSE cells through the public API
     fft_launched, composed_ms = fft_cell_phase(dev, draws)
-    print(f"phases 3-6, 8, 9: {time.perf_counter() - t_start:.1f} s")
+
+    # 10. the PDHG and Kaczmarz cells through the public API
+    kernel_launched, kernel_composed = kernel_cell_phase(dev, draws, pdhg_solver, kz)
+    print(f"phases 3-6, 8-10: {time.perf_counter() - t_start:.1f} s")
 
     # 7. the kernel table, then the result line
     # the least time for each kernel's timed call: every input read once,
@@ -1571,6 +2091,24 @@ def main() -> int:
     bounds["splitbregman_fused"] = bound(
         sum(sb_ops(s_hw, SENSE_C, *SB_SCHED[:2], SB_TV, v) for v in sb_live),
         s_bytes + f32 * 4 * SENSE_SLICES)
+    # row 11 at the cell's shapes (x0 in, x out, the scalars); rows 12a,
+    # 12b and 13 at their timed shapes: every input read once (A, or the
+    # distinct rows the solve visits, x, vl, u, denom, eps, the index list;
+    # the distinct rows of A and of the greedy table Gt the sweep draws,
+    # denom, norms), every output written once (x, vl, r, the drawn rows)
+    px = PDHG_BATCH * PDHG_N * PDHG_N
+    bounds["pdhg_fused"] = bound(
+        PDHG_ITERS * pdhg_ops(*(len(t) for t in pdhg_solver.A.taps_hw()), "tv8") * px,
+        f32 * (2 * px + 3 * PDHG_BATCH))
+    m, n, p = 1024, 256, KZ_TALL[2]
+    vec = p * (2 * n + 4 * m + 1)
+    bounds["kaczmarz_sweep"] = bound(p * kaczmarz_ops(n, m), f32 * (m * n + vec + m))
+    steps, distinct = kacz["kaczmarz_solve"]["visited"]
+    bounds["kaczmarz_solve"] = bound(p * kaczmarz_ops(n, steps) + KZ_TALL[0] * p * n,
+                                     f32 * (distinct * n + vec + KZ_TALL[0] * 64))
+    S, distinct = kacz["kaczmarz_greedy_sweep"]["visited"]
+    bounds["kaczmarz_greedy_sweep"] = bound(
+        p * greedy_ops(m, n, S), f32 * (distinct * (n + m) + 2 * m + p * (2 * n + 4 * m + 1 + S)))
     rows = (
         ("tv_fgp", "tv_fgp.cu", "rls_tpu/kernels/tv_pallas.py:69", launches_tv, err_tv,
          (plain_tv, ms_tv)),
@@ -1601,18 +2139,35 @@ def main() -> int:
         ("splitbregman_fused", "splitbregman_fused.cu",
          "rls_tpu/kernels/splitbregman_fused.py:217", fft_launched["splitbregman_l1_tv_fused"],
          fft["splitbregman_fused"]["err"], fft["splitbregman_fused"]["ms"]),
+        ("pdhg_fused", "pdhg_fused.cu", "rls_tpu/kernels/pdhg_fused.py:185",
+         kernel_launched["pdhg_fused"], pdhg["err"], pdhg["ms"]),
+        ("kaczmarz_sweep", "kaczmarz.cu", "rls_tpu/kernels/kaczmarz_pallas.py:72",
+         kacz["kaczmarz_sweep"]["launches"], kacz["kaczmarz_sweep"]["err"],
+         kacz["kaczmarz_sweep"]["ms"]),
+        ("kaczmarz_solve", "kaczmarz.cu", "rls_tpu/kernels/kaczmarz_pallas.py:206",
+         kernel_launched["kaczmarz_solve"], kacz["kaczmarz_solve"]["err"],
+         kacz["kaczmarz_solve"]["ms"]),
+        ("kaczmarz_greedy_sweep", "kaczmarz_greedy.cu", "rls_tpu/kernels/kaczmarz_greedy.py:164",
+         kernel_launched["kaczmarz_greedy_sweep"], kacz["kaczmarz_greedy_sweep"]["err"],
+         kacz["kaczmarz_greedy_sweep"]["ms"]),
     )
     # one PyTorch call computes the same function only for CGNR's
     # regularized normal equations (torch.linalg.solve); none computes a
     # TV or a LASSO solve. For the three FFT kernels the yardstick is the
     # same solve with its normal op on torch.fft (cuFFT), the composed
     # solve_batched_unrolled at the kernel's shapes: many calls, not one,
-    # and the time a later PR's kernel has to beat
+    # and the time a later PR's kernel has to beat; the same for PDHG (the
+    # cell) and the three Kaczmarz rows (one sweep, the tall cell, one
+    # greedy sweep)
     library = {
         "cgnr_fused": library_ms,
         "fista_l1_dft_fused": composed_ms["fista_l1_dft_fused"],
         "sense_fused": composed_ms["fista_l21_sense_fused"],
         "splitbregman_fused": composed_ms["splitbregman_l1_tv_fused"],
+        "pdhg_fused": kernel_composed["pdhg_fused"],
+        "kaczmarz_sweep": kacz["kaczmarz_sweep"]["library_ms"],
+        "kaczmarz_solve": kernel_composed["kaczmarz_solve"],
+        "kaczmarz_greedy_sweep": kacz["kaczmarz_greedy_sweep"]["library_ms"],
     }
     kernels = []
     for name, src, replaces, launches, err, (plain_ms, ms) in rows:

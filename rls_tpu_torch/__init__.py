@@ -6,14 +6,17 @@ CG inner solve; the dense-matrix solvers: CGNR (with its refined solve),
 DirectSolver, PseudoInverse, and FISTA / OptISTA / POGM with an L1 or L2
 prox on real or complex data; and compressed sensing and multi-coil
 SENSE MRI on the split-real DFT operators (``torch.fft``): FISTA with L1
-or complex L1 (``L21Regularization``) and SplitBregman with L21 + TV.
-Ten hand-written CUDA kernels carry them (``csrc/tv_fgp.cu``,
-``csrc/fista_tv_fused.cu``, ``csrc/fista_tv_tiled.cu``,
-``csrc/admm_tv_fused.cu``, ``csrc/admm_tv_tiled.cu``,
-``csrc/cgnr_fused.cu``, ``csrc/pgm_dense_fused.cu``,
-``csrc/fista_l1_dft_fused.cu``, ``csrc/sense_fused.cu``,
-``csrc/splitbregman_fused.cu``; the last three on an FFT of their own),
-built with ``nvcc`` at first use.
+or complex L1 (``L21Regularization``) and SplitBregman with L21 + TV;
+PDHG with the 8-direction or isotropic TV or L1; and the row-action
+solver Kaczmarz (cyclic, shuffled, randomized, greedy) on dense, sparse
+and padded-CSR operators. Thirteen hand-written CUDA kernels carry them
+(``csrc/tv_fgp.cu``, ``csrc/fista_tv_fused.cu``,
+``csrc/fista_tv_tiled.cu``, ``csrc/admm_tv_fused.cu``,
+``csrc/admm_tv_tiled.cu``, ``csrc/cgnr_fused.cu``,
+``csrc/pgm_dense_fused.cu``, ``csrc/fista_l1_dft_fused.cu``,
+``csrc/sense_fused.cu``, ``csrc/splitbregman_fused.cu`` (the last three on
+an FFT of their own), ``csrc/pdhg_fused.cu``, ``csrc/kaczmarz.cu`` and
+``csrc/kaczmarz_greedy.cu``), built with ``nvcc`` at first use.
 Names follow the JAX package ``rls_tpu``, which stays the reference. This
 package imports ``torch`` and never ``jax``. Operators are built on the
 card unless the caller passes ``device="cpu"``.
@@ -26,6 +29,9 @@ from .kernels.cgnr_fused import solve_cgnr_fused
 from .kernels.fista_tv_fused import solve_fista_tv_fused, solve_pgm_tv_fused
 from .kernels.fista_l1_dft_fused import solve_fista_l1_dft_fused
 from .kernels.fista_tv_tiled import solve_fista_tv_tiled
+from .kernels.kaczmarz_greedy import solve_kaczmarz_greedy
+from .kernels.kaczmarz_streamed import solve_kaczmarz_streamed
+from .kernels.pdhg_fused import solve_pdhg_fused
 from .kernels.pgm_dense_fused import solve_pgm_dense_fused
 from .kernels.sense_fused import solve_fista_l21_sense_fused
 from .kernels.splitbregman_fused import solve_splitbregman_l1_tv_fused
@@ -42,14 +48,17 @@ from .models.solvers.base import pcg, solve, solve_batched, solve_batched_unroll
 from .models.solvers.cgnr import CGNR, solve_cgnr_refined
 from .models.solvers.direct import DirectSolver, PseudoInverse
 from .models.solvers.fista import FISTA
+from .models.solvers.kaczmarz import Kaczmarz
 from .models.solvers.optista import OptISTA
+from .models.solvers.pdhg import PDHG, prox_tv_conj_8dir
 from .models.solvers.pogm import POGM
 from .models.solvers.splitbregman import SplitBregman
 from .ops.base import DenseOperator, IdentityOperator
 from .ops.conv_direct import SeparableConvOperator
 from .ops.dft_real import SenseDFT2RealOperator, SubsampledDFT2RealOperator
 from .ops.fourier import ConvolutionOperator, FFTOperator, SubsampledFFTOperator
-from .ops.grad import GradientOperator
+from .ops.grad import Grad8Operator, GradientOperator
+from .ops.sparse import PaddedCSROperator, SparseOperator
 from .utils.power_iterations import power_iterations
 
 __all__ = [
@@ -61,6 +70,9 @@ __all__ = [
     "OptISTA",
     "POGM",
     "SplitBregman",
+    "PDHG",
+    "Kaczmarz",
+    "prox_tv_conj_8dir",
     "TVRegularization",
     "L1Regularization",
     "L2Regularization",
@@ -75,6 +87,9 @@ __all__ = [
     "SubsampledFFTOperator",
     "ConvolutionOperator",
     "GradientOperator",
+    "Grad8Operator",
+    "SparseOperator",
+    "PaddedCSROperator",
     "IdentityOperator",
     "pcg",
     "solve",
@@ -92,5 +107,8 @@ __all__ = [
     "solve_fista_l1_dft_fused",
     "solve_fista_l21_sense_fused",
     "solve_splitbregman_l1_tv_fused",
+    "solve_pdhg_fused",
+    "solve_kaczmarz_streamed",
+    "solve_kaczmarz_greedy",
     "power_iterations",
 ]

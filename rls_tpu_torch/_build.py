@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 # (a bare Python int would be passed as a 32-bit int and cut the pointer)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
     # (x, lam, out, scratch, B, H, W, iterations, stream)
@@ -91,6 +92,17 @@ _SIGNATURES = {
     #  tol_inner, stream)
     "splitbregman_fused_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    ),
+    # (u, scal, taps, weights, kh, kw, out, scratch, B, H, W, iterations,
+    #  kind, positive, stream)
+    "pdhg_fused_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (ar, ai, cols, idx, x, vl, u, denom, eps, P, m, n, L, sweeps, S, reuse,
+    #  prox, stream)
+    "kaczmarz_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (A, Gt, denom, norms, x, vl, r, eps, forced, rows, P, m, n, S, fnorm,
+    #  theta, use_theta, seed, sweep, stream)
+    "kaczmarz_greedy_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _U, _U, _P,
     ),
 }
 

@@ -2,8 +2,9 @@
 
 ``convert(obj, device="cuda")`` turns an ``rls_tpu`` object into its
 ``rls_tpu_torch`` counterpart: ``SeparableConvOperator``,
-``DenseOperator``, ``NormalOperator``, ``IdentityOperator`` and
-``GradientOperator`` (ADMM's ``reg_trafo``), the split-real
+``DenseOperator``, ``NormalOperator``, ``IdentityOperator``,
+``GradientOperator`` (ADMM's ``reg_trafo``) and ``Grad8Operator``
+(PDHG's), ``SparseOperator``, ``PaddedCSROperator``, the split-real
 ``SubsampledDFT2RealOperator`` and ``SenseDFT2RealOperator``,
 ``FFTOperator``, ``SubsampledFFTOperator``, ``ConvolutionOperator``,
 ``TVRegularization``, ``L1Regularization``, ``L2Regularization``,
@@ -11,7 +12,9 @@
 ``RealRegularization``, the three normalization strategies, ``FISTA``,
 ``OptISTA``, ``POGM``, ``ADMM``, ``SplitBregman``, ``CGNR``,
 ``DirectSolver`` and ``PseudoInverse`` (with the SVD ``rls_tpu`` took,
-where it took one). Fields are read by attribute name with ``np.asarray``
+where it took one), ``PDHG`` (with its τ) and ``Kaczmarz`` (with its row
+orders, sampling probabilities and greedy tables, so both packages visit
+the same rows). Fields are read by attribute name with ``np.asarray``
 (``ah``, ``aw``, ``bh``, ``bw``, ``taps_hw()``, ``mask``, ``coils_r``,
 ``coils_i``, ``im_shape``, ``sample_idx``, ``otf``, ``lam``, ``slices``,
 ``rho``, ``rho0``, ``iterations``, ``iterations_tv``, ...), and objects
@@ -20,7 +23,8 @@ this module imports neither ``jax`` nor ``rls_tpu``. The converted
 tensors keep the source arrays' dtype and land on ``device``: the card
 by default, the CPU with ``device="cpu"``.
 
-TV backends map ``"xla"`` → ``"torch"`` and ``"pallas"`` → ``"cuda"``. An
+TV and Kaczmarz backends map ``"xla"`` → ``"torch"`` and ``"pallas"`` →
+``"cuda"``. An
 ADMM or SplitBregman preconditioner is a JAX callable and is refused. The
 DFT operators' bf16 compensation factors (``cat``) are not carried: the
 port computes the DFT with ``torch.fft``.
@@ -36,14 +40,17 @@ from .models.solvers.admm import ADMM
 from .models.solvers.cgnr import CGNR
 from .models.solvers.direct import DirectSolver, PseudoInverse
 from .models.solvers.fista import FISTA
+from .models.solvers.kaczmarz import Kaczmarz
 from .models.solvers.optista import OptISTA
+from .models.solvers.pdhg import PDHG
 from .models.solvers.pogm import POGM
 from .models.solvers.splitbregman import SplitBregman
 from .ops.base import DenseOperator, IdentityOperator, NormalOperator
 from .ops.conv_direct import SeparableConvOperator
 from .ops.dft_real import SenseDFT2RealOperator, SubsampledDFT2RealOperator
 from .ops.fourier import ConvolutionOperator, FFTOperator, SubsampledFFTOperator
-from .ops.grad import GradientOperator
+from .ops.grad import Grad8Operator, GradientOperator
+from .ops.sparse import PaddedCSROperator, SparseOperator
 
 __all__ = ["convert"]
 
@@ -149,6 +156,47 @@ def _direct(obj, device):
     return DirectSolver(A=convert(obj.A, device), **common)
 
 
+def _pdhg(obj, device):
+    return PDHG(
+        A=convert(obj.A, device),
+        reg=convert(obj.reg, device),
+        trafo=convert(obj.trafo, device),
+        proj=tuple(convert(p, device) for p in obj.proj),
+        sigma=_scalar(obj.sigma),
+        tau=_scalar(obj.tau),
+        eps=_scalar(obj.eps),
+        normalize_reg=convert(obj.normalize_reg, device),
+        reg_kind=str(obj.reg_kind),
+        tv_scheme=str(obj.tv_scheme),
+        shape=tuple(obj.shape),
+        iterations=int(obj.iterations),
+    )
+
+
+def _kaczmarz(obj, device):
+    return Kaczmarz(
+        A=convert(obj.A, device),
+        l2=convert(obj.l2, device),
+        reg=tuple(convert(r, device) for r in obj.reg),
+        probabilities=_optional_tensor(obj.probabilities, device),
+        greedy_B=_optional_tensor(obj.greedy_B, device),
+        greedy_norms=_optional_tensor(obj.greedy_norms, device),
+        greedy_fnorm=_optional(obj.greedy_fnorm),
+        tikhonov_inv_sqrt=_optional_tensor(obj.tikhonov_inv_sqrt, device),
+        theta=_optional(obj.theta),
+        perm=_optional_tensor(obj.perm, device),
+        precomputed_order=_optional_tensor(obj.precomputed_order, device),
+        normalize_reg=convert(obj.normalize_reg, device),
+        backend=_TV_BACKENDS[obj.backend],
+        randomized=bool(obj.randomized),
+        sub_matrix_size=int(obj.sub_matrix_size),
+        shuffle_rows=bool(obj.shuffle_rows),
+        greedy=bool(obj.greedy),
+        seed=int(obj.seed),
+        iterations=int(obj.iterations),
+    )
+
+
 def convert(obj, device="cuda"):
     """The ``rls_tpu_torch`` counterpart of the ``rls_tpu`` object `obj`,
     its tensors on `device`."""
@@ -171,6 +219,17 @@ def convert(obj, device="cuda"):
         return IdentityOperator(obj.n, _dtype(obj._dtype), device=device)
     if name == "GradientOperator":
         return GradientOperator(obj.im_shape, obj.dims, _dtype(obj._dtype), device=device)
+    if name == "Grad8Operator":
+        return Grad8Operator(obj.im_shape, _dtype(obj._dtype), device=device)
+    if name == "SparseOperator":
+        mat = obj.mat
+        idx = torch.from_numpy(np.array(mat.indices).T.astype(np.int64))
+        return SparseOperator(torch.sparse_coo_tensor(
+            idx, torch.from_numpy(np.array(mat.data)), tuple(mat.shape),
+            check_invariants=True).to(device))
+    if name == "PaddedCSROperator":
+        return PaddedCSROperator(_tensor(obj.vals, device), _tensor(obj.cols, device), obj.n,
+                                 device=device)
     if name == "SubsampledDFT2RealOperator":
         return SubsampledDFT2RealOperator(_tensor(obj.mask, device), obj.im_shape)
     if name == "SenseDFT2RealOperator":
@@ -211,6 +270,10 @@ def convert(obj, device="cuda"):
         return _cgnr(obj, device)
     if name in ("DirectSolver", "PseudoInverse"):
         return _direct(obj, device)
+    if name == "PDHG":
+        return _pdhg(obj, device)
+    if name == "Kaczmarz":
+        return _kaczmarz(obj, device)
     if name in _SOLVERS:
         A, AHA = _operators(obj, device)
         cls, extra = _SOLVERS[name]

@@ -1,6 +1,7 @@
-// Device functions shared by the TV-FGP prox kernel (tv_fgp.cu) and the
-// fused FISTA-TV kernel (fista_tv_fused.cu): the forward differences, their
-// adjoint, and the zero-padded stencil passes of a separable convolution.
+// Device functions shared by the TV-FGP prox kernel (tv_fgp.cu), the PGM-TV
+// and ADMM-TV kernels and the fused PDHG kernel (pdhg_fused.cu): the
+// forward differences, their adjoint, and the zero-padded stencil passes of
+// a separable convolution.
 //
 // Counterparts of rls_tpu/kernels/_fgp_common.py: the roll-based
 // gradients of _fgp_grid (:636-667) and the stencil passes of
@@ -43,9 +44,23 @@ __device__ __forceinline__ float grad_t(const float* pv, const float* ph,
     return (up - pv[i]) + (left - ph[i]);
 }
 
+// acc + t v, or t v for the first tap. With kRound the product and the sum
+// are rounded on their own, as the plain PyTorch passes round them; else
+// nvcc may contract them into one FMA (~1 ulp per tap).
+template <bool kRound>
+__device__ __forceinline__ float tap_acc(float acc, float t, float v, bool first) {
+    if constexpr (kRound) {
+        const float tv = __fmul_rn(t, v);
+        return first ? tv : __fadd_rn(acc, tv);
+    } else {
+        return first ? t * v : acc + t * v;
+    }
+}
+
 // One zero-padded 1-D pass at pixel (r, c) along the rows (dim 0):
 // sum_k t_k u[r + s_k, c] with s_k = k - K/2, negated for the adjoint,
 // summed in tap order (zero outside the image).
+template <bool kRound = false>
 __device__ __forceinline__ float stencil_v(const float* u, int r, int c,
                                            const float* taps, int K,
                                            bool adjoint, int H, int W) {
@@ -54,12 +69,13 @@ __device__ __forceinline__ float stencil_v(const float* u, int r, int c,
     for (int k = 0; k < K; ++k) {
         const int rr = r + (adjoint ? R - k : k - R);
         const float v = (rr >= 0 && rr < H) ? u[rr * W + c] : 0.f;
-        acc = k == 0 ? taps[k] * v : acc + taps[k] * v;
+        acc = tap_acc<kRound>(acc, taps[k], v, k == 0);
     }
     return acc;
 }
 
 // The same pass along the columns (dim 1).
+template <bool kRound = false>
 __device__ __forceinline__ float stencil_h(const float* u, int r, int c,
                                            const float* taps, int K,
                                            bool adjoint, int W) {
@@ -68,29 +84,31 @@ __device__ __forceinline__ float stencil_h(const float* u, int r, int c,
     for (int k = 0; k < K; ++k) {
         const int cc = c + (adjoint ? R - k : k - R);
         const float v = (cc >= 0 && cc < W) ? u[r * W + cc] : 0.f;
-        acc = k == 0 ? taps[k] * v : acc + taps[k] * v;
+        acc = tap_acc<kRound>(acc, taps[k], v, k == 0);
     }
     return acc;
 }
 
 // Block-stride pass writing stencil_v over a whole plane.
+template <bool kRound = false>
 __device__ __forceinline__ void stencil_v_pass(const float* __restrict__ u,
                                                float* __restrict__ out,
                                                const float* taps, int K,
                                                bool adjoint, int H, int W) {
     for (int i = threadIdx.x; i < H * W; i += blockDim.x) {
         const int r = i / W;
-        out[i] = stencil_v(u, r, i - r * W, taps, K, adjoint, H, W);
+        out[i] = stencil_v<kRound>(u, r, i - r * W, taps, K, adjoint, H, W);
     }
 }
 
+template <bool kRound = false>
 __device__ __forceinline__ void stencil_h_pass(const float* __restrict__ u,
                                                float* __restrict__ out,
                                                const float* taps, int K,
                                                bool adjoint, int H, int W) {
     for (int i = threadIdx.x; i < H * W; i += blockDim.x) {
         const int r = i / W;
-        out[i] = stencil_h(u, r, i - r * W, taps, K, adjoint, W);
+        out[i] = stencil_h<kRound>(u, r, i - r * W, taps, K, adjoint, W);
     }
 }
 

@@ -6,13 +6,15 @@ first kernel whose check passes runs. Execution errors are NOT swallowed.
 When no fused kernel applies, a warning names every rejection and the call
 falls back to the composed ``solve_batched_unrolled`` driver.
 
-The ``cgnr_dense``, ``pgm_tv``, ``pgm_dense``, ``fista_tv_tiled``,
-``admm_tv``, ``admm_tv_tiled``, ``splitbregman_l1_tv``, ``fista_l1_dft``
-and ``fista_l21_sense`` rows are ported; the other rows of ``rls_tpu``'s
-table are named in the warning as not yet ported. The dense rows take a
-``DenseOperator``, the TV rows a ``SeparableConvOperator`` and the FFT
-rows a ``SubsampledDFT2RealOperator`` or ``SenseDFT2RealOperator``, so
-each check rejects the other families. The FFT rows take images whose
+Every row of ``rls_tpu``'s table is ported, in its order: ``cgnr_dense``,
+``pgm_tv``, ``pgm_dense``, ``fista_tv_tiled``, ``admm_tv``,
+``admm_tv_tiled``, ``splitbregman_l1_tv``, ``fista_l1_dft``,
+``fista_l21_sense``, ``pdhg``, ``kaczmarz_greedy`` and
+``kaczmarz_streamed``. The dense rows take a ``DenseOperator``, the TV rows
+and ``pdhg`` a ``SeparableConvOperator``, the FFT rows a
+``SubsampledDFT2RealOperator`` or ``SenseDFT2RealOperator`` and the
+Kaczmarz rows a ``Kaczmarz`` solver, so each check rejects the other
+families. The FFT rows take images whose
 sides are powers of two (their in-kernel FFT's sizes); any other size is
 rejected with that reason and falls back to the composed path. The
 fused OptISTA and POGM paths use an f64 momentum table, so their results
@@ -47,6 +49,9 @@ from .fista_tv_fused import (
 )
 from .fista_l1_dft_fused import check_fista_l1_dft_fused, solve_fista_l1_dft_fused
 from .fista_tv_tiled import check_fista_tv_tiled, solve_fista_tv_tiled
+from .kaczmarz_greedy import check_kaczmarz_greedy, solve_kaczmarz_greedy
+from .kaczmarz_streamed import check_kaczmarz_streamed, solve_kaczmarz_streamed
+from .pdhg_fused import check_pdhg_fused, solve_pdhg_fused
 from .pgm_dense_fused import check_pgm_dense_fused, solve_pgm_dense_fused
 from .sense_fused import check_fista_l21_sense_fused, solve_fista_l21_sense_fused
 from .splitbregman_fused import check_splitbregman_l1_tv_fused, solve_splitbregman_l1_tv_fused
@@ -59,7 +64,7 @@ def _check_pgm_tv(solver):
     check_fused_pixels(*solver.AHA.A.im_shape)
 
 
-# the ported rows of rls_tpu/kernels/auto.py:42-58, in its order
+# the rows of rls_tpu/kernels/auto.py:42-58, in its order
 _FUSED_WRAPPERS = (
     ("cgnr_dense", check_cgnr_fused, solve_cgnr_fused),
     ("pgm_tv", _check_pgm_tv, solve_pgm_tv_fused),
@@ -70,13 +75,9 @@ _FUSED_WRAPPERS = (
     ("splitbregman_l1_tv", check_splitbregman_l1_tv_fused, solve_splitbregman_l1_tv_fused),
     ("fista_l1_dft", check_fista_l1_dft_fused, solve_fista_l1_dft_fused),
     ("fista_l21_sense", check_fista_l21_sense_fused, solve_fista_l21_sense_fused),
-)
-
-# the remaining rows of rls_tpu/kernels/auto.py:42-58, in table order
-_NOT_YET_PORTED = (
-    "pdhg",
-    "kaczmarz_greedy",
-    "kaczmarz_streamed",
+    ("pdhg", check_pdhg_fused, solve_pdhg_fused),
+    ("kaczmarz_greedy", check_kaczmarz_greedy, solve_kaczmarz_greedy),
+    ("kaczmarz_streamed", check_kaczmarz_streamed, solve_kaczmarz_streamed),
 )
 
 
@@ -106,7 +107,6 @@ def solve_batched_fast(solver, B, warn=True):
     if run is not None:
         return run(solver, B)
     if warn:
-        reasons += [f"{name}: not yet ported" for name in _NOT_YET_PORTED]
         warnings.warn(
             "solve_batched_fast: no fused kernel applies; falling back to "
             "the composed solve_batched_unrolled path. Rejections: "

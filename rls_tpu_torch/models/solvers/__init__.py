@@ -5,7 +5,9 @@ from .base import pcg, solve, solve_batched, solve_batched_unrolled, solve_unrol
 from .cgnr import CGNR, solve_cgnr_refined
 from .direct import DirectSolver, PseudoInverse
 from .fista import FISTA
+from .kaczmarz import Kaczmarz
 from .optista import OptISTA
+from .pdhg import PDHG
 from .pogm import POGM
 from .splitbregman import SplitBregman
 
@@ -16,7 +18,9 @@ __all__ = [
     "PseudoInverse",
     "solve_cgnr_refined",
     "FISTA",
+    "Kaczmarz",
     "OptISTA",
+    "PDHG",
     "POGM",
     "SplitBregman",
     "pcg",

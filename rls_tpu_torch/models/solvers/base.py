@@ -4,7 +4,8 @@ PyTorch counterpart of ``rls_tpu/models/solvers/base.py``: the protocol,
 ``split_projection_terms`` and ``prepare_operators`` (:61-126); ``solve``
 and ``solve_unrolled`` (:246-334); ``solve_batched_unrolled`` (:337-350);
 ``solve_batched`` with its active mask (:409-480); ``pcg``, the inner
-solver of ADMM (:171-230).
+solver of ADMM (:171-230); ``kaczmarz_row_update``, the row projection of
+Kaczmarz (:129-150).
 
   * solver = plain dataclass over operator modules and scalars,
   * state  = dataclass of tensors produced by ``solver.init(b)``; every
@@ -47,6 +48,7 @@ __all__ = [
     "theta_next",
     "state_where",
     "pcg",
+    "kaczmarz_row_update",
 ]
 
 
@@ -164,11 +166,14 @@ def create_args(name, A, AHA, reg, rho):
 def state_where(mask, new, old):
     """Per-problem select between two states: `mask` has the batch shape,
     every field (a tensor, or a tuple of tensors, one per term) carries the
-    batch axes first."""
+    batch axes first; a field that is no tensor (Kaczmarz's random
+    generator) is taken from `new`."""
 
     def sel(a, b):
         if isinstance(a, tuple):
             return tuple(sel(ai, bi) for ai, bi in zip(a, b))
+        if not torch.is_tensor(a):
+            return a
         m = mask.reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
         return torch.where(m, a, b)
 
@@ -189,6 +194,26 @@ def _vdot(a, b):
 def _col(v):
     """A per-problem scalar shaped to broadcast against (..., n)."""
     return v.unsqueeze(-1)
+
+
+def kaczmarz_row_update(A, x, dual, j, rhs, denom_j, eps_w_j):
+    """One regularized Kaczmarz row projection for every problem at once
+    (reference iterate_row_index, Kaczmarz.jl:303-308):
+
+        τ       = a_j · x            (unconjugated, BLAS dotu semantics)
+        α       = denom_j (rhs − τ − εw · dual_j)
+        x      += α · conj(a_j)
+        dual_j += α · εw
+
+    x (..., n), dual (..., m), rhs / denom_j / eps_w_j one per problem.
+    Routed through the operator's ``row_dot`` / ``row_axpy``, so a padded
+    CSR operator pays O(nnz_row). `dual` is updated in place (the sweep
+    owns its copy); returns ``(x, dual)``."""
+    tau = A.row_dot(j, x)
+    alpha = denom_j.to(x.dtype) * (rhs - tau - eps_w_j.to(x.dtype) * dual[..., j])
+    x = A.row_axpy(x, j, alpha)
+    dual[..., j] += alpha * eps_w_j.to(x.dtype)
+    return x, dual
 
 
 def pcg(matvec, b, x0, maxiter: int, reltol, precon=None, unroll: bool = False):

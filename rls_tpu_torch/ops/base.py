@@ -1,8 +1,9 @@
 """Matrix-free linear operator protocol and core implementations.
 
 PyTorch counterpart of ``rls_tpu/ops/base.py``: ``LinearOperator``
-(:43-110), ``DenseOperator`` (:113-166) without its bf16-compensated
-branch, ``IdentityOperator`` (:169), ``NormalOperator`` (:279-312),
+(:43-110) with the row actions of the row-action solvers (:74-94),
+``DenseOperator`` (:113-166) without its bf16-compensated branch,
+``IdentityOperator`` (:169), ``NormalOperator`` (:279-312),
 ``adjoint_operator`` and ``as_operator`` (:405-418).
 
 Operators are ``nn.Module``s whose array payloads are registered buffers,
@@ -21,6 +22,9 @@ Protocol:
   * ``rmv(y)``    — ``Aᴴ @ y``
   * ``normal(x)`` — ``Aᴴ A x``
   * ``in_size`` / ``out_size`` — static sizes
+  * ``row(i)``, ``row_dot(i, x)``, ``row_axpy(x, i, α)`` — row i of A,
+    aᵢ·x unconjugated, x + α·conj(aᵢ); α is a number or one per problem
+    (x's leading shape)
 """
 
 from __future__ import annotations
@@ -37,7 +41,16 @@ __all__ = [
     "NormalOperator",
     "as_operator",
     "adjoint_operator",
+    "per_problem",
 ]
+
+
+def per_problem(alpha):
+    """α shaped to broadcast against (..., n): a number stays as it is, a
+    tensor of one α per problem gains a trailing axis."""
+    if torch.is_tensor(alpha) and alpha.ndim:
+        return alpha.unsqueeze(-1)
+    return alpha
 
 
 class LinearOperator(nn.Module):
@@ -91,9 +104,25 @@ class LinearOperator(nn.Module):
                 f"tensor on {t.device}; move one of them explicitly"
             )
 
+    def row(self, i):
+        """Row i of A as a dense vector (for the row-action solvers)."""
+        raise NotImplementedError(f"{type(self).__name__} has no row access")
+
     def row_norms_sq(self):
         """Vector of squared 2-norms of the rows (reference: rownorm²)."""
         raise NotImplementedError(f"{type(self).__name__} has no row access")
+
+    def row_dot(self, i, x):
+        """τ = aᵢ·x over x's last axis, UNconjugated (reference
+        ``dot_with_matrix_row``, Utils.jl:96-105). Sparse operators
+        override it with an O(nnz_row) gather."""
+        return (self.row(i) * x).sum(dim=-1)
+
+    def row_axpy(self, x, i, alpha):
+        """x + α·conj(aᵢ) (reference ``kaczmarz_update!``,
+        Kaczmarz.jl:532-539). Sparse operators override it with an
+        O(nnz_row) scatter-add."""
+        return x + per_problem(alpha) * self.row(i).conj()
 
     def to_dense(self):
         """Materialize as a dense matrix (small operators only)."""
@@ -135,6 +164,9 @@ class DenseOperator(LinearOperator):
     def rmv(self, y):
         return y @ self.mat.conj()
 
+    def row(self, i):
+        return self.mat[i]
+
     def row_norms_sq(self):
         return (self.mat.abs() ** 2).sum(dim=1)
 
@@ -171,6 +203,11 @@ class IdentityOperator(LinearOperator):
 
     def normal(self, x):
         return x
+
+    def row(self, i):
+        e = torch.zeros((self.n,), dtype=self._dtype, device=self.device)
+        e[i] = 1
+        return e
 
     def row_norms_sq(self):
         return torch.ones((self.n,), dtype=torch.float32, device=self.device)

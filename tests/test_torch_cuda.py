@@ -14,7 +14,11 @@ versions and are held to the same 1e-5 of max|x| on small systems, with
 equal restart counts. The FFT kernels (FISTA-L1-DFT, FISTA-L21-SENSE)
 round every operation as their plain versions do and must agree bit for
 bit; the SplitBregman kernel, whose CG sums are double sums in another
-order, is held to 1e-5 of max|x| with equal live CG steps."""
+order, is held to 1e-5 of max|x| with equal live CG steps. The PDHG,
+Kaczmarz and greedy Kaczmarz kernels are held to 1e-5 of max|x| on edge
+shapes (m, n off multiples of 32, n = 1, k_max = 1, complex, −1 pads, a
+CSR row with a genuine column-0 entry), and the greedy kernel's drawn rows
+must equal its plain version's."""
 
 import numpy as np
 import pytest
@@ -32,6 +36,9 @@ from rls_tpu_torch.kernels import _dft_common as dft
 from rls_tpu_torch.kernels import fista_l1_dft_fused as l1dft
 from rls_tpu_torch.kernels import sense_fused as sense
 from rls_tpu_torch.kernels import splitbregman_fused as sb
+from rls_tpu_torch.kernels import pdhg_fused as pdhg
+from rls_tpu_torch.kernels import kaczmarz_streamed as kz
+from rls_tpu_torch.kernels import kaczmarz_greedy as greedy
 
 pytestmark = pytest.mark.cuda
 
@@ -422,3 +429,192 @@ def test_fft_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="unsupported device"):
         sense.fista_l21_sense_fused(torch.zeros(2, 2, 16, 16, device=dev), mask, cr.cpu(), ci,
                                     0.9, 0.1, 2)
+
+
+# PDHG: (kind, prox) on odd shapes; the kernel rounds every op as its plain
+# version does
+@pytest.mark.parametrize("kind", ["tv8", "tviso", "l1"])
+@pytest.mark.parametrize("prox", ["none", "positive"])
+@pytest.mark.parametrize("shape", [(17, 23), (9, 33), (3, 2)])
+def test_pdhg_kernel_matches_plain(dev, kind, prox, shape):
+    rng = np.random.default_rng(11)
+    u = torch.from_numpy(rng.normal(size=(3, *shape)).astype(np.float32)).to(dev)
+    sigma = torch.tensor([0.5, 1.0, 0.0625], device=dev)
+    tau = torch.tensor([0.3, 0.2, 0.9], device=dev)
+    lam = torch.tensor([5e-3, 0.0, 0.1], device=dev)
+    before = pdhg.pdhg_fused.launches
+    got = pdhg.pdhg_fused(u, TAPS, sigma, tau, lam, 9, kind, prox)
+    assert pdhg.pdhg_fused.launches == before + 1
+    scal = pdhg.kernel_scalars(u, sigma, tau, lam)
+    want = pdhg.pdhg_fused_torch(u, scal, TAPS, 9, kind, prox)
+    _close(got, want, 1e-5)
+
+
+def _kaczmarz_case(dev, case, seed=12):
+    """(rows, cols, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox) of an
+    edge case: m and n off multiples of 32, n = 1, k_max = 1, genuine
+    column-0 entries beside CSR padding, complex planes, −1 pads."""
+    rng = np.random.default_rng(seed)
+    m, n, nc, csr, sweeps, reuse, prox = {
+        "dense": (37, 45, 1, False, 3, True, "none"),
+        "dense-n1": (9, 1, 1, False, 2, True, "positive"),
+        "dense-per-sweep": (70, 300, 1, False, 4, False, "positive"),
+        "complex": (37, 45, 2, False, 3, True, "real"),
+        "complex-positive": (21, 13, 2, False, 2, False, "positive"),
+        "csr": (50, 40, 1, True, 3, False, "positive"),
+        "csr-kmax1": (30, 7, 1, True, 2, True, "none"),
+        "csr-complex": (33, 20, 2, True, 2, True, "none"),
+    }[case]
+    A = rng.normal(size=(nc, m, n)).astype(np.float32)
+    cols = None
+    if csr:
+        keep = rng.uniform(size=(m, n)) < (0.0 if case == "csr-kmax1" else 0.3)
+        keep[:, 0] = True  # a genuine column-0 entry in every row
+        if case == "csr-kmax1":
+            keep[::2, 0] = False
+            keep[::2, 3] = True
+        L = int(keep.sum(axis=1).max())
+        vals = np.zeros((nc, m, L), np.float32)
+        cl = np.zeros((m, L), np.int32)
+        for i in range(m):
+            nz = np.nonzero(keep[i])[0]
+            vals[:, i, : nz.size] = A[:, i, nz]
+            cl[i, : nz.size] = nz
+        A, cols = vals, torch.from_numpy(cl).to(dev)
+    S = m if reuse else m // 2 + 3
+    order = (rng.permutation(m)[None] if reuse
+             else np.stack([rng.choice(m, size=S, replace=False) for _ in range(sweeps)]))
+    order = order.astype(np.int32)
+    order[:, 1::4] = -1  # skipped entries
+    P = 3
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    # 1/(‖aᵢ‖² + ε²) per problem, a little under-relaxed
+    eps = np.array([0.03, 0.0, 0.3])
+    rn2 = (A.astype(np.float64) ** 2).sum(axis=(0, 2))
+    denom = rng.uniform(0.8, 1.0, size=(P, m)) / (rn2[None] + eps[:, None] ** 2 + 1e-3)
+    return (t(A), cols, torch.from_numpy(order).to(dev), t(rng.normal(size=(P, nc, n))),
+            t(rng.normal(size=(P, nc, m)) * 0.1), t(rng.normal(size=(P, nc, m))),
+            t(denom), t(eps), sweeps, reuse, prox)
+
+
+@pytest.mark.parametrize("case", ["dense", "dense-n1", "dense-per-sweep", "complex",
+                                  "complex-positive", "csr", "csr-kmax1", "csr-complex"])
+def test_kaczmarz_solve_kernel_matches_plain(dev, case):
+    rows, cols, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox = _kaczmarz_case(dev, case)
+    before = kz.kaczmarz_solve.launches
+    x, vl = kz.kaczmarz_solve(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox, cols)
+    assert kz.kaczmarz_solve.launches == before + 1
+    wx, wvl = kz.kaczmarz_solve_torch(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox,
+                                      cols)
+    _close(x, wx, 1e-5)
+    _close(vl, wvl, 1e-5)
+    if prox == "positive":
+        assert float(x[:, 0].min()) >= 0.0
+
+
+def test_kaczmarz_sweep_kernel_matches_plain(dev):
+    rows, _, idx, x0, vl0, u, denom, eps, _, _, _ = _kaczmarz_case(dev, "dense")
+    before = kz.kaczmarz_sweep.launches
+    x, vl = kz.kaczmarz_sweep(rows[0], x0[:, 0], vl0[:, 0], u[:, 0], denom, eps, idx[0])
+    assert kz.kaczmarz_sweep.launches == before + 1
+    wx, wvl = kz.kaczmarz_solve_torch(rows, idx[:1], x0, vl0, u, denom, eps, 1, True)
+    _close(x, wx[:, 0], 1e-5)
+    _close(vl, wvl[:, 0], 1e-5)
+
+
+def _greedy_inputs(dev, m=45, n=13, P=3, seed=13):
+    rng = np.random.default_rng(seed)
+    A = torch.from_numpy(rng.normal(size=(m, n)).astype(np.float32)).to(dev)
+    lam = 1e-4
+    rn2 = (A * A).sum(dim=1)
+    denom = 1.0 / (rn2 + lam)
+    norms = rn2 + lam
+    Gt = ((A @ A.T + lam * torch.eye(m, device=dev)) * denom[:, None]).contiguous()
+    fnorm = float(1.0 / (rn2.sum() + lam))
+    r = torch.from_numpy(rng.normal(size=(P, m)).astype(np.float32)).to(dev)
+    x = torch.zeros(P, n, device=dev)
+    vl = torch.zeros(P, m, device=dev)
+    eps = torch.full((P,), lam ** 0.5, device=dev)
+    return A, Gt, denom, norms, x, vl, r, eps, fnorm
+
+
+@pytest.mark.parametrize("theta", [None, 0.3])
+@pytest.mark.parametrize("forced", [False, True])
+def test_greedy_kernel_matches_plain(dev, theta, forced):
+    A, Gt, denom, norms, x, vl, r, eps, fnorm = _greedy_inputs(dev)
+    S = 17
+    fr = None
+    if forced:
+        fr = torch.from_numpy(np.random.default_rng(14).integers(-1, 45, size=S)
+                              .astype(np.int32)).to(dev)
+    args = (A, Gt, denom, norms, x, vl, r, eps, fnorm, theta, S, 2024, 5, fr)
+    before = greedy.kaczmarz_greedy_sweep.launches
+    gx, gvl, gr, rows = greedy.kaczmarz_greedy_sweep(*args)
+    assert greedy.kaczmarz_greedy_sweep.launches == before + 1
+    wx, wvl, wr, wrows = greedy.kaczmarz_greedy_sweep_torch(*args)
+    assert torch.equal(rows, wrows), (rows, wrows)
+    if forced:
+        keep = fr >= 0
+        assert torch.equal(rows[:, keep], fr[keep].expand(3, -1))
+    _close(gx, wx, 1e-5)
+    _close(gvl, wvl, 1e-5)
+    _close(gr, wr, 1e-5)
+
+
+def test_greedy_kernel_ties_go_to_the_smallest_row(dev):
+    """A zero residual leaves every weight 0 and every score −inf: both
+    versions take row 0, as the JAX kernel does."""
+    A, Gt, denom, norms, x, vl, r, eps, fnorm = _greedy_inputs(dev)
+    r = torch.zeros_like(r)
+    _, _, _, rows = greedy.kaczmarz_greedy_sweep(A, Gt, denom, norms, x, vl, r, eps, fnorm,
+                                                 None, 4, 1, 0)
+    _, _, _, wrows = greedy.kaczmarz_greedy_sweep_torch(A, Gt, denom, norms, x, vl, r, eps,
+                                                        fnorm, None, 4, 1, 0)
+    assert rows.tolist() == wrows.tolist() == [[0] * 4] * 3
+
+
+def test_row_action_wrappers_count_only_launches_and_check_rows(dev):
+    """A call with no problems or no steps launches nothing and counts
+    nothing; a row outside [−1, m) is refused before any launch."""
+    rows, cols, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox = _kaczmarz_case(dev, "dense")
+    before = kz.kaczmarz_solve.launches
+    x, _ = kz.kaczmarz_solve(rows, idx, x0[:0], vl0[:0], u[:0], denom[:0], eps[:0], sweeps,
+                             reuse, prox)
+    x1, _ = kz.kaczmarz_solve(rows, idx, x0, vl0, u, denom, eps, 0, reuse, prox)
+    assert kz.kaczmarz_solve.launches == before
+    assert x.shape[0] == 0 and torch.equal(x1, x0)
+    for bad in (rows.shape[1], -2):
+        wrong = idx.clone()
+        wrong[0, 0] = bad
+        with pytest.raises(ValueError, match="indices must lie"):
+            kz.kaczmarz_solve(rows, wrong, x0, vl0, u, denom, eps, sweeps, reuse, prox)
+    assert kz.kaczmarz_solve.launches == before
+    A, Gt, denom, norms, x, vl, r, eps, fnorm = _greedy_inputs(dev)
+    before = greedy.kaczmarz_greedy_sweep.launches
+    gx, _, _, grows = greedy.kaczmarz_greedy_sweep(A, Gt, denom, norms, x, vl, r, eps, fnorm,
+                                                   None, 0, 1, 0)
+    assert grows.shape == (3, 0) and torch.equal(gx, x)
+    forced = torch.tensor([3, A.shape[0]], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="indices must lie"):
+        greedy.kaczmarz_greedy_sweep(A, Gt, denom, norms, x, vl, r, eps, fnorm, None, 2, 1, 0,
+                                     forced)
+    assert greedy.kaczmarz_greedy_sweep.launches == before
+
+
+def test_row_action_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    rows, cols, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox = _kaczmarz_case(dev, "dense")
+    with pytest.raises(ValueError, match="float32"):
+        kz.kaczmarz_solve(rows.double(), idx, x0.double(), vl0.double(), u.double(),
+                          denom.double(), eps.double(), sweeps, reuse, prox)
+    with pytest.raises(ValueError, match="int32"):
+        kz.kaczmarz_solve(rows, idx.long(), x0, vl0, u, denom, eps, sweeps, reuse, prox)
+    A, Gt, denom, norms, x, vl, r, eps, fnorm = _greedy_inputs(dev)
+    with pytest.raises(ValueError, match="float32"):
+        greedy.kaczmarz_greedy_sweep(A.double(), Gt, denom, norms, x, vl, r, eps, fnorm, None,
+                                     2, 1, 0)
+    with pytest.raises(ValueError, match="float32"):
+        pdhg.pdhg_fused(torch.zeros(2, 8, 8, device=dev, dtype=torch.float64), TAPS, 0.5, 0.3,
+                        0.1, 3)

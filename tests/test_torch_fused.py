@@ -122,9 +122,11 @@ def test_solve_batched_fast_names_every_rejection():
     assert "splitbregman_l1_tv: fused path requires a SplitBregman solver" in msg
     assert "fista_l1_dft: fused path requires SubsampledDFT2RealOperator" in msg
     assert "fista_l21_sense: fused path requires SenseDFT2RealOperator" in msg
-    for name in auto._NOT_YET_PORTED:
-        assert f"{name}: not yet ported" in msg
-    assert len(auto._NOT_YET_PORTED) == 3
+    assert "pdhg: fused PDHG path requires a PDHG solver" in msg
+    assert "kaczmarz_greedy: greedy kernel requires a Kaczmarz solver" in msg
+    assert "kaczmarz_streamed: streamed path requires a Kaczmarz solver" in msg
+    assert "not yet ported" not in msg
+    assert len(auto._FUSED_WRAPPERS) == 12
     np.testing.assert_array_equal(got.numpy(), rtt.solve_batched_unrolled(tsolver, Bt).numpy())
 
 
