@@ -41,8 +41,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3g. each dense kernel against its plain version, held to the plain
      version's own spread under b·(1 + 2⁻²³) in the same run and to the
      restart-count rule (DENSE_SPREAD): the fused CGNR on the 64×64 cell,
-     the 1024×512 cell, with Positive at batch 4 and on a complex A
-     through the split-real embedding; the dense FISTA / OptISTA / POGM on
+     the 1024×512 cell, with Positive at batch 4, on a complex A through
+     the split-real embedding, at 1000×300 × 61 (remainders in the slabs
+     and the problem groups) and at batch 137 (more problems than SMs),
+     each case's plan printed first (CTAs, slabs × groups of the
+     cooperative grid, rows per slab, problems per group, shared memory);
+     the dense FISTA / OptISTA / POGM on
      the LASSO cell (600 iterations, and 100 for the restart schedules,
      the table methods and FISTA-L2 with Positive); the plane kernel on a
      complex A (FISTA with gradient restart and Real, POGM) and on the real
@@ -106,6 +110,13 @@ the result line come last. The flagship problem is rebuilt with numpy
 exactly as bench.py:36-68 builds it, the other cells as
 tools/bench_suite.py:79-102, :104-125, :127-151, :153-194, :204-306 and
 :308-379 build them (replaying its seeded generators).
+
+    python3 chip_smoke.py --time-cgnr [ROOT]
+
+times only the CGNR kernel of the rls_tpu_torch under ROOT (default: this
+tree) at the two CGNR cells, beside torch.linalg.solve, and prints one
+JSON line: run it for a parent tree and this one in turns to compare the
+two kernels on one card.
 """
 
 from __future__ import annotations
@@ -286,9 +297,11 @@ def dense_systems(draws):
     (cgnr_l2_dense64_fused_b16, fista_l1_dense_cs_b16_fused), the 1024×512
     CGNR cell (A = N(0,1)/√1024, XT = N(0,1) 512×64, default_rng(1)), a
     complex A of 256×512 with entries (N + iN)/√(2·256) and the LASSO
-    cell's X as its phantoms (default_rng(2)), and the LASSO cell's real A
+    cell's X as its phantoms (default_rng(2)), the LASSO cell's real A
     with a complex b (a second sparse X from the same generator as the
-    imaginary part)."""
+    imaginary part), and two more CGNR batches on the 1024×512 cell's A
+    (X = N(0,1) from default_rng(4)): its first 1000 rows and 300 columns
+    at batch 61, and the whole A at batch 137."""
     a64, xt1 = draws["cgnr64"]
     a2b, x2b = draws["lasso"]
     rng = np.random.default_rng(1)
@@ -298,10 +311,19 @@ def dense_systems(draws):
     ac = ((rng.normal(size=(256, 512)) + 1j * rng.normal(size=(256, 512)))
           / np.sqrt(2 * 256)).astype(np.complex64)
     xi = (rng.normal(size=(512, 16)) * (rng.uniform(size=(512, 16)) < 0.05)).astype(np.float32)
+    rng = np.random.default_rng(4)
+    a_rem = np.ascontiguousarray(a1k[:1000, :300])
+    x_rem = rng.normal(size=(300, 61)).astype(np.float32)
+    x_137 = rng.normal(size=(512, 137)).astype(np.float32)
     return {
         # bench_suite multiplies the float64 quotient A / √64 (numpy ≥ 2)
         "cgnr64": (a64, (a64.astype(np.float64) @ xt1).astype(np.float32)),
         "cgnr1k": (a1k, (a1k.astype(np.float64) @ x1k).astype(np.float32)),
+        # the CGNR kernel's cuts with remainders in the slabs and the
+        # groups (1000 × 300, batch 61) and with more problems than SMs
+        # (the 1024 × 512 A, batch 137)
+        "cgnr_rem": (a_rem, (a_rem.astype(np.float64) @ x_rem).astype(np.float32)),
+        "cgnr_p137": (a1k, (a1k.astype(np.float64) @ x_137).astype(np.float32)),
         "lasso": (a2b, a2b @ x2b),
         "cplx": (ac, (ac @ x2b.astype(np.complex64)).astype(np.complex64)),
         "real_a_cplx_b": (a2b, (a2b @ x2b + 1j * (a2b @ xi)).astype(np.complex64)),
@@ -768,10 +790,12 @@ def dense_kernel_phase(dev, systems):
     def note(kernel, err):
         out[kernel]["err"] = max(out[kernel]["err"], err)
 
-    # CGNR: the two cells, Positive at batch 4, and the complex A through
-    # the split-real embedding
+    # CGNR: the two cells, Positive at batch 4, the complex A through the
+    # split-real embedding, and the cuts with remainders and with more
+    # problems than SMs
     a_c, b_c = systems["cplx"]
     emb_a, emb_b = cg.split_real_embedding(t(a_c), t(b_c.T))
+    limits = cg.device_limits(dev.index or 0)
     cases = (
         ("cgnr_l2_dense64_fused_b16", *map(t, systems["cgnr64"]), CGNR64_LAM, CGNR64_ITERS,
          "none"),
@@ -780,11 +804,20 @@ def dense_kernel_phase(dev, systems):
         ("1024x512, batch 4, positive", t(systems["cgnr1k"][0]), t(systems["cgnr1k"][1][:, :4]),
          CGNR1K_LAM, CGNR1K_ITERS, "positive"),
         ("complex 256x512 embedded, batch 16", emb_a, emb_b.T, CGNR1K_LAM, 64, "none"),
+        ("1000x300, batch 61", *map(t, systems["cgnr_rem"]), CGNR1K_LAM, CGNR1K_ITERS, "none"),
+        ("1024x512, batch 137", *map(t, systems["cgnr_p137"]), CGNR1K_LAM, CGNR1K_ITERS,
+         "none"),
     )
     for label, A, B, lam, iters, prox in cases:
         bt = B.T.contiguous()
         lam_v = torch.full((bt.shape[0],), lam, device=dev)
         steps = min(iters, A.shape[1])
+        plan = cg.plan_cgnr(*A.shape, bt.shape[0], *limits)
+        print(f"cgnr_fused[{label}]: plan {plan.ctas} CTAs = {plan.slabs} slabs x "
+              f"{plan.groups} groups (one cooperative grid), {plan.rows} rows per slab, "
+              f"{plan.group_size} problems per group, A's slab and p in "
+              f"{'shared' if plan.resident else 'global'} memory, {plan.smem} B of shared "
+              f"memory per CTA")
 
         def kernel(b, A=A, lam_v=lam_v, steps=steps, prox=prox):
             return cg.cgnr_fused(b, A, lam_v, steps, prox), None
@@ -2197,5 +2230,59 @@ def main() -> int:
     return 0
 
 
+def time_cgnr(root) -> int:
+    """``--time-cgnr ROOT``: the CGNR kernel of the rls_tpu_torch package
+    under ROOT (this tree, or another one unpacked beside it) timed alone
+    at the two CGNR cells' shapes, three readings each by CUDA events, and
+    once with no CG step, beside torch.linalg.solve on the 1024×512 cell's
+    regularized Gram, with the kernel's clocks per phase where it has a
+    timer; one JSON line. Run it for two trees in turns (parent, change,
+    change, parent) to compare their kernels on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    from rls_tpu_torch.kernels import cgnr_fused as cg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    systems = dense_systems(bench_suite_draws())
+    out = {"root": root, "kernel": os.path.relpath(cg.__file__, ROOT), "card": smi}
+    for name, key, lam, iters, reps in (
+        ("cgnr_l2_dense64_fused_b16", "cgnr64", CGNR64_LAM, CGNR64_ITERS, 50),
+        ("cgnr_l2_dense_1024x512_b64", "cgnr1k", CGNR1K_LAM, CGNR1K_ITERS, 20),
+    ):
+        A, B = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in systems[key])
+        bt = B.T.contiguous()
+        lam_v = torch.full((bt.shape[0],), lam, device=dev)
+        steps = min(iters, A.shape[1])
+        got = cg.cgnr_fused(bt, A, lam_v, steps)
+        want = cg.cgnr_fused_torch(bt, A, lam_v, steps)
+        torch.cuda.synchronize()
+        out[f"{name} max|kernel - plain|"] = float((got - want).abs().max())
+        out[f"{name} ms"] = [cuda_ms(lambda: cg.cgnr_fused(bt, A, lam_v, steps), reps)
+                             for _ in range(3)]
+        # the set-up alone (Aᴴb, the plan, the scratch): no CG step
+        out[f"{name} ms at 0 steps"] = cuda_ms(lambda: cg.cgnr_fused(bt, A, lam_v, 0), reps)
+        if hasattr(cg, "phase_clocks"):  # the kernel's own timer, where it has one
+            out[f"{name} clocks of CTA 0 by phase"] = cg.phase_clocks(bt, A, lam_v, steps)
+        if key == "cgnr1k":
+            G = A.T @ A + lam * torch.eye(A.shape[1], device=dev)
+            AtB = A.T @ B
+            torch.linalg.solve(G, AtB)
+            out["torch.linalg.solve ms"] = [cuda_ms(lambda: torch.linalg.solve(G, AtB), 10)
+                                            for _ in range(3)]
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-cgnr"]:
+        sys.exit(time_cgnr(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

@@ -72,8 +72,14 @@ _SIGNATURES = {
     "admm_tv_tiled_launch": (
         _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
-    # (b, A, lam, out, scratch, P, m, n, steps, positive, stream)
-    "cgnr_fused_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (b, A, lam, out, part, dots, r, v, p, bar, prof, P, m, n, steps,
+    #  positive, slabs, rows, groups, group_size, resident, smem, stream)
+    "cgnr_fused_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P,
+    ),
+    # (out: int[2] = SM count, opt-in shared memory per block)
+    "cgnr_fused_limits": (_P,),
     # (b, A, scal, tab, out, scratch, counts, P, m, n, steps, method, kind,
     #  restart, proj, stream)
     "pgm_dense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

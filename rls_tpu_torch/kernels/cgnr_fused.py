@@ -21,12 +21,23 @@ double sums taken in another order round to different f32 values, which
 keeps the kernel next to the plain version even on systems whose f32 CG
 amplifies a 1-ulp change of b to 1e-2.
 
+The kernel runs a CG step of the whole batch over every SM: A's rows are
+cut into slabs and the batch into groups, one CTA per (slab, group), each
+keeping its slab of A in shared memory for the whole solve, so a load of
+A serves every problem of the group, and multiplying on the FP64 tensor
+cores. :func:`plan_cgnr` chooses the cut on the host; a shape that has no
+plan whose CTAs are all resident at once raises.
+
 Not carried over: the TPU's pre-split bf16 hi/lo factors and their VMEM
 gate (:164), and ``chunked_batch_run`` (:67-83): the port launches one
 grid over the whole batch.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -39,6 +50,9 @@ __all__ = [
     "cgnr_fused",
     "cgnr_fused_torch",
     "check_cgnr_fused",
+    "plan_cgnr",
+    "CgnrPlan",
+    "phase_clocks",
     "solve_cgnr_fused",
     "split_real_embedding",
     "dsum_mm",
@@ -86,23 +100,186 @@ def cgnr_fused_torch(b, A, lam, steps: int, prox="none"):
     return x
 
 
-def _launch(b, A, lam, steps, prox):
+# the kernel's warps per CTA and problems per tile (csrc/cgnr_fused.cu)
+WARPS, TILE = 8, 8
+# the phases that the kernel can time (csrc/cgnr_fused.cu kPhases)
+PHASES = ("set-up", "q", "partial v", "barrier 1", "slab sums and dots", "barrier 2",
+          "x and r", "barrier 3", "p", "x out")
+
+
+# the planner's prices, in SM clocks: a barrier of a group's CTAs (an
+# atomic and a poll of L2) and a round trip of loads through L2
+SYNC_CLOCKS, TRIP_CLOCKS = 2000, 1000
+
+
+@dataclasses.dataclass(frozen=True)
+class CgnrPlan:
+    """How the CGNR kernel cuts a solve: `slabs` slabs of `rows` rows of A,
+    `groups` groups of `group_size` problems, one CTA per (slab, group);
+    with `resident` each CTA keeps its slab of A and its group's p in
+    shared memory; `smem` bytes of it per CTA."""
+
+    slabs: int
+    rows: int
+    groups: int
+    group_size: int
+    resident: bool
+    smem: int
+
+    @property
+    def ctas(self) -> int:
+        return self.slabs * self.groups
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _align16(nbytes):
+    return _cdiv(nbytes, 16) * 16
+
+
+def slab_ld(n):
+    """The row stride of A's slab in shared memory (csrc/cgnr_fused.cu
+    ``slab_ld``): at least n rounded up to 16, 8 mod 32 floats."""
+    n16 = _cdiv(n, 16) * 16
+    return n16 + (40 - n16 % 32) % 32
+
+
+def smem_bytes(n, slabs, rows, group_size, resident):
+    """Shared memory of one CTA, as ``smem_bytes`` in csrc/cgnr_fused.cu
+    counts it: q for a tile of 8 problems (float64, rows rounded up to
+    16), five f32 scalars per problem, the block reductions, the phase
+    timer and the warps' split sums (8 × 128 float64); with `resident` the
+    slab of A (f32, zero rows and columns up to 16 rows and ``slab_ld``),
+    the group's p (float64, tiles × n rounded up to 8 × 8), the owner's x,
+    r, v (f32, tiles × its columns × 8) and, with several slabs, the
+    group's whole r (f32, tiles × n × 8); with one slab the partial v of
+    every tile (float64). Each piece starts 16-byte aligned."""
+    chunk, tiles, rows16 = _cdiv(n, slabs), _cdiv(group_size, TILE), _cdiv(rows, 16) * 16
+    nbytes = (8 * TILE * rows16 + _align16(20 * group_size) + 8 * 2 * WARPS * TILE
+              + 8 * len(PHASES) + 8 * WARPS * 128)
+    if resident:
+        nbytes += (_align16(4 * rows16 * slab_ld(n)) + 8 * TILE * tiles * _cdiv(n, 8) * 8
+                   + _align16(12 * TILE * tiles * chunk)
+                   + (_align16(4 * TILE * tiles * n) if slabs > 1 else 0))
+    if slabs == 1:
+        nbytes += 8 * TILE * tiles * n
+    return nbytes
+
+
+def step_clocks(n, slabs, rows, group_size, resident):
+    """A model of one CG step's SM clocks on a CTA of the plan: q and the
+    partial v on the FP64 tensor cores (~100 double FMAs per SM and clock
+    in 16 × 8 blocks, a quarter of that for a lone block), the vectors'
+    work, and with several slabs the group's barriers and round trips
+    through L2; A read from L2 twice per tile where it is not resident."""
+    tiles = _cdiv(group_size, TILE)
+    rows16, n16 = _cdiv(rows, 16) * 16, _cdiv(n, 16) * 16
+    work = 8 * rows16 * n16 // 100
+    q = tiles * max(work, 16 * 8 * n16 // 25)
+    v = tiles * max(work, 16 * 8 * rows16 // 25)
+    vec = tiles * n + group_size * n // 8
+    group = 0 if slabs == 1 else (3 if resident else 4) * SYNC_CLOCKS + 3 * TRIP_CLOCKS
+    stream = 0 if resident else tiles * rows * n // 4
+    return q + v + vec + group + stream
+
+
+@functools.lru_cache(maxsize=256)
+def plan_cgnr(m, n, P, sms, smem_max) -> CgnrPlan:
+    """The cut of a solve of P problems on an m × n A for a card of `sms`
+    SMs and `smem_max` bytes of shared memory per block: the plan of least
+    :func:`step_clocks` whose CTAs, at most one per SM, are all resident
+    at once. Raises ValueError where no plan fits."""
+    if min(m, n, P) < 1:
+        raise ValueError(f"cgnr_fused: empty shape A {m}x{n}, {P} problems")
+    best = None
+    for s_try in range(1, min(m, sms) + 1):
+        rows = _cdiv(m, s_try)
+        slabs = _cdiv(m, rows)
+        if slabs != s_try:
+            continue  # the same cut as a smaller slab count
+        for g_try in range(1, min(P, sms // slabs) + 1):
+            group_size = _cdiv(P, g_try)
+            groups = _cdiv(P, group_size)
+            if groups != g_try:
+                continue
+            for resident in (True, False):
+                smem = smem_bytes(n, slabs, rows, group_size, resident)
+                if smem > smem_max:
+                    continue
+                key = (step_clocks(n, slabs, rows, group_size, resident), -groups, slabs)
+                if best is None or key < best[0]:
+                    best = (key, CgnrPlan(slabs, rows, groups, group_size, resident, smem))
+                break
+    if best is None:
+        raise ValueError(
+            f"cgnr_fused: no plan for A {m}x{n} with {P} problems whose CTAs fit at once "
+            f"on {sms} SMs with {smem_max} bytes of shared memory each"
+        )
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index):
+    """(SM count, opt-in shared memory per block) of CUDA device `index`."""
+    from .. import _build
+
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        _build.check(_build.load_library().cgnr_fused_limits(out), "cgnr_fused_limits")
+    return out[0], out[1]
+
+
+def _launch(b, A, lam, steps, prox, prof=None):
     from .. import _build
 
     P, m = b.shape
     n = A.shape[1]
+    if P == 0:
+        return torch.empty((0, n), dtype=torch.float32, device=b.device)
     lib = _build.load_library()
+    plan = plan_cgnr(m, n, P, *device_limits(b.device.index or 0))
     out = torch.empty((P, n), dtype=torch.float32, device=b.device)
-    # the planes r, p, v (n each) and q (m) of every problem
-    scratch = torch.empty((P, 3 * n + m), dtype=torch.float32, device=b.device)
+    # one float64 workspace, each piece 256-byte aligned: the barrier
+    # counters and, without `resident`, p of the group's tiles as (column,
+    # problem), both zeroed; with several slabs the partial v and the dots
+    # that meet in L2; r and, without `resident`, v (f32)
+    tiles = _cdiv(plan.group_size, TILE)
+    shared = plan.slabs > 1
+    sizes = (plan.groups * 16,
+             0 if plan.resident else plan.groups * tiles * _cdiv(n, 8) * 8 * TILE,
+             plan.groups * plan.slabs * tiles * n * TILE if shared else 0,
+             plan.groups * plan.slabs * plan.group_size * 2 if shared else 0,
+             _cdiv(P * n, 2), 0 if plan.resident else _cdiv(P * n, 2))
+    starts = [0]
+    for size in sizes:
+        starts.append(starts[-1] + _cdiv(size, 32) * 32)
+    ws = torch.empty(starts[-1], dtype=torch.float64, device=b.device)
+    ws[:starts[2]].zero_()
+    bar, p, part, dots, r, v = (ws[starts[i]:starts[i + 1]] for i in range(6))
+    bar, r, v = bar.view(torch.int32), r.view(torch.float32), v.view(torch.float32)
     with torch.cuda.device(b.device):
         code = lib.cgnr_fused_launch(
-            b.data_ptr(), A.data_ptr(), lam.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            P, m, n, steps, int(prox == "positive"), torch.cuda.current_stream().cuda_stream,
+            b.data_ptr(), A.data_ptr(), lam.data_ptr(), out.data_ptr(), part.data_ptr(),
+            dots.data_ptr(), r.data_ptr(), v.data_ptr(), p.data_ptr(), bar.data_ptr(),
+            None if prof is None else prof.data_ptr(), P, m, n, steps, int(prox == "positive"),
+            plan.slabs, plan.rows, plan.groups, plan.group_size, int(plan.resident), plan.smem,
+            torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(code, "cgnr_fused_launch")
+    _build.check(code, f"cgnr_fused_launch (A {m}x{n}, {P} problems, {plan})")
     cgnr_fused.launches += 1
     return out
+
+
+def phase_clocks(b, A, lam, steps: int, prox="none"):
+    """One launch of the CUDA kernel with its phase timer on: {phase: SM
+    clocks that CTA 0 spent in it over the whole solve} (``PHASES``;
+    ``cgnr_fused.launches`` counts the launch)."""
+    check_cuda_operands("cgnr_fused", A, b, lam)
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=b.device)
+    _launch(b.contiguous(), A.contiguous(), lam.contiguous(), steps, prox, prof)
+    return dict(zip(PHASES, prof.tolist()))
 
 
 def check_cuda_operands(name, A, *vectors):
@@ -116,13 +293,14 @@ def check_cuda_operands(name, A, *vectors):
 
 
 def cgnr_fused(b, A, lam, steps: int, prox="none"):
-    """Batched CGNR on a dense real A, one CTA per problem.
+    """Batched CGNR on a dense real A, one CG step of the whole batch over
+    every SM (the cut of :func:`plan_cgnr`).
 
     b: (P, m) float32, one problem per row; A: (m, n) float32; lam: (P,)
     the effective λ per problem; steps: the CG steps (min(iterations,
     n)); prox "none" | "positive". The plain version runs for CPU tensors,
-    the CUDA kernel for CUDA tensors. ``cgnr_fused.launches`` counts the
-    kernel's launches. Returns x (P, n).
+    the CUDA kernel for CUDA tensors; a shape without a plan raises.
+    ``cgnr_fused.launches`` counts the kernel's launches. Returns x (P, n).
     """
     if prox not in PROXES:
         raise ValueError(f"unknown prox {prox!r}; the CGNR kernel takes {PROXES}")

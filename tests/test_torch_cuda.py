@@ -258,19 +258,58 @@ def _dense(dev, m=40, n=24, P=3, seed=8, cplx=False):
     return (A, draw(m, n) / np.sqrt(m)), (b, draw(P, m))
 
 
+# (m, n, P) of the CGNR kernel's cases: the small system; several slabs
+# and groups with a remainder in both; P = 1; P ≥ 200 without the
+# resident slab and with it; A tall and wide; and "cplx", the split-real
+# embedding (512 × 1024) of a complex 256 × 512 A at batch 16
+CGNR_SHAPES = [(40, 24, 3), (1000, 300, 61), (1024, 512, 1), (1024, 512, 200), (300, 200, 203),
+               (3000, 16, 20), (16, 3000, 20), "cplx"]
+
+
+def _cgnr_system(dev, shape):
+    """A, b and λ of a CGNR case. A wide A (m < n) has singular normal
+    equations: with λ = 0 the f32 CG past step m divides by ~0 and the
+    plain version itself moves by O(1) of max|x| under a 1-ulp change of
+    b. So a wide A is scaled to unit-size rows (AAᴴ ≈ I) and every λ is
+    positive, κ(AᴴA + λ) ≤ 7; the others take λ = 1e-3, 0, 0.2."""
+    lam = [1e-3, 0.0, 0.2]
+    if shape == "cplx":
+        (ar, ai), (br, bi) = _dense(dev, m=256, n=512, P=16, cplx=True)
+        A, b = cgnr.split_real_embedding(torch.complex(ar, ai), torch.complex(br, bi))
+    else:
+        m, n, _ = shape
+        A, b = _dense(dev, *shape)
+        if m < n:
+            A, lam = A * float(np.sqrt(m / n)), [0.2, 0.5, 1.0]
+    lam = torch.tensor(lam, device=dev).repeat(b.shape[0])[: b.shape[0]]
+    return A.contiguous(), b.contiguous(), lam.contiguous()
+
+
+@pytest.mark.parametrize("shape", CGNR_SHAPES, ids=str)
 @pytest.mark.parametrize("steps", [0, 1, 24, 60])
 @pytest.mark.parametrize("prox", ["none", "positive"])
-def test_cgnr_kernel_matches_plain(dev, steps, prox):
-    A, b = _dense(dev)
-    lam = torch.tensor([1e-3, 0.0, 0.2], device=dev)
+def test_cgnr_kernel_matches_plain(dev, steps, prox, shape):
+    A, b, lam = _cgnr_system(dev, shape)
     before = cgnr.cgnr_fused.launches
     got = cgnr.cgnr_fused(b, A, lam, steps, prox)
     assert cgnr.cgnr_fused.launches == before + 1
     want = cgnr.cgnr_fused_torch(b, A, lam, steps, prox)
     assert bool(torch.isfinite(got).all())
     _close(got, want, 1e-5)
-    # no atomics: the same result run to run
+    # no float atomics: the same result run to run
     assert torch.equal(cgnr.cgnr_fused(b, A, lam, steps, prox), got)
+    assert cgnr.cgnr_fused.launches == before + 2
+
+
+def test_cgnr_kernel_raises_without_a_plan(dev):
+    """A shape whose slabs cannot all be resident at once raises, naming
+    the shape, and launches nothing."""
+    A = torch.zeros((600_000, 2), device=dev)
+    b = torch.zeros((3, 600_000), device=dev)
+    before = cgnr.cgnr_fused.launches
+    with pytest.raises(ValueError, match="600000x2 with 3 problems"):
+        cgnr.cgnr_fused(b, A, torch.zeros(3, device=dev), 4)
+    assert cgnr.cgnr_fused.launches == before
 
 
 def test_cgnr_kernel_past_convergence_is_the_identity(dev):
