@@ -13,7 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      flagship shapes (64 problems of 256², 50 × 10 iterations); the fused
      solve's dynamic and warm schedules (gradient restart, sigma_fac < 1,
      early exit, warm TV duals) at batch 8, with the per-problem restart
-     and freeze counts of kernel and plain version side by side; the tiled
+     and freeze counts of kernel and plain version side by side, each
+     fused case's plan printed first (route, CTAs per problem, rows per
+     band, shared memory, clusters resident at once); the tiled
      solve at 512² (batch 16, 50 × 10), once at 1024² (batch 8), and its
      dynamic schedules at 512² (batch 4); the fused ADMM-TV solve at
      BASELINE configuration #3's shapes (16 distinct problems of 256², 12
@@ -22,7 +24,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      live CG steps of kernel and plain version side by side;
   4. the flagship through the public API: batched FISTA-TV deblurring,
      256², 9×9 Gaussian, 50×10 iterations, ρ = 0.95, λ = 5e-4, batch 64,
-     through solve_batched_fast (fused kernel, one launch) and
+     through solve_batched_fast (fused kernel, one launch, on the
+     resident route by its route counter) and
      solve_batched_unrolled (TV kernel, one launch per FISTA iteration),
      held against the f64 reference solutions of bench_ref_f64.npz; the
      OptISTA and POGM flagship through solve_batched_fast;
@@ -117,6 +120,13 @@ times only the CGNR kernel of the rls_tpu_torch under ROOT (default: this
 tree) at the two CGNR cells, beside torch.linalg.solve, and prints one
 JSON line: run it for a parent tree and this one in turns to compare the
 two kernels on one card.
+
+    python3 chip_smoke.py --time-pgm-tv [ROOT]
+
+does the same for the fused PGM-TV kernel (row 2): FISTA, OptISTA and POGM
+at the flagship, the batch-8 schedules, 256² × 16 beside the tiled kernel,
+and the flagship cell through solve_batched_fast, with each plan and the
+kernel's clocks per phase where ROOT's package has them.
 """
 
 from __future__ import annotations
@@ -795,7 +805,9 @@ def dense_kernel_phase(dev, systems):
     # problems than SMs
     a_c, b_c = systems["cplx"]
     emb_a, emb_b = cg.split_real_embedding(t(a_c), t(b_c.T))
-    limits = cg.device_limits(dev.index or 0)
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index or 0)
     cases = (
         ("cgnr_l2_dense64_fused_b16", *map(t, systems["cgnr64"]), CGNR64_LAM, CGNR64_ITERS,
          "none"),
@@ -1890,9 +1902,18 @@ def main() -> int:
         live = int(counts[:, 1].sum())
         return bound(live * per_px * N * N, 4 * 2 * x0.numel())
 
+    def show_plan(name, x0, method, restart="none", rel_tol=None, warm_tv=False, **_):
+        """Print the launch's plan: route, cluster size, rows per band,
+        shared memory per CTA and the clusters the card holds at once."""
+        plan, active = fused.plan_on_card(x0, taps, method, restart, rel_tol, warm_tv)
+        print(f"{name}: plan route {plan.route}, {plan.clusters} CTAs per problem, "
+              f"{plan.rows} rows per band, {plan.ctas} CTAs, {plan.smem} B of shared memory "
+              f"per CTA, {active} clusters resident at once")
+
     fused_err, fused_ms = {}, {}
     for method in ("fista", "optista", "pogm"):
         kernel, plain = fused_pair(method)
+        show_plan(f"fista_tv_fused[{method}]", x0hat, method)
         fused_err[method] = hold_to_plain(f"fista_tv_fused[{method}]", kernel, plain, x0hat)
         fused_ms[method] = alternate_ms(lambda: plain(x0hat), lambda: kernel(x0hat), reps=3)
         print(
@@ -1912,6 +1933,7 @@ def main() -> int:
         ("fista warm_tv", dict(method="fista", warm_tv=True)),
     ):
         kernel, plain = fused_pair(**kw)
+        show_plan(f"fista_tv_fused[{name}, batch {BATCH_DYN}]", x0_dyn, **kw)
         hold_to_plain(f"fista_tv_fused[{name}]", kernel, plain, x0_dyn, show_counts=True)
         plain_ms, kernel_ms = alternate_ms(lambda: plain(x0_dyn), lambda: kernel(x0_dyn), reps=1)
         print(f"fista_tv_fused[{name}, batch {BATCH_DYN}]: kernel {kernel_ms:.3f} ms, "
@@ -1945,8 +1967,23 @@ def main() -> int:
             tiled_ms = alternate_ms(lambda: plain(x0_n), lambda: kernel(x0_n), reps=3)
             print(f"fista_tv_tiled[512²]: kernel {tiled_ms[1]:.3f} ms, "
                   f"plain {tiled_ms[0]:.3f} ms")
-            forced = cuda_ms(lambda: fused.fista_tv_fused(x0_n, taps_n, RHO, lam_n, ITERS,
-                                                          TV_ITERS), reps=2)
+            # the fused kernel's global route (one CTA per problem on
+            # global scratch), which 512² takes, against its plain version
+            def forced_kernel(x0, lam_n=lam_n, taps_n=taps_n):
+                return fused.fista_tv_fused(x0, taps_n, RHO, lam_n, ITERS, TV_ITERS,
+                                            with_counts=True)
+
+            def forced_plain(x0, lam_n=lam_n, taps_n=taps_n):
+                scal, tab, t2 = fused.kernel_args(x0, RHO, lam_n, "fista", ITERS, TV_ITERS)
+                return fused.fista_tv_fused_torch(x0, scal, tab, t2, taps_n)
+
+            fused.fista_tv_fused.route_launches = {"resident": 0, "global": 0}
+            hold_to_plain(f"fista_tv_fused[forced to 512², batch {x0_n.shape[0]}]",
+                          forced_kernel, forced_plain, x0_n)
+            require(fused.fista_tv_fused.route_launches == {"resident": 0, "global": 1},
+                    f"the fused kernel forced to 512² took the global route once: "
+                    f"{fused.fista_tv_fused.route_launches}")
+            forced = cuda_ms(lambda: forced_kernel(x0_n), reps=2)
             print(f"fista_tv_fused forced to 512², batch 16: {forced:.3f} ms "
                   f"({16 / (forced / 1e3):.1f} problems/s)")
             for name, kw in (
@@ -1987,12 +2024,15 @@ def main() -> int:
     # 4. the flagship through the public API; the counts start at 0 here
     ref = np.load(os.path.join(ROOT, "bench_ref_f64.npz"))
     fused.fista_tv_fused.launches = 0
+    fused.fista_tv_fused.route_launches = {"resident": 0, "global": 0}
     tv_fgp.prox_tv2d_fgp.launches = 0
     tiled.fista_tv_tiled.launches = 0
     x_fast = rtt.solve_batched_fast(solver, B)
     torch.cuda.synchronize()
     launches_fused = fused.fista_tv_fused.launches
     require(tiled.fista_tv_tiled.launches == 0, "the 256² flagship ran the tiled kernel")
+    require(fused.fista_tv_fused.route_launches == {"resident": 1, "global": 0},
+            f"the flagship's routes: {fused.fista_tv_fused.route_launches}")
     x_comp = rtt.solve_batched_unrolled(solver, B)
     torch.cuda.synchronize()
     launches_tv = tv_fgp.prox_tv2d_fgp.launches
@@ -2013,11 +2053,12 @@ def main() -> int:
         require(rec < blur_err, f"{name}: the reconstruction is no better than the blur")
         require(rel <= TOL_PARITY, f"{name}: parity_max_rel_err {rel:.3e}")
         require(res <= TOL_RESIDUAL, f"{name}: parity_residual_rel_diff {res:.3e}")
+    flagship_ms = {}
     for name, fn in (
         ("solve_batched_fast", lambda: rtt.solve_batched_fast(solver, B)),
         ("solve_batched_unrolled", lambda: rtt.solve_batched_unrolled(solver, B)),
     ):
-        ms = cuda_ms(fn, reps=3)
+        ms = flagship_ms[name] = cuda_ms(fn, reps=3)
         print(f"{name}: {BATCH / (ms / 1e3):.1f} problems/s ({ms:.2f} ms per batch of {BATCH})")
     # the OptISTA and POGM flagship through the same entry point
     for cls in ("OptISTA", "POGM"):
@@ -2186,13 +2227,16 @@ def main() -> int:
     )
     # one PyTorch call computes the same function only for CGNR's
     # regularized normal equations (torch.linalg.solve); none computes a
-    # TV or a LASSO solve. For the three FFT kernels the yardstick is the
-    # same solve with its normal op on torch.fft (cuFFT), the composed
+    # TV or a LASSO solve. For the fused PGM-TV kernel the yardstick is the
+    # composed flagship solve (solve_batched_unrolled: the operator's
+    # products and one TV kernel launch per iteration); for the three FFT
+    # kernels the same solve with its normal op on torch.fft (cuFFT), the composed
     # solve_batched_unrolled at the kernel's shapes: many calls, not one,
     # and the time a later PR's kernel has to beat; the same for PDHG (the
     # cell) and the three Kaczmarz rows (one sweep, the tall cell, one
     # greedy sweep)
     library = {
+        "fista_tv_fused": flagship_ms["solve_batched_unrolled"],
         "cgnr_fused": library_ms,
         "fista_l1_dft_fused": composed_ms["fista_l1_dft_fused"],
         "sense_fused": composed_ms["fista_l21_sense_fused"],
@@ -2282,7 +2326,75 @@ def time_cgnr(root) -> int:
     return 0
 
 
+def time_pgm_tv(root) -> int:
+    """``--time-pgm-tv ROOT``: the fused PGM-TV kernel (row 2) of the
+    rls_tpu_torch package under ROOT timed alone, three readings each by
+    CUDA events: FISTA, OptISTA and POGM at the flagship (256² × 64, 50 ×
+    10), the five dynamic and warm schedules of phase 3c at batch 8 and
+    FISTA at batch 8; the flagship cell through solve_batched_fast; and
+    FISTA at 256² × 16 on the fused kernel beside the tiled kernel forced
+    there. Where the package has them, each case's plan and its clocks of
+    CTA 0 by phase; one JSON line. Run it for two trees in turns (parent,
+    change, change, parent) to compare their kernels on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import fista_tv_fused as fused
+    from rls_tpu_torch.kernels import fista_tv_tiled as tiled
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    solver, B, _ = build_flagship(dev)
+    taps = solver.A.taps_hw()
+    x0hat = solver.A.rmv_stencil(B.T).reshape(BATCH, N, N)
+    x0_dyn, x0_16 = x0hat[:BATCH_DYN].contiguous(), x0hat[:16].contiguous()
+    out = {"root": root, "kernel": os.path.relpath(fused.__file__, ROOT), "card": smi}
+    cases = [(f"flagship {m}", x0hat, dict(method=m), 3) for m in ("fista", "optista", "pogm")]
+    cases += [(f"batch {BATCH_DYN} {name}", x0_dyn, kw, 10) for name, kw in (
+        ("fista", dict(method="fista")),
+        ("fista gradient restart", dict(method="fista", restart="gradient")),
+        ("pogm gradient restart, sigma_fac 0.9",
+         dict(method="pogm", restart="gradient", sigma_fac=0.9)),
+        ("fista early exit", dict(method="fista", rel_tol=1e-3)),
+        ("pogm early exit", dict(method="pogm", rel_tol=1e-3)),
+        ("fista warm_tv", dict(method="fista", warm_tv=True)),
+    )]
+    cases.append(("256² x 16 fista", x0_16, dict(method="fista"), 5))
+    for name, x0, kw, reps in cases:
+        def run(x0=x0, kw=kw):
+            return fused.fista_tv_fused(x0, taps, RHO, LAM, ITERS, TV_ITERS, **kw)
+
+        run()
+        out[f"{name} ms"] = [cuda_ms(run, reps) for _ in range(3)]
+        if hasattr(fused, "plan_on_card"):  # the planner and timer, where the tree has them
+            plan, active = fused.plan_on_card(x0, taps, kw["method"], kw.get("restart", "none"),
+                                              kw.get("rel_tol"), kw.get("warm_tv", False))
+            out[f"{name} plan"] = dict(vars(plan), resident_clusters=active)
+            if plan.route == "resident":
+                out[f"{name} clocks of CTA 0 by phase"] = fused.phase_clocks(
+                    x0, taps, RHO, LAM, ITERS, TV_ITERS, **kw)
+    out["256² x 16 fista_tv_tiled ms"] = [
+        cuda_ms(lambda: tiled.fista_tv_tiled(x0_16, taps, RHO, LAM, ITERS, TV_ITERS), 5)
+        for _ in range(3)]
+    rtt.solve_batched_fast(solver, B)
+    out["flagship solve_batched_fast ms"] = [
+        cuda_ms(lambda: rtt.solve_batched_fast(solver, B), 3) for _ in range(3)]
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-cgnr"]:
         sys.exit(time_cgnr(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--time-pgm-tv"]:
+        sys.exit(time_pgm_tv(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

@@ -28,7 +28,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "check"]
+__all__ = ["load_library", "check", "device_limits"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -47,12 +47,24 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # (x, lam, out, scratch, B, H, W, iterations, stream)
     "tv_fgp_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (out: int[2] = SM count, opt-in shared memory per block)
+    "rls_device_limits": (_P,),
     # (x0hat, scal, tab, t2, taps, kh, kw, out, scratch, counts, B, H, W,
     #  iterations, tv_iterations, method, restart, early, warm, rel_tol,
     #  sigma_fac, stream)
     "fista_tv_fused_launch": (
         _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _F, _F, _P,
+    ),
+    # (clusters, rows, W, method, dynamic, out: int64[2] = shared memory
+    #  per CTA, clusters resident at once)
+    "fista_tv_cluster_occupancy": (_I, _I, _I, _I, _I, _P),
+    # (x0hat, scal, tab, t2, taps, kh, kw, out, scratch, counts, prof, B, H,
+    #  W, iterations, tv_iterations, method, restart, early, warm, rel_tol,
+    #  sigma_fac, clusters, rows, smem, stream)
+    "fista_tv_cluster_launch": (
+        _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _F, _F, _I, _I, _I, _P,
     ),
     # (x0hat, scal, tab, t2, taps, kh, kw, carries, window, partial,
     #  norm_part, state, counts, B, H, W, tile_rows, halo, iterations,
@@ -78,8 +90,6 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _P,
     ),
-    # (out: int[2] = SM count, opt-in shared memory per block)
-    "cgnr_fused_limits": (_P,),
     # (b, A, scal, tab, out, scratch, counts, P, m, n, steps, method, kind,
     #  restart, proj, stream)
     "pgm_dense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -187,3 +197,15 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = load_library().rls_cuda_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple[int, int]:
+    """(SM count, opt-in shared memory per block) of CUDA device `index`,
+    for the kernels' planners; queried once per device."""
+    import torch
+
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        check(load_library().rls_device_limits(out), "rls_device_limits")
+    return out[0], out[1]

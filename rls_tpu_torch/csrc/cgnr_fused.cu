@@ -669,17 +669,6 @@ __global__ void __launch_bounds__(kThreads, 1) cgnr_fused_kernel(Args a) {
 
 extern "C" {
 
-// The card's SM count and the shared memory a block may opt into, for the
-// planner: out[0], out[1].
-int cgnr_fused_limits(int* out) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(out + 1, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    return static_cast<int>(e);
-}
-
 // b: (P, m) f32, one problem per row; A: (m, n) f32 row-major; lam: (P,);
 // out: (P, n). The plan: `slabs` slabs of `rows` rows, `groups` groups of
 // `group_size` problems, A's slab and p in shared memory with `resident`,

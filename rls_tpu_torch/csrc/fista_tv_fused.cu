@@ -1,4 +1,12 @@
-// The whole batched PGM-TV solve in one launch, one problem per CTA.
+// The whole batched PGM-TV solve in one launch, on one of two routes that
+// the host planner (kernels/fista_tv_fused.py plan_pgm_tv) picks by shape:
+//
+// * resident: each problem runs on a thread-block cluster of c CTAs (c in
+//   {1, 2, 4, 8, 16}), CTA q owning the image rows [q R, (q + 1) R) (the
+//   last band may be shorter), with every plane that is read at
+//   neighbouring pixels held in shared memory for the whole solve;
+// * global: one CTA per problem with every plane in global scratch, for
+//   images whose single row is too wide for a band (about W > 9,600).
 //
 // Replaces the TPU kernel rls_tpu/kernels/fista_tv_fused.py:_kernel (and
 // _kernel_grouped / _kernel_interleaved, which compute the same function;
@@ -6,8 +14,8 @@
 // and POGM on the f64 momentum table (_pgm_loop), FISTA and POGM with
 // gradient restart and the early-exit freeze (_fista_loop_dynamic,
 // _pogm_loop_dynamic), and FISTA with warm TV duals (_fista_loop_warm).
-// One iteration is rls::pgm_iteration (pgm_tv_common.cuh) on the whole
-// image:
+// One iteration is, per pixel, the op order of rls::pgm_iteration and
+// rls::fold_fgp (pgm_tv_common.cuh):
 //   FISTA:   x_mom = x + a (x - x_prev); x_new = FGP(x_mom - rho res, rho lam)
 //   OptISTA: y_new = FGP(y - rho g res, rho g lam); z, x from the table
 //   POGM:    y_new = x - rho res; x_mid = ...; x_new = FGP(x_mid, gamma lam)
@@ -18,23 +26,61 @@
 // TPU kernel bakes them. The JAX dynamic and warm loops default to the
 // fori FGP; the fold form is the same f32 math up to <= 1 ulp. The
 // dynamic schedules' theta, sigma and gamma are per-problem scalars that
-// every thread of the CTA computes alike, from block sums of the restart
-// dots and ||res||^2; every thread then takes the same branch.
+// every thread of the cluster computes alike (rls::coeffs, rls::epilogue)
+// from sums taken in double in a fixed order: each thread's pixels, the
+// CTA's threads (rls::block_sum3), then ranks 0 .. c-1 read through
+// distributed shared memory, rounded once to f32; every CTA of the
+// cluster then takes the same branch.
 //
-// What bounds it on an H100: a 256^2 f32 plane is 256 KiB, more than the
-// 227 KB of shared memory a block may use, and an iteration touches up to
-// 13 planes per problem (x, the carries x_prev | y, z, w, x_mom, two
-// stencil temporaries, xg, y_new and the four duals; the TPU kernel held
-// ~12 in VMEM). They live in global scratch that the wrapper allocates.
-// Each iteration is about 1 + 4 + 1 + 2 tv_iterations block-wide sweeps
-// separated by __syncthreads(), ~600 bytes of plane traffic per pixel at
-// 10 dual iterations; at batch 64 the live set exceeds the 50 MB L2, so
-// the kernel is bound by memory traffic and by the latency of one CTA per
-// SM (64 of 132 SMs busy). Splitting a problem across CTAs is the tiled
-// kernel (fista_tv_tiled.cu); shared-memory residency is later work.
+// What bounds it on an H100. A 256^2 f32 plane is 256 KiB, more than the
+// 227 KB of shared memory a block may use, and an iteration is ~25 sweeps
+// over the planes with a barrier after each. With the planes in global
+// memory (the global route) that is ~560 bytes of L2 / HBM traffic per
+// pixel and iteration at 10 dual iterations, and the kernel is bound by
+// it. The resident route keeps it on chip: a cluster's CTAs sit on
+// neighbouring SMs and read each other's shared memory (DSMEM), so a
+// problem's planes fit in c bands of R rows (256^2 at c = 8: 32-row
+// bands, 32 KiB per plane). Planes by how they are read:
+//   shared memory, six planes (reused as they die):
+//     A pv | B ph (the duals; with warm_tv they stay across iterations)
+//     C t2, then xg         D t1, then rv         E t3, then rh
+//     F the stencil input (x_mom | x), then the FGP's y
+//   global memory, read and written at their own pixel once per
+//   iteration (coalesced): x0hat, the carries x, x_prev | y, z, w, and
+//   the own-pixel temporaries res, y_new and x_mom (the dynamic
+//   schedules' sums, POGM's y_new, the gradient-mapping restart).
+// Global traffic falls to ~20-40 bytes per pixel and iteration, and the
+// sweeps are then bound by issuing their shared-memory loads and index
+// arithmetic: on an H100 80GB HBM3 at 700 W, one flagship iteration of
+// CTA 0 (8 bands of 32 rows) took ~45k SM clocks in the Gram, ~74k in the
+// FGP sweeps and ~28k in cluster barriers. So every sweep advances its
+// (row, column) without a division, and a stencil tap whose rows or
+// columns all lie in the band is read with no edge test. A row
+// outside the CTA's band is read through one map, row -> (rank = row / R,
+// local row = row - rank R), kept as a table of DSMEM row pointers for the
+// rows within kHalo = 31 of the band, so a stencil of up to 63 taps may
+// reach past the adjacent band. The image edges read zero as stencil_v,
+// grad_t and the FGP mask do (fgp_common.cuh).
+//
+// Barriers: a sweep that reads another band's rows follows a cluster
+// barrier (barrier.cluster arrive / wait, cluster.sync(); __syncthreads()
+// when c = 1), which also orders every earlier read of the plane it
+// overwrites; the horizontal stencil passes read only their own rows and
+// follow __syncthreads(). Per iteration: the stencil input, t1, xg (with
+// a prox), two per dual iteration, the duals before the prox output, and
+// one for a dynamic schedule's sums: 22 at 10 dual iterations, ~1,100 per
+// flagship solve. The kernel ends with a cluster barrier, so that no CTA
+// exits while another still reads its shared memory.
+//
+// A phase timer (prof): CTA 0's thread 0 adds the SM clocks between its
+// phase marks (set-up, momentum, Gram, FGP sweeps, cluster barriers, prox
+// and carries, sums); off where prof is null.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "pgm_tv_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -133,6 +179,476 @@ struct Launcher {
     }
 };
 
+
+// ---- the resident route: one problem per cluster, planes in shared memory
+
+constexpr int kHalo = kMaxTaps / 2;  // the farthest row a stencil tap reads
+constexpr int kPlanes = 6;
+enum { kPv, kPh, kT2Xg, kT1Rv, kT3Rh, kInY };  // the shared-memory planes A-F
+// the phases of the timer
+enum { kSetup, kMomentum, kGram, kFgp, kBarrier, kProx, kSums, kPhases };
+
+// floats of one plane of a band of `rows` rows (16-byte multiples)
+__host__ __device__ inline size_t plane_floats(int rows, int W) {
+    return (static_cast<size_t>(rows) * W + 3) / 4 * 4;
+}
+
+// Shared memory of a CTA of the resident route, in this order; the Python
+// planner (kernels/fista_tv_fused.py cluster_smem_bytes) counts the same:
+// six planes of the band, the block sums (3 x 32 doubles), this CTA's
+// sums for the cluster and the cluster's (4 doubles each), the phase
+// timer (kPhases int64), the DSMEM row table (rows + 2 kHalo pointers)
+// and the taps (2 kMaxTaps floats).
+__host__ __device__ inline size_t cluster_smem_bytes(int rows, int W) {
+    return sizeof(float) * kPlanes * plane_floats(rows, W) +
+           sizeof(double) * (3 * (kThreads / 32) + 8) + sizeof(long long) * kPhases +
+           sizeof(const float*) * (rows + 2 * kHalo) + sizeof(float) * 2 * kMaxTaps;
+}
+
+struct ClusterArgs {
+    const float* x0hat;  // (B, H, W)
+    const float* scal;   // (B, 2) [rho, lam]
+    const float* tab;    // (iterations, 4)
+    const float* t2tab;  // (tv_iterations, 2)
+    const float* taps;   // kh + kw
+    float* out;          // (B, H, W): x, a carry
+    float* scratch;      // 6 planes of (B, H, W): x_prev | y, z, w, res, y_new, x_mom
+    int* counts;         // (B, 2)
+    long long* prof;     // (kPhases,) or null
+    int kh, kw, B, H, W;
+    int clusters, rows;  // c CTAs per problem, R rows per band
+    rls::Schedule sc;
+};
+
+// SM clocks of CTA 0's thread 0 per phase, summed in shared memory and
+// written to `out` at the end; off where `out` is null.
+struct Prof {
+    long long* out;
+    long long* acc;
+    long long t;
+    __device__ void start() {
+        if (out) {
+            for (int k = 0; k < kPhases; ++k) acc[k] = 0;
+            t = clock64();
+        }
+    }
+    __device__ void mark(int phase) {
+        if (out) {
+            const long long now = clock64();
+            acc[phase] += now - t;
+            t = now;
+        }
+    }
+    __device__ void finish() {
+        if (out)
+            for (int k = 0; k < kPhases; ++k) out[k] = acc[k];
+    }
+};
+
+// A CTA's band of the image and its planes in shared memory.
+struct Band {
+    float* s;                 // plane 0 of this CTA's band
+    const float* const* rowp;  // DSMEM row table: rows r0 - kHalo ...
+    size_t pf;                // floats per plane (the same in every CTA)
+    int r0, rows, H, W;
+    __device__ float* plane(int p) const { return s + p * pf; }
+    // plane p at image row r (any), column c: this band's rows from its
+    // own shared memory, another band's through DSMEM, zero past the image
+    __device__ float at(int p, int r, int c) const {
+        const int lr = r - r0;
+        if (lr >= 0 && lr < rows) return s[p * pf + lr * W + c];
+        if (r < 0 || r >= H) return 0.f;
+        return rowp[lr + kHalo][p * pf + c];
+    }
+    // plane p one row above / below local pixel i = (lr, c)
+    __device__ float above(int p, int i, int lr, int c) const {
+        return lr > 0 ? plane(p)[i - W] : at(p, r0 + lr - 1, c);
+    }
+    __device__ float below(int p, int i, int lr, int c) const {
+        return lr + 1 < rows ? plane(p)[i + W] : at(p, r0 + lr + 1, c);
+    }
+    // stencil_v of fgp_common.cuh on plane p at local pixel i = (lr, c),
+    // the same taps in the same order; a pixel whose taps all lie in the
+    // band reads them with no edge test
+    __device__ float stencil_v(int p, int i, int lr, int c, const float* taps, int K,
+                               bool adjoint) const {
+        const int R = K / 2;
+        float acc = 0.f;
+        if (lr >= R && lr + R < rows) {
+            const int step = adjoint ? -W : W;
+            const float* u = plane(p) + i - R * step;
+            for (int k = 0; k < K; ++k, u += step)
+                acc = rls::tap_acc<false>(acc, taps[k], *u, k == 0);
+            return acc;
+        }
+        const int r = r0 + lr;
+        for (int k = 0; k < K; ++k)
+            acc = rls::tap_acc<false>(acc, taps[k], at(p, r + (adjoint ? R - k : k - R), c),
+                                      k == 0);
+        return acc;
+    }
+    // stencil_h of fgp_common.cuh on plane p at local pixel i = (lr, c)
+    __device__ float stencil_h(int p, int i, int lr, int c, const float* taps, int K,
+                               bool adjoint) const {
+        const int R = K / 2;
+        if (c >= R && c + R < W) {
+            const int step = adjoint ? -1 : 1;
+            const float* u = plane(p) + i - R * step;
+            float acc = 0.f;
+            for (int k = 0; k < K; ++k, u += step)
+                acc = rls::tap_acc<false>(acc, taps[k], *u, k == 0);
+            return acc;
+        }
+        return rls::stencil_h(plane(p), lr, c, taps, K, adjoint, W);
+    }
+    // grad_t of fgp_common.cuh on the duals in planes (v, h) at local
+    // pixel i = (lr, c)
+    __device__ float grad_t(int v, int h, int i, int lr, int c) const {
+        const float up = r0 + lr > 0 ? above(v, i, lr, c) : 0.f;
+        const float left = c > 0 ? plane(h)[i - 1] : 0.f;
+        return (up - plane(v)[i]) + (left - plane(h)[i]);
+    }
+};
+
+// f(i, lr, c) for each pixel i = tid + k kThreads of a band of width W
+// (local row lr, column c), advancing (lr, c) without a division.
+struct Sweep {
+    int n, W, lr0, c0, dq, dr;
+    __device__ Sweep(int n_, int W_) : n(n_), W(W_) {
+        lr0 = threadIdx.x / W;
+        c0 = threadIdx.x - lr0 * W;
+        dq = kThreads / W;
+        dr = kThreads - dq * W;
+    }
+    template <class F>
+    __device__ __forceinline__ void operator()(F f) const {
+        int lr = lr0, c = c0;
+        for (int i = threadIdx.x; i < n; i += kThreads) {
+            f(i, lr, c);
+            lr += dq;
+            c += dr;
+            if (c >= W) {
+                c -= W;
+                ++lr;
+            }
+        }
+    }
+};
+
+// rls::block_sum3, then the cluster's sum in rank order: thread 0 of each
+// CTA adds the ranks' sums 0 .. c-1 through DSMEM. Every thread of the
+// cluster gets the same three doubles.
+__device__ __forceinline__ void cluster_sum3(double* v, double* red, double* mine,
+                                             double* all, cg::cluster_group& cl, int c) {
+    rls::block_sum3(v, red);
+    if (c == 1) return;
+    if (threadIdx.x == 0)
+        for (int k = 0; k < 3; ++k) mine[k] = v[k];
+    cl.sync();
+    if (threadIdx.x == 0) {
+        double t[3] = {0.0, 0.0, 0.0};
+        for (int q = 0; q < c; ++q) {
+            const double* o = cl.map_shared_rank(mine, q);
+            for (int k = 0; k < 3; ++k) t[k] += o[k];
+        }
+        for (int k = 0; k < 3; ++k) all[k] = t[k];
+    }
+    __syncthreads();
+    for (int k = 0; k < 3; ++k) v[k] = all[k];
+}
+
+template <int kMethod, bool kDynamic>
+__global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const ClusterArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const rls::Schedule& sc = a.sc;
+    const int H = a.H, W = a.W, R = a.rows, nc = a.clusters;
+    const size_t pf = plane_floats(R, W);
+    float* s = reinterpret_cast<float*>(smem);
+    double* red = reinterpret_cast<double*>(s + kPlanes * pf);
+    double* mine = red + 3 * (kThreads / 32);
+    double* all = mine + 4;
+    long long* pacc = reinterpret_cast<long long*>(all + 4);
+    const float** rowp = reinterpret_cast<const float**>(pacc + kPhases);
+    float* taps = reinterpret_cast<float*>(rowp + R + 2 * kHalo);
+
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = static_cast<int>(cl.block_rank());
+    const int b = blockIdx.x / nc;
+    const int r0 = rank * R;
+    const Band bd{s, rowp, pf, r0, min(R, H - r0), H, W};
+    const int n = bd.rows * W;  // this CTA's pixels, local index i
+    const Sweep sweep(n, W);
+    const int tid = threadIdx.x;
+    Prof prof{blockIdx.x == 0 && tid == 0 ? a.prof : nullptr, pacc, 0};
+    prof.start();
+    auto sync_cluster = [&](int phase) {
+        prof.mark(phase);
+        if (nc > 1)
+            cl.sync();
+        else
+            __syncthreads();
+        prof.mark(kBarrier);
+    };
+
+    for (int k = tid; k < a.kh + a.kw; k += kThreads) taps[k] = a.taps[k];
+    for (int j = tid; j < R + 2 * kHalo; j += kThreads) {
+        const int r = r0 - kHalo + j;
+        const float* p = nullptr;
+        if (r >= 0 && r < H) {
+            const int owner = r / R;
+            p = cl.map_shared_rank(s, owner) + (r - owner * R) * W;
+        }
+        rowp[j] = p;
+    }
+    float* pv = bd.plane(kPv);
+    float* ph = bd.plane(kPh);
+    float* xg = bd.plane(kT2Xg);
+    float* rv = bd.plane(kT1Rv);
+    float* rh = bd.plane(kT3Rh);
+    float* y = bd.plane(kInY);
+    const float* taps_w = taps + a.kh;
+
+    // the band's pixels are contiguous in (B, H, W)
+    const size_t plane = static_cast<size_t>(a.B) * H * W;
+    const size_t off = static_cast<size_t>(b) * H * W + static_cast<size_t>(r0) * W;
+    const float* x0 = a.x0hat + off;
+    float* x = a.out + off;
+    float* m1 = a.scratch + off;  // x_prev | y
+    float* m2 = m1 + plane;       // z
+    float* wc = m2 + plane;       // POGM's w
+    float* g_res = wc + plane;
+    float* g_yn = g_res + plane;
+    float* g_xm = g_yn + plane;
+
+    const float rho = a.scal[2 * b];
+    const float lam = a.scal[2 * b + 1];
+    double acc[3] = {0.0, 0.0, 0.0};
+    for (int i = tid; i < n; i += kThreads) {
+        const float x0v = x0[i];
+        const float z = x0v * 0.f;
+        x[i] = z;
+        m1[i] = z;
+        m2[i] = z;
+        wc[i] = z;
+        if (sc.warm) {
+            pv[i] = z;
+            ph[i] = z;
+        }
+        acc[2] += static_cast<double>(x0v * x0v);
+    }
+    __syncthreads();
+    float norm_x0 = 0.f;
+    if (kDynamic && sc.early) {
+        cluster_sum3(acc, red, mine, all, cl, nc);
+        norm_x0 = __fsqrt_rn(static_cast<float>(acc[2]));
+    }
+    prof.mark(kSetup);
+
+    const int tv = sc.tv_iterations;
+    const bool early = kDynamic && sc.early;
+    rls::State st = rls::initial_state();
+    for (int it = 0; it < sc.iterations; ++it) {
+        const rls::Coeffs c = rls::coeffs(sc, st, a.tab, it, rho, lam);
+        const float live = c.live;
+
+        // the Gram's input in F: FISTA's momentum point, else x. FISTA's
+        // x_prev carry takes x here (masked by `live` under early exit)
+        for (int i = tid; i < n; i += kThreads) {
+            if constexpr (kMethod == rls::kFista) {
+                const float xv = x[i];
+                const float xp = m1[i];
+                const float xm = xv + c.a * (xv - xp);
+                y[i] = xm;
+                m1[i] = early ? xp + live * (xv - xp) : xv;
+                if (kDynamic && sc.restart == rls::kRestartGradientMapping) g_xm[i] = xm;
+            } else {
+                y[i] = x[i];
+            }
+        }
+        sync_cluster(kMomentum);
+
+        // res = A^H A gin - x0hat: column pass (F -> D), its adjoint
+        // (D -> C), row pass (C -> E), its adjoint; the last forms the prox
+        // input xg in C (and POGM's y_new), keeping res for the sums
+        sweep([&](int i, int lr, int col) {
+            rv[i] = bd.stencil_v(kInY, i, lr, col, taps, a.kh, false);
+        });
+        sync_cluster(kGram);
+        sweep([&](int i, int lr, int col) {
+            xg[i] = bd.stencil_v(kT1Rv, i, lr, col, taps, a.kh, true);
+        });
+        __syncthreads();
+        sweep([&](int i, int lr, int col) {
+            rh[i] = bd.stencil_h(kT2Xg, i, lr, col, taps_w, a.kw, false);
+        });
+        __syncthreads();
+        sweep([&](int i, int lr, int col) {
+            const float res = bd.stencil_h(kT3Rh, i, lr, col, taps_w, a.kw, true) - x0[i];
+            float g;
+            if constexpr (kMethod == rls::kFista) {
+                g = y[i] - c.step * res;
+            } else if constexpr (kMethod == rls::kOptista) {
+                g = m1[i] - c.step * res;
+            } else {
+                const float xv = x[i];
+                const float yv = xv - c.step * res;
+                g_yn[i] = yv;
+                g = ((c.cy * yv - c.a * m1[i]) - c.cx * xv) + c.e * m2[i];  // x_mid
+            }
+            xg[i] = g;
+            if constexpr (kDynamic) g_res[i] = res;
+        });
+
+        // the fold FGP on xg (rls::fold_fgp): duals in A, B, their momentum
+        // in D, E, y in F; clip bounds 0 on the image's last row / column
+        if (tv > 0) {
+            const float lt = c.lam_tv;
+            // xg visible to the neighbours; D no longer read by them
+            sync_cluster(kGram);
+            if (sc.warm) {
+                for (int i = tid; i < n; i += kThreads) {
+                    rv[i] = pv[i];
+                    rh[i] = ph[i];
+                }
+            } else {
+                sweep([&](int i, int lr, int col) {
+                    const float y0 = xg[i] * 0.125f;
+                    const float qv = r0 + lr < H - 1
+                        ? rls::clip(bd.below(kT2Xg, i, lr, col) * 0.125f - y0, -lt, lt)
+                        : 0.f;
+                    const float qh = col < W - 1 ? rls::clip(xg[i + 1] * 0.125f - y0, -lt, lt) : 0.f;
+                    pv[i] = qv;
+                    rv[i] = qv;
+                    ph[i] = qh;
+                    rh[i] = qh;
+                });
+            }
+            for (int k = sc.warm ? 0 : 1; k < tv; ++k) {
+                const float c1 = a.t2tab[2 * k];
+                const float c2 = a.t2tab[2 * k + 1];
+                sync_cluster(kFgp);
+                sweep([&](int i, int lr, int col) {
+                    y[i] = (xg[i] - bd.grad_t(kT1Rv, kT3Rh, i, lr, col)) * 0.125f;
+                });
+                sync_cluster(kFgp);
+                sweep([&](int i, int lr, int col) {
+                    const float qv = r0 + lr < H - 1
+                        ? rls::clip(rv[i] + (bd.below(kInY, i, lr, col) - y[i]), -lt, lt)
+                        : 0.f;
+                    const float qh =
+                        col < W - 1 ? rls::clip(rh[i] + (y[i + 1] - y[i]), -lt, lt) : 0.f;
+                    rv[i] = rls::fsub(rls::fmul(c1, qv), rls::fmul(c2, pv[i]));
+                    rh[i] = rls::fsub(rls::fmul(c1, qh), rls::fmul(c2, ph[i]));
+                    pv[i] = qv;
+                    ph[i] = qh;
+                });
+            }
+            sync_cluster(kFgp);
+        } else {
+            __syncthreads();
+        }
+
+        // x_new = prox(xg) = xg - grad_t(pv, ph), then the carries
+        acc[0] = acc[1] = acc[2] = 0.0;
+        sweep([&](int i, int lr, int col) {
+            const float xgv = xg[i];
+            const float xn = tv > 0 ? xgv - bd.grad_t(kPv, kPh, i, lr, col) : xgv;
+            if constexpr (kMethod == rls::kFista && !kDynamic) {
+                x[i] = xn;
+            } else if constexpr (kMethod == rls::kFista) {
+                const float xv = x[i];
+                const float res = g_res[i];
+                if (sc.restart == rls::kRestartGradient)
+                    acc[0] += static_cast<double>(res * (xn - xv));
+                else if (sc.restart == rls::kRestartGradientMapping)
+                    acc[0] += static_cast<double>((g_xm[i] - xn) * (xn - xv));
+                acc[2] += static_cast<double>(res * res);
+                x[i] = early ? xv + live * (xn - xv) : xn;
+            } else if constexpr (kMethod == rls::kOptista) {  // xn is y_new
+                const float xv = x[i];
+                const float zn = xv + (xn - m1[i]) * c.e;
+                x[i] = (c.cy * zn - c.a * m2[i]) - c.b * xv;
+                m1[i] = xn;
+                m2[i] = zn;
+            } else if constexpr (!kDynamic) {  // POGM: z_new is x_mid = xg
+                x[i] = xn;
+                m1[i] = g_yn[i];
+                m2[i] = xgv;
+            } else {
+                const float xv = x[i];
+                const float yv = m1[i];
+                const float zv = m2[i];
+                const float ynv = g_yn[i];
+                const float res = g_res[i];
+                const float wv = wc[i];
+                float wn = wv;
+                if (sc.restart != rls::kRestartNone) {
+                    const float d = xn - xgv;
+                    const float wm = (wv + ynv) + c.r * d;
+                    acc[0] += static_cast<double>(wm * d);
+                    acc[1] += static_cast<double>(wm * res);
+                    wn = c.r * (xgv - xn) - ynv;
+                }
+                acc[2] += static_cast<double>(res * res);
+                x[i] = early ? xv + live * (xn - xv) : xn;
+                m1[i] = early ? yv + live * (ynv - yv) : ynv;
+                m2[i] = early ? zv + live * (xgv - zv) : xgv;
+                wc[i] = early ? wv + live * (wn - wv) : wn;
+            }
+        });
+        prof.mark(kProx);
+        if constexpr (kDynamic) {
+            cluster_sum3(acc, red, mine, all, cl, nc);
+            const float sums[3] = {static_cast<float>(acc[0]), static_cast<float>(acc[1]),
+                                   static_cast<float>(acc[2])};
+            st = rls::epilogue(sc, st, c, sums, norm_x0);
+            prof.mark(kSums);
+        }
+    }
+    if (rank == 0 && tid == 0) {
+        a.counts[2 * b] = static_cast<int>(st.fires);
+        a.counts[2 * b + 1] = kDynamic ? static_cast<int>(st.live_iters) : sc.iterations;
+    }
+    // no CTA leaves while another may still read its shared memory
+    sync_cluster(kProx);
+    prof.finish();
+}
+
+using ClusterKernel = void (*)(ClusterArgs);
+
+// the five instantiations (OptISTA has no dynamic schedule)
+ClusterKernel cluster_kernel(int method, bool dynamic) {
+    if (method == rls::kFista)
+        return dynamic ? &fista_tv_cluster_kernel<rls::kFista, true>
+                       : &fista_tv_cluster_kernel<rls::kFista, false>;
+    if (method == rls::kOptista) return &fista_tv_cluster_kernel<rls::kOptista, false>;
+    return dynamic ? &fista_tv_cluster_kernel<rls::kPogm, true>
+                   : &fista_tv_cluster_kernel<rls::kPogm, false>;
+}
+
+bool valid_cluster_size(int c) { return c == 1 || c == 2 || c == 4 || c == 8 || c == 16; }
+
+// The kernel's attributes for a plan and its launch configuration (B
+// clusters of `clusters` CTAs); `attr` receives the cluster dimension.
+cudaError_t configure(ClusterKernel k, int B, int clusters, int smem, cudaStream_t stream,
+                      cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess && clusters > 8)
+        e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = clusters;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    *cfg = cudaLaunchConfig_t{};
+    cfg->gridDim = dim3(static_cast<unsigned>(B) * clusters);
+    cfg->blockDim = dim3(kThreads);
+    cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg->stream = stream;
+    cfg->attrs = attr;
+    cfg->numAttrs = 1;
+    return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -158,6 +674,70 @@ int fista_tv_fused_launch(const void* x0hat, const void* scal, const void* tab,
         static_cast<const float*>(t2tab), static_cast<const float*>(taps), kh, kw,
         static_cast<float*>(out), static_cast<float*>(scratch), static_cast<int*>(counts),
         B, H, W, sc);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The resident route's shared memory per CTA for bands of `rows` rows of
+// width W (the planner's check), and how many clusters of `clusters` CTAs
+// of the kernel for (method, dynamic) can be resident at once on the
+// current device (cudaOccupancyMaxActiveClusters): out[0], out[1].
+int fista_tv_cluster_occupancy(int clusters, int rows, int W, int method, int dynamic,
+                               long long* out) {
+    if (!valid_cluster_size(clusters) || rows < 1 || W < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = cluster_smem_bytes(rows, W);
+    out[0] = static_cast<long long>(smem);
+    out[1] = 0;
+    if (smem > 0x7fffffff) return 0;
+    const ClusterKernel k = cluster_kernel(method, dynamic != 0);
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    cudaError_t e = configure(k, 1, clusters, static_cast<int>(smem), 0, &attr, &cfg);
+    int n = 0;
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, k, &cfg);
+    if (e != cudaSuccess) {
+        cudaGetLastError();  // a plan the card refuses has no resident cluster
+        return 0;
+    }
+    out[1] = n;
+    return 0;
+}
+
+// The resident route: as fista_tv_fused_launch, with scratch 6 planes of
+// (B, H, W) (x_prev | y, z, w, res, y_new, x_mom), prof null or kPhases
+// int64 that receive CTA 0's clocks per phase, and the plan: `clusters`
+// CTAs per problem, bands of `rows` rows, `smem` bytes of shared memory
+// per CTA. Returns cudaErrorInvalidValue for a plan that does not cover H
+// or whose smem differs from cluster_smem_bytes, else the launch's error.
+int fista_tv_cluster_launch(const void* x0hat, const void* scal, const void* tab,
+                            const void* t2tab, const void* taps, int kh, int kw, void* out,
+                            void* scratch, void* counts, void* prof, int B, int H, int W,
+                            int iterations, int tv_iterations, int method, int restart,
+                            int early, int warm, float rel_tol, float sigma_fac, int clusters,
+                            int rows, int smem, void* stream) {
+    const bool covers = B > 0 && W > 0 && rows > 0 && valid_cluster_size(clusters) &&
+                        static_cast<long long>(clusters - 1) * rows < H &&
+                        static_cast<long long>(clusters) * rows >= H &&
+                        static_cast<long long>(B) * clusters < (1LL << 31) &&
+                        static_cast<long long>(rows) * W < (1LL << 31) && kh <= kMaxTaps &&
+                        kw <= kMaxTaps;
+    if (!covers || static_cast<size_t>(smem) != cluster_smem_bytes(rows, W))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const rls::Schedule sc = {method, restart, early, warm,
+                              rel_tol, sigma_fac, iterations, tv_iterations};
+    const ClusterKernel k = cluster_kernel(method, sc.dynamic());
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    cudaError_t e = configure(k, B, clusters, smem, static_cast<cudaStream_t>(stream), &attr,
+                              &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const ClusterArgs args{static_cast<const float*>(x0hat), static_cast<const float*>(scal),
+                           static_cast<const float*>(tab), static_cast<const float*>(t2tab),
+                           static_cast<const float*>(taps), static_cast<float*>(out),
+                           static_cast<float*>(scratch), static_cast<int*>(counts),
+                           static_cast<long long*>(prof), kh, kw, B, H, W, clusters, rows, sc};
+    e = cudaLaunchKernelEx(&cfg, k, args);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -113,6 +113,17 @@ int tv_fgp_launch(const void* x, const void* lam, void* out, void* scratch,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The card's SM count and the shared memory a block may opt into, for the
+// kernels' planners: out[0], out[1].
+int rls_device_limits(int* out) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(out, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(out + 1, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    return static_cast<int>(e);
+}
+
 const char* rls_cuda_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -35,7 +35,6 @@ grid over the whole batch.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
@@ -220,17 +219,6 @@ def plan_cgnr(m, n, P, sms, smem_max) -> CgnrPlan:
     return best[1]
 
 
-@functools.lru_cache(maxsize=None)
-def device_limits(index):
-    """(SM count, opt-in shared memory per block) of CUDA device `index`."""
-    from .. import _build
-
-    out = (ctypes.c_int * 2)()
-    with torch.cuda.device(index):
-        _build.check(_build.load_library().cgnr_fused_limits(out), "cgnr_fused_limits")
-    return out[0], out[1]
-
-
 def _launch(b, A, lam, steps, prox, prof=None):
     from .. import _build
 
@@ -239,7 +227,7 @@ def _launch(b, A, lam, steps, prox, prof=None):
     if P == 0:
         return torch.empty((0, n), dtype=torch.float32, device=b.device)
     lib = _build.load_library()
-    plan = plan_cgnr(m, n, P, *device_limits(b.device.index or 0))
+    plan = plan_cgnr(m, n, P, *_build.device_limits(b.device.index or 0))
     out = torch.empty((P, n), dtype=torch.float32, device=b.device)
     # one float64 workspace, each piece 256-byte aligned: the barrier
     # counters and, without `resident`, p of the group's tiles as (column,

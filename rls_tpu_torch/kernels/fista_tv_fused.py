@@ -8,7 +8,17 @@ Counterpart of ``rls_tpu/kernels/fista_tv_fused.py``: ``_momentum_table``
 :238) and ``_fista_loop_warm`` (:419-457), ``check_pgm_tv_fused``
 (:893-976) and ``solve_pgm_tv_fused`` (:1069-1212).
 
-Methods and schedules, all in one kernel (one CTA per problem):
+Methods and schedules, all in one launch, on one of two routes that
+:func:`plan_pgm_tv` picks by shape (``csrc/fista_tv_fused.cu``):
+
+* resident: each problem on a thread-block cluster of c CTAs (c in 1, 2,
+  4, 8, 16), one band of image rows per CTA, the six planes read at
+  neighbouring pixels in shared memory for the whole solve, rows of
+  another band read through distributed shared memory;
+* global: one CTA per problem with its planes in global scratch, for
+  images whose single row is too wide for a band (about W > 9,600).
+
+The schedules:
 
 * fixed (``restart="none"``, no early exit): FISTA, OptISTA and POGM
   driven by the f64 momentum table, one row per iteration;
@@ -33,6 +43,10 @@ iterations that were live (not frozen by early exit).
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
@@ -49,6 +63,9 @@ from . import _fgp_common
 __all__ = [
     "fista_tv_fused",
     "fista_tv_fused_torch",
+    "plan_pgm_tv",
+    "PgmTvPlan",
+    "phase_clocks",
     "check_pgm_tv_fused",
     "solve_pgm_tv_fused",
     "solve_fista_tv_fused",
@@ -251,32 +268,212 @@ def _codes(method, restart, rel_tol, warm_tv):
     )
 
 
-def _launch(x0hat, scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac, warm_tv):
+# the kernels' threads per CTA and the resident route's shared-memory
+# planes, and the farthest row a stencil tap reads (csrc/fista_tv_fused.cu)
+THREADS, PLANES, HALO = 1024, 6, MAX_TAPS // 2
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# an H100: SMs, and the shared memory one block may opt into
+SMS, SMEM_MAX = 132, 232_448
+# the fewest pixels per CTA to which the planner spreads a small batch:
+# four per thread and sweep. A guess, not measured: below it a sweep is
+# taken to be mostly its barrier
+MIN_CTA_PIXELS = 4 * THREADS
+# the phases of the resident route's timer (csrc/fista_tv_fused.cu kPhases)
+PHASES = ("set-up", "momentum", "gram", "fgp sweeps", "cluster barriers",
+          "prox and carries", "sums")
+# global scratch planes of (B, H, W): the resident route's carries and
+# own-pixel temporaries (x_prev | y, z, w, res, y_new, x_mom), and the
+# global route's carries and window planes
+RESIDENT_SCRATCH, GLOBAL_SCRATCH = 6, 12
+# the global route's static shared memory: the taps and the block sums
+GLOBAL_SMEM = 4 * 2 * MAX_TAPS + 8 * 3 * (THREADS // 32)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def cluster_smem_bytes(rows, W):
+    """Shared memory of a resident CTA whose band has `rows` rows of width
+    W, as ``cluster_smem_bytes`` in csrc/fista_tv_fused.cu counts it: six
+    planes (each rounded up to 4 floats), the block sums (3 × 32 float64),
+    the CTA's and the cluster's sums (4 float64 each), the phase timer,
+    the DSMEM row table (rows + 2·HALO pointers) and the taps (2 ×
+    MAX_TAPS f32)."""
+    return (4 * PLANES * _cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 8)
+            + 8 * len(PHASES) + 8 * (rows + 2 * HALO) + 4 * 2 * MAX_TAPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class PgmTvPlan:
+    """How a fused PGM-TV launch runs: `route` "resident" (a cluster of
+    `clusters` CTAs per problem, bands of `rows` image rows, the last one
+    possibly shorter) or "global" (one CTA per problem, `rows` = H);
+    `ctas` CTAs in all, `smem` bytes of shared memory per CTA and
+    `scratch` planes of (B, H, W) in global memory."""
+
+    route: str
+    clusters: int
+    rows: int
+    H: int
+    ctas: int
+    smem: int
+    scratch: int
+
+    def band_rows(self, rank):
+        """Image rows of CTA `rank`'s band."""
+        return min(self.rows, self.H - rank * self.rows)
+
+    def locate(self, row):
+        """(rank, local row) of image row `row`: the one map by which the
+        kernel finds a row of another band in distributed shared memory."""
+        rank = row // self.rows
+        return rank, row - rank * self.rows
+
+
+def _fits(c, H, W, sms, smem_max):
+    rows = _cdiv(H, c)
+    return c <= sms and (c - 1) * rows < H and cluster_smem_bytes(rows, W) <= smem_max
+
+
+def fitting_sizes(H, W, sms=SMS, smem_max=SMEM_MAX):
+    """The cluster sizes whose bands of ⌈H/c⌉ rows fit one CTA's shared
+    memory with no band empty and c ≤ sms."""
+    return tuple(c for c in CLUSTER_SIZES if _fits(c, H, W, sms, smem_max))
+
+
+@functools.lru_cache(maxsize=256)
+def plan_pgm_tv(B, H, W, kh, kw, schedule, resident, sms=SMS,
+                smem_max=SMEM_MAX) -> PgmTvPlan:
+    """The route of a fused PGM-TV launch of B problems of H × W with kh ×
+    kw taps and `schedule` = (method, restart, early exit, warm duals), on
+    a card of `sms` SMs and `smem_max` bytes of shared memory per block
+    that holds n clusters of c CTAs of this shape at once for each pair
+    (c, n) of `resident` (``cudaOccupancyMaxActiveClusters``; a size not
+    named is held 0 times).
+
+    The rule: the smallest cluster size c of :func:`fitting_sizes` is
+    resident; c is then raised to a larger fitting size while the card
+    holds all B clusters of it at once and each CTA keeps at least
+    ``MIN_CTA_PIXELS`` pixels, so that a small batch lights more SMs in one
+    wave. An image whose bands fit at no c (a row wider than ~9,600
+    pixels) takes the global route. A shape with neither (empty, or a
+    problem of 2³¹ pixels or more) raises ValueError naming it."""
+    method, restart, early, warm = schedule
+    check_schedule(method, restart, 0.0 if early else None, warm)
+    if min(B, H, W) < 1:
+        raise ValueError(f"fista_tv_fused: empty shape {B} x {H}x{W}")
+    if not (1 <= kh <= MAX_TAPS and 1 <= kw <= MAX_TAPS):
+        raise ValueError(f"fista_tv_fused: {kh} x {kw} taps; at most {MAX_TAPS} per axis")
+    fit = fitting_sizes(H, W, sms, smem_max)
+    if fit:
+        held = dict(resident)
+        c = fit[0]
+        for bigger in fit[1:]:
+            if B > held.get(bigger, 0) or _cdiv(H, bigger) * W < MIN_CTA_PIXELS:
+                break
+            c = bigger
+        rows = _cdiv(H, c)
+        return PgmTvPlan("resident", c, rows, H, B * c, cluster_smem_bytes(rows, W),
+                         RESIDENT_SCRATCH)
+    if H * W >= 2**31:
+        raise ValueError(
+            f"fista_tv_fused: no route for {B} x {H}x{W}: bands fit no cluster of "
+            f"{CLUSTER_SIZES} CTAs with {smem_max} bytes of shared memory each, and one "
+            "CTA per problem indexes fewer than 2**31 pixels"
+        )
+    return PgmTvPlan("global", 1, H, H, B, GLOBAL_SMEM, GLOBAL_SCRATCH)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_limits(index, clusters, rows, W, method, dynamic):
+    """(shared memory per CTA as the kernel counts it, clusters of the
+    resident kernel for (method, dynamic) that device `index` holds at
+    once: ``cudaOccupancyMaxActiveClusters``)."""
+    from .. import _build
+
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(index):
+        _build.check(
+            _build.load_library().fista_tv_cluster_occupancy(
+                clusters, rows, W, METHODS.index(method), int(dynamic), out),
+            "fista_tv_cluster_occupancy")
+    return out[0], out[1]
+
+
+def plan_on_card(x0hat, taps, method="fista", restart="none", rel_tol=None, warm_tv=False):
+    """(plan, clusters resident at once) of a launch on x0hat's card; the
+    count is None on the global route. Raises ValueError where the resident
+    plan has no cluster the card can hold (no fallback)."""
+    from .. import _build
+
+    B, H, W = x0hat.shape
+    index = x0hat.device.index or 0
+    schedule = (method, restart, rel_tol is not None, warm_tv)
+    dynamic = restart != "none" or rel_tol is not None
+    limits = _build.device_limits(index)
+    held = {c: resident_limits(index, c, _cdiv(H, c), W, method, dynamic)
+            for c in fitting_sizes(H, W, *limits)}
+    plan = plan_pgm_tv(B, H, W, *(len(t) for t in taps), schedule,
+                       tuple((c, n) for c, (_, n) in held.items()), *limits)
+    if plan.route == "global":
+        return plan, None
+    smem, active = held[plan.clusters]
+    if smem != plan.smem:
+        raise RuntimeError(f"fista_tv_fused: the kernel counts {smem} bytes of shared "
+                           f"memory for {plan}")
+    if active < 1:
+        raise ValueError(f"fista_tv_fused: the card holds no cluster of {plan}")
+    return plan, active
+
+
+def _launch(x0hat, scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac, warm_tv,
+            prof=None):
     from .. import _build
 
     B, H, W = x0hat.shape
     taps_h, taps_w = taps
+    plan, _ = plan_on_card(x0hat, taps, method, restart, rel_tol, warm_tv)
+    if prof is not None and plan.route != "resident":
+        raise ValueError(f"fista_tv_fused: the phase timer is on the resident route, not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
     taps_t = torch.tensor(list(taps_h) + list(taps_w), dtype=torch.float32, device=dev)
     out = torch.empty_like(x0hat)
     counts = torch.empty((B, 2), dtype=torch.int32, device=dev)
-    # carries (x_prev | y, z, w) and the window planes of the iteration:
-    # x_mom, two stencil temporaries, xg, y_new, pv, ph, rv, rh
-    scratch = torch.empty((12, B, H, W), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
+    args = (x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), t2tab.data_ptr(),
+            taps_t.data_ptr(), len(taps_h), len(taps_w), out.data_ptr(), scratch.data_ptr(),
+            counts.data_ptr())
+    sched = (B, H, W, tab.shape[0], t2tab.shape[0], *_codes(method, restart, rel_tol, warm_tv),
+             float(rel_tol or 0.0), float(sigma_fac))
     with torch.cuda.device(dev):
-        code = lib.fista_tv_fused_launch(
-            x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), t2tab.data_ptr(),
-            taps_t.data_ptr(), len(taps_h), len(taps_w),
-            out.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
-            B, H, W, tab.shape[0], t2tab.shape[0],
-            *_codes(method, restart, rel_tol, warm_tv),
-            float(rel_tol or 0.0), float(sigma_fac),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "fista_tv_fused_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "resident":
+            code = lib.fista_tv_cluster_launch(
+                *args, None if prof is None else prof.data_ptr(), *sched, plan.clusters,
+                plan.rows, plan.smem, stream)
+        else:
+            code = lib.fista_tv_fused_launch(*args, *sched, stream)
+    _build.check(code, f"fista_tv_fused ({B} x {H}x{W}, {plan})")
     fista_tv_fused.launches += 1
+    fista_tv_fused.route_launches[plan.route] += 1
     return out, counts
+
+
+def phase_clocks(x0hat_b, taps, rho, lam, iterations: int, tv_iterations: int,
+                 method="fista", restart="none", rel_tol=None, sigma_fac=1.0, warm_tv=False):
+    """One launch of the resident kernel with its phase timer on: {phase:
+    SM clocks that CTA 0 spent in it over the whole solve} (``PHASES``; the
+    launch counts in ``fista_tv_fused.launches``). Raises on the global
+    route."""
+    check_schedule(method, restart, rel_tol, warm_tv)
+    check_cuda_input("fista_tv_fused", x0hat_b, taps)
+    scal, tab, t2tab = kernel_args(x0hat_b, rho, lam, method, iterations, tv_iterations)
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
+    _launch(x0hat_b.contiguous(), scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac,
+            warm_tv, prof)
+    return dict(zip(PHASES, prof.tolist()))
 
 
 def check_schedule(method, restart, rel_tol, warm_tv):
@@ -340,7 +537,9 @@ def fista_tv_fused(
     x0hat_b, taps, rho, lam, iterations: int, tv_iterations: int, method="fista",
     restart="none", rel_tol=None, sigma_fac=1.0, warm_tv=False, with_counts=False,
 ):
-    """Batched PGM-TV on a separable conv, one CTA per problem.
+    """Batched PGM-TV on a separable conv in one launch, on the route of
+    :func:`plan_pgm_tv` (a cluster of CTAs per problem with its planes in
+    shared memory, or one CTA per problem on global scratch).
 
     x0hat_b: (B, H, W) float32, Aᴴb per problem; taps: (taps_h, taps_w);
     rho, lam: scalars or (B,) (λ already normalization-scaled); method
@@ -348,8 +547,9 @@ def fista_tv_fused(
     "gradient_mapping"; rel_tol: the early-exit tolerance (None: off);
     warm_tv: carry the TV duals (FISTA, fixed schedule). The plain version
     runs for a CPU tensor, the CUDA kernel for a CUDA tensor.
-    ``fista_tv_fused.launches`` counts the kernel's launches. Returns x,
-    or ``(x, counts)`` with `with_counts`.
+    ``fista_tv_fused.launches`` counts the kernel's launches, and
+    ``fista_tv_fused.route_launches`` the launches by route. Returns x, or
+    ``(x, counts)`` with `with_counts`.
     """
     check_schedule(method, restart, rel_tol, warm_tv)
     scal, tab, t2tab = kernel_args(x0hat_b, rho, lam, method, iterations, tv_iterations)
@@ -363,6 +563,7 @@ def fista_tv_fused(
 
 
 fista_tv_fused.launches = 0
+fista_tv_fused.route_launches = {"resident": 0, "global": 0}
 
 
 def check_pgm_tv(solver, path="fused"):

@@ -99,14 +99,67 @@ def _plain(x0, taps, rho, lam, iterations, tv_iterations, schedule):
                                       sigma_fac, warm)
 
 
-@pytest.mark.parametrize("shape", [(24, 20), (9, 33)])
+# a 63-tap column blur (radius 31, the most a kernel takes) beside 3 taps
+_G63 = np.exp(-(((np.arange(63) - 31) / 9.0) ** 2)) * (1 + 0.01 * np.arange(63))
+TAPS63 = (tuple((_G63 / _G63.sum()).tolist()), (0.3, 0.6, 0.1))
+# the fused kernel's shapes (3 problems each) by the route and cluster size
+# the planner gives them: one CTA for the small images, then 2, 4, 8 and 16
+# bands (150 = 38 × 3 + 36 and 300 = 19 × 15 + 15 rows do not divide into
+# their bands, and at 300² the 63-tap column pass reaches two bands past
+# its own), and a row too wide for any band on the global route
+FUSED_ROUTES = {
+    (24, 20): ("resident", 1), (9, 33): ("resident", 1), (100, 120): ("resident", 2),
+    (150, 150): ("resident", 4), (200, 250): ("resident", 8), (256, 256): ("resident", 16),
+    (300, 300): ("resident", 16), (2, 10000): ("global", 1),
+}
+
+
+def _fused_taps(shape, taps):
+    return TAPS63 if shape == (300, 300) else taps
+
+
+def _fused_route(x0, taps, schedule, shape):
+    """Check the plan the card gives x0 (and that it holds a cluster of
+    it); returns the route."""
+    method, restart, rel_tol, _, warm = schedule
+    plan, active = fused.plan_on_card(x0, taps, method, restart, rel_tol, warm)
+    assert (plan.route, plan.clusters) == FUSED_ROUTES[shape]
+    assert plan.route == "global" or active >= 1
+    return plan.route
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (64, 64), (24, 20), (150, 150), (4096, 16)])
+def test_cluster_counts_of_the_planner_tests(dev, shape):
+    """On an H100 the card holds, for every fitting cluster size and every
+    kernel, the clusters that tests/test_torch_pgm_tv_plan.py plans with."""
+    from test_torch_pgm_tv_plan import H100_RESIDENT
+
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    H, W = shape
+    held = dict(H100_RESIDENT)
+    for c in fused.fitting_sizes(H, W, *limits):
+        for method, dynamic in (("fista", False), ("optista", False), ("pogm", False),
+                                ("fista", True), ("pogm", True)):
+            got = fused.resident_limits(dev.index, c, -(-H // c), W, method, dynamic)[1]
+            assert got == held[c], (c, method, dynamic)
+
+
+@pytest.mark.parametrize("shape", list(FUSED_ROUTES))
 @pytest.mark.parametrize("tv_iterations", [0, 1, 4])
 def test_fused_kernel_matches_plain(dev, shape, tv_iterations):
     x0, rho, lam = _inputs(dev, shape)
+    taps = _fused_taps(shape, TAPS)
+    route = _fused_route(x0, taps, SCHEDULES["fista"], shape)
     before = fused.fista_tv_fused.launches
-    got = fused.fista_tv_fused(x0, TAPS, rho, lam, 8, tv_iterations)
+    on_route = fused.fista_tv_fused.route_launches[route]
+    got = fused.fista_tv_fused(x0, taps, rho, lam, 8, tv_iterations)
     assert fused.fista_tv_fused.launches == before + 1
-    want, _ = _plain(x0, TAPS, rho, lam, 8, tv_iterations, SCHEDULES["fista"])
+    assert fused.fista_tv_fused.route_launches[route] == on_route + 1
+    want, _ = _plain(x0, taps, rho, lam, 8, tv_iterations, SCHEDULES["fista"])
     _close(got, want, 1e-5)
 
 
@@ -116,16 +169,41 @@ def _kw(schedule):
 
 
 @pytest.mark.parametrize("name", sorted(SCHEDULES))
-@pytest.mark.parametrize("shape,taps", [((24, 20), MILD), ((9, 33), TAPS)])
+@pytest.mark.parametrize("shape,taps", [
+    ((24, 20), MILD), ((9, 33), TAPS), ((100, 120), MILD), ((150, 150), TAPS),
+    ((200, 250), MILD), ((256, 256), MILD), ((300, 300), TAPS), ((2, 10000), TAPS),
+])
 def test_fused_schedules_match_plain(dev, name, shape, taps):
     schedule = SCHEDULES[name]
     x0, rho, lam = _inputs(dev, shape)
+    taps = _fused_taps(shape, taps)
+    _fused_route(x0, taps, schedule, shape)
     got, counts = fused.fista_tv_fused(
         x0, taps, rho, lam, 12, 4, warm_tv=schedule[4], with_counts=True, **_kw(schedule)
     )
     want, want_counts = _plain(x0, taps, rho, lam, 12, 4, schedule)
     _close(got, want, 1e-5)
     assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("name", ["fista", "pogm-early-gradient", "fista-warm"])
+def test_fused_phase_clocks(dev, name):
+    """The resident kernel's phase timer: one launch, the same x as without
+    the timer, clocks in every phase a schedule has; the global route has
+    no timer and raises."""
+    method, restart, rel_tol, sigma_fac, warm = SCHEDULES[name]
+    x0, rho, lam = _inputs(dev, (256, 256))
+    kw = dict(method=method, restart=restart, rel_tol=rel_tol, sigma_fac=sigma_fac,
+              warm_tv=warm)
+    before = fused.fista_tv_fused.launches
+    clocks = fused.phase_clocks(x0, MILD, rho, lam, 6, 4, **kw)
+    assert fused.fista_tv_fused.launches == before + 1
+    assert list(clocks) == list(fused.PHASES)
+    dynamic = restart != "none" or rel_tol is not None
+    for phase, v in clocks.items():
+        assert v > 0 or (phase == "sums" and not dynamic), (phase, v)
+    with pytest.raises(ValueError, match="resident route"):
+        fused.phase_clocks(_inputs(dev, (2, 10000))[0], MILD, rho, lam, 2, 2, **kw)
 
 
 @pytest.mark.parametrize("name", sorted(n for n in SCHEDULES if not SCHEDULES[n][4]))
