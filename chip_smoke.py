@@ -59,8 +59,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      times: the fused FISTA-L1-DFT on 16 distinct 256² CS problems with λ
      per problem (60 iterations), the fused FISTA-L21-SENSE and the fused
      SplitBregman L21 + TV (4 × 8 × 8, TV 5, with the live CG steps of
-     kernel and plain version side by side) on the 8 SENSE slices of 128²
-     with 6 coils;
+     kernel and plain version side by side, its plan printed first: route,
+     CTAs per slice, row bands, coils per CTA, shared memory, clusters
+     resident at once) on the 8 SENSE slices of 128² with 6 coils, and
+     its global route (one CTA per slice) on 2 slices of 256 × 128 with
+     6 coils, held alike and required to run once on that route;
   8. the dense cells through solve_batched_fast, each running its kernel
      once by the launch counters, with problems/s:
      cgnr_l2_dense64_fused_b16 (printed against a float64 DirectSolver;
@@ -79,7 +82,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      solve_batched_unrolled, the composed torch.fft path),
      fista_l21_sense128_6coil_b8 (FISTA with complex L1 on the SENSE
      problem) and splitbregman_sense128_6coil_b8 (BASELINE #4, also
-     composed); each cell's composed solve is timed as its kernel's
+     composed; its one launch on the resident route by the route
+     counter); each cell's composed solve is timed as its kernel's
      yardstick;
   3i. the PDHG, Kaczmarz and greedy Kaczmarz kernels against their plain
      versions: the fused PDHG (tv8 on 16 distinct 256² problems at the
@@ -127,6 +131,13 @@ does the same for the fused PGM-TV kernel (row 2): FISTA, OptISTA and POGM
 at the flagship, the batch-8 schedules, 256² × 16 beside the tiled kernel,
 and the flagship cell through solve_batched_fast, with each plan and the
 kernel's clocks per phase where ROOT's package has them.
+
+    python3 chip_smoke.py --time-splitbregman [ROOT]
+
+does the same for the fused SplitBregman kernel (row 10): BASELINE #4's
+8 slices, 64 slices, 1 and 3 coils, rows 8 and 9 as controls, and the
+cell through solve_batched_fast, with each plan and the kernel's clocks
+per phase where ROOT's package has them.
 """
 
 from __future__ import annotations
@@ -625,7 +636,8 @@ def device_breakdown(name, fn):
 
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
-    `reset`, set them to 0 first."""
+    `reset`, set them to 0 first (and the SplitBregman kernel's counts by
+    route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -641,6 +653,7 @@ def launch_counts(reset=False):
     if reset:
         for fn in fns:
             fn.launches = 0
+        splitbregman_fused.splitbregman_l1_tv_fused.route_launches = {"resident": 0, "global": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
 
@@ -1170,7 +1183,8 @@ def fft_kernel_phase(dev, draws):
     """Phase 3h: each FFT kernel against its plain version at its main-path
     shape, held by `hold_fft` and timed in turns with it: FISTA-L1 on 16
     distinct 256² CS problems with λ per problem, FISTA-L21 and
-    SplitBregman on the 8 SENSE slices. Returns {kernel: {"err", "ms":
+    SplitBregman on the 8 SENSE slices; then SplitBregman's global route
+    at 256 × 128, held but not timed. Returns {kernel: {"err", "ms":
     (plain, kernel), "live"}}."""
     import torch
 
@@ -1218,6 +1232,12 @@ def fft_kernel_phase(dev, draws):
                       None),
            lambda x: (k9.fista_l21_sense_fused_torch(x, scal, tab, coils, tables), None), x0, x0u)
     scal, t2 = k10.kernel_args(x0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
+    plan = k10.plan_on_card(x0, SENSE_C)
+    print(f"splitbregman_fused[{SENSE_N}², {SENSE_C} coils, {SENSE_SLICES} slices]: plan route "
+          f"{plan.route}, {plan.clusters} CTAs per slice, bands "
+          f"{[plan.band(q) for q in range(plan.clusters)]}, {plan.rounds} coil(s) per CTA "
+          f"(one per round), {plan.ctas} CTAs, {plan.smem} B of shared memory per CTA, "
+          f"{plan.resident_clusters} clusters resident at once")
     record(f"splitbregman_fused[{SENSE_N}², {SENSE_C} coils, {SENSE_SLICES} slices, "
            f"{'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]",
            lambda x: k10.splitbregman_l1_tv_fused(x, op.mask, *coils, SB_RHO, SB_RHO, SB_LAM,
@@ -1226,6 +1246,36 @@ def fft_kernel_phase(dev, draws):
            lambda x: k10.splitbregman_l1_tv_fused_torch(x, scal, t2, coils, tables, *SB_SCHED,
                                                         SB_TOL),
            x0, x0u, counts=True, reps=1)
+
+    # the global route (one CTA per slice, staging the spectrum through
+    # global scratch), which a spectrum too large for one CTA takes: 2
+    # slices of 256 × 128 at 6 coils on BASELINE #4's schedule
+    gh, gw, gb = 256, 128, 2
+    rng = np.random.default_rng(10)
+    gmaps = rng.normal(size=(SENSE_C, gh, gw)) + 1j * rng.normal(size=(SENSE_C, gh, gw))
+    gmaps /= np.sqrt((np.abs(gmaps) ** 2).sum(0))
+    gmask = (rng.uniform(size=(gh, gw)) < 0.45).astype(np.float32)
+    gop = rtt.SenseDFT2RealOperator.from_maps(gmaps, gmask, (gh, gw), device=dev)
+    gbv = gop.mv(torch.from_numpy(rng.normal(size=(gb, 2 * gh * gw)).astype(np.float32)).to(dev))
+    gshape = (gb, 2, gh, gw)
+    gx0, gx0u = gop.rmv(gbv).reshape(gshape), gop.rmv(gbv * bump).reshape(gshape)
+    gcoils, gtables = (gop.coils_r, gop.coils_i), dc.dft_tables(gop.mask)
+    gplan = k10.plan_on_card(gx0, SENSE_C)
+    print(f"splitbregman_fused[{gh}×{gw}, {SENSE_C} coils, {gb} slices]: plan route "
+          f"{gplan.route}, {gplan.ctas} CTAs")
+    scal, t2 = k10.kernel_args(gx0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
+    k10.splitbregman_l1_tv_fused.route_launches = {"resident": 0, "global": 0}
+    hold_fft(f"splitbregman_fused[global route, {gh}×{gw}, {SENSE_C} coils, {gb} slices, "
+             f"{'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]",
+             lambda x: k10.splitbregman_l1_tv_fused(x, gop.mask, *gcoils, SB_RHO, SB_RHO, SB_LAM,
+                                                    SB_LAM, *SB_SCHED, SB_TV, SB_TOL,
+                                                    with_counts=True),
+             lambda x: k10.splitbregman_l1_tv_fused_torch(x, scal, t2, gcoils, gtables,
+                                                          *SB_SCHED, SB_TOL),
+             gx0, gx0u, counts=True)
+    routes = k10.splitbregman_l1_tv_fused.route_launches
+    require(routes == {"resident": 0, "global": 1},
+            f"the SplitBregman kernel at {gh}×{gw} took the global route once: {routes}")
     return out
 
 
@@ -1261,6 +1311,26 @@ def parity_fft(name, x, B, xs_true, op64, x64):
     require(res <= TOL_RESIDUAL, f"{name}: residual_rel_diff vs f64 {res:.3e}")
 
 
+def splitbregman_solver(op, dev):
+    """BASELINE #4's SplitBregman (tools/bench_suite.py:185-194) on the
+    SENSE operator `op`: L21 + per-plane TV with identity trafos."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    n = SENSE_N * SENSE_N
+    return rtt.SplitBregman.create(
+        op,
+        reg=[rtt.L21Regularization(SB_LAM, slices=2),
+             rtt.TVRegularization(SB_LAM, shape=(2, SENSE_N, SENSE_N), dims=(1, 2),
+                                  iterations_tv=SB_TV)],
+        reg_trafo=[rtt.IdentityOperator(2 * n, torch.float32, device=dev),
+                   rtt.IdentityOperator(2 * n, torch.float32, device=dev)],
+        iterations=SB_SCHED[0], iterations_inner=SB_SCHED[1], iterations_cg=SB_SCHED[2],
+        unroll_cg=True, rho=[SB_RHO, SB_RHO], tol_inner=SB_TOL,
+    )
+
+
 def fft_cell_phase(dev, draws):
     """Phase 9: the three CS / SENSE cells through solve_batched_fast, each
     with the launch counters set to 0 just before the solve and read just
@@ -1289,6 +1359,11 @@ def fft_cell_phase(dev, draws):
         print(f"launches ({name}): {got}")
         require(got == {**{k: 0 for k in got}, kernel: 1},
                 f"{name}: expected one launch of {kernel} and no others")
+        if kernel == "splitbregman_l1_tv_fused":
+            routes = k10.splitbregman_l1_tv_fused.route_launches
+            print(f"launches ({name}) by route: {routes}")
+            require(routes == {"resident": 1, "global": 0},
+                    f"{name}: expected one launch on the resident route, got {routes}")
         launched[kernel] = 1
         require(tuple(x.shape) == (solver.A.in_size, K), f"{name}: shape {tuple(x.shape)}")
         parity_fft(name, x, B, xs_true, *ref)
@@ -1338,17 +1413,7 @@ def fft_cell_phase(dev, draws):
     x64 = k9.fista_l21_sense_fused_torch(x0, scal, tab, coils64, tables64).reshape(2, -1)
     run("fista_l21_sense128_6coil_b8", solver, B, xs, "fista_l21_sense_fused", (op64, x64),
         composed=False, unit="slices/s")
-    n = SENSE_N * SENSE_N
-    solver = rtt.SplitBregman.create(
-        op,
-        reg=[rtt.L21Regularization(SB_LAM, slices=2),
-             rtt.TVRegularization(SB_LAM, shape=(2, SENSE_N, SENSE_N), dims=(1, 2),
-                                  iterations_tv=SB_TV)],
-        reg_trafo=[rtt.IdentityOperator(2 * n, torch.float32, device=dev),
-                   rtt.IdentityOperator(2 * n, torch.float32, device=dev)],
-        iterations=SB_SCHED[0], iterations_inner=SB_SCHED[1], iterations_cg=SB_SCHED[2],
-        unroll_cg=True, rho=[SB_RHO, SB_RHO], tol_inner=SB_TOL,
-    )
+    solver = splitbregman_solver(op, dev)
     scal, t2 = k10.kernel_args(x0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV, np.float64)
     x64, live64 = k10.splitbregman_l1_tv_fused_torch(x0, scal, t2, coils64, tables64, *SB_SCHED,
                                                      SB_TOL)
@@ -2392,9 +2457,89 @@ def time_pgm_tv(root) -> int:
     return 0
 
 
+def time_splitbregman(root) -> int:
+    """``--time-splitbregman ROOT``: the fused SplitBregman kernel (row 10)
+    of the rls_tpu_torch package under ROOT timed alone, three readings
+    each by CUDA events, at BASELINE #4's schedule (4 × 8 × 8, TV 5) on
+    the SENSE problem: the cell's 8 slices of 128² with 6 coils, the same
+    tiled to 64 slices (more clusters than the card holds at once), and 8
+    slices with the first 1 and 3 coils; rows 8 and 9 (FISTA-L1-DFT on 16
+    distinct 256² CS problems, FISTA-L21-SENSE on the 8 slices) as
+    controls; and the cell through solve_batched_fast. Where the package
+    has them, each case's plan and its clocks of CTA 0 by phase; one JSON
+    line. Run it for two trees in turns (parent, change, change, parent) to
+    compare their kernels on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+    from rls_tpu_torch.kernels import sense_fused as k9
+    from rls_tpu_torch.kernels import splitbregman_fused as k10
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    maps, mask, X = sense_problem()
+    op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N), device=dev)
+    b = op.mv(torch.from_numpy(X).to(dev))
+    x0 = op.rmv(b).reshape(SENSE_SLICES, 2, SENSE_N, SENSE_N)
+    coils = (op.coils_r, op.coils_i)
+    out = {"root": root, "kernel": os.path.relpath(k10.__file__, ROOT), "card": smi}
+    for name, x, C, reps in (
+        (f"cell: {SENSE_SLICES} slices, {SENSE_C} coils", x0, SENSE_C, 2),
+        (f"{8 * SENSE_SLICES} slices, {SENSE_C} coils", x0.repeat(8, 1, 1, 1), SENSE_C, 1),
+        (f"{SENSE_SLICES} slices, 1 coil", x0, 1, 3),
+        (f"{SENSE_SLICES} slices, 3 coils", x0, 3, 2),
+    ):
+        cr, ci = (c[:C].contiguous() for c in coils)
+        args = (x, op.mask, cr, ci, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL)
+
+        def run(args=args):
+            return k10.splitbregman_l1_tv_fused(*args)
+
+        run()
+        out[f"{name} ms"] = [cuda_ms(run, reps) for _ in range(3)]
+        if hasattr(k10, "plan_on_card"):  # the planner and timer, where the tree has them
+            plan = k10.plan_on_card(x, C)
+            out[f"{name} plan"] = dict(vars(plan),
+                                       bands=[plan.band(q) for q in range(plan.clusters)])
+            if plan.route == "resident":
+                out[f"{name} clocks of CTA 0 by phase"] = k10.phase_clocks(*args)
+    # rows 8 and 9, which this kernel's changes must not move
+    img2, idx2 = bench_suite_draws()["cs"]
+    op8 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
+    x8 = op8.rmv(op8.mv(torch.from_numpy(cs_phantoms(img2)).to(dev))).reshape(
+        CS_BATCH, CS_N, CS_N)
+    lam8 = torch.linspace(0.5, 2.0, CS_BATCH, device=dev) * CS_LAM
+    for name, fn in (
+        ("row 8 fista_l1_dft_fused",
+         lambda: k8.fista_l1_dft_fused(x8, op8.mask, RHO, lam8, CS_ITERS)),
+        ("row 9 sense_fused",
+         lambda: k9.fista_l21_sense_fused(x0, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS)),
+    ):
+        fn()
+        out[f"{name} ms"] = [cuda_ms(fn, 3) for _ in range(3)]
+    solver = splitbregman_solver(op, dev)
+    B = b.T.contiguous()
+    rtt.solve_batched_fast(solver, B)
+    out["cell solve_batched_fast ms"] = [
+        cuda_ms(lambda: rtt.solve_batched_fast(solver, B), 2) for _ in range(3)]
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-cgnr"]:
         sys.exit(time_cgnr(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--time-pgm-tv"]:
         sys.exit(time_pgm_tv(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--time-splitbregman"]:
+        sys.exit(time_splitbregman(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

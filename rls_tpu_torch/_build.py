@@ -109,6 +109,16 @@ _SIGNATURES = {
     "splitbregman_fused_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
+    # (clusters, H, W, out: int64[2] = shared memory per CTA, clusters
+    #  resident at once)
+    "splitbregman_cluster_occupancy": (_I, _I, _I, _P),
+    # (x0hat, scal, t2, tw, wt, coils_r, coils_i, out, scratch, counts, prof,
+    #  B, H, W, C, iterations, iterations_inner, cg_iterations, tv_iterations,
+    #  tol_inner, clusters, smem, stream)
+    "splitbregman_cluster_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+        _P,
+    ),
     # (u, scal, taps, weights, kh, kw, out, scratch, B, H, W, iterations,
     #  kind, positive, stream)
     "pdhg_fused_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -197,6 +207,11 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = load_library().rls_cuda_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")
+
+
+# an H100: SMs, and the shared memory one block may opt into (the planners'
+# defaults; on a card they plan with device_limits)
+SMS, SMEM_MAX = 132, 232_448
 
 
 @functools.lru_cache(maxsize=None)

@@ -78,6 +78,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_common.cuh"
 #include "pgm_tv_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -220,30 +221,8 @@ struct ClusterArgs {
     rls::Schedule sc;
 };
 
-// SM clocks of CTA 0's thread 0 per phase, summed in shared memory and
-// written to `out` at the end; off where `out` is null.
-struct Prof {
-    long long* out;
-    long long* acc;
-    long long t;
-    __device__ void start() {
-        if (out) {
-            for (int k = 0; k < kPhases; ++k) acc[k] = 0;
-            t = clock64();
-        }
-    }
-    __device__ void mark(int phase) {
-        if (out) {
-            const long long now = clock64();
-            acc[phase] += now - t;
-            t = now;
-        }
-    }
-    __device__ void finish() {
-        if (out)
-            for (int k = 0; k < kPhases; ++k) out[k] = acc[k];
-    }
-};
+// SM clocks of CTA 0's thread 0 per phase (cluster_common.cuh)
+using Prof = rls::Prof<kPhases>;
 
 // A CTA's band of the image and its planes in shared memory.
 struct Band {
@@ -335,28 +314,6 @@ struct Sweep {
     }
 };
 
-// rls::block_sum3, then the cluster's sum in rank order: thread 0 of each
-// CTA adds the ranks' sums 0 .. c-1 through DSMEM. Every thread of the
-// cluster gets the same three doubles.
-__device__ __forceinline__ void cluster_sum3(double* v, double* red, double* mine,
-                                             double* all, cg::cluster_group& cl, int c) {
-    rls::block_sum3(v, red);
-    if (c == 1) return;
-    if (threadIdx.x == 0)
-        for (int k = 0; k < 3; ++k) mine[k] = v[k];
-    cl.sync();
-    if (threadIdx.x == 0) {
-        double t[3] = {0.0, 0.0, 0.0};
-        for (int q = 0; q < c; ++q) {
-            const double* o = cl.map_shared_rank(mine, q);
-            for (int k = 0; k < 3; ++k) t[k] += o[k];
-        }
-        for (int k = 0; k < 3; ++k) all[k] = t[k];
-    }
-    __syncthreads();
-    for (int k = 0; k < 3; ++k) v[k] = all[k];
-}
-
 template <int kMethod, bool kDynamic>
 __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const ClusterArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -439,7 +396,7 @@ __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const Clu
     __syncthreads();
     float norm_x0 = 0.f;
     if (kDynamic && sc.early) {
-        cluster_sum3(acc, red, mine, all, cl, nc);
+        rls::cluster_sum3(acc, red, mine, all, cl, nc);
         norm_x0 = __fsqrt_rn(static_cast<float>(acc[2]));
     }
     prof.mark(kSetup);
@@ -598,7 +555,7 @@ __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const Clu
         });
         prof.mark(kProx);
         if constexpr (kDynamic) {
-            cluster_sum3(acc, red, mine, all, cl, nc);
+            rls::cluster_sum3(acc, red, mine, all, cl, nc);
             const float sums[3] = {static_cast<float>(acc[0]), static_cast<float>(acc[1]),
                                    static_cast<float>(acc[2])};
             st = rls::epilogue(sc, st, c, sums, norm_x0);
@@ -627,27 +584,6 @@ ClusterKernel cluster_kernel(int method, bool dynamic) {
 }
 
 bool valid_cluster_size(int c) { return c == 1 || c == 2 || c == 4 || c == 8 || c == 16; }
-
-// The kernel's attributes for a plan and its launch configuration (B
-// clusters of `clusters` CTAs); `attr` receives the cluster dimension.
-cudaError_t configure(ClusterKernel k, int B, int clusters, int smem, cudaStream_t stream,
-                      cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
-    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess && clusters > 8)
-        e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = clusters;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    *cfg = cudaLaunchConfig_t{};
-    cfg->gridDim = dim3(static_cast<unsigned>(B) * clusters);
-    cfg->blockDim = dim3(kThreads);
-    cfg->dynamicSmemBytes = static_cast<size_t>(smem);
-    cfg->stream = stream;
-    cfg->attrs = attr;
-    cfg->numAttrs = 1;
-    return e;
-}
 
 }  // namespace
 
@@ -689,17 +625,8 @@ int fista_tv_cluster_occupancy(int clusters, int rows, int W, int method, int dy
     out[0] = static_cast<long long>(smem);
     out[1] = 0;
     if (smem > 0x7fffffff) return 0;
-    const ClusterKernel k = cluster_kernel(method, dynamic != 0);
-    cudaLaunchAttribute attr;
-    cudaLaunchConfig_t cfg;
-    cudaError_t e = configure(k, 1, clusters, static_cast<int>(smem), 0, &attr, &cfg);
-    int n = 0;
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&n, k, &cfg);
-    if (e != cudaSuccess) {
-        cudaGetLastError();  // a plan the card refuses has no resident cluster
-        return 0;
-    }
-    out[1] = n;
+    out[1] = rls::max_active_clusters(cluster_kernel(method, dynamic != 0), clusters, kThreads,
+                                      static_cast<int>(smem));
     return 0;
 }
 
@@ -728,8 +655,8 @@ int fista_tv_cluster_launch(const void* x0hat, const void* scal, const void* tab
     const ClusterKernel k = cluster_kernel(method, sc.dynamic());
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg;
-    cudaError_t e = configure(k, B, clusters, smem, static_cast<cudaStream_t>(stream), &attr,
-                              &cfg);
+    cudaError_t e = rls::cluster_config(k, B, clusters, kThreads, smem,
+                                        static_cast<cudaStream_t>(stream), &attr, &cfg);
     if (e != cudaSuccess) return static_cast<int>(e);
     const ClusterArgs args{static_cast<const float*>(x0hat), static_cast<const float*>(scal),
                            static_cast<const float*>(tab), static_cast<const float*>(t2tab),

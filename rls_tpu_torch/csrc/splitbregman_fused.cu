@@ -1,5 +1,14 @@
 // The whole batched SplitBregman (L21 + TV) multi-coil SENSE solve in one
-// launch, one slice per CTA.
+// launch, on one of two routes that the host planner
+// (kernels/splitbregman_fused.py plan_splitbregman) picks by shape:
+//
+// * resident: each slice runs on a thread-block cluster of c CTAs (c <= C,
+//   at most 16), CTA k computing the 2-D FFTs of coils k, k + c, ... in
+//   rounds, each coil's padded spectrum whole in its shared memory with the
+//   FFT's stages in registers (fft_resident.cuh);
+// * global: one CTA per slice, the spectrum staged through shared memory
+//   chunk by chunk from global scratch (dft_common.cuh), for shapes whose
+//   padded spectrum, H (W + 1) complex floats, does not fit one CTA.
 //
 // Replaces the TPU kernel rls_tpu/kernels/splitbregman_fused.py:_kernel
 // (:48-185; launched by splitbregman_l1_tv_sense_fused, :217, pallas_call
@@ -14,27 +23,81 @@
 //          (zi = x + ui where rho_i = 0)
 //   ui   = (ui + x) - zi
 // and after the inner iterations beta_y = (beta_y + x0hat) - A^H A x. The
-// SENSE normal op is the in-kernel FFT of dft_common.cuh, coil by coil; the
-// CG's sums (||beta||^2, r.r, p.q over both planes) are block sums of exact
-// double products in a fixed order (rls::block_sum3), rounded once, as the
-// plain version sums them in float64; every thread evaluates the same
+// SENSE normal op sums conj(C_c) F^H M F C_c v over the coils in order
+// c = 0 .. C-1, ((acc + a yr) + b yi, (acc + a yi) - b yr); the CG's sums
+// (||beta||^2, r.r, p.q over both planes) are exact double products summed
+// per thread, over the block (rls::block_sum3) and, on the resident route,
+// over ranks 0 .. c-1 (rls::cluster_sum3), rounded once, as the plain
+// version sums them in float64; every thread of a slice evaluates the same
 // `active` and takes the same branch. The TV prox is the fold FGP
-// (rls::fold_fgp, its momentum rounded as the plain version rounds it) once
-// per plane, valid because lam2 / rho2 is the same at every call. The kernel also counts each problem's live CG steps. The
-// plain PyTorch version, which this code follows op for op, is
+// (rls::fold_fgp, its momentum rounded as the plain version rounds it)
+// once per plane, valid because lam2 / rho2 is the same at every call. The
+// kernel also counts each slice's live CG steps. The plain PyTorch
+// version, which both routes follow op for op, is
 // splitbregman_l1_tv_fused_torch in rls_tpu_torch/kernels/splitbregman_fused.py.
 //
 // What bounds it on an H100: at BASELINE #4 (128^2, 6 coils, 4 x 8 x 8)
-// every slice runs 292 SENSE normal ops (each 6 x three passes of
-// barrier-separated radix-2 stages over the spectrum in global memory) and
-// 64 FGP calls, one dependent chain per CTA; with 8 slices only 8 of the 132
-// SMs work, so the kernel is bound by that chain's latency, not by bytes or
-// operations.
+// every slice runs ~286 SENSE normal ops, one dependent chain, so the
+// solve is bound by that chain's latency, not by bytes or operations. The
+// global route runs one CTA per slice (8 of 132 SMs at 8 slices) and
+// makes 840 barrier-separated radix-2 phases per normal op (on an H100
+// 80GB HBM3 at 700 W: ~181 ms per solve). The resident route shortens the
+// chain and widens it: the six coils of a normal op transform at once on
+// the cluster's CTAs (48 CTAs for 8 slices), and a coil's transform pair
+// is three passes over its plane in shared memory with a barrier after
+// each, its 14 radix-2 stages per point in registers and shuffles.
+//
+// Resident route, where each buffer lives and which barrier orders each
+// read of what another CTA wrote. CTA `rank` owns the image rows [r0, r1)
+// of its slice (H / c rows, one more for the first H % c ranks; a band is
+// empty where H < c) and writes only those rows of the global planes,
+// except the FGP's own scratch:
+//   shared memory: the block sums, this CTA's sums for the cluster (two
+//     slots, used in turn) and the cluster's, the phase timer, the
+//     twiddles, and one coil's spectrum (H (W + 1) floats each for re and
+//     im), which ends a transform holding the coil's normal op
+//     F^H M F (C_c v);
+//   global memory, per slice (L2-resident: 8 slices x 30 planes x 64 KiB):
+//     x (out), beta_y, z1, u1, z2, u2, beta | v, r, p, q, the coil sum
+//     between rounds, and the FGP's pv, ph, rv, rh, y for each plane.
+//   * each outer iteration starts with a cluster barrier: it orders the
+//     first writes of x (x = 0) before any transform reads them, and the
+//     last fold of the iteration before (with no inner iterations) the
+//     next outer update's transforms rewrite the spectrum;
+//   * each coil transform reads the whole of v (x or p) through L2: a
+//     cluster barrier follows the last write of v (the sums after the x
+//     and r updates; the barrier after p's update; the outer iteration's);
+//   * the fold reads every coil's result of its round from the CTA that
+//     computed it through DSMEM after a cluster barrier; the spectrum is
+//     rewritten only by the next transform, after another cluster barrier
+//     (the next round's, a sum's, the next outer iteration's, or the final
+//     one);
+//   * ranks 0 and 1 run the fold FGP of the re and the im plane (rank 0
+//     both where c = 1) on the whole plane of v = x + u2, after a cluster
+//     barrier; the z2 update reads their duals after another;
+//   * the sums go through rls::cluster_sum3 (one cluster barrier each),
+//     in its two-slot form: the p.q and r.r sums of a CG step follow each
+//     other with no other barrier, as do the last r.r of an inner
+//     iteration and the next ||beta||^2 where TV is off, so a CTA writes
+//     its slot for one sum while a peer may still read its slot of the
+//     sum before.
+// Per CG step: the fold's barrier, two sums and p's barrier (none where
+// the step is frozen). The kernel ends with a cluster barrier, so that no
+// CTA exits while another still reads its shared memory.
+//
+// A phase timer (prof): CTA 0's thread 0 adds the SM clocks between its
+// phase marks (coil loads, row FFTs, column FFTs, coil fold, vector
+// phases, cluster sums, FGP, cluster barriers); off where prof is null.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "admm_tv_common.cuh"
+#include "cluster_common.cuh"
 #include "dense_common.cuh"
 #include "dft_common.cuh"
+#include "fft_resident.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -210,6 +273,320 @@ splitbregman_fused_kernel(const float* __restrict__ x0hat, const float* __restri
     if (threadIdx.x == 0) counts[b] = live;
 }
 
+
+// ---- the resident route: one slice per cluster, a coil's spectrum in
+// shared memory
+
+constexpr int kMaxCluster = 16;
+// the phases of the timer; the first three are fft_resident.cuh's
+enum { kLoads, kRows, kCols, kFold, kVector, kSums, kFgp, kBarrier, kPhases };
+static_assert(kLoads == rls::fftr::kFftLoads && kRows == rls::fftr::kFftRows &&
+                  kCols == rls::fftr::kFftCols,
+              "the timer's FFT phases");
+
+__host__ __device__ inline size_t ceil4(size_t n) { return (n + 3) / 4 * 4; }
+
+// Shared memory of a CTA of the resident route, in this order; the Python
+// planner (kernels/splitbregman_fused.py resident_smem_bytes) counts the
+// same: the block sums (3 x 32 doubles), this CTA's sums for the cluster
+// (two slots) and the cluster's (4 doubles each), the phase timer (kPhases
+// int64), the twiddles (H + W floats) and one coil's padded spectrum
+// (H (W + 1) floats for re, then as many for im), each float array rounded
+// up to 4 floats.
+__host__ __device__ inline size_t resident_smem_bytes(int H, int W) {
+    return sizeof(double) * (3 * (kThreads / 32) + 12) + sizeof(long long) * kPhases +
+           sizeof(float) * (ceil4(H + W) + 2 * ceil4(static_cast<size_t>(H) * (W + 1)));
+}
+
+struct ResidentArgs {
+    const float* x0hat;    // (B, 2, H, W)
+    const float* scal;     // (B, 4) [rho1, rho2, lam1_eff, lam2_eff]
+    const float* t2tab;    // (tv_iterations, 2)
+    const float* tw;       // H + W: [Re_H, Im_H, Re_W, Im_W]
+    const float* wt;       // (W, H): the spectral weights transposed
+    const float* coils_r;  // (C, H, W)
+    const float* coils_i;
+    float* out;            // (B, 2, H, W)
+    float* scratch;        // 30 planes of (B, H, W)
+    int* counts;           // (B,)
+    long long* prof;       // (kPhases,) or null
+    int B, H, W, C, iterations, iterations_inner, cg_iterations, tv_iterations;
+    float tol_inner;
+    int clusters;
+};
+
+using Prof = rls::Prof<kPhases>;
+
+// F^H M F (C_c v) of one coil into the spectrum (sre, sim), v = (vr, vi):
+// not inlined, so that the FFT's registers are its own and not the solve's
+// (a kernel of 1024 threads has 64 registers a thread).
+__device__ __noinline__ void coil_transform(const float* cr, const float* ci, const float* vr,
+                                            const float* vi, const float* wt, float* sre,
+                                            float* sim, const float* tw, int H, int W,
+                                            Prof* prof) {
+    auto load = [&](int i) {
+        const float ca = cr[i], cb = ci[i], vre = vr[i], vim = vi[i];
+        return make_float2(rls::fsub(rls::fmul(ca, vre), rls::fmul(cb, vim)),
+                           rls::fadd(rls::fmul(ca, vim), rls::fmul(cb, vre)));
+    };
+    rls::fftr::normal_resident(load, wt, sre, sim, tw, H, W, kThreads, *prof);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+splitbregman_cluster_kernel(const ResidentArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int H = a.H, W = a.W, C = a.C, nc = a.clusters;
+    const int n = H * W;
+    const int lg_w = rls::fftr::log2i(W);
+    double* red = reinterpret_cast<double*>(smem);
+    double* mine = red + 3 * (kThreads / 32);
+    double* all = mine + 8;
+    long long* pacc = reinterpret_cast<long long*>(all + 4);
+    float* tw = reinterpret_cast<float*>(pacc + kPhases);
+    float* sre = tw + ceil4(H + W);
+    float* sim = sre + ceil4(static_cast<size_t>(H) * (W + 1));
+
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = static_cast<int>(cl.block_rank());
+    const int b = blockIdx.x / nc;
+    const int tid = threadIdx.x;
+    // the band of rows this CTA owns: [r0, r1), pixels [p0, p1)
+    const int r0 = rank * (H / nc) + min(rank, H % nc);
+    const int r1 = r0 + H / nc + (rank < H % nc ? 1 : 0);
+    const int p0 = r0 * W, p1 = r1 * W;
+    Prof prof{blockIdx.x == 0 && tid == 0 ? a.prof : nullptr, pacc, 0};
+    prof.start();
+    auto sync_cluster = [&](int phase) {
+        prof.mark(phase);
+        if (nc > 1)
+            cl.sync();
+        else
+            __syncthreads();
+        prof.mark(kBarrier);
+    };
+    for (int k = tid; k < H + W; k += kThreads) tw[k] = a.tw[k];
+    __syncthreads();
+
+    const size_t plane = static_cast<size_t>(a.B) * n;
+    const size_t off = static_cast<size_t>(b) * n;
+    auto sp = [&](int k) { return a.scratch + k * plane + off; };
+    const float* x0r = a.x0hat + 2 * off;
+    const float* x0i = x0r + n;
+    float* xr = a.out + 2 * off;
+    float* xi = xr + n;
+    float *byr = sp(0), *byi = sp(1), *z1r = sp(2), *z1i = sp(3), *u1r = sp(4), *u1i = sp(5);
+    float *z2r = sp(6), *z2i = sp(7), *u2r = sp(8), *u2i = sp(9);
+    float *br = sp(10), *bi = sp(11), *rr = sp(12), *ri = sp(13), *pr = sp(14), *pi = sp(15);
+    float *qr = sp(16), *qi = sp(17), *accr = sp(18), *acci = sp(19);
+    // the FGP's duals, their momentum and its y, for plane k at 20 + 5 k
+    auto fgp_plane = [&](int k, int j) { return sp(20 + 5 * k + j); };
+
+    const float* scal = a.scal + 4 * b;
+    const float rho1 = scal[0], rho2 = scal[1];
+    const float rho_sum = rls::fadd(rho1, rho2);
+    const float t1 = rls::fdiv(scal[2], rho1 != 0.f ? rho1 : 1.f);
+    const float t2 = rls::fdiv(scal[3], rho2 != 0.f ? rho2 : 1.f);
+    for (int i = p0 + tid; i < p1; i += kThreads) {
+        const float zero = x0r[i] * 0.f;
+        xr[i] = zero;
+        xi[i] = zero;
+        byr[i] = x0r[i];
+        byi[i] = x0i[i];
+    }
+
+    int live = 0;
+    int parity = 0;  // the slot of `mine` the next sum writes
+    double acc[3];
+    auto clear = [&]() { acc[0] = acc[1] = acc[2] = 0.0; };
+    auto sum = [&]() {
+        prof.mark(kVector);
+        rls::cluster_sum3(acc, red, mine, all, cl, nc, parity);
+        prof.mark(kSums);
+        return static_cast<float>(acc[0]);
+    };
+
+    // What a normal op's result at pixel i (nr, ni) goes to: the CG's
+    // start (r = beta - (A^H A + rho_sum I) x, p = r, r.r), its matvec
+    // (q = (A^H A + rho_sum I) p, p.q) or the outer Bregman update
+    // (beta_y = (beta_y + x0hat) - A^H A x). One switch, not a template
+    // per call site: the transform's code exists once.
+    enum { kStart, kMatvec, kBregman };
+    auto finish = [&](int site, int i, float nr, float ni) {
+        if (site == kStart) {
+            const float vr = rls::fsub(br[i], rls::fadd(nr, rls::fmul(rho_sum, xr[i])));
+            const float vi = rls::fsub(bi[i], rls::fadd(ni, rls::fmul(rho_sum, xi[i])));
+            rr[i] = pr[i] = vr;
+            ri[i] = pi[i] = vi;
+            acc[0] += rls::dmul(vr, vr) + rls::dmul(vi, vi);
+        } else if (site == kMatvec) {
+            const float vr = rls::fadd(nr, rls::fmul(rho_sum, pr[i]));
+            const float vi = rls::fadd(ni, rls::fmul(rho_sum, pi[i]));
+            qr[i] = vr;
+            qi[i] = vi;
+            acc[0] += rls::dmul(pr[i], vr) + rls::dmul(pi[i], vi);
+        } else {
+            byr[i] = rls::fsub(rls::fadd(byr[i], x0r[i]), nr);
+            byi[i] = rls::fsub(rls::fadd(byi[i], x0i[i]), ni);
+        }
+    };
+
+    // The SENSE normal op of (vr, vi), handed to finish(site, i, nr, ni) at
+    // each pixel i of the band. Round ro: CTA `rank` transforms coil ro nc
+    // + rank; after a cluster barrier each CTA folds the round's coils into
+    // its band in coil order, reading coil c's result from rank c - ro nc
+    // (the sum between rounds waits in accr, acci).
+    const int rounds = (C + nc - 1) / nc;
+    auto normal = [&](const float* vr, const float* vi, int site) {
+        for (int ro = 0; ro < rounds; ++ro) {
+            const int c0 = ro * nc;
+            const int c1 = min(C, c0 + nc);
+            const int coil = c0 + rank;
+            if (coil < C)
+                coil_transform(a.coils_r + static_cast<size_t>(coil) * n,
+                               a.coils_i + static_cast<size_t>(coil) * n, vr, vi, a.wt, sre, sim,
+                               tw, H, W, &prof);
+            sync_cluster(kRows);  // the round's results, visible to the cluster
+            const bool last = ro + 1 == rounds;
+            for (int i = p0 + tid; i < p1; i += kThreads) {
+                const int at = (i >> lg_w) * (W + 1) + (i & (W - 1));
+                float sr = ro == 0 ? 0.f : accr[i];
+                float si = ro == 0 ? 0.f : acci[i];
+                for (int c = c0; c < c1; ++c) {
+                    const float yr = cl.map_shared_rank(sre, c - c0)[at];
+                    const float yi = cl.map_shared_rank(sim, c - c0)[at];
+                    const float ca = a.coils_r[static_cast<size_t>(c) * n + i];
+                    const float cb = a.coils_i[static_cast<size_t>(c) * n + i];
+                    sr = rls::fadd(rls::fadd(sr, rls::fmul(ca, yr)), rls::fmul(cb, yi));
+                    si = rls::fsub(rls::fadd(si, rls::fmul(ca, yi)), rls::fmul(cb, yr));
+                }
+                if (last) {
+                    finish(site, i, sr, si);
+                } else {
+                    accr[i] = sr;
+                    acci[i] = si;
+                }
+            }
+            prof.mark(kFold);
+            if (!last) sync_cluster(kFold);  // every remote read before the next round
+        }
+    };
+
+    for (int outer = 0; outer < a.iterations; ++outer) {
+        // x = 0 and the last fold's remote reads, before any transform
+        sync_cluster(kVector);
+        // the outer reset: z = x (identity trafos), u = 0
+        for (int i = p0 + tid; i < p1; i += kThreads) {
+            const float zero = xr[i] * 0.f;
+            z1r[i] = z2r[i] = xr[i];
+            z1i[i] = z2i[i] = xi[i];
+            u1r[i] = u1i[i] = u2r[i] = u2i[i] = zero;
+        }
+        for (int inner = 0; inner < a.iterations_inner; ++inner) {
+            // beta and ||beta||^2
+            clear();
+            for (int i = p0 + tid; i < p1; i += kThreads) {
+                const float vr =
+                    rls::fadd(rls::fadd(byr[i], rls::fmul(rho1, rls::fsub(z1r[i], u1r[i]))),
+                              rls::fmul(rho2, rls::fsub(z2r[i], u2r[i])));
+                const float vi =
+                    rls::fadd(rls::fadd(byi[i], rls::fmul(rho1, rls::fsub(z1i[i], u1i[i]))),
+                              rls::fmul(rho2, rls::fsub(z2i[i], u2i[i])));
+                br[i] = vr;
+                bi[i] = vi;
+                acc[0] += rls::dmul(vr, vr) + rls::dmul(vi, vi);
+            }
+            const float target = rls::fmul(a.tol_inner, __fsqrt_rn(sum()));
+            // the CG's start: r = beta - (A^H A + rho_sum I) x, p = r, r.r
+            clear();
+            normal(xr, xi, kStart);
+            float rz = sum();
+
+            for (int j = 0; j < a.cg_iterations; ++j) {
+                // q = (A^H A + rho_sum I) p and p.q
+                clear();
+                normal(pr, pi, kMatvec);
+                const float pq = sum();
+                const bool active = rls::cg_active(rz, target);
+                live += active ? 1 : 0;
+                const float alpha = rls::cg_alpha(active, rz, pq);
+                // x += alpha p, r -= alpha q, and r.r
+                clear();
+                for (int i = p0 + tid; i < p1; i += kThreads) {
+                    xr[i] = rls::fadd(xr[i], rls::fmul(alpha, pr[i]));
+                    xi[i] = rls::fadd(xi[i], rls::fmul(alpha, pi[i]));
+                    const float vr = rls::fsub(rr[i], rls::fmul(alpha, qr[i]));
+                    const float vi = rls::fsub(ri[i], rls::fmul(alpha, qi[i]));
+                    rr[i] = vr;
+                    ri[i] = vi;
+                    acc[0] += rls::dmul(vr, vr) + rls::dmul(vi, vi);
+                }
+                const float rz_new = sum();
+                const float beta_c = rls::cg_beta(rz, rz_new);
+                // p = active ? r + beta_c p : p (every CTA agrees on active);
+                // the whole p before the next step's coil loads
+                if (active) {
+                    for (int i = p0 + tid; i < p1; i += kThreads) {
+                        pr[i] = rls::fadd(rr[i], rls::fmul(beta_c, pr[i]));
+                        pi[i] = rls::fadd(ri[i], rls::fmul(beta_c, pi[i]));
+                    }
+                    sync_cluster(kVector);
+                }
+                rz = rz_new;
+            }
+
+            // z1 and u1; the TV input v = x + u2 goes to (br, bi)
+            for (int i = p0 + tid; i < p1; i += kThreads) {
+                const float ar = rls::fadd(xr[i], u1r[i]);
+                const float ai = rls::fadd(xi[i], u1i[i]);
+                const float gn = __fsqrt_rn(rls::fadd(rls::fmul(ar, ar), rls::fmul(ai, ai)));
+                const float sc = fmaxf(rls::fdiv(rls::fsub(gn, t1), gn == 0.f ? 1.f : gn), 0.f);
+                const float zr = rho1 != 0.f ? rls::fmul(ar, sc) : ar;
+                const float zi = rho1 != 0.f ? rls::fmul(ai, sc) : ai;
+                z1r[i] = zr;
+                z1i[i] = zi;
+                u1r[i] = rls::fsub(rls::fadd(u1r[i], xr[i]), zr);
+                u1i[i] = rls::fsub(rls::fadd(u1i[i], xi[i]), zi);
+                br[i] = rls::fadd(xr[i], u2r[i]);
+                bi[i] = rls::fadd(xi[i], u2i[i]);
+            }
+            // z2 = FGP of each plane of v (ranks 0 and 1 at once), then u2
+            const float* vp[2] = {br, bi};
+            const float* xp[2] = {xr, xi};
+            float* z2p[2] = {z2r, z2i};
+            float* u2p[2] = {u2r, u2i};
+            const bool tv = rho2 != 0.f && a.tv_iterations > 0;
+            if (tv) {
+                sync_cluster(kVector);  // the whole of v
+                for (int k = 0; k < 2; ++k)
+                    if (nc == 1 || rank == k)
+                        rls::fold_fgp(vp[k], fgp_plane(k, 0), fgp_plane(k, 1), fgp_plane(k, 2),
+                                      fgp_plane(k, 3), fgp_plane(k, 4), t2, a.t2tab,
+                                      a.tv_iterations, false, H, W);
+                sync_cluster(kFgp);  // the duals, for every band
+            }
+            for (int k = 0; k < 2; ++k) {
+                const float* pv = fgp_plane(k, 0);
+                const float* ph = fgp_plane(k, 1);
+                for (int i = p0 + tid; i < p1; i += kThreads) {
+                    const float zv =
+                        rls::z_value(vp[k], pv, ph, i, i >> lg_w, W, a.tv_iterations, rho2);
+                    z2p[k][i] = zv;
+                    u2p[k][i] = rls::fsub(rls::fadd(u2p[k][i], xp[k][i]), zv);
+                }
+            }
+        }
+        // the outer Bregman update: beta_y = (beta_y + x0hat) - A^H A x
+        normal(xr, xi, kBregman);
+        prof.mark(kVector);
+    }
+    if (rank == 0 && tid == 0) a.counts[b] = live;
+    // no CTA leaves while another may still read its shared memory
+    sync_cluster(kVector);
+    prof.finish();
+}
+
+bool valid_fft_size(int n) { return n >= 2 && n <= rls::kFftMax && (n & (n - 1)) == 0; }
+
 }  // namespace
 
 extern "C" {
@@ -235,6 +612,53 @@ int splitbregman_fused_launch(const void* x0hat, const void* scal, const void* t
         static_cast<const float*>(coils_i), static_cast<float*>(out),
         static_cast<float*>(scratch), static_cast<int*>(counts), B, H, W, C, iterations,
         iterations_inner, cg_iterations, tv_iterations, tol_inner);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The resident route's shared memory per CTA at H x W (the planner's
+// check), and how many clusters of `clusters` CTAs the current device holds
+// at once (cudaOccupancyMaxActiveClusters): out[0], out[1].
+int splitbregman_cluster_occupancy(int clusters, int H, int W, long long* out) {
+    if (clusters < 1 || clusters > kMaxCluster || !valid_fft_size(H) || !valid_fft_size(W))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = resident_smem_bytes(H, W);
+    out[0] = static_cast<long long>(smem);
+    out[1] = rls::max_active_clusters(splitbregman_cluster_kernel, clusters, kThreads,
+                                      static_cast<int>(smem));
+    return 0;
+}
+
+// The resident route: as splitbregman_fused_launch, with wt the spectral
+// weights transposed ((W, H)), scratch 30 planes of (B, H, W), prof null or
+// kPhases int64 that receive CTA 0's clocks per phase, and the plan:
+// `clusters` CTAs per slice (1 <= clusters <= min(C, 16)), `smem` bytes
+// of shared memory per CTA. Returns cudaErrorInvalidValue for a plan whose
+// smem differs from resident_smem_bytes, else the launch's error.
+int splitbregman_cluster_launch(const void* x0hat, const void* scal, const void* t2tab,
+                                const void* tw, const void* wt, const void* coils_r,
+                                const void* coils_i, void* out, void* scratch, void* counts,
+                                void* prof, int B, int H, int W, int C, int iterations,
+                                int iterations_inner, int cg_iterations, int tv_iterations,
+                                float tol_inner, int clusters, int smem, void* stream) {
+    const bool valid = B > 0 && valid_fft_size(H) && valid_fft_size(W) && clusters >= 1 &&
+                       clusters <= kMaxCluster && clusters <= C &&
+                       static_cast<long long>(B) * clusters < (1LL << 31);
+    if (!valid || static_cast<size_t>(smem) != resident_smem_bytes(H, W))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    cudaError_t e = rls::cluster_config(splitbregman_cluster_kernel, B, clusters, kThreads, smem,
+                                        static_cast<cudaStream_t>(stream), &attr, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const ResidentArgs args{static_cast<const float*>(x0hat), static_cast<const float*>(scal),
+                            static_cast<const float*>(t2tab), static_cast<const float*>(tw),
+                            static_cast<const float*>(wt), static_cast<const float*>(coils_r),
+                            static_cast<const float*>(coils_i), static_cast<float*>(out),
+                            static_cast<float*>(scratch), static_cast<int*>(counts),
+                            static_cast<long long*>(prof), B, H, W, C, iterations,
+                            iterations_inner, cg_iterations, tv_iterations, tol_inner, clusters};
+    e = cudaLaunchKernelEx(&cfg, splitbregman_cluster_kernel, args);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -50,6 +50,7 @@ import functools
 import numpy as np
 import torch
 
+from .._build import SMEM_MAX, SMS
 from ..models.prox import TVRegularization
 from ..models.regularization import normalization_factor
 from ..models.solvers.base import theta_next
@@ -272,8 +273,6 @@ def _codes(method, restart, rel_tol, warm_tv):
 # planes, and the farthest row a stencil tap reads (csrc/fista_tv_fused.cu)
 THREADS, PLANES, HALO = 1024, 6, MAX_TAPS // 2
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-# an H100: SMs, and the shared memory one block may opt into
-SMS, SMEM_MAX = 132, 232_448
 # the fewest pixels per CTA to which the planner spreads a small batch:
 # four per thread and sweep. A guess, not measured: below it a sweep is
 # taken to be mostly its barrier

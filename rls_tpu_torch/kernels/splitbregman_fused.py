@@ -28,6 +28,15 @@ the same at every call; the JAX kernel runs it with ``fgp_unroll=True``.
 Both versions return per-problem counts, (B,) int32: the CG steps that
 were live, summed over the whole solve.
 
+The kernel has two routes, picked by :func:`plan_splitbregman`:
+**resident**, a thread-block cluster of c ≤ min(C, 16) CTAs per slice, CTA
+k transforming coils k, k + c, … with the coil's whole padded spectrum in
+its shared memory and the FFT's stages in registers (``csrc/fft_resident.cuh``),
+each CTA owning a band of rows for the coil fold and the vector phases;
+and **global**, one CTA per slice staging the spectrum through shared
+memory chunk by chunk (``csrc/dft_common.cuh``), for shapes whose padded
+spectrum does not fit one CTA (256 × 128 and larger).
+
 Not carried over: the TPU's 3-way bf16 DFT factors (``_dft_cat3``) and
 the compensated seed built from them (:394-411): the seed here is the
 operator's own adjoint (cuFFT); the VMEM gate ``_check_vmem_splitbregman``
@@ -36,20 +45,31 @@ and ``interpret=``.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
+from .. import _build
+from .._build import SMEM_MAX, SMS
 from ..models.prox import L21Regularization, TVRegularization
 from ..models.solvers.splitbregman import SplitBregman
 from ..ops.base import IdentityOperator
 from ..ops.dft_real import SenseDFT2RealOperator
 from . import _dft_common, _fgp_common
-from ._dft_common import check_dft_cuda_input, check_fft_normal, seed_and_lam, twiddle_tensor
+from ._dft_common import (
+    check_dft_cuda_input, check_fft_normal, check_fft_shape, seed_and_lam, twiddle_tensor,
+)
 from .sense_fused import group_threshold, sense_args
 
 __all__ = [
     "splitbregman_l1_tv_fused",
     "splitbregman_l1_tv_fused_torch",
+    "plan_splitbregman",
+    "plan_on_card",
+    "phase_clocks",
     "check_splitbregman_l1_tv_fused",
     "solve_splitbregman_l1_tv_fused",
 ]
@@ -140,32 +160,184 @@ def kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations, dtype=np.float32
     return scal, t2tab
 
 
-def _launch(x0hat, scal, t2tab, coils, tables, iterations, iterations_inner, cg_iterations,
-            tol_inner):
-    from .. import _build
+# the kernel's threads per CTA and the largest cluster
+# (csrc/splitbregman_fused.cu)
+THREADS, MAX_CLUSTER = 1024, 16
+# the phases of the resident route's timer (csrc/splitbregman_fused.cu kPhases)
+PHASES = ("coil loads", "row ffts", "column ffts", "coil fold", "vector phases",
+          "cluster sums", "fgp", "cluster barriers")
+# global scratch planes of (B, H, W). Resident: (re, im) of β_y, z₁, u₁,
+# z₂, u₂, β | v, r, p, q and the coil sum between rounds, and the FGP's pv,
+# ph, rv, rh, y for each plane. Global: (re, im) of β_y, z₁, u₁, z₂, u₂, β,
+# r, p, q, the spectrum and the coil sum, and one set of the FGP's five
+RESIDENT_SCRATCH, GLOBAL_SCRATCH = 30, 27
+# the global route's static shared memory (csrc/dft_common.cuh FftShared,
+# 2 × 4352 + 2 × 1024 floats, and the block sums)
+GLOBAL_SMEM = 4 * (2 * 4352 + 2 * 1024) + 8 * 3 * (THREADS // 32)
 
+
+def _ceil4(n):
+    return -(-n // 4) * 4
+
+
+def resident_smem_bytes(H, W):
+    """Shared memory of a resident CTA at H × W, as ``resident_smem_bytes``
+    in csrc/splitbregman_fused.cu counts it: the block sums (3 × 32
+    float64), the CTA's sums for the cluster (two slots) and the cluster's
+    (4 float64 each), the phase timer (one int64 per phase), the twiddles
+    (H + W f32) and one coil's padded spectrum (H·(W + 1) f32 for re, as
+    many for im), each f32 array rounded up to 4 floats."""
+    return (8 * (3 * (THREADS // 32) + 12) + 8 * len(PHASES)
+            + 4 * (_ceil4(H + W) + 2 * _ceil4(H * (W + 1))))
+
+
+def cluster_size(C, sms=SMS):
+    """(c, rounds) for C coils: the fewest rounds of at most min(16, sms)
+    coils, then the smallest cluster that gives them (17 coils: 2 rounds
+    on 9 CTAs)."""
+    rounds = -(-C // min(MAX_CLUSTER, sms))
+    return -(-C // rounds), rounds
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitBregmanPlan:
+    """How a fused SplitBregman launch of B slices runs: `route`
+    "resident" (a cluster of `clusters` CTAs per slice, coils in `rounds`
+    rounds) or "global" (one CTA per slice, every coil in turn); `ctas`
+    CTAs in all, `smem` bytes of shared memory per CTA, `scratch` planes of
+    (B, H, W) in global memory, and on the resident route
+    `resident_clusters`, the clusters the card holds at once."""
+
+    route: str
+    clusters: int
+    rounds: int
+    H: int
+    C: int
+    ctas: int
+    smem: int
+    scratch: int
+    resident_clusters: int | None
+
+    def band(self, rank):
+        """[r0, r1): the image rows CTA `rank` owns for the fold and the
+        vector phases: H // c rows, one more for the first H % c ranks
+        (empty where H < c)."""
+        q, extra = divmod(self.H, self.clusters)
+        r0 = rank * q + min(rank, extra)
+        return r0, r0 + q + (rank < extra)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_splitbregman(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX) -> SplitBregmanPlan:
+    """The route of a fused SplitBregman launch of B slices of H × W with C
+    coils, on a card of `sms` SMs and `smem_max` bytes of shared memory per
+    block that holds n clusters of c CTAs of the resident kernel at once
+    for each pair (c, n) of `resident` (``cudaOccupancyMaxActiveClusters``;
+    a size not named is held 0 times).
+
+    Resident where a coil's padded spectrum and the rest of
+    :func:`resident_smem_bytes` fit one CTA, on the cluster size of
+    :func:`cluster_size`; else global. Raises ValueError naming the shape
+    where it is empty or not the FFT's, and naming the plan where the card
+    holds no cluster of it (no fallback)."""
+    if min(B, C) < 1:
+        raise ValueError(f"splitbregman_l1_tv_fused: empty shape {B} x {H}x{W}, {C} coils")
+    check_fft_shape(H, W)
+    smem = resident_smem_bytes(H, W)
+    if smem > smem_max:
+        return SplitBregmanPlan("global", 1, C, H, C, B, GLOBAL_SMEM, GLOBAL_SCRATCH, None)
+    c, rounds = cluster_size(C, sms)
+    held = dict(resident).get(c, 0)
+    plan = SplitBregmanPlan("resident", c, rounds, H, C, B * c, smem, RESIDENT_SCRATCH, held)
+    if held < 1:
+        raise ValueError(f"splitbregman_l1_tv_fused: the card holds no cluster of {plan} "
+                         f"({B} x {H}x{W}, {C} coils)")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def resident_limits(index, clusters, H, W):
+    """(shared memory per CTA as the kernel counts it, clusters of the
+    resident kernel that device `index` holds at once:
+    ``cudaOccupancyMaxActiveClusters``)."""
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(index):
+        _build.check(_build.load_library().splitbregman_cluster_occupancy(clusters, H, W, out),
+                     "splitbregman_cluster_occupancy")
+    return out[0], out[1]
+
+
+def plan_on_card(x0hat, C):
+    """The plan of a launch on x0hat's card ((B, 2, H, W), C coils), with
+    the card's residency of its cluster size. Raises ValueError where the
+    resident plan has no cluster the card can hold."""
+    B, _, H, W = x0hat.shape
+    index = x0hat.device.index or 0
+    sms, smem_max = _build.device_limits(index)
+    check_fft_shape(H, W)
+    c, _ = cluster_size(C, sms)
+    held = ()
+    if resident_smem_bytes(H, W) <= smem_max:
+        smem, active = resident_limits(index, c, H, W)
+        if smem != resident_smem_bytes(H, W):
+            raise RuntimeError(f"splitbregman_l1_tv_fused: the kernel counts {smem} bytes of "
+                               f"shared memory at {H}x{W}, the planner "
+                               f"{resident_smem_bytes(H, W)}")
+        held = ((c, active),)
+    return plan_splitbregman(B, H, W, C, held, sms, smem_max)
+
+
+def _launch(x0hat, scal, t2tab, coils, tables, iterations, iterations_inner, cg_iterations,
+            tol_inner, prof=None):
     B, _, H, W = x0hat.shape
     C = coils[0].shape[0]
+    plan = plan_on_card(x0hat, C)
+    if prof is not None and plan.route != "resident":
+        raise ValueError(f"splitbregman_l1_tv_fused: the phase timer is on the resident route, "
+                         f"not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
     tw = twiddle_tensor(tables)
-    weights = tables[2].contiguous()
     out = torch.empty_like(x0hat)
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
-    # (re, im) of β_y, z₁, u₁, z₂, u₂, β, r, p, q, the spectrum and the coil
-    # sum, and the FGP's four duals and its temporary
-    scratch = torch.empty((27, B, H, W), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
+    sched = (B, H, W, C, iterations, iterations_inner, cg_iterations, t2tab.shape[0],
+             float(tol_inner))
     with torch.cuda.device(dev):
-        code = lib.splitbregman_fused_launch(
-            x0hat.data_ptr(), scal.data_ptr(), t2tab.data_ptr(), tw.data_ptr(),
-            weights.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), counts.data_ptr(), B, H, W, C, iterations, iterations_inner,
-            cg_iterations, t2tab.shape[0], float(tol_inner),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "splitbregman_fused_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "resident":
+            wt = tables[2].T.contiguous()  # read along a spectrum column
+            code = lib.splitbregman_cluster_launch(
+                x0hat.data_ptr(), scal.data_ptr(), t2tab.data_ptr(), tw.data_ptr(),
+                wt.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), counts.data_ptr(), None if prof is None else prof.data_ptr(),
+                *sched, plan.clusters, plan.smem, stream)
+        else:
+            weights = tables[2].contiguous()
+            code = lib.splitbregman_fused_launch(
+                x0hat.data_ptr(), scal.data_ptr(), t2tab.data_ptr(), tw.data_ptr(),
+                weights.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), counts.data_ptr(), *sched, stream)
+    _build.check(code, f"splitbregman_l1_tv_fused ({B} x {H}x{W}, {C} coils, {plan})")
     splitbregman_l1_tv_fused.launches += 1
+    splitbregman_l1_tv_fused.route_launches[plan.route] += 1
     return out, counts
+
+
+def phase_clocks(x0hat_b, mask, coils_r, coils_i, rho1, rho2, lam1, lam2, iterations: int,
+                 iterations_inner: int, cg_iterations: int, tv_iterations: int,
+                 tol_inner: float):
+    """One launch of the resident kernel with its phase timer on: {phase:
+    SM clocks that CTA 0 spent in it over the whole solve} (``PHASES``; the
+    launch counts in ``splitbregman_l1_tv_fused.launches``). Raises on the
+    global route."""
+    scal, t2tab = kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations)
+    coils, tables = sense_args(x0hat_b, (coils_r, coils_i), mask)
+    check_dft_cuda_input("splitbregman_l1_tv_fused", x0hat_b, mask, *coils)
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
+    _launch(x0hat_b.contiguous(), scal, t2tab, coils, tables, iterations, iterations_inner,
+            cg_iterations, tol_inner, prof)
+    return dict(zip(PHASES, prof.tolist()))
 
 
 def splitbregman_l1_tv_fused(
@@ -173,14 +345,17 @@ def splitbregman_l1_tv_fused(
     iterations_inner: int, cg_iterations: int, tv_iterations: int, tol_inner: float,
     with_counts=False,
 ):
-    """Batched SplitBregman L21 + TV on C-coil SENSE, one CTA per slice.
+    """Batched SplitBregman L21 + TV on C-coil SENSE in one launch, on the
+    route of :func:`plan_splitbregman` (a cluster of CTAs per slice, one
+    coil's spectrum in each CTA's shared memory, or one CTA per slice).
 
     x0hat_b: (B, 2, H, W) split [re; im] Aᴴb; mask (H, W); coils_r,
     coils_i (C, H, W); rho1, rho2 the L21 and TV terms' ρ, lam1, lam2
     their λ (scalars or (B,), already normalization-scaled). The plain
     version runs for a CPU tensor, the CUDA kernel (float32) for a CUDA
     tensor. ``splitbregman_l1_tv_fused.launches`` counts the kernel's
-    launches. Returns x, or ``(x, counts)`` with `with_counts`: the live CG
+    launches, and ``splitbregman_l1_tv_fused.route_launches`` the launches
+    by route. Returns x, or ``(x, counts)`` with `with_counts`: the live CG
     steps per problem."""
     np_dt = torch.empty((), dtype=x0hat_b.dtype).numpy().dtype
     scal, t2tab = kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations, np_dt)
@@ -195,6 +370,7 @@ def splitbregman_l1_tv_fused(
 
 
 splitbregman_l1_tv_fused.launches = 0
+splitbregman_l1_tv_fused.route_launches = {"resident": 0, "global": 0}
 
 
 def _term_order(solver):

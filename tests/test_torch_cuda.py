@@ -463,8 +463,9 @@ def test_dense_wrappers_refuse_what_the_kernels_do_not_take(dev):
 # the FFT kernels: H ≠ W, every kernel against its plain version. Rows 8
 # and 9 round every operation as the plain version does and agree bit for
 # bit; the SplitBregman kernel does too, but its CG sums are double sums
-# taken in another order than the plain version's, which may round apart,
-# so it is held to 1e-5 of max|x| with equal live CG steps.
+# taken in another order than the plain version's (and, on its resident
+# route, over a cluster's CTAs), which may round apart, so it is held to
+# 1e-5 of max|x| with equal live CG steps.
 # The last four shapes take several shared-memory chunks per pass
 # (rows × W or columns × H above 4096 points) and reach both ends of the
 # size gate: 1024 lines of 16 points and 16 lines of 1024.
@@ -515,22 +516,115 @@ def test_sense_kernel_matches_plain(dev, shape, coils):
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
-@pytest.mark.parametrize("shape", FFT_SHAPES)
-@pytest.mark.parametrize("tol_inner,tv_iterations", [(1e-5, 4), (5e-2, 0), (1e-5, 1)])
-def test_splitbregman_kernel_matches_plain(dev, shape, tol_inner, tv_iterations):
-    mask, cr, ci, rng = _fft_inputs(dev, shape)
+# SplitBregman's cases: every FFT_SHAPES shape at 3 coils (the large ones on
+# the global route), and at 128² the resident route's cluster of 1, 6 and 9
+# CTAs and 17 coils in two rounds on 9; 2 × 4 at 6 coils leaves four of the
+# six CTAs without a row of the image
+SB_CASES = [(shape, 3) for shape in FFT_SHAPES] + [
+    ((128, 128), 1), ((128, 128), 6), ((128, 128), 9), ((128, 128), 17), ((2, 4), 6)]
+
+
+def _sb_inputs(dev, shape, coils, rho1=(0.01, 0.0, 0.05)):
+    mask, cr, ci, rng = _fft_inputs(dev, shape, C=coils)
     x0 = torch.from_numpy(rng.normal(size=(3, 2, *shape)).astype(np.float32)).to(dev)
-    rho1 = torch.tensor([0.01, 0.0, 0.05], device=dev)
+    return x0, mask, cr, ci, torch.tensor(rho1, device=dev)
+
+
+@pytest.mark.parametrize("shape,coils", SB_CASES)
+@pytest.mark.parametrize("tol_inner,tv_iterations", [(1e-5, 4), (5e-2, 0), (1e-5, 1)])
+def test_splitbregman_kernel_matches_plain(dev, shape, coils, tol_inner, tv_iterations):
+    x0, mask, cr, ci, rho1 = _sb_inputs(dev, shape, coils)
+    plan = sb.plan_on_card(x0, coils)
+    fits = sb.resident_smem_bytes(*shape) <= 232_448
+    assert plan.route == ("resident" if fits else "global")
+    if plan.route == "resident":
+        assert (plan.clusters, plan.rounds) == sb.cluster_size(coils)
+        assert plan.resident_clusters >= 1
     sched = (2, 3, 4, tv_iterations, tol_inner)
     before = sb.splitbregman_l1_tv_fused.launches
+    on_route = sb.splitbregman_l1_tv_fused.route_launches[plan.route]
     got, counts = sb.splitbregman_l1_tv_fused(x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, *sched,
                                               with_counts=True)
     assert sb.splitbregman_l1_tv_fused.launches == before + 1
+    assert sb.splitbregman_l1_tv_fused.route_launches[plan.route] == on_route + 1
     scal, t2 = sb.kernel_args(x0, rho1, 0.02, 1e-3, 2e-3, tv_iterations)
     want, want_counts = sb.splitbregman_l1_tv_fused_torch(
         x0, scal, t2, (cr, ci), dft.dft_tables(mask), *sched[:3], tol_inner)
     _close(got, want, 1e-5)
     assert counts.tolist() == want_counts.tolist()
+
+
+# the resident route's sums follow each other with no other cluster
+# barrier (p.q then r.r; the last r.r then the next ||beta||^2 with TV
+# off; with no CG steps, r.r then ||beta||^2), and with no inner
+# iterations the outer updates' transforms follow each other: at H < c
+# the CTAs without rows reach each sum early
+SB_EDGE_CASES = [((2, 4), 6), ((128, 128), 6)]
+
+
+@pytest.mark.parametrize("shape,coils", SB_EDGE_CASES)
+@pytest.mark.parametrize("sched,tol_inner", [((3, 0, 4), 1e-5), ((2, 3, 0), 1e-5),
+                                             ((2, 2, 5), 5e-2)])
+def test_splitbregman_kernel_edge_schedules_match_plain(dev, shape, coils, sched, tol_inner):
+    x0, mask, cr, ci, rho1 = _sb_inputs(dev, shape, coils)
+    assert sb.plan_on_card(x0, coils).route == "resident"
+    got, counts = sb.splitbregman_l1_tv_fused(x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, *sched,
+                                              0, tol_inner, with_counts=True)
+    scal, t2 = sb.kernel_args(x0, rho1, 0.02, 1e-3, 2e-3, 0)
+    want, want_counts = sb.splitbregman_l1_tv_fused_torch(
+        x0, scal, t2, (cr, ci), dft.dft_tables(mask), *sched, tol_inner)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("shape,coils", SB_EDGE_CASES)
+def test_splitbregman_resident_route_repeats_bit_for_bit(dev, shape, coils):
+    """Every sum of the resident route is taken in rank order, so a launch
+    gives the same bits each time: a cross-CTA race would show as a
+    launch that differs."""
+    x0, mask, cr, ci, rho1 = _sb_inputs(dev, shape, coils)
+    args = (x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, 2, 3, 6, 0, 5e-2)
+    first, first_counts = sb.splitbregman_l1_tv_fused(*args, with_counts=True)
+    for _ in range(20):
+        got, counts = sb.splitbregman_l1_tv_fused(*args, with_counts=True)
+        assert torch.equal(got, first) and torch.equal(counts, first_counts)
+
+
+def test_splitbregman_phase_clocks(dev):
+    """The resident kernel's phase timer: one launch, the same x and counts
+    as without the timer, clocks in every phase; the global route has no
+    timer and raises."""
+    x0, mask, cr, ci, rho1 = _sb_inputs(dev, (128, 128), 6)
+    args = (x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, 2, 2, 3, 2, 1e-5)
+    want = sb.splitbregman_l1_tv_fused(*args)
+    before = sb.splitbregman_l1_tv_fused.launches
+    clocks = sb.phase_clocks(*args)
+    assert sb.splitbregman_l1_tv_fused.launches == before + 1
+    assert list(clocks) == list(sb.PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert torch.equal(sb.splitbregman_l1_tv_fused(*args), want)
+    x0g, maskg, crg, cig, _ = _sb_inputs(dev, (256, 128), 2)
+    with pytest.raises(ValueError, match="resident route"):
+        sb.phase_clocks(x0g, maskg, crg, cig, rho1, 0.02, 1e-3, 2e-3, 1, 1, 1, 1, 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (1024, 16), (16, 1024), (2, 4)])
+def test_cluster_counts_of_the_splitbregman_planner_tests(dev, shape):
+    """On an H100 the card holds, for every cluster size, the clusters of
+    the resident SplitBregman kernel that
+    tests/test_torch_splitbregman_plan.py plans with."""
+    from test_torch_splitbregman_plan import H100_RESIDENT
+
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    held = dict(H100_RESIDENT)
+    for c in range(1, sb.MAX_CLUSTER + 1):
+        smem, got = sb.resident_limits(dev.index, c, *shape)
+        assert smem == sb.resident_smem_bytes(*shape)
+        assert got == held[c], (c, shape)
 
 
 def test_fft_wrappers_refuse_what_the_kernels_do_not_take(dev):
