@@ -86,9 +86,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      counter); each cell's composed solve is timed as its kernel's
      yardstick;
   3i. the PDHG, Kaczmarz and greedy Kaczmarz kernels against their plain
-     versions: the fused PDHG (tv8 on 16 distinct 256² problems at the
-     PDHG cell's 200 iterations, tviso and L1 with Positive at 50, held to
-     the plain version's 1-ulp spread); the Kaczmarz sweep through
+     versions: the fused PDHG on its resident route (tv8 on 16 distinct
+     256² problems at the PDHG cell's 200 iterations, tviso and L1 with
+     Positive at 50, each plan printed first, held bit for bit) and on its
+     global route (a row too wide for any band, held to the plain
+     version's 1-ulp spread, the route counter set to 0 just before and
+     required to read one global launch); the Kaczmarz sweep through
      Kaczmarz(backend="cuda") (cyclic and shuffled, the tall 1024×256
      system, batch 16: the sweep kernel's main path, its launches
      counted); the streamed solve on the tall system (dense and padded
@@ -103,14 +106,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      columns held to a float64 plain solve on the card (the PDHG cell to
      twice its plain f32 version's own departure where that exceeds
      TOL_PARITY) and the error against the true image beside the float64
-     solve's own: pdhg_tv8_deblur256_b16_fused (also composed),
+     solve's own: pdhg_tv8_deblur256_b16_fused (also composed; its one
+     launch on the resident route by the route counter),
      kaczmarz_rand_pos_tall_b16_streamed, kaczmarz_rand_pos_tall_b16_csr,
      kaczmarz_streamed_64MiB_b4 and this script's
      kaczmarz_greedy_tall_b16;
   7. the kernel table as one JSON line (launches on the main path, error
      against the plain version, kernel and plain times, the least time
      the card could take, `bound_ms`, and a library yardstick where one
-     exists), then the result line {"ok": true, "device": {...}}.
+     exists: the composed solve_batched_unrolled at the kernel's shapes,
+     timed once in phases 5, 6 and 8 for the tiled FISTA, the two ADMM
+     and the two dense PGM rows), then the result line {"ok": true,
+     "device": {...}}.
 
 Phases 3h and 3i run after 3g, phases 8–10 after phase 6; the table and
 the result line come last. The flagship problem is rebuilt with numpy
@@ -138,6 +145,15 @@ does the same for the fused SplitBregman kernel (row 10): BASELINE #4's
 8 slices, 64 slices, 1 and 3 coils, rows 8 and 9 as controls, and the
 cell through solve_batched_fast, with each plan and the kernel's clocks
 per phase where ROOT's package has them.
+
+    python3 chip_smoke.py --time-pdhg [ROOT]
+
+does the same for the fused PDHG kernel (row 11): tv8 at the PDHG cell
+(16 distinct 256² problems, 200 iterations), tviso and L1 + Positive at
+256² × 16, tv8 at 4 and 64 problems, and the cell through
+solve_batched_fast, with each plan and the kernel's clocks per phase where
+ROOT's package has them; and row 8 (FISTA-L1-DFT on the CS cell) beside
+its composed solve_batched_unrolled, in turns, three readings each.
 """
 
 from __future__ import annotations
@@ -231,6 +247,9 @@ FFT_SPREAD, FFT_FLOOR = 2.0, 1e-6
 # must miss them.
 PDHG_N, PDHG_BATCH, PDHG_LAM, PDHG_SIGMA, PDHG_ITERS, PDHG_SHORT = 256, 16, 5e-3, 0.0625, 200, 50
 PDHG_SPREAD, PDHG_X_BAR, PDHG_WRONG_LAM = 2.0, 2e-2, 1.1
+# the PDHG kernel's global route: 4 problems of 16 × 6000, rows too wide for
+# any band of the resident route (tv8 fits at most 5,256 pixels a row)
+PDHG_WIDE = (4, 16, 6000)
 # the Kaczmarz cells of tools/bench_suite.py:254-306: L2 λ = 1e-6 + Positive,
 # randomized with a precomputed order; the tall system (1024×256) 20 sweeps
 # of 64 rows (fraction 0.0625), batch 16, dense and padded CSR; the 64 MiB
@@ -636,8 +655,8 @@ def device_breakdown(name, fn):
 
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
-    `reset`, set them to 0 first (and the SplitBregman kernel's counts by
-    route)."""
+    `reset`, set them to 0 first (and the PGM-TV, SplitBregman and PDHG
+    kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -653,7 +672,9 @@ def launch_counts(reset=False):
     if reset:
         for fn in fns:
             fn.launches = 0
-        splitbregman_fused.splitbregman_l1_tv_fused.route_launches = {"resident": 0, "global": 0}
+        for fn in (fista_tv_fused.fista_tv_fused, splitbregman_fused.splitbregman_l1_tv_fused,
+                   pdhg_fused.pdhg_fused):
+            fn.route_launches = {"resident": 0, "global": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
 
@@ -719,7 +740,9 @@ def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
     to a float64 solve of the plain version on the card, problems/s, and
     the device breakdown of one solve. With `composed`, the same through
     solve_batched_unrolled (the composed ADMM: one TV kernel launch per
-    outer iteration)."""
+    outer iteration); without, the composed solve is timed once, unheld.
+    Returns (the launches of the solve_batched_fast run, the composed
+    solve's ms: the kernel's library yardstick)."""
     import torch
 
     import rls_tpu_torch as rtt
@@ -732,7 +755,7 @@ def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
     runs = [(name, rtt.solve_batched_fast, launches)]
     if composed:
         runs.append((f"{name} composed", rtt.solve_batched_unrolled, {"prox_tv2d_fgp": iters}))
-    counts = []
+    counts, times = [], []
     for label, solve, want in runs:
         launch_counts(reset=True)
         x = solve(solver, B)
@@ -745,9 +768,15 @@ def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
         require(tuple(x.shape) == (n * n, batch), f"{label}: shape {tuple(x.shape)}")
         parity_f64(label, x, B, xs, op64, x64)
         ms = cuda_ms(lambda: solve(solver, B), reps=3)
+        times.append(ms)
         print(f"{label}: {batch / (ms / 1e3):.1f} problems/s ({ms:.2f} ms per batch of {batch})")
+    if not composed:
+        rtt.solve_batched_unrolled(solver, B)
+        times.append(cuda_ms(lambda: rtt.solve_batched_unrolled(solver, B), reps=1))
+        print(f"{name}: solve_batched_unrolled (composed) {times[-1]:.3f} ms per batch of "
+              f"{batch}")
     device_breakdown(name, lambda: rtt.solve_batched_fast(solver, B))
-    return counts[0]
+    return counts[0], times[-1]
 
 
 def dense_pgm_ops(m, n, iterations, cplx=False):
@@ -948,8 +977,10 @@ def dense_cell_phase(dev, systems):
     launch counters set to 0 just before the solve and read just after
     (exactly one launch of its kernel, none of any other), problems/s, and
     the accuracy bars. Returns the launches of each dense kernel summed
-    over these runs, and the torch.linalg.solve yardstick of the 1024×512
-    cell in ms."""
+    over these runs, and {kernel: its yardstick in ms}: torch.linalg.solve
+    on the 1024×512 cell's regularized Gram (CGNR), the composed
+    solve_batched_unrolled on the LASSO cell and on the complex case (the
+    dense PGM rows), each composed solve timed once."""
     import torch
 
     import rls_tpu_torch as rtt
@@ -982,8 +1013,14 @@ def dense_cell_phase(dev, systems):
                                      reg=rtt.L2Regularization(lam))
         return rtt.solve_batched_unrolled(ds, B[:, :k].double())
 
+    library = {}
+
+    def composed(name, kernel, solver, B):
+        rtt.solve_batched_unrolled(solver, B)
+        library[kernel] = cuda_ms(lambda: rtt.solve_batched_unrolled(solver, B), reps=1)
+        print(f"{name}: solve_batched_unrolled (composed) {library[kernel]:.3f} ms (yardstick)")
+
     # the two CGNR cells
-    library_ms = None
     for name, key, lam, iters in (
         ("cgnr_l2_dense64_fused_b16", "cgnr64", CGNR64_LAM, CGNR64_ITERS),
         ("cgnr_l2_dense_1024x512_b64", "cgnr1k", CGNR1K_LAM, CGNR1K_ITERS),
@@ -1007,8 +1044,9 @@ def dense_cell_phase(dev, systems):
             G = A.T @ A + lam * torch.eye(A.shape[1], device=dev)
             AtB = A.T @ B
             torch.linalg.solve(G, AtB)  # warm-up: the solver library's set-up
-            library_ms = cuda_ms(lambda: torch.linalg.solve(G, AtB), reps=10)
-            print(f"{name}: torch.linalg.solve(G, AᵀB) {library_ms:.3f} ms (yardstick)")
+            library["cgnr_fused"] = cuda_ms(lambda: torch.linalg.solve(G, AtB), reps=10)
+            print(f"{name}: torch.linalg.solve(G, AᵀB) {library['cgnr_fused']:.3f} ms "
+                  "(yardstick)")
 
     # the LASSO cell, with the table methods and the complex case
     a2b, b2b = systems["lasso"]
@@ -1019,6 +1057,7 @@ def dense_cell_phase(dev, systems):
                               rho=rho, track_residual=False)
     name = "fista_l1_dense_cs_b16_fused"
     x = run(name, solver, B, "pgm_dense_fused")
+    composed(name, "pgm_dense_fused", solver, B)
     # two columns against a float64 solve of the plain version, and the
     # plain f32 version's own residual difference
     b2 = B[:, :2].T.contiguous()
@@ -1048,8 +1087,10 @@ def dense_cell_phase(dev, systems):
         iterations=SHORT_ITERS, rho=0.95 / float(np.linalg.norm(a_c, 2)) ** 2,
         restart="gradient", track_residual=False,
     )
-    run("complex A 256x512, fista-l1, gradient restart, real", s_c, t(b_c), "pgm_dense_fused_cplx")
-    return launched, library_ms
+    name = "complex A 256x512, fista-l1, gradient restart, real"
+    run(name, s_c, t(b_c), "pgm_dense_fused_cplx")
+    composed(name, "pgm_dense_fused_cplx", s_c, t(b_c))
+    return launched, library
 
 
 def cs_phantoms(img2):
@@ -1454,9 +1495,14 @@ def pdhg_kernel_phase(dev, solver):
     """Phase 3i, row 11: the fused PDHG kernel against its plain version on
     16 distinct 256² problems (bench.py's phantoms blurred by the cell's
     operator), tv8 at the cell's 200 iterations, tviso and L1 (with
-    Positive) at PDHG_SHORT, each held by `hold_to_plain` to PDHG_SPREAD ×
-    the plain version's 1-ulp spread; tv8 timed in turns with its plain
-    version. Returns {"err", "ms": (plain, kernel)}."""
+    Positive) at PDHG_SHORT, each plan printed first and each required to
+    run once on the resident route and to agree bit for bit (the plain
+    version's 1-ulp spread printed beside it); tv8 timed in turns with its
+    plain version. Then the global route on PDHG_WIDE (tv8, PDHG_SHORT
+    iterations), held by `hold_to_plain` to PDHG_SPREAD × the plain
+    version's spread, with the route counter set to 0 just before and
+    required to read one global launch. Returns {"err", "ms": (plain,
+    kernel)}."""
     import torch
 
     from rls_tpu_torch.kernels import pdhg_fused as pd
@@ -1466,6 +1512,7 @@ def pdhg_kernel_phase(dev, solver):
     xs = torch.from_numpy(phantoms(n=PDHG_N, batch=PDHG_BATCH)).to(dev)
     u = op.mv(xs).reshape(PDHG_BATCH, PDHG_N, PDHG_N).contiguous()
     none = torch.zeros(0)
+    routes = pd.pdhg_fused.route_launches
 
     def pair(kind, prox, iters):
         def kernel(x):
@@ -1483,10 +1530,30 @@ def pdhg_kernel_phase(dev, solver):
                               ("l1", "positive", PDHG_SHORT)):
         kernel, plain = pair(kind, prox, iters)
         label = f"pdhg_fused[{kind}, {prox}, {PDHG_N}², batch {PDHG_BATCH}, {iters} it.]"
-        out["err"] = max(out["err"], hold_to_plain(label, kernel, plain, u, spread=PDHG_SPREAD))
+        plan, active = pd.plan_on_card(u, taps, kind)
+        print(f"{label}: plan route {plan.route}, {plan.clusters} CTAs per problem, "
+              f"{plan.rows} rows per band, {plan.ctas} CTAs, {plan.smem} B of shared memory "
+              f"per CTA, {active} clusters resident at once")
+        before = routes["resident"]
+        err = hold_to_plain(label, kernel, plain, u, spread=PDHG_SPREAD)
+        require(routes["resident"] == before + 1, f"{label}: not one launch on the resident route")
+        require(err == 0.0, f"{label}: the resident route is not bitwise the plain version")
+        out["err"] = max(out["err"], err)
         if kind == "tv8":
             out["ms"] = alternate_ms(lambda: plain(u), lambda: kernel(u), reps=1)
             print(f"{label}: kernel {out['ms'][1]:.3f} ms, plain {out['ms'][0]:.3f} ms")
+    # the global route
+    B, H, W = PDHG_WIDE
+    uw = op.mv(xs[:B]).reshape(B, PDHG_N, PDHG_N)[:, :H, :].repeat(1, 1, -(-W // PDHG_N))
+    uw = uw[..., :W].contiguous()
+    kernel, plain = pair("tv8", "none", PDHG_SHORT)
+    label = f"pdhg_fused[tv8, none, {B} x {H}x{W}, {PDHG_SHORT} it., global route]"
+    require(pd.plan_on_card(uw, taps, "tv8")[0].route == "global", f"{label}: not planned global")
+    pd.pdhg_fused.route_launches = {"resident": 0, "global": 0}
+    out["err"] = max(out["err"], hold_to_plain(label, kernel, plain, uw, spread=PDHG_SPREAD))
+    got = pd.pdhg_fused.route_launches
+    print(f"{label}: launches by route {got}")
+    require(got == {"resident": 0, "global": 1}, f"{label}: launches by route {got}")
     return out
 
 
@@ -1787,6 +1854,11 @@ def kernel_cell_phase(dev, draws, pdhg_solver, kz):
         print(f"launches ({name}): {got}")
         require(got == {**{k: 0 for k in got}, **want},
                 f"{name}: expected the launches {want} and no others")
+        if row == "pdhg":
+            routes = pd.pdhg_fused.route_launches
+            print(f"launches ({name}) by route: {routes}")
+            require(routes == {"resident": 1, "global": 0},
+                    f"{name}: expected one launch on the resident route, got {routes}")
         for k, v in want.items():
             launched[k] = launched.get(k, 0) + v
         require(tuple(x.shape) == (solver.A.in_size, B.shape[1]), f"{name}: shape {x.shape}")
@@ -2165,6 +2237,11 @@ def main() -> int:
     ms5 = cuda_ms(lambda: rtt.solve_batched_fast(s5, B5), reps=3)
     print(f"fista_tv_512_tiled_b16: {16 / (ms5 / 1e3):.1f} problems/s "
           f"({ms5:.2f} ms per batch of 16)")
+    # the tiled kernel's yardstick: the composed solve at its shapes, once
+    rtt.solve_batched_unrolled(s5, B5)
+    library = {"fista_tv_tiled": cuda_ms(lambda: rtt.solve_batched_unrolled(s5, B5), reps=1)}
+    print(f"fista_tv_512_tiled_b16: solve_batched_unrolled (composed) "
+          f"{library['fista_tv_tiled']:.3f} ms per batch of 16")
 
     # 6. the ADMM-TV cells through the public API
     for name, cell, imgs, want, composed in (
@@ -2174,10 +2251,12 @@ def main() -> int:
          {"admm_tv_tiled": launches_per_solve(*ADMM512[3:5])}, False),
     ):
         kernel = next(iter(want))
-        admm[kernel]["launches"] = admm_cell_phase(name, cell, dev, imgs, want, composed)[kernel]
+        counts, library[kernel] = admm_cell_phase(name, cell, dev, imgs, want, composed)
+        admm[kernel]["launches"] = counts[kernel]
 
     # 8. the dense cells through the public API
-    dense_launched, library_ms = dense_cell_phase(dev, systems)
+    dense_launched, dense_library = dense_cell_phase(dev, systems)
+    library.update(dense_library)
 
     # 9. the compressed-sensing and SENSE cells through the public API
     fft_launched, composed_ms = fft_cell_phase(dev, draws)
@@ -2292,17 +2371,16 @@ def main() -> int:
     )
     # one PyTorch call computes the same function only for CGNR's
     # regularized normal equations (torch.linalg.solve); none computes a
-    # TV or a LASSO solve. For the fused PGM-TV kernel the yardstick is the
-    # composed flagship solve (solve_batched_unrolled: the operator's
-    # products and one TV kernel launch per iteration); for the three FFT
-    # kernels the same solve with its normal op on torch.fft (cuFFT), the composed
-    # solve_batched_unrolled at the kernel's shapes: many calls, not one,
-    # and the time a later PR's kernel has to beat; the same for PDHG (the
-    # cell) and the three Kaczmarz rows (one sweep, the tall cell, one
-    # greedy sweep)
-    library = {
+    # TV or a LASSO solve. For the fused and tiled PGM-TV kernels, the two
+    # ADMM kernels and the dense PGM kernels the yardstick is the composed
+    # solve_batched_unrolled at the kernel's shapes (the operator's
+    # products, one TV kernel launch per iteration where the solve has a TV
+    # prox): many calls, not one, and the time a faster kernel has to
+    # beat; for the three FFT kernels the same solve with its normal op on
+    # torch.fft (cuFFT); the same for PDHG (the cell) and the three
+    # Kaczmarz rows (one sweep, the tall cell, one greedy sweep)
+    library.update({
         "fista_tv_fused": flagship_ms["solve_batched_unrolled"],
-        "cgnr_fused": library_ms,
         "fista_l1_dft_fused": composed_ms["fista_l1_dft_fused"],
         "sense_fused": composed_ms["fista_l21_sense_fused"],
         "splitbregman_fused": composed_ms["splitbregman_l1_tv_fused"],
@@ -2310,7 +2388,7 @@ def main() -> int:
         "kaczmarz_sweep": kacz["kaczmarz_sweep"]["library_ms"],
         "kaczmarz_solve": kernel_composed["kaczmarz_solve"],
         "kaczmarz_greedy_sweep": kacz["kaczmarz_greedy_sweep"]["library_ms"],
-    }
+    })
     kernels = []
     for name, src, replaces, launches, err, (plain_ms, ms) in rows:
         bound_ms, bound_by = bounds[name]
@@ -2535,6 +2613,92 @@ def time_splitbregman(root) -> int:
     return 0
 
 
+def time_pdhg(root) -> int:
+    """``--time-pdhg ROOT``: the fused PDHG kernel (row 11) of the
+    rls_tpu_torch package under ROOT timed alone, three readings each by
+    CUDA events, at the PDHG cell's operator and 200 iterations: tv8 on
+    16 distinct 256² problems (the phantoms of phase 3i), tviso and L1 +
+    Positive on the same, tv8 on the first 4 and on the 16 tiled to 64;
+    and the cell through solve_batched_fast. Where the package has them,
+    each case's plan and its clocks of CTA 0 by phase. Then row 8 as
+    solve_batched_fast runs it on the CS cell (fista_l1_cs_dft256_b16),
+    that cell through solve_batched_fast and its composed
+    solve_batched_unrolled (torch.fft), in turns, three rounds. One JSON
+    line. Run it for two trees in turns (parent, change, change, parent)
+    to compare their kernels on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+    from rls_tpu_torch.kernels import pdhg_fused as pd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    solver = pdhg_cell_solver(dev)
+    op = solver.A
+    taps = op.taps_hw()
+    xs = torch.from_numpy(phantoms(n=PDHG_N, batch=PDHG_BATCH)).to(dev)
+    u = op.mv(xs).reshape(PDHG_BATCH, PDHG_N, PDHG_N).contiguous()
+    out = {"root": root, "kernel": os.path.relpath(pd.__file__, ROOT), "card": smi,
+           "tau": solver.tau}
+    for name, x, kind, prox, reps in (
+        (f"cell: tv8, {PDHG_BATCH} x {PDHG_N}²", u, "tv8", "none", 1),
+        (f"tviso, {PDHG_BATCH} x {PDHG_N}²", u, "tviso", "none", 3),
+        (f"l1 positive, {PDHG_BATCH} x {PDHG_N}²", u, "l1", "positive", 3),
+        (f"tv8, 4 x {PDHG_N}²", u[:4].contiguous(), "tv8", "none", 3),
+        (f"tv8, 64 x {PDHG_N}²", u.repeat(4, 1, 1), "tv8", "none", 1),
+    ):
+        def run(x=x, kind=kind, prox=prox):
+            return pd.pdhg_fused(x, taps, solver.sigma, solver.tau, PDHG_LAM, PDHG_ITERS, kind,
+                                 prox)
+
+        run()
+        out[f"{name} ms"] = [cuda_ms(run, reps) for _ in range(3)]
+        if hasattr(pd, "plan_on_card"):  # the planner and timer, where the tree has them
+            plan, active = pd.plan_on_card(x, taps, kind)
+            out[f"{name} plan"] = dict(vars(plan), resident_clusters=active)
+            if plan.route == "resident":
+                out[f"{name} clocks of CTA 0 by phase"] = pd.phase_clocks(
+                    x, taps, solver.sigma, solver.tau, PDHG_LAM, PDHG_ITERS, kind, prox)
+    draws = bench_suite_draws()
+    xt = torch.from_numpy(draws["admm"]).to(dev)
+    B = op.mv(xt)[:, None].repeat(1, PDHG_BATCH).contiguous()
+    rtt.solve_batched_fast(solver, B)
+    out["cell solve_batched_fast ms"] = [
+        cuda_ms(lambda: rtt.solve_batched_fast(solver, B), 1) for _ in range(3)]
+    # row 8 beside its composed solve on the CS cell, in turns
+    img2, idx2 = draws["cs"]
+    op8 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
+    B8 = op8.mv(torch.from_numpy(img2).to(dev))[:, None].repeat(1, CS_BATCH).contiguous()
+    s8 = rtt.FISTA.create(op8, reg=rtt.L1Regularization(CS_LAM), iterations=CS_ITERS, rho=RHO,
+                          rel_tol=0.0, track_residual=False)
+    x8 = op8.rmv(B8.T).reshape(CS_BATCH, CS_N, CS_N).contiguous()
+    row8 = (
+        ("row 8 fista_l1_dft_fused", lambda: k8.fista_l1_dft_fused(x8, op8.mask, RHO, CS_LAM,
+                                                                   CS_ITERS)),
+        ("fista_l1_cs_dft256_b16 solve_batched_fast", lambda: rtt.solve_batched_fast(s8, B8)),
+        ("fista_l1_cs_dft256_b16 solve_batched_unrolled",
+         lambda: rtt.solve_batched_unrolled(s8, B8)),
+    )
+    for name, fn in row8:
+        fn()
+        out[f"{name} ms"] = []
+    for _ in range(3):
+        for name, fn in row8:
+            out[f"{name} ms"].append(cuda_ms(fn, 2))
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-cgnr"]:
         sys.exit(time_cgnr(sys.argv[2] if len(sys.argv) > 2 else ROOT))
@@ -2542,4 +2706,6 @@ if __name__ == "__main__":
         sys.exit(time_pgm_tv(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--time-splitbregman"]:
         sys.exit(time_splitbregman(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--time-pdhg"]:
+        sys.exit(time_pdhg(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

@@ -122,6 +122,14 @@ _SIGNATURES = {
     # (u, scal, taps, weights, kh, kw, out, scratch, B, H, W, iterations,
     #  kind, positive, stream)
     "pdhg_fused_launch": (_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (kind, clusters, rows, W, out: int64[2] = shared memory per CTA,
+    #  clusters resident at once)
+    "pdhg_cluster_occupancy": (_I, _I, _I, _I, _P),
+    # (u, scal, taps, weights, kh, kw, out, prof, B, H, W, iterations, kind,
+    #  positive, clusters, rows, smem, stream)
+    "pdhg_cluster_launch": (
+        _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
     # (ar, ai, cols, idx, x, vl, u, denom, eps, P, m, n, L, sweeps, S, reuse,
     #  prox, stream)
     "kaczmarz_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),

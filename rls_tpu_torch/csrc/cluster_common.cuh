@@ -1,7 +1,9 @@
 // Host and device code shared by the kernels that run one problem on a
-// thread-block cluster (fista_tv_fused.cu, splitbregman_fused.cu): a phase
-// timer, the cluster's double sums in rank order through distributed shared
-// memory, and the launch configuration with its residency query.
+// thread-block cluster (fista_tv_fused.cu, splitbregman_fused.cu,
+// pdhg_fused.cu): a phase timer, a CTA's band of image rows with the
+// stencil passes that read other bands through distributed shared memory,
+// the cluster's double sums in rank order, and the launch configuration
+// with its residency query.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -37,6 +39,130 @@ struct Prof {
     __device__ void finish() {
         if (out)
             for (int k = 0; k < kPhases; ++k) out[k] = acc[k];
+    }
+};
+
+// the farthest row a stencil tap of up to 63 taps reads
+constexpr int kHalo = 31;
+
+// A CTA's band of the image, rows [r0, r0 + rows), and its planes in shared
+// memory, each `pf` floats (the same in every CTA of the cluster). A row
+// outside the band is read through one map, row -> (rank = row / R, local
+// row = row - rank R), kept as a table `rowp` of DSMEM row pointers for the
+// rows within kHalo of the band (entry j: image row r0 - kHalo + j). The
+// image edges read zero, as stencil_v, grad_t and the FGP mask do
+// (fgp_common.cuh). With kRound every tap's product and sum are rounded on
+// their own (tap_acc), as the plain PyTorch passes round them.
+template <bool kRound>
+struct Band {
+    float* s;                 // plane 0 of this CTA's band
+    const float* const* rowp;  // DSMEM row table: rows r0 - kHalo ...
+    size_t pf;                // floats per plane
+    int r0, rows, H, W;
+    __device__ float* plane(int p) const { return s + p * pf; }
+    // plane p at image row r (any), column c: this band's rows from its
+    // own shared memory, another band's through DSMEM, zero past the image
+    __device__ float at(int p, int r, int c) const {
+        const int lr = r - r0;
+        if (lr >= 0 && lr < rows) return s[p * pf + lr * W + c];
+        if (r < 0 || r >= H) return 0.f;
+        return rowp[lr + kHalo][p * pf + c];
+    }
+    // plane p at the pixel (dr, dc) away from local pixel i = (lr, c), which
+    // lies in the image
+    __device__ float shifted(int p, int i, int lr, int c, int dr, int dc) const {
+        const int l = lr + dr;
+        return l >= 0 && l < rows ? plane(p)[i + dr * W + dc] : at(p, r0 + l, c + dc);
+    }
+    // plane p one row above / below local pixel i = (lr, c)
+    __device__ float above(int p, int i, int lr, int c) const {
+        return lr > 0 ? plane(p)[i - W] : at(p, r0 + lr - 1, c);
+    }
+    __device__ float below(int p, int i, int lr, int c) const {
+        return lr + 1 < rows ? plane(p)[i + W] : at(p, r0 + lr + 1, c);
+    }
+    // stencil_v of fgp_common.cuh on plane p at local pixel i = (lr, c),
+    // the same taps in the same order; a pixel whose taps all lie in the
+    // band reads them with no edge test
+    __device__ float stencil_v(int p, int i, int lr, int c, const float* taps, int K,
+                               bool adjoint) const {
+        const int R = K / 2;
+        float acc = 0.f;
+        if (lr >= R && lr + R < rows) {
+            const int step = adjoint ? -W : W;
+            const float* u = plane(p) + i - R * step;
+            for (int k = 0; k < K; ++k, u += step)
+                acc = tap_acc<kRound>(acc, taps[k], *u, k == 0);
+            return acc;
+        }
+        const int r = r0 + lr;
+        for (int k = 0; k < K; ++k)
+            acc = tap_acc<kRound>(acc, taps[k], at(p, r + (adjoint ? R - k : k - R), c),
+                                  k == 0);
+        return acc;
+    }
+    // stencil_h of fgp_common.cuh on plane p at local pixel i = (lr, c)
+    __device__ float stencil_h(int p, int i, int lr, int c, const float* taps, int K,
+                               bool adjoint) const {
+        const int R = K / 2;
+        if (c >= R && c + R < W) {
+            const int step = adjoint ? -1 : 1;
+            const float* u = plane(p) + i - R * step;
+            float acc = 0.f;
+            for (int k = 0; k < K; ++k, u += step)
+                acc = tap_acc<kRound>(acc, taps[k], *u, k == 0);
+            return acc;
+        }
+        return rls::stencil_h<kRound>(plane(p), lr, c, taps, K, adjoint, W);
+    }
+    // grad_t of fgp_common.cuh on the duals in planes (v, h) at local
+    // pixel i = (lr, c)
+    __device__ float grad_t(int v, int h, int i, int lr, int c) const {
+        const float up = r0 + lr > 0 ? above(v, i, lr, c) : 0.f;
+        const float left = c > 0 ? plane(h)[i - 1] : 0.f;
+        return (up - plane(v)[i]) + (left - plane(h)[i]);
+    }
+};
+
+// Fill a band's row table (rows + 2 kHalo entries, `rows` the planned band
+// height R): entry j points at image row r0 - kHalo + j in the shared memory
+// `s` of the CTA that owns it, null past the image.
+__device__ __forceinline__ void fill_row_table(const float** rowp, float* s, int r0, int R,
+                                               int H, int W, cg::cluster_group& cl) {
+    for (int j = threadIdx.x; j < R + 2 * kHalo; j += blockDim.x) {
+        const int r = r0 - kHalo + j;
+        const float* p = nullptr;
+        if (r >= 0 && r < H) {
+            const int owner = r / R;
+            p = cl.map_shared_rank(s, owner) + (r - owner * R) * W;
+        }
+        rowp[j] = p;
+    }
+}
+
+// f(i, lr, c) for each pixel i = tid + k kThreads of a band of width W
+// (local row lr, column c), advancing (lr, c) without a division.
+template <int kThreads>
+struct Sweep {
+    int n, W, lr0, c0, dq, dr;
+    __device__ Sweep(int n_, int W_) : n(n_), W(W_) {
+        lr0 = threadIdx.x / W;
+        c0 = threadIdx.x - lr0 * W;
+        dq = kThreads / W;
+        dr = kThreads - dq * W;
+    }
+    template <class F>
+    __device__ __forceinline__ void operator()(F f) const {
+        int lr = lr0, c = c0;
+        for (int i = threadIdx.x; i < n; i += kThreads) {
+            f(i, lr, c);
+            lr += dq;
+            c += dr;
+            if (c >= W) {
+                c -= W;
+                ++lr;
+            }
+        }
     }
 };
 

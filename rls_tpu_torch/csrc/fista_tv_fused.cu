@@ -183,7 +183,7 @@ struct Launcher {
 
 // ---- the resident route: one problem per cluster, planes in shared memory
 
-constexpr int kHalo = kMaxTaps / 2;  // the farthest row a stencil tap reads
+using rls::kHalo;  // the farthest row a stencil tap reads
 constexpr int kPlanes = 6;
 enum { kPv, kPh, kT2Xg, kT1Rv, kT3Rh, kInY };  // the shared-memory planes A-F
 // the phases of the timer
@@ -224,95 +224,8 @@ struct ClusterArgs {
 // SM clocks of CTA 0's thread 0 per phase (cluster_common.cuh)
 using Prof = rls::Prof<kPhases>;
 
-// A CTA's band of the image and its planes in shared memory.
-struct Band {
-    float* s;                 // plane 0 of this CTA's band
-    const float* const* rowp;  // DSMEM row table: rows r0 - kHalo ...
-    size_t pf;                // floats per plane (the same in every CTA)
-    int r0, rows, H, W;
-    __device__ float* plane(int p) const { return s + p * pf; }
-    // plane p at image row r (any), column c: this band's rows from its
-    // own shared memory, another band's through DSMEM, zero past the image
-    __device__ float at(int p, int r, int c) const {
-        const int lr = r - r0;
-        if (lr >= 0 && lr < rows) return s[p * pf + lr * W + c];
-        if (r < 0 || r >= H) return 0.f;
-        return rowp[lr + kHalo][p * pf + c];
-    }
-    // plane p one row above / below local pixel i = (lr, c)
-    __device__ float above(int p, int i, int lr, int c) const {
-        return lr > 0 ? plane(p)[i - W] : at(p, r0 + lr - 1, c);
-    }
-    __device__ float below(int p, int i, int lr, int c) const {
-        return lr + 1 < rows ? plane(p)[i + W] : at(p, r0 + lr + 1, c);
-    }
-    // stencil_v of fgp_common.cuh on plane p at local pixel i = (lr, c),
-    // the same taps in the same order; a pixel whose taps all lie in the
-    // band reads them with no edge test
-    __device__ float stencil_v(int p, int i, int lr, int c, const float* taps, int K,
-                               bool adjoint) const {
-        const int R = K / 2;
-        float acc = 0.f;
-        if (lr >= R && lr + R < rows) {
-            const int step = adjoint ? -W : W;
-            const float* u = plane(p) + i - R * step;
-            for (int k = 0; k < K; ++k, u += step)
-                acc = rls::tap_acc<false>(acc, taps[k], *u, k == 0);
-            return acc;
-        }
-        const int r = r0 + lr;
-        for (int k = 0; k < K; ++k)
-            acc = rls::tap_acc<false>(acc, taps[k], at(p, r + (adjoint ? R - k : k - R), c),
-                                      k == 0);
-        return acc;
-    }
-    // stencil_h of fgp_common.cuh on plane p at local pixel i = (lr, c)
-    __device__ float stencil_h(int p, int i, int lr, int c, const float* taps, int K,
-                               bool adjoint) const {
-        const int R = K / 2;
-        if (c >= R && c + R < W) {
-            const int step = adjoint ? -1 : 1;
-            const float* u = plane(p) + i - R * step;
-            float acc = 0.f;
-            for (int k = 0; k < K; ++k, u += step)
-                acc = rls::tap_acc<false>(acc, taps[k], *u, k == 0);
-            return acc;
-        }
-        return rls::stencil_h(plane(p), lr, c, taps, K, adjoint, W);
-    }
-    // grad_t of fgp_common.cuh on the duals in planes (v, h) at local
-    // pixel i = (lr, c)
-    __device__ float grad_t(int v, int h, int i, int lr, int c) const {
-        const float up = r0 + lr > 0 ? above(v, i, lr, c) : 0.f;
-        const float left = c > 0 ? plane(h)[i - 1] : 0.f;
-        return (up - plane(v)[i]) + (left - plane(h)[i]);
-    }
-};
-
-// f(i, lr, c) for each pixel i = tid + k kThreads of a band of width W
-// (local row lr, column c), advancing (lr, c) without a division.
-struct Sweep {
-    int n, W, lr0, c0, dq, dr;
-    __device__ Sweep(int n_, int W_) : n(n_), W(W_) {
-        lr0 = threadIdx.x / W;
-        c0 = threadIdx.x - lr0 * W;
-        dq = kThreads / W;
-        dr = kThreads - dq * W;
-    }
-    template <class F>
-    __device__ __forceinline__ void operator()(F f) const {
-        int lr = lr0, c = c0;
-        for (int i = threadIdx.x; i < n; i += kThreads) {
-            f(i, lr, c);
-            lr += dq;
-            c += dr;
-            if (c >= W) {
-                c -= W;
-                ++lr;
-            }
-        }
-    }
-};
+using Band = rls::Band<false>;  // row 2 lets nvcc contract its taps
+using Sweep = rls::Sweep<kThreads>;
 
 template <int kMethod, bool kDynamic>
 __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const ClusterArgs a) {
@@ -348,15 +261,7 @@ __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const Clu
     };
 
     for (int k = tid; k < a.kh + a.kw; k += kThreads) taps[k] = a.taps[k];
-    for (int j = tid; j < R + 2 * kHalo; j += kThreads) {
-        const int r = r0 - kHalo + j;
-        const float* p = nullptr;
-        if (r >= 0 && r < H) {
-            const int owner = r / R;
-            p = cl.map_shared_rank(s, owner) + (r - owner * R) * W;
-        }
-        rowp[j] = p;
-    }
+    rls::fill_row_table(rowp, s, r0, R, H, W, cl);
     float* pv = bd.plane(kPv);
     float* ph = bd.plane(kPh);
     float* xg = bd.plane(kT2Xg);

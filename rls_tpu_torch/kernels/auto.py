@@ -23,15 +23,16 @@ over ~50 iterations.
 
 Fused or tiled: the JAX table sends an image to its tiled kernel when the
 monolithic kernel's working set exceeds the TPU's VMEM (past ~384²). The
-port's fused kernel has no such limit, so the rule here is the H100's own:
-the fused kernel runs one problem per CTA, which suits the batches users
-run at up to 256² (64 problems of the flagship light 64 of 132 SMs); at
-larger images they run batches of 16 or 8 (``tools/bench_suite.py``'s
-512² and 1024² cells), which one CTA per problem would leave on 8 or 16
-SMs, while the tiled kernel spreads each problem over its row tiles. The
-check sees the solver and not the batch, so the rule is on the image:
-more than `FUSED_MAX_PIXELS` pixels go to the tiled kernel. The ADMM-TV
-rows follow the same rule (``check_admm_tv_fused`` applies it).
+port's fused PGM-TV kernel has no such limit: its planner spreads each
+problem over a thread-block cluster (``plan_pgm_tv``). The rule here
+predates that route and is on the image, since the check sees the solver
+and not the batch: more than `FUSED_MAX_PIXELS` pixels go to the tiled
+kernel, which spreads each problem of the 512² and 1024² cells
+(``tools/bench_suite.py``, batches of 16 and 8) over its row tiles. The
+ADMM-TV rows follow the same rule (``check_admm_tv_fused`` applies it).
+The PDHG row has no size rule: its kernel's planner (``plan_pdhg``) puts
+each problem on a cluster, or one CTA per problem where a row is too wide
+for any band.
 """
 
 from __future__ import annotations

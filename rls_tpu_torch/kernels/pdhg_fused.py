@@ -18,27 +18,43 @@ weighted projection), ``"tviso"`` (the 2 masked forward differences of
 ``"l1"`` (Φ = I and the clip). No gap is computed: the kernel matches the
 fixed-iteration ``solve_batched_unrolled``, which ignores it.
 
-Numerics, the same in both versions: every product and sum is rounded on
-its own in the order written here (the kernel forbids FMA contraction), so
-the kernel can agree with the plain version bit for bit. The composed
-solver multiplies by banded matrices and divides by 1 + σ, so it differs
-from both by f32 rounding.
+The kernel runs on one of two routes that :func:`plan_pdhg` picks by
+shape:
+
+* resident: each problem on a thread-block cluster of c ≤ 16 CTAs, one
+  band of image rows per CTA, x, y₁, the stencil temporary and the dual
+  planes in shared memory for the whole solve, rows of another band read
+  through distributed shared memory (the tv8 cell at 256²: 16 bands of 16
+  rows);
+* global: one CTA per problem with its planes in global scratch, for a row
+  so wide that no band fits (about W > 5,200 for tv8).
+
+Numerics, the same in both versions and on both routes: every product and
+sum is rounded on its own in the order written here (the kernel forbids
+FMA contraction), so the kernel agrees with the plain version bit for bit.
+The composed solver multiplies by banded matrices and divides by 1 + σ, so
+it differs from both by f32 rounding.
 
 Not carried over: the TPU's VMEM gate (``_check_vmem_pdhg``, :222-229);
-the CUDA kernel keeps its planes in global memory.
+the planner's shared-memory count takes its place.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import numpy as np
 import torch
 
+from .._build import SMEM_MAX, SMS
 from ..models.prox import PositiveRegularization, RealRegularization
 from ..models.regularization import normalization_factor
 from ..models.solvers.pdhg import PDHG, W8, clip_conj
 from ..ops.conv_direct import SeparableConvOperator, stencil_pass
 from ..ops.grad import Grad8Operator
-from .fista_tv_fused import check_cuda_input
+from .fista_tv_fused import HALO, MAX_TAPS, MIN_CTA_PIXELS, _cdiv, check_cuda_input
 
 __all__ = [
     "pdhg_fused",
@@ -46,12 +62,160 @@ __all__ = [
     "check_pdhg_fused",
     "solve_pdhg_fused",
     "kernel_scalars",
+    "plan_pdhg",
+    "PdhgPlan",
+    "phase_clocks",
     "KINDS",
 ]
 
 KINDS = ("tv8", "tviso", "l1")
 PROXES = ("none", "positive")
 _PLANES = {"tv8": 8, "tviso": 2, "l1": 1}
+# the largest cluster (the non-portable size); the kernel's tap buffer per
+# axis (MAX_TAPS), row reach (HALO) and the least pixels a CTA keeps when
+# the planner spreads a problem over more CTAs than its bands need
+# (MIN_CTA_PIXELS: a guess, not measured for this kernel) are the PGM-TV
+# kernel's
+MAX_CLUSTER = 16
+# the phases of the resident route's timer (csrc/pdhg_fused.cu kPhases)
+PHASES = ("set-up", "A x pass", "dual update", "Aᴴ y₁ pass", "primal update",
+          "cluster barriers")
+
+
+def cluster_smem_bytes(kind, rows, W):
+    """Shared memory of a resident CTA whose band has `rows` rows of width
+    W, as ``cluster_smem_bytes`` in csrc/pdhg_fused.cu counts it: x, y₁, t1
+    and the dual planes (8, 2, 1), each rounded up to 4 floats, the phase
+    timer (int64 each), the DSMEM row table (rows + 2·HALO pointers), the
+    taps (2 × MAX_TAPS f32) and the 8 plane weights."""
+    return (4 * (3 + _PLANES[kind]) * _cdiv(rows * W, 4) * 4 + 8 * len(PHASES)
+            + 8 * (rows + 2 * HALO) + 4 * (2 * MAX_TAPS + 8))
+
+
+@dataclasses.dataclass(frozen=True)
+class PdhgPlan:
+    """How a fused PDHG launch runs: `route` "resident" (a cluster of
+    `clusters` CTAs per problem, bands of `rows` image rows, the last one
+    possibly shorter, `smem` bytes of shared memory per CTA) or "global"
+    (one CTA per problem, `rows` = H, its planes in global scratch, `smem`
+    0 of dynamic shared memory); `ctas` CTAs in all."""
+
+    route: str
+    clusters: int
+    rows: int
+    H: int
+    ctas: int
+    smem: int
+
+    def band_rows(self, rank):
+        """Image rows of CTA `rank`'s band."""
+        return min(self.rows, self.H - rank * self.rows)
+
+    def locate(self, row):
+        """(rank, local row) of image row `row`: the one map by which the
+        kernel finds a row of another band in distributed shared memory."""
+        rank = row // self.rows
+        return rank, row - rank * self.rows
+
+
+def fitting_sizes(kind, H, W, sms=SMS, smem_max=SMEM_MAX):
+    """The cluster sizes c ≤ 16 (and ≤ sms) whose bands of ⌈H/c⌉ rows fit
+    one CTA's shared memory with no band empty."""
+    out = []
+    for c in range(1, min(MAX_CLUSTER, sms) + 1):
+        rows = _cdiv(H, c)
+        if (c - 1) * rows < H and cluster_smem_bytes(kind, rows, W) <= smem_max:
+            out.append(c)
+    return tuple(out)
+
+
+def _check_shape(B, H, W, kh, kw, kind):
+    if kind not in KINDS:
+        raise ValueError(f"unknown PDHG kind {kind!r}; the kernel takes {KINDS}")
+    if min(B, H, W) < 1:
+        raise ValueError(f"pdhg_fused: empty shape {B} x {H}x{W}")
+    if not (1 <= kh <= MAX_TAPS and 1 <= kw <= MAX_TAPS):
+        raise ValueError(f"pdhg_fused: {kh} x {kw} taps; at most {MAX_TAPS} per axis")
+
+
+@functools.lru_cache(maxsize=256)
+def plan_pdhg(B, H, W, kh, kw, kind, resident, sms=SMS, smem_max=SMEM_MAX) -> PdhgPlan:
+    """The route of a fused PDHG launch of B problems of H × W with kh × kw
+    taps and dual `kind`, on a card of `sms` SMs and `smem_max` bytes of
+    shared memory per block that holds n clusters of c CTAs of the resident
+    kernel at once for each pair (c, n) of `resident`
+    (``cudaOccupancyMaxActiveClusters``; a size not named is held 0 times).
+
+    The rule: among the sizes of :func:`fitting_sizes` that the card
+    holds, the smallest and each larger one that leaves every CTA at least
+    ``MIN_CTA_PIXELS`` pixels, the one with the fewest waves × rows per
+    band, ⌈B / held(c)⌉ · ⌈H/c⌉ (a wave's time goes with the pixels of its
+    CTAs); ties go to the smaller c. An image whose bands fit at no c (a
+    row wider than ~5,200 pixels for tv8) takes the global route. A shape
+    with neither (empty, or a problem of 2³¹ pixels or more) raises
+    ValueError naming it, as does a resident plan the card holds no
+    cluster of (no fallback)."""
+    _check_shape(B, H, W, kh, kw, kind)
+    fit = fitting_sizes(kind, H, W, sms, smem_max)
+    if fit:
+        held = dict(resident)
+        eligible = [c for c in fit if held.get(c, 0) >= 1
+                    and (c == fit[0] or _cdiv(H, c) * W >= MIN_CTA_PIXELS)]
+        c = min(eligible, key=lambda c: (_cdiv(B, held[c]) * _cdiv(H, c), c), default=fit[0])
+        rows = _cdiv(H, c)
+        plan = PdhgPlan("resident", c, rows, H, B * c, cluster_smem_bytes(kind, rows, W))
+        if not eligible:
+            raise ValueError(f"pdhg_fused: the card holds no cluster of {plan} "
+                             f"({B} x {H}x{W}, {kind})")
+        return plan
+    if H * W >= 2**31:
+        raise ValueError(
+            f"pdhg_fused: no route for {B} x {H}x{W} ({kind}): bands fit no cluster of at "
+            f"most {MAX_CLUSTER} CTAs with {smem_max} bytes of shared memory each, and one "
+            "CTA per problem indexes fewer than 2**31 pixels"
+        )
+    return PdhgPlan("global", 1, H, H, B, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_limits(index, kind, clusters, rows, W):
+    """(shared memory per CTA as the kernel counts it, clusters of the
+    resident kernel of `kind` that device `index` holds at once:
+    ``cudaOccupancyMaxActiveClusters``)."""
+    from .. import _build
+
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(index):
+        _build.check(
+            _build.load_library().pdhg_cluster_occupancy(
+                KINDS.index(kind), clusters, rows, W, out),
+            "pdhg_cluster_occupancy")
+    return out[0], out[1]
+
+
+def plan_on_card(u_b, taps, kind="tv8"):
+    """(plan, clusters resident at once) of a launch on u_b's card; the
+    count is None on the global route. Raises RuntimeError where the kernel
+    counts other shared memory than the planner, ValueError where the
+    resident plan has no cluster the card can hold."""
+    from .. import _build
+
+    B, H, W = u_b.shape
+    kh, kw = (len(t) for t in taps)
+    _check_shape(B, H, W, kh, kw, kind)
+    index = u_b.device.index or 0
+    limits = _build.device_limits(index)
+    held = {c: resident_limits(index, kind, c, _cdiv(H, c), W)
+            for c in fitting_sizes(kind, H, W, *limits)}
+    plan = plan_pdhg(B, H, W, kh, kw, kind, tuple((c, n) for c, (_, n) in held.items()),
+                     *limits)
+    if plan.route == "global":
+        return plan, None
+    smem, active = held[plan.clusters]
+    if smem != plan.smem:
+        raise RuntimeError(f"pdhg_fused: the kernel counts {smem} bytes of shared memory "
+                           f"for {plan}")
+    return plan, active
 
 
 def _grad_div(kind, H, W, like):
@@ -119,26 +283,35 @@ def pdhg_fused_torch(u, scal, taps, iterations: int, kind="tv8", prox="none"):
     return x
 
 
-def _launch(u, scal, taps, iterations, kind, prox):
+def _launch(u, scal, taps, iterations, kind, prox, prof=None):
     from .. import _build
 
     B, H, W = u.shape
     taps_h, taps_w = taps
+    plan, _ = plan_on_card(u, taps, kind)
+    if prof is not None and plan.route != "resident":
+        raise ValueError(f"pdhg_fused: the phase timer is on the resident route, not {plan}")
     lib = _build.load_library()
     dev = u.device
     taps_t = torch.tensor(list(taps_h) + list(taps_w), dtype=torch.float32, device=dev)
     weights = torch.tensor(W8, dtype=torch.float32, device=dev)
     out = torch.empty_like(u)
-    # y1, the stencil temporary and the dual planes
-    scratch = torch.empty((2 + _PLANES[kind], B, H, W), dtype=torch.float32, device=dev)
+    args = (u.data_ptr(), scal.data_ptr(), taps_t.data_ptr(), weights.data_ptr(),
+            len(taps_h), len(taps_w), out.data_ptr())
+    sched = (B, H, W, iterations, KINDS.index(kind), int(prox == "positive"))
     with torch.cuda.device(dev):
-        code = lib.pdhg_fused_launch(
-            u.data_ptr(), scal.data_ptr(), taps_t.data_ptr(), weights.data_ptr(),
-            len(taps_h), len(taps_w), out.data_ptr(), scratch.data_ptr(), B, H, W, iterations,
-            KINDS.index(kind), int(prox == "positive"), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "pdhg_fused_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "resident":
+            code = lib.pdhg_cluster_launch(
+                *args, None if prof is None else prof.data_ptr(), *sched, plan.clusters,
+                plan.rows, plan.smem, stream)
+        else:
+            # y1, the stencil temporary and the dual planes
+            scratch = torch.empty((2 + _PLANES[kind], B, H, W), dtype=torch.float32, device=dev)
+            code = lib.pdhg_fused_launch(*args, scratch.data_ptr(), *sched, stream)
+    _build.check(code, f"pdhg_fused ({B} x {H}x{W}, {kind}, {plan})")
     pdhg_fused.launches += 1
+    pdhg_fused.route_launches[plan.route] += 1
     return out
 
 
@@ -155,29 +328,51 @@ def kernel_scalars(u_b, sigma, tau, lam, dtype=np.float32):
     return torch.stack([per_problem(v) for v in (sigma, tau, lam)], dim=1)
 
 
+def _checked(u_b, taps, kind, prox):
+    if kind not in KINDS:
+        raise ValueError(f"unknown PDHG kind {kind!r}; the kernel takes {KINDS}")
+    if prox not in PROXES:
+        raise ValueError(f"unknown prox {prox!r}; the PDHG kernel takes {PROXES}")
+    if u_b.device.type != "cpu":
+        check_cuda_input("pdhg_fused", u_b, taps)
+
+
 def pdhg_fused(u_b, taps, sigma, tau, lam, iterations: int, kind="tv8", prox="none"):
-    """Batched fixed-iteration PDHG on a separable conv, one CTA per
-    problem.
+    """Batched fixed-iteration PDHG on a separable conv in one launch, on
+    the route of :func:`plan_pdhg` (a cluster of CTAs per problem with its
+    planes in shared memory, or one CTA per problem on global scratch).
 
     u_b: (B, H, W) float32, the data images; taps: (taps_h, taps_w);
     sigma, tau, lam: scalars or (B,) (λ already normalization-scaled);
     kind "tv8" | "tviso" | "l1"; prox "none" | "positive". The plain
     version runs for a CPU tensor, the CUDA kernel for a CUDA tensor.
-    ``pdhg_fused.launches`` counts the kernel's launches. Returns x
+    ``pdhg_fused.launches`` counts the kernel's launches, and
+    ``pdhg_fused.route_launches`` the launches by route. Returns x
     (B, H, W).
     """
-    if kind not in KINDS:
-        raise ValueError(f"unknown PDHG kind {kind!r}; the kernel takes {KINDS}")
-    if prox not in PROXES:
-        raise ValueError(f"unknown prox {prox!r}; the PDHG kernel takes {PROXES}")
+    _checked(u_b, taps, kind, prox)
     scal = kernel_scalars(u_b, sigma, tau, lam)
     if u_b.device.type == "cpu":
         return pdhg_fused_torch(u_b, scal, taps, iterations, kind, prox)
-    check_cuda_input("pdhg_fused", u_b, taps)
     return _launch(u_b.contiguous(), scal, taps, iterations, kind, prox)
 
 
 pdhg_fused.launches = 0
+pdhg_fused.route_launches = {"resident": 0, "global": 0}
+
+
+def phase_clocks(u_b, taps, sigma, tau, lam, iterations: int, kind="tv8", prox="none"):
+    """One launch of the resident kernel with its phase timer on: {phase:
+    SM clocks that CTA 0 spent in it over the whole solve} (``PHASES``; the
+    launch counts in ``pdhg_fused.launches``). Raises on the global route
+    and for a CPU tensor."""
+    _checked(u_b, taps, kind, prox)
+    if u_b.device.type == "cpu":
+        raise ValueError("pdhg_fused: the phase timer runs on the card")
+    scal = kernel_scalars(u_b, sigma, tau, lam)
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=u_b.device)
+    _launch(u_b.contiguous(), scal, taps, iterations, kind, prox, prof)
+    return dict(zip(PHASES, prof.tolist()))
 
 
 def check_pdhg_fused(solver):

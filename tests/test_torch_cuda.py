@@ -17,8 +17,11 @@ bit; the SplitBregman kernel, whose CG sums are double sums in another
 order, is held to 1e-5 of max|x| with equal live CG steps. The PDHG,
 Kaczmarz and greedy Kaczmarz kernels are held to 1e-5 of max|x| on edge
 shapes (m, n off multiples of 32, n = 1, k_max = 1, complex, −1 pads, a
-CSR row with a genuine column-0 entry), and the greedy kernel's drawn rows
-must equal its plain version's."""
+CSR row with a genuine column-0 entry), the PDHG kernel's resident route
+bit for bit, and the greedy kernel's drawn rows must equal its plain
+version's. A cluster kernel's resident route gives the same bits on
+every launch (20 repeats): a race between its CTAs would show as a
+launch that differs."""
 
 import numpy as np
 import pytest
@@ -204,6 +207,29 @@ def test_fused_phase_clocks(dev, name):
         assert v > 0 or (phase == "sums" and not dynamic), (phase, v)
     with pytest.raises(ValueError, match="resident route"):
         fused.phase_clocks(_inputs(dev, (2, 10000))[0], MILD, rho, lam, 2, 2, **kw)
+
+
+@pytest.mark.parametrize("batch,clusters", [(8, 8), (7, 16)])
+@pytest.mark.parametrize("name", ["fista-gradient", "pogm-early-gradient"])
+def test_fused_resident_route_repeats_bit_for_bit(dev, name, batch, clusters):
+    """20 launches of the PGM-TV kernel's resident route on a dynamic
+    schedule (its cluster sums every iteration) at 256², where batch 8
+    takes clusters of 8 and batch 7 clusters of 16: each equal to the
+    first, with equal counts."""
+    schedule = SCHEDULES[name]
+    x0 = torch.from_numpy(np.random.default_rng(6).normal(size=(batch, 256, 256))
+                          .astype(np.float32)).to(dev)
+    rho = torch.linspace(0.5, 0.9, batch, device=dev)
+    lam = torch.linspace(0.0, 0.1, batch, device=dev)
+    method, restart, rel_tol, _, warm = schedule
+    plan, _ = fused.plan_on_card(x0, MILD, method, restart, rel_tol, warm)
+    assert (plan.route, plan.clusters) == ("resident", clusters)
+    first, first_counts = fused.fista_tv_fused(x0, MILD, rho, lam, 12, 4, with_counts=True,
+                                               **_kw(schedule))
+    for _ in range(20):
+        got, counts = fused.fista_tv_fused(x0, MILD, rho, lam, 12, 4, with_counts=True,
+                                           **_kw(schedule))
+        assert torch.equal(got, first) and torch.equal(counts, first_counts)
 
 
 @pytest.mark.parametrize("name", sorted(n for n in SCHEDULES if not SCHEDULES[n][4]))
@@ -642,23 +668,101 @@ def test_fft_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                     0.9, 0.1, 2)
 
 
-# PDHG: (kind, prox) on odd shapes; the kernel rounds every op as its plain
-# version does
-@pytest.mark.parametrize("kind", ["tv8", "tviso", "l1"])
-@pytest.mark.parametrize("prox", ["none", "positive"])
-@pytest.mark.parametrize("shape", [(17, 23), (9, 33), (3, 2)])
-def test_pdhg_kernel_matches_plain(dev, kind, prox, shape):
+# PDHG: (kind, prox) on odd shapes and on the shapes that put each cluster
+# size and the global route in play (test_torch_pdhg_plan.PDHG_ROUTES); the
+# kernel rounds every op as its plain version does
+def _pdhg_inputs(dev, shape):
     rng = np.random.default_rng(11)
     u = torch.from_numpy(rng.normal(size=(3, *shape)).astype(np.float32)).to(dev)
     sigma = torch.tensor([0.5, 1.0, 0.0625], device=dev)
     tau = torch.tensor([0.3, 0.2, 0.9], device=dev)
     lam = torch.tensor([5e-3, 0.0, 0.1], device=dev)
+    return u, sigma, tau, lam
+
+
+PDHG_SHAPES = [(17, 23), (9, 33), (3, 2), (25, 256), (55, 300), (110, 300), (221, 300),
+               (2, 15000)]
+
+
+@pytest.mark.parametrize("kind", ["tv8", "tviso", "l1"])
+@pytest.mark.parametrize("prox", ["none", "positive"])
+@pytest.mark.parametrize("shape", PDHG_SHAPES)
+def test_pdhg_kernel_matches_plain(dev, kind, prox, shape):
+    from test_torch_pdhg_plan import PDHG_ROUTES
+
+    u, sigma, tau, lam = _pdhg_inputs(dev, shape)
+    taps = TAPS63 if shape == (221, 300) else TAPS
+    plan, active = pdhg.plan_on_card(u, taps, kind)
+    assert (plan.route, plan.clusters) == PDHG_ROUTES[shape][kind]
+    assert plan.route == "global" or active >= 1
     before = pdhg.pdhg_fused.launches
-    got = pdhg.pdhg_fused(u, TAPS, sigma, tau, lam, 9, kind, prox)
+    on_route = pdhg.pdhg_fused.route_launches[plan.route]
+    got = pdhg.pdhg_fused(u, taps, sigma, tau, lam, 9, kind, prox)
     assert pdhg.pdhg_fused.launches == before + 1
+    assert pdhg.pdhg_fused.route_launches[plan.route] == on_route + 1
     scal = pdhg.kernel_scalars(u, sigma, tau, lam)
-    want = pdhg.pdhg_fused_torch(u, scal, TAPS, 9, kind, prox)
+    want = pdhg.pdhg_fused_torch(u, scal, taps, 9, kind, prox)
     _close(got, want, 1e-5)
+    if plan.route == "resident":
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind,shape", [("tv8", (221, 300)), ("tv8", (256, 256)),
+                                        ("tviso", (256, 256)), ("l1", (110, 300))])
+def test_pdhg_resident_route_repeats_bit_for_bit(dev, kind, shape):
+    """20 launches of the resident route, each equal to the first and to
+    the plain version."""
+    u, sigma, tau, lam = _pdhg_inputs(dev, shape)
+    taps = TAPS63 if shape == (221, 300) else TAPS
+    assert pdhg.plan_on_card(u, taps, kind)[0].route == "resident"
+    first = pdhg.pdhg_fused(u, taps, sigma, tau, lam, 20, kind)
+    for _ in range(20):
+        assert torch.equal(pdhg.pdhg_fused(u, taps, sigma, tau, lam, 20, kind), first)
+    scal = pdhg.kernel_scalars(u, sigma, tau, lam)
+    assert torch.equal(first, pdhg.pdhg_fused_torch(u, scal, taps, 20, kind))
+
+
+@pytest.mark.parametrize("kind", ["tv8", "tviso", "l1"])
+def test_pdhg_phase_clocks(dev, kind):
+    """The resident kernel's phase timer: one launch, the same x as without
+    the timer, clocks in every phase; the global route has no timer and
+    raises."""
+    u, sigma, tau, lam = _pdhg_inputs(dev, (110, 300))
+    want = pdhg.pdhg_fused(u, TAPS, sigma, tau, lam, 6, kind, "positive")
+    before = pdhg.pdhg_fused.launches
+    clocks = pdhg.phase_clocks(u, TAPS, sigma, tau, lam, 6, kind, "positive")
+    assert pdhg.pdhg_fused.launches == before + 1
+    assert list(clocks) == list(pdhg.PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert torch.equal(pdhg.pdhg_fused(u, TAPS, sigma, tau, lam, 6, kind, "positive"), want)
+    ug = _pdhg_inputs(dev, (2, 15000))[0]
+    with pytest.raises(ValueError, match="resident route"):
+        pdhg.phase_clocks(ug, TAPS, sigma, tau, lam, 2, kind)
+
+
+@pytest.mark.parametrize("kind", ["tv8", "tviso", "l1"])
+@pytest.mark.parametrize("shape", [(256, 256), (221, 300), (64, 64), (17, 23)])
+def test_cluster_counts_of_the_pdhg_planner_tests(dev, kind, shape):
+    """On an H100 the card holds, for every fitting cluster size of every
+    dual kind, the clusters of the resident PDHG kernel that
+    tests/test_torch_pdhg_plan.py plans with, and counts the planner's
+    shared memory."""
+    from test_torch_pdhg_plan import H100_RESIDENT
+
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    H, W = shape
+    held = dict(H100_RESIDENT)
+    fit = pdhg.fitting_sizes(kind, H, W, *limits)
+    assert fit
+    for c in fit:
+        rows = -(-H // c)
+        smem, got = pdhg.resident_limits(dev.index, kind, c, rows, W)
+        assert smem == pdhg.cluster_smem_bytes(kind, rows, W)
+        assert got == held[c], (c, kind, shape)
 
 
 def _kaczmarz_case(dev, case, seed=12):
