@@ -28,7 +28,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      resident route by its route counter) and
      solve_batched_unrolled (TV kernel, one launch per FISTA iteration),
      held against the f64 reference solutions of bench_ref_f64.npz; the
-     OptISTA and POGM flagship through solve_batched_fast;
+     OptISTA and POGM flagship through solve_batched_fast, with the
+     composed solve_batched_unrolled of each timed beside it;
   5. the 512² cell of tools/bench_suite.py (fista_tv_512_tiled_b16: 9×9
      Gaussian σ = 2, ρ = 0.95, λ = 5e-4, 50 × 10, batch 16) through
      solve_batched_fast, which must run the tiled kernel, held on two
@@ -57,7 +58,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3h. each FFT kernel against its plain version, held to the plain
      version's own spread under b·(1 + 2⁻²³) (FFT_SPREAD), with both
      times: the fused FISTA-L1-DFT on 16 distinct 256² CS problems with λ
-     per problem (60 iterations), the fused FISTA-L21-SENSE and the fused
+     per problem (60 iterations; its plan printed first, on the resident
+     route by its route counter, and bit for bit the plain version), and
+     its global route on 4 problems of 512² (bit for bit, the route
+     counter set to 0 just before and required to read one global
+     launch), the fused FISTA-L21-SENSE and the fused
      SplitBregman L21 + TV (4 × 8 × 8, TV 5, with the live CG steps of
      kernel and plain version side by side, its plan printed first: route,
      CTAs per slice, row bands, coils per CTA, shared memory, clusters
@@ -79,7 +84,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      a float64 solve of the plain version on the card, and the error
      against the true images beside the float64 solve's own:
      fista_l1_cs_dft256_b16 (BASELINE #2, also through
-     solve_batched_unrolled, the composed torch.fft path),
+     solve_batched_unrolled, the composed torch.fft path; its one launch
+     on the resident route by the route counter),
      fista_l21_sense128_6coil_b8 (FISTA with complex L1 on the SENSE
      problem) and splitbregman_sense128_6coil_b8 (BASELINE #4, also
      composed; its one launch on the resident route by the route
@@ -154,6 +160,16 @@ does the same for the fused PDHG kernel (row 11): tv8 at the PDHG cell
 solve_batched_fast, with each plan and the kernel's clocks per phase where
 ROOT's package has them; and row 8 (FISTA-L1-DFT on the CS cell) beside
 its composed solve_batched_unrolled, in turns, three readings each.
+
+    python3 chip_smoke.py --time-fista-l1-dft [ROOT]
+
+does the same for the fused FISTA-L1-DFT kernel (row 8): the CS cell's 16
+distinct 256² problems (60 iterations), 1 and 64 problems of 256², 16 of
+128², 4 of 512² on the global route, the cell through solve_batched_fast,
+and the kernel in turns with the cell's composed solve_batched_unrolled,
+whose device time torch.profiler also reads; row 9 as a control; with
+each plan and the kernel's clocks per phase where ROOT's package has
+them.
 """
 
 from __future__ import annotations
@@ -623,19 +639,14 @@ def admm_f64(cell, B, k, device):
     return s64.A, x64.reshape(k, -1)
 
 
-def device_breakdown(name, fn):
-    """torch.profiler over one call of `fn` after a warm-up: print the
-    wall time of one call without the profiler, the device time by kernel
-    (the five largest) and the device's busy share of that wall time."""
+def device_kernels(fn):
+    """torch.profiler over one call of `fn` (warm it up first): [(device
+    ms, count, kernel name)] of every device kernel it ran, the largest
+    first. Their sum is the call's device time, which the host's launch
+    delays do not move."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -646,7 +657,22 @@ def device_breakdown(name, fn):
         ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
         if ms > 0:
             rows.append((ms, e.count, e.key))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def device_breakdown(name, fn):
+    """torch.profiler over one call of `fn` after a warm-up: print the
+    wall time of one call without the profiler, the device time by kernel
+    (the five largest) and the device's busy share of that wall time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rows = device_kernels(fn)
     busy = sum(ms for ms, _, _ in rows)
     top = "; ".join(f"{key[:60]} {ms:.3f} ms ({count}×)" for ms, count, key in rows[:5])
     print(f"profile[{name}]: wall {wall:.2f} ms without the profiler, device busy {busy:.2f} ms "
@@ -655,8 +681,8 @@ def device_breakdown(name, fn):
 
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
-    `reset`, set them to 0 first (and the PGM-TV, SplitBregman and PDHG
-    kernels' counts by route)."""
+    `reset`, set them to 0 first (and the PGM-TV, SplitBregman, PDHG and
+    FISTA-L1-DFT kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -673,7 +699,7 @@ def launch_counts(reset=False):
         for fn in fns:
             fn.launches = 0
         for fn in (fista_tv_fused.fista_tv_fused, splitbregman_fused.splitbregman_l1_tv_fused,
-                   pdhg_fused.pdhg_fused):
+                   pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused):
             fn.route_launches = {"resident": 0, "global": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
@@ -1187,14 +1213,15 @@ def sb_ops(hw, coils, iterations, inner, tv, live_steps):
     return iterations * (inner * per_inner + n + 4 * hw) + live_steps * (n + 24 * hw)
 
 
-def hold_fft(name, kernel, plain, x0, x0_ulp, counts=False):
+def hold_fft(name, kernel, plain, x0, x0_ulp, counts=False, bitwise=False):
     """Run `kernel(x0)` and `plain(x0)` (each → (x, counts)), and the plain
     version once more on x0_ulp, the seed of b·(1 + 2⁻²³); print the error,
     whether the two agree bit for bit, and the plain version's own spread
     (with `counts`, also the live CG steps of all three, which must agree
     between kernel and plain); hold the kernel to max(FFT_SPREAD × spread,
-    FFT_FLOOR) in relative 2-norm and TOL_FUSED_MAX of max|x| per entry.
-    Returns (max|kernel − plain|, the kernel's counts)."""
+    FFT_FLOOR) in relative 2-norm and TOL_FUSED_MAX of max|x| per entry,
+    and with `bitwise` to the plain version's bits. Returns (max|kernel −
+    plain|, the kernel's counts)."""
     import torch
 
     got, kc = kernel(x0)
@@ -1217,6 +1244,8 @@ def hold_fft(name, kernel, plain, x0, x0_ulp, counts=False):
                 f"{name}: the kernel's live CG steps differ from the plain version's")
     require(norm <= bar and err <= TOL_FUSED_MAX * scale,
             f"{name} kernel disagrees: max {err:.3e}, rel. 2-norm {norm:.3e}")
+    require(not bitwise or bool(torch.equal(got, want)),
+            f"{name}: the kernel differs from the plain version's bits")
     return err, kc
 
 
@@ -1234,12 +1263,13 @@ def fft_kernel_phase(dev, draws):
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
     from rls_tpu_torch.kernels import sense_fused as k9
     from rls_tpu_torch.kernels import splitbregman_fused as k10
+    from rls_tpu_torch.kernels.fista_tv_fused import problem_scalars
 
     out = {}
     bump = 1.0 + 2.0**-23
 
-    def record(name, kernel, plain, x0, x0u, counts=False, reps=2):
-        err, live = hold_fft(name, kernel, plain, x0, x0u, counts)
+    def record(name, kernel, plain, x0, x0u, counts=False, reps=2, bitwise=False):
+        err, live = hold_fft(name, kernel, plain, x0, x0u, counts, bitwise)
         ms = alternate_ms(lambda: plain(x0), lambda: kernel(x0), reps=reps)
         print(f"{name}: kernel {ms[1]:.3f} ms, plain {ms[0]:.3f} ms")
         out[name.split("[")[0]] = {"err": err, "ms": ms, "live": live}
@@ -1251,12 +1281,44 @@ def fft_kernel_phase(dev, draws):
     x0 = op.rmv(b).reshape(CS_BATCH, CS_N, CS_N)
     x0u = op.rmv(b * bump).reshape(x0.shape)
     lam = torch.linspace(0.5, 2.0, CS_BATCH, device=dev) * CS_LAM
-    scal = k8.problem_scalars(x0, RHO, lam)
+    scal = problem_scalars(x0, RHO, lam)
     tab = torch.as_tensor(k8._momentum_table("fista", CS_ITERS), device=dev)
     tables = dc.dft_tables(op.mask)
+    plan, active = k8.plan_on_card(x0)
+    print(f"fista_l1_dft_fused[{CS_N}², batch {CS_BATCH}]: plan route {plan.route}, "
+          f"{plan.clusters} CTAs per problem, {plan.rows}-row bands, {plan.cols}-column blocks, "
+          f"{plan.ctas} CTAs, {plan.smem} B of shared memory per CTA, {active} clusters "
+          f"resident at once")
+    k8.fista_l1_dft_fused.route_launches = {"resident": 0, "global": 0}
     record(f"fista_l1_dft_fused[{CS_N}², batch {CS_BATCH}, {CS_ITERS} it.]",
            lambda x: (k8.fista_l1_dft_fused(x, op.mask, RHO, lam, CS_ITERS), None),
-           lambda x: (k8.fista_l1_dft_fused_torch(x, scal, tab, tables), None), x0, x0u)
+           lambda x: (k8.fista_l1_dft_fused_torch(x, scal, tab, tables), None), x0, x0u,
+           bitwise=True)
+    routes = k8.fista_l1_dft_fused.route_launches
+    require(plan.route == "resident" and routes["global"] == 0 and routes["resident"] > 0,
+            f"the FISTA-L1-DFT kernel at {CS_N}² took the resident route: {plan}, {routes}")
+    # its global route (one CTA per problem, the spectrum through global
+    # scratch), which a spectrum too large for a cluster's bands takes: 4
+    # problems of 512² on a 35 % mask, held to the bit but not timed
+    gn, gb = 512, 4
+    rng = np.random.default_rng(11)
+    gop = rtt.SubsampledDFT2RealOperator.from_mask(rng.uniform(size=(gn, gn)) < 0.35, (gn, gn),
+                                                    device=dev)
+    gbv = gop.mv(torch.from_numpy(rng.normal(size=(gb, gn * gn)).astype(np.float32)).to(dev))
+    gx0, gx0u = (gop.rmv(v).reshape(gb, gn, gn) for v in (gbv, gbv * bump))
+    glam = torch.linspace(0.5, 2.0, gb, device=dev) * CS_LAM
+    gscal = problem_scalars(gx0, RHO, glam)
+    gtables = dc.dft_tables(gop.mask)
+    gplan, _ = k8.plan_on_card(gx0)
+    print(f"fista_l1_dft_fused[{gn}², batch {gb}]: plan route {gplan.route}, {gplan.ctas} CTAs")
+    k8.fista_l1_dft_fused.route_launches = {"resident": 0, "global": 0}
+    hold_fft(f"fista_l1_dft_fused[global route, {gn}², batch {gb}, {CS_ITERS} it.]",
+             lambda x: (k8.fista_l1_dft_fused(x, gop.mask, RHO, glam, CS_ITERS), None),
+             lambda x: (k8.fista_l1_dft_fused_torch(x, gscal, tab, gtables), None), gx0, gx0u,
+             bitwise=True)
+    routes = k8.fista_l1_dft_fused.route_launches
+    require(routes == {"resident": 0, "global": 1},
+            f"the FISTA-L1-DFT kernel at {gn}² took the global route once: {routes}")
 
     # rows 9 and 10: the 8 SENSE slices
     maps, mask, X = sense_problem()
@@ -1388,6 +1450,7 @@ def fft_cell_phase(dev, draws):
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
     from rls_tpu_torch.kernels import sense_fused as k9
     from rls_tpu_torch.kernels import splitbregman_fused as k10
+    from rls_tpu_torch.kernels.fista_tv_fused import problem_scalars
 
     launched, composed_ms = {}, {}
 
@@ -1400,8 +1463,9 @@ def fft_cell_phase(dev, draws):
         print(f"launches ({name}): {got}")
         require(got == {**{k: 0 for k in got}, kernel: 1},
                 f"{name}: expected one launch of {kernel} and no others")
-        if kernel == "splitbregman_l1_tv_fused":
-            routes = k10.splitbregman_l1_tv_fused.route_launches
+        if kernel in ("splitbregman_l1_tv_fused", "fista_l1_dft_fused"):
+            routes = (k10.splitbregman_l1_tv_fused if kernel == "splitbregman_l1_tv_fused"
+                      else k8.fista_l1_dft_fused).route_launches
             print(f"launches ({name}) by route: {routes}")
             require(routes == {"resident": 1, "global": 0},
                     f"{name}: expected one launch on the resident route, got {routes}")
@@ -1432,7 +1496,7 @@ def fft_cell_phase(dev, draws):
     op64 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N),
                                                           dtype=torch.float64, device=dev)
     x0 = op64.rmv(B[:, :2].T.double()).reshape(2, CS_N, CS_N)
-    scal = k8.problem_scalars(x0, RHO, CS_LAM, np.float64)
+    scal = problem_scalars(x0, RHO, CS_LAM, np.float64)
     tab = torch.as_tensor(k8._momentum_table("fista", CS_ITERS, dtype=np.float64), device=dev)
     x64 = k8.fista_l1_dft_fused_torch(x0, scal, tab, dc.dft_tables(op64.mask, torch.float64))
     run("fista_l1_cs_dft256_b16", solver, B, xt[None].repeat(CS_BATCH, 1), "fista_l1_dft_fused",
@@ -2210,6 +2274,10 @@ def main() -> int:
         ms = cuda_ms(lambda: rtt.solve_batched_fast(s_cls, B), reps=3)
         print(f"solve_batched_fast[{cls}]: recon_rel_err {rec:.4f}, "
               f"{BATCH / (ms / 1e3):.1f} problems/s ({ms:.2f} ms per batch of {BATCH})")
+        # the kernel's yardstick: the composed solve at the same shapes
+        rtt.solve_batched_unrolled(s_cls, B)
+        ms = cuda_ms(lambda: rtt.solve_batched_unrolled(s_cls, B), reps=1)
+        print(f"solve_batched_unrolled[{cls}] (composed): {ms:.2f} ms per batch of {BATCH}")
 
     # 5. fista_tv_512_tiled_b16 through the public API; counts start at 0
     n5 = 512
@@ -2699,6 +2767,122 @@ def time_pdhg(root) -> int:
     return 0
 
 
+def time_fista_l1_dft(root) -> int:
+    """``--time-fista-l1-dft ROOT``: the fused FISTA-L1-DFT kernel (row 8)
+    of the rls_tpu_torch package under ROOT timed alone, three readings
+    each by CUDA events, at BASELINE #2's schedule (ρ = 0.95, 60
+    iterations, λ per problem around 2e-3): the CS cell's 16 distinct 256²
+    problems (the phantoms of phase 3h), 1 and 64 problems of 256², 16 of
+    128² and 4 of 512² (the global route); the cell through
+    solve_batched_fast; the kernel and the cell's composed
+    solve_batched_unrolled (torch.fft) in turns, three rounds, with the
+    composed solve's device time by torch.profiler (the sum of its
+    kernels' times, which host delays do not move) beside the kernel's;
+    row 9 (FISTA-L21-SENSE on the 8 SENSE slices) as a control, with its
+    cell's composed solve (wall and device time). Where the
+    package has them, each case's plan and its clocks of CTA 0 by phase.
+    One JSON line. Run it for two trees in turns (parent, change, change,
+    parent) to compare their kernels on one card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+    from rls_tpu_torch.kernels import sense_fused as k9
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    out = {"root": root, "kernel": os.path.relpath(k8.__file__, ROOT), "card": smi}
+    img2, idx2 = bench_suite_draws()["cs"]
+    op = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
+    x16 = op.rmv(op.mv(torch.from_numpy(cs_phantoms(img2)).to(dev))).reshape(
+        CS_BATCH, CS_N, CS_N)
+    lam16 = torch.linspace(0.5, 2.0, CS_BATCH, device=dev) * CS_LAM
+    rng = np.random.default_rng(13)
+
+    def other(n, batch):
+        """`batch` images of n² through a 35 % mask of their own."""
+        o = rtt.SubsampledDFT2RealOperator.from_mask(rng.uniform(size=(n, n)) < 0.35, (n, n),
+                                                     device=dev)
+        imgs = torch.from_numpy(rng.normal(size=(batch, n * n)).astype(np.float32)).to(dev)
+        return o.rmv(o.mv(imgs)).reshape(batch, n, n), o.mask, lam16[:batch]
+
+    cases = (
+        (f"cell: {CS_BATCH} x {CS_N}²", x16, op.mask, lam16, 3),
+        (f"1 x {CS_N}²", x16[:1].contiguous(), op.mask, lam16[:1], 5),
+        (f"64 x {CS_N}²", x16.repeat(4, 1, 1), op.mask, lam16.repeat(4), 1),
+        ("16 x 128²", *other(128, 16), 5),
+        ("4 x 512² (global route)", *other(512, 4), 1),
+    )
+    for name, x, mask, lam, reps in cases:
+        def run(x=x, mask=mask, lam=lam):
+            return k8.fista_l1_dft_fused(x, mask, RHO, lam, CS_ITERS)
+
+        run()
+        out[f"{name} ms"] = [cuda_ms(run, reps) for _ in range(3)]
+        if hasattr(k8, "plan_on_card"):  # the planner and timer, where the tree has them
+            plan, active = k8.plan_on_card(x)
+            out[f"{name} plan"] = dict(vars(plan), resident_clusters=active)
+            if plan.route == "resident":
+                out[f"{name} clocks of CTA 0 by phase"] = k8.phase_clocks(x, mask, RHO, lam,
+                                                                         CS_ITERS)
+    # the cell as solve_batched_fast runs it (the bench tiles its one column
+    # 16 times), beside its composed solve, in turns
+    B8 = op.mv(torch.from_numpy(img2).to(dev))[:, None].repeat(1, CS_BATCH).contiguous()
+    s8 = rtt.FISTA.create(op, reg=rtt.L1Regularization(CS_LAM), iterations=CS_ITERS, rho=RHO,
+                          rel_tol=0.0, track_residual=False)
+    x8 = op.rmv(B8.T).reshape(CS_BATCH, CS_N, CS_N).contiguous()
+    row8 = (
+        ("row 8 fista_l1_dft_fused", lambda: k8.fista_l1_dft_fused(x8, op.mask, RHO, CS_LAM,
+                                                                   CS_ITERS)),
+        ("fista_l1_cs_dft256_b16 solve_batched_fast", lambda: rtt.solve_batched_fast(s8, B8)),
+        ("fista_l1_cs_dft256_b16 solve_batched_unrolled",
+         lambda: rtt.solve_batched_unrolled(s8, B8)),
+    )
+    for name, fn in row8:
+        fn()
+        out[f"{name} ms"] = []
+    for _ in range(3):
+        for name, fn in row8:
+            out[f"{name} ms"].append(cuda_ms(fn, 2))
+    for name, fn in (row8[0], row8[2]):
+        readings = [device_kernels(fn) for _ in range(3)]
+        out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in r) for r in readings]
+        out[f"{name} device kernels (profiler, last)"] = [
+            [key[:80], count, ms] for ms, count, key in readings[-1][:6]]
+    # row 9, which this kernel's changes must not move
+    maps, mask, X = sense_problem()
+    op9 = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N), device=dev)
+    x9 = op9.rmv(op9.mv(torch.from_numpy(X).to(dev))).reshape(SENSE_SLICES, 2, SENSE_N, SENSE_N)
+
+    def row9():
+        return k9.fista_l21_sense_fused(x9, op9.mask, op9.coils_r, op9.coils_i, RHO, SENSE_LAM,
+                                        SENSE_ITERS)
+
+    row9()
+    out["row 9 sense_fused ms"] = [cuda_ms(row9, 2) for _ in range(3)]
+    # row 9's yardstick too: its cell's composed solve, wall and device time
+    s9 = rtt.FISTA.create(op9, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
+                          iterations=SENSE_ITERS, rho=RHO)
+    B9 = op9.mv(torch.from_numpy(X).to(dev)).T.contiguous()
+    rtt.solve_batched_unrolled(s9, B9)
+    out["row 9 composed solve_batched_unrolled ms"] = [
+        cuda_ms(lambda: rtt.solve_batched_unrolled(s9, B9), 1) for _ in range(3)]
+    out["row 9 composed device ms (profiler)"] = [
+        sum(ms for ms, _, _ in device_kernels(lambda: rtt.solve_batched_unrolled(s9, B9)))
+        for _ in range(3)]
+    print(json.dumps(out))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--time-cgnr"]:
         sys.exit(time_cgnr(sys.argv[2] if len(sys.argv) > 2 else ROOT))
@@ -2708,4 +2892,6 @@ if __name__ == "__main__":
         sys.exit(time_splitbregman(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     if sys.argv[1:2] == ["--time-pdhg"]:
         sys.exit(time_pdhg(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] == ["--time-fista-l1-dft"]:
+        sys.exit(time_fista_l1_dft(sys.argv[2] if len(sys.argv) > 2 else ROOT))
     sys.exit(main())

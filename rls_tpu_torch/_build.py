@@ -100,6 +100,12 @@ _SIGNATURES = {
     ),
     # (x0hat, scal, tab, tw, weights, out, scratch, B, H, W, iterations, stream)
     "fista_l1_dft_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (clusters, H, W, out: int64[2] = shared memory per CTA, clusters
+    #  resident at once)
+    "fista_l1_dft_cluster_occupancy": (_I, _I, _I, _P),
+    # (x0hat, scal, tab, tw, wt, out, prof, B, H, W, iterations, clusters,
+    #  smem, stream)
+    "fista_l1_dft_cluster_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # (x0hat, scal, tab, tw, weights, coils_r, coils_i, out, scratch, B, H, W,
     #  C, iterations, stream)
     "sense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

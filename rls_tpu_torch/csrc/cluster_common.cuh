@@ -1,6 +1,6 @@
 // Host and device code shared by the kernels that run one problem on a
 // thread-block cluster (fista_tv_fused.cu, splitbregman_fused.cu,
-// pdhg_fused.cu): a phase timer, a CTA's band of image rows with the
+// pdhg_fused.cu, fista_l1_dft_fused.cu): a phase timer, a CTA's band of image rows with the
 // stencil passes that read other bands through distributed shared memory,
 // the cluster's double sums in rank order, and the launch configuration
 // with its residency query.

@@ -40,6 +40,13 @@ constexpr int kFftMax = 1024;  // the largest H or W
 // floats per shared array: lines x (n + 1) at most, over every n
 constexpr int kFftSmem = 4352;
 
+// An axis the in-kernel FFT takes: a power of two from 2 to kFftMax.
+inline bool valid_fft_size(int n) { return n >= 2 && n <= kFftMax && (n & (n - 1)) == 0; }
+
+// n floats rounded up to a multiple of 4: the arrays a kernel lays out in
+// its dynamic shared memory stay 16-byte aligned.
+__host__ __device__ inline size_t ceil4(size_t n) { return (n + 3) / 4 * 4; }
+
 struct FftShared {
     float re[kFftSmem];
     float im[kFftSmem];

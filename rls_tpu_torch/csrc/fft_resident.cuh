@@ -1,7 +1,10 @@
 // A CTA's masked normal op F^H M F of one whole complex plane kept in
 // shared memory, with the FFT's stages in registers: the in-kernel FFT of
-// the resident SplitBregman route (splitbregman_fused.cu), built so that
-// the other FFT kernels can adopt it.
+// the resident SplitBregman route (splitbregman_fused.cu). The resident
+// FISTA-L1-DFT route (fista_l1_dft_fused.cu), whose spectrum is split over
+// a cluster, runs its passes on the same pieces (Layout, sublines,
+// dif_regs / dit_regs, smem_stage, and the butterflies dif_bfly / dit_bfly
+// for the stages it fuses with its loads and stores).
 //
 // It computes what dft_common.cuh computes, stage for stage and operation
 // for operation (the same radix-2 DIF forward and DIT inverse butterflies,
@@ -87,6 +90,29 @@ __device__ __forceinline__ void with_points(int P, F f) {
         f(std::integral_constant<int, 1>{});
 }
 
+// One forward butterfly (decimation in frequency) on a = (ar, ai), b = (br,
+// bi) with twiddle w: a + b, (a - b) w, each operation rounded on its own.
+__device__ __forceinline__ void dif_bfly(float& ar, float& ai, float& br, float& bi, float wr,
+                                         float wi) {
+    const float dr = fsub(ar, br), di = fsub(ai, bi);
+    ar = fadd(ar, br);
+    ai = fadd(ai, bi);
+    br = fsub(fmul(dr, wr), fmul(di, wi));
+    bi = fadd(fmul(dr, wi), fmul(di, wr));
+}
+
+// One inverse butterfly (decimation in time) with the conjugate twiddle
+// (wr, wi): a + b w, a - b w.
+__device__ __forceinline__ void dit_bfly(float& ar, float& ai, float& br, float& bi, float wr,
+                                         float wi) {
+    const float tr = fsub(fmul(br, wr), fmul(bi, wi));
+    const float ti = fadd(fmul(br, wi), fmul(bi, wr));
+    br = fsub(ar, tr);
+    bi = fsub(ai, ti);
+    ar = fadd(ar, tr);
+    ai = fadd(ai, ti);
+}
+
 // The forward stages of spans L/2 .. 1 on a team's sub-line in registers:
 // lane t holds points j T + t of it in re[j], im[j].
 template <int kP>
@@ -102,13 +128,7 @@ __device__ __forceinline__ void dif_regs(float (&re)[kP], float (&im)[kP], int t
         for (int j = 0; j < kP; ++j) {
             if (j & h) continue;
             const int k = (j * T + t) & (m - 1);
-            const float wr = tw.re[k << step], wi = tw.im[k << step];
-            const float ar = re[j], ai = im[j], br = re[j + h], bi = im[j + h];
-            const float dr = fsub(ar, br), di = fsub(ai, bi);
-            re[j] = fadd(ar, br);
-            im[j] = fadd(ai, bi);
-            re[j + h] = fsub(fmul(dr, wr), fmul(di, wi));
-            im[j + h] = fadd(fmul(dr, wi), fmul(di, wr));
+            dif_bfly(re[j], im[j], re[j + h], im[j + h], tw.re[k << step], tw.im[k << step]);
         }
     }
     for (int lm = ly.lg_t - 1; lm >= 0; --lm) {  // span m < T: lanes t and t ^ m
@@ -173,14 +193,7 @@ __device__ __forceinline__ void dit_regs(float (&re)[kP], float (&im)[kP], int t
         for (int j = 0; j < kP; ++j) {
             if (j & h) continue;
             const int k = (j * T + t) & (m - 1);
-            const float wr = tw.re[k << step], wi = -tw.im[k << step];
-            const float ar = re[j], ai = im[j], br = re[j + h], bi = im[j + h];
-            const float tr = fsub(fmul(br, wr), fmul(bi, wi));
-            const float ti = fadd(fmul(br, wi), fmul(bi, wr));
-            re[j] = fadd(ar, tr);
-            im[j] = fadd(ai, ti);
-            re[j + h] = fsub(ar, tr);
-            im[j + h] = fsub(ai, ti);
+            dit_bfly(re[j], im[j], re[j + h], im[j + h], tw.re[k << step], -tw.im[k << step]);
         }
     }
 }
@@ -223,24 +236,15 @@ __device__ __forceinline__ void smem_stage(float* re, float* im, Tw tw, int lg_n
         const int k = j & (m - 1);
         const int i0 = line * ls + (((j >> lm) << (lm + 1)) + k) * ps;
         const int i1 = i0 + m * ps;
-        const float ar = re[i0], ai = im[i0], br = re[i1], bi = im[i1];
-        const float wr = tw.re[k << step];
-        if (kInverse) {
-            const float wi = -tw.im[k << step];
-            const float tr = fsub(fmul(br, wr), fmul(bi, wi));
-            const float ti = fadd(fmul(br, wi), fmul(bi, wr));
-            re[i0] = fadd(ar, tr);
-            im[i0] = fadd(ai, ti);
-            re[i1] = fsub(ar, tr);
-            im[i1] = fsub(ai, ti);
-        } else {
-            const float wi = tw.im[k << step];
-            const float dr = fsub(ar, br), di = fsub(ai, bi);
-            re[i0] = fadd(ar, br);
-            im[i0] = fadd(ai, bi);
-            re[i1] = fsub(fmul(dr, wr), fmul(di, wi));
-            im[i1] = fadd(fmul(dr, wi), fmul(di, wr));
-        }
+        float ar = re[i0], ai = im[i0], br = re[i1], bi = im[i1];
+        if (kInverse)
+            dit_bfly(ar, ai, br, bi, tw.re[k << step], -tw.im[k << step]);
+        else
+            dif_bfly(ar, ai, br, bi, tw.re[k << step], tw.im[k << step]);
+        re[i0] = ar;
+        im[i0] = ai;
+        re[i1] = br;
+        im[i1] = bi;
     }
 }
 

@@ -1,5 +1,17 @@
 // The whole batched FISTA-L1 compressed-sensing solve on a subsampled 2-D
-// DFT in one launch, one problem per CTA.
+// DFT in one launch, on one of two routes that the host planner
+// (kernels/fista_l1_dft_fused.py plan_fista_l1_dft) picks by shape:
+//
+// * resident: each problem runs on a thread-block cluster of c CTAs (c a
+//   power of two, at most 16, c <= H and c <= W) of 1024 threads; CTA r
+//   owns the image rows [r R, (r + 1) R) (R = H / c) and the spectrum's
+//   columns [r Wc, (r + 1) Wc) (Wc = W / c), and keeps its band of x and
+//   x_prev, its band of the spectrum and its block of columns in shared
+//   memory for the whole solve;
+// * global: one CTA per problem (the first design), the spectrum staged
+//   through shared memory chunk by chunk from global scratch
+//   (dft_common.cuh), for spectra whose band fits no cluster (512^2 and
+//   larger).
 //
 // Replaces the TPU kernel rls_tpu/kernels/fista_l1_dft_fused.py:_kernel
 // (:32-107; launched by fista_l1_dft_fused, :110, pallas_call :129). Per
@@ -7,29 +19,87 @@
 //   x_mom = x + a (x - x_prev)                 (a: momentum table, column 0)
 //   xg    = x_mom - rho (Re(F^H M F x_mom) - x0hat)
 //   x     = max(|xg| - rho lam, 0) (xg + eps) / (|xg| + eps)
-// The normal op is the in-kernel FFT of dft_common.cuh on the real image
-// (im = 0 in, the real part out); the momentum is formed as the forward row
-// pass loads x_mom, and the gradient step and the soft threshold as the
-// inverse row pass stores each pixel. Every f32 operation is rounded on its
-// own (rls::fmul & co.), as in the plain PyTorch version
-// (rls_tpu_torch/kernels/fista_l1_dft_fused.py), with which it agrees bit
-// for bit.
+// The normal op is the in-kernel FFT of the real image (im = 0 in, the
+// real part out): rows then columns forward by decimation in frequency,
+// the spectral weights (the mask in bit-reversed order times 1 / (H W)),
+// columns then rows back by decimation in time. The momentum is formed as
+// the forward row pass loads x_mom, and the gradient step and the soft
+// threshold as the inverse row pass stores each pixel (x_mom recomputed
+// there by the same rounded expression). Every f32 operation is rounded on
+// its own (rls::fmul & co.), as in the plain PyTorch version
+// (rls_tpu_torch/kernels/fista_l1_dft_fused.py), with which both routes
+// agree bit for bit: the resident route runs the same radix-2 stages on
+// the same twiddle table, only elsewhere (fft_resident.cuh's layout).
 //
 // What bounds it on an H100: a 256^2 problem is 10.5 MFLOP of FFT per
 // iteration (two complex 2-D transforms at 5 n log2 n), where the TPU
-// kernel's dense matrix sandwiches take ~400 MFLOP. A plane (512 KiB
-// complex) is larger than a block's shared memory, so each normal op makes
-// three passes over the spectrum in global memory (rows forward, columns
-// forward-weight-inverse, rows back), each staging 4096 points at a time
-// through shared memory, with a barrier after every radix-2 stage: some 600
-// barriers per iteration. One CTA per problem: at batch 16 only 16 of the
-// 132 SMs work, each running that chain of dependent stages, so the kernel
-// is bound by its latency, not by bytes or operations. Spreading a problem
-// over several CTAs, and several stages kept in registers between
-// barriers, are later work.
+// kernel's dense matrix sandwiches take ~400 MFLOP; the solve is a chain of
+// 60 dependent normal ops, bound by that chain's latency, not by bytes or
+// operations. A 256^2 complex spectrum (512 KiB) is larger than a block's
+// shared memory, so the global route makes three passes over the spectrum
+// in global memory per normal op, each staging 4096 points at a time with
+// a barrier after every radix-2 stage (~600 per iteration), on one CTA per
+// problem: 16 of 132 SMs at batch 16. The resident route spreads a problem
+// over a cluster of neighbouring SMs that write each other's shared memory
+// (DSMEM) and keeps the whole solve's state on chip. At the CS cell (256^2
+// x 16) the planner takes c = 16: 16-row bands, 16-column blocks, 102,472
+// bytes per CTA. A line of n points runs its stages in registers
+// (fft_resident.cuh: sub-lines of <= 128 points, spans >= 128 through
+// shared memory): a 256-point line has one shared-memory stage, which the
+// forward passes fuse with their loads and the inverse passes with their
+// stores.
+//
+// Resident route, one iteration:
+//   (a) rows forward on the CTA's own band: x_mom from x and x_prev, the
+//       first stage (span W / 2) fused with the loads into the band's
+//       spectrum (W > 128), the remaining stages in registers; each point
+//       (row, column k) is then stored into the column block of CTA k / Wc
+//       through DSMEM (the transpose, pushed by its writer);
+//   cluster barrier A;
+//   (b) the column pass on the CTA's own block: each column forward, times
+//       its spectral weights (wt, the weights transposed, from global
+//       memory), and back into the block; the write-back then stores each
+//       point (row k, column) into the band of CTA k / R through DSMEM, with
+//       the last inverse stage (span H / 2, H > 128) fused into it;
+//   cluster barrier B;
+//   (c) rows back on the own band, the last stage (span W / 2) fused with
+//       the pixel update: x_mom recomputed, the gradient step, the soft
+//       threshold, x_prev = x and x = the new value, in shared memory.
+// What orders each access to a buffer another CTA writes (no CTA ever
+// reads another's shared memory; DSMEM carries stores only):
+//   block (re, im) of CTA q: written by every CTA in (a)      A (RAW: every
+//        push before q's column pass); B (WAR: q's column pass of the
+//        iteration before, with its last reads in the write-back, before
+//        any push of the next (a), which follows B)
+//   band spectrum (re, im) of CTA q: written by q in (a) as the row pass's
+//        staging, by every CTA in (b)'s write-back; read by q in (a) and
+//        (c)                                               A (WAR: q's
+//        reads and writes of (a) before any write-back); B (RAW: every
+//        write-back before q's (c))
+//   x, x_prev: q's own, each pixel loaded in (a) and stored in (c) by the
+//        same thread (the same index map in both passes), so no barrier
+//        orders (c) before the next (a); a __syncthreads() orders the last
+//        (c) before the write-out, whose index map differs
+//   inside a pass: a __syncthreads() after each shared-memory stage that
+//        another thread of the CTA reads next
+// The set-up (twiddles, x = x_prev = 0) ends with a cluster barrier: every
+// CTA of the cluster is running before any DSMEM store. The last DSMEM
+// store of the solve precedes the last barrier B, so a CTA may exit after
+// its own (c) and write-out. With c = 1 the cluster barriers are
+// __syncthreads().
+//
+// A phase timer (prof): CTA 0's thread 0 adds the SM clocks between its
+// phase marks (set-up and write-out, loads, rows forward, the push to the
+// column blocks, barrier A, column transforms, write-back, barrier B, rows
+// back and store); off where prof is null.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_common.cuh"
 #include "dft_common.cuh"
+#include "fft_resident.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -84,6 +154,306 @@ fista_l1_dft_fused_kernel(const float* __restrict__ x0hat, const float* __restri
     }
 }
 
+
+// ---- the resident route: one problem per cluster, its state in shared
+// memory
+
+constexpr int kMaxCluster = 16;
+// the phases of the timer
+enum {
+    kSetup, kLoads, kRowsFwd, kScatter, kBarrierA, kCols, kWriteBack, kBarrierB, kRowsBack,
+    kPhases
+};
+
+// Shared memory of a CTA of the resident route at H x W on clusters of
+// `clusters` CTAs, in this order; the Python planner
+// (kernels/fista_l1_dft_fused.py resident_smem_bytes) counts the same: the
+// twiddles (H + W floats), x, x_prev and the band's spectrum (re, im), R W
+// floats each, the column block (re, im), H (Wc + 1) floats each, every
+// float array rounded up to 4 floats, and the phase timer (kPhases int64).
+__host__ __device__ inline size_t resident_smem_bytes(int H, int W, int clusters) {
+    const size_t band = rls::ceil4(static_cast<size_t>(H / clusters) * W);
+    const size_t block = rls::ceil4(static_cast<size_t>(H) * (W / clusters + 1));
+    return sizeof(float) * (rls::ceil4(H + W) + 4 * band + 2 * block) +
+           sizeof(long long) * kPhases;
+}
+
+struct ResidentArgs {
+    const float* x0hat;  // (B, H, W)
+    const float* scal;   // (B, 2) [rho, lam_eff]
+    const float* tab;    // (iterations, 4), the momentum table
+    const float* tw;     // H + W: [Re_H, Im_H, Re_W, Im_W]
+    const float* wt;     // (W, H): the spectral weights transposed
+    float* out;          // (B, H, W)
+    long long* prof;     // (kPhases,) or null
+    int B, H, W, iterations, clusters;
+};
+
+using Prof = rls::Prof<kPhases>;
+namespace fr = rls::fftr;
+
+__global__ void __launch_bounds__(kThreads, 1)
+fista_l1_dft_cluster_kernel(const ResidentArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int H = a.H, W = a.W, nc = a.clusters;
+    const int R = H / nc, Wc = W / nc;  // band rows, block columns
+    const int cp = Wc + 1;              // the block's pitch: column k of row r at r cp + k
+    const size_t nb = rls::ceil4(static_cast<size_t>(R) * W);
+    const size_t nk = rls::ceil4(static_cast<size_t>(H) * cp);
+    float* tw = reinterpret_cast<float*>(smem);
+    float* x = tw + rls::ceil4(H + W);
+    float* xp = x + nb;
+    float* bre = xp + nb;  // the band's spectrum, row r at r W
+    float* bim = bre + nb;
+    float* kre = bim + nb;  // the column block, spectrum row k at k cp
+    float* kim = kre + nk;
+    long long* pacc = reinterpret_cast<long long*>(kim + nk);
+
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = static_cast<int>(cl.block_rank());
+    const int b = blockIdx.x / nc;
+    const int r0 = rank * R, c0 = rank * Wc;
+    const int tid = threadIdx.x;
+    Prof prof{blockIdx.x == 0 && tid == 0 ? a.prof : nullptr, pacc, 0};
+    prof.start();
+    auto sync_cluster = [&](int phase, int wait) {
+        prof.mark(phase);
+        if (nc > 1)
+            cl.sync();
+        else
+            __syncthreads();
+        prof.mark(wait);
+    };
+
+    for (int k = tid; k < H + W; k += kThreads) tw[k] = a.tw[k];
+    // the band's pixels are contiguous in (B, H, W)
+    const size_t off = static_cast<size_t>(b) * H * W + static_cast<size_t>(r0) * W;
+    const float* x0 = a.x0hat + off;
+    const int n = R * W;  // this CTA's pixels, local index i = lr W + k
+    for (int i = tid; i < n; i += kThreads) {
+        const float zero = x0[i] * 0.f;
+        x[i] = zero;
+        xp[i] = zero;
+    }
+    const float rho = a.scal[2 * b];
+    const float t = rls::fmul(rho, a.scal[2 * b + 1]);
+    const float eps = 1.1920928955078125e-07f;  // 2^-23, float32's eps
+    const fr::Tw tw_h{tw, tw + H / 2};
+    const fr::Tw tw_w{tw + H, tw + H + W / 2};
+    const fr::Layout rows(W), cols(H);
+    const int lg_w = rows.lg_n, lg_h = cols.lg_n;
+    const int lg_r = fr::log2i(R), lg_wc = fr::log2i(Wc);
+    const int lrow = 1 << rows.lg_l, lcol = 1 << cols.lg_l;  // sub-line lengths
+    const bool row_direct = W <= lrow, col_direct = H <= lcol;
+    const int hw = W >> 1, hh = H >> 1;
+
+    // point (image row r0 + lr, spectrum column k) into the block of the
+    // CTA that owns column k
+    auto push_row = [&](int lr, int k, float re, float im) {
+        const int q = k >> lg_wc;
+        const int at = (r0 + lr) * cp + (k & (Wc - 1));
+        cl.map_shared_rank(kre, q)[at] = re;
+        cl.map_shared_rank(kim, q)[at] = im;
+    };
+    // point (spectrum row k, block column jc) into the band of the CTA that
+    // owns row k
+    auto push_col = [&](int k, int jc, float re, float im) {
+        const int q = k >> lg_r;
+        const int at = (k & (R - 1)) * W + c0 + jc;
+        cl.map_shared_rank(bre, q)[at] = re;
+        cl.map_shared_rank(bim, q)[at] = im;
+    };
+    sync_cluster(kSetup, kSetup);  // every CTA running, its twiddles and planes set
+
+    for (int it = 0; it < a.iterations; ++it) {
+        const float am = a.tab[4 * it];
+        auto mom = [&](int i) {
+            const float xv = x[i];
+            return rls::fadd(xv, rls::fmul(am, rls::fsub(xv, xp[i])));
+        };
+        auto store = [&](int i, float nr) {
+            const float m = mom(i);
+            const float xg = rls::fsub(m, rls::fmul(rho, rls::fsub(nr, x0[i])));
+            const float mag = fabsf(xg);
+            const float shrink = fmaxf(rls::fsub(mag, t), 0.f);
+            xp[i] = x[i];
+            x[i] = rls::fdiv(rls::fmul(shrink, rls::fadd(xg, eps)), rls::fadd(mag, eps));
+        };
+
+        // (a) rows forward: the first stage with the loads, the rest in
+        // registers, each point pushed to its column's block
+        if (!row_direct) {
+            for (int u = tid; u < R * hw; u += kThreads) {
+                const int j = u & (hw - 1);
+                const int i0 = (u >> (lg_w - 1)) * W + j, i1 = i0 + hw;
+                float ar = mom(i0), ai = 0.f, br = mom(i1), bi = 0.f;
+                fr::dif_bfly(ar, ai, br, bi, tw_w.re[j], tw_w.im[j]);
+                bre[i0] = ar;
+                bim[i0] = ai;
+                bre[i1] = br;
+                bim[i1] = bi;
+            }
+            prof.mark(kLoads);
+            __syncthreads();
+            for (int m = W >> 2; m >= lrow; m >>= 1) {
+                fr::smem_stage<false>(bre, bim, tw_w, lg_w, m, R, W, 1, kThreads);
+                __syncthreads();
+            }
+        }
+        fr::with_points(rows.P, [&](auto pc) {
+            constexpr int kP = decltype(pc)::value;
+            fr::sublines(rows, R, kThreads, [&](int lr, int k0, int tl, bool valid) {
+                float vr[kP], vi[kP];
+#pragma unroll
+                for (int j = 0; j < kP; ++j) {
+                    vr[j] = vi[j] = 0.f;
+                    const int i = lr * W + k0 + (j << rows.lg_t);
+                    if (valid && row_direct) {
+                        vr[j] = mom(i);
+                    } else if (valid) {
+                        vr[j] = bre[i];
+                        vi[j] = bim[i];
+                    }
+                }
+                prof.mark(kLoads);
+                fr::dif_regs<kP>(vr, vi, tl, rows, tw_w);
+                prof.mark(kRowsFwd);
+                if (valid) {
+#pragma unroll
+                    for (int j = 0; j < kP; ++j) push_row(lr, k0 + (j << rows.lg_t), vr[j], vi[j]);
+                }
+                prof.mark(kScatter);
+            });
+        });
+        sync_cluster(kScatter, kBarrierA);  // A
+
+        // (b) the column pass on the own block: forward, the weights, back;
+        // then the write-back to the rows' bands
+        if (!col_direct) {
+            for (int m = hh; m >= lcol; m >>= 1) {
+                fr::smem_stage<false>(kre, kim, tw_h, lg_h, m, Wc, 1, cp, kThreads);
+                __syncthreads();
+            }
+        }
+        fr::with_points(cols.P, [&](auto pc) {
+            constexpr int kP = decltype(pc)::value;
+            fr::sublines(cols, Wc, kThreads, [&](int jc, int k0, int tl, bool valid) {
+                float vr[kP], vi[kP], w[kP];
+#pragma unroll
+                for (int j = 0; j < kP; ++j) {
+                    vr[j] = vi[j] = w[j] = 0.f;
+                    const int k = k0 + (j << cols.lg_t);
+                    if (valid) {
+                        w[j] = a.wt[(c0 + jc) * H + k];
+                        vr[j] = kre[k * cp + jc];
+                        vi[j] = kim[k * cp + jc];
+                    }
+                }
+                fr::dif_regs<kP>(vr, vi, tl, cols, tw_h);
+#pragma unroll
+                for (int j = 0; j < kP; ++j) {
+                    vr[j] = rls::fmul(vr[j], w[j]);
+                    vi[j] = rls::fmul(vi[j], w[j]);
+                }
+                fr::dit_regs<kP>(vr, vi, tl, cols, tw_h);
+                if (valid) {
+#pragma unroll
+                    for (int j = 0; j < kP; ++j) {
+                        const int k = k0 + (j << cols.lg_t);
+                        kre[k * cp + jc] = vr[j];
+                        kim[k * cp + jc] = vi[j];
+                    }
+                }
+            });
+        });
+        __syncthreads();
+        for (int m = lcol; m < hh; m <<= 1) {
+            fr::smem_stage<true>(kre, kim, tw_h, lg_h, m, Wc, 1, cp, kThreads);
+            __syncthreads();
+        }
+        prof.mark(kCols);
+        // the write-back from the block, not from the registers, whose lanes
+        // hold one column's rows (a store each to another row of a band, W
+        // floats apart: one bank); here neighbouring threads take
+        // neighbouring columns and push row-contiguous runs
+        if (col_direct) {
+            for (int u = tid; u < H * Wc; u += kThreads) {
+                const int jc = u & (Wc - 1), k = u >> lg_wc;
+                push_col(k, jc, kre[k * cp + jc], kim[k * cp + jc]);
+            }
+        } else {
+            for (int u = tid; u < hh * Wc; u += kThreads) {
+                const int jc = u & (Wc - 1), k = u >> lg_wc;
+                const int i0 = k * cp + jc, i1 = i0 + hh * cp;
+                float ar = kre[i0], ai = kim[i0], br = kre[i1], bi = kim[i1];
+                fr::dit_bfly(ar, ai, br, bi, tw_h.re[k], -tw_h.im[k]);
+                push_col(k, jc, ar, ai);
+                push_col(k + hh, jc, br, bi);
+            }
+        }
+        sync_cluster(kWriteBack, kBarrierB);  // B
+
+        // (c) rows back, the last stage with the pixel update
+        fr::with_points(rows.P, [&](auto pc) {
+            constexpr int kP = decltype(pc)::value;
+            fr::sublines(rows, R, kThreads, [&](int lr, int k0, int tl, bool valid) {
+                float vr[kP], vi[kP];
+#pragma unroll
+                for (int j = 0; j < kP; ++j) {
+                    vr[j] = vi[j] = 0.f;
+                    if (valid) {
+                        const int i = lr * W + k0 + (j << rows.lg_t);
+                        vr[j] = bre[i];
+                        vi[j] = bim[i];
+                    }
+                }
+                fr::dit_regs<kP>(vr, vi, tl, rows, tw_w);
+                if (valid) {
+#pragma unroll
+                    for (int j = 0; j < kP; ++j) {
+                        const int i = lr * W + k0 + (j << rows.lg_t);
+                        if (row_direct) {
+                            store(i, vr[j]);
+                        } else {
+                            bre[i] = vr[j];
+                            bim[i] = vi[j];
+                        }
+                    }
+                }
+            });
+        });
+        if (!row_direct) {
+            __syncthreads();
+            for (int m = lrow; m < hw; m <<= 1) {
+                fr::smem_stage<true>(bre, bim, tw_w, lg_w, m, R, W, 1, kThreads);
+                __syncthreads();
+            }
+            // the real part of the last stage's outputs (the index map of (a))
+            for (int u = tid; u < R * hw; u += kThreads) {
+                const int j = u & (hw - 1);
+                const int i0 = (u >> (lg_w - 1)) * W + j, i1 = i0 + hw;
+                const float wr = tw_w.re[j], wi = -tw_w.im[j];
+                const float ar = bre[i0];
+                const float tr = rls::fsub(rls::fmul(bre[i1], wr), rls::fmul(bim[i1], wi));
+                store(i0, rls::fadd(ar, tr));
+                store(i1, rls::fsub(ar, tr));
+            }
+        }
+        prof.mark(kRowsBack);
+    }
+    __syncthreads();  // the last pixel updates, before another index map reads x
+    float* o = a.out + off;
+    for (int i = tid; i < n; i += kThreads) o[i] = x[i];
+    prof.mark(kSetup);
+    prof.finish();
+}
+
+// clusters: a power of two up to kMaxCluster that divides H and W
+bool valid_cluster(int clusters, int H, int W) {
+    return clusters >= 1 && clusters <= kMaxCluster && (clusters & (clusters - 1)) == 0 &&
+           clusters <= H && clusters <= W;
+}
+
 }  // namespace
 
 extern "C" {
@@ -101,6 +471,53 @@ int fista_l1_dft_fused_launch(const void* x0hat, const void* scal, const void* t
         static_cast<const float*>(tab), static_cast<const float*>(tw),
         static_cast<const float*>(weights), static_cast<float*>(out),
         static_cast<float*>(scratch), B, H, W, iterations);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The resident route's shared memory per CTA at H x W on clusters of
+// `clusters` CTAs (the planner's check), and how many such clusters the
+// current device holds at once (cudaOccupancyMaxActiveClusters): out[0],
+// out[1].
+int fista_l1_dft_cluster_occupancy(int clusters, int H, int W, long long* out) {
+    if (!rls::valid_fft_size(H) || !rls::valid_fft_size(W) || !valid_cluster(clusters, H, W))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = resident_smem_bytes(H, W, clusters);
+    out[0] = static_cast<long long>(smem);
+    out[1] = 0;
+    if (smem > 0x7fffffff) return 0;
+    out[1] = rls::max_active_clusters(fista_l1_dft_cluster_kernel, clusters, kThreads,
+                                      static_cast<int>(smem));
+    return 0;
+}
+
+// The resident route: as fista_l1_dft_fused_launch without scratch, with wt
+// the spectral weights transposed ((W, H)), prof null or kPhases int64 that
+// receive CTA 0's clocks per phase, and the plan: `clusters` CTAs per
+// problem (a power of two, at most 16, at most H and W), `smem` bytes of
+// shared memory per CTA. Returns cudaErrorInvalidValue for a plan whose
+// smem differs from resident_smem_bytes, else the launch's error.
+int fista_l1_dft_cluster_launch(const void* x0hat, const void* scal, const void* tab,
+                                const void* tw, const void* wt, void* out, void* prof, int B,
+                                int H, int W, int iterations, int clusters, int smem,
+                                void* stream) {
+    const bool valid = B > 0 && iterations >= 0 && rls::valid_fft_size(H) &&
+                       rls::valid_fft_size(W) && valid_cluster(clusters, H, W) &&
+                       static_cast<long long>(B) * clusters < (1LL << 31);
+    if (!valid || static_cast<size_t>(smem) != resident_smem_bytes(H, W, clusters))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    cudaError_t e = rls::cluster_config(fista_l1_dft_cluster_kernel, B, clusters, kThreads, smem,
+                                        static_cast<cudaStream_t>(stream), &attr, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const ResidentArgs args{static_cast<const float*>(x0hat), static_cast<const float*>(scal),
+                            static_cast<const float*>(tab),   static_cast<const float*>(tw),
+                            static_cast<const float*>(wt),    static_cast<float*>(out),
+                            static_cast<long long*>(prof),    B,
+                            H,                                W,
+                            iterations,                       clusters};
+    e = cudaLaunchKernelEx(&cfg, fista_l1_dft_cluster_kernel, args);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
 

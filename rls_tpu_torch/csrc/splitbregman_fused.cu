@@ -284,8 +284,6 @@ static_assert(kLoads == rls::fftr::kFftLoads && kRows == rls::fftr::kFftRows &&
                   kCols == rls::fftr::kFftCols,
               "the timer's FFT phases");
 
-__host__ __device__ inline size_t ceil4(size_t n) { return (n + 3) / 4 * 4; }
-
 // Shared memory of a CTA of the resident route, in this order; the Python
 // planner (kernels/splitbregman_fused.py resident_smem_bytes) counts the
 // same: the block sums (3 x 32 doubles), this CTA's sums for the cluster
@@ -295,7 +293,8 @@ __host__ __device__ inline size_t ceil4(size_t n) { return (n + 3) / 4 * 4; }
 // up to 4 floats.
 __host__ __device__ inline size_t resident_smem_bytes(int H, int W) {
     return sizeof(double) * (3 * (kThreads / 32) + 12) + sizeof(long long) * kPhases +
-           sizeof(float) * (ceil4(H + W) + 2 * ceil4(static_cast<size_t>(H) * (W + 1)));
+           sizeof(float) *
+               (rls::ceil4(H + W) + 2 * rls::ceil4(static_cast<size_t>(H) * (W + 1)));
 }
 
 struct ResidentArgs {
@@ -343,8 +342,8 @@ splitbregman_cluster_kernel(const ResidentArgs a) {
     double* all = mine + 8;
     long long* pacc = reinterpret_cast<long long*>(all + 4);
     float* tw = reinterpret_cast<float*>(pacc + kPhases);
-    float* sre = tw + ceil4(H + W);
-    float* sim = sre + ceil4(static_cast<size_t>(H) * (W + 1));
+    float* sre = tw + rls::ceil4(H + W);
+    float* sim = sre + rls::ceil4(static_cast<size_t>(H) * (W + 1));
 
     cg::cluster_group cl = cg::this_cluster();
     const int rank = static_cast<int>(cl.block_rank());
@@ -585,8 +584,6 @@ splitbregman_cluster_kernel(const ResidentArgs a) {
     prof.finish();
 }
 
-bool valid_fft_size(int n) { return n >= 2 && n <= rls::kFftMax && (n & (n - 1)) == 0; }
-
 }  // namespace
 
 extern "C" {
@@ -619,7 +616,8 @@ int splitbregman_fused_launch(const void* x0hat, const void* scal, const void* t
 // check), and how many clusters of `clusters` CTAs the current device holds
 // at once (cudaOccupancyMaxActiveClusters): out[0], out[1].
 int splitbregman_cluster_occupancy(int clusters, int H, int W, long long* out) {
-    if (clusters < 1 || clusters > kMaxCluster || !valid_fft_size(H) || !valid_fft_size(W))
+    if (clusters < 1 || clusters > kMaxCluster || !rls::valid_fft_size(H) ||
+        !rls::valid_fft_size(W))
         return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = resident_smem_bytes(H, W);
     out[0] = static_cast<long long>(smem);
@@ -640,8 +638,8 @@ int splitbregman_cluster_launch(const void* x0hat, const void* scal, const void*
                                 void* prof, int B, int H, int W, int C, int iterations,
                                 int iterations_inner, int cg_iterations, int tv_iterations,
                                 float tol_inner, int clusters, int smem, void* stream) {
-    const bool valid = B > 0 && valid_fft_size(H) && valid_fft_size(W) && clusters >= 1 &&
-                       clusters <= kMaxCluster && clusters <= C &&
+    const bool valid = B > 0 && rls::valid_fft_size(H) && rls::valid_fft_size(W) &&
+                       clusters >= 1 && clusters <= kMaxCluster && clusters <= C &&
                        static_cast<long long>(B) * clusters < (1LL << 31);
     if (!valid || static_cast<size_t>(smem) != resident_smem_bytes(H, W))
         return static_cast<int>(cudaErrorInvalidValue);

@@ -17,6 +17,20 @@ from x = x_prev = 0. The normal op runs on the in-kernel FFT of
 ``_dft_common`` (the plain version repeats it stage by stage); x0hat is
 the operator's own adjoint of b (cuFFT on the card).
 
+The kernel runs on one of two routes that :func:`plan_fista_l1_dft` picks
+by shape:
+
+* resident: each problem on a thread-block cluster of c CTAs (a power of
+  two up to 16), CTA r owning the image rows [r·H/c, (r+1)·H/c) and the
+  spectrum's columns [r·W/c, (r+1)·W/c), with its band of x, x_prev and
+  the spectrum and its block of columns in shared memory for the whole
+  solve; the transposes between the row and the column passes go through
+  distributed shared memory (the CS cell at 256²: 16 bands of 16 rows);
+* global: one CTA per problem, the spectrum staged through global scratch
+  (512² and larger, whose bands fit no cluster).
+
+Both routes agree with the plain version bit for bit.
+
 Not carried over: the TPU's bf16 hi/lo DFT factors (``op.cat``), its VMEM
 gate ``_check_vmem_fista_l1_dft`` and ``interpret=``. The size gate is the
 FFT's own: H and W powers of two (``_dft_common.check_fft_shape``).
@@ -24,20 +38,165 @@ FFT's own: H and W powers of two (``_dft_common.check_fft_shape``).
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
+from .._build import SMEM_MAX, SMS
 from ..models.prox import L1Regularization
 from ..models.solvers.fista import FISTA
 from ..ops.dft_real import SubsampledDFT2RealOperator
 from . import _dft_common
-from .fista_tv_fused import _momentum_table, problem_scalars
+from .fista_tv_fused import MIN_CTA_PIXELS, _momentum_table
 
 __all__ = [
     "fista_l1_dft_fused",
     "fista_l1_dft_fused_torch",
     "check_fista_l1_dft_fused",
     "solve_fista_l1_dft_fused",
+    "plan_fista_l1_dft",
+    "DftPlan",
+    "phase_clocks",
 ]
+
+# the cluster sizes of the resident route: powers of two up to the
+# non-portable 16
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# the phases of the resident route's timer (csrc/fista_l1_dft_fused.cu kPhases)
+PHASES = ("set-up and write-out", "loads", "rows forward", "push to the column blocks",
+          "barrier A", "column transforms", "write-back", "barrier B", "rows back and store")
+
+
+def _ceil4(n):
+    return -(-n // 4) * 4
+
+
+def resident_smem_bytes(H, W, clusters):
+    """Shared memory of a resident CTA at H × W on clusters of `clusters`
+    CTAs, as ``resident_smem_bytes`` in csrc/fista_l1_dft_fused.cu counts
+    it: the twiddles (H + W f32), x, x_prev and the band's spectrum (re,
+    im) of R·W f32 each (R = H/c rows), the column block (re, im) of
+    H·(W/c + 1) f32 each, every f32 array rounded up to 4 floats, and the
+    phase timer (one int64 per phase)."""
+    band = _ceil4(H // clusters * W)
+    block = _ceil4(H * (W // clusters + 1))
+    return 4 * (_ceil4(H + W) + 4 * band + 2 * block) + 8 * len(PHASES)
+
+
+@dataclasses.dataclass(frozen=True)
+class DftPlan:
+    """How a fused FISTA-L1-DFT launch runs: `route` "resident" (a cluster
+    of `clusters` CTAs per problem, bands of `rows` image rows, blocks of
+    `cols` spectrum columns, `smem` bytes of shared memory per CTA) or
+    "global" (one CTA per problem, `rows` = H, `cols` = W, its spectrum in
+    global scratch, `smem` 0 of dynamic shared memory); `ctas` CTAs in
+    all."""
+
+    route: str
+    clusters: int
+    rows: int
+    cols: int
+    H: int
+    W: int
+    ctas: int
+    smem: int
+
+    def band(self, rank):
+        """[r0, r1): the image rows CTA `rank` owns (its x, x_prev and
+        spectrum band)."""
+        return rank * self.rows, (rank + 1) * self.rows
+
+    def block(self, rank):
+        """[c0, c1): the spectrum columns CTA `rank` transforms."""
+        return rank * self.cols, (rank + 1) * self.cols
+
+    def row_owner(self, row):
+        """The CTA whose band holds image (spectrum) row `row`: where the
+        column pass writes that row back."""
+        return row // self.rows
+
+    def column_owner(self, col):
+        """The CTA whose block holds spectrum column `col`: where the row
+        pass pushes that column."""
+        return col // self.cols
+
+
+def fitting_sizes(H, W, sms=SMS, smem_max=SMEM_MAX):
+    """The cluster sizes c (powers of two, ≤ 16, ≤ sms, ≤ H and ≤ W) whose
+    CTAs fit one block's shared memory."""
+    return tuple(c for c in CLUSTER_SIZES
+                 if c <= min(H, W, sms) and resident_smem_bytes(H, W, c) <= smem_max)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_fista_l1_dft(B, H, W, resident, sms=SMS, smem_max=SMEM_MAX) -> DftPlan:
+    """The route of a fused FISTA-L1-DFT launch of B problems of H × W, on
+    a card of `sms` SMs and `smem_max` bytes of shared memory per block
+    that holds n clusters of c CTAs of the resident kernel at once for each
+    pair (c, n) of `resident` (``cudaOccupancyMaxActiveClusters``; a size
+    not named is held 0 times).
+
+    The rule, as ``plan_pdhg``'s: among the sizes of :func:`fitting_sizes`
+    that the card holds, the smallest and each larger one that leaves every
+    CTA at least ``MIN_CTA_PIXELS`` pixels, the one with the fewest waves ×
+    rows per band, ⌈B / held(c)⌉ · H/c (a CTA transforms H/c rows and as
+    many columns' worth of points); ties go to the smaller c. A spectrum
+    whose bands fit at no c (512², 1024²) takes the global route. Raises
+    ValueError naming the shape where it is empty or not the FFT's, and
+    naming the plan where the card holds no cluster of it (no fallback)."""
+    if B < 1:
+        raise ValueError(f"fista_l1_dft_fused: empty batch of {B} x {H}x{W}")
+    _dft_common.check_fft_shape(H, W)
+    fit = fitting_sizes(H, W, sms, smem_max)
+    if not fit:
+        return DftPlan("global", 1, H, W, H, W, B, 0)
+    held = dict(resident)
+    eligible = [c for c in fit if held.get(c, 0) >= 1
+                and (c == fit[0] or H // c * W >= MIN_CTA_PIXELS)]
+    c = min(eligible, key=lambda c: (-(-B // held[c]) * (H // c), c), default=fit[0])
+    plan = DftPlan("resident", c, H // c, W // c, H, W, B * c, resident_smem_bytes(H, W, c))
+    if not eligible:
+        raise ValueError(f"fista_l1_dft_fused: the card holds no cluster of {plan} "
+                         f"({B} x {H}x{W})")
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def resident_limits(index, clusters, H, W):
+    """(shared memory per CTA as the kernel counts it, clusters of the
+    resident kernel that device `index` holds at once:
+    ``cudaOccupancyMaxActiveClusters``)."""
+    from .. import _build
+
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(index):
+        _build.check(_build.load_library().fista_l1_dft_cluster_occupancy(clusters, H, W, out),
+                     "fista_l1_dft_cluster_occupancy")
+    return out[0], out[1]
+
+
+def plan_on_card(x0hat):
+    """(plan, clusters resident at once) of a launch on x0hat's card ((B,
+    H, W)); the count is None on the global route. Raises RuntimeError
+    where the kernel counts other shared memory than the planner,
+    ValueError where the resident plan has no cluster the card can hold."""
+    from .. import _build
+
+    B, H, W = x0hat.shape
+    _dft_common.check_fft_shape(H, W)
+    index = x0hat.device.index or 0
+    limits = _build.device_limits(index)
+    held = {c: resident_limits(index, c, H, W) for c in fitting_sizes(H, W, *limits)}
+    plan = plan_fista_l1_dft(B, H, W, tuple((c, n) for c, (_, n) in held.items()), *limits)
+    if plan.route == "global":
+        return plan, None
+    smem, active = held[plan.clusters]
+    if smem != plan.smem:
+        raise RuntimeError(f"fista_l1_dft_fused: the kernel counts {smem} bytes of shared "
+                           f"memory for {plan}")
+    return plan, active
 
 
 def fista_l1_dft_fused_torch(x0hat, scal, tab, tables):
@@ -61,48 +220,113 @@ def fista_l1_dft_fused_torch(x0hat, scal, tab, tables):
     return x
 
 
-def _launch(x0hat, scal, tab, tables):
+def _launch(x0hat, scal, tab, tables, prof=None):
     from .. import _build
 
     B, H, W = x0hat.shape
+    plan, _ = plan_on_card(x0hat)
+    if prof is not None and plan.route != "resident":
+        raise ValueError(f"fista_l1_dft_fused: the phase timer is on the resident route, "
+                         f"not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
     tw = _dft_common.twiddle_tensor(tables)
-    weights = tables[2].contiguous()
     out = torch.empty_like(x0hat)
-    # x_prev, x_mom and the spectrum's (re, im)
-    scratch = torch.empty((4, B, H, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.fista_l1_dft_fused_launch(
-            x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, W, tab.shape[0],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "fista_l1_dft_fused_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "resident":
+            wt = tables[2].T.contiguous()  # read along a spectrum column
+            code = lib.fista_l1_dft_cluster_launch(
+                x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(), wt.data_ptr(),
+                out.data_ptr(), None if prof is None else prof.data_ptr(), B, H, W,
+                tab.shape[0], plan.clusters, plan.smem, stream)
+        else:
+            weights = tables[2].contiguous()
+            # x_prev, x_mom and the spectrum's (re, im)
+            scratch = torch.empty((4, B, H, W), dtype=torch.float32, device=dev)
+            code = lib.fista_l1_dft_fused_launch(
+                x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(),
+                weights.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, W, tab.shape[0],
+                stream)
+    _build.check(code, f"fista_l1_dft_fused ({B} x {H}x{W}, {plan})")
     fista_l1_dft_fused.launches += 1
+    fista_l1_dft_fused.route_launches[plan.route] += 1
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _axis_tables(n, dtype, device):
+    """The twiddles and the bit reversal of an n-point axis on `device`,
+    made once (read only)."""
+    np_dt = torch.empty((), dtype=dtype).numpy().dtype
+    return (torch.as_tensor(_dft_common.twiddles(n, np_dt), device=device),
+            torch.as_tensor(_dft_common.bit_reverse(n), device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def _momentum(iterations, dtype, device):
+    np_dt = torch.empty((), dtype=dtype).numpy().dtype
+    return torch.as_tensor(_momentum_table("fista", iterations, dtype=np_dt), device=device)
+
+
+def _kernel_args(x0hat_b, mask, rho, lam, iterations):
+    """(scal, tab, tables) for the kernel and its plain version, in x0hat's
+    dtype on its device: the values of ``problem_scalars``,
+    ``_momentum_table`` and ``_dft_common.dft_tables``, made with no
+    host-to-device copy per call. Each such copy waits for the work queued
+    on the card, so a call's set-up would wait for the solve before it: the
+    tables that depend only on the shape are made once, and ρ, λ given as
+    numbers are filled on the device."""
+    B, H, W = x0hat_b.shape
+    _dft_common.check_fft_shape(H, W)
+    if tuple(mask.shape) != (H, W):
+        raise ValueError(f"fista_l1_dft_fused: a mask of {tuple(mask.shape)} for images of "
+                         f"{H}x{W}")
+    dt, dev = x0hat_b.dtype, x0hat_b.device
+
+    def per_problem(v):
+        if isinstance(v, (int, float)):
+            return torch.full((B,), v, dtype=dt, device=dev)
+        return torch.broadcast_to(torch.as_tensor(v, dtype=dt, device=dev).reshape(-1), (B,))
+
+    scal = torch.stack([per_problem(rho), per_problem(lam)], dim=1)
+    (tw_h, rh), (tw_w, rw) = _axis_tables(H, dt, dev), _axis_tables(W, dt, dev)
+    weights = mask.to(dt)[rh][:, rw] * (1.0 / (H * W))
+    return scal, _momentum(iterations, dt, dev), (tw_h, tw_w, weights)
+
+
 def fista_l1_dft_fused(x0hat_b, mask, rho, lam, iterations: int):
-    """Batched FISTA-L1 on the subsampled DFT of `mask` (H, W), one CTA per
-    problem.
+    """Batched FISTA-L1 on the subsampled DFT of `mask` (H, W) in one
+    launch, on the route of :func:`plan_fista_l1_dft` (a cluster of CTAs
+    per problem with its state in shared memory, or one CTA per problem).
 
     x0hat_b: (B, H, W), Aᴴb per problem; rho, lam: scalars or (B,) (λ
     already normalization-scaled). The plain version runs for a CPU
     tensor, the CUDA kernel (float32) for a CUDA tensor.
-    ``fista_l1_dft_fused.launches`` counts the kernel's launches."""
-    np_dt = torch.empty((), dtype=x0hat_b.dtype).numpy().dtype
-    scal = problem_scalars(x0hat_b, rho, lam, np_dt)
-    tab = torch.as_tensor(_momentum_table("fista", iterations, dtype=np_dt),
-                          device=x0hat_b.device)
-    tables = _dft_common.dft_tables(mask, x0hat_b.dtype)
+    ``fista_l1_dft_fused.launches`` counts the kernel's launches, and
+    ``fista_l1_dft_fused.route_launches`` the launches by route."""
     if x0hat_b.device.type == "cpu":
-        return fista_l1_dft_fused_torch(x0hat_b, scal, tab, tables)
+        return fista_l1_dft_fused_torch(x0hat_b, *_kernel_args(x0hat_b, mask, rho, lam,
+                                                                iterations))
     _dft_common.check_dft_cuda_input("fista_l1_dft_fused", x0hat_b, mask)
-    return _launch(x0hat_b.contiguous(), scal, tab, tables)
+    return _launch(x0hat_b.contiguous(), *_kernel_args(x0hat_b, mask, rho, lam, iterations))
 
 
 fista_l1_dft_fused.launches = 0
+fista_l1_dft_fused.route_launches = {"resident": 0, "global": 0}
+
+
+def phase_clocks(x0hat_b, mask, rho, lam, iterations: int):
+    """One launch of the resident kernel with its phase timer on: {phase:
+    SM clocks that CTA 0 spent in it over the whole solve} (``PHASES``; the
+    launch counts in ``fista_l1_dft_fused.launches``). Raises on the global
+    route and for a CPU tensor."""
+    if x0hat_b.device.type == "cpu":
+        raise ValueError("fista_l1_dft_fused: the phase timer runs on the card")
+    _dft_common.check_dft_cuda_input("fista_l1_dft_fused", x0hat_b, mask)
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
+    _launch(x0hat_b.contiguous(), *_kernel_args(x0hat_b, mask, rho, lam, iterations), prof)
+    return dict(zip(PHASES, prof.tolist()))
 
 
 def check_fista_l1_dft_fused(solver):
@@ -127,4 +351,3 @@ def solve_fista_l1_dft_fused(solver, B_mat):
     out = fista_l1_dft_fused(x0.reshape(-1, H, W), op.mask, solver.rho, lam_eff,
                              solver.iterations)
     return out.reshape(out.shape[0], H * W).T
-

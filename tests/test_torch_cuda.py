@@ -513,17 +513,118 @@ def _fft_inputs(dev, shape, C=3, seed=6):
 
 @pytest.mark.parametrize("shape", FFT_SHAPES)
 def test_fista_l1_dft_kernel_matches_plain(dev, shape):
+    """Every FFT_SHAPES shape on its planned route (512² on the global
+    route, one CTA per problem; the rest on clusters), by the route
+    counter, bit for bit the plain version."""
     mask, _, _, rng = _fft_inputs(dev, shape)
     x0 = torch.from_numpy(rng.normal(size=(3, *shape)).astype(np.float32)).to(dev)
     lam = torch.tensor([1e-2, 0.0, 0.1], device=dev)
+    plan, active = l1dft.plan_on_card(x0)
+    assert plan.route == ("global" if shape == (512, 512) else "resident")
+    assert plan.route == "global" or active >= 1
     before = l1dft.fista_l1_dft_fused.launches
+    on_route = l1dft.fista_l1_dft_fused.route_launches[plan.route]
     got = l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 9)
     assert l1dft.fista_l1_dft_fused.launches == before + 1
+    assert l1dft.fista_l1_dft_fused.route_launches[plan.route] == on_route + 1
     scal = fused.problem_scalars(x0, 0.9, lam)
     tab = torch.as_tensor(fused._momentum_table("fista", 9), device=dev)
     want = l1dft.fista_l1_dft_fused_torch(x0, scal, tab, dft.dft_tables(mask))
     torch.cuda.synchronize()
     assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# the FISTA-L1-DFT kernel at each cluster size the planner takes (shapes
+# and batches of test_torch_dft_plan.L1DFT_SIZES): lines of 2 to 1024
+# points, in registers only (≤ 128) or with a shared-memory stage
+@pytest.mark.parametrize("size", [(3, 16, 32), (3, 2, 4), (3, 8, 256), (64, 128, 128),
+                                  (16, 128, 128), (3, 16, 1024), (3, 1024, 16), (64, 256, 256),
+                                  (16, 256, 256), (3, 256, 512)])
+def test_fista_l1_dft_resident_route_at_each_cluster_size(dev, size):
+    from test_torch_dft_plan import L1DFT_SIZES
+
+    B, H, W = size
+    mask, _, _, rng = _fft_inputs(dev, (H, W), C=1)
+    x0 = torch.from_numpy(rng.normal(size=size).astype(np.float32)).to(dev)
+    lam = torch.linspace(0.0, 0.1, B, device=dev)
+    plan, active = l1dft.plan_on_card(x0)
+    assert (plan.route, plan.clusters) == ("resident", L1DFT_SIZES[size]) and active >= 1
+    on_route = l1dft.fista_l1_dft_fused.route_launches["resident"]
+    got = l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 7)
+    assert l1dft.fista_l1_dft_fused.route_launches["resident"] == on_route + 1
+    scal = fused.problem_scalars(x0, 0.9, lam)
+    tab = torch.as_tensor(fused._momentum_table("fista", 7), device=dev)
+    want = l1dft.fista_l1_dft_fused_torch(x0, scal, tab, dft.dft_tables(mask))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+def _cs_cell_inputs(dev, B=16):
+    """B distinct 256² problems on a 35 % mask, one λ each."""
+    rng = np.random.default_rng(12)
+    mask = torch.from_numpy((rng.uniform(size=(256, 256)) < 0.35).astype(np.float32)).to(dev)
+    x0 = torch.from_numpy(rng.normal(size=(B, 256, 256)).astype(np.float32)).to(dev)
+    lam = torch.linspace(1e-3, 4e-3, B, device=dev)
+    return x0, mask, lam
+
+
+def test_fista_l1_dft_resident_route_repeats_bit_for_bit(dev):
+    """20 launches at the CS cell's shape (16 × 256², 60 iterations, c =
+    16), each equal to the first and to the plain version: a race between
+    a cluster's CTAs would show as a launch that differs."""
+    x0, mask, lam = _cs_cell_inputs(dev)
+    plan, _ = l1dft.plan_on_card(x0)
+    assert (plan.route, plan.clusters) == ("resident", 16)
+    first = l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 60)
+    for _ in range(20):
+        assert torch.equal(l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 60), first)
+    scal = fused.problem_scalars(x0, 0.95, lam)
+    tab = torch.as_tensor(fused._momentum_table("fista", 60), device=dev)
+    assert torch.equal(first, l1dft.fista_l1_dft_fused_torch(x0, scal, tab,
+                                                             dft.dft_tables(mask)))
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (64, 64)])
+def test_fista_l1_dft_phase_clocks(dev, shape):
+    """The resident kernel's phase timer: one launch, the same x as without
+    the timer, clocks in every phase (lines of 256 points, with a
+    shared-memory stage, and of 64, without); the global route has no
+    timer and raises."""
+    x0, mask, lam = _cs_cell_inputs(dev, B=4)
+    if shape != (256, 256):
+        x0, mask = x0[:, :shape[0], :shape[1]].contiguous(), mask[:shape[0], :shape[1]]
+    want = l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 6)
+    before = l1dft.fista_l1_dft_fused.launches
+    clocks = l1dft.phase_clocks(x0, mask, 0.95, lam, 6)
+    assert l1dft.fista_l1_dft_fused.launches == before + 1
+    assert list(clocks) == list(l1dft.PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert torch.equal(l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 6), want)
+    xg = torch.zeros(2, 512, 512, device=dev)
+    with pytest.raises(ValueError, match="resident route"):
+        l1dft.phase_clocks(xg, torch.ones(512, 512, device=dev), 0.95, 1e-3, 2)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (128, 128), (64, 64), (1024, 16)])
+def test_cluster_counts_of_the_fista_l1_dft_planner_tests(dev, shape):
+    """On an H100 the card holds, for every fitting cluster size, the
+    clusters of the resident FISTA-L1-DFT kernel that
+    tests/test_torch_dft_plan.py plans with, and counts the planner's
+    shared memory."""
+    from test_torch_dft_plan import H100_RESIDENT
+
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    held = dict(H100_RESIDENT)
+    fit = l1dft.fitting_sizes(*shape, *limits)
+    assert fit
+    for c in fit:
+        smem, got = l1dft.resident_limits(dev.index, c, *shape)
+        assert smem == l1dft.resident_smem_bytes(*shape, c)
+        assert got == held[c], (c, shape)
 
 
 @pytest.mark.parametrize("shape", FFT_SHAPES)
