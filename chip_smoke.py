@@ -1263,7 +1263,7 @@ def fft_kernel_phase(dev, draws):
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
     from rls_tpu_torch.kernels import sense_fused as k9
     from rls_tpu_torch.kernels import splitbregman_fused as k10
-    from rls_tpu_torch.kernels.fista_tv_fused import problem_scalars
+    from rls_tpu_torch.kernels.fista_tv_fused import _momentum_table, problem_scalars
 
     out = {}
     bump = 1.0 + 2.0**-23
@@ -1282,7 +1282,7 @@ def fft_kernel_phase(dev, draws):
     x0u = op.rmv(b * bump).reshape(x0.shape)
     lam = torch.linspace(0.5, 2.0, CS_BATCH, device=dev) * CS_LAM
     scal = problem_scalars(x0, RHO, lam)
-    tab = torch.as_tensor(k8._momentum_table("fista", CS_ITERS), device=dev)
+    tab = torch.as_tensor(_momentum_table("fista", CS_ITERS), device=dev)
     tables = dc.dft_tables(op.mask)
     plan, active = k8.plan_on_card(x0)
     print(f"fista_l1_dft_fused[{CS_N}², batch {CS_BATCH}]: plan route {plan.route}, "
@@ -1329,7 +1329,7 @@ def fft_kernel_phase(dev, draws):
     coils = (op.coils_r, op.coils_i)
     tables = dc.dft_tables(op.mask)
     scal = k9.problem_scalars(x0, RHO, SENSE_LAM)
-    tab = torch.as_tensor(k9._momentum_table("fista", SENSE_ITERS), device=dev)
+    tab = torch.as_tensor(_momentum_table("fista", SENSE_ITERS), device=dev)
     record(f"sense_fused[{SENSE_N}², {SENSE_C} coils, {SENSE_SLICES} slices, {SENSE_ITERS} it.]",
            lambda x: (k9.fista_l21_sense_fused(x, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS),
                       None),
@@ -1450,7 +1450,7 @@ def fft_cell_phase(dev, draws):
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
     from rls_tpu_torch.kernels import sense_fused as k9
     from rls_tpu_torch.kernels import splitbregman_fused as k10
-    from rls_tpu_torch.kernels.fista_tv_fused import problem_scalars
+    from rls_tpu_torch.kernels.fista_tv_fused import _momentum_table, problem_scalars
 
     launched, composed_ms = {}, {}
 
@@ -1497,7 +1497,7 @@ def fft_cell_phase(dev, draws):
                                                           dtype=torch.float64, device=dev)
     x0 = op64.rmv(B[:, :2].T.double()).reshape(2, CS_N, CS_N)
     scal = problem_scalars(x0, RHO, CS_LAM, np.float64)
-    tab = torch.as_tensor(k8._momentum_table("fista", CS_ITERS, dtype=np.float64), device=dev)
+    tab = torch.as_tensor(_momentum_table("fista", CS_ITERS, dtype=np.float64), device=dev)
     x64 = k8.fista_l1_dft_fused_torch(x0, scal, tab, dc.dft_tables(op64.mask, torch.float64))
     run("fista_l1_cs_dft256_b16", solver, B, xt[None].repeat(CS_BATCH, 1), "fista_l1_dft_fused",
         (op64, x64.reshape(2, -1)), composed=True)
@@ -1514,7 +1514,7 @@ def fft_cell_phase(dev, draws):
     solver = rtt.FISTA.create(op, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
                               iterations=SENSE_ITERS, rho=RHO)
     scal = k9.problem_scalars(x0, RHO, SENSE_LAM, np.float64)
-    tab = torch.as_tensor(k9._momentum_table("fista", SENSE_ITERS, dtype=np.float64), device=dev)
+    tab = torch.as_tensor(_momentum_table("fista", SENSE_ITERS, dtype=np.float64), device=dev)
     x64 = k9.fista_l21_sense_fused_torch(x0, scal, tab, coils64, tables64).reshape(2, -1)
     run("fista_l21_sense128_6coil_b8", solver, B, xs, "fista_l21_sense_fused", (op64, x64),
         composed=False, unit="slices/s")
@@ -2032,10 +2032,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi)
     print(
         f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2485,30 +2482,85 @@ def main() -> int:
     return 0
 
 
-def time_cgnr(root) -> int:
-    """``--time-cgnr ROOT``: the CGNR kernel of the rls_tpu_torch package
-    under ROOT (this tree, or another one unpacked beside it) timed alone
-    at the two CGNR cells' shapes, three readings each by CUDA events, and
-    once with no CG step, beside torch.linalg.solve on the 1024×512 cell's
-    regularized Gram, with the kernel's clocks per phase where it has a
-    timer; one JSON line. Run it for two trees in turns (parent, change,
-    change, parent) to compare their kernels on one card."""
+def card_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def time_cases(out, cases, in_turns=False):
+    """Time each case ``(name, fn, reps[, probe])`` of `cases` into `out`
+    after one warm-up call: three readings of ``cuda_ms(fn, reps)`` under
+    "{name} ms", case after case or, `in_turns`, one reading of every case
+    in each of three rounds. Then ``probe()``, where a case has one, adds
+    its entries under "{name} {key}"."""
+    for group in [cases] if in_turns else [[case] for case in cases]:
+        for name, fn, *_ in group:
+            fn()
+            out[f"{name} ms"] = []
+        for _ in range(3):
+            for name, fn, reps, *_ in group:
+                out[f"{name} ms"].append(cuda_ms(fn, reps))
+        for name, _, _, *probe in group:
+            if probe:
+                out.update({f"{name} {key}": v for key, v in probe[0]().items()})
+
+
+def plan_probe(kernel, plan_args, *clock_args, **clock_kw):
+    """A case's probe for a kernel module, as far as the tree under test
+    has the pieces: ``plan_on_card(*plan_args)`` (with the clusters the
+    card holds at once, where the planner counts them) and, on the
+    resident route or where there is no planner, ``phase_clocks(*clock_args,
+    **clock_kw)``: the SM clocks of CTA 0 by phase."""
+
+    def probe():
+        got, resident = {}, True
+        if hasattr(kernel, "plan_on_card"):
+            plan = kernel.plan_on_card(*plan_args)
+            plan, extra = ((plan[0], {"resident_clusters": plan[1]}) if isinstance(plan, tuple)
+                           else (plan, {}))
+            got["plan"] = dict(vars(plan), **extra)
+            resident = plan.route == "resident"
+        if resident and hasattr(kernel, "phase_clocks"):
+            got["clocks of CTA 0 by phase"] = kernel.phase_clocks(*clock_args, **clock_kw)
+        return got
+
+    return probe
+
+
+def timing_run(root, mode):
+    """The frame of the ``--time-*`` modes: the rls_tpu_torch package under
+    `root` (this tree, or another one unpacked beside it) on card 0, TF32
+    off; ``mode(dev, out)`` fills `out`, which starts with the root and the
+    card's name and power limit, printed as one JSON line. Run a mode for
+    two trees in turns (parent, change, change, parent) to compare their
+    kernels on one card."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(root))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"root": root, "card": card_line()}
+    mode(torch.device("cuda", 0), out)
+    print(json.dumps(out))
+    return 0
+
+
+def time_cgnr(dev, out):
+    """``--time-cgnr [ROOT]``: the CGNR kernel at the two CGNR cells'
+    shapes, and with no CG step (its set-up: Aᴴb, the plan, the scratch),
+    beside torch.linalg.solve on the 1024×512 cell's regularized Gram."""
+    import torch
     from rls_tpu_torch.kernels import cgnr_fused as cg
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    out["kernel"] = os.path.relpath(cg.__file__, ROOT)
     systems = dense_systems(bench_suite_draws())
-    out = {"root": root, "kernel": os.path.relpath(cg.__file__, ROOT), "card": smi}
+    cases = []
     for name, key, lam, iters, reps in (
         ("cgnr_l2_dense64_fused_b16", "cgnr64", CGNR64_LAM, CGNR64_ITERS, 50),
         ("cgnr_l2_dense_1024x512_b64", "cgnr1k", CGNR1K_LAM, CGNR1K_ITERS, 20),
@@ -2516,61 +2568,35 @@ def time_cgnr(root) -> int:
         A, B = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in systems[key])
         bt = B.T.contiguous()
         lam_v = torch.full((bt.shape[0],), lam, device=dev)
-        steps = min(iters, A.shape[1])
-        got = cg.cgnr_fused(bt, A, lam_v, steps)
-        want = cg.cgnr_fused_torch(bt, A, lam_v, steps)
-        torch.cuda.synchronize()
+        args = (bt, A, lam_v, min(iters, A.shape[1]))
+        got, want = cg.cgnr_fused(*args), cg.cgnr_fused_torch(*args)
         out[f"{name} max|kernel - plain|"] = float((got - want).abs().max())
-        out[f"{name} ms"] = [cuda_ms(lambda: cg.cgnr_fused(bt, A, lam_v, steps), reps)
-                             for _ in range(3)]
-        # the set-up alone (Aᴴb, the plan, the scratch): no CG step
-        out[f"{name} ms at 0 steps"] = cuda_ms(lambda: cg.cgnr_fused(bt, A, lam_v, 0), reps)
-        if hasattr(cg, "phase_clocks"):  # the kernel's own timer, where it has one
-            out[f"{name} clocks of CTA 0 by phase"] = cg.phase_clocks(bt, A, lam_v, steps)
+        cases += [(name, lambda a=args: cg.cgnr_fused(*a), reps, plan_probe(cg, (), *args)),
+                  (f"{name} at 0 steps", lambda a=args[:3]: cg.cgnr_fused(*a, 0), reps)]
         if key == "cgnr1k":
             G = A.T @ A + lam * torch.eye(A.shape[1], device=dev)
             AtB = A.T @ B
-            torch.linalg.solve(G, AtB)
-            out["torch.linalg.solve ms"] = [cuda_ms(lambda: torch.linalg.solve(G, AtB), 10)
-                                            for _ in range(3)]
-    print(json.dumps(out))
-    return 0
+            cases.append(("torch.linalg.solve", lambda: torch.linalg.solve(G, AtB), 10))
+    time_cases(out, cases)
 
 
-def time_pgm_tv(root) -> int:
-    """``--time-pgm-tv ROOT``: the fused PGM-TV kernel (row 2) of the
-    rls_tpu_torch package under ROOT timed alone, three readings each by
-    CUDA events: FISTA, OptISTA and POGM at the flagship (256² × 64, 50 ×
-    10), the five dynamic and warm schedules of phase 3c at batch 8 and
-    FISTA at batch 8; the flagship cell through solve_batched_fast; and
-    FISTA at 256² × 16 on the fused kernel beside the tiled kernel forced
-    there. Where the package has them, each case's plan and its clocks of
-    CTA 0 by phase; one JSON line. Run it for two trees in turns (parent,
-    change, change, parent) to compare their kernels on one card."""
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.abspath(root))
+def time_pgm_tv(dev, out):
+    """``--time-pgm-tv [ROOT]``: the fused PGM-TV kernel (row 2): FISTA,
+    OptISTA and POGM at the flagship (256² × 64, 50 × 10), the five dynamic
+    and warm schedules of phase 3c at batch 8 and FISTA at batch 8, FISTA
+    at 256² × 16 beside the tiled kernel forced there, and the flagship
+    cell through solve_batched_fast."""
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_tv_fused as fused
     from rls_tpu_torch.kernels import fista_tv_tiled as tiled
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    out["kernel"] = os.path.relpath(fused.__file__, ROOT)
     solver, B, _ = build_flagship(dev)
     taps = solver.A.taps_hw()
     x0hat = solver.A.rmv_stencil(B.T).reshape(BATCH, N, N)
     x0_dyn, x0_16 = x0hat[:BATCH_DYN].contiguous(), x0hat[:16].contiguous()
-    out = {"root": root, "kernel": os.path.relpath(fused.__file__, ROOT), "card": smi}
-    cases = [(f"flagship {m}", x0hat, dict(method=m), 3) for m in ("fista", "optista", "pogm")]
-    cases += [(f"batch {BATCH_DYN} {name}", x0_dyn, kw, 10) for name, kw in (
+    runs = [(f"flagship {m}", x0hat, dict(method=m), 3) for m in ("fista", "optista", "pogm")]
+    runs += [(f"batch {BATCH_DYN} {name}", x0_dyn, kw, 10) for name, kw in (
         ("fista", dict(method="fista")),
         ("fista gradient restart", dict(method="fista", restart="gradient")),
         ("pogm gradient restart, sigma_fac 0.9",
@@ -2579,65 +2605,43 @@ def time_pgm_tv(root) -> int:
         ("pogm early exit", dict(method="pogm", rel_tol=1e-3)),
         ("fista warm_tv", dict(method="fista", warm_tv=True)),
     )]
-    cases.append(("256² x 16 fista", x0_16, dict(method="fista"), 5))
-    for name, x0, kw, reps in cases:
-        def run(x0=x0, kw=kw):
-            return fused.fista_tv_fused(x0, taps, RHO, LAM, ITERS, TV_ITERS, **kw)
-
-        run()
-        out[f"{name} ms"] = [cuda_ms(run, reps) for _ in range(3)]
-        if hasattr(fused, "plan_on_card"):  # the planner and timer, where the tree has them
-            plan, active = fused.plan_on_card(x0, taps, kw["method"], kw.get("restart", "none"),
-                                              kw.get("rel_tol"), kw.get("warm_tv", False))
-            out[f"{name} plan"] = dict(vars(plan), resident_clusters=active)
-            if plan.route == "resident":
-                out[f"{name} clocks of CTA 0 by phase"] = fused.phase_clocks(
-                    x0, taps, RHO, LAM, ITERS, TV_ITERS, **kw)
-    out["256² x 16 fista_tv_tiled ms"] = [
-        cuda_ms(lambda: tiled.fista_tv_tiled(x0_16, taps, RHO, LAM, ITERS, TV_ITERS), 5)
-        for _ in range(3)]
-    rtt.solve_batched_fast(solver, B)
-    out["flagship solve_batched_fast ms"] = [
-        cuda_ms(lambda: rtt.solve_batched_fast(solver, B), 3) for _ in range(3)]
-    print(json.dumps(out))
-    return 0
+    runs.append(("256² x 16 fista", x0_16, dict(method="fista"), 5))
+    cases = []
+    for name, x0, kw, reps in runs:
+        args = (x0, taps, RHO, LAM, ITERS, TV_ITERS)
+        plan_args = (x0, taps, kw["method"], kw.get("restart", "none"), kw.get("rel_tol"),
+                     kw.get("warm_tv", False))
+        cases.append((name, lambda a=args, kw=kw: fused.fista_tv_fused(*a, **kw), reps,
+                      plan_probe(fused, plan_args, *args, **kw)))
+    cases += [
+        ("256² x 16 fista_tv_tiled",
+         lambda: tiled.fista_tv_tiled(x0_16, taps, RHO, LAM, ITERS, TV_ITERS), 5),
+        ("flagship solve_batched_fast", lambda: rtt.solve_batched_fast(solver, B), 3),
+    ]
+    time_cases(out, cases)
 
 
-def time_splitbregman(root) -> int:
-    """``--time-splitbregman ROOT``: the fused SplitBregman kernel (row 10)
-    of the rls_tpu_torch package under ROOT timed alone, three readings
-    each by CUDA events, at BASELINE #4's schedule (4 × 8 × 8, TV 5) on
-    the SENSE problem: the cell's 8 slices of 128² with 6 coils, the same
-    tiled to 64 slices (more clusters than the card holds at once), and 8
-    slices with the first 1 and 3 coils; rows 8 and 9 (FISTA-L1-DFT on 16
-    distinct 256² CS problems, FISTA-L21-SENSE on the 8 slices) as
-    controls; and the cell through solve_batched_fast. Where the package
-    has them, each case's plan and its clocks of CTA 0 by phase; one JSON
-    line. Run it for two trees in turns (parent, change, change, parent) to
-    compare their kernels on one card."""
+def time_splitbregman(dev, out):
+    """``--time-splitbregman [ROOT]``: the fused SplitBregman kernel (row
+    10) at BASELINE #4's schedule (4 × 8 × 8, TV 5) on the SENSE problem:
+    the cell's 8 slices of 128² with 6 coils, the same tiled to 64 slices
+    (more clusters than the card holds at once), and 8 slices with the
+    first 1 and 3 coils; rows 8 and 9 (FISTA-L1-DFT on 16 distinct 256² CS
+    problems, FISTA-L21-SENSE on the 8 slices) as controls; and the cell
+    through solve_batched_fast."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.abspath(root))
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
     from rls_tpu_torch.kernels import sense_fused as k9
     from rls_tpu_torch.kernels import splitbregman_fused as k10
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    out["kernel"] = os.path.relpath(k10.__file__, ROOT)
     maps, mask, X = sense_problem()
     op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N), device=dev)
     b = op.mv(torch.from_numpy(X).to(dev))
     x0 = op.rmv(b).reshape(SENSE_SLICES, 2, SENSE_N, SENSE_N)
     coils = (op.coils_r, op.coils_i)
-    out = {"root": root, "kernel": os.path.relpath(k10.__file__, ROOT), "card": smi}
+    cases = []
     for name, x, C, reps in (
         (f"cell: {SENSE_SLICES} slices, {SENSE_C} coils", x0, SENSE_C, 2),
         (f"{8 * SENSE_SLICES} slices, {SENSE_C} coils", x0.repeat(8, 1, 1, 1), SENSE_C, 1),
@@ -2646,78 +2650,68 @@ def time_splitbregman(root) -> int:
     ):
         cr, ci = (c[:C].contiguous() for c in coils)
         args = (x, op.mask, cr, ci, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL)
-
-        def run(args=args):
-            return k10.splitbregman_l1_tv_fused(*args)
-
-        run()
-        out[f"{name} ms"] = [cuda_ms(run, reps) for _ in range(3)]
-        if hasattr(k10, "plan_on_card"):  # the planner and timer, where the tree has them
-            plan = k10.plan_on_card(x, C)
-            out[f"{name} plan"] = dict(vars(plan),
-                                       bands=[plan.band(q) for q in range(plan.clusters)])
-            if plan.route == "resident":
-                out[f"{name} clocks of CTA 0 by phase"] = k10.phase_clocks(*args)
+        cases.append((name, lambda a=args: k10.splitbregman_l1_tv_fused(*a), reps,
+                      plan_probe(k10, (x, C), *args)))
     # rows 8 and 9, which this kernel's changes must not move
     img2, idx2 = bench_suite_draws()["cs"]
     op8 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
     x8 = op8.rmv(op8.mv(torch.from_numpy(cs_phantoms(img2)).to(dev))).reshape(
         CS_BATCH, CS_N, CS_N)
     lam8 = torch.linspace(0.5, 2.0, CS_BATCH, device=dev) * CS_LAM
-    for name, fn in (
-        ("row 8 fista_l1_dft_fused",
-         lambda: k8.fista_l1_dft_fused(x8, op8.mask, RHO, lam8, CS_ITERS)),
-        ("row 9 sense_fused",
-         lambda: k9.fista_l21_sense_fused(x0, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS)),
-    ):
-        fn()
-        out[f"{name} ms"] = [cuda_ms(fn, 3) for _ in range(3)]
     solver = splitbregman_solver(op, dev)
     B = b.T.contiguous()
-    rtt.solve_batched_fast(solver, B)
-    out["cell solve_batched_fast ms"] = [
-        cuda_ms(lambda: rtt.solve_batched_fast(solver, B), 2) for _ in range(3)]
-    print(json.dumps(out))
-    return 0
+    cases += [
+        ("row 8 fista_l1_dft_fused",
+         lambda: k8.fista_l1_dft_fused(x8, op8.mask, RHO, lam8, CS_ITERS), 3),
+        ("row 9 sense_fused",
+         lambda: k9.fista_l21_sense_fused(x0, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS), 3),
+        ("cell solve_batched_fast", lambda: rtt.solve_batched_fast(solver, B), 2),
+    ]
+    time_cases(out, cases)
 
 
-def time_pdhg(root) -> int:
-    """``--time-pdhg ROOT``: the fused PDHG kernel (row 11) of the
-    rls_tpu_torch package under ROOT timed alone, three readings each by
-    CUDA events, at the PDHG cell's operator and 200 iterations: tv8 on
-    16 distinct 256² problems (the phantoms of phase 3i), tviso and L1 +
-    Positive on the same, tv8 on the first 4 and on the 16 tiled to 64;
-    and the cell through solve_batched_fast. Where the package has them,
-    each case's plan and its clocks of CTA 0 by phase. Then row 8 as
-    solve_batched_fast runs it on the CS cell (fista_l1_cs_dft256_b16),
-    that cell through solve_batched_fast and its composed
-    solve_batched_unrolled (torch.fft), in turns, three rounds. One JSON
-    line. Run it for two trees in turns (parent, change, change, parent)
-    to compare their kernels on one card."""
+def cs_cell_solves(dev, op, img2):
+    """The CS cell (fista_l1_cs_dft256_b16) as solve_batched_fast runs it
+    (the bench tiles its one column 16 times), in turns with its composed
+    solve_batched_unrolled (torch.fft) and row 8 on the same seed: cases of
+    :func:`time_cases`."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.abspath(root))
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+
+    B8 = op.mv(torch.from_numpy(img2).to(dev))[:, None].repeat(1, CS_BATCH).contiguous()
+    s8 = rtt.FISTA.create(op, reg=rtt.L1Regularization(CS_LAM), iterations=CS_ITERS, rho=RHO,
+                          rel_tol=0.0, track_residual=False)
+    x8 = op.rmv(B8.T).reshape(CS_BATCH, CS_N, CS_N).contiguous()
+    return [
+        ("row 8 fista_l1_dft_fused",
+         lambda: k8.fista_l1_dft_fused(x8, op.mask, RHO, CS_LAM, CS_ITERS), 2),
+        ("fista_l1_cs_dft256_b16 solve_batched_fast", lambda: rtt.solve_batched_fast(s8, B8), 2),
+        ("fista_l1_cs_dft256_b16 solve_batched_unrolled",
+         lambda: rtt.solve_batched_unrolled(s8, B8), 2),
+    ]
+
+
+def time_pdhg(dev, out):
+    """``--time-pdhg [ROOT]``: the fused PDHG kernel (row 11) at the PDHG
+    cell's operator and 200 iterations: tv8 on 16 distinct 256² problems
+    (the phantoms of phase 3i), tviso and L1 + Positive on the same, tv8 on
+    the first 4 and on the 16 tiled to 64; the cell through
+    solve_batched_fast. Then row 8 as solve_batched_fast runs it on the CS
+    cell, that cell through solve_batched_fast and its composed
+    solve_batched_unrolled, in turns."""
+    import torch
+    import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import pdhg_fused as pd
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    out["kernel"] = os.path.relpath(pd.__file__, ROOT)
     solver = pdhg_cell_solver(dev)
     op = solver.A
     taps = op.taps_hw()
     xs = torch.from_numpy(phantoms(n=PDHG_N, batch=PDHG_BATCH)).to(dev)
     u = op.mv(xs).reshape(PDHG_BATCH, PDHG_N, PDHG_N).contiguous()
-    out = {"root": root, "kernel": os.path.relpath(pd.__file__, ROOT), "card": smi,
-           "tau": solver.tau}
+    out["tau"] = solver.tau
+    cases = []
     for name, x, kind, prox, reps in (
         (f"cell: tv8, {PDHG_BATCH} x {PDHG_N}²", u, "tv8", "none", 1),
         (f"tviso, {PDHG_BATCH} x {PDHG_N}²", u, "tviso", "none", 3),
@@ -2725,82 +2719,35 @@ def time_pdhg(root) -> int:
         (f"tv8, 4 x {PDHG_N}²", u[:4].contiguous(), "tv8", "none", 3),
         (f"tv8, 64 x {PDHG_N}²", u.repeat(4, 1, 1), "tv8", "none", 1),
     ):
-        def run(x=x, kind=kind, prox=prox):
-            return pd.pdhg_fused(x, taps, solver.sigma, solver.tau, PDHG_LAM, PDHG_ITERS, kind,
-                                 prox)
-
-        run()
-        out[f"{name} ms"] = [cuda_ms(run, reps) for _ in range(3)]
-        if hasattr(pd, "plan_on_card"):  # the planner and timer, where the tree has them
-            plan, active = pd.plan_on_card(x, taps, kind)
-            out[f"{name} plan"] = dict(vars(plan), resident_clusters=active)
-            if plan.route == "resident":
-                out[f"{name} clocks of CTA 0 by phase"] = pd.phase_clocks(
-                    x, taps, solver.sigma, solver.tau, PDHG_LAM, PDHG_ITERS, kind, prox)
+        args = (x, taps, solver.sigma, solver.tau, PDHG_LAM, PDHG_ITERS, kind, prox)
+        cases.append((name, lambda a=args: pd.pdhg_fused(*a), reps,
+                      plan_probe(pd, (x, taps, kind), *args)))
     draws = bench_suite_draws()
-    xt = torch.from_numpy(draws["admm"]).to(dev)
-    B = op.mv(xt)[:, None].repeat(1, PDHG_BATCH).contiguous()
-    rtt.solve_batched_fast(solver, B)
-    out["cell solve_batched_fast ms"] = [
-        cuda_ms(lambda: rtt.solve_batched_fast(solver, B), 1) for _ in range(3)]
-    # row 8 beside its composed solve on the CS cell, in turns
+    B = op.mv(torch.from_numpy(draws["admm"]).to(dev))[:, None].repeat(1, PDHG_BATCH).contiguous()
+    cases.append(("cell solve_batched_fast", lambda: rtt.solve_batched_fast(solver, B), 1))
+    time_cases(out, cases)
     img2, idx2 = draws["cs"]
     op8 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
-    B8 = op8.mv(torch.from_numpy(img2).to(dev))[:, None].repeat(1, CS_BATCH).contiguous()
-    s8 = rtt.FISTA.create(op8, reg=rtt.L1Regularization(CS_LAM), iterations=CS_ITERS, rho=RHO,
-                          rel_tol=0.0, track_residual=False)
-    x8 = op8.rmv(B8.T).reshape(CS_BATCH, CS_N, CS_N).contiguous()
-    row8 = (
-        ("row 8 fista_l1_dft_fused", lambda: k8.fista_l1_dft_fused(x8, op8.mask, RHO, CS_LAM,
-                                                                   CS_ITERS)),
-        ("fista_l1_cs_dft256_b16 solve_batched_fast", lambda: rtt.solve_batched_fast(s8, B8)),
-        ("fista_l1_cs_dft256_b16 solve_batched_unrolled",
-         lambda: rtt.solve_batched_unrolled(s8, B8)),
-    )
-    for name, fn in row8:
-        fn()
-        out[f"{name} ms"] = []
-    for _ in range(3):
-        for name, fn in row8:
-            out[f"{name} ms"].append(cuda_ms(fn, 2))
-    print(json.dumps(out))
-    return 0
+    time_cases(out, cs_cell_solves(dev, op8, img2), in_turns=True)
 
 
-def time_fista_l1_dft(root) -> int:
-    """``--time-fista-l1-dft ROOT``: the fused FISTA-L1-DFT kernel (row 8)
-    of the rls_tpu_torch package under ROOT timed alone, three readings
-    each by CUDA events, at BASELINE #2's schedule (ρ = 0.95, 60
-    iterations, λ per problem around 2e-3): the CS cell's 16 distinct 256²
-    problems (the phantoms of phase 3h), 1 and 64 problems of 256², 16 of
-    128² and 4 of 512² (the global route); the cell through
-    solve_batched_fast; the kernel and the cell's composed
-    solve_batched_unrolled (torch.fft) in turns, three rounds, with the
-    composed solve's device time by torch.profiler (the sum of its
+def time_fista_l1_dft(dev, out):
+    """``--time-fista-l1-dft [ROOT]``: the fused FISTA-L1-DFT kernel (row
+    8) at BASELINE #2's schedule (ρ = 0.95, 60 iterations, λ per problem
+    around 2e-3): the CS cell's 16 distinct 256² problems (the phantoms of
+    phase 3h), 1 and 64 problems of 256², 16 of 128² and 4 of 512² (the
+    global route); then the cell as solve_batched_fast runs it, in turns
+    with its composed solve_batched_unrolled (torch.fft) and the kernel,
+    with the composed solve's device time by torch.profiler (the sum of its
     kernels' times, which host delays do not move) beside the kernel's;
     row 9 (FISTA-L21-SENSE on the 8 SENSE slices) as a control, with its
-    cell's composed solve (wall and device time). Where the
-    package has them, each case's plan and its clocks of CTA 0 by phase.
-    One JSON line. Run it for two trees in turns (parent, change, change,
-    parent) to compare their kernels on one card."""
+    cell's composed solve (wall and device time)."""
     import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.abspath(root))
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
     from rls_tpu_torch.kernels import sense_fused as k9
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    out = {"root": root, "kernel": os.path.relpath(k8.__file__, ROOT), "card": smi}
+    out["kernel"] = os.path.relpath(k8.__file__, ROOT)
     img2, idx2 = bench_suite_draws()["cs"]
     op = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
     x16 = op.rmv(op.mv(torch.from_numpy(cs_phantoms(img2)).to(dev))).reshape(
@@ -2815,83 +2762,56 @@ def time_fista_l1_dft(root) -> int:
         imgs = torch.from_numpy(rng.normal(size=(batch, n * n)).astype(np.float32)).to(dev)
         return o.rmv(o.mv(imgs)).reshape(batch, n, n), o.mask, lam16[:batch]
 
-    cases = (
+    cases = []
+    for name, x, mask, lam, reps in (
         (f"cell: {CS_BATCH} x {CS_N}²", x16, op.mask, lam16, 3),
         (f"1 x {CS_N}²", x16[:1].contiguous(), op.mask, lam16[:1], 5),
         (f"64 x {CS_N}²", x16.repeat(4, 1, 1), op.mask, lam16.repeat(4), 1),
         ("16 x 128²", *other(128, 16), 5),
         ("4 x 512² (global route)", *other(512, 4), 1),
-    )
-    for name, x, mask, lam, reps in cases:
-        def run(x=x, mask=mask, lam=lam):
-            return k8.fista_l1_dft_fused(x, mask, RHO, lam, CS_ITERS)
-
-        run()
-        out[f"{name} ms"] = [cuda_ms(run, reps) for _ in range(3)]
-        if hasattr(k8, "plan_on_card"):  # the planner and timer, where the tree has them
-            plan, active = k8.plan_on_card(x)
-            out[f"{name} plan"] = dict(vars(plan), resident_clusters=active)
-            if plan.route == "resident":
-                out[f"{name} clocks of CTA 0 by phase"] = k8.phase_clocks(x, mask, RHO, lam,
-                                                                         CS_ITERS)
-    # the cell as solve_batched_fast runs it (the bench tiles its one column
-    # 16 times), beside its composed solve, in turns
-    B8 = op.mv(torch.from_numpy(img2).to(dev))[:, None].repeat(1, CS_BATCH).contiguous()
-    s8 = rtt.FISTA.create(op, reg=rtt.L1Regularization(CS_LAM), iterations=CS_ITERS, rho=RHO,
-                          rel_tol=0.0, track_residual=False)
-    x8 = op.rmv(B8.T).reshape(CS_BATCH, CS_N, CS_N).contiguous()
-    row8 = (
-        ("row 8 fista_l1_dft_fused", lambda: k8.fista_l1_dft_fused(x8, op.mask, RHO, CS_LAM,
-                                                                   CS_ITERS)),
-        ("fista_l1_cs_dft256_b16 solve_batched_fast", lambda: rtt.solve_batched_fast(s8, B8)),
-        ("fista_l1_cs_dft256_b16 solve_batched_unrolled",
-         lambda: rtt.solve_batched_unrolled(s8, B8)),
-    )
-    for name, fn in row8:
-        fn()
-        out[f"{name} ms"] = []
-    for _ in range(3):
-        for name, fn in row8:
-            out[f"{name} ms"].append(cuda_ms(fn, 2))
-    for name, fn in (row8[0], row8[2]):
+    ):
+        args = (x, mask, RHO, lam, CS_ITERS)
+        cases.append((name, lambda a=args: k8.fista_l1_dft_fused(*a), reps,
+                      plan_probe(k8, (x,), *args)))
+    time_cases(out, cases)
+    row8 = cs_cell_solves(dev, op, img2)
+    time_cases(out, row8, in_turns=True)
+    for name, fn, _ in (row8[0], row8[2]):
         readings = [device_kernels(fn) for _ in range(3)]
         out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in r) for r in readings]
         out[f"{name} device kernels (profiler, last)"] = [
             [key[:80], count, ms] for ms, count, key in readings[-1][:6]]
-    # row 9, which this kernel's changes must not move
+    # row 9, which this kernel's changes must not move, and its yardstick:
+    # its cell's composed solve, wall and device time
     maps, mask, X = sense_problem()
     op9 = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N), device=dev)
     x9 = op9.rmv(op9.mv(torch.from_numpy(X).to(dev))).reshape(SENSE_SLICES, 2, SENSE_N, SENSE_N)
-
-    def row9():
-        return k9.fista_l21_sense_fused(x9, op9.mask, op9.coils_r, op9.coils_i, RHO, SENSE_LAM,
-                                        SENSE_ITERS)
-
-    row9()
-    out["row 9 sense_fused ms"] = [cuda_ms(row9, 2) for _ in range(3)]
-    # row 9's yardstick too: its cell's composed solve, wall and device time
     s9 = rtt.FISTA.create(op9, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
                           iterations=SENSE_ITERS, rho=RHO)
     B9 = op9.mv(torch.from_numpy(X).to(dev)).T.contiguous()
-    rtt.solve_batched_unrolled(s9, B9)
-    out["row 9 composed solve_batched_unrolled ms"] = [
-        cuda_ms(lambda: rtt.solve_batched_unrolled(s9, B9), 1) for _ in range(3)]
+
+    def composed9():
+        return rtt.solve_batched_unrolled(s9, B9)
+
+    time_cases(out, [
+        ("row 9 sense_fused", lambda: k9.fista_l21_sense_fused(
+            x9, op9.mask, op9.coils_r, op9.coils_i, RHO, SENSE_LAM, SENSE_ITERS), 2),
+        ("row 9 composed solve_batched_unrolled", composed9, 1),
+    ])
     out["row 9 composed device ms (profiler)"] = [
-        sum(ms for ms, _, _ in device_kernels(lambda: rtt.solve_batched_unrolled(s9, B9)))
-        for _ in range(3)]
-    print(json.dumps(out))
-    return 0
+        sum(ms for ms, _, _ in device_kernels(composed9)) for _ in range(3)]
+
+
+TIME_MODES = {
+    "--time-cgnr": time_cgnr,
+    "--time-pgm-tv": time_pgm_tv,
+    "--time-splitbregman": time_splitbregman,
+    "--time-pdhg": time_pdhg,
+    "--time-fista-l1-dft": time_fista_l1_dft,
+}
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--time-cgnr"]:
-        sys.exit(time_cgnr(sys.argv[2] if len(sys.argv) > 2 else ROOT))
-    if sys.argv[1:2] == ["--time-pgm-tv"]:
-        sys.exit(time_pgm_tv(sys.argv[2] if len(sys.argv) > 2 else ROOT))
-    if sys.argv[1:2] == ["--time-splitbregman"]:
-        sys.exit(time_splitbregman(sys.argv[2] if len(sys.argv) > 2 else ROOT))
-    if sys.argv[1:2] == ["--time-pdhg"]:
-        sys.exit(time_pdhg(sys.argv[2] if len(sys.argv) > 2 else ROOT))
-    if sys.argv[1:2] == ["--time-fista-l1-dft"]:
-        sys.exit(time_fista_l1_dft(sys.argv[2] if len(sys.argv) > 2 else ROOT))
+    if sys.argv[1:2] and sys.argv[1] in TIME_MODES:
+        sys.exit(timing_run(sys.argv[2] if len(sys.argv) > 2 else ROOT, TIME_MODES[sys.argv[1]]))
     sys.exit(main())

@@ -42,6 +42,7 @@ import torch
 from ..models.regularization import normalization_factor
 from ..models.solvers.base import effective_lam
 from ..ops.base import NormalOperator
+from ._tables import shared_table
 
 __all__ = [
     "MIN_FFT",
@@ -158,10 +159,11 @@ def dft_tables(mask, dtype=torch.float32):
     check_fft_shape(H, W)
     dev = mask.device
     np_dt = torch.empty((), dtype=dtype).numpy().dtype
-    tw_h = torch.as_tensor(twiddles(H, np_dt), device=dev)
-    tw_w = torch.as_tensor(twiddles(W, np_dt), device=dev)
-    rh = torch.as_tensor(bit_reverse(H), device=dev)
-    rw = torch.as_tensor(bit_reverse(W), device=dev)
+    # the shape's tables are shared (read only); the weights are the mask's
+    tw_h = shared_table(twiddles, H, np_dt, device=dev)
+    tw_w = shared_table(twiddles, W, np_dt, device=dev)
+    rh = shared_table(bit_reverse, H, device=dev)
+    rw = shared_table(bit_reverse, W, device=dev)
     weights = mask.to(dtype)[rh][:, rw] * (1.0 / (H * W))
     return tw_h, tw_w, weights
 

@@ -49,7 +49,7 @@ from ..models.prox import L1Regularization
 from ..models.solvers.fista import FISTA
 from ..ops.dft_real import SubsampledDFT2RealOperator
 from . import _dft_common
-from .fista_tv_fused import MIN_CTA_PIXELS, _momentum_table
+from .fista_tv_fused import MIN_CTA_PIXELS, momentum_tensor, problem_scalars
 
 __all__ = [
     "fista_l1_dft_fused",
@@ -102,25 +102,6 @@ class DftPlan:
     W: int
     ctas: int
     smem: int
-
-    def band(self, rank):
-        """[r0, r1): the image rows CTA `rank` owns (its x, x_prev and
-        spectrum band)."""
-        return rank * self.rows, (rank + 1) * self.rows
-
-    def block(self, rank):
-        """[c0, c1): the spectrum columns CTA `rank` transforms."""
-        return rank * self.cols, (rank + 1) * self.cols
-
-    def row_owner(self, row):
-        """The CTA whose band holds image (spectrum) row `row`: where the
-        column pass writes that row back."""
-        return row // self.rows
-
-    def column_owner(self, col):
-        """The CTA whose block holds spectrum column `col`: where the row
-        pass pushes that column."""
-        return col // self.cols
 
 
 def fitting_sizes(H, W, sms=SMS, smem_max=SMEM_MAX):
@@ -254,45 +235,17 @@ def _launch(x0hat, scal, tab, tables, prof=None):
     return out
 
 
-@functools.lru_cache(maxsize=64)
-def _axis_tables(n, dtype, device):
-    """The twiddles and the bit reversal of an n-point axis on `device`,
-    made once (read only)."""
-    np_dt = torch.empty((), dtype=dtype).numpy().dtype
-    return (torch.as_tensor(_dft_common.twiddles(n, np_dt), device=device),
-            torch.as_tensor(_dft_common.bit_reverse(n), device=device))
-
-
-@functools.lru_cache(maxsize=64)
-def _momentum(iterations, dtype, device):
-    np_dt = torch.empty((), dtype=dtype).numpy().dtype
-    return torch.as_tensor(_momentum_table("fista", iterations, dtype=np_dt), device=device)
-
-
 def _kernel_args(x0hat_b, mask, rho, lam, iterations):
     """(scal, tab, tables) for the kernel and its plain version, in x0hat's
-    dtype on its device: the values of ``problem_scalars``,
-    ``_momentum_table`` and ``_dft_common.dft_tables``, made with no
-    host-to-device copy per call. Each such copy waits for the work queued
-    on the card, so a call's set-up would wait for the solve before it: the
-    tables that depend only on the shape are made once, and ρ, λ given as
-    numbers are filled on the device."""
-    B, H, W = x0hat_b.shape
-    _dft_common.check_fft_shape(H, W)
+    dtype on its device."""
+    H, W = x0hat_b.shape[-2:]
     if tuple(mask.shape) != (H, W):
         raise ValueError(f"fista_l1_dft_fused: a mask of {tuple(mask.shape)} for images of "
                          f"{H}x{W}")
-    dt, dev = x0hat_b.dtype, x0hat_b.device
-
-    def per_problem(v):
-        if isinstance(v, (int, float)):
-            return torch.full((B,), v, dtype=dt, device=dev)
-        return torch.broadcast_to(torch.as_tensor(v, dtype=dt, device=dev).reshape(-1), (B,))
-
-    scal = torch.stack([per_problem(rho), per_problem(lam)], dim=1)
-    (tw_h, rh), (tw_w, rw) = _axis_tables(H, dt, dev), _axis_tables(W, dt, dev)
-    weights = mask.to(dt)[rh][:, rw] * (1.0 / (H * W))
-    return scal, _momentum(iterations, dt, dev), (tw_h, tw_w, weights)
+    np_dt = torch.empty((), dtype=x0hat_b.dtype).numpy().dtype
+    return (problem_scalars(x0hat_b, rho, lam, np_dt),
+            momentum_tensor("fista", iterations, np_dt, x0hat_b.device),
+            _dft_common.dft_tables(mask, x0hat_b.dtype))
 
 
 def fista_l1_dft_fused(x0hat_b, mask, rho, lam, iterations: int):

@@ -60,6 +60,7 @@ from ..models.solvers.pogm import POGM
 from ..ops.base import NormalOperator
 from ..ops.conv_direct import SeparableConvOperator
 from . import _fgp_common
+from ._tables import shared_table
 
 __all__ = [
     "fista_tv_fused",
@@ -506,19 +507,27 @@ def problem_scalars(x0hat_b, rho, lam, dtype=np.float32):
     tdt = torch.from_numpy(np.zeros((), dtype)).dtype
 
     def per_problem(v):
+        if isinstance(v, (int, float)):  # filled on the device: no host-to-device copy
+            return torch.full((B,), v, dtype=tdt, device=dev)
         return torch.broadcast_to(torch.as_tensor(v, dtype=tdt, device=dev).reshape(-1), (B,))
 
     return torch.stack([per_problem(rho), per_problem(lam)], dim=1)
 
 
+def momentum_tensor(method, iterations, dtype, device):
+    """``_momentum_table(method, iterations)`` in `dtype` on `device`,
+    shared by every call (``shared_table``: read only)."""
+    return shared_table(_momentum_table, method, iterations, 1.0, dtype, device=device)
+
+
 def kernel_args(x0hat_b, rho, lam, method, iterations, tv_iterations, dtype=np.float32):
     """(scal, tab, t2tab) for the kernels and their plain versions: ρ and λ
     per problem, the momentum table and the fold-FGP constants, in
-    `dtype` on x0hat's device."""
+    `dtype` on x0hat's device (the two tables shared, read only)."""
     dev = x0hat_b.device
     scal = problem_scalars(x0hat_b, rho, lam, dtype)
-    tab = torch.as_tensor(_momentum_table(method, iterations, dtype=dtype), device=dev)
-    t2tab = torch.as_tensor(_fgp_common.fgp_t2_table(tv_iterations, dtype), device=dev)
+    tab = momentum_tensor(method, iterations, dtype, dev)
+    t2tab = shared_table(_fgp_common.fgp_t2_table, tv_iterations, dtype, device=dev)
     return scal, tab, t2tab
 
 

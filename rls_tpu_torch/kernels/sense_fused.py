@@ -38,7 +38,7 @@ from ._dft_common import (
     seed_and_lam,
     twiddle_tensor,
 )
-from .fista_tv_fused import _momentum_table, problem_scalars
+from .fista_tv_fused import momentum_tensor, problem_scalars
 
 __all__ = [
     "fista_l21_sense_fused",
@@ -120,8 +120,7 @@ def fista_l21_sense_fused(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations:
     ``fista_l21_sense_fused.launches`` counts the kernel's launches."""
     np_dt = torch.empty((), dtype=x0hat_b.dtype).numpy().dtype
     scal = problem_scalars(x0hat_b, rho, lam, np_dt)
-    tab = torch.as_tensor(_momentum_table("fista", iterations, dtype=np_dt),
-                          device=x0hat_b.device)
+    tab = momentum_tensor("fista", iterations, np_dt, x0hat_b.device)
     coils, tables = sense_args(x0hat_b, (coils_r, coils_i), mask)
     if x0hat_b.device.type == "cpu":
         return fista_l21_sense_fused_torch(x0hat_b, scal, tab, coils, tables)

@@ -34,7 +34,7 @@ import torch
 
 from rls_tpu_torch.kernels import _dft_common as dft
 from rls_tpu_torch.kernels import fista_l1_dft_fused as l1dft
-from rls_tpu_torch.kernels.fista_tv_fused import MIN_CTA_PIXELS, _momentum_table, problem_scalars
+from rls_tpu_torch.kernels.fista_tv_fused import MIN_CTA_PIXELS, _momentum_table
 from test_torch_splitbregman_plan import LINE_MAX, line_model
 
 SMS, SMEM = 132, 232_448
@@ -60,6 +60,29 @@ def _resident(B, H, W, c):
                          l1dft.resident_smem_bytes(H, W, c))
 
 
+def band(plan, rank):
+    """[r0, r1): the image rows CTA `rank` owns (its x, x_prev and spectrum
+    band)."""
+    return rank * plan.rows, (rank + 1) * plan.rows
+
+
+def block(plan, rank):
+    """[c0, c1): the spectrum columns CTA `rank` transforms."""
+    return rank * plan.cols, (rank + 1) * plan.cols
+
+
+def row_owner(plan, row):
+    """The CTA whose band holds image (spectrum) row `row`: where the
+    column pass writes that row back."""
+    return row // plan.rows
+
+
+def column_owner(plan, col):
+    """The CTA whose block holds spectrum column `col`: where the row pass
+    pushes that column."""
+    return col // plan.cols
+
+
 # tests/test_torch_cuda.py's FISTA-L1-DFT shapes (B, H, W) with the cluster
 # size each takes on an H100 (None: the global route): every size from 1 to
 # 16, lines of 2 to 1024 points, with and without a shared-memory stage
@@ -75,9 +98,6 @@ def _covers(plan, B, H, W, smem=SMEM):
     c = plan.clusters
     assert c in l1dft.CLUSTER_SIZES and c <= min(H, W)
     assert (plan.rows * c, plan.cols * c) == (H, W)
-    assert [plan.band(q) for q in range(c)] == [(q * plan.rows, (q + 1) * plan.rows)
-                                                for q in range(c)]
-    assert plan.block(c - 1)[1] == W
     assert plan.ctas == B * c
     assert plan.smem == l1dft.resident_smem_bytes(H, W, c) <= smem
 
@@ -159,15 +179,16 @@ def test_the_card_tests_shapes_take_their_cluster_sizes(shape):
 @pytest.mark.parametrize("H,W,c", [(256, 256, 16), (256, 256, 8), (128, 128, 4), (16, 64, 2),
                                    (64, 32, 16), (2, 4, 1), (1024, 16, 4)])
 def test_every_row_and_column_has_one_owner(H, W, c):
-    """row_owner and column_owner name the one CTA whose band and block
-    hold each row and column."""
+    """The model's bands and blocks partition the rows and the columns, and
+    row_owner and column_owner name the one CTA whose band and block hold
+    each."""
     plan = _resident(3, H, W, c)
-    rows = [r for q in range(c) for r in range(*plan.band(q))]
-    cols = [k for q in range(c) for k in range(*plan.block(q))]
+    rows = [r for q in range(c) for r in range(*band(plan, q))]
+    cols = [k for q in range(c) for k in range(*block(plan, q))]
     assert rows == list(range(H)) and cols == list(range(W))
     for q in range(c):
-        assert all(plan.row_owner(r) == q for r in range(*plan.band(q)))
-        assert all(plan.column_owner(k) == q for k in range(*plan.block(q)))
+        assert all(row_owner(plan, r) == q for r in range(*band(plan, q)))
+        assert all(column_owner(plan, k) == q for k in range(*block(plan, q)))
 
 
 def test_the_shared_memory_is_counted_piece_by_piece():
@@ -255,9 +276,10 @@ def test_the_global_route_needs_no_residency():
 @pytest.mark.parametrize("shape", [(16, 32), (256, 8), (2, 4)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_the_kernel_s_arguments_are_the_plain_version_s(rho, lam, shape, dtype):
-    """What the wrapper hands the kernel and the plain version, made with no
-    host-to-device copy, equals problem_scalars, _momentum_table and
-    dft_tables (here on CPU tensors), twice in a row (the cached tables)."""
+    """What the wrapper hands the kernel and the plain version (ρ and λ
+    filled on the device where they are numbers, the shared tables) equals
+    the same made afresh by host-to-device copies (here on CPU tensors),
+    twice in a row, the second time with the same table tensors."""
     rng = np.random.default_rng(sum(shape))
     x0 = torch.from_numpy(rng.normal(size=(3, *shape))).to(dtype)
     mask = torch.from_numpy((rng.uniform(size=shape) < 0.4).astype(np.float32))
@@ -265,15 +287,22 @@ def test_the_kernel_s_arguments_are_the_plain_version_s(rho, lam, shape, dtype):
     def t(v):
         return torch.tensor(v) if isinstance(v, list) else v
 
+    def per_problem(v):
+        return torch.broadcast_to(torch.as_tensor(v, dtype=dtype).reshape(-1), (3,))
+
     np_dt = torch.empty((), dtype=dtype).numpy().dtype
-    want = (problem_scalars(x0, t(rho), t(lam), np_dt),
+    H, W = shape
+    rh, rw = torch.as_tensor(dft.bit_reverse(H)), torch.as_tensor(dft.bit_reverse(W))
+    want = (torch.stack([per_problem(t(rho)), per_problem(t(lam))], dim=1),
             torch.as_tensor(_momentum_table("fista", 9, dtype=np_dt)),
-            dft.dft_tables(mask, dtype))
-    for _ in range(2):
-        got = l1dft._kernel_args(x0, mask, t(rho), t(lam), 9)
+            (torch.as_tensor(dft.twiddles(H, np_dt)), torch.as_tensor(dft.twiddles(W, np_dt)),
+             mask.to(dtype)[rh][:, rw] * (1.0 / (H * W))))
+    first = l1dft._kernel_args(x0, mask, t(rho), t(lam), 9)
+    for got in (first, l1dft._kernel_args(x0, mask, t(rho), t(lam), 9)):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
         assert got[0].dtype == got[1].dtype == got[2][2].dtype == dtype
+        assert got[1] is first[1] and got[2][0] is first[2][0] and got[2][1] is first[2][1]
 
 
 def test_a_mask_of_another_shape_raises():
@@ -341,10 +370,10 @@ def _rows_forward(m, q, x_mom):
     m.touch(q, "band")  # the row pass stages its spectrum in the band
     re, im = line_model(x_mom, torch.zeros_like(x_mom), tw_w)
     m.bufs[q]["band"] = (re.clone(), im.clone())
-    r0, r1 = plan.band(q)
+    r0, r1 = band(plan, q)
     for o in range(plan.clusters):  # columns k of CTA column_owner(k)'s block
-        c0, c1 = plan.block(o)
-        assert all(plan.column_owner(k) == o for k in range(c0, c1))
+        c0, c1 = block(plan, o)
+        assert all(column_owner(plan, k) == o for k in range(c0, c1))
         m.push(o, "block", (r0, r1), (0, c1 - c0), re[:, c0:c1], im[:, c0:c1])
 
 
@@ -353,15 +382,15 @@ def _columns(m, q):
     back, each point written back to the band of its row's owner."""
     plan = m.plan
     tw_h, _, weights = m.tables
-    c0, c1 = plan.block(q)
+    c0, c1 = block(plan, q)
     m.touch(q, "block")
     bre, bim = (t.T.contiguous() for t in m.bufs[q]["block"])  # lines are columns
     re, im = line_model(bre, bim, tw_h)
     wt = weights.T[c0:c1]
     re, im = line_model(re * wt, im * wt, tw_h, inverse=True)
     for o in range(plan.clusters):  # rows k of CTA row_owner(k)'s band
-        r0, r1 = plan.band(o)
-        assert all(plan.row_owner(k) == o for k in range(r0, r1))
+        r0, r1 = band(plan, o)
+        assert all(row_owner(plan, k) == o for k in range(r0, r1))
         m.push(o, "band", (0, r1 - r0), (c0, c1), re[:, r0:r1].T, im[:, r0:r1].T)
 
 
@@ -378,7 +407,7 @@ def cluster_normal(x, plan, tables, barriers=("A", "B")):
     m = ClusterModel(plan)
     m.tables = tables
     for q in range(plan.clusters):
-        _rows_forward(m, q, x[slice(*plan.band(q))])
+        _rows_forward(m, q, x[slice(*band(plan, q))])
     if "A" in barriers:
         m.barrier()
     for q in range(plan.clusters):
@@ -419,7 +448,7 @@ def cluster_fista(x0hat, scal, tab, plan, tables, barriers=("A", "B")):
         for q in range(plan.clusters):
             nr = _rows_back(m, q)
             x_mom = mom(q)
-            xg = x_mom - rho * (nr - x0hat[slice(*plan.band(q))])
+            xg = x_mom - rho * (nr - x0hat[slice(*band(plan, q))])
             mag = xg.abs()
             m.bufs[q]["x_prev"] = m.bufs[q]["x"]
             m.bufs[q]["x"] = torch.clamp(mag - t, min=0.0) * (xg + eps) / (mag + eps)
