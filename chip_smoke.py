@@ -62,13 +62,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      route by its route counter, and bit for bit the plain version), and
      its global route on 4 problems of 512² (bit for bit, the route
      counter set to 0 just before and required to read one global
-     launch), the fused FISTA-L21-SENSE and the fused
+     launch), the fused FISTA-L21-SENSE (bit for bit) and the fused
      SplitBregman L21 + TV (4 × 8 × 8, TV 5, with the live CG steps of
-     kernel and plain version side by side, its plan printed first: route,
-     CTAs per slice, row bands, coils per CTA, shared memory, clusters
-     resident at once) on the 8 SENSE slices of 128² with 6 coils, and
-     its global route (one CTA per slice) on 2 slices of 256 × 128 with
-     6 coils, held alike and required to run once on that route;
+     kernel and plain version side by side), each with its plan printed
+     first (route, CTAs per slice, row bands, rounds of coils, shared
+     memory, clusters resident at once) and on its resident route by its
+     route counter, on the 8 SENSE slices of 128² with 6 coils, and the
+     global routes of both (one CTA per slice) on 2 slices of 256 × 128
+     with 6 coils, held alike and each required to run once on that
+     route;
   8. the dense cells through solve_batched_fast, each running its kernel
      once by the launch counters, with problems/s:
      cgnr_l2_dense64_fused_b16 (printed against a float64 DirectSolver;
@@ -88,8 +90,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      on the resident route by the route counter),
      fista_l21_sense128_6coil_b8 (FISTA with complex L1 on the SENSE
      problem) and splitbregman_sense128_6coil_b8 (BASELINE #4, also
-     composed; its one launch on the resident route by the route
-     counter); each cell's composed solve is timed as its kernel's
+     composed), each SENSE cell's one launch on the resident route by the
+     route counter; each cell's composed solve is timed as its kernel's
      yardstick;
   3i. the PDHG, Kaczmarz and greedy Kaczmarz kernels against their plain
      versions: the fused PDHG on its resident route (tv8 on 16 distinct
@@ -170,6 +172,22 @@ and the kernel in turns with the cell's composed solve_batched_unrolled,
 whose device time torch.profiler also reads; row 9 as a control; with
 each plan and the kernel's clocks per phase where ROOT's package has
 them.
+
+    python3 chip_smoke.py --time-sense [ROOT]
+
+does the same for the fused FISTA-L21-SENSE kernel (row 9): the SENSE
+cell's 8 slices of 128² with 6 coils (80 iterations), 64 slices, 1 slice,
+8 slices with 1, 3 and 17 coils, 4 slices of 256² on the global route;
+the kernel in turns with the cell's composed solve_batched_unrolled, both
+with their device time by torch.profiler; rows 8 and 10 as controls;
+with each plan and the kernel's clocks per phase where ROOT's package has
+them.
+
+    python3 chip_smoke.py --time-library [ROOT]
+
+reads the library yardstick of rows 3, 4, 5, 7a, 7b, 11, 12a, 12b and 13:
+the composed solve_batched_unrolled at each kernel's main-path shapes,
+three wall readings and three device times by torch.profiler each.
 """
 
 from __future__ import annotations
@@ -681,8 +699,8 @@ def device_breakdown(name, fn):
 
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
-    `reset`, set them to 0 first (and the PGM-TV, SplitBregman, PDHG and
-    FISTA-L1-DFT kernels' counts by route)."""
+    `reset`, set them to 0 first (and the PGM-TV, SplitBregman, PDHG,
+    FISTA-L1-DFT and FISTA-L21-SENSE kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -699,7 +717,8 @@ def launch_counts(reset=False):
         for fn in fns:
             fn.launches = 0
         for fn in (fista_tv_fused.fista_tv_fused, splitbregman_fused.splitbregman_l1_tv_fused,
-                   pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused):
+                   pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused,
+                   sense_fused.fista_l21_sense_fused):
             fn.route_launches = {"resident": 0, "global": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
@@ -1133,6 +1152,20 @@ def cs_phantoms(img2):
     return imgs.reshape(CS_BATCH, -1)
 
 
+def coil_maps(rng, C, n=SENSE_N):
+    """tools/bench_suite.py:160-166's smooth complex coil maps, C of n²
+    with centres drawn from `rng`, normalized to a unit sum of squares:
+    (C, n, n) complex64."""
+    yy, xx = np.mgrid[0:n, 0:n] / n
+    maps = np.stack(
+        [(np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) * 2.0) + 0.15)
+         * np.exp(1j * (cx * yy - cy * xx) * 2)
+         for cy, cx in rng.uniform(0, 1, size=(C, 2))]
+    ).astype(np.complex64)
+    maps /= np.sqrt((np.abs(maps) ** 2).sum(0))
+    return maps
+
+
 def sense_problem():
     """tools/bench_suite.py:153-184's SENSE problem, from its own
     default_rng(0): smooth complex coil maps normalized to a unit sum of
@@ -1141,13 +1174,7 @@ def sense_problem():
     (H, W), X (8, 2·H·W) split [re; im] float32)."""
     H = W = SENSE_N
     rng4 = np.random.default_rng(0)
-    yy, xx = np.mgrid[0:H, 0:W] / H
-    maps = np.stack(
-        [(np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) * 2.0) + 0.15)
-         * np.exp(1j * (cx * yy - cy * xx) * 2)
-         for cy, cx in rng4.uniform(0, 1, size=(SENSE_C, 2))]
-    ).astype(np.complex64)
-    maps /= np.sqrt((np.abs(maps) ** 2).sum(0))
+    maps = coil_maps(rng4, SENSE_C)
     mask = (rng4.uniform(size=(H, W)) < 0.45).astype(np.float32)
     mask[H // 2 - 10 : H // 2 + 10, W // 2 - 10 : W // 2 + 10] = 1.0
 
@@ -1252,10 +1279,11 @@ def hold_fft(name, kernel, plain, x0, x0_ulp, counts=False, bitwise=False):
 def fft_kernel_phase(dev, draws):
     """Phase 3h: each FFT kernel against its plain version at its main-path
     shape, held by `hold_fft` and timed in turns with it: FISTA-L1 on 16
-    distinct 256² CS problems with λ per problem, FISTA-L21 and
-    SplitBregman on the 8 SENSE slices; then SplitBregman's global route
-    at 256 × 128, held but not timed. Returns {kernel: {"err", "ms":
-    (plain, kernel), "live"}}."""
+    distinct 256² CS problems with λ per problem (and its global route at
+    512²), FISTA-L21 and SplitBregman on the 8 SENSE slices, each on its
+    resident route by the route counter; then the global routes of
+    FISTA-L21 and SplitBregman at 256 × 128, held but not timed. Returns
+    {kernel: {"err", "ms": (plain, kernel), "live"}}."""
     import torch
 
     import rls_tpu_torch as rtt
@@ -1330,10 +1358,22 @@ def fft_kernel_phase(dev, draws):
     tables = dc.dft_tables(op.mask)
     scal = k9.problem_scalars(x0, RHO, SENSE_LAM)
     tab = torch.as_tensor(_momentum_table("fista", SENSE_ITERS), device=dev)
+    plan = k9.plan_on_card(x0, SENSE_C)
+    print(f"sense_fused[{SENSE_N}², {SENSE_C} coils, {SENSE_SLICES} slices]: plan route "
+          f"{plan.route}, {plan.clusters} CTAs per slice, bands "
+          f"{[plan.band(q) for q in range(plan.clusters)]}, {plan.rounds} round(s), "
+          f"{plan.ctas} CTAs, {plan.smem} B of shared memory per CTA, "
+          f"{plan.resident_clusters} clusters resident at once")
+    k9.fista_l21_sense_fused.route_launches = {"resident": 0, "global": 0}
     record(f"sense_fused[{SENSE_N}², {SENSE_C} coils, {SENSE_SLICES} slices, {SENSE_ITERS} it.]",
            lambda x: (k9.fista_l21_sense_fused(x, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS),
                       None),
-           lambda x: (k9.fista_l21_sense_fused_torch(x, scal, tab, coils, tables), None), x0, x0u)
+           lambda x: (k9.fista_l21_sense_fused_torch(x, scal, tab, coils, tables), None), x0, x0u,
+           bitwise=True)
+    routes = k9.fista_l21_sense_fused.route_launches
+    require(plan.route == "resident" and routes["global"] == 0 and routes["resident"] > 0,
+            f"the FISTA-L21-SENSE kernel at {SENSE_N}² took the resident route: {plan}, "
+            f"{routes}")
     scal, t2 = k10.kernel_args(x0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
     plan = k10.plan_on_card(x0, SENSE_C)
     print(f"splitbregman_fused[{SENSE_N}², {SENSE_C} coils, {SENSE_SLICES} slices]: plan route "
@@ -1350,9 +1390,11 @@ def fft_kernel_phase(dev, draws):
                                                         SB_TOL),
            x0, x0u, counts=True, reps=1)
 
-    # the global route (one CTA per slice, staging the spectrum through
-    # global scratch), which a spectrum too large for one CTA takes: 2
-    # slices of 256 × 128 at 6 coils on BASELINE #4's schedule
+    # the global routes of rows 9 and 10 (one CTA per slice, staging the
+    # spectrum through global scratch), which a spectrum too large for one
+    # CTA takes: 2 slices of 256 × 128 at 6 coils, row 9 at SENSE_ITERS
+    # iterations, row 10 on BASELINE #4's schedule; held to the bit (row 9)
+    # and to the spread (row 10), not timed
     gh, gw, gb = 256, 128, 2
     rng = np.random.default_rng(10)
     gmaps = rng.normal(size=(SENSE_C, gh, gw)) + 1j * rng.normal(size=(SENSE_C, gh, gw))
@@ -1363,6 +1405,20 @@ def fft_kernel_phase(dev, draws):
     gshape = (gb, 2, gh, gw)
     gx0, gx0u = gop.rmv(gbv).reshape(gshape), gop.rmv(gbv * bump).reshape(gshape)
     gcoils, gtables = (gop.coils_r, gop.coils_i), dc.dft_tables(gop.mask)
+    gplan = k9.plan_on_card(gx0, SENSE_C)
+    print(f"sense_fused[{gh}×{gw}, {SENSE_C} coils, {gb} slices]: plan route {gplan.route}, "
+          f"{gplan.ctas} CTAs")
+    gscal = k9.problem_scalars(gx0, RHO, SENSE_LAM)
+    k9.fista_l21_sense_fused.route_launches = {"resident": 0, "global": 0}
+    hold_fft(f"sense_fused[global route, {gh}×{gw}, {SENSE_C} coils, {gb} slices, "
+             f"{SENSE_ITERS} it.]",
+             lambda x: (k9.fista_l21_sense_fused(x, gop.mask, *gcoils, RHO, SENSE_LAM,
+                                                 SENSE_ITERS), None),
+             lambda x: (k9.fista_l21_sense_fused_torch(x, gscal, tab, gcoils, gtables), None),
+             gx0, gx0u, bitwise=True)
+    routes = k9.fista_l21_sense_fused.route_launches
+    require(routes == {"resident": 0, "global": 1},
+            f"the FISTA-L21-SENSE kernel at {gh}×{gw} took the global route once: {routes}")
     gplan = k10.plan_on_card(gx0, SENSE_C)
     print(f"splitbregman_fused[{gh}×{gw}, {SENSE_C} coils, {gb} slices]: plan route "
           f"{gplan.route}, {gplan.ctas} CTAs")
@@ -1453,6 +1509,8 @@ def fft_cell_phase(dev, draws):
     from rls_tpu_torch.kernels.fista_tv_fused import _momentum_table, problem_scalars
 
     launched, composed_ms = {}, {}
+    routed = {fn.__name__: fn for fn in (k8.fista_l1_dft_fused, k9.fista_l21_sense_fused,
+                                         k10.splitbregman_l1_tv_fused)}
 
     def run(name, solver, B, xs_true, kernel, ref, composed, unit="problems/s"):
         K = B.shape[1]
@@ -1463,9 +1521,8 @@ def fft_cell_phase(dev, draws):
         print(f"launches ({name}): {got}")
         require(got == {**{k: 0 for k in got}, kernel: 1},
                 f"{name}: expected one launch of {kernel} and no others")
-        if kernel in ("splitbregman_l1_tv_fused", "fista_l1_dft_fused"):
-            routes = (k10.splitbregman_l1_tv_fused if kernel == "splitbregman_l1_tv_fused"
-                      else k8.fista_l1_dft_fused).route_launches
+        if kernel in routed:
+            routes = routed[kernel].route_launches
             print(f"launches ({name}) by route: {routes}")
             require(routes == {"resident": 1, "global": 0},
                     f"{name}: expected one launch on the resident route, got {routes}")
@@ -2776,11 +2833,7 @@ def time_fista_l1_dft(dev, out):
     time_cases(out, cases)
     row8 = cs_cell_solves(dev, op, img2)
     time_cases(out, row8, in_turns=True)
-    for name, fn, _ in (row8[0], row8[2]):
-        readings = [device_kernels(fn) for _ in range(3)]
-        out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in r) for r in readings]
-        out[f"{name} device kernels (profiler, last)"] = [
-            [key[:80], count, ms] for ms, count, key in readings[-1][:6]]
+    device_ms(out, (row8[0], row8[2]))
     # row 9, which this kernel's changes must not move, and its yardstick:
     # its cell's composed solve, wall and device time
     maps, mask, X = sense_problem()
@@ -2802,12 +2855,155 @@ def time_fista_l1_dft(dev, out):
         sum(ms for ms, _, _ in device_kernels(composed9)) for _ in range(3)]
 
 
+def device_ms(out, cases):
+    """Three readings of each case's device time (``device_kernels``: the
+    sum of the device kernels of one call, after a warm-up) into `out`
+    under "{name} device ms (profiler)", and the largest kernels of the
+    last reading."""
+    for name, fn, *_ in cases:
+        fn()
+        readings = [device_kernels(fn) for _ in range(3)]
+        out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in r) for r in readings]
+        out[f"{name} device kernels (profiler, last)"] = [
+            [key[:80], count, ms] for ms, count, key in readings[-1][:6]]
+
+
+def time_sense(dev, out):
+    """``--time-sense [ROOT]``: the fused FISTA-L21-SENSE kernel (row 9) at
+    the SENSE cell's schedule (ρ = 0.95, λ = 1e-4, 80 iterations): the
+    cell's 8 slices of 128² with 6 coils, the same tiled to 64 slices (more
+    clusters than the card holds at once), 1 slice, 8 slices with the first
+    1 and 3 coils and with 17 coils of their own (two rounds), and 4
+    slices of 256² (the global route); then the cell's kernel in turns with
+    its composed solve_batched_unrolled (torch.fft), both with their
+    device time by torch.profiler; rows 8 (the CS cell's 16 problems) and
+    10 (BASELINE #4) as controls."""
+    import torch
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+    from rls_tpu_torch.kernels import sense_fused as k9
+    from rls_tpu_torch.kernels import splitbregman_fused as k10
+
+    out["kernel"] = os.path.relpath(k9.__file__, ROOT)
+    maps, mask, X = sense_problem()
+    op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N), device=dev)
+    b = op.mv(torch.from_numpy(X).to(dev))
+    x0 = op.rmv(b).reshape(SENSE_SLICES, 2, SENSE_N, SENSE_N)
+    coils = (op.coils_r, op.coils_i)
+    rng = np.random.default_rng(17)
+
+    def maps_of(m):
+        return tuple(torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+                     for v in (m.real, m.imag))
+
+    g = 256
+    x256 = torch.from_numpy(rng.normal(size=(4, 2, g, g)).astype(np.float32)).to(dev)
+    mask256 = torch.from_numpy((rng.uniform(size=(g, g)) < 0.45).astype(np.float32)).to(dev)
+    cases = []
+    for name, x, m, cr, ci, reps in (
+        (f"cell: {SENSE_SLICES} slices, {SENSE_C} coils", x0, op.mask, *coils, 3),
+        (f"{8 * SENSE_SLICES} slices, {SENSE_C} coils", x0.repeat(8, 1, 1, 1), op.mask, *coils,
+         1),
+        (f"1 slice, {SENSE_C} coils", x0[:1].contiguous(), op.mask, *coils, 3),
+        (f"{SENSE_SLICES} slices, 1 coil", x0, op.mask, *(c[:1].contiguous() for c in coils), 3),
+        (f"{SENSE_SLICES} slices, 3 coils", x0, op.mask, *(c[:3].contiguous() for c in coils),
+         3),
+        (f"{SENSE_SLICES} slices, 17 coils", x0, op.mask, *maps_of(coil_maps(rng, 17)), 2),
+        (f"4 slices of {g}², {SENSE_C} coils (global route)", x256, mask256,
+         *maps_of(coil_maps(rng, SENSE_C, g)), 1),
+    ):
+        args = (x, m, cr, ci, RHO, SENSE_LAM, SENSE_ITERS)
+        cases.append((name, lambda a=args: k9.fista_l21_sense_fused(*a), reps,
+                      plan_probe(k9, (x, cr.shape[0]), *args)))
+    time_cases(out, cases)
+    # the cell in turns with its composed solve, and both device times
+    s9 = rtt.FISTA.create(op, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
+                          iterations=SENSE_ITERS, rho=RHO)
+    B9 = b.T.contiguous()
+    cell = [
+        ("row 9 sense_fused", lambda: k9.fista_l21_sense_fused(x0, op.mask, *coils, RHO,
+                                                               SENSE_LAM, SENSE_ITERS), 2),
+        ("row 9 composed solve_batched_unrolled", lambda: rtt.solve_batched_unrolled(s9, B9),
+         1),
+    ]
+    time_cases(out, cell, in_turns=True)
+    device_ms(out, cell)
+    # rows 8 and 10, which this kernel's changes must not move
+    img2, idx2 = bench_suite_draws()["cs"]
+    op8 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
+    x8 = op8.rmv(op8.mv(torch.from_numpy(cs_phantoms(img2)).to(dev))).reshape(
+        CS_BATCH, CS_N, CS_N)
+    lam8 = torch.linspace(0.5, 2.0, CS_BATCH, device=dev) * CS_LAM
+    sb_args = (x0, op.mask, *coils, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL)
+    time_cases(out, [
+        ("row 8 fista_l1_dft_fused",
+         lambda: k8.fista_l1_dft_fused(x8, op8.mask, RHO, lam8, CS_ITERS), 3),
+        ("row 10 splitbregman_fused", lambda: k10.splitbregman_l1_tv_fused(*sb_args), 2),
+    ])
+
+
+def time_library(dev, out):
+    """``--time-library [ROOT]``: the library yardstick of rows 3, 4, 5,
+    7a, 7b, 11, 12a, 12b and 13 (PERF.md §6), the composed
+    solve_batched_unrolled at the shapes of the main path: the 512² tiled
+    FISTA-TV cell, the two ADMM-TV cells, the LASSO cell and the complex
+    FISTA, the PDHG cell, one cyclic Kaczmarz sweep of the tall system,
+    the tall streamed cell and one greedy sweep. Each with three wall
+    readings (CUDA events, one call each) and three device times by
+    torch.profiler (the sum of its kernels' times, which the host's launch
+    gaps do not move)."""
+    import torch
+    import rls_tpu_torch as rtt
+
+    draws = bench_suite_draws()
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    solves = []
+
+    def composed(row, solver, B):
+        solves.append((f"row {row} composed solve_batched_unrolled",
+                       lambda: rtt.solve_batched_unrolled(solver, B), 1))
+
+    s3 = build_solver(512, dev)
+    composed(3, s3, s3.A.mv(t(draws[512])).T.contiguous())
+    for row, cell, imgs in ((4, ADMM256, np.broadcast_to(draws["admm"], (ADMM256[1], 256 ** 2))),
+                            (5, ADMM512, draws[512])):
+        solver = build_admm(cell, dev)
+        composed(row, solver, solver.A.mv(t(imgs)).T.contiguous())
+    systems = dense_systems(draws)
+    a2b, b2b = systems["lasso"]
+    composed("7a", rtt.FISTA.create(
+        rtt.DenseOperator(t(a2b), device=dev), reg=rtt.L1Regularization(LASSO_LAM),
+        iterations=LASSO_ITERS, rho=0.95 / float(np.linalg.norm(a2b, 2)) ** 2,
+        track_residual=False), t(b2b))
+    a_c, b_c = systems["cplx"]
+    composed("7b", rtt.FISTA.create(
+        rtt.DenseOperator(t(a_c), device=dev),
+        reg=[rtt.L1Regularization(LASSO_LAM), rtt.RealRegularization()],
+        iterations=SHORT_ITERS, rho=0.95 / float(np.linalg.norm(a_c, 2)) ** 2,
+        restart="gradient", track_residual=False), t(b_c))
+    s11 = pdhg_cell_solver(dev)
+    composed(11, s11, s11.A.mv(t(draws["admm"]))[:, None].repeat(1, PDHG_BATCH).contiguous())
+    kz = kaczmarz_systems(draws, dev)
+    A, B16, Bt, _ = kz["tall"]
+    dense = rtt.DenseOperator(A, device=dev)
+    composed("12a", kaczmarz_solver(dense, (1, 1.0, 16), randomized=False), B16)
+    composed("12b", kaczmarz_solver(dense, KZ_TALL), Bt)
+    composed(13, kaczmarz_solver(dense, (1,) + KZ_GREEDY[1:], greedy=True), B16)
+    time_cases(out, solves)
+    device_ms(out, solves)
+
+
 TIME_MODES = {
     "--time-cgnr": time_cgnr,
     "--time-pgm-tv": time_pgm_tv,
     "--time-splitbregman": time_splitbregman,
     "--time-pdhg": time_pdhg,
     "--time-fista-l1-dft": time_fista_l1_dft,
+    "--time-sense": time_sense,
+    "--time-library": time_library,
 }
 
 

@@ -109,6 +109,14 @@ _SIGNATURES = {
     # (x0hat, scal, tab, tw, weights, coils_r, coils_i, out, scratch, B, H, W,
     #  C, iterations, stream)
     "sense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # (clusters, H, W, out: int64[2] = shared memory per CTA, clusters
+    #  resident at once)
+    "sense_cluster_occupancy": (_I, _I, _I, _P),
+    # (x0hat, scal, tab, tw, wt, coils_r, coils_i, out, scratch, prof, B, H,
+    #  W, C, iterations, clusters, smem, stream)
+    "sense_cluster_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
     # (x0hat, scal, t2, tw, weights, coils_r, coils_i, out, scratch, counts, B,
     #  H, W, C, iterations, iterations_inner, cg_iterations, tv_iterations,
     #  tol_inner, stream)

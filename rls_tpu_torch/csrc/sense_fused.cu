@@ -1,5 +1,16 @@
-// The whole batched FISTA-L21 multi-coil SENSE solve in one launch, one
-// slice per CTA.
+// The whole batched FISTA-L21 multi-coil SENSE solve in one launch, on one
+// of two routes that the host planner (kernels/sense_fused.py plan_sense)
+// picks by shape:
+//
+// * resident: each slice runs on a thread-block cluster of c CTAs (c <= C,
+//   at most 16), CTA k computing the 2-D FFTs of coils k, k + c, ... in
+//   rounds, each coil's padded spectrum whole in its shared memory with the
+//   FFT's stages in registers (fft_resident.cuh), the coils folded into
+//   each CTA's band of rows through DSMEM (sense_cluster.cuh, shared with
+//   the SplitBregman kernel);
+// * global: one CTA per slice, the spectrum staged through shared memory
+//   chunk by chunk from global scratch (dft_common.cuh), for shapes whose
+//   padded spectrum, H (W + 1) complex floats, does not fit one CTA.
 //
 // Replaces the TPU kernel rls_tpu/kernels/sense_fused.py:_kernel (:33-82;
 // launched by fista_l21_sense_fused, :85, pallas_call :107). The complex
@@ -9,21 +20,63 @@
 //   g   = m - rho (sum_c conj(C_c) F^H M F C_c m - x0hat)
 //   |g| = sqrt(gr^2 + gi^2)
 //   x   = g max((|g| - rho lam) / (|g| == 0 ? 1 : |g|), 0)
-// The SENSE normal op (dft_common.cuh) runs the masked normal op of the
-// in-kernel FFT once per coil; the gradient step and the threshold are
-// formed as the last coil's inverse row pass stores. Every f32 operation is rounded on its own, as in
-// the plain PyTorch version (rls_tpu_torch/kernels/sense_fused.py), with
-// which it agrees bit for bit.
+// The SENSE normal op sums the coils in order c = 0 .. C-1, ((acc + a yr)
+// + b yi, (acc + a yi) - b yr); the gradient step and the threshold are
+// formed as the last coil is folded in. Every f32 operation is rounded on
+// its own, as in the plain PyTorch version (fista_l21_sense_fused_torch in
+// rls_tpu_torch/kernels/sense_fused.py), with which both routes agree bit
+// for bit.
 //
-// What bounds it on an H100: per iteration C normal ops of three passes over
-// the spectrum (2 C complex 2-D transforms at 5 n log2 n: 13.8 MFLOP at
-// 128^2 and 6 coils), each a chain of barrier-separated radix-2 stages
-// (some 840 barriers per iteration). One CTA per slice: at 8 slices only 8
-// of the 132 SMs work, so the kernel is bound by the latency of that chain,
-// not by bytes or operations.
+// What bounds it on an H100: per iteration C normal ops (2 C complex 2-D
+// transforms at 5 n log2 n: 13.8 MFLOP at 128^2 and 6 coils), one
+// dependent chain per slice, so the solve is bound by that chain's latency,
+// not by bytes or operations. The global route runs one CTA per slice (8 of
+// 132 SMs at 8 slices), some 840 barrier-separated radix-2 phases per
+// iteration. The resident route shortens the chain and widens it: the
+// coils of an iteration transform at once on the cluster's CTAs (48 CTAs
+// for 8 slices of 6 coils), and a coil's transform pair is three passes
+// over its plane in shared memory with a barrier after each, its 14
+// radix-2 stages per point in registers and shuffles.
+//
+// Resident route, where each buffer lives and which barrier orders each
+// read of what another CTA wrote. CTA `rank` owns the image rows [r0, r1)
+// of its slice (H / c rows, one more for the first H % c ranks; a band is
+// empty where H < c) and writes only those rows of the global planes:
+//   shared memory: the phase timer, the twiddles, and one coil's spectrum
+//     (H (W + 1) floats each for re and im), which ends a transform holding
+//     the coil's normal op F^H M F (C_c m);
+//   global memory, per slice (L2-resident: 8 slices x 8 planes x 64 KiB):
+//     x (out), x_prev, m and the coil sum between rounds; a band's x,
+//     x_prev and coil sum are read back only by the thread that wrote them.
+// Per iteration:
+//   A. after the momentum step writes the band's m, a cluster barrier: it
+//      orders the whole of m before any transform reads it (every CTA's
+//      coil loads read all of m through L2), and the last iteration's
+//      remote reads of every spectrum (its last fold) before the
+//      transforms below rewrite it;
+//   B. after each round's transforms, a cluster barrier: the fold reads
+//      the round's results from the CTAs that computed them through DSMEM;
+//   C. after each fold but the last round's, a cluster barrier: every
+//      remote read of a spectrum before the next round rewrites it.
+// A CTA writes m of the next iteration only after barrier B of the last
+// round, which every CTA reaches after its last coil load of this m. The
+// kernel ends with a cluster barrier, so that no CTA exits while another
+// still reads its shared memory (iterations = 1 included). Per iteration
+// with C <= c: two cluster barriers.
+//
+// A phase timer (prof): CTA 0's thread 0 adds the SM clocks between its
+// phase marks (coil loads, row FFTs, column FFTs, coil fold with the
+// gradient step and threshold of the last round, the momentum step and set-up,
+// cluster barriers); off where prof is null.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "cluster_common.cuh"
 #include "dft_common.cuh"
+#include "fft_resident.cuh"
+#include "sense_cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -90,6 +143,124 @@ sense_fused_kernel(const float* __restrict__ x0hat, const float* __restrict__ sc
     }
 }
 
+
+// ---- the resident route: one slice per cluster, a coil's spectrum in
+// shared memory
+
+constexpr int kMaxCluster = 16;
+// the phases of the timer; the first three are fft_resident.cuh's
+enum { kLoads, kRows, kCols, kFold, kUpdate, kBarrier, kPhases };
+static_assert(kLoads == rls::fftr::kFftLoads && kRows == rls::fftr::kFftRows &&
+                  kCols == rls::fftr::kFftCols,
+              "the timer's FFT phases");
+
+// Shared memory of a CTA of the resident route, in this order; the Python
+// planner (kernels/sense_fused.py resident_smem_bytes) counts the same: the
+// phase timer (kPhases int64), the twiddles (H + W floats) and one coil's
+// padded spectrum (H (W + 1) floats for re, then as many for im), each
+// float array rounded up to 4 floats.
+__host__ __device__ inline size_t resident_smem_bytes(int H, int W) {
+    return sizeof(long long) * kPhases +
+           sizeof(float) *
+               (rls::ceil4(H + W) + 2 * rls::ceil4(static_cast<size_t>(H) * (W + 1)));
+}
+
+struct ClusterArgs {
+    const float* x0hat;    // (B, 2, H, W)
+    const float* scal;     // (B, 2) [rho, lam_eff]
+    const float* tab;      // (iterations, 4): the momentum table
+    const float* tw;       // H + W: [Re_H, Im_H, Re_W, Im_W]
+    const float* wt;       // (W, H): the spectral weights transposed
+    const float* coils_r;  // (C, H, W)
+    const float* coils_i;
+    float* out;            // (B, 2, H, W)
+    float* scratch;        // 6 planes of (B, H, W)
+    long long* prof;       // (kPhases,) or null
+    int B, H, W, C, iterations, clusters;
+};
+
+using Prof = rls::Prof<kPhases>;
+
+__global__ void __launch_bounds__(kThreads, 1)
+sense_cluster_kernel(const ClusterArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int H = a.H, W = a.W, nc = a.clusters;
+    const int n = H * W;
+    long long* pacc = reinterpret_cast<long long*>(smem);
+    float* tw = reinterpret_cast<float*>(pacc + kPhases);
+    float* sre = tw + rls::ceil4(H + W);
+    float* sim = sre + rls::ceil4(static_cast<size_t>(H) * (W + 1));
+
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = static_cast<int>(cl.block_rank());
+    const int b = blockIdx.x / nc;
+    const int tid = threadIdx.x;
+    // the band of rows this CTA owns: [r0, r1), pixels [p0, p1)
+    const int r0 = rank * (H / nc) + min(rank, H % nc);
+    const int r1 = r0 + H / nc + (rank < H % nc ? 1 : 0);
+    const int p0 = r0 * W, p1 = r1 * W;
+    Prof prof{blockIdx.x == 0 && tid == 0 ? a.prof : nullptr, pacc, 0};
+    prof.start();
+    auto sync_cluster = [&](int phase) {
+        prof.mark(phase);
+        if (nc > 1)
+            cl.sync();
+        else
+            __syncthreads();
+        prof.mark(kBarrier);
+    };
+    for (int k = tid; k < H + W; k += kThreads) tw[k] = a.tw[k];
+    __syncthreads();
+
+    const size_t plane = static_cast<size_t>(a.B) * n;
+    const size_t off = static_cast<size_t>(b) * n;
+    auto sp = [&](int k) { return a.scratch + k * plane + off; };
+    const float* x0r = a.x0hat + 2 * off;
+    const float* x0i = x0r + n;
+    float* xr = a.out + 2 * off;
+    float* xi = xr + n;
+    float *mr = sp(0), *mi = sp(1), *pr = sp(2), *pi = sp(3), *accr = sp(4), *acci = sp(5);
+
+    const float rho = a.scal[2 * b];
+    const float t = rls::fmul(rho, a.scal[2 * b + 1]);
+    for (int i = p0 + tid; i < p1; i += kThreads) {
+        const float zero = x0r[i] * 0.f;
+        xr[i] = zero;
+        xi[i] = zero;
+        pr[i] = zero;
+        pi[i] = zero;
+    }
+
+    // the gradient step and the group threshold at pixel i of the band, from
+    // the normal op's (nr, ni)
+    auto finish = [&](int i, float nr, float ni) {
+        const float gr = rls::fsub(mr[i], rls::fmul(rho, rls::fsub(nr, x0r[i])));
+        const float gi = rls::fsub(mi[i], rls::fmul(rho, rls::fsub(ni, x0i[i])));
+        const float gn = __fsqrt_rn(rls::fadd(rls::fmul(gr, gr), rls::fmul(gi, gi)));
+        const float sc = fmaxf(rls::fdiv(rls::fsub(gn, t), gn == 0.f ? 1.f : gn), 0.f);
+        pr[i] = xr[i];
+        pi[i] = xi[i];
+        xr[i] = rls::fmul(gr, sc);
+        xi[i] = rls::fmul(gi, sc);
+    };
+
+    for (int it = 0; it < a.iterations; ++it) {
+        const float am = a.tab[4 * it];
+        for (int i = p0 + tid; i < p1; i += kThreads) {
+            const float vr = xr[i], vi = xi[i];
+            mr[i] = rls::fadd(vr, rls::fmul(am, rls::fsub(vr, pr[i])));
+            mi[i] = rls::fadd(vi, rls::fmul(am, rls::fsub(vi, pi[i])));
+        }
+        sync_cluster(kUpdate);  // A: the whole of m; the last fold's remote reads
+        const rls::SenseCluster sense{a.coils_r, a.coils_i, a.wt, tw, sre, sim, accr, acci,
+                                      H, W, a.C, nc, rank, p0, p1};
+        rls::sense_normal_cluster<kThreads, kFold>(sense, mr, mi, cl, prof, sync_cluster, finish);
+    }
+    // no CTA leaves while another may still read its shared memory
+    sync_cluster(kUpdate);
+    prof.finish();
+}
+
 }  // namespace
 
 extern "C" {
@@ -111,6 +282,51 @@ int sense_fused_launch(const void* x0hat, const void* scal, const void* tab, con
         static_cast<const float*>(weights), static_cast<const float*>(coils_r),
         static_cast<const float*>(coils_i), static_cast<float*>(out),
         static_cast<float*>(scratch), B, H, W, C, iterations);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The resident route's shared memory per CTA at H x W (the planner's
+// check), and how many clusters of `clusters` CTAs the current device holds
+// at once (cudaOccupancyMaxActiveClusters): out[0], out[1].
+int sense_cluster_occupancy(int clusters, int H, int W, long long* out) {
+    if (clusters < 1 || clusters > kMaxCluster || !rls::valid_fft_size(H) ||
+        !rls::valid_fft_size(W))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = resident_smem_bytes(H, W);
+    out[0] = static_cast<long long>(smem);
+    out[1] = rls::max_active_clusters(sense_cluster_kernel, clusters, kThreads,
+                                      static_cast<int>(smem));
+    return 0;
+}
+
+// The resident route: as sense_fused_launch, with wt the spectral weights
+// transposed ((W, H)), scratch 6 planes of (B, H, W), prof null or kPhases
+// int64 that receive CTA 0's clocks per phase, and the plan: `clusters`
+// CTAs per slice (1 <= clusters <= min(C, 16)), `smem` bytes of shared
+// memory per CTA. Returns cudaErrorInvalidValue for a plan whose smem
+// differs from resident_smem_bytes, else the launch's error.
+int sense_cluster_launch(const void* x0hat, const void* scal, const void* tab, const void* tw,
+                         const void* wt, const void* coils_r, const void* coils_i, void* out,
+                         void* scratch, void* prof, int B, int H, int W, int C, int iterations,
+                         int clusters, int smem, void* stream) {
+    const bool valid = B > 0 && rls::valid_fft_size(H) && rls::valid_fft_size(W) &&
+                       clusters >= 1 && clusters <= kMaxCluster && clusters <= C &&
+                       static_cast<long long>(B) * clusters < (1LL << 31);
+    if (!valid || static_cast<size_t>(smem) != resident_smem_bytes(H, W))
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    cudaError_t e = rls::cluster_config(sense_cluster_kernel, B, clusters, kThreads, smem,
+                                        static_cast<cudaStream_t>(stream), &attr, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const ClusterArgs args{static_cast<const float*>(x0hat), static_cast<const float*>(scal),
+                           static_cast<const float*>(tab), static_cast<const float*>(tw),
+                           static_cast<const float*>(wt), static_cast<const float*>(coils_r),
+                           static_cast<const float*>(coils_i), static_cast<float*>(out),
+                           static_cast<float*>(scratch), static_cast<long long*>(prof), B, H, W,
+                           C, iterations, clusters};
+    e = cudaLaunchKernelEx(&cfg, sense_cluster_kernel, args);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
 

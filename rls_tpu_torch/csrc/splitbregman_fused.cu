@@ -96,6 +96,7 @@
 #include "dense_common.cuh"
 #include "dft_common.cuh"
 #include "fft_resident.cuh"
+#include "sense_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -316,21 +317,6 @@ struct ResidentArgs {
 
 using Prof = rls::Prof<kPhases>;
 
-// F^H M F (C_c v) of one coil into the spectrum (sre, sim), v = (vr, vi):
-// not inlined, so that the FFT's registers are its own and not the solve's
-// (a kernel of 1024 threads has 64 registers a thread).
-__device__ __noinline__ void coil_transform(const float* cr, const float* ci, const float* vr,
-                                            const float* vi, const float* wt, float* sre,
-                                            float* sim, const float* tw, int H, int W,
-                                            Prof* prof) {
-    auto load = [&](int i) {
-        const float ca = cr[i], cb = ci[i], vre = vr[i], vim = vi[i];
-        return make_float2(rls::fsub(rls::fmul(ca, vre), rls::fmul(cb, vim)),
-                           rls::fadd(rls::fmul(ca, vim), rls::fmul(cb, vre)));
-    };
-    rls::fftr::normal_resident(load, wt, sre, sim, tw, H, W, kThreads, *prof);
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 splitbregman_cluster_kernel(const ResidentArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -430,44 +416,15 @@ splitbregman_cluster_kernel(const ResidentArgs a) {
     };
 
     // The SENSE normal op of (vr, vi), handed to finish(site, i, nr, ni) at
-    // each pixel i of the band. Round ro: CTA `rank` transforms coil ro nc
-    // + rank; after a cluster barrier each CTA folds the round's coils into
-    // its band in coil order, reading coil c's result from rank c - ro nc
-    // (the sum between rounds waits in accr, acci).
-    const int rounds = (C + nc - 1) / nc;
+    // each pixel i of the band (sense_cluster.cuh: CTA `rank` transforms
+    // coils rank, rank + nc, ... in rounds, each round folded in coil
+    // order; the sum between rounds waits in accr, acci).
     auto normal = [&](const float* vr, const float* vi, int site) {
-        for (int ro = 0; ro < rounds; ++ro) {
-            const int c0 = ro * nc;
-            const int c1 = min(C, c0 + nc);
-            const int coil = c0 + rank;
-            if (coil < C)
-                coil_transform(a.coils_r + static_cast<size_t>(coil) * n,
-                               a.coils_i + static_cast<size_t>(coil) * n, vr, vi, a.wt, sre, sim,
-                               tw, H, W, &prof);
-            sync_cluster(kRows);  // the round's results, visible to the cluster
-            const bool last = ro + 1 == rounds;
-            for (int i = p0 + tid; i < p1; i += kThreads) {
-                const int at = (i >> lg_w) * (W + 1) + (i & (W - 1));
-                float sr = ro == 0 ? 0.f : accr[i];
-                float si = ro == 0 ? 0.f : acci[i];
-                for (int c = c0; c < c1; ++c) {
-                    const float yr = cl.map_shared_rank(sre, c - c0)[at];
-                    const float yi = cl.map_shared_rank(sim, c - c0)[at];
-                    const float ca = a.coils_r[static_cast<size_t>(c) * n + i];
-                    const float cb = a.coils_i[static_cast<size_t>(c) * n + i];
-                    sr = rls::fadd(rls::fadd(sr, rls::fmul(ca, yr)), rls::fmul(cb, yi));
-                    si = rls::fsub(rls::fadd(si, rls::fmul(ca, yi)), rls::fmul(cb, yr));
-                }
-                if (last) {
-                    finish(site, i, sr, si);
-                } else {
-                    accr[i] = sr;
-                    acci[i] = si;
-                }
-            }
-            prof.mark(kFold);
-            if (!last) sync_cluster(kFold);  // every remote read before the next round
-        }
+        const rls::SenseCluster sense{a.coils_r, a.coils_i, a.wt, tw, sre, sim, accr, acci,
+                                      H, W, C, nc, rank, p0, p1};
+        rls::sense_normal_cluster<kThreads, kFold>(
+            sense, vr, vi, cl, prof, sync_cluster,
+            [&](int i, float nr, float ni) { finish(site, i, nr, ni); });
     };
 
     for (int outer = 0; outer < a.iterations; ++outer) {

@@ -19,14 +19,32 @@ from x = x_prev = 0. The SENSE normal op multiplies by each coil's map,
 runs the masked normal op of the in-kernel FFT, and accumulates the
 conjugate maps in coil order (``_dft_common.sense_normal``).
 
+The kernel has two routes, picked by :func:`plan_sense`: **resident**, a
+thread-block cluster of c ≤ min(C, 16) CTAs per slice, CTA k transforming
+coils k, k + c, … with the coil's whole padded spectrum in its shared
+memory and the FFT's stages in registers, each CTA owning a band of rows
+for the coil fold and the pixel update; and **global**, one CTA per slice
+staging the spectrum through shared memory chunk by chunk, for shapes
+whose padded spectrum does not fit one CTA (256 × 128 and larger). The
+planner's pieces (:func:`cluster_size`, :class:`SensePlan`,
+:func:`plan_coils`, :func:`card_plan`) also plan the SplitBregman kernel,
+whose resident route runs the same SENSE normal op
+(``csrc/sense_cluster.cuh``).
+
 Not carried over: the TPU's bf16 hi/lo DFT factors, its VMEM gate
 ``_check_vmem_sense`` and ``interpret=``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
+from .. import _build
+from .._build import SMEM_MAX, SMS
 from ..models.prox import L21Regularization
 from ..models.solvers.fista import FISTA
 from ..ops.dft_real import SenseDFT2RealOperator
@@ -34,6 +52,7 @@ from . import _dft_common
 from ._dft_common import (
     check_dft_cuda_input,
     check_fft_normal,
+    check_fft_shape,
     check_fista_schedule,
     seed_and_lam,
     twiddle_tensor,
@@ -43,6 +62,9 @@ from .fista_tv_fused import momentum_tensor, problem_scalars
 __all__ = [
     "fista_l21_sense_fused",
     "fista_l21_sense_fused_torch",
+    "plan_sense",
+    "plan_on_card",
+    "phase_clocks",
     "check_fista_l21_sense_fused",
     "solve_fista_l21_sense_fused",
 ]
@@ -86,42 +108,212 @@ def sense_args(x0hat_b, coils, mask):
     return coils, _dft_common.dft_tables(mask, x0hat_b.dtype)
 
 
-def _launch(x0hat, scal, tab, coils, tables):
-    from .. import _build
+# the kernels' threads per CTA and the largest cluster (csrc/sense_fused.cu,
+# csrc/splitbregman_fused.cu)
+THREADS, MAX_CLUSTER = 1024, 16
+# the phases of the resident route's timer (csrc/sense_fused.cu kPhases)
+PHASES = ("coil loads", "row ffts", "column ffts", "coil fold", "pixel update",
+          "cluster barriers")
+# global scratch planes of (B, H, W). Resident: (re, im) of m, x_prev and
+# the coil sum between rounds. Global: (re, im) of m, x_prev, the spectrum
+# and the coil sum
+RESIDENT_SCRATCH, GLOBAL_SCRATCH = 6, 8
+# the global route's static shared memory (csrc/dft_common.cuh FftShared,
+# 2 × 4352 + 2 × 1024 floats)
+GLOBAL_SMEM = 4 * (2 * 4352 + 2 * 1024)
 
+
+def _ceil4(n):
+    return -(-n // 4) * 4
+
+
+def resident_smem_bytes(H, W):
+    """Shared memory of a resident CTA at H × W, as ``resident_smem_bytes``
+    in csrc/sense_fused.cu counts it: the phase timer (one int64 per
+    phase), the twiddles (H + W f32) and one coil's padded spectrum (H·(W +
+    1) f32 for re, as many for im), each f32 array rounded up to 4 floats."""
+    return 8 * len(PHASES) + 4 * (_ceil4(H + W) + 2 * _ceil4(H * (W + 1)))
+
+
+def cluster_size(C, sms=SMS):
+    """(c, rounds) for C coils: the fewest rounds of at most min(16, sms)
+    coils, then the smallest cluster that gives them (17 coils: 2 rounds
+    on 9 CTAs)."""
+    rounds = -(-C // min(MAX_CLUSTER, sms))
+    return -(-C // rounds), rounds
+
+
+@dataclasses.dataclass(frozen=True)
+class SensePlan:
+    """How a launch of a SENSE kernel (rows 9 and 10) on B slices runs:
+    `route` "resident" (a cluster of `clusters` CTAs per slice, coils in
+    `rounds` rounds) or "global" (one CTA per slice, every coil in turn);
+    `ctas` CTAs in all, `smem` bytes of shared memory per CTA, `scratch`
+    planes of (B, H, W) in global memory, and on the resident route
+    `resident_clusters`, the clusters the card holds at once."""
+
+    route: str
+    clusters: int
+    rounds: int
+    H: int
+    C: int
+    ctas: int
+    smem: int
+    scratch: int
+    resident_clusters: int | None
+
+    def band(self, rank):
+        """[r0, r1): the image rows CTA `rank` owns for the fold and the
+        pixel updates: H // c rows, one more for the first H % c ranks
+        (empty where H < c)."""
+        q, extra = divmod(self.H, self.clusters)
+        r0 = rank * q + min(rank, extra)
+        return r0, r0 + q + (rank < extra)
+
+
+def plan_coils(name, B, H, W, C, resident, sms, smem_max, smem, scratch) -> SensePlan:
+    """The route of kernel `name`'s launch of B slices of H × W with C
+    coils, on a card of `sms` SMs and `smem_max` bytes of shared memory per
+    block that holds n clusters of c resident CTAs at once for each pair
+    (c, n) of `resident` (a size not named is held 0 times); `smem` and
+    `scratch` are (resident, global) shared memory per CTA and global
+    planes. Resident where the resident CTA's shared memory fits, on the
+    cluster size of :func:`cluster_size`; else global. Raises ValueError
+    naming the shape where it is empty or not the FFT's, and naming the
+    plan where the card holds no cluster of it (no fallback)."""
+    if min(B, C) < 1:
+        raise ValueError(f"{name}: empty shape {B} x {H}x{W}, {C} coils")
+    check_fft_shape(H, W)
+    if smem[0] > smem_max:
+        return SensePlan("global", 1, C, H, C, B, smem[1], scratch[1], None)
+    c, rounds = cluster_size(C, sms)
+    held = dict(resident).get(c, 0)
+    plan = SensePlan("resident", c, rounds, H, C, B * c, smem[0], scratch[0], held)
+    if held < 1:
+        raise ValueError(f"{name}: the card holds no cluster of {plan} ({B} x {H}x{W}, {C} coils)")
+    return plan
+
+
+@functools.lru_cache(maxsize=256)
+def plan_sense(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX) -> SensePlan:
+    """The route of a fused FISTA-L21-SENSE launch (:func:`plan_coils`):
+    resident where the timer, the twiddles and a coil's padded spectrum
+    (:func:`resident_smem_bytes`) fit one CTA, else global."""
+    return plan_coils("fista_l21_sense_fused", B, H, W, C, resident, sms, smem_max,
+                      (resident_smem_bytes(H, W), GLOBAL_SMEM),
+                      (RESIDENT_SCRATCH, GLOBAL_SCRATCH))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_limits(entry, index, clusters, H, W):
+    """(shared memory per CTA as the kernel counts it, clusters of its
+    resident kernel that device `index` holds at once:
+    ``cudaOccupancyMaxActiveClusters``), by the C entry point `entry`."""
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(index):
+        _build.check(getattr(_build.load_library(), entry)(clusters, H, W, out), entry)
+    return out[0], out[1]
+
+
+def resident_limits(index, clusters, H, W):
+    """:func:`cluster_limits` of the resident FISTA-L21-SENSE kernel."""
+    return cluster_limits("sense_cluster_occupancy", index, clusters, H, W)
+
+
+def card_plan(name, x0hat, C, plan, smem_bytes, limits):
+    """``plan(B, H, W, C, held, sms, smem_max)`` for a launch on x0hat's
+    card ((B, 2, H, W), C coils), with the card's residency of the cluster
+    size (``limits(index, c, H, W)``, which also returns the kernel's count
+    of ``smem_bytes(H, W)``: a count that differs raises RuntimeError)."""
+    B, _, H, W = x0hat.shape
+    index = x0hat.device.index or 0
+    sms, smem_max = _build.device_limits(index)
+    check_fft_shape(H, W)
+    c, _ = cluster_size(C, sms)
+    held = ()
+    if smem_bytes(H, W) <= smem_max:
+        smem, active = limits(index, c, H, W)
+        if smem != smem_bytes(H, W):
+            raise RuntimeError(f"{name}: the kernel counts {smem} bytes of shared memory at "
+                               f"{H}x{W}, the planner {smem_bytes(H, W)}")
+        held = ((c, active),)
+    return plan(B, H, W, C, held, sms, smem_max)
+
+
+def plan_on_card(x0hat, C):
+    """The plan of a launch on x0hat's card ((B, 2, H, W), C coils). Raises
+    ValueError where the resident plan has no cluster the card can hold."""
+    return card_plan("fista_l21_sense_fused", x0hat, C, plan_sense, resident_smem_bytes,
+                     resident_limits)
+
+
+def _launch(x0hat, scal, tab, coils, tables, prof=None):
     B, _, H, W = x0hat.shape
     C = coils[0].shape[0]
+    plan = plan_on_card(x0hat, C)
+    if prof is not None and plan.route != "resident":
+        raise ValueError(f"fista_l21_sense_fused: the phase timer is on the resident route, "
+                         f"not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
     tw = twiddle_tensor(tables)
-    weights = tables[2].contiguous()
     out = torch.empty_like(x0hat)
-    # m and x_prev (re, im), the spectrum and the coil sum (re, im)
-    scratch = torch.empty((8, B, H, W), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        code = lib.sense_fused_launch(
-            x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(),
-            weights.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), B, H, W, C, tab.shape[0],
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "sense_fused_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "resident":
+            wt = tables[2].T.contiguous()  # read along a spectrum column
+            code = lib.sense_cluster_launch(
+                x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(),
+                wt.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), None if prof is None else prof.data_ptr(), B, H, W, C,
+                tab.shape[0], plan.clusters, plan.smem, stream)
+        else:
+            weights = tables[2].contiguous()
+            code = lib.sense_fused_launch(
+                x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(),
+                weights.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), B, H, W, C, tab.shape[0], stream)
+    _build.check(code, f"fista_l21_sense_fused ({B} x {H}x{W}, {C} coils, {plan})")
     fista_l21_sense_fused.launches += 1
+    fista_l21_sense_fused.route_launches[plan.route] += 1
     return out
 
 
+def _kernel_args(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations):
+    """(scal, tab, coils, tables) of a call in x0hat's dtype."""
+    np_dt = torch.empty((), dtype=x0hat_b.dtype).numpy().dtype
+    scal = problem_scalars(x0hat_b, rho, lam, np_dt)
+    tab = momentum_tensor("fista", iterations, np_dt, x0hat_b.device)
+    return (scal, tab, *sense_args(x0hat_b, (coils_r, coils_i), mask))
+
+
+def phase_clocks(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int):
+    """One launch of the resident kernel with its phase timer on: {phase:
+    SM clocks that CTA 0 spent in it over the whole solve} (``PHASES``; the
+    launch counts in ``fista_l21_sense_fused.launches``). Raises on the
+    global route."""
+    scal, tab, coils, tables = _kernel_args(x0hat_b, mask, coils_r, coils_i, rho, lam,
+                                            iterations)
+    check_dft_cuda_input("fista_l21_sense_fused", x0hat_b, mask, *coils)
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
+    _launch(x0hat_b.contiguous(), scal, tab, coils, tables, prof)
+    return dict(zip(PHASES, prof.tolist()))
+
+
 def fista_l21_sense_fused(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int):
-    """Batched FISTA-L21 on C-coil SENSE, one CTA per slice.
+    """Batched FISTA-L21 on C-coil SENSE in one launch, on the route of
+    :func:`plan_sense` (a cluster of CTAs per slice, one coil's spectrum in
+    each CTA's shared memory, or one CTA per slice).
 
     x0hat_b: (B, 2, H, W) split [re; im] Aᴴb; mask (H, W); coils_r,
     coils_i (C, H, W); rho, lam: scalars or (B,) (λ already
     normalization-scaled). The plain version runs for a CPU tensor, the
     CUDA kernel (float32) for a CUDA tensor.
-    ``fista_l21_sense_fused.launches`` counts the kernel's launches."""
-    np_dt = torch.empty((), dtype=x0hat_b.dtype).numpy().dtype
-    scal = problem_scalars(x0hat_b, rho, lam, np_dt)
-    tab = momentum_tensor("fista", iterations, np_dt, x0hat_b.device)
-    coils, tables = sense_args(x0hat_b, (coils_r, coils_i), mask)
+    ``fista_l21_sense_fused.launches`` counts the kernel's launches, and
+    ``fista_l21_sense_fused.route_launches`` the launches by route."""
+    scal, tab, coils, tables = _kernel_args(x0hat_b, mask, coils_r, coils_i, rho, lam,
+                                            iterations)
     if x0hat_b.device.type == "cpu":
         return fista_l21_sense_fused_torch(x0hat_b, scal, tab, coils, tables)
     check_dft_cuda_input("fista_l21_sense_fused", x0hat_b, mask, *coils)
@@ -129,6 +321,7 @@ def fista_l21_sense_fused(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations:
 
 
 fista_l21_sense_fused.launches = 0
+fista_l21_sense_fused.route_launches = {"resident": 0, "global": 0}
 
 
 def check_fista_l21_sense_fused(solver):

@@ -45,8 +45,6 @@ and ``interpret=``.
 
 from __future__ import annotations
 
-import ctypes
-import dataclasses
 import functools
 
 import numpy as np
@@ -60,9 +58,13 @@ from ..ops.base import IdentityOperator
 from ..ops.dft_real import SenseDFT2RealOperator
 from . import _dft_common, _fgp_common
 from ._dft_common import (
-    check_dft_cuda_input, check_fft_normal, check_fft_shape, seed_and_lam, twiddle_tensor,
+    check_dft_cuda_input, check_fft_normal, seed_and_lam, twiddle_tensor,
 )
-from .sense_fused import group_threshold, sense_args
+from .sense_fused import (
+    THREADS, SensePlan, card_plan, cluster_limits, group_threshold, plan_coils, sense_args,
+)
+# the cluster size rule and the largest cluster, the same for both SENSE kernels
+from .sense_fused import MAX_CLUSTER, cluster_size  # noqa: F401
 
 __all__ = [
     "splitbregman_l1_tv_fused",
@@ -160,9 +162,6 @@ def kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations, dtype=np.float32
     return scal, t2tab
 
 
-# the kernel's threads per CTA and the largest cluster
-# (csrc/splitbregman_fused.cu)
-THREADS, MAX_CLUSTER = 1024, 16
 # the phases of the resident route's timer (csrc/splitbregman_fused.cu kPhases)
 PHASES = ("coil loads", "row ffts", "column ffts", "coil fold", "vector phases",
           "cluster sums", "fgp", "cluster barriers")
@@ -191,100 +190,33 @@ def resident_smem_bytes(H, W):
             + 4 * (_ceil4(H + W) + 2 * _ceil4(H * (W + 1))))
 
 
-def cluster_size(C, sms=SMS):
-    """(c, rounds) for C coils: the fewest rounds of at most min(16, sms)
-    coils, then the smallest cluster that gives them (17 coils: 2 rounds
-    on 9 CTAs)."""
-    rounds = -(-C // min(MAX_CLUSTER, sms))
-    return -(-C // rounds), rounds
-
-
-@dataclasses.dataclass(frozen=True)
-class SplitBregmanPlan:
-    """How a fused SplitBregman launch of B slices runs: `route`
-    "resident" (a cluster of `clusters` CTAs per slice, coils in `rounds`
-    rounds) or "global" (one CTA per slice, every coil in turn); `ctas`
-    CTAs in all, `smem` bytes of shared memory per CTA, `scratch` planes of
-    (B, H, W) in global memory, and on the resident route
-    `resident_clusters`, the clusters the card holds at once."""
-
-    route: str
-    clusters: int
-    rounds: int
-    H: int
-    C: int
-    ctas: int
-    smem: int
-    scratch: int
-    resident_clusters: int | None
-
-    def band(self, rank):
-        """[r0, r1): the image rows CTA `rank` owns for the fold and the
-        vector phases: H // c rows, one more for the first H % c ranks
-        (empty where H < c)."""
-        q, extra = divmod(self.H, self.clusters)
-        r0 = rank * q + min(rank, extra)
-        return r0, r0 + q + (rank < extra)
-
-
 @functools.lru_cache(maxsize=256)
-def plan_splitbregman(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX) -> SplitBregmanPlan:
+def plan_splitbregman(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX) -> SensePlan:
     """The route of a fused SplitBregman launch of B slices of H × W with C
-    coils, on a card of `sms` SMs and `smem_max` bytes of shared memory per
-    block that holds n clusters of c CTAs of the resident kernel at once
-    for each pair (c, n) of `resident` (``cudaOccupancyMaxActiveClusters``;
-    a size not named is held 0 times).
-
-    Resident where a coil's padded spectrum and the rest of
+    coils (``sense_fused.plan_coils``, shared with the FISTA-L21-SENSE
+    kernel): resident where a coil's padded spectrum and the rest of
     :func:`resident_smem_bytes` fit one CTA, on the cluster size of
-    :func:`cluster_size`; else global. Raises ValueError naming the shape
-    where it is empty or not the FFT's, and naming the plan where the card
-    holds no cluster of it (no fallback)."""
-    if min(B, C) < 1:
-        raise ValueError(f"splitbregman_l1_tv_fused: empty shape {B} x {H}x{W}, {C} coils")
-    check_fft_shape(H, W)
-    smem = resident_smem_bytes(H, W)
-    if smem > smem_max:
-        return SplitBregmanPlan("global", 1, C, H, C, B, GLOBAL_SMEM, GLOBAL_SCRATCH, None)
-    c, rounds = cluster_size(C, sms)
-    held = dict(resident).get(c, 0)
-    plan = SplitBregmanPlan("resident", c, rounds, H, C, B * c, smem, RESIDENT_SCRATCH, held)
-    if held < 1:
-        raise ValueError(f"splitbregman_l1_tv_fused: the card holds no cluster of {plan} "
-                         f"({B} x {H}x{W}, {C} coils)")
-    return plan
+    ``sense_fused.cluster_size``; else global. Raises ValueError naming the
+    shape where it is empty or not the FFT's, and naming the plan where the
+    card holds no cluster of it (no fallback)."""
+    return plan_coils("splitbregman_l1_tv_fused", B, H, W, C, resident, sms, smem_max,
+                      (resident_smem_bytes(H, W), GLOBAL_SMEM),
+                      (RESIDENT_SCRATCH, GLOBAL_SCRATCH))
 
 
-@functools.lru_cache(maxsize=None)
 def resident_limits(index, clusters, H, W):
-    """(shared memory per CTA as the kernel counts it, clusters of the
-    resident kernel that device `index` holds at once:
-    ``cudaOccupancyMaxActiveClusters``)."""
-    out = (ctypes.c_longlong * 2)()
-    with torch.cuda.device(index):
-        _build.check(_build.load_library().splitbregman_cluster_occupancy(clusters, H, W, out),
-                     "splitbregman_cluster_occupancy")
-    return out[0], out[1]
+    """``sense_fused.cluster_limits`` of the resident SplitBregman kernel:
+    (shared memory per CTA as the kernel counts it, clusters that device
+    `index` holds at once)."""
+    return cluster_limits("splitbregman_cluster_occupancy", index, clusters, H, W)
 
 
 def plan_on_card(x0hat, C):
     """The plan of a launch on x0hat's card ((B, 2, H, W), C coils), with
     the card's residency of its cluster size. Raises ValueError where the
     resident plan has no cluster the card can hold."""
-    B, _, H, W = x0hat.shape
-    index = x0hat.device.index or 0
-    sms, smem_max = _build.device_limits(index)
-    check_fft_shape(H, W)
-    c, _ = cluster_size(C, sms)
-    held = ()
-    if resident_smem_bytes(H, W) <= smem_max:
-        smem, active = resident_limits(index, c, H, W)
-        if smem != resident_smem_bytes(H, W):
-            raise RuntimeError(f"splitbregman_l1_tv_fused: the kernel counts {smem} bytes of "
-                               f"shared memory at {H}x{W}, the planner "
-                               f"{resident_smem_bytes(H, W)}")
-        held = ((c, active),)
-    return plan_splitbregman(B, H, W, C, held, sms, smem_max)
+    return card_plan("splitbregman_l1_tv_fused", x0hat, C, plan_splitbregman,
+                     resident_smem_bytes, resident_limits)
 
 
 def _launch(x0hat, scal, t2tab, coils, tables, iterations, iterations_inner, cg_iterations,

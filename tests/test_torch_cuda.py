@@ -13,8 +13,9 @@ The dense kernels (CGNR, dense PGM) sum in double like their plain
 versions and are held to the same 1e-5 of max|x| on small systems, with
 equal restart counts. The FFT kernels (FISTA-L1-DFT, FISTA-L21-SENSE)
 round every operation as their plain versions do and must agree bit for
-bit; the SplitBregman kernel, whose CG sums are double sums in another
-order, is held to 1e-5 of max|x| with equal live CG steps. The PDHG,
+bit on both routes; the SplitBregman kernel, whose CG sums are double
+sums in another order, is held to 1e-5 of max|x| with equal live CG
+steps. The PDHG,
 Kaczmarz and greedy Kaczmarz kernels are held to 1e-5 of max|x| on edge
 shapes (m, n off multiples of 32, n = 1, k_max = 1, complex, −1 pads, a
 CSR row with a genuine column-0 entry), the PDHG kernel's resident route
@@ -627,20 +628,110 @@ def test_cluster_counts_of_the_fista_l1_dft_planner_tests(dev, shape):
         assert got == held[c], (c, shape)
 
 
-@pytest.mark.parametrize("shape", FFT_SHAPES)
-@pytest.mark.parametrize("coils", [1, 3])
-def test_sense_kernel_matches_plain(dev, shape, coils):
+# FISTA-L21-SENSE's cases: every FFT_SHAPES shape at 1 and 3 coils (the
+# large ones on the global route), and at 128² the resident route's cluster
+# of 6 and 9 CTAs and 17 coils in two rounds on 9; 2 × 4 at 6 coils leaves
+# four of the six CTAs without a row of the image
+SENSE_CASES = [(shape, coils) for shape in FFT_SHAPES for coils in (1, 3)] + [
+    ((128, 128), 1), ((128, 128), 6), ((128, 128), 9), ((128, 128), 17), ((2, 4), 6)]
+
+
+def _sense_inputs(dev, shape, coils):
     mask, cr, ci, rng = _fft_inputs(dev, shape, C=coils)
     x0 = torch.from_numpy(rng.normal(size=(2, 2, *shape)).astype(np.float32)).to(dev)
-    lam = torch.tensor([1e-2, 0.2], device=dev)
+    return x0, mask, cr, ci, torch.tensor([1e-2, 0.2], device=dev)
+
+
+def _sense_plain(x0, mask, cr, ci, lam, iterations):
+    scal = fused.problem_scalars(x0, 0.9, lam)
+    tab = torch.as_tensor(fused._momentum_table("fista", iterations), device=x0.device)
+    return sense.fista_l21_sense_fused_torch(x0, scal, tab, (cr, ci), dft.dft_tables(mask))
+
+
+@pytest.mark.parametrize("shape,coils", SENSE_CASES)
+def test_sense_kernel_matches_plain(dev, shape, coils):
+    """Every case on its planned route (the cluster route where a coil's
+    spectrum fits one CTA), by the route counter, bit for bit the plain
+    version."""
+    x0, mask, cr, ci, lam = _sense_inputs(dev, shape, coils)
+    plan = sense.plan_on_card(x0, coils)
+    fits = sense.resident_smem_bytes(*shape) <= 232_448
+    assert plan.route == ("resident" if fits else "global")
+    if plan.route == "resident":
+        assert (plan.clusters, plan.rounds) == sense.cluster_size(coils)
+        assert plan.resident_clusters >= 1
     before = sense.fista_l21_sense_fused.launches
+    on_route = sense.fista_l21_sense_fused.route_launches[plan.route]
     got = sense.fista_l21_sense_fused(x0, mask, cr, ci, 0.9, lam, 9)
     assert sense.fista_l21_sense_fused.launches == before + 1
-    scal = fused.problem_scalars(x0, 0.9, lam)
-    tab = torch.as_tensor(fused._momentum_table("fista", 9), device=dev)
-    want = sense.fista_l21_sense_fused_torch(x0, scal, tab, (cr, ci), dft.dft_tables(mask))
+    assert sense.fista_l21_sense_fused.route_launches[plan.route] == on_route + 1
+    want = _sense_plain(x0, mask, cr, ci, lam, 9)
     torch.cuda.synchronize()
     assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# the resident route's edges: no iteration, one (the spectrum's last remote
+# reads meet only the final barrier), two; at H < c, and in two rounds
+SENSE_EDGE_CASES = [((2, 4), 6), ((128, 128), 17), ((128, 128), 6)]
+
+
+@pytest.mark.parametrize("shape,coils", SENSE_EDGE_CASES)
+@pytest.mark.parametrize("iterations", [0, 1, 2])
+def test_sense_kernel_edge_iterations_match_plain(dev, shape, coils, iterations):
+    x0, mask, cr, ci, lam = _sense_inputs(dev, shape, coils)
+    assert sense.plan_on_card(x0, coils).route == "resident"
+    got = sense.fista_l21_sense_fused(x0, mask, cr, ci, 0.9, lam, iterations)
+    want = _sense_plain(x0, mask, cr, ci, lam, iterations)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("shape,coils", SENSE_EDGE_CASES)
+def test_sense_resident_route_repeats_bit_for_bit(dev, shape, coils):
+    """A launch of the resident route gives the same bits each time: a
+    cross-CTA race would show as a launch that differs."""
+    x0, mask, cr, ci, lam = _sense_inputs(dev, shape, coils)
+    args = (x0, mask, cr, ci, 0.9, lam, 12)
+    first = sense.fista_l21_sense_fused(*args)
+    for _ in range(20):
+        assert torch.equal(sense.fista_l21_sense_fused(*args), first)
+
+
+def test_sense_phase_clocks(dev):
+    """The resident kernel's phase timer: one launch, the same x as without
+    the timer, clocks in every phase; the global route has no timer and
+    raises."""
+    x0, mask, cr, ci, lam = _sense_inputs(dev, (128, 128), 6)
+    args = (x0, mask, cr, ci, 0.9, lam, 5)
+    want = sense.fista_l21_sense_fused(*args)
+    before = sense.fista_l21_sense_fused.launches
+    clocks = sense.phase_clocks(*args)
+    assert sense.fista_l21_sense_fused.launches == before + 1
+    assert list(clocks) == list(sense.PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert torch.equal(sense.fista_l21_sense_fused(*args), want)
+    x0g, maskg, crg, cig, lamg = _sense_inputs(dev, (256, 128), 2)
+    with pytest.raises(ValueError, match="resident route"):
+        sense.phase_clocks(x0g, maskg, crg, cig, 0.9, lamg, 1)
+
+
+@pytest.mark.parametrize("shape", [(128, 128), (1024, 16), (16, 1024), (2, 4)])
+def test_cluster_counts_of_the_sense_planner_tests(dev, shape):
+    """On an H100 the card holds, for every cluster size, the clusters of
+    the resident FISTA-L21-SENSE kernel that tests/test_torch_sense_plan.py
+    plans with, and counts the planner's shared memory."""
+    from test_torch_sense_plan import H100_RESIDENT
+
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    held = dict(H100_RESIDENT)
+    for c in range(1, sense.MAX_CLUSTER + 1):
+        smem, got = sense.resident_limits(dev.index, c, *shape)
+        assert smem == sense.resident_smem_bytes(*shape)
+        assert got == held[c], (c, shape)
 
 
 # SplitBregman's cases: every FFT_SHAPES shape at 3 coils (the large ones on
