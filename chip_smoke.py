@@ -19,9 +19,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      solve at 512² (batch 16, 50 × 10), once at 1024² (batch 8), and its
      dynamic schedules at 512² (batch 4); the fused ADMM-TV solve at
      BASELINE configuration #3's shapes (16 distinct problems of 256², 12
-     outer × 6 CG × 8 dual iterations) and the tiled ADMM-TV solve at 512²
-     (batch 16, 10 × 5 × 10), each with a Positive case at batch 4 and the
-     live CG steps of kernel and plain version side by side;
+     outer × 6 CG × 8 dual iterations; its plan printed first, on its
+     resident route by the route counter) and on its global route (4
+     problems of 4 × 12000, rows too wide for a band), and the tiled
+     ADMM-TV solve at 512² (batch 16, 10 × 5 × 10), each with a Positive
+     case at batch 4 and the live CG steps of kernel and plain version side
+     by side;
   4. the flagship through the public API: batched FISTA-TV deblurring,
      256², 9×9 Gaussian, 50×10 iterations, ρ = 0.95, λ = 5e-4, batch 64,
      through solve_batched_fast (fused kernel, one launch, on the
@@ -36,7 +39,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      columns against a float64 solve of the plain version on the card;
   6. the two ADMM-TV cells of tools/bench_suite.py: admm_tv_deblur256_b16
      (ρ = 0.1, λ = 2e-3, 12 × 6 × 8) through solve_batched_fast (one fused
-     launch) and through solve_batched_unrolled (the composed ADMM, one TV
+     launch, on the resident route by the route counter) and through
+     solve_batched_unrolled (the composed ADMM, one TV
      kernel launch per outer iteration), and admm_tv_512_tiled_b16 (ρ =
      0.1, λ = 5e-4, 10 × 5 × 10) through solve_batched_fast (the tiled
      kernel), each held on two columns against a float64 solve of the
@@ -183,11 +187,23 @@ with their device time by torch.profiler; rows 8 and 10 as controls;
 with each plan and the kernel's clocks per phase where ROOT's package has
 them.
 
+    python3 chip_smoke.py --time-admm [ROOT]
+
+does the same for the fused ADMM-TV kernel (row 4): BASELINE #3's 16
+distinct 256² problems (12 × 6 × 8), 1 and 64 problems, Positive at batch
+4, the cell at forced cluster sizes 6, 8 and 16, 4 × 4 × 12000 on the
+global route, the tiled kernel (row 5) on the cell; the kernel in turns
+with the cell's composed solve_batched_unrolled, both with their device
+time by torch.profiler; row 2 as a control; each plan, the kernel's clocks
+per phase, and sha256 digests of rows 2 and 5 and of row 4's global route
+(bit for bit between two trees where row 4's change leaves them).
+
     python3 chip_smoke.py --time-library [ROOT]
 
-reads the library yardstick of rows 3, 4, 5, 7a, 7b, 11, 12a, 12b and 13:
-the composed solve_batched_unrolled at each kernel's main-path shapes,
-three wall readings and three device times by torch.profiler each.
+reads the library yardstick of rows 2, 3, 4, 5, 7a, 7b, 10, 11, 12a, 12b
+and 13: the composed solve_batched_unrolled at each kernel's main-path
+shapes, three wall readings and three device times by torch.profiler
+each.
 """
 
 from __future__ import annotations
@@ -224,6 +240,9 @@ ADMM_SPREAD = 2.0
 ADMM_RHO, ADMM_TOL = 0.1, 1e-5
 ADMM256 = (256, 16, 2e-3, 12, 6, 8)
 ADMM512 = (512, 16, 5e-4, 10, 5, 10)
+# the fused ADMM-TV kernel's global route: 4 problems of 4 × 12000, rows
+# too wide for any band of its resident route (at most 11,524 pixels)
+ADMM_WIDE = (4, 4, 12000)
 # the dense cells: tools/bench_suite.py:79-102 (CGNR, 64×64, λ = 1e-6, 200
 # iterations = 64 steps, batch 16) and :204-225 (FISTA-L1 on 256×512, λ =
 # 1e-4, ρ = 0.95/‖A‖₂², 600 iterations, batch 16; its restart schedules,
@@ -699,8 +718,8 @@ def device_breakdown(name, fn):
 
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
-    `reset`, set them to 0 first (and the PGM-TV, SplitBregman, PDHG,
-    FISTA-L1-DFT and FISTA-L21-SENSE kernels' counts by route)."""
+    `reset`, set them to 0 first (and the PGM-TV, ADMM-TV, SplitBregman,
+    PDHG, FISTA-L1-DFT and FISTA-L21-SENSE kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -716,9 +735,9 @@ def launch_counts(reset=False):
     if reset:
         for fn in fns:
             fn.launches = 0
-        for fn in (fista_tv_fused.fista_tv_fused, splitbregman_fused.splitbregman_l1_tv_fused,
-                   pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused,
-                   sense_fused.fista_l21_sense_fused):
+        for fn in (fista_tv_fused.fista_tv_fused, admm_tv_fused.admm_tv_fused,
+                   splitbregman_fused.splitbregman_l1_tv_fused, pdhg_fused.pdhg_fused,
+                   fista_l1_dft_fused.fista_l1_dft_fused, sense_fused.fista_l21_sense_fused):
             fn.route_launches = {"resident": 0, "global": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
@@ -729,11 +748,29 @@ def admm_kernel_phase(dev, cases):
     adjoint of the blurred phantoms. Each is held to the plain version's
     1-ulp spread with equal live CG steps, at the cell's batch and with
     the Positive projection at batch 4, and timed in turns with its plain
-    version; then the other kernel at the same size is timed alone.
-    Returns {wrapper name: {"err", "ms": (plain, kernel), "live"}}."""
+    version; then the other kernel at the same size is timed alone. The
+    fused kernel prints each plan, must take its resident route at the cell
+    (by its route counter, set to 0 just before) and is held alike on its
+    global route at ADMM_WIDE. Returns {wrapper name: {"err", "ms":
+    (plain, kernel), "live"}}."""
     import torch
 
+    from rls_tpu_torch.kernels import _fgp_common
     from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
+
+    def hold_on_route(label, kernel, plain, x0, route):
+        """hold_to_plain, the launch's plan printed first and its route
+        counter required to read one launch on `route`."""
+        plan, active = admm_fused.plan_on_card(x0, taps)
+        print(f"{label}: plan route {plan.route}, {plan.clusters} CTAs per problem, "
+              f"{plan.rows} rows per band, {plan.ctas} CTAs, {plan.smem} B of shared memory per "
+              f"CTA, {active} clusters resident at once")
+        admm_fused.admm_tv_fused.route_launches = {"resident": 0, "global": 0}
+        err = hold_to_plain(label, kernel, plain, x0, show_counts=True, spread=ADMM_SPREAD)
+        got = admm_fused.admm_tv_fused.route_launches
+        require(got == {"resident": int(route == "resident"), "global": int(route == "global")},
+                f"{label}: expected one launch on the {route} route, got {got}")
+        return err
 
     def pair(cell, wrapper, taps, prox="none"):
         _, _, lam, iters, cg, tv = cell
@@ -758,10 +795,22 @@ def admm_kernel_phase(dev, cases):
         x0s.append((cell, taps, x0))
         label = f"{wrapper.__name__}[{n}², batch {batch}]"
         kernel, plain = pair(cell, wrapper, taps)
-        err = hold_to_plain(label, kernel, plain, x0, show_counts=True, spread=ADMM_SPREAD)
-        err = max(err, hold_to_plain(
-            f"{wrapper.__name__}[{n}², batch 4, positive]", *pair(cell, wrapper, taps, "positive"),
-            x0[:4].contiguous(), show_counts=True, spread=ADMM_SPREAD))
+        label4 = f"{wrapper.__name__}[{n}², batch 4, positive]"
+        pair4 = pair(cell, wrapper, taps, "positive")
+        if wrapper is admm_fused.admm_tv_fused:
+            err = hold_on_route(label, kernel, plain, x0, "resident")
+            err = max(err, hold_on_route(label4, *pair4, x0[:4].contiguous(), "resident"))
+            # the global route: rows too wide for a band, x0hat = AᴴA of noise
+            B, H, W = ADMM_WIDE
+            wide = torch.from_numpy(np.random.default_rng(11).normal(size=ADMM_WIDE)
+                                    .astype(np.float32)).to(dev)
+            wide = _fgp_common.sepconv_stencil_normal(wide, *taps).contiguous()
+            err = max(err, hold_on_route(f"{wrapper.__name__}[{B} x {H}x{W}, global route]",
+                                         kernel, plain, wide, "global"))
+        else:
+            err = hold_to_plain(label, kernel, plain, x0, show_counts=True, spread=ADMM_SPREAD)
+            err = max(err, hold_to_plain(label4, *pair4, x0[:4].contiguous(), show_counts=True,
+                                         spread=ADMM_SPREAD))
         live = kernel(x0)[1].tolist()
         ms = alternate_ms(lambda: plain(x0), lambda: kernel(x0), reps=3)
         print(f"{label}: kernel {ms[1]:.3f} ms, plain {ms[0]:.3f} ms")
@@ -781,7 +830,8 @@ def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
     """An ADMM-TV cell of tools/bench_suite.py through solve_batched_fast:
     the phantoms `imgs` (batch, n²) blurred by the cell's operator, the
     launch counters set to 0 just before the solve and read just after
-    (they must equal `launches`, every other counter 0), two columns held
+    (they must equal `launches`, every other counter 0, and the fused
+    kernel's on its resident route), two columns held
     to a float64 solve of the plain version on the card, problems/s, and
     the device breakdown of one solve. With `composed`, the same through
     solve_batched_unrolled (the composed ADMM: one TV kernel launch per
@@ -810,6 +860,12 @@ def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
         print(f"launches ({label}): {got}")
         require(got == {**{k: 0 for k in got}, **want},
                 f"{label}: expected the launches {want} and no others")
+        if "admm_tv_fused" in want:
+            from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
+
+            routes = admm_fused.admm_tv_fused.route_launches
+            require(routes == {"resident": want["admm_tv_fused"], "global": 0},
+                    f"{label}: the fused kernel's routes {routes}, not the resident one")
         require(tuple(x.shape) == (n * n, batch), f"{label}: shape {tuple(x.shape)}")
         parity_f64(label, x, B, xs, op64, x64)
         ms = cuda_ms(lambda: solve(solver, B), reps=3)
@@ -2942,12 +2998,88 @@ def time_sense(dev, out):
     ])
 
 
+def digest(x):
+    """sha256 of a tensor's bytes: two trees' kernels agree bit for bit
+    where their digests do."""
+    import hashlib
+
+    return hashlib.sha256(x.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def time_admm(dev, out):
+    """``--time-admm [ROOT]``: the fused ADMM-TV kernel (row 4) at BASELINE
+    #3's schedule (ρ = 0.1, λ = 2e-3, 12 × 6 × 8, tol_inner 1e-5, the 9 × 9
+    Gaussian): the cell's 16 distinct 256² problems (the phantoms of phase
+    3e), 1 and 64 problems of 256², Positive at batch 4, the cell at forced
+    cluster sizes 6, 8 and 16 (where ROOT's kernel takes a forced size), 4
+    problems of 4 × 12000 (the global route) and the tiled kernel (row 5)
+    on the cell; then the cell's kernel in turns with its composed
+    solve_batched_unrolled, both with their device time by torch.profiler;
+    row 2 (FISTA at the flagship) as the control. Each plan and the
+    kernel's clocks per phase where ROOT's package has them, and sha256
+    digests of x from rows 2 and 5 and from row 4's global route, which a
+    change of row 4's resident route leaves bit for bit."""
+    import inspect
+
+    import torch
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import _fgp_common
+    from rls_tpu_torch.kernels import admm_tv_fused as k4
+    from rls_tpu_torch.kernels import admm_tv_tiled as k5
+    from rls_tpu_torch.kernels import fista_tv_fused as k2
+
+    out["kernel"] = os.path.relpath(k4.__file__, ROOT)
+    n, batch, lam, iters, cg, tv = ADMM256
+    solver = build_admm(ADMM256, dev)
+    op = solver.A
+    taps = op.taps_hw()
+    B = op.mv(torch.from_numpy(phantoms(batch=batch)).to(dev)).T.contiguous()
+    x0 = op.rmv_stencil(B.T).reshape(batch, n, n)
+    wide = torch.from_numpy(np.random.default_rng(11).normal(size=ADMM_WIDE)
+                            .astype(np.float32)).to(dev)
+    wide = _fgp_common.sepconv_stencil_normal(wide, *taps).contiguous()
+    sched = (ADMM_RHO, lam, iters, cg, tv, ADMM_TOL)
+    runs = [(f"cell: {batch} x {n}²", x0, {}, 3), (f"1 x {n}²", x0[:1].contiguous(), {}, 5),
+            (f"64 x {n}²", x0.repeat(4, 1, 1), {}, 1),
+            (f"positive, 4 x {n}²", x0[:4].contiguous(), {"prox": "positive"}, 5)]
+    if "clusters" in inspect.signature(k4.admm_tv_fused).parameters:
+        runs += [(f"cell at c = {c}", x0, {"clusters": c}, 3) for c in (6, 8, 16)]
+    runs.append(("{} x {}x{} (global route)".format(*ADMM_WIDE), wide, {}, 1))
+    cases = []
+    for name, x, kw, reps in runs:
+        args = (x, taps, *sched)
+        plan_args = (x, taps) + ((kw["clusters"],) if "clusters" in kw else ())
+        cases.append((name, lambda a=args, kw=kw: k4.admm_tv_fused(*a, **kw), reps,
+                      plan_probe(k4, plan_args, *args, **kw)))
+    cases.append((f"row 5 admm_tv_tiled, {batch} x {n}²",
+                  lambda: k5.admm_tv_tiled(x0, taps, *sched), 3))
+    time_cases(out, cases)
+    # the cell in turns with its composed solve, and both device times
+    cell = [("row 4 admm_tv_fused, cell", lambda: k4.admm_tv_fused(x0, taps, *sched), 3),
+            ("row 4 composed solve_batched_unrolled", lambda: rtt.solve_batched_unrolled(solver, B),
+             1)]
+    time_cases(out, cell, in_turns=True)
+    device_ms(out, cell)
+    # row 2, which shares the band code, as the control
+    s2, B2, _ = build_flagship(dev)
+    x2 = s2.A.rmv_stencil(B2.T).reshape(BATCH, N, N)
+
+    def row2():
+        return k2.fista_tv_fused(x2, s2.A.taps_hw(), RHO, LAM, ITERS, TV_ITERS)
+
+    time_cases(out, [("row 2 fista_tv_fused, flagship", row2, 3)])
+    out["sha256 of x: row 2 flagship"] = digest(row2())
+    out["sha256 of x: row 5 cell"] = digest(k5.admm_tv_tiled(x0, taps, *sched))
+    out["sha256 of x: row 4 global route"] = digest(k4.admm_tv_fused(wide, taps, *sched))
+
+
 def time_library(dev, out):
-    """``--time-library [ROOT]``: the library yardstick of rows 3, 4, 5,
-    7a, 7b, 11, 12a, 12b and 13 (PERF.md §6), the composed
-    solve_batched_unrolled at the shapes of the main path: the 512² tiled
-    FISTA-TV cell, the two ADMM-TV cells, the LASSO cell and the complex
-    FISTA, the PDHG cell, one cyclic Kaczmarz sweep of the tall system,
+    """``--time-library [ROOT]``: the library yardstick of rows 2, 3, 4,
+    5, 7a, 7b, 10, 11, 12a, 12b and 13 (PERF.md §6), the composed
+    solve_batched_unrolled at the shapes of the main path: the FISTA-TV
+    flagship, the 512² tiled FISTA-TV cell, the two ADMM-TV cells, the LASSO
+    cell and the complex FISTA, BASELINE #4's SplitBregman on the 8 SENSE
+    slices, the PDHG cell, one cyclic Kaczmarz sweep of the tall system,
     the tall streamed cell and one greedy sweep. Each with three wall
     readings (CUDA events, one call each) and three device times by
     torch.profiler (the sum of its kernels' times, which the host's launch
@@ -2966,6 +3098,8 @@ def time_library(dev, out):
         solves.append((f"row {row} composed solve_batched_unrolled",
                        lambda: rtt.solve_batched_unrolled(solver, B), 1))
 
+    s2, B2, _ = build_flagship(dev)
+    composed(2, s2, B2)
     s3 = build_solver(512, dev)
     composed(3, s3, s3.A.mv(t(draws[512])).T.contiguous())
     for row, cell, imgs in ((4, ADMM256, np.broadcast_to(draws["admm"], (ADMM256[1], 256 ** 2))),
@@ -2984,6 +3118,9 @@ def time_library(dev, out):
         reg=[rtt.L1Regularization(LASSO_LAM), rtt.RealRegularization()],
         iterations=SHORT_ITERS, rho=0.95 / float(np.linalg.norm(a_c, 2)) ** 2,
         restart="gradient", track_residual=False), t(b_c))
+    maps, mask, X = sense_problem()
+    op10 = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (SENSE_N, SENSE_N), device=dev)
+    composed(10, splitbregman_solver(op10, dev), op10.mv(t(X)).T.contiguous())
     s11 = pdhg_cell_solver(dev)
     composed(11, s11, s11.A.mv(t(draws["admm"]))[:, None].repeat(1, PDHG_BATCH).contiguous())
     kz = kaczmarz_systems(draws, dev)
@@ -3003,6 +3140,7 @@ TIME_MODES = {
     "--time-pdhg": time_pdhg,
     "--time-fista-l1-dft": time_fista_l1_dft,
     "--time-sense": time_sense,
+    "--time-admm": time_admm,
     "--time-library": time_library,
 }
 

@@ -78,6 +78,15 @@ _SIGNATURES = {
     "admm_tv_fused_launch": (
         _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P,
     ),
+    # (clusters, rows, W, out: int64[2] = shared memory per CTA, clusters
+    #  resident at once)
+    "admm_tv_cluster_occupancy": (_I, _I, _I, _P),
+    # (x0hat, scal, t2, taps, kh, kw, out, scratch, counts, prof, B, H, W,
+    #  iterations, cg_iterations, tv_iterations, tol_inner, positive,
+    #  clusters, rows, smem, stream)
+    "admm_tv_cluster_launch": (
+        _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
+    ),
     # (x0hat, scal, t2, taps, kh, kw, planes, window, partial, state, counts,
     #  B, H, W, tile_rows, iterations, cg_iterations, tv_iterations,
     #  tol_inner, positive, stream)

@@ -1,6 +1,7 @@
 // Host and device code shared by the kernels that run one problem on a
-// thread-block cluster (fista_tv_fused.cu, splitbregman_fused.cu,
-// pdhg_fused.cu, fista_l1_dft_fused.cu): a phase timer, a CTA's band of image rows with the
+// thread-block cluster (fista_tv_fused.cu, admm_tv_fused.cu,
+// splitbregman_fused.cu, sense_fused.cu, pdhg_fused.cu,
+// fista_l1_dft_fused.cu): a phase timer, a CTA's band of image rows with the
 // stencil passes that read other bands through distributed shared memory,
 // the cluster's double sums in rank order, and the launch configuration
 // with its residency query.
@@ -115,12 +116,16 @@ struct Band {
         }
         return rls::stencil_h<kRound>(plane(p), lr, c, taps, K, adjoint, W);
     }
-    // grad_t of fgp_common.cuh on the duals in planes (v, h) at local
-    // pixel i = (lr, c)
-    __device__ float grad_t(int v, int h, int i, int lr, int c) const {
+    // grad_t of fgp_common.cuh on the duals in plane v and `h` (read in its
+    // own rows only: any plane laid out as the band) at local pixel
+    // i = (lr, c)
+    __device__ float grad_t(int v, const float* h, int i, int lr, int c) const {
         const float up = r0 + lr > 0 ? above(v, i, lr, c) : 0.f;
-        const float left = c > 0 ? plane(h)[i - 1] : 0.f;
-        return (up - plane(v)[i]) + (left - plane(h)[i]);
+        const float left = c > 0 ? h[i - 1] : 0.f;
+        return (up - plane(v)[i]) + (left - h[i]);
+    }
+    __device__ float grad_t(int v, int h, int i, int lr, int c) const {
+        return grad_t(v, plane(h), i, lr, c);
     }
 };
 

@@ -80,6 +80,7 @@
 
 #include "cluster_common.cuh"
 #include "pgm_tv_common.cuh"
+#include "tv_band.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -189,10 +190,7 @@ enum { kPv, kPh, kT2Xg, kT1Rv, kT3Rh, kInY };  // the shared-memory planes A-F
 // the phases of the timer
 enum { kSetup, kMomentum, kGram, kFgp, kBarrier, kProx, kSums, kPhases };
 
-// floats of one plane of a band of `rows` rows (16-byte multiples)
-__host__ __device__ inline size_t plane_floats(int rows, int W) {
-    return (static_cast<size_t>(rows) * W + 3) / 4 * 4;
-}
+using rls::band_plane_floats;
 
 // Shared memory of a CTA of the resident route, in this order; the Python
 // planner (kernels/fista_tv_fused.py cluster_smem_bytes) counts the same:
@@ -201,7 +199,7 @@ __host__ __device__ inline size_t plane_floats(int rows, int W) {
 // timer (kPhases int64), the DSMEM row table (rows + 2 kHalo pointers)
 // and the taps (2 kMaxTaps floats).
 __host__ __device__ inline size_t cluster_smem_bytes(int rows, int W) {
-    return sizeof(float) * kPlanes * plane_floats(rows, W) +
+    return sizeof(float) * kPlanes * band_plane_floats(rows, W) +
            sizeof(double) * (3 * (kThreads / 32) + 8) + sizeof(long long) * kPhases +
            sizeof(const float*) * (rows + 2 * kHalo) + sizeof(float) * 2 * kMaxTaps;
 }
@@ -232,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const Clu
     extern __shared__ __align__(16) unsigned char smem[];
     const rls::Schedule& sc = a.sc;
     const int H = a.H, W = a.W, R = a.rows, nc = a.clusters;
-    const size_t pf = plane_floats(R, W);
+    const size_t pf = band_plane_floats(R, W);
     float* s = reinterpret_cast<float*>(smem);
     double* red = reinterpret_cast<double*>(s + kPlanes * pf);
     double* mine = red + 3 * (kThreads / 32);
@@ -265,8 +263,6 @@ __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const Clu
     float* pv = bd.plane(kPv);
     float* ph = bd.plane(kPh);
     float* xg = bd.plane(kT2Xg);
-    float* rv = bd.plane(kT1Rv);
-    float* rh = bd.plane(kT3Rh);
     float* y = bd.plane(kInY);
     const float* taps_w = taps + a.kh;
 
@@ -330,20 +326,11 @@ __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const Clu
         sync_cluster(kMomentum);
 
         // res = A^H A gin - x0hat: column pass (F -> D), its adjoint
-        // (D -> C), row pass (C -> E), its adjoint; the last forms the prox
-        // input xg in C (and POGM's y_new), keeping res for the sums
-        sweep([&](int i, int lr, int col) {
-            rv[i] = bd.stencil_v(kInY, i, lr, col, taps, a.kh, false);
-        });
-        sync_cluster(kGram);
-        sweep([&](int i, int lr, int col) {
-            xg[i] = bd.stencil_v(kT1Rv, i, lr, col, taps, a.kh, true);
-        });
-        __syncthreads();
-        sweep([&](int i, int lr, int col) {
-            rh[i] = bd.stencil_h(kT2Xg, i, lr, col, taps_w, a.kw, false);
-        });
-        __syncthreads();
+        // (D -> C), row pass (C -> E) (tv_band.cuh), its adjoint; the last
+        // forms the prox input xg in C (and POGM's y_new), keeping res for
+        // the sums
+        rls::band_gram_passes<kInY, kT1Rv, kT2Xg, kT3Rh>(bd, sweep, taps, a.kh, a.kw,
+                                                         sync_cluster, kGram);
         sweep([&](int i, int lr, int col) {
             const float res = bd.stencil_h(kT3Rh, i, lr, col, taps_w, a.kw, true) - x0[i];
             float g;
@@ -361,51 +348,13 @@ __global__ void __launch_bounds__(kThreads, 1) fista_tv_cluster_kernel(const Clu
             if constexpr (kDynamic) g_res[i] = res;
         });
 
-        // the fold FGP on xg (rls::fold_fgp): duals in A, B, their momentum
-        // in D, E, y in F; clip bounds 0 on the image's last row / column
+        // the fold FGP on xg (rls::fold_fgp, tv_band.cuh): duals in A, B,
+        // their momentum in D, E, y in F; its first barrier makes xg
+        // visible to the neighbours (and ends their reads of D)
         if (tv > 0) {
-            const float lt = c.lam_tv;
-            // xg visible to the neighbours; D no longer read by them
-            sync_cluster(kGram);
-            if (sc.warm) {
-                for (int i = tid; i < n; i += kThreads) {
-                    rv[i] = pv[i];
-                    rh[i] = ph[i];
-                }
-            } else {
-                sweep([&](int i, int lr, int col) {
-                    const float y0 = xg[i] * 0.125f;
-                    const float qv = r0 + lr < H - 1
-                        ? rls::clip(bd.below(kT2Xg, i, lr, col) * 0.125f - y0, -lt, lt)
-                        : 0.f;
-                    const float qh = col < W - 1 ? rls::clip(xg[i + 1] * 0.125f - y0, -lt, lt) : 0.f;
-                    pv[i] = qv;
-                    rv[i] = qv;
-                    ph[i] = qh;
-                    rh[i] = qh;
-                });
-            }
-            for (int k = sc.warm ? 0 : 1; k < tv; ++k) {
-                const float c1 = a.t2tab[2 * k];
-                const float c2 = a.t2tab[2 * k + 1];
-                sync_cluster(kFgp);
-                sweep([&](int i, int lr, int col) {
-                    y[i] = (xg[i] - bd.grad_t(kT1Rv, kT3Rh, i, lr, col)) * 0.125f;
-                });
-                sync_cluster(kFgp);
-                sweep([&](int i, int lr, int col) {
-                    const float qv = r0 + lr < H - 1
-                        ? rls::clip(rv[i] + (bd.below(kInY, i, lr, col) - y[i]), -lt, lt)
-                        : 0.f;
-                    const float qh =
-                        col < W - 1 ? rls::clip(rh[i] + (y[i + 1] - y[i]), -lt, lt) : 0.f;
-                    rv[i] = rls::fsub(rls::fmul(c1, qv), rls::fmul(c2, pv[i]));
-                    rh[i] = rls::fsub(rls::fmul(c1, qh), rls::fmul(c2, ph[i]));
-                    pv[i] = qv;
-                    ph[i] = qh;
-                });
-            }
-            sync_cluster(kFgp);
+            rls::band_fold_fgp<kT2Xg, kInY, kT1Rv, kT3Rh, kPv>(
+                bd, sweep, bd.plane(kPh), c.lam_tv, a.t2tab, tv, sc.warm != 0, sync_cluster,
+                kGram, kFgp);
         } else {
             __syncthreads();
         }

@@ -20,12 +20,27 @@ same at every outer iteration (``vary_rho="none"``). Both versions return
 per-problem counts, (B,) int32: the CG steps that were live, summed over
 the outer iterations.
 
+The kernel runs on one of two routes that :func:`plan_admm_tv` picks by
+shape (``csrc/admm_tv_fused.cu``):
+
+* resident: each problem on a thread-block cluster of c ≤ 16 CTAs, one
+  band of image rows per CTA, the five planes read at other bands' rows
+  in shared memory for the whole solve (the PGM-TV kernel's band design,
+  sharing its banded Gram passes and fold FGP), the CG's sums in double
+  over the cluster in rank order (BASELINE #3 at 256² × 16: 6 bands of
+  43 rows, the 16 problems in one wave);
+* global: one CTA per problem with its planes in global scratch, for a
+  row so wide that no band fits (about W > 11,500).
+
 Not carried over: the TPU's compensated bf16 hi/lo Gram (``op.cat``) and
 its VMEM model (``_check_vmem_admm_tv``); the port always runs the exact
 stencil Gram.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -34,18 +49,144 @@ from ..models.prox import PositiveRegularization, RealRegularization, TVRegulari
 from ..models.solvers.admm import ADMM
 from ..ops.base import IdentityOperator, NormalOperator
 from ..ops.conv_direct import SeparableConvOperator
+from .._build import SMEM_MAX, SMS
 from . import _fgp_common
-from .fista_tv_fused import check_cuda_input, check_fused_pixels, prepare, problem_scalars
+from ._tables import shared_table
+from .fista_tv_fused import (GLOBAL_SMEM, HALO, MAX_TAPS, PgmTvPlan, _cdiv, band_sizes,
+                             check_cuda_input, check_fused_pixels, fewest_waves, prepare,
+                             problem_scalars)
 
 __all__ = [
     "admm_tv_fused",
     "admm_tv_fused_torch",
+    "plan_admm_tv",
+    "AdmmTvPlan",
+    "phase_clocks",
     "check_admm_tv",
     "check_admm_tv_fused",
     "solve_admm_tv_fused",
 ]
 
 PROXES = ("none", "positive")
+# the kernel's threads per CTA, the resident route's shared-memory planes
+# and its largest cluster (the non-portable size; csrc/admm_tv_fused.cu)
+THREADS, PLANES, MAX_CLUSTER = 1024, 5, 16
+# the phases of the resident route's timer (csrc/admm_tv_fused.cu kPhases)
+PHASES = ("set-up", "gram", "cg vector sweeps", "cluster sums", "fgp sweeps",
+          "cluster barriers", "z-update")
+# global scratch planes of (B, H, W): the resident route's own-pixel planes
+# (z, u, r, q and the dual ph), and the global route's z, u, r, p, q, two
+# stencil temporaries, xg and the four FGP duals
+RESIDENT_SCRATCH, GLOBAL_SCRATCH = 5, 12
+
+
+def cluster_smem_bytes(rows, W):
+    """Shared memory of a resident CTA whose band has `rows` rows of width
+    W, as ``cluster_smem_bytes`` in csrc/admm_tv_fused.cu counts it: five
+    planes (each rounded up to 4 floats), the block sums (3 × 32 float64),
+    the CTA's two slots and the cluster's sums (4 float64 each), the phase
+    timer, the DSMEM row table (rows + 2·HALO pointers) and the taps (2 ×
+    MAX_TAPS f32)."""
+    return (4 * PLANES * _cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 12)
+            + 8 * len(PHASES) + 8 * (rows + 2 * HALO) + 4 * 2 * MAX_TAPS)
+
+
+class AdmmTvPlan(PgmTvPlan):
+    """How a fused ADMM-TV launch runs: `route` "resident" (a cluster of
+    `clusters` CTAs per problem, bands of `rows` image rows, the last one
+    possibly shorter) or "global" (one CTA per problem, `rows` = H); `ctas`
+    CTAs in all, `smem` bytes of shared memory per CTA and `scratch` planes
+    of (B, H, W) in global memory. ``band_rows`` and ``locate`` are the
+    PGM-TV plan's."""
+
+
+def fitting_sizes(H, W, sms=SMS, smem_max=SMEM_MAX):
+    """The cluster sizes c ≤ 16 (and ≤ sms) whose bands of ⌈H/c⌉ rows fit
+    one CTA's shared memory with no band empty."""
+    return band_sizes(H, W, range(1, MAX_CLUSTER + 1), cluster_smem_bytes, sms, smem_max)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_admm_tv(B, H, W, kh, kw, resident, sms=SMS, smem_max=SMEM_MAX,
+                 clusters=None) -> AdmmTvPlan:
+    """The route of a fused ADMM-TV launch of B problems of H × W with kh ×
+    kw taps, on a card of `sms` SMs and `smem_max` bytes of shared memory
+    per block that holds n clusters of c CTAs of the resident kernel at
+    once for each pair (c, n) of `resident`
+    (``cudaOccupancyMaxActiveClusters``; a size not named is held 0 times).
+
+    The rule (``fewest_waves``, as for the PDHG and FISTA-L1-DFT kernels):
+    among the sizes of :func:`fitting_sizes` that the card holds, the
+    smallest and each larger one that leaves every CTA at least
+    ``MIN_CTA_PIXELS`` pixels, the one with the fewest waves × rows per
+    band, ⌈B / held(c)⌉ · ⌈H/c⌉; ties go to the smaller c. `clusters`
+    forces a fitting size instead (the timing mode and the tests compare
+    sizes with it). An image whose bands fit at no c (a row wider than
+    ~11,500 pixels) takes the global route. Raises ValueError naming the
+    shape where it is empty, its taps too many, a forced size unfit, or no
+    route exists (2³¹ pixels or more per problem), and naming the plan
+    where the card holds no cluster of it (no fallback)."""
+    if min(B, H, W) < 1:
+        raise ValueError(f"admm_tv_fused: empty shape {B} x {H}x{W}")
+    if not (1 <= kh <= MAX_TAPS and 1 <= kw <= MAX_TAPS):
+        raise ValueError(f"admm_tv_fused: {kh} x {kw} taps; at most {MAX_TAPS} per axis")
+    fit = fitting_sizes(H, W, sms, smem_max)
+    if clusters is not None and clusters not in fit:
+        raise ValueError(f"admm_tv_fused: a cluster of {clusters} CTAs does not fit "
+                         f"{B} x {H}x{W} (the fitting sizes: {fit})")
+    if fit:
+        c = clusters or fewest_waves(B, H, W, fit, resident)
+        rows = _cdiv(H, c)
+        plan = AdmmTvPlan("resident", c, rows, H, B * c, cluster_smem_bytes(rows, W),
+                          RESIDENT_SCRATCH)
+        if dict(resident).get(c, 0) < 1:
+            raise ValueError(f"admm_tv_fused: the card holds no cluster of {plan} "
+                             f"({B} x {H}x{W})")
+        return plan
+    if H * W >= 2**31:
+        raise ValueError(
+            f"admm_tv_fused: no route for {B} x {H}x{W}: bands fit no cluster of at most "
+            f"{MAX_CLUSTER} CTAs with {smem_max} bytes of shared memory each, and one CTA "
+            "per problem indexes fewer than 2**31 pixels"
+        )
+    return AdmmTvPlan("global", 1, H, H, B, GLOBAL_SMEM, GLOBAL_SCRATCH)
+
+
+@functools.lru_cache(maxsize=None)
+def resident_limits(index, clusters, rows, W):
+    """(shared memory per CTA as the kernel counts it, clusters of the
+    resident kernel that device `index` holds at once:
+    ``cudaOccupancyMaxActiveClusters``)."""
+    from .. import _build
+
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(index):
+        _build.check(_build.load_library().admm_tv_cluster_occupancy(clusters, rows, W, out),
+                     "admm_tv_cluster_occupancy")
+    return out[0], out[1]
+
+
+def plan_on_card(x0hat, taps, clusters=None):
+    """(plan, clusters resident at once) of a launch on x0hat's card, with
+    `clusters` forced where given; the count is None on the global route.
+    Raises RuntimeError where the kernel counts other shared memory than
+    the planner, ValueError where the resident plan has no cluster the card
+    can hold."""
+    from .. import _build
+
+    B, H, W = x0hat.shape
+    index = x0hat.device.index or 0
+    limits = _build.device_limits(index)
+    held = {c: resident_limits(index, c, _cdiv(H, c), W) for c in fitting_sizes(H, W, *limits)}
+    plan = plan_admm_tv(B, H, W, *(len(t) for t in taps),
+                        tuple((c, n) for c, (_, n) in held.items()), *limits, clusters=clusters)
+    if plan.route == "global":
+        return plan, None
+    smem, active = held[plan.clusters]
+    if smem != plan.smem:
+        raise RuntimeError(f"admm_tv_fused: the kernel counts {smem} bytes of shared memory "
+                           f"for {plan}")
+    return plan, active
 
 
 def admm_tv_fused_torch(x0hat, scal, t2tab, taps, iterations, cg_iterations, tol_inner,
@@ -102,9 +243,12 @@ def kernel_args(x0hat_b, rho, lam, tv_iterations, dtype=np.float32):
     """(scal, t2tab) for the ADMM-TV kernels and their plain versions, in
     `dtype` on x0hat's device."""
     scal = problem_scalars(x0hat_b, rho, lam, dtype)
-    t2tab = torch.as_tensor(_fgp_common.fgp_t2_table(tv_iterations, dtype),
-                            device=x0hat_b.device)
+    t2tab = shared_table(_fgp_common.fgp_t2_table, tv_iterations, dtype, device=x0hat_b.device)
     return scal, t2tab
+
+
+def _taps_table(taps_h, taps_w):
+    return np.asarray(taps_h + taps_w, np.float32)
 
 
 def check_prox(prox):
@@ -112,41 +256,54 @@ def check_prox(prox):
         raise ValueError(f"unknown prox {prox!r}; the ADMM-TV kernels take {PROXES}")
 
 
-def _launch(x0hat, scal, t2tab, taps, iterations, cg_iterations, tol_inner, prox):
+def _launch(x0hat, scal, t2tab, taps, iterations, cg_iterations, tol_inner, prox,
+            clusters=None, prof=None):
     from .. import _build
 
     B, H, W = x0hat.shape
-    taps_h, taps_w = taps
+    taps_h, taps_w = (tuple(float(t) for t in v) for v in taps)
+    plan, _ = plan_on_card(x0hat, taps, clusters)
+    if prof is not None and plan.route != "resident":
+        raise ValueError(f"admm_tv_fused: the phase timer is on the resident route, not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
-    taps_t = torch.tensor(list(taps_h) + list(taps_w), dtype=torch.float32, device=dev)
+    taps_t = shared_table(_taps_table, taps_h, taps_w, device=dev)
     out = torch.empty_like(x0hat)
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
-    # z, u, r, p, q, two stencil temporaries, xg and the four FGP duals
-    scratch = torch.empty((12, B, H, W), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
+    args = (x0hat.data_ptr(), scal.data_ptr(), t2tab.data_ptr(), taps_t.data_ptr(),
+            len(taps_h), len(taps_w), out.data_ptr(), scratch.data_ptr(), counts.data_ptr())
+    sched = (B, H, W, iterations, cg_iterations, t2tab.shape[0], float(tol_inner),
+             int(prox == "positive"))
     with torch.cuda.device(dev):
-        code = lib.admm_tv_fused_launch(
-            x0hat.data_ptr(), scal.data_ptr(), t2tab.data_ptr(), taps_t.data_ptr(),
-            len(taps_h), len(taps_w), out.data_ptr(), scratch.data_ptr(), counts.data_ptr(),
-            B, H, W, iterations, cg_iterations, t2tab.shape[0], float(tol_inner),
-            int(prox == "positive"), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "admm_tv_fused_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.route == "resident":
+            code = lib.admm_tv_cluster_launch(
+                *args, None if prof is None else prof.data_ptr(), *sched, plan.clusters,
+                plan.rows, plan.smem, stream)
+        else:
+            code = lib.admm_tv_fused_launch(*args, *sched, stream)
+    _build.check(code, f"admm_tv_fused ({B} x {H}x{W}, {plan})")
     admm_tv_fused.launches += 1
+    admm_tv_fused.route_launches[plan.route] += 1
     return out, counts
 
 
 def admm_tv_fused(
     x0hat_b, taps, rho, lam, iterations: int, cg_iterations: int, tv_iterations: int,
-    tol_inner: float, prox="none", with_counts=False,
+    tol_inner: float, prox="none", with_counts=False, clusters=None,
 ):
-    """Batched ADMM-TV on a separable conv, one CTA per problem.
+    """Batched ADMM-TV on a separable conv in one launch, on the route of
+    :func:`plan_admm_tv` (a cluster of CTAs per problem with its planes in
+    shared memory, or one CTA per problem on global scratch).
 
     x0hat_b: (B, H, W) float32, Aᴴb per problem; taps: (taps_h, taps_w);
     rho, lam: scalars or (B,) (λ already normalization-scaled); prox
-    "none" | "positive" (the projection after the x-update). The plain
-    version runs for a CPU tensor, the CUDA kernel for a CUDA tensor.
-    ``admm_tv_fused.launches`` counts the kernel's launches. Returns x, or
+    "none" | "positive" (the projection after the x-update); `clusters`
+    forces the resident route's cluster size (timing and tests only). The
+    plain version runs for a CPU tensor, the CUDA kernel for a CUDA tensor.
+    ``admm_tv_fused.launches`` counts the kernel's launches, and
+    ``admm_tv_fused.route_launches`` the launches by route. Returns x, or
     ``(x, counts)`` with `with_counts`: the live CG steps per problem.
     """
     check_prox(prox)
@@ -156,11 +313,29 @@ def admm_tv_fused(
         out = admm_tv_fused_torch(x0hat_b, scal, t2tab, taps, *args)
     else:
         check_cuda_input("admm_tv_fused", x0hat_b, taps)
-        out = _launch(x0hat_b.contiguous(), scal, t2tab, taps, *args)
+        out = _launch(x0hat_b.contiguous(), scal, t2tab, taps, *args, clusters)
     return out if with_counts else out[0]
 
 
 admm_tv_fused.launches = 0
+admm_tv_fused.route_launches = {"resident": 0, "global": 0}
+
+
+def phase_clocks(x0hat_b, taps, rho, lam, iterations: int, cg_iterations: int,
+                 tv_iterations: int, tol_inner: float, prox="none", clusters=None):
+    """One launch of the resident kernel with its phase timer on: {phase:
+    SM clocks that CTA 0 spent in it over the whole solve} (``PHASES``; the
+    launch counts in ``admm_tv_fused.launches``). Raises on the global route
+    and for a CPU tensor."""
+    check_prox(prox)
+    if x0hat_b.device.type == "cpu":
+        raise ValueError("admm_tv_fused: the phase timer runs on the card")
+    check_cuda_input("admm_tv_fused", x0hat_b, taps)
+    scal, t2tab = kernel_args(x0hat_b, rho, lam, tv_iterations)
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
+    _launch(x0hat_b.contiguous(), scal, t2tab, taps, iterations, cg_iterations,
+            float(tol_inner), prox, clusters, prof)
+    return dict(zip(PHASES, prof.tolist()))
 
 
 def check_admm_tv(solver, path="fused"):

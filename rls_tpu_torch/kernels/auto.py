@@ -29,7 +29,10 @@ predates that route and is on the image, since the check sees the solver
 and not the batch: more than `FUSED_MAX_PIXELS` pixels go to the tiled
 kernel, which spreads each problem of the 512² and 1024² cells
 (``tools/bench_suite.py``, batches of 16 and 8) over its row tiles. The
-ADMM-TV rows follow the same rule (``check_admm_tv_fused`` applies it).
+ADMM-TV rows follow the same rule (``check_admm_tv_fused`` applies it);
+the fused ADMM-TV kernel's planner (``plan_admm_tv``) puts each problem
+of up to 256² on a cluster too, and at 256² × 16 it beats the tiled
+kernel (PERF.md §6).
 The PDHG row has no size rule: its kernel's planner (``plan_pdhg``) puts
 each problem on a cluster, or one CTA per problem where a row is too wide
 for any band.

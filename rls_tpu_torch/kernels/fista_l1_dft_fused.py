@@ -49,7 +49,7 @@ from ..models.prox import L1Regularization
 from ..models.solvers.fista import FISTA
 from ..ops.dft_real import SubsampledDFT2RealOperator
 from . import _dft_common
-from .fista_tv_fused import MIN_CTA_PIXELS, momentum_tensor, problem_scalars
+from .fista_tv_fused import fewest_waves, momentum_tensor, problem_scalars
 
 __all__ = [
     "fista_l1_dft_fused",
@@ -133,12 +133,9 @@ def plan_fista_l1_dft(B, H, W, resident, sms=SMS, smem_max=SMEM_MAX) -> DftPlan:
     fit = fitting_sizes(H, W, sms, smem_max)
     if not fit:
         return DftPlan("global", 1, H, W, H, W, B, 0)
-    held = dict(resident)
-    eligible = [c for c in fit if held.get(c, 0) >= 1
-                and (c == fit[0] or H // c * W >= MIN_CTA_PIXELS)]
-    c = min(eligible, key=lambda c: (-(-B // held[c]) * (H // c), c), default=fit[0])
+    c = fewest_waves(B, H, W, fit, resident)
     plan = DftPlan("resident", c, H // c, W // c, H, W, B * c, resident_smem_bytes(H, W, c))
-    if not eligible:
+    if dict(resident).get(c, 0) < 1:
         raise ValueError(f"fista_l1_dft_fused: the card holds no cluster of {plan} "
                          f"({B} x {H}x{W})")
     return plan

@@ -331,15 +331,37 @@ class PgmTvPlan:
         return rank, row - rank * self.rows
 
 
-def _fits(c, H, W, sms, smem_max):
-    rows = _cdiv(H, c)
-    return c <= sms and (c - 1) * rows < H and cluster_smem_bytes(rows, W) <= smem_max
+def band_sizes(H, W, sizes, smem_bytes, sms, smem_max):
+    """The cluster sizes c of `sizes` whose bands of ⌈H/c⌉ rows fit one
+    CTA's shared memory (``smem_bytes(rows, W)`` of `smem_max` bytes) with
+    no band empty and c ≤ sms: the banded kernels' (rows 2, 4, 11)."""
+    out = []
+    for c in sizes:
+        rows = _cdiv(H, c)
+        if c <= sms and (c - 1) * rows < H and smem_bytes(rows, W) <= smem_max:
+            out.append(c)
+    return tuple(out)
 
 
 def fitting_sizes(H, W, sms=SMS, smem_max=SMEM_MAX):
-    """The cluster sizes whose bands of ⌈H/c⌉ rows fit one CTA's shared
-    memory with no band empty and c ≤ sms."""
-    return tuple(c for c in CLUSTER_SIZES if _fits(c, H, W, sms, smem_max))
+    """The cluster sizes of ``CLUSTER_SIZES`` whose bands of ⌈H/c⌉ rows fit
+    one CTA's shared memory with no band empty and c ≤ sms."""
+    return band_sizes(H, W, CLUSTER_SIZES, cluster_smem_bytes, sms, smem_max)
+
+
+def fewest_waves(B, H, W, fit, resident):
+    """The cluster size of a batch of B problems of H × W among the fitting
+    sizes `fit` (ascending) that the card holds, n clusters of c at once
+    for each pair (c, n) of `resident`: of the smallest and each larger one
+    that leaves every CTA at least ``MIN_CTA_PIXELS`` pixels, the one with
+    the fewest waves × rows per band, ⌈B / held(c)⌉ · ⌈H/c⌉ (a wave's time
+    goes with the pixels of its CTAs); ties go to the smaller c. Where the
+    card holds none of them, fit[0], which the caller refuses (rows 4, 8,
+    11)."""
+    held = dict(resident)
+    eligible = [c for c in fit if held.get(c, 0) >= 1
+                and (c == fit[0] or _cdiv(H, c) * W >= MIN_CTA_PIXELS)]
+    return min(eligible, key=lambda c: (_cdiv(B, held[c]) * _cdiv(H, c), c), default=fit[0])
 
 
 @functools.lru_cache(maxsize=256)

@@ -54,7 +54,8 @@ from ..models.regularization import normalization_factor
 from ..models.solvers.pdhg import PDHG, W8, clip_conj
 from ..ops.conv_direct import SeparableConvOperator, stencil_pass
 from ..ops.grad import Grad8Operator
-from .fista_tv_fused import HALO, MAX_TAPS, MIN_CTA_PIXELS, _cdiv, check_cuda_input
+from .fista_tv_fused import (HALO, MAX_TAPS, MIN_CTA_PIXELS, _cdiv, band_sizes,  # noqa: F401
+                             check_cuda_input, fewest_waves)
 
 __all__ = [
     "pdhg_fused",
@@ -121,12 +122,8 @@ class PdhgPlan:
 def fitting_sizes(kind, H, W, sms=SMS, smem_max=SMEM_MAX):
     """The cluster sizes c ≤ 16 (and ≤ sms) whose bands of ⌈H/c⌉ rows fit
     one CTA's shared memory with no band empty."""
-    out = []
-    for c in range(1, min(MAX_CLUSTER, sms) + 1):
-        rows = _cdiv(H, c)
-        if (c - 1) * rows < H and cluster_smem_bytes(kind, rows, W) <= smem_max:
-            out.append(c)
-    return tuple(out)
+    return band_sizes(H, W, range(1, MAX_CLUSTER + 1),
+                      functools.partial(cluster_smem_bytes, kind), sms, smem_max)
 
 
 def _check_shape(B, H, W, kh, kw, kind):
@@ -158,13 +155,10 @@ def plan_pdhg(B, H, W, kh, kw, kind, resident, sms=SMS, smem_max=SMEM_MAX) -> Pd
     _check_shape(B, H, W, kh, kw, kind)
     fit = fitting_sizes(kind, H, W, sms, smem_max)
     if fit:
-        held = dict(resident)
-        eligible = [c for c in fit if held.get(c, 0) >= 1
-                    and (c == fit[0] or _cdiv(H, c) * W >= MIN_CTA_PIXELS)]
-        c = min(eligible, key=lambda c: (_cdiv(B, held[c]) * _cdiv(H, c), c), default=fit[0])
+        c = fewest_waves(B, H, W, fit, resident)
         rows = _cdiv(H, c)
         plan = PdhgPlan("resident", c, rows, H, B * c, cluster_smem_bytes(kind, rows, W))
-        if not eligible:
+        if dict(resident).get(c, 0) < 1:
             raise ValueError(f"pdhg_fused: the card holds no cluster of {plan} "
                              f"({B} x {H}x{W}, {kind})")
         return plan

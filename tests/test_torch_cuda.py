@@ -22,7 +22,9 @@ CSR row with a genuine column-0 entry), the PDHG kernel's resident route
 bit for bit, and the greedy kernel's drawn rows must equal its plain
 version's. A cluster kernel's resident route gives the same bits on
 every launch (20 repeats): a race between its CTAs would show as a
-launch that differs."""
+launch that differs. The fused ADMM-TV kernel's resident route, whose CG
+sums are double sums over its cluster in rank order, is held to 1e-5 of
+max|x| with equal live CG steps at each cluster size its planner picks."""
 
 import numpy as np
 import pytest
@@ -43,6 +45,8 @@ from rls_tpu_torch.kernels import splitbregman_fused as sb
 from rls_tpu_torch.kernels import pdhg_fused as pdhg
 from rls_tpu_torch.kernels import kaczmarz_streamed as kz
 from rls_tpu_torch.kernels import kaczmarz_greedy as greedy
+from test_torch_admm_plan import ADMM_ROUTES
+from test_torch_admm_plan import H100_RESIDENT as ADMM_RESIDENT
 
 pytestmark = pytest.mark.cuda
 
@@ -347,6 +351,123 @@ def test_admm_kernels_short_schedules(dev, iterations, cg):
                          with_counts=True, **kw)
         _close(got, want, 1e-5)
         assert counts.tolist() == want_counts.tolist()
+
+
+def _admm_launch(x0, taps, rho, lam, schedule, prox, tol, clusters=None):
+    """One fused ADMM-TV launch, checked by the route counter: (x, counts,
+    plan)."""
+    plan, active = admm_fused.plan_on_card(x0, taps, clusters)
+    assert plan.route == "global" or active >= 1
+    before = dict(admm_fused.admm_tv_fused.route_launches)
+    got, counts = admm_fused.admm_tv_fused(x0, taps, rho, lam, *schedule, tol, prox=prox,
+                                           with_counts=True, clusters=clusters)
+    before[plan.route] += 1
+    assert admm_fused.admm_tv_fused.route_launches == before
+    return got, counts, plan
+
+
+@pytest.mark.parametrize("case", ["none", "positive-freeze"])
+@pytest.mark.parametrize("shape", list(ADMM_ROUTES))
+def test_admm_fused_routes_match_plain(dev, shape, case):
+    """Each cluster size the planner picks (3 problems; the last band short)
+    and the global route: the plain version's x to 1e-5 of max|x| and its
+    live CG steps."""
+    prox, tol = ADMM_CASES[case]
+    x0, rho, lam = _admm_inputs(dev, shape)
+    got, counts, plan = _admm_launch(x0, TAPS, rho, lam, (6, 5, 4), prox, tol)
+    assert (plan.route, plan.clusters) == ADMM_ROUTES[shape]
+    want, want_counts = _admm_plain(x0, TAPS, rho, lam, 6, 5, 4, prox, tol)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("taps", ["taps", "taps63"])
+@pytest.mark.parametrize("clusters", [1, 6, 8, 16])
+def test_admm_forced_cluster_sizes_match_plain(dev, clusters, taps):
+    """Forced cluster sizes on 48 × 64 (bands of 48, 8, 6 and 3 rows); the
+    63-tap column blur reaches 10 bands past its own at c = 16."""
+    taps = TAPS63 if taps == "taps63" else TAPS
+    x0, rho, lam = _admm_inputs(dev, (48, 64))
+    got, counts, plan = _admm_launch(x0, taps, rho, lam, (6, 5, 4), "positive", 1e-5, clusters)
+    assert (plan.route, plan.clusters, plan.rows) == ("resident", clusters, -(-48 // clusters))
+    want, want_counts = _admm_plain(x0, taps, rho, lam, 6, 5, 4, "positive", 1e-5)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("prox", ["none", "positive"])
+@pytest.mark.parametrize("iterations,cg,tv", [(0, 3, 4), (3, 0, 4), (3, 1, 4), (3, 3, 0),
+                                              (2, 2, 1)])
+def test_admm_resident_edge_schedules_match_plain(dev, iterations, cg, tv, prox):
+    """The barrier table's edge schedules on 6 bands of 46 rows (the last
+    6): no outer iteration, 0 and 1 CG steps, no and one dual iteration,
+    and ρ = 0 for one problem."""
+    x0, rho, lam = _admm_inputs(dev, (46, 64))
+    got, counts, plan = _admm_launch(x0, TAPS, rho, lam, (iterations, cg, tv), prox, 1e-5, 6)
+    assert [plan.band_rows(q) for q in range(6)] == [8] * 5 + [6]
+    want, want_counts = _admm_plain(x0, TAPS, rho, lam, iterations, cg, tv, prox, 1e-5)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("batch,shape,clusters", [(16, (256, 256), 6), (3, (241, 256), 16)])
+def test_admm_resident_route_repeats_bit_for_bit(dev, batch, shape, clusters):
+    """20 launches of the resident route at BASELINE #3's schedule (12 × 6 ×
+    8, its cluster sums three times per CG step), at the cell's plan and on
+    16 bands with a one-row last band: each equal to the first, with equal
+    live CG steps."""
+    rng = np.random.default_rng(6)
+    x0 = torch.from_numpy(rng.normal(size=(batch, *shape)).astype(np.float32)).to(dev)
+    rho = torch.linspace(0.05, 0.4, batch, device=dev)
+    lam = torch.linspace(1e-3, 5e-2, batch, device=dev)
+    first, first_counts, plan = _admm_launch(x0, MILD, rho, lam, (12, 6, 8), "none", 1e-5)
+    assert (plan.route, plan.clusters) == ("resident", clusters)
+    for _ in range(20):
+        got, counts = admm_fused.admm_tv_fused(x0, MILD, rho, lam, 12, 6, 8, 1e-5,
+                                               with_counts=True)
+        assert torch.equal(got, first) and torch.equal(counts, first_counts)
+
+
+def test_admm_phase_clocks(dev):
+    """The resident kernel's phase timer: one launch, the same x as without
+    the timer, clocks in every phase; the global route has no timer and
+    raises."""
+    x0, rho, lam = _admm_inputs(dev, (91, 256))
+    want = admm_fused.admm_tv_fused(x0, TAPS, rho, lam, 6, 5, 4, 1e-5, prox="positive")
+    before = admm_fused.admm_tv_fused.launches
+    clocks = admm_fused.phase_clocks(x0, TAPS, rho, lam, 6, 5, 4, 1e-5, "positive")
+    assert admm_fused.admm_tv_fused.launches == before + 1
+    assert list(clocks) == list(admm_fused.PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert torch.equal(admm_fused.admm_tv_fused(x0, TAPS, rho, lam, 6, 5, 4, 1e-5,
+                                                prox="positive"), want)
+    with pytest.raises(ValueError, match="resident route"):
+        admm_fused.phase_clocks(_admm_inputs(dev, (2, 12000))[0], TAPS, rho, lam, 2, 2, 2, 1e-5)
+    with pytest.raises(ValueError, match="a cluster of 5 CTAs does not fit"):
+        admm_fused.admm_tv_fused(torch.zeros(16, 256, 256, device=dev), TAPS, 0.1, 0.1, 2, 2, 2,
+                                 1e-5, clusters=5)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (241, 256), (48, 64), (24, 20)])
+def test_cluster_counts_of_the_admm_planner_tests(dev, shape):
+    """On an H100 the card holds, for every fitting cluster size, the
+    clusters of the resident ADMM-TV kernel that
+    tests/test_torch_admm_plan.py plans with, and counts the planner's
+    shared memory."""
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    H, W = shape
+    held = dict(ADMM_RESIDENT)
+    fit = admm_fused.fitting_sizes(H, W, *limits)
+    assert fit
+    for c in fit:
+        rows = -(-H // c)
+        smem, got = admm_fused.resident_limits(dev.index, c, rows, W)
+        assert smem == admm_fused.cluster_smem_bytes(rows, W)
+        assert got == held[c], (c, shape)
 
 
 def _dense(dev, m=40, n=24, P=3, seed=8, cplx=False):
