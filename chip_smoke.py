@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: the thirteen CUDA sources are compiled from
      rls_tpu_torch/csrc (one nvcc per source, all at once);
   3. each kernel against its plain PyTorch version on the card, with both
-     times: the TV prox and the fused solve (FISTA, OptISTA, POGM) at the
+     times: the TV prox (its plan printed, on its resident route by the
+     route counter, and on its global route at TV_WIDE, rows too wide for
+     a band) and the fused solve (FISTA, OptISTA, POGM) at the
      flagship shapes (64 problems of 256², 50 × 10 iterations); the fused
      solve's dynamic and warm schedules (gradient restart, sigma_fac < 1,
      early exit, warm TV duals) at batch 8, with the per-problem restart
@@ -29,7 +31,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      256², 9×9 Gaussian, 50×10 iterations, ρ = 0.95, λ = 5e-4, batch 64,
      through solve_batched_fast (fused kernel, one launch, on the
      resident route by its route counter) and
-     solve_batched_unrolled (TV kernel, one launch per FISTA iteration),
+     solve_batched_unrolled (TV kernel, one launch per FISTA iteration,
+     each on its resident route by the route counter),
      held against the f64 reference solutions of bench_ref_f64.npz; the
      OptISTA and POGM flagship through solve_batched_fast, with the
      composed solve_batched_unrolled of each timed beside it;
@@ -198,6 +201,17 @@ time by torch.profiler; row 2 as a control; each plan, the kernel's clocks
 per phase, and sha256 digests of rows 2 and 5 and of row 4's global route
 (bit for bit between two trees where row 4's change leaves them).
 
+    python3 chip_smoke.py --time-tv-fgp [ROOT]
+
+does the same for the TV prox kernel (row 1): 64 × 256² (10 dual
+iterations), 16 × 256² (8), 16 × 512², 8 × 1024², 4 × 4 × 12000, 4 × 4 ×
+20000 on the global route and 1 × 256², 64 × 256² at forced cluster sizes
+5 and 16 and 16 × 256² at 6, each with its device time by torch.profiler;
+the composed flagship, ADMM cell and 512² solves that launch it, with
+their device times; each plan, and sha256 digests of every case and of
+rows 2 and 4 (bit for bit between two trees where row 1's change leaves
+them).
+
     python3 chip_smoke.py --time-library [ROOT]
 
 reads the library yardstick of rows 2, 3, 4, 5, 7a, 7b, 10, 11, 12a, 12b
@@ -243,6 +257,15 @@ ADMM512 = (512, 16, 5e-4, 10, 5, 10)
 # the fused ADMM-TV kernel's global route: 4 problems of 4 × 12000, rows
 # too wide for any band of its resident route (at most 11,524 pixels)
 ADMM_WIDE = (4, 4, 12000)
+# the TV prox kernel's global route: 4 problems of 4 × 20000, rows too wide
+# for any band of its resident route (three planes: at most 19,328 pixels)
+TV_WIDE = (4, 4, 20000)
+# the TV prox kernel's shapes in --time-tv-fgp: (B, H, W, dual iterations)
+# of the composed flagship (50 launches), the ADMM cell's composed solve
+# (12), the 512² composed solve (50) and the 1024² one, beside 4 × 4 ×
+# 12000 (one-row bands), the global route and one problem
+TV_SHAPES = ((64, 256, 256, 10), (16, 256, 256, 8), (16, 512, 512, 10), (8, 1024, 1024, 10),
+             (4, 4, 12000, 10), (*TV_WIDE, 10), (1, 256, 256, 10))
 # the dense cells: tools/bench_suite.py:79-102 (CGNR, 64×64, λ = 1e-6, 200
 # iterations = 64 steps, batch 16) and :204-225 (FISTA-L1 on 256×512, λ =
 # 1e-4, ρ = 0.95/‖A‖₂², 600 iterations, batch 16; its restart schedules,
@@ -718,8 +741,9 @@ def device_breakdown(name, fn):
 
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
-    `reset`, set them to 0 first (and the PGM-TV, ADMM-TV, SplitBregman,
-    PDHG, FISTA-L1-DFT and FISTA-L21-SENSE kernels' counts by route)."""
+    `reset`, set them to 0 first (and the TV prox, PGM-TV, ADMM-TV,
+    SplitBregman, PDHG, FISTA-L1-DFT and FISTA-L21-SENSE kernels' counts by
+    route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -735,9 +759,10 @@ def launch_counts(reset=False):
     if reset:
         for fn in fns:
             fn.launches = 0
-        for fn in (fista_tv_fused.fista_tv_fused, admm_tv_fused.admm_tv_fused,
-                   splitbregman_fused.splitbregman_l1_tv_fused, pdhg_fused.pdhg_fused,
-                   fista_l1_dft_fused.fista_l1_dft_fused, sense_fused.fista_l21_sense_fused):
+        for fn in (tv_fgp.prox_tv2d_fgp, fista_tv_fused.fista_tv_fused,
+                   admm_tv_fused.admm_tv_fused, splitbregman_fused.splitbregman_l1_tv_fused,
+                   pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused,
+                   sense_fused.fista_l21_sense_fused):
             fn.route_launches = {"resident": 0, "global": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
@@ -2159,21 +2184,37 @@ def main() -> int:
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
-    # 3a. the TV prox kernel against its plain version, flagship shapes
+    # 3a. the TV prox kernel against its plain version, flagship shapes (its
+    # resident route) and on its global route, each by the route counter
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(size=(BATCH, N, N)).astype(np.float32)).to(dev)
     lam = torch.from_numpy(
         (RHO * LAM * rng.uniform(0.0, 400.0, size=BATCH)).astype(np.float32)
     ).to(dev)
     lam[0] = 0.0
-    got = tv_fgp.prox_tv2d_fgp(x.reshape(BATCH, -1), lam, (N, N), TV_ITERS).reshape(x.shape)
-    want = tv_fgp.prox_tv2d_fgp_torch(x, lam, TV_ITERS)
-    torch.cuda.synchronize()
-    err_tv = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    print(f"tv_fgp: max|kernel - plain| = {err_tv:.3e} (max|x| {scale:.3f})")
-    require(torch.isfinite(got).all(), "tv_fgp kernel gave non-finite values")
-    require(err_tv <= TOL_TV * scale, f"tv_fgp kernel disagrees: {err_tv:.3e}")
+    x_wide = torch.from_numpy(
+        np.random.default_rng(12).normal(size=TV_WIDE).astype(np.float32)).to(dev)
+    for name, xt, route in ((f"{BATCH} x {N}²", x, "resident"),
+                            ("{} x {}x{}".format(*TV_WIDE), x_wide, "global")):
+        b = xt.shape[0]
+        plan, held = tv_fgp.plan_on_card(xt)
+        print(f"tv_fgp plan, {name}: {plan}; clusters resident at once: {held}")
+        tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "global": 0}
+        got = tv_fgp.prox_tv2d_fgp(xt.reshape(b, -1), lam[:b], xt.shape[1:],
+                                   TV_ITERS).reshape(xt.shape)
+        want = tv_fgp.prox_tv2d_fgp_torch(xt, lam[:b], TV_ITERS)
+        torch.cuda.synchronize()
+        require(tv_fgp.prox_tv2d_fgp.route_launches == {"resident": int(route == "resident"),
+                                                        "global": int(route == "global")},
+                f"tv_fgp at {name}: routes {tv_fgp.prox_tv2d_fgp.route_launches}, not {route}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"tv_fgp, {name} ({route} route): max|kernel - plain| = {err:.3e} "
+              f"(max|x| {scale:.3f})")
+        require(torch.isfinite(got).all(), f"tv_fgp kernel gave non-finite values at {name}")
+        require(err <= TOL_TV * scale, f"tv_fgp kernel disagrees at {name}: {err:.3e}")
+        if route == "resident":
+            err_tv = err  # the main path's shapes, for the kernel table
     plain_tv, ms_tv = alternate_ms(
         lambda: tv_fgp.prox_tv2d_fgp_torch(x, lam, TV_ITERS),
         lambda: tv_fgp.prox_tv2d_fgp(x.reshape(BATCH, -1), lam, (N, N), TV_ITERS),
@@ -2337,6 +2378,7 @@ def main() -> int:
     fused.fista_tv_fused.launches = 0
     fused.fista_tv_fused.route_launches = {"resident": 0, "global": 0}
     tv_fgp.prox_tv2d_fgp.launches = 0
+    tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "global": 0}
     tiled.fista_tv_tiled.launches = 0
     x_fast = rtt.solve_batched_fast(solver, B)
     torch.cuda.synchronize()
@@ -2350,6 +2392,8 @@ def main() -> int:
     print(f"launches: fista_tv_fused {launches_fused}, tv_fgp {launches_tv}")
     require(launches_fused == 1, "solve_batched_fast did not run the fused kernel once")
     require(launches_tv == ITERS, f"solve_batched_unrolled ran the TV kernel {launches_tv}×")
+    require(tv_fgp.prox_tv2d_fgp.route_launches == {"resident": ITERS, "global": 0},
+            f"the composed flagship's TV routes: {tv_fgp.prox_tv2d_fgp.route_launches}")
 
     blur_err = float(torch.linalg.norm(B.T - xs_true) / torch.linalg.norm(xs_true))
     for name, out in (("solve_batched_fast", x_fast), ("solve_batched_unrolled", x_comp)):
@@ -3073,6 +3117,80 @@ def time_admm(dev, out):
     out["sha256 of x: row 4 global route"] = digest(k4.admm_tv_fused(wide, taps, *sched))
 
 
+def time_tv_fgp(dev, out):
+    """``--time-tv-fgp [ROOT]``: the TV prox kernel (row 1) at TV_SHAPES
+    (the composed flagship's 64 × 256², the ADMM cell's 16 × 256² at 8 dual
+    iterations, 16 × 512², 8 × 1024², 4 × 4 × 12000, the global route at
+    TV_WIDE and one problem of 256²), 64 × 256² at forced cluster sizes 5
+    and 16 and 16 × 256² at 6 (where ROOT's kernel takes a forced size),
+    each with its CUDA-event time, its device time by torch.profiler and
+    its bound (``bound``, ``fgp_loop_ops``); then the composed solves that
+    launch it (the flagship, the ADMM cell and the 512² cell, row 3's
+    yardstick) with their device times. Each plan where ROOT's package has
+    a planner, and sha256 digests of each case, of rows 2 and 4 as
+    controls: a change of row 1's resident route leaves its global route
+    and rows 2 and 4 bit for bit."""
+    import inspect
+
+    import torch
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import admm_tv_fused as k4
+    from rls_tpu_torch.kernels import fista_tv_fused as k2
+    from rls_tpu_torch.kernels import tv_fgp as k1
+
+    out["kernel"] = os.path.relpath(k1.__file__, ROOT)
+    rng = np.random.default_rng(13)
+    forced = "clusters" in inspect.signature(k1.prox_tv2d_fgp).parameters
+    runs = []
+    for B, H, W, tv in TV_SHAPES:
+        x = torch.from_numpy(rng.normal(size=(B, H, W)).astype(np.float32)).to(dev)
+        lam = torch.from_numpy(rng.uniform(0.0, 0.2, size=B).astype(np.float32)).to(dev)
+        lam[0] = 0.0
+        runs.append((f"{B} x {H}x{W}, {tv} dual", x, lam, tv, None))
+        out[f"{B} x {H}x{W}, {tv} dual bound ms"] = bound(fgp_loop_ops(tv) * B * H * W,
+                                                          4 * (2 * B * H * W + B))
+        if forced and (B, H, W, tv) == (64, 256, 256, 10):
+            runs += [(f"{B} x {H}x{W}, {tv} dual, c = {c}", x, lam, tv, c) for c in (5, 16)]
+        if forced and (B, H, W, tv) == (16, 256, 256, 8):
+            runs.append((f"{B} x {H}x{W}, {tv} dual, c = 6", x, lam, tv, 6))
+    cases = []
+    for name, x, lam, tv, c in runs:
+        kw = {} if c is None else {"clusters": c}
+
+        def run(x=x, lam=lam, tv=tv, kw=kw):
+            return k1.prox_tv2d_fgp(x.reshape(x.shape[0], -1), lam, x.shape[1:], tv, **kw)
+
+        reps = 20 if x.numel() <= 2**22 else 5
+        cases.append((name, run, reps, plan_probe(k1, (x,) + (() if c is None else (c,)))))
+    time_cases(out, cases)
+    device_ms(out, cases)
+    for name, run, *_ in cases:
+        out[f"sha256 of out: {name}"] = digest(run())
+    # the composed solves that launch row 1, with their device times
+    draws = bench_suite_draws()
+    s2, B2, _ = build_flagship(dev)
+    s3 = build_solver(512, dev)
+    B3 = s3.A.mv(torch.from_numpy(np.ascontiguousarray(draws[512])).to(dev)).T.contiguous()
+    s4 = build_admm(ADMM256, dev)
+    B4 = s4.A.mv(torch.from_numpy(phantoms(batch=ADMM256[1])).to(dev)).T.contiguous()
+    solves = [("flagship composed solve_batched_unrolled",
+               lambda: rtt.solve_batched_unrolled(s2, B2), 1),
+              ("admm_tv_deblur256_b16 composed solve_batched_unrolled",
+               lambda: rtt.solve_batched_unrolled(s4, B4), 1),
+              ("fista_tv_512_tiled_b16 composed solve_batched_unrolled",
+               lambda: rtt.solve_batched_unrolled(s3, B3), 1)]
+    time_cases(out, solves)
+    device_ms(out, solves)
+    # rows 2 and 4 as controls
+    x2 = s2.A.rmv_stencil(B2.T).reshape(BATCH, N, N)
+    out["sha256 of x: row 2 flagship"] = digest(
+        k2.fista_tv_fused(x2, s2.A.taps_hw(), RHO, LAM, ITERS, TV_ITERS))
+    n, batch, lam4, iters, cg, tv4 = ADMM256
+    x4 = s4.A.rmv_stencil(B4.T).reshape(batch, n, n)
+    out["sha256 of x: row 4 cell"] = digest(
+        k4.admm_tv_fused(x4, s4.A.taps_hw(), ADMM_RHO, lam4, iters, cg, tv4, ADMM_TOL))
+
+
 def time_library(dev, out):
     """``--time-library [ROOT]``: the library yardstick of rows 2, 3, 4,
     5, 7a, 7b, 10, 11, 12a, 12b and 13 (PERF.md §6), the composed
@@ -3141,6 +3259,7 @@ TIME_MODES = {
     "--time-fista-l1-dft": time_fista_l1_dft,
     "--time-sense": time_sense,
     "--time-admm": time_admm,
+    "--time-tv-fgp": time_tv_fgp,
     "--time-library": time_library,
 }
 

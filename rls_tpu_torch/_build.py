@@ -47,6 +47,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # (x, lam, out, scratch, B, H, W, iterations, stream)
     "tv_fgp_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (clusters, rows, W, own_shared, out: int64[2] = shared memory per CTA,
+    #  clusters resident at once)
+    "tv_fgp_cluster_occupancy": (_I, _I, _I, _I, _P),
+    # (x, lam, out, scratch, B, H, W, iterations, clusters, rows, own_shared,
+    #  smem, stream)
+    "tv_fgp_cluster_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (out: int[2] = SM count, opt-in shared memory per block)
     "rls_device_limits": (_P,),
     # (x0hat, scal, tab, t2, taps, kh, kw, out, scratch, counts, B, H, W,

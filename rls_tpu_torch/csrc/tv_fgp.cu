@@ -1,10 +1,22 @@
 // Batched 2-D anisotropic TV prox by FGP (fast gradient projection on the
-// TV dual), one problem per CTA.
+// TV dual), on one of two routes that the host planner
+// (kernels/tv_fgp.py plan_tv_fgp) picks by shape:
+//
+// * resident: each problem runs on a thread-block cluster of c <= 16 CTAs
+//   of 1024 threads, CTA q owning the image rows [q R, (q + 1) R) (the
+//   last band may be shorter), with the planes read at another band's
+//   rows or at a neighbour's column in shared memory (the band design of
+//   the fused PGM-TV and ADMM-TV kernels: rls::Band, cluster_common.cuh,
+//   and its plane size, tv_band.cuh);
+// * global: one CTA per problem with the image, xtmp and the four dual
+//   planes in global scratch (the first design), for images whose bands
+//   fit no cluster (a row wider than ~19,300 pixels, or 1024^2).
 //
 // Replaces the TPU kernel rls_tpu/kernels/tv_pallas.py:_kernel (launched by
-// prox_tv2d_fgp_pallas, :69), which runs the fori FGP of
+// prox_tv2d_fgp_pallas, :69, pallas_call :54), which runs the fori FGP of
 // rls_tpu/kernels/_fgp_common.py:939-964 with the image and four dual
-// planes resident in VMEM. This kernel computes the same function in f32:
+// planes resident in VMEM. Both routes compute the same function in f32,
+// with the same operations in the same order:
 //   lam_safe = lam > 0 ? lam : 1,  inv8 = 1 / (8 lam_safe)
 //   xtmp = x - lam gt(r)
 //   q    = clip(r + g(xtmp) inv8, -1, 1) * mask
@@ -15,18 +27,63 @@
 // contracted; the plane arithmetic may be FMA-contracted by nvcc (about
 // 1 ulp per op against the plain PyTorch version).
 //
-// What bounds it on an H100: a 256^2 f32 plane is 256 KiB, more than the
-// 227 KB of shared memory a block may use, so the planes (xtmp and the
-// four duals) live in global scratch that the wrapper allocates, and each
-// FGP iteration is two block-wide sweeps (about 13 plane reads and writes
-// per pixel) separated by __syncthreads(). At batch 64 the live set
-// (~1.5 MiB per problem) exceeds the 50 MB L2, so the kernel is bound by
-// memory traffic and by the latency of one CTA per SM: 64 CTAs keep 64 of
-// the 132 SMs busy. Splitting a problem across CTAs with halo rows, and
-// keeping row tiles in shared memory, is later work.
+// What bounds it on an H100. Per pixel and dual iteration the FGP does 23
+// f32 operations, so its bound is the card's f32 rate (0.015 ms at 64 x
+// 256^2 with 10 dual iterations); what holds it above that is where the
+// planes live and the chain of dependent sweeps. On the global route a
+// 256^2 plane (256 KiB) exceeds a block's shared memory, each dual
+// iteration is two block-wide sweeps with about 13 plane reads and writes
+// per pixel in global memory, the live set of 64 problems exceeds the 50
+// MB L2, and only B of the 132 SMs hold a CTA. The resident route spreads
+// each problem over a cluster of neighbouring SMs that read each other's
+// shared memory (DSMEM), so that no plane leaves the chip:
+//   S0 xtmp   (read one row down and one column right: grad_v, grad_h)
+//   S1 rv     (read one row up: grad_t), and in the last dual iteration p
+//             itself in place of the momentum, which nothing reads again,
+//             so that the output reads pv one row up from shared memory
+//   S2 rh     (read one column left: grad_t)
+// and the planes read at their own pixel only, x, pv and ph, in shared
+// memory too (S3 pv, S4 ph, S5 the band of x) where the six planes fit a
+// CTA, else x from the input and pv, ph in two planes of global scratch,
+// read and written at their own pixel (coalesced). 64 x 256^2: 8 bands of
+// 32 rows, six planes, 197,360 B per CTA, 15 clusters at once (5 waves);
+// 16 x 512^2: 16 bands of 32 rows, three planes, 197,360 B, 7 at once.
+//
+// The resident route's schedule, with its cluster barriers
+// (barrier.cluster; __syncthreads() where c = 1; each also a CTA barrier):
+//   B0   after the set-up: S1, S2, pv, ph zero (and S5 = x) in every CTA
+//        of the cluster, every CTA running before any DSMEM read
+//   per dual iteration:
+//        the xtmp sweep: S0 = x - lam gt(S1, S2) (reads S1 one row up)
+//   Bx   xtmp whole
+//        the q sweep: q from S0 (one row down, one column right), S1 and
+//        S2 at the own pixel; S1 = r (or p in the last iteration), S2 = r,
+//        pv = ph = q at the own pixel
+//   Bq   r whole
+//   the output: out = x - lam gt(S1, ph) (reads S1 one row up)
+//   Be   no CTA leaves while a peer may still read its shared memory
+// What orders each read of another CTA's shared memory (RAW), and each
+// rewrite of a plane that a peer may still read (WAR):
+//   S1   written at the set-up (read by peers in the first xtmp sweep or
+//        the output: B0, RAW) and in each q sweep (read by peers in the
+//        next xtmp sweep or the output: Bq, RAW); a q sweep rewrites it
+//        after the peers' reads in the xtmp sweep before it: Bx (WAR); the
+//        CTA's exit follows the peers' reads in the output: Be (WAR)
+//   S0   written in each xtmp sweep, read by peers in the q sweep after Bx
+//        (RAW); rewritten in the next xtmp sweep after the peers' reads:
+//        Bq (WAR)
+//   S2, S3-S5, the global planes: own rows only; each cluster barrier is
+//        also a CTA barrier
+// With no dual iteration the output follows B0 and reads the zeros of S1
+// and ph. tests/test_torch_tv_fgp_plan.py runs this schedule band by band
+// on the physical planes and fails where any of these barriers is dropped.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "fgp_common.cuh"
+#include "tv_band.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -99,6 +156,138 @@ tv_fgp_kernel(const float* __restrict__ x, const float* __restrict__ lam,
     }
 }
 
+
+// ---- the resident route: one problem per cluster, planes in shared memory
+
+using rls::kHalo;
+constexpr int kMaxCluster = 16;
+// the shared-memory planes: S0-S2 always, S3-S5 where kOwnShared
+enum { kXtmp, kRv, kRh, kPv, kPh, kX };
+constexpr int kSharedPlanes = 3;
+constexpr int kAllPlanes = 6;
+
+// Shared memory of a CTA of the resident route, in this order; the Python
+// planner (kernels/tv_fgp.py cluster_smem_bytes) counts the same: three
+// planes of the band, or six where x, pv and ph live in shared memory too,
+// and the DSMEM row table (rows + 2 kHalo pointers).
+__host__ __device__ inline size_t cluster_smem_bytes(int rows, int W, bool own_shared) {
+    return sizeof(float) * (own_shared ? kAllPlanes : kSharedPlanes) *
+               rls::band_plane_floats(rows, W) +
+           sizeof(const float*) * (rows + 2 * kHalo);
+}
+
+struct ClusterArgs {
+    const float* x;    // (B, H, W)
+    const float* lam;  // (B,)
+    float* out;        // (B, H, W)
+    float* scratch;    // 2 planes of (B, H, W), pv and ph, where not kOwnShared
+    int B, H, W, iterations;
+    int clusters, rows;  // c CTAs per problem, R rows per band
+};
+
+using Band = rls::Band<false>;  // nvcc may contract, as on the global route
+using Sweep = rls::Sweep<kThreads>;
+
+template <bool kOwnShared>
+__global__ void __launch_bounds__(kThreads, 1) tv_fgp_cluster_kernel(const ClusterArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int H = a.H, W = a.W, R = a.rows, nc = a.clusters;
+    const size_t pf = rls::band_plane_floats(R, W);
+    float* s = reinterpret_cast<float*>(smem);
+    const float** rowp =
+        reinterpret_cast<const float**>(s + (kOwnShared ? kAllPlanes : kSharedPlanes) * pf);
+
+    cg::cluster_group cl = cg::this_cluster();
+    const int rank = static_cast<int>(cl.block_rank());
+    const int b = blockIdx.x / nc;
+    const int r0 = rank * R;
+    const Band bd{s, rowp, pf, r0, min(R, H - r0), H, W};
+    const int n = bd.rows * W;  // this CTA's pixels, local index i
+    const Sweep sweep(n, W);
+    auto sync_cluster = [&]() {
+        if (nc > 1)
+            cl.sync();
+        else
+            __syncthreads();
+    };
+    rls::fill_row_table(rowp, s, r0, R, H, W, cl);
+
+    // the band's pixels are contiguous in (B, H, W)
+    const size_t off = static_cast<size_t>(b) * H * W + static_cast<size_t>(r0) * W;
+    float* ob = a.out + off;
+    float* xtmp = bd.plane(kXtmp);
+    float* rv = bd.plane(kRv);
+    float* rh = bd.plane(kRh);
+    const float* xb;
+    float* pv;
+    float* ph;
+    if constexpr (kOwnShared) {
+        float* xs = bd.plane(kX);
+        pv = bd.plane(kPv);
+        ph = bd.plane(kPh);
+        sweep([&](int i, int, int) { xs[i] = a.x[off + i]; });
+        xb = xs;
+    } else {
+        xb = a.x + off;
+        pv = a.scratch + off;
+        ph = pv + static_cast<size_t>(a.B) * H * W;
+    }
+
+    const float lam_b = a.lam[b];
+    const float lam_safe = lam_b > 0.f ? lam_b : 1.f;
+    const float inv8 = __fdiv_rn(1.f, __fmul_rn(8.f, lam_safe));
+    sweep([&](int i, int, int) {
+        pv[i] = 0.f;
+        ph[i] = 0.f;
+        rv[i] = 0.f;
+        rh[i] = 0.f;
+    });
+    sync_cluster();  // B0
+
+    float t = 1.f;
+    for (int it = 0; it < a.iterations; ++it) {
+        sweep([&](int i, int lr, int c) {
+            xtmp[i] = xb[i] - lam_b * bd.grad_t(kRv, rh, i, lr, c);
+        });
+        sync_cluster();  // Bx
+
+        const float t_new = __fdiv_rn(
+            __fadd_rn(1.f, __fsqrt_rn(__fadd_rn(1.f, __fmul_rn(__fmul_rn(4.f, t), t)))),
+            2.f);
+        const float t2 = __fdiv_rn(__fsub_rn(t, 1.f), t_new);
+        const float c1 = __fadd_rn(1.f, t2);
+        // in the last iteration S1 takes p, which the output reads one row up
+        const bool last = it + 1 == a.iterations;
+        sweep([&](int i, int lr, int c) {
+            const float qv = r0 + lr < H - 1
+                ? rls::clip(rv[i] + (bd.below(kXtmp, i, lr, c) - xtmp[i]) * inv8, -1.f, 1.f)
+                : 0.f;
+            const float qh = c < W - 1
+                ? rls::clip(rh[i] + (xtmp[i + 1] - xtmp[i]) * inv8, -1.f, 1.f)
+                : 0.f;
+            rv[i] = last ? qv : c1 * qv - t2 * pv[i];
+            rh[i] = c1 * qh - t2 * ph[i];
+            pv[i] = qv;
+            ph[i] = qh;
+        });
+        sync_cluster();  // Bq
+        t = t_new;
+    }
+
+    sweep([&](int i, int lr, int c) { ob[i] = xb[i] - lam_b * bd.grad_t(kRv, ph, i, lr, c); });
+    sync_cluster();  // Be
+}
+
+template <bool kOwnShared>
+cudaError_t launch_cluster(const ClusterArgs& args, int smem, cudaStream_t stream) {
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    cudaError_t e = rls::cluster_config(tv_fgp_cluster_kernel<kOwnShared>, args.B,
+                                        args.clusters, kThreads, smem, stream, &attr, &cfg);
+    if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, tv_fgp_cluster_kernel<kOwnShared>, args);
+    return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -110,6 +299,52 @@ int tv_fgp_launch(const void* x, const void* lam, void* out, void* scratch,
         static_cast<const float*>(x), static_cast<const float*>(lam),
         static_cast<float*>(out), static_cast<float*>(scratch), B, H, W,
         iterations);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The resident route's shared memory per CTA for bands of `rows` rows of
+// width W, with x, pv and ph in shared memory where `own_shared` (the
+// planner's check), and how many clusters of `clusters` CTAs the current
+// device can hold at once (cudaOccupancyMaxActiveClusters): out[0], out[1].
+int tv_fgp_cluster_occupancy(int clusters, int rows, int W, int own_shared, long long* out) {
+    if (clusters < 1 || clusters > kMaxCluster || rows < 1 || W < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = cluster_smem_bytes(rows, W, own_shared != 0);
+    out[0] = static_cast<long long>(smem);
+    out[1] = 0;
+    if (smem > 0x7fffffff) return 0;
+    out[1] = own_shared ? rls::max_active_clusters(tv_fgp_cluster_kernel<true>, clusters,
+                                                   kThreads, static_cast<int>(smem))
+                        : rls::max_active_clusters(tv_fgp_cluster_kernel<false>, clusters,
+                                                   kThreads, static_cast<int>(smem));
+    return 0;
+}
+
+// The resident route: as tv_fgp_launch, with the plan: `clusters` CTAs per
+// problem, bands of `rows` rows, x, pv and ph in shared memory where
+// `own_shared` (scratch unused), else scratch 2 planes of (B, H, W) for pv
+// and ph; `smem` bytes of shared memory per CTA. Returns
+// cudaErrorInvalidValue for a plan that does not cover H or whose smem
+// differs from cluster_smem_bytes, else the launch's error.
+int tv_fgp_cluster_launch(const void* x, const void* lam, void* out, void* scratch, int B,
+                          int H, int W, int iterations, int clusters, int rows,
+                          int own_shared, int smem, void* stream) {
+    const bool covers = B > 0 && W > 0 && rows > 0 && clusters >= 1 &&
+                        clusters <= kMaxCluster &&
+                        static_cast<long long>(clusters - 1) * rows < H &&
+                        static_cast<long long>(clusters) * rows >= H &&
+                        static_cast<long long>(B) * clusters < (1LL << 31) &&
+                        static_cast<long long>(rows) * W < (1LL << 31) &&
+                        (own_shared || scratch != nullptr);
+    if (!covers || static_cast<size_t>(smem) != cluster_smem_bytes(rows, W, own_shared != 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const ClusterArgs args{static_cast<const float*>(x), static_cast<const float*>(lam),
+                           static_cast<float*>(out), static_cast<float*>(scratch),
+                           B, H, W, iterations, clusters, rows};
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const cudaError_t e = own_shared ? launch_cluster<true>(args, smem, st)
+                                     : launch_cluster<false>(args, smem, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,7 +24,10 @@ version's. A cluster kernel's resident route gives the same bits on
 every launch (20 repeats): a race between its CTAs would show as a
 launch that differs. The fused ADMM-TV kernel's resident route, whose CG
 sums are double sums over its cluster in rank order, is held to 1e-5 of
-max|x| with equal live CG steps at each cluster size its planner picks."""
+max|x| with equal live CG steps at each cluster size its planner picks.
+The TV prox kernel's resident route is held to 1e-5 of max|x| at each
+cluster size and plane placement its planner picks, at forced sizes, and
+bit for bit over 20 launches."""
 
 import numpy as np
 import pytest
@@ -47,6 +50,8 @@ from rls_tpu_torch.kernels import kaczmarz_streamed as kz
 from rls_tpu_torch.kernels import kaczmarz_greedy as greedy
 from test_torch_admm_plan import ADMM_ROUTES
 from test_torch_admm_plan import H100_RESIDENT as ADMM_RESIDENT
+from test_torch_tv_fgp_plan import H100_RESIDENT as TV_RESIDENT
+from test_torch_tv_fgp_plan import TV_ROUTES
 
 pytestmark = pytest.mark.cuda
 
@@ -90,6 +95,99 @@ def test_tv_fgp_kernel_matches_plain(dev, shape, iterations):
     got = tv_fgp.prox_tv2d_fgp(x.reshape(3, -1), lam, shape, iterations).reshape(x.shape)
     assert tv_fgp.prox_tv2d_fgp.launches == before + 1
     _close(got, tv_fgp.prox_tv2d_fgp_torch(x, lam, iterations), 1e-5)
+
+
+def _tv_inputs(dev, shape, B=3, seed=7):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(B, *shape)).astype(np.float32)).to(dev)
+    lam = torch.linspace(0.0, 0.4, B, device=dev)  # λ = 0 for the first problem
+    return x, lam
+
+
+def _tv_launch(x, lam, iterations, clusters=None):
+    """One launch on the plan the card gives x (and a check that it holds a
+    cluster of it), counted once on that plan's route."""
+    plan, active = tv_fgp.plan_on_card(x, clusters)
+    assert plan.route == "global" or active >= 1
+    before = dict(tv_fgp.prox_tv2d_fgp.route_launches)
+    got = tv_fgp.prox_tv2d_fgp(x.reshape(x.shape[0], -1), lam, x.shape[1:], iterations,
+                               clusters=clusters).reshape(x.shape)
+    before[plan.route] += 1
+    assert tv_fgp.prox_tv2d_fgp.route_launches == before
+    return got, plan
+
+
+@pytest.mark.parametrize("iterations", [0, 1, 10])
+@pytest.mark.parametrize("shape", list(TV_ROUTES))
+def test_tv_fgp_routes_match_plain(dev, shape, iterations):
+    """Each cluster size the planner picks (3 problems; the last band short),
+    with x, pv and ph in shared or in global memory, and the global route,
+    each by the route counter: the plain version to 1e-5 of max|x|."""
+    x, lam = _tv_inputs(dev, shape)
+    got, plan = _tv_launch(x, lam, iterations)
+    assert (plan.route, plan.clusters, plan.own) == TV_ROUTES[shape]
+    _close(got, tv_fgp.prox_tv2d_fgp_torch(x, lam, iterations), 1e-5)
+
+
+@pytest.mark.parametrize("iterations", [0, 1, 10])
+@pytest.mark.parametrize("shape,clusters", [((47, 40), c) for c in (1, 2, 4, 8, 16)]
+                         + [((256, 256), c) for c in (4, 6, 8)])
+def test_tv_fgp_forced_cluster_sizes_match_plain(dev, shape, clusters, iterations):
+    """Forced cluster sizes on 47 × 40 (bands of 47, 24, 12, 6 and 3 rows,
+    the last one short) and on 256² (64 and 43 rows with x, pv and ph in
+    global memory, 32 rows with all six planes on chip)."""
+    x, lam = _tv_inputs(dev, shape)
+    got, plan = _tv_launch(x, lam, iterations, clusters)
+    assert (plan.route, plan.clusters, plan.rows) == ("resident", clusters,
+                                                      -(-shape[0] // clusters))
+    assert plan.own == ("global" if shape == (256, 256) and clusters < 7 else "shared")
+    _close(got, tv_fgp.prox_tv2d_fgp_torch(x, lam, iterations), 1e-5)
+
+
+@pytest.mark.parametrize("batch,shape,clusters,own", [(64, (256, 256), 8, "shared"),
+                                                      (16, (512, 512), 16, "global"),
+                                                      (3, (241, 256), 16, "shared")])
+def test_tv_fgp_resident_route_repeats_bit_for_bit(dev, batch, shape, clusters, own):
+    """20 launches of the resident route at 10 dual iterations, at the
+    flagship's plan, at 512² (x, pv and ph in global memory) and on 16
+    bands with a one-row last band: each equal to the first."""
+    x, lam = _tv_inputs(dev, shape, batch, seed=6)
+    first, plan = _tv_launch(x, lam, 10)
+    assert (plan.route, plan.clusters, plan.own) == ("resident", clusters, own)
+    for _ in range(20):
+        got = tv_fgp.prox_tv2d_fgp(x.reshape(batch, -1), lam, shape, 10).reshape(x.shape)
+        assert torch.equal(got, first)
+
+
+def test_tv_fgp_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, lam = _tv_inputs(dev, (256, 256))
+    with pytest.raises(ValueError, match="a cluster of 3 CTAs does not fit"):
+        tv_fgp.prox_tv2d_fgp(x.reshape(3, -1), lam, (256, 256), 10, clusters=3)
+    with pytest.raises(ValueError, match="takes float32"):
+        tv_fgp.prox_tv2d_fgp(x.double().reshape(3, -1), lam.double(), (256, 256), 10)
+
+
+@pytest.mark.parametrize("shape", [(256, 256), (512, 512), (241, 256), (47, 40), (4, 12000)])
+def test_cluster_counts_of_the_tv_fgp_planner_tests(dev, shape):
+    """On an H100 the card holds, for every fitting cluster size, the
+    clusters of the resident TV prox kernel (with the planes its band
+    holds) that tests/test_torch_tv_fgp_plan.py plans with, and counts the
+    planner's shared memory."""
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    H, W = shape
+    held = dict(TV_RESIDENT)
+    on_chip = tv_fgp.own_shared_sizes(H, W, *limits)
+    fit = tv_fgp.fitting_sizes(H, W, *limits)
+    assert fit
+    for c in fit:
+        rows = -(-H // c)
+        smem, got = tv_fgp.resident_limits(dev.index, c, rows, W, c in on_chip)
+        assert smem == tv_fgp.cluster_smem_bytes(rows, W, c in on_chip)
+        assert got == held[c], (c, shape)
 
 
 def _inputs(dev, shape, seed=4):
