@@ -9,9 +9,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: the thirteen CUDA sources are compiled from
      rls_tpu_torch/csrc (one nvcc per source, all at once);
   3. each kernel against its plain PyTorch version on the card, with both
-     times: the TV prox (its plan printed, on its resident route by the
-     route counter, and on its global route at TV_WIDE, rows too wide for
-     a band) and the fused solve (FISTA, OptISTA, POGM) at the
+     times: the TV prox at TV_CHECKS (each plan printed and required:
+     every shape the main path gives it on its resident route, with x, pv
+     and ph in shared and in global memory, by the route counter, and its
+     global route at TV_WIDE, rows too wide for a band) and the fused
+     solve (FISTA, OptISTA, POGM) at the
      flagship shapes (64 problems of 256², 50 × 10 iterations); the fused
      solve's dynamic and warm schedules (gradient restart, sigma_fac < 1,
      early exit, warm TV duals) at batch 8, with the per-problem restart
@@ -260,6 +262,13 @@ ADMM_WIDE = (4, 4, 12000)
 # the TV prox kernel's global route: 4 problems of 4 × 20000, rows too wide
 # for any band of its resident route (three planes: at most 19,328 pixels)
 TV_WIDE = (4, 4, 20000)
+# phase 3a's TV prox cases: (B, H, W, dual iterations) of the composed
+# flagship, the ADMM cell's composed solve, the 512² composed solves (row
+# 3's and row 5's yardsticks), one-row bands, and the global route; each
+# with its route and where its plan keeps x, pv and ph
+TV_CHECKS = ((64, 256, 256, 10, "resident", "shared"), (16, 256, 256, 8, "resident", "global"),
+             (16, 512, 512, 10, "resident", "global"), (4, 4, 12000, 10, "resident", "global"),
+             (*TV_WIDE, 10, "global", "global"))
 # the TV prox kernel's shapes in --time-tv-fgp: (B, H, W, dual iterations)
 # of the composed flagship (50 launches), the ADMM cell's composed solve
 # (12), the 512² composed solve (50) and the 1024² one, beside 4 × 4 ×
@@ -2184,25 +2193,29 @@ def main() -> int:
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
-    # 3a. the TV prox kernel against its plain version, flagship shapes (its
-    # resident route) and on its global route, each by the route counter
+    # 3a. the TV prox kernel against its plain version at TV_CHECKS: the
+    # shapes the main path gives it on its resident route and TV_WIDE on its
+    # global route, each plan and route by the route counter
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(size=(BATCH, N, N)).astype(np.float32)).to(dev)
     lam = torch.from_numpy(
         (RHO * LAM * rng.uniform(0.0, 400.0, size=BATCH)).astype(np.float32)
     ).to(dev)
     lam[0] = 0.0
-    x_wide = torch.from_numpy(
-        np.random.default_rng(12).normal(size=TV_WIDE).astype(np.float32)).to(dev)
-    for name, xt, route in ((f"{BATCH} x {N}²", x, "resident"),
-                            ("{} x {}x{}".format(*TV_WIDE), x_wide, "global")):
-        b = xt.shape[0]
+    err_tv = 0.0
+    for k, (B1, H1, W1, tv1, route, own) in enumerate(TV_CHECKS):
+        name = f"{B1} x {H1}x{W1}, {tv1} dual"
+        xt = x if (B1, H1, W1) == (BATCH, N, N) else torch.from_numpy(
+            np.random.default_rng(12 + k).normal(size=(B1, H1, W1)).astype(np.float32)).to(dev)
         plan, held = tv_fgp.plan_on_card(xt)
         print(f"tv_fgp plan, {name}: {plan}; clusters resident at once: {held}")
+        require((plan.route, plan.own) == (route, own),
+                f"tv_fgp at {name}: {plan}, not the {route} route with x, pv and ph in {own} "
+                "memory")
         tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "global": 0}
-        got = tv_fgp.prox_tv2d_fgp(xt.reshape(b, -1), lam[:b], xt.shape[1:],
-                                   TV_ITERS).reshape(xt.shape)
-        want = tv_fgp.prox_tv2d_fgp_torch(xt, lam[:b], TV_ITERS)
+        got = tv_fgp.prox_tv2d_fgp(xt.reshape(B1, -1), lam[:B1], (H1, W1),
+                                   tv1).reshape(xt.shape)
+        want = tv_fgp.prox_tv2d_fgp_torch(xt, lam[:B1], tv1)
         torch.cuda.synchronize()
         require(tv_fgp.prox_tv2d_fgp.route_launches == {"resident": int(route == "resident"),
                                                         "global": int(route == "global")},
@@ -2214,7 +2227,7 @@ def main() -> int:
         require(torch.isfinite(got).all(), f"tv_fgp kernel gave non-finite values at {name}")
         require(err <= TOL_TV * scale, f"tv_fgp kernel disagrees at {name}: {err:.3e}")
         if route == "resident":
-            err_tv = err  # the main path's shapes, for the kernel table
+            err_tv = max(err_tv, err)  # the main path's shapes, for the kernel table
     plain_tv, ms_tv = alternate_ms(
         lambda: tv_fgp.prox_tv2d_fgp_torch(x, lam, TV_ITERS),
         lambda: tv_fgp.prox_tv2d_fgp(x.reshape(BATCH, -1), lam, (N, N), TV_ITERS),
@@ -3117,54 +3130,83 @@ def time_admm(dev, out):
     out["sha256 of x: row 4 global route"] = digest(k4.admm_tv_fused(wide, taps, *sched))
 
 
+def forced_tv(k1, x, lam, tv, c, own):
+    """A TV prox launch of x (B, H, W) with its cluster size and the home of
+    x, pv and ph forced (the private ``_launch``)."""
+    return lambda: k1._launch(x, lam, tv, c, own)
+
+
+def forced_probe(k1, dev, key, c, own):
+    """The forced plan of ``forced_tv`` and the clusters the card holds."""
+    B, H, W, _ = key
+
+    def probe():
+        plan, held = k1._card_plan(dev.index or 0, B, H, W, c, own)
+        return {"plan": dict(vars(plan), resident_clusters=held)}
+
+    return probe
+
+
 def time_tv_fgp(dev, out):
     """``--time-tv-fgp [ROOT]``: the TV prox kernel (row 1) at TV_SHAPES
     (the composed flagship's 64 × 256², the ADMM cell's 16 × 256² at 8 dual
     iterations, 16 × 512², 8 × 1024², 4 × 4 × 12000, the global route at
-    TV_WIDE and one problem of 256²), 64 × 256² at forced cluster sizes 5
-    and 16 and 16 × 256² at 6 (where ROOT's kernel takes a forced size),
-    each with its CUDA-event time, its device time by torch.profiler and
-    its bound (``bound``, ``fgp_loop_ops``); then the composed solves that
-    launch it (the flagship, the ADMM cell and the 512² cell, row 3's
-    yardstick) with their device times. Each plan where ROOT's package has
-    a planner, and sha256 digests of each case, of rows 2 and 4 as
-    controls: a change of row 1's resident route leaves its global route
-    and rows 2 and 4 bit for bit."""
-    import inspect
-
+    TV_WIDE and one problem of 256²), each with its CUDA-event time, its
+    device time by torch.profiler and its bound (``bound``,
+    ``fgp_loop_ops``). Where ROOT's kernel takes a forced plan (the
+    private ``_launch``), every fitting cluster size at 64 × 256², 16 ×
+    256² and 16 × 512² with x, pv and ph in shared memory where they fit
+    and in global memory, and at 64 × 256² the planner's c with the two
+    placements in turns. Then the composed solves that launch it (the
+    flagship, the ADMM cell and the 512² cell, row 3's yardstick) with
+    their device times. Each plan where ROOT's package has a planner, and
+    sha256 digests of each case, of rows 2 and 4 as controls: a change of
+    row 1's resident route leaves its global route and rows 2 and 4 bit
+    for bit."""
     import torch
     import rls_tpu_torch as rtt
+    from rls_tpu_torch import _build
     from rls_tpu_torch.kernels import admm_tv_fused as k4
     from rls_tpu_torch.kernels import fista_tv_fused as k2
     from rls_tpu_torch.kernels import tv_fgp as k1
 
     out["kernel"] = os.path.relpath(k1.__file__, ROOT)
     rng = np.random.default_rng(13)
-    forced = "clusters" in inspect.signature(k1.prox_tv2d_fgp).parameters
-    runs = []
+    forced = hasattr(k1, "_card_plan")
+    inputs, cases, sweep = {}, [], []
     for B, H, W, tv in TV_SHAPES:
         x = torch.from_numpy(rng.normal(size=(B, H, W)).astype(np.float32)).to(dev)
         lam = torch.from_numpy(rng.uniform(0.0, 0.2, size=B).astype(np.float32)).to(dev)
         lam[0] = 0.0
-        runs.append((f"{B} x {H}x{W}, {tv} dual", x, lam, tv, None))
+        inputs[B, H, W, tv] = x, lam
         out[f"{B} x {H}x{W}, {tv} dual bound ms"] = bound(fgp_loop_ops(tv) * B * H * W,
                                                           4 * (2 * B * H * W + B))
-        if forced and (B, H, W, tv) == (64, 256, 256, 10):
-            runs += [(f"{B} x {H}x{W}, {tv} dual, c = {c}", x, lam, tv, c) for c in (5, 16)]
-        if forced and (B, H, W, tv) == (16, 256, 256, 8):
-            runs.append((f"{B} x {H}x{W}, {tv} dual, c = 6", x, lam, tv, 6))
-    cases = []
-    for name, x, lam, tv, c in runs:
-        kw = {} if c is None else {"clusters": c}
 
-        def run(x=x, lam=lam, tv=tv, kw=kw):
-            return k1.prox_tv2d_fgp(x.reshape(x.shape[0], -1), lam, x.shape[1:], tv, **kw)
+        def run(x=x, lam=lam, tv=tv):
+            return k1.prox_tv2d_fgp(x.reshape(x.shape[0], -1), lam, x.shape[1:], tv)
 
         reps = 20 if x.numel() <= 2**22 else 5
-        cases.append((name, run, reps, plan_probe(k1, (x,) + (() if c is None else (c,)))))
-    time_cases(out, cases)
-    device_ms(out, cases)
-    for name, run, *_ in cases:
+        cases.append((f"{B} x {H}x{W}, {tv} dual", run, reps, plan_probe(k1, (x,))))
+    if forced:
+        limits = _build.device_limits(dev.index or 0)
+        for key in ((64, 256, 256, 10), (16, 256, 256, 8), (16, 512, 512, 10)):
+            (x, lam), (B, H, W, tv) = inputs[key], key
+            on_chip = k1.own_shared_sizes(H, W, *limits)
+            for c in k1.fitting_sizes(H, W, *limits):
+                for own in ("shared", "global") if c in on_chip else ("global",):
+                    sweep.append((f"{B} x {H}x{W}, {tv} dual, c = {c}, x pv ph {own}",
+                                  forced_tv(k1, x, lam, tv, c, own), 20,
+                                  forced_probe(k1, dev, key, c, own)))
+    time_cases(out, cases + sweep)
+    device_ms(out, cases + sweep)
+    if forced:
+        # the planner's c at 64 × 256² with the two placements, in turns
+        (x, lam), (B, H, W, tv) = inputs[64, 256, 256, 10], (64, 256, 256, 10)
+        c = k1.plan_on_card(x)[0].clusters
+        time_cases(out, [(f"in turns: {B} x {H}x{W}, {tv} dual, c = {c}, x pv ph {own}",
+                          forced_tv(k1, x, lam, tv, c, own), 20) for own in ("shared", "global")],
+                   in_turns=True)
+    for name, run, *_ in cases + sweep:
         out[f"sha256 of out: {name}"] = digest(run())
     # the composed solves that launch row 1, with their device times
     draws = bench_suite_draws()

@@ -51,10 +51,10 @@ from ..ops.base import IdentityOperator, NormalOperator
 from ..ops.conv_direct import SeparableConvOperator
 from .._build import SMEM_MAX, SMS
 from . import _fgp_common
+from ._bands import HALO, band_sizes, cdiv, fewest_waves
 from ._tables import shared_table
-from .fista_tv_fused import (GLOBAL_SMEM, HALO, MAX_TAPS, PgmTvPlan, _cdiv, band_sizes,
-                             check_cuda_input, check_fused_pixels, fewest_waves, prepare,
-                             problem_scalars)
+from .fista_tv_fused import (GLOBAL_SMEM, MAX_TAPS, PgmTvPlan, check_cuda_input,
+                             check_fused_pixels, prepare, problem_scalars)
 
 __all__ = [
     "admm_tv_fused",
@@ -87,7 +87,7 @@ def cluster_smem_bytes(rows, W):
     the CTA's two slots and the cluster's sums (4 float64 each), the phase
     timer, the DSMEM row table (rows + 2·HALO pointers) and the taps (2 ×
     MAX_TAPS f32)."""
-    return (4 * PLANES * _cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 12)
+    return (4 * PLANES * cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 12)
             + 8 * len(PHASES) + 8 * (rows + 2 * HALO) + 4 * 2 * MAX_TAPS)
 
 
@@ -136,7 +136,7 @@ def plan_admm_tv(B, H, W, kh, kw, resident, sms=SMS, smem_max=SMEM_MAX,
                          f"{B} x {H}x{W} (the fitting sizes: {fit})")
     if fit:
         c = clusters or fewest_waves(B, H, W, fit, resident)
-        rows = _cdiv(H, c)
+        rows = cdiv(H, c)
         plan = AdmmTvPlan("resident", c, rows, H, B * c, cluster_smem_bytes(rows, W),
                           RESIDENT_SCRATCH)
         if dict(resident).get(c, 0) < 1:
@@ -177,7 +177,7 @@ def plan_on_card(x0hat, taps, clusters=None):
     B, H, W = x0hat.shape
     index = x0hat.device.index or 0
     limits = _build.device_limits(index)
-    held = {c: resident_limits(index, c, _cdiv(H, c), W) for c in fitting_sizes(H, W, *limits)}
+    held = {c: resident_limits(index, c, cdiv(H, c), W) for c in fitting_sizes(H, W, *limits)}
     plan = plan_admm_tv(B, H, W, *(len(t) for t in taps),
                         tuple((c, n) for c, (_, n) in held.items()), *limits, clusters=clusters)
     if plan.route == "global":

@@ -49,7 +49,8 @@ from ..models.prox import L1Regularization
 from ..models.solvers.fista import FISTA
 from ..ops.dft_real import SubsampledDFT2RealOperator
 from . import _dft_common
-from .fista_tv_fused import fewest_waves, momentum_tensor, problem_scalars
+from ._bands import fewest_waves
+from .fista_tv_fused import momentum_tensor, problem_scalars
 
 __all__ = [
     "fista_l1_dft_fused",

@@ -60,6 +60,7 @@ from ..models.solvers.pogm import POGM
 from ..ops.base import NormalOperator
 from ..ops.conv_direct import SeparableConvOperator
 from . import _fgp_common
+from ._bands import HALO, MIN_CTA_PIXELS, BandPlan, band_sizes, cdiv
 from ._tables import shared_table
 
 __all__ = [
@@ -271,13 +272,10 @@ def _codes(method, restart, rel_tol, warm_tv):
 
 
 # the kernels' threads per CTA and the resident route's shared-memory
-# planes, and the farthest row a stencil tap reads (csrc/fista_tv_fused.cu)
-THREADS, PLANES, HALO = 1024, 6, MAX_TAPS // 2
+# planes (csrc/fista_tv_fused.cu); the farthest row a stencil tap reads is
+# the band code's HALO
+THREADS, PLANES = 1024, 6
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-# the fewest pixels per CTA to which the planner spreads a small batch:
-# four per thread and sweep. A guess, not measured: below it a sweep is
-# taken to be mostly its barrier
-MIN_CTA_PIXELS = 4 * THREADS
 # the phases of the resident route's timer (csrc/fista_tv_fused.cu kPhases)
 PHASES = ("set-up", "momentum", "gram", "fgp sweeps", "cluster barriers",
           "prox and carries", "sums")
@@ -289,10 +287,6 @@ RESIDENT_SCRATCH, GLOBAL_SCRATCH = 6, 12
 GLOBAL_SMEM = 4 * 2 * MAX_TAPS + 8 * 3 * (THREADS // 32)
 
 
-def _cdiv(a, b):
-    return -(-a // b)
-
-
 def cluster_smem_bytes(rows, W):
     """Shared memory of a resident CTA whose band has `rows` rows of width
     W, as ``cluster_smem_bytes`` in csrc/fista_tv_fused.cu counts it: six
@@ -300,68 +294,23 @@ def cluster_smem_bytes(rows, W):
     the CTA's and the cluster's sums (4 float64 each), the phase timer,
     the DSMEM row table (rows + 2·HALO pointers) and the taps (2 ×
     MAX_TAPS f32)."""
-    return (4 * PLANES * _cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 8)
+    return (4 * PLANES * cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 8)
             + 8 * len(PHASES) + 8 * (rows + 2 * HALO) + 4 * 2 * MAX_TAPS)
 
 
 @dataclasses.dataclass(frozen=True)
-class PgmTvPlan:
-    """How a fused PGM-TV launch runs: `route` "resident" (a cluster of
-    `clusters` CTAs per problem, bands of `rows` image rows, the last one
-    possibly shorter) or "global" (one CTA per problem, `rows` = H);
-    `ctas` CTAs in all, `smem` bytes of shared memory per CTA and
-    `scratch` planes of (B, H, W) in global memory."""
+class PgmTvPlan(BandPlan):
+    """How a fused PGM-TV launch runs: a ``BandPlan`` (route, cluster size,
+    rows per band, CTAs and shared memory per CTA) and `scratch` planes of
+    (B, H, W) in global memory."""
 
-    route: str
-    clusters: int
-    rows: int
-    H: int
-    ctas: int
-    smem: int
     scratch: int
-
-    def band_rows(self, rank):
-        """Image rows of CTA `rank`'s band."""
-        return min(self.rows, self.H - rank * self.rows)
-
-    def locate(self, row):
-        """(rank, local row) of image row `row`: the one map by which the
-        kernel finds a row of another band in distributed shared memory."""
-        rank = row // self.rows
-        return rank, row - rank * self.rows
-
-
-def band_sizes(H, W, sizes, smem_bytes, sms, smem_max):
-    """The cluster sizes c of `sizes` whose bands of ⌈H/c⌉ rows fit one
-    CTA's shared memory (``smem_bytes(rows, W)`` of `smem_max` bytes) with
-    no band empty and c ≤ sms: the banded kernels' (rows 2, 4, 11)."""
-    out = []
-    for c in sizes:
-        rows = _cdiv(H, c)
-        if c <= sms and (c - 1) * rows < H and smem_bytes(rows, W) <= smem_max:
-            out.append(c)
-    return tuple(out)
 
 
 def fitting_sizes(H, W, sms=SMS, smem_max=SMEM_MAX):
     """The cluster sizes of ``CLUSTER_SIZES`` whose bands of ⌈H/c⌉ rows fit
     one CTA's shared memory with no band empty and c ≤ sms."""
     return band_sizes(H, W, CLUSTER_SIZES, cluster_smem_bytes, sms, smem_max)
-
-
-def fewest_waves(B, H, W, fit, resident):
-    """The cluster size of a batch of B problems of H × W among the fitting
-    sizes `fit` (ascending) that the card holds, n clusters of c at once
-    for each pair (c, n) of `resident`: of the smallest and each larger one
-    that leaves every CTA at least ``MIN_CTA_PIXELS`` pixels, the one with
-    the fewest waves × rows per band, ⌈B / held(c)⌉ · ⌈H/c⌉ (a wave's time
-    goes with the pixels of its CTAs); ties go to the smaller c. Where the
-    card holds none of them, fit[0], which the caller refuses (rows 4, 8,
-    11)."""
-    held = dict(resident)
-    eligible = [c for c in fit if held.get(c, 0) >= 1
-                and (c == fit[0] or _cdiv(H, c) * W >= MIN_CTA_PIXELS)]
-    return min(eligible, key=lambda c: (_cdiv(B, held[c]) * _cdiv(H, c), c), default=fit[0])
 
 
 @functools.lru_cache(maxsize=256)
@@ -392,10 +341,10 @@ def plan_pgm_tv(B, H, W, kh, kw, schedule, resident, sms=SMS,
         held = dict(resident)
         c = fit[0]
         for bigger in fit[1:]:
-            if B > held.get(bigger, 0) or _cdiv(H, bigger) * W < MIN_CTA_PIXELS:
+            if B > held.get(bigger, 0) or cdiv(H, bigger) * W < MIN_CTA_PIXELS:
                 break
             c = bigger
-        rows = _cdiv(H, c)
+        rows = cdiv(H, c)
         return PgmTvPlan("resident", c, rows, H, B * c, cluster_smem_bytes(rows, W),
                          RESIDENT_SCRATCH)
     if H * W >= 2**31:
@@ -434,7 +383,7 @@ def plan_on_card(x0hat, taps, method="fista", restart="none", rel_tol=None, warm
     schedule = (method, restart, rel_tol is not None, warm_tv)
     dynamic = restart != "none" or rel_tol is not None
     limits = _build.device_limits(index)
-    held = {c: resident_limits(index, c, _cdiv(H, c), W, method, dynamic)
+    held = {c: resident_limits(index, c, cdiv(H, c), W, method, dynamic)
             for c in fitting_sizes(H, W, *limits)}
     plan = plan_pgm_tv(B, H, W, *(len(t) for t in taps), schedule,
                        tuple((c, n) for c, (_, n) in held.items()), *limits)

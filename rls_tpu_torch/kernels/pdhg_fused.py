@@ -42,7 +42,6 @@ the planner's shared-memory count takes its place.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import numpy as np
@@ -54,8 +53,9 @@ from ..models.regularization import normalization_factor
 from ..models.solvers.pdhg import PDHG, W8, clip_conj
 from ..ops.conv_direct import SeparableConvOperator, stencil_pass
 from ..ops.grad import Grad8Operator
-from .fista_tv_fused import (HALO, MAX_TAPS, MIN_CTA_PIXELS, _cdiv, band_sizes,  # noqa: F401
-                             check_cuda_input, fewest_waves)
+from ._bands import (HALO, MIN_CTA_PIXELS, BandPlan, band_sizes, cdiv,  # noqa: F401
+                     fewest_waves)
+from .fista_tv_fused import MAX_TAPS, check_cuda_input
 
 __all__ = [
     "pdhg_fused",
@@ -89,34 +89,16 @@ def cluster_smem_bytes(kind, rows, W):
     and the dual planes (8, 2, 1), each rounded up to 4 floats, the phase
     timer (int64 each), the DSMEM row table (rows + 2·HALO pointers), the
     taps (2 × MAX_TAPS f32) and the 8 plane weights."""
-    return (4 * (3 + _PLANES[kind]) * _cdiv(rows * W, 4) * 4 + 8 * len(PHASES)
+    return (4 * (3 + _PLANES[kind]) * cdiv(rows * W, 4) * 4 + 8 * len(PHASES)
             + 8 * (rows + 2 * HALO) + 4 * (2 * MAX_TAPS + 8))
 
 
-@dataclasses.dataclass(frozen=True)
-class PdhgPlan:
+class PdhgPlan(BandPlan):
     """How a fused PDHG launch runs: `route` "resident" (a cluster of
     `clusters` CTAs per problem, bands of `rows` image rows, the last one
     possibly shorter, `smem` bytes of shared memory per CTA) or "global"
     (one CTA per problem, `rows` = H, its planes in global scratch, `smem`
     0 of dynamic shared memory); `ctas` CTAs in all."""
-
-    route: str
-    clusters: int
-    rows: int
-    H: int
-    ctas: int
-    smem: int
-
-    def band_rows(self, rank):
-        """Image rows of CTA `rank`'s band."""
-        return min(self.rows, self.H - rank * self.rows)
-
-    def locate(self, row):
-        """(rank, local row) of image row `row`: the one map by which the
-        kernel finds a row of another band in distributed shared memory."""
-        rank = row // self.rows
-        return rank, row - rank * self.rows
 
 
 def fitting_sizes(kind, H, W, sms=SMS, smem_max=SMEM_MAX):
@@ -156,7 +138,7 @@ def plan_pdhg(B, H, W, kh, kw, kind, resident, sms=SMS, smem_max=SMEM_MAX) -> Pd
     fit = fitting_sizes(kind, H, W, sms, smem_max)
     if fit:
         c = fewest_waves(B, H, W, fit, resident)
-        rows = _cdiv(H, c)
+        rows = cdiv(H, c)
         plan = PdhgPlan("resident", c, rows, H, B * c, cluster_smem_bytes(kind, rows, W))
         if dict(resident).get(c, 0) < 1:
             raise ValueError(f"pdhg_fused: the card holds no cluster of {plan} "
@@ -199,7 +181,7 @@ def plan_on_card(u_b, taps, kind="tv8"):
     _check_shape(B, H, W, kh, kw, kind)
     index = u_b.device.index or 0
     limits = _build.device_limits(index)
-    held = {c: resident_limits(index, kind, c, _cdiv(H, c), W)
+    held = {c: resident_limits(index, kind, c, cdiv(H, c), W)
             for c in fitting_sizes(kind, H, W, *limits)}
     plan = plan_pdhg(B, H, W, kh, kw, kind, tuple((c, n) for c, (_, n) in held.items()),
                      *limits)

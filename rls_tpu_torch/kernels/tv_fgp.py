@@ -14,9 +14,11 @@ shape (``csrc/tv_fgp.cu``):
   band of image rows per CTA, with xtmp and the dual momentum (rv, rh) in
   shared memory, other bands' rows read through distributed shared
   memory; x, pv and ph, read at their own pixel only, in shared memory
-  too where all six planes fit, else in global memory (64 × 256²: 8
-  bands of 32 rows, all six planes on chip; 16 × 512²: 16 bands of 32
-  rows, three);
+  too where the band fits all six planes, else in global memory. The
+  planner prices a wave of clusters by its band's pixels and a fixed
+  cost, both measured (64 × 256²: 8 bands of 32 rows, all six planes on
+  chip; 16 × 256²: 6 bands of 43 rows, three, in one wave; 16 × 512²: 16
+  bands of 32 rows, three);
 * global: one CTA per problem with its planes in global scratch, where no
   band fits (a row wider than ~19,300 pixels, or 1024²).
 """
@@ -31,7 +33,7 @@ import torch
 
 from .._build import SMEM_MAX, SMS
 from . import _fgp_common
-from .fista_tv_fused import HALO, PgmTvPlan, _cdiv, band_sizes, fewest_waves
+from ._bands import HALO, BandPlan, band_sizes, cdiv, fewest_waves
 
 __all__ = ["prox_tv2d_fgp", "prox_tv2d_fgp_torch", "plan_tv_fgp", "TvFgpPlan"]
 
@@ -46,6 +48,13 @@ OWN_SCRATCH, GLOBAL_SCRATCH = 2, 5
 # the planes by name, and the shared-memory plane that holds each on the
 # resident route (S0-S2 always; S3-S5 the own-pixel planes where they fit)
 PLANES = ("xtmp", "rv", "rh", "pv", "ph", "x")
+# the planner's cost of a wave of clusters, in the time of a band pixel
+# with all six planes on chip: a fixed WAVE_PIXELS (its barriers and
+# set-up), and GLOBAL_PIXEL for a band pixel whose x, pv and ph are in
+# global memory. Fitted to every cluster size and placement at 64 × 256²,
+# 16 × 256² and 16 × 512² on an H100 (chip_smoke.py --time-tv-fgp, PERF.md
+# §6): 2.0 µs a wave and 0.45 / 0.69 ns a pixel, per dual iteration
+WAVE_PIXELS, GLOBAL_PIXEL = 4400, 1.5
 
 
 def cluster_smem_bytes(rows, W, own_shared):
@@ -54,19 +63,17 @@ def cluster_smem_bytes(rows, W, own_shared):
     (six where x, pv and ph are in shared memory too), each rounded up to
     4 floats, and the DSMEM row table (rows + 2·HALO pointers)."""
     planes = ALL_PLANES if own_shared else SHARED_PLANES
-    return 4 * planes * _cdiv(rows * W, 4) * 4 + 8 * (rows + 2 * HALO)
+    return 4 * planes * cdiv(rows * W, 4) * 4 + 8 * (rows + 2 * HALO)
 
 
 @dataclasses.dataclass(frozen=True)
-class TvFgpPlan(PgmTvPlan):
-    """How a TV prox launch runs: `route` "resident" (a cluster of
-    `clusters` CTAs per problem, bands of `rows` image rows, the last one
-    possibly shorter) or "global" (one CTA per problem, `rows` = H); `ctas`
-    CTAs in all, `smem` bytes of shared memory per CTA, `scratch` planes of
-    (B, H, W) in global memory, and `own` where x, pv and ph live on the
-    resident route ("shared" or "global"). ``band_rows`` and ``locate`` are
-    the PGM-TV plan's."""
+class TvFgpPlan(BandPlan):
+    """How a TV prox launch runs: a ``BandPlan`` (route, cluster size, rows
+    per band, CTAs and shared memory per CTA), `scratch` planes of (B, H,
+    W) in global memory, and `own` where x, pv and ph live on the resident
+    route ("shared" or "global")."""
 
+    scratch: int
     own: str = "global"
 
     def places(self):
@@ -94,7 +101,7 @@ def own_shared_sizes(H, W, sms=SMS, smem_max=SMEM_MAX):
 
 
 def _resident_plan(B, H, W, c, own_shared):
-    rows = _cdiv(H, c)
+    rows = cdiv(H, c)
     return TvFgpPlan("resident", c, rows, H, B * c, cluster_smem_bytes(rows, W, own_shared),
                      0 if own_shared else OWN_SCRATCH, "shared" if own_shared else "global")
 
@@ -107,18 +114,17 @@ def plan_tv_fgp(B, H, W, resident, sms=SMS, smem_max=SMEM_MAX, clusters=None) ->
     of `resident` (``cudaOccupancyMaxActiveClusters`` of the kernel with
     the planes that c's band holds; a size not named is held 0 times).
 
-    The rule: where some size fits all six planes in shared memory, the
-    route keeps every plane on chip and takes, among those sizes,
-    ``fista_tv_fused.fewest_waves`` (the fewest waves × rows per band,
-    ``MIN_CTA_PIXELS``, ties to the smaller c); else the same among the
-    sizes that fit the three shared planes, with x, pv and ph in global
-    memory. `clusters` forces a size of :func:`fitting_sizes` instead
-    (the timing mode and the tests compare sizes with it); its own-pixel
-    planes are in shared memory where they fit. An image whose bands fit
-    at no c takes the global route. Raises ValueError naming the shape
-    where it is empty, a forced size unfit, or no route exists (2³¹ pixels
-    or more per problem), and naming the plan where the card holds no
-    cluster of it (no fallback)."""
+    The rule: each fitting size keeps x, pv and ph in shared memory where
+    its band fits all six planes, else in global memory; among the sizes,
+    ``fewest_waves`` takes the least waves × cost of a wave
+    (``MIN_CTA_PIXELS``, ties to the smaller c), a wave costing
+    WAVE_PIXELS plus its band's pixels, each GLOBAL_PIXEL where x, pv and
+    ph are in global memory. `clusters` forces a size of
+    :func:`fitting_sizes` instead (the timing mode and the tests compare
+    sizes with it). An image whose bands fit at no c takes the global
+    route. Raises ValueError naming the shape where it is empty, a forced
+    size unfit, or no route exists (2³¹ pixels or more per problem), and
+    naming the plan where the card holds no cluster of it (no fallback)."""
     if min(B, H, W) < 1:
         raise ValueError(f"prox_tv2d_fgp: empty shape {B} x {H}x{W}")
     fit = fitting_sizes(H, W, sms, smem_max)
@@ -127,7 +133,9 @@ def plan_tv_fgp(B, H, W, resident, sms=SMS, smem_max=SMEM_MAX, clusters=None) ->
         raise ValueError(f"prox_tv2d_fgp: a cluster of {clusters} CTAs does not fit "
                          f"{B} x {H}x{W} (the fitting sizes: {fit})")
     if fit:
-        c = clusters or fewest_waves(B, H, W, on_chip or fit, resident)
+        c = clusters or fewest_waves(
+            B, H, W, fit, resident,
+            lambda c: WAVE_PIXELS + cdiv(H, c) * W * (1 if c in on_chip else GLOBAL_PIXEL))
         plan = _resident_plan(B, H, W, c, c in on_chip)
         if dict(resident).get(c, 0) < 1:
             raise ValueError(f"prox_tv2d_fgp: the card holds no cluster of {plan} "
@@ -157,15 +165,21 @@ def resident_limits(index, clusters, rows, W, own_shared):
 
 
 @functools.lru_cache(maxsize=256)
-def _card_plan(index, B, H, W, clusters):
+def _card_plan(index, B, H, W, clusters=None, own=None):
+    """(plan, clusters resident at once) of a launch of B × H × W on device
+    `index`, with ``plan_tv_fgp``'s forced `clusters`; `own` = "global"
+    keeps x, pv and ph in global memory where they would fit in shared
+    memory (the timing mode's and the card tests' placement A/B)."""
     from .. import _build
 
     limits = _build.device_limits(index)
-    on_chip = own_shared_sizes(H, W, *limits)
-    held = {c: resident_limits(index, c, _cdiv(H, c), W, c in on_chip)
+    on_chip = () if own == "global" else own_shared_sizes(H, W, *limits)
+    held = {c: resident_limits(index, c, cdiv(H, c), W, c in on_chip)
             for c in fitting_sizes(H, W, *limits)}
     plan = plan_tv_fgp(B, H, W, tuple((c, n) for c, (_, n) in held.items()), *limits,
                        clusters=clusters)
+    if own == "global" and plan.route == "resident":
+        plan = _resident_plan(B, H, W, plan.clusters, False)
     if plan.route == "global":
         return plan, None
     smem, active = held[plan.clusters]
@@ -175,13 +189,12 @@ def _card_plan(index, B, H, W, clusters):
     return plan, active
 
 
-def plan_on_card(xb, clusters=None):
-    """(plan, clusters resident at once) of a launch on xb's card, (B, H, W),
-    with `clusters` forced where given; the count is None on the global
-    route. Raises RuntimeError where the kernel counts other shared memory
-    than the planner, ValueError where the resident plan has no cluster the
-    card can hold."""
-    return _card_plan(xb.device.index or 0, *xb.shape, clusters)
+def plan_on_card(xb):
+    """(plan, clusters resident at once) of a launch on xb's card, (B, H, W);
+    the count is None on the global route. Raises RuntimeError where the
+    kernel counts other shared memory than the planner, ValueError where
+    the resident plan has no cluster the card can hold."""
+    return _card_plan(xb.device.index or 0, *xb.shape)
 
 
 def _batch_lam(lam, x, B):
@@ -200,11 +213,14 @@ def prox_tv2d_fgp_torch(xb, lamb, iterations: int):
     return _fgp_common.fgp_loop(xb, lamb.view(-1, 1, 1), iterations)
 
 
-def _launch(xb, lamb, iterations: int, clusters=None):
+def _launch(xb, lamb, iterations: int, clusters=None, own=None):
+    """One launch on `xb` (B, H, W) float32 and `lamb` (B,), both contiguous
+    on a CUDA device, on the card's plan, or with ``_card_plan``'s forced
+    `clusters` and `own` (the timing mode and the card tests)."""
     from .. import _build
 
     B, H, W = xb.shape
-    plan, _ = plan_on_card(xb, clusters)
+    plan, _ = _card_plan(xb.device.index or 0, B, H, W, clusters, own)
     lib = _build.load_library()
     out = torch.empty_like(xb)
     # the kernel zeroes the duals itself; a plan with every plane in shared
@@ -226,14 +242,13 @@ def _launch(xb, lamb, iterations: int, clusters=None):
     return out
 
 
-def prox_tv2d_fgp(x, lam, im_shape, iterations: int, clusters=None):
+def prox_tv2d_fgp(x, lam, im_shape, iterations: int):
     """Batched fused 2-D TV prox, on the route of :func:`plan_tv_fgp`.
 
     x: (..., H*W) real array (leading axes = batch); lam: scalar or an
-    array broadcastable to the leading axes (per-problem λ); `clusters`
-    forces the resident route's cluster size (timing and tests only).
-    Returns x's shape. ``prox_tv2d_fgp.launches`` counts the CUDA kernel's
-    launches, and ``prox_tv2d_fgp.route_launches`` the launches by route.
+    array broadcastable to the leading axes (per-problem λ). Returns x's
+    shape. ``prox_tv2d_fgp.launches`` counts the CUDA kernel's launches,
+    and ``prox_tv2d_fgp.route_launches`` the launches by route.
     """
     H, W = im_shape
     xb = x.reshape(-1, H, W)
@@ -245,7 +260,7 @@ def prox_tv2d_fgp(x, lam, im_shape, iterations: int, clusters=None):
         raise ValueError(f"prox_tv2d_fgp: unsupported device {x.device}")
     if x.dtype != torch.float32:
         raise ValueError(f"prox_tv2d_fgp: the CUDA kernel takes float32, got {x.dtype}")
-    out = _launch(xb.contiguous(), lamb.contiguous(), iterations, clusters)
+    out = _launch(xb.contiguous(), lamb.contiguous(), iterations)
     return out.reshape(x.shape)
 
 

@@ -105,13 +105,20 @@ def _tv_inputs(dev, shape, B=3, seed=7):
 
 
 def _tv_launch(x, lam, iterations, clusters=None):
-    """One launch on the plan the card gives x (and a check that it holds a
-    cluster of it), counted once on that plan's route."""
-    plan, active = tv_fgp.plan_on_card(x, clusters)
+    """One launch on the plan the card gives x, or with its cluster size
+    forced through the private ``_launch`` (and a check that the card holds
+    a cluster of it), counted once on that plan's route."""
+    if clusters is None:
+        plan, active = tv_fgp.plan_on_card(x)
+    else:
+        plan, active = tv_fgp._card_plan(x.device.index or 0, *x.shape, clusters)
     assert plan.route == "global" or active >= 1
     before = dict(tv_fgp.prox_tv2d_fgp.route_launches)
-    got = tv_fgp.prox_tv2d_fgp(x.reshape(x.shape[0], -1), lam, x.shape[1:], iterations,
-                               clusters=clusters).reshape(x.shape)
+    if clusters is None:
+        got = tv_fgp.prox_tv2d_fgp(x.reshape(x.shape[0], -1), lam, x.shape[1:],
+                                   iterations).reshape(x.shape)
+    else:
+        got = tv_fgp._launch(x, lam, iterations, clusters)
     before[plan.route] += 1
     assert tv_fgp.prox_tv2d_fgp.route_launches == before
     return got, plan
@@ -144,6 +151,22 @@ def test_tv_fgp_forced_cluster_sizes_match_plain(dev, shape, clusters, iteration
     _close(got, tv_fgp.prox_tv2d_fgp_torch(x, lam, iterations), 1e-5)
 
 
+@pytest.mark.parametrize("iterations", [0, 1, 10])
+@pytest.mark.parametrize("shape,clusters", [((256, 256), 8), ((256, 256), 16), ((47, 40), 4)])
+def test_tv_fgp_placements_agree_bit_for_bit(dev, shape, clusters, iterations):
+    """x, pv and ph in global memory (forced) and in shared memory, at one
+    cluster size: the same operations in the same order, the same bits."""
+    x, lam = _tv_inputs(dev, shape)
+    on_chip, plan = _tv_launch(x, lam, iterations, clusters)
+    assert plan.own == "shared"
+    forced, held = tv_fgp._card_plan(dev.index or 0, *x.shape, clusters, "global")
+    assert (forced.clusters, forced.own, forced.scratch) == (clusters, "global", 2)
+    assert held >= 1
+    got = tv_fgp._launch(x, lam, iterations, clusters, "global")
+    torch.cuda.synchronize()
+    assert torch.equal(got, on_chip)
+
+
 @pytest.mark.parametrize("batch,shape,clusters,own", [(64, (256, 256), 8, "shared"),
                                                       (16, (512, 512), 16, "global"),
                                                       (3, (241, 256), 16, "shared")])
@@ -162,7 +185,7 @@ def test_tv_fgp_resident_route_repeats_bit_for_bit(dev, batch, shape, clusters, 
 def test_tv_fgp_wrapper_refuses_what_the_kernel_does_not_take(dev):
     x, lam = _tv_inputs(dev, (256, 256))
     with pytest.raises(ValueError, match="a cluster of 3 CTAs does not fit"):
-        tv_fgp.prox_tv2d_fgp(x.reshape(3, -1), lam, (256, 256), 10, clusters=3)
+        tv_fgp._launch(x, lam, 10, clusters=3)
     with pytest.raises(ValueError, match="takes float32"):
         tv_fgp.prox_tv2d_fgp(x.double().reshape(3, -1), lam.double(), (256, 256), 10)
 

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from rls_tpu_torch.kernels import tv_fgp
-from rls_tpu_torch.kernels.fista_tv_fused import MIN_CTA_PIXELS
+from rls_tpu_torch.kernels._bands import MIN_CTA_PIXELS
 
 CSRC = Path(tv_fgp.__file__).parents[1] / "csrc"
 SMS, SMEM = 132, 232_448
@@ -38,12 +38,13 @@ SMS, SMEM = 132, 232_448
 H100_RESIDENT = tuple(zip(range(1, 17), (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7,
                                          7)))
 # the main path's shapes and the global route's: (route, c, rows per band,
-# shared memory per CTA, where x, pv and ph live). 4 × 4 × 12000 fits one
-# row of three planes (144,504 bytes) in a cluster of 4; a row of 20,000
-# pixels fits no band
+# shared memory per CTA, where x, pv and ph live). At 64 × 256², 16 × 256²
+# and 16 × 512² these are the fastest of every size and placement measured
+# on an H100 (PERF.md §6). 4 × 4 × 12000 fits one row of three planes
+# (144,504 bytes) in a cluster of 4; a row of 20,000 pixels fits no band
 MAIN_SHAPES = {
     (64, 256, 256): ("resident", 8, 32, 197_360, "shared"),
-    (16, 256, 256): ("resident", 16, 16, 98_928, "shared"),
+    (16, 256, 256): ("resident", 6, 43, 132_936, "global"),
     (16, 512, 512): ("resident", 16, 32, 197_360, "global"),
     (8, 1024, 1024): ("global", 1, 1024, 0, "global"),
     (4, 4, 12000): ("resident", 4, 1, 144_504, "global"),
@@ -95,8 +96,10 @@ def test_the_main_path_shapes_take_their_routes(shape):
 
 
 def test_the_flagship_keeps_every_plane_on_chip():
-    """64 × 256²: six planes of 32 rows fit (c = 7 … 16); 8 and 16 bands
-    tie at 5 × 32 and 10 × 16 waves × rows, and the smaller cluster goes."""
+    """64 × 256²: six planes of 32 rows fit (c = 7 … 16). c = 8 (5 waves of
+    4,400 + 8,192) costs less than c = 16 (10 waves of 4,400 + 4,096) and
+    c = 5 (3 waves of 4,400 + 1.5 × 13,312, its x, pv, ph in global
+    memory)."""
     assert tv_fgp.own_shared_sizes(256, 256) == tuple(range(7, 17))
     assert tv_fgp.fitting_sizes(256, 256) == tuple(range(4, 17))
     plan = _plan(64, 256, 256)
@@ -121,9 +124,9 @@ def test_the_512_shape_keeps_its_own_pixel_planes_in_global_memory():
                                  (60, 1000), (1024, 1024), (4096, 16), (4, 12000),
                                  (4, 20000)])
 def test_every_resident_plan_covers_its_shape_and_fits(B, H, W):
-    """Where bands fit, the plan is resident, covers H and fits; among the
-    sizes that hold all six planes (or, where none does, the three shared
-    ones) it has the fewest waves × rows per band."""
+    """Where bands fit, the plan is resident, covers H and fits; x, pv and
+    ph are in shared memory where its band fits six planes; among the
+    fitting sizes it has the least waves × cost of a wave."""
     fit = tv_fgp.fitting_sizes(H, W)
     plan = _plan(B, H, W)
     if not fit:
@@ -133,14 +136,14 @@ def test_every_resident_plan_covers_its_shape_and_fits(B, H, W):
         return
     _covers(plan, B, H, W)
     on_chip = tv_fgp.own_shared_sizes(H, W)
-    pool = on_chip or fit
-    assert (plan.own == "shared") == bool(on_chip)
+    assert (plan.own == "shared") == (plan.clusters in on_chip)
     held = dict(H100_RESIDENT)
 
     def cost(c):
-        return -(-B // held[c]) * -(-H // c)
+        pixel = 1 if c in on_chip else tv_fgp.GLOBAL_PIXEL
+        return -(-B // held[c]) * (tv_fgp.WAVE_PIXELS + -(-H // c) * W * pixel)
 
-    allowed = [c for c in pool if c == pool[0] or -(-H // c) * W >= MIN_CTA_PIXELS]
+    allowed = [c for c in fit if c == fit[0] or -(-H // c) * W >= MIN_CTA_PIXELS]
     assert plan.clusters in allowed
     assert cost(plan.clusters) == min(cost(c) for c in allowed)
     assert all(c >= plan.clusters for c in allowed if cost(c) == cost(plan.clusters))
@@ -158,6 +161,37 @@ def test_a_forced_cluster_size(c, rows, smem, own):
     plan = _plan(64, 256, 256, clusters=c)
     _covers(plan, 64, 256, 256)
     assert (plan.clusters, plan.rows, plan.smem, plan.own) == (c, rows, smem, own)
+
+
+@pytest.mark.parametrize("c,rows,smem", [
+    # three planes of the band and rows + 62 row pointers
+    (8, 32, 3 * 32_768 + 8 * 94), (16, 16, 3 * 16_384 + 8 * 78), (5, 52, 3 * 53_248 + 8 * 114),
+])
+def test_a_forced_placement(c, rows, smem):
+    """The timing mode's and the card tests' placement A/B (``_card_plan``
+    with own = "global"): x, pv and ph in global memory at a size where six
+    planes would fit, or would not."""
+    plan = tv_fgp._resident_plan(64, 256, 256, c, False)
+    _covers(plan, 64, 256, 256)
+    assert (plan.clusters, plan.rows, plan.smem, plan.own) == (c, rows, smem, "global")
+    assert plan.places()["pv"] == "global"
+
+
+def test_the_wave_cost_orders_the_measured_plans():
+    """The planner's cost puts the sizes measured fastest on an H100 first
+    (PERF.md §6, every size and placement at these shapes): 64 × 256² c =
+    8 on chip before c = 7 on chip, c = 5 and c = 16; 16 × 256² (8 dual
+    iterations) c = 6 with x, pv, ph in global memory, one wave, before c =
+    8 and c = 16 on chip."""
+    held = dict(H100_RESIDENT)
+
+    def cost(B, c):
+        rows = -(-256 // c)
+        pixel = 1 if c in tv_fgp.own_shared_sizes(256, 256) else tv_fgp.GLOBAL_PIXEL
+        return -(-B // held[c]) * (tv_fgp.WAVE_PIXELS + rows * 256 * pixel)
+
+    assert cost(64, 8) < cost(64, 7) < cost(64, 5) < cost(64, 16)
+    assert cost(16, 6) < cost(16, 8) < cost(16, 16)
 
 
 @pytest.mark.parametrize("shape", list(TV_ROUTES))
@@ -259,8 +293,10 @@ def test_a_too_wide_row_takes_the_global_route(W, widest):
     (8, SMEM, "resident", 8, "shared"),
     (4, SMEM, "resident", 4, "global"),
     (2, SMEM, "global", 1, "global"),
-    # less shared memory: more bands, or none that fit
-    (SMS, 120_000, "resident", 16, "shared"),
+    # less shared memory: more bands, or none that fit; at 120,000 bytes
+    # c = 8 with x, pv, ph in global memory (4 waves) beats c = 16 with six
+    # planes (8 waves)
+    (SMS, 120_000, "resident", 8, "global"),
     (SMS, 60_000, "resident", 16, "global"),
     (SMS, 48 * 1024, "global", 1, "global"),
 ])
@@ -297,13 +333,16 @@ def test_a_plan_the_card_holds_no_cluster_of_raises():
 
 
 def test_the_wrapper_takes_the_plain_version_on_the_cpu():
-    """A CPU tensor runs the plain version whatever `clusters` says; the
-    launch counters do not move."""
+    """A CPU tensor runs the plain version; the launch counters do not
+    move. The public wrapper takes no forced plan: that is the private
+    ``_launch``'s, for the timing mode and the card tests."""
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(size=(3, 9 * 7)).astype(np.float32))
     lam = torch.tensor([0.1, 0.0, 0.3])
     before = (tv_fgp.prox_tv2d_fgp.launches, dict(tv_fgp.prox_tv2d_fgp.route_launches))
-    got = tv_fgp.prox_tv2d_fgp(x, lam, (9, 7), 5, clusters=16)
+    with pytest.raises(TypeError):
+        tv_fgp.prox_tv2d_fgp(x, lam, (9, 7), 5, clusters=16)
+    got = tv_fgp.prox_tv2d_fgp(x, lam, (9, 7), 5)
     want = tv_fgp.prox_tv2d_fgp_torch(x.reshape(3, 9, 7), lam, 5).reshape(3, -1)
     assert torch.equal(got, want)
     assert (tv_fgp.prox_tv2d_fgp.launches, tv_fgp.prox_tv2d_fgp.route_launches) == before
