@@ -19,9 +19,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      early exit, warm TV duals) at batch 8, with the per-problem restart
      and freeze counts of kernel and plain version side by side, each
      fused case's plan printed first (route, CTAs per problem, rows per
-     band, shared memory, clusters resident at once); the tiled
-     solve at 512² (batch 16, 50 × 10), once at 1024² (batch 8), and its
-     dynamic schedules at 512² (batch 4); the fused ADMM-TV solve at
+     band, shared memory, clusters resident at once); row 3 at 512²
+     (batch 16, 50 × 10) on its cluster route in one launch and at 1024²
+     (batch 8) on its row tiles in 50, each plan printed and its route
+     read from the route counter, and its dynamic schedules at 512²
+     (batch 4); the fused ADMM-TV solve at
      BASELINE configuration #3's shapes (16 distinct problems of 256², 12
      outer × 6 CG × 8 dual iterations; its plan printed first, on its
      resident route by the route counter) and on its global route (4
@@ -40,8 +42,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      composed solve_batched_unrolled of each timed beside it;
   5. the 512² cell of tools/bench_suite.py (fista_tv_512_tiled_b16: 9×9
      Gaussian σ = 2, ρ = 0.95, λ = 5e-4, 50 × 10, batch 16) through
-     solve_batched_fast, which must run the tiled kernel, held on two
-     columns against a float64 solve of the plain version on the card;
+     solve_batched_fast, which must run row 3 once on its cluster route
+     (the route counter), held on two columns against a float64 solve of
+     the plain version on the card;
   6. the two ADMM-TV cells of tools/bench_suite.py: admm_tv_deblur256_b16
      (ρ = 0.1, λ = 2e-3, 12 × 6 × 8) through solve_batched_fast (one fused
      launch, on the resident route by the route counter) and through
@@ -213,6 +216,17 @@ the composed flagship, ADMM cell and 512² solves that launch it, with
 their device times; each plan, and sha256 digests of every case and of
 rows 2 and 4 (bit for bit between two trees where row 1's change leaves
 them).
+
+    python3 chip_smoke.py --time-tiled [ROOT]
+
+does the same for row 3 (the cluster route and the row tiles): the
+fista_tv_512_tiled_b16 cell on its route, in turns with the row tiles
+(the parent's kernel), c = 15 in turns with c = 16, CTA 0's clocks by
+phase, the two placements at 16 × 256² in turns; the cell's composed
+solve; 8 × 1024² on the row tiles beside its composed solve; the
+dispatch's boundary at 16 × 384² (row 2, row 3 on its plan, on three
+planes and on the row tiles); each case's device time by torch.profiler,
+row 2 at the flagship as the control, and sha256 digests.
 
     python3 chip_smoke.py --time-library [ROOT]
 
@@ -750,9 +764,9 @@ def device_breakdown(name, fn):
 
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
-    `reset`, set them to 0 first (and the TV prox, PGM-TV, ADMM-TV,
-    SplitBregman, PDHG, FISTA-L1-DFT and FISTA-L21-SENSE kernels' counts by
-    route)."""
+    `reset`, set them to 0 first (and the TV prox, PGM-TV (rows 2 and 3),
+    ADMM-TV, SplitBregman, PDHG, FISTA-L1-DFT and FISTA-L21-SENSE kernels'
+    counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -773,6 +787,7 @@ def launch_counts(reset=False):
                    pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused,
                    sense_fused.fista_l21_sense_fused):
             fn.route_launches = {"resident": 0, "global": 0}
+        fista_tv_tiled.fista_tv_tiled.route_launches = {"cluster": 0, "tiles": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
 
@@ -2305,16 +2320,22 @@ def main() -> int:
               f"plain {plain_ms:.3f} ms, bound %.4f ms (%s)"
               % pgm_bound(x0_dyn, kernel(x0_dyn)[1], **kw))
 
-    # 3d. the tiled kernel against its plain version: 512² and 1024²
+    # 3d. row 3 against its plain version: 512² on its cluster route (one
+    # launch) and 1024² on its row tiles (one launch per iteration), each
+    # plan printed and its route read from the route counter
     draws = bench_suite_draws()
     img_admm, imgs512, imgs1024 = draws["admm"], draws[512], draws[1024]
     tiled_err, tiled_ms = {}, None
-    for n, imgs in ((512, imgs512), (1024, imgs1024)):
+    for n, imgs, route in ((512, imgs512, "cluster"), (1024, imgs1024, "tiles")):
         s_n = build_solver(n, dev)
         taps_n = s_n.A.taps_hw()
         b_n = s_n.A.mv(torch.from_numpy(imgs).to(dev))
         x0_n = s_n.A.rmv_stencil(b_n).reshape(-1, n, n)
         lam_n = torch.full((x0_n.shape[0],), LAM, device=dev)
+        plan, held = tiled.plan_on_card(x0_n, taps_n)
+        print(f"fista_tv_tiled plan, {x0_n.shape[0]} x {n}²: {plan}; clusters resident at "
+              f"once: {held}")
+        require(plan.route == route, f"fista_tv_tiled at {n}²: {plan}, not the {route} route")
 
         def kernel(x0, lam_n=lam_n, taps_n=taps_n, **kw):
             return tiled.fista_tv_tiled(x0, taps_n, RHO, lam_n[: x0.shape[0]], ITERS,
@@ -2326,8 +2347,13 @@ def main() -> int:
                                               ITERS, TV_ITERS)
             return tiled.fista_tv_tiled_torch(x0, scal, tab, t2, taps_n, **kw)
 
+        tiled.fista_tv_tiled.route_launches = {"cluster": 0, "tiles": 0}
         tiled_err[n] = hold_to_plain(f"fista_tv_tiled[{n}², batch {x0_n.shape[0]}]",
                                      kernel, plain, x0_n)
+        want = {"cluster": int(route == "cluster"), "tiles": ITERS * int(route == "tiles")}
+        require(tiled.fista_tv_tiled.route_launches == want,
+                f"fista_tv_tiled at {n}²: routes {tiled.fista_tv_tiled.route_launches}, "
+                f"not {want}")
         if n == 512:
             tiled_ms = alternate_ms(lambda: plain(x0_n), lambda: kernel(x0_n), reps=3)
             print(f"fista_tv_tiled[512²]: kernel {tiled_ms[1]:.3f} ms, "
@@ -2453,12 +2479,15 @@ def main() -> int:
     B5 = s5.A.mv(xs5).T.contiguous()
     fused.fista_tv_fused.launches = 0
     tiled.fista_tv_tiled.launches = 0
+    tiled.fista_tv_tiled.route_launches = {"cluster": 0, "tiles": 0}
     x5 = rtt.solve_batched_fast(s5, B5)
     torch.cuda.synchronize()
     launches_tiled = tiled.fista_tv_tiled.launches
-    print(f"launches (512²): fista_tv_tiled {launches_tiled}, "
-          f"fista_tv_fused {fused.fista_tv_fused.launches}")
-    require(launches_tiled == ITERS, f"the 512² cell ran the tiled kernel {launches_tiled}×")
+    print(f"launches (512²): fista_tv_tiled {launches_tiled} "
+          f"{tiled.fista_tv_tiled.route_launches}, fista_tv_fused {fused.fista_tv_fused.launches}")
+    require(tiled.fista_tv_tiled.route_launches == {"cluster": 1, "tiles": 0},
+            f"the 512² cell's row-3 routes: {tiled.fista_tv_tiled.route_launches}, not one "
+            "launch on the cluster route")
     require(fused.fista_tv_fused.launches == 0, "the 512² cell ran the fused kernel")
     require(tuple(x5.shape) == (n5 * n5, 16), f"512²: bad result {tuple(x5.shape)}")
     # two columns against a float64 solve of the plain version on the card
@@ -3233,6 +3262,113 @@ def time_tv_fgp(dev, out):
         k4.admm_tv_fused(x4, s4.A.taps_hw(), ADMM_RHO, lam4, iters, cg, tv4, ADMM_TOL))
 
 
+def time_tiled(dev, out):
+    """``--time-tiled [ROOT]``: row 3 at the fista_tv_512_tiled_b16 cell
+    (16 × 512², FISTA, 50 × 10, the 9 × 9 Gaussian) on the route its
+    planner takes, and, where ROOT's row 3 has the cluster route, in turns
+    with the row tiles (``tile_rows`` forced: the parent's kernel), c = 15
+    in turns with c = 16, the cluster route's clocks of CTA 0 by phase,
+    and at 16 × 256² the two placements (six planes and three, forced) in
+    turns with their clocks and digests; the cell's composed
+    solve_batched_unrolled; 8 × 1024² on the row tiles beside its composed
+    solve, once each; the boundary of the dispatch at 16 × 384²: row 2,
+    row 3 on its plan, on three planes and on the row tiles; each case's
+    device time by torch.profiler; row 2 at the flagship as the control,
+    with sha256 digests of row 2 and of row 3 on each route."""
+    import torch
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import fista_tv_fused as k2
+    from rls_tpu_torch.kernels import fista_tv_tiled as k3
+
+    out["kernel"] = os.path.relpath(k3.__file__, ROOT)
+    cluster = hasattr(k3, "plan_fista_tv_tiled")
+    draws = bench_suite_draws()
+
+    def problem(n, imgs):
+        s_n = build_solver(n, dev)
+        B_n = s_n.A.mv(torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)).T.contiguous()
+        x0 = s_n.A.rmv_stencil(B_n.T).reshape(-1, n, n).contiguous()
+        return s_n, B_n, x0, s_n.A.taps_hw()
+
+    s5, B5, x5, taps = problem(512, draws[512])
+    args5 = (x5, taps, RHO, LAM, ITERS, TV_ITERS)
+    tiles5 = k3.pick_tile_rows(512, 16, torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)
+    row3 = [("512² x 16 row 3 default route", lambda: k3.fista_tv_tiled(*args5), 3,
+             plan_probe(k3, (x5, taps)) if cluster else lambda: {})]
+    if cluster:
+        row3.append((f"512² x 16 row 3 tiles (tile_rows {tiles5})",
+                     lambda: k3.fista_tv_tiled(*args5, tile_rows=tiles5), 1))
+    time_cases(out, row3, in_turns=True)
+    cases = list(row3)
+    if cluster:
+        forced = [(f"512² x 16 row 3 cluster c = {c}", lambda c=c: k3._run(*args5, clusters=c),
+                   3) for c in (15, 16)]
+        time_cases(out, forced, in_turns=True)
+        out["512² x 16 row 3 clocks of CTA 0 by phase"] = k3.phase_clocks(*args5)
+        solver, B, _ = build_flagship(dev)
+        x16 = solver.A.rmv_stencil(B.T).reshape(BATCH, N, N)[:16].contiguous()
+        args16 = (x16, solver.A.taps_hw(), RHO, LAM, ITERS, TV_ITERS)
+        place = [(f"256² x 16 row 3 cluster c = 16, {own} planes",
+                  lambda o=o: k3._run(*args16, clusters=16, own=o), 5)
+                 for own, o in (("six", None), ("three", "global"))]
+        time_cases(out, place, in_turns=True)
+        for name, fn, *_ in place:
+            out[f"sha256 of x: {name}"] = digest(fn()[0])
+        for own, o in (("six", None), ("three", "global")):
+            out[f"256² x 16 c = 16, {own} planes, clocks of CTA 0 by phase"] = k3.phase_clocks(
+                *args16, clusters=16, own=o)
+        cases += forced + place
+    composed5 = [("512² x 16 composed solve_batched_unrolled",
+                  lambda: rtt.solve_batched_unrolled(s5, B5), 1)]
+    time_cases(out, composed5)
+    # 8 × 1024² on the row tiles beside its composed solve, once each
+    s10, B10, x10, taps10 = problem(1024, draws[1024])
+    big = [("1024² x 8 row 3", lambda: k3.fista_tv_tiled(x10, taps10, RHO, LAM, ITERS,
+                                                          TV_ITERS), 1),
+           ("1024² x 8 composed solve_batched_unrolled",
+            lambda: rtt.solve_batched_unrolled(s10, B10), 1)]
+    for name, fn, reps in big:
+        fn()
+        out[f"{name} ms"] = [cuda_ms(fn, reps)]
+        out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in device_kernels(fn))]
+    if cluster:
+        out["1024² x 8 row 3 plan"] = dict(vars(k3.plan_on_card(x10, taps10)[0]))
+    del s10, B10, x10
+    # the dispatch's boundary at 16 × 384²: row 2 and row 3's routes
+    s4, B4, x4, taps4 = problem(384, draws[512].reshape(16, 512, 512)[:, :384, :384]
+                                .reshape(16, -1))
+    args4 = (x4, taps4, RHO, LAM, ITERS, TV_ITERS)
+    tiles4 = k3.pick_tile_rows(384, 16, torch.cuda.get_device_properties(dev)
+                               .multi_processor_count)
+    edge = [("384² x 16 row 2", lambda: k2.fista_tv_fused(*args4), 3,
+             plan_probe(k2, (x4, taps4), *args4)),
+            ("384² x 16 row 3 tiles", lambda: k3.fista_tv_tiled(*args4, tile_rows=tiles4), 1)]
+    if cluster:
+        plan3 = k3._card_plan(dev.index or 0, *x4.shape, *(len(t) for t in taps4),
+                              ("fista", "none", False), None, None, "global")[0]
+        edge += [("384² x 16 row 3 default route", lambda: k3.fista_tv_tiled(*args4), 3,
+                  plan_probe(k3, (x4, taps4))),
+                 (f"384² x 16 row 3 three planes, c = {plan3.clusters}",
+                  lambda: k3._run(*args4, clusters=plan3.clusters, own="global"), 3)]
+        out["384² x 16 row 3 three-plane plan"] = dict(vars(plan3))
+    time_cases(out, edge)
+    cases += composed5 + edge
+    device_ms(out, cases)
+    # row 2 at the flagship, the control
+    s2, B2, _ = build_flagship(dev)
+    x2 = s2.A.rmv_stencil(B2.T).reshape(BATCH, N, N)
+
+    def row2():
+        return k2.fista_tv_fused(x2, s2.A.taps_hw(), RHO, LAM, ITERS, TV_ITERS)
+
+    time_cases(out, [("row 2 fista_tv_fused, flagship", row2, 3)])
+    out["sha256 of x: row 2 flagship"] = digest(row2())
+    out["sha256 of x: 512² x 16 row 3 default route"] = digest(k3.fista_tv_tiled(*args5))
+    out["sha256 of x: 512² x 16 row 3 tiles"] = digest(
+        k3.fista_tv_tiled(*args5, tile_rows=tiles5))
+
+
 def time_library(dev, out):
     """``--time-library [ROOT]``: the library yardstick of rows 2, 3, 4,
     5, 7a, 7b, 10, 11, 12a, 12b and 13 (PERF.md §6), the composed
@@ -3302,6 +3438,7 @@ TIME_MODES = {
     "--time-sense": time_sense,
     "--time-admm": time_admm,
     "--time-tv-fgp": time_tv_fgp,
+    "--time-tiled": time_tiled,
     "--time-library": time_library,
 }
 

@@ -63,12 +63,18 @@ _SIGNATURES = {
         _I, _I, _I, _I, _F, _F, _P,
     ),
     # (clusters, rows, W, method, dynamic, out: int64[2] = shared memory
-    #  per CTA, clusters resident at once)
+    #  per CTA, clusters resident at once): six planes; the same for three
     "fista_tv_cluster_occupancy": (_I, _I, _I, _I, _I, _P),
+    "fista_tv_tiled_cluster_occupancy": (_I, _I, _I, _I, _I, _P),
     # (x0hat, scal, tab, t2, taps, kh, kw, out, scratch, counts, prof, B, H,
     #  W, iterations, tv_iterations, method, restart, early, warm, rel_tol,
-    #  sigma_fac, clusters, rows, smem, stream)
+    #  sigma_fac, clusters, rows, smem, stream): six planes; the same for
+    #  three
     "fista_tv_cluster_launch": (
+        _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _F, _F, _I, _I, _I, _P,
+    ),
+    "fista_tv_tiled_cluster_launch": (
         _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
         _I, _I, _I, _I, _F, _F, _I, _I, _I, _P,
     ),

@@ -346,8 +346,8 @@ __global__ void __launch_bounds__(kThreads, 1) admm_tv_cluster_kernel(const Clus
         // Bx: x whole in S0. The CG's start: beta, r = beta - (A^H A +
         // rho I) x, p = r, with ||beta||^2 and r.r (Ss)
         sync_cluster(kZu);
-        rls::band_gram_passes<kIn, kT1Rv, kT2Xg, kT3Rh>(bd, sweep, taps, a.kh, a.kw,
-                                                        sync_cluster, kGram);
+        rls::band_gram_passes<kIn, kT1Rv, kT2Xg>(bd, sweep, bd.plane(kT3Rh), taps, a.kh,
+                                                 a.kw, sync_cluster, kGram);
         acc[0] = acc[1] = acc[2] = 0.0;
         sweep([&](int i, int lr, int col) {
             const float beta = x0[i] + rho * (z[i] - u[i]);
@@ -364,8 +364,8 @@ __global__ void __launch_bounds__(kThreads, 1) admm_tv_cluster_kernel(const Clus
 
         for (int j = 0; j < a.cg_iterations; ++j) {
             // q = (A^H A + rho I) p and p.q (Sq)
-            rls::band_gram_passes<kIn, kT1Rv, kT2Xg, kT3Rh>(bd, sweep, taps, a.kh, a.kw,
-                                                            sync_cluster, kGram);
+            rls::band_gram_passes<kIn, kT1Rv, kT2Xg>(bd, sweep, bd.plane(kT3Rh), taps, a.kh,
+                                                     a.kw, sync_cluster, kGram);
             acc[0] = acc[1] = acc[2] = 0.0;
             sweep([&](int i, int lr, int col) {
                 const float pval = gin[i];
@@ -409,8 +409,9 @@ __global__ void __launch_bounds__(kThreads, 1) admm_tv_cluster_kernel(const Clus
             xg[i] = xv + u[i];
         }
         if (fgp) {
-            rls::band_fold_fgp<kT2Xg, kIn, kT1Rv, kT3Rh, kPv>(
-                bd, sweep, ph, lam_z, a.t2tab, a.tv_iterations, false, sync_cluster, kZu, kFgp);
+            rls::band_fold_fgp<kT2Xg, kIn, kT1Rv, false>(
+                bd, sweep, xg, bd.plane(kT3Rh), bd.plane(kPv), ph, lam_z, a.t2tab,
+                a.tv_iterations, false, sync_cluster, kZu, kFgp);
         } else {
             __syncthreads();
         }

@@ -102,19 +102,25 @@ struct Band {
                                   k == 0);
         return acc;
     }
-    // stencil_h of fgp_common.cuh on plane p at local pixel i = (lr, c)
-    __device__ float stencil_h(int p, int i, int lr, int c, const float* taps, int K,
+    // stencil_h of fgp_common.cuh on `v` (read in its own rows only: any
+    // plane laid out as the band, in shared or in global memory) at local
+    // pixel i = (lr, c)
+    __device__ float stencil_h(const float* v, int i, int lr, int c, const float* taps, int K,
                                bool adjoint) const {
         const int R = K / 2;
         if (c >= R && c + R < W) {
             const int step = adjoint ? -1 : 1;
-            const float* u = plane(p) + i - R * step;
+            const float* u = v + i - R * step;
             float acc = 0.f;
             for (int k = 0; k < K; ++k, u += step)
                 acc = tap_acc<kRound>(acc, taps[k], *u, k == 0);
             return acc;
         }
-        return rls::stencil_h<kRound>(plane(p), lr, c, taps, K, adjoint, W);
+        return rls::stencil_h<kRound>(v, lr, c, taps, K, adjoint, W);
+    }
+    __device__ float stencil_h(int p, int i, int lr, int c, const float* taps, int K,
+                               bool adjoint) const {
+        return stencil_h(plane(p), i, lr, c, taps, K, adjoint);
     }
     // grad_t of fgp_common.cuh on the duals in plane v and `h` (read in its
     // own rows only: any plane laid out as the band) at local pixel
@@ -161,6 +167,33 @@ struct Sweep {
         int lr = lr0, c = c0;
         for (int i = threadIdx.x; i < n; i += kThreads) {
             f(i, lr, c);
+            lr += dq;
+            c += dr;
+            if (c >= W) {
+                c -= W;
+                ++lr;
+            }
+        }
+    }
+    // The same with f(i, lr, c, v), v = load(i) issued one pixel ahead: a
+    // thread's next reads of global memory (an L2 round trip each, which
+    // the pixel's own work is too short to hide) are in flight while it
+    // works on the current pixel. load(j) must not read what f(i) writes
+    // for i < j: each pixel's own reads only.
+    template <class L, class F>
+    __device__ __forceinline__ void ahead(L load, F f) const {
+        int lr = lr0, c = c0;
+        int i = threadIdx.x;
+        if (i >= n) return;
+        auto v = load(i);
+        for (;;) {
+            const int j = i + kThreads;
+            const bool more = j < n;
+            const auto next = more ? load(j) : v;
+            f(i, lr, c, v);
+            if (!more) return;
+            v = next;
+            i = j;
             lr += dq;
             c += dr;
             if (c >= W) {

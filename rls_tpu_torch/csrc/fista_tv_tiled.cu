@@ -1,15 +1,27 @@
-// The row-tiled batched PGM-TV solve: one launch per iteration, one CTA
-// per (row tile, problem).
+// Row 3, the PGM-TV solve for images whose bands fit no cluster with six
+// planes in shared memory, on one of two routes that the host planner
+// (kernels/fista_tv_tiled.py plan_fista_tv_tiled) picks by shape:
+//
+// * cluster: the whole solve in one launch on the resident route of the
+//   PGM-TV kernels (pgm_tv_cluster.cuh), each problem on a thread-block
+//   cluster of c <= 16 CTAs with the three planes of its band that another
+//   band reads in shared memory and the rest in global memory (512^2 x 16:
+//   c = 16, 32-row bands, 198,752 B a CTA); its entry points are at the
+//   end of this file (with all six planes on chip, where they fit, the
+//   planner launches row 2's: fista_tv_fused.cu);
+// * tiles: the row-tiled solve below, one launch per iteration, one CTA
+//   per (row tile, problem), for images whose bands fit no cluster even
+//   with three planes (1024^2), and for a caller's forced tile_rows.
 //
 // Replaces the TPU kernel rls_tpu/kernels/fista_tv_tiled.py:fista_tv_tiled
-// (:704; pallas_calls :832, :870; bodies _kernel :63, _kernel_vmem :239,
-// _kernel_vmem_fori :382, _kernel_vmem_pgm :457): FISTA, OptISTA and POGM
-// on the f64 momentum table, FISTA and POGM with gradient restart and the
-// early-exit freeze. The JAX kernel tiles rows to get past the TPU's VMEM;
-// on an H100 tiling is what spreads one problem over many CTAs. The fused
-// kernel (fista_tv_fused.cu) runs a problem in one CTA, so a batch of 16
-// images of 512^2 would light 16 of 132 SMs; at 64-row tiles it is 128
-// CTAs here.
+// (:704; pallas_call :870, the halo-streamed "hbm" variant, body _kernel
+// :63): FISTA, OptISTA and POGM on the f64 momentum table, FISTA and POGM
+// with gradient restart and the early-exit freeze. The JAX kernel tiles
+// rows to get past the TPU's VMEM; on an H100 tiling spreads one problem
+// over many CTAs: at 1024^2 x 8 and 64-row tiles, 128 CTAs. The cluster
+// route replaces the JAX function's VMEM-carry variant (mode "vmem",
+// pallas_call :832), which keeps a problem's carries on chip for the whole
+// solve.
 //
 // CTA (t, b) computes one iteration (rls::pgm_iteration) on the window of
 // image rows [t TR - halo, (t + 1) TR + halo), clamped to the image, with
@@ -36,6 +48,7 @@
 // window in shared memory (TMA loads of the halo rows) is later work.
 #include <cuda_runtime.h>
 
+#include "pgm_tv_cluster.cuh"
 #include "pgm_tv_common.cuh"
 
 namespace {
@@ -184,6 +197,37 @@ int fista_tv_tiled_launch(const void* x0hat, const void* scal, const void* tab,
         static_cast<float*>(state), static_cast<int*>(counts), B, H, W, tile_rows, halo, T,
         it, sc);
     return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster route (three planes of a band in shared memory): its shared
+// memory per CTA for bands of `rows` rows of width W (the planner's check),
+// and how many clusters of `clusters` CTAs of the kernel for (method,
+// dynamic) can be resident at once on the current device
+// (cudaOccupancyMaxActiveClusters): out[0], out[1].
+int fista_tv_tiled_cluster_occupancy(int clusters, int rows, int W, int method, int dynamic,
+                                     long long* out) {
+    return rls::pgm_cluster::occupancy<false>(clusters, rows, W, method, dynamic, out);
+}
+
+// The cluster route: x0hat, scal, tab, t2tab, taps, counts as for
+// fista_tv_fused_launch; out (B, H, W); scratch 10 planes of (B, H, W)
+// (x_prev | y, z, w, res, y_new, x_mom, t3, xg, pv, ph); prof null or
+// kPhases int64 that receive CTA 0's clocks per phase; warm 0; the plan:
+// `clusters` CTAs per problem, bands of `rows` rows, `smem` bytes of
+// shared memory per CTA. Returns cudaErrorInvalidValue for a plan that
+// does not cover H or whose smem differs from cluster_smem_bytes, else the
+// launch's error.
+int fista_tv_tiled_cluster_launch(const void* x0hat, const void* scal, const void* tab,
+                                  const void* t2tab, const void* taps, int kh, int kw,
+                                  void* out, void* scratch, void* counts, void* prof, int B,
+                                  int H, int W, int iterations, int tv_iterations, int method,
+                                  int restart, int early, int warm, float rel_tol,
+                                  float sigma_fac, int clusters, int rows, int smem,
+                                  void* stream) {
+    return rls::pgm_cluster::launch<false>(x0hat, scal, tab, t2tab, taps, kh, kw, out, scratch,
+                                           counts, prof, B, H, W, iterations, tv_iterations,
+                                           method, restart, early, warm, rel_tol, sigma_fac,
+                                           clusters, rows, smem, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
-// Device code of the PGM-TV family, shared by the fused kernel
+// Device code of the PGM-TV family: one FISTA / OptISTA / POGM iteration on
+// a window of image rows, shared by the fused kernel's global route
 // (fista_tv_fused.cu: one CTA per problem, all iterations in one launch)
 // and the row-tiled kernel (fista_tv_tiled.cu: one CTA per row tile, one
-// launch per iteration): one FISTA / OptISTA / POGM iteration on a window
-// of image rows, the per-problem scalar schedule, and a block reduction.
+// launch per iteration); the per-problem scalar schedule and a block
+// reduction, which the fused kernel's resident route (a cluster of CTAs
+// per problem) shares too.
 //
 // Counterparts in rls_tpu/kernels/fista_tv_fused.py: _pgm_loop (:375-416,
 // the fixed schedules), _fista_loop_dynamic and _fista_dynamic_scalars

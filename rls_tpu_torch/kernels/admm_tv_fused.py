@@ -53,8 +53,8 @@ from .._build import SMEM_MAX, SMS
 from . import _fgp_common
 from ._bands import HALO, band_sizes, cdiv, fewest_waves
 from ._tables import shared_table
-from .fista_tv_fused import (GLOBAL_SMEM, MAX_TAPS, PgmTvPlan, check_cuda_input,
-                             check_fused_pixels, prepare, problem_scalars)
+from .fista_tv_fused import (GLOBAL_SMEM, MAX_TAPS, PgmTvPlan, check_cuda_input, prepare,
+                             problem_scalars)
 
 __all__ = [
     "admm_tv_fused",
@@ -68,6 +68,11 @@ __all__ = [
 ]
 
 PROXES = ("none", "positive")
+# the dispatch's size rule between this kernel and the row-tiled ADMM-TV
+# kernel (row 5): images of more pixels go tiled. It predates the resident
+# route, which plans images past it (300², 512²); the boundary between the
+# two kernels is not measured yet
+FUSED_MAX_PIXELS = 256 * 256
 # the kernel's threads per CTA, the resident route's shared-memory planes
 # and its largest cluster (the non-portable size; csrc/admm_tv_fused.cu)
 THREADS, PLANES, MAX_CLUSTER = 1024, 5, 16
@@ -386,7 +391,12 @@ def check_admm_tv_fused(solver):
     rule: an image of more than ``FUSED_MAX_PIXELS`` goes to the tiled
     kernel."""
     check_admm_tv(solver, "fused")
-    check_fused_pixels(*solver.AHA.A.im_shape)
+    H, W = solver.AHA.A.im_shape
+    if H * W > FUSED_MAX_PIXELS:
+        raise ValueError(
+            f"a {H}x{W} image goes to the row-tiled kernel (the dispatch sends the fused "
+            f"kernel images of at most {FUSED_MAX_PIXELS} pixels)"
+        )
 
 
 def solver_args(solver, B_mat):

@@ -23,16 +23,17 @@ over ~50 iterations.
 
 Fused or tiled: the JAX table sends an image to its tiled kernel when the
 monolithic kernel's working set exceeds the TPU's VMEM (past ~384²). The
-port's fused PGM-TV kernel has no such limit: its planner spreads each
-problem over a thread-block cluster (``plan_pgm_tv``). The rule here
-predates that route and is on the image, since the check sees the solver
-and not the batch: more than `FUSED_MAX_PIXELS` pixels go to the tiled
-kernel, which spreads each problem of the 512² and 1024² cells
-(``tools/bench_suite.py``, batches of 16 and 8) over its row tiles. The
-ADMM-TV rows follow the same rule (``check_admm_tv_fused`` applies it);
-the fused ADMM-TV kernel's planner (``plan_admm_tv``) puts each problem
-of up to 256² on a cluster too, and at 256² × 16 it beats the tiled
-kernel (PERF.md §6).
+port's rule comes from its planners' routes, on the image alone, since
+the check sees the solver and not the batch (``check_six_planes``): an
+image goes to the fused PGM-TV kernel where its resident route's six
+planes of a band fit a cluster (up to 384²), else to the row-tiled row,
+whose planner puts each problem on a cluster with three planes of a band
+in shared memory (512², the ``fista_tv_512_tiled_b16`` cell of
+``tools/bench_suite.py``) or walks row tiles where even three fit no
+band (1024², ``fista_tv_1024_tiled_b8``). The ADMM-TV rows keep a pixel
+rule (``admm_tv_fused.FUSED_MAX_PIXELS``): more than 256² pixels go to
+the tiled ADMM-TV kernel, though the fused one's planner
+(``plan_admm_tv``) puts larger images on a cluster too.
 The PDHG row has no size rule: its kernel's planner (``plan_pdhg``) puts
 each problem on a cluster, or one CTA per problem where a row is too wide
 for any band.
@@ -42,15 +43,10 @@ from __future__ import annotations
 
 import warnings
 
-from .admm_tv_fused import check_admm_tv_fused, solve_admm_tv_fused
+from .admm_tv_fused import FUSED_MAX_PIXELS, check_admm_tv_fused, solve_admm_tv_fused
 from .cgnr_fused import check_cgnr_fused, solve_cgnr_fused
 from .admm_tv_tiled import check_admm_tv_tiled, solve_admm_tv_tiled
-from .fista_tv_fused import (
-    FUSED_MAX_PIXELS,
-    check_fused_pixels,
-    check_pgm_tv_fused,
-    solve_pgm_tv_fused,
-)
+from .fista_tv_fused import check_pgm_tv_fused, check_six_planes, solve_pgm_tv_fused
 from .fista_l1_dft_fused import check_fista_l1_dft_fused, solve_fista_l1_dft_fused
 from .fista_tv_tiled import check_fista_tv_tiled, solve_fista_tv_tiled
 from .kaczmarz_greedy import check_kaczmarz_greedy, solve_kaczmarz_greedy
@@ -65,7 +61,7 @@ __all__ = ["solve_batched_fast", "select_fast_path", "FUSED_MAX_PIXELS"]
 
 def _check_pgm_tv(solver):
     check_pgm_tv_fused(solver)
-    check_fused_pixels(*solver.AHA.A.im_shape)
+    check_six_planes(*solver.AHA.A.im_shape)
 
 
 # the rows of rls_tpu/kernels/auto.py:42-58, in its order

@@ -18,6 +18,14 @@ Methods and schedules, all in one launch, on one of two routes that
 * global: one CTA per problem with its planes in global scratch, for
   images whose single row is too wide for a band (about W > 9,600).
 
+The resident kernel's body (``csrc/pgm_tv_cluster.cuh``) also runs with
+three planes of a band in shared memory and the rest in global memory:
+the "cluster" route of the row-tiled solve
+(``fista_tv_tiled.plan_fista_tv_tiled``), for images whose bands fit no
+cluster with six (512²). ``solve_batched_fast`` sends an image here where
+six planes fit (:func:`check_six_planes`: up to 384² on an H100), else to
+the row-tiled solve.
+
 The schedules:
 
 * fixed (``restart="none"``, no early exit): FISTA, OptISTA and POGM
@@ -76,9 +84,6 @@ __all__ = [
 
 # tap counts the kernels' shared-memory tap buffer holds per axis
 MAX_TAPS = 63
-# the largest image (in pixels) a one-CTA-per-problem kernel takes in the
-# dispatch (see kernels/auto.py); larger images go to a row-tiled kernel
-FUSED_MAX_PIXELS = 256 * 256
 METHODS = ("fista", "optista", "pogm")
 RESTARTS = ("none", "gradient", "gradient_mapping")
 # solver class → momentum-table method
@@ -271,30 +276,34 @@ def _codes(method, restart, rel_tol, warm_tv):
     )
 
 
-# the kernels' threads per CTA and the resident route's shared-memory
-# planes (csrc/fista_tv_fused.cu); the farthest row a stencil tap reads is
-# the band code's HALO
-THREADS, PLANES = 1024, 6
+# the kernels' threads per CTA, the resident route's largest cluster and
+# its planes of a band in shared memory: all six, or three (the row-tiled
+# solve's cluster route) (csrc/pgm_tv_cluster.cuh); the farthest row a
+# stencil tap reads is the band code's HALO
+THREADS, MAX_CLUSTER = 1024, 16
+ALL_PLANES, SHARED_PLANES = 6, 3
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-# the phases of the resident route's timer (csrc/fista_tv_fused.cu kPhases)
+# the phases of the resident route's timer (csrc/pgm_tv_cluster.cuh kPhases)
 PHASES = ("set-up", "momentum", "gram", "fgp sweeps", "cluster barriers",
           "prox and carries", "sums")
 # global scratch planes of (B, H, W): the resident route's carries and
-# own-pixel temporaries (x_prev | y, z, w, res, y_new, x_mom), and the
-# global route's carries and window planes
-RESIDENT_SCRATCH, GLOBAL_SCRATCH = 6, 12
+# own-pixel temporaries (x_prev | y, z, w, res, y_new, x_mom), and with
+# three planes in shared memory also t3, xg, pv and ph; the global route's
+# carries and window planes
+RESIDENT_SCRATCH, THREE_PLANE_SCRATCH, GLOBAL_SCRATCH = 6, 10, 12
 # the global route's static shared memory: the taps and the block sums
 GLOBAL_SMEM = 4 * 2 * MAX_TAPS + 8 * 3 * (THREADS // 32)
 
 
-def cluster_smem_bytes(rows, W):
+def cluster_smem_bytes(rows, W, own_shared=True):
     """Shared memory of a resident CTA whose band has `rows` rows of width
-    W, as ``cluster_smem_bytes`` in csrc/fista_tv_fused.cu counts it: six
-    planes (each rounded up to 4 floats), the block sums (3 × 32 float64),
-    the CTA's and the cluster's sums (4 float64 each), the phase timer,
-    the DSMEM row table (rows + 2·HALO pointers) and the taps (2 ×
-    MAX_TAPS f32)."""
-    return (4 * PLANES * cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 8)
+    W, as ``cluster_smem_bytes`` in csrc/pgm_tv_cluster.cuh counts it: six
+    planes (three where not `own_shared`; each rounded up to 4 floats),
+    the block sums (3 × 32 float64), the CTA's and the cluster's sums (4
+    float64 each), the phase timer, the DSMEM row table (rows + 2·HALO
+    pointers) and the taps (2 × MAX_TAPS f32)."""
+    planes = ALL_PLANES if own_shared else SHARED_PLANES
+    return (4 * planes * cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 8)
             + 8 * len(PHASES) + 8 * (rows + 2 * HALO) + 4 * 2 * MAX_TAPS)
 
 
@@ -357,18 +366,18 @@ def plan_pgm_tv(B, H, W, kh, kw, schedule, resident, sms=SMS,
 
 
 @functools.lru_cache(maxsize=None)
-def resident_limits(index, clusters, rows, W, method, dynamic):
+def resident_limits(index, clusters, rows, W, method, dynamic, own_shared=True):
     """(shared memory per CTA as the kernel counts it, clusters of the
-    resident kernel for (method, dynamic) that device `index` holds at
-    once: ``cudaOccupancyMaxActiveClusters``)."""
+    resident kernel for (method, dynamic) with six planes of a band in
+    shared memory, or three, that device `index` holds at once:
+    ``cudaOccupancyMaxActiveClusters``)."""
     from .. import _build
 
+    name = "fista_tv_cluster_occupancy" if own_shared else "fista_tv_tiled_cluster_occupancy"
     out = (ctypes.c_longlong * 2)()
     with torch.cuda.device(index):
-        _build.check(
-            _build.load_library().fista_tv_cluster_occupancy(
-                clusters, rows, W, METHODS.index(method), int(dynamic), out),
-            "fista_tv_cluster_occupancy")
+        _build.check(getattr(_build.load_library(), name)(
+            clusters, rows, W, METHODS.index(method), int(dynamic), out), name)
     return out[0], out[1]
 
 
@@ -398,15 +407,18 @@ def plan_on_card(x0hat, taps, method="fista", restart="none", rel_tol=None, warm
     return plan, active
 
 
-def _launch(x0hat, scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac, warm_tv,
-            prof=None):
+def launch_plan(plan, x0hat, scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac,
+                warm_tv, prof=None):
+    """One launch of the kernel on `plan`: the resident route with
+    ``plan.clusters`` CTAs per problem, bands of ``plan.rows`` rows, six
+    planes of a band in shared memory where ``plan.own`` is "shared" (or
+    the plan has no `own`), else three, and ``plan.scratch`` global planes;
+    else the global route. `x0hat` (B, H, W) float32 contiguous on a CUDA
+    device. Returns ``(x, counts)``; raises on a refused launch."""
     from .. import _build
 
     B, H, W = x0hat.shape
     taps_h, taps_w = taps
-    plan, _ = plan_on_card(x0hat, taps, method, restart, rel_tol, warm_tv)
-    if prof is not None and plan.route != "resident":
-        raise ValueError(f"fista_tv_fused: the phase timer is on the resident route, not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
     taps_t = torch.tensor(list(taps_h) + list(taps_w), dtype=torch.float32, device=dev)
@@ -420,16 +432,29 @@ def _launch(x0hat, scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac, 
              float(rel_tol or 0.0), float(sigma_fac))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.route == "resident":
-            code = lib.fista_tv_cluster_launch(
-                *args, None if prof is None else prof.data_ptr(), *sched, plan.clusters,
-                plan.rows, plan.smem, stream)
-        else:
+        if plan.route == "global":
             code = lib.fista_tv_fused_launch(*args, *sched, stream)
-    _build.check(code, f"fista_tv_fused ({B} x {H}x{W}, {plan})")
+        else:
+            # six planes: row 2's entry (fista_tv_fused.cu); three: row 3's
+            # (fista_tv_tiled.cu); one kernel body (pgm_tv_cluster.cuh)
+            launch = (lib.fista_tv_cluster_launch if getattr(plan, "own", "shared") == "shared"
+                      else lib.fista_tv_tiled_cluster_launch)
+            code = launch(*args, None if prof is None else prof.data_ptr(), *sched,
+                          plan.clusters, plan.rows, plan.smem, stream)
+    _build.check(code, f"PGM-TV kernel ({B} x {H}x{W}, {plan})")
+    return out, counts
+
+
+def _launch(x0hat, scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac, warm_tv,
+            prof=None):
+    plan, _ = plan_on_card(x0hat, taps, method, restart, rel_tol, warm_tv)
+    if prof is not None and plan.route != "resident":
+        raise ValueError(f"fista_tv_fused: the phase timer is on the resident route, not {plan}")
+    out = launch_plan(plan, x0hat, scal, tab, t2tab, taps, method, restart, rel_tol, sigma_fac,
+                      warm_tv, prof)
     fista_tv_fused.launches += 1
     fista_tv_fused.route_launches[plan.route] += 1
-    return out, counts
+    return out
 
 
 def phase_clocks(x0hat_b, taps, rho, lam, iterations: int, tv_iterations: int,
@@ -607,13 +632,18 @@ def check_pgm_tv_fused(solver):
     return check_pgm_tv(solver, "fused")
 
 
-def check_fused_pixels(H: int, W: int) -> None:
-    """The dispatch's rule between a one-CTA-per-problem kernel and its
-    row-tiled sibling: more than `FUSED_MAX_PIXELS` pixels go tiled."""
-    if H * W > FUSED_MAX_PIXELS:
+def check_six_planes(H: int, W: int) -> None:
+    """The dispatch's rule between this kernel (row 2) and the row-tiled
+    solve (row 3), from the planners' routes: an image comes here where the
+    resident route's six planes of a band fit a cluster on an H100
+    (:func:`fitting_sizes`: up to 384² for a square image), else it goes to
+    row 3, whose planner keeps three planes of a band in shared memory
+    (512²) or walks row tiles (1024²). The check sees the solver, not the
+    batch or the card."""
+    if not fitting_sizes(H, W):
         raise ValueError(
-            f"a {H}x{W} image goes to the row-tiled kernel (one CTA per problem "
-            f"serves images of at most {FUSED_MAX_PIXELS} pixels)"
+            f"a {H}x{W} image goes to the row-tiled kernel (six planes of its bands fit no "
+            f"cluster of at most {MAX_CLUSTER} CTAs)"
         )
 
 

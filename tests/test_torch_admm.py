@@ -251,8 +251,8 @@ def test_dispatch_sends_large_images_to_the_tiled_kernel(n, row):
     if row == "admm_tv_tiled":
         assert run is tadmm_tiled.solve_admm_tv_tiled
         assert reasons[4] == (
-            f"admm_tv: a {n}x{n} image goes to the row-tiled kernel (one CTA per "
-            f"problem serves images of at most {auto.FUSED_MAX_PIXELS} pixels)"
+            f"admm_tv: a {n}x{n} image goes to the row-tiled kernel (the dispatch sends "
+            f"the fused kernel images of at most {auto.FUSED_MAX_PIXELS} pixels)"
         )
 
 

@@ -27,7 +27,10 @@ sums are double sums over its cluster in rank order, is held to 1e-5 of
 max|x| with equal live CG steps at each cluster size its planner picks.
 The TV prox kernel's resident route is held to 1e-5 of max|x| at each
 cluster size and plane placement its planner picks, at forced sizes, and
-bit for bit over 20 launches."""
+bit for bit over 20 launches. So is row 3's cluster route (the fused
+PGM-TV kernel with three planes of a band in shared memory), at every
+method and schedule, with equal counts, its two placements bit for bit
+alike where both fit."""
 
 import numpy as np
 import pytest
@@ -378,6 +381,145 @@ def test_tiled_kernel_matches_plain(dev, name, shape, tile_rows, taps, tv_iterat
     again = tiled.fista_tv_tiled(x0, taps, rho, lam, 12, tv_iterations,
                                  tile_rows=tile_rows, **_kw(schedule))
     assert torch.equal(again, got)
+
+
+# row 3's cluster route: 7 × 5 taps on an uneven shape
+TAPS75 = ((0.05, 0.1, 0.2, 0.3, 0.2, 0.1, 0.05), (0.1, 0.2, 0.4, 0.2, 0.1))
+# (shape, taps) of the cluster route's card tests and the plan each takes:
+# 512² on c = 16 (32-row bands), 500 × 520 on c = 16 (the last band 20
+# rows), both with three planes of a band in shared memory
+TILED_CLUSTER = {(512, 512): (TAPS, 16), (500, 520): (TAPS75, 16)}
+
+
+def _tiled_cluster(x0, taps, schedule, args, clusters=None, own=None):
+    """A row-3 launch of (ρ, λ, iterations, dual iterations) `args` on the
+    cluster route (its plan, or a forced size and placement), counted once
+    on that route."""
+    before = dict(tiled.fista_tv_tiled.route_launches)
+    got = tiled._run(x0, taps, *args, method=schedule[0], restart=schedule[1],
+                     rel_tol=schedule[2], sigma_fac=schedule[3], clusters=clusters, own=own)
+    before["cluster"] += 1
+    assert tiled.fista_tv_tiled.route_launches == before
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(n for n in SCHEDULES if not SCHEDULES[n][4]))
+@pytest.mark.parametrize("shape", list(TILED_CLUSTER))
+def test_tiled_cluster_route_matches_plain(dev, name, shape):
+    """Row 3's cluster route (three planes of a band in shared memory) on
+    its plan, every method and schedule, against the plain version: 1e-5
+    of max|x|, equal restart and live counts, one launch by the route
+    counter."""
+    schedule = SCHEDULES[name]
+    taps, c = TILED_CLUSTER[shape]
+    x0, rho, lam = _inputs(dev, shape)
+    method, restart, rel_tol, _, _ = schedule
+    plan, held = tiled.plan_on_card(x0, taps, method, restart, rel_tol)
+    assert (plan.route, plan.clusters, plan.own) == ("cluster", c, "global")
+    assert held >= 1
+    got, counts = _tiled_cluster(x0, taps, schedule, (rho, lam, 12, 4))
+    want, want_counts = _plain(x0, taps, rho, lam, 12, 4, schedule)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("tv_iterations", [0, 1, 10])
+@pytest.mark.parametrize("clusters", [14, 15, 16])
+def test_tiled_cluster_route_at_each_fitting_size(dev, clusters, tv_iterations):
+    """The 512² cell's fitting sizes (bands of 37, 35 and 32 rows, the last
+    short), with no dual iteration, one (p left in rv by the first sweep)
+    and ten."""
+    x0, rho, lam = _inputs(dev, (512, 512))
+    got, _ = _tiled_cluster(x0, TAPS, SCHEDULES["fista"], (rho, lam, 6, tv_iterations),
+                            clusters)
+    want, _ = _plain(x0, TAPS, rho, lam, 6, tv_iterations, SCHEDULES["fista"])
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("name", ["fista", "optista", "pogm-early-gradient",
+                                  "fista-gradient_mapping"])
+@pytest.mark.parametrize("clusters", [8, 16])
+def test_tiled_placements_agree_bit_for_bit(dev, name, clusters):
+    """Three planes of a band in shared memory (forced) and all six, at one
+    cluster size of 16 × 256²: the same operations in the same order, the
+    same bits and counts."""
+    schedule = SCHEDULES[name]
+    x0 = torch.from_numpy(np.random.default_rng(9).normal(size=(16, 256, 256))
+                          .astype(np.float32)).to(dev)
+    rho = torch.linspace(0.5, 0.9, 16, device=dev)
+    lam = torch.linspace(0.0, 0.1, 16, device=dev)
+    six, held = tiled._card_plan(dev.index or 0, 16, 256, 256, 5, 3, schedule[:2] +
+                                 (schedule[2] is not None,), None, clusters)
+    assert (six.route, six.own, held >= 1) == ("cluster", "shared", True)
+    three, held = tiled._card_plan(dev.index or 0, 16, 256, 256, 5, 3, schedule[:2] +
+                                   (schedule[2] is not None,), None, clusters, "global")
+    assert (three.own, three.scratch, held >= 1) == ("global", fused.THREE_PLANE_SCRATCH, True)
+    a, ca = _tiled_cluster(x0, TAPS, schedule, (rho, lam, 12, 4), clusters)
+    b, cb = _tiled_cluster(x0, TAPS, schedule, (rho, lam, 12, 4), clusters, "global")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(ca, cb)
+
+
+@pytest.mark.parametrize("batch,shape,name,iterations,tv_iterations", [
+    (16, (512, 512), "fista", 50, 10), (3, (500, 520), "pogm-early-gradient", 12, 4)])
+def test_tiled_cluster_route_repeats_bit_for_bit(dev, batch, shape, name, iterations,
+                                                 tv_iterations):
+    """20 launches of the cluster route, at the 512² cell's plan and on a
+    dynamic schedule (its cluster sums every iteration) on 500 × 520: each
+    equal to the first, with equal counts."""
+    schedule = SCHEDULES[name]
+    taps = TILED_CLUSTER[shape][0]
+    x0 = torch.from_numpy(np.random.default_rng(6).normal(size=(batch, *shape))
+                          .astype(np.float32)).to(dev)
+    rho = torch.linspace(0.5, 0.9, batch, device=dev)
+    lam = torch.linspace(0.0, 0.1, batch, device=dev)
+    args = (rho, lam, iterations, tv_iterations)
+    first, first_counts = _tiled_cluster(x0, taps, schedule, args)
+    for _ in range(20):
+        got, counts = _tiled_cluster(x0, taps, schedule, args)
+        assert torch.equal(got, first) and torch.equal(counts, first_counts)
+
+
+def test_tiled_phase_clocks(dev):
+    """The cluster route's phase timer: one launch, clocks in every phase a
+    dynamic schedule has; the tiles route has no timer and raises."""
+    x0, rho, lam = _inputs(dev, (512, 512))
+    before = dict(tiled.fista_tv_tiled.route_launches)
+    clocks = tiled.phase_clocks(x0, TAPS, rho, lam, 4, 3, method="pogm", restart="gradient",
+                                rel_tol=0.05)
+    assert tiled.fista_tv_tiled.route_launches["cluster"] == before["cluster"] + 1
+    assert list(clocks) == list(fused.PHASES) and all(v > 0 for v in clocks.values())
+    with pytest.raises(ValueError, match="a cluster of 13 CTAs does not fit"):
+        tiled._run(x0, TAPS, rho, lam, 4, 3, clusters=13)
+    x1k = torch.zeros((1, 1024, 1024), device=dev)
+    with pytest.raises(ValueError, match="cluster route"):
+        tiled.phase_clocks(x1k, TAPS, 0.9, 0.1, 2, 2)
+
+
+@pytest.mark.parametrize("shape", [(512, 512), (500, 520), (384, 384), (256, 256)])
+def test_cluster_counts_of_the_tiled_planner_tests(dev, shape):
+    """On an H100 the card holds, for every fitting cluster size and every
+    schedule, the clusters of the cluster route (with the planes its band
+    holds) that tests/test_torch_tiled_plan.py plans with (the TV prox's
+    table), and counts the planner's shared memory."""
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    H, W = shape
+    held = dict(TV_RESIDENT)
+    on_chip = tiled.own_shared_sizes(H, W, *limits)
+    fit = tiled.fitting_sizes(H, W, *limits)
+    assert fit
+    for c in fit:
+        rows = -(-H // c)
+        for method, dynamic in (("fista", False), ("optista", False), ("pogm", False),
+                                ("fista", True), ("pogm", True)):
+            smem, got = fused.resident_limits(dev.index, c, rows, W, method, dynamic,
+                                              c in on_chip)
+            assert smem == fused.cluster_smem_bytes(rows, W, c in on_chip)
+            assert got == held[c], (c, method, dynamic)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -295,7 +295,9 @@ def test_dispatch_routes_dense_and_keeps_the_tv_routes():
         js = getattr(rt, cls).create(op, reg=rt.L1Regularization(1e-2), rho=0.6, iterations=8)
         assert _route(js) == "pgm_dense"
     g = np.ones(3) / 3
-    for n, fista, admm in ((16, "pgm_tv", "admm_tv"), (257, "fista_tv_tiled", "admm_tv_tiled")):
+    # PGM-TV goes tiled past six planes of a band (385²), ADMM-TV past 256²
+    for n, fista, admm in ((16, "pgm_tv", "admm_tv"), (257, "pgm_tv", "admm_tv_tiled"),
+                           (385, "fista_tv_tiled", "admm_tv_tiled")):
         conv = rt.SeparableConvOperator.from_taps(g, g, (n, n), compensated=False)
         tv = rt.TVRegularization(1e-3, shape=(n, n))
         assert _route(rt.FISTA.create(conv, reg=tv, rho=0.9)) == fista

@@ -89,19 +89,22 @@ def _rtt_solver(n, cls="FISTA", **kw):
 
 
 @pytest.mark.parametrize("n,row", [(24, "pgm_tv"), (256, "pgm_tv"), (512, "fista_tv_tiled"),
-                                   (1024, "fista_tv_tiled")])
+                                   (1024, "fista_tv_tiled"), (300, "pgm_tv"), (384, "pgm_tv"),
+                                   (385, "fista_tv_tiled"), (400, "fista_tv_tiled")])
 def test_dispatch_sends_large_images_to_the_tiled_kernel(n, row):
-    """The flagship's 256² goes to the fused kernel (one CTA per problem),
-    512² and 1024² to the tiled one, as the JAX table does at those sizes;
-    decided by the checks alone, nothing is solved."""
+    """The flagship's 256² goes to the fused kernel, and so does every image
+    whose bands fit six planes in a cluster of at most 16 CTAs (up to
+    384²); 385² and beyond (512², 1024²) go to the tiled row, as the JAX
+    table sends 512² and 1024² there; decided by the checks alone, nothing
+    is solved."""
     name, run, reasons = auto.select_fast_path(_rtt_solver(n))
     assert name == row
     if row == "fista_tv_tiled":
         assert run is ttiled.solve_fista_tv_tiled
         assert reasons == [
             "cgnr_dense: fused CGNR path requires a CGNR solver",
-            f"pgm_tv: a {n}x{n} image goes to the row-tiled kernel (one CTA per "
-            f"problem serves images of at most {auto.FUSED_MAX_PIXELS} pixels)",
+            f"pgm_tv: a {n}x{n} image goes to the row-tiled kernel (six planes of its "
+            "bands fit no cluster of at most 16 CTAs)",
             "pgm_dense: fused dense PGM path requires a dense operator A",
         ]
 
