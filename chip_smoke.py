@@ -64,7 +64,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      cooperative grid, rows per slab, problems per group, shared memory);
      the dense FISTA / OptISTA / POGM on
      the LASSO cell (600 iterations, and 100 for the restart schedules,
-     the table methods and FISTA-L2 with Positive); the plane kernel on a
+     the table methods and FISTA-L2 with Positive; its plan printed first,
+     each case one launch on the grid route by the route counter); the
+     plane kernel on a
      complex A (FISTA with gradient restart and Real, POGM) and on the real
      A with a complex b;
   3h. each FFT kernel against its plain version, held to the plain
@@ -90,8 +92,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      TOL_RESIDUAL), cgnr_l2_dense_1024x512_b64 (held on 4 columns, with a
      torch.linalg.solve yardstick), fista_l1_dense_cs_b16_fused (held to
      TOL_RESIDUAL on 2 columns against a float64 solve of the plain
-     version), its OptISTA and POGM at 100 iterations, and the complex
-     FISTA case;
+     version), its OptISTA and POGM at 100 iterations (each of the three
+     one launch on row 7a's grid route by the route counter, the plan
+     printed first), and the complex FISTA case;
   9. the compressed-sensing and SENSE cells through solve_batched_fast,
      each running its kernel once by the launch counters, with problems/s
      (slices/s), two columns held to TOL_PARITY and TOL_RESIDUAL against
@@ -227,6 +230,17 @@ solve; 8 × 1024² on the row tiles beside its composed solve; the
 dispatch's boundary at 16 × 384² (row 2, row 3 on its plan, on three
 planes and on the row tiles); each case's device time by torch.profiler,
 row 2 at the flagship as the control, and sha256 digests.
+
+    python3 chip_smoke.py --time-pgm-dense [ROOT]
+
+does the same for the dense PGM kernel (row 7a): the
+fista_l1_dense_cs_b16_fused cell (600 iterations) on its grid route in
+turns with the per-problem kernel forced (the parent's kernel), OptISTA
+and POGM at 100 iterations, FISTA with its gradient restart, at P = 1 and
+at P = 137, each on both routes and with its device time by
+torch.profiler; the cell's composed solve_batched_unrolled and its device
+time; each plan and the grid route's clocks of CTA 0 by phase; row 6 at
+both CGNR cells and row 7b as controls, with sha256 digests.
 
     python3 chip_smoke.py --time-library [ROOT]
 
@@ -765,8 +779,8 @@ def device_breakdown(name, fn):
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
     `reset`, set them to 0 first (and the TV prox, PGM-TV (rows 2 and 3),
-    ADMM-TV, SplitBregman, PDHG, FISTA-L1-DFT and FISTA-L21-SENSE kernels'
-    counts by route)."""
+    ADMM-TV, SplitBregman, PDHG, FISTA-L1-DFT, FISTA-L21-SENSE and dense
+    PGM (row 7a) kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -788,6 +802,7 @@ def launch_counts(reset=False):
                    sense_fused.fista_l21_sense_fused):
             fn.route_launches = {"resident": 0, "global": 0}
         fista_tv_tiled.fista_tv_tiled.route_launches = {"cluster": 0, "tiles": 0}
+        pgm_dense_fused.pgm_dense_fused.route_launches = {"grid": 0, "per_problem": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
 
@@ -973,6 +988,18 @@ def hold_dense(name, kernel, plain, b, counts=True):
     return err
 
 
+def print_pgm_dense_plan(name, plan):
+    """Print row 7a's plan: its route and, on the grid route, the cut of
+    the cooperative grid."""
+    if plan.route != "grid":
+        print(f"{name}: plan {plan.route}, one CTA per problem")
+        return
+    print(f"{name}: plan grid, {plan.ctas} CTAs = {plan.slabs} slabs x {plan.groups} groups "
+          f"(one cooperative grid), {plan.rows} rows per slab, {plan.group_size} problems per "
+          f"group, A's slab in {'shared' if plan.resident else 'global'} memory, {plan.smem} B "
+          "of shared memory per CTA")
+
+
 def dense_kernel_phase(dev, systems):
     """Phase 3g: each dense kernel against its plain version at the dense
     cells' shapes (`hold_dense`), and each kernel timed in turns with its
@@ -1034,10 +1061,12 @@ def dense_kernel_phase(dev, systems):
         if label.startswith("cgnr_l2_dense_1024"):
             out["cgnr_fused"]["ms"] = alternate_ms(lambda: plain(bt), lambda: kernel(bt), reps=3)
 
-    # dense PGM on the LASSO cell's real A
+    # dense PGM on the LASSO cell's real A, each case one launch on the
+    # grid route (the route counter)
     a2b, b2b = systems["lasso"]
     A, bt = t(a2b), t(b2b.T)
     rho = 0.95 / float(np.linalg.norm(a2b, 2)) ** 2
+    print_pgm_dense_plan("pgm_dense_fused[LASSO cell]", pd.card_plan(bt, A))
     for method, restart, kind, prox, iters in (
         ("fista", "none", "l1", "none", LASSO_ITERS),
         ("fista", "gradient", "l1", "none", SHORT_ITERS),
@@ -1056,7 +1085,10 @@ def dense_kernel_phase(dev, systems):
             return pd.pgm_dense_fused_torch(b, A, scal, tab, *sched)
 
         label = f"pgm_dense_fused[{method}-{kind}, restart {restart}, {prox}, {iters} it.]"
+        pd.pgm_dense_fused.route_launches = {"grid": 0, "per_problem": 0}
         note("pgm_dense_fused", hold_dense(label, kernel, plain, (bt,)))
+        require(pd.pgm_dense_fused.route_launches == {"grid": 1, "per_problem": 0},
+                f"{label}: routes {pd.pgm_dense_fused.route_launches}, not one grid launch")
         if iters == LASSO_ITERS:
             out["pgm_dense_fused"]["ms"] = alternate_ms(lambda: plain(bt), lambda: kernel(bt),
                                                         reps=2)
@@ -1149,6 +1181,11 @@ def dense_cell_phase(dev, systems):
         print(f"launches ({name}): {got}")
         require(got == {**{k: 0 for k in got}, kernel: 1},
                 f"{name}: expected one launch of {kernel} and no others")
+        if kernel == "pgm_dense_fused":
+            routes = pd.pgm_dense_fused.route_launches
+            print(f"routes ({name}): {routes}")
+            require(routes == {"grid": 1, "per_problem": 0},
+                    f"{name}: routes {routes}, not one launch on the grid route")
         launched[kernel] += 1
         require(tuple(x.shape) == (solver.A.in_size, B.shape[1]),
                 f"{name}: shape {tuple(x.shape)}")
@@ -1206,6 +1243,7 @@ def dense_cell_phase(dev, systems):
     solver = rtt.FISTA.create(op, reg=rtt.L1Regularization(LASSO_LAM), iterations=LASSO_ITERS,
                               rho=rho, track_residual=False)
     name = "fista_l1_dense_cs_b16_fused"
+    print_pgm_dense_plan(name, pd.card_plan(B.T, A))
     x = run(name, solver, B, "pgm_dense_fused")
     composed(name, "pgm_dense_fused", solver, B)
     # two columns against a float64 solve of the plain version, and the
@@ -3369,6 +3407,103 @@ def time_tiled(dev, out):
         k3.fista_tv_tiled(*args5, tile_rows=tiles5))
 
 
+def time_pgm_dense(dev, out):
+    """``--time-pgm-dense [ROOT]``: the dense PGM kernel (row 7a) at the
+    fista_l1_dense_cs_b16_fused cell (16 × 256 × 512, FISTA, λ = 1e-4, ρ =
+    0.95/‖A‖₂², 600 iterations) and, where ROOT's row 7a has the grid
+    route, in turns with the per-problem kernel forced (the parent's
+    kernel); OptISTA and POGM at 100 iterations on both routes; FISTA at P
+    = 1 and P = 137 (its own sparse phantoms) and with the gradient restart
+    at 100 iterations; each case's device time by torch.profiler and the
+    composed solve_batched_unrolled's; each plan and CTA 0's clocks by
+    phase; and sha256 digests of row 7a on each route, of row 6 at both
+    CGNR cells (timed as the control) and of row 7b, bit for bit between
+    two trees where this kernel's change leaves them."""
+    import torch
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import cgnr_fused as k6
+    from rls_tpu_torch.kernels import pgm_dense_fused as k7
+
+    out["kernel"] = os.path.relpath(k7.__file__, ROOT)
+    grid = hasattr(k7, "plan_pgm_dense")
+    systems = dense_systems(bench_suite_draws())
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    a2b, b2b = systems["lasso"]
+    A = t(a2b)
+    rho = 0.95 / float(np.linalg.norm(a2b, 2)) ** 2
+    rng = np.random.default_rng(5)
+    x137 = (rng.normal(size=(512, 137)) * (rng.uniform(size=(512, 137)) < 0.05))
+    batches = {"cell": t(b2b.T), "P = 1": t(b2b.T[:1]),
+               "P = 137": t((a2b @ x137.astype(np.float32)).T)}
+
+    def solve(b, method, iters, route=None, restart="none"):
+        if route is None:
+            return k7.pgm_dense_fused(b, A, LASSO_LAM, rho, 1.0, iters, method, "l1", restart,
+                                      with_counts=True)
+        scal, tab = k7.kernel_args(b, LASSO_LAM, rho, 1.0, method, iters)
+        return k7._launch(b, A, scal, tab, (iters, method, "l1", restart, "none"), route=route)
+
+    routes = ("grid", "per_problem") if grid else (None,)
+    cases = []
+    for label, b, method, iters, restart, reps in (
+        ("cell: FISTA, 600 it.", batches["cell"], "fista", LASSO_ITERS, "none", 2),
+        ("OptISTA, 100 it.", batches["cell"], "optista", SHORT_ITERS, "none", 5),
+        ("POGM, 100 it.", batches["cell"], "pogm", SHORT_ITERS, "none", 5),
+        ("FISTA gradient restart, 100 it.", batches["cell"], "fista", SHORT_ITERS, "gradient",
+         5),
+        ("P = 1: FISTA, 600 it.", batches["P = 1"], "fista", LASSO_ITERS, "none", 2),
+        ("P = 137: FISTA, 600 it.", batches["P = 137"], "fista", LASSO_ITERS, "none", 1),
+    ):
+        pair = [(f"{label} {r or 'default route'}",
+                 lambda b=b, m=method, i=iters, r=r, rs=restart: solve(b, m, i, r, rs), reps)
+                for r in routes]
+        time_cases(out, pair, in_turns=True)
+        for name, fn, _ in pair:
+            x, counts = fn()
+            out[f"sha256 of x: {name}"] = digest(x)
+            out[f"restarts: {name}"] = counts.tolist()
+        if grid:
+            out[f"plan: {label}"] = dict(vars(k7.card_plan(b, A)))
+            out[f"clocks of CTA 0 by phase: {label}"] = k7.phase_clocks(
+                b, A, LASSO_LAM, rho, 1.0, iters, method, "l1", restart)
+        cases += pair
+    device_ms(out, cases)
+    # the composed solve at the cell, the yardstick
+    s7 = rtt.FISTA.create(rtt.DenseOperator(A, device=dev), reg=rtt.L1Regularization(LASSO_LAM),
+                          iterations=LASSO_ITERS, rho=rho, track_residual=False)
+    B = batches["cell"].T.contiguous()
+    composed = [("cell composed solve_batched_unrolled", lambda: rtt.solve_batched_unrolled(s7, B),
+                 1)]
+    time_cases(out, composed)
+    device_ms(out, composed)
+    # controls: row 6 at both CGNR cells (timed), row 7b at the complex case
+    for name, key, lam, iters, reps in (
+        ("row 6 cgnr_l2_dense64_fused_b16", "cgnr64", CGNR64_LAM, CGNR64_ITERS, 50),
+        ("row 6 cgnr_l2_dense_1024x512_b64", "cgnr1k", CGNR1K_LAM, CGNR1K_ITERS, 20),
+    ):
+        A6, B6 = (t(a) for a in systems[key])
+        args = (B6.T.contiguous(), A6, torch.full((B6.shape[1],), lam, device=dev),
+                min(iters, A6.shape[1]))
+        time_cases(out, [(name, lambda a=args: k6.cgnr_fused(*a), reps)])
+        out[f"sha256 of x: {name}"] = digest(k6.cgnr_fused(*args))
+    a_c, b_c = systems["cplx"]
+    ar, ai = t(a_c.real.astype(np.float32)), t(a_c.imag.astype(np.float32))
+    br, bi = t(b_c.real.T.astype(np.float32)), t(b_c.imag.T.astype(np.float32))
+    rho_c = 0.95 / float(np.linalg.norm(a_c, 2)) ** 2
+
+    def row7b():
+        return k7.pgm_dense_fused_cplx(br, bi, ar, ai, LASSO_LAM, rho_c, 1.0, SHORT_ITERS,
+                                       "fista", "l1", "gradient", "real", with_counts=True)
+
+    time_cases(out, [("row 7b complex FISTA, gradient restart, real", row7b, 5)])
+    xr, xi, counts = row7b()
+    out["sha256 of x: row 7b"] = digest(torch.stack([xr, xi]))
+    out["restarts: row 7b"] = counts.tolist()
+
+
 def time_library(dev, out):
     """``--time-library [ROOT]``: the library yardstick of rows 2, 3, 4,
     5, 7a, 7b, 10, 11, 12a, 12b and 13 (PERF.md §6), the composed
@@ -3440,6 +3575,7 @@ TIME_MODES = {
     "--time-tv-fgp": time_tv_fgp,
     "--time-tiled": time_tiled,
     "--time-library": time_library,
+    "--time-pgm-dense": time_pgm_dense,
 }
 
 

@@ -114,6 +114,13 @@ _SIGNATURES = {
     # (b, A, scal, tab, out, scratch, counts, P, m, n, steps, method, kind,
     #  restart, proj, stream)
     "pgm_dense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (b, A, scal, tab, out, counts, part, rdots, xpub, bar, prof, P, m, n,
+    #  steps, method, kind, restart, proj, slabs, rows, groups, group_size,
+    #  resident, smem, stream)
+    "pgm_dense_grid_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _P,
+    ),
     # (br, bi, ar, ai, scal, tab, out, scratch, counts, P, m, n, steps,
     #  method, kind, restart, proj, stream)
     "pgm_dense_fused_cplx_launch": (

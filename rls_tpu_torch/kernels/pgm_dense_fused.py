@@ -28,12 +28,23 @@ Numerics, as in ``cgnr_fused``: every matvec entry and every dot is summed
 in double and rounded to f32, and the updates are separate f32 operations,
 in both versions; the restart decisions compare the rounded dot with 0.
 
+Routes of the real kernel (:func:`plan_pgm_dense` picks one from the
+shape): ``"grid"``, row 6's design, the batch's solve as one cooperative
+grid of A-slabs × problem groups, each CTA keeping its slab of A and its
+group's Gram input in shared memory, so that one load of A serves every
+problem of a group, with two group barriers per iteration; and
+``"per_problem"``, one CTA per problem, only where no grid plan fits the
+card. The complex kernel runs one CTA per problem.
+
 Not carried over: the TPU's pre-split bf16 hi/lo factors, their VMEM gate
 (:339), ``chunked_batch_run`` and the concrete-θ test (a JAX tracer has no
 counterpart here).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -46,17 +57,27 @@ from ..models.prox import (
 )
 from ..models.solvers.base import theta_next
 from .cgnr_fused import (
+    SYNC_CLOCKS,
+    TILE,
+    TRIP_CLOCKS,
+    WARPS,
+    _align16,
+    _cdiv,
     check_cuda_operands,
     check_dense_normal,
     dsum_dot,
     dsum_mm,
     is_scalar,
     lam_per_problem,
+    slab_ld,
 )
 from .fista_tv_fused import _METHOD_OF, METHODS, RESTARTS, _momentum_table
 
 __all__ = [
     "pgm_dense_fused",
+    "plan_pgm_dense",
+    "PgmDensePlan",
+    "phase_clocks",
     "pgm_dense_fused_cplx",
     "pgm_dense_fused_torch",
     "pgm_dense_fused_cplx_torch",
@@ -217,6 +238,113 @@ def kernel_args(b, lam, rho, theta, method, steps: int, dtype=np.float32):
     return scal, torch.as_tensor(tab, device=dev)
 
 
+# the grid route's phases that the kernel can time
+# (csrc/pgm_dense_fused.cu kSetup ... kReload)
+GRID_PHASES = ("set-up", "q", "partial v", "barrier 1", "slab sums and update", "barrier 2",
+               "x reload")
+# the L2's rate to every SM together, in bytes per SM clock (an H100's
+# ~5.5 TB/s at 1.755 GHz), for the planner's price of the grid's traffic
+L2_BYTES_PER_CLOCK = 3000
+
+
+@dataclasses.dataclass(frozen=True)
+class PgmDensePlan:
+    """How the real dense PGM solve runs. Route ``"grid"``: one cooperative
+    grid of `slabs` slabs of `rows` rows of A × `groups` groups of
+    `group_size` problems, one CTA per (slab, group), A's slab in shared
+    memory with `resident`, `smem` bytes of it per CTA. Route
+    ``"per_problem"`` (the kernel of one CTA per problem; slabs = 1,
+    groups = P): where no grid plan fits the card."""
+
+    route: str
+    slabs: int
+    rows: int
+    groups: int
+    group_size: int
+    resident: bool
+    smem: int
+
+    @property
+    def ctas(self) -> int:
+        return self.slabs * self.groups
+
+
+def grid_smem_bytes(n, slabs, rows, group_size, resident):
+    """Shared memory of one CTA of the grid route, as ``grid_smem_bytes``
+    in csrc/pgm_dense_fused.cu counts it: q for a tile of 8 problems
+    (float64, rows rounded up to 16), five 4-byte scalars per problem, the
+    block reduction (8 × 8 float64), the phase timer, the warps' split sums
+    (8 × 128 float64), with `resident` the slab of A (f32, rows rounded up
+    to 16 × ``slab_ld``), the group's Gram input (f32, tiles × n rounded up
+    to 8 × 8), its x (f32, tiles × n × 8) and the owner's x0hat, m1, m2
+    (f32, tiles × its columns × 8). Each piece starts 16-byte aligned."""
+    chunk, tiles, rows16 = _cdiv(n, slabs), _cdiv(group_size, TILE), _cdiv(rows, 16) * 16
+    nbytes = sum(_align16(b) for b in (
+        8 * TILE * rows16, 20 * group_size, 8 * WARPS * TILE, 8 * len(GRID_PHASES),
+        8 * WARPS * 128, 4 * TILE * tiles * _cdiv(n, 8) * 8, 4 * TILE * tiles * n,
+        12 * TILE * tiles * chunk))
+    if resident:
+        nbytes += _align16(4 * rows16 * slab_ld(n))
+    return nbytes
+
+
+def step_clocks(n, slabs, rows, group_size, resident, ctas):
+    """A model of one iteration's SM clocks on a CTA of a grid plan of
+    `ctas` CTAs: q and the partial v on the FP64 tensor cores (as
+    ``cgnr_fused.step_clocks`` prices them), the partial v written to L2
+    and the owner's slab sums read back (64 bytes per SM clock each), the
+    grid's whole traffic over the L2's rate, the owner's update and the
+    reload of the group's x, and with several slabs two group barriers and
+    two round trips through L2; A read from L2 twice per tile where it is
+    not resident."""
+    tiles = _cdiv(group_size, TILE)
+    rows16, n16 = _cdiv(rows, 16) * 16, _cdiv(n, 16) * 16
+    work = 8 * rows16 * n16 // 100
+    q = tiles * max(work, 16 * 8 * n16 // 25)
+    v = tiles * max(work, 16 * 8 * rows16 // 25)
+    traffic = 2 * tiles * n + ctas * tiles * n * 128 // L2_BYTES_PER_CLOCK
+    vec = tiles * _cdiv(n, slabs) + tiles * n // 4
+    group = 0 if slabs == 1 else 2 * SYNC_CLOCKS + 2 * TRIP_CLOCKS
+    stream = 0 if resident else tiles * rows * n // 4
+    return q + v + traffic + vec + group + stream
+
+
+@functools.lru_cache(maxsize=256)
+def plan_pgm_dense(m, n, P, sms, smem_max) -> PgmDensePlan:
+    """The route and cut of a solve of P problems on a real m × n A for a
+    card of `sms` SMs and `smem_max` bytes of shared memory per block: the
+    grid plan of least :func:`step_clocks` whose CTAs, at most one per SM,
+    are all resident at once; the per-problem kernel only where no grid
+    plan fits (a group's Gram input and x too large for shared memory even
+    with A streamed from L2). Raises ValueError for an empty shape."""
+    if min(m, n, P) < 1:
+        raise ValueError(f"pgm_dense_fused: empty shape A {m}x{n}, {P} problems")
+    best = None
+    for s_try in range(1, min(m, sms) + 1):
+        rows = _cdiv(m, s_try)
+        slabs = _cdiv(m, rows)
+        if slabs != s_try:
+            continue  # the same cut as a smaller slab count
+        for g_try in range(1, min(P, sms // slabs) + 1):
+            group_size = _cdiv(P, g_try)
+            groups = _cdiv(P, group_size)
+            if groups != g_try:
+                continue
+            for resident in (True, False):
+                smem = grid_smem_bytes(n, slabs, rows, group_size, resident)
+                if smem > smem_max:
+                    continue
+                clocks = step_clocks(n, slabs, rows, group_size, resident, slabs * groups)
+                key = (clocks, -groups, slabs)
+                if best is None or key < best[0]:
+                    best = (key, PgmDensePlan("grid", slabs, rows, groups, group_size, resident,
+                                              smem))
+                break
+    if best is None:
+        return PgmDensePlan("per_problem", 1, m, P, 1, False, 0)
+    return best[1]
+
+
 def check_schedule(method, kind, restart, prox):
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
@@ -233,8 +361,9 @@ def check_schedule(method, kind, restart, prox):
         raise ValueError(f"unknown projection {prox!r}; the dense PGM kernels take {PROXES}")
 
 
-def _launch(name, planes_b, planes_a, scal, tab, steps, method, kind, restart, prox):
-    """Launch the real (one plane each) or the complex (two) kernel."""
+def _launch_planes(name, planes_b, planes_a, scal, tab, steps, method, kind, restart, prox):
+    """Launch the per-problem kernel, real (one plane each) or complex
+    (two)."""
     from .. import _build
 
     P, m = planes_b[0].shape
@@ -260,17 +389,88 @@ def _launch(name, planes_b, planes_a, scal, tab, steps, method, kind, restart, p
     return (*out, counts)
 
 
+def _launch_grid(b, A, scal, tab, plan, steps, method, kind, restart, prox, prof=None):
+    """Launch the grid route on `plan`: one cooperative grid of slabs ×
+    groups."""
+    from .. import _build
+
+    P, m = b.shape
+    n = A.shape[1]
+    lib = _build.load_library()
+    out = torch.empty((P, n), dtype=torch.float32, device=b.device)
+    counts = torch.empty((P,), dtype=torch.int32, device=b.device)
+    # one float64 workspace, each piece 256-byte aligned: the barrier
+    # counters (zeroed), the slabs' partial v, the restart partials and
+    # the owners' new x (f32) that meet in L2
+    tiles = _cdiv(plan.group_size, TILE)
+    sizes = (plan.groups * 16, plan.groups * plan.slabs * tiles * n * TILE,
+             plan.groups * plan.slabs * plan.group_size, _cdiv(plan.groups * tiles * n * TILE, 2))
+    starts = [0]
+    for size in sizes:
+        starts.append(starts[-1] + _cdiv(size, 32) * 32)
+    ws = torch.empty(starts[-1], dtype=torch.float64, device=b.device)
+    ws[:starts[1]].zero_()
+    bar, part, rdots, xpub = (ws[starts[i]:starts[i + 1]] for i in range(4))
+    codes = (METHODS.index(method), KINDS.index(kind), RESTARTS.index(restart),
+             PROXES.index(prox))
+    with torch.cuda.device(b.device):
+        code = lib.pgm_dense_grid_launch(
+            b.data_ptr(), A.data_ptr(), scal.data_ptr(), tab.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), part.data_ptr(), rdots.data_ptr(), xpub.data_ptr(),
+            bar.data_ptr(), None if prof is None else prof.data_ptr(), P, m, n, steps, *codes,
+            plan.slabs, plan.rows, plan.groups, plan.group_size, int(plan.resident), plan.smem,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(code, f"pgm_dense_grid_launch (A {m}x{n}, {P} problems, {plan})")
+    return out, counts
+
+
+def card_plan(b, A):
+    """The plan of :func:`plan_pgm_dense` for `b` (P, m) and `A` (m, n) on
+    the card that holds them."""
+    from .. import _build
+
+    return plan_pgm_dense(A.shape[0], A.shape[1], b.shape[0],
+                          *_build.device_limits(b.device.index or 0))
+
+
+def _launch(b, A, scal, tab, sched, route=None, prof=None):
+    """One launch on real data, on the route of :func:`plan_pgm_dense` or
+    on `route` where the caller forces one (the timing mode and the card
+    tests); a forced ``"grid"`` that the shape has no plan for raises.
+    Counts the launch and its route. Returns (x, restarts)."""
+    if b.shape[0] == 0:
+        return (torch.empty((0, A.shape[1]), dtype=torch.float32, device=b.device),
+                torch.empty((0,), dtype=torch.int32, device=b.device))
+    plan = card_plan(b, A)
+    route = plan.route if route is None else route
+    if route == "grid":
+        if plan.route != "grid":
+            raise ValueError(f"pgm_dense_fused: A {tuple(A.shape)} with {b.shape[0]} problems has "
+                             "no grid plan")
+        out = _launch_grid(b, A, scal, tab, plan, *sched, prof=prof)
+    elif route == "per_problem" and prof is None:
+        out = _launch_planes("pgm_dense_fused", (b,), (A,), scal, tab, *sched)
+    else:
+        raise ValueError(f"pgm_dense_fused: no route {route!r} (with the phase timer: grid only)")
+    pgm_dense_fused.launches += 1
+    pgm_dense_fused.route_launches[route] += 1
+    return out
+
+
 def pgm_dense_fused(b, A, lam, rho, theta, steps: int, method="fista", kind="l1",
                     restart="none", prox="none", with_counts=False):
-    """Batched FISTA / OptISTA / POGM on a dense real A, one CTA per
-    problem.
+    """Batched FISTA / OptISTA / POGM on a dense real A, the batch's solve
+    as one cooperative grid of A-slabs × problem groups (the route and cut
+    of :func:`plan_pgm_dense`).
 
     b: (P, m) float32, one problem per row; A: (m, n) float32; lam, rho,
     theta: scalars or (P,) (λ already normalization-scaled); kind "l1" |
     "l2"; restart (FISTA) "none" | "gradient" | "gradient_mapping"; prox
     "none" | "positive". The plain version runs for CPU tensors, the CUDA
     kernel for CUDA tensors. ``pgm_dense_fused.launches`` counts the
-    kernel's launches. Returns x (P, n), or ``(x, restarts)`` with
+    kernel's launches, ``pgm_dense_fused.route_launches`` them by route
+    ("grid", "per_problem"). Returns x (P, n), or ``(x, restarts)`` with
     `with_counts`.
     """
     check_schedule(method, kind, restart, prox)
@@ -282,14 +482,26 @@ def pgm_dense_fused(b, A, lam, rho, theta, steps: int, method="fista", kind="l1"
         out = pgm_dense_fused_torch(b, A, scal, tab, *sched)
     else:
         check_cuda_operands("pgm_dense_fused", A, b)
-        x, counts = _launch("pgm_dense_fused", (b.contiguous(),), (A.contiguous(),), scal,
-                            tab, *sched)
-        pgm_dense_fused.launches += 1
-        out = (x, counts)
+        out = _launch(b.contiguous(), A.contiguous(), scal, tab, sched)
     return out if with_counts else out[0]
 
 
 pgm_dense_fused.launches = 0
+pgm_dense_fused.route_launches = {"grid": 0, "per_problem": 0}
+
+
+def phase_clocks(b, A, lam, rho, theta, steps: int, method="fista", kind="l1", restart="none",
+                 prox="none"):
+    """One launch on the grid route with its phase timer on: {phase: SM
+    clocks that CTA 0 spent in it over the whole solve} (``GRID_PHASES``;
+    the launch is counted). Raises where the shape has no grid plan."""
+    check_schedule(method, kind, restart, prox)
+    check_cuda_operands("pgm_dense_fused", A, b)
+    scal, tab = kernel_args(b, lam, rho, theta, method, steps)
+    prof = torch.zeros(len(GRID_PHASES), dtype=torch.int64, device=b.device)
+    _launch(b.contiguous(), A.contiguous(), scal, tab, (steps, method, kind, restart, prox),
+            route="grid", prof=prof)
+    return dict(zip(GRID_PHASES, prof.tolist()))
 
 
 def pgm_dense_fused_cplx(br, bi, ar, ai, lam, rho, theta, steps: int, method="fista",
@@ -305,8 +517,8 @@ def pgm_dense_fused_cplx(br, bi, ar, ai, lam, rho, theta, steps: int, method="fi
         out = pgm_dense_fused_cplx_torch(br, bi, ar, ai, scal, tab, *sched)
     else:
         check_cuda_operands("pgm_dense_fused_cplx", ar, ai, br, bi)
-        out = _launch("pgm_dense_fused_cplx", (br.contiguous(), bi.contiguous()),
-                      (ar.contiguous(), ai.contiguous()), scal, tab, *sched)
+        out = _launch_planes("pgm_dense_fused_cplx", (br.contiguous(), bi.contiguous()),
+                             (ar.contiguous(), ai.contiguous()), scal, tab, *sched)
         pgm_dense_fused_cplx.launches += 1
     return out if with_counts else out[:2]
 

@@ -813,26 +813,189 @@ def test_cgnr_kernel_past_convergence_is_the_identity(dev):
     assert torch.equal(got, b)
 
 
+# (m, n, P) of the dense PGM kernel's cases and the route of each: the
+# small system (one slab, one group); the LASSO cell's 256 × 512 × 16;
+# several slabs and groups with a remainder in both; P = 1; more problems
+# than SMs; A tall and wide (its slab streamed from L2); and a row too
+# long for a group's Gram input and x in shared memory, which the planner
+# sends to the per-problem kernel
+PGM_DENSE_SHAPES = {(40, 24, 3): "grid", (256, 512, 16): "grid", (1000, 300, 61): "grid",
+                    (256, 512, 1): "grid", (256, 512, 137): "grid", (3000, 16, 16): "grid",
+                    (16, 3000, 16): "grid", (64, 4000, 3): "per_problem"}
+
+
+def _pgm_dense_system(dev, shape):
+    """A, b and λ (1e-2, 0, 0.1 in turn) of a dense PGM case; a wide A is
+    scaled by √(m/n), so that ρ = 0.5 converges on every shape."""
+    m, n, P = shape
+    A, b = _dense(dev, m, n, P)
+    if m < n:
+        A = A * float(np.sqrt(m / n))
+    lam = torch.tensor([1e-2, 0.0, 0.1], device=dev).repeat(P)[:P]
+    return A.contiguous(), b, lam.contiguous()
+
+
+@pytest.mark.parametrize("shape", list(PGM_DENSE_SHAPES), ids=str)
 @pytest.mark.parametrize("method,restart", [("fista", "none"), ("fista", "gradient"),
                                             ("fista", "gradient_mapping"), ("optista", "none"),
                                             ("pogm", "none")])
 @pytest.mark.parametrize("kind", ["l1", "l2"])
 @pytest.mark.parametrize("prox", ["none", "positive"])
-def test_pgm_dense_kernel_matches_plain(dev, method, restart, kind, prox):
-    A, b = _dense(dev)
-    lam = torch.tensor([1e-2, 0.0, 0.1], device=dev)
+def test_pgm_dense_kernel_matches_plain(dev, method, restart, kind, prox, shape):
+    A, b, lam = _pgm_dense_system(dev, shape)
+    route = PGM_DENSE_SHAPES[shape]
+    plan = pgm_dense.card_plan(b, A)
+    assert plan.route == route
+    if route == "grid":
+        assert plan.ctas <= torch.cuda.get_device_properties(dev).multi_processor_count
     args = (lam, 0.5, 1.0, 30, method, kind, restart, prox)
     before = pgm_dense.pgm_dense_fused.launches
+    routes = dict(pgm_dense.pgm_dense_fused.route_launches)
     got, counts = pgm_dense.pgm_dense_fused(b, A, *args, with_counts=True)
     assert pgm_dense.pgm_dense_fused.launches == before + 1
+    assert pgm_dense.pgm_dense_fused.route_launches == {**routes, route: routes[route] + 1}
     scal, tab = pgm_dense.kernel_args(b, lam, 0.5, 1.0, method, 30)
     want, want_counts = pgm_dense.pgm_dense_fused_torch(b, A, scal, tab, 30, method, kind,
                                                         restart, prox)
+    assert bool(torch.isfinite(got).all())
     _close(got, want, 1e-5)
     assert counts.tolist() == want_counts.tolist()
-    if restart != "none":
+    if restart != "none" and shape == (40, 24, 3):
         assert max(counts.tolist()) > 0
     assert torch.equal(pgm_dense.pgm_dense_fused(b, A, *args), got)
+
+
+def _lasso(dev, P=16, seed=3):
+    """The LASSO cell's shape (256 × 512, N(0, 1)/16, a 5 % sparse x per
+    problem, λ = 1e-4, ρ = 0.95/‖A‖₂²), on which FISTA's gradient restart
+    fires."""
+    rng = np.random.default_rng(seed)
+    A = (rng.normal(size=(256, 512)) / 16.0).astype(np.float32)
+    X = (rng.normal(size=(512, P)) * (rng.uniform(size=(512, P)) < 0.05)).astype(np.float32)
+    rho = 0.95 / float(np.linalg.norm(A, 2)) ** 2
+    b = torch.from_numpy(np.ascontiguousarray((A @ X).T)).to(dev)
+    return torch.from_numpy(A).to(dev), b, 1e-4, rho
+
+
+@pytest.mark.parametrize("method,restart", [("fista", "gradient"), ("pogm", "none")])
+def test_pgm_dense_grid_route_repeats_bit_for_bit(dev, method, restart):
+    """20 launches of the grid route at the LASSO cell's plan (16 slabs ×
+    2 groups, two group barriers per iteration), FISTA with its gradient
+    restart (the restart partials summed over the slabs by every CTA) and
+    POGM: each equal to the first, with equal counts, and held to the
+    plain version."""
+    A, b, lam, rho = _lasso(dev)
+    plan = pgm_dense.card_plan(b, A)
+    assert (plan.route, plan.slabs, plan.groups) == ("grid", 16, 2)
+    args = (lam, rho, 1.0, 100, method, "l1", restart)
+    first, first_counts = pgm_dense.pgm_dense_fused(b, A, *args, with_counts=True)
+    scal, tab = pgm_dense.kernel_args(b, lam, rho, 1.0, method, 100)
+    want, want_counts = pgm_dense.pgm_dense_fused_torch(b, A, scal, tab, 100, method, "l1",
+                                                        restart)
+    _close(first, want, 1e-5)
+    assert first_counts.tolist() == want_counts.tolist()
+    if restart != "none":
+        assert max(first_counts.tolist()) > 0
+    for _ in range(20):
+        got, counts = pgm_dense.pgm_dense_fused(b, A, *args, with_counts=True)
+        assert torch.equal(got, first) and torch.equal(counts, first_counts)
+
+
+@pytest.mark.parametrize("shape,lam,plan", [((64, 64, 16), 1e-6, (1, 16)),
+                                            ((1024, 512, 64), 1e-3, (16, 8))])
+def test_cgnr_kernel_repeats_bit_for_bit(dev, shape, lam, plan):
+    """20 launches of the CGNR kernel at the two CGNR cells' shapes and
+    plans (one CTA per problem with no barrier; 16 slabs × 8 groups, three
+    group barriers per step), 64 steps: each equal to the first."""
+    m, n, P = shape
+    A, b = _dense(dev, m, n, P, seed=9)
+    lam_v = torch.full((P,), lam, device=dev)
+    from rls_tpu_torch import _build
+
+    got_plan = cgnr.plan_cgnr(m, n, P, *_build.device_limits(dev.index or 0))
+    assert (got_plan.slabs, got_plan.groups) == plan
+    first = cgnr.cgnr_fused(b, A, lam_v, 64)
+    _close(first, cgnr.cgnr_fused_torch(b, A, lam_v, 64), 1e-5)
+    for _ in range(20):
+        assert torch.equal(cgnr.cgnr_fused(b, A, lam_v, 64), first)
+
+
+@pytest.mark.parametrize("method,restart", [("fista", "gradient"), ("optista", "none")])
+def test_pgm_dense_phase_clocks(dev, method, restart):
+    """The grid route's phase timer: one launch on the grid route, the same
+    x as without the timer, clocks in every phase; a shape with no grid
+    plan raises."""
+    A, b, lam, rho = _lasso(dev)
+    args = (lam, rho, 1.0, 20, method, "l1", restart)
+    before = (pgm_dense.pgm_dense_fused.launches,
+              pgm_dense.pgm_dense_fused.route_launches["grid"])
+    clocks = pgm_dense.phase_clocks(b, A, *args)
+    assert (pgm_dense.pgm_dense_fused.launches,
+            pgm_dense.pgm_dense_fused.route_launches["grid"]) == (before[0] + 1, before[1] + 1)
+    assert list(clocks) == list(pgm_dense.GRID_PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    with pytest.raises(ValueError, match="no grid plan"):
+        A4, b4, lam4 = _pgm_dense_system(dev, (64, 4000, 3))
+        pgm_dense.phase_clocks(b4, A4, lam4, 0.5, 1.0, 2)
+
+
+@pytest.mark.parametrize("shape", [(40, 24, 3), (256, 512, 16)], ids=str)
+@pytest.mark.parametrize("method,restart", [("fista", "gradient"), ("pogm", "none")])
+def test_pgm_dense_forced_per_problem_route_matches_plain(dev, shape, method, restart):
+    """The per-problem kernel, forced where the planner takes the grid: held
+    to the plain version like the grid route, counted on its route."""
+    A, b, lam = _pgm_dense_system(dev, shape)
+    scal, tab = pgm_dense.kernel_args(b, lam, 0.5, 1.0, method, 30)
+    sched = (30, method, "l1", restart, "none")
+    routes = dict(pgm_dense.pgm_dense_fused.route_launches)
+    got, counts = pgm_dense._launch(b, A, scal, tab, sched, route="per_problem")
+    assert pgm_dense.pgm_dense_fused.route_launches == {
+        **routes, "per_problem": routes["per_problem"] + 1}
+    want, want_counts = pgm_dense.pgm_dense_fused_torch(b, A, scal, tab, *sched)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+def test_pgm_dense_grid_route_never_falls_back(dev):
+    """A grid launch the C entry point refuses (here a plan whose shared
+    memory differs from the kernel's count) raises, and launches nothing on
+    another route."""
+    A, b, lam = _pgm_dense_system(dev, (256, 512, 16))
+    scal, tab = pgm_dense.kernel_args(b, lam, 0.5, 1.0, "fista", 4)
+    plan = pgm_dense.card_plan(b, A)
+    bad = pgm_dense.PgmDensePlan("grid", plan.slabs, plan.rows, plan.groups, plan.group_size,
+                                 plan.resident, plan.smem + 16)
+    before = (pgm_dense.pgm_dense_fused.launches, dict(pgm_dense.pgm_dense_fused.route_launches))
+    with pytest.raises(RuntimeError, match="pgm_dense_grid_launch"):
+        pgm_dense._launch_grid(b, A, scal, tab, bad, 4, "fista", "l1", "none", "none")
+    with pytest.raises(ValueError, match="no route"):
+        pgm_dense._launch(b, A, scal, tab, (4, "fista", "l1", "none", "none"), route="plain")
+    assert (pgm_dense.pgm_dense_fused.launches,
+            pgm_dense.pgm_dense_fused.route_launches) == before
+
+
+# sha256 of (xr, xi, restarts) of row 7b (the complex plane kernel, one CTA
+# per problem) at `_cplx_digest_case`, as the source before the real
+# kernel's grid route was added computed them on an NVIDIA H100 80GB HBM3
+# (700 W): row 7b stays that kernel, bit for bit
+CPLX_PARENT_SHA256 = "beff348ec5f92d2feb0e57a368d63db95cd966bd29907003ed719b5ea9ae383f"
+
+
+def _cplx_digest_case(dev):
+    (ar, ai), (br, bi) = _dense(dev, m=256, n=512, P=16, seed=11, cplx=True)
+    lam = torch.linspace(0.0, 2e-2, 16, device=dev)
+    return (br, bi, ar, ai, lam, 0.4, 1.0, 100, "fista", "l1", "gradient", "real")
+
+
+def test_pgm_dense_cplx_kernel_is_bit_for_bit_the_stored_run(dev):
+    """Row 7b, which the grid route of the real kernel leaves as it was."""
+    import hashlib
+
+    xr, xi, counts = pgm_dense.pgm_dense_fused_cplx(*_cplx_digest_case(dev), with_counts=True)
+    h = hashlib.sha256()
+    for t in (xr, xi, counts):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    assert h.hexdigest() == CPLX_PARENT_SHA256
 
 
 @pytest.mark.parametrize("method,restart", [("fista", "none"), ("fista", "gradient"),
