@@ -779,8 +779,8 @@ def device_breakdown(name, fn):
 def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
     `reset`, set them to 0 first (and the TV prox, PGM-TV (rows 2 and 3),
-    ADMM-TV, SplitBregman, PDHG, FISTA-L1-DFT, FISTA-L21-SENSE and dense
-    PGM (row 7a) kernels' counts by route)."""
+    ADMM-TV (rows 4 and 5), SplitBregman, PDHG, FISTA-L1-DFT,
+    FISTA-L21-SENSE and dense PGM (row 7a) kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -801,7 +801,8 @@ def launch_counts(reset=False):
                    pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused,
                    sense_fused.fista_l21_sense_fused):
             fn.route_launches = {"resident": 0, "global": 0}
-        fista_tv_tiled.fista_tv_tiled.route_launches = {"cluster": 0, "tiles": 0}
+        for fn in (fista_tv_tiled.fista_tv_tiled, admm_tv_tiled.admm_tv_tiled):
+            fn.route_launches = {"cluster": 0, "tiles": 0}
         pgm_dense_fused.pgm_dense_fused.route_launches = {"grid": 0, "per_problem": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
@@ -812,29 +813,40 @@ def admm_kernel_phase(dev, cases):
     adjoint of the blurred phantoms. Each is held to the plain version's
     1-ulp spread with equal live CG steps, at the cell's batch and with
     the Positive projection at batch 4, and timed in turns with its plain
-    version; then the other kernel at the same size is timed alone. The
-    fused kernel prints each plan, must take its resident route at the cell
-    (by its route counter, set to 0 just before) and is held alike on its
-    global route at ADMM_WIDE. Returns {wrapper name: {"err", "ms":
-    (plain, kernel), "live"}}."""
+    version; then the other kernel at the same size is timed alone. Each
+    launch's plan is printed and its route read from the kernel's route
+    counter, set to 0 just before: the fused kernel (row 4) must take its
+    resident route at its cell and is held alike on its global route at
+    ADMM_WIDE; the tiled kernel (row 5) its cluster route at its cell, and
+    it is held alike on its row tiles (`tile_rows` forced) at batch 4.
+    Returns {wrapper name: {"err", "ms": (plain, kernel), "live", "plan"}}."""
     import torch
 
     from rls_tpu_torch.kernels import _fgp_common
     from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
+    from rls_tpu_torch.kernels import admm_tv_tiled as admm_tiled
 
-    def hold_on_route(label, kernel, plain, x0, route):
+    def hold_on_route(label, kernel, plain, x0, route, tile_rows=None):
         """hold_to_plain, the launch's plan printed first and its route
-        counter required to read one launch on `route`."""
-        plan, active = admm_fused.plan_on_card(x0, taps)
+        counter required to read one solve on `route` (row 4: "resident"
+        or "global"; row 5: "cluster", or "tiles" with `tile_rows`)."""
+        if route in ("resident", "global"):
+            fn, (plan, active) = admm_fused.admm_tv_fused, admm_fused.plan_on_card(x0, taps)
+            want = {"resident": int(route == "resident"), "global": int(route == "global")}
+        else:
+            fn = admm_tiled.admm_tv_tiled
+            plan, active = admm_tiled.plan_on_card(x0, taps, tile_rows)
+            tiles = admm_tiled.launches_per_solve(*cell[3:5])
+            want = {"cluster": int(route == "cluster"), "tiles": tiles * (route == "tiles")}
         print(f"{label}: plan route {plan.route}, {plan.clusters} CTAs per problem, "
               f"{plan.rows} rows per band, {plan.ctas} CTAs, {plan.smem} B of shared memory per "
-              f"CTA, {active} clusters resident at once")
-        admm_fused.admm_tv_fused.route_launches = {"resident": 0, "global": 0}
+              f"CTA{'' if plan.route != 'cluster' else ', ' + plan.own + ' own-row planes'}, "
+              f"{active} clusters resident at once")
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
         err = hold_to_plain(label, kernel, plain, x0, show_counts=True, spread=ADMM_SPREAD)
-        got = admm_fused.admm_tv_fused.route_launches
-        require(got == {"resident": int(route == "resident"), "global": int(route == "global")},
-                f"{label}: expected one launch on the {route} route, got {got}")
-        return err
+        got = fn.route_launches
+        require(got == want, f"{label}: expected one solve on the {route} route, got {got}")
+        return err, plan
 
     def pair(cell, wrapper, taps, prox="none"):
         _, _, lam, iters, cg, tv = cell
@@ -861,24 +873,31 @@ def admm_kernel_phase(dev, cases):
         kernel, plain = pair(cell, wrapper, taps)
         label4 = f"{wrapper.__name__}[{n}², batch 4, positive]"
         pair4 = pair(cell, wrapper, taps, "positive")
+        x4 = x0[:4].contiguous()
         if wrapper is admm_fused.admm_tv_fused:
-            err = hold_on_route(label, kernel, plain, x0, "resident")
-            err = max(err, hold_on_route(label4, *pair4, x0[:4].contiguous(), "resident"))
+            err, plan = hold_on_route(label, kernel, plain, x0, "resident")
+            err = max(err, hold_on_route(label4, *pair4, x4, "resident")[0])
             # the global route: rows too wide for a band, x0hat = AᴴA of noise
             B, H, W = ADMM_WIDE
             wide = torch.from_numpy(np.random.default_rng(11).normal(size=ADMM_WIDE)
                                     .astype(np.float32)).to(dev)
             wide = _fgp_common.sepconv_stencil_normal(wide, *taps).contiguous()
             err = max(err, hold_on_route(f"{wrapper.__name__}[{B} x {H}x{W}, global route]",
-                                         kernel, plain, wide, "global"))
+                                         kernel, plain, wide, "global")[0])
         else:
-            err = hold_to_plain(label, kernel, plain, x0, show_counts=True, spread=ADMM_SPREAD)
-            err = max(err, hold_to_plain(label4, *pair4, x0[:4].contiguous(), show_counts=True,
-                                         spread=ADMM_SPREAD))
+            err, plan = hold_on_route(label, kernel, plain, x0, "cluster")
+            err = max(err, hold_on_route(label4, *pair4, x4, "cluster")[0])
+            # the row tiles at batch 4, `tile_rows` as the card would pick it
+            tile_rows = admm_tiled.pick_tile_rows(
+                n, 4, torch.cuda.get_device_properties(dev).multi_processor_count)
+            tiles4 = pair(cell, lambda *a, **kw: wrapper(*a, tile_rows=tile_rows, **kw), taps,
+                          "positive")
+            err = max(err, hold_on_route(f"{label4}, row tiles of {tile_rows}", *tiles4, x4,
+                                         "tiles", tile_rows)[0])
         live = kernel(x0)[1].tolist()
         ms = alternate_ms(lambda: plain(x0), lambda: kernel(x0), reps=3)
         print(f"{label}: kernel {ms[1]:.3f} ms, plain {ms[0]:.3f} ms")
-        out[wrapper.__name__] = {"err": err, "ms": ms, "live": live}
+        out[wrapper.__name__] = {"err": err, "ms": ms, "live": live, "plan": plan}
     # each size on the other kernel, timed only (the dispatch stays
     # ≤ 256² → fused)
     wrappers = [w for _, w, _ in cases]
@@ -894,8 +913,9 @@ def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
     """An ADMM-TV cell of tools/bench_suite.py through solve_batched_fast:
     the phantoms `imgs` (batch, n²) blurred by the cell's operator, the
     launch counters set to 0 just before the solve and read just after
-    (they must equal `launches`, every other counter 0, and the fused
-    kernel's on its resident route), two columns held
+    (they must equal `launches`, every other counter 0, the fused
+    kernel's on its resident route and the tiled kernel's on its cluster
+    route), two columns held
     to a float64 solve of the plain version on the card, problems/s, and
     the device breakdown of one solve. With `composed`, the same through
     solve_batched_unrolled (the composed ADMM: one TV kernel launch per
@@ -930,6 +950,13 @@ def admm_cell_phase(name, cell, dev, imgs, launches, composed=False):
             routes = admm_fused.admm_tv_fused.route_launches
             require(routes == {"resident": want["admm_tv_fused"], "global": 0},
                     f"{label}: the fused kernel's routes {routes}, not the resident one")
+        if "admm_tv_tiled" in want:
+            from rls_tpu_torch.kernels import admm_tv_tiled as admm_tiled
+
+            routes = admm_tiled.admm_tv_tiled.route_launches
+            print(f"routes ({label}): admm_tv_tiled {routes}")
+            require(routes == {"cluster": want["admm_tv_tiled"], "tiles": 0},
+                    f"{label}: the tiled kernel's routes {routes}, not the cluster one")
         require(tuple(x.shape) == (n * n, batch), f"{label}: shape {tuple(x.shape)}")
         parity_f64(label, x, B, xs, op64, x64)
         ms = cuda_ms(lambda: solve(solver, B), reps=3)
@@ -2226,7 +2253,6 @@ def main() -> int:
     from rls_tpu_torch.kernels import fista_tv_fused as fused
     from rls_tpu_torch.kernels import fista_tv_tiled as tiled
     from rls_tpu_torch.kernels import tv_fgp
-    from rls_tpu_torch.kernels.admm_tv_tiled import launches_per_solve
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2549,8 +2575,7 @@ def main() -> int:
     for name, cell, imgs, want, composed in (
         ("admm_tv_deblur256_b16_fused", ADMM256,
          np.broadcast_to(img_admm, (ADMM256[1], img_admm.size)), {"admm_tv_fused": 1}, True),
-        ("admm_tv_512_tiled_b16", ADMM512, imgs512,
-         {"admm_tv_tiled": launches_per_solve(*ADMM512[3:5])}, False),
+        ("admm_tv_512_tiled_b16", ADMM512, imgs512, {"admm_tv_tiled": 1}, False),
     ):
         kernel = next(iter(want))
         counts, library[kernel] = admm_cell_phase(name, cell, dev, imgs, want, composed)
@@ -2584,6 +2609,10 @@ def main() -> int:
         n, batch, _, iters, _, tv = cell
         ops = sum(admm_ops(ntap_h, ntap_w, tv, iters, v, False) for v in admm[name]["live"])
         bounds[name] = bound(ops * n * n, f32 * (2 * batch * n * n + batch))
+        plan = admm[name]["plan"]
+        print(f"{name} at {n}² x {batch}: {plan.route} route ({plan.clusters} CTAs per problem, "
+              f"{plan.rows} rows per band), {admm[name]['launches']} launch(es) on the main "
+              f"path, kernel {admm[name]['ms'][1]:.3f} ms, bound {bounds[name][0]:.4f} ms")
     # the dense kernels at their timed shapes: A, b and λ or [λ, ρ, θ] read,
     # x written; CGNR 2mn for Aᴴb and 4mn + 10n per step, the dense PGM
     # solves as `dense_pgm_ops` counts them
@@ -3407,6 +3436,117 @@ def time_tiled(dev, out):
         k3.fista_tv_tiled(*args5, tile_rows=tiles5))
 
 
+def time_admm_tiled(dev, out):
+    """``--time-admm-tiled [ROOT]``: row 5 at the admm_tv_512_tiled_b16
+    cell (16 × 512², ρ = 0.1, λ = 5e-4, 10 × 5 × 10, tol_inner 1e-5, the
+    9 × 9 Gaussian) on the route its planner takes, in turns with the row
+    tiles (``tile_rows`` forced: the parent's kernel); where ROOT's row 5
+    has the cluster route, c = 14, 15 and 16 in turns and CTA 0's clocks by
+    phase; the cell's composed solve_batched_unrolled; 8 × 1024² on the row
+    tiles beside its composed solve, once each; 16 × 384² on row 4, on row
+    5's plan, on three planes forced and on the row tiles; each case's
+    device time by torch.profiler; rows 2, 3 and 4 at their cells (the
+    flagship, fista_tv_512_tiled_b16, admm_tv_deblur256_b16) as controls;
+    sha256 digests of x from rows 2–5 (and row 4's global route) and of
+    row 5's live CG steps."""
+    import torch
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import _fgp_common
+    from rls_tpu_torch.kernels import admm_tv_fused as k4
+    from rls_tpu_torch.kernels import admm_tv_tiled as k5
+    from rls_tpu_torch.kernels import fista_tv_fused as k2
+    from rls_tpu_torch.kernels import fista_tv_tiled as k3
+
+    out["kernel"] = os.path.relpath(k5.__file__, ROOT)
+    cluster = hasattr(k5, "plan_admm_tv_tiled")
+    draws = bench_suite_draws()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def problem(cell, imgs):
+        solver = build_admm(cell, dev)
+        B = solver.A.mv(torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)).T.contiguous()
+        x0 = solver.A.rmv_stencil(B.T).reshape(-1, cell[0], cell[0]).contiguous()
+        _, _, lam, iters, cg, tv = cell
+        return solver, B, (x0, solver.A.taps_hw(), ADMM_RHO, lam, iters, cg, tv, ADMM_TOL)
+
+    s5, B5, args5 = problem(ADMM512, draws[512])
+    tiles5 = k5.pick_tile_rows(512, 16, sms)
+    row5 = [("512² x 16 row 5 default route", lambda: k5.admm_tv_tiled(*args5), 3),
+            (f"512² x 16 row 5 tiles (tile_rows {tiles5})",
+             lambda: k5.admm_tv_tiled(*args5, tile_rows=tiles5), 3)]
+    time_cases(out, row5, in_turns=True)
+    cases = list(row5)
+    if cluster:
+        out["512² x 16 row 5 plan"] = dict(vars(k5.plan_on_card(*args5[:2])[0]))
+        forced = [(f"512² x 16 row 5 cluster c = {c}", lambda c=c: k5._run(*args5, clusters=c),
+                   3) for c in (14, 15, 16)]
+        time_cases(out, forced, in_turns=True)
+        out["512² x 16 row 5 clocks of CTA 0 by phase"] = k5.phase_clocks(*args5)
+        cases += forced
+    composed5 = [("512² x 16 composed solve_batched_unrolled",
+                  lambda: rtt.solve_batched_unrolled(s5, B5), 1)]
+    time_cases(out, composed5)
+    cases += composed5
+    # 8 × 1024² on the row tiles beside its composed solve, once each
+    s10, B10, args10 = problem((1024, 8) + ADMM512[2:], draws[1024])
+    big = [("1024² x 8 row 5", lambda: k5.admm_tv_tiled(*args10), 1),
+           ("1024² x 8 composed solve_batched_unrolled",
+            lambda: rtt.solve_batched_unrolled(s10, B10), 1)]
+    for name, fn, reps in big:
+        fn()
+        out[f"{name} ms"] = [cuda_ms(fn, reps)]
+        out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in device_kernels(fn))]
+    if cluster:
+        out["1024² x 8 row 5 plan"] = dict(vars(k5.plan_on_card(*args10[:2])[0]))
+    del s10, B10, args10
+    # 16 × 384²: row 4, and row 5 on its plan (five planes where they fit),
+    # on three planes forced and on its row tiles
+    _, _, args4 = problem((384, 16) + ADMM512[2:], draws[512].reshape(16, 512, 512)
+                          [:, :384, :384].reshape(16, -1))
+    tiles4 = k5.pick_tile_rows(384, 16, sms)
+    edge = [("384² x 16 row 4", lambda: k4.admm_tv_fused(*args4), 3),
+            (f"384² x 16 row 5 tiles (tile_rows {tiles4})",
+             lambda: k5.admm_tv_tiled(*args4, tile_rows=tiles4), 3)]
+    if cluster:
+        c4 = k5.plan_on_card(*args4[:2])[0].clusters
+        edge += [("384² x 16 row 5 default route", lambda: k5.admm_tv_tiled(*args4), 3),
+                 (f"384² x 16 row 5 three planes, c = {c4}",
+                  lambda: k5._run(*args4, clusters=c4, own="global"), 3)]
+        out["384² x 16 row 5 plan"] = dict(vars(k5.plan_on_card(*args4[:2])[0]))
+        out["384² x 16 row 4 plan"] = dict(vars(k4.plan_on_card(*args4[:2])[0]))
+    time_cases(out, edge, in_turns=True)
+    cases += edge
+    device_ms(out, cases)
+    # rows 2, 3 and 4 at their cells, the controls
+    s2, B2, _ = build_flagship(dev)
+    x2 = s2.A.rmv_stencil(B2.T).reshape(BATCH, N, N)
+    s3 = build_solver(512, dev)
+    B3 = s3.A.mv(torch.from_numpy(draws[512]).to(dev)).T.contiguous()
+    x3 = s3.A.rmv_stencil(B3.T).reshape(16, 512, 512).contiguous()
+    _, _, args256 = problem(ADMM256, phantoms(batch=ADMM256[1]))
+    wide = torch.from_numpy(np.random.default_rng(11).normal(size=ADMM_WIDE)
+                            .astype(np.float32)).to(dev)
+    wide = _fgp_common.sepconv_stencil_normal(wide, *args256[1]).contiguous()
+    controls = {
+        "row 2 fista_tv_fused, flagship":
+            lambda: k2.fista_tv_fused(x2, s2.A.taps_hw(), RHO, LAM, ITERS, TV_ITERS),
+        "row 3 fista_tv_tiled, 512² x 16":
+            lambda: k3.fista_tv_tiled(x3, s3.A.taps_hw(), RHO, LAM, ITERS, TV_ITERS),
+        "row 4 admm_tv_fused, 256² x 16": lambda: k4.admm_tv_fused(*args256),
+    }
+    ctl = [(name, fn, 3) for name, fn in controls.items()]
+    time_cases(out, ctl, in_turns=True)
+    device_ms(out, ctl)
+    for name, fn in controls.items():
+        out[f"sha256 of x: {name}"] = digest(fn())
+    out["sha256 of x: row 4 global route"] = digest(k4.admm_tv_fused(wide, *args256[1:]))
+    for name, kw in (("default route", {}), ("tiles", {"tile_rows": tiles5})):
+        x, live = k5.admm_tv_tiled(*args5, with_counts=True, **kw)
+        out[f"sha256 of x: 512² x 16 row 5 {name}"] = digest(x)
+        out[f"sha256 of live CG steps: 512² x 16 row 5 {name}"] = digest(live)
+        out[f"live CG steps: 512² x 16 row 5 {name}"] = live.tolist()
+
+
 def time_pgm_dense(dev, out):
     """``--time-pgm-dense [ROOT]``: the dense PGM kernel (row 7a) at the
     fista_l1_dense_cs_b16_fused cell (16 × 256 × 512, FISTA, λ = 1e-4, ρ =
@@ -3574,6 +3714,7 @@ TIME_MODES = {
     "--time-admm": time_admm,
     "--time-tv-fgp": time_tv_fgp,
     "--time-tiled": time_tiled,
+    "--time-admm-tiled": time_admm_tiled,
     "--time-library": time_library,
     "--time-pgm-dense": time_pgm_dense,
 }

@@ -99,6 +99,12 @@ _SIGNATURES = {
     "admm_tv_cluster_launch": (
         _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
     ),
+    # the same two for row 5's cluster route (three planes of a band in
+    # shared memory)
+    "admm_tv_tiled_cluster_occupancy": (_I, _I, _I, _P),
+    "admm_tv_tiled_cluster_launch": (
+        _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P,
+    ),
     # (x0hat, scal, t2, taps, kh, kw, planes, window, partial, state, counts,
     #  B, H, W, tile_rows, iterations, cg_iterations, tv_iterations,
     #  tol_inner, positive, stream)

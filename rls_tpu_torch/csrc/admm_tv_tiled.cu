@@ -1,14 +1,27 @@
-// The row-tiled batched ADMM-TV solve: one CTA per (row tile, problem), a
-// fixed sequence of launches per outer iteration.
+// Row 5, the ADMM-TV solve for images whose bands fit no cluster with five
+// planes in shared memory, on one of two routes that the host planner
+// (kernels/admm_tv_tiled.py plan_admm_tv_tiled) picks by shape:
+//
+// * cluster: the whole solve in one launch on the resident route of the
+//   ADMM-TV kernels (admm_tv_cluster.cuh), each problem on a thread-block
+//   cluster of c <= 16 CTAs with the three planes of its band that another
+//   band reads in shared memory and the rest in global memory (512^2 x 16:
+//   c = 16, 32-row bands, 198,784 B a CTA); its entry points are at the end
+//   of this file (with all five planes on chip, where they fit, the planner
+//   launches row 4's: admm_tv_fused.cu);
+// * tiles: the row-tiled solve below, one CTA per (row tile, problem), a
+//   fixed sequence of launches per outer iteration, for images whose bands
+//   fit no cluster even with three planes (1024^2), and for a caller's
+//   forced tile_rows.
 //
 // Replaces the TPU kernel rls_tpu/kernels/admm_tv_tiled.py:_kernel
 // (:50-160; launched by admm_tv_tiled, :183, pallas_call :226): the same
 // solve as admm_tv_fused.cu (masked CG on the exact stencil Gram, the
 // Positive projection, the fold FGP z-update, the dual update). The TPU
-// kernel tiles the z-update to fit VMEM and keeps the CG untiled; on an
-// H100 tiling is what spreads one problem over many CTAs: the fused kernel
-// runs a problem in one CTA, so 16 images of 512^2 would light 16 of 132
-// SMs; at 64-row tiles it is 128 CTAs here.
+// kernel tiles the z-update to fit VMEM and keeps each problem's CG untiled
+// and its carries resident for the whole solve, as the cluster route does;
+// on an H100 the row tiles are what spreads one problem over many CTAs
+// where no cluster holds its bands: at 64-row tiles 512^2 x 16 is 128 CTAs.
 //
 // Each CG step needs two sums over the whole image (p.q before its update,
 // r.r after it), and CTAs cannot wait for each other inside a launch. So
@@ -33,18 +46,19 @@
 // it reads from state[L % 2][b]; tile 0 stores the new state in
 // state[(L + 1) % 2][b]. No atomics: a result is the same run to run.
 //
-// What bounds it on an H100: every plane lives in global memory; a CG step
-// is two launches of four stencil passes and two pointwise sweeps over
-// the tile, so at 512^2 x 16 (64-row tiles, 128 CTAs) the step is short and
-// the launches' fixed costs (launch latency, the tail of each wave, the
-// tile sums) weigh as much as the sweeps. The z-update recomputes
+// What bounds the tiles on an H100: every plane lives in global memory; a
+// CG step is two launches of four stencil passes and two pointwise sweeps
+// over the tile, so at 512^2 x 16 (64-row tiles, 128 CTAs) the step is
+// short and the launches' fixed costs (launch latency, the tail of each
+// wave, the tile sums) weigh as much as the sweeps. The z-update recomputes
 // (TR + 2 (tv_iterations + 2)) / TR of the rows (1.4x at TR = 64, 10 dual
-// iterations). Fewer launches (D merged into the next A) and windows in
-// shared memory are later work.
+// iterations). The cluster route has none of these costs: one launch, no
+// halo, the sums over the cluster in DSMEM.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 
+#include "admm_tv_cluster.cuh"
 #include "admm_tv_common.cuh"
 
 namespace {
@@ -278,6 +292,32 @@ int admm_tv_tiled_launch(const void* x0hat, const void* scal, const void* t2tab,
         if (err != cudaSuccess) return static_cast<int>(err);
     }
     return 0;
+}
+
+// The cluster route (three planes of a band in shared memory): its shared
+// memory per CTA for bands of `rows` rows of width W (the planner's check),
+// and how many clusters of `clusters` CTAs the current device holds at once
+// (cudaOccupancyMaxActiveClusters): out[0], out[1].
+int admm_tv_tiled_cluster_occupancy(int clusters, int rows, int W, long long* out) {
+    return rls::admm_cluster::occupancy<false>(clusters, rows, W, out);
+}
+
+// The cluster route: x0hat, scal, t2tab, taps, counts as for
+// admm_tv_fused_launch; out (B, H, W); scratch 7 planes of (B, H, W) (z, u,
+// r, ph, t3, xg, pv); prof null or kPhases int64 that receive CTA 0's
+// clocks per phase; the plan: `clusters` CTAs per problem, bands of `rows`
+// rows, `smem` bytes of shared memory per CTA. Returns
+// cudaErrorInvalidValue for a plan that does not cover H or whose smem
+// differs from cluster_smem_bytes, else the launch's error.
+int admm_tv_tiled_cluster_launch(const void* x0hat, const void* scal, const void* t2tab,
+                                 const void* taps, int kh, int kw, void* out, void* scratch,
+                                 void* counts, void* prof, int B, int H, int W, int iterations,
+                                 int cg_iterations, int tv_iterations, float tol_inner,
+                                 int positive, int clusters, int rows, int smem, void* stream) {
+    return rls::admm_cluster::launch<false>(x0hat, scal, t2tab, taps, kh, kw, out, scratch,
+                                            counts, prof, B, H, W, iterations, cg_iterations,
+                                            tv_iterations, tol_inner, positive, clusters, rows,
+                                            smem, stream);
 }
 
 }  // extern "C"

@@ -25,10 +25,12 @@ shape (``csrc/admm_tv_fused.cu``):
 
 * resident: each problem on a thread-block cluster of c ≤ 16 CTAs, one
   band of image rows per CTA, the five planes read at other bands' rows
-  in shared memory for the whole solve (the PGM-TV kernel's band design,
-  sharing its banded Gram passes and fold FGP), the CG's sums in double
-  over the cluster in rank order (BASELINE #3 at 256² × 16: 6 bands of
-  43 rows, the 16 problems in one wave);
+  or at neighbouring pixels in shared memory for the whole solve (the
+  resident body ``csrc/admm_tv_cluster.cuh``, which row 5's cluster route
+  runs with three of them; on the PGM-TV kernel's banded Gram passes and
+  fold FGP), the CG's sums in double over the cluster in rank order
+  (BASELINE #3 at 256² × 16: 6 bands of 43 rows, the 16 problems in one
+  wave);
 * global: one CTA per problem with its planes in global scratch, for a
   row so wide that no band fits (about W > 11,500).
 
@@ -73,26 +75,29 @@ PROXES = ("none", "positive")
 # route, which plans images past it (300², 512²); the boundary between the
 # two kernels is not measured yet
 FUSED_MAX_PIXELS = 256 * 256
-# the kernel's threads per CTA, the resident route's shared-memory planes
-# and its largest cluster (the non-portable size; csrc/admm_tv_fused.cu)
-THREADS, PLANES, MAX_CLUSTER = 1024, 5, 16
-# the phases of the resident route's timer (csrc/admm_tv_fused.cu kPhases)
+# the kernels' threads per CTA, the resident route's planes of a band in
+# shared memory (all five, or three: row 5's cluster route) and its largest
+# cluster (the non-portable size; csrc/admm_tv_cluster.cuh)
+THREADS, PLANES, SHARED_PLANES, MAX_CLUSTER = 1024, 5, 3, 16
+# the phases of the resident route's timer (csrc/admm_tv_cluster.cuh kPhases)
 PHASES = ("set-up", "gram", "cg vector sweeps", "cluster sums", "fgp sweeps",
           "cluster barriers", "z-update")
 # global scratch planes of (B, H, W): the resident route's own-pixel planes
-# (z, u, r, q and the dual ph), and the global route's z, u, r, p, q, two
-# stencil temporaries, xg and the four FGP duals
-RESIDENT_SCRATCH, GLOBAL_SCRATCH = 5, 12
+# (z, u, r, the dual ph and q), with three planes in shared memory z, u, r,
+# ph, t3, xg and pv (q in shared memory); the global route's z, u, r, p, q,
+# two stencil temporaries, xg and the four FGP duals
+RESIDENT_SCRATCH, THREE_PLANE_SCRATCH, GLOBAL_SCRATCH = 5, 7, 12
 
 
-def cluster_smem_bytes(rows, W):
+def cluster_smem_bytes(rows, W, own_shared=True):
     """Shared memory of a resident CTA whose band has `rows` rows of width
-    W, as ``cluster_smem_bytes`` in csrc/admm_tv_fused.cu counts it: five
-    planes (each rounded up to 4 floats), the block sums (3 × 32 float64),
-    the CTA's two slots and the cluster's sums (4 float64 each), the phase
-    timer, the DSMEM row table (rows + 2·HALO pointers) and the taps (2 ×
-    MAX_TAPS f32)."""
-    return (4 * PLANES * cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 12)
+    W, as ``cluster_smem_bytes`` in csrc/admm_tv_cluster.cuh counts it:
+    five planes (three where not `own_shared`; each rounded up to 4
+    floats), the block sums (3 × 32 float64), the CTA's two slots and the
+    cluster's sums (4 float64 each), the phase timer, the DSMEM row table
+    (rows + 2·HALO pointers) and the taps (2 × MAX_TAPS f32)."""
+    planes = PLANES if own_shared else SHARED_PLANES
+    return (4 * planes * cdiv(rows * W, 4) * 4 + 8 * (3 * (THREADS // 32) + 12)
             + 8 * len(PHASES) + 8 * (rows + 2 * HALO) + 4 * 2 * MAX_TAPS)
 
 
@@ -158,16 +163,16 @@ def plan_admm_tv(B, H, W, kh, kw, resident, sms=SMS, smem_max=SMEM_MAX,
 
 
 @functools.lru_cache(maxsize=None)
-def resident_limits(index, clusters, rows, W):
+def resident_limits(index, clusters, rows, W, own_shared=True):
     """(shared memory per CTA as the kernel counts it, clusters of the
-    resident kernel that device `index` holds at once:
-    ``cudaOccupancyMaxActiveClusters``)."""
+    resident kernel with five planes of a band in shared memory, or three,
+    that device `index` holds at once: ``cudaOccupancyMaxActiveClusters``)."""
     from .. import _build
 
+    name = "admm_tv_cluster_occupancy" if own_shared else "admm_tv_tiled_cluster_occupancy"
     out = (ctypes.c_longlong * 2)()
     with torch.cuda.device(index):
-        _build.check(_build.load_library().admm_tv_cluster_occupancy(clusters, rows, W, out),
-                     "admm_tv_cluster_occupancy")
+        _build.check(getattr(_build.load_library(), name)(clusters, rows, W, out), name)
     return out[0], out[1]
 
 
@@ -261,15 +266,19 @@ def check_prox(prox):
         raise ValueError(f"unknown prox {prox!r}; the ADMM-TV kernels take {PROXES}")
 
 
-def _launch(x0hat, scal, t2tab, taps, iterations, cg_iterations, tol_inner, prox,
-            clusters=None, prof=None):
+def launch_plan(plan, x0hat, scal, t2tab, taps, iterations, cg_iterations, tol_inner, prox,
+                prof=None):
+    """One launch of an ADMM-TV kernel on `plan`: a cluster of
+    ``plan.clusters`` CTAs per problem, bands of ``plan.rows`` rows, five
+    planes of a band in shared memory where ``plan.own`` is "shared" (or
+    the plan has no `own`: row 4's entry point), else three (row 5's), and
+    ``plan.scratch`` global planes; or the global route. `x0hat` (B, H, W)
+    float32 contiguous on a CUDA device, `prof` null or the phase timer's
+    int64 planes. Returns ``(x, counts)``; raises on a refused launch."""
     from .. import _build
 
     B, H, W = x0hat.shape
     taps_h, taps_w = (tuple(float(t) for t in v) for v in taps)
-    plan, _ = plan_on_card(x0hat, taps, clusters)
-    if prof is not None and plan.route != "resident":
-        raise ValueError(f"admm_tv_fused: the phase timer is on the resident route, not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
     taps_t = shared_table(_taps_table, taps_h, taps_w, device=dev)
@@ -282,16 +291,29 @@ def _launch(x0hat, scal, t2tab, taps, iterations, cg_iterations, tol_inner, prox
              int(prox == "positive"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.route == "resident":
-            code = lib.admm_tv_cluster_launch(
-                *args, None if prof is None else prof.data_ptr(), *sched, plan.clusters,
-                plan.rows, plan.smem, stream)
-        else:
+        if plan.route == "global":
             code = lib.admm_tv_fused_launch(*args, *sched, stream)
-    _build.check(code, f"admm_tv_fused ({B} x {H}x{W}, {plan})")
+        else:
+            # five planes: row 4's entry (admm_tv_fused.cu); three: row 5's
+            # (admm_tv_tiled.cu); one kernel body (admm_tv_cluster.cuh)
+            launch = (lib.admm_tv_cluster_launch if getattr(plan, "own", "shared") == "shared"
+                      else lib.admm_tv_tiled_cluster_launch)
+            code = launch(*args, None if prof is None else prof.data_ptr(), *sched,
+                          plan.clusters, plan.rows, plan.smem, stream)
+    _build.check(code, f"ADMM-TV kernel ({B} x {H}x{W}, {plan})")
+    return out, counts
+
+
+def _launch(x0hat, scal, t2tab, taps, iterations, cg_iterations, tol_inner, prox,
+            clusters=None, prof=None):
+    plan, _ = plan_on_card(x0hat, taps, clusters)
+    if prof is not None and plan.route != "resident":
+        raise ValueError(f"admm_tv_fused: the phase timer is on the resident route, not {plan}")
+    out = launch_plan(plan, x0hat, scal, t2tab, taps, iterations, cg_iterations, tol_inner,
+                      prox, prof)
     admm_tv_fused.launches += 1
     admm_tv_fused.route_launches[plan.route] += 1
-    return out, counts
+    return out
 
 
 def admm_tv_fused(

@@ -32,8 +32,11 @@ in shared memory (512², the ``fista_tv_512_tiled_b16`` cell of
 ``tools/bench_suite.py``) or walks row tiles where even three fit no
 band (1024², ``fista_tv_1024_tiled_b8``). The ADMM-TV rows keep a pixel
 rule (``admm_tv_fused.FUSED_MAX_PIXELS``): more than 256² pixels go to
-the tiled ADMM-TV kernel, though the fused one's planner
-(``plan_admm_tv``) puts larger images on a cluster too.
+the tiled ADMM-TV row, whose planner (``plan_admm_tv_tiled``) puts each
+problem on a cluster with all five planes of a band in shared memory
+where they fit (row 4's placement, up to 416²), with three at 512²
+(``admm_tv_512_tiled_b16``), and walks row tiles where even three fit no
+band (1024²).
 The PDHG row has no size rule: its kernel's planner (``plan_pdhg``) puts
 each problem on a cluster, or one CTA per problem where a row is too wide
 for any band.

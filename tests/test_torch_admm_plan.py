@@ -9,11 +9,12 @@ that the shared-memory count is the kernel's, and that a shape with no
 route raises and names itself.
 
 The model: the ADMM-TV solve computed band by band in float64, as the
-resident kernel's CTAs compute it (csrc/admm_tv_fused.cu), each band
+resident kernel's CTAs compute it (csrc/admm_tv_cluster.cuh), each band
 reading another band's rows only as they stood at the last cluster
-barrier, on the kernel's five shared planes S0–S4 as it reuses them, with
-the CG's sums taken per band and added in rank order through two sum
-slots. It is held against ``admm_tv_fused_torch`` in float64 with equal
+barrier, on the kernel's planes as it reuses them (five shared planes
+S0–S4 here; row 5's three-plane placement in
+tests/test_torch_admm_tiled_plan.py), with the CG's sums taken per band
+and added in rank order through two sum slots. It is held against ``admm_tv_fused_torch`` in float64 with equal
 live CG steps, and it checks the barrier table of the kernel's header:
 a plane (or sum slot) that a band reads from another band between two
 cluster barriers must not be written between them, so that dropping any
@@ -189,21 +190,27 @@ def test_cluster_smem_bytes_counts_every_piece():
 
 def test_the_planner_reads_the_kernel_s_constants():
     """Threads, planes, the largest cluster, the phases and the
-    shared-memory count as csrc/admm_tv_fused.cu states them."""
-    src = (CSRC / "admm_tv_fused.cu").read_text()
+    shared-memory count as csrc/admm_tv_cluster.cuh, the resident body,
+    states them; row 4's entry points call its five-plane placement."""
+    src = (CSRC / "admm_tv_cluster.cuh").read_text()
     assert re.findall(r"constexpr int kThreads = (\d+);", src) == [str(admm.THREADS)]
-    assert re.findall(r"constexpr int kPlanes = (\d+);", src) == [str(admm.PLANES)]
+    assert re.findall(r"constexpr int kAllPlanes = (\d+);", src) == [str(admm.PLANES)]
     assert re.findall(r"constexpr int kMaxCluster = (\d+);", src) == [str(admm.MAX_CLUSTER)]
     phases = re.search(r"enum \{\s*(kSetup[^}]*)\}", src).group(1)
     names = [p.strip() for p in phases.split(",") if p.strip()]
     assert names[-1] == "kPhases" and len(names) - 1 == len(admm.PHASES)
-    smem = re.search(r"cluster_smem_bytes\(int rows, int W\) \{(.*?)\n\}", src, re.S).group(1)
-    for piece in ("sizeof(float) * kPlanes * rls::band_plane_floats(rows, W)",
+    smem = re.search(r"cluster_smem_bytes\(int rows, int W, bool own_shared\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    for piece in ("sizeof(float) * (own_shared ? kAllPlanes : kSharedPlanes)",
+                  "rls::band_plane_floats(rows, W)",
                   "sizeof(double) * (3 * (kThreads / 32) + 12)",
                   "sizeof(long long) * kPhases",
                   "sizeof(const float*) * (rows + 2 * kHalo)",
                   "sizeof(float) * 2 * kMaxTaps"):
         assert piece in smem
+    fused = (CSRC / "admm_tv_fused.cu").read_text()
+    for entry in ("occupancy", "launch"):
+        assert f"rls::admm_cluster::{entry}<true>(" in fused
 
 
 @pytest.mark.parametrize("W,widest", [(11_525, 11_524), (20_000, 11_524)])
@@ -267,26 +274,39 @@ class Hazard(AssertionError):
 
 # the header's table: the barriers of one outer iteration, and Be
 BARRIERS = ("Bx", "Bt", "Ss", "Sq", "Sr", "Bp", "Bf0", "Bf1", "Bf2", "Bf3", "Be")
-SHARED = ("S0", "S1", "S2", "S3", "S4")
+# the physical home of each role in the two placements (the slot table of
+# csrc/admm_tv_cluster.cuh): a shared-memory plane, or global memory (G…);
+# x, z, u and r are global planes read at their own pixel only
+HOMES = {
+    "five": {"gin": "S0", "t1": "S1", "t2": "S2", "t3": "S3", "q": "Gq", "xg": "S2",
+             "xg_own": "S2", "rv": "S1", "rh": "S3", "y": "S0", "pv": "S4", "ph": "Gph",
+             "p": "S4"},
+    "three": {"gin": "S2", "t1": "S1", "t2": "S0", "t3": "Gt3", "q": "S0", "xg": "S2",
+              "xg_own": "Gxg", "rv": "S1", "rh": "S0", "y": "S2", "pv": "Gpv", "ph": "Gph",
+              "p": "S1"},
+}
+SHARED = {"five": ("S0", "S1", "S2", "S3", "S4"), "three": ("S0", "S1", "S2")}
 
 
 class ResidentModel:
-    """The resident route's shared planes S0–S4 and sum slots, band by band.
-    A band reads its own rows as they stand; another band's rows as they
-    stood at the last cluster barrier (`barrier` publishes every band's
-    planes); rows past the image as zero. Between two barriers the planes
+    """The resident route's planes and sum slots, band by band, in one
+    placement's homes (`HOMES`). A band reads its own rows as they stand;
+    another band's rows as they stood at the last cluster barrier
+    (`barrier` publishes every band's planes), and only of a shared-memory
+    plane; rows past the image as zero. Between two barriers the planes
     read from another band and the planes written must not meet (`barrier`
     raises Hazard): the kernel's rule for distributed shared memory. A
     barrier named in `dropped` is not there."""
 
-    def __init__(self, plan, like, dropped=(), slots=2):
+    def __init__(self, plan, like, dropped=(), slots=2, placement="five"):
         self.plan, self.dropped, self.slots = plan, set(dropped), slots
+        self.home, self.shared = HOMES[placement], SHARED[placement]
         self.B, self.H, self.W = like.shape
         self.bands = range(plan.clusters)
-        self.live = [{n: self.band(like * 0.0, q).clone() for n in SHARED} for q in self.bands]
+        self.live = [{} for _ in self.bands]
         self.slot = [[None] * slots for _ in self.bands]
         self.parity = 0
-        self.published = [dict(planes) for planes in self.live]
+        self.published = [{} for _ in self.bands]
         self.read_remote, self.written = set(), set()
 
     def band(self, plane, q):
@@ -302,12 +322,17 @@ class ResidentModel:
         self.published = [dict(planes) for planes in self.live]
         self.read_remote, self.written = set(), set()
 
-    def write(self, q, name, value):
-        self.written.add(name)
-        self.live[q][name] = value
+    def get(self, q, role):
+        return self.live[q][self.home[role]]
 
-    def rows(self, q, name, lo, hi):
-        """Image rows lo … hi − 1 of plane `name` as band q sees them."""
+    def put(self, q, role, value):
+        home = self.home[role]
+        self.written.add(home)
+        self.live[q][home] = value
+
+    def rows(self, q, role, lo, hi):
+        """Image rows lo … hi − 1 of `role` as band q sees them."""
+        home = self.home[role]
         out = []
         for r in range(lo, hi):
             if not 0 <= r < self.H:
@@ -315,16 +340,19 @@ class ResidentModel:
                 continue
             owner, lr = self.plan.locate(r)
             if owner == q:
-                out.append(self.live[q][name][:, lr])
-            else:
-                self.read_remote.add(name)
-                out.append(self.published[owner][name][:, lr])
+                out.append(self.live[q][home][:, lr])
+                continue
+            assert home in self.shared, f"{role} ({home}) read at another band's rows"
+            self.read_remote.add(home)
+            plane = self.published[owner].get(home)
+            out.append(torch.full((self.B, self.W), float("nan"), dtype=torch.float64)
+                       if plane is None else plane[:, lr])
         return torch.stack(out, dim=1)
 
-    def column_pass(self, q, name, taps, adjoint):
+    def column_pass(self, q, role, taps, adjoint):
         """stencil_pass along the rows on band q, halo rows from the others."""
         R, n, r0 = len(taps) // 2, self.plan.band_rows(q), q * self.plan.rows
-        ext = self.rows(q, name, r0 - R, r0 + n + R)
+        ext = self.rows(q, role, r0 - R, r0 + n + R)
         acc = None
         for k, t in enumerate(taps):
             s = (R - k) if adjoint else (k - R)
@@ -366,13 +394,15 @@ def _vsum(v):
 
 
 def resident_admm(x0hat, scal, t2tab, taps, iterations, cg, tol, prox, plan, dropped=(),
-                  slots=2):
+                  slots=2, placement="five"):
     """ADMM-TV by the resident route's sweeps and barriers, band by band, in
-    the order of the header of csrc/admm_tv_fused.cu; returns (x, live CG
-    steps). The global planes x, z, u, r, q and ph are read and written at
-    their own pixels; S0–S4 as the kernel reuses them."""
+    the order of the header of csrc/admm_tv_cluster.cuh, on the planes of
+    `placement` ("five": row 4's; "three": row 5's cluster route); returns
+    (x, live CG steps). The global planes x, z, u and r are read and
+    written at their own pixels; the rest in their homes as the kernel
+    reuses them."""
     taps_h, taps_w = taps
-    m = ResidentModel(plan, x0hat, dropped, slots)
+    m = ResidentModel(plan, x0hat, dropped, slots, placement)
     B, H, W = x0hat.shape
     rho, lam = scal[:, 0].view(-1, 1, 1), scal[:, 1].view(-1, 1, 1)
     lam_z = lam / (2.0 * torch.where(rho != 0, rho, torch.ones_like(rho)))
@@ -380,23 +410,23 @@ def resident_admm(x0hat, scal, t2tab, taps, iterations, cg, tol, prox, plan, dro
     # problem where any needs it and keeps xg where rho = 0
     fgp = (rho != 0) & (t2tab.shape[0] > 0)
     bands = list(m.bands)
-    g = {n: [m.band(x0hat * 0.0, q).clone() for q in bands] for n in ("x", "z", "u", "r", "q")}
+    g = {n: [m.band(x0hat * 0.0, q).clone() for q in bands] for n in ("x", "z", "u", "r")}
     x0 = [m.band(x0hat, q) for q in bands]
     live = torch.zeros(B, dtype=torch.int32)
-    for q in bands:  # the set-up: S0 = x = 0
-        m.write(q, "S0", g["x"][q])
+    for q in bands:  # the set-up: gin = x = 0
+        m.put(q, "gin", g["x"][q])
 
     def gram():
-        """band_gram_passes on S0 (S0 -> S1, Bt, S1 -> S2, S2 -> S3) and the
-        last pass: A^H A S0 on each band."""
+        """band_gram_passes on gin (gin -> t1, Bt, t1 -> t2, t2 -> t3) and
+        the last pass: A^H A gin on each band."""
         for q in bands:
-            m.write(q, "S1", m.column_pass(q, "S0", taps_h, False))
+            m.put(q, "t1", m.column_pass(q, "gin", taps_h, False))
         m.barrier("Bt")
         for q in bands:
-            m.write(q, "S2", m.column_pass(q, "S1", taps_h, True))
+            m.put(q, "t2", m.column_pass(q, "t1", taps_h, True))
         for q in bands:
-            m.write(q, "S3", stencil_pass(m.live[q]["S2"], taps_w, -1, False))
-        return [stencil_pass(m.live[q]["S3"], taps_w, -1, True) for q in bands]
+            m.put(q, "t3", stencil_pass(m.get(q, "t2"), taps_w, -1, False))
+        return [stencil_pass(m.get(q, "t3"), taps_w, -1, True) for q in bands]
 
     for _ in range(iterations):
         m.barrier("Bx")
@@ -406,62 +436,66 @@ def resident_admm(x0hat, scal, t2tab, taps, iterations, cg, tol, prox, plan, dro
             beta = x0[q] + rho * (g["z"][q] - g["u"][q])
             res = beta - (last[q] + rho * g["x"][q])
             g["r"][q] = res
-            m.write(q, "S0", res)
+            m.put(q, "gin", res)
             part.append(torch.stack([_vsum(beta * beta), _vsum(res * res)], dim=1))
         sums = m.cluster_sum(part, "Ss")
         target = tol * torch.sqrt(sums[:, 0])
         rz = sums[:, 1]
         for j in range(cg):
             last = gram()
-            p = [m.live[q]["S0"] for q in bands]
+            p = [m.get(q, "gin") for q in bands]
             for q in bands:
-                g["q"][q] = last[q] + rho * p[q]
-            pq = m.cluster_sum([_vsum(p[q] * g["q"][q]) for q in bands], "Sq")
+                m.put(q, "q", last[q] + rho * p[q])
+            pq = m.cluster_sum([_vsum(p[q] * m.get(q, "q")) for q in bands], "Sq")
             active = torch.sqrt(rz) > target
             live += active.to(torch.int32)
             denom = torch.where(pq == 0, torch.ones_like(pq), pq)
             alpha = torch.where(active, rz / denom, torch.zeros_like(rz)).view(-1, 1, 1)
             for q in bands:
                 g["x"][q] = g["x"][q] + alpha * p[q]
-                g["r"][q] = g["r"][q] - alpha * g["q"][q]
+                g["r"][q] = g["r"][q] - alpha * m.get(q, "q")
             rz_new = m.cluster_sum([_vsum(v * v) for v in g["r"]], "Sr")
             safe = torch.where(rz == 0, torch.ones_like(rz), rz)
             beta_c = torch.where(rz == 0, torch.zeros_like(rz), rz_new / safe).view(-1, 1, 1)
             if j + 1 < cg:  # after the last step p is not read again
                 for q in bands:
-                    m.write(q, "S0", torch.where(active.view(-1, 1, 1),
-                                                 g["r"][q] + beta_c * p[q], p[q]))
+                    m.put(q, "gin", torch.where(active.view(-1, 1, 1),
+                                                g["r"][q] + beta_c * p[q], p[q]))
                 m.barrier("Bp")
             rz = rz_new
-        for q in bands:  # the projection; xg = x + u in S2
+        for q in bands:  # the projection; xg = x + u (and its own-pixel copy)
             if prox == "positive":
                 g["x"][q] = torch.clamp(g["x"][q], min=0.0)
-            m.write(q, "S2", g["x"][q] + g["u"][q])
-        ph = _fgp(m, plan, lam_z, t2tab, H, W) if bool(fgp.any()) else None
+            m.put(q, "xg", g["x"][q] + g["u"][q])
+            m.put(q, "xg_own", g["x"][q] + g["u"][q])
+        run_fgp = bool(fgp.any())
+        if run_fgp:
+            _fgp(m, plan, lam_z, t2tab, H, W, placement)
         for q in bands:
-            xg = m.live[q]["S2"]
+            xg = m.get(q, "xg_own")
             zv = xg
-            if ph is not None:
+            if run_fgp:
                 n, r0 = plan.band_rows(q), q * plan.rows
-                pv = m.live[q]["S4"]
-                up = m.rows(q, "S4", r0 - 1, r0 + n - 1)
-                zv = torch.where(fgp, xg - ((up - pv) + (_cols(ph[q], -1) - ph[q])), xg)
+                pv, ph = m.get(q, "p"), m.get(q, "ph")
+                up = m.rows(q, "p", r0 - 1, r0 + n - 1)
+                zv = torch.where(fgp, xg - ((up - pv) + (_cols(ph, -1) - ph)), xg)
             g["z"][q] = zv
             g["u"][q] = (g["u"][q] + g["x"][q]) - zv
-            m.write(q, "S0", g["x"][q])
+            m.put(q, "gin", g["x"][q])
     m.barrier("Be")
-    for name in SHARED + ("slot0", "slot1"):  # the CTAs exit: their shared memory goes
+    for name in m.shared + ("slot0", "slot1"):  # the CTAs exit: their shared memory goes
         m.written.add(name)
     m.barrier("exit")
     return torch.cat(g["x"], dim=1), live
 
 
-def _fgp(m, plan, lam_z, t2tab, H, W):
-    """band_fold_fgp on xg in S2: the duals pv in S4 and ph (global memory,
-    returned), their momentum rv in S1 and rh in S3, y in S0."""
+def _fgp(m, plan, lam_z, t2tab, H, W, placement):
+    """band_fold_fgp on xg: the duals pv and ph, their momentum rv and rh,
+    y; with three planes the last dual iteration writes p into rv in place
+    of the momentum."""
     mcol = (torch.arange(W) < W - 1).to(torch.float64)
     bands = list(m.bands)
-    ph = [None] * len(bands)
+    tv = t2tab.shape[0]
 
     def clip(v, q, vertical):
         if vertical:
@@ -474,34 +508,32 @@ def _fgp(m, plan, lam_z, t2tab, H, W):
     m.barrier("Bf0")
     for q in bands:
         n, r0 = plan.band_rows(q), q * plan.rows
-        xg = m.live[q]["S2"]
+        xg = m.get(q, "xg")
         y0 = xg * 0.125
-        qv = clip(m.rows(q, "S2", r0 + 1, r0 + n + 1) * 0.125 - y0, q, True)
+        qv = clip(m.rows(q, "xg", r0 + 1, r0 + n + 1) * 0.125 - y0, q, True)
         qh = clip(_cols(xg, 1) * 0.125 - y0, q, False)
-        m.write(q, "S4", qv)
-        m.write(q, "S1", qv)
-        ph[q] = qh
-        m.write(q, "S3", qh)
-    for k in range(1, t2tab.shape[0]):
+        for role, v in (("pv", qv), ("rv", qv), ("ph", qh), ("rh", qh)):
+            m.put(q, role, v)
+    for k in range(1, tv):
         c1, c2 = t2tab[k, 0], t2tab[k, 1]
         m.barrier("Bf1")
         for q in bands:
             n, r0 = plan.band_rows(q), q * plan.rows
-            rv, rh = m.live[q]["S1"], m.live[q]["S3"]
-            up = m.rows(q, "S1", r0 - 1, r0 + n - 1)
-            m.write(q, "S0", (m.live[q]["S2"] - ((up - rv) + (_cols(rh, -1) - rh))) * 0.125)
+            rv, rh = m.get(q, "rv"), m.get(q, "rh")
+            up = m.rows(q, "rv", r0 - 1, r0 + n - 1)
+            m.put(q, "y", (m.get(q, "xg_own") - ((up - rv) + (_cols(rh, -1) - rh))) * 0.125)
         m.barrier("Bf2")
         for q in bands:
             n, r0 = plan.band_rows(q), q * plan.rows
-            y, rv, rh = m.live[q]["S0"], m.live[q]["S1"], m.live[q]["S3"]
-            qv = clip(rv + (m.rows(q, "S0", r0 + 1, r0 + n + 1) - y), q, True)
+            y, rv, rh = m.get(q, "y"), m.get(q, "rv"), m.get(q, "rh")
+            qv = clip(rv + (m.rows(q, "y", r0 + 1, r0 + n + 1) - y), q, True)
             qh = clip(rh + (_cols(y, 1) - y), q, False)
-            m.write(q, "S1", c1 * qv - c2 * m.live[q]["S4"])
-            m.write(q, "S3", c1 * qh - c2 * ph[q])
-            m.write(q, "S4", qv)
-            ph[q] = qh
+            p_out = placement == "three" and k + 1 == tv
+            m.put(q, "rv", qv if p_out else c1 * qv - c2 * m.get(q, "pv"))
+            m.put(q, "rh", c1 * qh - c2 * m.get(q, "ph"))
+            m.put(q, "pv", qv)
+            m.put(q, "ph", qh)
     m.barrier("Bf3")
-    return ph
 
 
 G5 = tuple((np.exp(-((np.arange(5) - 2) ** 2) / 2.0)

@@ -30,7 +30,10 @@ cluster size and plane placement its planner picks, at forced sizes, and
 bit for bit over 20 launches. So is row 3's cluster route (the fused
 PGM-TV kernel with three planes of a band in shared memory), at every
 method and schedule, with equal counts, its two placements bit for bit
-alike where both fit."""
+alike where both fit; and row 5's cluster route (the fused ADMM-TV
+kernel's body with three planes of a band in shared memory), with equal
+live CG steps, bit for bit over 20 launches at the 512² cell and bit for
+bit row 4's five-plane placement where both fit."""
 
 import numpy as np
 import pytest
@@ -730,6 +733,175 @@ def test_cluster_counts_of_the_admm_planner_tests(dev, shape):
         rows = -(-H // c)
         smem, got = admm_fused.resident_limits(dev.index, c, rows, W)
         assert smem == admm_fused.cluster_smem_bytes(rows, W)
+        assert got == held[c], (c, shape)
+
+
+# row 5's cluster route: (shape, taps) and the plan each takes: 512² on
+# c = 16 (32-row bands), 500 × 520 on c = 16 (the last band 20 rows), both
+# with three planes of a band in shared memory
+ADMM_TILED_CLUSTER = {(512, 512): (TAPS, 16), (500, 520): (TAPS75, 16)}
+
+
+def _admm_tiled_cluster(x0, taps, rho, lam, schedule, prox, tol, clusters=None, own=None):
+    """A row-5 launch of (iterations, CG steps, dual iterations) `schedule`
+    on the cluster route (its plan, or a forced size and placement), counted
+    once on that route: (x, counts)."""
+    before = dict(admm_tiled.admm_tv_tiled.route_launches)
+    launches = admm_tiled.admm_tv_tiled.launches
+    got = admm_tiled._run(x0, taps, rho, lam, *schedule, tol, prox, clusters=clusters, own=own)
+    before["cluster"] += 1
+    assert admm_tiled.admm_tv_tiled.route_launches == before
+    assert admm_tiled.admm_tv_tiled.launches == launches + 1
+    return got
+
+
+@pytest.mark.parametrize("case", ["none", "positive-freeze"])
+@pytest.mark.parametrize("shape", list(ADMM_TILED_CLUSTER))
+def test_admm_tiled_cluster_route_matches_plain(dev, shape, case):
+    """Row 5's cluster route (three planes of a band in shared memory) on
+    its plan against the plain version: 1e-5 of max|x|, equal live CG
+    steps, one launch by the route counter."""
+    prox, tol = ADMM_CASES[case]
+    taps, c = ADMM_TILED_CLUSTER[shape]
+    x0, rho, lam = _admm_inputs(dev, shape)
+    plan, held = admm_tiled.plan_on_card(x0, taps)
+    assert (plan.route, plan.clusters, plan.own) == ("cluster", c, "global")
+    assert held >= 1
+    got, counts = _admm_tiled_cluster(x0, taps, rho, lam, (6, 5, 4), prox, tol)
+    want, want_counts = _admm_plain(x0, taps, rho, lam, 6, 5, 4, prox, tol)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("taps", ["taps", "taps63"])
+@pytest.mark.parametrize("clusters", [1, 6, 8, 16])
+def test_admm_tiled_three_planes_match_plain(dev, clusters, taps):
+    """Three planes forced on 48 × 64 (bands of 48, 8, 6 and 3 rows; the
+    63-tap column blur reaches 10 bands past its own at c = 16)."""
+    taps = TAPS63 if taps == "taps63" else TAPS
+    x0, rho, lam = _admm_inputs(dev, (48, 64))
+    plan, held = admm_tiled._card_plan(dev.index or 0, 3, 48, 64, len(taps[0]), len(taps[1]),
+                                       None, clusters, "global")
+    assert (plan.route, plan.own, plan.rows, held >= 1) == ("cluster", "global",
+                                                            -(-48 // clusters), True)
+    got, counts = _admm_tiled_cluster(x0, taps, rho, lam, (6, 5, 4), "positive", 1e-5,
+                                      clusters, "global")
+    want, want_counts = _admm_plain(x0, taps, rho, lam, 6, 5, 4, "positive", 1e-5)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("prox", ["none", "positive"])
+@pytest.mark.parametrize("iterations,cg,tv", [(0, 3, 4), (3, 0, 4), (3, 1, 4), (3, 3, 0),
+                                              (2, 2, 1), (3, 0, 1)])
+def test_admm_tiled_three_plane_edge_schedules_match_plain(dev, iterations, cg, tv, prox):
+    """The barrier table's edge schedules on three planes of 6 bands of 46
+    rows (the last 6): no outer iteration, 0 and 1 CG steps, no and one
+    dual iteration (p left in rv by the first dual sweep), ρ = 0 for one
+    problem."""
+    x0, rho, lam = _admm_inputs(dev, (46, 64))
+    got, counts = _admm_tiled_cluster(x0, TAPS, rho, lam, (iterations, cg, tv), prox, 1e-5, 6,
+                                      "global")
+    want, want_counts = _admm_plain(x0, TAPS, rho, lam, iterations, cg, tv, prox, 1e-5)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+@pytest.mark.parametrize("case", ["none", "positive-freeze"])
+@pytest.mark.parametrize("clusters", [6, 16])
+def test_admm_placements_agree_bit_for_bit(dev, clusters, case):
+    """Three planes of a band in shared memory (forced) and all five (row
+    4's placement, launched through row 5's planner), at one cluster size of
+    16 × 256²: the same operations in the same order, the same bits and
+    live CG steps; row 4's own launch gives them too."""
+    prox, tol = ADMM_CASES[case]
+    x0 = torch.from_numpy(np.random.default_rng(9).normal(size=(16, 256, 256))
+                          .astype(np.float32)).to(dev)
+    rho = torch.linspace(0.05, 0.4, 16, device=dev)
+    lam = torch.linspace(1e-3, 5e-2, 16, device=dev)
+    five, held = admm_tiled._card_plan(dev.index or 0, 16, 256, 256, 5, 3, None, clusters)
+    assert (five.route, five.own, held >= 1) == ("cluster", "shared", True)
+    a, ca = _admm_tiled_cluster(x0, TAPS, rho, lam, (6, 5, 4), prox, tol, clusters)
+    b, cb = _admm_tiled_cluster(x0, TAPS, rho, lam, (6, 5, 4), prox, tol, clusters, "global")
+    c, cc, _ = _admm_launch(x0, TAPS, rho, lam, (6, 5, 4), prox, tol, clusters)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(ca, cb)
+    assert torch.equal(a, c) and torch.equal(ca, cc)
+
+
+@pytest.mark.parametrize("batch,shape,schedule,tol", [
+    (16, (512, 512), (10, 5, 10), 1e-5), (3, (500, 520), (12, 6, 8), 5e-2)])
+def test_admm_tiled_cluster_route_repeats_bit_for_bit(dev, batch, shape, schedule, tol):
+    """20 launches of the cluster route, at the 512² cell's plan and
+    schedule (10 × 5 × 10) and on 500 × 520 with frozen CG steps: each
+    equal to the first, with equal live CG steps."""
+    taps = ADMM_TILED_CLUSTER[shape][0]
+    x0 = torch.from_numpy(np.random.default_rng(6).normal(size=(batch, *shape))
+                          .astype(np.float32)).to(dev)
+    rho = torch.linspace(0.05, 0.4, batch, device=dev)
+    lam = torch.linspace(1e-3, 5e-2, batch, device=dev)
+    first, first_counts = _admm_tiled_cluster(x0, taps, rho, lam, schedule, "none", tol)
+    for _ in range(20):
+        got, counts = _admm_tiled_cluster(x0, taps, rho, lam, schedule, "none", tol)
+        assert torch.equal(got, first) and torch.equal(counts, first_counts)
+
+
+def test_admm_tiled_phase_clocks(dev):
+    """The cluster route's phase timer: one launch, the same x as without
+    the timer, clocks in every phase; the tiles route has no timer and
+    raises, as does a forced size that does not fit."""
+    x0, rho, lam = _admm_inputs(dev, (512, 512))
+    want = admm_tiled.admm_tv_tiled(x0, TAPS, rho, lam, 4, 3, 4, 1e-5, prox="positive")
+    before = dict(admm_tiled.admm_tv_tiled.route_launches)
+    clocks = admm_tiled.phase_clocks(x0, TAPS, rho, lam, 4, 3, 4, 1e-5, "positive")
+    assert admm_tiled.admm_tv_tiled.route_launches["cluster"] == before["cluster"] + 1
+    assert list(clocks) == list(admm_fused.PHASES) and all(v > 0 for v in clocks.values())
+    assert torch.equal(admm_tiled.admm_tv_tiled(x0, TAPS, rho, lam, 4, 3, 4, 1e-5,
+                                                prox="positive"), want)
+    with pytest.raises(ValueError, match="a cluster of 13 CTAs does not fit"):
+        admm_tiled._run(x0, TAPS, rho, lam, 4, 3, 4, 1e-5, clusters=13)
+    x1k = torch.zeros((1, 1024, 1024), device=dev)
+    with pytest.raises(ValueError, match="cluster route"):
+        admm_tiled.phase_clocks(x1k, TAPS, 0.1, 0.1, 2, 2, 2, 1e-5)
+
+
+def test_admm_tiled_dispatch_runs_the_cluster_route(dev):
+    """solve_batched_fast on a 512² ADMM-TV solver: row 5 in one launch on
+    the cluster route, against its plain version; with `tile_rows` its
+    row tiles."""
+    op = rtt.SeparableConvOperator.from_taps(*TAPS, (512, 512), device=dev)
+    solver = rtt.ADMM.create(
+        op, reg=rtt.TVRegularization(1e-3, shape=(512, 512), iterations_tv=4, backend="cuda"),
+        iterations=3, iterations_cg=3, unroll_cg=True, rho=0.1, tol_inner=1e-5)
+    B = torch.from_numpy(np.random.default_rng(4).normal(size=(512 * 512, 2))
+                         .astype(np.float32)).to(dev)
+    before = dict(admm_tiled.admm_tv_tiled.route_launches)
+    x = rtt.solve_batched_fast(solver, B)
+    before["cluster"] += 1
+    assert admm_tiled.admm_tv_tiled.route_launches == before
+    tiles = admm_tiled.solve_admm_tv_tiled(solver, B, tile_rows=64)
+    _close(x, tiles, 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(512, 512), (500, 520), (256, 256), (48, 64)])
+def test_cluster_counts_of_the_admm_tiled_planner_tests(dev, shape):
+    """On an H100 the card holds, for every size that fits three planes,
+    the clusters of the three-plane kernel that
+    tests/test_torch_admm_tiled_plan.py plans with, and counts the
+    planner's shared memory."""
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    H, W = shape
+    held = dict(ADMM_RESIDENT)
+    fit = admm_tiled.fitting_sizes(H, W, *limits)
+    assert fit
+    for c in fit:
+        rows = -(-H // c)
+        smem, got = admm_fused.resident_limits(dev.index, c, rows, W, False)
+        assert smem == admm_fused.cluster_smem_bytes(rows, W, False)
         assert got == held[c], (c, shape)
 
 
