@@ -117,9 +117,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      required to read one global launch); the Kaczmarz sweep through
      Kaczmarz(backend="cuda") (cyclic and shuffled, the tall 1024×256
      system, batch 16: the sweep kernel's main path, its launches
-     counted); the streamed solve on the tall system (dense and padded
-     CSR, 16 distinct b), the 64 MiB system (4 b), a complex system and a
-     real A with a complex b; the greedy sweep with forced rows and with
+     counted, all on the warp route by the route counter); the streamed
+     solve on the tall system (dense and padded CSR, 16 distinct b; the
+     warp route required), the 64 MiB system (4 b), a complex system and
+     a real A with a complex b, each plan printed and its one launch on
+     that plan's route by the route counter, and both routes forced at
+     the tall dense system; the greedy sweep with forced rows and with
      sampled draws, whose rows must equal the plain version's; each held
      by `hold_dense` and timed in turns with its plain version, beside the
      composed solve at its shapes;
@@ -132,8 +135,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      solve's own: pdhg_tv8_deblur256_b16_fused (also composed; its one
      launch on the resident route by the route counter),
      kaczmarz_rand_pos_tall_b16_streamed, kaczmarz_rand_pos_tall_b16_csr,
-     kaczmarz_streamed_64MiB_b4 and this script's
-     kaczmarz_greedy_tall_b16;
+     kaczmarz_streamed_64MiB_b4 (each one launch on its plan's route by
+     the route counter) and this script's kaczmarz_greedy_tall_b16;
   7. the kernel table as one JSON line (launches on the main path, error
      against the plain version, kernel and plain times, the least time
      the card could take, `bound_ms`, and a library yardstick where one
@@ -242,6 +245,19 @@ torch.profiler; the cell's composed solve_batched_unrolled and its device
 time; each plan and the grid route's clocks of CTA 0 by phase; row 6 at
 both CGNR cells and row 7b as controls, with sha256 digests.
 
+    python3 chip_smoke.py --time-kaczmarz [ROOT]
+
+does the same for the Kaczmarz row kernel (rows 12a and 12b): one sweep of
+the 12a cell (cyclic and shuffled), the three streamed cells of
+tools/bench_suite.py, the complex system and the real A with a complex b,
+each on its plan and, where ROOT's package has the routes, on both routes
+forced and on the warp route with 1, 2, 4, 8 and 16 problems a CTA; rows
+of 256 … 8192 entries on both routes (the crossover); each case's device
+time by torch.profiler, its plan and the warp route's clocks of CTA 0's
+warp 0 by phase; sha256 digests of x and vl, and the entries that differ
+from the outputs of a tree timed before in the same directory
+(.timing/kaczmarz/).
+
     python3 chip_smoke.py --time-library [ROOT]
 
 reads the library yardstick of rows 2, 3, 4, 5, 7a, 7b, 10, 11, 12a, 12b
@@ -254,6 +270,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -780,7 +797,8 @@ def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
     `reset`, set them to 0 first (and the TV prox, PGM-TV (rows 2 and 3),
     ADMM-TV (rows 4 and 5), SplitBregman, PDHG, FISTA-L1-DFT,
-    FISTA-L21-SENSE and dense PGM (row 7a) kernels' counts by route)."""
+    FISTA-L21-SENSE, dense PGM (row 7a) and Kaczmarz (rows 12a, 12b)
+    kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -804,6 +822,8 @@ def launch_counts(reset=False):
         for fn in (fista_tv_tiled.fista_tv_tiled, admm_tv_tiled.admm_tv_tiled):
             fn.route_launches = {"cluster": 0, "tiles": 0}
         pgm_dense_fused.pgm_dense_fused.route_launches = {"grid": 0, "per_problem": 0}
+        for fn in (kaczmarz_streamed.kaczmarz_sweep, kaczmarz_streamed.kaczmarz_solve):
+            fn.route_launches = {"warp": 0, "block": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
 
@@ -1936,6 +1956,29 @@ def streamed_plain(solver, B, dtype=None):
     return sol.T
 
 
+def kaczmarz_plan(solver, B):
+    """The row kernel's plan for `solve_kaczmarz_streamed(solver, B)` (a
+    real A with a complex b: its 2K real problems)."""
+    import torch
+
+    from rls_tpu_torch.kernels import kaczmarz_streamed as ks
+
+    if not solver.A.dtype.is_complex and B.is_complex():
+        B = torch.cat([B.real, B.imag], dim=1)
+    rows, cols, _, x0 = ks.solver_operands(solver, B)[:4]
+    return ks.card_plan(rows, x0, cols)
+
+
+def print_kaczmarz_plan(name, plan):
+    if plan.route == "block":
+        print(f"{name}: plan block, one CTA of 256 threads per problem, {plan.smem} B")
+        return
+    print(f"{name}: plan warp, {plan.ctas} CTAs of {plan.groups} problem(s) + the producer, "
+          f"{plan.ring} slots, x in {plan.x_in}"
+          + (f" ({plan.x_lanes} a lane)" if plan.x_lanes else "")
+          + f", vl in {plan.vl_in} memory, {plan.smem} B")
+
+
 def kaczmarz_ops(n, steps):
     """f32 operations of `steps` row steps of one problem on real rows of n
     entries: the dot (2n), α (5), the axpy (2n) and the dual bump (2)."""
@@ -1955,10 +1998,13 @@ def kaczmarz_kernel_phase(dev, kz):
     """Phase 3i, rows 12a, 12b and 13, each held by `hold_dense`:
     12a through Kaczmarz(backend="cuda") (cyclic and shuffled, KZ_SWEEPS
     sweeps of the tall system, batch 16: the main path of the sweep kernel,
-    its launches counted), one sweep timed in turns with its plain version
-    and the composed one-sweep solve; 12b through solve_kaczmarz_streamed
-    on the tall system (dense and padded CSR, 16 distinct b), the 64 MiB
-    system (4 b), a complex system and the tall real A with complex b, the
+    its launches counted, each plan printed and every launch required on
+    the warp route), one sweep timed in turns with its plain version and
+    the composed one-sweep solve; 12b through solve_kaczmarz_streamed on
+    the tall system (dense and padded CSR, 16 distinct b; the warp route
+    required), the 64 MiB system (4 b), a complex system and the tall real
+    A with complex b, each plan printed and its one launch required on that
+    plan's route, then both routes forced on the tall dense system, the
     tall dense solve timed in turns with its plain version; 13 through
     greedy_solve with forced rows and with sampled draws, whose rows must
     equal the plain version's, one sweep timed in turns and the composed
@@ -1981,13 +2027,20 @@ def kaczmarz_kernel_phase(dev, kz):
     for order in ("cyclic", "shuffled"):
         s = kaczmarz_solver(dense, (KZ_SWEEPS, 1.0, 16), randomized=False,
                             shuffle_rows=order == "shuffled", backend="cuda")
+        plan = kaczmarz_plan(s, B16)
+        print_kaczmarz_plan(f"kaczmarz_sweep[{order}]", plan)
+        require(plan.route == "warp", f"{order}: the 12a cell plans the {plan.route} route")
         launch_counts(reset=True)
         x = rtt.solve_batched_unrolled(s, B16)
         torch.cuda.synchronize()
         got = launch_counts()
-        print(f"launches (Kaczmarz backend=cuda, {order}, {KZ_SWEEPS} sweeps): {got}")
+        routes = ks.kaczmarz_sweep.route_launches
+        print(f"launches (Kaczmarz backend=cuda, {order}, {KZ_SWEEPS} sweeps): {got}; "
+              f"by route {routes}")
         require(got == {**{k: 0 for k in got}, "kaczmarz_sweep": KZ_SWEEPS},
                 f"{order}: expected {KZ_SWEEPS} launches of kaczmarz_sweep and no others")
+        require(routes == {"warp": KZ_SWEEPS, "block": 0},
+                f"{order}: expected {KZ_SWEEPS} launches on the warp route, got {routes}")
         require(tuple(x.shape) == (256, 16) and bool(torch.isfinite(x).all()),
                 f"{order}: bad result {tuple(x.shape)}")
         out["kaczmarz_sweep"]["launches"] += KZ_SWEEPS
@@ -2022,9 +2075,35 @@ def kaczmarz_kernel_phase(dev, kz):
          kaczmarz_solver(dense, KZ_TALL, positive=False), kz["complex_b"]),
     )
     for label, s, B in cases:
+        plan = kaczmarz_plan(s, B)
+        print_kaczmarz_plan(f"kaczmarz_solve[{label}]", plan)
+        if label.startswith("1024x256 dense") or label.startswith("1024x256 padded"):
+            require(plan.route == "warp", f"{label}: the tall cell plans the {plan.route} route")
+        launch_counts(reset=True)
         note("kaczmarz_solve", hold_dense(
             f"kaczmarz_solve[{label}]", lambda b, s=s: (rtt.solve_kaczmarz_streamed(s, b).T, None),
             lambda b, s=s: (streamed_plain(s, b).T, None), (B,), counts=False))
+        routes = ks.kaczmarz_solve.route_launches
+        print(f"kaczmarz_solve[{label}]: launches by route {routes}")
+        require(routes == {**{r: 0 for r in routes}, plan.route: 1},
+                f"{label}: expected one launch on the {plan.route} route, got {routes}")
+    # both routes forced at the tall dense cell
+    s = cases[0][1]
+
+    def forced(b, route):
+        ops = ks.solver_operands(s, b)
+        x, _ = ks._forced(*ops[:1], *ops[2:], prox="positive", route=route)
+        return x[:, 0], None
+
+    for route in ks.ROUTES:
+        launch_counts(reset=True)
+        note("kaczmarz_solve", hold_dense(
+            f"kaczmarz_solve[1024x256 dense, batch 16, the {route} route forced]",
+            lambda b, r=route: forced(b, r), lambda b: (streamed_plain(s, b).T, None), (B16,),
+            counts=False))
+        routes = ks.kaczmarz_solve.route_launches
+        require(routes == {**{r: 0 for r in routes}, route: 1},
+                f"the {route} route forced: launches by route {routes}")
     rows, _, idx, x0, vl0, u, denom, eps, sweeps, reuse = ks.solver_operands(cases[0][1], B16)
     out["kaczmarz_solve"]["ms"] = alternate_ms(
         lambda: ks.kaczmarz_solve_torch(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse,
@@ -2132,6 +2211,7 @@ def kernel_cell_phase(dev, draws, pdhg_solver, kz):
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import auto
     from rls_tpu_torch.kernels import kaczmarz_greedy as kg
+    from rls_tpu_torch.kernels import kaczmarz_streamed as ks
     from rls_tpu_torch.kernels import pdhg_fused as pd
 
     launched, composed = {}, {}
@@ -2150,6 +2230,12 @@ def kernel_cell_phase(dev, draws, pdhg_solver, kz):
             print(f"launches ({name}) by route: {routes}")
             require(routes == {"resident": 1, "global": 0},
                     f"{name}: expected one launch on the resident route, got {routes}")
+        if row == "kaczmarz_streamed":
+            plan = kaczmarz_plan(solver, B)
+            routes = ks.kaczmarz_solve.route_launches
+            print(f"launches ({name}) by route: {routes}")
+            require(routes == {**{r: 0 for r in routes}, plan.route: 1},
+                    f"{name}: expected one launch on the {plan.route} route, got {routes}")
         for k, v in want.items():
             launched[k] = launched.get(k, 0) + v
         require(tuple(x.shape) == (solver.A.in_size, B.shape[1]), f"{name}: shape {x.shape}")
@@ -3704,6 +3790,132 @@ def time_library(dev, out):
     device_ms(out, solves)
 
 
+def time_kaczmarz(dev, out):
+    """``--time-kaczmarz [ROOT]``: the Kaczmarz row kernel (rows 12a and
+    12b) at its cells: one sweep of the 12a cell (1024×256, batch 16, all
+    rows, cyclic and shuffled), the tall streamed cell (dense and padded
+    CSR, 20 sweeps of 64 rows, batch 16, Positive), the 64 MiB cell
+    (8192×2048, 8 sweeps of 1024 rows, 4 distinct b), the complex system
+    and the tall real A with a complex b; each on its plan and, where
+    ROOT's package has the routes, on the block route and on the warp route
+    with 1, 2, 4, 8 and 16 problems a CTA (as far as the batch goes); then
+    one cyclic sweep of 1024 rows of n = 256 … 8192 entries, batch 16, on
+    both routes (the crossover). Each case: three readings of its device
+    time by torch.profiler, the row kernel's alone and the call's; each
+    cell's plan and the warp route's clocks of CTA 0's warp 0 by phase;
+    sha256 digests of x and vl, and, against the outputs of every tree
+    timed before from this directory (.timing/kaczmarz/), the
+    count of entries that differ. Row 13 (one greedy sweep) as the
+    control."""
+    import torch
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import kaczmarz_greedy as kg
+    from rls_tpu_torch.kernels import kaczmarz_streamed as ks
+
+    out["kernel"] = os.path.relpath(ks.__file__, ROOT)
+    routed = hasattr(ks, "plan_kaczmarz")
+    kz = kaczmarz_systems(bench_suite_draws(), dev)
+    A, B16, Bt, _ = kz["tall"]
+    A2, B4 = kz["64mib"][:2]
+    Ac, Bc = kz["complex"]
+    dense = rtt.DenseOperator(A, device=dev)
+    csr = rtt.PaddedCSROperator.from_dense(A.cpu().numpy(), device=dev)
+    sweep = (1, 1.0, 16)
+    cells = [
+        ("12a: one cyclic sweep, 1024x256 x 16", kaczmarz_solver(dense, sweep, randomized=False),
+         B16, "none"),
+        ("12a: one shuffled sweep, 1024x256 x 16",
+         kaczmarz_solver(dense, sweep, randomized=False, shuffle_rows=True), B16, "none"),
+        ("12b: tall dense, 20 x 64 rows x 16", kaczmarz_solver(dense, KZ_TALL), Bt, None),
+        ("12b: tall padded CSR, 20 x 64 rows x 16", kaczmarz_solver(csr, KZ_TALL), Bt, None),
+        ("12b: 64 MiB, 8 x 1024 rows x 4",
+         kaczmarz_solver(rtt.DenseOperator(A2, device=dev), KZ_64MIB), B4, None),
+        ("12b: complex 512x128, 3 cyclic sweeps x 4",
+         kaczmarz_solver(rtt.DenseOperator(Ac, device=dev), (3, 1.0, 4), randomized=False,
+                         positive=False), Bc, None),
+        ("12b: tall real A, complex b, 20 x 64 rows x 8",
+         kaczmarz_solver(dense, KZ_TALL, positive=False), kz["complex_b"], None),
+    ]
+    runs = []  # (case, operands, prox, route, groups)
+    for name, solver, B, prox in cells:
+        if not solver.A.dtype.is_complex and B.is_complex():
+            B = torch.cat([B.real, B.imag], dim=1)
+        ops = ks.solver_operands(solver, B)
+        prox = prox or ks.sweep_projection(solver)
+        runs.append((f"{name} plan", ops, prox, None, None))
+        if routed:
+            plan = ks.card_plan(ops[0], ops[3], ops[1])
+            out[f"plan: {name}"] = dict(vars(plan))
+            runs.append((f"{name} block", ops, prox, "block", None))
+            runs += [(f"{name} warp g={g}", ops, prox, "warp", g) for g in (1, 2, 4, 8, 16)
+                     if g <= B.shape[1]]
+            out[f"clocks of CTA 0 warp 0 by phase: {name}"] = ks.phase_clocks(
+                *ops[:1], *ops[2:], prox, ops[1])
+    # the crossover: one cyclic sweep of 1024 rows, batch 16, n = 256 … 8192
+    rng = np.random.default_rng(19)
+    for n in (256, 512, 1024, 2048, 4096, 8192):
+        An = torch.from_numpy((rng.normal(size=(1024, n)) / np.sqrt(n)).astype(np.float32)).to(dev)
+        Bn = An @ torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32)).to(dev)
+        ops = ks.solver_operands(kaczmarz_solver(rtt.DenseOperator(An, device=dev), sweep,
+                                                 randomized=False), Bn)
+        name = f"crossover: one sweep, 1024x{n} x 16"
+        runs.append((f"{name} plan", ops, "none", None, None))
+        if routed:
+            out[f"plan: {name}"] = dict(vars(ks.card_plan(ops[0], ops[3])))
+            for r in ks.ROUTES:
+                g = 1 if r == "warp" else None
+                try:
+                    ks.card_plan(ops[0], ops[3], None, g, r)
+                except ValueError as err:  # the route fits no CTA at this width
+                    out[f"{name} {r}"] = str(err)
+                    continue
+                runs.append((f"{name} {r}", ops, "none", r, g))
+
+    def call(ops, prox, route, groups):
+        rows, cols, idx, x0, vl0, u, denom, eps, sweeps, reuse = ops
+        if route is None:
+            return ks.kaczmarz_solve(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox, cols)
+        return ks._forced(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox, cols, groups,
+                          route)
+
+    saved = {}
+    for name, ops, prox, route, groups in runs:
+        fn = lambda o=ops, p=prox, r=route, g=groups: call(o, p, r, g)  # noqa: E731
+        fn()
+        readings = [device_kernels(fn) for _ in range(3)]
+        out[f"{name} kernel device ms (profiler)"] = [
+            sum(ms for ms, _, key in r if "kaczmarz" in key) for r in readings]
+        out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in r) for r in readings]
+        x, vl = fn()
+        out[f"sha256 of x, vl: {name}"] = [digest(x), digest(vl)]
+        saved[name] = (x.cpu(), vl.cpu())
+    # row 13 as the control: one greedy sweep of the tall system, batch 16
+    sg = kaczmarz_solver(dense, KZ_GREEDY, greedy=True)
+    Ag, Gt, dg, ng, eg, fnorm, bt = kg.greedy_operands(sg, B16)
+    z = (torch.zeros(16, 256, device=dev), torch.zeros(16, 1024, device=dev), bt)
+    args = (Ag, Gt, dg, ng, *z, eg, fnorm, None, sg.sub_matrix_size, sg.seed, 0)
+    greedy = [("row 13 greedy sweep (control)", lambda: kg.kaczmarz_greedy_sweep(*args), 5)]
+    time_cases(out, greedy)
+    device_ms(out, greedy)
+    out["sha256 of x: row 13 greedy sweep (control)"] = digest(kg.kaczmarz_greedy_sweep(*args)[0])
+    # the entries that differ from the trees timed before in this directory
+    keep = os.path.join(ROOT, ".timing", "kaczmarz")
+    os.makedirs(keep, exist_ok=True)
+    tag = re.sub(r"[^A-Za-z0-9]+", "_", os.path.abspath(out["root"])).strip("_")
+    for f in sorted(os.listdir(keep)):
+        if f == f"{tag}.pt":
+            continue
+        other = torch.load(os.path.join(keep, f))
+        for name, (x, vl) in saved.items():
+            if name in other:
+                ox, ovl = other[name]
+                out[f"entries of x, vl differing from {f}: {name}"] = [
+                    int((x.view(torch.int32) != ox.view(torch.int32)).sum()),
+                    int((vl.view(torch.int32) != ovl.view(torch.int32)).sum()),
+                    x.numel(), vl.numel()]
+    torch.save(saved, os.path.join(keep, f"{tag}.pt"))
+
+
 TIME_MODES = {
     "--time-cgnr": time_cgnr,
     "--time-pgm-tv": time_pgm_tv,
@@ -3717,6 +3929,7 @@ TIME_MODES = {
     "--time-admm-tiled": time_admm_tiled,
     "--time-library": time_library,
     "--time-pgm-dense": time_pgm_dense,
+    "--time-kaczmarz": time_kaczmarz,
 }
 
 

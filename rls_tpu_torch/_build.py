@@ -181,6 +181,12 @@ _SIGNATURES = {
     # (ar, ai, cols, idx, x, vl, u, denom, eps, P, m, n, L, sweeps, S, reuse,
     #  prox, stream)
     "kaczmarz_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # (ar, ai, cols, idx, x, vl, u, denom, eps, prof, P, m, n, L, sweeps, S,
+    #  reuse, prox, groups, ring, x_lanes, vl_shared, smem, stream)
+    "kaczmarz_warp_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _P,
+    ),
     # (A, Gt, denom, norms, x, vl, r, eps, forced, rows, P, m, n, S, fnorm,
     #  theta, use_theta, seed, sweep, stream)
     "kaczmarz_greedy_launch": (

@@ -29,6 +29,18 @@ __device__ __forceinline__ double warp_sum(double v) {
     return v;
 }
 
+// The sums of v[0..kN) over a warp, in every lane: an xor butterfly, the kN
+// sums' steps interleaved. Each step adds the same two doubles in both lanes
+// of a pair, in the other order, and IEEE addition commutes, so every lane
+// ends with the same bits.
+template <int kN>
+__device__ __forceinline__ void warp_allsum(double* v) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int q = 0; q < kN; ++q) v[q] += __shfl_xor_sync(0xffffffffu, v[q], o);
+}
+
 __device__ __forceinline__ double dmul(float a, float b) {
     return static_cast<double>(a) * static_cast<double>(b);
 }

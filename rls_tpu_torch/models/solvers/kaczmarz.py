@@ -25,7 +25,8 @@ The batch is a leading axis of b: every problem of a batch visits the same
 rows in a sweep (the greedy draw aside). ``backend="cuda"`` runs the
 cyclic and shuffled sweeps of a real dense system on the hand-written
 sweep kernel (``kernels/kaczmarz_streamed.py``), which runs its plain
-PyTorch version for CPU tensors.
+PyTorch version for CPU tensors; the row orders are checked once, at
+construction, and a sweep reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -103,6 +104,15 @@ class Kaczmarz(LinearSolver):
     def __post_init__(self):
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown Kaczmarz backend {self.backend!r}; one of {BACKENDS}")
+        # the row orders, checked once here (dataclasses.replace runs this
+        # too), so that the sweep kernel need not read them back every sweep
+        for name in ("perm", "precomputed_order"):
+            rows = getattr(self, name)
+            if rows is not None and rows.numel():
+                lo, hi = torch.stack(torch.aminmax(rows)).tolist()
+                if lo < 0 or hi >= self.A.out_size:
+                    raise ValueError(f"Kaczmarz {name}: rows must lie in "
+                                     f"[0, {self.A.out_size}), got [{lo}, {hi}]")
 
     @classmethod
     def create(
@@ -288,10 +298,11 @@ class Kaczmarz(LinearSolver):
             and isinstance(self.A, DenseOperator)
             and not self.A.mat.is_complex()
         ):
-            from ...kernels.kaczmarz_streamed import kaczmarz_sweep
+            from ...kernels.kaczmarz_streamed import solver_sweep
 
-            x, vl = kaczmarz_sweep(self.A.mat, state.x, state.vl, state.u, state.denom,
-                                   state.eps_w, idx)
+            # perm was checked at construction: no per-sweep read of the host
+            x, vl = solver_sweep(self.A.mat, state.x, state.vl, state.u, state.denom,
+                                 state.eps_w, idx)
             return dataclasses.replace(state, x=x, vl=vl)
         x, vl = state.x, state.vl.clone()
         for i in idx.tolist():

@@ -33,7 +33,14 @@ method and schedule, with equal counts, its two placements bit for bit
 alike where both fit; and row 5's cluster route (the fused ADMM-TV
 kernel's body with three planes of a band in shared memory), with equal
 live CG steps, bit for bit over 20 launches at the 512² cell and bit for
-bit row 4's five-plane placement where both fit."""
+bit row 4's five-plane placement where both fit. The Kaczmarz row kernel
+is held to 1e-5 of max|x| on both routes, planned and forced (the warp
+route with 1, 2 and 3 problems a CTA), on every edge case (a row back
+within the ring's window, a repeated row, a list of −1 only, x in shared
+memory) and at the tall cell, each launch counted on its route, and its
+warp and block routes give the same bits over 20 launches."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1690,6 +1697,14 @@ def _kaczmarz_case(dev, case, seed=12):
         "csr": (50, 40, 1, True, 3, False, "positive"),
         "csr-kmax1": (30, 7, 1, True, 2, True, "none"),
         "csr-complex": (33, 20, 2, True, 2, True, "none"),
+        # the warp route's edges: a row back within the ring's window (S = 5
+        # < 8 slots, reused), a row repeated in one list, a list of −1 only,
+        # x in shared memory (real past 512 entries, complex past 256)
+        "dense-revisit": (5, 40, 1, False, 6, True, "positive"),
+        "dense-repeat": (20, 33, 1, False, 3, False, "none"),
+        "dense-all-skip": (12, 20, 1, False, 2, True, "positive"),
+        "dense-wide": (40, 600, 1, False, 2, True, "none"),
+        "complex-wide": (30, 300, 2, False, 2, False, "real"),
     }[case]
     A = rng.normal(size=(nc, m, n)).astype(np.float32)
     cols = None
@@ -1712,6 +1727,10 @@ def _kaczmarz_case(dev, case, seed=12):
              else np.stack([rng.choice(m, size=S, replace=False) for _ in range(sweeps)]))
     order = order.astype(np.int32)
     order[:, 1::4] = -1  # skipped entries
+    if case == "dense-repeat":
+        order[:, 2] = order[:, 3] = order[:, 0]
+    if case == "dense-all-skip":
+        order[:] = -1
     P = 3
 
     def t(a):
@@ -1739,6 +1758,105 @@ def test_kaczmarz_solve_kernel_matches_plain(dev, case):
     _close(vl, wvl, 1e-5)
     if prox == "positive":
         assert float(x[:, 0].min()) >= 0.0
+
+
+KZ_CASES = ["dense", "dense-n1", "dense-per-sweep", "complex", "complex-positive", "csr",
+            "csr-kmax1", "csr-complex", "dense-revisit", "dense-repeat", "dense-all-skip",
+            "dense-wide", "complex-wide"]
+
+
+@pytest.mark.parametrize("case", KZ_CASES)
+@pytest.mark.parametrize("route, groups", [(None, None), ("block", None), ("warp", 1),
+                                           ("warp", 2), ("warp", 3)])
+def test_kaczmarz_routes_match_plain(dev, case, route, groups):
+    """Both routes, planned and forced (the warp route with 1, 2 and 3
+    problems a CTA: a last CTA with fewer problems than the others), on
+    every edge case; each launch counted on its route."""
+    rows, cols, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox = _kaczmarz_case(dev, case)
+    want_route = route or kz.card_plan(rows, x0, cols).route
+    before = dict(kz.kaczmarz_solve.route_launches)
+    x, vl = kz._forced(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox, cols, groups,
+                       route)
+    after = kz.kaczmarz_solve.route_launches
+    assert after[want_route] == before[want_route] + 1
+    wx, wvl = kz.kaczmarz_solve_torch(rows, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox,
+                                      cols)
+    _close(x, wx, 1e-5)
+    _close(vl, wvl, 1e-5)
+    if case == "dense-all-skip":
+        assert torch.equal(vl, vl0)
+
+
+def _kaczmarz_tall(dev, csr=False, seed=15):
+    """The tall cell's shapes (1024×256, 70 % zeros, batch 16, 20 sweeps of
+    64 rows drawn without replacement, Positive), dense or padded CSR."""
+    rng = np.random.default_rng(seed)
+    m, n, P, T, S = 1024, 256, 16, 20, 64
+    A = rng.normal(size=(m, n)).astype(np.float32)
+    A[rng.uniform(size=A.shape) < 0.7] = 0.0
+    cols = None
+    if csr:
+        op = rtt.PaddedCSROperator.from_dense(A, device="cpu")
+        A, cols = op.vals.numpy(), op.cols.to(dev)
+    idx = np.stack([rng.choice(m, size=S, replace=False) for _ in range(T)]).astype(np.int32)
+    rn2 = (A.astype(np.float64) ** 2).sum(axis=1)
+    eps = np.full(P, 1e-3)
+    denom = 1.0 / (rn2[None] + eps[:, None] ** 2 + 1e-6)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    return (t(A[None]), cols, torch.from_numpy(idx).to(dev), torch.zeros(P, 1, n, device=dev),
+            torch.zeros(P, 1, m, device=dev), t(rng.normal(size=(P, 1, m))), t(denom), t(eps), T,
+            False, "positive")
+
+
+@pytest.mark.parametrize("csr", [False, True])
+@pytest.mark.parametrize("route", [None, "warp", "block"])
+def test_kaczmarz_tall_cell_routes_match_plain(dev, csr, route):
+    ops = _kaczmarz_tall(dev, csr)
+    rows, cols, idx, x0 = ops[0], ops[1], ops[2], ops[3]
+    if route is None:
+        assert kz.card_plan(rows, x0, cols).route == "warp"
+    x, vl = kz._forced(*ops[:1], *ops[2:], cols=cols, route=route)
+    wx, wvl = kz.kaczmarz_solve_torch(*ops[:1], *ops[2:], cols=cols)
+    _close(x, wx, 1e-5)
+    _close(vl, wvl, 1e-5)
+
+
+@pytest.mark.parametrize("route, groups", [("warp", None), ("warp", 4), ("warp", 16),
+                                           ("block", None)])
+def test_kaczmarz_routes_repeat_bit_for_bit(dev, route, groups):
+    """20 launches of each route at the tall cell give the same bits: a race
+    on the ring's slots would show as a launch that differs."""
+    ops = _kaczmarz_tall(dev)
+    run = lambda: kz._forced(*ops[:1], *ops[2:], groups=groups, route=route)  # noqa: E731
+    x0, vl0 = run()
+    for _ in range(19):
+        x, vl = run()
+        assert torch.equal(x, x0) and torch.equal(vl, vl0)
+
+
+def test_kaczmarz_phase_clocks(dev):
+    ops = _kaczmarz_tall(dev)
+    before = kz.kaczmarz_solve.route_launches["warp"]
+    clocks = kz.phase_clocks(*ops[:1], *ops[2:])
+    assert kz.kaczmarz_solve.route_launches["warp"] == before + 1
+    assert set(clocks) == set(kz.WARP_PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert clocks["total"] >= sum(v for k, v in clocks.items() if k != "total")
+
+
+def test_kaczmarz_warp_launch_refuses_a_wrong_plan(dev):
+    """The C entry point recounts the shared memory and refuses a plan that
+    disagrees, or x in registers past 32 entries a lane."""
+    rows, cols, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox = _kaczmarz_case(dev, "dense")
+    plan = kz.card_plan(rows, x0)
+    for bad in (dataclasses.replace(plan, smem=plan.smem + 16),
+                dataclasses.replace(plan, x_lanes=1)):
+        with pytest.raises(RuntimeError, match="kaczmarz_warp_launch"):
+            kz._launch(kz.kaczmarz_solve, rows, idx, x0, vl0, u, denom, eps, sweeps, reuse, prox,
+                       None, bad)
 
 
 def test_kaczmarz_sweep_kernel_matches_plain(dev):
