@@ -66,9 +66,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the LASSO cell (600 iterations, and 100 for the restart schedules,
      the table methods and FISTA-L2 with Positive; its plan printed first,
      each case one launch on the grid route by the route counter); the
-     plane kernel on a
-     complex A (FISTA with gradient restart and Real, POGM) and on the real
-     A with a complex b;
+     complex kernel on a complex A (FISTA with gradient restart and Real,
+     POGM) and on the real A with a complex b (its plan printed first,
+     each case one launch on the grid route by the route counter);
   3h. each FFT kernel against its plain version, held to the plain
      version's own spread under b·(1 + 2⁻²³) (FFT_SPREAD), with both
      times: the fused FISTA-L1-DFT on 16 distinct 256² CS problems with λ
@@ -94,7 +94,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      TOL_RESIDUAL on 2 columns against a float64 solve of the plain
      version), its OptISTA and POGM at 100 iterations (each of the three
      one launch on row 7a's grid route by the route counter, the plan
-     printed first), and the complex FISTA case;
+     printed first), and the complex FISTA case (one launch on row 7b's
+     grid route by the route counter, the plan printed first);
   9. the compressed-sensing and SENSE cells through solve_batched_fast,
      each running its kernel once by the launch counters, with problems/s
      (slices/s), two columns held to TOL_PARITY and TOL_RESIDUAL against
@@ -236,14 +237,16 @@ row 2 at the flagship as the control, and sha256 digests.
 
     python3 chip_smoke.py --time-pgm-dense [ROOT]
 
-does the same for the dense PGM kernel (row 7a): the
+does the same for the dense PGM kernels (rows 7a and 7b): the
 fista_l1_dense_cs_b16_fused cell (600 iterations) on its grid route in
-turns with the per-problem kernel forced (the parent's kernel), OptISTA
-and POGM at 100 iterations, FISTA with its gradient restart, at P = 1 and
-at P = 137, each on both routes and with its device time by
-torch.profiler; the cell's composed solve_batched_unrolled and its device
-time; each plan and the grid route's clocks of CTA 0 by phase; row 6 at
-both CGNR cells and row 7b as controls, with sha256 digests.
+turns with the per-problem kernel forced, OptISTA and POGM at 100
+iterations, FISTA with its gradient restart, at P = 1 and at P = 137; the
+three complex cases of phase 3g (100 iterations); each on both routes
+and with its device time by torch.profiler; the composed
+solve_batched_unrolled and its device time at the 7a cell and at 7b's
+timed case; each plan and the grid route's clocks of CTA 0 by phase; row
+6 at both CGNR cells as the control; sha256 digests, and the entries of
+x that differ from the trees timed before (.timing/pgm_dense/).
 
     python3 chip_smoke.py --time-kaczmarz [ROOT]
 
@@ -797,8 +800,8 @@ def launch_counts(reset=False):
     """The launch counters of the fifteen kernel wrappers, by name; with
     `reset`, set them to 0 first (and the TV prox, PGM-TV (rows 2 and 3),
     ADMM-TV (rows 4 and 5), SplitBregman, PDHG, FISTA-L1-DFT,
-    FISTA-L21-SENSE, dense PGM (row 7a) and Kaczmarz (rows 12a, 12b)
-    kernels' counts by route)."""
+    FISTA-L21-SENSE, dense PGM (rows 7a and 7b) and Kaczmarz (rows 12a,
+    12b) kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -821,7 +824,8 @@ def launch_counts(reset=False):
             fn.route_launches = {"resident": 0, "global": 0}
         for fn in (fista_tv_tiled.fista_tv_tiled, admm_tv_tiled.admm_tv_tiled):
             fn.route_launches = {"cluster": 0, "tiles": 0}
-        pgm_dense_fused.pgm_dense_fused.route_launches = {"grid": 0, "per_problem": 0}
+        for fn in (pgm_dense_fused.pgm_dense_fused, pgm_dense_fused.pgm_dense_fused_cplx):
+            fn.route_launches = {"grid": 0, "per_problem": 0}
         for fn in (kaczmarz_streamed.kaczmarz_sweep, kaczmarz_streamed.kaczmarz_solve):
             fn.route_launches = {"warp": 0, "block": 0}
     return {fn.__name__: fn.launches for fn in fns}
@@ -1036,8 +1040,8 @@ def hold_dense(name, kernel, plain, b, counts=True):
 
 
 def print_pgm_dense_plan(name, plan):
-    """Print row 7a's plan: its route and, on the grid route, the cut of
-    the cooperative grid."""
+    """Print a dense PGM plan (rows 7a and 7b): its route and, on the grid
+    route, the cut of the cooperative grid."""
     if plan.route != "grid":
         print(f"{name}: plan {plan.route}, one CTA per problem")
         return
@@ -1140,7 +1144,8 @@ def dense_kernel_phase(dev, systems):
             out["pgm_dense_fused"]["ms"] = alternate_ms(lambda: plain(bt), lambda: kernel(bt),
                                                         reps=2)
 
-    # complex data as planes: the complex A, and the real A with a complex b
+    # complex data as planes: the complex A, and the real A with a complex
+    # b, each case one launch on the grid route (the route counter)
     for label, key, method, restart, prox in (
         ("complex A, fista-l1, gradient restart, real", "cplx", "fista", "gradient", "real"),
         ("complex A, pogm-l1", "cplx", "pogm", "none", "none"),
@@ -1163,8 +1168,13 @@ def dense_kernel_phase(dev, systems):
             xr, xi, n = pd.pgm_dense_fused_cplx_torch(br, bi, ar, ai, scal, tab, *sched)
             return torch.stack([xr, xi]), n
 
-        note("pgm_dense_fused_cplx", hold_dense(f"pgm_dense_fused_cplx[{label}]", kernel, plain,
-                                                (br, bi)))
+        name = f"pgm_dense_fused_cplx[{label}]"
+        print_pgm_dense_plan(name, pd.card_plan(br, ar, cplx=True))
+        pd.pgm_dense_fused_cplx.route_launches = {"grid": 0, "per_problem": 0}
+        note("pgm_dense_fused_cplx", hold_dense(name, kernel, plain, (br, bi)))
+        routes = pd.pgm_dense_fused_cplx.route_launches
+        require(routes == {"grid": 1, "per_problem": 0},
+                f"{name}: routes {routes}, not one grid launch")
         if key == "cplx" and method == "fista":
             out["pgm_dense_fused_cplx"]["ms"] = alternate_ms(
                 lambda: plain(br, bi), lambda: kernel(br, bi), reps=2)
@@ -1228,8 +1238,8 @@ def dense_cell_phase(dev, systems):
         print(f"launches ({name}): {got}")
         require(got == {**{k: 0 for k in got}, kernel: 1},
                 f"{name}: expected one launch of {kernel} and no others")
-        if kernel == "pgm_dense_fused":
-            routes = pd.pgm_dense_fused.route_launches
+        if kernel in ("pgm_dense_fused", "pgm_dense_fused_cplx"):
+            routes = getattr(pd, kernel).route_launches
             print(f"routes ({name}): {routes}")
             require(routes == {"grid": 1, "per_problem": 0},
                     f"{name}: routes {routes}, not one launch on the grid route")
@@ -1323,6 +1333,7 @@ def dense_cell_phase(dev, systems):
         restart="gradient", track_residual=False,
     )
     name = "complex A 256x512, fista-l1, gradient restart, real"
+    print_pgm_dense_plan(name, pd.card_plan(t(b_c.real.T), t(a_c.real), cplx=True))
     run(name, s_c, t(b_c), "pgm_dense_fused_cplx")
     composed(name, "pgm_dense_fused_cplx", s_c, t(b_c))
     return launched, library
@@ -2759,10 +2770,11 @@ def main() -> int:
          admm["admm_tv_tiled"]["ms"]),
         ("cgnr_fused", "cgnr_fused.cu", "rls_tpu/kernels/cgnr_fused.py:174",
          dense_launched["cgnr_fused"], dense["cgnr_fused"]["err"], dense["cgnr_fused"]["ms"]),
-        ("pgm_dense_fused", "pgm_dense_fused.cu", "rls_tpu/kernels/pgm_dense_fused.py:355",
+        ("pgm_dense_fused", "pgm_dense_grid.cu", "rls_tpu/kernels/pgm_dense_fused.py:355",
          dense_launched["pgm_dense_fused"], dense["pgm_dense_fused"]["err"],
          dense["pgm_dense_fused"]["ms"]),
-        ("pgm_dense_fused_cplx", "pgm_dense_fused.cu", "rls_tpu/kernels/pgm_dense_fused.py:458",
+        ("pgm_dense_fused_cplx", "pgm_dense_grid_cplx.cu",
+         "rls_tpu/kernels/pgm_dense_fused.py:458",
          dense_launched["pgm_dense_fused_cplx"], dense["pgm_dense_fused_cplx"]["err"],
          dense["pgm_dense_fused_cplx"]["ms"]),
         ("fista_l1_dft_fused", "fista_l1_dft_fused.cu",
@@ -3634,17 +3646,22 @@ def time_admm_tiled(dev, out):
 
 
 def time_pgm_dense(dev, out):
-    """``--time-pgm-dense [ROOT]``: the dense PGM kernel (row 7a) at the
+    """``--time-pgm-dense [ROOT]``: the dense PGM kernels. Row 7a at the
     fista_l1_dense_cs_b16_fused cell (16 × 256 × 512, FISTA, λ = 1e-4, ρ =
     0.95/‖A‖₂², 600 iterations) and, where ROOT's row 7a has the grid
-    route, in turns with the per-problem kernel forced (the parent's
-    kernel); OptISTA and POGM at 100 iterations on both routes; FISTA at P
-    = 1 and P = 137 (its own sparse phantoms) and with the gradient restart
-    at 100 iterations; each case's device time by torch.profiler and the
-    composed solve_batched_unrolled's; each plan and CTA 0's clocks by
-    phase; and sha256 digests of row 7a on each route, of row 6 at both
-    CGNR cells (timed as the control) and of row 7b, bit for bit between
-    two trees where this kernel's change leaves them."""
+    route, in turns with the per-problem kernel forced; OptISTA and POGM at
+    100 iterations on both routes; FISTA at P = 1 and P = 137 (its own
+    sparse phantoms) and with the gradient restart at 100 iterations. Row
+    7b at phase 3g's three complex cases (the complex 256 × 512 A at batch
+    16, FISTA with the gradient restart and Real, and POGM; the real A with
+    a complex b, FISTA with the gradient restart; 100 iterations), on its
+    default route and, where ROOT's row 7b has the grid route, on both
+    routes in turns. Each case's device time by torch.profiler, each plan
+    and CTA 0's clocks by phase, the composed solve_batched_unrolled's
+    device time at the 7a cell and at 7b's timed case; row 6 at both CGNR
+    cells as the control; sha256 digests of every x and, against the
+    outputs of every tree timed before from this directory
+    (.timing/pgm_dense/), the count of entries that differ."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import cgnr_fused as k6
@@ -3652,10 +3669,16 @@ def time_pgm_dense(dev, out):
 
     out["kernel"] = os.path.relpath(k7.__file__, ROOT)
     grid = hasattr(k7, "plan_pgm_dense")
+    cgrid = hasattr(k7, "phase_clocks_cplx")
     systems = dense_systems(bench_suite_draws())
+    saved = {}
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def keep(name, x):
+        out[f"sha256 of x: {name}"] = digest(x)
+        saved[name] = x.cpu()
 
     a2b, b2b = systems["lasso"]
     A = t(a2b)
@@ -3689,7 +3712,7 @@ def time_pgm_dense(dev, out):
         time_cases(out, pair, in_turns=True)
         for name, fn, _ in pair:
             x, counts = fn()
-            out[f"sha256 of x: {name}"] = digest(x)
+            keep(name, x)
             out[f"restarts: {name}"] = counts.tolist()
         if grid:
             out[f"plan: {label}"] = dict(vars(k7.card_plan(b, A)))
@@ -3703,31 +3726,75 @@ def time_pgm_dense(dev, out):
     B = batches["cell"].T.contiguous()
     composed = [("cell composed solve_batched_unrolled", lambda: rtt.solve_batched_unrolled(s7, B),
                  1)]
+    # row 7b: phase 3g's complex cases
+    croutes = ("grid", "per_problem") if cgrid else (None,)
+    ccases = []
+    for label, key, method, restart, prox in (
+        ("row 7b complex A, FISTA gradient restart, real", "cplx", "fista", "gradient", "real"),
+        ("row 7b complex A, POGM", "cplx", "pogm", "none", "none"),
+        ("row 7b real A, complex b, FISTA gradient restart", "real_a_cplx_b", "fista",
+         "gradient", "none"),
+    ):
+        a, b = systems[key]
+        ar, ai = t(a.real.astype(np.float32)), t(a.imag.astype(np.float32))
+        br, bi = t(b.real.T.astype(np.float32)), t(b.imag.T.astype(np.float32))
+        args = (LASSO_LAM, 0.95 / float(np.linalg.norm(a, 2)) ** 2, 1.0, SHORT_ITERS, method,
+                "l1", restart, prox)
+
+        def solve7b(route, br=br, bi=bi, ar=ar, ai=ai, args=args):
+            if route is None:
+                return k7.pgm_dense_fused_cplx(br, bi, ar, ai, *args, with_counts=True)
+            scal, tab = k7.kernel_args(br, *args[:3], args[4], args[3])
+            return k7._launch_cplx(br, bi, ar, ai, scal, tab, args[3:], route=route)
+
+        pair = [(f"{label} {r or 'default route'}", lambda r=r, f=solve7b: f(r), 5)
+                for r in croutes]
+        time_cases(out, pair, in_turns=True)
+        for name, fn, _ in pair:
+            xr, xi, counts = fn()
+            keep(name, torch.stack([xr, xi]))
+            out[f"restarts: {name}"] = counts.tolist()
+        if cgrid:
+            xr, xi, _ = solve7b(None)
+            keep(f"{label} default route", torch.stack([xr, xi]))
+            out[f"plan: {label}"] = dict(vars(k7.card_plan(br, ar, cplx=True)))
+            out[f"clocks of CTA 0 by phase: {label}"] = k7.phase_clocks_cplx(br, bi, ar, ai,
+                                                                             *args)
+        if key == "cplx" and method == "fista":
+            s7b = rtt.FISTA.create(
+                rtt.DenseOperator(t(a), device=dev),
+                reg=[rtt.L1Regularization(LASSO_LAM), rtt.RealRegularization()],
+                iterations=SHORT_ITERS, rho=args[1], restart="gradient", track_residual=False)
+            B7b = t(b)
+            composed.append((f"{label} composed solve_batched_unrolled",
+                             lambda: rtt.solve_batched_unrolled(s7b, B7b), 1))
+        ccases += pair
+    device_ms(out, ccases)
     time_cases(out, composed)
     device_ms(out, composed)
-    # controls: row 6 at both CGNR cells (timed), row 7b at the complex case
+    # the control: row 6 at both CGNR cells (timed)
     for name, key, lam, iters, reps in (
         ("row 6 cgnr_l2_dense64_fused_b16", "cgnr64", CGNR64_LAM, CGNR64_ITERS, 50),
         ("row 6 cgnr_l2_dense_1024x512_b64", "cgnr1k", CGNR1K_LAM, CGNR1K_ITERS, 20),
     ):
         A6, B6 = (t(a) for a in systems[key])
-        args = (B6.T.contiguous(), A6, torch.full((B6.shape[1],), lam, device=dev),
-                min(iters, A6.shape[1]))
-        time_cases(out, [(name, lambda a=args: k6.cgnr_fused(*a), reps)])
-        out[f"sha256 of x: {name}"] = digest(k6.cgnr_fused(*args))
-    a_c, b_c = systems["cplx"]
-    ar, ai = t(a_c.real.astype(np.float32)), t(a_c.imag.astype(np.float32))
-    br, bi = t(b_c.real.T.astype(np.float32)), t(b_c.imag.T.astype(np.float32))
-    rho_c = 0.95 / float(np.linalg.norm(a_c, 2)) ** 2
-
-    def row7b():
-        return k7.pgm_dense_fused_cplx(br, bi, ar, ai, LASSO_LAM, rho_c, 1.0, SHORT_ITERS,
-                                       "fista", "l1", "gradient", "real", with_counts=True)
-
-    time_cases(out, [("row 7b complex FISTA, gradient restart, real", row7b, 5)])
-    xr, xi, counts = row7b()
-    out["sha256 of x: row 7b"] = digest(torch.stack([xr, xi]))
-    out["restarts: row 7b"] = counts.tolist()
+        args6 = (B6.T.contiguous(), A6, torch.full((B6.shape[1],), lam, device=dev),
+                 min(iters, A6.shape[1]))
+        time_cases(out, [(name, lambda a=args6: k6.cgnr_fused(*a), reps)])
+        keep(name, k6.cgnr_fused(*args6))
+    # the entries that differ from the trees timed before in this directory
+    store = os.path.join(ROOT, ".timing", "pgm_dense")
+    os.makedirs(store, exist_ok=True)
+    tag = re.sub(r"[^A-Za-z0-9]+", "_", os.path.abspath(out["root"])).strip("_")
+    for f in sorted(os.listdir(store)):
+        if f == f"{tag}.pt":
+            continue
+        other = torch.load(os.path.join(store, f))
+        for name, x in saved.items():
+            if name in other:
+                out[f"entries of x differing from {f}: {name}"] = [
+                    int((x.view(torch.int32) != other[name].view(torch.int32)).sum()), x.numel()]
+    torch.save(saved, os.path.join(store, f"{tag}.pt"))
 
 
 def time_library(dev, out):

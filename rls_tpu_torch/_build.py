@@ -127,6 +127,13 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
         _I, _I, _I, _P,
     ),
+    # (br, bi, ar, ai, scal, tab, out, counts, part, rdots, xpub, bar, prof,
+    #  P, m, n, steps, method, kind, restart, proj, slabs, rows, groups,
+    #  group_size, resident, smem, stream)
+    "pgm_dense_grid_cplx_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _I, _P,
+    ),
     # (br, bi, ar, ai, scal, tab, out, scratch, counts, P, m, n, steps,
     #  method, kind, restart, proj, stream)
     "pgm_dense_fused_cplx_launch": (

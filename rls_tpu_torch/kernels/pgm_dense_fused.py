@@ -1,7 +1,8 @@
 """The whole batched proximal-gradient solve (FISTA, OptISTA, POGM) on a
 dense matrix as ONE launch: the hand-written CUDA kernels
-``csrc/pgm_dense_fused.cu`` (real, and complex as re/im planes) and their
-plain PyTorch versions.
+``csrc/pgm_dense_grid.cuh`` (built by ``pgm_dense_grid.cu`` and
+``pgm_dense_grid_cplx.cu``) and ``csrc/pgm_dense_fused.cu`` (real, and
+complex as re/im planes) and their plain PyTorch versions.
 
 Counterpart of ``rls_tpu/kernels/pgm_dense_fused.py``: ``_kernel``
 (:47-129), ``_kernel_cplx`` (:132-262), ``check_pgm_dense_fused``
@@ -28,13 +29,16 @@ Numerics, as in ``cgnr_fused``: every matvec entry and every dot is summed
 in double and rounded to f32, and the updates are separate f32 operations,
 in both versions; the restart decisions compare the rounded dot with 0.
 
-Routes of the real kernel (:func:`plan_pgm_dense` picks one from the
-shape): ``"grid"``, row 6's design, the batch's solve as one cooperative
-grid of A-slabs × problem groups, each CTA keeping its slab of A and its
-group's Gram input in shared memory, so that one load of A serves every
-problem of a group, with two group barriers per iteration; and
-``"per_problem"``, one CTA per problem, only where no grid plan fits the
-card. The complex kernel runs one CTA per problem.
+Routes of both kernels, real and complex (:func:`plan_pgm_dense` picks
+one from the shape): ``"grid"`` (``csrc/pgm_dense_grid.cuh``), row 6's
+design, the batch's solve as one cooperative grid of A-slabs × problem
+groups, each CTA keeping its slab of A (both planes of it on complex data)
+and its group's Gram input in shared memory, so that one load of A serves
+every problem of a group, with two group barriers per iteration; and
+``"per_problem"`` (``csrc/pgm_dense_fused.cu``), one CTA per problem, only
+where no grid plan fits the card. On complex data each load of a fragment
+of A's re or im plane serves two of the four real products, and the
+partial v keeps the four apart until each is rounded to f32.
 
 Not carried over: the TPU's pre-split bf16 hi/lo factors, their VMEM gate
 (:339), ``chunked_batch_run`` and the concrete-θ test (a JAX tracer has no
@@ -78,6 +82,7 @@ __all__ = [
     "plan_pgm_dense",
     "PgmDensePlan",
     "phase_clocks",
+    "phase_clocks_cplx",
     "pgm_dense_fused_cplx",
     "pgm_dense_fused_torch",
     "pgm_dense_fused_cplx_torch",
@@ -239,7 +244,7 @@ def kernel_args(b, lam, rho, theta, method, steps: int, dtype=np.float32):
 
 
 # the grid route's phases that the kernel can time
-# (csrc/pgm_dense_fused.cu kSetup ... kReload)
+# (csrc/pgm_dense_grid.cuh kSetup ... kReload)
 GRID_PHASES = ("set-up", "q", "partial v", "barrier 1", "slab sums and update", "barrier 2",
                "x reload")
 # the L2's rate to every SM together, in bytes per SM clock (an H100's
@@ -249,7 +254,7 @@ L2_BYTES_PER_CLOCK = 3000
 
 @dataclasses.dataclass(frozen=True)
 class PgmDensePlan:
-    """How the real dense PGM solve runs. Route ``"grid"``: one cooperative
+    """How a dense PGM solve runs, real or complex. Route ``"grid"``: one cooperative
     grid of `slabs` slabs of `rows` rows of A × `groups` groups of
     `group_size` problems, one CTA per (slab, group), A's slab in shared
     memory with `resident`, `smem` bytes of it per CTA. Route
@@ -269,26 +274,29 @@ class PgmDensePlan:
         return self.slabs * self.groups
 
 
-def grid_smem_bytes(n, slabs, rows, group_size, resident):
+def grid_smem_bytes(n, slabs, rows, group_size, resident, cplx=False):
     """Shared memory of one CTA of the grid route, as ``grid_smem_bytes``
-    in csrc/pgm_dense_fused.cu counts it: q for a tile of 8 problems
+    in csrc/pgm_dense_grid.cuh counts it: q for a tile of 8 problems
     (float64, rows rounded up to 16), five 4-byte scalars per problem, the
     block reduction (8 × 8 float64), the phase timer, the warps' split sums
     (8 × 128 float64), with `resident` the slab of A (f32, rows rounded up
     to 16 × ``slab_ld``), the group's Gram input (f32, tiles × n rounded up
     to 8 × 8), its x (f32, tiles × n × 8) and the owner's x0hat, m1, m2
-    (f32, tiles × its columns × 8). Each piece starts 16-byte aligned."""
+    (f32, tiles × its columns × 8). On complex data (`cplx`) q, A's slab,
+    the Gram input, x and the owner's planes take two planes each, and the
+    split sums four products. Each piece starts 16-byte aligned."""
+    c = 2 if cplx else 1
     chunk, tiles, rows16 = _cdiv(n, slabs), _cdiv(group_size, TILE), _cdiv(rows, 16) * 16
     nbytes = sum(_align16(b) for b in (
-        8 * TILE * rows16, 20 * group_size, 8 * WARPS * TILE, 8 * len(GRID_PHASES),
-        8 * WARPS * 128, 4 * TILE * tiles * _cdiv(n, 8) * 8, 4 * TILE * tiles * n,
-        12 * TILE * tiles * chunk))
+        c * 8 * TILE * rows16, 20 * group_size, 8 * WARPS * TILE, 8 * len(GRID_PHASES),
+        c * c * 8 * WARPS * 128, c * 4 * TILE * tiles * _cdiv(n, 8) * 8,
+        c * 4 * TILE * tiles * n, c * 12 * TILE * tiles * chunk))
     if resident:
-        nbytes += _align16(4 * rows16 * slab_ld(n))
+        nbytes += _align16(c * 4 * rows16 * slab_ld(n))
     return nbytes
 
 
-def step_clocks(n, slabs, rows, group_size, resident, ctas):
+def step_clocks(n, slabs, rows, group_size, resident, ctas, cplx=False):
     """A model of one iteration's SM clocks on a CTA of a grid plan of
     `ctas` CTAs: q and the partial v on the FP64 tensor cores (as
     ``cgnr_fused.step_clocks`` prices them), the partial v written to L2
@@ -296,27 +304,31 @@ def step_clocks(n, slabs, rows, group_size, resident, ctas):
     grid's whole traffic over the L2's rate, the owner's update and the
     reload of the group's x, and with several slabs two group barriers and
     two round trips through L2; A read from L2 twice per tile where it is
-    not resident."""
+    not resident. On complex data (`cplx`) the four real products take
+    four times the tensor cores' work and the partial v's traffic, the
+    vectors and the streamed slab two planes."""
+    c = 2 if cplx else 1
     tiles = _cdiv(group_size, TILE)
     rows16, n16 = _cdiv(rows, 16) * 16, _cdiv(n, 16) * 16
     work = 8 * rows16 * n16 // 100
-    q = tiles * max(work, 16 * 8 * n16 // 25)
-    v = tiles * max(work, 16 * 8 * rows16 // 25)
-    traffic = 2 * tiles * n + ctas * tiles * n * 128 // L2_BYTES_PER_CLOCK
-    vec = tiles * _cdiv(n, slabs) + tiles * n // 4
+    q = c * c * tiles * max(work, 16 * 8 * n16 // 25)
+    v = c * c * tiles * max(work, 16 * 8 * rows16 // 25)
+    traffic = c * c * (2 * tiles * n + ctas * tiles * n * 128 // L2_BYTES_PER_CLOCK)
+    vec = c * (tiles * _cdiv(n, slabs) + tiles * n // 4)
     group = 0 if slabs == 1 else 2 * SYNC_CLOCKS + 2 * TRIP_CLOCKS
-    stream = 0 if resident else tiles * rows * n // 4
+    stream = 0 if resident else c * tiles * rows * n // 4
     return q + v + traffic + vec + group + stream
 
 
 @functools.lru_cache(maxsize=256)
-def plan_pgm_dense(m, n, P, sms, smem_max) -> PgmDensePlan:
-    """The route and cut of a solve of P problems on a real m × n A for a
-    card of `sms` SMs and `smem_max` bytes of shared memory per block: the
-    grid plan of least :func:`step_clocks` whose CTAs, at most one per SM,
-    are all resident at once; the per-problem kernel only where no grid
-    plan fits (a group's Gram input and x too large for shared memory even
-    with A streamed from L2). Raises ValueError for an empty shape."""
+def plan_pgm_dense(m, n, P, sms, smem_max, cplx=False) -> PgmDensePlan:
+    """The route and cut of a solve of P problems on an m × n A (complex,
+    as two planes, with `cplx`) for a card of `sms` SMs and `smem_max`
+    bytes of shared memory per block: the grid plan of least
+    :func:`step_clocks` whose CTAs, at most one per SM, are all resident at
+    once; the per-problem kernel only where no grid plan fits (a group's
+    Gram input and x too large for shared memory even with A streamed from
+    L2). Raises ValueError for an empty shape."""
     if min(m, n, P) < 1:
         raise ValueError(f"pgm_dense_fused: empty shape A {m}x{n}, {P} problems")
     best = None
@@ -331,10 +343,10 @@ def plan_pgm_dense(m, n, P, sms, smem_max) -> PgmDensePlan:
             if groups != g_try:
                 continue
             for resident in (True, False):
-                smem = grid_smem_bytes(n, slabs, rows, group_size, resident)
+                smem = grid_smem_bytes(n, slabs, rows, group_size, resident, cplx)
                 if smem > smem_max:
                     continue
-                clocks = step_clocks(n, slabs, rows, group_size, resident, slabs * groups)
+                clocks = step_clocks(n, slabs, rows, group_size, resident, slabs * groups, cplx)
                 key = (clocks, -groups, slabs)
                 if best is None or key < best[0]:
                     best = (key, PgmDensePlan("grid", slabs, rows, groups, group_size, resident,
@@ -391,71 +403,93 @@ def _launch_planes(name, planes_b, planes_a, scal, tab, steps, method, kind, res
 
 def _launch_grid(b, A, scal, tab, plan, steps, method, kind, restart, prox, prof=None):
     """Launch the grid route on `plan`: one cooperative grid of slabs ×
-    groups."""
+    groups, on real data (`b`, `A` tensors) or complex data (`b`, `A`
+    tuples of their re and im planes). Returns (x planes, restarts)."""
     from .. import _build
 
-    P, m = b.shape
-    n = A.shape[1]
+    planes_b, planes_a = (b, A) if isinstance(b, tuple) else ((b,), (A,))
+    P, m = planes_b[0].shape
+    n = planes_a[0].shape[1]
+    c = len(planes_b)
+    dev = planes_b[0].device
     lib = _build.load_library()
-    out = torch.empty((P, n), dtype=torch.float32, device=b.device)
-    counts = torch.empty((P,), dtype=torch.int32, device=b.device)
+    out = torch.empty((c, P, n), dtype=torch.float32, device=dev)
+    counts = torch.empty((P,), dtype=torch.int32, device=dev)
     # one float64 workspace, each piece 256-byte aligned: the barrier
-    # counters (zeroed), the slabs' partial v, the restart partials and
-    # the owners' new x (f32) that meet in L2
+    # counters (zeroed), the slabs' partial v (complex: its four real
+    # products), the restart partials and the owners' new x (f32, a plane
+    # each) that meet in L2
     tiles = _cdiv(plan.group_size, TILE)
-    sizes = (plan.groups * 16, plan.groups * plan.slabs * tiles * n * TILE,
-             plan.groups * plan.slabs * plan.group_size, _cdiv(plan.groups * tiles * n * TILE, 2))
+    sizes = (plan.groups * 16, c * c * plan.groups * plan.slabs * tiles * n * TILE,
+             plan.groups * plan.slabs * plan.group_size,
+             _cdiv(c * plan.groups * tiles * n * TILE, 2))
     starts = [0]
     for size in sizes:
         starts.append(starts[-1] + _cdiv(size, 32) * 32)
-    ws = torch.empty(starts[-1], dtype=torch.float64, device=b.device)
+    ws = torch.empty(starts[-1], dtype=torch.float64, device=dev)
     ws[:starts[1]].zero_()
     bar, part, rdots, xpub = (ws[starts[i]:starts[i + 1]] for i in range(4))
     codes = (METHODS.index(method), KINDS.index(kind), RESTARTS.index(restart),
              PROXES.index(prox))
-    with torch.cuda.device(b.device):
-        code = lib.pgm_dense_grid_launch(
-            b.data_ptr(), A.data_ptr(), scal.data_ptr(), tab.data_ptr(), out.data_ptr(),
-            counts.data_ptr(), part.data_ptr(), rdots.data_ptr(), xpub.data_ptr(),
-            bar.data_ptr(), None if prof is None else prof.data_ptr(), P, m, n, steps, *codes,
+    name = "pgm_dense_grid_launch" if c == 1 else "pgm_dense_grid_cplx_launch"
+    with torch.cuda.device(dev):
+        code = getattr(lib, name)(
+            *(t.data_ptr() for t in planes_b), *(t.data_ptr() for t in planes_a),
+            scal.data_ptr(), tab.data_ptr(), out.data_ptr(), counts.data_ptr(),
+            part.data_ptr(), rdots.data_ptr(), xpub.data_ptr(), bar.data_ptr(),
+            None if prof is None else prof.data_ptr(), P, m, n, steps, *codes,
             plan.slabs, plan.rows, plan.groups, plan.group_size, int(plan.resident), plan.smem,
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(code, f"pgm_dense_grid_launch (A {m}x{n}, {P} problems, {plan})")
-    return out, counts
+    _build.check(code, f"{name} (A {m}x{n}, {P} problems, {plan})")
+    return (*out, counts)
 
 
-def card_plan(b, A):
-    """The plan of :func:`plan_pgm_dense` for `b` (P, m) and `A` (m, n) on
-    the card that holds them."""
+def card_plan(b, A, cplx=False):
+    """The plan of :func:`plan_pgm_dense` for `b` (P, m) and `A` (m, n)
+    (the re planes with `cplx`) on the card that holds them."""
     from .. import _build
 
     return plan_pgm_dense(A.shape[0], A.shape[1], b.shape[0],
-                          *_build.device_limits(b.device.index or 0))
+                          *_build.device_limits(b.device.index or 0), cplx)
 
 
-def _launch(b, A, scal, tab, sched, route=None, prof=None):
-    """One launch on real data, on the route of :func:`plan_pgm_dense` or
-    on `route` where the caller forces one (the timing mode and the card
-    tests); a forced ``"grid"`` that the shape has no plan for raises.
-    Counts the launch and its route. Returns (x, restarts)."""
+def _routed(wrapper, planes_b, planes_a, scal, tab, sched, route, prof):
+    """One launch of `wrapper`'s kernel on the route of
+    :func:`plan_pgm_dense` or on `route` where the caller forces one (the
+    timing mode and the card tests); a forced ``"grid"`` that the shape has
+    no plan for raises. Counts the launch and its route. Returns (x
+    planes, restarts)."""
+    b, A = planes_b[0], planes_a[0]
+    name = wrapper.__name__
     if b.shape[0] == 0:
-        return (torch.empty((0, A.shape[1]), dtype=torch.float32, device=b.device),
-                torch.empty((0,), dtype=torch.int32, device=b.device))
-    plan = card_plan(b, A)
+        return (*(torch.empty((0, A.shape[1]), dtype=torch.float32, device=b.device)
+                  for _ in planes_b), torch.empty((0,), dtype=torch.int32, device=b.device))
+    plan = card_plan(b, A, len(planes_b) == 2)
     route = plan.route if route is None else route
     if route == "grid":
         if plan.route != "grid":
-            raise ValueError(f"pgm_dense_fused: A {tuple(A.shape)} with {b.shape[0]} problems has "
-                             "no grid plan")
-        out = _launch_grid(b, A, scal, tab, plan, *sched, prof=prof)
+            raise ValueError(f"{name}: A {tuple(A.shape)} with {b.shape[0]} problems has no "
+                             "grid plan")
+        out = _launch_grid(planes_b, planes_a, scal, tab, plan, *sched, prof=prof)
     elif route == "per_problem" and prof is None:
-        out = _launch_planes("pgm_dense_fused", (b,), (A,), scal, tab, *sched)
+        out = _launch_planes(name, planes_b, planes_a, scal, tab, *sched)
     else:
-        raise ValueError(f"pgm_dense_fused: no route {route!r} (with the phase timer: grid only)")
-    pgm_dense_fused.launches += 1
-    pgm_dense_fused.route_launches[route] += 1
+        raise ValueError(f"{name}: no route {route!r} (with the phase timer: grid only)")
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
     return out
+
+
+def _launch(b, A, scal, tab, sched, route=None, prof=None):
+    """One launch on real data (:func:`_routed`). Returns (x, restarts)."""
+    return _routed(pgm_dense_fused, (b,), (A,), scal, tab, sched, route, prof)
+
+
+def _launch_cplx(br, bi, ar, ai, scal, tab, sched, route=None, prof=None):
+    """One launch on complex data as planes (:func:`_routed`). Returns
+    (xr, xi, restarts)."""
+    return _routed(pgm_dense_fused_cplx, (br, bi), (ar, ai), scal, tab, sched, route, prof)
 
 
 def pgm_dense_fused(b, A, lam, rho, theta, steps: int, method="fista", kind="l1",
@@ -507,9 +541,12 @@ def phase_clocks(b, A, lam, rho, theta, steps: int, method="fista", kind="l1", r
 def pgm_dense_fused_cplx(br, bi, ar, ai, lam, rho, theta, steps: int, method="fista",
                          kind="l1", restart="none", prox="none", with_counts=False):
     """`pgm_dense_fused` on complex data as float32 planes: `br`, `bi` (P,
-    m) and `ar`, `ai` (m, n); prox also "real". Returns (xr, xi), or
-    ``(xr, xi, restarts)`` with `with_counts`;
-    ``pgm_dense_fused_cplx.launches`` counts the kernel's launches."""
+    m) and `ar`, `ai` (m, n) (a real A passes a zero `ai`); prox also
+    "real". The batch's solve runs as one cooperative grid of A-slabs ×
+    problem groups (the route and cut of :func:`plan_pgm_dense` with
+    ``cplx``). Returns (xr, xi), or ``(xr, xi, restarts)`` with
+    `with_counts`; ``pgm_dense_fused_cplx.launches`` counts the kernel's
+    launches, ``pgm_dense_fused_cplx.route_launches`` them by route."""
     check_schedule(method, kind, restart, prox)
     scal, tab = kernel_args(br, lam, rho, theta, method, steps)
     sched = (steps, method, kind, restart, prox)
@@ -517,13 +554,26 @@ def pgm_dense_fused_cplx(br, bi, ar, ai, lam, rho, theta, steps: int, method="fi
         out = pgm_dense_fused_cplx_torch(br, bi, ar, ai, scal, tab, *sched)
     else:
         check_cuda_operands("pgm_dense_fused_cplx", ar, ai, br, bi)
-        out = _launch_planes("pgm_dense_fused_cplx", (br.contiguous(), bi.contiguous()),
-                             (ar.contiguous(), ai.contiguous()), scal, tab, *sched)
-        pgm_dense_fused_cplx.launches += 1
+        out = _launch_cplx(br.contiguous(), bi.contiguous(), ar.contiguous(), ai.contiguous(),
+                           scal, tab, sched)
     return out if with_counts else out[:2]
 
 
 pgm_dense_fused_cplx.launches = 0
+pgm_dense_fused_cplx.route_launches = {"grid": 0, "per_problem": 0}
+
+
+def phase_clocks_cplx(br, bi, ar, ai, lam, rho, theta, steps: int, method="fista", kind="l1",
+                      restart="none", prox="none"):
+    """:func:`phase_clocks` on complex data as planes: one launch of
+    ``pgm_dense_fused_cplx`` on the grid route with its phase timer on."""
+    check_schedule(method, kind, restart, prox)
+    check_cuda_operands("pgm_dense_fused_cplx", ar, ai, br, bi)
+    scal, tab = kernel_args(br, lam, rho, theta, method, steps)
+    prof = torch.zeros(len(GRID_PHASES), dtype=torch.int64, device=br.device)
+    _launch_cplx(br.contiguous(), bi.contiguous(), ar.contiguous(), ai.contiguous(), scal, tab,
+                 (steps, method, kind, restart, prox), route="grid", prof=prof)
+    return dict(zip(GRID_PHASES, prof.tolist()))
 
 
 def check_pgm_dense_fused(solver):

@@ -1153,10 +1153,11 @@ def test_pgm_dense_grid_route_never_falls_back(dev):
             pgm_dense.pgm_dense_fused.route_launches) == before
 
 
-# sha256 of (xr, xi, restarts) of row 7b (the complex plane kernel, one CTA
-# per problem) at `_cplx_digest_case`, as the source before the real
-# kernel's grid route was added computed them on an NVIDIA H100 80GB HBM3
-# (700 W): row 7b stays that kernel, bit for bit
+# sha256 of (xr, xi, restarts) of row 7b's per-problem kernel (the complex
+# plane kernel, one CTA per problem) at `_cplx_digest_case`, as the source
+# before the real kernel's grid route was added computed them on an NVIDIA
+# H100 80GB HBM3 (700 W): the per-problem route stays that kernel, bit for
+# bit
 CPLX_PARENT_SHA256 = "beff348ec5f92d2feb0e57a368d63db95cd966bd29907003ed719b5ea9ae383f"
 
 
@@ -1167,10 +1168,15 @@ def _cplx_digest_case(dev):
 
 
 def test_pgm_dense_cplx_kernel_is_bit_for_bit_the_stored_run(dev):
-    """Row 7b, which the grid route of the real kernel leaves as it was."""
+    """Row 7b's per-problem route (forced: the case has a grid plan), which
+    the grid routes leave as it was."""
     import hashlib
 
-    xr, xi, counts = pgm_dense.pgm_dense_fused_cplx(*_cplx_digest_case(dev), with_counts=True)
+    br, bi, ar, ai, lam, rho, theta, steps, method, kind, restart, prox = _cplx_digest_case(dev)
+    scal, tab = pgm_dense.kernel_args(br, lam, rho, theta, method, steps)
+    xr, xi, counts = pgm_dense._launch_cplx(br, bi, ar, ai, scal, tab,
+                                            (steps, method, kind, restart, prox),
+                                            route="per_problem")
     h = hashlib.sha256()
     for t in (xr, xi, counts):
         h.update(t.contiguous().cpu().numpy().tobytes())
@@ -1196,6 +1202,166 @@ def test_pgm_dense_cplx_kernel_matches_plain(dev, method, restart, kind, prox):
     assert counts.tolist() == want_counts.tolist()
     if prox != "none":
         assert not bool(xi.any())
+
+
+# (m, n, P) of the complex dense PGM kernel's cases and the route of each:
+# the small system (one slab, one group); phase 3g's complex 256 × 512 ×
+# 16; several slabs and groups with a remainder in both; P = 1; more
+# problems than SMs; A tall, and wide (both planes of its slab streamed
+# from L2); a row too long for two planes of a group's Gram input and x in
+# shared memory (the per-problem kernel); and "real A", the 256 × 512 × 16
+# case with a zero im plane (a real A with a complex b)
+PGM_DENSE_CPLX_SHAPES = {(40, 24, 3): "grid", (256, 512, 16): "grid", (1000, 300, 61): "grid",
+                         (256, 512, 1): "grid", (256, 512, 137): "grid", (3000, 16, 16): "grid",
+                         (16, 1000, 16): "grid", (64, 1600, 3): "per_problem",
+                         "real A": "grid"}
+
+
+def _pgm_dense_cplx_system(dev, shape):
+    """(br, bi, ar, ai, λ) of a complex dense PGM case: A = (N + iN)/√(2m)
+    as its planes, a wide A scaled by √(m/n) so that ρ = 0.4 converges on
+    every shape, λ 1e-2, 0, 0.1 in turn."""
+    real_a = shape == "real A"
+    m, n, P = (256, 512, 16) if real_a else shape
+    (ar, ai), (br, bi) = _dense(dev, m, n, P, seed=12, cplx=True)
+    scale = float(np.sqrt(0.25 * min(1.0, m / n)))
+    ar, ai = ar * scale, torch.zeros_like(ai) if real_a else ai * scale
+    lam = torch.tensor([1e-2, 0.0, 0.1], device=dev).repeat(P)[:P]
+    return br, bi, ar.contiguous(), ai.contiguous(), lam.contiguous()
+
+
+def _cplx_case(dev):
+    """Phase 3g's complex case's shape: 256 × 512 at batch 16, A = (N +
+    iN)/√(2m) as its planes, ρ = 0.95/‖A‖₂², λ from 0 to 2e-2; FISTA's
+    gradient restart fires on it."""
+    (ar, ai), (br, bi) = _dense(dev, m=256, n=512, P=16, seed=11, cplx=True)
+    ar, ai = ar * float(np.sqrt(0.5)), ai * float(np.sqrt(0.5))
+    a64 = torch.complex(ar, ai).cpu().to(torch.complex128)
+    rho = 0.95 / float(torch.linalg.matrix_norm(a64, ord=2)) ** 2
+    return br, bi, ar, ai, torch.linspace(0.0, 2e-2, 16, device=dev), rho
+
+
+def _cplx_counters():
+    fn = pgm_dense.pgm_dense_fused_cplx
+    return fn.launches, dict(fn.route_launches)
+
+
+@pytest.mark.parametrize("shape", list(PGM_DENSE_CPLX_SHAPES), ids=str)
+@pytest.mark.parametrize("method,restart", [("fista", "none"), ("fista", "gradient"),
+                                            ("fista", "gradient_mapping"), ("optista", "none"),
+                                            ("pogm", "none")])
+@pytest.mark.parametrize("kind", ["l1", "l2"])
+@pytest.mark.parametrize("prox", ["none", "positive", "real"])
+def test_pgm_dense_cplx_routes_match_plain(dev, method, restart, kind, prox, shape):
+    """The complex kernel on the route of its plan, at the bars of
+    test_pgm_dense_kernel_matches_plain: one launch counted on that route,
+    x within 1e-5 of max|x| of the plain version, equal restart counts, and
+    the same bits run to run."""
+    br, bi, ar, ai, lam = _pgm_dense_cplx_system(dev, shape)
+    route = PGM_DENSE_CPLX_SHAPES[shape]
+    plan = pgm_dense.card_plan(br, ar, cplx=True)
+    assert plan.route == route
+    if route == "grid":
+        assert plan.ctas <= torch.cuda.get_device_properties(dev).multi_processor_count
+    args = (lam, 0.4, 1.0, 30, method, kind, restart, prox)
+    launches, routes = _cplx_counters()
+    xr, xi, counts = pgm_dense.pgm_dense_fused_cplx(br, bi, ar, ai, *args, with_counts=True)
+    assert _cplx_counters() == (launches + 1, {**routes, route: routes[route] + 1})
+    scal, tab = pgm_dense.kernel_args(br, lam, 0.4, 1.0, method, 30)
+    wr, wi, want_counts = pgm_dense.pgm_dense_fused_cplx_torch(br, bi, ar, ai, scal, tab, 30,
+                                                               method, kind, restart, prox)
+    got = torch.stack([xr, xi])
+    assert bool(torch.isfinite(got).all())
+    _close(got, torch.stack([wr, wi]), 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+    if restart != "none" and shape == (40, 24, 3):
+        assert max(counts.tolist()) > 0
+    if prox != "none":
+        assert not bool(xi.any())
+    assert torch.equal(torch.stack(pgm_dense.pgm_dense_fused_cplx(br, bi, ar, ai, *args)), got)
+
+
+@pytest.mark.parametrize("method,restart", [("fista", "gradient"), ("pogm", "none")])
+def test_pgm_dense_cplx_grid_route_repeats_bit_for_bit(dev, method, restart):
+    """20 launches of the complex grid route at phase 3g's complex case's
+    plan (16 slabs × 2 groups, two group barriers per iteration, four
+    partials per entry), 100 iterations of FISTA with its gradient restart
+    (the restart partials of both planes summed over the slabs by every
+    CTA) and of POGM: each equal to the first, with equal counts, and held
+    to the plain version."""
+    br, bi, ar, ai, lam, rho = _cplx_case(dev)
+    plan = pgm_dense.card_plan(br, ar, cplx=True)
+    assert (plan.route, plan.slabs, plan.groups) == ("grid", 16, 2)
+    args = (lam, rho, 1.0, 100, method, "l1", restart)
+    first = pgm_dense.pgm_dense_fused_cplx(br, bi, ar, ai, *args, with_counts=True)
+    scal, tab = pgm_dense.kernel_args(br, lam, rho, 1.0, method, 100)
+    want = pgm_dense.pgm_dense_fused_cplx_torch(br, bi, ar, ai, scal, tab, 100, method, "l1",
+                                                restart)
+    _close(torch.stack(first[:2]), torch.stack(want[:2]), 1e-5)
+    assert first[2].tolist() == want[2].tolist()
+    if restart != "none":
+        assert max(first[2].tolist()) > 0
+    for _ in range(20):
+        got = pgm_dense.pgm_dense_fused_cplx(br, bi, ar, ai, *args, with_counts=True)
+        assert all(torch.equal(u, v) for u, v in zip(got, first))
+
+
+def test_pgm_dense_cplx_phase_clocks(dev):
+    """The complex grid route's phase timer: one launch counted on the grid
+    route, clocks in every phase; a shape with no grid plan raises and
+    launches nothing."""
+    br, bi, ar, ai, lam, rho = _cplx_case(dev)
+    launches, routes = _cplx_counters()
+    clocks = pgm_dense.phase_clocks_cplx(br, bi, ar, ai, lam, rho, 1.0, 20, "fista", "l1",
+                                         "gradient", "real")
+    assert _cplx_counters() == (launches + 1, {**routes, "grid": routes["grid"] + 1})
+    assert list(clocks) == list(pgm_dense.GRID_PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    br4, bi4, ar4, ai4, lam4 = _pgm_dense_cplx_system(dev, (64, 1600, 3))
+    with pytest.raises(ValueError, match="no grid plan"):
+        pgm_dense.phase_clocks_cplx(br4, bi4, ar4, ai4, lam4, 0.4, 1.0, 2)
+    assert _cplx_counters() == (launches + 1, {**routes, "grid": routes["grid"] + 1})
+
+
+@pytest.mark.parametrize("shape", [(40, 24, 3), (256, 512, 16), "real A"], ids=str)
+@pytest.mark.parametrize("method,restart", [("fista", "gradient"), ("pogm", "none")])
+def test_pgm_dense_cplx_forced_per_problem_route_matches_plain(dev, shape, method, restart):
+    """The complex per-problem kernel, forced where the planner takes the
+    grid: held to the plain version like the grid route, counted on its
+    route."""
+    br, bi, ar, ai, lam = _pgm_dense_cplx_system(dev, shape)
+    scal, tab = pgm_dense.kernel_args(br, lam, 0.4, 1.0, method, 30)
+    sched = (30, method, "l1", restart, "real")
+    launches, routes = _cplx_counters()
+    xr, xi, counts = pgm_dense._launch_cplx(br, bi, ar, ai, scal, tab, sched, route="per_problem")
+    assert _cplx_counters() == (launches + 1,
+                                {**routes, "per_problem": routes["per_problem"] + 1})
+    wr, wi, want_counts = pgm_dense.pgm_dense_fused_cplx_torch(br, bi, ar, ai, scal, tab, *sched)
+    _close(torch.stack([xr, xi]), torch.stack([wr, wi]), 1e-5)
+    assert counts.tolist() == want_counts.tolist()
+
+
+def test_pgm_dense_cplx_grid_route_never_falls_back(dev):
+    """A forced grid launch on a shape without a grid plan raises, and so
+    does one the C entry point refuses (a plan whose shared memory differs
+    from the kernel's count); neither launches anything on another
+    route."""
+    launches, routes = _cplx_counters()
+    br, bi, ar, ai, lam = _pgm_dense_cplx_system(dev, (64, 1600, 3))
+    scal, tab = pgm_dense.kernel_args(br, lam, 0.4, 1.0, "fista", 4)
+    sched = (4, "fista", "l1", "none", "none")
+    with pytest.raises(ValueError, match="no grid plan"):
+        pgm_dense._launch_cplx(br, bi, ar, ai, scal, tab, sched, route="grid")
+    br, bi, ar, ai, lam = _pgm_dense_cplx_system(dev, (256, 512, 16))
+    scal, tab = pgm_dense.kernel_args(br, lam, 0.4, 1.0, "fista", 4)
+    plan = pgm_dense.card_plan(br, ar, cplx=True)
+    bad = pgm_dense.PgmDensePlan("grid", plan.slabs, plan.rows, plan.groups, plan.group_size,
+                                 plan.resident, plan.smem + 16)
+    with pytest.raises(RuntimeError, match="pgm_dense_grid_cplx_launch"):
+        pgm_dense._launch_grid((br, bi), (ar, ai), scal, tab, bad, *sched)
+    with pytest.raises(ValueError, match="no route"):
+        pgm_dense._launch_cplx(br, bi, ar, ai, scal, tab, sched, route="plain")
+    assert _cplx_counters() == (launches, routes)
 
 
 def test_dense_wrappers_refuse_what_the_kernels_do_not_take(dev):
