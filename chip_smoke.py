@@ -123,10 +123,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      warp route required), the 64 MiB system (4 b), a complex system and
      a real A with a complex b, each plan printed and its one launch on
      that plan's route by the route counter, and both routes forced at
-     the tall dense system; the greedy sweep with forced rows and with
-     sampled draws, whose rows must equal the plain version's; each held
-     by `hold_dense` and timed in turns with its plain version, beside the
-     composed solve at its shapes;
+     the tall dense system; the greedy solve (20 sweeps of 64 steps, the
+     tall system, batch 16) with forced rows and with sampled draws
+     through greedy_solve, each one launch on its plan's route by the
+     counters, whose rows must equal the plain version's, and the same
+     with the block route forced (20 launches by the route counter); each
+     held by `hold_dense` and timed in turns with its plain version,
+     beside the composed solve at its shapes (the greedy sweep alone too);
  10. the PDHG and Kaczmarz cells through solve_batched_fast, each
      running its named dispatch row (pdhg, kaczmarz_streamed,
      kaczmarz_greedy) by the launch counters, with problems/s, two
@@ -137,7 +140,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launch on the resident route by the route counter),
      kaczmarz_rand_pos_tall_b16_streamed, kaczmarz_rand_pos_tall_b16_csr,
      kaczmarz_streamed_64MiB_b4 (each one launch on its plan's route by
-     the route counter) and this script's kaczmarz_greedy_tall_b16;
+     the route counter) and this script's kaczmarz_greedy_tall_b16 (one
+     launch of the greedy solve on its plan's route);
   7. the kernel table as one JSON line (launches on the main path, error
      against the plain version, kernel and plain times, the least time
      the card could take, `bound_ms`, and a library yardstick where one
@@ -797,11 +801,12 @@ def device_breakdown(name, fn):
 
 
 def launch_counts(reset=False):
-    """The launch counters of the fifteen kernel wrappers, by name; with
+    """The launch counters of the sixteen kernel wrappers, by name; with
     `reset`, set them to 0 first (and the TV prox, PGM-TV (rows 2 and 3),
     ADMM-TV (rows 4 and 5), SplitBregman, PDHG, FISTA-L1-DFT,
-    FISTA-L21-SENSE, dense PGM (rows 7a and 7b) and Kaczmarz (rows 12a,
-    12b) kernels' counts by route)."""
+    FISTA-L21-SENSE, dense PGM (rows 7a and 7b), Kaczmarz (rows 12a, 12b)
+    and greedy Kaczmarz (row 13, the solve and the sweep alone) kernels'
+    counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -813,7 +818,7 @@ def launch_counts(reset=False):
            fista_l1_dft_fused.fista_l1_dft_fused, sense_fused.fista_l21_sense_fused,
            splitbregman_fused.splitbregman_l1_tv_fused, pdhg_fused.pdhg_fused,
            kaczmarz_streamed.kaczmarz_sweep, kaczmarz_streamed.kaczmarz_solve,
-           kaczmarz_greedy.kaczmarz_greedy_sweep)
+           kaczmarz_greedy.kaczmarz_greedy_solve, kaczmarz_greedy.kaczmarz_greedy_sweep)
     if reset:
         for fn in fns:
             fn.launches = 0
@@ -828,6 +833,8 @@ def launch_counts(reset=False):
             fn.route_launches = {"grid": 0, "per_problem": 0}
         for fn in (kaczmarz_streamed.kaczmarz_sweep, kaczmarz_streamed.kaczmarz_solve):
             fn.route_launches = {"warp": 0, "block": 0}
+        for fn in (kaczmarz_greedy.kaczmarz_greedy_solve, kaczmarz_greedy.kaczmarz_greedy_sweep):
+            fn.route_launches = {"resident": 0, "block": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
 
@@ -2005,6 +2012,19 @@ def greedy_ops(m, n, steps):
     return steps * (13 * m + 2 * n + 3)
 
 
+def greedy_solve_ops(m, n, steps, sweeps):
+    """f32 operations of a greedy solve of one problem: `sweeps` sweeps of
+    `steps` steps, each followed by Positive (n) and the refresh (A x: 2mn;
+    r = (u − ε·vl) − A x: 3m)."""
+    return sweeps * (greedy_ops(m, n, steps) + 2 * m * n + 3 * m + n)
+
+
+def print_greedy_plan(name, plan):
+    print(f"{name}: plan {plan.route}" + (
+        f", {plan.rows} row(s) of r a thread, a ring of {plan.ring}, x in {plan.x_in}, "
+        f"{plan.threads} threads, {plan.smem} B" if plan.route == "resident" else ""))
+
+
 def kaczmarz_kernel_phase(dev, kz):
     """Phase 3i, rows 12a, 12b and 13, each held by `hold_dense`:
     12a through Kaczmarz(backend="cuda") (cyclic and shuffled, KZ_SWEEPS
@@ -2017,9 +2037,12 @@ def kaczmarz_kernel_phase(dev, kz):
     A with complex b, each plan printed and its one launch required on that
     plan's route, then both routes forced on the tall dense system, the
     tall dense solve timed in turns with its plain version; 13 through
-    greedy_solve with forced rows and with sampled draws, whose rows must
-    equal the plain version's, one sweep timed in turns and the composed
-    one-sweep greedy solve. Returns {kernel: {"err", "ms", ...}}."""
+    greedy_solve (the cell's 20 sweeps of 64 steps, batch 16) with forced
+    rows and with sampled draws, each one launch on its plan's route,
+    whose rows must equal the plain version's, then the same on the block
+    route forced (20 launches each), the solve and one sweep
+    timed in turns with their plain versions, and the composed 20-sweep
+    greedy solve. Returns {kernel: {"err", "ms", ...}}."""
     import torch
 
     import rls_tpu_torch as rtt
@@ -2027,7 +2050,7 @@ def kaczmarz_kernel_phase(dev, kz):
     from rls_tpu_torch.kernels import kaczmarz_streamed as ks
 
     A, B16, _, _ = kz["tall"]
-    out = {k: {"err": 0.0} for k in ("kaczmarz_sweep", "kaczmarz_solve", "kaczmarz_greedy_sweep")}
+    out = {k: {"err": 0.0} for k in ("kaczmarz_sweep", "kaczmarz_solve", "kaczmarz_greedy_solve")}
 
     def note(name, err):
         out[name]["err"] = max(out[name]["err"], err)
@@ -2124,40 +2147,78 @@ def kaczmarz_kernel_phase(dev, kz):
     # the rows the timed solve visits, and how many distinct ones it reads
     out["kaczmarz_solve"]["visited"] = (int((idx >= 0).sum()), int(torch.unique(idx).numel()))
 
-    # 13: the greedy sweep, forced and sampled
+    # 13: the greedy solve, forced and sampled, each one launch on its plan
     sg = kaczmarz_solver(dense, KZ_GREEDY, greedy=True)
     T, S = sg.iterations, sg.sub_matrix_size
+    plan = kg.card_plan(16, 1024, 256, dev)
+    print_greedy_plan("kaczmarz_greedy_solve[1024x256, batch 16]", plan)
+    plain = kg.kaczmarz_greedy_solve_torch
     forced = torch.from_numpy(np.random.default_rng(6).integers(0, 1024, size=(T, S))
                               .astype(np.int32)).to(dev)
     for label, fr in (("forced rows", forced), ("sampled draws", None)):
+        launch_counts(reset=True)
         _, rk = kg.greedy_solve(sg, B16, forced_rows=fr)
-        _, rp = kg.greedy_solve(sg, B16, sweep=kg.kaczmarz_greedy_sweep_torch, forced_rows=fr)
+        torch.cuda.synchronize()
+        got, routes = launch_counts(), kg.kaczmarz_greedy_solve.route_launches
+        require(got == {**{k: 0 for k in got}, "kaczmarz_greedy_solve": 1}
+                and routes == {**{r: 0 for r in routes}, plan.route: 1},
+                f"kaczmarz_greedy_solve[{label}]: launches {got}, by route {routes}")
+        _, rp = kg.greedy_solve(sg, B16, forced_rows=fr, solve=plain)
         differ = int((rk != rp).sum())
-        print(f"kaczmarz_greedy_sweep[{label}]: {rk.numel()} rows drawn ({T} sweeps × {S} steps "
-              f"× 16 problems), {differ} differ from the plain version's, "
-              f"{int(torch.unique(rk).numel())} distinct")
-        require(differ == 0, f"kaczmarz_greedy_sweep[{label}]: {differ} drawn rows differ")
-        note("kaczmarz_greedy_sweep", hold_dense(
-            f"kaczmarz_greedy_sweep[{label}, 1024x256, batch 16, {T}×{S}]",
+        print(f"kaczmarz_greedy_solve[{label}]: one launch on the {plan.route} route; "
+              f"{rk.numel()} rows drawn ({T} sweeps × {S} steps × 16 problems), {differ} differ "
+              f"from the plain version's, {int(torch.unique(rk).numel())} distinct")
+        require(differ == 0, f"kaczmarz_greedy_solve[{label}]: {differ} drawn rows differ")
+        note("kaczmarz_greedy_solve", hold_dense(
+            f"kaczmarz_greedy_solve[{label}, 1024x256, batch 16, {T}×{S}]",
             lambda b, fr=fr: (kg.greedy_solve(sg, b, forced_rows=fr)[0].T, None),
-            lambda b, fr=fr: (kg.greedy_solve(sg, b, sweep=kg.kaczmarz_greedy_sweep_torch,
-                                              forced_rows=fr)[0].T, None),
+            lambda b, fr=fr: (kg.greedy_solve(sg, b, forced_rows=fr, solve=plain)[0].T, None),
             (B16,), counts=False))
+    # the block route (the planner's past 4096 rows) forced at the cell: the
+    # PR 6 kernel once a sweep, the projection and the refresh between them
+
+    def block(*args):
+        return kg._forced(*args, route="block")
+
+    for label, fr in (("forced rows", forced), ("sampled draws", None)):
+        launch_counts(reset=True)
+        _, rk = kg.greedy_solve(sg, B16, forced_rows=fr, solve=block)
+        torch.cuda.synchronize()
+        got, routes = launch_counts(), kg.kaczmarz_greedy_solve.route_launches
+        require(got == {**{k: 0 for k in got}, "kaczmarz_greedy_solve": T}
+                and routes == {"resident": 0, "block": T},
+                f"kaczmarz_greedy_solve[{label}, the block route forced]: launches {got}, by "
+                f"route {routes}")
+        _, rp = kg.greedy_solve(sg, B16, forced_rows=fr, solve=plain)
+        differ = int((rk != rp).sum())
+        print(f"kaczmarz_greedy_solve[{label}, the block route forced]: {T} launches on the "
+              f"block route; {rk.numel()} rows drawn, {differ} differ from the plain version's")
+        require(differ == 0,
+                f"kaczmarz_greedy_solve[{label}, the block route forced]: {differ} rows differ")
+        note("kaczmarz_greedy_solve", hold_dense(
+            f"kaczmarz_greedy_solve[{label}, the block route forced, 1024x256, batch 16, "
+            f"{T}×{S}]",
+            lambda b, fr=fr: (kg.greedy_solve(sg, b, forced_rows=fr, solve=block)[0].T, None),
+            lambda b, fr=fr: (kg.greedy_solve(sg, b, forced_rows=fr, solve=plain)[0].T, None),
+            (B16,), counts=False))
+    # the timed solve: the rows it draws, and how many distinct ones it reads
+    out["kaczmarz_greedy_solve"]["visited"] = (
+        S, T, int(torch.unique(kg.greedy_solve(sg, B16)[1]).numel()))
+    print(f"kaczmarz_greedy_solve (timed solve): {out['kaczmarz_greedy_solve']['visited'][2]} "
+          "distinct rows drawn")
+    out["kaczmarz_greedy_solve"]["ms"] = alternate_ms(
+        lambda: kg.greedy_solve(sg, B16, solve=plain), lambda: kg.greedy_solve(sg, B16), reps=1)
     Ag, Gt, dg, ng, eg, fn, bt = kg.greedy_operands(sg, B16)
     z = (torch.zeros(16, 256, device=dev), torch.zeros(16, 1024, device=dev), bt)
-    # the rows the timed sweep draws, and how many distinct ones it reads
-    drawn = kg.kaczmarz_greedy_sweep(Ag, Gt, dg, ng, *z, eg, fn, None, S, sg.seed, 0)[3]
-    out["kaczmarz_greedy_sweep"]["visited"] = (S, int(torch.unique(drawn).numel()))
-    print(f"kaczmarz_greedy_sweep (timed sweep): {drawn.numel()} rows drawn, "
-          f"{out['kaczmarz_greedy_sweep']['visited'][1]} distinct")
-    out["kaczmarz_greedy_sweep"]["ms"] = alternate_ms(
+    sweep_ms = alternate_ms(
         lambda: kg.kaczmarz_greedy_sweep_torch(Ag, Gt, dg, ng, *z, eg, fn, None, S, sg.seed, 0),
         lambda: kg.kaczmarz_greedy_sweep(Ag, Gt, dg, ng, *z, eg, fn, None, S, sg.seed, 0),
         reps=2)
-    g1 = kaczmarz_solver(dense, (1,) + KZ_GREEDY[1:], greedy=True)
-    rtt.solve_batched_unrolled(g1, B16)
-    out["kaczmarz_greedy_sweep"]["library_ms"] = cuda_ms(
-        lambda: rtt.solve_batched_unrolled(g1, B16), 1)
+    print(f"kaczmarz_greedy_sweep (one sweep of {S} steps): kernel {sweep_ms[1]:.3f} ms, "
+          f"plain {sweep_ms[0]:.3f} ms")
+    rtt.solve_batched_unrolled(sg, B16)
+    out["kaczmarz_greedy_solve"]["library_ms"] = cuda_ms(
+        lambda: rtt.solve_batched_unrolled(sg, B16), 1)
     for name, row in out.items():
         print(f"{name}: kernel {row['ms'][1]:.3f} ms, plain {row['ms'][0]:.3f} ms"
               + (f", composed {row['library_ms']:.3f} ms" if "library_ms" in row else ""))
@@ -2241,9 +2302,12 @@ def kernel_cell_phase(dev, draws, pdhg_solver, kz):
             print(f"launches ({name}) by route: {routes}")
             require(routes == {"resident": 1, "global": 0},
                     f"{name}: expected one launch on the resident route, got {routes}")
-        if row == "kaczmarz_streamed":
-            plan = kaczmarz_plan(solver, B)
-            routes = ks.kaczmarz_solve.route_launches
+        if row in ("kaczmarz_streamed", "kaczmarz_greedy"):
+            if row == "kaczmarz_streamed":
+                plan, routes = kaczmarz_plan(solver, B), ks.kaczmarz_solve.route_launches
+            else:
+                plan = kg.card_plan(B.shape[1], *solver.A.shape, B.device)
+                routes = kg.kaczmarz_greedy_solve.route_launches
             print(f"launches ({name}) by route: {routes}")
             require(routes == {**{r: 0 for r in routes}, plan.route: 1},
                     f"{name}: expected one launch on the {plan.route} route, got {routes}")
@@ -2325,12 +2389,11 @@ def kernel_cell_phase(dev, draws, pdhg_solver, kz):
     # kaczmarz_greedy_tall_b16: this script's own greedy cell
     sg = kaczmarz_solver(dense, KZ_GREEDY, greedy=True)
     name = "kaczmarz_greedy_tall_b16"
-    x = run(name, sg, Bt, "kaczmarz_greedy", {"kaczmarz_greedy_sweep": sg.iterations})
+    x = run(name, sg, Bt, "kaczmarz_greedy", {"kaczmarz_greedy_solve": 1})
     _, rows = kg.greedy_solve(sg, Bt)  # the same draws as the run above
     s64 = as_float64(sg)
-    x64 = torch.cat([kg.greedy_solve(s64, Bt[:, j:j + 1].double(),
-                                     sweep=kg.kaczmarz_greedy_sweep_torch,
-                                     forced_rows=rows[:, j, :], dtype=torch.float64)[0]
+    x64 = torch.cat([kg.greedy_solve(s64, Bt[:, j:j + 1].double(), forced_rows=rows[:, j, :],
+                                     dtype=torch.float64, solve=kg.kaczmarz_greedy_solve_torch)[0]
                      for j in range(2)], dim=1)
     parity_cols(name, x, Bt, s64.A.mv, x64, xtk)
     return launched, composed
@@ -2737,11 +2800,10 @@ def main() -> int:
     bounds["splitbregman_fused"] = bound(
         sum(sb_ops(s_hw, SENSE_C, *SB_SCHED[:2], SB_TV, v) for v in sb_live),
         s_bytes + f32 * 4 * SENSE_SLICES)
-    # row 11 at the cell's shapes (x0 in, x out, the scalars); rows 12a,
-    # 12b and 13 at their timed shapes: every input read once (A, or the
-    # distinct rows the solve visits, x, vl, u, denom, eps, the index list;
-    # the distinct rows of A and of the greedy table Gt the sweep draws,
-    # denom, norms), every output written once (x, vl, r, the drawn rows)
+    # row 11 at the cell's shapes (x0 in, x out, the scalars); rows 12a
+    # and 12b at their timed shapes: every input read once (A, or the
+    # distinct rows the solve visits, x, vl, u, denom, eps, the index
+    # list), every output written once (x, vl)
     px = PDHG_BATCH * PDHG_N * PDHG_N
     bounds["pdhg_fused"] = bound(
         PDHG_ITERS * pdhg_ops(*(len(t) for t in pdhg_solver.A.taps_hw()), "tv8") * px,
@@ -2752,9 +2814,13 @@ def main() -> int:
     steps, distinct = kacz["kaczmarz_solve"]["visited"]
     bounds["kaczmarz_solve"] = bound(p * kaczmarz_ops(n, steps) + KZ_TALL[0] * p * n,
                                      f32 * (distinct * n + vec + KZ_TALL[0] * 64))
-    S, distinct = kacz["kaczmarz_greedy_sweep"]["visited"]
-    bounds["kaczmarz_greedy_sweep"] = bound(
-        p * greedy_ops(m, n, S), f32 * (distinct * (n + m) + 2 * m + p * (2 * n + 4 * m + 1 + S)))
+    # row 13, the greedy solve: A (the refresh reads all of it) and the rows
+    # of Gt the solve draws, denom and norms read once; b and ε in; x, vl,
+    # r and the drawn rows out
+    S, T, distinct = kacz["kaczmarz_greedy_solve"]["visited"]
+    bounds["kaczmarz_greedy_solve"] = bound(
+        p * greedy_solve_ops(m, n, S, T),
+        f32 * (m * n + distinct * m + 2 * m + p * (n + 3 * m + 1 + T * S)))
     rows = (
         ("tv_fgp", "tv_fgp.cu", "rls_tpu/kernels/tv_pallas.py:69", launches_tv, err_tv,
          (plain_tv, ms_tv)),
@@ -2794,9 +2860,9 @@ def main() -> int:
         ("kaczmarz_solve", "kaczmarz.cu", "rls_tpu/kernels/kaczmarz_pallas.py:206",
          kernel_launched["kaczmarz_solve"], kacz["kaczmarz_solve"]["err"],
          kacz["kaczmarz_solve"]["ms"]),
-        ("kaczmarz_greedy_sweep", "kaczmarz_greedy.cu", "rls_tpu/kernels/kaczmarz_greedy.py:164",
-         kernel_launched["kaczmarz_greedy_sweep"], kacz["kaczmarz_greedy_sweep"]["err"],
-         kacz["kaczmarz_greedy_sweep"]["ms"]),
+        ("kaczmarz_greedy_solve", "kaczmarz_greedy.cu", "rls_tpu/kernels/kaczmarz_greedy.py:164",
+         kernel_launched["kaczmarz_greedy_solve"], kacz["kaczmarz_greedy_solve"]["err"],
+         kacz["kaczmarz_greedy_solve"]["ms"]),
     )
     # one PyTorch call computes the same function only for CGNR's
     # regularized normal equations (torch.linalg.solve); none computes a
@@ -2807,7 +2873,7 @@ def main() -> int:
     # prox): many calls, not one, and the time a faster kernel has to
     # beat; for the three FFT kernels the same solve with its normal op on
     # torch.fft (cuFFT); the same for PDHG (the cell) and the three
-    # Kaczmarz rows (one sweep, the tall cell, one greedy sweep)
+    # Kaczmarz rows (one sweep, the tall cell, the 20-sweep greedy solve)
     library.update({
         "fista_tv_fused": flagship_ms["solve_batched_unrolled"],
         "fista_l1_dft_fused": composed_ms["fista_l1_dft_fused"],
@@ -2816,7 +2882,7 @@ def main() -> int:
         "pdhg_fused": kernel_composed["pdhg_fused"],
         "kaczmarz_sweep": kacz["kaczmarz_sweep"]["library_ms"],
         "kaczmarz_solve": kernel_composed["kaczmarz_solve"],
-        "kaczmarz_greedy_sweep": kacz["kaczmarz_greedy_sweep"]["library_ms"],
+        "kaczmarz_greedy_solve": kacz["kaczmarz_greedy_solve"]["library_ms"],
     })
     kernels = []
     for name, src, replaces, launches, err, (plain_ms, ms) in rows:
@@ -3804,7 +3870,7 @@ def time_library(dev, out):
     flagship, the 512² tiled FISTA-TV cell, the two ADMM-TV cells, the LASSO
     cell and the complex FISTA, BASELINE #4's SplitBregman on the 8 SENSE
     slices, the PDHG cell, one cyclic Kaczmarz sweep of the tall system,
-    the tall streamed cell and one greedy sweep. Each with three wall
+    the tall streamed cell and the greedy cell. Each with three wall
     readings (CUDA events, one call each) and three device times by
     torch.profiler (the sum of its kernels' times, which the host's launch
     gaps do not move)."""
@@ -3852,7 +3918,7 @@ def time_library(dev, out):
     dense = rtt.DenseOperator(A, device=dev)
     composed("12a", kaczmarz_solver(dense, (1, 1.0, 16), randomized=False), B16)
     composed("12b", kaczmarz_solver(dense, KZ_TALL), Bt)
-    composed(13, kaczmarz_solver(dense, (1,) + KZ_GREEDY[1:], greedy=True), B16)
+    composed(13, kaczmarz_solver(dense, KZ_GREEDY, greedy=True), Bt)
     time_cases(out, solves)
     device_ms(out, solves)
 
@@ -3983,6 +4049,135 @@ def time_kaczmarz(dev, out):
     torch.save(saved, os.path.join(keep, f"{tag}.pt"))
 
 
+# the greedy solve's (m, n) about the crossover of its two routes, batch 4
+GREEDY_CROSSOVER = ((2048, 256), (2048, 2048), (4096, 256), (4096, 2048))
+
+
+def resident_instance(mangled):
+    """'rows R, x in registers|shared[, timer]' for a mangled name of the
+    greedy kernel's resident route, else None."""
+    m = re.search(r"kaczmarz_greedy_resident_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    if not m:
+        return None
+    return (f"rows {m.group(1)}, x in {'registers' if m.group(2) == '1' else 'shared'}"
+            + (", timer" if m.group(3) == "1" else ""))
+
+
+def time_kaczmarz_greedy(dev, out):
+    """``--time-kaczmarz-greedy [ROOT]``: the greedy kernel (row 13) at its
+    cell: one sweep of 64 steps from r = b (the tall system, batch 16, the
+    16 distinct b of phase 3i) and kaczmarz_greedy_tall_b16's solve through
+    greedy_solve (20 sweeps, Positive and the refresh after each), and the
+    greedy solve of the 64 MiB system (8192 × 2048, its 4 distinct b, 20
+    sweeps of 512 steps: past the resident route's rows) and of its leading
+    blocks GREEDY_CROSSOVER (m/16 steps a sweep); where ROOT's package has
+    the routes, the plans, the cell's two cases again on the block route
+    and the blocks' solves again on each route forced, and where it has
+    `_build.ptxas_report`, the registers and spills of every instantiation
+    of the resident route. Each case: three readings by CUDA events and
+    three of its device time by torch.profiler (the greedy kernel's alone
+    and the call's); CTA 0's clocks by phase (one sweep with its refresh,
+    and the cell's solve) where ROOT has the timer; sha256 digests of x, vl
+    and the rows (the solve's vl and r where ROOT's solve returns them) and,
+    against the outputs of every tree timed before from this directory
+    (.timing/kaczmarz_greedy/), the count of entries that differ; the
+    composed 20-sweep solve's device time as the yardstick."""
+    import functools
+
+    import torch
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import kaczmarz_greedy as kg
+
+    out["kernel"] = os.path.relpath(kg.__file__, ROOT)
+    routed = hasattr(kg, "plan_kaczmarz_greedy")
+    from rls_tpu_torch import _build
+    if hasattr(_build, "ptxas_report"):
+        out["ptxas of the resident route: registers, spill stores, spill loads (bytes)"] = {
+            resident_instance(k): [v["registers"], v["spill_stores"], v["spill_loads"]]
+            for k, v in sorted(_build.ptxas_report("kaczmarz_greedy.cu").items())
+            if resident_instance(k)}
+    kz = kaczmarz_systems(bench_suite_draws(), dev)
+    A, B16, Bt, _ = kz["tall"]
+    sg = kaczmarz_solver(rtt.DenseOperator(A, device=dev), KZ_GREEDY, greedy=True)
+    S, T = sg.sub_matrix_size, sg.iterations
+    Ag, Gt, dg, ng, eg, fnorm, bt = kg.greedy_operands(sg, B16)
+    z = (torch.zeros(16, 256, device=dev), torch.zeros(16, 1024, device=dev), bt)
+    sweep = (Ag, Gt, dg, ng, *z, eg, fnorm, None, S, sg.seed, 0)
+    # a system past the resident route's 4096 rows: the 64 MiB A (8192 × 2048)
+    # with its 4 distinct b, 20 sweeps of 512 steps (the block route here)
+    A2, B4 = kz["64mib"][:2]
+    s2 = kaczmarz_solver(rtt.DenseOperator(A2, device=dev), KZ_GREEDY, greedy=True)
+    cases = [("one sweep", lambda: kg.kaczmarz_greedy_sweep(*sweep), 5),
+             ("cell solve", lambda: kg.greedy_solve(sg, Bt), 2),
+             ("8192x2048 solve, batch 4", lambda: kg.greedy_solve(s2, B4), 2)]
+    # its leading m × n blocks about the routes' crossover, each b = A x with
+    # the 64 MiB cell's 4 distinct x: 20 sweeps of m/16 steps
+    xs = torch.from_numpy(np.abs(np.random.default_rng(4).normal(size=(2048, 4)))
+                          .astype(np.float32)).to(dev)
+    blocks = {}
+    for m, n in GREEDY_CROSSOVER:
+        Am = A2[:m, :n].contiguous()
+        blocks[m, n] = (kaczmarz_solver(rtt.DenseOperator(Am, device=dev), KZ_GREEDY,
+                                        greedy=True), Am @ xs[:n])
+        cases.append((f"{m}x{n} solve, batch 4",
+                      lambda sb=blocks[m, n]: kg.greedy_solve(*sb), 2))
+    if routed:
+        out["plan 8192x2048"] = dict(vars(kg.card_plan(4, 8192, 2048, dev)))
+        for m, n in GREEDY_CROSSOVER:
+            out[f"plan {m}x{n}"] = dict(vars(kg.card_plan(4, m, n, dev)))
+        out["plan"] = dict(vars(kg.card_plan(16, 1024, 256, dev)))
+        block = functools.partial(kg._forced, route="block")
+        cases += [("one sweep, block route", lambda: kg._sweep(*sweep, route="block"), 5),
+                  ("cell solve, block route", lambda: kg.greedy_solve(sg, Bt, solve=block), 2)]
+        resident = functools.partial(kg._forced, route="resident")
+        cases += [(f"{m}x{n} solve, batch 4, {name} route",
+                   lambda sb=blocks[m, n], f=f: kg.greedy_solve(*sb, solve=f), 2)
+                  for m, n in GREEDY_CROSSOVER
+                  for name, f in (("resident", resident), ("block", block))]
+    time_cases(out, cases)
+    for name, fn, _ in cases:
+        readings = [device_kernels(fn) for _ in range(3)]
+        out[f"{name} kernel device ms (profiler)"] = [
+            sum(ms for ms, _, key in r if "kaczmarz_greedy" in key) for r in readings]
+        out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in r) for r in readings]
+    cell = kg.greedy_operands(sg, Bt)
+    if hasattr(kg, "phase_clocks"):
+        out["clocks of CTA 0 by phase: one sweep and its refresh"] = kg.phase_clocks(
+            Ag, Gt, dg, ng, bt, eg, fnorm, None, S, 1, sg.seed, "positive")
+        out["clocks of CTA 0 by phase: cell solve"] = kg.phase_clocks(
+            *cell[:4], cell[6], cell[4], cell[5], None, S, T, sg.seed, "positive")
+    saved = {"one sweep": kg.kaczmarz_greedy_sweep(*sweep)}
+    x, rows = kg.greedy_solve(s2, B4)
+    saved["8192x2048 solve"] = (x.T, rows)
+    x, rows = kg.greedy_solve(sg, Bt)
+    saved["cell solve"] = (x.T, rows)
+    if hasattr(kg, "kaczmarz_greedy_solve"):
+        saved["cell solve"] = kg.kaczmarz_greedy_solve(*cell[:4], cell[6], cell[4], cell[5], None,
+                                                       S, T, sg.seed, "positive")
+    for name, outs in saved.items():
+        out[f"sha256 of x, vl, r, rows: {name}"] = [digest(t) for t in outs]
+    saved = {k: tuple(t.cpu() for t in v) for k, v in saved.items()}
+    composed = [("composed 20-sweep solve", lambda: rtt.solve_batched_unrolled(sg, Bt), 1)]
+    device_ms(out, composed)
+    # the entries that differ from the trees timed before in this directory
+    keep = os.path.join(ROOT, ".timing", "kaczmarz_greedy")
+    os.makedirs(keep, exist_ok=True)
+    tag = re.sub(r"[^A-Za-z0-9]+", "_", os.path.abspath(out["root"])).strip("_")
+    for f in sorted(os.listdir(keep)):
+        if f == f"{tag}.pt":
+            continue
+        other = torch.load(os.path.join(keep, f))
+        for name, outs in saved.items():
+            if name in other:
+                theirs = other[name]
+                if len(theirs) != len(outs):  # a solve with only (x, rows): x and rows
+                    outs, theirs = (outs[0], outs[-1]), (theirs[0], theirs[-1])
+                out[f"entries differing from {f}: {name}"] = [
+                    [int((a.view(torch.int32) != b.view(torch.int32)).sum()), a.numel()]
+                    for a, b in zip(outs, theirs)]
+    torch.save(saved, os.path.join(keep, f"{tag}.pt"))
+
+
 TIME_MODES = {
     "--time-cgnr": time_cgnr,
     "--time-pgm-tv": time_pgm_tv,
@@ -3997,6 +4192,7 @@ TIME_MODES = {
     "--time-library": time_library,
     "--time-pgm-dense": time_pgm_dense,
     "--time-kaczmarz": time_kaczmarz,
+    "--time-kaczmarz-greedy": time_kaczmarz_greedy,
 }
 
 

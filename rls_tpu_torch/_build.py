@@ -23,12 +23,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_library", "check", "device_limits"]
+__all__ = ["load_library", "check", "device_limits", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -199,6 +200,13 @@ _SIGNATURES = {
     "kaczmarz_greedy_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _U, _U, _P,
     ),
+    # (A, Gt, denom, norms, u, x_in, vl_in, eps, forced, x, vl, r, rows, prof,
+    #  P, m, n, S, T, fnorm, theta, use_theta, seed, sweep0, prox, refresh,
+    #  ring, rows_per_thread, x_shared, smem, stream)
+    "kaczmarz_greedy_solve_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
+        _U, _U, _I, _I, _I, _I, _I, _I, _P,
+    ),
 }
 
 
@@ -253,6 +261,36 @@ def _build(target: Path) -> None:
         _run([(cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
         os.replace(lib, target)
+
+
+def ptxas_report(source: str) -> dict[str, dict[str, int]]:
+    """Compile ``csrc/<source>`` alone with the build's flags and
+    ``-Xptxas -v`` and read ptxas's account of each kernel:
+    {mangled name: {"registers", "spill_stores", "spill_loads", "stack"}}
+    (bytes a thread for the last three). Needs nvcc, not a card."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c", "-o",
+               os.path.join(tmp, "k.o"), str(CSRC / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    report, name = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            report.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            report[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in report.items() if "registers" in v}
 
 
 @functools.lru_cache(maxsize=None)

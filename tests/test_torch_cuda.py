@@ -20,7 +20,9 @@ Kaczmarz and greedy Kaczmarz kernels are held to 1e-5 of max|x| on edge
 shapes (m, n off multiples of 32, n = 1, k_max = 1, complex, −1 pads, a
 CSR row with a genuine column-0 entry), the PDHG kernel's resident route
 bit for bit, and the greedy kernel's drawn rows must equal its plain
-version's. A cluster kernel's resident route gives the same bits on
+version's on both routes (the resident route's whole solve in one launch,
+the block route a launch a sweep), sweep and solve, with the same bits
+over 20 launches. A cluster kernel's resident route gives the same bits on
 every launch (20 repeats): a race between its CTAs would show as a
 launch that differs. The fused ADMM-TV kernel's resident route, whose CG
 sums are double sums over its cluster in rank order, is held to 1e-5 of
@@ -41,6 +43,7 @@ memory) and at the tall cell, each launch counted on its route, and its
 warp and block routes give the same bits over 20 launches."""
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -2128,3 +2131,198 @@ def test_row_action_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="float32"):
         pdhg.pdhg_fused(torch.zeros(2, 8, 8, device=dev, dtype=torch.float64), TAPS, 0.5, 0.3,
                         0.1, 3)
+
+
+# the greedy kernel's shapes: (m, n, P); 300 × 300 holds two rows of r a
+# thread and x in shared memory on the resident route, 2048 × 256 eight rows
+# and x in registers, 4096 × 300 sixteen rows (the most) and x in shared
+# memory
+GREEDY_SHAPES = [(45, 13, 3), (300, 300, 2), (2048, 256, 2), (4096, 300, 2)]
+
+
+def _greedy_solve_args(dev, m=45, n=13, P=3, theta=None, forced=False, S=9, T=3,
+                       prox="positive"):
+    A, Gt, denom, norms, _, _, r, eps, fnorm = _greedy_inputs(dev, m, n, P)
+    fr = None
+    if forced:
+        fr = torch.from_numpy(np.random.default_rng(15).integers(-1, m, size=(T, S))
+                              .astype(np.int32)).to(dev)
+    return (A, Gt, denom, norms, r, eps, fnorm, theta, S, T, 2024, prox, fr)
+
+
+def _hold_greedy(got, want):
+    """Rows equal; x, vl and r within 1e-5 of max|x| (of max|vl|, max|r|)."""
+    assert torch.equal(got[3], want[3]), (got[3], want[3])
+    for g, w in zip(got[:3], want[:3]):
+        _close(g, w, 1e-5)
+
+
+@pytest.mark.parametrize("route", greedy.ROUTES)
+@pytest.mark.parametrize("theta", [None, 0.3])
+@pytest.mark.parametrize("forced", [False, True])
+@pytest.mark.parametrize("shape", GREEDY_SHAPES)
+def test_greedy_solve_matches_plain(dev, route, theta, forced, shape):
+    """The whole solve (Positive and the refresh after each sweep) on each
+    route against kaczmarz_greedy_solve_torch; the resident route launches
+    once, the block route once a sweep."""
+    args = _greedy_solve_args(dev, *shape, theta=theta, forced=forced)
+    before = dict(greedy.kaczmarz_greedy_solve.route_launches)
+    got = greedy._forced(*args, route=route)
+    launches = 1 if route == "resident" else args[9]
+    assert greedy.kaczmarz_greedy_solve.route_launches == {
+        **before, route: before[route] + launches}
+    _hold_greedy(got, greedy.kaczmarz_greedy_solve_torch(*args))
+
+
+@pytest.mark.parametrize("route", greedy.ROUTES)
+@pytest.mark.parametrize("theta", [None, 0.3])
+@pytest.mark.parametrize("forced", [False, True])
+@pytest.mark.parametrize("shape", GREEDY_SHAPES)
+def test_greedy_sweep_routes_match_plain(dev, route, theta, forced, shape):
+    """One sweep from a nonzero start on each route against
+    kaczmarz_greedy_sweep_torch, the launch counted on its route."""
+    A, Gt, denom, norms, x, vl, r, eps, fnorm = _greedy_inputs(dev, *shape)
+    x, vl = x + 0.25, vl - 0.5
+    S = 17
+    fr = None
+    if forced:
+        fr = torch.from_numpy(np.random.default_rng(14).integers(-1, shape[0], size=S)
+                              .astype(np.int32)).to(dev)
+    args = (A, Gt, denom, norms, x, vl, r, eps, fnorm, theta, S, 2024, 5, fr)
+    before = greedy.kaczmarz_greedy_sweep.route_launches[route]
+    got = greedy._sweep(*args, route=route)
+    assert greedy.kaczmarz_greedy_sweep.route_launches[route] == before + 1
+    _hold_greedy(got, greedy.kaczmarz_greedy_sweep_torch(*args))
+
+
+@pytest.mark.parametrize("route", greedy.ROUTES)
+def test_greedy_ties_go_to_row_0_on_each_route(dev, route):
+    A, Gt, denom, norms, x, vl, r, eps, fnorm = _greedy_inputs(dev)
+    r = torch.zeros_like(r)
+    rows = greedy._sweep(A, Gt, denom, norms, x, vl, r, eps, fnorm, None, 4, 1, 0,
+                         route=route)[3]
+    assert rows.tolist() == [[0] * 4] * 3
+    rows = greedy._forced(A, Gt, denom, norms, r, eps, fnorm, None, 4, 2, 1, route=route)[3]
+    assert rows.tolist() == [[[0] * 4] * 3] * 2
+
+
+def _greedy_cell(dev, T):
+    """The greedy cell's system (1024 × 256, 70 % zero, L2 λ = 1e-6), 16
+    problems, 64 steps a sweep, Positive."""
+    rng = np.random.default_rng(22)
+    A = rng.normal(size=(1024, 256)).astype(np.float32)
+    A[rng.uniform(size=A.shape) < 0.7] = 0.0
+    op = rtt.DenseOperator(torch.from_numpy(A).to(dev), device=dev)
+    s = rtt.Kaczmarz.create(op, reg=[rtt.L2Regularization(1e-6), rtt.PositiveRegularization()],
+                            iterations=T, greedy_randomized=True, sub_matrix_fraction=0.0625)
+    B = torch.from_numpy(A @ rng.uniform(size=(256, 16)).astype(np.float32)).to(dev)
+    return s, B
+
+
+@pytest.mark.parametrize("route", greedy.ROUTES)
+def test_greedy_cell_shapes_match_plain(dev, route):
+    """1024 × 256 × 16 with Positive, 4 sweeps of 64 steps, sampled."""
+    s, B = _greedy_cell(dev, 4)
+    A, Gt, denom, norms, eps, fnorm, bt = greedy.greedy_operands(s, B)
+    args = (A, Gt, denom, norms, bt, eps, fnorm, None, 64, 4, s.seed, "positive", None)
+    assert greedy.card_plan(16, 1024, 256, dev).route == "resident"
+    _hold_greedy(greedy._forced(*args, route=route), greedy.kaczmarz_greedy_solve_torch(*args))
+
+
+def test_greedy_solve_entry_point_is_one_launch(dev):
+    """solve_kaczmarz_greedy at the cell's shapes: one launch of the solve on
+    the resident route, none of the sweep."""
+    s, B = _greedy_cell(dev, 3)
+    before = (greedy.kaczmarz_greedy_solve.launches, greedy.kaczmarz_greedy_sweep.launches,
+              greedy.kaczmarz_greedy_solve.route_launches["resident"])
+    x = rtt.solve_kaczmarz_greedy(s, B)
+    assert (greedy.kaczmarz_greedy_solve.launches, greedy.kaczmarz_greedy_sweep.launches,
+            greedy.kaczmarz_greedy_solve.route_launches["resident"]) == (
+        before[0] + 1, before[1], before[2] + 1)
+    want = greedy.greedy_solve(s, B, solve=greedy.kaczmarz_greedy_solve_torch)[0]
+    _close(x, want, 1e-5)
+
+
+@pytest.mark.parametrize("what", ["sweep", "solve"])
+def test_greedy_resident_route_repeats_bit_for_bit(dev, what):
+    """20 launches at the cell's shapes (one sweep of 64 steps; a solve of 20
+    sweeps), sampled: the same bits every time."""
+    s, B = _greedy_cell(dev, 20)
+    A, Gt, denom, norms, eps, fnorm, bt = greedy.greedy_operands(s, B)
+    if what == "sweep":
+        z = (torch.zeros(16, 256, device=dev), torch.zeros(16, 1024, device=dev), bt)
+        run = lambda: greedy.kaczmarz_greedy_sweep(A, Gt, denom, norms, *z, eps, fnorm, None,  # noqa: E731
+                                                   64, s.seed, 0)
+    else:
+        run = lambda: greedy.kaczmarz_greedy_solve(A, Gt, denom, norms, bt, eps, fnorm, None,  # noqa: E731
+                                                   64, 20, s.seed, "positive")
+    first = run()
+    for _ in range(20):
+        again = run()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_greedy_phase_clocks(dev):
+    """The resident route's timer, on a solve whose every step draws (a
+    forced step waits on no noise slot): every phase read, their sum within
+    the consumer's whole run; the launch counted."""
+    args = _greedy_solve_args(dev, 300, 40, 2)
+    before = greedy.kaczmarz_greedy_solve.route_launches["resident"]
+    clocks = greedy.phase_clocks(*args)
+    assert list(clocks) == list(greedy.PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert sum(v for k, v in clocks.items() if k != "total") <= clocks["total"]
+    assert greedy.kaczmarz_greedy_solve.route_launches["resident"] == before + 1
+
+
+def test_greedy_resident_route_registers_from_the_build(dev):
+    """ptxas's account of every instantiation of the resident route (rows
+    of r a thread × x placement × timer): each within the launch bound's
+    168 registers a thread; no spill up to 4 rows a thread (m ≤ 1024, the
+    cell's plan), nor at 8 without the timer. 16 rows (m ≤ 4096) spill, and
+    PERF.md records how much."""
+    from rls_tpu_torch import _build
+
+    got = {}
+    for name, v in _build.ptxas_report("kaczmarz_greedy.cu").items():
+        m = re.search(r"kaczmarz_greedy_resident_kernelILi(\d+)ELb([01])ELb([01])E", name)
+        if m:
+            got[tuple(int(g) for g in m.groups())] = v
+    assert sorted(got) == sorted((rows, xreg, prof) for rows in (1, 2, 4, 8, 16)
+                                 for xreg in (0, 1) for prof in (0, 1))
+    assert all(v["registers"] <= 65_536 // greedy.RESIDENT_THREADS // 8 * 8 for v in got.values())
+    for (rows, _, prof), v in got.items():
+        if rows <= 4 or (rows == 8 and not prof):
+            assert v["spill_stores"] == v["spill_loads"] == 0, (rows, prof, v)
+
+
+def test_greedy_entry_point_refuses_another_byte_count(dev):
+    """The C entry point recounts the shared memory and refuses a plan whose
+    count differs (nothing launched, nothing counted)."""
+    args = _greedy_solve_args(dev)
+    plan = greedy.card_plan(3, 45, 13, dev)
+    before = greedy.kaczmarz_greedy_solve.launches
+    for smem in (plan.smem + 16, plan.smem - 16):
+        with pytest.raises(RuntimeError, match="kaczmarz_greedy_solve_launch"):
+            greedy._forced(*args, plan=dataclasses.replace(plan, smem=smem))
+    # more rows a thread than the kernel instantiates
+    with pytest.raises(RuntimeError, match="kaczmarz_greedy_solve_launch"):
+        greedy._forced(*args, plan=dataclasses.replace(plan, rows=2 * greedy.MAX_ROWS))
+    assert greedy.kaczmarz_greedy_solve.launches == before
+
+
+@pytest.mark.parametrize("route", greedy.ROUTES)
+def test_greedy_solve_with_nothing_to_do_launches_nothing(dev, route):
+    """No problems, no steps or no sweeps: no launch, nothing counted, and the
+    start (x = 0, vl = 0, r = b) comes back."""
+    A, Gt, denom, norms, r, eps, fnorm, theta, S, T, seed, prox, _ = _greedy_solve_args(dev)
+    before = (greedy.kaczmarz_greedy_solve.launches,
+              dict(greedy.kaczmarz_greedy_solve.route_launches))
+    for P_, S_, T_ in ((0, S, T), (3, 0, T), (3, S, 0)):
+        x, vl, rr, rows = greedy._forced(A, Gt, denom, norms, r[:P_], eps[:P_], fnorm, theta, S_,
+                                         T_, seed, prox, route=route)
+        assert rows.shape == (T_, P_, S_) and x.shape == (P_, 13)
+        assert not x.any() and not vl.any() and torch.equal(rr, r[:P_])
+    assert (greedy.kaczmarz_greedy_solve.launches,
+            greedy.kaczmarz_greedy_solve.route_launches) == before
