@@ -9,7 +9,15 @@ SENSE MRI on the split-real DFT operators (``torch.fft``): FISTA with L1
 or complex L1 (``L21Regularization``) and SplitBregman with L21 + TV;
 PDHG with the 8-direction or isotropic TV or L1; and the row-action
 solver Kaczmarz (cyclic, shuffled, randomized, greedy) on dense, sparse
-and padded-CSR operators. Thirteen hand-written CUDA kernels carry them
+and padded-CSR operators, and the Dax row-relaxation solvers DaxKaczmarz
+and DaxConstrained. Operators compose: WeightingOperator, ProdOperator
+(``A @ B``), StackedOperator and SamplingOperator build weighted and
+multi-coil systems; DirectConvOperator (any 2-D kernel), WaveletOperator,
+RadonOperator and FunctionOperator (a torch callable, its adjoint by
+``torch.func.vjp``) widen the operator set. The regularizer decorators
+(FixedScaled, FixedParameter, AutoScaled, Normalized, Transformed,
+Masked) wrap any term, and ProjectionRegularizationTerm takes a user
+projection. Thirteen hand-written CUDA kernels carry them
 (``csrc/tv_fgp.cu``, ``csrc/fista_tv_fused.cu``,
 ``csrc/fista_tv_tiled.cu``, ``csrc/admm_tv_fused.cu``,
 ``csrc/admm_tv_tiled.cu``, ``csrc/cgnr_fused.cu``,
@@ -40,12 +48,41 @@ from .models.prox import (
     L2Regularization,
     L21Regularization,
     PositiveRegularization,
+    ProjectionRegularizationTerm,
     RealRegularization,
     TVRegularization,
 )
+from .models.regularization import (
+    AutoScaledRegularization,
+    ClampedScalingTransform,
+    FixedParameterRegularization,
+    FixedScaledRegularization,
+    IdentityTransform,
+    MaskedRegularization,
+    MeasurementBasedNormalization,
+    MinMaxTransform,
+    NoNormalization,
+    NormalizedRegularization,
+    SystemMatrixBasedNormalization,
+    TransformedRegularization,
+    ZTransform,
+    find_sink,
+    find_sinks,
+    normalization_factor,
+    reg_chain,
+    sink,
+    sink_type,
+)
 from .models.solvers.admm import ADMM
-from .models.solvers.base import pcg, solve, solve_batched, solve_batched_unrolled
+from .models.solvers.base import (
+    pcg,
+    solve,
+    solve_batched,
+    solve_batched_unrolled,
+    solve_unrolled,
+)
 from .models.solvers.cgnr import CGNR, solve_cgnr_refined
+from .models.solvers.dax import DaxConstrained, DaxKaczmarz
 from .models.solvers.direct import DirectSolver, PseudoInverse
 from .models.solvers.fista import FISTA
 from .models.solvers.kaczmarz import Kaczmarz
@@ -53,12 +90,23 @@ from .models.solvers.optista import OptISTA
 from .models.solvers.pdhg import PDHG, prox_tv_conj_8dir
 from .models.solvers.pogm import POGM
 from .models.solvers.splitbregman import SplitBregman
-from .ops.base import DenseOperator, IdentityOperator
-from .ops.conv_direct import SeparableConvOperator
+from .ops.base import (
+    DenseOperator,
+    IdentityOperator,
+    NormalOperator,
+    ProdOperator,
+    SamplingOperator,
+    StackedOperator,
+    WeightingOperator,
+)
+from .ops.conv_direct import DirectConvOperator, SeparableConvOperator
 from .ops.dft_real import SenseDFT2RealOperator, SubsampledDFT2RealOperator
 from .ops.fourier import ConvolutionOperator, FFTOperator, SubsampledFFTOperator
+from .ops.function_op import FunctionOperator
 from .ops.grad import Grad8Operator, GradientOperator
+from .ops.radon import RadonOperator
 from .ops.sparse import PaddedCSROperator, SparseOperator
+from .ops.wavelet import WaveletOperator, max_wavelet_levels
 from .utils.power_iterations import power_iterations
 
 __all__ = [
@@ -72,6 +120,8 @@ __all__ = [
     "SplitBregman",
     "PDHG",
     "Kaczmarz",
+    "DaxKaczmarz",
+    "DaxConstrained",
     "prox_tv_conj_8dir",
     "TVRegularization",
     "L1Regularization",
@@ -79,6 +129,26 @@ __all__ = [
     "L21Regularization",
     "PositiveRegularization",
     "RealRegularization",
+    "ProjectionRegularizationTerm",
+    "FixedScaledRegularization",
+    "FixedParameterRegularization",
+    "AutoScaledRegularization",
+    "NormalizedRegularization",
+    "TransformedRegularization",
+    "MaskedRegularization",
+    "MinMaxTransform",
+    "IdentityTransform",
+    "ZTransform",
+    "ClampedScalingTransform",
+    "NoNormalization",
+    "MeasurementBasedNormalization",
+    "SystemMatrixBasedNormalization",
+    "normalization_factor",
+    "reg_chain",
+    "sink",
+    "sink_type",
+    "find_sink",
+    "find_sinks",
     "DenseOperator",
     "SeparableConvOperator",
     "SubsampledDFT2RealOperator",
@@ -91,10 +161,21 @@ __all__ = [
     "SparseOperator",
     "PaddedCSROperator",
     "IdentityOperator",
+    "NormalOperator",
+    "WeightingOperator",
+    "ProdOperator",
+    "StackedOperator",
+    "SamplingOperator",
+    "DirectConvOperator",
+    "WaveletOperator",
+    "max_wavelet_levels",
+    "FunctionOperator",
+    "RadonOperator",
     "pcg",
     "solve",
     "solve_batched",
     "solve_batched_unrolled",
+    "solve_unrolled",
     "solve_batched_fast",
     "solve_fista_tv_fused",
     "solve_pgm_tv_fused",

@@ -1,33 +1,44 @@
 """Carry a problem built with ``rls_tpu`` over to the port.
 
 ``convert(obj, device="cuda")`` turns an ``rls_tpu`` object into its
-``rls_tpu_torch`` counterpart: ``SeparableConvOperator``,
-``DenseOperator``, ``NormalOperator``, ``IdentityOperator``,
-``GradientOperator`` (ADMM's ``reg_trafo``) and ``Grad8Operator``
-(PDHG's), ``SparseOperator``, ``PaddedCSROperator``, the split-real
-``SubsampledDFT2RealOperator`` and ``SenseDFT2RealOperator``,
-``FFTOperator``, ``SubsampledFFTOperator``, ``ConvolutionOperator``,
-``TVRegularization``, ``L1Regularization``, ``L2Regularization``,
-``L21Regularization``, ``PositiveRegularization``,
-``RealRegularization``, the three normalization strategies, ``FISTA``,
-``OptISTA``, ``POGM``, ``ADMM``, ``SplitBregman``, ``CGNR``,
-``DirectSolver`` and ``PseudoInverse`` (with the SVD ``rls_tpu`` took,
-where it took one), ``PDHG`` (with its τ) and ``Kaczmarz`` (with its row
-orders, sampling probabilities and greedy tables, so both packages visit
-the same rows). Fields are read by attribute name with ``np.asarray``
-(``ah``, ``aw``, ``bh``, ``bw``, ``taps_hw()``, ``mask``, ``coils_r``,
-``coils_i``, ``im_shape``, ``sample_idx``, ``otf``, ``lam``, ``slices``,
-``rho``, ``rho0``, ``iterations``, ``iterations_tv``, ...), and objects
-are recognised by class name, so
-this module imports neither ``jax`` nor ``rls_tpu``. The converted
-tensors keep the source arrays' dtype and land on ``device``: the card
-by default, the CPU with ``device="cpu"``.
+``rls_tpu_torch`` counterpart. Objects are recognised by class name, and
+their fields are read by attribute name with ``np.asarray``, so this
+module imports neither ``jax`` nor ``rls_tpu``. The converted tensors keep
+the source arrays' dtype and land on ``device``: the card by default, the
+CPU with ``device="cpu"``. It carries:
+
+* operators: ``DenseOperator``, ``IdentityOperator``, ``NormalOperator``,
+  the composites ``WeightingOperator``, ``ProdOperator``,
+  ``StackedOperator`` and ``SamplingOperator``,
+  ``SeparableConvOperator``, ``DirectConvOperator``,
+  ``GradientOperator`` (ADMM's ``reg_trafo``) and ``Grad8Operator``
+  (PDHG's), ``SparseOperator``, ``PaddedCSROperator``, the split-real
+  ``SubsampledDFT2RealOperator`` and ``SenseDFT2RealOperator``,
+  ``FFTOperator``, ``SubsampledFFTOperator``, ``ConvolutionOperator``,
+  ``WaveletOperator`` and ``RadonOperator``;
+* regularization: ``TVRegularization``, ``L1Regularization``,
+  ``L2Regularization``, ``L21Regularization``,
+  ``PositiveRegularization``, ``RealRegularization``, the decorators
+  ``FixedScaledRegularization``, ``FixedParameterRegularization``,
+  ``AutoScaledRegularization`` (with its latched factor),
+  ``NormalizedRegularization``, ``TransformedRegularization`` and
+  ``MaskedRegularization`` (with its mask), the input transforms
+  ``MinMaxTransform``, ``IdentityTransform``, ``ZTransform`` and
+  ``ClampedScalingTransform``, and the three normalization strategies;
+* solvers: ``FISTA``, ``OptISTA``, ``POGM``, ``ADMM``, ``SplitBregman``,
+  ``CGNR``, ``DirectSolver`` and ``PseudoInverse`` (with the SVD
+  ``rls_tpu`` took, where it took one), ``PDHG`` (with its τ),
+  ``Kaczmarz`` (with its row orders, sampling probabilities and greedy
+  tables, so both packages visit the same rows), ``DaxKaczmarz`` (with
+  its tables ``denom``, ``probs``, ``eps_w``, its ``n_nonzero_rows`` and
+  its seed) and ``DaxConstrained`` (with ``B`` and its row norms).
 
 TV and Kaczmarz backends map ``"xla"`` → ``"torch"`` and ``"pallas"`` →
-``"cuda"``. An
-ADMM or SplitBregman preconditioner is a JAX callable and is refused. The
-DFT operators' bf16 compensation factors (``cat``) are not carried: the
-port computes the DFT with ``torch.fft``.
+``"cuda"``. A JAX callable is not carried: an ADMM or SplitBregman
+preconditioner, a ``FunctionOperator`` and a
+``ProjectionRegularizationTerm`` are refused by name. The DFT operators'
+bf16 compensation factors (``cat``) are not carried: the port computes
+the DFT with ``torch.fft``.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import torch
 from .models import prox, regularization
 from .models.solvers.admm import ADMM
 from .models.solvers.cgnr import CGNR
+from .models.solvers.dax import DaxConstrained, DaxKaczmarz
 from .models.solvers.direct import DirectSolver, PseudoInverse
 from .models.solvers.fista import FISTA
 from .models.solvers.kaczmarz import Kaczmarz
@@ -45,12 +57,22 @@ from .models.solvers.optista import OptISTA
 from .models.solvers.pdhg import PDHG
 from .models.solvers.pogm import POGM
 from .models.solvers.splitbregman import SplitBregman
-from .ops.base import DenseOperator, IdentityOperator, NormalOperator
-from .ops.conv_direct import SeparableConvOperator
+from .ops.base import (
+    DenseOperator,
+    IdentityOperator,
+    NormalOperator,
+    ProdOperator,
+    SamplingOperator,
+    StackedOperator,
+    WeightingOperator,
+)
+from .ops.conv_direct import DirectConvOperator, SeparableConvOperator
 from .ops.dft_real import SenseDFT2RealOperator, SubsampledDFT2RealOperator
 from .ops.fourier import ConvolutionOperator, FFTOperator, SubsampledFFTOperator
 from .ops.grad import Grad8Operator, GradientOperator
+from .ops.radon import RadonOperator
 from .ops.sparse import PaddedCSROperator, SparseOperator
+from .ops.wavelet import WaveletOperator
 
 __all__ = ["convert"]
 
@@ -197,6 +219,54 @@ def _kaczmarz(obj, device):
     )
 
 
+def _dax(obj, device):
+    common = dict(
+        A=convert(obj.A, device),
+        lam=_scalar(obj.lam),
+        weights=_tensor(obj.weights, device),
+        denom=_tensor(obj.denom, device),
+        eps_w=_tensor(obj.eps_w, device),
+        iterations=int(obj.iterations),
+        iterations_inner=int(obj.iterations_inner),
+    )
+    if type(obj).__name__ == "DaxConstrained":
+        return DaxConstrained(B=convert(obj.B, device), Bnorm2=_tensor(obj.Bnorm2, device),
+                              **common)
+    return DaxKaczmarz(
+        reg=tuple(convert(r, device) for r in obj.reg),
+        probs=_tensor(obj.probs, device),
+        seed=int(obj.seed),
+        n_nonzero_rows=int(obj.n_nonzero_rows),
+        **common,
+    )
+
+
+# the decorators: class name → the fields beyond `reg`, each with its converter
+_DECORATORS = {
+    "FixedScaledRegularization": {"factor": _lam},
+    "FixedParameterRegularization": {},
+    "AutoScaledRegularization": {"factor": lambda v, d: None if v is None else _lam(v, d)},
+    "NormalizedRegularization": {"factor": _lam},
+    "TransformedRegularization": {"trafo": lambda v, d: convert(v, d)},
+    "MaskedRegularization": {"mask": lambda v, d: tuple(v)},
+}
+
+# the input transforms: class name → the fields they carry (tensors or
+# numbers), set on an instance without recomputing them from an x
+_TRANSFORMS = {
+    "MinMaxTransform": ("min", "max"),
+    "IdentityTransform": (),
+    "ZTransform": ("mean", "std"),
+    "ClampedScalingTransform": ("v_min", "v_max", "mask", "x"),
+}
+
+# objects that carry a JAX callable: refused by name
+_CALLABLES = {
+    "FunctionOperator": "mv_fn / rmv_fn",
+    "ProjectionRegularizationTerm": "proj_func",
+}
+
+
 def convert(obj, device="cuda"):
     """The ``rls_tpu_torch`` counterpart of the ``rls_tpu`` object `obj`,
     its tensors on `device`."""
@@ -241,6 +311,32 @@ def convert(obj, device="cuda"):
         return SubsampledFFTOperator(_tensor(obj.sample_idx, device), obj.im_shape, device=device)
     if name == "ConvolutionOperator":
         return ConvolutionOperator(_tensor(obj.otf, device), obj.im_shape)
+    if name in _CALLABLES:
+        raise TypeError(f"a {name} carries a JAX callable ({_CALLABLES[name]}) and is not "
+                        "carried over; build it in rls_tpu_torch with a torch callable")
+    if name == "WeightingOperator":
+        return WeightingOperator(_tensor(obj.weights, device), device=device)
+    if name == "ProdOperator":
+        return ProdOperator(convert(obj.A, device), convert(obj.B, device))
+    if name == "StackedOperator":
+        return StackedOperator([convert(op, device) for op in obj.ops])
+    if name == "SamplingOperator":
+        return SamplingOperator(_tensor(obj.idx, device), obj.n, device=device)
+    if name == "DirectConvOperator":
+        return DirectConvOperator(_tensor(obj.kernel, device), obj.im_shape, device=device)
+    if name == "WaveletOperator":
+        return WaveletOperator(obj.im_shape, obj.wavelet, obj.levels, _dtype(obj._dtype),
+                               device=device)
+    if name == "RadonOperator":
+        return RadonOperator(np.array(obj.angles), obj.im_shape, obj.num_det, device=device)
+    if name in _DECORATORS:
+        fields = {k: f(getattr(obj, k), device) for k, f in _DECORATORS[name].items()}
+        return getattr(regularization, name)(convert(obj.reg, device), **fields)
+    if name in _TRANSFORMS:
+        out = object.__new__(getattr(regularization, name))
+        for k in _TRANSFORMS[name]:
+            setattr(out, k, _lam(getattr(obj, k), device))
+        return out
     if name == "TVRegularization":
         if obj.pair_planes:
             raise NotImplementedError("split-real TV (pair_planes) is not yet ported")
@@ -274,6 +370,8 @@ def convert(obj, device="cuda"):
         return _pdhg(obj, device)
     if name == "Kaczmarz":
         return _kaczmarz(obj, device)
+    if name in ("DaxKaczmarz", "DaxConstrained"):
+        return _dax(obj, device)
     if name in _SOLVERS:
         A, AHA = _operators(obj, device)
         cls, extra = _SOLVERS[name]

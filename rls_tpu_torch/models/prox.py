@@ -3,8 +3,8 @@
 PyTorch counterpart of ``rls_tpu/models/prox.py``: ``soft_threshold`` and
 ``L1Regularization`` (:57-80), ``L2Regularization`` (:82-97),
 ``L21Regularization`` (:100-125), ``prox_tv_fgp`` (:133-166),
-``TVRegularization`` (:205-280), ``PositiveRegularization`` and
-``RealRegularization`` (:514-533).
+``TVRegularization`` (:205-280), ``PositiveRegularization``,
+``RealRegularization`` and ``ProjectionRegularizationTerm`` (:514-544).
 
 ``TVRegularization(backend="cuda")`` takes the place of ``"pallas"``: a
 2-D TV over both axes of a real image goes to the hand-written FGP kernel
@@ -21,7 +21,7 @@ of x (a diagonal Tikhonov matrix).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -35,6 +35,7 @@ __all__ = [
     "TVRegularization",
     "PositiveRegularization",
     "RealRegularization",
+    "ProjectionRegularizationTerm",
     "soft_threshold",
     "prox_tv_fgp",
 ]
@@ -228,6 +229,21 @@ class PositiveRegularization(ProjectionRegularization):
 class RealRegularization(ProjectionRegularization):
     def prox(self, x, lam=None):
         return _enf_real(x)
+
+    def value(self, x, lam=None):
+        ok = (self.prox(x) == x).all(dim=-1)
+        return torch.where(ok, 0.0, torch.inf)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProjectionRegularizationTerm(ProjectionRegularization):
+    """Arbitrary user projection (reference ProxProj.jl): `proj_func` is a
+    torch callable on x of shape (..., n)."""
+
+    proj_func: Callable = None
+
+    def prox(self, x, lam=None):
+        return self.proj_func(x)
 
     def value(self, x, lam=None):
         ok = (self.prox(x) == x).all(dim=-1)

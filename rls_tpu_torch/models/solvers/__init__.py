@@ -3,6 +3,7 @@
 from .admm import ADMM
 from .base import pcg, solve, solve_batched, solve_batched_unrolled, solve_unrolled
 from .cgnr import CGNR, solve_cgnr_refined
+from .dax import DaxConstrained, DaxKaczmarz
 from .direct import DirectSolver, PseudoInverse
 from .fista import FISTA
 from .kaczmarz import Kaczmarz
@@ -17,6 +18,8 @@ __all__ = [
     "DirectSolver",
     "PseudoInverse",
     "solve_cgnr_refined",
+    "DaxKaczmarz",
+    "DaxConstrained",
     "FISTA",
     "Kaczmarz",
     "OptISTA",

@@ -3,14 +3,17 @@
 PyTorch counterpart of ``rls_tpu/ops/base.py``: ``LinearOperator``
 (:43-110) with the row actions of the row-action solvers (:74-94),
 ``DenseOperator`` (:113-166) without its bf16-compensated branch,
-``IdentityOperator`` (:169), ``NormalOperator`` (:279-312),
+``IdentityOperator`` (:169), the composites ``WeightingOperator``
+(:205-237), ``ProdOperator`` (:240-276), ``StackedOperator`` (:314-349)
+and ``SamplingOperator`` (:352-380), ``NormalOperator`` (:279-312),
 ``adjoint_operator`` and ``as_operator`` (:405-418).
 
 Operators are ``nn.Module``s whose array payloads are registered buffers,
 so ``.to(device)`` moves them. Vectors are flat along the LAST axis and
 may carry any leading batch axes (the batch is an explicit leading
 dimension, not ``torch.vmap``). An operator never copies its input to its
-own device: a tensor on another device raises.
+own device: a tensor on another device raises. A composite lives where
+its factors live, and raises when they lie on different devices.
 
 Every constructor that makes tensors takes ``device=``, default
 ``"cuda"``: the port runs on the card unless the caller asks for the CPU
@@ -29,6 +32,7 @@ Protocol:
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -38,11 +42,27 @@ __all__ = [
     "LinearOperator",
     "DenseOperator",
     "IdentityOperator",
+    "WeightingOperator",
+    "ProdOperator",
     "NormalOperator",
+    "StackedOperator",
+    "SamplingOperator",
     "as_operator",
     "adjoint_operator",
     "per_problem",
 ]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN convolutions in full f32 (no TF32) for the duration, whatever
+    the caller's setting; matmuls keep PyTorch's default, which is f32."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def per_problem(alpha):
@@ -87,12 +107,26 @@ class LinearOperator(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        """Device of the operator's buffers; a buffer-free operator reports
-        the device it was built for (``_device``)."""
-        buf = next(self.buffers(), None)
-        if buf is not None:
-            return buf.device
-        return getattr(self, "_device", torch.device("cpu"))
+        """Device of the operator's buffers, those of its factors included; a
+        buffer-free operator reports the device it was built for
+        (``_device``). Raises when the parts lie on different devices."""
+        found = []
+        for mod in self.modules():
+            own = [b.device for b in mod.buffers(recurse=False)]
+            if not own and "_device" in vars(mod):
+                own = [mod._device]
+            found.extend(own)
+        if not found:
+            return torch.device("cpu")
+        # "cuda" (no index) is the current card, the same as "cuda:<k>"
+        dev = max(found, key=lambda d: d.index is not None)
+        for d in found:
+            if d.type != dev.type or d.index not in (None, dev.index):
+                raise ValueError(
+                    f"{type(self).__name__} has parts on {dev} and on {d}; "
+                    "move them to one device"
+                )
+        return dev
 
     def check_device(self, t: torch.Tensor) -> None:
         """Raise unless `t` lies on this operator's device (buffer-free
@@ -131,7 +165,7 @@ class LinearOperator(nn.Module):
 
     def __matmul__(self, other):
         if isinstance(other, LinearOperator):
-            raise NotImplementedError("ProdOperator is not yet ported")
+            return ProdOperator(self, other)
         return self.mv(other)
 
     @property
@@ -213,6 +247,84 @@ class IdentityOperator(LinearOperator):
         return torch.ones((self.n,), dtype=torch.float32, device=self.device)
 
 
+class WeightingOperator(LinearOperator):
+    """Diagonal weighting, reference ``WeightingOp``."""
+
+    def __init__(self, weights, device="cuda"):
+        super().__init__()
+        self.register_buffer("weights", torch.as_tensor(weights, device=device))
+
+    @property
+    def in_size(self) -> int:
+        return self.weights.shape[0]
+
+    @property
+    def out_size(self) -> int:
+        return self.weights.shape[0]
+
+    @property
+    def dtype(self):
+        return self.weights.dtype
+
+    def mv(self, x):
+        return self.weights * x
+
+    def rmv(self, y):
+        return self.weights.conj() * y
+
+    def normal(self, x):
+        return self.weights.abs() ** 2 * x
+
+    def row(self, i):
+        e = torch.zeros_like(self.weights)
+        e[i] = self.weights[i]
+        return e
+
+    def row_norms_sq(self):
+        return self.weights.abs() ** 2
+
+
+class ProdOperator(LinearOperator):
+    """Composition ``A ∘ B`` (apply B first), reference ``ProdOp(A, B)``.
+    Its dtype is B's; A and B must lie on one device."""
+
+    def __init__(self, A: LinearOperator, B: LinearOperator):
+        super().__init__()
+        self.A = A
+        self.B = B
+        self.device  # raises on factors on different devices
+
+    @property
+    def in_size(self) -> int:
+        return self.B.in_size
+
+    @property
+    def out_size(self) -> int:
+        return self.A.out_size
+
+    @property
+    def dtype(self):
+        return self.B.dtype
+
+    def mv(self, x):
+        return self.A.mv(self.B.mv(x))
+
+    def rmv(self, y):
+        return self.B.rmv(self.A.rmv(y))
+
+    def row(self, i):
+        # only Weighting ∘ B, the reference's weighted Kaczmarz
+        # (Kaczmarz.jl:455-458)
+        if isinstance(self.A, WeightingOperator):
+            return self.A.weights[i] * self.B.row(i)
+        raise NotImplementedError("row access only for Weighting ∘ B products")
+
+    def row_norms_sq(self):
+        if isinstance(self.A, WeightingOperator):
+            return self.A.weights.abs() ** 2 * self.B.row_norms_sq()
+        raise NotImplementedError("row access only for Weighting ∘ B products")
+
+
 class NormalOperator(LinearOperator):
     """Wraps A (and optional weights W) as the normal operator AᴴWA."""
 
@@ -246,6 +358,81 @@ class NormalOperator(LinearOperator):
 
     def normal(self, x):
         return self.mv(self.mv(x))
+
+
+class StackedOperator(LinearOperator):
+    """Vertical stack [A1; A2; ...] (multi-coil / constrained systems): the
+    parts' outputs sit one after another along the last axis."""
+
+    def __init__(self, ops):
+        super().__init__()
+        self.ops = nn.ModuleList(ops)
+        self.device  # raises on parts on different devices
+
+    @property
+    def in_size(self) -> int:
+        return self.ops[0].in_size
+
+    @property
+    def out_size(self) -> int:
+        return sum(op.out_size for op in self.ops)
+
+    @property
+    def dtype(self):
+        return self.ops[0].dtype
+
+    def mv(self, x):
+        return torch.cat([op.mv(x) for op in self.ops], dim=-1)
+
+    def rmv(self, y):
+        out = None
+        offset = 0
+        for op in self.ops:
+            part = op.rmv(y[..., offset : offset + op.out_size])
+            out = part if out is None else out + part
+            offset += op.out_size
+        return out
+
+    def normal(self, x):
+        out = None
+        for op in self.ops:
+            part = op.normal(x)
+            out = part if out is None else out + part
+        return out
+
+
+class SamplingOperator(LinearOperator):
+    """Sampling of the entries `idx` of the last axis: y = x[..., idx]
+    (reference ``SamplingOp``). The adjoint writes y back into zeros; with
+    a repeated index the entry written last is undefined, as in
+    ``rls_tpu``. Its dtype is complex64, as there."""
+
+    def __init__(self, idx, n: int, device="cuda"):
+        super().__init__()
+        self.register_buffer("idx", torch.as_tensor(idx, device=device).to(torch.int64))
+        self.n = int(n)
+
+    @property
+    def in_size(self) -> int:
+        return self.n
+
+    @property
+    def out_size(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def dtype(self):
+        return torch.complex64
+
+    def mv(self, x):
+        return x.index_select(-1, self.idx)
+
+    def rmv(self, y):
+        return y.new_zeros((*y.shape[:-1], self.n)).index_copy(-1, self.idx, y)
+
+    def normal(self, x):
+        mask = torch.zeros((self.n,), dtype=torch.float32, device=x.device)
+        return x * mask.index_fill(0, self.idx, 1.0).to(x.dtype)
 
 
 class _AdjointOperator(LinearOperator):

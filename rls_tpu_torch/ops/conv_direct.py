@@ -1,7 +1,11 @@
-"""Separable (banded-matmul) 2-D convolution operator.
+"""Direct and separable (banded-matmul) 2-D convolution operators.
 
-PyTorch counterpart of ``SeparableConvOperator``
-(``rls_tpu/ops/conv_direct.py:106-296``) and ``_banded`` (:83-95):
+PyTorch counterpart of ``rls_tpu/ops/conv_direct.py``:
+``DirectConvOperator`` with ``_conv2d_same`` (:27-80), a SAME zero-padded
+convolution by ``torch.nn.functional.conv2d`` (a cross-correlation, as
+``lax.conv_general_dilated`` is) with cuDNN's TF32 kept off inside the
+operator; and ``SeparableConvOperator`` (:106-296) with ``_banded``
+(:83-95):
 ``from_taps`` / ``from_kernel`` build the banded factors in f64 on the
 host and put them on ``device`` (default ``"cuda"``); ``mv``, ``rmv`` and
 ``normal`` are plain banded products; ``taps_hw`` and the exact
@@ -17,10 +21,54 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from .base import LinearOperator
+from .base import LinearOperator, no_tf32
 
-__all__ = ["SeparableConvOperator", "shift_zero"]
+__all__ = ["DirectConvOperator", "SeparableConvOperator", "shift_zero"]
+
+
+def _conv2d_same(img, kern):
+    """SAME zero-padded 2-D cross-correlation of img (B, H, W) with kern
+    (kh, kw): (kh − 1)//2 rows of zeros before and kh//2 after (XLA's SAME
+    split), the same along the columns."""
+    kh, kw = kern.shape
+    img = F.pad(img[:, None], ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
+    with no_tf32():
+        return F.conv2d(img, kern[None, None])[:, 0]
+
+
+class DirectConvOperator(LinearOperator):
+    """2-D SAME zero-padded convolution of a flattened real image with any
+    kernel (kh, kw); the adjoint is the correlation with the flipped
+    conjugate kernel (exact for odd sizes, as in ``rls_tpu``)."""
+
+    def __init__(self, kernel, im_shape, device="cuda"):
+        super().__init__()
+        self.register_buffer("kernel", torch.as_tensor(kernel, device=device))
+        self.im_shape = tuple(int(s) for s in im_shape)
+
+    @property
+    def in_size(self) -> int:
+        h, w = self.im_shape
+        return h * w
+
+    @property
+    def out_size(self) -> int:
+        return self.in_size
+
+    @property
+    def dtype(self):
+        return self.kernel.dtype
+
+    def _conv(self, x, kern):
+        return _conv2d_same(x.reshape(-1, *self.im_shape), kern).reshape(x.shape)
+
+    def mv(self, x):
+        return self._conv(x, self.kernel)
+
+    def rmv(self, y):
+        return self._conv(y, self.kernel.conj().flip((0, 1)))
 
 
 def _banded(n: int, taps) -> np.ndarray:
@@ -119,7 +167,7 @@ class SeparableConvOperator(LinearOperator):
         if s.shape[0] > 1 and s[1] > rank_tol * s[0]:
             raise ValueError(
                 f"kernel is not separable (σ2/σ1 = {s[1]/s[0]:.2e}); "
-                "DirectConvOperator is not yet ported"
+                "use DirectConvOperator"
             )
         taps_h = u[:, 0] * np.sqrt(s[0])
         taps_w = vt[0] * np.sqrt(s[0])

@@ -52,17 +52,17 @@ class SparseOperator(LinearOperator):
     def dtype(self):
         return self.mat.dtype
 
-    def _apply(self, M, v):
+    def _product(self, M, v):
         """M @ v over v's last axis, M sparse (k, l), v (..., l)."""
         v2 = v.reshape(-1, v.shape[-1]).to(self.dtype)
         return torch.sparse.mm(M, v2.T).T.reshape(*v.shape[:-1], M.shape[0])
 
     def mv(self, x):
-        return self._apply(self.mat, x)
+        return self._product(self.mat, x)
 
     def rmv(self, y):
         # Aᴴy = conj(Aᵀ conj(y))
-        return self._apply(self.mat.t(), y.conj()).conj()
+        return self._product(self.mat.t(), y.conj()).conj()
 
     def row(self, i):
         idx, val = self.mat.indices(), self.mat.values()

@@ -40,7 +40,15 @@ is held to 1e-5 of max|x| on both routes, planned and forced (the warp
 route with 1, 2 and 3 problems a CTA), on every edge case (a row back
 within the ring's window, a repeated row, a list of −1 only, x in shared
 memory) and at the tall cell, each launch counted on its route, and its
-warp and block routes give the same bits over 20 launches."""
+warp and block routes give the same bits over 20 launches. The composite,
+decorator, DAX and operator path (chip_smoke.py phase 11) at small sizes: a
+decorated term that the dispatch reads through sink / get_lam runs its
+kernel once (CGNR, PDHG, the streamed Kaczmarz) with its undecorated
+twin's bits; a decorated TV falls back to the composed solve with one TV
+prox launch an iteration and the undecorated solve's bits; the composite,
+direct-conv, wavelet, function and Radon operators on the card hold their
+CPU results to 1e-5 of max|x| (the Radon backprojection scatters with
+atomics); DAX on the card holds its CPU solve to 1e-10 in float64."""
 
 import dataclasses
 import re
@@ -2326,3 +2334,164 @@ def test_greedy_solve_with_nothing_to_do_launches_nothing(dev, route):
         assert not x.any() and not vl.any() and torch.equal(rr, r[:P_])
     assert (greedy.kaczmarz_greedy_solve.launches,
             greedy.kaczmarz_greedy_solve.route_launches) == before
+
+
+# --------------------------------------------------------------------------
+# the composite, decorator, DAX and operator path (chip_smoke.py phase 11),
+# at small sizes
+# --------------------------------------------------------------------------
+
+
+def _all_launches():
+    return {fn.__name__: fn.launches for fn in (
+        tv_fgp.prox_tv2d_fgp, fused.fista_tv_fused, tiled.fista_tv_tiled,
+        admm_fused.admm_tv_fused, admm_tiled.admm_tv_tiled, cgnr.cgnr_fused,
+        pgm_dense.pgm_dense_fused, pgm_dense.pgm_dense_fused_cplx, l1dft.fista_l1_dft_fused,
+        sense.fista_l21_sense_fused, sb.splitbregman_l1_tv_fused, pdhg.pdhg_fused,
+        kz.kaczmarz_sweep, kz.kaczmarz_solve, greedy.kaczmarz_greedy_solve,
+        greedy.kaczmarz_greedy_sweep)}
+
+
+def _launched(fn):
+    """(fn's result, the launches it made by kernel, zeros left out)."""
+    before = _all_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in _all_launches().items() if v != before[k]}
+
+
+def _decorated_pairs(dev):
+    """(name, decorated solver, its undecorated twin, B, the launches of one
+    solve through solve_batched_fast): the factors are powers of two, so
+    the float32 λ has the same bits."""
+    rng = np.random.default_rng(21)
+    A = torch.from_numpy((rng.normal(size=(96, 40)) / np.sqrt(96)).astype(np.float32)).to(dev)
+    Bd = A @ torch.from_numpy(rng.normal(size=(40, 5)).astype(np.float32)).to(dev)
+    op = rtt.DenseOperator(A, device=dev)
+    sep = rtt.SeparableConvOperator.from_taps(*TAPS, (40, 48), device=dev)
+    img = torch.from_numpy(rng.uniform(size=(3, 40 * 48)).astype(np.float32)).to(dev)
+    Bs = sep.mv(img).T.contiguous()
+    Ak = A.clone()
+    Ak[torch.from_numpy(rng.uniform(size=(96, 40)) < 0.7).to(dev)] = 0.0
+    Bk = Ak @ torch.from_numpy(np.abs(rng.normal(size=(40, 4))).astype(np.float32)).to(dev)
+    opk = rtt.DenseOperator(Ak, device=dev)
+    kzkw = dict(iterations=3, randomized=True, precompute_order=True, sub_matrix_fraction=0.25)
+    tv = dict(shape=(40, 48), iterations_tv=4)
+    return (
+        ("cgnr", rtt.CGNR.create(op, reg=rtt.FixedScaledRegularization(
+            rtt.L2Regularization(1e-3 / 4), 4.0), iterations=12),
+         rtt.CGNR.create(op, reg=rtt.L2Regularization(1e-3), iterations=12), Bd,
+         {"cgnr_fused": 1}),
+        ("pdhg", rtt.PDHG.create(sep, reg=rtt.FixedScaledRegularization(
+            rtt.TVRegularization(2 * 4e-3, **tv), 0.5), iterations=20, tau=0.2),
+         rtt.PDHG.create(sep, reg=rtt.TVRegularization(4e-3, **tv), iterations=20, tau=0.2), Bs,
+         {"pdhg_fused": 1}),
+        ("kaczmarz", rtt.Kaczmarz.create(opk, reg=[
+            rtt.FixedParameterRegularization(rtt.L2Regularization(1e-6)),
+            rtt.PositiveRegularization()], **kzkw),
+         rtt.Kaczmarz.create(opk, reg=[rtt.L2Regularization(1e-6), rtt.PositiveRegularization()],
+                             **kzkw), Bk, {"kaczmarz_solve": 1}),
+    )
+
+
+@pytest.mark.parametrize("case", ["cgnr", "pdhg", "kaczmarz"])
+def test_decorated_term_reaches_its_kernel_bit_for_bit(dev, case):
+    """A decorated term that the JAX dispatch reads through sink / get_lam
+    runs its kernel once and gives its undecorated twin's bits."""
+    name, dec, twin, B, want = next(c for c in _decorated_pairs(dev) if c[0] == case)
+    got, launched = _launched(lambda: rtt.solve_batched_fast(dec, B))
+    assert launched == want
+    ref, launched = _launched(lambda: rtt.solve_batched_fast(twin, B))
+    assert launched == want
+    assert torch.equal(got, ref)
+
+
+def test_decorated_tv_falls_back_to_the_composed_solve(dev):
+    """FISTA with a decorated TV: row 2 rejects it (its check asks for the
+    TV type, as the JAX one does), so solve_batched_fast warns, falls back,
+    runs one TV prox launch an iteration, and gives the undecorated
+    composed solve's bits."""
+    sep = rtt.SeparableConvOperator.from_taps(*TAPS, (40, 48), device=dev)
+    B = sep.mv(torch.rand((3, 40 * 48), device=dev)).T.contiguous()
+    tv = rtt.TVRegularization(2e-3, shape=(40, 48), iterations_tv=4, backend="cuda")
+    kw = dict(iterations=7, rho=0.9, track_residual=False)
+    dec = rtt.FISTA.create(sep, reg=rtt.FixedScaledRegularization(tv, 1.0), **kw)
+    twin = rtt.FISTA.create(sep, reg=tv, **kw)
+    with pytest.warns(UserWarning, match="falling back"):
+        got, launched = _launched(lambda: rtt.solve_batched_fast(dec, B))
+    assert launched == {"prox_tv2d_fgp": 7}
+    ref, launched = _launched(lambda: rtt.solve_batched_unrolled(twin, B))
+    assert launched == {"prox_tv2d_fgp": 7}
+    assert torch.equal(got, ref)
+
+
+def _operators_on(device):
+    rng = np.random.default_rng(22)
+    n = 16
+    w = rng.uniform(0.5, 1.5, size=24).astype(np.float32)
+    A = rng.normal(size=(24, 10)).astype(np.float32)
+    maps = (rng.normal(size=(2, n * n)) + 1j * rng.normal(size=(2, n * n))).astype(np.complex64)
+    idx = np.sort(rng.choice(n * n, size=100, replace=False))
+    coils = [rtt.SamplingOperator(idx, n * n, device=device)
+             @ rtt.FFTOperator((n, n), device=device)
+             @ rtt.WeightingOperator(m, device=device) for m in maps]
+    kern = rng.normal(size=(5, 4)).astype(np.float32)
+    conv = rtt.DirectConvOperator(kern, (n, n), device=device)
+    return {
+        "weighted": (rtt.WeightingOperator(w, device=device)
+                     @ rtt.DenseOperator(A, device=device), "float32"),
+        "stacked_sense": (rtt.StackedOperator(coils), "complex64"),
+        "direct_conv": (conv, "float32"),
+        "wavelet": (rtt.WaveletOperator((n, n), "db2", device=device), "complex64"),
+        "function": (rtt.FunctionOperator(conv.mv, n=n * n, m=n * n, device=device), "float32"),
+        "radon": (rtt.RadonOperator(np.linspace(0, np.pi, 12, endpoint=False), (n, n),
+                                    device=device), "float32"),
+    }
+
+
+@pytest.mark.parametrize("name", ["weighted", "stacked_sense", "direct_conv", "wavelet",
+                                  "function", "radon"])
+def test_new_operators_on_the_card_hold_their_cpu_results(dev, name):
+    """Each new operator built on the card: mv, rmv and normal of a batch
+    against the same operator on the CPU (1e-5 of max|x|; the Radon
+    backprojection scatters with atomics, so its sums run in any order)."""
+    gpu, dt = _operators_on(dev)[name]
+    cpu, _ = _operators_on("cpu")[name]
+    assert gpu.device.type == "cuda"
+    rng = np.random.default_rng(23)
+
+    def draw(k):
+        v = rng.normal(size=(3, k))
+        if dt == "complex64":
+            v = v + 1j * rng.normal(size=(3, k))
+        return torch.from_numpy(v.astype(dt))
+
+    X, Y = draw(gpu.in_size), draw(gpu.out_size)
+    for meth, V in (("mv", X), ("rmv", Y), ("normal", X)):
+        _close(getattr(gpu, meth)(V.to(dev)).cpu(), getattr(cpu, meth)(V), 1e-5)
+
+
+def test_dax_on_the_card_holds_its_cpu_result(dev):
+    """DaxKaczmarz (rows forced to one sequence) and DaxConstrained on the
+    card against the same solves on the CPU, in float64 (1e-10 relative)."""
+    rng = np.random.default_rng(24)
+    A = rng.normal(size=(40, 12))
+    A[rng.uniform(size=A.shape) < 0.7] = 0.0
+    A[:, 0] = rng.normal(size=40)
+    B = A @ np.abs(rng.normal(size=(12, 4)))
+    w = rng.uniform(0.5, 1.5, size=40)
+    out = {}
+    for device in ("cpu", dev):
+        op = rtt.DenseOperator(A, device=device)
+        sk = rtt.DaxKaczmarz.create(op, lam=1e-6, weights=w, enforce_real=True,
+                                    enforce_positive=True)
+        gen = torch.Generator().manual_seed(0)
+        rows = torch.stack([rtt.models.solvers.dax.draw_rows(sk.probs.cpu(), 80, gen)
+                            for _ in range(sk.iterations)])
+        sk = dataclasses.replace(sk, _forced_rows=rows)
+        sc = rtt.DaxConstrained.create(op, lam=1e-6, weights=w)
+        Bt = torch.from_numpy(B).to(device)
+        out[str(device)] = [rtt.solve_batched_fast(s, Bt, warn=False).cpu() for s in (sk, sc)]
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        _close(got, want, 1e-10)
+    assert float(out[str(dev)][1].min()) >= -1e-4
