@@ -6,8 +6,10 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device: CUDA must be present; TF32 is switched off for matmuls and
      cuDNN; the card's name and power limit are printed;
-  2. build: the thirteen CUDA sources are compiled from
-     rls_tpu_torch/csrc (one nvcc per source, all at once);
+  2. build: the sixteen CUDA sources are compiled from
+     rls_tpu_torch/csrc (one nvcc per source, all at once); phase 12
+     (a)'s long signals' plain version starts on the CPU in a process of
+     its own, which the run stops when it ends;
   3. each kernel against its plain PyTorch version on the card, with both
      times: the TV prox at TV_CHECKS (each plan printed and required:
      every shape the main path gives it on its resident route, with x, pv
@@ -168,6 +170,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      DaxKaczmarz (its float64 run on the rows its run drew, replayed from
      its seed) and DaxConstrained (min x ≥ −1e-4) on the tall Kaczmarz
      system's 16 distinct b;
+ 12. the last regularizers and the API surface, each case with the launch
+     counters set to 0 just before it and read just after, its times beside
+     the card's name and power limit: (a) the exact 1-D Condat kernel
+     (csrc/tv_condat.cu) against its plain version, bit for bit, at 64 ×
+     256² along each image axis, 16 × 1 × 65,536 (long signals: 16
+     threads; the plain version runs on the CPU in a process started with
+     the run) and 16 × 256² in float64, each one launch; (b) FISTA with
+     TVRegularization(dims=1) on the flagship's 9×9 blur, 16 × 256², 50
+     iterations through solve_batched_fast (the composed fallback with its
+     named reason, 50 Condat launches); (c) Nuclear matrix completion, 8 ×
+     256² of rank 8, 30 % of the entries by SamplingOperator, FISTA, 50
+     iterations; (d) LLR on a cine series, 4 × 128² × 16 frames, complex,
+     a per-frame 2-D FFT keeping 25 % of the phase-encode lines (the 8
+     lowest always), 8×8 blocks with randshift, FISTA, 30 iterations, with
+     torch.linalg.svd's CUDA drivers timed at its 1,024 blocks of 64 × 16;
+     (e) PnP-ADMM with a CNN of 8 channels trained on the card by
+     train_denoiser (200 steps at 64²), 16 × 256², whose error must beat
+     CGNR-L2's; (b)-(e) held on two columns to float64 solves on the card
+     (TOL_PARITY, or twice the f32 solve's own 1-ulp spread, and
+     TOL_RESIDUAL), each with problems/s and the device's busy share; (f)
+     the API on the card: solve_with_callbacks on the flagship (50 tv_fgp
+     launches, bit for bit solve's), solve_trace on 4 of its problems, a
+     checkpoint saved after 25 iterations and resumed (bit for bit),
+     create_linear_solver by name (one fused launch, bit for bit) and
+     profiling.trace writing a Chrome trace;
   7. the kernel table as one JSON line (launches on the main path, error
      against the plain version, kernel and plain times, the least time
      the card could take, `bound_ms`, and a library yardstick where one
@@ -176,7 +203,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the two dense PGM rows), then the result line {"ok": true,
      "device": {...}}.
 
-Phases 3h and 3i run after 3g, phases 8–11 after phase 6; the table and
+Phases 3h and 3i run after 3g, phases 8–12 after phase 6; the table and
 the result line come last. The flagship problem is rebuilt with numpy
 exactly as bench.py:36-68 builds it, the other cells as
 tools/bench_suite.py:79-102, :104-125, :127-151, :153-194, :204-306 and
@@ -444,6 +471,30 @@ KZ_SWEEPS = 4
 DC_BATCH = 16
 CT_N, CT_ANGLES, CT_BATCH, CT_LAM = 128, 90, 8, 5.0
 DAX_LAM, DAX_SCHED = 1e-6, (3, 2)
+# phase 12: (a) the Condat kernel's cases, (batch shape, axis of the line,
+# dtype); the long-line case's plain version runs on the CPU in a process of
+# its own (--condat-plain), from CONDAT_LONG's seeded signals; (b) FISTA with
+# TV(dims=1), TV1_BATCH of the flagship's problems at λ = LAM, ITERS
+# iterations; (c) Nuclear matrix completion: NUC_BATCH seeded rank-NUC_RANK
+# 256² matrices, NUC_FRACTION of the entries, λ = NUC_LAM, ITERS
+# iterations; (d) LLR on a cine series: LLR_BATCH complex series of LLR_N²
+# × LLR_FRAMES, LLR_LINES of the LLR_N phase-encode lines a frame (the 8
+# lowest always), LLR_BLOCK blocks, λ = LLR_LAM, LLR_ITERS iterations; (e)
+# PnP-ADMM at tests/test_regularization.py:163-200's settings (λ = 0.3, ρ =
+# 0.5, 25 × 6, noise 0.02, the identity transform, a 5-tap Gaussian) on
+# PNP_BATCH phantoms of 256², the CNN trained by train_denoiser at PNP_TRAIN
+# = (n, channels, steps, noise), CGNR-L2 (λ = 1e-6, 12 iterations) beside it
+CONDAT_CASES = (((64, 256, 256), 1, "float32"), ((64, 256, 256), 2, "float32"),
+                ((16, 1, 65536), 2, "float32"), ((16, 256, 256), 2, "float64"))
+CONDAT_LONG = (16, 1, 65536)
+TV1_BATCH = 16
+NUC_BATCH, NUC_RANK, NUC_FRACTION, NUC_LAM = 8, 8, 0.3, 2.0
+LLR_BATCH, LLR_N, LLR_FRAMES, LLR_LINES, LLR_BLOCK = 4, 128, 16, 32, (8, 8)
+LLR_LAM, LLR_ITERS = 0.05, 30
+PNP_BATCH, PNP_TRAIN = 16, (64, 8, 200, 0.08)
+# the SVT of LLR's blocks by the driver in use, against float64: 1e-4 of
+# its largest entry (f32 SVDs hold ~1e-6)
+SVT_BAR = 1e-4
 
 
 def require(cond, msg):
@@ -847,7 +898,7 @@ def device_breakdown(name, fn):
 
 
 def launch_counts(reset=False):
-    """The launch counters of the sixteen kernel wrappers, by name; with
+    """The launch counters of the seventeen kernel wrappers, by name; with
     `reset`, set them to 0 first (and the TV prox, PGM-TV (rows 2 and 3),
     ADMM-TV (rows 4 and 5), SplitBregman, PDHG, FISTA-L1-DFT,
     FISTA-L21-SENSE, dense PGM (rows 7a and 7b), Kaczmarz (rows 12a, 12b)
@@ -856,7 +907,7 @@ def launch_counts(reset=False):
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
-    from rls_tpu_torch.kernels import splitbregman_fused, tv_fgp
+    from rls_tpu_torch.kernels import splitbregman_fused, tv_condat, tv_fgp
 
     fns = (tv_fgp.prox_tv2d_fgp, fista_tv_fused.fista_tv_fused, fista_tv_tiled.fista_tv_tiled,
            admm_tv_fused.admm_tv_fused, admm_tv_tiled.admm_tv_tiled, cgnr_fused.cgnr_fused,
@@ -864,7 +915,8 @@ def launch_counts(reset=False):
            fista_l1_dft_fused.fista_l1_dft_fused, sense_fused.fista_l21_sense_fused,
            splitbregman_fused.splitbregman_l1_tv_fused, pdhg_fused.pdhg_fused,
            kaczmarz_streamed.kaczmarz_sweep, kaczmarz_streamed.kaczmarz_solve,
-           kaczmarz_greedy.kaczmarz_greedy_solve, kaczmarz_greedy.kaczmarz_greedy_sweep)
+           kaczmarz_greedy.kaczmarz_greedy_solve, kaczmarz_greedy.kaczmarz_greedy_sweep,
+           tv_condat.prox_tv1d_condat)
     if reset:
         for fn in fns:
             fn.launches = 0
@@ -2488,14 +2540,18 @@ def ct_phantoms(batch=CT_BATCH, n=CT_N, seed=5):
     return imgs.reshape(batch, -1)
 
 
-def fallback(name, fn):
+def fallback(name, fn, reason=None):
     """fn() (a solve_batched_fast call), which must warn that no fused
-    kernel applies and fall back to the composed path."""
+    kernel applies and fall back to the composed path, naming `reason`
+    among its rejections where one is given."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         out = fn()
-    require(any("falling back" in str(w.message) for w in caught),
+    msg = " ".join(str(w.message) for w in caught)
+    require("falling back" in msg,
             f"{name}: solve_batched_fast did not fall back to the composed path")
+    require(reason is None or reason in msg,
+            f"{name}: the fallback does not name {reason!r}: {msg}")
     return out
 
 
@@ -2507,6 +2563,31 @@ def ulp_spread(solve, B2):
     x, xp = solve(B2), solve(B2 * (1.0 + 2.0**-23))
     return float(max(torch.linalg.norm(x[:, j] - xp[:, j]) / torch.linalg.norm(x[:, j])
                      for j in range(x.shape[1])))
+
+
+def counted_run(name, fn, want):
+    """fn() with the launch counters set to 0 just before and read just
+    after: `want` and no others (the TV prox's launches all on its resident
+    route). Returns (its result, its ms by CUDA events)."""
+    import torch
+
+    from rls_tpu_torch.kernels import tv_fgp
+
+    launch_counts(reset=True)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    got = launch_counts()
+    print(f"launches ({name}): {got}")
+    require(got == {**{k: 0 for k in got}, **want},
+            f"{name}: expected the launches {want} and no others")
+    if "prox_tv2d_fgp" in want:
+        routes = tv_fgp.prox_tv2d_fgp.route_launches
+        require(routes == {"resident": want["prox_tv2d_fgp"], "global": 0},
+                f"{name}: tv_fgp routes {routes}, not all resident")
+    return out, start.elapsed_time(stop)
 
 
 def composite_phase(dev, draws, flagship, B_flag, systems, pdhg_solver, kz):
@@ -2538,31 +2619,11 @@ def composite_phase(dev, draws, flagship, B_flag, systems, pdhg_solver, kz):
     import torch
 
     import rls_tpu_torch as rtt
-    from rls_tpu_torch.kernels import tv_fgp
 
     card = card_line()
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    def counted(name, fn, want):
-        """fn() with the launch counters set to 0 just before and read just
-        after: `want` and no others. Returns (its result, its ms)."""
-        launch_counts(reset=True)
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        stop.record()
-        torch.cuda.synchronize()
-        got = launch_counts()
-        print(f"launches ({name}): {got}")
-        require(got == {**{k: 0 for k in got}, **want},
-                f"{name}: expected the launches {want} and no others")
-        if "prox_tv2d_fgp" in want:
-            routes = tv_fgp.prox_tv2d_fgp.route_launches
-            require(routes == {"resident": want["prox_tv2d_fgp"], "global": 0},
-                    f"{name}: tv_fgp routes {routes}, not all resident")
-        return out, start.elapsed_time(stop)
 
     def timed(name, fn, K, unit="problems/s"):
         """One more call of `fn`, which its counted run has warmed (cuFFT's
@@ -2601,15 +2662,15 @@ def composite_phase(dev, draws, flagship, B_flag, systems, pdhg_solver, kz):
          Bk, "kaczmarz_solve"),
     ):
         name_dec = f"{name} with {label}"
-        x_dec = counted(name_dec, lambda: rtt.solve_batched_fast(dec, B), {kernel: 1})[0]
-        x_twin = counted(name, lambda: rtt.solve_batched_fast(twin, B), {kernel: 1})[0]
+        x_dec = counted_run(name_dec, lambda: rtt.solve_batched_fast(dec, B), {kernel: 1})[0]
+        x_twin = counted_run(name, lambda: rtt.solve_batched_fast(twin, B), {kernel: 1})[0]
         require(torch.equal(x_dec, x_twin), f"{name_dec}: differs from its undecorated twin")
         print(f"{name_dec}: bit for bit its undecorated twin")
         timed(name_dec, lambda: rtt.solve_batched_fast(dec, B), B.shape[1])
     dec = rtt.FISTA.create(flagship.A, reg=rtt.FixedScaledRegularization(flagship.reg, 1.0),
                            iterations=ITERS, rho=RHO, rel_tol=0.0, track_residual=False)
     name = "the flagship with FixedScaled(TV, 1.0)"
-    x_dec = counted(name, lambda: fallback(name, lambda: rtt.solve_batched_fast(dec, B_flag)),
+    x_dec = counted_run(name, lambda: fallback(name, lambda: rtt.solve_batched_fast(dec, B_flag)),
                     {"prox_tv2d_fgp": ITERS})[0]
     x_twin = rtt.solve_batched_unrolled(flagship, B_flag)
     require(torch.equal(x_dec, x_twin),
@@ -2621,7 +2682,7 @@ def composite_phase(dev, draws, flagship, B_flag, systems, pdhg_solver, kz):
     # columns held to a float64 solve on the card, then the cell's own checks
     for name, cell in composite_cells(dev, kz).items():
         s, B = cell["solver"], cell["B"]
-        x, ms = counted(name, lambda: fallback(name, lambda: rtt.solve_batched_fast(s, B)),
+        x, ms = counted_run(name, lambda: fallback(name, lambda: rtt.solve_batched_fast(s, B)),
                         cell["launches"])
         if "rows" in cell:
             # DaxKaczmarz: the rows the run drew, replayed from its seed; the
@@ -2797,6 +2858,416 @@ def composite_cells(dev, kz):
         cells[name] = cell
     return cells
 
+def condat_long_input():
+    """Phase 12 (a)'s long signals: CONDAT_LONG piecewise-constant lines (a
+    jump of N(0, 1) with probability 2e-3 an entry) plus noise of σ 0.1,
+    and one λ per signal in [0.05, 0.5], from default_rng(23)."""
+    P, _, L = CONDAT_LONG
+    rng = np.random.default_rng(23)
+    jumps = rng.uniform(size=(P, L)) < 2e-3
+    x = np.cumsum(rng.normal(size=(P, L)) * jumps, axis=1) + 0.1 * rng.normal(size=(P, L))
+    lam = rng.uniform(0.05, 0.5, size=P)
+    return x.astype(np.float32).reshape(CONDAT_LONG), lam.astype(np.float32)
+
+
+def condat_plain_child() -> int:
+    """``--condat-plain``: the Condat prox's plain version on the CPU (one
+    thread) at phase 12 (a)'s long signals; writes the result and its
+    seconds to stdout as two .npy records."""
+    import io
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from rls_tpu_torch.kernels.tv_condat import prox_tv1d_condat_torch
+
+    torch.set_num_threads(1)
+    x, lam = condat_long_input()
+    t0 = time.perf_counter()
+    out = prox_tv1d_condat_torch(torch.from_numpy(x), torch.from_numpy(lam), 2).numpy()
+    buf = io.BytesIO()
+    np.save(buf, out)
+    np.save(buf, np.float64(time.perf_counter() - t0))
+    sys.stdout.buffer.write(buf.getvalue())
+    return 0
+
+
+# the processes this run starts, stopped when it ends
+CHILDREN = []
+
+
+def start_condat_plain():
+    """Start the long signals' plain version (``--condat-plain``) on the
+    CPU, beside the run: it takes tens of seconds, one event a step."""
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--condat-plain"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    CHILDREN.append(proc)
+    return proc
+
+
+def stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+def condat_kernel_phase(dev, child):
+    """Phase 12 (a): the Condat kernel against its plain version, bit for
+    bit, at CONDAT_CASES and at the main path's shape (16 × 256² along the
+    image's axis 1, float32), each one launch by its counter, with both
+    times. Returns the main path shape's (max|kernel − plain|, plain ms,
+    kernel ms, bound)."""
+    import io
+
+    import torch
+
+    from rls_tpu_torch.kernels import tv_condat
+
+    card = card_line()
+    main_case = ((TV1_BATCH, N, N), 2, "float32")
+    out = None
+    for shape, axis, dtype in CONDAT_CASES + (main_case,):
+        tdt = getattr(torch, dtype)
+        name = f"tv_condat[{' x '.join(map(str, shape))} along axis {axis}, {dtype}]"
+        long = shape == CONDAT_LONG
+        if long:
+            x_np, lam_np = condat_long_input()
+        else:
+            rng = np.random.default_rng(29 + axis)
+            x_np = phantoms(n=shape[1], batch=shape[0]).reshape(shape)
+            x_np = x_np + 0.1 * rng.normal(size=shape)
+            lam_np = rng.uniform(0.05, 0.5, size=shape[0])
+        x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev, tdt)
+        lam = torch.from_numpy(lam_np).to(dev, tdt)
+        got = counted_run(name, lambda: tv_condat.prox_tv1d_condat(x, lam, axis),
+                          {"prox_tv1d_condat": 1})[0]
+        if long:
+            raw, err_txt = child.communicate(timeout=900)
+            require(child.returncode == 0,
+                    f"{name}: the plain version's process failed: {err_txt.decode()[-2000:]}")
+            buf = io.BytesIO(raw)
+            want = torch.from_numpy(np.load(buf)).to(dev)
+            plain_ms, where = float(np.load(buf)) * 1e3, "CPU, one thread"
+        else:  # the plain version's one call, timed by CUDA events
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = tv_condat.prox_tv1d_condat_torch(x, lam, axis)
+            stop.record()
+            torch.cuda.synchronize()
+            plain_ms, where = start.elapsed_time(stop), "card"
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+        require(torch.equal(got, want), f"{name}: differs from its plain version by {err:.3e}")
+        ms = cuda_ms(lambda: tv_condat.prox_tv1d_condat(x, lam, axis), 2 if long else 10)
+        elems = x.numel()
+        bnd = bound(4 * elems, x.element_size() * (2 * elems + shape[0]))
+        print(f"{name}: bit for bit its plain version; kernel {ms:.3f} ms, plain {plain_ms:.1f} "
+              f"ms ({where}), bound {bnd[0]:.4f} ms ({bnd[1]}), {x.numel() // shape[axis]} "
+              f"lines of {shape[axis]}; {card}")
+        if (shape, axis, dtype) == main_case:
+            out = (err, plain_ms, ms, bnd)
+    return out
+
+
+def cine_series(n, frames, batch, seed=41):
+    """Seeded complex cine series (batch, n² × frames), frames fastest: a
+    static disc and three discs whose radii beat over the frames, under a
+    smooth quadratic phase."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n] / n
+    t = np.arange(frames) / frames
+    phase = np.exp(1j * 0.8 * np.pi * ((xx - 0.5) ** 2 + (yy - 0.5) ** 2))[..., None]
+    out = np.zeros((batch, n, n, frames), np.complex64)
+    for p in range(batch):
+        img = 0.3 * ((xx - 0.5) ** 2 + (yy - 0.5) ** 2 < 0.16)[..., None] * np.ones(frames)
+        for _ in range(3):
+            cx, cy = rng.uniform(0.3, 0.7, size=2)
+            r0, amp, ph = rng.uniform(0.04, 0.1), rng.uniform(0.3, 0.8), rng.uniform(0, 2 * np.pi)
+            rad = r0 * (1 + 0.3 * np.sin(2 * np.pi * t + ph))
+            img = img + amp * (((xx[..., None] - cx) ** 2 + (yy[..., None] - cy) ** 2) < rad ** 2)
+        out[p] = img * phase
+    return out.reshape(batch, -1)
+
+
+def cine_operator(dev, n, frames, seed=43):
+    """The cine's per-frame 2-D FFT keeping LLR_LINES phase-encode lines a
+    frame (the 8 lowest always, the rest drawn from default_rng(seed)),
+    from the port's operators: frame t is Sampling(its k-space lines) ∘
+    FFT ∘ Sampling(frame t of the series), the frames stacked."""
+    import rls_tpu_torch as rtt
+
+    rng = np.random.default_rng(seed)
+    hw = n * n
+    low = np.arange(-4, 4) % n  # the unshifted FFT keeps the lowest lines at both ends
+    others = np.setdiff1d(np.arange(n), low)
+    parts = []
+    for t in range(frames):
+        rows = np.sort(np.concatenate([low, rng.choice(others, LLR_LINES - 8, replace=False)]))
+        kidx = (rows[:, None] * n + np.arange(n)).ravel()
+        parts.append(rtt.SamplingOperator(kidx, hw, device=dev)
+                     @ rtt.FFTOperator((n, n), device=dev)
+                     @ rtt.SamplingOperator(np.arange(hw) * frames + t, hw * frames, device=dev))
+    return rtt.StackedOperator(parts)
+
+
+def svd_drivers(blocks):
+    """torch.linalg.svd's CUDA drivers on `blocks`: each one's ms (its
+    second call) and its SVT's largest error against the float64 SVT
+    (relative to its largest entry), printed; the driver in use
+    (prox.CUDA_SVD_DRIVER) must hold SVT_BAR. Returns {driver: (ms, err)}."""
+    import torch
+
+    from rls_tpu_torch.models import prox
+
+    b64 = blocks.to(torch.complex128 if blocks.is_complex() else torch.float64)
+    u, sv, vh = torch.linalg.svd(b64, full_matrices=False)
+    lam = float(sv[..., 0].median()) / 4
+    want = (u * torch.clamp(sv - lam, min=0).unsqueeze(-2).to(u.dtype)) @ vh
+    out = {}
+    for driver in (None, "gesvd", "gesvdj", "gesvda"):
+        fn = lambda: torch.linalg.svd(blocks, full_matrices=False, driver=driver)  # noqa: E731
+        try:
+            u, sv, vh = fn()
+        except RuntimeError as e:
+            print(f"svd driver {driver}: failed ({str(e)[:120]})")
+            continue
+        got = (u * torch.clamp(sv - lam, min=0).unsqueeze(-2).to(u.dtype)) @ vh
+        err = float((got.to(want.dtype) - want).abs().max() / want.abs().max())
+        ms = cuda_ms(fn, 1)
+        out[driver] = (ms, err)
+        print(f"svd driver {driver}: {ms:.3f} ms for {blocks.shape[0]} blocks of "
+              f"{blocks.shape[1]} x {blocks.shape[2]} {blocks.dtype}, SVT error vs float64 "
+              f"{err:.3e}")
+    chosen = prox.CUDA_SVD_DRIVER
+    held = {d: v for d, v in out.items() if v[1] <= SVT_BAR}
+    require(chosen in held, f"the SVD driver {chosen} does not hold the SVT bar {SVT_BAR}")
+    fastest = min(held, key=lambda d: held[d][0])
+    print(f"svd driver in use: {chosen} ({held[chosen][0]:.3f} ms); fastest holding the bar "
+          f"{SVT_BAR}: {fastest} ({held[fastest][0]:.3f} ms)")
+    return out
+
+
+def regularizer_cells(dev):
+    """Phase 12's cells (b)-(e), by name: each with its float32 solver, B
+    (one problem a column), the true images (n × K), the launches one
+    solve_batched_fast call makes, the reason its fallback names, a function
+    building the float64 solver and its operator's mv, its rate's unit, and
+    a check of the result."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.models import denoisers
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cells = {}
+    # (b) FISTA with the exact 1-D TV along the rows on the flagship's blur
+    def tv1(dtype):
+        op = rtt.SeparableConvOperator.from_kernel(gaussian_kernel(), im_shape=(N, N),
+                                                   dtype=dtype, device=dev)
+        tv = rtt.TVRegularization(LAM, shape=(N, N), dims=1)
+        return rtt.FISTA.create(op, reg=tv, iterations=ITERS, rho=RHO, rel_tol=0.0,
+                                track_residual=False), op
+
+    s, op = tv1(torch.float32)
+    xs = t(phantoms(n=N, batch=TV1_BATCH))
+    cells[f"fista_tv1d_condat_deblur256_b{TV1_BATCH}"] = dict(
+        solver=s, B=op.mv(xs).T.contiguous(), truth=xs.T, launches={"prox_tv1d_condat": ITERS},
+        reason="pgm_tv: fused path requires 2-D TV over both axes",
+        float64=lambda: (lambda s64, op64: (s64, op64.mv))(*tv1(torch.float64)),
+        unit="problems/s", check=lambda x: None)
+
+    # (c) Nuclear matrix completion
+    n = N
+    rng = np.random.default_rng(31)
+    U = rng.normal(size=(NUC_BATCH, n, NUC_RANK))
+    V = rng.normal(size=(NUC_BATCH, n, NUC_RANK))
+    X = (U @ V.transpose(0, 2, 1) / np.sqrt(NUC_RANK)).reshape(NUC_BATCH, -1).astype(np.float32)
+    idx = np.sort(rng.choice(n * n, size=int(NUC_FRACTION * n * n), replace=False))
+    ops = rtt.SamplingOperator(idx, n * n, device=dev)
+    sn = rtt.FISTA.create(ops, reg=rtt.NuclearRegularization(NUC_LAM, svt_shape=(n, n)),
+                          iterations=ITERS, rho=RHO, rel_tol=0.0, track_residual=False)
+    xs = t(X)
+    Bn = ops.mv(xs).T.contiguous()
+
+    def beats_zero_filled(name, op, B, xs):
+        def check(x):
+            zf = float(torch.linalg.norm(op.rmv(B.T) - xs) / torch.linalg.norm(xs))
+            rec = float(torch.linalg.norm(x.T - xs) / torch.linalg.norm(xs))
+            print(f"{name}: recon_rel_err {rec:.4f}, zero-filled Aᴴb {zf:.4f}")
+            require(rec < zf, f"{name}: the reconstruction is no better than the zero-filled Aᴴb")
+        return check
+
+    name = f"nuclear_completion256_rank{NUC_RANK}_b{NUC_BATCH}"
+    cells[name] = dict(
+        solver=sn, B=Bn, truth=xs.T, launches={},
+        reason="pgm_tv: fused path requires SeparableConvOperator",
+        float64=lambda: (sn, ops.mv), unit="problems/s",
+        check=beats_zero_filled(name, ops, Bn, xs))
+
+    # (d) LLR on a cine series
+    opc = cine_operator(dev, LLR_N, LLR_FRAMES)
+    xs = t(cine_series(LLR_N, LLR_FRAMES, LLR_BATCH))
+    Bc = opc.mv(xs).T.contiguous()
+    llr = rtt.LLRRegularization(LLR_LAM, shape=(LLR_N, LLR_N), block_size=LLR_BLOCK)
+    sl = rtt.FISTA.create(opc, reg=llr, iterations=LLR_ITERS, rho=RHO, rel_tol=0.0,
+                          track_residual=False)
+    blocks, _ = rtt.prox._block_partition(
+        opc.rmv(Bc.T).reshape(LLR_BATCH, LLR_N, LLR_N, LLR_FRAMES), LLR_BLOCK)
+    svd_drivers(blocks.reshape(-1, *blocks.shape[2:]).contiguous())
+    svd_drivers(ops.rmv(Bn.T).reshape(NUC_BATCH, n, n).contiguous())  # Nuclear's matrices
+    name = f"llr_cine{LLR_N}x{LLR_FRAMES}_b{LLR_BATCH}"
+    cells[name] = dict(
+        solver=sl, B=Bc, truth=xs.T, launches={},
+        reason="fista_l1_dft: fused path requires SubsampledDFT2RealOperator",
+        float64=lambda: (sl, opc.mv), unit="series/s",
+        check=beats_zero_filled(name, opc, Bc, xs))
+
+    # (e) PnP-ADMM with a CNN trained on the card
+    pn, ch, steps, sigma = PNP_TRAIN
+    losses = []
+    t0 = time.perf_counter()
+    params = denoisers.train_denoiser(pn, channels=ch, steps=steps, noise_sigma=sigma, seed=0,
+                                      device=dev, losses=losses)
+    print(f"train_denoiser: {steps} steps at {pn}² ({ch} channels) in "
+          f"{time.perf_counter() - t0:.2f} s, loss {np.mean(losses[:10]):.5f} → "
+          f"{np.mean(losses[-10:]):.5f}")
+    require(np.mean(losses[-10:]) < np.mean(losses[:10]), "train_denoiser: the loss did not fall")
+    g = np.exp(-((np.arange(5) - 2) ** 2) / 2.0)
+    kern = np.outer(g, g) / np.outer(g, g).sum()
+
+    def pnp(dtype):
+        op = rtt.SeparableConvOperator.from_kernel(kern, im_shape=(N, N), dtype=dtype,
+                                                   device=dev)
+        model = denoisers.make_pnp_model({k: v.to(dtype) for k, v in params.items()})
+        reg = rtt.PnPRegularization(0.3, model=model, shape=(N, N),
+                                    input_transform=rtt.IdentityTransform)
+        return rtt.ADMM.create(op, reg=reg, iterations=25, iterations_cg=6, rho=0.5), op
+
+    sp, opp = pnp(torch.float32)
+    xs = t(denoisers._phantom_batch(np.random.default_rng(51), N, PNP_BATCH).reshape(
+        PNP_BATCH, -1))
+    noise = 0.02 * np.random.default_rng(52).normal(size=(opp.out_size, PNP_BATCH))
+    Bp = (opp.mv(xs).T + t(noise.astype(np.float32))).contiguous()
+    name = f"pnp_admm_cnn_deblur256_b{PNP_BATCH}"
+
+    def beats_cgnr(x, name=name, xs=xs):
+        s_l2 = rtt.CGNR.create(opp, reg=rtt.L2Regularization(1e-6), iterations=12)
+        x_l2 = rtt.solve_batched_fast(s_l2, Bp, warn=False)
+        err = float(torch.linalg.norm(x.T - xs) / torch.linalg.norm(xs))
+        err_l2 = float(torch.linalg.norm(x_l2.T - xs) / torch.linalg.norm(xs))
+        print(f"{name}: recon_rel_err {err:.4f}, CGNR-L2 {err_l2:.4f}")
+        require(err < err_l2, f"{name}: PnP {err:.4f} does not beat CGNR-L2 {err_l2:.4f}")
+
+    cells[name] = dict(
+        solver=sp, B=Bp, truth=xs.T, launches={},
+        reason="admm_tv: fused path requires exactly one TVRegularization term",
+        float64=lambda: (lambda s64, op64: (s64, op64.mv))(*pnp(torch.float64)),
+        unit="problems/s", check=beats_cgnr)
+    return cells
+
+
+def api_phase(dev, flagship, B):
+    """Phase 12 (f): the API on the card, on the flagship FISTA-TV."""
+    import io
+
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    Bt = B.T.contiguous()
+    x_solve = rtt.solve(flagship, B)
+    seen = []
+    cmp = rtt.CompareSolutionCallback(x_solve.T)
+    x_cb = counted_run("solve_with_callbacks", lambda: rtt.solve_with_callbacks(
+        flagship, Bt, callbacks=[cmp, lambda run, it: seen.append(it)]),
+        {"prox_tv2d_fgp": ITERS})[0]
+    require(seen == list(range(ITERS + 1)), f"solve_with_callbacks: iterations {seen}")
+    require(torch.equal(x_cb.T, x_solve), "solve_with_callbacks: differs from solve")
+    print(f"solve_with_callbacks: {ITERS + 1} calls, bit for bit solve; nrmsd to the solution "
+          f"{float(cmp.results[0].mean()):.3e} → {float(cmp.results[-1].mean()):.3e}")
+    B4 = B[:, :4].contiguous()
+    x4, (xs4, met4, act4) = rtt.solve_trace(flagship, B4.T.contiguous())
+    require(tuple(xs4.shape) == (4, ITERS, N * N) and bool(act4.all()),
+            f"solve_trace: {tuple(xs4.shape)}, {int(act4.sum())} active steps")
+    require(torch.equal(x4.T, rtt.solve(flagship, B4)) and torch.equal(xs4[:, -1], x4),
+            "solve_trace: differs from solve")
+    print(f"solve_trace: (4, {ITERS}, {N * N}) solutions, bit for bit solve")
+    state = flagship.init(Bt)
+    for _ in range(ITERS // 2):
+        state = flagship.step(state)
+    buf = io.BytesIO()
+    rtt.save_state(buf, state)
+    size = buf.tell()
+    buf.seek(0)
+    loaded = rtt.load_state(buf, flagship.init(Bt))
+    x_res, _ = rtt.resume(flagship, loaded)
+    require(torch.equal(x_res.T, x_solve), "checkpoint: the resumed solve differs from solve")
+    print(f"checkpoint after {ITERS // 2} iterations ({size / 2**20:.1f} MiB): resumed bit for "
+          "bit solve")
+    s_name = rtt.create_linear_solver("fista", flagship.A, reg=flagship.reg, iterations=ITERS,
+                                      rho=RHO, rel_tol=0.0, track_residual=False)
+    B8 = B[:, :8].contiguous()
+    x_a = counted_run("create_linear_solver('fista')", lambda: rtt.solve_batched_fast(s_name, B8),
+                      {"fista_tv_fused": 1})[0]
+    require(torch.equal(x_a, rtt.solve_batched_fast(flagship, B8)),
+            "create_linear_solver: differs from the flagship solver")
+    print("create_linear_solver('fista'): one fused launch, bit for bit the flagship's")
+    logdir = os.path.join(ROOT, ".timing", "phase12_trace")
+    with rtt.trace(logdir):
+        rtt.solve_batched_fast(flagship, B8)
+    path = os.path.join(logdir, "trace.json")
+    require(os.path.getsize(path) > 0, "profiling.trace wrote no trace")
+    timing = rtt.time_solver(rtt.solve_batched_fast, flagship, B8, reps=2)
+    print(f"profiling.trace: {os.path.getsize(path)} bytes in {path}; time_solver: first call "
+          f"{timing['compile_s']:.4f} s, then {timing['mean_s']:.4f} s per solve of 8")
+
+
+def regularizer_phase(dev, flagship, B_flag, child):
+    """Phase 12: (a) the Condat kernel, (b)-(e) the regularizer cells
+    through solve_batched_fast, each held on two columns to a float64 solve
+    on the card, with problems/s and the device's busy share, and (f) the
+    API. Returns the Condat row's (launches on (b), error, plain ms, ms,
+    bound)."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    card = card_line()
+    err, plain_ms, ms, bnd = condat_kernel_phase(dev, child)
+    launches = None
+    for name, cell in regularizer_cells(dev).items():
+        s, B = cell["solver"], cell["B"]
+        fn = lambda: rtt.solve_batched_fast(s, B)  # noqa: E731
+        x = counted_run(name, lambda: fallback(name, fn, cell["reason"]), cell["launches"])[0]
+        if "prox_tv1d_condat" in cell["launches"]:
+            launches = cell["launches"]["prox_tv1d_condat"]
+        s64, mv64 = cell["float64"]()
+        dt64 = torch.complex128 if B.is_complex() else torch.float64
+        x64 = rtt.solve_batched_unrolled(s64, B[:, :2].to(dt64))
+        spread = lambda: ulp_spread(lambda b: rtt.solve_batched_unrolled(s, b), B[:, :2])  # noqa: E731
+        parity_cols(name, x, B, mv64, x64, cell["truth"], spread=spread)
+        cell["check"](x)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            wall = cuda_ms(lambda: rtt.solve_batched_fast(s, B, warn=False), 1)
+            rows = device_kernels(lambda: rtt.solve_batched_fast(s, B, warn=False))
+        busy = sum(r[0] for r in rows)
+        condat = [(k_ms, count) for k_ms, count, key in rows if "tv_condat" in key]
+        if condat:
+            print(f"{name}: the Condat kernel {condat[0][0] / condat[0][1]:.3f} ms a launch "
+                  f"({condat[0][1]} launches, device time)")
+        top = "; ".join(f"{key[:50]} {k_ms:.2f} ms ({count}×)" for k_ms, count, key in rows[:3])
+        print(f"{name}: {B.shape[1] / (wall / 1e3):.1f} {cell['unit']} ({wall:.2f} ms per batch "
+              f"of {B.shape[1]}; {card}); device busy {busy:.2f} ms ({100 * busy / wall:.1f}%): "
+              f"{top}")
+    api_phase(dev, flagship, B_flag)
+    return launches, err, plain_ms, ms, bnd
+
+
 def main() -> int:
     import torch
 
@@ -2818,6 +3289,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = card_line()
     print(smi)
+    # phase 12 (a)'s long signals: their plain version runs on the CPU, in a
+    # process of its own, beside the whole run
+    condat_child = start_condat_plain()
     print(
         f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -3153,7 +3627,12 @@ def main() -> int:
     t11 = time.perf_counter()
     composite_phase(dev, draws, solver, B, systems, pdhg_solver, kz)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
-    print(f"phases 3-6, 8-11: {time.perf_counter() - t_start:.1f} s")
+
+    # 12. the last regularizers and the API surface
+    t12 = time.perf_counter()
+    condat = regularizer_phase(dev, solver, B, condat_child)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s")
+    print(f"phases 3-6, 8-12: {time.perf_counter() - t_start:.1f} s")
 
     # 7. the kernel table, then the result line
     # the least time for each kernel's timed call: every input read once,
@@ -3224,6 +3703,9 @@ def main() -> int:
     bounds["kaczmarz_greedy_solve"] = bound(
         p * greedy_solve_ops(m, n, S, T),
         f32 * (m * n + distinct * m + 2 * m + p * (n + 3 * m + 1 + T * S)))
+    # the Condat kernel at the main path's shape (phase 12 (b)'s prox, 16 ×
+    # 256² along the rows): each entry read once and written once, λ read
+    bounds["tv_condat"] = condat[4]
     rows = (
         ("tv_fgp", "tv_fgp.cu", "rls_tpu/kernels/tv_pallas.py:69", launches_tv, err_tv,
          (plain_tv, ms_tv)),
@@ -3266,6 +3748,9 @@ def main() -> int:
         ("kaczmarz_greedy_solve", "kaczmarz_greedy.cu", "rls_tpu/kernels/kaczmarz_greedy.py:164",
          kernel_launched["kaczmarz_greedy_solve"], kacz["kaczmarz_greedy_solve"]["err"],
          kacz["kaczmarz_greedy_solve"]["ms"]),
+        ("tv_condat", "tv_condat.cu",
+         "rls_tpu/models/tv_condat.py:25 (no Pallas counterpart: a vmapped lax.while_loop)",
+         condat[0], condat[1], (condat[2], condat[3])),
     )
     # one PyTorch call computes the same function only for CGNR's
     # regularized normal equations (torch.linalg.solve); none computes a
@@ -4632,4 +5117,10 @@ TIME_MODES = {
 if __name__ == "__main__":
     if sys.argv[1:2] and sys.argv[1] in TIME_MODES:
         sys.exit(timing_run(sys.argv[2] if len(sys.argv) > 2 else ROOT, TIME_MODES[sys.argv[1]]))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--condat-plain"]:
+        sys.exit(condat_plain_child())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

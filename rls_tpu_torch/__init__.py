@@ -17,18 +17,35 @@ RadonOperator and FunctionOperator (a torch callable, its adjoint by
 ``torch.func.vjp``) widen the operator set. The regularizer decorators
 (FixedScaled, FixedParameter, AutoScaled, Normalized, Transformed,
 Masked) wrap any term, and ProjectionRegularizationTerm takes a user
-projection. Thirteen hand-written CUDA kernels carry them
+projection; the exact 1-D Condat TV (TVRegularization with an integer
+``dims``), NuclearRegularization, LLRRegularization and
+PlugAndPlayRegularization with its CNN denoiser (``models/denoisers.py``)
+complete the regularizers. The API surface of ``rls_tpu`` is here too:
+the callbacks and ``solve_with_callbacks``, ``solve_trace``, the batch
+scheduler of ``solve_batched``, the solver registry
+(``create_linear_solver``), the deprecated shims, checkpoints
+(``save_state`` / ``load_state`` / ``resume``) and profiling (``trace``,
+``time_solver``). Fourteen hand-written CUDA kernels carry them
 (``csrc/tv_fgp.cu``, ``csrc/fista_tv_fused.cu``,
 ``csrc/fista_tv_tiled.cu``, ``csrc/admm_tv_fused.cu``,
 ``csrc/admm_tv_tiled.cu``, ``csrc/cgnr_fused.cu``,
 ``csrc/pgm_dense_fused.cu``, ``csrc/fista_l1_dft_fused.cu``,
 ``csrc/sense_fused.cu``, ``csrc/splitbregman_fused.cu`` (the last three on
 an FFT of their own), ``csrc/pdhg_fused.cu``, ``csrc/kaczmarz.cu`` and
-``csrc/kaczmarz_greedy.cu``), built with ``nvcc`` at first use.
+``csrc/kaczmarz_greedy.cu`` and ``csrc/tv_condat.cu``, the exact 1-D TV
+prox), built with ``nvcc`` at first use.
 Names follow the JAX package ``rls_tpu``, which stays the reference. This
 package imports ``torch`` and never ``jax``. Operators are built on the
 card unless the caller passes ``device="cpu"``.
+
+Every public name of ``rls_tpu`` is bound here, less the subpackage
+``parallel`` (not yet ported) and the names of ``EXCLUDED``, which the
+port leaves out: the split-real solver exists for TPU runtimes without
+complex dtypes, and the Jacobi SVD for the TPU's bf16 matrix unit.
 """
+
+from . import deprecated, ops, utils
+from .callbacks import CompareSolutionCallback, StoreConvergenceCallback, StoreSolutionCallback
 
 from .kernels.admm_tv_fused import solve_admm_tv_fused
 from .kernels.admm_tv_tiled import solve_admm_tv_tiled
@@ -43,10 +60,13 @@ from .kernels.pdhg_fused import solve_pdhg_fused
 from .kernels.pgm_dense_fused import solve_pgm_dense_fused
 from .kernels.sense_fused import solve_fista_l21_sense_fused
 from .kernels.splitbregman_fused import solve_splitbregman_l1_tv_fused
+from .models import denoisers, prox, regularization
 from .models.prox import (
     L1Regularization,
     L2Regularization,
     L21Regularization,
+    LLRRegularization,
+    NuclearRegularization,
     PositiveRegularization,
     ProjectionRegularizationTerm,
     RealRegularization,
@@ -63,6 +83,8 @@ from .models.regularization import (
     MinMaxTransform,
     NoNormalization,
     NormalizedRegularization,
+    PlugAndPlayRegularization,
+    PnPRegularization,
     SystemMatrixBasedNormalization,
     TransformedRegularization,
     ZTransform,
@@ -75,11 +97,17 @@ from .models.regularization import (
 )
 from .models.solvers.admm import ADMM
 from .models.solvers.base import (
+    SolverRun,
+    masked_vmap_scheduler,
     pcg,
     solve,
     solve_batched,
     solve_batched_unrolled,
+    solve_trace,
     solve_unrolled,
+    solve_with_callbacks,
+    solver_convergence,
+    solver_solution,
 )
 from .models.solvers.cgnr import CGNR, solve_cgnr_refined
 from .models.solvers.dax import DaxConstrained, DaxKaczmarz
@@ -107,7 +135,34 @@ from .ops.grad import Grad8Operator, GradientOperator
 from .ops.radon import RadonOperator
 from .ops.sparse import PaddedCSROperator, SparseOperator
 from .ops.wavelet import WaveletOperator, max_wavelet_levels
-from .utils.power_iterations import power_iterations
+from .registry import (
+    applicable_solver_list,
+    create_linear_solver,
+    deinit,
+    is_applicable,
+    linear_solver_list,
+    linear_solver_list_real,
+)
+from .utils import (
+    load_state,
+    nrmsd,
+    power_iterations,
+    resume,
+    save_state,
+    time_solver,
+    trace,
+)
+
+# the public names of rls_tpu that the port leaves out (ROADMAP.md, "What
+# not to port"): the split-real solver and the Jacobi SVD
+EXCLUDED = (
+    "SplitRealSolver",
+    "backend_supports_complex",
+    "build_split_real_solver",
+    "jacobi_svd",
+    "jacobi_svdvals",
+    "svt_jacobi",
+)
 
 __all__ = [
     "ADMM",
@@ -124,6 +179,10 @@ __all__ = [
     "DaxConstrained",
     "prox_tv_conj_8dir",
     "TVRegularization",
+    "NuclearRegularization",
+    "LLRRegularization",
+    "PlugAndPlayRegularization",
+    "PnPRegularization",
     "L1Regularization",
     "L2Regularization",
     "L21Regularization",
@@ -192,4 +251,33 @@ __all__ = [
     "solve_kaczmarz_streamed",
     "solve_kaczmarz_greedy",
     "power_iterations",
+    "CompareSolutionCallback",
+    "StoreSolutionCallback",
+    "StoreConvergenceCallback",
+    "SolverRun",
+    "solve_trace",
+    "solver_solution",
+    "solver_convergence",
+    "solve_with_callbacks",
+    "masked_vmap_scheduler",
+    "linear_solver_list",
+    "linear_solver_list_real",
+    "applicable_solver_list",
+    "is_applicable",
+    "create_linear_solver",
+    "deinit",
+    "save_state",
+    "load_state",
+    "resume",
+    "trace",
+    "time_solver",
+    "nrmsd",
+    "callbacks",
+    "registry",
+    "deprecated",
+    "denoisers",
+    "prox",
+    "regularization",
+    "ops",
+    "utils",
 ]

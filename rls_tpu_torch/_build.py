@@ -44,6 +44,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # (x, lam, out, scratch, B, H, W, iterations, stream)
@@ -207,6 +208,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
         _U, _U, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # (x, lam, out, outer, N, inner, group, double, stream)
+    "tv_condat_launch": (_P, _P, _P, _L, _I, _L, _L, _I, _P),
 }
 
 

@@ -16,7 +16,10 @@ CPU with ``device="cpu"``. It carries:
   ``SubsampledDFT2RealOperator`` and ``SenseDFT2RealOperator``,
   ``FFTOperator``, ``SubsampledFFTOperator``, ``ConvolutionOperator``,
   ``WaveletOperator`` and ``RadonOperator``;
-* regularization: ``TVRegularization``, ``L1Regularization``,
+* regularization: ``TVRegularization`` (an integer ``dims`` too),
+  ``NuclearRegularization`` (its ``svd_method``), ``LLRRegularization``
+  (its ``seed``; the port draws its own shifts from it),
+  ``L1Regularization``,
   ``L2Regularization``, ``L21Regularization``,
   ``PositiveRegularization``, ``RealRegularization``, the decorators
   ``FixedScaledRegularization``, ``FixedParameterRegularization``,
@@ -35,8 +38,10 @@ CPU with ``device="cpu"``. It carries:
 
 TV and Kaczmarz backends map ``"xla"`` → ``"torch"`` and ``"pallas"`` →
 ``"cuda"``. A JAX callable is not carried: an ADMM or SplitBregman
-preconditioner, a ``FunctionOperator`` and a
-``ProjectionRegularizationTerm`` are refused by name. The DFT operators'
+preconditioner, a ``FunctionOperator``, a ``ProjectionRegularizationTerm``
+and a ``PlugAndPlayRegularization`` (its ``model``) are refused by name;
+the CNN of ``rls_tpu/models/denoisers.py`` crosses by its weights
+(``models/denoisers.py`` ``convert_cnn_params``). The DFT operators'
 bf16 compensation factors (``cat``) are not carried: the port computes
 the DFT with ``torch.fft``.
 """
@@ -108,9 +113,9 @@ def _dtype(jdt):
 # solver class name → (port class, converters of its fields beyond the
 # common A, AHA, reg, proj, rho, theta, rel_tol, normalize_reg, iterations)
 _SOLVERS = {
-    "FISTA": (FISTA, {"restart": str, "track_residual": bool}),
-    "OptISTA": (OptISTA, {}),
-    "POGM": (POGM, {"restart": str, "sigma_fac": _scalar}),
+    "FISTA": (FISTA, {"restart": str, "track_residual": bool, "verbose": bool}),
+    "OptISTA": (OptISTA, {"verbose": bool}),
+    "POGM": (POGM, {"restart": str, "sigma_fac": _scalar, "verbose": bool}),
 }
 
 
@@ -147,6 +152,7 @@ def _admm(obj, device):
         iterations=int(obj.iterations),
         iterations_cg=int(obj.iterations_cg),
         unroll_cg=bool(obj.unroll_cg),
+        verbose=bool(obj.verbose),
         **own,
     )
 
@@ -264,6 +270,7 @@ _TRANSFORMS = {
 _CALLABLES = {
     "FunctionOperator": "mv_fn / rmv_fn",
     "ProjectionRegularizationTerm": "proj_func",
+    "PlugAndPlayRegularization": "model",
 }
 
 
@@ -312,8 +319,11 @@ def convert(obj, device="cuda"):
     if name == "ConvolutionOperator":
         return ConvolutionOperator(_tensor(obj.otf, device), obj.im_shape)
     if name in _CALLABLES:
+        hint = ("; the CNN of rls_tpu.models.denoisers crosses by its weights: "
+                "rls_tpu_torch.models.denoisers.convert_cnn_params, then make_pnp_model"
+                if name == "PlugAndPlayRegularization" else "")
         raise TypeError(f"a {name} carries a JAX callable ({_CALLABLES[name]}) and is not "
-                        "carried over; build it in rls_tpu_torch with a torch callable")
+                        f"carried over; build it in rls_tpu_torch with a torch callable{hint}")
     if name == "WeightingOperator":
         return WeightingOperator(_tensor(obj.weights, device), device=device)
     if name == "ProdOperator":
@@ -347,6 +357,14 @@ def convert(obj, device="cuda"):
             iterations_tv=int(obj.iterations_tv),
             backend=_TV_BACKENDS[obj.backend],
         )
+    if name == "NuclearRegularization":
+        return prox.NuclearRegularization(_scalar(obj.lam), svt_shape=obj.svt_shape,
+                                          svd_method=str(obj.svd_method))
+    if name == "LLRRegularization":
+        return prox.LLRRegularization(
+            _scalar(obj.lam), shape=obj.shape, block_size=obj.block_size,
+            randshift=bool(obj.randshift), fully_overlapping=bool(obj.fully_overlapping),
+            L=int(obj.L), seed=int(obj.seed), svd_method=str(obj.svd_method))
     if name == "L1Regularization":
         return prox.L1Regularization(_scalar(obj.lam))
     if name == "L2Regularization":

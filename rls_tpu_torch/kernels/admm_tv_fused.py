@@ -394,7 +394,8 @@ def check_admm_tv(solver, path="fused"):
         raise ValueError(f"{path} path requires an identity reg_trafo")
     reg = solver.reg[0]
     H, W = op.im_shape
-    if reg.shape != (H, W) or tuple(sorted(reg.dims)) != (0, 1):
+    dims = (reg.dims,) if isinstance(reg.dims, int) else tuple(reg.dims)
+    if reg.shape != (H, W) or tuple(sorted(dims)) != (0, 1):
         raise ValueError(f"{path} path requires 2-D TV over both axes")
     for p in solver.proj:
         if not isinstance(p, (PositiveRegularization, RealRegularization)):

@@ -607,7 +607,8 @@ def check_pgm_tv(solver, path="fused"):
     if not isinstance(reg, TVRegularization):
         raise ValueError(f"{path} path requires TVRegularization")
     H, W = op.im_shape
-    if reg.shape != (H, W) or tuple(sorted(reg.dims)) != (0, 1):
+    dims = (reg.dims,) if isinstance(reg.dims, int) else tuple(reg.dims)
+    if reg.shape != (H, W) or tuple(sorted(dims)) != (0, 1):
         raise ValueError(f"{path} path requires 2-D TV over both axes")
     if solver.proj:
         raise ValueError(f"{path} path does not support projection terms")

@@ -330,7 +330,8 @@ def check_splitbregman_l1_tv_fused(solver):
         )
     tv = solver.reg[i_tv]
     H, W = op.im_shape
-    if tv.shape != (2, H, W) or tuple(sorted(tv.dims)) != (1, 2):
+    dims = (tv.dims,) if isinstance(tv.dims, int) else tuple(tv.dims)
+    if tv.shape != (2, H, W) or tuple(sorted(dims)) != (1, 2):
         raise ValueError(
             "fused path requires TV over shape (2, H, W) with dims (1, 2) — per-plane 2-D TV "
             "on the split representation"

@@ -10,8 +10,10 @@ PyTorch counterpart of ``rls_tpu/models/regularization.py``:
 ``NormalizedRegularization`` (:144-247); the three normalization
 strategies and ``normalization_factor`` (:253-293);
 ``TransformedRegularization`` and ``MaskedRegularization`` (:302-345);
-and the input transforms ``MinMaxTransform``, ``IdentityTransform``,
-``ZTransform`` and ``ClampedScalingTransform`` (:351-401).
+the input transforms ``MinMaxTransform``, ``IdentityTransform``,
+``ZTransform`` and ``ClampedScalingTransform`` (:351-401); and
+``PlugAndPlayRegularization`` with its alias ``PnPRegularization``
+(:409-470).
 
 Every term has a pure ``prox(x, lam) -> x`` and ``value(x, lam)``. A λ may
 be a scalar or carry the leading batch axes of ``x`` (one λ per problem).
@@ -23,7 +25,8 @@ result per problem.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import warnings
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -51,6 +54,8 @@ __all__ = [
     "IdentityTransform",
     "ZTransform",
     "ClampedScalingTransform",
+    "PlugAndPlayRegularization",
+    "PnPRegularization",
 ]
 
 
@@ -383,3 +388,66 @@ class ClampedScalingTransform:
     def backward(self, x):
         out = x * (self.v_max - self.v_min) + self.v_min
         return torch.where(self.mask, self.x, out)
+
+
+# --------------------------------------------------------------------------
+# plug-and-play learned prox
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlugAndPlayRegularization(ParameterizedRegularization):
+    """Learned denoiser as proximal map: x ← x − λ(x − model(x)), applied in
+    a normalized input range (reference PlugAndPlayRegularization.jl).
+
+    ``model`` is a torch callable on a batch of images (B, *shape), e.g.
+    ``models/denoisers.py`` ``make_pnp_model``; with ``shape=None`` it gets
+    x's (B, n) as it is. The input transform takes its statistics per
+    problem. λ is clipped to [0, 1] (with a warning at construction where
+    it lies outside). Complex inputs are denoised as two real problems, or
+    only the real part under ``ignore_im``. ``value`` raises: the term has
+    no explicit functional."""
+
+    lam: Any
+    model: Callable = None
+    shape: tuple = None
+    input_transform: Any = MinMaxTransform
+    ignore_im: bool = False
+
+    def __post_init__(self):
+        if self.shape is not None:
+            object.__setattr__(self, "shape", tuple(self.shape))
+        # reference warns when λ is clipped to [0, 1]
+        # (PlugAndPlayRegularization.jl:47-51)
+        lam = torch.as_tensor(self.lam)
+        if bool(((lam < 0) | (lam > 1)).any()):
+            warnings.warn(
+                "PlugAndPlayRegularization λ is clipped to the [0, 1] interval at prox time",
+                stacklevel=3,
+            )
+
+    def _prox_real(self, x, lam):
+        lam = torch.clamp(torch.as_tensor(lam, dtype=x.dtype, device=x.device), 0.0, 1.0)
+        if lam.ndim:  # one λ per problem
+            lam = lam.reshape(-1, 1)
+        xb = x.reshape(-1, x.shape[-1])
+        tf = self.input_transform(xb)
+        z = tf.forward(xb)
+        denoised = self.model(z.reshape(-1, *self.shape) if self.shape else z).reshape(z.shape)
+        z = z - lam * (z - denoised)
+        return tf.backward(z).reshape(x.shape)
+
+    def prox(self, x, lam=None):
+        if lam is None:
+            lam = self.lam
+        if x.is_complex():
+            re = self._prox_real(x.real, lam)
+            im = x.imag if self.ignore_im else self._prox_real(x.imag, lam)
+            return torch.complex(re, im).to(x.dtype)
+        return self._prox_real(x, lam)
+
+    def value(self, x, lam=None):
+        raise NotImplementedError("PlugAndPlayRegularization has no explicit functional value")
+
+
+PnPRegularization = PlugAndPlayRegularization

@@ -1,7 +1,19 @@
 """Solvers and drivers (counterpart of rls_tpu/models/solvers)."""
 
 from .admm import ADMM
-from .base import pcg, solve, solve_batched, solve_batched_unrolled, solve_unrolled
+from .base import (
+    SolverRun,
+    masked_vmap_scheduler,
+    pcg,
+    solve,
+    solve_batched,
+    solve_batched_unrolled,
+    solve_trace,
+    solve_unrolled,
+    solve_with_callbacks,
+    solver_convergence,
+    solver_solution,
+)
 from .cgnr import CGNR, solve_cgnr_refined
 from .dax import DaxConstrained, DaxKaczmarz
 from .direct import DirectSolver, PseudoInverse
@@ -26,9 +38,15 @@ __all__ = [
     "PDHG",
     "POGM",
     "SplitBregman",
+    "SolverRun",
+    "masked_vmap_scheduler",
     "pcg",
     "solve",
     "solve_batched",
     "solve_batched_unrolled",
+    "solve_trace",
     "solve_unrolled",
+    "solve_with_callbacks",
+    "solver_convergence",
+    "solver_solution",
 ]

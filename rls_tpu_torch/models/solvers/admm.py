@@ -75,6 +75,8 @@ class ADMM(LinearSolver):
     iterations_cg: int = 10
     # masked fixed-count inner CG (pcg's unroll form)
     unroll_cg: bool = False
+    # print the convergence metrics every iteration (solve_with_callbacks)
+    verbose: bool = False
 
     @classmethod
     def create(
@@ -93,6 +95,7 @@ class ADMM(LinearSolver):
         abs_tol=None,
         rel_tol=None,
         tol_inner=1e-5,
+        verbose: bool = False,
         **_,
     ):
         """Reference ctor semantics (ADMM.jl:80-163): projection terms split
@@ -129,6 +132,7 @@ class ADMM(LinearSolver):
             iterations=iterations,
             iterations_cg=iterations_cg,
             unroll_cg=unroll_cg,
+            verbose=verbose,
         )
 
     def _composite_mv(self, rho):

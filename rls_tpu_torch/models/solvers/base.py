@@ -1,11 +1,13 @@
 """Solver protocol and drivers.
 
 PyTorch counterpart of ``rls_tpu/models/solvers/base.py``: the protocol,
-``split_projection_terms`` and ``prepare_operators`` (:61-126); ``solve``
-and ``solve_unrolled`` (:246-334); ``solve_batched_unrolled`` (:337-350);
-``solve_batched`` with its active mask (:409-480); ``pcg``, the inner
-solver of ADMM (:171-230); ``kaczmarz_row_update``, the row projection of
-Kaczmarz (:129-150).
+``split_projection_terms`` and ``prepare_operators`` (:61-126); ``solve``,
+``solve_trace``, ``solver_solution``, ``solver_convergence`` and
+``solve_unrolled`` (:246-334); ``solve_batched_unrolled`` (:337-350);
+``SolverRun`` and ``solve_with_callbacks`` (:353-406);
+``masked_vmap_scheduler`` and ``solve_batched`` with its ``scheduler``
+(:409-480); ``pcg``, the inner solver of ADMM (:171-230);
+``kaczmarz_row_update``, the row projection of Kaczmarz (:129-150).
 
   * solver = plain dataclass over operator modules and scalars,
   * state  = dataclass of tensors produced by ``solver.init(b)``; every
@@ -14,9 +16,10 @@ Kaczmarz (:129-150).
 
 The batch is an explicit leading dimension: ``solver.init`` takes b of
 shape (..., m) and every step advances all problems at once. Where
-``rls_tpu`` vmaps a while-loop, ``solve_batched`` runs a host loop over
-the batch with an active mask (``masked_vmap_scheduler``, :409-444):
-finished problems are frozen by masked updates.
+``rls_tpu`` vmaps a while-loop, the port runs a host loop over the batch
+with an active mask (``masked_vmap_scheduler``): finished problems are
+frozen by masked updates (``state_where``). ``solve_trace`` and
+``solve_with_callbacks`` take b as ``solver.init`` does, (..., m).
 """
 
 from __future__ import annotations
@@ -36,7 +39,13 @@ from ..regularization import (
 
 __all__ = [
     "LinearSolver",
+    "SolverRun",
     "solve",
+    "solve_trace",
+    "solver_solution",
+    "solver_convergence",
+    "solve_with_callbacks",
+    "masked_vmap_scheduler",
     "solve_batched",
     "solve_unrolled",
     "solve_batched_unrolled",
@@ -299,15 +308,135 @@ def solve_batched_unrolled(solver: LinearSolver, B, x0=None):
     return solve_unrolled(solver, B.T, x0).T
 
 
-def solve_batched(solver: LinearSolver, B, x0=None):
-    """Multi-RHS solve: columns of ``B`` (m × K) are independent problems.
-    Each host iteration steps every problem and keeps the new state only
-    where the problem is still active; a problem stops once ``done``.
-    Returns an n × K matrix (reference hcat gather)."""
-    state = solver.init(B.T, x0)
-    active = torch.ones(B.shape[1], dtype=torch.bool, device=B.device)
+def _stack(seq, dim):
+    """Stack a sequence of tensors (or of dicts of tensors) along `dim`."""
+    if isinstance(seq[0], dict):
+        return {k: _stack([d[k] for d in seq], dim) for k in seq[0]}
+    return torch.stack(seq, dim=dim)
+
+
+def solve_trace(solver: LinearSolver, b, x0=None, metrics: bool = True):
+    """Fixed-length run over `solver.total_steps` with done-masking.
+
+    Returns ``(x, trace)`` where trace stacks the per-iteration
+    ``(solution, convergence metrics, active flag)`` (the metrics only
+    where `metrics`), each along the axis after b's batch axes: the
+    solutions (*batch, T, n), every metric and the flags (*batch, T). The
+    counterpart of StoreSolutionCallback / StoreConvergenceCallback
+    (reference Callbacks.jl) without host callbacks."""
+    state = solver.init(b, x0)
+    sols, mets, acts = [], [], []
+    for _ in range(solver.total_steps):
+        active = ~solver.done(state)
+        state = state_where(active, solver.step(state), state)
+        sols.append(solver.solution(state).clone())  # a step may reuse a tensor
+        if metrics:
+            mets.append(solver.convergence(state))
+        acts.append(active)
+    axis = acts[0].ndim if acts else 0
+    trace = (_stack(sols, axis),)
+    if metrics:
+        trace += (_stack(mets, axis),)
+    trace += (_stack(acts, axis),)
+    state = solver.finalize(state)
+    return solver.solution(state), trace
+
+
+def solver_solution(solver: LinearSolver, state):
+    """Reference ``solversolution`` accessor."""
+    return solver.solution(state)
+
+
+def solver_convergence(solver: LinearSolver, state):
+    """Reference ``solverconvergence`` accessor."""
+    return solver.convergence(state)
+
+
+class SolverRun:
+    """Host-side view passed to callbacks: `solution`, `convergence` and
+    the raw `state`, like the reference's callback(solver, iteration)."""
+
+    def __init__(self, solver: LinearSolver, state):
+        self.solver = solver
+        self.state = state
+
+    @property
+    def solution(self):
+        return self.solver.solution(self.state)
+
+    @property
+    def convergence(self):
+        return self.solver.convergence(self.state)
+
+
+def solve_with_callbacks(solver: LinearSolver, b, callbacks=None, x0=None):
+    """Host-loop driver with per-iteration Python callbacks, the analog of
+    `solve!(solver, b; callbacks)` (reference
+    RegularizedLeastSquares.jl:103-117), the iteration-0 call included. b is
+    (..., m), as ``solver.init`` takes it: every problem steps until it is
+    done, then stays frozen (the masking of :func:`solve_batched`), and the
+    callbacks see the whole batch. A solver with ``verbose=True`` prints
+    its metrics every iteration."""
+    if callbacks is None:
+        callbacks = []
+    elif callable(callbacks):
+        callbacks = [callbacks]
+    verbose = bool(getattr(solver, "verbose", False))
+
+    state = solver.init(b, x0)
+    run = SolverRun(solver, state)
+    for cb in callbacks:
+        cb(run, 0)
+
+    active = ~solver.done(state)
+    iteration = 0
     while bool(active.any()):
         state = state_where(active, solver.step(state), state)
         active = active & ~solver.done(state)
+        run.state = state
+        iteration += 1
+        if verbose:
+            metrics = {k: v.tolist() for k, v in solver.convergence(state).items()}
+            print(f"Iteration {iteration}; {metrics}")
+        for cb in callbacks:
+            cb(run, iteration)
+
+    state = solver.finalize(state)
+    run.state = state
+    return solver.solution(state)
+
+
+def masked_vmap_scheduler(solver: LinearSolver, state, active0):
+    """Default `solve_batched` scheduling policy: each host iteration steps
+    EVERY problem at once and keeps the new state only where the problem is
+    still active; a problem stops once ``done``. The counterpart of
+    ``rls_tpu``'s masked vmap in a ``lax.while_loop`` (:409-444).
+
+    Scheduler contract (the custom-scheduling seam of the reference's
+    ``solve!(solver, B; scheduler=...)``): a scheduler is
+    ``f(solver, state, active0) -> state``, where ``state`` is the batched
+    state of ``solver.init`` (every tensor field carries the problem axis
+    first) and ``active0`` the (K,) initial liveness mask. It returns the
+    state after every problem has converged or spent its budget;
+    `solve_batched` applies `finalize` and `solution` afterwards. A custom
+    scheduler may step the problems in any order or grouping, e.g. by
+    ``state_where`` on a chunk's mask."""
+    active = active0
+    while bool(active.any()):
+        state = state_where(active, solver.step(state), state)
+        active = active & ~solver.done(state)
+    return state
+
+
+def solve_batched(solver: LinearSolver, B, x0=None, scheduler=None):
+    """Multi-RHS solve: columns of ``B`` (m × K) are independent problems.
+    ``scheduler`` (default :func:`masked_vmap_scheduler`) advances the
+    batched state; see it for the contract. Returns an n × K matrix
+    (reference hcat gather)."""
+    if scheduler is None:
+        scheduler = masked_vmap_scheduler
+    state = solver.init(B.T, x0)
+    active0 = torch.ones(B.shape[1], dtype=torch.bool, device=B.device)
+    state = scheduler(solver, state, active0)
     state = solver.finalize(state)
     return solver.solution(state).T

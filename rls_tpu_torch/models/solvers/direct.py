@@ -153,7 +153,8 @@ class PseudoInverse(LinearSolver):
     iterations: int = 1
 
     @classmethod
-    def create(cls, A, reg=None, normalize_reg=NoNormalization(), **_):
+    def create(cls, A, reg=None, normalize_reg=NoNormalization(), svd_method: str = "auto",
+               **_):
         """The SVD always: ``svd_method`` picks among the TPU's SVDs in
         ``rls_tpu`` and is accepted and ignored here."""
         l2, proj = _split_l2(reg)

@@ -57,6 +57,8 @@ class FISTA(LinearSolver):
     # skip the per-iteration ‖res‖ reduction (fixed-iteration runs, where
     # early exit is disabled anyway)
     track_residual: bool = True
+    # print the convergence metrics every iteration (solve_with_callbacks)
+    verbose: bool = False
 
     @classmethod
     def create(
@@ -71,6 +73,7 @@ class FISTA(LinearSolver):
         rel_tol=None,
         restart: str = "none",
         track_residual: bool = True,
+        verbose: bool = False,
         **_,
     ):
         """Reference ctor semantics (FISTA.jl:57-92): exactly one
@@ -86,6 +89,7 @@ class FISTA(LinearSolver):
             iterations=iterations,
             restart=restart,
             track_residual=track_residual,
+            verbose=verbose,
         )
 
     # -- protocol --------------------------------------------------------

@@ -50,6 +50,8 @@ class OptISTA(LinearSolver):
     rel_tol: Any = None
     normalize_reg: Any = NoNormalization()
     iterations: int = 50
+    # print the convergence metrics every iteration (solve_with_callbacks)
+    verbose: bool = False
 
     @classmethod
     def create(
@@ -62,6 +64,7 @@ class OptISTA(LinearSolver):
         rho=None,
         theta=1.0,
         rel_tol=None,
+        verbose: bool = False,
         **_,
     ):
         return cls(
@@ -70,6 +73,7 @@ class OptISTA(LinearSolver):
             rel_tol=rel_tol,
             normalize_reg=normalize_reg,
             iterations=iterations,
+            verbose=verbose,
         )
 
     def _theta_n(self, full):

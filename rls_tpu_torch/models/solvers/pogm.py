@@ -56,6 +56,8 @@ class POGM(LinearSolver):
     normalize_reg: Any = NoNormalization()
     iterations: int = 50
     restart: str = "none"
+    # print the convergence metrics every iteration (solve_with_callbacks)
+    verbose: bool = False
 
     @classmethod
     def create(
@@ -70,6 +72,7 @@ class POGM(LinearSolver):
         sigma_fac=1.0,
         rel_tol=None,
         restart: str = "none",
+        verbose: bool = False,
         **_,
     ):
         return cls(
@@ -80,6 +83,7 @@ class POGM(LinearSolver):
             normalize_reg=normalize_reg,
             iterations=iterations,
             restart=restart,
+            verbose=verbose,
         )
 
     def init(self, b, x0=None) -> POGMState:

@@ -48,7 +48,13 @@ twin's bits; a decorated TV falls back to the composed solve with one TV
 prox launch an iteration and the undecorated solve's bits; the composite,
 direct-conv, wavelet, function and Radon operators on the card hold their
 CPU results to 1e-5 of max|x| (the Radon backprojection scatters with
-atomics); DAX on the card holds its CPU solve to 1e-10 in float64."""
+atomics); DAX on the card holds its CPU solve to 1e-10 in float64. The
+exact 1-D Condat kernel (chip_smoke.py phase 12) equals its plain version
+bit for bit on the card and on the CPU (lines of 1 to 3,000 entries, along
+strided and contiguous axes, float32 and float64), and refuses complex and
+half data by name; FISTA with TV(dims=0) on the card runs it once an
+iteration and holds the CPU solve to 1e-5 of max|x|, as Nuclear, LLR and
+PnP do their CPU proxes."""
 
 import dataclasses
 import re
@@ -2495,3 +2501,86 @@ def test_dax_on_the_card_holds_its_cpu_result(dev):
     for got, want in zip(out[str(dev)], out["cpu"]):
         _close(got, want, 1e-10)
     assert float(out[str(dev)][1].min()) >= -1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,axis", [((3, 1), 1), ((3, 2), 1), ((2, 37, 45), 1),
+                                        ((2, 37, 45), 2), ((5, 1, 3000), 2), ((4, 33), 0)])
+def test_condat_kernel_bit_for_bit(dev, dtype, shape, axis):
+    """The exact 1-D TV kernel against its plain version, bit for bit: lines
+    of 1, 2, 37, 45 and 3,000 entries, along a strided and the contiguous
+    axis, one λ per problem (one of them 0, one flattening), one launch."""
+    from rls_tpu_torch.kernels import tv_condat
+
+    rng = np.random.default_rng(60)
+    x = torch.from_numpy(rng.normal(size=shape)).to(dev, dtype)
+    lam = torch.from_numpy(rng.uniform(0.0, 1.0, size=shape[:1])).to(dev, dtype)
+    lam[0] = 0.0
+    if shape[0] > 2:
+        lam[-1] = 1e3
+    if axis == 0:
+        lam = lam[0]
+    before = tv_condat.prox_tv1d_condat.launches
+    got = tv_condat.prox_tv1d_condat(x, lam, axis)
+    torch.cuda.synchronize()
+    assert tv_condat.prox_tv1d_condat.launches == before + 1
+    want = tv_condat.prox_tv1d_condat_torch(x, lam, axis)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    cpu = tv_condat.prox_tv1d_condat_torch(x.cpu(), lam.cpu(), axis)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_condat_kernel_refuses_what_it_does_not_take(dev):
+    from rls_tpu_torch.kernels import tv_condat
+
+    with pytest.raises(ValueError, match="takes real data"):
+        tv_condat.prox_tv1d_condat(torch.zeros(2, 8, dtype=torch.complex64, device=dev), 0.1, 1)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        tv_condat.prox_tv1d_condat(torch.zeros(2, 8, dtype=torch.float16, device=dev), 0.1, 1)
+
+
+def test_tv_integer_dims_solve_on_the_card_holds_its_cpu_result(dev):
+    """FISTA with TV(dims=0) through solve_batched_fast's composed fallback on
+    the card: one Condat launch an iteration, the CPU solve's result to
+    1e-5 of max|x| (the blur's products sum in another order)."""
+    from rls_tpu_torch.kernels import tv_condat
+
+    B_np = np.random.default_rng(61).normal(size=(24 * 20, 3)).astype(np.float32)
+    out = {}
+    for device in ("cpu", dev):
+        op = rtt.SeparableConvOperator.from_taps(*TAPS, (24, 20), device=device)
+        s = rtt.FISTA.create(op, reg=rtt.TVRegularization(0.05, shape=(24, 20), dims=0),
+                             rho=0.5, iterations=6)
+        before = tv_condat.prox_tv1d_condat.launches
+        out[str(device)] = rtt.solve_batched_fast(s, torch.from_numpy(B_np).to(device),
+                                                  warn=False).cpu()
+        assert tv_condat.prox_tv1d_condat.launches - before == (0 if device == "cpu" else 6)
+    _close(out[str(dev)], out["cpu"], 1e-5)
+
+
+def test_regularizers_of_the_last_slice_on_the_card(dev):
+    """Nuclear (tall and wide), LLR (complex, randshift) and PnP on the card
+    against the CPU, to 1e-5 of max|x| (cuSOLVER's gesvda SVD; cuDNN's
+    convolution without TF32)."""
+    from rls_tpu_torch.models import denoisers
+
+    rng = np.random.default_rng(62)
+    X = torch.from_numpy(rng.normal(size=(3, 96)).astype(np.float32))
+    Z = torch.from_numpy((rng.normal(size=(2, 256)) + 1j * rng.normal(size=(2, 256)))
+                         .astype(np.complex64))
+    for reg, V in (
+        (rtt.NuclearRegularization(0.5, svt_shape=(12, 8)), X),
+        (rtt.NuclearRegularization(0.5, svt_shape=(8, 12)), X),  # wide: gesvda transposed
+        (rtt.LLRRegularization(0.3, shape=(8, 8), block_size=(4, 4)), Z),
+    ):
+        _close(reg.prox(V.to(dev)).cpu(), reg.prox(V), 1e-5)
+        _close(reg.value(V.to(dev)).cpu(), reg.value(V), 1e-5)
+    params = denoisers.init_cnn_params(torch.Generator().manual_seed(0), channels=4)
+    img = torch.from_numpy(rng.uniform(size=(2, 256)).astype(np.float32))
+    out = {}
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for device in ("cpu", dev):
+            model = denoisers.make_pnp_model({k: v.to(device) for k, v in params.items()})
+            reg = rtt.PnPRegularization(0.4, model=model, shape=(16, 16))
+            out[str(device)] = reg.prox(img.to(device)).cpu()
+    _close(out[str(dev)], out["cpu"], 1e-5)

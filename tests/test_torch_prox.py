@@ -71,8 +71,12 @@ def test_tv_regularization_matches_jax(rng, backend):
     np.testing.assert_allclose(
         float(treg.value(torch.from_numpy(x))), float(jreg.value(jnp.asarray(x))), rtol=1e-5
     )
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        rtt.TVRegularization(0.1, shape=SHAPE, dims=0)
+    # an integer dims is the exact 1-D Condat prox along that axis
+    j1 = rt.TVRegularization(0.1, shape=SHAPE, dims=0)
+    t1 = convert(j1, device="cpu")
+    assert t1.dims == 0
+    np.testing.assert_allclose(t1.prox(torch.from_numpy(x)).numpy(),
+                               np.asarray(j1.prox(jnp.asarray(x))), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "complex64"])

@@ -6,7 +6,8 @@ Masked, the MinMax / Identity / Z / ClampedScaling transforms and
 ProjectionRegularizationTerm; Masked, Transformed and AutoScaled inside a
 composed FISTA solve, decorated L2 terms in CGNR and Kaczmarz; the
 dispatch decision of solve_batched_fast for every decorated or composite
-solver, row by row, against the JAX checks (on the CPU, no kernel runs);
+solver, and for TV with an integer dims, Nuclear, LLR and PnP, row by row,
+against the JAX checks (on the CPU, no kernel runs);
 and ``convert`` of each.
 
 Tolerances: float64 (JAX x64, scoped) 1e-12 relative, float32 1e-5 of
@@ -347,7 +348,26 @@ def _dispatch_cases():
         "dax_kaczmarz": lambda: rt.DaxKaczmarz.create(A, lam=1e-6, enforce_real=True,
                                                       enforce_positive=True),
         "dax_constrained": lambda: rt.DaxConstrained.create(A, lam=1e-6),
+        "fista_tv_integer_dims": lambda: rt.FISTA.create(
+            _sepconv(rt), reg=rt.TVRegularization(1e-3, shape=(n, n), dims=1), rho=0.9,
+            iterations=5),
+        "fista_nuclear_dense": lambda: rt.FISTA.create(
+            A, reg=rt.NuclearRegularization(1e-3, svt_shape=(3, 4)), rho=0.01, iterations=5),
+        "fista_llr_dense": lambda: rt.FISTA.create(
+            A, reg=rt.LLRRegularization(1e-3, shape=(2, 2)), rho=0.01, iterations=5),
+        "admm_pnp": lambda: rt.ADMM.create(
+            _sepconv(rt), reg=rt.PnPRegularization(0.3, model=lambda v: v, shape=(n, n)),
+            rho=0.1, iterations=3, iterations_cg=3),
     }
+
+
+# the cases whose rls_tpu solver carries a JAX callable: the port's twin is
+# built in rls_tpu_torch (convert refuses the callable)
+_PORT_BUILT = {
+    "admm_pnp": lambda: rtt.ADMM.create(
+        _sepconv(rtt), reg=rtt.PnPRegularization(0.3, model=lambda v: v, shape=(16, 16)),
+        rho=0.1, iterations=3, iterations_cg=3),
+}
 
 
 def _accepts(table, solver):
@@ -370,7 +390,8 @@ DISPATCH_CASES = (
     "fista_l1_weighted_dense", "fista_fixed_scaled_l1_cs", "fista_fixed_scaled_l21_sense",
     "fista_transformed_l1_stacked_sense", "kaczmarz_fixed_parameter_l2",
     "kaczmarz_fixed_parameter_positive", "kaczmarz_greedy_fixed_scaled_l2",
-    "kaczmarz_weighted_prod", "dax_kaczmarz", "dax_constrained",
+    "kaczmarz_weighted_prod", "dax_kaczmarz", "dax_constrained", "fista_tv_integer_dims",
+    "fista_nuclear_dense", "fista_llr_dense", "admm_pnp",
 )
 
 
@@ -384,7 +405,7 @@ def test_dispatch_decision_matches_jax(name):
     its JAX check does; where no row accepts, solve_batched_fast warns and
     falls back (checked on the CPU: no kernel runs)."""
     js = _dispatch_cases()[name]()
-    ts = convert(js, device="cpu")
+    ts = _PORT_BUILT[name]() if name in _PORT_BUILT else convert(js, device="cpu")
     want = _accepts(jauto._FUSED_WRAPPERS, js)
     assert [r[0] for r in tauto._FUSED_WRAPPERS] == [r[0] for r in jauto._FUSED_WRAPPERS]
     assert _accepts(tauto._FUSED_WRAPPERS, ts) == want
