@@ -901,9 +901,9 @@ def launch_counts(reset=False):
     """The launch counters of the seventeen kernel wrappers, by name; with
     `reset`, set them to 0 first (and the TV prox, PGM-TV (rows 2 and 3),
     ADMM-TV (rows 4 and 5), SplitBregman, PDHG, FISTA-L1-DFT,
-    FISTA-L21-SENSE, dense PGM (rows 7a and 7b), Kaczmarz (rows 12a, 12b)
-    and greedy Kaczmarz (row 13, the solve and the sweep alone) kernels'
-    counts by route)."""
+    FISTA-L21-SENSE, dense PGM (rows 7a and 7b), Kaczmarz (rows 12a, 12b),
+    greedy Kaczmarz (row 13, the solve and the sweep alone) and Condat (row
+    14) kernels' counts by route)."""
     from rls_tpu_torch.kernels import admm_tv_fused, admm_tv_tiled, cgnr_fused, fista_l1_dft_fused
     from rls_tpu_torch.kernels import fista_tv_fused, fista_tv_tiled, pgm_dense_fused, sense_fused
     from rls_tpu_torch.kernels import kaczmarz_greedy, kaczmarz_streamed, pdhg_fused
@@ -933,6 +933,7 @@ def launch_counts(reset=False):
             fn.route_launches = {"warp": 0, "block": 0}
         for fn in (kaczmarz_greedy.kaczmarz_greedy_solve, kaczmarz_greedy.kaczmarz_greedy_sweep):
             fn.route_launches = {"resident": 0, "block": 0}
+        tv_condat.prox_tv1d_condat.route_launches = {"resident": 0, "global": 0}
     return {fn.__name__: fn.launches for fn in fns}
 
 
@@ -2912,36 +2913,61 @@ def stop_children():
         proc.communicate()
 
 
+def condat_lines(N, dtype, seed=0):
+    """Phase 12 (a)'s adversarial lines (30, N) and their λs, six of each:
+    noise at λ = 0, 1e-6, 0.05, 0.3, 2 and 1e4 (past every line's
+    variation: one segment a line, no restart), constant lines, ramps,
+    alternating ±1 (λ about 1, the jumps' half height) and piecewise-constant
+    lines plus noise; from default_rng(seed + N)."""
+    rng = np.random.default_rng(seed + N)
+    lam = np.array([0.0, 1e-6, 0.05, 0.3, 2.0, 1e4])
+    k = np.arange(N)
+    jumps = rng.uniform(size=(6, N)) < 2e-3
+    lines = [rng.normal(size=(6, N)), np.repeat(rng.normal(size=(6, 1)), N, axis=1),
+             k[None, :] * rng.normal(size=(6, 1)),
+             np.tile(np.where(k % 2 == 0, 1.0, -1.0), (6, 1)),
+             np.cumsum(rng.normal(size=(6, N)) * jumps, axis=1) + 0.1 * rng.normal(size=(6, N))]
+    lams = [lam, lam, lam, np.array([0.0, 1e-6, 0.5, 0.999, 1.0, 1e4]),
+            rng.uniform(0.05, 0.5, size=6)]
+    return np.concatenate(lines).astype(dtype), np.concatenate(lams).astype(dtype)
+
+
 def condat_kernel_phase(dev, child):
     """Phase 12 (a): the Condat kernel against its plain version, bit for
-    bit, at CONDAT_CASES and at the main path's shape (16 × 256² along the
-    image's axis 1, float32), each one launch by its counter, with both
-    times. Returns the main path shape's (max|kernel − plain|, plain ms,
-    kernel ms, bound)."""
+    bit, each case one prox call by its counter (on its plan's route, or
+    the forced one): CONDAT_CASES and the main path's shape (16 × 256²
+    along the image's axis 1, float32) with both times; then λ = 0 and λ
+    past every line's variation at the main shape, the adversarial lines
+    of `condat_lines` at N = 1, 2, 3, one more than the main shape's chunk
+    and 256, phase 12 (b)'s prox inputs at its first and last iterations,
+    and the main shape on each route forced. Returns the main path shape's
+    (max|kernel − plain|, plain ms, kernel ms, bound)."""
     import io
 
     import torch
 
+    import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import tv_condat
 
     card = card_line()
     main_case = ((TV1_BATCH, N, N), 2, "float32")
     out = None
+
+    def hold(name, fn, x, lam, axis, route=None):
+        lines = x.numel() // x.shape[axis]
+        plan = tv_condat.card_plan(lines, x.shape[axis], x.dtype, x.device, route)
+        got = counted_run(name, fn, {"prox_tv1d_condat": 1})[0]
+        routes = tv_condat.prox_tv1d_condat.route_launches
+        require(routes[plan.route] == 1, f"{name}: routes {routes}, planned {plan.route}")
+        require(bool(torch.isfinite(got).all() or not torch.isfinite(x).all()),
+                f"{name}: non-finite values")
+        return got, plan
+
     for shape, axis, dtype in CONDAT_CASES + (main_case,):
-        tdt = getattr(torch, dtype)
         name = f"tv_condat[{' x '.join(map(str, shape))} along axis {axis}, {dtype}]"
         long = shape == CONDAT_LONG
-        if long:
-            x_np, lam_np = condat_long_input()
-        else:
-            rng = np.random.default_rng(29 + axis)
-            x_np = phantoms(n=shape[1], batch=shape[0]).reshape(shape)
-            x_np = x_np + 0.1 * rng.normal(size=shape)
-            lam_np = rng.uniform(0.05, 0.5, size=shape[0])
-        x = torch.from_numpy(np.ascontiguousarray(x_np)).to(dev, tdt)
-        lam = torch.from_numpy(lam_np).to(dev, tdt)
-        got = counted_run(name, lambda: tv_condat.prox_tv1d_condat(x, lam, axis),
-                          {"prox_tv1d_condat": 1})[0]
+        x, lam = condat_case(dev, shape, axis, dtype)
+        got, plan = hold(name, lambda: tv_condat.prox_tv1d_condat(x, lam, axis), x, lam, axis)
         if long:
             raw, err_txt = child.communicate(timeout=900)
             require(child.returncode == 0,
@@ -2958,16 +2984,42 @@ def condat_kernel_phase(dev, child):
             torch.cuda.synchronize()
             plain_ms, where = start.elapsed_time(stop), "card"
         err = float((got - want).abs().max())
-        require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
         require(torch.equal(got, want), f"{name}: differs from its plain version by {err:.3e}")
         ms = cuda_ms(lambda: tv_condat.prox_tv1d_condat(x, lam, axis), 2 if long else 10)
         elems = x.numel()
         bnd = bound(4 * elems, x.element_size() * (2 * elems + shape[0]))
         print(f"{name}: bit for bit its plain version; kernel {ms:.3f} ms, plain {plain_ms:.1f} "
               f"ms ({where}), bound {bnd[0]:.4f} ms ({bnd[1]}), {x.numel() // shape[axis]} "
-              f"lines of {shape[axis]}; {card}")
+              f"lines of {shape[axis]} on the {plan.route} route (chunks of {plan.chunk}); "
+              f"{card}")
         if (shape, axis, dtype) == main_case:
             out = (err, plain_ms, ms, bnd)
+    # the edges: each one call, bit for bit
+    xm, lm = condat_case(dev, main_case[0], 2, "float32")
+    edges = [(f"λ = {lv:g} at the main shape", xm, torch.tensor(lv, device=dev), 2, None)
+             for lv in (0.0, 1e4)]
+    chunk = tv_condat.card_plan(TV1_BATCH * N, N, torch.float32, xm.device).chunk
+    for n_line in (1, 2, 3, chunk + 1, N):
+        for dtype in ("float32", "float64"):
+            c_np, l_np = condat_lines(n_line, dtype)
+            edges.append((f"adversarial lines of {n_line} ({dtype})",
+                          torch.from_numpy(c_np).to(dev), torch.from_numpy(l_np).to(dev), 1,
+                          None))
+    s, _, B, _ = tv1_cell(dev)
+    calls = condat_prox_inputs(lambda: rtt.solve_batched_fast(s, B, warn=False))
+    for tag, (x, lam, axis) in (("first", calls[0]), ("last", calls[-1])):
+        edges.append((f"(b)'s prox input at its {tag} iteration", x, lam, axis, None))
+    for route in tv_condat.ROUTES:
+        edges.append((f"the main shape on the {route} route", xm, lm, 2, route))
+    for what, x, lam, axis, route in edges:
+        name = f"tv_condat[{what}]"
+        got, plan = hold(name, lambda: tv_condat._prox(x, lam, axis, route=route), x, lam, axis,
+                         route)
+        want = tv_condat.prox_tv1d_condat_torch(x, lam, axis)
+        require(torch.equal(got, want),
+                f"{name}: differs from its plain version by {float((got - want).abs().max()):.3e}")
+        print(f"{name}: bit for bit its plain version, {tuple(x.shape)} along axis {axis}, one "
+              f"call on the {plan.route} route (chunks of {plan.chunk})")
     return out
 
 
@@ -5066,6 +5118,167 @@ def time_kaczmarz_greedy(dev, out):
     torch.save(saved, os.path.join(keep, f"{tag}.pt"))
 
 
+def condat_case(dev, shape, axis, dtype, seed=None):
+    """Phase 12 (a)'s seeded input of a Condat case: the long signals at
+    CONDAT_LONG, else bench.py's phantoms plus noise of σ 0.1, one λ per
+    problem in [0.05, 0.5], from default_rng(29 + axis) (or `seed`)."""
+    import torch
+
+    if shape == CONDAT_LONG:
+        x_np, lam_np = condat_long_input()
+    else:
+        rng = np.random.default_rng(29 + axis if seed is None else seed)
+        x_np = phantoms(n=shape[1], batch=shape[0]).reshape(shape)
+        x_np = x_np + 0.1 * rng.normal(size=shape)
+        lam_np = rng.uniform(0.05, 0.5, size=shape[0])
+    tdt = getattr(torch, dtype)
+    return (torch.from_numpy(np.ascontiguousarray(x_np)).to(dev, tdt),
+            torch.from_numpy(lam_np).to(dev, tdt))
+
+
+def tv1_cell(dev, dtype=None):
+    """Phase 12 (b)'s solver: FISTA with TV(dims=1) (λ = LAM) on the
+    flagship's blur, ITERS iterations, and B: TV1_BATCH of the flagship's
+    phantoms blurred, one a column."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    dtype = dtype or torch.float32
+    op = rtt.SeparableConvOperator.from_kernel(gaussian_kernel(), im_shape=(N, N), dtype=dtype,
+                                               device=dev)
+    tv = rtt.TVRegularization(LAM, shape=(N, N), dims=1)
+    s = rtt.FISTA.create(op, reg=tv, iterations=ITERS, rho=RHO, rel_tol=0.0,
+                         track_residual=False)
+    xs = torch.from_numpy(phantoms(n=N, batch=TV1_BATCH)).to(dev, dtype)
+    return s, op, op.mv(xs).T.contiguous(), xs
+
+
+def condat_prox_inputs(solve):
+    """The Condat prox's inputs (x, λ, axis) over one call of `solve()`,
+    each call's, in order."""
+    import torch
+
+    from rls_tpu_torch.models import tv_condat as mtc
+
+    calls, inner = [], mtc.prox_tv1d_condat
+
+    def record(x, lam, axis):
+        calls.append((x.clone(), lam.clone() if torch.is_tensor(lam) else lam, axis))
+        return inner(x, lam, axis)
+
+    mtc.prox_tv1d_condat = record
+    try:
+        solve()
+    finally:
+        mtc.prox_tv1d_condat = inner
+    return calls
+
+
+# --time-condat: the shapes of phase 12 (a), and the chunks and lines a CTA
+# swept (forced plans) at each of them
+CONDAT_TIMED = (("16x256^2 axis 2", (16, 256, 256), 2, "float32"),
+                ("64x256^2 axis 1", (64, 256, 256), 1, "float32"),
+                ("64x256^2 axis 2", (64, 256, 256), 2, "float32"),
+                ("16x65536", CONDAT_LONG, 2, "float32"),
+                ("16x256^2 axis 2 float64", (16, 256, 256), 2, "float64"))
+CONDAT_SWEEP = {"16x256^2 axis 2": ((32, 2), (64, 2), (64, 4)),
+                "64x256^2 axis 1": ((32, 4), (64, 4), (64, 8)),
+                "16x65536": ((32, None), (64, None), (128, None)),
+                "(b) first": ((32, 2), (64, 2), (128, 1)),
+                "(b) last": ((32, 2), (64, 2), (128, 1))}
+
+
+def time_condat(dev, out):
+    """``--time-condat [ROOT]``: the Condat kernel (row 14) at CONDAT_TIMED
+    (phase 12 (a)'s shapes) and on phase 12 (b)'s prox inputs captured at
+    its first and last iterations, and (b)'s batch through
+    solve_batched_fast: three readings by CUDA events and three of the
+    device time by torch.profiler (the Condat kernels' alone); sha256
+    digests of every output (equal across trees: both are bit for bit the
+    plain version). Where ROOT's kernel has the planner: each case's plan,
+    the run's counts (walkers stitched, long, done; the stitch distances'
+    mean and largest; the chain's own events), CTA 0's clocks by phase on
+    the resident route, and CONDAT_SWEEP's forced chunks and lines a CTA,
+    each held bit for bit to the planned call."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import tv_condat as kc
+
+    out["kernel"] = os.path.relpath(kc.__file__, ROOT)
+    planned = hasattr(kc, "plan_tv_condat")
+    cases, saved = [], {}
+    for name, shape, axis, dtype in CONDAT_TIMED:
+        x, lam = condat_case(dev, shape, axis, dtype)
+        cases.append((name, x, lam, axis))
+    s, op, B, _ = tv1_cell(dev)
+    calls = condat_prox_inputs(lambda: rtt.solve_batched_fast(s, B, warn=False))
+    out["(b) prox calls"] = len(calls)
+    for tag, (x, lam, axis) in (("first", calls[0]), ("last", calls[-1])):
+        cases.append((f"(b) {tag} iterate {tuple(x.shape)} axis {axis}", x, lam, axis))
+    timed = [(name, lambda x=x, lam=lam, axis=axis: kc.prox_tv1d_condat(x, lam, axis),
+              2 if "65536" in name else 10) for name, x, lam, axis in cases]
+    timed.append(("(b) batch solve_batched_fast",
+                  lambda: rtt.solve_batched_fast(s, B, warn=False), 1))
+    time_cases(out, timed)
+    for name, fn, _ in timed:
+        readings = [device_kernels(fn) for _ in range(3)]
+        out[f"{name} condat kernels by name, ms (profiler)"] = {
+            key[:90]: ms for ms, _, key in readings[-1] if "tv_condat" in key}
+        out[f"{name} condat device ms (profiler)"] = [
+            sum(ms for ms, _, key in r if "tv_condat" in key) for r in readings]
+        out[f"{name} device ms (profiler)"] = [sum(ms for ms, _, _ in r) for r in readings]
+        out[f"{name} condat kernels (profiler)"] = sorted(
+            {key[:60] for ms, _, key in readings[-1] if "tv_condat" in key})
+    for name, x, lam, axis in cases:
+        saved[name] = kc.prox_tv1d_condat(x, lam, axis)
+        out[f"sha256: {name}"] = digest(saved[name])
+    wall = min(out["(b) batch solve_batched_fast ms"])
+    out["(b) problems/s"] = TV1_BATCH / (wall / 1e3)
+    if not planned:
+        return
+    for name, x, lam, axis in cases:
+        lines = x.numel() // x.shape[axis]
+        plan = kc.card_plan(lines, x.shape[axis], x.dtype, x.device)
+        out[f"plan: {name}"] = dict(vars(plan))
+        counts = kc.walk_counts(x, lam, axis)
+        counts["stitch distance mean"] = counts["stitch distance sum"] / max(counts["stitched"], 1)
+        out[f"counts: {name}"] = counts
+        if plan.route == "resident":
+            out[f"clocks of CTA 0 by phase: {name}"] = kc.phase_clocks(x, lam, axis)
+    forced = []
+    for name, x, lam, axis in cases:
+        sweep = next((v for k, v in CONDAT_SWEEP.items() if name == k or
+                      (k.startswith("(b)") and name.startswith(k))), ())
+        for chunk, lpc in sweep:
+            key = f"{name}, chunk {chunk}" + (f", {lpc} lines a CTA" if lpc else "")
+            fn = lambda x=x, lam=lam, axis=axis, chunk=chunk, lpc=lpc: kc._prox(  # noqa: E731
+                x, lam, axis, chunk=chunk, lines_per_cta=lpc)
+            require(torch.equal(fn(), saved[name]), f"{key}: differs from the planned call")
+            lines = x.numel() // x.shape[axis]
+            out[f"plan: {key}"] = dict(vars(kc.card_plan(lines, x.shape[axis], x.dtype, x.device,
+                                                         chunk=chunk, lines_per_cta=lpc)))
+            forced.append((key, fn, 2 if "65536" in name else 10))
+    # a walk's cost an event: CTA 0's walking clocks of one walker on one
+    # line of 16,384 (noise at λ = 1e4: advances only; 0: a jump an entry;
+    # 0.3), over its events
+    rng = np.random.default_rng(5)
+    for lam_v in (1e4, 0.0, 0.3):
+        x = torch.from_numpy(rng.normal(size=(1, 16384))).to(dev, torch.float32)
+        clocks = kc.phase_clocks(x, lam_v, 1, chunk=16384, lines_per_cta=1)
+        got = kc.prox_tv1d_condat(x, lam_v, 1)
+        out[f"one walker, 16384, lambda {lam_v:g}: segments"] = int(
+            (got[0, 1:] != got[0, :-1]).sum()) + 1
+        out[f"one walker, 16384, lambda {lam_v:g}: clocks by phase"] = clocks
+        out[f"one walker, 16384, lambda {lam_v:g}: walking clocks an entry"] = (
+            clocks["walking"] / 16384)
+    time_cases(out, forced)
+    for name, fn, _ in forced:
+        out[f"{name} condat device ms (profiler)"] = [
+            sum(ms for ms, _, key in device_kernels(fn) if "tv_condat" in key) for _ in range(3)]
+
+
 def time_composite(dev, out):
     """``--time-composite [ROOT]``: phase 11's cells (b)-(e) through
     solve_batched_fast (the composed fallback) and the flagship with a
@@ -5111,6 +5324,7 @@ TIME_MODES = {
     "--time-pgm-dense": time_pgm_dense,
     "--time-kaczmarz": time_kaczmarz,
     "--time-kaczmarz-greedy": time_kaczmarz_greedy,
+    "--time-condat": time_condat,
 }
 
 

@@ -208,8 +208,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I,
         _U, _U, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # (x, lam, out, outer, N, inner, group, double, stream)
-    "tv_condat_launch": (_P, _P, _P, _L, _I, _L, _L, _I, _P),
+    # (x, lam, out, outer, N, inner, group, double, route, chunk,
+    #  lines_per_cta, smem | scratch bytes, scratch, prof, counts, stream)
+    "tv_condat_launch": (_P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _I, _L, _P, _P, _P, _P),
+    # (out: int64[5] = walker bytes in float and double, two resident CTAs'
+    #  shared memory, a global route's scratch)
+    "tv_condat_sizes": (_P,),
 }
 
 

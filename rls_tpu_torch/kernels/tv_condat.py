@@ -4,12 +4,22 @@ version.
 
 No Pallas kernel is replaced: the JAX package runs the algorithm as a
 vmapped ``lax.while_loop`` (``rls_tpu/models/tv_condat.py:25``), one
-masked rewrite of the whole line per event. The kernel runs one thread
-per line through the same state machine and writes each segment once, as
-it closes; the plain version, :func:`tv_condat_lines_torch`, steps every
-line's state machine at once, one event per line per step, until every
-line is done. Both take the same events in the same order with the same
+masked rewrite of the whole line per event. The plain version,
+:func:`tv_condat_lines_torch`, steps every line's state machine at once,
+one event per line per step, until every line is done. The kernel cuts
+each line into chunks walked at once, one thread a chunk, and stitches
+them exactly where a walker restarts at an (index, sign) that the next
+chunk's walker restarted at too (the source's note sets out why that is
+exact). Both take the same events in the same order with the same
 operations, so on the card they agree bit for bit.
+
+Two routes on the card, picked by :func:`plan_tv_condat`: **resident** —
+a CTA stages a tile of lines in shared memory and runs the walk, the
+stitch, the chain and the fill there — and **global** — for lines no CTA
+holds, the same phases as a launch each on global scratch.
+``prox_tv1d_condat.launches`` counts the calls that launched,
+``.route_launches`` them by route; :func:`phase_clocks` reads the resident
+route's clocks by phase and :func:`walk_counts` the stitches of a call.
 
 The wrapper :func:`prox_tv1d_condat` takes the plain version only for a
 tensor on the CPU; a CUDA tensor launches the kernel or raises.
@@ -17,12 +27,36 @@ tensor on the CPU; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 __all__ = ["prox_tv1d_condat", "tv_condat_lines_torch", "prox_tv1d_condat_torch",
-           "check_tv_condat"]
+           "check_tv_condat", "CondatPlan", "plan_tv_condat", "card_plan",
+           "resident_smem_bytes", "global_scratch_bytes", "phase_clocks", "walk_counts"]
+
+ROUTES = ("resident", "global")
+# csrc/tv_condat.cu: a walker's saved state (Walker<T>) in bytes by element
+# size, the entries of its log, a resident CTA's most threads, a global-route
+# block's threads and its most walkers a line
+WALKER_BYTES = {4: 56, 8: 72}
+LOG = 16
+MAX_THREADS = 512
+GLOBAL_THREADS = 128
+GLOBAL_WALKERS = 8192
+# the planner: chunks of CHUNK entries; a resident CTA of as few lines as
+# leave about CTAS_PER_SM CTAs an SM (measured on an H100 over chunks of 32,
+# 64 and 128 and 1 to 8 lines a CTA, at 4,096 and 16,384 lines of 256, on
+# phase 12 (b)'s prox inputs and 16 lines of 65,536)
+CHUNK = 64
+CTAS_PER_SM = 16
+# the resident route's timer (csrc/tv_condat.cu kPhases; walking: phases 1
+# and 2, the walks and their extensions; stitching: the chain and the logs
+# applied) and the run's counts (kStats)
+PHASES = ("staging", "walking", "stitching", "assembly and store", "total")
+COUNTS = ("stitched", "stitch distance sum", "stitch distance max", "long", "done",
+          "chain events")
 
 
 def _lam_groups(lam, x, axis):
@@ -165,13 +199,126 @@ def prox_tv1d_condat_torch(x, lam, axis: int):
     return out.reshape(moved.shape).movedim(-1, axis)
 
 
-def prox_tv1d_condat(x, lam, axis: int):
-    """Exact TV prox of every line of the real tensor `x` along `axis`,
-    argmin_u ½‖u − c‖² + λ TV(u) for each line c. λ is a scalar or carries a
-    prefix of x's axes before `axis` (one λ per problem). On a CUDA tensor
-    one launch of ``csrc/tv_condat.cu`` (float32 or float64); on a CPU
-    tensor the plain version. ``prox_tv1d_condat.launches`` counts the
-    kernel's launches."""
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def _walkers_bytes(W, itemsize):
+    """W walkers and their logs (index, value, tag of LOG restarts each)."""
+    return (_align16(W * WALKER_BYTES[itemsize]) + _align16(W * LOG * 4)
+            + _align16(W * LOG * itemsize) + _align16(W * LOG))
+
+
+def _mask_bytes(lines, G):
+    """Two bitmasks of G bits (the irregular and the chained walkers) a
+    line, in 32-bit words."""
+    return _align16(2 * lines * (-(-G // 32)) * 4)
+
+
+def resident_smem_bytes(L, N, G, itemsize):
+    """Shared memory of a resident CTA, as ``resident_bytes`` in
+    csrc/tv_condat.cu counts it: L lines of c and of the values (rows of
+    (N + N // 32) | 1 slots: a pad after every 32 entries), their tags (a
+    byte a slot), two bitmasks, L·G walkers and their logs, each piece
+    16-byte aligned."""
+    row = (N + N // 32) | 1
+    return (2 * _align16(L * row * itemsize) + _align16(L * row) + _mask_bytes(L, G)
+            + _walkers_bytes(L * G, itemsize))
+
+
+def global_scratch_bytes(lines, N, G, itemsize):
+    """Global scratch of the global route, as ``global_bytes`` in
+    csrc/tv_condat.cu counts it: the tags, the bitmasks, the values, the
+    walkers and their logs."""
+    return (_align16(lines * N) + _mask_bytes(lines, G) + _align16(lines * N * itemsize)
+            + _walkers_bytes(lines * G, itemsize))
+
+
+@dataclasses.dataclass(frozen=True)
+class CondatPlan:
+    """A launch of the Condat kernel: its route, the chunk of entries a
+    walker starts in and the walkers a line; on the resident route the
+    lines a CTA, its threads and shared memory; the CTAs (the global route:
+    of its walker phases) and the global route's scratch bytes."""
+
+    route: str
+    chunk: int
+    walkers: int
+    lines_per_cta: int
+    threads: int
+    smem: int
+    ctas: int
+    scratch: int
+
+
+def _pow2(n):
+    return 1 << max(0, math.ceil(math.log2(max(n, 1))))
+
+
+def plan_tv_condat(lines, N, dtype, sms=132, smem_max=232448, route=None, chunk=None,
+                   lines_per_cta=None):
+    """The plan of one call on `lines` lines of N entries of `dtype` on a
+    card of `sms` SMs with `smem_max` bytes of shared memory a block.
+
+    Chunks of CHUNK entries. The resident route takes a line whose G =
+    ⌈N / chunk⌉ walkers fit one CTA (raising the chunk to a power of two
+    that makes G ≤ MAX_THREADS) and whose tile of one line fits `smem_max`;
+    a CTA holds ⌈lines / (sms · CTAS_PER_SM)⌉ lines, fewer where their
+    threads or their tile (half of `smem_max`) do not fit, at least one. The
+    global route takes the rest, at most GLOBAL_WALKERS walkers a line (the
+    chunk raised to a power of two that keeps to it). `route`, `chunk`
+    and `lines_per_cta` force a plan (timing and tests); a forced plan that
+    does not fit raises ValueError."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"plan_tv_condat: no route {route!r}; one of {ROUTES}")
+    if lines < 1 or N < 1:
+        raise ValueError(f"plan_tv_condat: no plan for {lines} lines of {N} entries")
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"plan_tv_condat: a chunk of {chunk} entries")
+    es = torch.empty((), dtype=dtype).element_size()
+    if es not in WALKER_BYTES:
+        raise ValueError(f"plan_tv_condat: the kernel takes float32 or float64, not {dtype}")
+    base = chunk or CHUNK
+    if route != "global":
+        rc = base
+        if chunk is None and -(-N // rc) > MAX_THREADS:
+            rc = _pow2(-(-N // MAX_THREADS))
+        G = -(-N // rc)
+        if G <= MAX_THREADS and resident_smem_bytes(1, N, G, es) <= smem_max:
+            L = lines_per_cta or max(1, min(-(-lines // (sms * CTAS_PER_SM)), lines))
+            L = min(L, MAX_THREADS // G)
+            while L > 1 and resident_smem_bytes(L, N, G, es) > (
+                    smem_max if lines_per_cta else smem_max // 2):
+                L -= 1
+            if lines_per_cta and L != lines_per_cta:
+                raise ValueError(f"plan_tv_condat: {lines_per_cta} lines of {N} a CTA do not fit")
+            return CondatPlan("resident", rc, G, L, L * G, resident_smem_bytes(L, N, G, es),
+                              -(-lines // L), 0)
+        if route == "resident":
+            raise ValueError(f"plan_tv_condat: no resident plan holds a line of {N} {dtype} "
+                             f"entries in chunks of {rc} ({G} walkers, {smem_max} bytes)")
+    gc = base
+    if chunk is None and -(-N // gc) > GLOBAL_WALKERS:
+        gc = _pow2(-(-N // GLOBAL_WALKERS))
+    G = -(-N // gc)
+    if G > GLOBAL_WALKERS:
+        raise ValueError(f"plan_tv_condat: {G} walkers a line past the global route's "
+                         f"{GLOBAL_WALKERS} (chunks of {gc})")
+    return CondatPlan("global", gc, G, 0, GLOBAL_THREADS, 0, -(-lines * G // GLOBAL_THREADS),
+                      global_scratch_bytes(lines, N, G, es))
+
+
+def card_plan(lines, N, dtype, device, route=None, chunk=None, lines_per_cta=None):
+    """:func:`plan_tv_condat` on the card `device`."""
+    from .. import _build
+
+    sms, smem_max = _build.device_limits(device.index or 0)
+    return plan_tv_condat(lines, N, dtype, sms, smem_max, route, chunk, lines_per_cta)
+
+
+def _prox(x, lam, axis, route=None, chunk=None, lines_per_cta=None, prof=None, counts=None):
+    """`prox_tv1d_condat`, its plan forced where `route`, `chunk` or
+    `lines_per_cta` is given (the timing mode and the card tests only)."""
     axis = axis % x.ndim
     if x.device.type == "cpu":
         return prox_tv1d_condat_torch(x, lam, axis)
@@ -185,14 +332,54 @@ def prox_tv1d_condat(x, lam, axis: int):
     out = torch.empty_like(xc)
     if xc.numel() == 0:
         return out
+    plan = card_plan(outer * inner, N, xc.dtype, xc.device, route, chunk, lines_per_cta)
+    glob = plan.route == "global"
+    scratch = torch.empty(plan.scratch, dtype=torch.uint8, device=xc.device) if glob else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.load_library()
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.tv_condat_launch(xc.data_ptr(), lam_g.data_ptr(), out.data_ptr(), outer, N,
-                                    inner, group, int(xc.dtype == torch.float64), stream)
-    _build.check(code, f"prox_tv1d_condat ({tuple(x.shape)} along axis {axis})")
+        code = lib.tv_condat_launch(
+            xc.data_ptr(), lam_g.data_ptr(), out.data_ptr(), outer, N, inner, group,
+            int(xc.dtype == torch.float64), int(glob), plan.chunk, plan.lines_per_cta,
+            plan.scratch if glob else plan.smem, ptr(scratch), ptr(prof), ptr(counts), stream)
+    _build.check(code, f"prox_tv1d_condat ({tuple(x.shape)} along axis {axis}, {plan})")
     prox_tv1d_condat.launches += 1
+    prox_tv1d_condat.route_launches[plan.route] += 1
     return out
 
 
+def prox_tv1d_condat(x, lam, axis: int):
+    """Exact TV prox of every line of the real tensor `x` along `axis`,
+    argmin_u ½‖u − c‖² + λ TV(u) for each line c. λ is a scalar or carries a
+    prefix of x's axes before `axis` (one λ per problem). On a CUDA tensor
+    one call of ``csrc/tv_condat.cu`` (float32 or float64) on the route of
+    :func:`plan_tv_condat`; on a CPU tensor the plain version.
+    ``prox_tv1d_condat.launches`` counts the calls that launched the
+    kernel, ``.route_launches`` them by route (a call on the global route
+    enqueues six kernels)."""
+    return _prox(x, lam, axis)
+
+
 prox_tv1d_condat.launches = 0
+prox_tv1d_condat.route_launches = {"resident": 0, "global": 0}
+
+
+def phase_clocks(x, lam, axis, chunk=None, lines_per_cta=None):
+    """One call of `prox_tv1d_condat` on the resident route with its phase
+    timer on: {phase: SM clocks that CTA 0 spent in it} (``PHASES``; the
+    call is counted). Raises where no resident plan fits."""
+    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x.device)
+    _prox(x, lam, axis, route="resident", chunk=chunk, lines_per_cta=lines_per_cta, prof=prof)
+    return dict(zip(PHASES, prof.tolist()))
+
+
+def walk_counts(x, lam, axis, route=None, chunk=None, lines_per_cta=None):
+    """One call of `prox_tv1d_condat` (its plan forced as for `_prox`; the
+    call is counted) with the run's counts: {count: value} (``COUNTS``: the
+    walkers that stitched, the sum and the largest of their stitch
+    distances past their chunk's end, the walkers that stopped long and
+    that reached the line's end, the segments the chain closed itself)."""
+    counts = torch.zeros(len(COUNTS), dtype=torch.int64, device=x.device)
+    _prox(x, lam, axis, route=route, chunk=chunk, lines_per_cta=lines_per_cta, counts=counts)
+    return dict(zip(COUNTS, counts.tolist()))

@@ -29,10 +29,9 @@ __all__ = ["init_cnn_params", "cnn_denoise", "train_denoiser", "make_pnp_model",
 _NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 
-def init_cnn_params(gen: torch.Generator, channels: int = 8, device=None):
-    """He-initialised weights of the 3-layer residual CNN, drawn from `gen`
-    (on `device`, by default gen's)."""
-    device = gen.device if device is None else device
+def init_cnn_params(gen: torch.Generator, channels: int = 8, device="cuda"):
+    """He-initialised weights of the 3-layer residual CNN on `device`, drawn
+    from `gen` on gen's own device."""
 
     def he(shape, fan_in):
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
@@ -104,7 +103,7 @@ def train_denoiser(
     step's loss is appended to `losses` where a list is given."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = {k: v.requires_grad_() for k, v in init_cnn_params(gen, channels).items()}
+    params = {k: v.requires_grad_() for k, v in init_cnn_params(gen, channels, device).items()}
     opt = torch.optim.Adam(params.values(), lr=lr)
     for _ in range(steps):
         clean = _phantom_batch(rng, n, batch)

@@ -54,7 +54,18 @@ bit for bit on the card and on the CPU (lines of 1 to 3,000 entries, along
 strided and contiguous axes, float32 and float64), and refuses complex and
 half data by name; FISTA with TV(dims=0) on the card runs it once an
 iteration and holds the CPU solve to 1e-5 of max|x|, as Nuclear, LLR and
-PnP do their CPU proxes."""
+PnP do their CPU proxes. Its redesign (chunked walks stitched on (index,
+sign)) is held bit for bit to the plain version on each route forced at
+those shapes and chunks of 1, 16 and past the line
+(`test_condat_routes_bit_for_bit`), on adversarial lines (λ = 0, tiny and
+past the variation, constant, ramps, alternating ±1, piecewise constant;
+N = 1, 2, 3, 16, 17, 33, 256; `test_condat_adversarial_lines_bit_for_bit`),
+on long lines (8,192 on both routes, 65,536 against one walker a line;
+`test_condat_long_lines`), over 20 calls (`test_condat_repeats_bit_for_bit`);
+its timer and counts (`test_condat_phase_timer_and_counts`), its sizes
+against the planner (`test_condat_sizes_match_the_planner`) and ptxas's
+registers and spills (`test_condat_registers_from_the_build`) are read
+too."""
 
 import dataclasses
 import re
@@ -2539,6 +2550,173 @@ def test_condat_kernel_refuses_what_it_does_not_take(dev):
         tv_condat.prox_tv1d_condat(torch.zeros(2, 8, dtype=torch.float16, device=dev), 0.1, 1)
 
 
+def _condat_lines(kind, N, dtype, dev, lines=6, seed=0):
+    """Seeded adversarial lines (lines, N) for the Condat kernel and their
+    λs: noise at λ from 0 to huge, constant lines, ramps, alternating ±1,
+    and piecewise-constant lines plus noise (chip_smoke.py's long signals'
+    recipe)."""
+    rng = np.random.default_rng(seed + N)
+    lam = np.array([0.0, 1e-6, 0.05, 0.3, 2.0, 1e4] * (lines // 6 + 1))[:lines]
+    if kind == "noise":
+        x = rng.normal(size=(lines, N))
+    elif kind == "constant":
+        x = np.repeat(rng.normal(size=(lines, 1)), N, axis=1)
+    elif kind == "ramp":
+        x = np.arange(N)[None, :] * rng.normal(size=(lines, 1))
+    elif kind == "alternating":
+        x = np.tile(np.where(np.arange(N) % 2 == 0, 1.0, -1.0), (lines, 1))
+        lam = np.array([0.0, 1e-6, 0.5, 0.999, 1.0, 1e4] * (lines // 6 + 1))[:lines]
+    else:
+        jumps = rng.uniform(size=(lines, N)) < 2e-3
+        x = np.cumsum(rng.normal(size=(lines, N)) * jumps, axis=1)
+        x = x + 0.1 * rng.normal(size=(lines, N))
+        lam = rng.uniform(0.05, 0.5, size=lines)
+    return (torch.from_numpy(x).to(dev, dtype), torch.from_numpy(lam).to(dev, dtype))
+
+
+CONDAT_KINDS = ("noise", "constant", "ramp", "alternating", "phantom")
+
+
+def _condat_forced(x, lam, axis, route, chunk=None, lines_per_cta=None):
+    """One call on a forced plan, counted once on its route."""
+    from rls_tpu_torch.kernels import tv_condat
+
+    before = dict(tv_condat.prox_tv1d_condat.route_launches)
+    got = tv_condat._prox(x, lam, axis, route=route, chunk=chunk, lines_per_cta=lines_per_cta)
+    torch.cuda.synchronize()
+    after = tv_condat.prox_tv1d_condat.route_launches
+    assert after[route] == before[route] + 1 and sum(after.values()) == sum(before.values()) + 1
+    return got
+
+
+@pytest.mark.parametrize("route", ["resident", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape,axis", [((3, 1), 1), ((3, 2), 1), ((2, 37, 45), 1),
+                                        ((2, 37, 45), 2), ((5, 1, 3000), 2), ((4, 33), 0)])
+def test_condat_routes_bit_for_bit(dev, route, dtype, shape, axis):
+    """Each route forced at test_condat_kernel_bit_for_bit's shapes, at
+    chunks of 1, 16 and longer than the line: bit for bit the plain
+    version."""
+    from rls_tpu_torch.kernels import tv_condat
+
+    rng = np.random.default_rng(60)
+    x = torch.from_numpy(rng.normal(size=shape)).to(dev, dtype)
+    lam = torch.from_numpy(rng.uniform(0.0, 1.0, size=shape[:1])).to(dev, dtype)
+    lam[0] = 0.0
+    if axis == 0:
+        lam = lam[0]
+    want = tv_condat.prox_tv1d_condat_torch(x, lam, axis)
+    for chunk in (1, 16, shape[axis] + 3):
+        if route == "resident" and -(-shape[axis] // chunk) > 512:
+            continue
+        got = _condat_forced(x, lam, axis, route, chunk)
+        assert torch.equal(got, want), (chunk, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("route", ["resident", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", CONDAT_KINDS)
+@pytest.mark.parametrize("N", [1, 2, 3, 16, 17, 33, 256])
+def test_condat_adversarial_lines_bit_for_bit(dev, route, dtype, kind, N):
+    """λ = 0, tiny and huge (one segment a line: no restart, the sequential
+    worst case), constant lines, ramps, alternating ±1 and piecewise-constant
+    lines, N = 1, 2, 3 and one more than a chunk, on each route forced at
+    chunks of 1, 2 and 16: bit for bit the plain version."""
+    from rls_tpu_torch.kernels import tv_condat
+
+    x, lam = _condat_lines(kind, N, dtype, dev, lines=12)
+    want = tv_condat.prox_tv1d_condat_torch(x, lam, 1)
+    for chunk in (1, 2, 16):
+        got = _condat_forced(x, lam, 1, route, chunk)
+        assert torch.equal(got, want), (chunk, float((got - want).abs().max()))
+
+
+def test_condat_long_lines(dev):
+    """Long piecewise-constant lines: 4 of 8,192 on the global route (chunks
+    of 32) and the resident route (chunks of 64, one line a CTA) against the
+    plain version on the CPU, bit for bit; 16 of 65,536 (the planner's
+    global route) against one walker a line (the sequential walk)."""
+    from rls_tpu_torch.kernels import tv_condat
+
+    x, lam = _condat_lines("phantom", 8192, torch.float32, dev, lines=4)
+    want = tv_condat.prox_tv1d_condat_torch(x.cpu(), lam.cpu(), 1)
+    assert torch.equal(_condat_forced(x, lam, 1, "global", 32).cpu(), want)
+    assert torch.equal(_condat_forced(x, lam, 1, "resident", 64, 1).cpu(), want)
+    x, lam = _condat_lines("phantom", 65536, torch.float32, dev, lines=16, seed=1)
+    assert tv_condat.card_plan(16, 65536, torch.float32, x.device).route == "global"
+    got = tv_condat.prox_tv1d_condat(x, lam, 1)
+    assert torch.equal(got, _condat_forced(x, lam, 1, "global", 65536))
+
+
+def test_condat_repeats_bit_for_bit(dev):
+    """20 calls at the main path's shape (16 × 256² along axis 2, 4,096 lines
+    of 256 on the resident route) and at 16 lines of 65,536 (global): the
+    same bits every time, and the plain version's at the main shape."""
+    from rls_tpu_torch.kernels import tv_condat
+
+    x, lam = _condat_lines("phantom", 256, torch.float32, dev, lines=4096)
+    x = x.reshape(16, 256, 256)
+    lam = lam.reshape(16, 256)[:, 0].contiguous()
+    first = tv_condat.prox_tv1d_condat(x, lam, 2)
+    assert torch.equal(first, tv_condat.prox_tv1d_condat_torch(x, lam, 2))
+    y, mu = _condat_lines("phantom", 65536, torch.float32, dev, lines=16)
+    first_long = tv_condat.prox_tv1d_condat(y, mu, 1)
+    for _ in range(20):
+        assert torch.equal(tv_condat.prox_tv1d_condat(x, lam, 2), first)
+        assert torch.equal(tv_condat.prox_tv1d_condat(y, mu, 1), first_long)
+
+
+def test_condat_phase_timer_and_counts(dev):
+    """The resident route's timer gives CTA 0's clocks by phase, each
+    positive, their sum within the total; the run's counts cover every
+    walker (stitched, long or done) at the main shape, with stitch
+    distances of at most the line."""
+    from rls_tpu_torch.kernels import tv_condat
+
+    x, lam = _condat_lines("phantom", 256, torch.float32, dev, lines=4096)
+    clocks = tv_condat.phase_clocks(x, lam, 1)
+    assert tuple(clocks) == tv_condat.PHASES
+    parts = [clocks[p] for p in tv_condat.PHASES[:-1]]
+    assert all(c > 0 for c in parts) and sum(parts) <= clocks["total"], clocks
+    plan = tv_condat.card_plan(4096, 256, torch.float32, x.device)
+    for route in ("resident", "global"):
+        counts = tv_condat.walk_counts(x, lam, 1, route=route, chunk=plan.chunk)
+        assert counts["stitched"] + counts["long"] + counts["done"] == 4096 * plan.walkers, counts
+        assert 0 <= counts["stitch distance max"] < 256, counts
+        assert counts["stitched"] > 0.5 * 4096 * plan.walkers, counts
+
+
+def test_condat_sizes_match_the_planner(dev):
+    """The kernel's own counts of a walker, of two resident CTAs' shared
+    memory and of a global route's scratch are the planner's."""
+    import ctypes
+
+    from rls_tpu_torch import _build
+    from rls_tpu_torch.kernels import tv_condat
+
+    out = (ctypes.c_longlong * 5)()
+    assert _build.load_library().tv_condat_sizes(out) == 0
+    assert list(out) == [tv_condat.WALKER_BYTES[4], tv_condat.WALKER_BYTES[8],
+                         tv_condat.resident_smem_bytes(32, 256, 8, 4),
+                         tv_condat.resident_smem_bytes(32, 256, 8, 8),
+                         tv_condat.global_scratch_bytes(16, 65536, 2048, 4)]
+
+
+def test_condat_registers_from_the_build(dev):
+    """ptxas's account of csrc/tv_condat.cu: both routes' kernels in float
+    and double, within 128 registers (512 threads a resident CTA; 4 blocks
+    of 128 an SM on the global route), the global route's six phases each a
+    kernel of its own, with no spills."""
+    from rls_tpu_torch import _build
+
+    report = _build.ptxas_report("tv_condat.cu")
+    kernels = {k: v for k, v in report.items() if "tv_condat_" in k}
+    assert len(kernels) == 2 + 2 * 6, sorted(report)
+    for name, v in kernels.items():
+        assert v["registers"] <= 128, (name, v)
+        assert v["spill_stores"] == 0 and v["spill_loads"] == 0, (name, v)
+
+
 def test_tv_integer_dims_solve_on_the_card_holds_its_cpu_result(dev):
     """FISTA with TV(dims=0) through solve_batched_fast's composed fallback on
     the card: one Condat launch an iteration, the CPU solve's result to
@@ -2575,7 +2753,8 @@ def test_regularizers_of_the_last_slice_on_the_card(dev):
     ):
         _close(reg.prox(V.to(dev)).cpu(), reg.prox(V), 1e-5)
         _close(reg.value(V.to(dev)).cpu(), reg.value(V), 1e-5)
-    params = denoisers.init_cnn_params(torch.Generator().manual_seed(0), channels=4)
+    params = denoisers.init_cnn_params(torch.Generator().manual_seed(0), channels=4,
+                                       device="cpu")
     img = torch.from_numpy(rng.uniform(size=(2, 256)).astype(np.float32))
     out = {}
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):

@@ -160,7 +160,7 @@ def test_train_denoiser_loss_falls():
     rng = np.random.default_rng(99)
     clean = tden._phantom_batch(rng, N, 4)
     noisy = torch.from_numpy(clean + rng.normal(0, 0.1, clean.shape).astype(np.float32))
-    p0 = tden.init_cnn_params(torch.Generator().manual_seed(1), channels=4)
+    p0 = tden.init_cnn_params(torch.Generator().manual_seed(1), channels=4, device="cpu")
 
     def mse(q):
         return float(torch.mean((tden.cnn_denoise(q, noisy) - torch.from_numpy(clean)) ** 2))
