@@ -195,6 +195,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      checkpoint saved after 25 iterations and resumed (bit for bit),
      create_linear_solver by name (one fused launch, bit for bit) and
      profiling.trace writing a Chrome trace;
+ 13. rls_tpu_torch.parallel on a mesh of the cards, or of the one card
+     named twice ([cuda:0, cuda:0], two shards in turn on its stream),
+     each sharded call with the launch counters set to 0 just before it
+     and read just after (its kernel once a shard, no other), its wall
+     time beside the unsharded call's and the card's name and power
+     limit: solve_fista_tv_fused_sharded on the flagship (64 × 256², 2 ×
+     32) and solve_admm_tv_fused_sharded on BASELINE #3 (16 distinct
+     256² phantoms), held bit for bit to the unsharded kernel on the
+     whole batch; solve_cgnr_fused_sharded on
+     cgnr_l2_dense_1024x512_b64, solve_pgm_dense_fused_sharded on
+     fista_l1_dense_cs_b16_fused and solve_pdhg_fused_sharded on
+     pdhg_tv8_deblur256_b16_fused, each with the plans of the whole batch
+     and of a shard printed, bit for bit where they agree, else within
+     DENSE_SPREAD × the unsharded kernel's own spread under b·(1 + 2⁻²³)
+     (DENSE_FLOOR) and TOL_FUSED_MAX of max|x|; solve_batched_sharded on a
+     composed FISTA-L1 (the 1024 × 512 cell's system, 100 iterations) and
+     a CGNR on the 1024 × 512 cell's rows in one block per mesh entry
+     (solve_batched, and solve_batched_fast's fallback naming the dense
+     check's reason), each held to its unsharded solve at that bar and to
+     float64 at TOL_PARITY and TOL_RESIDUAL;
+ 14. every examples/torch/*.py with --device cuda in a child process, four
+     at a time, each of which must exit 0, with its wall time;
   7. the kernel table as one JSON line (launches on the main path, error
      against the plain version, kernel and plain times, the least time
      the card could take, `bound_ms`, and a library yardstick where one
@@ -203,7 +225,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the two dense PGM rows), then the result line {"ok": true,
      "device": {...}}.
 
-Phases 3h and 3i run after 3g, phases 8–12 after phase 6; the table and
+Phases 3h and 3i run after 3g, phases 8–14 after phase 6; the table and
 the result line come last. The flagship problem is rebuilt with numpy
 exactly as bench.py:36-68 builds it, the other cells as
 tools/bench_suite.py:79-102, :104-125, :127-151, :153-194, :204-306 and
@@ -3320,6 +3342,257 @@ def regularizer_phase(dev, flagship, B_flag, child):
     return launches, err, plain_ms, ms, bnd
 
 
+def shard_mesh(dev):
+    """Phase 13's mesh: every card, or this card twice where there is one."""
+    import torch
+
+    from rls_tpu_torch.parallel import make_mesh
+
+    count = torch.cuda.device_count() if dev.type == "cuda" else 1
+    devices = [torch.device("cuda", i) for i in range(count)] if count > 1 else [dev, dev]
+    return make_mesh(devices=devices)
+
+
+def wall_ms(fn, reps):
+    """Mean host milliseconds of `fn()` over `reps` runs, from a
+    synchronized start to a synchronized end (every card of the mesh)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def sharded_timing(name, sharded, whole, reps, card):
+    """Wall times of the sharded and the unsharded call, in turns (whole,
+    sharded, sharded, whole), after one warm-up of each; printed with the
+    card's name and power limit. Returns (sharded ms, unsharded ms)."""
+    whole(), sharded()
+    w1 = wall_ms(whole, reps)
+    s1 = wall_ms(sharded, reps)
+    s2 = wall_ms(sharded, reps)
+    w2 = wall_ms(whole, reps)
+    ms, ms_whole = (s1 + s2) / 2, (w1 + w2) / 2
+    print(f"{name}: sharded {ms:.3f} ms, unsharded {ms_whole:.3f} ms wall per call "
+          f"(sharded / unsharded {ms / ms_whole:.3f}; {card})")
+    return ms, ms_whole
+
+
+def parallel_phase(dev, flagship, B_flag, systems, pdhg_solver, draws):
+    """Phase 13: rls_tpu_torch.parallel on the card. The mesh is every
+    card, or this card twice where there is one (two shards in turn on its
+    stream). Each sharded call runs with the launch counters set to 0 just
+    before it and read just after: its kernel once per shard and no other.
+    The fused TV solves (the flagship, BASELINE #3) are held bit for bit to
+    the unsharded kernel on the whole batch; the dense and PDHG solves bit
+    for bit where the shard's printed plan is the whole batch's, else to
+    the kernel-vs-plain bar (DENSE_SPREAD × the unsharded kernel's own
+    spread under b·(1 + 2⁻²³), DENSE_FLOOR; TOL_FUSED_MAX of max|x|); the
+    composed FISTA-L1 through solve_batched_sharded and a row-sharded CGNR
+    (the 1024 × 512 cell's rows in as many blocks as the mesh has entries)
+    to their unsharded solve at that bar and to float64 at TOL_PARITY and
+    TOL_RESIDUAL. Prints the wall time of each sharded call beside the
+    unsharded one. Returns {case: (sharded ms, unsharded ms)}."""
+    import torch
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch import _build, parallel
+    from rls_tpu_torch.kernels import admm_tv_fused as admm_fused
+    from rls_tpu_torch.kernels import cgnr_fused
+    from rls_tpu_torch.kernels import fista_tv_fused as fused
+    from rls_tpu_torch.kernels import pdhg_fused as pdf
+    from rls_tpu_torch.kernels import pgm_dense_fused as pd
+
+    card = card_line()
+    mesh = shard_mesh(dev)
+    shards = mesh.size
+    print(f"phase 13 mesh: {[str(d) for d in mesh.devices.flat]} on axis 'batch' "
+          f"({shards} shards; {card})")
+    times = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def counted(name, fn, kernel):
+        launch_counts(reset=True)
+        out = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        print(f"launches ({name}): {got}")
+        want = {kernel: shards} if kernel else {}
+        require(got == {**{k: 0 for k in got}, **want},
+                f"{name}: expected the launches {want} and no others")
+        return out
+
+    def bar_of(whole, B):
+        """The kernel-vs-plain bar, from the unsharded call's own spread."""
+        want, ulp = whole(B), whole(B * (1.0 + 2.0**-23))
+        spread = float(torch.linalg.norm(ulp - want) / torch.linalg.norm(want))
+        return max(DENSE_SPREAD * spread, DENSE_FLOOR), spread
+
+    def held(name, got, want, bitwise, B, whole):
+        same = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        norm = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        print(f"{name}: sharded against unsharded: bitwise {same}, max {err:.3e}, rel. 2-norm "
+              f"{norm:.3e} (max|x| {float(want.abs().max()):.3f})")
+        require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+        if bitwise:
+            require(same, f"{name}: the sharded solve is not bit for bit the unsharded one")
+            return
+        bar, spread = bar_of(whole, B)
+        print(f"{name}: the unsharded solve under b(1 + 2^-23): rel. 2-norm {spread:.3e} "
+              f"(bar {bar:.3e})")
+        require(norm <= bar and err <= TOL_FUSED_MAX * float(want.abs().max()),
+                f"{name}: the sharded solve disagrees: max {err:.3e}, rel. 2-norm {norm:.3e}")
+
+    def fused_case(name, wrapper, whole, solver, B, kernel, plan_of, bitwise=None):
+        k = B.shape[1] // shards
+        plan, plan_shard = plan_of(B.shape[1]), plan_of(k)
+        print(f"{name}: plan of the whole batch ({B.shape[1]}): {plan}")
+        print(f"{name}: plan of a shard ({k}): {plan_shard}")
+        got = counted(f"{name} sharded", lambda: wrapper(solver, B, mesh), kernel)
+        want = whole(solver, B)
+        held(name, got, want, plan == plan_shard if bitwise is None else bitwise, B,
+             lambda b: whole(solver, b))
+        times[name] = sharded_timing(name, lambda: wrapper(solver, B, mesh),
+                                     lambda: whole(solver, B), 3, card)
+
+    # the flagship (64 × 256², FISTA-TV, 50 × 10) and BASELINE #3 (16 ×
+    # 256² distinct phantoms, ADMM-TV 12 × 6 × 8): bit for bit
+    taps = flagship.A.taps_hw()
+
+    def tv_plan(k):
+        return fused.plan_on_card(torch.empty((k, N, N), device=dev), taps, "fista")[0]
+
+    fused_case(f"fista_tv (flagship, {B_flag.shape[1]} x {N}^2)",
+               parallel.solve_fista_tv_fused_sharded,
+               rtt.solve_pgm_tv_fused, flagship, B_flag, "fista_tv_fused", tv_plan, True)
+    admm = build_admm(ADMM256, dev)
+    B_admm = admm.A.mv(t(phantoms(*ADMM256[:2]))).T.contiguous()
+
+    def admm_plan(k):
+        n = ADMM256[0]
+        return admm_fused.plan_on_card(torch.empty((k, n, n), device=dev), taps)[0]
+
+    fused_case("admm_tv (BASELINE #3, %d x %d^2)" % ADMM256[1::-1],
+               parallel.solve_admm_tv_fused_sharded,
+               rtt.solve_admm_tv_fused, admm, B_admm, "admm_tv_fused", admm_plan, True)
+
+    # the dense cells and the PDHG cell: bit for bit where the plans agree
+    a1k, b1k = map(t, systems["cgnr1k"])
+    cgnr = rtt.CGNR.create(rtt.DenseOperator(a1k, device=dev),
+                           reg=rtt.L2Regularization(CGNR1K_LAM), iterations=CGNR1K_ITERS)
+
+    def cgnr_plan(k):
+        return cgnr_fused.plan_cgnr(*a1k.shape, k, *_build.device_limits(dev.index or 0))
+
+    fused_case("cgnr_l2_dense_1024x512_b64", parallel.solve_cgnr_fused_sharded,
+               rtt.solve_cgnr_fused, cgnr, b1k, "cgnr_fused", cgnr_plan)
+    a2b, b2b = map(t, systems["lasso"])
+    lasso = rtt.FISTA.create(rtt.DenseOperator(a2b, device=dev),
+                             reg=rtt.L1Regularization(LASSO_LAM), iterations=LASSO_ITERS,
+                             rho=0.95 / float(np.linalg.norm(systems["lasso"][0], 2)) ** 2,
+                             track_residual=False)
+
+    def lasso_plan(k):
+        return pd.card_plan(b2b[:, :k].T, a2b)
+
+    fused_case("fista_l1_dense_cs_b16_fused", parallel.solve_pgm_dense_fused_sharded,
+               rtt.solve_pgm_dense_fused, lasso, b2b, "pgm_dense_fused", lasso_plan)
+    u = t(draws["admm"])
+    B_pdhg = pdhg_solver.A.mv(u)[:, None].repeat(1, PDHG_BATCH).contiguous()
+    taps_p = pdhg_solver.A.taps_hw()
+
+    def pdhg_plan(k):
+        return pdf.plan_on_card(torch.empty((k, PDHG_N, PDHG_N), device=dev), taps_p, "tv8")[0]
+
+    fused_case("pdhg_tv8_deblur256_b16_fused", parallel.solve_pdhg_fused_sharded,
+               rtt.solve_pdhg_fused, pdhg_solver, B_pdhg, "pdhg_fused", pdhg_plan)
+
+    # the composed path: FISTA-L1 on the 1024 × 512 cell's system (100
+    # iterations) through solve_batched_sharded, and a row-sharded CGNR of
+    # that cell through solve_batched and solve_batched_fast's fallback
+    x64_of = {}
+    rho = 0.95 / float(np.linalg.norm(systems["cgnr1k"][0], 2)) ** 2
+
+    def fista_l1(A):
+        return rtt.FISTA.create(rtt.DenseOperator(A, device=dev), reg=rtt.L1Regularization(1e-4),
+                                iterations=100, rho=rho, rel_tol=0.0, track_residual=False)
+
+    fista = fista_l1(a1k)
+    name = "composed FISTA-L1 1024x512 b64"
+    got = counted(f"{name} sharded", lambda: parallel.solve_batched_sharded(fista, b1k, mesh),
+                  None)
+    held(name, got, rtt.solve_batched(fista, b1k), False, b1k,
+         lambda b: rtt.solve_batched(fista, b))
+    x64_of[name] = rtt.solve_batched(fista_l1(a1k.double()), b1k[:, :4].double())
+    dense_parity(name, got, b1k, a1k.double(), x64_of[name])
+    times[name] = sharded_timing(name, lambda: parallel.solve_batched_sharded(fista, b1k, mesh),
+                                 lambda: rtt.solve_batched(fista, b1k), 1, card)
+
+    rows_mesh = parallel.make_mesh(axis_names=("rows",), devices=list(mesh.devices.flat))
+    op_rows = parallel.row_sharded_operator(a1k, rows_mesh, axis="rows")
+    cg_rows = rtt.CGNR.create(op_rows, reg=rtt.L2Regularization(CGNR1K_LAM),
+                              iterations=CGNR1K_ITERS)
+    name = f"row-sharded CGNR 1024x512 b64 ({len(op_rows.blocks)} row blocks)"
+    got = counted(name, lambda: rtt.solve_batched(cg_rows, b1k), None)
+    whole = lambda b: rtt.solve_batched(cgnr, b)  # noqa: E731
+    held(name, got, whole(b1k), False, b1k, whole)
+    ds = rtt.DirectSolver.create(rtt.DenseOperator(a1k.double(), device=dev),
+                                 reg=rtt.L2Regularization(CGNR1K_LAM))
+    dense_parity(name, got, b1k, a1k.double(), rtt.solve_batched_unrolled(ds, b1k[:, :4].double()))
+    fast = counted(f"{name} through solve_batched_fast", lambda: fallback(
+        name, lambda: rtt.solve_batched_fast(cg_rows, b1k),
+        "cgnr_dense: fused CGNR path requires a dense operator A"), None)
+    require(bool(torch.isfinite(fast).all()), f"{name}: solve_batched_fast gave non-finite values")
+    times[name] = sharded_timing(name, lambda: rtt.solve_batched(cg_rows, b1k),
+                                 lambda: whole(b1k), 1, card)
+    return times
+
+
+def examples_phase(dev):
+    """Phase 14: every examples/torch/*.py with --device cuda in a child
+    process (four at a time), each of which must exit 0; each one's wall
+    time printed."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "examples", "torch", "[!_]*.py")))
+    require(len(paths) == 13, f"phase 14: {len(paths)} torch examples, not 13")
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "2"}
+    pending, running, failed = list(paths), [], []
+    t0 = time.perf_counter()
+    try:
+        while pending or running:
+            while pending and len(running) < 4:
+                path = pending.pop(0)
+                proc = subprocess.Popen([sys.executable, path, "--device", dev.type], env=env,
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)
+                running.append((path, proc, time.perf_counter()))
+            path, proc, start = running[0]
+            try:
+                out = proc.communicate(timeout=240)[0]
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out = proc.communicate()[0]
+            running.pop(0)
+            print(f"example {os.path.basename(path)}: exit {proc.returncode}, "
+                  f"{time.perf_counter() - start:.1f} s")
+            if proc.returncode != 0:
+                failed.append(os.path.basename(path))
+                print(out[-3000:])
+    finally:
+        for _, proc, _ in running:
+            proc.kill()
+            proc.communicate()
+    print(f"phase 14: {len(paths)} examples in {time.perf_counter() - t0:.1f} s")
+    require(not failed, f"phase 14: examples failed: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -3684,7 +3957,17 @@ def main() -> int:
     t12 = time.perf_counter()
     condat = regularizer_phase(dev, solver, B, condat_child)
     print(f"phase 12: {time.perf_counter() - t12:.1f} s")
-    print(f"phases 3-6, 8-12: {time.perf_counter() - t_start:.1f} s")
+
+    # 13. rls_tpu_torch.parallel: batch shards and row blocks on the card
+    t13 = time.perf_counter()
+    parallel_phase(dev, solver, B, systems, pdhg_solver, draws)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
+
+    # 14. the torch examples, each in a child process
+    t14 = time.perf_counter()
+    examples_phase(dev)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
+    print(f"phases 3-6, 8-14: {time.perf_counter() - t_start:.1f} s")
 
     # 7. the kernel table, then the result line
     # the least time for each kernel's timed call: every input read once,

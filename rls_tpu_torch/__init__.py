@@ -38,13 +38,15 @@ Names follow the JAX package ``rls_tpu``, which stays the reference. This
 package imports ``torch`` and never ``jax``. Operators are built on the
 card unless the caller passes ``device="cpu"``.
 
-Every public name of ``rls_tpu`` is bound here, less the subpackage
-``parallel`` (not yet ported) and the names of ``EXCLUDED``, which the
-port leaves out: the split-real solver exists for TPU runtimes without
-complex dtypes, and the Jacobi SVD for the TPU's bf16 matrix unit.
+Every public name of ``rls_tpu`` is bound here, less the names of
+``EXCLUDED``, which the port leaves out: the split-real solver exists for
+TPU runtimes without complex dtypes, and the Jacobi SVD for the TPU's bf16
+matrix unit. ``parallel`` shards a batch of problems over CUDA devices
+(and over processes on ``torch.distributed``) and a dense operator's rows
+over devices.
 """
 
-from . import deprecated, ops, utils
+from . import deprecated, ops, parallel, utils
 from .callbacks import CompareSolutionCallback, StoreConvergenceCallback, StoreSolutionCallback
 
 from .kernels.admm_tv_fused import solve_admm_tv_fused
@@ -279,5 +281,6 @@ __all__ = [
     "prox",
     "regularization",
     "ops",
+    "parallel",
     "utils",
 ]

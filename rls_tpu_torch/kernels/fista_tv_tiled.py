@@ -256,9 +256,9 @@ def _launch_tiles(x0hat, scal, tab, t2tab, taps, tile_rows, method, restart, rel
     state = torch.zeros((2, B, 8), dtype=f32, device=dev)
     counts = torch.empty((B, 2), dtype=torch.int32, device=dev)
     dynamic = restart != "none" or rel_tol is not None
-    stream = torch.cuda.current_stream().cuda_stream
     # the last launch only settles the last iteration's counts
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
         for it in range(iterations + int(dynamic)):
             code = lib.fista_tv_tiled_launch(
                 x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), t2tab.data_ptr(),

@@ -304,8 +304,9 @@ def test_time_solver_keys_and_trace_file(tmp_path, problem):
 
 
 # rls_tpu's public names (dir(rls_tpu) less the leading underscores) and the
-# six the port leaves out (ROADMAP.md "What not to port"); rls_tpu.parallel
-# is not yet ported
+# six the port leaves out (ROADMAP.md "What not to port"); the subpackage
+# rls_tpu.parallel, which rls_tpu binds only once imported, is held apart
+# in the test below
 JAX_PUBLIC = (
     "ADMM", "AutoScaledRegularization", "CGNR", "CompareSolutionCallback",
     "ConvolutionOperator", "DaxConstrained", "DaxKaczmarz", "DenseOperator",
@@ -339,8 +340,10 @@ EXCLUDED = ("SplitRealSolver", "backend_supports_complex", "build_split_real_sol
 
 def test_export_surface_covers_rls_tpu():
     """dir(rls_tpu_torch) covers rls_tpu's public names less exactly the six
-    excluded ones and the parallel subpackage; __all__ names only what is
-    bound."""
+    excluded ones; rtt.parallel is a module with rls_tpu.parallel's
+    __all__; __all__ names only what is bound."""
+    import rls_tpu.parallel as jax_parallel
+
     public = {n for n in dir(rt) if not n.startswith("_")}
     extra = public - set(JAX_PUBLIC)  # submodules other tests imported, e.g. parallel
     assert all(isinstance(getattr(rt, n), types.ModuleType) for n in extra), extra
@@ -351,6 +354,8 @@ def test_export_surface_covers_rls_tpu():
     assert missing == sorted(EXCLUDED), missing
     assert not port & set(EXCLUDED)
     assert all(hasattr(rtt, n) for n in rtt.__all__)
+    assert isinstance(rtt.parallel, types.ModuleType)
+    assert rtt.parallel.__all__ == jax_parallel.__all__
     for name in ("utils", "deprecated", "denoisers", "prox", "regularization", "callbacks",
-                 "registry"):
+                 "registry", "parallel"):
         assert name in rtt.__all__ and isinstance(getattr(rtt, name), types.ModuleType)

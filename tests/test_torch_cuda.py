@@ -2763,3 +2763,81 @@ def test_regularizers_of_the_last_slice_on_the_card(dev):
             reg = rtt.PnPRegularization(0.4, model=model, shape=(16, 16))
             out[str(device)] = reg.prox(img.to(device)).cpu()
     _close(out[str(dev)], out["cpu"], 1e-5)
+
+
+def _sharded_cases(dev):
+    """The five fused wrappers of rtt.parallel with small problems of their
+    kernels: (sharded wrapper, unsharded wrapper, kernel wrapper, solver, B)."""
+    from rls_tpu_torch import parallel
+
+    rng = np.random.default_rng(63)
+    op = rtt.SeparableConvOperator.from_taps(*TAPS, (24, 20), device=dev)
+    imgs = torch.from_numpy(rng.normal(size=(8, 480)).astype(np.float32)).to(dev)
+    B_img = op.mv(imgs).T.contiguous()
+    A = torch.from_numpy((rng.normal(size=(48, 24)) / 7).astype(np.float32)).to(dev)
+    B_d = (A @ torch.from_numpy(rng.normal(size=(24, 8)).astype(np.float32)).to(dev)).contiguous()
+    dense = rtt.DenseOperator(A, device=dev)
+    tv = rtt.TVRegularization(1e-3, shape=(24, 20), iterations_tv=3)
+    return (
+        (parallel.solve_fista_tv_fused_sharded, rtt.solve_pgm_tv_fused, fused.fista_tv_fused,
+         rtt.FISTA.create(op, reg=tv, iterations=5, rho=0.9, rel_tol=0.0,
+                          track_residual=False), B_img),
+        (parallel.solve_admm_tv_fused_sharded, rtt.solve_admm_tv_fused, admm_fused.admm_tv_fused,
+         rtt.ADMM.create(op, reg=tv, iterations=3, iterations_cg=3, unroll_cg=True, rho=0.1),
+         B_img),
+        (parallel.solve_cgnr_fused_sharded, rtt.solve_cgnr_fused, cgnr.cgnr_fused,
+         rtt.CGNR.create(dense, reg=rtt.L2Regularization(1e-3), iterations=10), B_d),
+        (parallel.solve_pgm_dense_fused_sharded, rtt.solve_pgm_dense_fused,
+         pgm_dense.pgm_dense_fused,
+         rtt.FISTA.create(dense, reg=rtt.L1Regularization(1e-3), iterations=8, rho=0.1,
+                          track_residual=False), B_d),
+        (parallel.solve_pdhg_fused_sharded, rtt.solve_pdhg_fused, pdhg.pdhg_fused,
+         rtt.PDHG.create(op, reg=rtt.TVRegularization(1e-3, shape=(24, 20)), iterations=5),
+         B_img),
+    )
+
+
+@pytest.mark.parametrize("case", range(5), ids=["fista_tv", "admm_tv", "cgnr", "pgm_dense",
+                                                 "pdhg"])
+def test_parallel_fused_shards_on_the_card(dev, case):
+    """rtt.parallel's fused wrappers on a mesh naming the card twice: the
+    kernel launches once per shard (in turn on the card's stream), and the
+    result is the unsharded call's, bit for bit (per-problem work does not
+    depend on the batch at these shapes)."""
+    from rls_tpu_torch import parallel
+
+    sharded, whole, kernel, solver, B = _sharded_cases(dev)[case]
+    mesh = parallel.make_mesh(devices=[dev, dev])
+    before = kernel.launches
+    got = sharded(solver, B, mesh)
+    assert kernel.launches - before == 2
+    assert got.device == dev and torch.equal(got, whole(solver, B))
+
+
+def test_parallel_composed_and_row_sharded_on_the_card(dev):
+    """solve_batched_sharded (FISTA-L1, two shards on the card) equals the
+    unsharded solve to 1e-5 of max|x|; a CGNR on the rows of A in two blocks
+    on the card holds the dense CGNR to 1e-5 of max|x|, and
+    solve_batched_fast takes the composed path with the dense check's
+    reason."""
+    import warnings
+
+    from rls_tpu_torch import parallel
+
+    rng = np.random.default_rng(64)
+    A = torch.from_numpy((rng.normal(size=(64, 24)) / 8).astype(np.float32)).to(dev)
+    B = (A @ torch.from_numpy(rng.normal(size=(24, 6)).astype(np.float32)).to(dev)).contiguous()
+    mesh = parallel.make_mesh(devices=[dev, dev])
+    s = rtt.FISTA.create(rtt.DenseOperator(A, device=dev), reg=rtt.L1Regularization(1e-4),
+                         iterations=30)
+    _close(parallel.solve_batched_sharded(s, B, mesh).cpu(), rtt.solve_batched(s, B).cpu(), 1e-5)
+    rows = parallel.make_mesh(axis_names=("rows",), devices=[dev, dev])
+    op = parallel.row_sharded_operator(A, rows, axis="rows")
+    cg = rtt.CGNR.create(op, reg=rtt.L2Regularization(1e-3), iterations=24)
+    want = rtt.solve_batched(rtt.CGNR.create(rtt.DenseOperator(A, device=dev),
+                                             reg=rtt.L2Regularization(1e-3), iterations=24), B)
+    _close(rtt.solve_batched(cg, B).cpu(), want.cpu(), 1e-5)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _close(rtt.solve_batched_fast(cg, B).cpu(), want.cpu(), 1e-5)
+    assert any("requires a dense operator A" in str(w.message) for w in caught)
