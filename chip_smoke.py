@@ -83,16 +83,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernel and plain version side by side), each with its plan printed
      first (route, CTAs per slice, row bands, rounds of coils, shared
      memory, clusters resident at once) and on its resident route by its
-     route counter, on the 8 SENSE slices of 128² with 6 coils, and the
-     global routes of both (one CTA per slice) on 2 slices of 256 × 128
-     with 6 coils, held alike and each required to run once on that
-     route; the sha256 of every output at these power-of-two shapes beside
-     the parent tree's (PARENT_FFT_SHA256), required equal (an input
-     whose sha256 is not the parent's fails the run: the digests must be
-     recorded anew); then the mixed-radix FFT at sides with odd factors
+     route counter, on the 8 SENSE slices of 128² with 6 coils, the split
+     routes of both (a coil's spectrum over a team of CTAs) on 2 slices of
+     256 × 128 and their global routes (one CTA per slice) on 2 slices of
+     512², 6 coils, held alike and each required to run once on that
+     route; the sha256 of every output at these power-of-two shapes and
+     of rows 9 and 10 at 8 × 192² beside the parent tree's
+     (PARENT_FFT_SHA256), required equal but for row 10's outputs that
+     left the parent's route (FFT_DIGEST_MOVED: printed); an input whose
+     sha256 is not the parent's fails the run: the digests must be
+     recorded anew; then the mixed-radix FFT at sides with odd factors
      (MIXED_L1DFT, MIXED_SENSE): row 8 at 16 × 320² (resident, c = 16), 4
      × 640² (global) and 2 × 97 × 128 (a prime side, global), rows 9 and
-     10 at 8 × 64 × 192 (resident) and 8 × 192² (global), 6 coils, each
+     10 at 8 × 64 × 192 (resident) and 8 × 192² (split), 6 coils, each
      plan printed, bit for bit (row 10: its spread and live CG steps) on
      its route by the route counter, each timed in turns with its plain
      version and printed with its bound, with the composed solve's device
@@ -122,7 +125,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      route counter; on the mixed-radix FFT the same settings at other
      sides: fista_l1_cs_dft320_b16 (resident route, also composed),
      fista_l21_sense192_6coil_b8 and splitbregman_sense192_6coil_b8 (the
-     latter also composed; both one launch on the global route); each
+     latter also composed; both one launch on the split route); each
      cell's composed solve is timed (wall, and device time by
      torch.profiler) as its kernel's
      yardstick;
@@ -248,8 +251,9 @@ tools/bench_suite.py:79-102, :104-125, :127-151, :153-194, :204-306 and
 
     python3 chip_smoke.py --digest-fft [ROOT]
 
-runs phase 3h's power-of-two cases on the rls_tpu_torch under ROOT and
-prints the sha256 of each input and kernel output as one JSON line: what
+runs phase 3h's power-of-two cases and rows 9 and 10 at 8 × 192² on the
+rls_tpu_torch under ROOT, whatever routes its planners take, and prints
+the sha256 of each input and kernel output as one JSON line: what
 PARENT_FFT_SHA256 records of the parent tree.
 
     python3 chip_smoke.py --time-cgnr [ROOT]
@@ -270,8 +274,10 @@ kernel's clocks per phase where ROOT's package has them.
 
 does the same for the fused SplitBregman kernel (row 10): BASELINE #4's
 8 slices, 64 slices, 1 and 3 coils, rows 8 and 9 as controls, and the
-cell through solve_batched_fast, with each plan and the kernel's clocks
-per phase where ROOT's package has them.
+cell through solve_batched_fast, then the 192² cell in turns with its
+composed solve, the split shapes and the forced plans (as --time-sense),
+with each plan and the kernel's clocks per phase where ROOT's package has
+them.
 
     python3 chip_smoke.py --time-pdhg [ROOT]
 
@@ -301,11 +307,14 @@ MIXED_SENSE), the kernels alone, three readings each, with each plan.
 
 does the same for the fused FISTA-L21-SENSE kernel (row 9): the SENSE
 cell's 8 slices of 128² with 6 coils (80 iterations), 64 slices, 1 slice,
-8 slices with 1, 3 and 17 coils, 4 slices of 256² on the global route;
-the kernel in turns with the cell's composed solve_batched_unrolled, both
-with their device time by torch.profiler; rows 8 and 10 as controls;
-with each plan and the kernel's clocks per phase where ROOT's package has
-them.
+8 slices with 1, 3 and 17 coils, 4 slices of 256²; the kernel in turns
+with the cell's composed solve_batched_unrolled, both with their device
+time by torch.profiler, and the same at the 192² cell; 8 slices at each
+shape the split route takes (SPLIT_SHAPES) and a sweep of forced plans
+(teams and coils a round: SPLIT_SWEEP at 192², SPLIT_SWEEP_128 at 128²);
+rows 8 and 10 as controls; with each plan and the kernel's clocks per
+phase where ROOT's package has them. ``--time-splitbregman`` times the
+same 192² cell, shapes and sweep for row 10.
 
     python3 chip_smoke.py --time-admm [ROOT]
 
@@ -476,11 +485,12 @@ SB_LAM, SB_TV, SB_RHO, SB_SCHED, SB_TOL = 1e-4, 5, 0.01, (4, 8, 8), 1e-5
 # W) and the route its planner takes; rows 9 and 10 at (H, W) with SENSE_C
 # coils and SENSE_SLICES slices. 320² fits a cluster only at c = 16 (20-row
 # bands), 640² and the prime 97 × 128 no cluster; 64 × 192 a coil's padded
-# spectrum in one CTA, 192² not. Each case is timed under the key
+# spectrum in one CTA, 192² not: there each coil's spectrum is split over a
+# team of 3 CTAs (the split route). Each case is timed under the key
 # "{kernel} {H}x{W}"; the kernel table reads 320x320 and 192x192
 MIXED_L1DFT = (((CS_BATCH, 320, 320), "resident"), ((4, 640, 640), "global"),
                ((2, 97, 128), "global"))
-MIXED_SENSE = (((64, 192), "resident"), ((192, 192), "global"))
+MIXED_SENSE = (((64, 192), "resident"), ((192, 192), "split"))
 # the kernel table's rows of the mixed-radix FFT, and phase 9's cells at
 # their shapes (launches and the composed solve)
 MIXED_ROWS = ("fista_l1_dft_fused (320², mixed radix)", "sense_fused (192², mixed radix)",
@@ -503,13 +513,36 @@ PARENT_FFT_SHA256 = {
     "splitbregman_fused[128², 6 coils, 8 slices, 4×8×8, TV 5]": (
         "ced28527da67d765ca5380d081f7764ba1187578529d85fac2a8cc40203b17b2",
         "317a3bcc765ff76e511e552773cdeb9a4892821735eac84980306339794b2e8b"),
-    "sense_fused[global route, 256×128, 6 coils, 2 slices, 80 it.]": (
+    "sense_fused[global route, 512², 6 coils, 2 slices, 80 it.]": (
+        "3f65f9a03257c0323357be9a9472b93f431d1cfeca868e0d63ea0f8694120ef0",
+        "56d10dd49c24165d6efe422e398e9ccbe32e107ad4d1e0283f9de1a3858bb0d7"),
+    "splitbregman_fused[global route, 512², 6 coils, 2 slices, 4×8×8, TV 5]": (
+        "3f65f9a03257c0323357be9a9472b93f431d1cfeca868e0d63ea0f8694120ef0",
+        "902c84ead10703860bea360c2d986487d4c6efd6a36784334f37e5d5c96e8d56"),
+    # rows 9 and 10 at 192² and 256 × 128 ran on the global route on the
+    # parent tree
+    "sense_fused[192×192, 6 coils, 8 slices, 80 it.]": (
+        "0c68cf3dafd83a793ef6ac55368b4b6cd28b74fe522b372d423740ac50866ef7",
+        "3f0a2dfe4108ee860889ac2a003d08c66cfe1e282e8ad2179a4053f65d6be611"),
+    "splitbregman_fused[192×192, 6 coils, 8 slices, 4×8×8, TV 5]": (
+        "0c68cf3dafd83a793ef6ac55368b4b6cd28b74fe522b372d423740ac50866ef7",
+        "b9943f2e2ea14ea79ea0c7c3962f49bf0816b607d38a6ef36f6bac04afb9e1f8"),
+    "sense_fused[split route, 256×128, 6 coils, 2 slices, 80 it.]": (
         "fcbc9dd7b6c4c5d159fc045f9e70227134e7b9f53b0d0138651ebd118a04dd17",
         "2ee5c4b3a09051ccb14f05fca7c4f9a881a7fd4acd5bee86f011f9b889e1a1b0"),
-    "splitbregman_fused[global route, 256×128, 6 coils, 2 slices, 4×8×8, TV 5]": (
+    "splitbregman_fused[split route, 256×128, 6 coils, 2 slices, 4×8×8, TV 5]": (
         "fcbc9dd7b6c4c5d159fc045f9e70227134e7b9f53b0d0138651ebd118a04dd17",
         "4ceefa6e5f8f9c29c3918f2ddd52462b200d91d7282d3ad8f2edfc52cf2f7be2"),
 }
+# Row 10's outputs that left the parent's route (the global one) for the
+# split route: their CG sums are double sums taken over another set of
+# CTAs, which may round apart, so they are held to the spread and the live
+# CG steps (FFT_SPREAD) and their digests are printed beside the parent's,
+# not required equal.
+FFT_DIGEST_MOVED = (
+    "splitbregman_fused[split route, 256×128, 6 coils, 2 slices, 4×8×8, TV 5]",
+    "splitbregman_fused[192×192, 6 coils, 8 slices, 4×8×8, TV 5]",
+)
 # The FFT kernels are held to the plain version's own spread under
 # b·(1 + 2⁻²³), measured in the same run: within max(FFT_SPREAD × spread,
 # FFT_FLOOR) in relative 2-norm and TOL_FUSED_MAX of max|x| at any entry,
@@ -1007,10 +1040,12 @@ def launch_counts(reset=False):
         for fn in fns:
             fn.launches = 0
         for fn in (tv_fgp.prox_tv2d_fgp, fista_tv_fused.fista_tv_fused,
-                   admm_tv_fused.admm_tv_fused, splitbregman_fused.splitbregman_l1_tv_fused,
-                   pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused,
-                   sense_fused.fista_l21_sense_fused):
+                   admm_tv_fused.admm_tv_fused, pdhg_fused.pdhg_fused,
+                   fista_l1_dft_fused.fista_l1_dft_fused):
             fn.route_launches = {"resident": 0, "global": 0}
+        for fn in (splitbregman_fused.splitbregman_l1_tv_fused,
+                   sense_fused.fista_l21_sense_fused):
+            fn.route_launches = {"resident": 0, "split": 0, "global": 0}
         for fn in (fista_tv_tiled.fista_tv_tiled, admm_tv_tiled.admm_tv_tiled):
             fn.route_launches = {"cluster": 0, "tiles": 0}
         for fn in (pgm_dense_fused.pgm_dense_fused, pgm_dense_fused.pgm_dense_fused_cplx):
@@ -1691,21 +1726,26 @@ def sense_case(rng, H, W, C, batch):
     return maps, mask, rng.normal(size=(batch, 2 * H * W)).astype(np.float32)
 
 
-def fft_kernel_phase(dev, draws, mixed=True, timed=True):
+def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
     """Phase 3h: each FFT kernel against its plain version at its main-path
     shape, held by `hold_fft` and timed in turns with it: FISTA-L1 on 16
     distinct 256² CS problems with λ per problem (and its global route at
     512²), FISTA-L21 and SplitBregman on the 8 SENSE slices, each on its
-    resident route by the route counter; then the global routes of
-    FISTA-L21 and SplitBregman at 256 × 128, held but not timed. The
-    sha256 of every kernel output at these power-of-two shapes (and of its
-    input) goes to out["digests"]. With `mixed`, the mixed-radix FFT at
-    sides with odd factors (MIXED_*): row 8 at 16 × 320² (resident),
-    4 × 640² (global) and 2 × 97 × 128 (a prime side), rows 9 and 10 at 8 ×
-    64 × 192 (resident) and 8 × 192² (global), each by the route counter,
-    each timed with its bound, with the composed solve's device time
-    (torch.profiler) at each shape. Returns {kernel: {"err", "ms": (plain,
-    kernel), "live", "bound", "composed_device_ms"}} and "digests"."""
+    resident route by the route counter; then FISTA-L21 and SplitBregman
+    at 256 × 128 (the split route: a coil's spectrum over a team of CTAs)
+    and 512² (the global route), held but not timed. The sha256 of every
+    kernel output at these power-of-two shapes (and of its input) goes to
+    out["digests"]. With `mixed`, the mixed-radix FFT at sides with odd
+    factors (MIXED_*): row 8 at 16 × 320² (resident), 4 × 640² (global)
+    and 2 × 97 × 128 (a prime side), rows 9 and 10 at 8 × 64 × 192
+    (resident) and 8 × 192² (split), each by the route counter, each timed
+    with its bound, with the composed solve's device time (torch.profiler)
+    at each shape; the 192² outputs' sha256 go to out["digests"] under
+    route-free names (the parent tree ran them on the global route).
+    Without `routes`, no route counter is checked: ``--digest-fft`` runs
+    the parent tree, whose routes differ. Returns {kernel: {"err", "ms":
+    (plain, kernel), "live", "bound", "composed_device_ms"}} and
+    "digests"."""
     import torch
 
     import rls_tpu_torch as rtt
@@ -1719,13 +1759,13 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
     bump = 1.0 + 2.0**-23
 
     def held(name, kernel, plain, x0, x0u, counts=False, bitwise=False, timed_here=False,
-             reps=2, key=None, fn=None, route=None):
+             reps=2, key=None, fn=None, route=None, digest_as=None):
         if fn is not None:  # the hold's one launch on `route`, before any timing
-            fn.route_launches = {"resident": 0, "global": 0}
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
         err, live, got = hold_fft(name, kernel, plain, x0, x0u, counts, bitwise)
-        if fn is not None:
+        if fn is not None and routes:
             routed(fn, name, route)
-        out["digests"][name] = (digest(x0), digest(got))
+        out["digests"][digest_as or name] = (digest(x0), digest(got))
         entry = {"err": err, "live": live}
         if timed and timed_here:
             ms = alternate_ms(lambda: plain(x0), lambda: kernel(x0), reps=reps)
@@ -1735,10 +1775,10 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
         return entry
 
     def routed(fn, name, want):
-        routes = fn.route_launches
-        print(f"{name}: launches by route {routes}")
-        require(routes == {"resident": int(want == "resident"), "global": int(want == "global")},
-                f"{name}: expected one launch on the {want} route, got {routes}")
+        got = fn.route_launches
+        print(f"{name}: launches by route {got}")
+        require(got == {r: int(r == want) for r in got} and got.get(want) == 1,
+                f"{name}: expected one launch on the {want} route, got {got}")
 
     def l1_plan(name, x0):
         plan, active = k8.plan_on_card(x0)
@@ -1750,8 +1790,9 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
     def sense_plan(module, name, x0):
         plan = module.plan_on_card(x0, SENSE_C)
         print(f"{name}: plan route {plan.route}, {plan.clusters} CTAs per slice, "
-              f"{plan.rounds} round(s), {plan.ctas} CTAs, {plan.smem} B of shared memory per CTA, "
-              f"{plan.resident_clusters} clusters resident at once")
+              f"{getattr(plan, 'team', 1)} CTA(s) a coil, {plan.rounds} round(s), {plan.ctas} "
+              f"CTAs, {plan.smem} B of shared memory per CTA, {plan.resident_clusters} clusters "
+              f"resident at once")
         return plan
 
     # row 8: 16 distinct problems, one λ each
@@ -1817,11 +1858,11 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
          x0, x0u, counts=True, timed_here=True, reps=1, fn=k10.splitbregman_l1_tv_fused,
          route="resident")
 
-    # the global routes of rows 9 and 10 (one CTA per slice, staging the
-    # spectrum through global scratch), which a spectrum too large for one
-    # CTA takes: 2 slices of 256 × 128 at 6 coils, row 9 at SENSE_ITERS
-    # iterations, row 10 on BASELINE #4's schedule; held to the bit (row 9)
-    # and to the spread (row 10), not timed
+    # the split routes of rows 9 and 10 (a coil's spectrum over a team of
+    # CTAs), which a spectrum too large for one CTA takes: 2 slices of 256 ×
+    # 128 at 6 coils, row 9 at SENSE_ITERS iterations, row 10 on BASELINE
+    # #4's schedule; held to the bit (row 9, and to the parent's global-route
+    # digest) and to the spread (row 10), not timed
     gh, gw, gb = 256, 128, 2
     rng = np.random.default_rng(10)
     gmaps = rng.normal(size=(SENSE_C, gh, gw)) + 1j * rng.normal(size=(SENSE_C, gh, gw))
@@ -1832,7 +1873,41 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
     gshape = (gb, 2, gh, gw)
     gx0, gx0u = gop.rmv(gbv).reshape(gshape), gop.rmv(gbv * bump).reshape(gshape)
     gcoils, gtables = (gop.coils_r, gop.coils_i), dc.dft_tables(gop.mask)
-    name = f"sense_fused[global route, {gh}×{gw}, {SENSE_C} coils, {gb} slices, {SENSE_ITERS} it.]"
+    name = f"sense_fused[split route, {gh}×{gw}, {SENSE_C} coils, {gb} slices, {SENSE_ITERS} it.]"
+    sense_plan(k9, name, gx0)
+    gscal = k9.problem_scalars(gx0, RHO, SENSE_LAM)
+    held(name, lambda x: (k9.fista_l21_sense_fused(x, gop.mask, *gcoils, RHO, SENSE_LAM,
+                                                   SENSE_ITERS), None),
+         lambda x: (k9.fista_l21_sense_fused_torch(x, gscal, tab, gcoils, gtables), None),
+         gx0, gx0u, bitwise=True, key="sense_fused split", fn=k9.fista_l21_sense_fused,
+         route="split")
+    name = (f"splitbregman_fused[split route, {gh}×{gw}, {SENSE_C} coils, {gb} slices, "
+            f"{'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]")
+    sense_plan(k10, name, gx0)
+    scal, t2 = k10.kernel_args(gx0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
+    held(name, lambda x: k10.splitbregman_l1_tv_fused(x, gop.mask, *gcoils, SB_RHO, SB_RHO,
+                                                      SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL,
+                                                      with_counts=True),
+         lambda x: k10.splitbregman_l1_tv_fused_torch(x, scal, t2, gcoils, gtables, *SB_SCHED,
+                                                      SB_TOL),
+         gx0, gx0u, counts=True, key="splitbregman_fused split",
+         fn=k10.splitbregman_l1_tv_fused, route="split")
+
+    # the global routes of rows 9 and 10 (one CTA per slice, staging the
+    # spectrum through global scratch), which a spectrum too large for any
+    # team takes: 2 slices of 512² at 6 coils, on the schedules above, held
+    # alike (the same code as the parent's: both to its digests), not timed
+    gn = 512
+    rng = np.random.default_rng(12)
+    gmaps = rng.normal(size=(SENSE_C, gn, gn)) + 1j * rng.normal(size=(SENSE_C, gn, gn))
+    gmaps /= np.sqrt((np.abs(gmaps) ** 2).sum(0))
+    gmask = (rng.uniform(size=(gn, gn)) < 0.45).astype(np.float32)
+    gop = rtt.SenseDFT2RealOperator.from_maps(gmaps, gmask, (gn, gn), device=dev)
+    gbv = gop.mv(torch.from_numpy(rng.normal(size=(gb, 2 * gn * gn)).astype(np.float32)).to(dev))
+    gshape = (gb, 2, gn, gn)
+    gx0, gx0u = gop.rmv(gbv).reshape(gshape), gop.rmv(gbv * bump).reshape(gshape)
+    gcoils, gtables = (gop.coils_r, gop.coils_i), dc.dft_tables(gop.mask)
+    name = f"sense_fused[global route, {gn}², {SENSE_C} coils, {gb} slices, {SENSE_ITERS} it.]"
     sense_plan(k9, name, gx0)
     gscal = k9.problem_scalars(gx0, RHO, SENSE_LAM)
     held(name, lambda x: (k9.fista_l21_sense_fused(x, gop.mask, *gcoils, RHO, SENSE_LAM,
@@ -1840,7 +1915,7 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
          lambda x: (k9.fista_l21_sense_fused_torch(x, gscal, tab, gcoils, gtables), None),
          gx0, gx0u, bitwise=True, key="sense_fused global", fn=k9.fista_l21_sense_fused,
          route="global")
-    name = (f"splitbregman_fused[global route, {gh}×{gw}, {SENSE_C} coils, {gb} slices, "
+    name = (f"splitbregman_fused[global route, {gn}², {SENSE_C} coils, {gb} slices, "
             f"{'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]")
     sense_plan(k10, name, gx0)
     scal, t2 = k10.kernel_args(gx0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
@@ -1852,6 +1927,11 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
          gx0, gx0u, counts=True, key="splitbregman_fused global",
          fn=k10.splitbregman_l1_tv_fused, route="global")
     if not mixed:
+        # the 192² SENSE cases' digests alone (rows 9 and 10: --digest-fft)
+        for case in mixed_fft_cases(dev, rows=("sense", "splitbregman"), shapes=[(192, 192)]):
+            held(case["name"], case["kernel"], case["plain"], case["x0"], case["x0u"],
+                 counts=case["counts"], bitwise=not case["counts"], key=case["key"],
+                 fn=case["fn"], route=case["route"], digest_as=case["digest"])
         return out
 
     # the mixed-radix FFT at MIXED_*, each on its route, bit for bit, timed
@@ -1866,7 +1946,8 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
             require(plan.route == case["route"], f"{name}: planned {plan}")
         entry = held(name, case["kernel"], case["plain"], case["x0"], case["x0u"],
                      counts=case["counts"], bitwise=not case["counts"], timed_here=True,
-                     reps=case["reps"], key=case["key"], fn=case["fn"], route=case["route"])
+                     reps=case["reps"], key=case["key"], fn=case["fn"], route=case["route"],
+                     digest_as=case["digest"])
         if timed:
             entry["bound"] = case["bound"](entry["live"])
             print(f"{name}: bound {entry['bound'][0]:.4f} ms ({entry['bound'][1]})")
@@ -1876,9 +1957,11 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True):
     return out
 
 
-def mixed_fft_cases(dev):
-    """The mixed-radix FFT's cases of phase 3h (MIXED_L1DFT, MIXED_SENSE),
-    as dicts: name, key ("{kernel} {H}x{W}"), the kernel module and its
+def mixed_fft_cases(dev, rows=("fista_l1", "sense", "splitbregman"), shapes=None):
+    """The mixed-radix FFT's cases of phase 3h (MIXED_L1DFT, MIXED_SENSE;
+    of `rows` alone, and at (H, W) of `shapes` alone where given), as
+    dicts: name, key ("{kernel} {H}x{W}"), `digest` (the route-free name
+    its sha256 goes under), the kernel module and its
     wrapper `fn`, the route its planner takes, `kernel` and `plain` (x0 →
     (x, counts)), x0 and x0u (the seed of b·(1 + 2⁻²³)), `counts` (row 10:
     held to the spread, with its live CG steps), `reps`, the composed
@@ -1898,6 +1981,8 @@ def mixed_fft_cases(dev):
     cases = []
     tab = torch.as_tensor(_momentum_table("fista", CS_ITERS), device=dev)
     for (mb, mh, mw), want in MIXED_L1DFT:
+        if "fista_l1" not in rows or (shapes is not None and (mh, mw) not in shapes):
+            continue
         rng = np.random.default_rng(mh * mw)
         mop = rtt.SubsampledDFT2RealOperator.from_mask(rng.uniform(size=(mh, mw)) < 0.35,
                                                         (mh, mw), device=dev)
@@ -1910,6 +1995,7 @@ def mixed_fft_cases(dev):
         cases.append(dict(
             name=f"fista_l1_dft_fused[{want} route, {mh}×{mw}, batch {mb}, {CS_ITERS} it.]",
             key=f"fista_l1_dft_fused {mh}x{mw}", module=k8, fn=k8.fista_l1_dft_fused,
+            digest=f"fista_l1_dft_fused[{mh}×{mw}, batch {mb}, {CS_ITERS} it.]",
             route=want, x0=mx0, x0u=mx0u, counts=False, reps=2,
             kernel=lambda x, m=mop.mask, lam=mlam: (
                 k8.fista_l1_dft_fused(x, m, RHO, lam, CS_ITERS), None),
@@ -1923,6 +2009,8 @@ def mixed_fft_cases(dev):
 
     stab = torch.as_tensor(_momentum_table("fista", SENSE_ITERS), device=dev)
     for (mh, mw), want in MIXED_SENSE:
+        if shapes is not None and (mh, mw) not in shapes:
+            continue
         maps, mask, X = sense_case(np.random.default_rng(mh + mw), mh, mw, SENSE_C,
                                    SENSE_SLICES)
         mop = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (mh, mw), device=dev)
@@ -1933,10 +2021,12 @@ def mixed_fft_cases(dev):
         mscal = k9.problem_scalars(mx0, RHO, SENSE_LAM)
         hw = mh * mw
         m_bytes = f32 * ((4 * SENSE_SLICES + 2 * SENSE_C + 1) * hw)
-        cases.append(dict(
+        sense_case_of = dict(
             name=(f"sense_fused[{want} route, {mh}×{mw}, {SENSE_C} coils, {SENSE_SLICES} slices, "
                   f"{SENSE_ITERS} it.]"),
             key=f"sense_fused {mh}x{mw}", module=k9, fn=k9.fista_l21_sense_fused, route=want,
+            digest=f"sense_fused[{mh}×{mw}, {SENSE_C} coils, {SENSE_SLICES} slices, "
+                   f"{SENSE_ITERS} it.]",
             x0=mx0, x0u=mx0u, counts=False, reps=2,
             kernel=lambda x, m=mop.mask, c=mcoils: (
                 k9.fista_l21_sense_fused(x, m, *c, RHO, SENSE_LAM, SENSE_ITERS), None),
@@ -1946,12 +2036,16 @@ def mixed_fft_cases(dev):
                                     iterations=SENSE_ITERS, rho=RHO),
             B=mbv.T.contiguous(),
             bound=lambda live, hw=hw, nb=m_bytes: bound(
-                SENSE_SLICES * sense_ops(hw, SENSE_C, SENSE_ITERS), nb + f32 * 2 * SENSE_SLICES)))
+                SENSE_SLICES * sense_ops(hw, SENSE_C, SENSE_ITERS), nb + f32 * 2 * SENSE_SLICES))
+        if "sense" in rows:
+            cases.append(sense_case_of)
         sscal, t2 = k10.kernel_args(mx0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
-        cases.append(dict(
+        sb_case = dict(
             name=(f"splitbregman_fused[{want} route, {mh}×{mw}, {SENSE_C} coils, {SENSE_SLICES} "
                   f"slices, {'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]"),
             key=f"splitbregman_fused {mh}x{mw}", module=k10, fn=k10.splitbregman_l1_tv_fused,
+            digest=f"splitbregman_fused[{mh}×{mw}, {SENSE_C} coils, {SENSE_SLICES} slices, "
+                   f"{'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]",
             route=want, x0=mx0, x0u=mx0u, counts=True, reps=1,
             kernel=lambda x, m=mop.mask, c=mcoils: k10.splitbregman_l1_tv_fused(
                 x, m, *c, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL,
@@ -1961,28 +2055,33 @@ def mixed_fft_cases(dev):
             solver=splitbregman_solver(mop, dev), B=mbv.T.contiguous(),
             bound=lambda live, hw=hw, nb=m_bytes: bound(
                 sum(sb_ops(hw, SENSE_C, *SB_SCHED[:2], SB_TV, v) for v in live.tolist()),
-                nb + f32 * 4 * SENSE_SLICES)))
+                nb + f32 * 4 * SENSE_SLICES))
+        if "splitbregman" in rows:
+            cases.append(sb_case)
     return cases
 
 
 def check_fft_digests(digests):
-    """Print the sha256 of each power-of-two output of phase 3h beside the
-    parent tree's (PARENT_FFT_SHA256) and require them equal, and each
-    input's equal to the parent's: an input made otherwise (its operator
-    changed, or another cuFFT) leaves the outputs nothing to be compared
-    with, and fails the run until the digests are recorded anew by
-    ``--digest-fft`` on the parent tree."""
+    """Print the sha256 of each output of phase 3h that PARENT_FFT_SHA256
+    records (the power-of-two shapes, and rows 9 and 10 at 192²) beside
+    the parent tree's and require them equal, but for FFT_DIGEST_MOVED
+    (printed only), and each input's equal to the parent's: an input made
+    otherwise (its operator changed, or another cuFFT) leaves the outputs
+    nothing to be compared with, and fails the run until the digests are
+    recorded anew by ``--digest-fft`` on the parent tree."""
     for name, (d_in, d_out) in digests.items():
         if name not in PARENT_FFT_SHA256:
             continue
         p_in, p_out = PARENT_FFT_SHA256[name]
+        moved = name in FFT_DIGEST_MOVED
         print(f"sha256[{name}]: output {d_out[:16]}…, parent {p_out[:16]}… "
-              f"({'equal' if d_out == p_out else 'DIFFERENT'}); input "
+              f"({'equal' if d_out == p_out else 'DIFFERENT'}"
+              f"{', not required: another route' if moved else ''}); input "
               f"{'equal' if d_in == p_in else 'DIFFERENT'}")
         require(d_in == p_in,
                 f"{name}: the input is not the one the parent's digests were taken on; record "
                 "PARENT_FFT_SHA256 anew with --digest-fft on the parent tree")
-        require(d_out == p_out, f"{name}: the power-of-two output moved from the parent's bits")
+        require(moved or d_out == p_out, f"{name}: the output moved from the parent's bits")
     require(all(name in digests for name in PARENT_FFT_SHA256),
             "phase 3h lacks a power-of-two case of the parent's")
 
@@ -2089,7 +2188,7 @@ def fft_cell_phase(dev, draws):
                 f"{name}: expected one launch of {kernel} and no others")
         routes = routed[kernel].route_launches
         print(f"launches ({name}) by route: {routes}")
-        require(routes == {"resident": int(route == "resident"), "global": int(route == "global")},
+        require(routes == {r: int(r == route) for r in routes} and routes.get(route) == 1,
                 f"{name}: expected one launch on the {route} route, got {routes}")
         launched[name] = (kernel, 1)
         require(tuple(x.shape) == (solver.A.in_size, K), f"{name}: shape {tuple(x.shape)}")
@@ -2131,9 +2230,9 @@ def fft_cell_phase(dev, draws):
             (op64, x64.reshape(2, -1)), composed=True)
 
     # the SENSE cells: tools/bench_suite.py's problem at 128², and the same
-    # draws at 192² (rows 9 and 10 on their global routes: a coil's padded
-    # spectrum fits no CTA)
-    for n, route in ((SENSE_N, "resident"), (192, "global")):
+    # draws at 192² (rows 9 and 10 on their split routes: a coil's padded
+    # spectrum fits no CTA, so a team of CTAs holds it)
+    for n, route in ((SENSE_N, "resident"), (192, "split")):
         maps, mask, X = sense_problem(n)
         op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (n, n), device=dev)
         op64 = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (n, n), dtype=torch.float64,
@@ -4437,8 +4536,9 @@ def plan_probe(kernel, plan_args, *clock_args, **clock_kw):
     """A case's probe for a kernel module, as far as the tree under test
     has the pieces: ``plan_on_card(*plan_args)`` (with the clusters the
     card holds at once, where the planner counts them) and, on the
-    resident route or where there is no planner, ``phase_clocks(*clock_args,
-    **clock_kw)``: the SM clocks of CTA 0 by phase."""
+    resident route (or the SENSE kernels' split route) or where there is no
+    planner, ``phase_clocks(*clock_args, **clock_kw)``: the SM clocks of
+    CTA 0 by phase."""
 
     def probe():
         got, resident = {}, True
@@ -4447,7 +4547,7 @@ def plan_probe(kernel, plan_args, *clock_args, **clock_kw):
             plan, extra = ((plan[0], {"resident_clusters": plan[1]}) if isinstance(plan, tuple)
                            else (plan, {}))
             got["plan"] = dict(vars(plan), **extra)
-            resident = plan.route == "resident"
+            resident = plan.route in ("resident", "split")
         if resident and hasattr(kernel, "phase_clocks"):
             got["clocks of CTA 0 by phase"] = kernel.phase_clocks(*clock_args, **clock_kw)
         return got
@@ -4553,7 +4653,11 @@ def time_splitbregman(dev, out):
     (more clusters than the card holds at once), and 8 slices with the
     first 1 and 3 coils; rows 8 and 9 (FISTA-L1-DFT on 16 distinct 256² CS
     problems, FISTA-L21-SENSE on the 8 slices) as controls; and the cell
-    through solve_batched_fast."""
+    through solve_batched_fast. Then the 192² cell in turns with its
+    composed solve_batched_unrolled (both device times by torch.profiler,
+    the kernel's phase clocks), 8 slices at each SPLIT_SHAPES shape, and
+    the forced plans of SPLIT_SWEEP at 192² and SPLIT_SWEEP_128 at the cell
+    (``split_cases``)."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
@@ -4593,6 +4697,29 @@ def time_splitbregman(dev, out):
         ("cell solve_batched_fast", lambda: rtt.solve_batched_fast(solver, B), 2),
     ]
     time_cases(out, cases)
+    # the 192² cell (splitbregman_sense192_6coil_b8) in turns with its
+    # composed solve, both device times, the phase clocks; then the split
+    # shapes and the forced plans at 192²
+    op192, b192, x192, coils192 = sense192_cell(dev)
+    s192 = splitbregman_solver(op192, dev)
+    B192 = b192.T.contiguous()
+    args192 = (x192, op192.mask, *coils192, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV,
+               SB_TOL)
+    cell = [
+        ("192² row 10 splitbregman_fused", lambda: k10.splitbregman_l1_tv_fused(*args192), 1,
+         plan_probe(k10, (x192, SENSE_C), *args192)),
+        ("192² row 10 composed solve_batched_unrolled",
+         lambda: rtt.solve_batched_unrolled(s192, B192), 1),
+    ]
+    time_cases(out, cell, in_turns=True)
+    device_ms(out, cell)
+
+    def row10(x, m, cr, ci, clock_args=False, **kw):
+        args = (x, m, cr, ci, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL)
+        return (args, kw) if clock_args else k10.splitbregman_l1_tv_fused(*args, **kw)
+
+    time_cases(out, split_cases(dev, k10, row10, (x192, op192.mask, coils192),
+                                (x0, op.mask, coils)))
 
 
 def cs_cell_solves(dev, op, img2):
@@ -4736,16 +4863,86 @@ def device_ms(out, cases):
             [key[:80], count, ms] for ms, count, key in readings[-1][:6]]
 
 
+# The shapes at which the SENSE kernels' planners take the split route
+# (teams of 3, 3, 5, 8, 11 and 15 CTAs a coil at 6 coils), timed on 8
+# slices by --time-sense and --time-splitbregman beside the parent tree's
+# global route; and the forced plans (team, coils a round) swept at 192²
+SPLIT_SHAPES = ((192, 192), (256, 128), (256, 256), (320, 320), (384, 384), (448, 448))
+SPLIT_SWEEP = ((3, 3), (3, 2), (3, 1), (4, 3), (4, 2), (5, 3), (5, 2), (6, 2), (8, 2), (6, 1),
+               (12, 1), (16, 1))
+# the split route forced at the 128² SENSE cells, which the planner keeps
+# resident: two CTAs a coil (ROADMAP follow-up a), one round and two
+SPLIT_SWEEP_128 = ((2, 6), (2, 3))
+
+
+def split_cases(dev, module, kernel, sense192, sense128):
+    """Cases of :func:`time_cases` for row 9 or 10 (`module`; `kernel(x,
+    mask, cr, ci, **kw)` its call) on the split route: SENSE_SLICES slices
+    of 6 coils at each SPLIT_SHAPES shape (192²: the cell's problem
+    `sense192` = (x0, mask, coils), the others random), each with its plan
+    and phase clocks, then each forced plan of SPLIT_SWEEP at 192² and of
+    SPLIT_SWEEP_128 at the 128² cell (`sense128`) where the tree under test
+    takes a forced plan (a parent tree runs every shape on the route its
+    planner takes)."""
+    import inspect
+
+    import torch
+
+    rng = np.random.default_rng(23)
+    cases = []
+    for H, W in SPLIT_SHAPES:
+        if (H, W) == (192, 192):
+            x, m, (cr, ci) = sense192
+        else:
+            x = torch.from_numpy(rng.normal(size=(SENSE_SLICES, 2, H, W)).astype(np.float32))
+            x = x.to(dev)
+            m = torch.from_numpy((rng.uniform(size=(H, W)) < 0.45).astype(np.float32)).to(dev)
+            maps = coil_maps(rng, SENSE_C, max(H, W))[:, :H, :W]
+            cr, ci = (torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+                      for v in (maps.real, maps.imag))
+        args = (x, m, cr, ci)
+        clock_args, clock_kw = kernel(*args, clock_args=True)
+        cases.append((f"split shape {H}x{W}", lambda a=args: kernel(*a), 1,
+                      plan_probe(module, (x, SENSE_C), *clock_args, **clock_kw)))
+    if "split" not in inspect.signature(module.plan_on_card).parameters:
+        return cases
+    for (x, m, (cr, ci)), sweep in ((sense192, SPLIT_SWEEP), (sense128, SPLIT_SWEEP_128)):
+        for split in sweep:
+            args = (x, m, cr, ci)
+            clock_args, clock_kw = kernel(*args, clock_args=True, split=split)
+            cases.append((f"{x.shape[-2]}x{x.shape[-1]} forced team {split[0]}, {split[1]} coils "
+                          f"a round", lambda a=args, sp=split: kernel(*a, split=sp), 1,
+                          plan_probe(module, (x, SENSE_C, split), *clock_args, **clock_kw)))
+    return cases
+
+
+def sense192_cell(dev):
+    """Phase 9's 192² SENSE cell (fista_l21_sense192_6coil_b8 and
+    splitbregman_sense192_6coil_b8): the operator, b (8 slices), x0 =
+    Aᴴb (8, 2, 192, 192) and the coils."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    maps, mask, X = sense_problem(192)
+    op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (192, 192), device=dev)
+    b = op.mv(torch.from_numpy(X).to(dev))
+    return op, b, op.rmv(b).reshape(SENSE_SLICES, 2, 192, 192), (op.coils_r, op.coils_i)
+
+
 def time_sense(dev, out):
     """``--time-sense [ROOT]``: the fused FISTA-L21-SENSE kernel (row 9) at
     the SENSE cell's schedule (ρ = 0.95, λ = 1e-4, 80 iterations): the
     cell's 8 slices of 128² with 6 coils, the same tiled to 64 slices (more
     clusters than the card holds at once), 1 slice, 8 slices with the first
     1 and 3 coils and with 17 coils of their own (two rounds), and 4
-    slices of 256² (the global route); then the cell's kernel in turns with
+    slices of 256² (the split route); then the cell's kernel in turns with
     its composed solve_batched_unrolled (torch.fft), both with their
-    device time by torch.profiler; rows 8 (the CS cell's 16 problems) and
-    10 (BASELINE #4) as controls."""
+    device time by torch.profiler; the same for the 192² cell, with the
+    kernel's phase clocks; 8 slices at each SPLIT_SHAPES shape and the
+    forced plans of SPLIT_SWEEP at 192² and SPLIT_SWEEP_128 at the cell
+    (``split_cases``); rows 8 (the CS cell's 16 problems) and 10 (BASELINE
+    #4) as controls."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
@@ -4777,7 +4974,7 @@ def time_sense(dev, out):
         (f"{SENSE_SLICES} slices, 3 coils", x0, op.mask, *(c[:3].contiguous() for c in coils),
          3),
         (f"{SENSE_SLICES} slices, 17 coils", x0, op.mask, *maps_of(coil_maps(rng, 17)), 2),
-        (f"4 slices of {g}², {SENSE_C} coils (global route)", x256, mask256,
+        (f"4 slices of {g}², {SENSE_C} coils", x256, mask256,
          *maps_of(coil_maps(rng, SENSE_C, g)), 1),
     ):
         args = (x, m, cr, ci, RHO, SENSE_LAM, SENSE_ITERS)
@@ -4796,6 +4993,29 @@ def time_sense(dev, out):
     ]
     time_cases(out, cell, in_turns=True)
     device_ms(out, cell)
+    # the 192² cell (fista_l21_sense192_6coil_b8) in turns with its composed
+    # solve, both device times, the phase clocks; then the split shapes and
+    # the forced plans at 192²
+    op192, b192, x192, coils192 = sense192_cell(dev)
+    s192 = rtt.FISTA.create(op192, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
+                            iterations=SENSE_ITERS, rho=RHO)
+    B192 = b192.T.contiguous()
+    args192 = (x192, op192.mask, *coils192, RHO, SENSE_LAM, SENSE_ITERS)
+    cell = [
+        ("192² row 9 sense_fused", lambda: k9.fista_l21_sense_fused(*args192), 2,
+         plan_probe(k9, (x192, SENSE_C), *args192)),
+        ("192² row 9 composed solve_batched_unrolled",
+         lambda: rtt.solve_batched_unrolled(s192, B192), 1),
+    ]
+    time_cases(out, cell, in_turns=True)
+    device_ms(out, cell)
+
+    def row9(x, m, cr, ci, clock_args=False, **kw):
+        args = (x, m, cr, ci, RHO, SENSE_LAM, SENSE_ITERS)
+        return (args, kw) if clock_args else k9.fista_l21_sense_fused(*args, **kw)
+
+    time_cases(out, split_cases(dev, k9, row9, (x192, op192.mask, coils192),
+                                (x0, op.mask, coils)))
     # rows 8 and 10, which this kernel's changes must not move
     img2, idx2 = bench_suite_draws()["cs"]
     op8 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)
@@ -5865,11 +6085,12 @@ def time_composite(dev, out):
 
 def digest_fft(dev, out):
     """``--digest-fft [ROOT]``: phase 3h's power-of-two cases (rows 8, 9
-    and 10 on both routes, held to their plain versions) on the tree under
-    ROOT, with the sha256 of each input and kernel output: what
-    PARENT_FFT_SHA256 records of the parent tree."""
-    out["digests"] = fft_kernel_phase(dev, bench_suite_draws(), mixed=False,
-                                      timed=False)["digests"]
+    and 10 on every route, held to their plain versions) and rows 9 and 10
+    at 8 × 192² on the tree under ROOT, on whatever route its planners
+    take (no route counter is checked), with the sha256 of each input and
+    kernel output: what PARENT_FFT_SHA256 records of the parent tree."""
+    out["digests"] = fft_kernel_phase(dev, bench_suite_draws(), mixed=False, timed=False,
+                                      routes=False)["digests"]
 
 
 def time_mixed_radix(dev, out):

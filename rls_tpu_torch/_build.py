@@ -152,13 +152,13 @@ _SIGNATURES = {
     # (x0hat, scal, tab, tw, weights, coils_r, coils_i, out, scratch, B, H, W,
     #  C, iterations, stream)
     "sense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # (clusters, H, W, out: int64[2] = shared memory per CTA, clusters
-    #  resident at once)
-    "sense_cluster_occupancy": (_I, _I, _I, _P),
+    # (clusters, team, H, W, out: int64[2] = shared memory per CTA,
+    #  clusters resident at once)
+    "sense_cluster_occupancy": (_I, _I, _I, _I, _P),
     # (x0hat, scal, tab, tw, wt, coils_r, coils_i, out, scratch, prof, B, H,
-    #  W, C, iterations, clusters, smem, stream)
+    #  W, C, iterations, clusters, team, smem, stream)
     "sense_cluster_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # (x0hat, scal, t2, tw, weights, coils_r, coils_i, out, scratch, counts, B,
     #  H, W, C, iterations, iterations_inner, cg_iterations, tv_iterations,
@@ -166,15 +166,15 @@ _SIGNATURES = {
     "splitbregman_fused_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
     ),
-    # (clusters, H, W, out: int64[2] = shared memory per CTA, clusters
-    #  resident at once)
-    "splitbregman_cluster_occupancy": (_I, _I, _I, _P),
+    # (clusters, team, H, W, out: int64[2] = shared memory per CTA,
+    #  clusters resident at once)
+    "splitbregman_cluster_occupancy": (_I, _I, _I, _I, _P),
     # (x0hat, scal, t2, tw, wt, coils_r, coils_i, out, scratch, counts, prof,
     #  B, H, W, C, iterations, iterations_inner, cg_iterations, tv_iterations,
-    #  tol_inner, clusters, smem, stream)
+    #  tol_inner, clusters, team, smem, stream)
     "splitbregman_cluster_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
-        _P,
+        _I, _P,
     ),
     # (u, scal, taps, weights, kh, kw, out, scratch, B, H, W, iterations,
     #  kind, positive, stream)

@@ -1,5 +1,5 @@
 // The whole batched FISTA-L21 multi-coil SENSE solve in one launch, on one
-// of two routes that the host planner (kernels/sense_fused.py plan_sense)
+// of three routes that the host planner (kernels/sense_fused.py plan_sense)
 // picks by shape:
 //
 // * resident: each slice runs on a thread-block cluster of c CTAs (c <= C,
@@ -8,9 +8,14 @@
 //   FFT's stages in registers (fft_resident.cuh), the coils folded into
 //   each CTA's band of rows through DSMEM (sense_cluster.cuh, shared with
 //   the SplitBregman kernel);
+// * split: the same cluster kernel for shapes whose padded spectrum, H (W +
+//   1) complex floats, fits no CTA (192^2): each coil's spectrum split over
+//   a team of `team` CTAs, each holding a band of its rows and a block of
+//   its columns, the transposes pushed through DSMEM (sense_split.cuh, row
+//   8's three passes), the coils of a round folded as on the resident route;
 // * global: one CTA per slice, the spectrum staged through shared memory
 //   chunk by chunk from global scratch (dft_common.cuh), for shapes whose
-//   padded spectrum, H (W + 1) complex floats, does not fit one CTA.
+//   spectrum fits no team (512^2 and larger).
 //
 // Replaces the TPU kernel rls_tpu/kernels/sense_fused.py:_kernel (:33-82;
 // launched by fista_l21_sense_fused, :85, pallas_call :107). The complex
@@ -24,7 +29,7 @@
 // + b yi, (acc + a yi) - b yr); the gradient step and the threshold are
 // formed as the last coil is folded in. Every f32 operation is rounded on
 // its own, as in the plain PyTorch version (fista_l21_sense_fused_torch in
-// rls_tpu_torch/kernels/sense_fused.py), with which both routes agree bit
+// rls_tpu_torch/kernels/sense_fused.py), with which every route agrees bit
 // for bit.
 //
 // What bounds it on an H100: per iteration C normal ops (2 C complex 2-D
@@ -62,7 +67,10 @@
 // round, which every CTA reaches after its last coil load of this m. The
 // kernel ends with a cluster barrier, so that no CTA exits while another
 // still reads its shared memory (iterations = 1 included). Per iteration
-// with C <= c: two cluster barriers.
+// with C <= c: two cluster barriers. The split route keeps barrier A and
+// the final one, and runs the normal op of sense_split.cuh in place of B
+// and C: four cluster barriers a round, three in the last (its header
+// holds the table of what each orders).
 //
 // A phase timer (prof): CTA 0's thread 0 adds the SM clocks between its
 // phase marks (coil loads, row FFTs, column FFTs, coil fold with the
@@ -75,6 +83,7 @@
 #include "dft_common.cuh"
 #include "fft_resident.cuh"
 #include "sense_cluster.cuh"
+#include "sense_split.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -167,6 +176,32 @@ __host__ __device__ inline size_t resident_smem_bytes(int H, int W) {
                 2 * rls::ceil4(static_cast<size_t>(H) * (W + 1)));
 }
 
+// Shared memory of a CTA of the split route on teams of `team` CTAs, in
+// this order (split_smem_bytes in kernels/sense_fused.py counts the same):
+// the phase timer and the twiddles as above, the band (ceil(H / team) W
+// floats for re, then as many for im) and the column block (H (ceil(W /
+// team) + 1) floats for re, then as many for im), each float array rounded
+// up to 4 floats.
+__host__ __device__ inline size_t split_smem_bytes(int H, int W, int team) {
+    return sizeof(long long) * kPhases +
+           sizeof(float) * (rls::ceil4(rls::twiddle_floats(H, W)) +
+                            2 * rls::split_band_floats(H, W, team) +
+                            2 * rls::split_block_floats(H, W, team));
+}
+
+// The shared memory of a cluster CTA on teams of `team` (1: resident).
+__host__ __device__ inline size_t cluster_smem_bytes(int H, int W, int team) {
+    return team == 1 ? resident_smem_bytes(H, W) : split_smem_bytes(H, W, team);
+}
+
+// A cluster plan: `clusters` CTAs a slice in teams of `team` (1: the
+// resident route), at most 16, at most one team a coil, and a team no
+// larger than a side (every band and block holds a line).
+bool valid_plan(int clusters, int team, int H, int W, int C) {
+    return team >= 1 && clusters >= team && clusters <= kMaxCluster && clusters % team == 0 &&
+           clusters / team <= C && team <= H && team <= W;
+}
+
 struct ClusterArgs {
     const float* x0hat;    // (B, 2, H, W)
     const float* scal;     // (B, 2) [rho, lam_eff]
@@ -178,12 +213,14 @@ struct ClusterArgs {
     float* out;            // (B, 2, H, W)
     float* scratch;        // 6 planes of (B, H, W)
     long long* prof;       // (kPhases,) or null
-    int B, H, W, C, iterations, clusters;
+    int B, H, W, C, iterations, clusters, team;
 };
 
 using Prof = rls::Prof<kPhases>;
 
-template <bool kPow2>
+// kSplit: the split route (teams of a.team CTAs a coil), else the
+// resident one.
+template <bool kPow2, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
 sense_cluster_kernel(const ClusterArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -191,8 +228,12 @@ sense_cluster_kernel(const ClusterArgs a) {
     const int n = H * W;
     long long* pacc = reinterpret_cast<long long*>(smem);
     float* tw = reinterpret_cast<float*>(pacc + kPhases);
+    // resident: one coil's padded spectrum; split: the band, then the block
     float* sre = tw + rls::ceil4(rls::twiddle_floats(H, W));
-    float* sim = sre + rls::ceil4(static_cast<size_t>(H) * (W + 1));
+    float* sim = sre + (kSplit ? rls::split_band_floats(H, W, a.team)
+                               : rls::ceil4(static_cast<size_t>(H) * (W + 1)));
+    float* kre = sim + rls::split_band_floats(H, W, a.team);
+    float* kim = kre + rls::split_block_floats(H, W, a.team);
 
     cg::cluster_group cl = cg::this_cluster();
     const int rank = static_cast<int>(cl.block_rank());
@@ -255,14 +296,30 @@ sense_cluster_kernel(const ClusterArgs a) {
             mi[i] = rls::fadd(vi, rls::fmul(am, rls::fsub(vi, pi[i])));
         }
         sync_cluster(kUpdate);  // A: the whole of m; the last fold's remote reads
-        const rls::SenseCluster sense{a.coils_r, a.coils_i, a.wt, tw, sre, sim, accr, acci,
-                                      H, W, a.C, nc, rank, p0, p1};
-        rls::sense_normal_cluster<kThreads, kFold, kPow2>(sense, mr, mi, cl, prof, sync_cluster,
-                                                          finish);
+        if constexpr (kSplit) {
+            const rls::SenseSplit sense{a.coils_r, a.coils_i, a.wt, tw, sre, sim, kre, kim,
+                                        accr, acci, H, W, a.C, nc, a.team, rank, p0, p1};
+            rls::sense_normal_split<kThreads, kFold, kPow2>(sense, mr, mi, cl, prof,
+                                                            sync_cluster, finish);
+        } else {
+            const rls::SenseCluster sense{a.coils_r, a.coils_i, a.wt, tw, sre, sim, accr, acci,
+                                          H, W, a.C, nc, rank, p0, p1};
+            rls::sense_normal_cluster<kThreads, kFold, kPow2>(sense, mr, mi, cl, prof,
+                                                              sync_cluster, finish);
+        }
     }
     // no CTA leaves while another may still read its shared memory
     sync_cluster(kUpdate);
     prof.finish();
+}
+
+// The kernel of a cluster plan at H x W: resident (team 1) or split, with
+// the radix-2 code where both sides are powers of two.
+using ClusterKernel = void (*)(const ClusterArgs);
+ClusterKernel cluster_kernel(int H, int W, int team) {
+    if (rls::pow2_shape(H, W))
+        return team == 1 ? sense_cluster_kernel<true, false> : sense_cluster_kernel<true, true>;
+    return team == 1 ? sense_cluster_kernel<false, false> : sense_cluster_kernel<false, true>;
 }
 
 }  // namespace
@@ -291,38 +348,40 @@ int sense_fused_launch(const void* x0hat, const void* scal, const void* tab, con
     return static_cast<int>(cudaGetLastError());
 }
 
-// The resident route's shared memory per CTA at H x W (the planner's
-// check), and how many clusters of `clusters` CTAs the current device holds
-// at once (cudaOccupancyMaxActiveClusters): out[0], out[1].
-int sense_cluster_occupancy(int clusters, int H, int W, long long* out) {
-    if (clusters < 1 || clusters > kMaxCluster || !rls::valid_fft_size(H) ||
-        !rls::valid_fft_size(W))
+// A cluster route's shared memory per CTA at H x W on teams of `team` CTAs
+// (1: the resident route; the planner's check), and how many clusters of
+// `clusters` CTAs the current device holds at once
+// (cudaOccupancyMaxActiveClusters): out[0], out[1].
+int sense_cluster_occupancy(int clusters, int team, int H, int W, long long* out) {
+    if (clusters < 1 || clusters > kMaxCluster || team < 1 || team > kMaxCluster ||
+        team > H || team > W || !rls::valid_fft_size(H) || !rls::valid_fft_size(W))
         return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = resident_smem_bytes(H, W);
+    const size_t smem = cluster_smem_bytes(H, W, team);
     out[0] = static_cast<long long>(smem);
-    out[1] = rls::max_active_clusters(
-        rls::pow2_shape(H, W) ? sense_cluster_kernel<true> : sense_cluster_kernel<false>,
-        clusters, kThreads, static_cast<int>(smem));
+    out[1] = 0;
+    if (smem > 0x7fffffff) return 0;
+    out[1] = rls::max_active_clusters(cluster_kernel(H, W, team), clusters, kThreads,
+                                      static_cast<int>(smem));
     return 0;
 }
 
-// The resident route: as sense_fused_launch, with wt the spectral weights
-// transposed ((W, H)), scratch 6 planes of (B, H, W), prof null or kPhases
-// int64 that receive CTA 0's clocks per phase, and the plan: `clusters`
-// CTAs per slice (1 <= clusters <= min(C, 16)), `smem` bytes of shared
-// memory per CTA. Returns cudaErrorInvalidValue for a plan whose smem
-// differs from resident_smem_bytes, else the launch's error.
+// The resident and split routes: as sense_fused_launch, with wt the
+// spectral weights transposed ((W, H)), scratch 6 planes of (B, H, W), prof
+// null or kPhases int64 that receive CTA 0's clocks per phase, and the
+// plan: `clusters` CTAs per slice in teams of `team` CTAs a coil (team 1:
+// resident, one coil a CTA; valid_plan), `smem` bytes of shared memory per
+// CTA. Returns cudaErrorInvalidValue for a plan that is not valid or whose
+// smem differs from cluster_smem_bytes, else the launch's error.
 int sense_cluster_launch(const void* x0hat, const void* scal, const void* tab, const void* tw,
                          const void* wt, const void* coils_r, const void* coils_i, void* out,
                          void* scratch, void* prof, int B, int H, int W, int C, int iterations,
-                         int clusters, int smem, void* stream) {
+                         int clusters, int team, int smem, void* stream) {
     const bool valid = B > 0 && rls::valid_fft_size(H) && rls::valid_fft_size(W) &&
-                       clusters >= 1 && clusters <= kMaxCluster && clusters <= C &&
+                       valid_plan(clusters, team, H, W, C) &&
                        static_cast<long long>(B) * clusters < (1LL << 31);
-    if (!valid || static_cast<size_t>(smem) != resident_smem_bytes(H, W))
+    if (!valid || static_cast<size_t>(smem) != cluster_smem_bytes(H, W, team))
         return static_cast<int>(cudaErrorInvalidValue);
-    const auto kernel =
-        rls::pow2_shape(H, W) ? sense_cluster_kernel<true> : sense_cluster_kernel<false>;
+    const auto kernel = cluster_kernel(H, W, team);
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg;
     cudaError_t e = rls::cluster_config(kernel, B, clusters, kThreads, smem,
@@ -333,7 +392,7 @@ int sense_cluster_launch(const void* x0hat, const void* scal, const void* tab, c
                            static_cast<const float*>(wt), static_cast<const float*>(coils_r),
                            static_cast<const float*>(coils_i), static_cast<float*>(out),
                            static_cast<float*>(scratch), static_cast<long long*>(prof), B, H, W,
-                           C, iterations, clusters};
+                           C, iterations, clusters, team};
     e = cudaLaunchKernelEx(&cfg, kernel, args);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());

@@ -1,14 +1,20 @@
 // The whole batched SplitBregman (L21 + TV) multi-coil SENSE solve in one
-// launch, on one of two routes that the host planner
+// launch, on one of three routes that the host planner
 // (kernels/splitbregman_fused.py plan_splitbregman) picks by shape:
 //
 // * resident: each slice runs on a thread-block cluster of c CTAs (c <= C,
 //   at most 16), CTA k computing the 2-D FFTs of coils k, k + c, ... in
 //   rounds, each coil's padded spectrum whole in its shared memory with the
 //   FFT's stages in registers (fft_resident.cuh);
+// * split: the same cluster kernel for shapes whose padded spectrum, H (W +
+//   1) complex floats, fits no CTA (192^2): each coil's spectrum split over
+//   a team of `team` CTAs, bands of its rows and blocks of its columns, the
+//   transposes pushed through DSMEM (sense_split.cuh); the vector phases,
+//   the FGP and the sums run on the cluster's bands as on the resident
+//   route;
 // * global: one CTA per slice, the spectrum staged through shared memory
 //   chunk by chunk from global scratch (dft_common.cuh), for shapes whose
-//   padded spectrum, H (W + 1) complex floats, does not fit one CTA.
+//   spectrum fits no team (512^2 and larger).
 //
 // Replaces the TPU kernel rls_tpu/kernels/splitbregman_fused.py:_kernel
 // (:48-185; launched by splitbregman_l1_tv_sense_fused, :217, pallas_call
@@ -83,7 +89,11 @@
 //     sum before.
 // Per CG step: the fold's barrier, two sums and p's barrier (none where
 // the step is frozen). The kernel ends with a cluster barrier, so that no
-// CTA exits while another still reads its shared memory.
+// CTA exits while another still reads its shared memory. The split route
+// runs the normal op of sense_split.cuh in the fold's place (its header
+// holds the table of what its barriers order): the band and the block
+// take the spectrum's place, and each barrier above that orders the
+// spectrum's reads before a transform rewrites it orders the bands' alike.
 //
 // A phase timer (prof): CTA 0's thread 0 adds the SM clocks between its
 // phase marks (coil loads, row FFTs, column FFTs, coil fold, vector
@@ -97,6 +107,7 @@
 #include "dft_common.cuh"
 #include "fft_resident.cuh"
 #include "sense_cluster.cuh"
+#include "sense_split.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -300,6 +311,32 @@ __host__ __device__ inline size_t resident_smem_bytes(int H, int W) {
                 2 * rls::ceil4(static_cast<size_t>(H) * (W + 1)));
 }
 
+// Shared memory of a CTA of the split route on teams of `team` CTAs, in
+// this order (split_smem_bytes in kernels/splitbregman_fused.py counts the
+// same): the sums, the phase timer and the twiddles as above, the band
+// (ceil(H / team) W floats for re, then as many for im) and the column
+// block (H (ceil(W / team) + 1) floats for re, then as many for im), each
+// float array rounded up to 4 floats.
+__host__ __device__ inline size_t split_smem_bytes(int H, int W, int team) {
+    return sizeof(double) * (3 * (kThreads / 32) + 12) + sizeof(long long) * kPhases +
+           sizeof(float) * (rls::ceil4(rls::twiddle_floats(H, W)) +
+                            2 * rls::split_band_floats(H, W, team) +
+                            2 * rls::split_block_floats(H, W, team));
+}
+
+// The shared memory of a cluster CTA on teams of `team` (1: resident).
+__host__ __device__ inline size_t cluster_smem_bytes(int H, int W, int team) {
+    return team == 1 ? resident_smem_bytes(H, W) : split_smem_bytes(H, W, team);
+}
+
+// A cluster plan: `clusters` CTAs a slice in teams of `team` (1: the
+// resident route), at most 16, at most one team a coil, and a team no
+// larger than a side (every band and block holds a line).
+bool valid_plan(int clusters, int team, int H, int W, int C) {
+    return team >= 1 && clusters >= team && clusters <= kMaxCluster && clusters % team == 0 &&
+           clusters / team <= C && team <= H && team <= W;
+}
+
 struct ResidentArgs {
     const float* x0hat;    // (B, 2, H, W)
     const float* scal;     // (B, 4) [rho1, rho2, lam1_eff, lam2_eff]
@@ -314,12 +351,14 @@ struct ResidentArgs {
     long long* prof;       // (kPhases,) or null
     int B, H, W, C, iterations, iterations_inner, cg_iterations, tv_iterations;
     float tol_inner;
-    int clusters;
+    int clusters, team;
 };
 
 using Prof = rls::Prof<kPhases>;
 
-template <bool kPow2>
+// kSplit: the split route (teams of a.team CTAs a coil), else the
+// resident one.
+template <bool kPow2, bool kSplit>
 __global__ void __launch_bounds__(kThreads, 1)
 splitbregman_cluster_kernel(const ResidentArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -332,8 +371,12 @@ splitbregman_cluster_kernel(const ResidentArgs a) {
     double* all = mine + 8;
     long long* pacc = reinterpret_cast<long long*>(all + 4);
     float* tw = reinterpret_cast<float*>(pacc + kPhases);
+    // resident: one coil's padded spectrum; split: the band, then the block
     float* sre = tw + rls::ceil4(rls::twiddle_floats(H, W));
-    float* sim = sre + rls::ceil4(static_cast<size_t>(H) * (W + 1));
+    float* sim = sre + (kSplit ? rls::split_band_floats(H, W, a.team)
+                               : rls::ceil4(static_cast<size_t>(H) * (W + 1)));
+    float* kre = sim + rls::split_band_floats(H, W, a.team);
+    float* kim = kre + rls::split_block_floats(H, W, a.team);
 
     cg::cluster_group cl = cg::this_cluster();
     const int rank = static_cast<int>(cl.block_rank());
@@ -423,12 +466,21 @@ splitbregman_cluster_kernel(const ResidentArgs a) {
     // each pixel i of the band (sense_cluster.cuh: CTA `rank` transforms
     // coils rank, rank + nc, ... in rounds, each round folded in coil
     // order; the sum between rounds waits in accr, acci).
+    // On the split route the coils' spectra are split over teams
+    // (sense_split.cuh).
     auto normal = [&](const float* vr, const float* vi, int site) {
-        const rls::SenseCluster sense{a.coils_r, a.coils_i, a.wt, tw, sre, sim, accr, acci,
-                                      H, W, C, nc, rank, p0, p1};
-        rls::sense_normal_cluster<kThreads, kFold, kPow2>(
-            sense, vr, vi, cl, prof, sync_cluster,
-            [&](int i, float nr, float ni) { finish(site, i, nr, ni); });
+        auto to = [&](int i, float nr, float ni) { finish(site, i, nr, ni); };
+        if constexpr (kSplit) {
+            const rls::SenseSplit sense{a.coils_r, a.coils_i, a.wt, tw, sre, sim, kre, kim,
+                                        accr, acci, H, W, C, nc, a.team, rank, p0, p1};
+            rls::sense_normal_split<kThreads, kFold, kPow2>(sense, vr, vi, cl, prof,
+                                                            sync_cluster, to);
+        } else {
+            const rls::SenseCluster sense{a.coils_r, a.coils_i, a.wt, tw, sre, sim, accr, acci,
+                                          H, W, C, nc, rank, p0, p1};
+            rls::sense_normal_cluster<kThreads, kFold, kPow2>(sense, vr, vi, cl, prof,
+                                                              sync_cluster, to);
+        }
     };
 
     for (int outer = 0; outer < a.iterations; ++outer) {
@@ -546,6 +598,17 @@ splitbregman_cluster_kernel(const ResidentArgs a) {
     prof.finish();
 }
 
+// The kernel of a cluster plan at H x W: resident (team 1) or split, with
+// the radix-2 code where both sides are powers of two.
+using ClusterKernel = void (*)(const ResidentArgs);
+ClusterKernel cluster_kernel(int H, int W, int team) {
+    if (rls::pow2_shape(H, W))
+        return team == 1 ? splitbregman_cluster_kernel<true, false>
+                         : splitbregman_cluster_kernel<true, true>;
+    return team == 1 ? splitbregman_cluster_kernel<false, false>
+                     : splitbregman_cluster_kernel<false, true>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -576,40 +639,43 @@ int splitbregman_fused_launch(const void* x0hat, const void* scal, const void* t
     return static_cast<int>(cudaGetLastError());
 }
 
-// The resident route's shared memory per CTA at H x W (the planner's
-// check), and how many clusters of `clusters` CTAs the current device holds
-// at once (cudaOccupancyMaxActiveClusters): out[0], out[1].
-int splitbregman_cluster_occupancy(int clusters, int H, int W, long long* out) {
-    if (clusters < 1 || clusters > kMaxCluster || !rls::valid_fft_size(H) ||
-        !rls::valid_fft_size(W))
+// A cluster route's shared memory per CTA at H x W on teams of `team` CTAs
+// (1: the resident route; the planner's check), and how many clusters of
+// `clusters` CTAs the current device holds at once
+// (cudaOccupancyMaxActiveClusters): out[0], out[1].
+int splitbregman_cluster_occupancy(int clusters, int team, int H, int W, long long* out) {
+    if (clusters < 1 || clusters > kMaxCluster || team < 1 || team > kMaxCluster ||
+        team > H || team > W || !rls::valid_fft_size(H) || !rls::valid_fft_size(W))
         return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = resident_smem_bytes(H, W);
+    const size_t smem = cluster_smem_bytes(H, W, team);
     out[0] = static_cast<long long>(smem);
-    out[1] = rls::max_active_clusters(rls::pow2_shape(H, W) ? splitbregman_cluster_kernel<true>
-                                                            : splitbregman_cluster_kernel<false>,
-                                      clusters, kThreads, static_cast<int>(smem));
+    out[1] = 0;
+    if (smem > 0x7fffffff) return 0;
+    out[1] = rls::max_active_clusters(cluster_kernel(H, W, team), clusters, kThreads,
+                                      static_cast<int>(smem));
     return 0;
 }
 
-// The resident route: as splitbregman_fused_launch, with wt the spectral
-// weights transposed ((W, H)), scratch 30 planes of (B, H, W), prof null or
-// kPhases int64 that receive CTA 0's clocks per phase, and the plan:
-// `clusters` CTAs per slice (1 <= clusters <= min(C, 16)), `smem` bytes
-// of shared memory per CTA. Returns cudaErrorInvalidValue for a plan whose
-// smem differs from resident_smem_bytes, else the launch's error.
+// The resident and split routes: as splitbregman_fused_launch, with wt the
+// spectral weights transposed ((W, H)), scratch 30 planes of (B, H, W), prof
+// null or kPhases int64 that receive CTA 0's clocks per phase, and the
+// plan: `clusters` CTAs per slice in teams of `team` CTAs a coil (team 1:
+// resident, one coil a CTA; valid_plan), `smem` bytes of shared memory per
+// CTA. Returns cudaErrorInvalidValue for a plan that is not valid or whose
+// smem differs from cluster_smem_bytes, else the launch's error.
 int splitbregman_cluster_launch(const void* x0hat, const void* scal, const void* t2tab,
                                 const void* tw, const void* wt, const void* coils_r,
                                 const void* coils_i, void* out, void* scratch, void* counts,
                                 void* prof, int B, int H, int W, int C, int iterations,
                                 int iterations_inner, int cg_iterations, int tv_iterations,
-                                float tol_inner, int clusters, int smem, void* stream) {
+                                float tol_inner, int clusters, int team, int smem,
+                                void* stream) {
     const bool valid = B > 0 && rls::valid_fft_size(H) && rls::valid_fft_size(W) &&
-                       clusters >= 1 && clusters <= kMaxCluster && clusters <= C &&
+                       valid_plan(clusters, team, H, W, C) &&
                        static_cast<long long>(B) * clusters < (1LL << 31);
-    if (!valid || static_cast<size_t>(smem) != resident_smem_bytes(H, W))
+    if (!valid || static_cast<size_t>(smem) != cluster_smem_bytes(H, W, team))
         return static_cast<int>(cudaErrorInvalidValue);
-    const auto kernel = rls::pow2_shape(H, W) ? splitbregman_cluster_kernel<true>
-                                              : splitbregman_cluster_kernel<false>;
+    const auto kernel = cluster_kernel(H, W, team);
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg;
     cudaError_t e = rls::cluster_config(kernel, B, clusters, kThreads, smem,
@@ -621,7 +687,8 @@ int splitbregman_cluster_launch(const void* x0hat, const void* scal, const void*
                             static_cast<const float*>(coils_i), static_cast<float*>(out),
                             static_cast<float*>(scratch), static_cast<int*>(counts),
                             static_cast<long long*>(prof), B, H, W, C, iterations,
-                            iterations_inner, cg_iterations, tv_iterations, tol_inner, clusters};
+                            iterations_inner, cg_iterations, tv_iterations, tol_inner, clusters,
+                            team};
     e = cudaLaunchKernelEx(&cfg, kernel, args);
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());

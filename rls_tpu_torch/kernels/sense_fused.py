@@ -19,17 +19,22 @@ from x = x_prev = 0. The SENSE normal op multiplies by each coil's map,
 runs the masked normal op of the in-kernel FFT, and accumulates the
 conjugate maps in coil order (``_dft_common.sense_normal``).
 
-The kernel has two routes, picked by :func:`plan_sense`: **resident**, a
-thread-block cluster of c ≤ min(C, 16) CTAs per slice, CTA k transforming
-coils k, k + c, … with the coil's whole padded spectrum in its shared
-memory and the FFT's stages in registers, each CTA owning a band of rows
-for the coil fold and the pixel update; and **global**, one CTA per slice
-staging the spectrum through shared memory chunk by chunk, for shapes
-whose padded spectrum does not fit one CTA (256 × 128 and larger). The
-planner's pieces (:func:`cluster_size`, :class:`SensePlan`,
+The kernel has three routes, picked by :func:`plan_sense`: **resident**,
+a thread-block cluster of c ≤ min(C, 16) CTAs per slice, CTA k
+transforming coils k, k + c, … with the coil's whole padded spectrum in
+its shared memory and the FFT's stages in registers, each CTA owning a
+band of rows for the coil fold and the pixel update; **split**, for
+shapes whose padded spectrum fits no CTA (192², 256 × 128, 256²), the
+same cluster kernel with each coil's spectrum split over a team of k CTAs
+(each a band of its rows and a block of its columns, the transposes
+through distributed shared memory: ``csrc/sense_split.cuh``), ⌊16/k⌋
+coils a round at most; and **global**, one CTA per slice staging the
+spectrum through shared memory chunk by chunk, for shapes whose spectrum
+fits no team (512² and larger). The planner's pieces
+(:func:`cluster_size`, :func:`coil_plan`, :class:`SensePlan`,
 :func:`plan_coils`, :func:`card_plan`) also plan the SplitBregman kernel,
-whose resident route runs the same SENSE normal op
-(``csrc/sense_cluster.cuh``).
+whose cluster routes run the same SENSE normal op
+(``csrc/sense_cluster.cuh``, ``csrc/sense_split.cuh``).
 
 Not carried over: the TPU's bf16 hi/lo DFT factors, its VMEM gate
 ``_check_vmem_sense`` and ``interpret=``.
@@ -111,12 +116,12 @@ def sense_args(x0hat_b, coils, mask):
 # the kernels' threads per CTA and the largest cluster (csrc/sense_fused.cu,
 # csrc/splitbregman_fused.cu)
 THREADS, MAX_CLUSTER = 1024, 16
-# the phases of the resident route's timer (csrc/sense_fused.cu kPhases)
+# the phases of the cluster routes' timer (csrc/sense_fused.cu kPhases)
 PHASES = ("coil loads", "row ffts", "column ffts", "coil fold", "pixel update",
           "cluster barriers")
-# global scratch planes of (B, H, W). Resident: (re, im) of m, x_prev and
-# the coil sum between rounds. Global: (re, im) of m, x_prev, the spectrum
-# and the coil sum
+# global scratch planes of (B, H, W). Resident and split: (re, im) of m,
+# x_prev and the coil sum between rounds. Global: (re, im) of m, x_prev,
+# the spectrum and the coil sum
 RESIDENT_SCRATCH, GLOBAL_SCRATCH = 6, 8
 # the global route's static shared memory (csrc/dft_common.cuh FftShared,
 # 2 × 4352 + 2 × 1024 floats)
@@ -137,22 +142,79 @@ def resident_smem_bytes(H, W):
                                   + 2 * _ceil4(H * (W + 1)))
 
 
-def cluster_size(C, sms=SMS):
-    """(c, rounds) for C coils: the fewest rounds of at most min(16, sms)
-    coils, then the smallest cluster that gives them (17 coils: 2 rounds
-    on 9 CTAs)."""
-    rounds = -(-C // min(MAX_CLUSTER, sms))
-    return -(-C // rounds), rounds
+def split_smem_bytes(H, W, team):
+    """Shared memory of a split CTA at H × W on teams of `team` CTAs, as
+    ``split_smem_bytes`` in csrc/sense_fused.cu counts it: the phase timer
+    and the twiddles as on the resident route, the band (⌈H/team⌉·W f32 for
+    re, as many for im) and the column block (H·(⌈W/team⌉ + 1) f32 for re,
+    as many for im), each f32 array rounded up to 4 floats."""
+    return 8 * len(PHASES) + 4 * (_ceil4(_dft_common.twiddle_floats(H, W))
+                                  + 2 * split_floats(H, W, team))
+
+
+def split_floats(H, W, team):
+    """f32 of a split CTA's band and block, one plane each, each rounded up
+    to 4 floats (csrc/sense_split.cuh split_band_floats,
+    split_block_floats)."""
+    return _ceil4(-(-H // team) * W) + _ceil4(H * (-(-W // team) + 1))
+
+
+def cluster_smem_bytes(H, W, team):
+    """A cluster CTA's shared memory: :func:`resident_smem_bytes` on team 1,
+    :func:`split_smem_bytes` on larger teams."""
+    return resident_smem_bytes(H, W) if team == 1 else split_smem_bytes(H, W, team)
+
+
+def split_part(n, team, j):
+    """[start, end) of part j when a side of n points is split over `team`
+    parts: n // team points, one more for the first n % team parts
+    (csrc/sense_split.cuh Split)."""
+    q, extra = divmod(n, team)
+    start = j * q + min(j, extra)
+    return start, start + q + (j < extra)
+
+
+def cluster_size(C, sms=SMS, team=1):
+    """(c, rounds) for C coils on teams of `team` CTAs a coil: the fewest
+    rounds of at most ⌊min(16, sms) / team⌋ coils, then the smallest
+    cluster that gives them (17 coils: 2 rounds on 9 CTAs; 6 coils on
+    teams of 3: 2 rounds on 9)."""
+    rounds = -(-C // (min(MAX_CLUSTER, sms) // team))
+    return team * -(-C // rounds), rounds
+
+
+def coil_plan(name, H, W, C, sms, smem_max, cluster_bytes, split=None):
+    """(team, c, rounds) of a cluster plan for C coils of H × W, or None for
+    the global route. Team 1 (resident) where a CTA holds a coil's padded
+    spectrum (``cluster_bytes(H, W, 1)`` ≤ `smem_max`), else the smallest
+    team of 2 … min(16, sms, H, W) CTAs whose split CTA fits, each on the
+    cluster of :func:`cluster_size`. `split`: a forced (team, coils a
+    round); raises ValueError naming it where it is no plan (a team past
+    a side or 16, a cluster past min(16, sms), more coils a round than C,
+    or shared memory past `smem_max`)."""
+    if split is None:
+        team = next((k for k in range(1, min(MAX_CLUSTER, sms, H, W) + 1)
+                     if cluster_bytes(H, W, k) <= smem_max), None)
+        return None if team is None else (team, *cluster_size(C, sms, team))
+    team, per = split
+    if not (1 <= team <= min(H, W) and 1 <= per <= C and team * per <= min(MAX_CLUSTER, sms)
+            and cluster_bytes(H, W, team) <= smem_max):
+        raise ValueError(f"{name}: no plan of teams of {team} CTAs, {per} coils a round at "
+                         f"{H}x{W} with {C} coils ({cluster_bytes(H, W, team)} B of shared "
+                         f"memory a CTA, {smem_max} on the card)")
+    return team, team * per, -(-C // per)
 
 
 @dataclasses.dataclass(frozen=True)
 class SensePlan:
     """How a launch of a SENSE kernel (rows 9 and 10) on B slices runs:
-    `route` "resident" (a cluster of `clusters` CTAs per slice, coils in
-    `rounds` rounds) or "global" (one CTA per slice, every coil in turn);
-    `ctas` CTAs in all, `smem` bytes of shared memory per CTA, `scratch`
-    planes of (B, H, W) in global memory, and on the resident route
-    `resident_clusters`, the clusters the card holds at once."""
+    `route` "resident" (a cluster of `clusters` CTAs per slice, a coil a
+    CTA, coils in `rounds` rounds), "split" (the same with each coil's
+    spectrum split over a team of `team` CTAs) or "global" (one CTA per
+    slice, every coil in turn); `ctas` CTAs in all, `smem` bytes of shared
+    memory per CTA, `scratch` planes of (B, H, W) in global memory, and on
+    the cluster routes `resident_clusters`, the clusters the card holds at
+    once."""
 
     route: str
     clusters: int
@@ -163,6 +225,7 @@ class SensePlan:
     smem: int
     scratch: int
     resident_clusters: int | None
+    team: int = 1
 
     def band(self, rank):
         """[r0, r1): the image rows CTA `rank` owns for the fold and the
@@ -173,89 +236,102 @@ class SensePlan:
         return r0, r0 + q + (rank < extra)
 
 
-def plan_coils(name, B, H, W, C, resident, sms, smem_max, smem, scratch) -> SensePlan:
+def plan_coils(name, B, H, W, C, resident, sms, smem_max, cluster_bytes, global_smem, scratch,
+               split=None) -> SensePlan:
     """The route of kernel `name`'s launch of B slices of H × W with C
     coils, on a card of `sms` SMs and `smem_max` bytes of shared memory per
-    block that holds n clusters of c resident CTAs at once for each pair
-    (c, n) of `resident` (a size not named is held 0 times); `smem` and
-    `scratch` are (resident, global) shared memory per CTA and global
-    planes. Resident where the resident CTA's shared memory fits, on the
-    cluster size of :func:`cluster_size`; else global. Raises ValueError
-    naming the shape where it is empty or not the FFT's, and naming the
-    plan where the card holds no cluster of it (no fallback)."""
+    block that holds n clusters of c cluster CTAs at once for each pair
+    (c, n) of `resident` (a size not named is held 0 times);
+    `cluster_bytes(H, W, team)` is a cluster CTA's shared memory,
+    `global_smem` the global route's, and `scratch` (cluster, global)
+    global planes. Resident or split on the plan of :func:`coil_plan`
+    (`split` forces one); else global. Raises ValueError naming the shape
+    where it is empty or not the FFT's, and naming the plan where the card
+    holds no cluster of it (no fallback)."""
     if min(B, C) < 1:
         raise ValueError(f"{name}: empty shape {B} x {H}x{W}, {C} coils")
     check_fft_shape(H, W)
-    if smem[0] > smem_max:
-        return SensePlan("global", 1, C, H, C, B, smem[1], scratch[1], None)
-    c, rounds = cluster_size(C, sms)
+    shape = coil_plan(name, H, W, C, sms, smem_max, cluster_bytes, split)
+    if shape is None:
+        return SensePlan("global", 1, C, H, C, B, global_smem, scratch[1], None)
+    team, c, rounds = shape
     held = dict(resident).get(c, 0)
-    plan = SensePlan("resident", c, rounds, H, C, B * c, smem[0], scratch[0], held)
+    plan = SensePlan("resident" if team == 1 else "split", c, rounds, H, C, B * c,
+                     cluster_bytes(H, W, team), scratch[0], held, team)
     if held < 1:
         raise ValueError(f"{name}: the card holds no cluster of {plan} ({B} x {H}x{W}, {C} coils)")
     return plan
 
 
 @functools.lru_cache(maxsize=256)
-def plan_sense(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX) -> SensePlan:
+def plan_sense(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX, split=None) -> SensePlan:
     """The route of a fused FISTA-L21-SENSE launch (:func:`plan_coils`):
     resident where the timer, the twiddles and a coil's padded spectrum
-    (:func:`resident_smem_bytes`) fit one CTA, else global."""
+    (:func:`resident_smem_bytes`) fit one CTA, else split where a team's
+    CTA (:func:`split_smem_bytes`) fits, else global."""
     return plan_coils("fista_l21_sense_fused", B, H, W, C, resident, sms, smem_max,
-                      (resident_smem_bytes(H, W), GLOBAL_SMEM),
-                      (RESIDENT_SCRATCH, GLOBAL_SCRATCH))
+                      cluster_smem_bytes, GLOBAL_SMEM, (RESIDENT_SCRATCH, GLOBAL_SCRATCH), split)
 
 
 @functools.lru_cache(maxsize=None)
-def cluster_limits(entry, index, clusters, H, W):
+def cluster_limits(entry, index, clusters, team, H, W):
     """(shared memory per CTA as the kernel counts it, clusters of its
-    resident kernel that device `index` holds at once:
+    cluster kernel on teams of `team` that device `index` holds at once:
     ``cudaOccupancyMaxActiveClusters``), by the C entry point `entry`."""
     out = (ctypes.c_longlong * 2)()
     with torch.cuda.device(index):
-        _build.check(getattr(_build.load_library(), entry)(clusters, H, W, out), entry)
+        _build.check(getattr(_build.load_library(), entry)(clusters, team, H, W, out), entry)
     return out[0], out[1]
+
+
+def plan_limits(index, clusters, team, H, W):
+    """:func:`cluster_limits` of the FISTA-L21-SENSE cluster kernel."""
+    return cluster_limits("sense_cluster_occupancy", index, clusters, team, H, W)
 
 
 def resident_limits(index, clusters, H, W):
     """:func:`cluster_limits` of the resident FISTA-L21-SENSE kernel."""
-    return cluster_limits("sense_cluster_occupancy", index, clusters, H, W)
+    return plan_limits(index, clusters, 1, H, W)
 
 
-def card_plan(name, x0hat, C, plan, smem_bytes, limits):
-    """``plan(B, H, W, C, held, sms, smem_max)`` for a launch on x0hat's
-    card ((B, 2, H, W), C coils), with the card's residency of the cluster
-    size (``limits(index, c, H, W)``, which also returns the kernel's count
-    of ``smem_bytes(H, W)``: a count that differs raises RuntimeError)."""
+def card_plan(name, x0hat, C, plan, cluster_bytes, limits, split=None):
+    """``plan(B, H, W, C, held, sms, smem_max, split)`` for a launch on
+    x0hat's card ((B, 2, H, W), C coils), with the card's residency of the
+    cluster plan's size (``limits(index, c, team, H, W)``, which also
+    returns the kernel's count of ``cluster_bytes(H, W, team)``: a count
+    that differs raises RuntimeError)."""
     B, _, H, W = x0hat.shape
     index = x0hat.device.index or 0
     sms, smem_max = _build.device_limits(index)
     check_fft_shape(H, W)
-    c, _ = cluster_size(C, sms)
     held = ()
-    if smem_bytes(H, W) <= smem_max:
-        smem, active = limits(index, c, H, W)
-        if smem != smem_bytes(H, W):
+    shape = coil_plan(name, H, W, max(C, 1), sms, smem_max, cluster_bytes, split)
+    if shape is not None:
+        team, c, _ = shape
+        smem, active = limits(index, c, team, H, W)
+        if smem != cluster_bytes(H, W, team):
             raise RuntimeError(f"{name}: the kernel counts {smem} bytes of shared memory at "
-                               f"{H}x{W}, the planner {smem_bytes(H, W)}")
+                               f"{H}x{W} on teams of {team}, the planner "
+                               f"{cluster_bytes(H, W, team)}")
         held = ((c, active),)
-    return plan(B, H, W, C, held, sms, smem_max)
+    return plan(B, H, W, C, held, sms, smem_max, split)
 
 
-def plan_on_card(x0hat, C):
-    """The plan of a launch on x0hat's card ((B, 2, H, W), C coils). Raises
-    ValueError where the resident plan has no cluster the card can hold."""
-    return card_plan("fista_l21_sense_fused", x0hat, C, plan_sense, resident_smem_bytes,
-                     resident_limits)
+def plan_on_card(x0hat, C, split=None):
+    """The plan of a launch on x0hat's card ((B, 2, H, W), C coils; `split`
+    a forced (team, coils a round)). Raises ValueError where the cluster
+    plan has no cluster the card can hold."""
+    return card_plan("fista_l21_sense_fused", x0hat, C, plan_sense, cluster_smem_bytes,
+                     plan_limits, split)
 
 
-def _launch(x0hat, scal, tab, coils, tables, prof=None):
+def _launch(x0hat, scal, tab, coils, tables, prof=None, split=None):
     B, _, H, W = x0hat.shape
     C = coils[0].shape[0]
-    plan = plan_on_card(x0hat, C)
-    if prof is not None and plan.route != "resident":
-        raise ValueError(f"fista_l21_sense_fused: the phase timer is on the resident route, "
-                         f"not {plan}")
+    plan = plan_on_card(x0hat, C, split)
+    if prof is not None and plan.route == "global":
+        raise ValueError(f"fista_l21_sense_fused: the phase timer is on the resident route and "
+                         f"the split route, not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
     tw = twiddle_tensor(tables)
@@ -263,13 +339,13 @@ def _launch(x0hat, scal, tab, coils, tables, prof=None):
     scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.route == "resident":
+        if plan.route != "global":
             wt = tables[2].T.contiguous()  # read along a spectrum column
             code = lib.sense_cluster_launch(
                 x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(),
                 wt.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), None if prof is None else prof.data_ptr(), B, H, W, C,
-                tab.shape[0], plan.clusters, plan.smem, stream)
+                tab.shape[0], plan.clusters, plan.team, plan.smem, stream)
         else:
             weights = tables[2].contiguous()
             code = lib.sense_fused_launch(
@@ -290,27 +366,30 @@ def _kernel_args(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations):
     return (scal, tab, *sense_args(x0hat_b, (coils_r, coils_i), mask))
 
 
-def phase_clocks(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int):
-    """One launch of the resident kernel with its phase timer on: {phase:
-    SM clocks that CTA 0 spent in it over the whole solve} (``PHASES``; the
-    launch counts in ``fista_l21_sense_fused.launches``). Raises on the
-    global route."""
+def phase_clocks(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int, split=None):
+    """One launch of the cluster kernel (resident or split) with its phase
+    timer on: {phase: SM clocks that CTA 0 spent in it over the whole
+    solve} (``PHASES``; the launch counts in
+    ``fista_l21_sense_fused.launches``). Raises on the global route."""
     scal, tab, coils, tables = _kernel_args(x0hat_b, mask, coils_r, coils_i, rho, lam,
                                             iterations)
     check_dft_cuda_input("fista_l21_sense_fused", x0hat_b, mask, *coils)
     prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
-    _launch(x0hat_b.contiguous(), scal, tab, coils, tables, prof)
+    _launch(x0hat_b.contiguous(), scal, tab, coils, tables, prof, split)
     return dict(zip(PHASES, prof.tolist()))
 
 
-def fista_l21_sense_fused(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int):
+def fista_l21_sense_fused(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int,
+                          split=None):
     """Batched FISTA-L21 on C-coil SENSE in one launch, on the route of
     :func:`plan_sense` (a cluster of CTAs per slice, one coil's spectrum in
-    each CTA's shared memory, or one CTA per slice).
+    each CTA's shared memory or split over a team of CTAs, or one CTA per
+    slice).
 
     x0hat_b: (B, 2, H, W) split [re; im] Aᴴb; mask (H, W); coils_r,
     coils_i (C, H, W); rho, lam: scalars or (B,) (λ already
-    normalization-scaled). The plain version runs for a CPU tensor, the
+    normalization-scaled); `split`: a forced cluster plan (team, coils a
+    round), for measuring. The plain version runs for a CPU tensor, the
     CUDA kernel (float32) for a CUDA tensor.
     ``fista_l21_sense_fused.launches`` counts the kernel's launches, and
     ``fista_l21_sense_fused.route_launches`` the launches by route."""
@@ -319,11 +398,11 @@ def fista_l21_sense_fused(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations:
     if x0hat_b.device.type == "cpu":
         return fista_l21_sense_fused_torch(x0hat_b, scal, tab, coils, tables)
     check_dft_cuda_input("fista_l21_sense_fused", x0hat_b, mask, *coils)
-    return _launch(x0hat_b.contiguous(), scal, tab, coils, tables)
+    return _launch(x0hat_b.contiguous(), scal, tab, coils, tables, split=split)
 
 
 fista_l21_sense_fused.launches = 0
-fista_l21_sense_fused.route_launches = {"resident": 0, "global": 0}
+fista_l21_sense_fused.route_launches = {"resident": 0, "split": 0, "global": 0}
 
 
 def check_fista_l21_sense_fused(solver):

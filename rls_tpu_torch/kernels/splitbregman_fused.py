@@ -28,14 +28,17 @@ the same at every call; the JAX kernel runs it with ``fgp_unroll=True``.
 Both versions return per-problem counts, (B,) int32: the CG steps that
 were live, summed over the whole solve.
 
-The kernel has two routes, picked by :func:`plan_splitbregman`:
+The kernel has three routes, picked by :func:`plan_splitbregman`:
 **resident**, a thread-block cluster of c ≤ min(C, 16) CTAs per slice, CTA
 k transforming coils k, k + c, … with the coil's whole padded spectrum in
 its shared memory and the FFT's stages in registers (``csrc/fft_resident.cuh``),
 each CTA owning a band of rows for the coil fold and the vector phases;
-and **global**, one CTA per slice staging the spectrum through shared
-memory chunk by chunk (``csrc/dft_common.cuh``), for shapes whose padded
-spectrum does not fit one CTA (256 × 128 and larger).
+**split**, for shapes whose padded spectrum fits no CTA (192², 256 × 128,
+256²), the same cluster kernel with each coil's spectrum split over a
+team of CTAs (``csrc/sense_split.cuh``; the plan of
+``sense_fused.coil_plan``); and **global**, one CTA per slice staging the
+spectrum through shared memory chunk by chunk (``csrc/dft_common.cuh``),
+for shapes whose spectrum fits no team (512² and larger).
 
 Not carried over: the TPU's 3-way bf16 DFT factors (``_dft_cat3``) and
 the compensated seed built from them (:394-411): the seed here is the
@@ -62,6 +65,7 @@ from ._dft_common import (
 )
 from .sense_fused import (
     THREADS, SensePlan, card_plan, cluster_limits, group_threshold, plan_coils, sense_args,
+    split_floats,
 )
 # the cluster size rule and the largest cluster, the same for both SENSE kernels
 from .sense_fused import MAX_CLUSTER, cluster_size  # noqa: F401
@@ -162,10 +166,10 @@ def kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations, dtype=np.float32
     return scal, t2tab
 
 
-# the phases of the resident route's timer (csrc/splitbregman_fused.cu kPhases)
+# the phases of the cluster routes' timer (csrc/splitbregman_fused.cu kPhases)
 PHASES = ("coil loads", "row ffts", "column ffts", "coil fold", "vector phases",
           "cluster sums", "fgp", "cluster barriers")
-# global scratch planes of (B, H, W). Resident: (re, im) of β_y, z₁, u₁,
+# global scratch planes of (B, H, W). Resident and split: (re, im) of β_y, z₁, u₁,
 # z₂, u₂, β | v, r, p, q and the coil sum between rounds, and the FGP's pv,
 # ph, rv, rh, y for each plane. Global: (re, im) of β_y, z₁, u₁, z₂, u₂, β,
 # r, p, q, the spectrum and the coil sum, and one set of the FGP's five
@@ -191,43 +195,68 @@ def resident_smem_bytes(H, W):
             + 4 * (_ceil4(_dft_common.twiddle_floats(H, W)) + 2 * _ceil4(H * (W + 1))))
 
 
+def split_smem_bytes(H, W, team):
+    """Shared memory of a split CTA at H × W on teams of `team` CTAs, as
+    ``split_smem_bytes`` in csrc/splitbregman_fused.cu counts it: the sums,
+    the phase timer and the twiddles as on the resident route, the band
+    (⌈H/team⌉·W f32 for re, as many for im) and the column block
+    (H·(⌈W/team⌉ + 1) f32 for re, as many for im), each f32 array rounded up
+    to 4 floats."""
+    return (8 * (3 * (THREADS // 32) + 12) + 8 * len(PHASES)
+            + 4 * (_ceil4(_dft_common.twiddle_floats(H, W)) + 2 * split_floats(H, W, team)))
+
+
+def cluster_smem_bytes(H, W, team):
+    """A cluster CTA's shared memory: :func:`resident_smem_bytes` on team 1,
+    :func:`split_smem_bytes` on larger teams."""
+    return resident_smem_bytes(H, W) if team == 1 else split_smem_bytes(H, W, team)
+
+
 @functools.lru_cache(maxsize=256)
-def plan_splitbregman(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX) -> SensePlan:
+def plan_splitbregman(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX,
+                      split=None) -> SensePlan:
     """The route of a fused SplitBregman launch of B slices of H × W with C
     coils (``sense_fused.plan_coils``, shared with the FISTA-L21-SENSE
     kernel): resident where a coil's padded spectrum and the rest of
     :func:`resident_smem_bytes` fit one CTA, on the cluster size of
-    ``sense_fused.cluster_size``; else global. Raises ValueError naming the
-    shape where it is empty or not the FFT's, and naming the plan where the
-    card holds no cluster of it (no fallback)."""
+    ``sense_fused.cluster_size``; else split on the smallest team whose CTA
+    (:func:`split_smem_bytes`) fits; else global; `split` forces a (team,
+    coils a round). Raises ValueError naming the shape where it is empty or
+    not the FFT's, and naming the plan where the card holds no cluster of
+    it (no fallback)."""
     return plan_coils("splitbregman_l1_tv_fused", B, H, W, C, resident, sms, smem_max,
-                      (resident_smem_bytes(H, W), GLOBAL_SMEM),
-                      (RESIDENT_SCRATCH, GLOBAL_SCRATCH))
+                      cluster_smem_bytes, GLOBAL_SMEM, (RESIDENT_SCRATCH, GLOBAL_SCRATCH), split)
+
+
+def plan_limits(index, clusters, team, H, W):
+    """``sense_fused.cluster_limits`` of the SplitBregman cluster kernel on
+    teams of `team`: (shared memory per CTA as the kernel counts it,
+    clusters that device `index` holds at once)."""
+    return cluster_limits("splitbregman_cluster_occupancy", index, clusters, team, H, W)
 
 
 def resident_limits(index, clusters, H, W):
-    """``sense_fused.cluster_limits`` of the resident SplitBregman kernel:
-    (shared memory per CTA as the kernel counts it, clusters that device
-    `index` holds at once)."""
-    return cluster_limits("splitbregman_cluster_occupancy", index, clusters, H, W)
+    """:func:`plan_limits` of the resident SplitBregman kernel."""
+    return plan_limits(index, clusters, 1, H, W)
 
 
-def plan_on_card(x0hat, C):
-    """The plan of a launch on x0hat's card ((B, 2, H, W), C coils), with
-    the card's residency of its cluster size. Raises ValueError where the
-    resident plan has no cluster the card can hold."""
+def plan_on_card(x0hat, C, split=None):
+    """The plan of a launch on x0hat's card ((B, 2, H, W), C coils; `split`
+    a forced (team, coils a round)), with the card's residency of its
+    cluster size. Raises ValueError where the cluster plan has no cluster
+    the card can hold."""
     return card_plan("splitbregman_l1_tv_fused", x0hat, C, plan_splitbregman,
-                     resident_smem_bytes, resident_limits)
+                     cluster_smem_bytes, plan_limits, split)
 
 
 def _launch(x0hat, scal, t2tab, coils, tables, iterations, iterations_inner, cg_iterations,
-            tol_inner, prof=None):
+            tol_inner, prof=None, split=None):
     B, _, H, W = x0hat.shape
     C = coils[0].shape[0]
-    plan = plan_on_card(x0hat, C)
-    if prof is not None and plan.route != "resident":
-        raise ValueError(f"splitbregman_l1_tv_fused: the phase timer is on the resident route, "
-                         f"not {plan}")
+    plan = plan_on_card(x0hat, C, split)
+    if prof is not None and plan.route == "global":
+        raise ValueError(f"splitbregman_l1_tv_fused: the phase timer is on the resident route "
+                         f"and the split route, not {plan}")
     lib = _build.load_library()
     dev = x0hat.device
     tw = twiddle_tensor(tables)
@@ -238,13 +267,13 @@ def _launch(x0hat, scal, t2tab, coils, tables, iterations, iterations_inner, cg_
              float(tol_inner))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.route == "resident":
+        if plan.route != "global":
             wt = tables[2].T.contiguous()  # read along a spectrum column
             code = lib.splitbregman_cluster_launch(
                 x0hat.data_ptr(), scal.data_ptr(), t2tab.data_ptr(), tw.data_ptr(),
                 wt.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
                 scratch.data_ptr(), counts.data_ptr(), None if prof is None else prof.data_ptr(),
-                *sched, plan.clusters, plan.smem, stream)
+                *sched, plan.clusters, plan.team, plan.smem, stream)
         else:
             weights = tables[2].contiguous()
             code = lib.splitbregman_fused_launch(
@@ -259,32 +288,34 @@ def _launch(x0hat, scal, t2tab, coils, tables, iterations, iterations_inner, cg_
 
 def phase_clocks(x0hat_b, mask, coils_r, coils_i, rho1, rho2, lam1, lam2, iterations: int,
                  iterations_inner: int, cg_iterations: int, tv_iterations: int,
-                 tol_inner: float):
-    """One launch of the resident kernel with its phase timer on: {phase:
-    SM clocks that CTA 0 spent in it over the whole solve} (``PHASES``; the
-    launch counts in ``splitbregman_l1_tv_fused.launches``). Raises on the
-    global route."""
+                 tol_inner: float, split=None):
+    """One launch of the cluster kernel (resident or split) with its phase
+    timer on: {phase: SM clocks that CTA 0 spent in it over the whole
+    solve} (``PHASES``; the launch counts in
+    ``splitbregman_l1_tv_fused.launches``). Raises on the global route."""
     scal, t2tab = kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations)
     coils, tables = sense_args(x0hat_b, (coils_r, coils_i), mask)
     check_dft_cuda_input("splitbregman_l1_tv_fused", x0hat_b, mask, *coils)
     prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
     _launch(x0hat_b.contiguous(), scal, t2tab, coils, tables, iterations, iterations_inner,
-            cg_iterations, tol_inner, prof)
+            cg_iterations, tol_inner, prof, split)
     return dict(zip(PHASES, prof.tolist()))
 
 
 def splitbregman_l1_tv_fused(
     x0hat_b, mask, coils_r, coils_i, rho1, rho2, lam1, lam2, iterations: int,
     iterations_inner: int, cg_iterations: int, tv_iterations: int, tol_inner: float,
-    with_counts=False,
+    with_counts=False, split=None,
 ):
     """Batched SplitBregman L21 + TV on C-coil SENSE in one launch, on the
     route of :func:`plan_splitbregman` (a cluster of CTAs per slice, one
-    coil's spectrum in each CTA's shared memory, or one CTA per slice).
+    coil's spectrum in each CTA's shared memory or split over a team of
+    CTAs, or one CTA per slice).
 
     x0hat_b: (B, 2, H, W) split [re; im] Aᴴb; mask (H, W); coils_r,
     coils_i (C, H, W); rho1, rho2 the L21 and TV terms' ρ, lam1, lam2
-    their λ (scalars or (B,), already normalization-scaled). The plain
+    their λ (scalars or (B,), already normalization-scaled); `split`: a
+    forced cluster plan (team, coils a round), for measuring. The plain
     version runs for a CPU tensor, the CUDA kernel (float32) for a CUDA
     tensor. ``splitbregman_l1_tv_fused.launches`` counts the kernel's
     launches, and ``splitbregman_l1_tv_fused.route_launches`` the launches
@@ -298,12 +329,12 @@ def splitbregman_l1_tv_fused(
         out = splitbregman_l1_tv_fused_torch(x0hat_b, scal, t2tab, coils, tables, *args)
     else:
         check_dft_cuda_input("splitbregman_l1_tv_fused", x0hat_b, mask, *coils)
-        out = _launch(x0hat_b.contiguous(), scal, t2tab, coils, tables, *args)
+        out = _launch(x0hat_b.contiguous(), scal, t2tab, coils, tables, *args, split=split)
     return out if with_counts else out[0]
 
 
 splitbregman_l1_tv_fused.launches = 0
-splitbregman_l1_tv_fused.route_launches = {"resident": 0, "global": 0}
+splitbregman_l1_tv_fused.route_launches = {"resident": 0, "split": 0, "global": 0}
 
 
 def _term_order(solver):

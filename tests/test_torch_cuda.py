@@ -1551,12 +1551,20 @@ def test_cluster_counts_of_the_fista_l1_dft_planner_tests(dev, shape):
         assert got == held[c], (c, shape)
 
 
-# FISTA-L21-SENSE's cases: every FFT_SHAPES shape at 1 and 3 coils (the
-# large ones on the global route), and at 128² the resident route's cluster
+# FISTA-L21-SENSE's cases: every FFT_SHAPES shape at 1 and 3 coils (256 ×
+# 128 on the split route, 512² on the global one), and at 128² the resident route's cluster
 # of 6 and 9 CTAs and 17 coils in two rounds on 9; 2 × 4 at 6 coils leaves
 # four of the six CTAs without a row of the image
 SENSE_CASES = [(shape, coils) for shape in FFT_SHAPES for coils in (1, 3)] + [
     ((128, 128), 1), ((128, 128), 6), ((128, 128), 9), ((128, 128), 17), ((2, 4), 6)]
+
+
+def _sense_route(module, shape):
+    """The route of a SENSE kernel's plan at `shape` on an H100: resident
+    where a coil's padded spectrum fits a CTA, split where a team's CTA
+    does, else global."""
+    fits = [k for k in range(1, 17) if module.cluster_smem_bytes(*shape, k) <= 232_448]
+    return "global" if not fits else "resident" if fits[0] == 1 else "split"
 
 
 def _sense_inputs(dev, shape, coils):
@@ -1573,15 +1581,14 @@ def _sense_plain(x0, mask, cr, ci, lam, iterations):
 
 @pytest.mark.parametrize("shape,coils", SENSE_CASES)
 def test_sense_kernel_matches_plain(dev, shape, coils):
-    """Every case on its planned route (the cluster route where a coil's
-    spectrum fits one CTA), by the route counter, bit for bit the plain
-    version."""
+    """Every case on its planned route (the resident route where a coil's
+    spectrum fits one CTA, the split route where a team's share does), by
+    the route counter, bit for bit the plain version."""
     x0, mask, cr, ci, lam = _sense_inputs(dev, shape, coils)
     plan = sense.plan_on_card(x0, coils)
-    fits = sense.resident_smem_bytes(*shape) <= 232_448
-    assert plan.route == ("resident" if fits else "global")
-    if plan.route == "resident":
-        assert (plan.clusters, plan.rounds) == sense.cluster_size(coils)
+    assert plan.route == _sense_route(sense, shape)
+    if plan.route != "global":
+        assert (plan.clusters, plan.rounds) == sense.cluster_size(coils, team=plan.team)
         assert plan.resident_clusters >= 1
     before = sense.fista_l21_sense_fused.launches
     on_route = sense.fista_l21_sense_fused.route_launches[plan.route]
@@ -1621,19 +1628,20 @@ def test_sense_resident_route_repeats_bit_for_bit(dev, shape, coils):
 
 
 def test_sense_phase_clocks(dev):
-    """The resident kernel's phase timer: one launch, the same x as without
-    the timer, clocks in every phase; the global route has no timer and
-    raises."""
-    x0, mask, cr, ci, lam = _sense_inputs(dev, (128, 128), 6)
-    args = (x0, mask, cr, ci, 0.9, lam, 5)
-    want = sense.fista_l21_sense_fused(*args)
-    before = sense.fista_l21_sense_fused.launches
-    clocks = sense.phase_clocks(*args)
-    assert sense.fista_l21_sense_fused.launches == before + 1
-    assert list(clocks) == list(sense.PHASES)
-    assert all(v > 0 for v in clocks.values()), clocks
-    assert torch.equal(sense.fista_l21_sense_fused(*args), want)
-    x0g, maskg, crg, cig, lamg = _sense_inputs(dev, (256, 128), 2)
+    """The cluster kernel's phase timer, resident (128²) and split (192²):
+    one launch, the same x as without the timer, clocks in every phase;
+    the global route has no timer and raises."""
+    for shape in ((128, 128), (192, 192)):
+        x0, mask, cr, ci, lam = _sense_inputs(dev, shape, 6)
+        args = (x0, mask, cr, ci, 0.9, lam, 5)
+        want = sense.fista_l21_sense_fused(*args)
+        before = sense.fista_l21_sense_fused.launches
+        clocks = sense.phase_clocks(*args)
+        assert sense.fista_l21_sense_fused.launches == before + 1
+        assert list(clocks) == list(sense.PHASES)
+        assert all(v > 0 for v in clocks.values()), clocks
+        assert torch.equal(sense.fista_l21_sense_fused(*args), want)
+    x0g, maskg, crg, cig, lamg = _sense_inputs(dev, (512, 512), 2)
     with pytest.raises(ValueError, match="resident route"):
         sense.phase_clocks(x0g, maskg, crg, cig, 0.9, lamg, 1)
 
@@ -1657,8 +1665,29 @@ def test_cluster_counts_of_the_sense_planner_tests(dev, shape):
         assert got == held[c], (c, shape)
 
 
-# SplitBregman's cases: every FFT_SHAPES shape at 3 coils (the large ones on
-# the global route), and at 128² the resident route's cluster of 1, 6 and 9
+@pytest.mark.parametrize("module", [sense, sb], ids=["row9", "row10"])
+@pytest.mark.parametrize("shape,team", [((192, 192), 3), ((256, 128), 3), ((256, 256), 5)])
+def test_split_cluster_counts_of_the_planner_tests(dev, module, shape, team):
+    """On an H100 the card holds, for every cluster size of a split plan,
+    the clusters of the split kernel that the planner tests plan with
+    (tests/test_torch_sense_split.py: 9 of 9 CTAs at 192²), and counts the
+    planner's shared memory."""
+    from test_torch_sense_plan import H100_RESIDENT
+
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    held = dict(H100_RESIDENT)
+    for c in range(team, module.MAX_CLUSTER + 1, team):
+        smem, got = module.plan_limits(dev.index, c, team, *shape)
+        assert smem == module.split_smem_bytes(*shape, team)
+        assert got == held[c], (c, shape)
+
+
+# SplitBregman's cases: every FFT_SHAPES shape at 3 coils (256 × 128 on the
+# split route, 512² on the global one), and at 128² the resident route's cluster of 1, 6 and 9
 # CTAs and 17 coils in two rounds on 9; 2 × 4 at 6 coils leaves four of the
 # six CTAs without a row of the image
 SB_CASES = [(shape, 3) for shape in FFT_SHAPES] + [
@@ -1676,10 +1705,9 @@ def _sb_inputs(dev, shape, coils, rho1=(0.01, 0.0, 0.05)):
 def test_splitbregman_kernel_matches_plain(dev, shape, coils, tol_inner, tv_iterations):
     x0, mask, cr, ci, rho1 = _sb_inputs(dev, shape, coils)
     plan = sb.plan_on_card(x0, coils)
-    fits = sb.resident_smem_bytes(*shape) <= 232_448
-    assert plan.route == ("resident" if fits else "global")
-    if plan.route == "resident":
-        assert (plan.clusters, plan.rounds) == sb.cluster_size(coils)
+    assert plan.route == _sense_route(sb, shape)
+    if plan.route != "global":
+        assert (plan.clusters, plan.rounds) == sb.cluster_size(coils, team=plan.team)
         assert plan.resident_clusters >= 1
     sched = (2, 3, 4, tv_iterations, tol_inner)
     before = sb.splitbregman_l1_tv_fused.launches
@@ -1732,19 +1760,20 @@ def test_splitbregman_resident_route_repeats_bit_for_bit(dev, shape, coils):
 
 
 def test_splitbregman_phase_clocks(dev):
-    """The resident kernel's phase timer: one launch, the same x and counts
-    as without the timer, clocks in every phase; the global route has no
-    timer and raises."""
-    x0, mask, cr, ci, rho1 = _sb_inputs(dev, (128, 128), 6)
-    args = (x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, 2, 2, 3, 2, 1e-5)
-    want = sb.splitbregman_l1_tv_fused(*args)
-    before = sb.splitbregman_l1_tv_fused.launches
-    clocks = sb.phase_clocks(*args)
-    assert sb.splitbregman_l1_tv_fused.launches == before + 1
-    assert list(clocks) == list(sb.PHASES)
-    assert all(v > 0 for v in clocks.values()), clocks
-    assert torch.equal(sb.splitbregman_l1_tv_fused(*args), want)
-    x0g, maskg, crg, cig, _ = _sb_inputs(dev, (256, 128), 2)
+    """The cluster kernel's phase timer, resident (128²) and split (192²):
+    one launch, the same x and counts as without the timer, clocks in
+    every phase; the global route has no timer and raises."""
+    for shape in ((128, 128), (192, 192)):
+        x0, mask, cr, ci, rho1 = _sb_inputs(dev, shape, 6)
+        args = (x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, 2, 2, 3, 2, 1e-5)
+        want = sb.splitbregman_l1_tv_fused(*args)
+        before = sb.splitbregman_l1_tv_fused.launches
+        clocks = sb.phase_clocks(*args)
+        assert sb.splitbregman_l1_tv_fused.launches == before + 1
+        assert list(clocks) == list(sb.PHASES)
+        assert all(v > 0 for v in clocks.values()), clocks
+        assert torch.equal(sb.splitbregman_l1_tv_fused(*args), want)
+    x0g, maskg, crg, cig, _ = _sb_inputs(dev, (512, 512), 2)
     with pytest.raises(ValueError, match="resident route"):
         sb.phase_clocks(x0g, maskg, crg, cig, rho1, 0.02, 1e-3, 2e-3, 1, 1, 1, 1, 1e-5)
 
@@ -1800,7 +1829,7 @@ MIXED_L1DFT = {(3, 24, 40): ("resident", 1), (3, 17, 32): ("resident", 1),
                (2, 97, 128): ("global", 1), (2, 1021, 3): ("resident", 1),
                (2, 3, 1021): ("resident", 1)}
 # rows 9 and 10: (H, W, coils); 64 × 192 and the small ones resident, 192²
-# global
+# split (teams of 3 CTAs a coil)
 MIXED_SENSE = [(24, 40, 3), (17, 24, 2), (64, 192, 6), (192, 192, 6), (96, 12, 17)]
 
 
@@ -1847,7 +1876,7 @@ def test_fista_l1_dft_mixed_radix_repeats_bit_for_bit(dev, size):
 def test_sense_mixed_radix_matches_plain(dev, H, W, coils):
     x0, mask, cr, ci, lam = _sense_inputs(dev, (H, W), coils)
     plan = sense.plan_on_card(x0, coils)
-    assert plan.route == ("global" if (H, W) == (192, 192) else "resident")
+    assert plan.route == ("split" if (H, W) == (192, 192) else "resident")
     on_route = sense.fista_l21_sense_fused.route_launches[plan.route]
     got = sense.fista_l21_sense_fused(x0, mask, cr, ci, 0.9, lam, 9)
     assert sense.fista_l21_sense_fused.route_launches[plan.route] == on_route + 1
@@ -1856,8 +1885,12 @@ def test_sense_mixed_radix_matches_plain(dev, H, W, coils):
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
-@pytest.mark.parametrize("H,W,coils", [(64, 192, 6), (96, 12, 17)])
+@pytest.mark.parametrize("H,W,coils", [(64, 192, 6), (96, 12, 17), (192, 192, 6),
+                                       (256, 128, 6)])
 def test_sense_mixed_radix_repeats_bit_for_bit(dev, H, W, coils):
+    """20 launches, each equal to the first and to the plain version, on
+    the resident route and on the split one (192², 256 × 128): a race
+    between a cluster's CTAs would show as a launch that differs."""
     x0, mask, cr, ci, lam = _sense_inputs(dev, (H, W), coils)
     args = (x0, mask, cr, ci, 0.9, lam, 12)
     first = sense.fista_l21_sense_fused(*args)
@@ -1872,7 +1905,7 @@ def test_splitbregman_mixed_radix_matches_plain(dev, H, W, coils):
     in another order) with equal live CG steps."""
     x0, mask, cr, ci, rho1 = _sb_inputs(dev, (H, W), coils)
     plan = sb.plan_on_card(x0, coils)
-    assert plan.route == ("global" if (H, W) == (192, 192) else "resident")
+    assert plan.route == ("split" if (H, W) == (192, 192) else "resident")
     sched = (2, 3, 4, 4, 1e-5)
     on_route = sb.splitbregman_l1_tv_fused.route_launches[plan.route]
     got, counts = sb.splitbregman_l1_tv_fused(x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, *sched,
@@ -1885,7 +1918,8 @@ def test_splitbregman_mixed_radix_matches_plain(dev, H, W, coils):
     assert counts.tolist() == want_counts.tolist()
 
 
-@pytest.mark.parametrize("H,W,coils", [(64, 192, 6), (24, 40, 3)])
+@pytest.mark.parametrize("H,W,coils", [(64, 192, 6), (24, 40, 3), (192, 192, 6),
+                                       (256, 128, 6)])
 def test_splitbregman_mixed_radix_repeats_bit_for_bit(dev, H, W, coils):
     x0, mask, cr, ci, rho1 = _sb_inputs(dev, (H, W), coils)
     args = (x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, 2, 3, 6, 2, 5e-2)
@@ -1893,6 +1927,44 @@ def test_splitbregman_mixed_radix_repeats_bit_for_bit(dev, H, W, coils):
     for _ in range(20):
         got, counts = sb.splitbregman_l1_tv_fused(*args, with_counts=True)
         assert torch.equal(got, first) and torch.equal(counts, first_counts)
+
+
+# forced split plans (team, coils a round), as the sweep of chip_smoke.py
+# --time-sense runs them: 192² on even teams and on uneven ones (5, 8),
+# and small shapes with odd factors on uneven teams, several rounds
+SPLIT_FORCED = [((192, 192, 6), (3, 3)), ((192, 192, 6), (4, 3)), ((192, 192, 6), (3, 2)),
+                ((192, 192, 6), (5, 3)), ((192, 192, 6), (8, 2)), ((192, 192, 6), (6, 1)),
+                ((24, 40, 3), (5, 1)), ((17, 24, 3), (2, 2)), ((96, 12, 17), (5, 3))]
+
+
+@pytest.mark.parametrize("case,split", SPLIT_FORCED)
+def test_sense_forced_split_plans_match_plain(dev, case, split):
+    """Each forced plan on the split route, by the route counter, bit for
+    bit the plain version."""
+    H, W, coils = case
+    x0, mask, cr, ci, lam = _sense_inputs(dev, (H, W), coils)
+    plan = sense.plan_on_card(x0, coils, split)
+    assert (plan.route, plan.team, plan.clusters) == ("split", split[0], split[0] * split[1])
+    on_route = sense.fista_l21_sense_fused.route_launches["split"]
+    got = sense.fista_l21_sense_fused(x0, mask, cr, ci, 0.9, lam, 9, split=split)
+    assert sense.fista_l21_sense_fused.route_launches["split"] == on_route + 1
+    want = _sense_plain(x0, mask, cr, ci, lam, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("case,split", SPLIT_FORCED[::2])
+def test_splitbregman_forced_split_plans_match_plain(dev, case, split):
+    H, W, coils = case
+    x0, mask, cr, ci, rho1 = _sb_inputs(dev, (H, W), coils)
+    sched = (2, 3, 4, 4, 1e-5)
+    got, counts = sb.splitbregman_l1_tv_fused(x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, *sched,
+                                              with_counts=True, split=split)
+    scal, t2 = sb.kernel_args(x0, rho1, 0.02, 1e-3, 2e-3, 4)
+    want, want_counts = sb.splitbregman_l1_tv_fused_torch(
+        x0, scal, t2, (cr, ci), dft.dft_tables(mask), *sched[:3], 1e-5)
+    _close(got, want, 1e-5)
+    assert counts.tolist() == want_counts.tolist()
 
 
 # PDHG: (kind, prox) on odd shapes and on the shapes that put each cluster

@@ -332,9 +332,13 @@ def test_the_global_route_at_odd_factors():
     assert tl1.fitting_sizes(320, 320) == (16,)
     for shape in ((640, 640), (97, 128), (704, 704)):
         assert tl1.plan_fista_l1_dft(4, *shape, H100_RESIDENT).route == "global"
-    assert tsense.plan_sense(8, 192, 192, 6, H100_RESIDENT).route == "global"
+    # rows 9 and 10: 192² splits a coil's spectrum over a team of CTAs; a
+    # spectrum that fits no team of 16 (704²) keeps the global route
+    assert tsense.plan_sense(8, 192, 192, 6, H100_RESIDENT).route == "split"
+    assert tsense.plan_sense(8, 704, 704, 6, H100_RESIDENT).route == "global"
     assert tsense.plan_sense(8, 64, 192, 6, H100_RESIDENT).route == "resident"
-    assert tsb.plan_splitbregman(8, 192, 192, 6, H100_RESIDENT).route == "global"
+    assert tsb.plan_splitbregman(8, 192, 192, 6, H100_RESIDENT).route == "split"
+    assert tsb.plan_splitbregman(8, 704, 704, 6, H100_RESIDENT).route == "global"
     assert tsb.plan_splitbregman(8, 64, 192, 6, H100_RESIDENT).route == "resident"
 
 

@@ -1,6 +1,8 @@
 """The fused FISTA-L21-SENSE kernel's planner and its resident route's
 schedule (rls_tpu_torch/kernels/sense_fused.py ``plan_sense``;
-csrc/sense_fused.cu, csrc/sense_cluster.cuh), on the CPU.
+csrc/sense_fused.cu, csrc/sense_cluster.cuh), on the CPU. The split route
+(a coil's spectrum over a team of CTAs) has its own tests:
+tests/test_torch_sense_split.py.
 
 The planner: which route and cluster size a shape takes on an H100 (132
 SMs, 232,448 bytes of shared memory per block), that the shared memory is
@@ -36,16 +38,18 @@ SMS, SMEM = 132, 232_448
 # checks the table on the card)
 H100_RESIDENT = tuple(zip(range(1, 17), (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7,
                                          7)))
-# tests/test_torch_cuda.py FFT_SHAPES, with the route each takes
+# tests/test_torch_cuda.py FFT_SHAPES, with the route each takes (256 × 128
+# on teams of 3 CTAs a coil)
 FFT_ROUTES = {(16, 32): "resident", (64, 8): "resident", (2, 4): "resident",
-              (256, 128): "global", (1024, 16): "resident", (16, 1024): "resident",
+              (256, 128): "split", (1024, 16): "resident", (16, 1024): "resident",
               (512, 512): "global"}
 # the card tests' SENSE cases (tests/test_torch_cuda.py SENSE_CASES): every
 # FFT shape at 1 and 3 coils, and 128² at 6, 9 and 17 coils (two rounds on
 # 9 CTAs) and 2 × 4 at 6 (four of the six bands empty), with the route,
 # cluster size and rounds each takes
 CARD_PLANS = {
-    **{(shape, C): (route, C, 1) if route == "resident" else (route, 1, C)
+    **{(shape, C): {"resident": (route, C, 1), "split": (route, 3 * C, 1),
+                    "global": (route, 1, C)}[route]
        for shape, route in FFT_ROUTES.items() for C in (1, 3)},
     ((128, 128), 1): ("resident", 1, 1), ((128, 128), 6): ("resident", 6, 1),
     ((128, 128), 9): ("resident", 9, 1), ((128, 128), 17): ("resident", 9, 2),
@@ -81,7 +85,8 @@ def test_the_routes_of_the_card_tests_cases(case):
             2, sense.GLOBAL_SMEM, sense.GLOBAL_SCRATCH, None)
         assert plan.band(0) == (0, H)
     else:
-        assert (plan.clusters, plan.rounds) == sense.cluster_size(C)
+        assert (plan.clusters, plan.rounds) == sense.cluster_size(C, team=plan.team)
+        assert (plan.team == 1) == (plan.route == "resident")
         assert plan.ctas == 2 * plan.clusters and plan.scratch == sense.RESIDENT_SCRATCH
 
 
@@ -143,9 +148,10 @@ def test_the_bands_cover_h_with_empty_ones_only_where_h_is_short(H, C):
     # fewer SMs cap the cluster, and the coils go in rounds
     (4, SMEM, "resident", 3, 2),
     (1, SMEM, "resident", 1, 6),
-    # less shared memory: 128² no longer fits one CTA
+    # less shared memory: 128² no longer fits one CTA, but a team of 3 CTAs
+    # a coil does (90,160 bytes a CTA), 3 coils a round on 9 CTAs
     (SMS, 133_168, "resident", 6, 1),
-    (SMS, 133_167, "global", 1, 6),
+    (SMS, 133_167, "split", 9, 2),
 ])
 def test_plans_respect_the_card(sms, smem, route, c, rounds):
     plan = _plan(8, 128, 128, 6, sms=sms, smem_max=smem)

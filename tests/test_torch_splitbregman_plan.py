@@ -39,9 +39,10 @@ SMS, SMEM = 132, 232_448
 # table on the card)
 H100_RESIDENT = tuple(zip(range(1, 17), (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7,
                                          7)))
-# tests/test_torch_cuda.py FFT_SHAPES, with the route each takes
+# tests/test_torch_cuda.py FFT_SHAPES, with the route each takes (256 × 128
+# on teams of 3 CTAs a coil)
 FFT_ROUTES = {(16, 32): "resident", (64, 8): "resident", (2, 4): "resident",
-              (256, 128): "global", (1024, 16): "resident", (16, 1024): "resident",
+              (256, 128): "split", (1024, 16): "resident", (16, 1024): "resident",
               (512, 512): "global"}
 
 
@@ -161,10 +162,11 @@ def test_the_shared_memory_is_counted_piece_by_piece():
     (4, SMEM, "resident", 3, 2),
     (2, SMEM, "resident", 2, 3),
     (1, SMEM, "resident", 1, 6),
-    # less shared memory: 128² no longer fits one CTA
-    (SMS, 120_000, "global", 1, 6),
+    # less shared memory: 128² no longer fits one CTA, but a team of 3 CTAs
+    # a coil does (91,040 bytes a CTA), 3 coils a round on 9 CTAs
+    (SMS, 120_000, "split", 9, 2),
     (SMS, 134_048, "resident", 6, 1),
-    (SMS, 134_047, "global", 1, 6),
+    (SMS, 134_047, "split", 9, 2),
 ])
 def test_plans_respect_the_card(sms, smem, route, c, rounds):
     plan = _plan(8, 128, 128, 6, sms=sms, smem_max=smem)
