@@ -93,13 +93,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
      left the parent's route (FFT_DIGEST_MOVED: printed); an input whose
      sha256 is not the parent's fails the run: the digests must be
      recorded anew; then the mixed-radix FFT at sides with odd factors
-     (MIXED_L1DFT, MIXED_SENSE): row 8 at 16 × 320² (resident, c = 16), 4
-     × 640² (global) and 2 × 97 × 128 (a prime side, global), rows 9 and
-     10 at 8 × 64 × 192 (resident) and 8 × 192² (split), 6 coils, each
-     plan printed, bit for bit (row 10: its spread and live CG steps) on
-     its route by the route counter, each timed in turns with its plain
-     version and printed with its bound, with the composed solve's device
-     time (torch.profiler) at each shape;
+     (MIXED_L1DFT, MIXED_SENSE): row 8 at 16 × 320² (resident, c = 16)
+     and 4 × 64 × 448 (c = 4), 4 × 640² (global: past a cluster of 16),
+     and on uneven bands and blocks at 2 × 97 × 128 (a prime side, c =
+     3), 4 × 225² (c = 12), 16 × 300² and 16 × 320 × 260 (c = 16), each
+     output's sha256 beside the parent tree's (its global route at the
+     uneven shapes) and required equal, rows 9 and 10 at 8 × 64 × 192
+     (resident) and 8 × 192² (split), 6 coils, each plan printed, bit for
+     bit (row 10: its spread and live CG steps) on its route by the route
+     counter, each timed in turns with its plain version and printed with
+     its bound, with the composed solve's device time (torch.profiler) at
+     each shape;
   8. the dense cells through solve_batched_fast, each running its kernel
      once by the launch counters, with problems/s:
      cgnr_l2_dense64_fused_b16 (printed against a float64 DirectSolver;
@@ -294,9 +298,13 @@ does the same for the fused FISTA-L1-DFT kernel (row 8): the CS cell's 16
 distinct 256² problems (60 iterations), 1 and 64 problems of 256², 16 of
 128², 4 of 512² on the global route, the cell through solve_batched_fast,
 and the kernel in turns with the cell's composed solve_batched_unrolled,
-whose device time torch.profiler also reads; row 9 as a control; with
-each plan and the kernel's clocks per phase where ROOT's package has
-them.
+whose device time torch.profiler also reads; the uneven shapes of phase
+3h (2 × 97 × 128, 4 × 225², 16 × 300², 16 × 320 × 260) with their sha256
+and the composed solve's device time at each, and, where ROOT's wrapper
+takes `clusters=`, every cluster size forced at 97 × 128, 225², 300²
+and 320² in turns; row 9 as a control; with each plan and the kernel's clocks per
+phase where ROOT's package has them. Run it for the parent tree and this
+one in turns (parent, change, change, parent) in one chip call.
 
     python3 chip_smoke.py --time-mixed-radix [ROOT]
 
@@ -483,13 +491,19 @@ SENSE_LAM, SENSE_ITERS = 1e-4, 80
 SB_LAM, SB_TV, SB_RHO, SB_SCHED, SB_TOL = 1e-4, 5, 0.01, (4, 8, 8), 1e-5
 # The mixed-radix FFT (sides with odd factors) in phase 3h: row 8's (B, H,
 # W) and the route its planner takes; rows 9 and 10 at (H, W) with SENSE_C
-# coils and SENSE_SLICES slices. 320² fits a cluster only at c = 16 (20-row
-# bands), 640² and the prime 97 × 128 no cluster; 64 × 192 a coil's padded
-# spectrum in one CTA, 192² not: there each coil's spectrum is split over a
-# team of 3 CTAs (the split route). Each case is timed under the key
-# "{kernel} {H}x{W}"; the kernel table reads 320x320 and 192x192
+# coils and SENSE_SLICES slices. 320² fits a cluster evenly only at c = 16
+# (20-row bands), 64 × 448 at 4; 640² fits no cluster of 16 (the global
+# route's control); the prime 97 × 128 (c = 3: bands of 33, 32, 32 rows),
+# the odd side 225² (c = 12), 300² (c = 16: bands of 19 or 18 rows) and
+# 320 × 260, an 81 % phase field of view (c = 16), run on uneven bands and
+# blocks (on the global route before); 64 × 192 a coil's padded spectrum
+# in one CTA, 192² not: there each coil's spectrum is split over a team of
+# 3 CTAs (the split route). Each case is timed under the key "{kernel}
+# {H}x{W}"; the kernel table reads 320x320 and 192x192
 MIXED_L1DFT = (((CS_BATCH, 320, 320), "resident"), ((4, 640, 640), "global"),
-               ((2, 97, 128), "global"))
+               ((2, 97, 128), "resident"), ((4, 225, 225), "resident"),
+               ((CS_BATCH, 300, 300), "resident"), ((CS_BATCH, 320, 260), "resident"),
+               ((4, 64, 448), "resident"))
 MIXED_SENSE = (((64, 192), "resident"), ((192, 192), "split"))
 # the kernel table's rows of the mixed-radix FFT, and phase 9's cells at
 # their shapes (launches and the composed solve)
@@ -507,6 +521,30 @@ PARENT_FFT_SHA256 = {
     "fista_l1_dft_fused[global route, 512², batch 4, 60 it.]": (
         "8d52cbf78670d63da95854ee900b818e483aafd3dbbe52c387a7361c57db57ea",
         "416d5cdcc905a900fab11c7b3dbfccc95a5bac96d0958ef6cff8c5515bca3e11"),
+    # row 8 at phase 3h's mixed-radix shapes on the tree before uneven bands:
+    # 320² and 64 × 448 on even clusters, 640² and the uneven shapes (97 ×
+    # 128, 225², 300², 320 × 260) on the global route
+    "fista_l1_dft_fused[320×320, batch 16, 60 it.]": (
+        "f9ad633ceb8a072be361c6bd2ba83dc66880811ae63fd3853625f1f34bcb9f61",
+        "1368542a4693dc2f29e2665450daa6d78801254dfd9d7bd5479aef091f131570"),
+    "fista_l1_dft_fused[64×448, batch 4, 60 it.]": (
+        "f77e440b40666de7b31839d7ebb9b0de92a49fc38473dd040c08bbd4781f0a4e",
+        "4239f4465cbb39cb8e07aa137d75539082a5165b2eb1a61be49b07f2a8789e50"),
+    "fista_l1_dft_fused[640×640, batch 4, 60 it.]": (
+        "451273a169f39fbb117ea9cfd758ac09b8b54113649f1c42145b949d976eb028",
+        "a7d774f4a5cae503127fe8bdf6b572dfadde58933486120e8b2c045e8be08b6b"),
+    "fista_l1_dft_fused[97×128, batch 2, 60 it.]": (
+        "59daea7d8411d22fd0eb98002b08f09aae57811682fd7ea65333880b22a119a2",
+        "b2227810ad29ce1a2914cd0019ea9fc57bb6dae675d134650f24d4bc2b2cbe5e"),
+    "fista_l1_dft_fused[225×225, batch 4, 60 it.]": (
+        "5d79f40991c2bb9b71abd83a58d82ab8722ed07ac68bc9fb3ca8d9a9852b10b4",
+        "e402a83f0d3a3fa7e2ba628e53052e9d75536e0b5d7383c47db92a6a5fa3c278"),
+    "fista_l1_dft_fused[300×300, batch 16, 60 it.]": (
+        "2eb1e9500f1eaed8fdcfa9cde804fa173bb9f45341c2af468e0f9dafda5e2535",
+        "2ff5be7907c8254194f213f4a60b67d3b6064097d08c9a74ea67e1edd2a06704"),
+    "fista_l1_dft_fused[320×260, batch 16, 60 it.]": (
+        "bafbc1a254b251ed2d488bbd353a6c8874da405a8f8787447c2336cd4c9ab99c",
+        "dc54cf149a5dbbc46a7f6a17a7801567518ec454adc1df10156d36a078f4a3d2"),
     "sense_fused[128², 6 coils, 8 slices, 80 it.]": (
         "ced28527da67d765ca5380d081f7764ba1187578529d85fac2a8cc40203b17b2",
         "7f97813783919df7d6135cc152f7853c137f4cad440e969c0772e2f02d00a8c2"),
@@ -1736,14 +1774,17 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
     and 512² (the global route), held but not timed. The sha256 of every
     kernel output at these power-of-two shapes (and of its input) goes to
     out["digests"]. With `mixed`, the mixed-radix FFT at sides with odd
-    factors (MIXED_*): row 8 at 16 × 320² (resident), 4 × 640² (global)
-    and 2 × 97 × 128 (a prime side), rows 9 and 10 at 8 × 64 × 192
-    (resident) and 8 × 192² (split), each by the route counter, each timed
-    with its bound, with the composed solve's device time (torch.profiler)
-    at each shape; the 192² outputs' sha256 go to out["digests"] under
-    route-free names (the parent tree ran them on the global route).
-    Without `routes`, no route counter is checked: ``--digest-fft`` runs
-    the parent tree, whose routes differ. Returns {kernel: {"err", "ms":
+    factors (MIXED_*): row 8 at 16 × 320² and 4 × 64 × 448 (resident,
+    even), 4 × 640² (global), and on uneven bands and blocks at 2 × 97 ×
+    128 (a prime side), 4 × 225², 16 × 300² and 16 × 320 × 260, rows 9 and
+    10 at 8 × 64 × 192 (resident) and 8 × 192² (split), each by the route
+    counter, each timed with its bound, with the composed solve's device
+    time (torch.profiler) at each shape; row 8's and the 192² outputs'
+    sha256 go to out["digests"] under route-free names (the parent tree
+    ran the uneven shapes and 192² on the global route). Without `mixed`
+    (``--digest-fft``), the same shapes are held and their digests taken,
+    untimed. Without `routes`, no route counter is checked:
+    ``--digest-fft`` runs the parent tree, whose routes differ. Returns {kernel: {"err", "ms":
     (plain, kernel), "live", "bound", "composed_device_ms"}} and
     "digests"."""
     import torch
@@ -1782,9 +1823,14 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
 
     def l1_plan(name, x0):
         plan, active = k8.plan_on_card(x0)
+        parts, (_, H, W) = "", x0.shape
+        if plan.route == "resident" and (H % plan.clusters or W % plan.clusters):
+            rows = sorted({b - a for a, b in map(plan.band, range(plan.clusters))})
+            cols = sorted({b - a for a, b in map(plan.block, range(plan.clusters))})
+            parts = f" (uneven: bands of {rows} rows, blocks of {cols} columns)"
         print(f"{name}: plan route {plan.route}, {plan.clusters} CTAs per problem, "
-              f"{plan.rows}-row bands, {plan.cols}-column blocks, {plan.ctas} CTAs, {plan.smem} B "
-              f"of shared memory per CTA, {active} clusters resident at once")
+              f"{plan.rows}-row bands, {plan.cols}-column blocks{parts}, {plan.ctas} CTAs, "
+              f"{plan.smem} B of shared memory per CTA, {active} clusters resident at once")
         return plan
 
     def sense_plan(module, name, x0):
@@ -1927,8 +1973,11 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
          gx0, gx0u, counts=True, key="splitbregman_fused global",
          fn=k10.splitbregman_l1_tv_fused, route="global")
     if not mixed:
-        # the 192² SENSE cases' digests alone (rows 9 and 10: --digest-fft)
-        for case in mixed_fft_cases(dev, rows=("sense", "splitbregman"), shapes=[(192, 192)]):
+        # the digests alone (--digest-fft): row 8 at every MIXED_L1DFT shape,
+        # rows 9 and 10 at 192²
+        cases = (mixed_fft_cases(dev, rows=("fista_l1",))
+                 + mixed_fft_cases(dev, rows=("sense", "splitbregman"), shapes=[(192, 192)]))
+        for case in cases:
             held(case["name"], case["kernel"], case["plain"], case["x0"], case["x0u"],
                  counts=case["counts"], bitwise=not case["counts"], key=case["key"],
                  fn=case["fn"], route=case["route"], digest_as=case["digest"])
@@ -1967,7 +2016,8 @@ def mixed_fft_cases(dev, rows=("fista_l1", "sense", "splitbregman"), shapes=None
     held to the spread, with its live CG steps), `reps`, the composed
     `solver` and its right-hand sides `B`, and `bound(live)` → (ms, kind):
     every input read once, x written once, an FFT of n = r·2ᵃ points
-    counted at 5·n·log₂n, row 10's CG steps as `live` counts them."""
+    counted at 5·n·log₂n, row 10's CG steps as `live` counts them; row
+    8's cases also carry their `mask` and λ (`lam`)."""
     import torch
 
     import rls_tpu_torch as rtt
@@ -1996,7 +2046,7 @@ def mixed_fft_cases(dev, rows=("fista_l1", "sense", "splitbregman"), shapes=None
             name=f"fista_l1_dft_fused[{want} route, {mh}×{mw}, batch {mb}, {CS_ITERS} it.]",
             key=f"fista_l1_dft_fused {mh}x{mw}", module=k8, fn=k8.fista_l1_dft_fused,
             digest=f"fista_l1_dft_fused[{mh}×{mw}, batch {mb}, {CS_ITERS} it.]",
-            route=want, x0=mx0, x0u=mx0u, counts=False, reps=2,
+            route=want, x0=mx0, x0u=mx0u, counts=False, reps=2, mask=mop.mask, lam=mlam,
             kernel=lambda x, m=mop.mask, lam=mlam: (
                 k8.fista_l1_dft_fused(x, m, RHO, lam, CS_ITERS), None),
             plain=lambda x, sc=mscal, tb=mtables: (k8.fista_l1_dft_fused_torch(x, sc, tab, tb),
@@ -4792,8 +4842,12 @@ def time_fista_l1_dft(dev, out):
     with its composed solve_batched_unrolled (torch.fft) and the kernel,
     with the composed solve's device time by torch.profiler (the sum of its
     kernels' times, which host delays do not move) beside the kernel's;
-    row 9 (FISTA-L21-SENSE on the 8 SENSE slices) as a control, with its
-    cell's composed solve (wall and device time)."""
+    the uneven shapes of phase 3h (``time_l1dft_uneven``: 2 × 97 × 128, 4 ×
+    225², 16 × 300², 16 × 320 × 260, and 16 × 320², 4 × 64 × 448 as even
+    controls, with their sha256 and the composed solve's device time, and
+    the forced-size sweep at 97 × 128, 225², 300² and 320²); row 9
+    (FISTA-L21-SENSE on the 8 SENSE slices) as a control, with its cell's
+    composed solve (wall and device time)."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
@@ -4829,6 +4883,7 @@ def time_fista_l1_dft(dev, out):
     row8 = cs_cell_solves(dev, op, img2)
     time_cases(out, row8, in_turns=True)
     device_ms(out, (row8[0], row8[2]))
+    time_l1dft_uneven(dev, out)
     # row 9, which this kernel's changes must not move, and its yardstick:
     # its cell's composed solve, wall and device time
     maps, mask, X = sense_problem()
@@ -4848,6 +4903,55 @@ def time_fista_l1_dft(dev, out):
     ])
     out["row 9 composed device ms (profiler)"] = [
         sum(ms for ms, _, _ in device_kernels(composed9)) for _ in range(3)]
+
+
+# row 8's uneven shapes of phase 3h (MIXED_L1DFT) that --time-fista-l1-dft
+# times beside the parent tree's global route, with 320² and 64 × 448 (even
+# plans on the mixed-radix kernel) as controls, and the shapes at which it
+# sweeps every cluster size the kernel takes (where the tree takes
+# `clusters=`): 97 × 128, 225² and 300², which have no even size, and
+# 320², whose one even size (16) meets the uneven ones
+UNEVEN_L1DFT = ("97x128", "225x225", "300x300", "320x260", "320x320", "64x448")
+L1DFT_SWEEP = ("97x128", "225x225", "300x300", "320x320")
+
+
+def time_l1dft_uneven(dev, out):
+    """--time-fista-l1-dft's uneven shapes and their controls: each kernel
+    alone with its plan and CTA 0's clocks (where the tree plans a
+    cluster), its output's sha256 (the parent's global route gives the
+    same bits), and the
+    composed solve's device time by torch.profiler; then every size of
+    ``cluster_sizes`` forced at L1DFT_SWEEP, in turns, where the tree's
+    wrapper takes `clusters=`."""
+    import inspect
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch import _build
+    from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+
+    cases = {c["key"].split()[-1]: c for c in mixed_fft_cases(dev, rows=("fista_l1",))}
+    timed = []
+    for key in UNEVEN_L1DFT:
+        c = cases[key]
+        args = (c["x0"], c["mask"], RHO, c["lam"], CS_ITERS)
+        timed.append((f"{key} x {c['x0'].shape[0]}", lambda a=args: k8.fista_l1_dft_fused(*a), 2,
+                      plan_probe(k8, (c["x0"],), *args)))
+        out[f"{key} sha256"] = digest(k8.fista_l1_dft_fused(*args))
+    time_cases(out, timed)
+    device_ms(out, [(f"{key} composed solve_batched_unrolled",
+                     lambda c=cases[key]: rtt.solve_batched_unrolled(c["solver"], c["B"]))
+                    for key in UNEVEN_L1DFT])
+    if "clusters" not in inspect.signature(k8.fista_l1_dft_fused).parameters:
+        return
+    limits = _build.device_limits(dev.index or 0)
+    sweep = []
+    for key in L1DFT_SWEEP:
+        c = cases[key]
+        B, H, W = c["x0"].shape
+        for n in k8.cluster_sizes(H, W, *limits):
+            sweep.append((f"{key} x {B} forced c={n}", lambda c=c, n=n: k8.fista_l1_dft_fused(
+                c["x0"], c["mask"], RHO, c["lam"], CS_ITERS, clusters=n), 2))
+    time_cases(out, sweep, in_turns=True)
 
 
 def device_ms(out, cases):
@@ -6085,10 +6189,11 @@ def time_composite(dev, out):
 
 def digest_fft(dev, out):
     """``--digest-fft [ROOT]``: phase 3h's power-of-two cases (rows 8, 9
-    and 10 on every route, held to their plain versions) and rows 9 and 10
-    at 8 × 192² on the tree under ROOT, on whatever route its planners
-    take (no route counter is checked), with the sha256 of each input and
-    kernel output: what PARENT_FFT_SHA256 records of the parent tree."""
+    and 10 on every route, held to their plain versions), row 8 at every
+    MIXED_L1DFT shape and rows 9 and 10 at 8 × 192² on the tree under
+    ROOT, on whatever route its planners take (no route counter is
+    checked), with the sha256 of each input and kernel output: what
+    PARENT_FFT_SHA256 records of the parent tree."""
     out["digests"] = fft_kernel_phase(dev, bench_suite_draws(), mixed=False, timed=False,
                                       routes=False)["digests"]
 

@@ -2,16 +2,21 @@
 // DFT in one launch, on one of two routes that the host planner
 // (kernels/fista_l1_dft_fused.py plan_fista_l1_dft) picks by shape:
 //
-// * resident: each problem runs on a thread-block cluster of c CTAs (c a
-//   power of two, at most 16, dividing H and W) of 1024 threads; CTA r
-//   owns the image rows [r R, (r + 1) R) (R = H / c) and the spectrum's
-//   columns [r Wc, (r + 1) Wc) (Wc = W / c), and keeps its band of x and
-//   x_prev, its band of the spectrum and its block of columns in shared
-//   memory for the whole solve;
+// * resident: each problem runs on a thread-block cluster of c CTAs (c at
+//   most 16 and at most H and W; a power of two that divides both where H
+//   and W are powers of two) of 1024 threads; the rows of the image and the
+//   columns of the spectrum are split over the cluster as evenly as
+//   possible (split.cuh Split: n / c points a part, one more for the first
+//   n % c parts), and CTA r owns the image rows [rs(r), rs(r + 1)) (its
+//   band, R(r) rows) and the spectrum's columns [cs(r), cs(r + 1)) (its
+//   block, Wc(r) columns), and keeps its band of x and x_prev, its band of
+//   the spectrum and its block of columns in shared memory for the whole
+//   solve; every CTA lays its buffers out alike, for the largest band,
+//   ceil(H / c) rows, and the largest block, at the pitch ceil(W / c) + 1;
 // * global: one CTA per problem (the first design), the spectrum staged
 //   through shared memory chunk by chunk from global scratch
-//   (dft_common.cuh), for spectra whose band fits no cluster (512^2 and
-//   larger).
+//   (dft_common.cuh), for spectra whose band fits no cluster of 16 (385^2,
+//   512^2 and larger).
 //
 // Replaces the TPU kernel rls_tpu/kernels/fista_l1_dft_fused.py:_kernel
 // (:32-107; launched by fista_l1_dft_fused, :110, pallas_call :129). Per
@@ -30,8 +35,9 @@
 // (rls_tpu_torch/kernels/fista_l1_dft_fused.py), with which both routes
 // agree bit for bit: the resident route runs the same mixed-radix stages
 // (fft_mixed.cuh's odd stages, then radix 2) on the same twiddle table, only
-// elsewhere (fft_resident.cuh's layout). H and W are any sizes from 2 to
-// 1024.
+// elsewhere (fft_resident.cuh's layout); how the lines are split over the
+// cluster moves where a line is stored, not what is computed on it. H and
+// W are any sizes from 2 to 1024.
 //
 // What bounds it on an H100: a 256^2 problem is 10.5 MFLOP of FFT per
 // iteration (two complex 2-D transforms at 5 n log2 n), where the TPU
@@ -54,34 +60,48 @@
 // then its radix-2 stages, and the inverse runs all of its shared-memory
 // stages before a plain store or push.
 //
+// The kernel is built twice (kPow2): where H and W are powers of two, c is
+// a power of two that divides both, every band has H / c rows and every
+// block W / c columns, and the index maps shift (log2 of the part sizes);
+// otherwise the parts may differ by one (97 x 128 on c = 3: bands of 33,
+// 32 and 32 rows, blocks of 43, 43 and 42 columns), and a point's owner is
+// Split::owner (a multiply and a shift) and its place in the owner's band
+// or block its offset from the owner's first row or column.
+//
 // Resident route, one iteration:
 //   (a) rows forward on the CTA's own band: x_mom from x and x_prev, the
 //       first stage (span W / 2) fused with the loads into the band's
 //       spectrum (W a power of two > 128; with an odd factor, a plain load
 //       and the odd stages), the remaining stages in registers; each point
-//       (row, column k) is then stored into the column block of CTA k / Wc
-//       through DSMEM (the transpose, pushed by its writer);
+//       (row, column k) is then stored into the column block of the CTA
+//       that owns column k through DSMEM (the transpose, pushed by its
+//       writer);
 //   cluster barrier A;
 //   (b) the column pass on the CTA's own block: each column forward, times
 //       its spectral weights (wt, the weights transposed, from global
 //       memory), and back into the block; the write-back then stores each
-//       point (row k, column) into the band of CTA k / R through DSMEM, with
-//       the last inverse stage (span H / 2, H a power of two > 128) fused
-//       into it;
+//       point (row k, column) into the band of the CTA that owns row k
+//       through DSMEM, with the last inverse stage (span H / 2, H a power
+//       of two > 128) fused into it;
 //   cluster barrier B;
 //   (c) rows back on the own band, the last stage (span W / 2, or a plain
 //       pass after the odd stages) fused with
 //       the pixel update: x_mom recomputed, the gradient step, the soft
 //       threshold, x_prev = x and x = the new value, in shared memory.
 // What orders each access to a buffer another CTA writes (no CTA ever
-// reads another's shared memory; DSMEM carries stores only):
-//   block (re, im) of CTA q: written by every CTA in (a)      A (RAW: every
+// reads another's shared memory; DSMEM carries stores only). Uneven parts
+// change none of it: a CTA with a shorter band or block does less work
+// between the same two barriers, and every CTA, whatever its part, meets
+// every barrier once an iteration:
+//   block (re, im) of CTA q: written by every CTA in (a), each into the
+//        rows of its own band (so every row of q's block, by exactly one
+//        writer)                                              A (RAW: every
 //        push before q's column pass); B (WAR: q's column pass of the
 //        iteration before, with its last reads in the write-back, before
 //        any push of the next (a), which follows B)
 //   band spectrum (re, im) of CTA q: written by q in (a) as the row pass's
-//        staging, by every CTA in (b)'s write-back; read by q in (a) and
-//        (c)                                               A (WAR: q's
+//        staging, by every CTA in (b)'s write-back, each into the columns
+//        of its own block; read by q in (a) and (c)          A (WAR: q's
 //        reads and writes of (a) before any write-back); B (RAW: every
 //        write-back before q's (c))
 //   x, x_prev: q's own, each pixel loaded in (a) and stored in (c) by the
@@ -94,7 +114,10 @@
 // CTA of the cluster is running before any DSMEM store. The last DSMEM
 // store of the solve precedes the last barrier B, so a CTA may exit after
 // its own (c) and write-out. With c = 1 the cluster barriers are
-// __syncthreads().
+// __syncthreads(). The Python model of these passes and barriers at even
+// and uneven splits, which the CPU tests run against the plain version bit
+// for bit and with each barrier dropped, is tests/test_torch_dft_plan.py
+// (ClusterModel).
 //
 // A phase timer (prof): CTA 0's thread 0 adds the SM clocks between its
 // phase marks (set-up and write-out, loads, rows forward, the push to the
@@ -103,9 +126,12 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "cluster_common.cuh"
 #include "dft_common.cuh"
 #include "fft_resident.cuh"
+#include "split.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -178,12 +204,13 @@ enum {
 // `clusters` CTAs, in this order; the Python planner
 // (kernels/fista_l1_dft_fused.py resident_smem_bytes) counts the same: the
 // twiddles (twiddle_floats(H, W): H + W at powers of two), x, x_prev and
-// the band's spectrum (re, im), R W
-// floats each, the column block (re, im), H (Wc + 1) floats each, every
-// float array rounded up to 4 floats, and the phase timer (kPhases int64).
+// the band's spectrum (re, im), ceil(H / clusters) W floats each, the
+// column block (re, im), H (ceil(W / clusters) + 1) floats each
+// (split.cuh), every float array rounded up to 4 floats, and the phase
+// timer (kPhases int64).
 __host__ __device__ inline size_t resident_smem_bytes(int H, int W, int clusters) {
-    const size_t band = rls::ceil4(static_cast<size_t>(H / clusters) * W);
-    const size_t block = rls::ceil4(static_cast<size_t>(H) * (W / clusters + 1));
+    const size_t band = rls::split_band_floats(H, W, clusters);
+    const size_t block = rls::split_block_floats(H, W, clusters);
     return sizeof(float) * (rls::ceil4(rls::twiddle_floats(H, W)) + 4 * band + 2 * block) +
            sizeof(long long) * kPhases;
 }
@@ -202,18 +229,49 @@ struct ResidentArgs {
 using Prof = rls::Prof<kPhases>;
 namespace fr = rls::fftr;
 
+// The parts of a side of n points over a cluster of c CTAs: where CTA j's
+// part starts, how many points it holds, which CTA holds point i and at
+// which offset there. At powers of two (kPow2) c divides n and the maps
+// shift by log2(n / c); otherwise Split's parts, which may differ by one.
+template <bool kPow2>
+struct Parts;
+
+template <>
+struct Parts<true> {
+    int lg;  // log2(n / c)
+    __device__ Parts(int n, int c) : lg(fr::log2i(n / c)) {}
+    __device__ __forceinline__ int start(int j) const { return j << lg; }
+    __device__ __forceinline__ int size(int) const { return 1 << lg; }
+    __device__ __forceinline__ int owner(int i) const { return i >> lg; }
+    __device__ __forceinline__ int offset(int i, int) const { return i & ((1 << lg) - 1); }
+};
+
+template <>
+struct Parts<false> : rls::Split {
+    __device__ Parts(int n, int c) : rls::Split(n, c) {}
+    __device__ __forceinline__ int offset(int i, int q) const { return i - start(q); }
+};
+
+// where kPow2 holds, the block's rows and columns come from shifts
+struct NoDivisor {
+    __device__ explicit NoDivisor(int) {}
+};
+
 // kPow2: H and W both powers of two, the radix-2 code with shifts for its
 // index maps and the outermost stage fused with the loads and stores;
-// otherwise the mixed-radix code (fft_resident.cuh's Layout).
+// otherwise the mixed-radix code (fft_resident.cuh's Layout) and uneven
+// parts (Split).
 template <bool kPow2>
 __global__ void __launch_bounds__(kThreads, 1)
 fista_l1_dft_cluster_kernel(const ResidentArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int H = a.H, W = a.W, nc = a.clusters;
-    const int R = H / nc, Wc = W / nc;  // band rows, block columns
-    const int cp = Wc + 1;              // the block's pitch: column k of row r at r cp + k
-    const size_t nb = rls::ceil4(static_cast<size_t>(R) * W);
-    const size_t nk = rls::ceil4(static_cast<size_t>(H) * cp);
+    // the band's rows and the block's columns of CTA `rank` (below); every
+    // CTA's buffers are laid out for the largest band and block
+    const Parts<kPow2> rsp(H, nc), csp(W, nc);
+    const int cp = rls::ceil_div(W, nc) + 1;  // the block's pitch: column k of row r at r cp + k
+    const size_t nb = rls::split_band_floats(H, W, nc);
+    const size_t nk = rls::split_block_floats(H, W, nc);
     const int ntw = rls::twiddle_floats(H, W);
     float* tw = reinterpret_cast<float*>(smem);
     float* x = tw + rls::ceil4(ntw);
@@ -227,7 +285,8 @@ fista_l1_dft_cluster_kernel(const ResidentArgs a) {
     cg::cluster_group cl = cg::this_cluster();
     const int rank = static_cast<int>(cl.block_rank());
     const int b = blockIdx.x / nc;
-    const int r0 = rank * R, c0 = rank * Wc;
+    const int R = rsp.size(rank), Wc = csp.size(rank);  // band rows, block columns
+    const int r0 = rsp.start(rank), c0 = csp.start(rank);
     const int tid = threadIdx.x;
     Prof prof{blockIdx.x == 0 && tid == 0 ? a.prof : nullptr, pacc, 0};
     prof.start();
@@ -257,26 +316,24 @@ fista_l1_dft_cluster_kernel(const ResidentArgs a) {
     const fr::Tw tw_h{tw, tw + th};
     const fr::Tw tw_w{tw + 2 * th, tw + 2 * th + rls::twiddle_count(W)};
     const fr::Layout rows(W), cols(H);
-    const int lg_w = rows.lg_a;                                 // at powers of two
-    const int lg_r = fr::log2i(R), lg_wc = fr::log2i(Wc);       // at powers of two
-    const rls::Divisor by_r(kPow2 ? 1 : R), by_wc(kPow2 ? 1 : Wc);  // otherwise
     const int lrow = 1 << rows.lg_l, lcol = 1 << cols.lg_l;  // sub-line lengths
     const bool row_direct = rows.one_subline(), col_direct = cols.one_subline();
-    const int hw = W >> 1, hh = H >> 1;
+    // the write-back's row and column of the block (kPow2: by shifts)
+    const std::conditional_t<kPow2, NoDivisor, rls::Divisor> by_wc(Wc);
 
     // point (image row r0 + lr, spectrum column k) into the block of the
     // CTA that owns column k
     auto push_row = [&](int lr, int k, float re, float im) {
-        const int q = kPow2 ? k >> lg_wc : by_wc.div(k);
-        const int at = (r0 + lr) * cp + (kPow2 ? k & (Wc - 1) : k - q * Wc);
+        const int q = csp.owner(k);
+        const int at = (r0 + lr) * cp + csp.offset(k, q);
         cl.map_shared_rank(kre, q)[at] = re;
         cl.map_shared_rank(kim, q)[at] = im;
     };
     // point (spectrum row k, block column jc) into the band of the CTA that
     // owns row k
     auto push_col = [&](int k, int jc, float re, float im) {
-        const int q = kPow2 ? k >> lg_r : by_r.div(k);
-        const int at = (kPow2 ? k & (R - 1) : k - q * R) * W + c0 + jc;
+        const int q = rsp.owner(k);
+        const int at = rsp.offset(k, q) * W + c0 + jc;
         cl.map_shared_rank(bre, q)[at] = re;
         cl.map_shared_rank(bim, q)[at] = im;
     };
@@ -302,6 +359,7 @@ fista_l1_dft_cluster_kernel(const ResidentArgs a) {
         // in registers, each point pushed to its column's block
         if (!row_direct) {
             if constexpr (kPow2) {
+                const int hw = W >> 1, lg_w = rows.lg_a;
                 for (int u = tid; u < R * hw; u += kThreads) {
                     const int j = u & (hw - 1);
                     const int i0 = (u >> (lg_w - 1)) * W + j, i1 = i0 + hw;
@@ -391,7 +449,7 @@ fista_l1_dft_cluster_kernel(const ResidentArgs a) {
         });
         __syncthreads();
         if constexpr (kPow2) {  // all but the last stage (span H / 2)
-            for (int m = lcol; m < hh; m <<= 1) {
+            for (int m = lcol; m < (H >> 1); m <<= 1) {
                 fr::smem_stage<true, true>(kre, kim, tw_h, cols, m, Wc, 1, cp, kThreads);
                 __syncthreads();
             }
@@ -403,18 +461,26 @@ fista_l1_dft_cluster_kernel(const ResidentArgs a) {
         // hold one column's rows (a store each to another row of a band, W
         // floats apart: one bank); here neighbouring threads take
         // neighbouring columns and push row-contiguous runs
-        if (kPow2 && !col_direct) {
-            for (int u = tid; u < hh * Wc; u += kThreads) {
-                const int jc = u & (Wc - 1), k = u >> lg_wc;
-                const int i0 = k * cp + jc, i1 = i0 + hh * cp;
-                float ar = kre[i0], ai = kim[i0], br = kre[i1], bi = kim[i1];
-                fr::dit_bfly(ar, ai, br, bi, tw_h.re[k], -tw_h.im[k]);
-                push_col(k, jc, ar, ai);
-                push_col(k + hh, jc, br, bi);
+        if constexpr (kPow2) {
+            const int lg_wc = csp.lg, hh = H >> 1;
+            if (!col_direct) {
+                for (int u = tid; u < hh * Wc; u += kThreads) {
+                    const int jc = u & (Wc - 1), k = u >> lg_wc;
+                    const int i0 = k * cp + jc, i1 = i0 + hh * cp;
+                    float ar = kre[i0], ai = kim[i0], br = kre[i1], bi = kim[i1];
+                    fr::dit_bfly(ar, ai, br, bi, tw_h.re[k], -tw_h.im[k]);
+                    push_col(k, jc, ar, ai);
+                    push_col(k + hh, jc, br, bi);
+                }
+            } else {
+                for (int u = tid; u < H * Wc; u += kThreads) {
+                    const int k = u >> lg_wc, jc = u - k * Wc;
+                    push_col(k, jc, kre[k * cp + jc], kim[k * cp + jc]);
+                }
             }
         } else {
             for (int u = tid; u < H * Wc; u += kThreads) {
-                const int k = kPow2 ? u >> lg_wc : by_wc.div(u), jc = u - k * Wc;
+                const int k = by_wc.div(u), jc = u - k * Wc;
                 push_col(k, jc, kre[k * cp + jc], kim[k * cp + jc]);
             }
         }
@@ -453,6 +519,7 @@ fista_l1_dft_cluster_kernel(const ResidentArgs a) {
         if (!row_direct) {
             __syncthreads();
             if constexpr (kPow2) {
+                const int hw = W >> 1, lg_w = rows.lg_a;
                 for (int m = lrow; m < hw; m <<= 1) {
                     fr::smem_stage<true, true>(bre, bim, tw_w, rows, m, R, W, 1, kThreads);
                     __syncthreads();
@@ -482,10 +549,11 @@ fista_l1_dft_cluster_kernel(const ResidentArgs a) {
     prof.finish();
 }
 
-// clusters: a power of two up to kMaxCluster that divides H and W
+// clusters: up to kMaxCluster and at most H and W; at a power-of-two shape
+// (the kPow2 kernel) a power of two, which then divides H and W
 bool valid_cluster(int clusters, int H, int W) {
-    return clusters >= 1 && clusters <= kMaxCluster && (clusters & (clusters - 1)) == 0 &&
-           H % clusters == 0 && W % clusters == 0;
+    if (clusters < 1 || clusters > kMaxCluster || clusters > H || clusters > W) return false;
+    return !rls::pow2_shape(H, W) || (clusters & (clusters - 1)) == 0;
 }
 
 }  // namespace
@@ -532,9 +600,10 @@ int fista_l1_dft_cluster_occupancy(int clusters, int H, int W, long long* out) {
 // The resident route: as fista_l1_dft_fused_launch without scratch, with wt
 // the spectral weights transposed ((W, H)), prof null or kPhases int64 that
 // receive CTA 0's clocks per phase, and the plan: `clusters` CTAs per
-// problem (a power of two, at most 16, dividing H and W), `smem` bytes of
-// shared memory per CTA. Returns cudaErrorInvalidValue for a plan whose
-// smem differs from resident_smem_bytes, else the launch's error.
+// problem (valid_cluster: at most 16, H and W; a power of two at a
+// power-of-two shape), `smem` bytes of shared memory per CTA. Returns
+// cudaErrorInvalidValue for a plan whose smem differs from
+// resident_smem_bytes, else the launch's error.
 int fista_l1_dft_cluster_launch(const void* x0hat, const void* scal, const void* tab,
                                 const void* tw, const void* wt, void* out, void* prof, int B,
                                 int H, int W, int iterations, int clusters, int smem,

@@ -115,6 +115,16 @@ def twiddle_floats(H: int, W: int) -> int:
     return 2 * (twiddle_count(H) + twiddle_count(W))
 
 
+def split_part(n, parts, j):
+    """[start, end) of part j when a side of n points is split over `parts`
+    parts as evenly as possible: n // parts points, one more for the first
+    n % parts (csrc/split.cuh Split; the bands and blocks of rows 8, 9 and
+    10's cluster routes)."""
+    q, extra = divmod(n, parts)
+    start = j * q + min(j, extra)
+    return start, start + q + (j < extra)
+
+
 def twiddles(n: int, dtype=np.float32) -> np.ndarray:
     """(2, twiddle_count(n)): [cos(2πk/n), −sin(2πk/n)], computed in float64
     and rounded once to `dtype`."""

@@ -60,6 +60,7 @@ from ._dft_common import (
     check_fft_shape,
     check_fista_schedule,
     seed_and_lam,
+    split_part,
     twiddle_tensor,
 )
 from .fista_tv_fused import momentum_tensor, problem_scalars
@@ -154,7 +155,7 @@ def split_smem_bytes(H, W, team):
 
 def split_floats(H, W, team):
     """f32 of a split CTA's band and block, one plane each, each rounded up
-    to 4 floats (csrc/sense_split.cuh split_band_floats,
+    to 4 floats (csrc/split.cuh split_band_floats,
     split_block_floats)."""
     return _ceil4(-(-H // team) * W) + _ceil4(H * (-(-W // team) + 1))
 
@@ -163,15 +164,6 @@ def cluster_smem_bytes(H, W, team):
     """A cluster CTA's shared memory: :func:`resident_smem_bytes` on team 1,
     :func:`split_smem_bytes` on larger teams."""
     return resident_smem_bytes(H, W) if team == 1 else split_smem_bytes(H, W, team)
-
-
-def split_part(n, team, j):
-    """[start, end) of part j when a side of n points is split over `team`
-    parts: n // team points, one more for the first n % team parts
-    (csrc/sense_split.cuh Split)."""
-    q, extra = divmod(n, team)
-    start = j * q + min(j, extra)
-    return start, start + q + (j < extra)
 
 
 def cluster_size(C, sms=SMS, team=1):
@@ -231,9 +223,7 @@ class SensePlan:
         """[r0, r1): the image rows CTA `rank` owns for the fold and the
         pixel updates: H // c rows, one more for the first H % c ranks
         (empty where H < c)."""
-        q, extra = divmod(self.H, self.clusters)
-        r0 = rank * q + min(rank, extra)
-        return r0, r0 + q + (rank < extra)
+        return split_part(self.H, self.clusters, rank)
 
 
 def plan_coils(name, B, H, W, C, resident, sms, smem_max, cluster_bytes, global_smem, scratch,

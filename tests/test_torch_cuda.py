@@ -1507,12 +1507,12 @@ def test_fista_l1_dft_resident_route_repeats_bit_for_bit(dev):
                                                              dft.dft_tables(mask)))
 
 
-@pytest.mark.parametrize("shape", [(256, 256), (64, 64)])
+@pytest.mark.parametrize("shape", [(256, 256), (64, 64), (97, 128)])
 def test_fista_l1_dft_phase_clocks(dev, shape):
     """The resident kernel's phase timer: one launch, the same x as without
     the timer, clocks in every phase (lines of 256 points, with a
-    shared-memory stage, and of 64, without); the global route has no
-    timer and raises."""
+    shared-memory stage, of 64, without, and uneven bands of a prime side);
+    the global route has no timer and raises."""
     x0, mask, lam = _cs_cell_inputs(dev, B=4)
     if shape != (256, 256):
         x0, mask = x0[:, :shape[0], :shape[1]].contiguous(), mask[:shape[0], :shape[1]]
@@ -1529,7 +1529,7 @@ def test_fista_l1_dft_phase_clocks(dev, shape):
 
 
 @pytest.mark.parametrize("shape", [(256, 256), (128, 128), (64, 64), (1024, 16), (320, 320),
-                                   (24, 40), (96, 192)])
+                                   (24, 40), (96, 192), (97, 128), (300, 300)])
 def test_cluster_counts_of_the_fista_l1_dft_planner_tests(dev, shape):
     """On an H100 the card holds, for every fitting cluster size, the
     clusters of the resident FISTA-L1-DFT kernel that
@@ -1820,14 +1820,17 @@ def test_fft_wrappers_refuse_what_the_kernels_do_not_take(dev):
 # The mixed-radix FFT (sides with odd factors: the odd stages of
 # csrc/fft_mixed.cuh before the radix-2 ones) on each route of rows 8, 9
 # and 10. Row 8: (B, H, W) → (route, cluster size) as the planner takes
-# them (tests/test_torch_dft_mixed_radix.py); 320² only fits c = 16, 640²
-# and 97 × 128 (prime columns) take the global route, lines of the prime
-# 1021 the resident one
+# them (tests/test_torch_dft_mixed_radix.py, test_torch_dft_plan.py); 320²
+# only fits c = 16 evenly, 640² takes the global route, lines of the prime
+# 1021 the resident one; 97 × 128 (a prime side), 225² (an odd side) and
+# 300² (no power of two of a fitting size divides it) run on uneven bands
+# and blocks (33, 32, 32 rows; 19 or 18 rows on 12; 19 or 18 on 16)
 MIXED_L1DFT = {(3, 24, 40): ("resident", 1), (3, 17, 32): ("resident", 1),
                (3, 96, 192): ("resident", 4), (16, 320, 320): ("resident", 16),
                (16, 64, 448): ("resident", 4), (2, 640, 640): ("global", 1),
-               (2, 97, 128): ("global", 1), (2, 1021, 3): ("resident", 1),
-               (2, 3, 1021): ("resident", 1)}
+               (2, 97, 128): ("resident", 3), (2, 1021, 3): ("resident", 1),
+               (2, 3, 1021): ("resident", 1), (4, 225, 225): ("resident", 12),
+               (2, 300, 300): ("resident", 16)}
 # rows 9 and 10: (H, W, coils); 64 × 192 and the small ones resident, 192²
 # split (teams of 3 CTAs a coil)
 MIXED_SENSE = [(24, 40, 3), (17, 24, 2), (64, 192, 6), (192, 192, 6), (96, 12, 17)]
@@ -1854,11 +1857,12 @@ def test_fista_l1_dft_mixed_radix_matches_plain(dev, size):
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
-@pytest.mark.parametrize("size", [(16, 320, 320), (3, 96, 192), (2, 97, 128)])
+@pytest.mark.parametrize("size", [(16, 320, 320), (3, 96, 192), (2, 97, 128), (4, 225, 225)])
 def test_fista_l1_dft_mixed_radix_repeats_bit_for_bit(dev, size):
     """20 launches (60 iterations), each equal to the first and to the plain
-    version: a race between a cluster's CTAs, or between the threads of an
-    odd stage's waves, would show as a launch that differs."""
+    version: a race between a cluster's CTAs (at even parts and at uneven
+    ones: 97 × 128 on 3, 225² on 12), or between the threads of an odd
+    stage's waves, would show as a launch that differs."""
     B, H, W = size
     mask, _, _, rng = _fft_inputs(dev, (H, W), C=1)
     x0 = torch.from_numpy(rng.normal(size=size).astype(np.float32)).to(dev)
@@ -1872,6 +1876,38 @@ def test_fista_l1_dft_mixed_radix_repeats_bit_for_bit(dev, size):
                                                              dft.dft_tables(mask)))
 
 
+# forced cluster sizes of row 8, as the sweep of chip_smoke.py
+# --time-fista-l1-dft runs them: uneven where the planner's plan is even
+# (320² on 12, 24 × 40 on 3 and 16: bands of one and two rows), and other
+# sizes at the uneven shapes
+L1DFT_FORCED = [((2, 97, 128), 2), ((2, 97, 128), 5), ((2, 97, 128), 16), ((2, 320, 320), 12),
+                ((2, 300, 300), 10), ((3, 24, 40), 3), ((3, 24, 40), 16), ((3, 17, 12), 7),
+                ((2, 13, 24), 5)]
+
+
+@pytest.mark.parametrize("size,c", L1DFT_FORCED)
+def test_fista_l1_dft_forced_cluster_sizes_match_plain(dev, size, c):
+    """Each forced size on the resident route, by the route counter, bit
+    for bit the plain version; its phase timer leaves x as it was."""
+    B, H, W = size
+    mask, _, _, rng = _fft_inputs(dev, (H, W), C=1)
+    x0 = torch.from_numpy(rng.normal(size=size).astype(np.float32)).to(dev)
+    lam = torch.linspace(0.0, 0.1, B, device=dev)
+    plan, active = l1dft.plan_on_card(x0, c)
+    assert (plan.route, plan.clusters) == ("resident", c) and active >= 1
+    on_route = l1dft.fista_l1_dft_fused.route_launches["resident"]
+    got = l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 7, clusters=c)
+    assert l1dft.fista_l1_dft_fused.route_launches["resident"] == on_route + 1
+    scal = fused.problem_scalars(x0, 0.9, lam)
+    tab = torch.as_tensor(fused._momentum_table("fista", 7), device=dev)
+    want = l1dft.fista_l1_dft_fused_torch(x0, scal, tab, dft.dft_tables(mask))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    clocks = l1dft.phase_clocks(x0, mask, 0.9, lam, 7, clusters=c)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert torch.equal(l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 7, clusters=c), want)
+
+
 @pytest.mark.parametrize("H,W,coils", MIXED_SENSE)
 def test_sense_mixed_radix_matches_plain(dev, H, W, coils):
     x0, mask, cr, ci, lam = _sense_inputs(dev, (H, W), coils)
@@ -1883,6 +1919,42 @@ def test_sense_mixed_radix_matches_plain(dev, H, W, coils):
     want = _sense_plain(x0, mask, cr, ci, lam, 9)
     torch.cuda.synchronize()
     assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# sha256 of rows 9 and 10 on their split routes at _sense_inputs /
+# _sb_inputs (6 coils; teams of 3 CTAs: 256 × 128 in uneven bands of 86,
+# 85 and 85 rows, 192² in even ones), recorded on the tree before Split
+# moved from csrc/sense_split.cuh to csrc/split.cuh, which row 8 now shares
+# (an NVIDIA H100 80GB HBM3, 700.00 W): the move leaves their bits
+SPLIT_PARENT_SHA256 = {
+    ("sense", 256, 128): "b980c42ce358ee8651d7fb2355b8e44165dc067c4ec465e5d08a8eaf1d018456",
+    ("splitbregman", 256, 128): "abcf0545c01f975ab30ed49f76d097a904f8f1cc88494f667ca6f8064d46298c",
+    ("sense", 192, 192): "9954eea80bf89f6881a04c434abb66d6077f3632ccdcf2bd9115d9854dff34e5",
+    ("splitbregman", 192, 192): "c18db9a200e99e697d41e9aba1abc37e02f9f7cf8131e66f4ef4ef899fa243e6",
+}
+
+
+@pytest.mark.parametrize("row,H,W", list(SPLIT_PARENT_SHA256))
+def test_the_shared_split_leaves_rows_9_and_10_as_they_were(dev, row, H, W):
+    """Rows 9 and 10 on the split route (12 iterations of row 9; row 10's
+    2 × 3 × 6 schedule, TV 2), their outputs (and row 10's live CG steps)
+    bit for bit those of the tree before the shared csrc/split.cuh."""
+    import hashlib
+
+    h = hashlib.sha256()
+    if row == "sense":
+        x0, mask, cr, ci, lam = _sense_inputs(dev, (H, W), 6)
+        assert sense.plan_on_card(x0, 6).route == "split"
+        outs = (sense.fista_l21_sense_fused(x0, mask, cr, ci, 0.9, lam, 12),)
+    else:
+        x0, mask, cr, ci, rho1 = _sb_inputs(dev, (H, W), 6)
+        assert sb.plan_on_card(x0, 6).route == "split"
+        got, counts = sb.splitbregman_l1_tv_fused(x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, 2, 3,
+                                                  6, 2, 5e-2, with_counts=True)
+        outs = (got, counts.int())
+    for t in outs:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    assert h.hexdigest() == SPLIT_PARENT_SHA256[(row, H, W)]
 
 
 @pytest.mark.parametrize("H,W,coils", [(64, 192, 6), (96, 12, 17), (192, 192, 6),

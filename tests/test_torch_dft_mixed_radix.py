@@ -13,8 +13,11 @@ are refused with the reason. The three FFT rows' plain versions through
 composed path (1e-5), at (24,
 40) and (17, 32) for row 8, (24, 20) with 3 coils for row 9 and (24, 24)
 for row 10. The planners: every resident plan at a side with odd factors
-covers it with a cluster size that divides H and W, and the dispatch
-takes rows 8, 9 and 10 at 24², 192², 320² and 64 × 448 with no warning.
+covers it (with a cluster size that divides H and W where a power of two
+does and fits, else with uneven bands and blocks), every shape the JAX
+kernel's VMEM check passes gets a cluster plan for row 8, and the
+dispatch takes rows 8, 9 and 10 at 24², 192², 320² and 64 × 448 with no
+warning.
 The kernels themselves run only on the card (tests/test_torch_cuda.py)."""
 
 import importlib
@@ -293,19 +296,28 @@ SIDES = [3, 12, 17, 24, 40, 96, 97, 160, 192, 320, 448, 704]
 @pytest.mark.parametrize("H", SIDES)
 @pytest.mark.parametrize("W", SIDES + [64, 128])
 def test_every_plan_at_odd_factors_covers_its_shape(H, W):
-    """Row 8: a resident plan's cluster size divides H and W, its bands and
-    blocks cover them with no remainder and fit the card; no size fits
-    where the plan is global. Rows 9 and 10: resident exactly where a
-    coil's padded spectrum fits, bands covering H."""
+    """Row 8: a resident plan's cluster size divides H and W where a power
+    of two that does fits (bands and blocks cover them with no remainder),
+    else it is any fitting size (uneven parts that differ by one); the
+    plan fits the card; no size fits where the plan is global. Rows 9 and
+    10: resident exactly where a coil's padded spectrum fits, bands
+    covering H."""
     for B in (1, 16):
         plan = tl1.plan_fista_l1_dft(B, H, W, H100_RESIDENT)
         fit = tl1.fitting_sizes(H, W)
-        assert all(H % c == 0 and W % c == 0 for c in fit)
+        even = [c for c in fit if H % c == 0 and W % c == 0 and c in tl1.CLUSTER_SIZES]
+        assert even == list(fit) or not even
         if plan.route == "global":
             assert not fit
             continue
         c = plan.clusters
-        assert c in fit and (plan.rows * c, plan.cols * c) == (H, W)
+        assert c in fit and (plan.rows, plan.cols) == (-(-H // c), -(-W // c))
+        bands = [plan.band(q) for q in range(c)]
+        blocks = [plan.block(q) for q in range(c)]
+        assert [r for b in bands for r in range(*b)] == list(range(H))
+        assert [k for b in blocks for k in range(*b)] == list(range(W))
+        if even:
+            assert (plan.rows * c, plan.cols * c) == (H, W)
         assert plan.smem == tl1.resident_smem_bytes(H, W, c) <= 232_448
     for module, planner in ((tsense, tsense.plan_sense), (tsb, tsb.plan_splitbregman)):
         plan = planner(8, H, W, 6, H100_RESIDENT)
@@ -329,9 +341,15 @@ def test_the_cluster_sizes_at_odd_factors(shape, fit, c):
 
 
 def test_the_global_route_at_odd_factors():
+    """Row 8 keeps the global route only past a cluster of 16 (640², 704²);
+    the prime 97 × 128, global before uneven bands, runs on clusters of 3
+    (bands of 33, 32 and 32 rows)."""
     assert tl1.fitting_sizes(320, 320) == (16,)
-    for shape in ((640, 640), (97, 128), (704, 704)):
+    for shape in ((640, 640), (704, 704)):
         assert tl1.plan_fista_l1_dft(4, *shape, H100_RESIDENT).route == "global"
+    plan = tl1.plan_fista_l1_dft(4, 97, 128, H100_RESIDENT)
+    assert (plan.route, plan.clusters, plan.rows, plan.cols) == ("resident", 3, 33, 43)
+    assert [plan.band(q) for q in range(3)] == [(0, 33), (33, 65), (65, 97)]
     # rows 9 and 10: 192² splits a coil's spectrum over a team of CTAs; a
     # spectrum that fits no team of 16 (704²) keeps the global route
     assert tsense.plan_sense(8, 192, 192, 6, H100_RESIDENT).route == "split"
@@ -340,6 +358,40 @@ def test_the_global_route_at_odd_factors():
     assert tsb.plan_splitbregman(8, 192, 192, 6, H100_RESIDENT).route == "split"
     assert tsb.plan_splitbregman(8, 704, 704, 6, H100_RESIDENT).route == "global"
     assert tsb.plan_splitbregman(8, 64, 192, 6, H100_RESIDENT).route == "resident"
+
+
+# rectangles the JAX kernel takes: an 81 % phase field of view, 16:9, a
+# prime side, odd sides, thin strips, and the largest sides of each aspect
+JAX_RECTANGLES = [(320, 260), (384, 216), (97, 128), (128, 97), (255, 257), (300, 340),
+                  (2, 1024), (1024, 2), (17, 1021), (64, 704), (400, 250), (448, 160),
+                  (350, 320), (199, 383)]
+
+
+def _jax_takes(H, W):
+    """The JAX kernel's own gate: its VMEM check (and the in-kernel FFT's
+    sizes, which the port's kernel shares)."""
+    try:
+        jl1._check_vmem_fista_l1_dft(H, W)
+        dft.check_fft_shape(H, W)
+    except ValueError:
+        return False
+    return True
+
+
+def test_every_shape_the_jax_kernel_takes_gets_a_cluster_plan():
+    """Every square side from 2 to 346 and the rectangles above that the
+    JAX kernel's VMEM check passes run row 8 on a cluster of at most 16
+    CTAs at batches 1, 4 and 16, not the global route; the first square
+    side that fits no cluster (385) is past that check too."""
+    shapes = [(n, n) for n in range(2, 400)] + JAX_RECTANGLES
+    taken = [shape for shape in shapes if _jax_takes(*shape)]
+    assert (346, 346) in taken and (347, 347) not in taken and (320, 260) in taken
+    for H, W in taken:
+        for B in (1, 4, 16):
+            plan = tl1.plan_fista_l1_dft(B, H, W, H100_RESIDENT)
+            assert plan.route == "resident" and plan.clusters <= 16, (B, H, W, plan)
+    no_cluster = [n for n in range(2, 1025) if not tl1.fitting_sizes(n, n)]
+    assert no_cluster[0] == 385 and not _jax_takes(385, 385)
 
 
 def _cs_solver(shape):

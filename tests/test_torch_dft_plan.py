@@ -5,11 +5,13 @@ resident route, on the CPU.
 The planner: which route and cluster size a shape takes on an H100 (132
 SMs, 232,448 bytes of shared memory per block) over shapes from 2² to
 1024² and batches of 1 to 64, that every resident plan splits H into
-bands and W into blocks with no remainder and fits the card, that its
-cost (waves × rows per band) is the least among the sizes it may take,
-that the shared-memory count matches the kernel's piece by piece, that a
-spectrum whose bands fit no cluster takes the global route, and that a
-plan the card holds no cluster of raises.
+bands and W into blocks as ``split_part`` does (evenly where a power of
+two divides both sides and fits, else parts that differ by one) and fits
+the card, that its cost (waves × rows per band) is the least among the
+sizes it may take, that a shape with an even plan keeps it, that the
+shared-memory count matches the kernel's piece by piece, that a spectrum
+whose bands fit no cluster takes the global route, and that a plan the
+card holds no cluster of, or a forced size that does not fit, raises.
 
 The model: one problem's normal op and FISTA iterations computed CTA by
 CTA in the resident kernel's phases (csrc/fista_l1_dft_fused.cu): rows
@@ -21,8 +23,8 @@ tests/test_torch_splitbregman_plan.py. A push lands in the other CTA's
 shared memory only at the next barrier, and the model raises where a CTA
 touches a buffer of its own that another CTA writes between the same two
 barriers. It is held bit for bit against ``_dft_common.real_normal`` and
-``fista_l1_dft_fused_torch``, and it raises when either barrier is
-dropped. The kernel itself runs only on the card
+``fista_l1_dft_fused_torch`` at even and uneven splits, and it raises
+when either barrier is dropped. The kernel itself runs only on the card
 (tests/test_torch_cuda.py)."""
 
 import re
@@ -34,6 +36,7 @@ import torch
 
 from rls_tpu_torch.kernels import _dft_common as dft
 from rls_tpu_torch.kernels import fista_l1_dft_fused as l1dft
+from rls_tpu_torch.kernels._bands import fewest_waves
 from rls_tpu_torch.kernels.fista_tv_fused import MIN_CTA_PIXELS, _momentum_table
 from test_torch_splitbregman_plan import LINE_MAX, line_model
 
@@ -54,33 +57,38 @@ def _plan(B, H, W, resident=H100_RESIDENT, **card):
 
 def _resident(B, H, W, c):
     """The resident plan of c CTAs per problem (the model runs every size
-    that fits, not only the planner's choice)."""
-    assert c in l1dft.fitting_sizes(H, W)
-    return l1dft.DftPlan("resident", c, H // c, W // c, H, W, B * c,
+    the kernel takes that fits, not only the planner's choice)."""
+    assert c in l1dft.cluster_sizes(H, W)
+    return l1dft.DftPlan("resident", c, -(-H // c), -(-W // c), H, W, B * c,
                          l1dft.resident_smem_bytes(H, W, c))
 
 
 def band(plan, rank):
     """[r0, r1): the image rows CTA `rank` owns (its x, x_prev and spectrum
-    band)."""
-    return rank * plan.rows, (rank + 1) * plan.rows
+    band): H // c rows, one more for the first H % c ranks."""
+    q, extra = divmod(plan.H, plan.clusters)
+    r0 = rank * q + min(rank, extra)
+    return r0, r0 + q + (rank < extra)
 
 
 def block(plan, rank):
-    """[c0, c1): the spectrum columns CTA `rank` transforms."""
-    return rank * plan.cols, (rank + 1) * plan.cols
+    """[c0, c1): the spectrum columns CTA `rank` transforms, split as the
+    rows are."""
+    q, extra = divmod(plan.W, plan.clusters)
+    c0 = rank * q + min(rank, extra)
+    return c0, c0 + q + (rank < extra)
 
 
 def row_owner(plan, row):
     """The CTA whose band holds image (spectrum) row `row`: where the
     column pass writes that row back."""
-    return row // plan.rows
+    return next(q for q in range(plan.clusters) if band(plan, q)[0] <= row < band(plan, q)[1])
 
 
 def column_owner(plan, col):
     """The CTA whose block holds spectrum column `col`: where the row pass
     pushes that column."""
-    return col // plan.cols
+    return next(q for q in range(plan.clusters) if block(plan, q)[0] <= col < block(plan, q)[1])
 
 
 # tests/test_torch_cuda.py's FISTA-L1-DFT shapes (B, H, W) with the cluster
@@ -93,11 +101,19 @@ L1DFT_SIZES = {(3, 16, 32): 1, (3, 2, 4): 1, (3, 8, 256): 1, (64, 128, 128): 2,
 
 def _covers(plan, B, H, W, smem=SMEM):
     """A resident plan's bands cover H and its blocks W, each CTA one of
-    each, with no remainder; it fits the card."""
+    each, as the planner's own split gives them; evenly at a size that is a
+    power of two dividing both sides; it fits the card."""
     assert plan.route == "resident"
     c = plan.clusters
-    assert c in l1dft.CLUSTER_SIZES and H % c == 0 and W % c == 0
-    assert (plan.rows * c, plan.cols * c) == (H, W)
+    assert c in l1dft.cluster_sizes(H, W, smem_max=smem)
+    bands, blocks = [band(plan, q) for q in range(c)], [block(plan, q) for q in range(c)]
+    assert bands == [plan.band(q) for q in range(c)]
+    assert blocks == [plan.block(q) for q in range(c)]
+    assert [r for b in bands for r in range(*b)] == list(range(H))
+    assert [k for b in blocks for k in range(*b)] == list(range(W))
+    assert (plan.rows, plan.cols) == (max(b - a for a, b in bands), max(b - a for a, b in blocks))
+    if c in l1dft.CLUSTER_SIZES and H % c == 0 and W % c == 0:
+        assert (plan.rows * c, plan.cols * c) == (H, W)
     assert plan.ctas == B * c
     assert plan.smem == l1dft.resident_smem_bytes(H, W, c) <= smem
 
@@ -176,12 +192,95 @@ def test_the_card_tests_shapes_take_their_cluster_sizes(shape):
         assert plan.clusters == L1DFT_SIZES[shape]
 
 
+# phase 3h's shapes of the uneven route (chip_smoke.py MIXED_L1DFT): (B, H,
+# W) → (c, rows, cols, smem): BASELINE #2 at a prime side of 97 rows, an
+# odd side, a side no power of two of a fitting size divides, and an 81 %
+# phase field of view; each the fewest waves × rows per band that keeps
+# MIN_CTA_PIXELS (97 × 128: c = 3, as 4 leaves 25 · 128 < 4096 pixels a
+# CTA; 225²: 12; 300² and 320 × 260: 16, 3 waves of ≤ 7)
+UNEVEN_PLANS = {(2, 97, 128): (3, 33, 43, 102_712), (4, 225, 225): (12, 19, 19, 106_296),
+                (16, 300, 300): (16, 19, 19, 141_688), (16, 320, 260): (16, 20, 17, 131_688)}
+
+
+@pytest.mark.parametrize("shape", list(UNEVEN_PLANS))
+def test_the_uneven_plans_of_phase_3h(shape):
+    plan = _plan(*shape)
+    _covers(plan, *shape)
+    assert (plan.clusters, plan.rows, plan.cols, plan.smem) == UNEVEN_PLANS[shape]
+    fit = l1dft.fitting_sizes(*shape[1:])
+    # no even size fits: every fitting size is offered
+    assert fit == l1dft.cluster_sizes(*shape[1:])
+    assert not any(shape[1] % c == 0 and shape[2] % c == 0 for c in fit if c in (1, 2, 4, 8, 16))
+    assert plan.clusters == fewest_waves(*shape, fit, H100_RESIDENT)
+
+
+EVEN_SIDES = [8, 16, 24, 40, 64, 96, 128, 160, 192, 256, 320, 448, 512]
+
+
+@pytest.mark.parametrize("B", [1, 4, 16, 64])
+@pytest.mark.parametrize("H", EVEN_SIDES)
+@pytest.mark.parametrize("W", EVEN_SIDES + [17, 97, 704])
+def test_a_shape_with_an_even_plan_keeps_it(B, H, W):
+    """Where a power of two up to 16 that divides H and W fits, the plan is
+    the even one the planner gave before uneven parts: among those sizes
+    alone, by the same rule, with H/c-row bands and W/c-column blocks."""
+    even = tuple(c for c in (1, 2, 4, 8, 16)
+                 if H % c == 0 and W % c == 0 and l1dft.resident_smem_bytes(H, W, c) <= SMEM)
+    plan = _plan(B, H, W)
+    if not even:
+        assert plan.route == "global" or plan.clusters not in even
+        return
+    c = fewest_waves(B, H, W, even, H100_RESIDENT)
+    assert l1dft.fitting_sizes(H, W) == even
+    assert (plan.route, plan.clusters, plan.rows, plan.cols, plan.smem) == (
+        "resident", c, H // c, W // c, l1dft.resident_smem_bytes(H, W, c))
+
+
+@pytest.mark.parametrize("shape,sizes", [
+    ((97, 128), tuple(range(2, 17))), ((300, 300), tuple(range(10, 17))),
+    ((346, 346), tuple(range(13, 17))), ((3, 1021), (1, 2, 3)), ((20, 1000), tuple(range(3, 17))),
+    # at powers of two only the even sizes, which the kernel's shifts need
+    ((1024, 64), (8, 16)), ((512, 512), ())])
+def test_the_sizes_the_kernel_takes(shape, sizes):
+    """Every c from 1 to min(16, H, W) whose largest band and block fit,
+    where a side is not a power of two; powers of two dividing both sides
+    where both are."""
+    assert l1dft.cluster_sizes(*shape) == sizes
+    fit = l1dft.fitting_sizes(*shape)
+    assert fit == (tuple(c for c in sizes if c in (1, 2, 4, 8, 16) and shape[0] % c == 0
+                         and shape[1] % c == 0) or sizes)
+
+
+@pytest.mark.parametrize("shape,c", [((16, 320, 320), 12), ((16, 320, 320), 16),
+                                     ((2, 97, 128), 16), ((16, 300, 300), 10)])
+def test_a_forced_size_gives_its_plan(shape, c):
+    plan = _plan(*shape, clusters=c)
+    _covers(plan, *shape)
+    assert plan.clusters == c
+
+
+@pytest.mark.parametrize("shape,c", [((16, 300, 300), 9), ((16, 256, 256), 12),
+                                     ((16, 256, 256), 4), ((4, 97, 128), 17),
+                                     ((4, 512, 512), 16)])
+def test_a_forced_size_that_does_not_fit_raises(shape, c):
+    """No fallback: a forced size the kernel does not take at the shape (a
+    band too large, not a power of two at a power-of-two shape, past 16)
+    is an error naming it."""
+    with pytest.raises(ValueError, match=f"a cluster of {c} CTAs does not fit"):
+        _plan(*shape, clusters=c)
+
+
 @pytest.mark.parametrize("H,W,c", [(256, 256, 16), (256, 256, 8), (128, 128, 4), (16, 64, 2),
-                                   (64, 32, 16), (2, 4, 1), (1024, 16, 4)])
+                                   (64, 32, 16), (2, 4, 1), (1024, 16, 4),
+                                   # uneven: one side or both, bands of
+                                   # one and two rows, the phase 3h shapes
+                                   (13, 24, 3), (13, 24, 5), (17, 12, 7), (24, 40, 16),
+                                   (97, 128, 3), (225, 225, 12), (300, 300, 16),
+                                   (320, 260, 16)])
 def test_every_row_and_column_has_one_owner(H, W, c):
     """The model's bands and blocks partition the rows and the columns, and
     row_owner and column_owner name the one CTA whose band and block hold
-    each."""
+    each; no two parts differ by more than one."""
     plan = _resident(3, H, W, c)
     rows = [r for q in range(c) for r in range(*band(plan, q))]
     cols = [k for q in range(c) for k in range(*block(plan, q))]
@@ -189,6 +288,9 @@ def test_every_row_and_column_has_one_owner(H, W, c):
     for q in range(c):
         assert all(row_owner(plan, r) == q for r in range(*band(plan, q)))
         assert all(column_owner(plan, k) == q for k in range(*block(plan, q)))
+    for parts in ([band(plan, q) for q in range(c)], [block(plan, q) for q in range(c)]):
+        sizes = [b - a for a, b in parts]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
 
 
 def test_the_shared_memory_is_counted_piece_by_piece():
@@ -200,6 +302,10 @@ def test_the_shared_memory_is_counted_piece_by_piece():
     # every array rounded up to 4 floats: 2 + 4 twiddles → 8, a band of 1 ×
     # 2 → 4, a block of 2 × (2 + 1) = 6 → 8
     assert l1dft.resident_smem_bytes(2, 4, 2) == 4 * (8 + 4 * 4 + 2 * 8) + 72
+    # uneven: 97 × 128 on 3 counts the largest band, 33 × 128, and the
+    # largest block at its pitch, 97 × (43 + 1); 2 · (49 + 64) = 226
+    # twiddles (⌊97/2⌋ + 1 at the odd side) → 228
+    assert l1dft.resident_smem_bytes(97, 128, 3) == 4 * (228 + 4 * 4224 + 2 * 4268) + 72
     assert len(l1dft.PHASES) == 9
 
 
@@ -221,9 +327,16 @@ def test_the_planner_and_the_model_read_the_kernel_s_constants():
     assert names[-1] == "kPhases" and len(names) - 1 == len(l1dft.PHASES)
     smem = re.search(r"resident_smem_bytes\(int H, int W, int clusters\) \{(.*?)\n\}", src,
                      re.S).group(1)
-    assert "ceil4(static_cast<size_t>(H / clusters) * W)" in smem
-    assert "ceil4(static_cast<size_t>(H) * (W / clusters + 1))" in smem
+    assert "rls::split_band_floats(H, W, clusters)" in smem
+    assert "rls::split_block_floats(H, W, clusters)" in smem
     assert "ceil4(rls::twiddle_floats(H, W)) + 4 * band + 2 * block)" in smem
+    split = (CSRC / "split.cuh").read_text()
+    assert "ceil4(static_cast<size_t>(ceil_div(H, team)) * W)" in split
+    assert "ceil4(static_cast<size_t>(H) * (ceil_div(W, team) + 1))" in split
+    valid = re.search(r"bool valid_cluster\(int clusters, int H, int W\) \{(.*?)\n\}", src,
+                      re.S).group(1)
+    assert "clusters > kMaxCluster || clusters > H || clusters > W" in valid
+    assert "!rls::pow2_shape(H, W) || (clusters & (clusters - 1)) == 0" in valid
     assert "sizeof(long long) * kPhases" in smem
     header = (CSRC / "fft_resident.cuh").read_text()
     assert _cu_constant(header, "kLineMax") == LINE_MAX
@@ -320,21 +433,27 @@ class Hazard(AssertionError):
 
 class ClusterModel:
     """The shared memory of one problem's cluster, CTA by CTA: x, x_prev
-    and the band's spectrum ("band") of R rows, and the column block
-    ("block") of all H rows of Wc columns. A CTA reads and writes its own
-    buffers as they stand; it reaches another CTA only by pushes, which
-    land at the next barrier (`barrier`), as DSMEM stores are ordered for
-    their reader only by a cluster barrier. Between two barriers a buffer
-    that receives pushes must not be touched by its owner (`barrier`
-    raises Hazard), and no point may be pushed twice in one window."""
+    and the band's spectrum ("band") of the CTA's R rows, and the column
+    block ("block") of all H rows of its Wc columns (R and Wc of ``band``
+    and ``block``: equal for every CTA, or differing by one). A CTA reads
+    and writes its own buffers as they stand; it reaches another CTA only
+    by pushes, which land at the next barrier (`barrier`), as DSMEM stores
+    are ordered for their reader only by a cluster barrier. Between two
+    barriers a buffer that receives pushes must not be touched by its
+    owner (`barrier` raises Hazard), and no point may be pushed twice in
+    one window."""
 
     def __init__(self, plan):
         self.plan = plan
-        R, Wc, H, W = plan.rows, plan.cols, plan.H, plan.W
+        H, W = plan.H, plan.W
         zeros = torch.zeros
-        self.bufs = [{"x": zeros(R, W), "x_prev": zeros(R, W),
-                      "band": (zeros(R, W), zeros(R, W)), "block": (zeros(H, Wc), zeros(H, Wc))}
-                     for _ in range(plan.clusters)]
+        self.bufs = []
+        for q in range(plan.clusters):
+            (r0, r1), (c0, c1) = band(plan, q), block(plan, q)
+            R, Wc = r1 - r0, c1 - c0
+            self.bufs.append({"x": zeros(R, W), "x_prev": zeros(R, W),
+                              "band": (zeros(R, W), zeros(R, W)),
+                              "block": (zeros(H, Wc), zeros(H, Wc))})
         self.pending, self.touched = [], set()
 
     def touch(self, q, name):
@@ -461,7 +580,14 @@ MODEL_SHAPES = [(16, 16), (32, 32), (16, 64), (64, 32), (8, 256), (256, 8),
                 # both), 96 = 3·32 and 192 = 3·64 (bands fit from c = 2), and
                 # a prime side (c = 1)
                 (24, 40), (96, 192), (17, 32)]
-MODEL_CASES = [(shape, c) for shape in MODEL_SHAPES for c in l1dft.fitting_sizes(*shape)]
+# uneven splits: c dividing one side or neither (13 × 24 on 3 and 5, 17 ×
+# 12 on 7), bands of one and two rows (24 × 40 on 16), and a prime side on
+# 3, as 97 × 128 runs (23 × 32: bands of 8, 8 and 7 rows, blocks of 11, 11
+# and 10 columns)
+UNEVEN_CASES = [((13, 24), 3), ((13, 24), 5), ((17, 12), 7), ((24, 40), 3), ((24, 40), 16),
+                ((23, 32), 3)]
+MODEL_CASES = ([(shape, c) for shape in MODEL_SHAPES for c in l1dft.fitting_sizes(*shape)]
+               + UNEVEN_CASES)
 
 
 def _problem(H, W, B=2, seed=9):
@@ -499,7 +625,7 @@ def test_the_cluster_fista_is_the_plain_version_bit_for_bit(shape, c):
         assert torch.equal(cluster_fista(x0[b], scal[b], tab, plan, tables), want[b])
 
 
-@pytest.mark.parametrize("shape,c", [((16, 16), 4), ((8, 256), 8), ((64, 32), 2)])
+@pytest.mark.parametrize("shape,c", [((16, 16), 4), ((8, 256), 8), ((64, 32), 2), ((13, 24), 5)])
 @pytest.mark.parametrize("dropped,buffer", [("A", "block"), ("B", "band")])
 def test_each_cluster_barrier_is_needed(shape, c, dropped, buffer):
     """Without A the column pass reads its block while the row passes push

@@ -136,9 +136,11 @@ def test_the_split_shared_memory_is_counted_piece_by_piece():
 
 def test_the_planners_read_the_kernels_constants():
     """The split CTA's shared memory as csrc/sense_fused.cu,
-    csrc/splitbregman_fused.cu and csrc/sense_split.cuh count it, and the
-    plan's validity as both .cu files check it."""
-    header = (CSRC / "sense_split.cuh").read_text()
+    csrc/splitbregman_fused.cu and csrc/split.cuh (which sense_split.cuh
+    includes) count it, and the plan's validity as both .cu files check
+    it."""
+    assert '#include "split.cuh"' in (CSRC / "sense_split.cuh").read_text()
+    header = (CSRC / "split.cuh").read_text()
     band = re.search(r"split_band_floats\(int H, int W, int team\) \{(.*?)\n\}", header,
                      re.S).group(1)
     block = re.search(r"split_block_floats\(int H, int W, int team\) \{(.*?)\n\}", header,
