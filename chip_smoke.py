@@ -13,8 +13,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. each kernel against its plain PyTorch version on the card, with both
      times: the TV prox at TV_CHECKS (each plan printed and required:
      every shape the main path gives it on its resident route, with x, pv
-     and ph in shared and in global memory, by the route counter, and its
-     global route at TV_WIDE, rows too wide for a band) and the fused
+     and ph in shared and in global memory, by the route counter, 8 ×
+     1024² on its windowed route (held to its windowed plain version too,
+     no global launch) and its global route at TV_WIDE, rows too wide
+     for a window; forced windows at 16 × 512² with the resident plan's
+     sha256, bit for bit) and the fused
      solve (FISTA, OptISTA, POGM) at the
      flagship shapes (64 problems of 256², 50 × 10 iterations); the fused
      solve's dynamic and warm schedules (gradient restart, sigma_fac < 1,
@@ -46,7 +49,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      Gaussian σ = 2, ρ = 0.95, λ = 5e-4, 50 × 10, batch 16) through
      solve_batched_fast, which must run row 3 once on its cluster route
      (the route counter), held on two columns against a float64 solve of
-     the plain version on the card;
+     the plain version on the card; 5b. the 1024² cell's problems
+     (fista_tv_1024_tiled_b8) through solve_batched_unrolled, the composed
+     solve: with the counts at 0 just before, 50 launches of the TV prox,
+     all on its windowed route (the route counter) and no other kernel,
+     held on two columns against the same float64 solve, and timed once;
   6. the two ADMM-TV cells of tools/bench_suite.py: admm_tv_deblur256_b16
      (ρ = 0.1, λ = 2e-3, 12 × 6 × 8) through solve_batched_fast (one fused
      launch, on the resident route by the route counter) and through
@@ -340,11 +347,12 @@ per phase, and sha256 digests of rows 2 and 5 and of row 4's global route
 does the same for the TV prox kernel (row 1): 64 × 256² (10 dual
 iterations), 16 × 256² (8), 16 × 512², 8 × 1024², 4 × 4 × 12000, 4 × 4 ×
 20000 on the global route and 1 × 256², 64 × 256² at forced cluster sizes
-5 and 16 and 16 × 256² at 6, each with its device time by torch.profiler;
-the composed flagship, ADMM cell and 512² solves that launch it, with
-their device times; each plan, and sha256 digests of every case and of
-rows 2 and 4 (bit for bit between two trees where row 1's change leaves
-them).
+5 and 16 and 16 × 256² at 6, forced windows at 8 × 1024², each with its
+device time by torch.profiler; the composed flagship, ADMM cell and 512²
+solves that launch it and, at 1024² × 8, the composed FISTA-TV and ADMM-TV
+solves beside rows 3 and 5 on their row tiles, with their device times;
+each plan, and sha256 digests of every case and of rows 2 and 4 (bit for
+bit between two trees where row 1's change leaves them).
 
     python3 chip_smoke.py --time-tiled [ROOT]
 
@@ -401,6 +409,7 @@ each.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -442,17 +451,32 @@ ADMM_WIDE = (4, 4, 12000)
 TV_WIDE = (4, 4, 20000)
 # phase 3a's TV prox cases: (B, H, W, dual iterations) of the composed
 # flagship, the ADMM cell's composed solve, the 512² composed solves (row
-# 3's and row 5's yardsticks), one-row bands, and the global route; each
-# with its route and where its plan keeps x, pv and ph
+# 3's and row 5's yardsticks), the 1024² composed solve (windows: no
+# cluster holds a problem's bands), one-row bands, and the global route;
+# each with its route and where its plan keeps x, pv and ph
+TV_1024 = (8, 1024, 1024, 10)
 TV_CHECKS = ((64, 256, 256, 10, "resident", "shared"), (16, 256, 256, 8, "resident", "global"),
-             (16, 512, 512, 10, "resident", "global"), (4, 4, 12000, 10, "resident", "global"),
-             (*TV_WIDE, 10, "global", "global"))
+             (16, 512, 512, 10, "resident", "global"), (*TV_1024, "windows", "shared"),
+             (4, 4, 12000, 10, "resident", "global"), (*TV_WIDE, 10, "global", "global"))
+# forced windows at 16 × 512² (interior rows, cluster size, placement),
+# each bit for bit the resident plan: 2 windows of 256 (276 rows on 16
+# CTAs, six planes) and 4 of 128 on 8 CTAs with x, pv, ph in global memory
+TV_FORCED_WINDOWS = ((256, None, None), (128, 8, "global"))
+# the kernel table's row of the windowed route, at the 1024² composed
+# solve's shape (its launches: phase 5b)
+TV_WINDOWS_ROW = "tv_fgp {}x{}x{} (windows)".format(*TV_1024[:3])
 # the TV prox kernel's shapes in --time-tv-fgp: (B, H, W, dual iterations)
 # of the composed flagship (50 launches), the ADMM cell's composed solve
 # (12), the 512² composed solve (50) and the 1024² one, beside 4 × 4 ×
 # 12000 (one-row bands), the global route and one problem
-TV_SHAPES = ((64, 256, 256, 10), (16, 256, 256, 8), (16, 512, 512, 10), (8, 1024, 1024, 10),
+TV_SHAPES = ((64, 256, 256, 10), (16, 256, 256, 8), (16, 512, 512, 10), TV_1024,
              (4, 4, 12000, 10), (*TV_WIDE, 10), (1, 256, 256, 10))
+# forced windows at 8 × 1024² in --time-tv-fgp, (interior rows, cluster
+# size): the planner's pick on an H100 (c = 8 on 72-row windows, six
+# planes), 16 and 15 CTAs on 144- and 134-row windows (six planes, priced
+# the same), 8 CTAs on 134 rows and 16 on 276 (three planes, 2 % and 7 %
+# more) and 7 on 63 (18 % more)
+TV_WINDOW_SWEEP = ((52, 8), (124, 16), (114, 15), (114, 8), (256, 16), (43, 7))
 # the dense cells: tools/bench_suite.py:79-102 (CGNR, 64×64, λ = 1e-6, 200
 # iterations = 64 steps, batch 16) and :204-225 (FISTA-L1 on 256×512, λ =
 # 1e-4, ρ = 0.95/‖A‖₂², 600 iterations, batch 16; its restart schedules,
@@ -1077,9 +1101,9 @@ def launch_counts(reset=False):
     if reset:
         for fn in fns:
             fn.launches = 0
-        for fn in (tv_fgp.prox_tv2d_fgp, fista_tv_fused.fista_tv_fused,
-                   admm_tv_fused.admm_tv_fused, pdhg_fused.pdhg_fused,
-                   fista_l1_dft_fused.fista_l1_dft_fused):
+        tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "windows": 0, "global": 0}
+        for fn in (fista_tv_fused.fista_tv_fused, admm_tv_fused.admm_tv_fused,
+                   pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused):
             fn.route_launches = {"resident": 0, "global": 0}
         for fn in (splitbregman_fused.splitbregman_l1_tv_fused,
                    sense_fused.fista_l21_sense_fused):
@@ -3002,7 +3026,7 @@ def counted_run(name, fn, want):
             f"{name}: expected the launches {want} and no others")
     if "prox_tv2d_fgp" in want:
         routes = tv_fgp.prox_tv2d_fgp.route_launches
-        require(routes == {"resident": want["prox_tv2d_fgp"], "global": 0},
+        require(routes == {"resident": want["prox_tv2d_fgp"], "windows": 0, "global": 0},
                 f"{name}: tv_fgp routes {routes}, not all resident")
     return out, start.elapsed_time(stop)
 
@@ -4024,8 +4048,8 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s")
 
     # 3a. the TV prox kernel against its plain version at TV_CHECKS: the
-    # shapes the main path gives it on its resident route and TV_WIDE on its
-    # global route, each plan and route by the route counter
+    # shapes the main path gives it on its resident and windowed routes and
+    # TV_WIDE on its global route, each plan and route by the route counter
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.normal(size=(BATCH, N, N)).astype(np.float32)).to(dev)
     lam = torch.from_numpy(
@@ -4033,22 +4057,24 @@ def main() -> int:
     ).to(dev)
     lam[0] = 0.0
     err_tv = 0.0
+    tv_inputs = {}
     for k, (B1, H1, W1, tv1, route, own) in enumerate(TV_CHECKS):
         name = f"{B1} x {H1}x{W1}, {tv1} dual"
         xt = x if (B1, H1, W1) == (BATCH, N, N) else torch.from_numpy(
             np.random.default_rng(12 + k).normal(size=(B1, H1, W1)).astype(np.float32)).to(dev)
-        plan, held = tv_fgp.plan_on_card(xt)
+        tv_inputs[B1, H1, W1, tv1] = xt
+        plan, held = tv_fgp.plan_on_card(xt, tv1)
         print(f"tv_fgp plan, {name}: {plan}; clusters resident at once: {held}")
         require((plan.route, plan.own) == (route, own),
                 f"tv_fgp at {name}: {plan}, not the {route} route with x, pv and ph in {own} "
                 "memory")
-        tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "global": 0}
+        tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "windows": 0, "global": 0}
         got = tv_fgp.prox_tv2d_fgp(xt.reshape(B1, -1), lam[:B1], (H1, W1),
                                    tv1).reshape(xt.shape)
         want = tv_fgp.prox_tv2d_fgp_torch(xt, lam[:B1], tv1)
         torch.cuda.synchronize()
-        require(tv_fgp.prox_tv2d_fgp.route_launches == {"resident": int(route == "resident"),
-                                                        "global": int(route == "global")},
+        routes = {r: int(r == route) for r in ("resident", "windows", "global")}
+        require(tv_fgp.prox_tv2d_fgp.route_launches == routes,
                 f"tv_fgp at {name}: routes {tv_fgp.prox_tv2d_fgp.route_launches}, not {route}")
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
@@ -4056,8 +4082,36 @@ def main() -> int:
               f"(max|x| {scale:.3f})")
         require(torch.isfinite(got).all(), f"tv_fgp kernel gave non-finite values at {name}")
         require(err <= TOL_TV * scale, f"tv_fgp kernel disagrees at {name}: {err:.3e}")
-        if route == "resident":
+        if route == "windows":
+            # its own plain version too: the plain FGP on each window, the
+            # interiors stitched (bit for bit the whole image's)
+            win = tv_fgp.prox_tv2d_fgp_windows_torch(xt, lam[:B1], tv1, plan)
+            require(torch.equal(win, want),
+                    f"tv_fgp at {name}: the windowed plain version is not the whole image's")
+            err_win = err
+        elif route == "resident":
             err_tv = max(err_tv, err)  # the main path's shapes, for the kernel table
+    # forced windows at 16 × 512²: the resident plan's bits
+    xt, lam16 = tv_inputs[16, 512, 512, 10], lam[:16].contiguous()
+    resident_sha = digest(tv_fgp.prox_tv2d_fgp(xt.reshape(16, -1), lam16, (512, 512),
+                                               10).reshape(xt.shape))
+    for interior, clusters, own in TV_FORCED_WINDOWS:
+        plan, held = tv_fgp._card_plan(dev.index or 0, 16, 512, 512, clusters, own, 10, interior)
+        sha = digest(tv_fgp._launch(xt, lam16, 10, clusters, own, interior))
+        print(f"tv_fgp forced windows, 16 x 512x512: {plan}; clusters resident at once: "
+              f"{held}; sha256 {sha} (resident {resident_sha})")
+        require(plan.route == "windows" and sha == resident_sha,
+                f"tv_fgp: forced windows of {interior} rows at 16 x 512² differ from the "
+                "resident route")
+    x1k, lam8 = tv_inputs[TV_1024], lam[:TV_1024[0]].contiguous()
+    plain_win, ms_win = alternate_ms(
+        lambda: tv_fgp.prox_tv2d_fgp_torch(x1k, lam8, TV_ITERS),
+        lambda: tv_fgp.prox_tv2d_fgp(x1k.reshape(TV_1024[0], -1), lam8, TV_1024[1:3],
+                                     TV_ITERS),
+        reps=5,
+    )
+    print(f"tv_fgp windows, {TV_WINDOWS_ROW}: kernel {ms_win:.3f} ms, plain {plain_win:.3f} ms")
+    del tv_inputs, x1k
     plain_tv, ms_tv = alternate_ms(
         lambda: tv_fgp.prox_tv2d_fgp_torch(x, lam, TV_ITERS),
         lambda: tv_fgp.prox_tv2d_fgp(x.reshape(BATCH, -1), lam, (N, N), TV_ITERS),
@@ -4237,7 +4291,7 @@ def main() -> int:
     fused.fista_tv_fused.launches = 0
     fused.fista_tv_fused.route_launches = {"resident": 0, "global": 0}
     tv_fgp.prox_tv2d_fgp.launches = 0
-    tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "global": 0}
+    tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "windows": 0, "global": 0}
     tiled.fista_tv_tiled.launches = 0
     x_fast = rtt.solve_batched_fast(solver, B)
     torch.cuda.synchronize()
@@ -4251,7 +4305,8 @@ def main() -> int:
     print(f"launches: fista_tv_fused {launches_fused}, tv_fgp {launches_tv}")
     require(launches_fused == 1, "solve_batched_fast did not run the fused kernel once")
     require(launches_tv == ITERS, f"solve_batched_unrolled ran the TV kernel {launches_tv}×")
-    require(tv_fgp.prox_tv2d_fgp.route_launches == {"resident": ITERS, "global": 0},
+    require(tv_fgp.prox_tv2d_fgp.route_launches == {"resident": ITERS, "windows": 0,
+                                                    "global": 0},
             f"the composed flagship's TV routes: {tv_fgp.prox_tv2d_fgp.route_launches}")
 
     blur_err = float(torch.linalg.norm(B.T - xs_true) / torch.linalg.norm(xs_true))
@@ -4327,6 +4382,38 @@ def main() -> int:
     print(f"fista_tv_512_tiled_b16: solve_batched_unrolled (composed) "
           f"{library['fista_tv_tiled']:.3f} ms per batch of 16")
 
+    # 5b. the composed FISTA-TV solve at 1024² × 8 (the fista_tv_1024_tiled_b8
+    # cell's problems) through solve_batched_unrolled: row 1 on its windowed
+    # route, ITERS launches and no other; counts start at 0 here
+    n1k = TV_1024[1]
+    s1k = build_solver(n1k, dev)
+    xs1k = torch.from_numpy(imgs1024).to(dev)
+    B1k = s1k.A.mv(xs1k).T.contiguous()
+    launch_counts(reset=True)
+    x1k = rtt.solve_batched_unrolled(s1k, B1k)
+    torch.cuda.synchronize()
+    launches_win = tv_fgp.prox_tv2d_fgp.route_launches["windows"]
+    counts = launch_counts()
+    print(f"launches (composed 1024² x {B1k.shape[1]}): {counts}, tv_fgp routes "
+          f"{tv_fgp.prox_tv2d_fgp.route_launches}")
+    require(counts == {**dict.fromkeys(counts, 0), "prox_tv2d_fgp": ITERS}
+            and tv_fgp.prox_tv2d_fgp.route_launches == {"resident": 0, "windows": ITERS,
+                                                        "global": 0},
+            f"the composed 1024² solve: {counts}, not {ITERS} launches of row 1 on its "
+            "windowed route")
+    require(tuple(x1k.shape) == (n1k * n1k, B1k.shape[1]), f"1024²: bad result {x1k.shape}")
+    # two columns against a float64 solve of the plain version on the card
+    s64 = build_solver(n1k, dev, dtype=torch.float64)
+    x0_64 = s64.A.rmv_stencil(B1k[:, :2].T.double()).reshape(2, n1k, n1k)
+    scal64, tab64, t2_64 = fused.kernel_args(x0_64, RHO, LAM, "fista", ITERS, TV_ITERS,
+                                             dtype=np.float64)
+    x64 = tiled.fista_tv_tiled_torch(x0_64, scal64, tab64, t2_64, taps)[0].reshape(2, -1)
+    parity_f64("fista_tv_1024 composed (row 1 windows)", x1k, B1k, xs1k, s64.A, x64)
+    ms1k = cuda_ms(lambda: rtt.solve_batched_unrolled(s1k, B1k), reps=1)
+    print(f"fista_tv_1024 composed solve_batched_unrolled: {ms1k:.2f} ms per batch of "
+          f"{B1k.shape[1]}")
+    del s64, x0_64, x64, x1k
+
     # 6. the ADMM-TV cells through the public API
     for name, cell, imgs, want, composed in (
         ("admm_tv_deblur256_b16_fused", ADMM256,
@@ -4380,6 +4467,8 @@ def main() -> int:
     fista_ops = ITERS * pgm_ops(ntap_h, ntap_w, TV_ITERS)
     bounds = {
         "tv_fgp": bound(fgp_loop_ops(TV_ITERS) * flag_px, f32 * (2 * flag_px + BATCH)),
+        TV_WINDOWS_ROW: bound(fgp_loop_ops(TV_ITERS) * math.prod(TV_1024[:3]),
+                              f32 * (2 * math.prod(TV_1024[:3]) + TV_1024[0])),
         "fista_tv_fused": bound(fista_ops * flag_px, f32 * 2 * flag_px),
         "fista_tv_tiled": bound(fista_ops * n5px, f32 * 2 * n5px),
     }
@@ -4457,6 +4546,8 @@ def main() -> int:
     rows = (
         ("tv_fgp", "tv_fgp.cu", "rls_tpu/kernels/tv_pallas.py:69", launches_tv, err_tv,
          (plain_tv, ms_tv)),
+        (TV_WINDOWS_ROW, "tv_fgp.cu", "rls_tpu/kernels/tv_pallas.py:69", launches_win, err_win,
+         (plain_win, ms_win)),
         ("fista_tv_fused", "fista_tv_fused.cu", "rls_tpu/kernels/fista_tv_fused.py:676",
          launches_fused, max(fused_err.values()), fused_ms["fista"]),
         ("fista_tv_tiled", "fista_tv_tiled.cu", "rls_tpu/kernels/fista_tv_tiled.py:704",
@@ -5236,22 +5327,30 @@ def time_tv_fgp(dev, out):
     private ``_launch``), every fitting cluster size at 64 × 256², 16 ×
     256² and 16 × 512² with x, pv and ph in shared memory where they fit
     and in global memory, and at 64 × 256² the planner's c with the two
-    placements in turns. Then the composed solves that launch it (the
-    flagship, the ADMM cell and the 512² cell, row 3's yardstick) with
-    their device times. Each plan where ROOT's package has a planner, and
-    sha256 digests of each case, of rows 2 and 4 as controls: a change of
-    row 1's resident route leaves its global route and rows 2 and 4 bit
-    for bit."""
+    placements in turns; where ROOT's kernel has the windowed route, the
+    forced windows of TV_WINDOW_SWEEP at 8 × 1024² in turns. Then the
+    composed solves that launch it (the flagship, the ADMM cell and the
+    512² cell, row 3's yardstick) and, at 1024² × 8, the composed FISTA-TV
+    and ADMM-TV solves beside rows 3 and 5 on their row tiles, with their
+    device times. Each plan where ROOT's package has a planner, and sha256
+    digests of each case, of rows 2 and 4 as controls: a change of row 1's
+    resident route leaves its global route and rows 2 and 4 bit for bit.
+    Run it for the parent tree and this one in turns (P C C P): 8 × 1024²
+    takes the parent's global route and this tree's windows."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch import _build
     from rls_tpu_torch.kernels import admm_tv_fused as k4
+    from rls_tpu_torch.kernels import admm_tv_tiled as k5
     from rls_tpu_torch.kernels import fista_tv_fused as k2
+    from rls_tpu_torch.kernels import fista_tv_tiled as k3
     from rls_tpu_torch.kernels import tv_fgp as k1
 
     out["kernel"] = os.path.relpath(k1.__file__, ROOT)
     rng = np.random.default_rng(13)
     forced = hasattr(k1, "_card_plan")
+    # this tree's planner takes the dual iterations, and has the windows
+    windows = hasattr(k1, "prox_tv2d_fgp_windows_torch")
     inputs, cases, sweep = {}, [], []
     for B, H, W, tv in TV_SHAPES:
         x = torch.from_numpy(rng.normal(size=(B, H, W)).astype(np.float32)).to(dev)
@@ -5265,7 +5364,8 @@ def time_tv_fgp(dev, out):
             return k1.prox_tv2d_fgp(x.reshape(x.shape[0], -1), lam, x.shape[1:], tv)
 
         reps = 20 if x.numel() <= 2**22 else 5
-        cases.append((f"{B} x {H}x{W}, {tv} dual", run, reps, plan_probe(k1, (x,))))
+        cases.append((f"{B} x {H}x{W}, {tv} dual", run, reps,
+                      plan_probe(k1, (x, tv) if windows else (x,))))
     if forced:
         limits = _build.device_limits(dev.index or 0)
         for key in ((64, 256, 256, 10), (16, 256, 256, 8), (16, 512, 512, 10)):
@@ -5281,10 +5381,23 @@ def time_tv_fgp(dev, out):
     if forced:
         # the planner's c at 64 × 256² with the two placements, in turns
         (x, lam), (B, H, W, tv) = inputs[64, 256, 256, 10], (64, 256, 256, 10)
-        c = k1.plan_on_card(x)[0].clusters
+        c = k1.plan_on_card(*((x, tv) if windows else (x,)))[0].clusters
         time_cases(out, [(f"in turns: {B} x {H}x{W}, {tv} dual, c = {c}, x pv ph {own}",
                           forced_tv(k1, x, lam, tv, c, own), 20) for own in ("shared", "global")],
                    in_turns=True)
+    if windows:
+        # forced windows at 8 × 1024² (the planner weighs them alike)
+        (x, lam), (B, H, W, tv) = inputs[TV_1024], TV_1024
+        tiles = []
+        for interior, c in TV_WINDOW_SWEEP:
+            name = f"{B} x {H}x{W}, {tv} dual, windows of {interior} rows on c = {c}"
+            tiles.append((name, lambda interior=interior, c=c: k1._launch(x, lam, tv, c, None,
+                                                                          interior), 5,
+                          lambda interior=interior, c=c: {"plan": dict(vars(k1._card_plan(
+                              dev.index or 0, B, H, W, c, None, tv, interior)[0]))}))
+        time_cases(out, tiles, in_turns=True)
+        device_ms(out, tiles)
+        sweep += tiles
     for name, run, *_ in cases + sweep:
         out[f"sha256 of out: {name}"] = digest(run())
     # the composed solves that launch row 1, with their device times
@@ -5302,6 +5415,27 @@ def time_tv_fgp(dev, out):
                lambda: rtt.solve_batched_unrolled(s3, B3), 1)]
     time_cases(out, solves)
     device_ms(out, solves)
+    # 1024² × 8: the composed FISTA-TV and ADMM-TV solves (row 1 at 1024²,
+    # 50 and 10 launches) beside rows 3 and 5 on their row tiles
+    s10 = build_solver(1024, dev)
+    B10 = s10.A.mv(torch.from_numpy(np.ascontiguousarray(draws[1024])).to(dev)).T.contiguous()
+    x10 = s10.A.rmv_stencil(B10.T).reshape(-1, 1024, 1024)
+    a10 = build_admm((1024, 8) + ADMM512[2:], dev)
+    Ba10 = a10.A.mv(torch.from_numpy(np.ascontiguousarray(draws[1024])).to(dev)).T.contiguous()
+    xa10 = a10.A.rmv_stencil(Ba10.T).reshape(-1, 1024, 1024).contiguous()
+    lam5, iters5, cg5, tv5 = ADMM512[2:]
+    big = [("1024² x 8 FISTA-TV composed solve_batched_unrolled",
+            lambda: rtt.solve_batched_unrolled(s10, B10), 1),
+           ("1024² x 8 row 3 fista_tv_tiled",
+            lambda: k3.fista_tv_tiled(x10, s10.A.taps_hw(), RHO, LAM, ITERS, TV_ITERS), 1),
+           ("1024² x 8 ADMM-TV composed solve_batched_unrolled",
+            lambda: rtt.solve_batched_unrolled(a10, Ba10), 1),
+           ("1024² x 8 row 5 admm_tv_tiled",
+            lambda: k5.admm_tv_tiled(xa10, a10.A.taps_hw(), ADMM_RHO, lam5, iters5, cg5, tv5,
+                                     ADMM_TOL), 1)]
+    time_cases(out, big)
+    device_ms(out, big)
+    del s10, B10, x10, a10, Ba10, xa10
     # rows 2 and 4 as controls
     x2 = s2.A.rmv_stencil(B2.T).reshape(BATCH, N, N)
     out["sha256 of x: row 2 flagship"] = digest(

@@ -55,6 +55,8 @@ _SIGNATURES = {
     # (x, lam, out, scratch, B, H, W, iterations, clusters, rows, own_shared,
     #  smem, stream)
     "tv_fgp_cluster_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # the same, then interior, halo (the windowed route)
+    "tv_fgp_windows_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # (out: int[2] = SM count, opt-in shared memory per block)
     "rls_device_limits": (_P,),
     # (x0hat, scal, tab, t2, taps, kh, kw, out, scratch, counts, B, H, W,

@@ -1,5 +1,5 @@
 // Batched 2-D anisotropic TV prox by FGP (fast gradient projection on the
-// TV dual), on one of two routes that the host planner
+// TV dual), on one of three routes that the host planner
 // (kernels/tv_fgp.py plan_tv_fgp) picks by shape:
 //
 // * resident: each problem runs on a thread-block cluster of c <= 16 CTAs
@@ -8,9 +8,26 @@
 //   rows or at a neighbour's column in shared memory (the band design of
 //   the fused PGM-TV and ADMM-TV kernels: rls::Band, cluster_common.cuh,
 //   and its plane size, tv_band.cuh);
+// * windows: where no cluster holds a problem's bands (1024^2), the same
+//   cluster kernel on windows of rows: each (problem, window) on its own
+//   cluster, the window taken for the image (its edges read zero and mask
+//   its last row, as the image's do). A window of `interior` rows is
+//   widened by a halo of `halo` rows on each side (shifted inside the
+//   image at its top and bottom, so that every window has the same rows)
+//   and only its interior rows are written. A window edge inside the
+//   image is wrong from the first dual iteration on (its last row's mask,
+//   then the missing row above), and each dual iteration carries that one
+//   row further in (xtmp reads rv one row up, q reads xtmp one row down;
+//   the output reads p one row up): after N dual iterations the rows
+//   within N of such an edge differ, so a halo of N rows makes every
+//   interior row the same operations in the same order as the whole
+//   image's, bit for bit (tests/test_torch_tv_fgp_windows.py, and one
+//   row less differs). Each window has its own global scratch, so that
+//   two clusters never write the same rows of pv and ph;
 // * global: one CTA per problem with the image, xtmp and the four dual
-//   planes in global scratch (the first design), for images whose bands
-//   fit no cluster (a row wider than ~19,300 pixels, or 1024^2).
+//   planes in global scratch (the first design), for rows wider than
+//   ~19,300 pixels (no band of one row fits), or than ~9,600 at 10 dual
+//   iterations (16 CTAs hold fewer than 2 halo + 1 rows).
 //
 // Replaces the TPU kernel rls_tpu/kernels/tv_pallas.py:_kernel (launched by
 // prox_tv2d_fgp_pallas, :69, pallas_call :54), which runs the fori FGP of
@@ -77,10 +94,15 @@
 //   S2, S3-S5, the global planes: own rows only; each cluster barrier is
 //        also a CTA barrier
 // With no dual iteration the output follows B0 and reads the zeros of S1
-// and ph. tests/test_torch_tv_fgp_plan.py runs this schedule band by band
-// on the physical planes and fails where any of these barriers is dropped.
+// and ph. The windowed route runs this schedule on each window's cluster;
+// clusters share nothing (each window's scratch is its own).
+// tests/test_torch_tv_fgp_plan.py runs this schedule band by band on the
+// physical planes, on the image and on windows, and fails where any of
+// these barriers is dropped.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "fgp_common.cuh"
 #include "tv_band.cuh"
@@ -182,9 +204,13 @@ struct ClusterArgs {
     const float* x;    // (B, H, W)
     const float* lam;  // (B,)
     float* out;        // (B, H, W)
-    float* scratch;    // 2 planes of (B, H, W), pv and ph, where not kOwnShared
+    float* scratch;    // 2 planes of (B windows, window_rows, W), pv and ph, where not kOwnShared
     int B, H, W, iterations;
-    int clusters, rows;  // c CTAs per problem, R rows per band
+    int clusters, rows;  // c CTAs per window, R rows per band
+    // a problem's windows: `windows` of `interior` rows each (the last may
+    // be shorter), each computed on window_rows = min(H, interior + 2 halo)
+    // rows; 1, H, 0, H on the resident route (the window is the image)
+    int windows, interior, halo, window_rows;
 };
 
 using Band = rls::Band<false>;  // nvcc may contract, as on the global route
@@ -193,7 +219,8 @@ using Sweep = rls::Sweep<kThreads>;
 template <bool kOwnShared>
 __global__ void __launch_bounds__(kThreads, 1) tv_fgp_cluster_kernel(const ClusterArgs a) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int H = a.H, W = a.W, R = a.rows, nc = a.clusters;
+    // H: the rows the bands cover, the image's or a window's
+    const int H = a.window_rows, W = a.W, R = a.rows, nc = a.clusters;
     const size_t pf = rls::band_plane_floats(R, W);
     float* s = reinterpret_cast<float*>(smem);
     const float** rowp =
@@ -201,7 +228,10 @@ __global__ void __launch_bounds__(kThreads, 1) tv_fgp_cluster_kernel(const Clust
 
     cg::cluster_group cl = cg::this_cluster();
     const int rank = static_cast<int>(cl.block_rank());
-    const int b = blockIdx.x / nc;
+    const int cluster = blockIdx.x / nc;  // (problem, window)
+    const int b = cluster / a.windows;
+    const int top = (cluster - b * a.windows) * a.interior;  // first interior row
+    const int lo = min(max(top - a.halo, 0), a.H - H);       // the window's first row
     const int r0 = rank * R;
     const Band bd{s, rowp, pf, r0, min(R, H - r0), H, W};
     const int n = bd.rows * W;  // this CTA's pixels, local index i
@@ -214,8 +244,9 @@ __global__ void __launch_bounds__(kThreads, 1) tv_fgp_cluster_kernel(const Clust
     };
     rls::fill_row_table(rowp, s, r0, R, H, W, cl);
 
-    // the band's pixels are contiguous in (B, H, W)
-    const size_t off = static_cast<size_t>(b) * H * W + static_cast<size_t>(r0) * W;
+    // the band's pixels are contiguous in (B, H, W), and in the window's own
+    // scratch, (B windows, window rows, W)
+    const size_t off = (static_cast<size_t>(b) * a.H + lo + r0) * W;
     float* ob = a.out + off;
     float* xtmp = bd.plane(kXtmp);
     float* rv = bd.plane(kRv);
@@ -231,8 +262,8 @@ __global__ void __launch_bounds__(kThreads, 1) tv_fgp_cluster_kernel(const Clust
         xb = xs;
     } else {
         xb = a.x + off;
-        pv = a.scratch + off;
-        ph = pv + static_cast<size_t>(a.B) * H * W;
+        pv = a.scratch + (static_cast<size_t>(cluster) * H + r0) * W;
+        ph = pv + static_cast<size_t>(a.B) * a.windows * H * W;
     }
 
     const float lam_b = a.lam[b];
@@ -276,7 +307,11 @@ __global__ void __launch_bounds__(kThreads, 1) tv_fgp_cluster_kernel(const Clust
         t = t_new;
     }
 
-    sweep([&](int i, int lr, int c) { ob[i] = xb[i] - lam_b * bd.grad_t(kRv, ph, i, lr, c); });
+    // the output: the window's interior rows [top, top + interior), local
+    const int out_lo = top - lo - r0, out_hi = min(a.H, top + a.interior) - lo - r0;
+    sweep([&](int i, int lr, int c) {
+        if (lr >= out_lo && lr < out_hi) ob[i] = xb[i] - lam_b * bd.grad_t(kRv, ph, i, lr, c);
+    });
     sync_cluster();  // Be
 }
 
@@ -284,10 +319,44 @@ template <bool kOwnShared>
 cudaError_t launch_cluster(const ClusterArgs& args, int smem, cudaStream_t stream) {
     cudaLaunchAttribute attr;
     cudaLaunchConfig_t cfg;
-    cudaError_t e = rls::cluster_config(tv_fgp_cluster_kernel<kOwnShared>, args.B,
-                                        args.clusters, kThreads, smem, stream, &attr, &cfg);
+    cudaError_t e = rls::cluster_config(tv_fgp_cluster_kernel<kOwnShared>,
+                                        args.B * args.windows, args.clusters, kThreads, smem,
+                                        stream, &attr, &cfg);
     if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, tv_fgp_cluster_kernel<kOwnShared>, args);
     return e;
+}
+
+// A launch of the cluster kernel on windows of `interior` rows with `halo`
+// rows each side (interior = H, halo = 0: the resident route). Returns
+// cudaErrorInvalidValue for a plan whose bands do not cover a window, whose
+// halo is short of the dual iterations (where the window is not the
+// image), or whose smem differs from cluster_smem_bytes, else the launch's
+// error.
+int launch_windows(const void* x, const void* lam, void* out, void* scratch, int B, int H,
+                   int W, int iterations, int clusters, int rows, int own_shared, int smem,
+                   int interior, int halo, void* stream) {
+    if (B < 1 || H < 1 || W < 1 || interior < 1 || halo < 0 || iterations < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long windows = (static_cast<long long>(H) + interior - 1) / interior;
+    const long long Hw = std::min<long long>(H, interior + 2LL * halo);
+    const bool covers = rows > 0 && clusters >= 1 && clusters <= kMaxCluster &&
+                        static_cast<long long>(clusters - 1) * rows < Hw &&
+                        static_cast<long long>(clusters) * rows >= Hw &&
+                        (Hw == H || halo >= iterations) &&
+                        B * windows * clusters < (1LL << 31) &&
+                        static_cast<long long>(rows) * W < (1LL << 31) &&
+                        (own_shared || scratch != nullptr);
+    if (!covers || static_cast<size_t>(smem) != cluster_smem_bytes(rows, W, own_shared != 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const ClusterArgs args{static_cast<const float*>(x), static_cast<const float*>(lam),
+                           static_cast<float*>(out), static_cast<float*>(scratch),
+                           B, H, W, iterations, clusters, rows,
+                           static_cast<int>(windows), interior, halo, static_cast<int>(Hw)};
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const cudaError_t e = own_shared ? launch_cluster<true>(args, smem, st)
+                                     : launch_cluster<false>(args, smem, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -331,23 +400,22 @@ int tv_fgp_cluster_occupancy(int clusters, int rows, int W, int own_shared, long
 int tv_fgp_cluster_launch(const void* x, const void* lam, void* out, void* scratch, int B,
                           int H, int W, int iterations, int clusters, int rows,
                           int own_shared, int smem, void* stream) {
-    const bool covers = B > 0 && W > 0 && rows > 0 && clusters >= 1 &&
-                        clusters <= kMaxCluster &&
-                        static_cast<long long>(clusters - 1) * rows < H &&
-                        static_cast<long long>(clusters) * rows >= H &&
-                        static_cast<long long>(B) * clusters < (1LL << 31) &&
-                        static_cast<long long>(rows) * W < (1LL << 31) &&
-                        (own_shared || scratch != nullptr);
-    if (!covers || static_cast<size_t>(smem) != cluster_smem_bytes(rows, W, own_shared != 0))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const ClusterArgs args{static_cast<const float*>(x), static_cast<const float*>(lam),
-                           static_cast<float*>(out), static_cast<float*>(scratch),
-                           B, H, W, iterations, clusters, rows};
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const cudaError_t e = own_shared ? launch_cluster<true>(args, smem, st)
-                                     : launch_cluster<false>(args, smem, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(cudaGetLastError());
+    return launch_windows(x, lam, out, scratch, B, H, W, iterations, clusters, rows, own_shared,
+                          smem, H, 0, stream);
+}
+
+// The windowed route: as tv_fgp_cluster_launch on each window of a problem,
+// ceil(H / interior) windows of min(H, interior + 2 halo) rows (halo >= the
+// dual iterations where a window is not the image), `clusters` CTAs and
+// bands of `rows` rows each; scratch 2 planes of (B windows, window rows, W)
+// where not `own_shared`. Returns cudaErrorInvalidValue for a plan that
+// does not cover a window, whose halo is short or whose smem differs from
+// cluster_smem_bytes, else the launch's error.
+int tv_fgp_windows_launch(const void* x, const void* lam, void* out, void* scratch, int B,
+                          int H, int W, int iterations, int clusters, int rows,
+                          int own_shared, int smem, int interior, int halo, void* stream) {
+    return launch_windows(x, lam, out, scratch, B, H, W, iterations, clusters, rows, own_shared,
+                          smem, interior, halo, stream);
 }
 
 // The card's SM count and the shared memory a block may opt into, for the

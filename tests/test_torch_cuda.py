@@ -152,7 +152,7 @@ def _tv_launch(x, lam, iterations, clusters=None):
     forced through the private ``_launch`` (and a check that the card holds
     a cluster of it), counted once on that plan's route."""
     if clusters is None:
-        plan, active = tv_fgp.plan_on_card(x)
+        plan, active = tv_fgp.plan_on_card(x, iterations)
     else:
         plan, active = tv_fgp._card_plan(x.device.index or 0, *x.shape, clusters)
     assert plan.route == "global" or active >= 1
@@ -254,6 +254,122 @@ def test_cluster_counts_of_the_tv_fgp_planner_tests(dev, shape):
         smem, got = tv_fgp.resident_limits(dev.index, c, rows, W, c in on_chip)
         assert smem == tv_fgp.cluster_smem_bytes(rows, W, c in on_chip)
         assert got == held[c], (c, shape)
+
+
+def _tv_windows(x, lam, iterations, interior=None, clusters=None, own=None):
+    """One launch on the windowed route (the planner's, or forced windows
+    of `interior` rows through the private ``_launch``), counted once on
+    it, and its plan."""
+    plan, active = tv_fgp._card_plan(x.device.index or 0, *x.shape, clusters, own, iterations,
+                                     interior)
+    assert plan.route == "windows" and plan.halo == iterations and active >= 1
+    before = dict(tv_fgp.prox_tv2d_fgp.route_launches)
+    if interior is None and clusters is None and own is None:
+        got = tv_fgp.prox_tv2d_fgp(x.reshape(x.shape[0], -1), lam, x.shape[1:],
+                                   iterations).reshape(x.shape)
+    else:
+        got = tv_fgp._launch(x, lam, iterations, clusters, own, interior)
+    before["windows"] += 1
+    assert tv_fgp.prox_tv2d_fgp.route_launches == before
+    return got, plan
+
+
+@pytest.mark.parametrize("iterations", [0, 1, 10])
+@pytest.mark.parametrize("shape,interior,clusters,own", [
+    ((47, 40), 5, None, None), ((47, 40), 9, 2, None), ((47, 40), 9, 2, "global"),
+    ((64, 17), 6, None, None), ((256, 256), 100, 12, "global"), ((1, 8), 1, None, None)])
+def test_tv_fgp_windows_match_plain(dev, shape, interior, clusters, own, iterations):
+    """Forced windows (both placements, several per problem, the last one
+    short) against their plain version and the whole image's, to 1e-5 of
+    max|x| (the kernel contracts to FMA where the plain version rounds)."""
+    x, lam = _tv_inputs(dev, shape)
+    got, plan = _tv_windows(x, lam, iterations, interior, clusters, own)
+    assert plan.windows == -(-shape[0] // interior)
+    _close(got, tv_fgp.prox_tv2d_fgp_windows_torch(x, lam, iterations, plan), 1e-5)
+    _close(got, tv_fgp.prox_tv2d_fgp_torch(x, lam, iterations), 1e-5)
+
+
+@pytest.mark.parametrize("iterations", [1, 10])
+@pytest.mark.parametrize("interior,clusters,own", [(100, 12, None), (100, 12, "global"),
+                                                   (37, 7, None), (256, None, None)])
+def test_tv_fgp_windows_are_the_resident_route_bit_for_bit(dev, interior, clusters, own,
+                                                           iterations):
+    """Windows with a halo of the dual iterations run each interior pixel
+    through the same operations as the resident route on the whole image:
+    the same bits, whatever the windows' cluster size and placement."""
+    x, lam = _tv_inputs(dev, (256, 256), 4, seed=9)
+    whole, plan = _tv_launch(x, lam, iterations)
+    assert plan.route == "resident"
+    got, _ = _tv_windows(x, lam, iterations, interior, clusters, own)
+    torch.cuda.synchronize()
+    assert torch.equal(got, whole)
+
+
+def test_tv_fgp_windows_at_1024_match_plain_and_repeat_bit_for_bit(dev):
+    """2 × 1024² at 10 dual iterations takes the planner's windows: the
+    plain version to 1e-5 of max|x|, and 20 launches each equal to the
+    first (overlapping windows write no common scratch)."""
+    x, lam = _tv_inputs(dev, (1024, 1024), 2, seed=8)
+    first, plan = _tv_windows(x, lam, 10)
+    assert plan.windows > 1
+    _close(first, tv_fgp.prox_tv2d_fgp_torch(x, lam, 10), 1e-5)
+    for _ in range(20):
+        got = tv_fgp.prox_tv2d_fgp(x.reshape(2, -1), lam, (1024, 1024), 10).reshape(x.shape)
+        assert torch.equal(got, first)
+
+
+@pytest.mark.parametrize("own", [None, "global"])
+def test_tv_fgp_forced_windows_repeat_bit_for_bit(dev, own):
+    """20 launches of overlapping windows with x, pv and ph in global
+    memory (each window's own scratch) or in shared memory, each equal to
+    the first."""
+    x, lam = _tv_inputs(dev, (512, 512), 8, seed=5)
+    first, plan = _tv_windows(x, lam, 10, 64, 8, own)
+    assert plan.own == (own or "shared") and plan.windows == 8
+    for _ in range(20):
+        assert torch.equal(tv_fgp._launch(x, lam, 10, 8, own, 64), first)
+
+
+def test_tv_fgp_windows_refuse_a_short_halo(dev):
+    """The C entry point refuses windows whose halo is short of the dual
+    iterations (their interiors would differ), and the planner a window
+    that does not fit."""
+    from rls_tpu_torch import _build
+
+    x, lam = _tv_inputs(dev, (64, 64))
+    plan, _ = tv_fgp._card_plan(dev.index, 3, 64, 64, None, None, 10, 8)
+    out = torch.empty_like(x)
+    lib = _build.load_library()
+    for halo, ok in ((9, False), (10, True)):
+        rows = -(-min(64, 8 + 2 * halo) // plan.clusters)
+        code = lib.tv_fgp_windows_launch(
+            x.data_ptr(), lam.data_ptr(), out.data_ptr(), None, 3, 64, 64, 10, plan.clusters,
+            rows, 1, tv_fgp.cluster_smem_bytes(rows, 64, True), 8, halo,
+            torch.cuda.current_stream().cuda_stream)
+        assert (code == 0) == ok, (halo, code)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="windows of 0 rows do not fit"):
+        tv_fgp._launch(x, lam, 10, interior=0)
+
+
+def test_cluster_counts_of_the_windowed_planner(dev):
+    """On an H100 the card holds, at each c's widest band of 1024 (18 rows
+    of three planes, what ``_card_plan`` reads for the windowed route), the
+    clusters the planner tests use."""
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    held = dict(TV_RESIDENT)
+    rows = tv_fgp.widest_band(1024, False)
+    assert rows == 18
+    for c in range(1, 17):
+        smem, got = tv_fgp.resident_limits(dev.index, c, rows, 1024, False)
+        assert smem == tv_fgp.cluster_smem_bytes(rows, 1024, False)
+        assert got == held[c], c
+    plan, active = tv_fgp.plan_on_card(torch.empty(8, 1024, 1024, device=dev), 10)
+    assert (plan.route, plan.clusters, plan.halo, active) == ("windows", 8, 10, held[8])
 
 
 def _inputs(dev, shape, seed=4):

@@ -3,21 +3,24 @@
 
 The planner: which route, cluster size and plane placement a shape takes
 on an H100 (132 SMs, 232,448 bytes of shared memory per block), that every
-resident plan covers H with its bands and fits the card, that the row →
-(rank, local row) map owns each row once, that the shared-memory count
-and the constants are the kernel's, and that a shape with no route raises
-and names itself.
+resident plan covers H with its bands and fits the card, that every
+windowed plan's windows cover each row once with their interiors and
+their bands cover each window, that the row → (rank, local row) map owns
+each row once, that the shared-memory count, the windows' scratch and the
+constants are the kernel's, and that a shape with no route raises and
+names itself.
 
 The model: the fori FGP computed band by band in float64, as the resident
 kernel's CTAs compute it (csrc/tv_fgp.cu), each band reading another
 band's rows only as they stood at the last cluster barrier, on the
 kernel's physical planes (S0 xtmp, S1 rv and, in the last dual iteration,
 p; S2 rh; x, pv and ph in S3–S5 or in global memory as the plan places
-them). It is held against ``prox_tv2d_fgp_torch`` in float64, and it
-checks the barrier table of the kernel's header: a plane that a band
-reads from another band between two cluster barriers must not be written
-between them, so that dropping any barrier of the table raises. The
-kernel itself runs only on the card (tests/test_torch_cuda.py)."""
+them), on the image or on each window of a windowed plan (its interior
+rows stitched). It is held against ``prox_tv2d_fgp_torch`` in float64,
+and it checks the barrier table of the kernel's header: a plane that a
+band reads from another band between two cluster barriers must not be
+written between them, so that dropping any barrier of the table raises.
+The kernel itself runs only on the card (tests/test_torch_cuda.py)."""
 
 import re
 from pathlib import Path
@@ -37,16 +40,18 @@ SMS, SMEM = 132, 232_448
 # it on the card)
 H100_RESIDENT = tuple(zip(range(1, 17), (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7,
                                          7)))
-# the main path's shapes and the global route's: (route, c, rows per band,
-# shared memory per CTA, where x, pv and ph live). At 64 × 256², 16 × 256²
-# and 16 × 512² these are the fastest of every size and placement measured
-# on an H100 (PERF.md §6). 4 × 4 × 12000 fits one row of three planes
+# the main path's shapes and the global route's, at 10 dual iterations:
+# (route, c, rows per band, shared memory per CTA, where x, pv and ph
+# live). At 64 × 256², 16 × 256² and 16 × 512² these are the fastest of
+# every size and placement measured on an H100 (PERF.md §6). 8 × 1024²
+# fits no cluster: windows of 52 interior rows and a halo of 10 (72 rows,
+# 8 bands of 9, six planes). 4 × 4 × 12000 fits one row of three planes
 # (144,504 bytes) in a cluster of 4; a row of 20,000 pixels fits no band
 MAIN_SHAPES = {
     (64, 256, 256): ("resident", 8, 32, 197_360, "shared"),
     (16, 256, 256): ("resident", 6, 43, 132_936, "global"),
     (16, 512, 512): ("resident", 16, 32, 197_360, "global"),
-    (8, 1024, 1024): ("global", 1, 1024, 0, "global"),
+    (8, 1024, 1024): ("windows", 8, 9, 221_752, "shared"),
     (4, 4, 12000): ("resident", 4, 1, 144_504, "global"),
     (4, 4, 20000): ("global", 1, 4, 0, "global"),
     (1, 256, 256): ("resident", 16, 16, 98_928, "shared"),
@@ -64,8 +69,8 @@ TV_ROUTES = {(24, 20): ("resident", 1, "shared"), (1, 1): ("resident", 1, "share
              (4, 12000): ("resident", 4, "global"), (4, 20000): ("global", 1, "global")}
 
 
-def _plan(B, H, W, resident=H100_RESIDENT, **card):
-    return tv_fgp.plan_tv_fgp(B, H, W, resident, **card)
+def _plan(B, H, W, resident=H100_RESIDENT, iterations=10, **card):
+    return tv_fgp.plan_tv_fgp(B, H, W, resident, iterations=iterations, **card)
 
 
 def _covers(plan, B, H, W, sms=SMS, smem=SMEM):
@@ -82,6 +87,32 @@ def _covers(plan, B, H, W, sms=SMS, smem=SMEM):
     assert plan.scratch == (0 if shared else tv_fgp.OWN_SCRATCH)
 
 
+def _covers_windows(plan, B, H, W, iterations, sms=SMS, smem=SMEM):
+    """A windowed plan's interiors cover every row of H once, each at least
+    `halo` = `iterations` rows from any window edge inside the image; its
+    bands cover each window with none empty; it fits the card."""
+    assert plan.route == "windows" and plan.halo == iterations
+    assert plan.H == tv_fgp.window_rows(H, plan.interior, plan.halo) < H or plan.windows == 1
+    spans = plan.spans(H)
+    assert len(spans) == plan.windows == -(-H // plan.interior)
+    rows = []
+    for lo, top, end in spans:
+        assert 0 <= lo <= top < end <= lo + plan.H <= H
+        assert top - lo >= plan.halo or lo == 0
+        assert lo + plan.H - end >= plan.halo or lo + plan.H == H
+        rows += range(top, end)
+    assert rows == list(range(H))
+    c, R = plan.clusters, plan.rows
+    assert 1 <= c <= min(tv_fgp.MAX_CLUSTER, sms)
+    assert (c - 1) * R < plan.H <= c * R
+    assert sum(plan.band_rows(q) for q in range(c)) == plan.H
+    assert plan.ctas == B * plan.windows * c
+    shared = plan.own == "shared"
+    assert plan.smem == tv_fgp.cluster_smem_bytes(R, W, shared) <= smem
+    assert shared == (tv_fgp.cluster_smem_bytes(R, W, True) <= smem)
+    assert plan.scratch == (0 if shared else tv_fgp.OWN_SCRATCH)
+
+
 @pytest.mark.parametrize("shape", list(MAIN_SHAPES))
 def test_the_main_path_shapes_take_their_routes(shape):
     route, c, rows, smem, own = MAIN_SHAPES[shape]
@@ -90,6 +121,8 @@ def test_the_main_path_shapes_take_their_routes(shape):
                                                                            own)
     if route == "resident":
         _covers(plan, *shape)
+    elif route == "windows":
+        _covers_windows(plan, *shape, 10)
     else:
         assert (plan.ctas, plan.scratch) == (shape[0], tv_fgp.GLOBAL_SCRATCH)
         assert set(plan.places().values()) == {"global"}
@@ -130,7 +163,11 @@ def test_every_resident_plan_covers_its_shape_and_fits(B, H, W):
     fit = tv_fgp.fitting_sizes(H, W)
     plan = _plan(B, H, W)
     if not fit:
+        if plan.route == "windows":
+            _covers_windows(plan, B, H, W, 10)
+            return
         assert plan.route == "global"
+        assert not tv_fgp.window_candidates(B, H, W, 10)
         assert (plan.rows, plan.ctas, plan.smem, plan.scratch) == (H, B, 0,
                                                                    tv_fgp.GLOBAL_SCRATCH)
         return
@@ -289,16 +326,20 @@ def test_a_too_wide_row_takes_the_global_route(W, widest):
 
 @pytest.mark.parametrize("sms,smem,route,c,own", [
     # cards that are not an H100, each taken to hold sms // c clusters of c:
-    # fewer SMs cap the cluster size
+    # fewer SMs cap the cluster size (on 2 SMs 256² fits only windows)
     (8, SMEM, "resident", 8, "shared"),
     (4, SMEM, "resident", 4, "global"),
-    (2, SMEM, "global", 1, "global"),
+    (2, SMEM, "windows", 2, "global"),
     # less shared memory: more bands, or none that fit; at 120,000 bytes
     # c = 8 with x, pv, ph in global memory (4 waves) beats c = 16 with six
     # planes (8 waves)
     (SMS, 120_000, "resident", 8, "global"),
     (SMS, 60_000, "resident", 16, "global"),
-    (SMS, 48 * 1024, "global", 1, "global"),
+    # at 48 KiB no band of 256² fits, but windows of 150 rows on 10 CTAs
+    # do; at 4 KiB a CTA holds one row, and 16 rows are no window at 10
+    # dual iterations
+    (SMS, 48 * 1024, "windows", 10, "global"),
+    (SMS, 4096, "global", 1, "global"),
 ])
 def test_plans_respect_the_card(sms, smem, route, c, own):
     held = tuple((k, sms // k) for k in range(1, 17))
@@ -306,6 +347,8 @@ def test_plans_respect_the_card(sms, smem, route, c, own):
     assert (plan.route, plan.clusters, plan.own) == (route, c, own)
     if route == "resident":
         _covers(plan, 64, 256, 256, sms=sms, smem=smem)
+    if route == "windows":
+        _covers_windows(plan, 64, 256, 256, 10, sms=sms, smem=smem)
 
 
 @pytest.mark.parametrize("args,kw,match", [
@@ -346,6 +389,126 @@ def test_the_wrapper_takes_the_plain_version_on_the_cpu():
     want = tv_fgp.prox_tv2d_fgp_torch(x.reshape(3, 9, 7), lam, 5).reshape(3, -1)
     assert torch.equal(got, want)
     assert (tv_fgp.prox_tv2d_fgp.launches, tv_fgp.prox_tv2d_fgp.route_launches) == before
+
+
+def _window_cost(plan, W=1024):
+    held = dict(H100_RESIDENT)
+    pixel = 1 if plan.own == "shared" else tv_fgp.GLOBAL_PIXEL
+    return -(-plan.ctas // plan.clusters // held[plan.clusters]) * (
+        tv_fgp.WAVE_PIXELS + plan.rows * W * pixel)
+
+
+def test_the_1024_shape_takes_windows_with_a_halo_of_the_dual_iterations():
+    """8 × 1024² at 10 dual iterations fits no cluster of 16 (its bands
+    would need 64 rows of 1024); the windowed route, halo 10: 20 windows
+    of 52 interior rows on clusters of 8 with all six planes on chip (11
+    waves of 4,400 + 9,216), the least cost of every candidate, ties to the
+    smaller c (16 CTAs on 9 windows of 144 rows cost as much)."""
+    assert tv_fgp.fitting_sizes(1024, 1024) == ()
+    plan = _plan(8, 1024, 1024)
+    _covers_windows(plan, 8, 1024, 1024, 10)
+    assert (plan.clusters, plan.rows, plan.H, plan.interior, plan.windows, plan.halo) == (
+        8, 9, 72, 52, 20, 10)
+    assert plan.places() == dict.fromkeys(tv_fgp.PLANES, "shared")
+    costs = [_window_cost(p) for p in tv_fgp.window_candidates(8, 1024, 1024, 10)]
+    assert _window_cost(plan) == min(costs) == 11 * (tv_fgp.WAVE_PIXELS + 9 * 1024)
+    # the issue's first estimate: c = 16 on 18-row bands, 4 windows of 256
+    wide = tv_fgp.plan_tv_fgp(8, 1024, 1024, H100_RESIDENT, iterations=10, interior=256)
+    assert (wide.clusters, wide.rows, wide.smem, wide.own) == (16, 18, 221_824, "global")
+
+
+@pytest.mark.parametrize("iterations", [0, 1, 5, 10, 11, 20, 60])
+@pytest.mark.parametrize("B,H,W", [(8, 1024, 1024), (1, 1024, 1024), (3, 2000, 500),
+                                   (2, 600, 5000), (4, 40000, 16), (1, 300, 9664)])
+def test_every_windowed_plan_covers_its_shape_and_fits(B, H, W, iterations):
+    """Where no band fits but a window does, the plan is windowed: its
+    windows cover every row once, its halo is the dual iterations, its
+    bands fit; it has the least waves × cost of a wave among the
+    candidates that leave every CTA ``MIN_CTA_PIXELS``."""
+    assert not tv_fgp.fitting_sizes(H, W)
+    plan = _plan(B, H, W, iterations=iterations)
+    candidates = tv_fgp.window_candidates(B, H, W, iterations)
+    if not candidates:
+        assert plan.route == "global"
+        return
+    _covers_windows(plan, B, H, W, iterations)
+    wide = [p for p in candidates if p.rows * W >= MIN_CTA_PIXELS] or candidates
+    assert plan in wide
+    assert _window_cost(plan, W) == min(_window_cost(p, W) for p in wide)
+
+
+@pytest.mark.parametrize("W,route", [(9664, "windows"), (9665, "global"), (19_328, "global")])
+def test_the_widest_row_of_a_window_at_10_dual_iterations(W, route):
+    """A window needs 2·halo + 1 rows on 16 CTAs: at 10 dual iterations,
+    two rows of three planes a band (W ≤ 9,664), else the global route;
+    with no dual iteration one row a band, up to 19,328 pixels."""
+    assert _plan(2, 4096, W).route == route
+    assert tv_fgp.widest_band(W, False) == (2 if W <= 9664 else 1)
+    assert _plan(2, 4096, W, iterations=0).route == "windows"
+    assert _plan(2, 4096, 19_329, iterations=0).route == "global"
+
+
+@pytest.mark.parametrize("W", [1, 16, 29, 256, 1000, 1024, 9664, 19_328, 19_329])
+@pytest.mark.parametrize("own_shared", [False, True])
+def test_the_widest_band_is_the_most_rows_that_fit(W, own_shared):
+    rows = tv_fgp.widest_band(W, own_shared)
+    assert rows == 0 or tv_fgp.cluster_smem_bytes(rows, W, own_shared) <= SMEM
+    assert tv_fgp.cluster_smem_bytes(rows + 1, W, own_shared) > SMEM
+
+
+@pytest.mark.parametrize("B,H,W,iterations,interior,clusters", [
+    (3, 37, 29, 5, 4, None), (3, 37, 29, 0, 9, None), (2, 64, 17, 10, 6, 3),
+    (16, 512, 512, 10, 256, None), (16, 512, 512, 10, 512, None), (8, 1024, 1024, 10, 256, 16),
+    (8, 1024, 1024, 10, 114, 8), (8, 1024, 1024, 10, 124, 16), (1, 10, 7, 3, 10, 2),
+])
+def test_a_forced_window(B, H, W, iterations, interior, clusters):
+    """The timing mode's and the tests' forced windows: `interior` rows a
+    window, the cluster size the planner takes for the window (or the one
+    forced), six planes where they fit; a window as tall as the image is
+    the resident plan's bands."""
+    plan = _plan(B, H, W, iterations=iterations, interior=interior, clusters=clusters)
+    _covers_windows(plan, B, H, W, iterations)
+    whole = _plan(B * plan.windows, plan.H, W, clusters=clusters)
+    assert (plan.clusters, plan.rows, plan.smem, plan.own) == (
+        whole.clusters, whole.rows, whole.smem, whole.own)
+    if interior == H:
+        assert plan.spans(H) == [(0, 0, H)]
+
+
+@pytest.mark.parametrize("args,kw,match", [
+    ((3, 37, 29), {"interior": 0}, "windows of 0 rows do not fit 3 x 37x29"),
+    ((3, 37, 29), {"interior": 38}, "windows of 38 rows do not fit 3 x 37x29"),
+    ((2, 64, 20000), {"interior": 8}, "windows of 28 rows fit no cluster"),
+    ((3, 37, 29), {"interior": 4, "clusters": 17}, "a cluster of 17 CTAs does not fit"),
+    ((8, 1024, 1024), {"resident": ((1, 132),)}, "holds no cluster of TvFgpPlan"),
+])
+def test_a_window_that_does_not_fit_raises(args, kw, match):
+    with pytest.raises(ValueError, match=match):
+        _plan(*args, **kw)
+
+
+@pytest.mark.parametrize("B,H,W,iterations,interior", [
+    (8, 1024, 1024, 10, None), (3, 37, 29, 5, 4), (2, 64, 17, 1, 9), (16, 512, 512, 10, 256)])
+def test_each_window_has_scratch_of_its_own(B, H, W, iterations, interior):
+    """The kernel's pv and ph where they are not in shared memory: plane
+    offsets (cluster · window rows + r0) · W in planes of B·windows ×
+    window rows × W (csrc/tv_fgp.cu). Every (problem, window, band) writes
+    its own pixels, disjoint from every other cluster's and inside the
+    wrapper's scratch: overlapping windows never write the same rows."""
+    plan = tv_fgp._placed(_plan(B, H, W, iterations=iterations, interior=interior), W, False)
+    src = (CSRC / "tv_fgp.cu").read_text()
+    assert "pv = a.scratch + (static_cast<size_t>(cluster) * H + r0) * W;" in src
+    assert "ph = pv + static_cast<size_t>(a.B) * a.windows * H * W;" in src
+    assert "torch.empty((plan.scratch, B * plan.windows, plan.H, W)" in (
+        Path(tv_fgp.__file__).read_text())
+    plane = B * plan.windows * plan.H * W
+    seen = np.zeros(plane, dtype=np.int64)
+    for cluster in range(B * plan.windows):
+        for rank in range(plan.clusters):
+            r0 = rank * plan.rows
+            off = (cluster * plan.H + r0) * W
+            seen[off:off + plan.band_rows(rank) * W] += 1
+    assert (seen == 1).all()
 
 
 # ---- a Python model of the resident route
@@ -555,3 +718,51 @@ def test_each_barrier_of_the_table_is_needed(dropped, iterations, own):
         return
     with pytest.raises(Hazard, match="read from another band and written"):
         resident_fgp(x, lam, iterations, plan, dropped=(dropped,))
+
+
+def windowed_fgp(x, lam, iterations, plan, dropped=()):
+    """The windowed route: the resident route's schedule on each window of
+    ``plan.spans`` (a cluster each, the window taken for the image), its
+    interior rows stitched."""
+    out = torch.empty_like(x)
+    for lo, top, end in plan.spans(x.shape[1]):
+        got = resident_fgp(x[:, lo:lo + plan.H], lam, iterations, plan, dropped)
+        out[:, top:end] = got[:, top - lo:end - lo]
+    return out
+
+
+@pytest.mark.parametrize("own", [False, True])
+@pytest.mark.parametrize("H,W,interior,c", [(37, 29, 4, 2), (37, 29, 9, 3), (64, 17, 6, 2),
+                                            (20, 8, 7, 3)])
+@pytest.mark.parametrize("iterations", [0, 1, 2, 5])
+def test_the_windowed_model_is_the_plain_version(H, W, interior, c, own, iterations):
+    """The banded schedule on each window's physical planes, both
+    placements, against prox_tv2d_fgp_torch in float64: the same result to
+    1e-12 of max|x| (the plain windowed version is the whole image's bit
+    for bit: tests/test_torch_tv_fgp_windows.py)."""
+    x, lam = _problem(3, H, W)
+    plan = tv_fgp._placed(_plan(3, H, W, iterations=iterations, interior=interior, clusters=c),
+                          W, own)
+    assert plan.windows > 1 and plan.H < H
+    got = windowed_fgp(x, lam, iterations, plan)
+    want = tv_fgp.prox_tv2d_fgp_torch(x, lam, iterations)
+    assert float((got - want).abs().max()) <= 1e-12 * float(x.abs().max())
+    assert torch.equal(got, tv_fgp.prox_tv2d_fgp_windows_torch(x, lam, iterations, plan))
+
+
+@pytest.mark.parametrize("own", [False, True])
+@pytest.mark.parametrize("iterations", [0, 1, 3])
+@pytest.mark.parametrize("dropped", BARRIERS)
+def test_each_barrier_of_the_table_is_needed_on_windows(dropped, iterations, own):
+    """The same barrier table on the windowed route: without any one of
+    them some window's cluster reads a plane another band writes between
+    two barriers."""
+    x, lam = _problem(2, 40, 8)
+    plan = tv_fgp._placed(_plan(2, 40, 8, iterations=iterations, interior=7, clusters=3), 8,
+                          own)
+    windowed_fgp(x, lam, iterations, plan)  # with every barrier: no hazard
+    if iterations == 0 and dropped in ("Bx", "Bq"):
+        windowed_fgp(x, lam, iterations, plan, dropped=(dropped,))
+        return
+    with pytest.raises(Hazard, match="read from another band and written"):
+        windowed_fgp(x, lam, iterations, plan, dropped=(dropped,))
