@@ -83,9 +83,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      times: the fused FISTA-L1-DFT on 16 distinct 256² CS problems with λ
      per problem (60 iterations; its plan printed first, on the resident
      route by its route counter, and bit for bit the plain version), and
-     its global route on 4 problems of 512² (bit for bit, the route
-     counter set to 0 just before and required to read one global
-     launch), the fused FISTA-L21-SENSE (bit for bit) and the fused
+     its grid route (a team of CTAs a problem that meet in L2) on 4 and 16
+     problems of 512² (bit for bit, timed with its bound and CTA 0's
+     clocks, the route counter set to 0 just before and required to read
+     one grid launch), the fused FISTA-L21-SENSE (bit for bit) and the fused
      SplitBregman L21 + TV (4 × 8 × 8, TV 5, with the live CG steps of
      kernel and plain version side by side), each with its plan printed
      first (route, CTAs per slice, row bands, rounds of coils, shared
@@ -101,11 +102,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      sha256 is not the parent's fails the run: the digests must be
      recorded anew; then the mixed-radix FFT at sides with odd factors
      (MIXED_L1DFT, MIXED_SENSE): row 8 at 16 × 320² (resident, c = 16)
-     and 4 × 64 × 448 (c = 4), 4 × 640² (global: past a cluster of 16),
-     and on uneven bands and blocks at 2 × 97 × 128 (a prime side, c =
+     and 4 × 64 × 448 (c = 4), 4 × 640², 2 × 1024² and 4 × 448² (the
+     grid route: past a cluster of 16), and on uneven bands and blocks at 2 × 97 × 128 (a prime side, c =
      3), 4 × 225² (c = 12), 16 × 300² and 16 × 320 × 260 (c = 16), each
-     output's sha256 beside the parent tree's (its global route at the
-     uneven shapes) and required equal, rows 9 and 10 at 8 × 64 × 192
+     output's sha256 beside the parent trees' (their global route at the
+     uneven and the grid shapes) and required equal, rows 9 and 10 at 8 × 64 × 192
      (resident) and 8 × 192² (split), 6 coils, each plan printed, bit for
      bit (row 10: its spread and live CG steps) on its route by the route
      counter, each timed in turns with its plain version and printed with
@@ -135,6 +136,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      composed), each SENSE cell's one launch on the resident route by the
      route counter; on the mixed-radix FFT the same settings at other
      sides: fista_l1_cs_dft320_b16 (resident route, also composed),
+     fista_l1_cs_dft512_b16 (BASELINE #2 at 512²: one launch on the grid
+     route by the route counter, also composed),
      fista_l21_sense192_6coil_b8 and splitbregman_sense192_6coil_b8 (the
      latter also composed; both one launch on the split route); each
      cell's composed solve is timed (wall, and device time by
@@ -303,9 +306,13 @@ its composed solve_batched_unrolled, in turns, three readings each.
 
 does the same for the fused FISTA-L1-DFT kernel (row 8): the CS cell's 16
 distinct 256² problems (60 iterations), 1 and 64 problems of 256², 16 of
-128², 4 of 512² on the global route, the cell through solve_batched_fast,
-and the kernel in turns with the cell's composed solve_batched_unrolled,
-whose device time torch.profiler also reads; the uneven shapes of phase
+128², the cell through solve_batched_fast, and the kernel in turns with
+the cell's composed solve_batched_unrolled, whose device time
+torch.profiler also reads; the shapes past a cluster of 16 (GRID_L1DFT:
+4 × 512², 4 × 640², 2 × 1024², 16 × 512², 4 × 448², the grid route, or
+the global route of a tree before it) with their device time, sha256,
+bound, clocks and the composed solve's device time, and the forced grid
+plans of GRID_SWEEP in turns where ROOT's wrapper takes `grid=`; the uneven shapes of phase
 3h (2 × 97 × 128, 4 × 225², 16 × 300², 16 × 320 × 260) with their sha256
 and the composed solve's device time at each, and, where ROOT's wrapper
 takes `clusters=`, every cluster size forced at 97 × 128, 225², 300²
@@ -516,15 +523,18 @@ SB_LAM, SB_TV, SB_RHO, SB_SCHED, SB_TOL = 1e-4, 5, 0.01, (4, 8, 8), 1e-5
 # The mixed-radix FFT (sides with odd factors) in phase 3h: row 8's (B, H,
 # W) and the route its planner takes; rows 9 and 10 at (H, W) with SENSE_C
 # coils and SENSE_SLICES slices. 320² fits a cluster evenly only at c = 16
-# (20-row bands), 64 × 448 at 4; 640² fits no cluster of 16 (the global
-# route's control); the prime 97 × 128 (c = 3: bands of 33, 32, 32 rows),
+# (20-row bands), 64 × 448 at 4; 640², 448² (7 · 64) and 1024² fit no
+# cluster of 16 (the grid route: teams of 33 and 66 CTAs a problem that
+# meet in L2; the parent's global route, whose digests they keep); the
+# prime 97 × 128 (c = 3: bands of 33, 32, 32 rows),
 # the odd side 225² (c = 12), 300² (c = 16: bands of 19 or 18 rows) and
 # 320 × 260, an 81 % phase field of view (c = 16), run on uneven bands and
 # blocks (on the global route before); 64 × 192 a coil's padded spectrum
 # in one CTA, 192² not: there each coil's spectrum is split over a team of
 # 3 CTAs (the split route). Each case is timed under the key "{kernel}
 # {H}x{W}"; the kernel table reads 320x320 and 192x192
-MIXED_L1DFT = (((CS_BATCH, 320, 320), "resident"), ((4, 640, 640), "global"),
+MIXED_L1DFT = (((CS_BATCH, 320, 320), "resident"), ((4, 640, 640), "grid"),
+               ((2, 1024, 1024), "grid"), ((4, 448, 448), "grid"),
                ((2, 97, 128), "resident"), ((4, 225, 225), "resident"),
                ((CS_BATCH, 300, 300), "resident"), ((CS_BATCH, 320, 260), "resident"),
                ((4, 64, 448), "resident"))
@@ -533,6 +543,10 @@ MIXED_SENSE = (((64, 192), "resident"), ((192, 192), "split"))
 # their shapes (launches and the composed solve)
 MIXED_ROWS = ("fista_l1_dft_fused (320², mixed radix)", "sense_fused (192², mixed radix)",
               "splitbregman_fused (192², mixed radix)")
+# the kernel table's rows of row 8 by route: the resident route at the CS
+# cell (256²), the grid route at phase 9's 512² cell's batch (16 × 512²)
+L1_ROW, GRID_ROW = ("fista_l1_dft_fused (256², resident route)",
+                    "fista_l1_dft_fused (512², grid route)")
 MIXED_CELLS = ("fista_l1_cs_dft320_b16", "fista_l21_sense192_6coil_b8",
                "splitbregman_sense192_6coil_b8")
 # the sha256 (input, output) of phase 3h's power-of-two cases on the parent
@@ -542,12 +556,16 @@ PARENT_FFT_SHA256 = {
     "fista_l1_dft_fused[256², batch 16, 60 it.]": (
         "87de0c6eef40ce6394d4ed9d3f7e9298b54dc0f58369d74e990376ecba9616bd",
         "38eb2010bb50a66e944527a91fa0d2d0ef1e581b619e89ff66a8d6f6e5581536"),
-    "fista_l1_dft_fused[global route, 512², batch 4, 60 it.]": (
+    # 512² ran on the global route (one CTA a problem) on the tree before
+    # the grid route
+    "fista_l1_dft_fused[512², batch 4, 60 it.]": (
         "8d52cbf78670d63da95854ee900b818e483aafd3dbbe52c387a7361c57db57ea",
         "416d5cdcc905a900fab11c7b3dbfccc95a5bac96d0958ef6cff8c5515bca3e11"),
     # row 8 at phase 3h's mixed-radix shapes on the tree before uneven bands:
     # 320² and 64 × 448 on even clusters, 640² and the uneven shapes (97 ×
-    # 128, 225², 300², 320 × 260) on the global route
+    # 128, 225², 300², 320 × 260) on the global route; 16 × 512², 1024² and
+    # 448² on the global route of the tree before the grid route (recorded
+    # by --digest-fft on it, NVIDIA H100 80GB HBM3, 700.00 W)
     "fista_l1_dft_fused[320×320, batch 16, 60 it.]": (
         "f9ad633ceb8a072be361c6bd2ba83dc66880811ae63fd3853625f1f34bcb9f61",
         "1368542a4693dc2f29e2665450daa6d78801254dfd9d7bd5479aef091f131570"),
@@ -569,6 +587,15 @@ PARENT_FFT_SHA256 = {
     "fista_l1_dft_fused[320×260, batch 16, 60 it.]": (
         "bafbc1a254b251ed2d488bbd353a6c8874da405a8f8787447c2336cd4c9ab99c",
         "dc54cf149a5dbbc46a7f6a17a7801567518ec454adc1df10156d36a078f4a3d2"),
+    "fista_l1_dft_fused[512², batch 16, 60 it.]": (
+        "c5acef9d857bb4eebf090c629f9c694bf6fb9e03b2a69205fde97a0d7f57d8d1",
+        "658192db1f767d7fa0c8e1229154c02fbfdbcc584391eb930645e869e03f9c0d"),
+    "fista_l1_dft_fused[1024×1024, batch 2, 60 it.]": (
+        "cad32235b884c81f52c291ba1e534b8ab94a32c3b525900d4dfeda8d98d9ee9f",
+        "cbe284e9111d08df9a120fba44a72a20dc47450588f61107e8366717e116d4d4"),
+    "fista_l1_dft_fused[448×448, batch 4, 60 it.]": (
+        "950c2c674ebea21fa6240bf1760dfc2cf4c3daa7f7102b835f449d896306c9eb",
+        "87b3aa65df6f91fa16559d492a2e6624f6821795da61e5482ba550f0f0fb8353"),
     "sense_fused[128², 6 coils, 8 slices, 80 it.]": (
         "ced28527da67d765ca5380d081f7764ba1187578529d85fac2a8cc40203b17b2",
         "7f97813783919df7d6135cc152f7853c137f4cad440e969c0772e2f02d00a8c2"),
@@ -1103,8 +1130,9 @@ def launch_counts(reset=False):
             fn.launches = 0
         tv_fgp.prox_tv2d_fgp.route_launches = {"resident": 0, "windows": 0, "global": 0}
         for fn in (fista_tv_fused.fista_tv_fused, admm_tv_fused.admm_tv_fused,
-                   pdhg_fused.pdhg_fused, fista_l1_dft_fused.fista_l1_dft_fused):
+                   pdhg_fused.pdhg_fused):
             fn.route_launches = {"resident": 0, "global": 0}
+        fista_l1_dft_fused.fista_l1_dft_fused.route_launches = {"resident": 0, "grid": 0}
         for fn in (splitbregman_fused.splitbregman_l1_tv_fused,
                    sense_fused.fista_l21_sense_fused):
             fn.route_launches = {"resident": 0, "split": 0, "global": 0}
@@ -1791,21 +1819,24 @@ def sense_case(rng, H, W, C, batch):
 def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
     """Phase 3h: each FFT kernel against its plain version at its main-path
     shape, held by `hold_fft` and timed in turns with it: FISTA-L1 on 16
-    distinct 256² CS problems with λ per problem (and its global route at
-    512²), FISTA-L21 and SplitBregman on the 8 SENSE slices, each on its
-    resident route by the route counter; then FISTA-L21 and SplitBregman
+    distinct 256² CS problems with λ per problem (and its grid route at 4
+    and 16 × 512², with its bound and CTA 0's clocks), FISTA-L21 and
+    SplitBregman on the 8 SENSE slices, each on its resident route by the
+    route counter; then FISTA-L21 and SplitBregman
     at 256 × 128 (the split route: a coil's spectrum over a team of CTAs)
     and 512² (the global route), held but not timed. The sha256 of every
     kernel output at these power-of-two shapes (and of its input) goes to
     out["digests"]. With `mixed`, the mixed-radix FFT at sides with odd
     factors (MIXED_*): row 8 at 16 × 320² and 4 × 64 × 448 (resident,
-    even), 4 × 640² (global), and on uneven bands and blocks at 2 × 97 ×
+    even), 4 × 640², 2 × 1024² and 4 × 448² (grid), and on uneven bands
+    and blocks at 2 × 97 ×
     128 (a prime side), 4 × 225², 16 × 300² and 16 × 320 × 260, rows 9 and
     10 at 8 × 64 × 192 (resident) and 8 × 192² (split), each by the route
     counter, each timed with its bound, with the composed solve's device
     time (torch.profiler) at each shape; row 8's and the 192² outputs'
-    sha256 go to out["digests"] under route-free names (the parent tree
-    ran the uneven shapes and 192² on the global route). Without `mixed`
+    sha256 go to out["digests"] under route-free names (the parent trees
+    ran the uneven shapes, 192², 512², 640², 1024² and 448² on the global
+    route). Without `mixed`
     (``--digest-fft``), the same shapes are held and their digests taken,
     untimed. Without `routes`, no route counter is checked:
     ``--digest-fft`` runs the parent tree, whose routes differ. Returns {kernel: {"err", "ms":
@@ -1848,13 +1879,17 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
     def l1_plan(name, x0):
         plan, active = k8.plan_on_card(x0)
         parts, (_, H, W) = "", x0.shape
-        if plan.route == "resident" and (H % plan.clusters or W % plan.clusters):
+        if plan.route != "global" and (H % plan.clusters or W % plan.clusters):
             rows = sorted({b - a for a, b in map(plan.band, range(plan.clusters))})
             cols = sorted({b - a for a, b in map(plan.block, range(plan.clusters))})
             parts = f" (uneven: bands of {rows} rows, blocks of {cols} columns)"
+        if plan.route == "grid":
+            parts += (f", {plan.slots} slots, {plan.rounds} round(s), chunks of "
+                      f"{plan.row_lines} rows and {plan.col_lines} columns")
+        held = "grid CTAs" if plan.route == "grid" else "clusters"
         print(f"{name}: plan route {plan.route}, {plan.clusters} CTAs per problem, "
               f"{plan.rows}-row bands, {plan.cols}-column blocks{parts}, {plan.ctas} CTAs, "
-              f"{plan.smem} B of shared memory per CTA, {active} clusters resident at once")
+              f"{plan.smem} B of shared memory per CTA, {active} {held} resident at once")
         return plan
 
     def sense_plan(module, name, x0):
@@ -1880,9 +1915,12 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
     held(name, lambda x: (k8.fista_l1_dft_fused(x, op.mask, RHO, lam, CS_ITERS), None),
          lambda x: (k8.fista_l1_dft_fused_torch(x, scal, tab, tables), None), x0, x0u,
          bitwise=True, timed_here=True, fn=k8.fista_l1_dft_fused, route="resident")
-    # its global route (one CTA per problem, the spectrum through global
-    # scratch), which a spectrum too large for a cluster's bands takes: 4
-    # problems of 512² on a 35 % mask, held to the bit but not timed
+    # its grid route (a team of CTAs per problem that meet in L2), which a
+    # spectrum too large for a cluster's bands takes: 4 problems of 512² on
+    # a 35 % mask, held to the bit and to the parent's global-route digest,
+    # timed with its bound and CTA 0's clocks; then the 512² cell's batch
+    # (16 distinct problems: 16 slots of 8 CTAs), the kernel table's grid
+    # row
     gn, gb = 512, 4
     rng = np.random.default_rng(11)
     gop = rtt.SubsampledDFT2RealOperator.from_mask(rng.uniform(size=(gn, gn)) < 0.35, (gn, gn),
@@ -1892,12 +1930,29 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
     glam = torch.linspace(0.5, 2.0, gb, device=dev) * CS_LAM
     gscal = problem_scalars(gx0, RHO, glam)
     gtables = dc.dft_tables(gop.mask)
-    name = f"fista_l1_dft_fused[global route, {gn}², batch {gb}, {CS_ITERS} it.]"
-    l1_plan(name, gx0)
-    held(name, lambda x: (k8.fista_l1_dft_fused(x, gop.mask, RHO, glam, CS_ITERS), None),
-         lambda x: (k8.fista_l1_dft_fused_torch(x, gscal, tab, gtables), None), gx0, gx0u,
-         bitwise=True, key="fista_l1_dft_fused global", fn=k8.fista_l1_dft_fused,
-         route="global")
+    for gb_, key in ((gb, "fista_l1_dft_fused grid"), (CS_BATCH, "fista_l1_dft_fused grid b16")):
+        if gb_ != gb:  # 16 problems of their own on the same mask
+            gbv = gop.mv(torch.from_numpy(rng.normal(size=(gb_, gn * gn)).astype(np.float32))
+                         .to(dev))
+            gx0, gx0u = (gop.rmv(v).reshape(gb_, gn, gn) for v in (gbv, gbv * bump))
+            glam = torch.linspace(0.5, 2.0, gb_, device=dev) * CS_LAM
+            gscal = problem_scalars(gx0, RHO, glam)
+        name = f"fista_l1_dft_fused[grid route, {gn}², batch {gb_}, {CS_ITERS} it.]"
+        plan = l1_plan(name, gx0)
+        require(not routes or plan.route == "grid", f"{name}: planned {plan}")
+        entry = held(name, lambda x, g=glam: (k8.fista_l1_dft_fused(x, gop.mask, RHO, g,
+                                                                     CS_ITERS), None),
+                     lambda x, sc=gscal: (k8.fista_l1_dft_fused_torch(x, sc, tab, gtables),
+                                          None),
+                     gx0, gx0u, bitwise=True, timed_here=True, reps=1, key=key,
+                     fn=k8.fista_l1_dft_fused, route="grid",
+                     digest_as=f"fista_l1_dft_fused[{gn}², batch {gb_}, {CS_ITERS} it.]")
+        if timed:
+            entry["bound"] = bound(gb_ * dft_ops(gn * gn, CS_ITERS),
+                                   4 * ((2 * gb_ + 1) * gn * gn + 2 * gb_))
+            print(f"{name}: bound {entry['bound'][0]:.4f} ms ({entry['bound'][1]})")
+            entry["clocks"] = k8.phase_clocks(gx0, gop.mask, RHO, glam, CS_ITERS)
+            print(f"{name}: CTA 0's SM clocks by phase {entry['clocks']}")
 
     # rows 9 and 10: the 8 SENSE slices
     maps, mask, X = sense_problem()
@@ -2232,8 +2287,9 @@ def fft_cell_phase(dev, draws):
     other), problems/s, and two columns held by `parity_fft` to a float64
     solve of the plain version on the card; BASELINE #2 and #4 also
     through solve_batched_unrolled (the composed torch.fft path: no
-    kernel). The power-of-two cells (256², 128²) and, on the mixed-radix
-    FFT, the same settings at 320² (row 8) and 192² (rows 9 and 10). Every
+    kernel). The power-of-two cells (256², 128²), BASELINE #2 at 512² (row
+    8's grid route) and, on the mixed-radix FFT, the same settings at 320²
+    (row 8) and 192² (rows 9 and 10). Every
     cell's composed solve is timed, wall and device time (torch.profiler):
     the yardstick of its kernel. Returns ({cell: (kernel, launches)},
     {cell: composed ms}, {cell: composed device ms})."""
@@ -2283,11 +2339,15 @@ def fft_cell_phase(dev, draws):
               f"{composed_dev[name]:.3f} ms by torch.profiler) beside the kernel's "
               f"{K / (ms / 1e3):.1f} {unit}")
 
-    # fista_l1_cs_dft256_b16: the bench tiles its one column 16 times; and
-    # fista_l1_cs_dft320_b16, BASELINE #2's settings at 320² (the image and
-    # the 35 % sample drawn the same way at that side)
-    for cell, n, (img, idx) in (("fista_l1_cs_dft256_b16", CS_N, draws["cs"]),
-                                ("fista_l1_cs_dft320_b16", 320, cs_image(320, 320))):
+    # fista_l1_cs_dft256_b16: the bench tiles its one column 16 times;
+    # fista_l1_cs_dft320_b16 and fista_l1_cs_dft512_b16, BASELINE #2's
+    # settings at 320² and 512² (the image and the 35 % sample drawn the
+    # same way at that side; 512², the usual matrix of a high-resolution
+    # scan, fits no cluster of 16: the grid route)
+    for cell, n, (img, idx), route in (
+            ("fista_l1_cs_dft256_b16", CS_N, draws["cs"], "resident"),
+            ("fista_l1_cs_dft320_b16", 320, cs_image(320, 320), "resident"),
+            ("fista_l1_cs_dft512_b16", 512, cs_image(512, 512), "grid")):
         op = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx, (n, n), device=dev)
         xt = torch.from_numpy(img).to(dev)
         B = op.mv(xt)[:, None].repeat(1, CS_BATCH).contiguous()
@@ -2301,7 +2361,7 @@ def fft_cell_phase(dev, draws):
         x64 = k8.fista_l1_dft_fused_torch(x0, scal, tab, dc.dft_tables(op64.mask, torch.float64))
         print(f"{cell}: plan {k8.plan_on_card(op.rmv(B.T).reshape(CS_BATCH, n, n))[0]}")
         run(cell, solver, B, xt[None].repeat(CS_BATCH, 1), "fista_l1_dft_fused",
-            (op64, x64.reshape(2, -1)), composed=True)
+            (op64, x64.reshape(2, -1)), composed=True, route=route)
 
     # the SENSE cells: tools/bench_suite.py's problem at 128², and the same
     # draws at 192² (rows 9 and 10 on their split routes: a coil's padded
@@ -4498,8 +4558,14 @@ def main() -> int:
     # x0hat, the mask (or the spectral weights), the coil maps and the
     # scalars read, x written; SplitBregman's live CG steps of the timed run
     cs_hw, s_hw = CS_N * CS_N, SENSE_N * SENSE_N
-    bounds["fista_l1_dft_fused"] = bound(CS_BATCH * dft_ops(cs_hw, CS_ITERS),
-                                         f32 * ((2 * CS_BATCH + 1) * cs_hw + 2 * CS_BATCH))
+    bounds[L1_ROW] = bound(CS_BATCH * dft_ops(cs_hw, CS_ITERS),
+                           f32 * ((2 * CS_BATCH + 1) * cs_hw + 2 * CS_BATCH))
+    # row 8's grid route at 16 × 512² (phase 3h, where it has its bound)
+    g8 = fft["fista_l1_dft_fused grid b16"]
+    bounds[GRID_ROW] = g8["bound"]
+    print(f"{GRID_ROW}: kernel table row from phase 3h's 16 × 512² and phase 9's "
+          f"fista_l1_cs_dft512_b16 (composed device time "
+          f"{composed_dev['fista_l1_cs_dft512_b16']:.3f} ms by torch.profiler)")
     s_bytes = f32 * ((4 * SENSE_SLICES + 2 * SENSE_C + 1) * s_hw)
     bounds["sense_fused"] = bound(SENSE_SLICES * sense_ops(s_hw, SENSE_C, SENSE_ITERS),
                                   s_bytes + f32 * 2 * SENSE_SLICES)
@@ -4567,9 +4633,11 @@ def main() -> int:
          "rls_tpu/kernels/pgm_dense_fused.py:458",
          dense_launched["pgm_dense_fused_cplx"], dense["pgm_dense_fused_cplx"]["err"],
          dense["pgm_dense_fused_cplx"]["ms"]),
-        ("fista_l1_dft_fused", "fista_l1_dft_fused.cu",
+        (L1_ROW, "fista_l1_dft_fused.cu",
          "rls_tpu/kernels/fista_l1_dft_fused.py:110", fft_launched["fista_l1_cs_dft256_b16"][1],
          fft["fista_l1_dft_fused"]["err"], fft["fista_l1_dft_fused"]["ms"]),
+        (GRID_ROW, "fista_l1_dft_fused.cu", "rls_tpu/kernels/fista_l1_dft_fused.py:110",
+         fft_launched["fista_l1_cs_dft512_b16"][1], g8["err"], g8["ms"]),
         ("sense_fused", "sense_fused.cu", "rls_tpu/kernels/sense_fused.py:85",
          fft_launched["fista_l21_sense128_6coil_b8"][1], fft["sense_fused"]["err"],
          fft["sense_fused"]["ms"]),
@@ -4610,7 +4678,8 @@ def main() -> int:
     # Kaczmarz rows (one sweep, the tall cell, the 20-sweep greedy solve)
     library.update({
         "fista_tv_fused": flagship_ms["solve_batched_unrolled"],
-        "fista_l1_dft_fused": composed_ms["fista_l1_cs_dft256_b16"],
+        L1_ROW: composed_ms["fista_l1_cs_dft256_b16"],
+        GRID_ROW: composed_ms["fista_l1_cs_dft512_b16"],
         "sense_fused": composed_ms["fista_l21_sense128_6coil_b8"],
         "splitbregman_fused": composed_ms["splitbregman_sense128_6coil_b8"],
         **{row: composed_ms[cell] for row, cell in zip(MIXED_ROWS, MIXED_CELLS)},
@@ -4678,7 +4747,8 @@ def plan_probe(kernel, plan_args, *clock_args, **clock_kw):
     has the pieces: ``plan_on_card(*plan_args)`` (with the clusters the
     card holds at once, where the planner counts them) and, on the
     resident route (or the SENSE kernels' split route) or where there is no
-    planner, ``phase_clocks(*clock_args, **clock_kw)``: the SM clocks of
+    planner (or row 8's grid route), ``phase_clocks(*clock_args,
+    **clock_kw)``: the SM clocks of
     CTA 0 by phase."""
 
     def probe():
@@ -4688,7 +4758,7 @@ def plan_probe(kernel, plan_args, *clock_args, **clock_kw):
             plan, extra = ((plan[0], {"resident_clusters": plan[1]}) if isinstance(plan, tuple)
                            else (plan, {}))
             got["plan"] = dict(vars(plan), **extra)
-            resident = plan.route in ("resident", "split")
+            resident = plan.route in ("resident", "split", "grid")
         if resident and hasattr(kernel, "phase_clocks"):
             got["clocks of CTA 0 by phase"] = kernel.phase_clocks(*clock_args, **clock_kw)
         return got
@@ -4798,7 +4868,9 @@ def time_splitbregman(dev, out):
     composed solve_batched_unrolled (both device times by torch.profiler,
     the kernel's phase clocks), 8 slices at each SPLIT_SHAPES shape, and
     the forced plans of SPLIT_SWEEP at 192² and SPLIT_SWEEP_128 at the cell
-    (``split_cases``)."""
+    (``split_cases``); 2 slices of 512² (the global route) in turns with
+    the composed solve, both device times and the bound
+    (``time_sense512``)."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
@@ -4861,6 +4933,7 @@ def time_splitbregman(dev, out):
 
     time_cases(out, split_cases(dev, k10, row10, (x192, op192.mask, coils192),
                                 (x0, op.mask, coils)))
+    time_sense512(dev, out, "splitbregman")
 
 
 def cs_cell_solves(dev, op, img2):
@@ -4928,12 +5001,12 @@ def time_fista_l1_dft(dev, out):
     """``--time-fista-l1-dft [ROOT]``: the fused FISTA-L1-DFT kernel (row
     8) at BASELINE #2's schedule (ρ = 0.95, 60 iterations, λ per problem
     around 2e-3): the CS cell's 16 distinct 256² problems (the phantoms of
-    phase 3h), 1 and 64 problems of 256², 16 of 128² and 4 of 512² (the
-    global route); then the cell as solve_batched_fast runs it, in turns
+    phase 3h), 1 and 64 problems of 256² and 16 of 128²; then the cell as solve_batched_fast runs it, in turns
     with its composed solve_batched_unrolled (torch.fft) and the kernel,
     with the composed solve's device time by torch.profiler (the sum of its
     kernels' times, which host delays do not move) beside the kernel's;
-    the uneven shapes of phase 3h (``time_l1dft_uneven``: 2 × 97 × 128, 4 ×
+    the shapes past a cluster of 16 (``time_l1dft_grid``); the uneven
+    shapes of phase 3h (``time_l1dft_uneven``: 2 × 97 × 128, 4 ×
     225², 16 × 300², 16 × 320 × 260, and 16 × 320², 4 × 64 × 448 as even
     controls, with their sha256 and the composed solve's device time, and
     the forced-size sweep at 97 × 128, 225², 300² and 320²); row 9
@@ -4965,7 +5038,6 @@ def time_fista_l1_dft(dev, out):
         (f"1 x {CS_N}²", x16[:1].contiguous(), op.mask, lam16[:1], 5),
         (f"64 x {CS_N}²", x16.repeat(4, 1, 1), op.mask, lam16.repeat(4), 1),
         ("16 x 128²", *other(128, 16), 5),
-        ("4 x 512² (global route)", *other(512, 4), 1),
     ):
         args = (x, mask, RHO, lam, CS_ITERS)
         cases.append((name, lambda a=args: k8.fista_l1_dft_fused(*a), reps,
@@ -4974,6 +5046,7 @@ def time_fista_l1_dft(dev, out):
     row8 = cs_cell_solves(dev, op, img2)
     time_cases(out, row8, in_turns=True)
     device_ms(out, (row8[0], row8[2]))
+    time_l1dft_grid(dev, out)
     time_l1dft_uneven(dev, out)
     # row 9, which this kernel's changes must not move, and its yardstick:
     # its cell's composed solve, wall and device time
@@ -4994,6 +5067,76 @@ def time_fista_l1_dft(dev, out):
     ])
     out["row 9 composed device ms (profiler)"] = [
         sum(ms for ms, _, _ in device_kernels(composed9)) for _ in range(3)]
+
+
+# row 8's shapes past a cluster of 16 (the grid route; the global route of
+# a tree before it) that --time-fista-l1-dft times, (B, H, W), and the
+# forced grid plans (team, slots) it sweeps where the tree takes `grid=`
+GRID_L1DFT = ((4, 512, 512), (4, 640, 640), (2, 1024, 1024), (16, 512, 512), (4, 448, 448))
+GRID_SWEEP = {(16, 512, 512): ((16, 8), (33, 4), (66, 2)), (4, 512, 512): ((66, 2), (132, 1)),
+              (2, 1024, 1024): ((132, 1),)}
+
+
+def l1dft_case(dev, mb, mh, mw):
+    """Row 8's case at (mb, mh, mw) as phase 3h's mixed-radix cases make
+    it (a 35 % mask and random images from default_rng(mh · mw), λ per
+    problem): dict of x0, mask, lam, the composed solver and its B."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    rng = np.random.default_rng(mh * mw)
+    op = rtt.SubsampledDFT2RealOperator.from_mask(rng.uniform(size=(mh, mw)) < 0.35, (mh, mw),
+                                                   device=dev)
+    b = op.mv(torch.from_numpy(rng.normal(size=(mb, mh * mw)).astype(np.float32)).to(dev))
+    solver = rtt.FISTA.create(op, reg=rtt.L1Regularization(CS_LAM), iterations=CS_ITERS,
+                              rho=RHO, rel_tol=0.0, track_residual=False)
+    return dict(x0=op.rmv(b).reshape(mb, mh, mw), mask=op.mask,
+                lam=torch.linspace(0.5, 2.0, mb, device=dev) * CS_LAM, solver=solver,
+                B=b.T.contiguous())
+
+
+def time_l1dft_grid(dev, out):
+    """--time-fista-l1-dft's shapes past a cluster of 16 (GRID_L1DFT): each
+    kernel alone (CUDA events, three readings, with its plan and CTA 0's
+    clocks where the tree has a timer on its route), its device time and
+    the composed solve's by torch.profiler, its output's sha256 (the
+    parent's global route gives the same bits) and its bound; then the
+    forced plans of GRID_SWEEP in turns, where the tree's wrapper takes
+    `grid=`."""
+    import inspect
+
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
+
+    cases = {shape: l1dft_case(dev, *shape) for shape in GRID_L1DFT}
+    timed = []
+    for (mb, mh, mw), c in cases.items():
+        key = f"grid shape {mb} x {mh}x{mw}"
+        args = (c["x0"], c["mask"], RHO, c["lam"], CS_ITERS)
+        timed.append((key, lambda a=args: k8.fista_l1_dft_fused(*a), 1,
+                      plan_probe(k8, (c["x0"],), *args)))
+        out[f"{key} sha256"] = digest(k8.fista_l1_dft_fused(*args))
+        out[f"{key} bound"] = bound(mb * dft_ops(mh * mw, CS_ITERS),
+                                    4 * ((2 * mb + 1) * mh * mw + 2 * mb))
+    time_cases(out, timed)
+    device_ms(out, timed)
+    device_ms(out, [(f"grid shape {mb} x {mh}x{mw} composed solve_batched_unrolled",
+                     lambda c=c: rtt.solve_batched_unrolled(c["solver"], c["B"]))
+                    for (mb, mh, mw), c in cases.items()])
+    if "grid" not in inspect.signature(k8.fista_l1_dft_fused).parameters:
+        return
+    sweep = []
+    for shape, grids in GRID_SWEEP.items():
+        c = cases[shape]
+        for g in grids:
+            args = (c["x0"], c["mask"], RHO, c["lam"], CS_ITERS)
+            sweep.append((f"grid shape {shape[0]} x {shape[1]}x{shape[2]} forced {g}",
+                          lambda a=args, g=g: k8.fista_l1_dft_fused(*a, grid=g), 1,
+                          lambda a=args, g=g: {"clocks of CTA 0 by phase": k8.phase_clocks(
+                              *a, grid=g)}))
+    time_cases(out, sweep, in_turns=True)
+    device_ms(out, sweep)
 
 
 # row 8's uneven shapes of phase 3h (MIXED_L1DFT) that --time-fista-l1-dft
@@ -5125,6 +5268,66 @@ def sense192_cell(dev):
     return op, b, op.rmv(b).reshape(SENSE_SLICES, 2, 192, 192), (op.coils_r, op.coils_i)
 
 
+def sense512_case(dev):
+    """Phase 3h's case of rows 9 and 10 past a team of 16 (their global
+    route): 2 slices of 512² with 6 coils of random maps, a 45 % mask
+    (default_rng(12)): the operator, b, x0 = Aᴴb (2, 2, 512, 512) and the
+    coils."""
+    import torch
+
+    import rls_tpu_torch as rtt
+
+    gn, gb = 512, 2
+    rng = np.random.default_rng(12)
+    maps = rng.normal(size=(SENSE_C, gn, gn)) + 1j * rng.normal(size=(SENSE_C, gn, gn))
+    maps /= np.sqrt((np.abs(maps) ** 2).sum(0))
+    mask = (rng.uniform(size=(gn, gn)) < 0.45).astype(np.float32)
+    op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (gn, gn), device=dev)
+    b = op.mv(torch.from_numpy(rng.normal(size=(gb, 2 * gn * gn)).astype(np.float32)).to(dev))
+    return op, b, op.rmv(b).reshape(gb, 2, gn, gn), (op.coils_r, op.coils_i)
+
+
+def time_sense512(dev, out, row):
+    """Row 9 (`row` "sense") or 10 ("splitbregman") at 2 slices of 512², 6
+    coils (``sense512_case``, the global route): the kernel in turns with
+    its composed solve_batched_unrolled, both device times by
+    torch.profiler, the plan, and the bound (row 10: at the live CG steps
+    of its run)."""
+    import rls_tpu_torch as rtt
+    from rls_tpu_torch.kernels import sense_fused as k9
+    from rls_tpu_torch.kernels import splitbregman_fused as k10
+
+    op, b, x0, coils = sense512_case(dev)
+    S, hw = x0.shape[0], op.im_shape[0] * op.im_shape[1]
+    nbytes = 4 * ((4 * S + 2 * SENSE_C + 1) * hw)
+    if row == "sense":
+        solver = rtt.FISTA.create(op, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
+                                  iterations=SENSE_ITERS, rho=RHO)
+        args = (x0, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS)
+        module, kernel = k9, k9.fista_l21_sense_fused
+        out["512² row 9 bound"] = bound(S * sense_ops(hw, SENSE_C, SENSE_ITERS),
+                                        nbytes + 4 * 2 * S)
+    else:
+        solver = splitbregman_solver(op, dev)
+        args = (x0, op.mask, *coils, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL)
+        module, kernel = k10, k10.splitbregman_l1_tv_fused
+        live = kernel(*args, with_counts=True)[1].tolist()
+        out["512² row 10 live CG steps"] = live
+        out["512² row 10 bound"] = bound(
+            sum(sb_ops(hw, SENSE_C, *SB_SCHED[:2], SB_TV, v) for v in live),
+            nbytes + 4 * 4 * S)
+    n = 9 if row == "sense" else 10
+    out[f"512² row {n} plan"] = vars(module.plan_on_card(x0, SENSE_C))
+    B = b.T.contiguous()
+    cell = [
+        (f"512² row {n} {module.__name__.split('.')[-1]}", lambda: kernel(*args), 1),
+        (f"512² row {n} composed solve_batched_unrolled",
+         lambda: rtt.solve_batched_unrolled(solver, B), 1),
+    ]
+    time_cases(out, cell, in_turns=True)
+    device_ms(out, cell)
+
+
 def time_sense(dev, out):
     """``--time-sense [ROOT]``: the fused FISTA-L21-SENSE kernel (row 9) at
     the SENSE cell's schedule (ρ = 0.95, λ = 1e-4, 80 iterations): the
@@ -5136,8 +5339,10 @@ def time_sense(dev, out):
     device time by torch.profiler; the same for the 192² cell, with the
     kernel's phase clocks; 8 slices at each SPLIT_SHAPES shape and the
     forced plans of SPLIT_SWEEP at 192² and SPLIT_SWEEP_128 at the cell
-    (``split_cases``); rows 8 (the CS cell's 16 problems) and 10 (BASELINE
-    #4) as controls."""
+    (``split_cases``); 2 slices of 512² (the global route) in turns with
+    the composed solve, both device times and the bound
+    (``time_sense512``); rows 8 (the CS cell's 16 problems) and 10
+    (BASELINE #4) as controls."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
@@ -5211,6 +5416,7 @@ def time_sense(dev, out):
 
     time_cases(out, split_cases(dev, k9, row9, (x192, op192.mask, coils192),
                                 (x0, op.mask, coils)))
+    time_sense512(dev, out, "sense")
     # rows 8 and 10, which this kernel's changes must not move
     img2, idx2 = bench_suite_draws()["cs"]
     op8 = rtt.SubsampledDFT2RealOperator.from_sample_idx(idx2, (CS_N, CS_N), device=dev)

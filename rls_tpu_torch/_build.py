@@ -143,14 +143,19 @@ _SIGNATURES = {
     "pgm_dense_fused_cplx_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # (x0hat, scal, tab, tw, weights, out, scratch, B, H, W, iterations, stream)
-    "fista_l1_dft_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (clusters, H, W, out: int64[2] = shared memory per CTA, clusters
     #  resident at once)
     "fista_l1_dft_cluster_occupancy": (_I, _I, _I, _P),
     # (x0hat, scal, tab, tw, wt, out, prof, B, H, W, iterations, clusters,
     #  smem, stream)
     "fista_l1_dft_cluster_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # (H, W, smem, out: int64[2] = grid CTAs resident a SM, on the card)
+    "fista_l1_dft_grid_occupancy": (_I, _I, _I, _P),
+    # (x0hat, scal, tab, tw, wt, out, scratch, bar, prof, B, H, W, iterations,
+    #  team, slots, row_lines, col_lines, smem, stream)
+    "fista_l1_dft_grid_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
     # (x0hat, scal, tab, tw, weights, coils_r, coils_i, out, scratch, B, H, W,
     #  C, iterations, stream)
     "sense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -23,6 +23,7 @@
 
 #include "cluster_common.cuh"
 #include "dense_common.cuh"
+#include "group_sync.cuh"
 
 namespace rls {
 namespace grid {
@@ -61,28 +62,6 @@ __device__ __forceinline__ double p_at(const T* p, int i) {
 template <typename T>
 __device__ __forceinline__ T ld_group(const T* p, bool own) {
     return own ? *p : __ldcg(p);
-}
-
-// Wait until all `slabs` CTAs of the group have arrived: thread 0 adds 1
-// to the group's counter with release semantics and polls it with
-// acquire semantics; the counter counts up through the whole solve
-// (target = slabs x barriers so far). A wait past ~10 s of clocks traps
-// rather than hang the card.
-__device__ inline void group_sync(unsigned* ctr, unsigned& target, int slabs) {
-    __syncthreads();
-    if (slabs == 1) return;
-    target += slabs;
-    if (threadIdx.x == 0) {
-        asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(ctr), "r"(1u) : "memory");
-        const long long t0 = clock64();
-        for (;;) {
-            unsigned seen;
-            asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(ctr) : "memory");
-            if (seen >= target) break;
-            if (clock64() - t0 > 20000000000LL) __trap();
-        }
-    }
-    __syncthreads();
 }
 
 // D (16 x 8) += A (16 x 8, row-major) B (8 x 8) in double on the tensor

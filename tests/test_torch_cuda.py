@@ -1552,15 +1552,15 @@ def _fft_inputs(dev, shape, C=3, seed=6):
 
 @pytest.mark.parametrize("shape", FFT_SHAPES)
 def test_fista_l1_dft_kernel_matches_plain(dev, shape):
-    """Every FFT_SHAPES shape on its planned route (512² on the global
-    route, one CTA per problem; the rest on clusters), by the route
-    counter, bit for bit the plain version."""
+    """Every FFT_SHAPES shape on its planned route (512² on the grid route,
+    a team of CTAs per problem that meet in L2; the rest on clusters), by
+    the route counter, bit for bit the plain version."""
     mask, _, _, rng = _fft_inputs(dev, shape)
     x0 = torch.from_numpy(rng.normal(size=(3, *shape)).astype(np.float32)).to(dev)
     lam = torch.tensor([1e-2, 0.0, 0.1], device=dev)
     plan, active = l1dft.plan_on_card(x0)
-    assert plan.route == ("global" if shape == (512, 512) else "resident")
-    assert plan.route == "global" or active >= 1
+    assert plan.route == ("grid" if shape == (512, 512) else "resident")
+    assert active >= 1
     before = l1dft.fista_l1_dft_fused.launches
     on_route = l1dft.fista_l1_dft_fused.route_launches[plan.route]
     got = l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 9)
@@ -1628,7 +1628,8 @@ def test_fista_l1_dft_phase_clocks(dev, shape):
     """The resident kernel's phase timer: one launch, the same x as without
     the timer, clocks in every phase (lines of 256 points, with a
     shared-memory stage, of 64, without, and uneven bands of a prime side);
-    the global route has no timer and raises."""
+    at 512² the grid route's timer, its own phases (the global route, which
+    had no timer, is gone)."""
     x0, mask, lam = _cs_cell_inputs(dev, B=4)
     if shape != (256, 256):
         x0, mask = x0[:, :shape[0], :shape[1]].contiguous(), mask[:shape[0], :shape[1]]
@@ -1640,8 +1641,10 @@ def test_fista_l1_dft_phase_clocks(dev, shape):
     assert all(v > 0 for v in clocks.values()), clocks
     assert torch.equal(l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 6), want)
     xg = torch.zeros(2, 512, 512, device=dev)
-    with pytest.raises(ValueError, match="resident route"):
-        l1dft.phase_clocks(xg, torch.ones(512, 512, device=dev), 0.95, 1e-3, 2)
+    grid = l1dft.phase_clocks(xg, torch.ones(512, 512, device=dev), 0.95, 1e-3, 2)
+    assert list(grid) == list(l1dft.GRID_PHASES)
+    with pytest.raises(ValueError, match="the phase timer runs on the card"):
+        l1dft.phase_clocks(xg.cpu(), torch.ones(512, 512), 0.95, 1e-3, 2)
 
 
 @pytest.mark.parametrize("shape", [(256, 256), (128, 128), (64, 64), (1024, 16), (320, 320),
@@ -1665,6 +1668,124 @@ def test_cluster_counts_of_the_fista_l1_dft_planner_tests(dev, shape):
         smem, got = l1dft.resident_limits(dev.index, c, *shape)
         assert smem == l1dft.resident_smem_bytes(*shape, c)
         assert got == held[c], (c, shape)
+
+
+# Row 8's grid route (a team of CTAs a problem that meet in L2, where no
+# cluster of 16 holds a band): the planner's shapes on an H100
+# (test_torch_dft_plan.GRID_PLANS), and forced plans at small shapes with
+# uneven teams and slots walking problems in rounds
+GRID_SHAPES = [(4, 512, 512), (4, 640, 640), (4, 448, 448), (2, 1024, 1024), (2, 1024, 256)]
+GRID_FORCED = [((3, 24, 40), (3, 1)), ((3, 24, 40), (7, 2)), ((3, 17, 32), (5, 3)),
+               ((3, 16, 256), (6, 2)), ((5, 512, 512), (33, 2)), ((16, 512, 512), (33, 4))]
+
+
+def _l1_inputs(dev, size, seed=3):
+    B, H, W = size
+    rng = np.random.default_rng(seed + H * W)
+    mask = torch.from_numpy((rng.uniform(size=(H, W)) < 0.35).astype(np.float32)).to(dev)
+    x0 = torch.from_numpy(rng.normal(size=size).astype(np.float32)).to(dev)
+    return x0, mask, torch.linspace(1e-3, 4e-2, B, device=dev)
+
+
+def _l1_plain(x0, mask, rho, lam, iterations):
+    scal = fused.problem_scalars(x0, rho, lam)
+    tab = torch.as_tensor(fused._momentum_table("fista", iterations), device=x0.device)
+    return l1dft.fista_l1_dft_fused_torch(x0, scal, tab, dft.dft_tables(mask))
+
+
+@pytest.mark.parametrize("size", GRID_SHAPES)
+def test_fista_l1_dft_grid_route_matches_plain(dev, size):
+    """Each shape on the grid route as planned, by the route counter, bit
+    for bit the plain version."""
+    x0, mask, lam = _l1_inputs(dev, size)
+    plan, held = l1dft.plan_on_card(x0)
+    assert plan.route == "grid" and plan.ctas <= held
+    before = dict(l1dft.fista_l1_dft_fused.route_launches)
+    got = l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 7)
+    after = l1dft.fista_l1_dft_fused.route_launches
+    assert (after["grid"], after["resident"]) == (before["grid"] + 1, before["resident"])
+    want = _l1_plain(x0, mask, 0.9, lam, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("size,grid", GRID_FORCED)
+def test_fista_l1_dft_forced_grid_plans_match_plain(dev, size, grid):
+    """Forced grid plans (uneven teams, rounds of problems a slot, a
+    power-of-two and a mixed-radix shape), bit for bit the plain version;
+    the timer leaves x as it was."""
+    x0, mask, lam = _l1_inputs(dev, size)
+    plan, held = l1dft.plan_on_card(x0, grid=grid)
+    assert (plan.route, plan.team, plan.slots) == ("grid", *grid) and plan.ctas <= held
+    got = l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 7, grid=grid)
+    want = _l1_plain(x0, mask, 0.9, lam, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), float((got - want).abs().max())
+    clocks = l1dft.phase_clocks(x0, mask, 0.9, lam, 7, grid=grid)
+    assert list(clocks) == list(l1dft.GRID_PHASES)
+    assert torch.equal(l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 7, grid=grid), want)
+
+
+def test_fista_l1_dft_grid_route_repeats_bit_for_bit(dev):
+    """20 launches at 4 × 512² (60 iterations, 4 slots of 33 CTAs), each
+    equal to the first and to the plain version: a race between a team's
+    CTAs (a barrier or an L1 read of another CTA's spectrum) would show as
+    a launch that differs."""
+    x0, mask, lam = _l1_inputs(dev, (4, 512, 512))
+    plan, _ = l1dft.plan_on_card(x0)
+    assert (plan.route, plan.team, plan.slots) == ("grid", 33, 4)
+    first = l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 60)
+    for _ in range(20):
+        assert torch.equal(l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 60), first)
+    assert torch.equal(first, _l1_plain(x0, mask, 0.95, lam, 60))
+
+
+@pytest.mark.parametrize("size", [(4, 512, 512), (4, 640, 640)])
+def test_fista_l1_dft_grid_phase_clocks(dev, size):
+    """The grid route's timer: one launch, clocks in every phase, the same
+    x as without it."""
+    x0, mask, lam = _l1_inputs(dev, size)
+    want = l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 6)
+    before = l1dft.fista_l1_dft_fused.launches
+    clocks = l1dft.phase_clocks(x0, mask, 0.95, lam, 6)
+    assert l1dft.fista_l1_dft_fused.launches == before + 1
+    assert list(clocks) == list(l1dft.GRID_PHASES)
+    assert all(v > 0 for v in clocks.values()), clocks
+    assert torch.equal(l1dft.fista_l1_dft_fused(x0, mask, 0.95, lam, 6), want)
+
+
+@pytest.mark.parametrize("size", list(GRID_SHAPES) + [(16, 512, 512), (1, 385, 385)])
+def test_the_card_holds_the_grid_planner_s_teams(dev, size):
+    """On an H100 the card holds one grid CTA a SM at the route's largest
+    shared memory (H100_GRID, which the CPU tests plan with), the plan is
+    the CPU tests' (GRID_PLANS), and its team × slots CTAs are resident at
+    once at the plan's own shared memory."""
+    from test_torch_dft_plan import GRID_PLANS, H100_GRID
+
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    B, H, W = size
+    cap = l1dft.grid_plane_cap(H, W, limits[1])
+    assert l1dft.grid_limits(dev.index, H, W, l1dft.grid_smem_bytes(H, W, cap)) == (1, H100_GRID)
+    plan, held = l1dft.plan_on_card(torch.zeros(size, device=dev))
+    assert (plan.team, plan.slots, plan.rows, plan.cols, plan.row_lines,
+            plan.col_lines) == GRID_PLANS[size]
+    assert held >= plan.ctas
+
+
+def test_a_grid_plan_the_kernel_refuses_raises(dev):
+    """The C entry recounts the plan: a chunk that its shared memory does
+    not hold is refused (no launch, no count)."""
+    x0, mask, lam = _l1_inputs(dev, (4, 512, 512))
+    plan, _ = l1dft.plan_on_card(x0)
+    bad = dataclasses.replace(plan, row_lines=plan.rows + 1)
+    before = l1dft.fista_l1_dft_fused.launches
+    with pytest.raises(RuntimeError, match="fista_l1_dft_fused"):
+        l1dft._launch(x0, *l1dft._kernel_args(x0, mask, 0.9, lam, 3), plan=bad)
+    assert l1dft.fista_l1_dft_fused.launches == before
 
 
 # FISTA-L21-SENSE's cases: every FFT_SHAPES shape at 1 and 3 coils (256 ×
@@ -1935,15 +2056,16 @@ def test_fft_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 # The mixed-radix FFT (sides with odd factors: the odd stages of
 # csrc/fft_mixed.cuh before the radix-2 ones) on each route of rows 8, 9
-# and 10. Row 8: (B, H, W) → (route, cluster size) as the planner takes
+# and 10. Row 8: (B, H, W) → (route, CTAs a problem) as the planner takes
 # them (tests/test_torch_dft_mixed_radix.py, test_torch_dft_plan.py); 320²
-# only fits c = 16 evenly, 640² takes the global route, lines of the prime
+# only fits c = 16 evenly, 640² takes the grid route (2 slots of 66 CTAs),
+# lines of the prime
 # 1021 the resident one; 97 × 128 (a prime side), 225² (an odd side) and
 # 300² (no power of two of a fitting size divides it) run on uneven bands
 # and blocks (33, 32, 32 rows; 19 or 18 rows on 12; 19 or 18 on 16)
 MIXED_L1DFT = {(3, 24, 40): ("resident", 1), (3, 17, 32): ("resident", 1),
                (3, 96, 192): ("resident", 4), (16, 320, 320): ("resident", 16),
-               (16, 64, 448): ("resident", 4), (2, 640, 640): ("global", 1),
+               (16, 64, 448): ("resident", 4), (2, 640, 640): ("grid", 66),
                (2, 97, 128): ("resident", 3), (2, 1021, 3): ("resident", 1),
                (2, 3, 1021): ("resident", 1), (4, 225, 225): ("resident", 12),
                (2, 300, 300): ("resident", 16)}
@@ -1962,7 +2084,7 @@ def test_fista_l1_dft_mixed_radix_matches_plain(dev, size):
     lam = torch.linspace(0.0, 0.1, B, device=dev)
     plan, active = l1dft.plan_on_card(x0)
     assert (plan.route, plan.clusters) == MIXED_L1DFT[size]
-    assert plan.route == "global" or active >= 1
+    assert active >= 1
     on_route = l1dft.fista_l1_dft_fused.route_launches[plan.route]
     got = l1dft.fista_l1_dft_fused(x0, mask, 0.9, lam, 7)
     assert l1dft.fista_l1_dft_fused.route_launches[plan.route] == on_route + 1

@@ -299,7 +299,7 @@ def test_every_plan_at_odd_factors_covers_its_shape(H, W):
     """Row 8: a resident plan's cluster size divides H and W where a power
     of two that does fits (bands and blocks cover them with no remainder),
     else it is any fitting size (uneven parts that differ by one); the
-    plan fits the card; no size fits where the plan is global. Rows 9 and
+    plan fits the card; no size fits where the plan is the grid's. Rows 9 and
     10: resident exactly where a coil's padded spectrum fits, bands
     covering H."""
     for B in (1, 16):
@@ -307,7 +307,7 @@ def test_every_plan_at_odd_factors_covers_its_shape(H, W):
         fit = tl1.fitting_sizes(H, W)
         even = [c for c in fit if H % c == 0 and W % c == 0 and c in tl1.CLUSTER_SIZES]
         assert even == list(fit) or not even
-        if plan.route == "global":
+        if plan.route == "grid":
             assert not fit
             continue
         c = plan.clusters
@@ -341,12 +341,13 @@ def test_the_cluster_sizes_at_odd_factors(shape, fit, c):
 
 
 def test_the_global_route_at_odd_factors():
-    """Row 8 keeps the global route only past a cluster of 16 (640², 704²);
-    the prime 97 × 128, global before uneven bands, runs on clusters of 3
-    (bands of 33, 32 and 32 rows)."""
+    """Row 8 leaves the clusters only past a cluster of 16 (640², 704²),
+    for the grid route, which took the global route's place; the prime 97
+    × 128, global before uneven bands, runs on clusters of 3 (bands of 33,
+    32 and 32 rows)."""
     assert tl1.fitting_sizes(320, 320) == (16,)
     for shape in ((640, 640), (704, 704)):
-        assert tl1.plan_fista_l1_dft(4, *shape, H100_RESIDENT).route == "global"
+        assert tl1.plan_fista_l1_dft(4, *shape, H100_RESIDENT).route == "grid"
     plan = tl1.plan_fista_l1_dft(4, 97, 128, H100_RESIDENT)
     assert (plan.route, plan.clusters, plan.rows, plan.cols) == ("resident", 3, 33, 43)
     assert [plan.band(q) for q in range(3)] == [(0, 33), (33, 65), (65, 97)]

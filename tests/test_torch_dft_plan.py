@@ -10,8 +10,9 @@ two divides both sides and fits, else parts that differ by one) and fits
 the card, that its cost (waves × rows per band) is the least among the
 sizes it may take, that a shape with an even plan keeps it, that the
 shared-memory count matches the kernel's piece by piece, that a spectrum
-whose bands fit no cluster takes the global route, and that a plan the
-card holds no cluster of, or a forced size that does not fit, raises.
+whose bands fit no cluster takes the grid route (its plans and model:
+tests/test_torch_dft_grid.py), and that a plan the card holds no cluster
+of, or a forced size that does not fit, raises.
 
 The model: one problem's normal op and FISTA iterations computed CTA by
 CTA in the resident kernel's phases (csrc/fista_l1_dft_fused.cu): rows
@@ -92,11 +93,21 @@ def column_owner(plan, col):
 
 
 # tests/test_torch_cuda.py's FISTA-L1-DFT shapes (B, H, W) with the cluster
-# size each takes on an H100 (None: the global route): every size from 1 to
+# size each takes on an H100 (None: the grid route): every size from 1 to
 # 16, lines of 2 to 1024 points, with and without a shared-memory stage
 L1DFT_SIZES = {(3, 16, 32): 1, (3, 2, 4): 1, (3, 8, 256): 1, (64, 128, 128): 2,
                (16, 128, 128): 4, (3, 16, 1024): 4, (3, 1024, 16): 4, (64, 256, 256): 8,
                (16, 256, 256): 16, (3, 256, 512): 16, (4, 512, 512): None}
+# the grid CTAs an H100 80GB HBM3 holds at once: one of 1024 threads a SM
+# (tests/test_torch_cuda.py checks it on the card)
+H100_GRID = 132
+# the grid route's shapes that chip_smoke.py and the card tests run, (B, H,
+# W) → (team, slots, rows, cols, row_lines, col_lines) on an H100
+# (tests/test_torch_dft_grid.py holds the planner to them)
+GRID_PLANS = {(4, 512, 512): (33, 4, 16, 16, 16, 16), (4, 640, 640): (33, 4, 20, 20, 20, 20),
+              (4, 448, 448): (33, 4, 14, 14, 14, 14), (2, 1024, 1024): (66, 2, 16, 16, 16, 16),
+              (16, 512, 512): (8, 16, 64, 64, 32, 32), (2, 1024, 256): (66, 2, 16, 4, 16, 4),
+              (1, 385, 385): (132, 1, 3, 3, 3, 3)}
 
 
 def _covers(plan, B, H, W, smem=SMEM):
@@ -150,12 +161,17 @@ def test_the_cells_fitting_sizes():
 def test_every_plan_covers_its_shape_and_is_the_cheapest(B, H, W):
     """Where a band fits, the plan is resident, covers H and W and fits,
     with the fewest waves × rows per band among the sizes it may take
-    (ties to the smaller); where none fits, it is global."""
+    (ties to the smaller); where none fits, it is the grid route, a team
+    of CTAs a problem that the card holds, its rounds covering B."""
     fit = l1dft.fitting_sizes(H, W)
     plan = _plan(B, H, W)
     if not fit:
-        assert (plan.route, plan.clusters, plan.rows, plan.cols, plan.ctas, plan.smem) == (
-            "global", 1, H, W, B, 0)
+        team = plan.clusters
+        assert (plan.route, plan.rows, plan.cols) == ("grid", -(-H // team), -(-W // team))
+        assert plan.ctas == team * plan.slots <= SMS and plan.slots * plan.rounds >= B
+        assert [r for q in range(team) for r in range(*plan.band(q))] == list(range(H))
+        assert [k for q in range(team) for k in range(*plan.block(q))] == list(range(W))
+        assert 0 < plan.smem <= SMEM
         return
     _covers(plan, B, H, W)
     held = dict(H100_RESIDENT)
@@ -172,10 +188,12 @@ def test_every_plan_covers_its_shape_and_is_the_cheapest(B, H, W):
 @pytest.mark.parametrize("H", SIZES)
 @pytest.mark.parametrize("W", SIZES)
 def test_the_global_route_is_where_no_band_fits(H, W):
-    """Only spectra past ~256 K points take the global route: 512 × 512
-    and larger, and 1024 × 256 either way."""
+    """Only spectra past ~256 K points leave the clusters, for the grid
+    route (the global route's place): 512 × 512 and larger, and 1024 × 256
+    either way."""
     fit = l1dft.fitting_sizes(H, W)
     assert bool(fit) == (H * W <= 2**17)
+    assert _plan(4, H, W).route == ("resident" if fit else "grid")
     assert all(l1dft.resident_smem_bytes(H, W, c) <= SMEM for c in fit)
     assert all(l1dft.resident_smem_bytes(H, W, c) > SMEM
                for c in l1dft.CLUSTER_SIZES if c <= min(H, W) and c not in fit)
@@ -186,7 +204,7 @@ def test_the_card_tests_shapes_take_their_cluster_sizes(shape):
     """The sizes tests/test_torch_cuda.py asserts on the card."""
     plan = _plan(*shape)
     if L1DFT_SIZES[shape] is None:
-        assert plan.route == "global"
+        assert plan.route == "grid"
     else:
         _covers(plan, *shape)
         assert plan.clusters == L1DFT_SIZES[shape]
@@ -228,7 +246,7 @@ def test_a_shape_with_an_even_plan_keeps_it(B, H, W):
                  if H % c == 0 and W % c == 0 and l1dft.resident_smem_bytes(H, W, c) <= SMEM)
     plan = _plan(B, H, W)
     if not even:
-        assert plan.route == "global" or plan.clusters not in even
+        assert plan.route == "grid" or plan.clusters not in even
         return
     c = fewest_waves(B, H, W, even, H100_RESIDENT)
     assert l1dft.fitting_sizes(H, W) == even
@@ -343,15 +361,17 @@ def test_the_planner_and_the_model_read_the_kernel_s_constants():
 
 
 @pytest.mark.parametrize("sms,smem,route,c", [
-    # fewer SMs cap the cluster size
+    # fewer SMs cap the cluster size; with 4 no band fits: the grid route,
+    # 4 slots of one CTA (its team) on a card that holds 4
     (8, SMEM, "resident", 8),
-    (4, SMEM, "global", 1),
+    (4, SMEM, "grid", 1),
     # more shared memory lets 4 bands fit (held 33 times: one wave of 64
     # rows, against 8 bands' and 16 bands' one and two waves of 32 and 16
     # rows: 8 is the smaller of the tie); less leaves 16 bands, then none
     (SMS, 400_000, "resident", 8),
     (SMS, 200_000, "resident", 16),
-    (SMS, 100_000, "global", 1),
+    # no band fits: the grid route, 16 slots of 8 CTAs
+    (SMS, 100_000, "grid", 8),
 ])
 def test_plans_respect_the_card(sms, smem, route, c):
     held = tuple((k, sms // k) for k in range(1, 17))
@@ -381,7 +401,9 @@ def test_a_resident_plan_the_card_cannot_hold_raises(resident):
 
 
 def test_the_global_route_needs_no_residency():
-    assert _plan(4, 512, 512, ()).route == "global"
+    """512² leaves the clusters for the grid route, which reads no
+    cluster count (its own count of CTAs, one a SM on an H100)."""
+    assert _plan(4, 512, 512, ()).route == "grid"
 
 
 @pytest.mark.parametrize("rho,lam", [(0.9, [1e-2, 0.0, 0.1]), (0.95, 2e-3), ([0.9, 0.8, 0.7], 1e-3),
