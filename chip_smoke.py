@@ -93,9 +93,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      memory, clusters resident at once) and on its resident route by its
      route counter, on the 8 SENSE slices of 128² with 6 coils, the split
      routes of both (a coil's spectrum over a team of CTAs) on 2 slices of
-     256 × 128 and their global routes (one CTA per slice) on 2 slices of
-     512², 6 coils, held alike and each required to run once on that
-     route; the sha256 of every output at these power-of-two shapes and
+     256 × 128 and their grid routes (each slice's coils over a team of
+     CTAs that meet in L2) on 2 slices of 512² and 1 of 1024² (two rounds
+     of coils), 6 coils, held alike and each required to run once on that
+     route, and 20 launches of each at 512² required to give the first
+     launch's bits (row 10 on a short schedule); the sha256 of every output at these power-of-two shapes and
      of rows 9 and 10 at 8 × 192² beside the parent tree's
      (PARENT_FFT_SHA256), required equal but for row 10's outputs that
      left the parent's route (FFT_DIGEST_MOVED: printed); an input whose
@@ -335,8 +337,19 @@ time by torch.profiler, and the same at the 192² cell; 8 slices at each
 shape the split route takes (SPLIT_SHAPES) and a sweep of forced plans
 (teams and coils a round: SPLIT_SWEEP at 192², SPLIT_SWEEP_128 at 128²);
 rows 8 and 10 as controls; with each plan and the kernel's clocks per
-phase where ROOT's package has them. ``--time-splitbregman`` times the
-same 192² cell, shapes and sweep for row 10.
+phase where ROOT's package has them; then rows 9 and 10 past a team of
+16 (``time_sense512``): 2 slices of 512² in turns with the composed
+solve (the grid route, or the global route of a tree before it), both
+device times, the bound and CTA 0's clocks, and where ROOT's wrapper
+takes ``grid=`` the forced grid plans of GRID_SWEEP_SENSE, 1 × 1024² and
+the grid route forced at 384² and 448² beside the split route there.
+``--time-splitbregman`` times the same 192² cell, shapes and sweep for
+row 10.
+
+    python3 chip_smoke.py --time-sense-grid [ROOT]
+
+runs ``time_sense512`` alone for rows 9 and 10: run it for the parent
+tree and this one in turns (parent, change, change, parent).
 
     python3 chip_smoke.py --time-admm [ROOT]
 
@@ -602,10 +615,12 @@ PARENT_FFT_SHA256 = {
     "splitbregman_fused[128², 6 coils, 8 slices, 4×8×8, TV 5]": (
         "ced28527da67d765ca5380d081f7764ba1187578529d85fac2a8cc40203b17b2",
         "317a3bcc765ff76e511e552773cdeb9a4892821735eac84980306339794b2e8b"),
-    "sense_fused[global route, 512², 6 coils, 2 slices, 80 it.]": (
+    # rows 9 and 10 at 512² ran on the global route (one CTA a slice) on the
+    # tree before the grid route
+    "sense_fused[grid route, 512², 6 coils, 2 slices, 80 it.]": (
         "3f65f9a03257c0323357be9a9472b93f431d1cfeca868e0d63ea0f8694120ef0",
         "56d10dd49c24165d6efe422e398e9ccbe32e107ad4d1e0283f9de1a3858bb0d7"),
-    "splitbregman_fused[global route, 512², 6 coils, 2 slices, 4×8×8, TV 5]": (
+    "splitbregman_fused[grid route, 512², 6 coils, 2 slices, 4×8×8, TV 5]": (
         "3f65f9a03257c0323357be9a9472b93f431d1cfeca868e0d63ea0f8694120ef0",
         "902c84ead10703860bea360c2d986487d4c6efd6a36784334f37e5d5c96e8d56"),
     # rows 9 and 10 at 192² and 256 × 128 ran on the global route on the
@@ -1135,7 +1150,7 @@ def launch_counts(reset=False):
         fista_l1_dft_fused.fista_l1_dft_fused.route_launches = {"resident": 0, "grid": 0}
         for fn in (splitbregman_fused.splitbregman_l1_tv_fused,
                    sense_fused.fista_l21_sense_fused):
-            fn.route_launches = {"resident": 0, "split": 0, "global": 0}
+            fn.route_launches = {"resident": 0, "split": 0, "grid": 0}
         for fn in (fista_tv_tiled.fista_tv_tiled, admm_tv_tiled.admm_tv_tiled):
             fn.route_launches = {"cluster": 0, "tiles": 0}
         for fn in (pgm_dense_fused.pgm_dense_fused, pgm_dense_fused.pgm_dense_fused_cplx):
@@ -1824,7 +1839,9 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
     SplitBregman on the 8 SENSE slices, each on its resident route by the
     route counter; then FISTA-L21 and SplitBregman
     at 256 × 128 (the split route: a coil's spectrum over a team of CTAs)
-    and 512² (the global route), held but not timed. The sha256 of every
+    and 2 × 512² and 1 × 1024² (the grid route: a slice's coils over a team
+    of CTAs that meet in L2), held but not timed, and 20 launches of each
+    at 512² held to the first launch's bits (``grid_repeats``). The sha256 of every
     kernel output at these power-of-two shapes (and of its input) goes to
     out["digests"]. With `mixed`, the mixed-radix FFT at sides with odd
     factors (MIXED_*): row 8 at 16 × 320² and 4 × 64 × 448 (resident,
@@ -1894,6 +1911,13 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
 
     def sense_plan(module, name, x0):
         plan = module.plan_on_card(x0, SENSE_C)
+        if plan.route == "grid":
+            print(f"{name}: plan route grid, a team of {plan.team} CTAs a slice, {plan.slots} "
+                  f"slots, {plan.per_round} coils a round in {plan.rounds} round(s), chunks of "
+                  f"{plan.row_lines} rows and {plan.col_lines} columns, {plan.ctas} CTAs, "
+                  f"{plan.smem} B of shared memory per CTA, {plan.resident_clusters} grid CTAs "
+                  f"resident at once")
+            return plan
         print(f"{name}: plan route {plan.route}, {plan.clusters} CTAs per slice, "
               f"{getattr(plan, 'team', 1)} CTA(s) a coil, {plan.rounds} round(s), {plan.ctas} "
               f"CTAs, {plan.smem} B of shared memory per CTA, {plan.resident_clusters} clusters "
@@ -2018,39 +2042,45 @@ def fft_kernel_phase(dev, draws, mixed=True, timed=True, routes=True):
          gx0, gx0u, counts=True, key="splitbregman_fused split",
          fn=k10.splitbregman_l1_tv_fused, route="split")
 
-    # the global routes of rows 9 and 10 (one CTA per slice, staging the
-    # spectrum through global scratch), which a spectrum too large for any
-    # team takes: 2 slices of 512² at 6 coils, on the schedules above, held
-    # alike (the same code as the parent's: both to its digests), not timed
+    # the grid routes of rows 9 and 10 (each slice's coils over a team of
+    # CTAs that meet in L2), which a spectrum too large for any team of 16
+    # takes: 2 slices of 512² at 6 coils (every coil in one round), on the
+    # schedules above, held alike (row 9 to the bit; both to the parent's
+    # global-route digests); then 1 slice of 1024² (two rounds of 3 coils),
+    # and 20 launches of each row at 512² held to the first launch's bits
+    # (row 10 on a short schedule); not timed
     gn = 512
-    rng = np.random.default_rng(12)
-    gmaps = rng.normal(size=(SENSE_C, gn, gn)) + 1j * rng.normal(size=(SENSE_C, gn, gn))
-    gmaps /= np.sqrt((np.abs(gmaps) ** 2).sum(0))
-    gmask = (rng.uniform(size=(gn, gn)) < 0.45).astype(np.float32)
-    gop = rtt.SenseDFT2RealOperator.from_maps(gmaps, gmask, (gn, gn), device=dev)
-    gbv = gop.mv(torch.from_numpy(rng.normal(size=(gb, 2 * gn * gn)).astype(np.float32)).to(dev))
-    gshape = (gb, 2, gn, gn)
-    gx0, gx0u = gop.rmv(gbv).reshape(gshape), gop.rmv(gbv * bump).reshape(gshape)
-    gcoils, gtables = (gop.coils_r, gop.coils_i), dc.dft_tables(gop.mask)
-    name = f"sense_fused[global route, {gn}², {SENSE_C} coils, {gb} slices, {SENSE_ITERS} it.]"
-    sense_plan(k9, name, gx0)
-    gscal = k9.problem_scalars(gx0, RHO, SENSE_LAM)
-    held(name, lambda x: (k9.fista_l21_sense_fused(x, gop.mask, *gcoils, RHO, SENSE_LAM,
-                                                   SENSE_ITERS), None),
-         lambda x: (k9.fista_l21_sense_fused_torch(x, gscal, tab, gcoils, gtables), None),
-         gx0, gx0u, bitwise=True, key="sense_fused global", fn=k9.fista_l21_sense_fused,
-         route="global")
-    name = (f"splitbregman_fused[global route, {gn}², {SENSE_C} coils, {gb} slices, "
-            f"{'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]")
-    sense_plan(k10, name, gx0)
-    scal, t2 = k10.kernel_args(gx0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
-    held(name, lambda x: k10.splitbregman_l1_tv_fused(x, gop.mask, *gcoils, SB_RHO, SB_RHO,
-                                                      SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL,
-                                                      with_counts=True),
-         lambda x: k10.splitbregman_l1_tv_fused_torch(x, scal, t2, gcoils, gtables, *SB_SCHED,
-                                                      SB_TOL),
-         gx0, gx0u, counts=True, key="splitbregman_fused global",
-         fn=k10.splitbregman_l1_tv_fused, route="global")
+    op512, gbv, gx0, gcoils = sense512_case(dev)
+    gx0u = op512.rmv(gbv * bump).reshape(gx0.shape)
+    gtables = dc.dft_tables(op512.mask)
+    x512 = gx0
+    for gx0, gx0u, gop, gcoils, gtables, gb, gn, tag in (
+            (gx0, gx0u, op512, gcoils, gtables, 2, gn, "grid route"),
+            (*sense1024_case(dev, bump), 1, 1024, "grid route, two rounds of coils")):
+        name = f"sense_fused[{tag}, {gn}², {SENSE_C} coils, {gb} slices, {SENSE_ITERS} it.]"
+        plan = sense_plan(k9, name, gx0)
+        require(not routes or plan.route == "grid", f"{name}: planned {plan}")
+        gscal = k9.problem_scalars(gx0, RHO, SENSE_LAM)
+        held(name, lambda x, m=gop.mask, c=gcoils: (k9.fista_l21_sense_fused(
+                 x, m, *c, RHO, SENSE_LAM, SENSE_ITERS), None),
+             lambda x, sc=gscal, c=gcoils, t=gtables: (k9.fista_l21_sense_fused_torch(
+                 x, sc, tab, c, t), None),
+             gx0, gx0u, bitwise=True, key=f"sense_fused {tag}", fn=k9.fista_l21_sense_fused,
+             route="grid")
+        name = (f"splitbregman_fused[{tag}, {gn}², {SENSE_C} coils, {gb} slices, "
+                f"{'×'.join(map(str, SB_SCHED))}, TV {SB_TV}]")
+        plan = sense_plan(k10, name, gx0)
+        require(not routes or plan.route == "grid", f"{name}: planned {plan}")
+        scal, t2 = k10.kernel_args(gx0, SB_RHO, SB_RHO, SB_LAM, SB_LAM, SB_TV)
+        held(name, lambda x, m=gop.mask, c=gcoils: k10.splitbregman_l1_tv_fused(
+                 x, m, *c, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL,
+                 with_counts=True),
+             lambda x, sc=scal, t2=t2, c=gcoils, t=gtables: k10.splitbregman_l1_tv_fused_torch(
+                 x, sc, t2, c, t, *SB_SCHED, SB_TOL),
+             gx0, gx0u, counts=True, key=f"splitbregman_fused {tag}",
+             fn=k10.splitbregman_l1_tv_fused, route="grid")
+    if routes:
+        out["grid repeats"] = grid_repeats(op512, x512, k9, k10)
     if not mixed:
         # the digests alone (--digest-fft): row 8 at every MIXED_L1DFT shape,
         # rows 9 and 10 at 192²
@@ -4868,9 +4898,10 @@ def time_splitbregman(dev, out):
     composed solve_batched_unrolled (both device times by torch.profiler,
     the kernel's phase clocks), 8 slices at each SPLIT_SHAPES shape, and
     the forced plans of SPLIT_SWEEP at 192² and SPLIT_SWEEP_128 at the cell
-    (``split_cases``); 2 slices of 512² (the global route) in turns with
-    the composed solve, both device times and the bound
-    (``time_sense512``)."""
+    (``split_cases``); 2 slices of 512² (the grid route) in turns with
+    the composed solve, both device times, the clocks and the bound, the
+    forced grid plans, 1 × 1024² and the grid route forced beside the split
+    route at 384² and 448² (``time_sense512``)."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
@@ -5268,64 +5299,191 @@ def sense192_cell(dev):
     return op, b, op.rmv(b).reshape(SENSE_SLICES, 2, 192, 192), (op.coils_r, op.coils_i)
 
 
-def sense512_case(dev):
-    """Phase 3h's case of rows 9 and 10 past a team of 16 (their global
-    route): 2 slices of 512² with 6 coils of random maps, a 45 % mask
-    (default_rng(12)): the operator, b, x0 = Aᴴb (2, 2, 512, 512) and the
-    coils."""
+def sense_grid_case(dev, n, slices, seed):
+    """`slices` slices of n² with 6 coils of random maps and a 45 % mask
+    (default_rng(`seed`)): the operator, b, x0 = Aᴴb (slices, 2, n, n) and
+    the coils."""
     import torch
 
     import rls_tpu_torch as rtt
 
-    gn, gb = 512, 2
-    rng = np.random.default_rng(12)
-    maps = rng.normal(size=(SENSE_C, gn, gn)) + 1j * rng.normal(size=(SENSE_C, gn, gn))
+    rng = np.random.default_rng(seed)
+    maps = rng.normal(size=(SENSE_C, n, n)) + 1j * rng.normal(size=(SENSE_C, n, n))
     maps /= np.sqrt((np.abs(maps) ** 2).sum(0))
-    mask = (rng.uniform(size=(gn, gn)) < 0.45).astype(np.float32)
-    op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (gn, gn), device=dev)
-    b = op.mv(torch.from_numpy(rng.normal(size=(gb, 2 * gn * gn)).astype(np.float32)).to(dev))
-    return op, b, op.rmv(b).reshape(gb, 2, gn, gn), (op.coils_r, op.coils_i)
+    mask = (rng.uniform(size=(n, n)) < 0.45).astype(np.float32)
+    op = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (n, n), device=dev)
+    b = op.mv(torch.from_numpy(rng.normal(size=(slices, 2 * n * n)).astype(np.float32)).to(dev))
+    return op, b, op.rmv(b).reshape(slices, 2, n, n), (op.coils_r, op.coils_i)
+
+
+def sense512_case(dev):
+    """Phase 3h's case of rows 9 and 10 past a team of 16 (their grid
+    route): 2 slices of 512² (``sense_grid_case``, default_rng(12))."""
+    return sense_grid_case(dev, 512, 2, 12)
+
+
+def sense1024_case(dev, bump):
+    """Phase 3h's case of rows 9 and 10 in two rounds of coils: 1 slice of
+    1024² (``sense_grid_case``, default_rng(13)): x0 = Aᴴb (1, 2, 1024, 1024),
+    the same of b·`bump`, the operator, the coils and the DFT tables."""
+    from rls_tpu_torch.kernels import _dft_common as dc
+
+    op, b, x0, coils = sense_grid_case(dev, 1024, 1, 13)
+    return x0, op.rmv(b * bump).reshape(x0.shape), op, coils, dc.dft_tables(op.mask)
+
+
+def grid_repeats(op, x0, k9, k10, launches=20):
+    """Rows 9 and 10 at 2 × 512² on the grid route, `launches` launches
+    each (row 10 on a short schedule, 1 × 2 × 3, TV 2), every output and
+    row 10's live CG steps required equal to the first launch's, the route
+    counters required to read `launches` grid launches: a race between the
+    CTAs of a team would show as a launch that differs. Returns the count
+    of launches of each row."""
+    import torch
+
+    coils = (op.coils_r, op.coils_i)
+    got = {}
+    for fn, call in (
+            (k9.fista_l21_sense_fused,
+             lambda: (k9.fista_l21_sense_fused(x0, op.mask, *coils, RHO, SENSE_LAM,
+                                               SENSE_ITERS), None)),
+            (k10.splitbregman_l1_tv_fused,
+             lambda: k10.splitbregman_l1_tv_fused(x0, op.mask, *coils, SB_RHO, SB_RHO, SB_LAM,
+                                                  SB_LAM, 1, 2, 3, 2, SB_TOL,
+                                                  with_counts=True))):
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+        first, first_counts = call()
+        same = True
+        for _ in range(launches - 1):
+            x, counts = call()
+            same = same and bool(torch.equal(x, first)) and (
+                counts is None or counts.tolist() == first_counts.tolist())
+        name = fn.__name__
+        print(f"{name}[grid route, 512², {launches} launches]: bit for bit {same}, launches by "
+              f"route {fn.route_launches}")
+        require(same, f"{name}: the grid route gave other bits in {launches} launches")
+        require(fn.route_launches == {"resident": 0, "split": 0, "grid": launches},
+                f"{name}: expected {launches} grid launches, got {fn.route_launches}")
+        got[name] = launches
+    return got
+
+
+# the forced grid plans (team, slots, coils a round) of rows 9 and 10 swept
+# at 2 × 512² by --time-sense and --time-splitbregman (the planner's is the
+# first), and the shapes of the split route at which the grid route is
+# forced beside it (SENSE_SLICES slices, 6 coils)
+GRID_SWEEP_SENSE = ((66, 2, 6), (66, 2, 3), (66, 2, 2), (64, 2, 6), (33, 2, 6), (132, 1, 6),
+                    (132, 1, 3))
+GRID_BESIDE_SPLIT = (384, 448)
+
+
+def sense_grid_plan(module, x0):
+    """(team, slots, coils a round) of the grid plan that `module`'s
+    planner would make for x0 ((B, 2, H, W), SENSE_C coils) on this card
+    (``sense_fused.plan_grid``), for forcing it where the planner takes
+    another route."""
+    from rls_tpu_torch import _build
+    from rls_tpu_torch.kernels import sense_fused as k9
+
+    B, _, H, W = x0.shape
+    _, smem_max = _build.device_limits(x0.device.index or 0)
+    head, phases = ((0, len(k9.GRID_PHASES)) if module is k9
+                    else (module.GRID_HEAD, len(module.GRID_PHASES)))
+    plan = k9.plan_grid(module.__name__, B, H, W, SENSE_C, 132, smem_max, head, phases)
+    return plan.team, plan.slots, plan.per_round
 
 
 def time_sense512(dev, out, row):
-    """Row 9 (`row` "sense") or 10 ("splitbregman") at 2 slices of 512², 6
-    coils (``sense512_case``, the global route): the kernel in turns with
-    its composed solve_batched_unrolled, both device times by
-    torch.profiler, the plan, and the bound (row 10: at the live CG steps
-    of its run)."""
+    """Row 9 (`row` "sense") or 10 ("splitbregman") past a team of 16: at 2
+    slices of 512², 6 coils (``sense512_case``: the grid route; a parent
+    tree's global route) the kernel in turns with its composed
+    solve_batched_unrolled, both device times by torch.profiler, the plan,
+    CTA 0's clocks by phase and the bound (row 10: at the live CG steps of
+    its run). Where the tree under test takes `grid=`: the forced plans of
+    GRID_SWEEP_SENSE at 2 × 512²; 1 × 1024² (two rounds of coils) in turns
+    with its composed solve, both device times, its plan, clocks and
+    bound; and at each GRID_BESIDE_SPLIT side (SENSE_SLICES slices) the
+    split route the planner takes, the grid route forced on the plan
+    ``sense_grid_plan`` gives, and the composed solve, in turns."""
+    import inspect
+
+    import torch
+
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import sense_fused as k9
     from rls_tpu_torch.kernels import splitbregman_fused as k10
 
-    op, b, x0, coils = sense512_case(dev)
-    S, hw = x0.shape[0], op.im_shape[0] * op.im_shape[1]
-    nbytes = 4 * ((4 * S + 2 * SENSE_C + 1) * hw)
-    if row == "sense":
-        solver = rtt.FISTA.create(op, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
-                                  iterations=SENSE_ITERS, rho=RHO)
-        args = (x0, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS)
-        module, kernel = k9, k9.fista_l21_sense_fused
-        out["512² row 9 bound"] = bound(S * sense_ops(hw, SENSE_C, SENSE_ITERS),
-                                        nbytes + 4 * 2 * S)
-    else:
-        solver = splitbregman_solver(op, dev)
-        args = (x0, op.mask, *coils, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV, SB_TOL)
-        module, kernel = k10, k10.splitbregman_l1_tv_fused
-        live = kernel(*args, with_counts=True)[1].tolist()
-        out["512² row 10 live CG steps"] = live
-        out["512² row 10 bound"] = bound(
-            sum(sb_ops(hw, SENSE_C, *SB_SCHED[:2], SB_TV, v) for v in live),
-            nbytes + 4 * 4 * S)
     n = 9 if row == "sense" else 10
+    module, kernel = (k9, k9.fista_l21_sense_fused) if row == "sense" else (
+        k10, k10.splitbregman_l1_tv_fused)
+
+    def case(op, b, x0, coils, label, grid=False):
+        """The cases of one shape: the kernel (on the planner's route, and
+        with `grid` also forced onto the grid route) and the composed
+        solve; the bound's entry."""
+        S, hw = x0.shape[0], op.im_shape[0] * op.im_shape[1]
+        nbytes = 4 * ((4 * S + 2 * SENSE_C + 1) * hw)
+        if row == "sense":
+            solver = rtt.FISTA.create(op, reg=rtt.L21Regularization(SENSE_LAM, slices=2),
+                                      iterations=SENSE_ITERS, rho=RHO)
+            args = (x0, op.mask, *coils, RHO, SENSE_LAM, SENSE_ITERS)
+            out[f"{label} row 9 bound"] = bound(S * sense_ops(hw, SENSE_C, SENSE_ITERS),
+                                                nbytes + 4 * 2 * S)
+        else:
+            solver = splitbregman_solver(op, dev)
+            args = (x0, op.mask, *coils, SB_RHO, SB_RHO, SB_LAM, SB_LAM, *SB_SCHED, SB_TV,
+                    SB_TOL)
+            live = kernel(*args, with_counts=True)[1].tolist()
+            out[f"{label} row 10 live CG steps"] = live
+            out[f"{label} row 10 bound"] = bound(
+                sum(sb_ops(hw, SENSE_C, *SB_SCHED[:2], SB_TV, v) for v in live),
+                nbytes + 4 * 4 * S)
+        B = b.T.contiguous()
+        name = f"{label} row {n} {module.__name__.split('.')[-1]}"
+        cases = [(name, lambda: kernel(*args), 1, plan_probe(module, (x0, SENSE_C), *args))]
+        if grid:
+            g = sense_grid_plan(module, x0)
+            cases.append((f"{name} forced grid {g}", lambda: kernel(*args, grid=g), 1,
+                          plan_probe(module, (x0, SENSE_C, None, g), *args, grid=g)))
+        cases.append((f"{label} row {n} composed solve_batched_unrolled",
+                      lambda: rtt.solve_batched_unrolled(solver, B), 1))
+        return cases, args
+
+    op, b, x0, coils = sense512_case(dev)
+    cell, args = case(op, b, x0, coils, "512²")
     out[f"512² row {n} plan"] = vars(module.plan_on_card(x0, SENSE_C))
-    B = b.T.contiguous()
-    cell = [
-        (f"512² row {n} {module.__name__.split('.')[-1]}", lambda: kernel(*args), 1),
-        (f"512² row {n} composed solve_batched_unrolled",
-         lambda: rtt.solve_batched_unrolled(solver, B), 1),
-    ]
     time_cases(out, cell, in_turns=True)
     device_ms(out, cell)
+    if "grid" not in inspect.signature(module.plan_on_card).parameters:
+        return
+    time_cases(out, [(f"512² row {n} forced grid {g}", lambda g=g: kernel(*args, grid=g), 1,
+                      plan_probe(module, (x0, SENSE_C, None, g), *args, grid=g))
+                     for g in GRID_SWEEP_SENSE])
+    cell, _ = case(*sense_grid_case(dev, 1024, 1, 13), "1024²")
+    time_cases(out, cell, in_turns=True)
+    device_ms(out, cell)
+    rng = np.random.default_rng(31)
+    for side in GRID_BESIDE_SPLIT:
+        maps = coil_maps(rng, SENSE_C, side)
+        mask = (rng.uniform(size=(side, side)) < 0.45).astype(np.float32)
+        opn = rtt.SenseDFT2RealOperator.from_maps(maps, mask, (side, side), device=dev)
+        bn = opn.mv(torch.from_numpy(rng.normal(size=(SENSE_SLICES, 2 * side * side))
+                                     .astype(np.float32)).to(dev))
+        xn = opn.rmv(bn).reshape(SENSE_SLICES, 2, side, side)
+        cell, _ = case(opn, bn, xn, (opn.coils_r, opn.coils_i), f"{side}²", grid=True)
+        time_cases(out, cell, in_turns=True)
+        device_ms(out, cell)
+
+
+def time_sense_grid(dev, out):
+    """``--time-sense-grid [ROOT]``: ``time_sense512`` of rows 9 and 10
+    alone (the cases past a team of 16), for turns against a parent tree
+    in one chip call."""
+    from rls_tpu_torch.kernels import sense_fused as k9
+
+    out["kernel"] = os.path.relpath(k9.__file__, ROOT)
+    for row in ("sense", "splitbregman"):
+        time_sense512(dev, out, row)
 
 
 def time_sense(dev, out):
@@ -5339,10 +5497,11 @@ def time_sense(dev, out):
     device time by torch.profiler; the same for the 192² cell, with the
     kernel's phase clocks; 8 slices at each SPLIT_SHAPES shape and the
     forced plans of SPLIT_SWEEP at 192² and SPLIT_SWEEP_128 at the cell
-    (``split_cases``); 2 slices of 512² (the global route) in turns with
-    the composed solve, both device times and the bound
-    (``time_sense512``); rows 8 (the CS cell's 16 problems) and 10
-    (BASELINE #4) as controls."""
+    (``split_cases``); 2 slices of 512² (the grid route) in turns with
+    the composed solve, both device times, the clocks and the bound, the
+    forced grid plans, 1 × 1024² and the grid route forced beside the split
+    route at 384² and 448² (``time_sense512``); rows 8 (the CS cell's 16
+    problems) and 10 (BASELINE #4) as controls."""
     import torch
     import rls_tpu_torch as rtt
     from rls_tpu_torch.kernels import fista_l1_dft_fused as k8
@@ -6565,6 +6724,7 @@ TIME_MODES = {
     "--time-pdhg": time_pdhg,
     "--time-fista-l1-dft": time_fista_l1_dft,
     "--time-sense": time_sense,
+    "--time-sense-grid": time_sense_grid,
     "--time-admm": time_admm,
     "--time-tv-fgp": time_tv_fgp,
     "--time-tiled": time_tiled,

@@ -156,9 +156,6 @@ _SIGNATURES = {
     "fista_l1_dft_grid_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # (x0hat, scal, tab, tw, weights, coils_r, coils_i, out, scratch, B, H, W,
-    #  C, iterations, stream)
-    "sense_fused_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # (clusters, team, H, W, out: int64[2] = shared memory per CTA,
     #  clusters resident at once)
     "sense_cluster_occupancy": (_I, _I, _I, _I, _P),
@@ -167,11 +164,14 @@ _SIGNATURES = {
     "sense_cluster_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # (x0hat, scal, t2, tw, weights, coils_r, coils_i, out, scratch, counts, B,
-    #  H, W, C, iterations, iterations_inner, cg_iterations, tv_iterations,
-    #  tol_inner, stream)
-    "splitbregman_fused_launch": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P,
+    # (H, W, smem, out: int64[2] = grid CTAs resident a SM, on the card)
+    "sense_grid_occupancy": (_I, _I, _I, _P),
+    # (x0hat, scal, tab, tw, wt, coils_r, coils_i, out, scratch, bar, prof, B,
+    #  H, W, C, iterations, team, slots, per_round, row_lines, col_lines, smem,
+    #  stream)
+    "sense_grid_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+        _P,
     ),
     # (clusters, team, H, W, out: int64[2] = shared memory per CTA,
     #  clusters resident at once)
@@ -182,6 +182,16 @@ _SIGNATURES = {
     "splitbregman_cluster_launch": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I,
         _I, _P,
+    ),
+    # (H, W, smem, out: int64[2] = grid CTAs resident a SM, on the card)
+    "splitbregman_grid_occupancy": (_I, _I, _I, _P),
+    # (x0hat, scal, t2, tw, wt, coils_r, coils_i, out, scratch, bar, counts,
+    #  prof, B, H, W, C, iterations, iterations_inner, cg_iterations,
+    #  tv_iterations, tol_inner, team, slots, per_round, row_lines, col_lines,
+    #  smem, stream)
+    "splitbregman_grid_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+        _I, _I, _I, _I, _I, _P,
     ),
     # (u, scal, taps, weights, kh, kw, out, scratch, B, H, W, iterations,
     #  kind, positive, stream)

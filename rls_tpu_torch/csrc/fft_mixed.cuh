@@ -1,6 +1,6 @@
-// The odd-radix stages of the in-kernel FFT, which both of its layouts run
-// (dft_common.cuh's chunks staged from global memory, fft_resident.cuh's
-// plane resident in shared memory): an axis of n points, n = p_1 ... p_k 2^a
+// The odd-radix stages of the in-kernel FFT, which every layout of its
+// lines runs (fft_resident.cuh's, in shared memory; the grid routes' chunks
+// of lines, fista_l1_dft_fused.cu and sense_grid.cuh): an axis of n points, n = p_1 ... p_k 2^a
 // with the odd primes ascending, runs the stages of radix p_1, ..., p_k
 // before its radix-2 stages in the forward transform (decimation in
 // frequency), and after them, in reverse order, in the inverse (decimation

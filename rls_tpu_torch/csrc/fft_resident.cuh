@@ -6,15 +6,12 @@
 // dif_regs / dit_regs, smem_stage, and the butterflies dif_bfly / dit_bfly
 // for the stages it fuses with its loads and stores).
 //
-// It computes what dft_common.cuh computes, stage for stage and operation
-// for operation (the same odd stages of fft_mixed.cuh, the same radix-2 DIF
-// forward and DIT inverse butterflies, the same twiddle table, every product
-// and sum rounded on its own with rls::fmul & co.), so both agree bit for
-// bit with their plain PyTorch twin (rls_tpu_torch/kernels/_dft_common.py).
-// Only where each butterfly runs differs. dft_common.cuh stages 4096 points
-// at a time through shared memory and ends every stage with a barrier (140
-// barrier-separated phases per 128^2 transform pair); here the plane stays
-// in shared memory, row
+// It computes the stages of dft_common.cuh's FFT (the odd stages of
+// fft_mixed.cuh, the radix-2 DIF forward and DIT inverse butterflies, the
+// same twiddle table, every product and sum rounded on its own with
+// rls::fmul & co.), so every route agrees bit for bit with their plain
+// PyTorch twin (rls_tpu_torch/kernels/_dft_common.py). Only where each
+// butterfly runs differs: here the plane stays in shared memory, row
 // major with one float of padding per row (pitch W + 1, so a column read
 // by 32 lanes hits 32 banks), and a line's stages run in registers:
 //
@@ -244,8 +241,8 @@ __device__ __forceinline__ void sublines(const Layout& ly, int lines, int thread
 // One radix-2 stage of span m (2 m dividing n) on `lines` lines of the
 // layout's n points in shared memory, point k of line l at l * ls + k * ps:
 // forward (decimation in frequency) or, with kInverse, inverse (decimation
-// in time on the conjugate twiddles), as dft_common.cuh's dif_stages /
-// dit_inverse_stages compute a stage. No barrier.
+// in time on the conjugate twiddles), as the plain version's fft_dif /
+// ifft_dit compute a stage. No barrier.
 template <bool kInverse, bool kPow2>
 __device__ __forceinline__ void smem_stage(float* re, float* im, Tw tw, const Layout& ly, int m,
                                            int lines, int ls, int ps, int threads) {

@@ -1,8 +1,10 @@
 // The barrier of a group of CTAs that run in one cooperative grid and meet
 // in global memory (L2): the slabs of a dense grid kernel's problem group
-// (dense_grid.cuh: cgnr_fused.cu, pgm_dense_grid.cuh) and the team of CTAs
-// that holds one problem on row 8's grid route (fista_l1_dft_fused.cu). A
-// group waits on its own counter, never on another group's.
+// (dense_grid.cuh: cgnr_fused.cu, pgm_dense_grid.cuh), the team of CTAs
+// that holds one problem on row 8's grid route (fista_l1_dft_fused.cu), and
+// the team that holds one slice on the grid routes of rows 9 and 10
+// (sense_grid.cuh: sense_fused.cu, splitbregman_fused.cu). A group waits on
+// its own counter, never on another group's.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -13,9 +13,13 @@
 //   a team of `team` CTAs, each holding a band of its rows and a block of
 //   its columns, the transposes pushed through DSMEM (sense_split.cuh, row
 //   8's three passes), the coils of a round folded as on the resident route;
-// * global: one CTA per slice, the spectrum staged through shared memory
-//   chunk by chunk from global scratch (dft_common.cuh), for shapes whose
-//   spectrum fits no team (512^2 and larger).
+// * grid: for shapes whose spectrum fits no team of 16 (512^2, 1024^2), one
+//   cooperative launch whose CTAs are all resident at once: each slice on a
+//   team of CTAs that meet at barriers of their own in L2 (group_sync.cuh),
+//   `slots` slices at once, each coil's spectrum in global scratch, CTA j
+//   of a team owning a band of the image's rows and a block of the
+//   spectrum's columns for every coil, per_round coils a round
+//   (sense_grid.cuh, which holds the table of what its barriers order).
 //
 // Replaces the TPU kernel rls_tpu/kernels/sense_fused.py:_kernel (:33-82;
 // launched by fista_l21_sense_fused, :85, pallas_call :107). The complex
@@ -35,9 +39,8 @@
 // What bounds it on an H100: per iteration C normal ops (2 C complex 2-D
 // transforms at 5 n log2 n: 13.8 MFLOP at 128^2 and 6 coils), one
 // dependent chain per slice, so the solve is bound by that chain's latency,
-// not by bytes or operations. The global route runs one CTA per slice (8 of
-// 132 SMs at 8 slices), some 840 barrier-separated radix-2 phases per
-// iteration. The resident route shortens the chain and widens it: the
+// not by bytes or operations. The resident route shortens the chain and
+// widens it: the
 // coils of an iteration transform at once on the cluster's CTAs (48 CTAs
 // for 8 slices of 6 coils), and a coil's transform pair is three passes
 // over its plane in shared memory with a barrier after each, its 14
@@ -76,6 +79,16 @@
 // phase marks (coil loads, row FFTs, column FFTs, coil fold with the
 // gradient step and threshold of the last round, the momentum step and set-up,
 // cluster barriers); off where prof is null.
+//
+// Grid route, per slice: x = x_prev = 0 and m on the band, (R) of the
+// first round; per iteration sense_grid.cuh's normal op of m, whose last
+// fold forms the gradient step, the group threshold, x_prev and the next
+// m pixel by pixel of the band (the CTA's own rows: no barrier orders them),
+// and whose last (R') is followed on each chunk by the next iteration's (R):
+// an iteration whose coils go in R rounds meets 2 R times. Its timer: CTA
+// 0's thread 0 adds the SM clocks of set-up, row loads, rows back, the coil
+// fold with the pixel update, rows forward with their stores, column
+// loads, column transforms, column stores, and the waits at T1 and T2.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -83,6 +96,7 @@
 #include "dft_common.cuh"
 #include "fft_resident.cuh"
 #include "sense_cluster.cuh"
+#include "sense_grid.cuh"
 #include "sense_split.cuh"
 
 namespace cg = cooperative_groups;
@@ -90,69 +104,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 1024;
-
-template <bool kPow2>
-__global__ void __launch_bounds__(kThreads)
-sense_fused_kernel(const float* __restrict__ x0hat, const float* __restrict__ scal,
-                   const float* __restrict__ tab, const float* __restrict__ tw,
-                   const float* __restrict__ weights, const float* __restrict__ coils_r,
-                   const float* __restrict__ coils_i, float* __restrict__ out,
-                   float* __restrict__ scratch, int B, int H, int W, int C, int iterations) {
-    __shared__ rls::FftShared s;
-    rls::load_twiddles(s, tw, H, W);
-
-    const int b = blockIdx.x;
-    const int n = H * W;
-    const size_t plane = static_cast<size_t>(B) * n;
-    const size_t off = static_cast<size_t>(b) * n;
-    auto sp = [&](int k) { return scratch + k * plane + off; };
-    const float* x0r = x0hat + 2 * off;
-    const float* x0i = x0r + n;
-    float* xr = out + 2 * off;
-    float* xi = xr + n;
-    float* mr = sp(0);
-    float* mi = sp(1);
-    float* pr = sp(2);
-    float* pi = sp(3);
-    float* kr = sp(4);
-    float* ki = sp(5);
-    float* accr = sp(6);
-    float* acci = sp(7);
-
-    const float rho = scal[2 * b];
-    const float t = rls::fmul(rho, scal[2 * b + 1]);
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const float zero = x0r[i] * 0.f;
-        xr[i] = zero;
-        xi[i] = zero;
-        pr[i] = zero;
-        pi[i] = zero;
-    }
-    __syncthreads();
-
-    for (int it = 0; it < iterations; ++it) {
-        const float a = tab[4 * it];
-        for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const float vr = xr[i], vi = xi[i];
-            mr[i] = rls::fadd(vr, rls::fmul(a, rls::fsub(vr, pr[i])));
-            mi[i] = rls::fadd(vi, rls::fmul(a, rls::fsub(vi, pi[i])));
-        }
-        __syncthreads();
-        auto finish = [&](int i, float nr, float ni) {
-            const float gr = rls::fsub(mr[i], rls::fmul(rho, rls::fsub(nr, x0r[i])));
-            const float gi = rls::fsub(mi[i], rls::fmul(rho, rls::fsub(ni, x0i[i])));
-            const float gn = __fsqrt_rn(rls::fadd(rls::fmul(gr, gr), rls::fmul(gi, gi)));
-            const float sc = fmaxf(rls::fdiv(rls::fsub(gn, t), gn == 0.f ? 1.f : gn), 0.f);
-            pr[i] = xr[i];
-            pi[i] = xi[i];
-            xr[i] = rls::fmul(gr, sc);
-            xi[i] = rls::fmul(gi, sc);
-        };
-        rls::sense_normal<kPow2>(mr, mi, coils_r, coils_i, C, kr, ki, accr, acci, weights,
-                                 finish, s, H, W);
-    }
-}
-
 
 // ---- the resident route: one slice per cluster, a coil's spectrum in
 // shared memory
@@ -322,31 +273,136 @@ ClusterKernel cluster_kernel(int H, int W, int team) {
     return team == 1 ? sense_cluster_kernel<false, false> : sense_cluster_kernel<false, true>;
 }
 
+
+// ---- the grid route: each slice's coils over a team of CTAs that meet in
+// L2
+
+namespace sg = rls::sgrid;
+using GridProf = rls::Prof<sg::kPhases>;
+// the per-slot planes of the grid route: m, x_prev and the coil sum between
+// rounds, (re, im) each
+constexpr int kGridPlanes = 6;
+
+// Shared memory of a CTA of the grid route at H x W whose two planes (re,
+// im) hold `plane` floats each (sense_grid.cuh smem_bytes: no head); the
+// Python planner (kernels/sense_fused.py grid_smem_bytes) counts the same:
+// the twiddles, the two planes, and the phase timer (sg::kPhases int64).
+__host__ __device__ inline size_t grid_smem_bytes(int H, int W, size_t plane) {
+    return sg::smem_bytes(H, W, plane, 0, sg::kPhases);
+}
+
+struct GridArgs {
+    const float* x0hat;    // (B, 2, H, W)
+    const float* scal;     // (B, 2) [rho, lam_eff]
+    const float* tab;      // (iterations, 4): the momentum table
+    const float* tw;       // twiddle_floats(H, W): [Re_H, Im_H, Re_W, Im_W]
+    const float* wt;       // (W, H): the spectral weights transposed
+    const float* coils_r;  // (C, H, W)
+    const float* coils_i;
+    float* out;            // (B, 2, H, W)
+    float2* spec;          // (slots, per_round, H, W): a slot's spectra
+    float* planes;         // (slots, kGridPlanes, H, W)
+    unsigned* bar;         // (slots,): the teams' barrier counters, 0 at the launch
+    long long* prof;       // (sg::kPhases,) or null
+    int B, H, W, C, iterations, team, slots, per_round, row_lines, col_lines, plane;
+};
+
+// The grid route (sense_grid.cuh holds the table of what its barriers
+// order). CTA blockIdx.x = slot team + rank is rank `rank` of the team of
+// slot `slot`, which solves slices slot, slot + slots, ... in turn. Per
+// slice: x = x_prev = 0 and m on the band, (R) of the first round; per
+// iteration the normal op of m, whose last fold forms, pixel by pixel of
+// the band, the gradient step, the group threshold, x_prev = x and the next
+// iteration's m, and whose last (R') is followed on each chunk by the next
+// iteration's (R) of the first round: an iteration with every coil in one
+// round meets twice (T1, T2).
+template <bool kPow2>
+__global__ void __launch_bounds__(kThreads, 1) sense_grid_kernel(const GridArgs a) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int H = a.H, W = a.W, team = a.team;
+    const int ntw = rls::twiddle_floats(H, W);
+    float* tw = reinterpret_cast<float*>(smem);
+    float* re = tw + rls::ceil4(ntw);
+    float* im = re + a.plane;
+    long long* pacc = reinterpret_cast<long long*>(im + a.plane);
+
+    const int slot = blockIdx.x / team, rank = blockIdx.x - slot * team;
+    const int tid = threadIdx.x;
+    GridProf prof{blockIdx.x == 0 && tid == 0 ? a.prof : nullptr, pacc, 0};
+    prof.start();
+    for (int k = tid; k < ntw; k += kThreads) tw[k] = a.tw[k];
+
+    const int n = H * W;
+    float* sp = a.planes + static_cast<size_t>(slot) * kGridPlanes * n;
+    float *mr = sp, *mi = sp + n, *pr = sp + 2 * n, *pi = sp + 3 * n;
+    const sg::SenseGrid g{a.coils_r, a.coils_i, a.wt, tw, re, im,
+                          a.spec + static_cast<size_t>(slot) * a.per_round * n, sp + 4 * n,
+                          sp + 5 * n, a.bar + slot, H, W, a.C, team, rank, a.per_round,
+                          a.row_lines, a.col_lines};
+    const rls::Split rsp(H, team);
+    const int p0 = rsp.start(rank) * W, p1 = p0 + rsp.size(rank) * W;  // the band's pixels
+    unsigned target = 0;
+    __syncthreads();  // the twiddles
+    prof.mark(sg::kSetup);
+
+    for (int b = slot; b < a.B; b += a.slots) {
+        const size_t off = 2 * static_cast<size_t>(b) * n;
+        const float* x0r = a.x0hat + off;
+        const float* x0i = x0r + n;
+        float* xr = a.out + off;
+        float* xi = xr + n;
+        const float rho = a.scal[2 * b];
+        const float t = rls::fmul(rho, a.scal[2 * b + 1]);
+        const float a0 = a.iterations > 0 ? a.tab[0] : 0.f;
+        // set-up: x = x_prev = 0 and the first m on the band
+        for (int i = p0 + tid; i < p1; i += kThreads) {
+            const float zero = __ldg(x0r + i) * 0.f;
+            xr[i] = xi[i] = pr[i] = pi[i] = zero;
+            mr[i] = mi[i] = rls::fadd(zero, rls::fmul(a0, rls::fsub(zero, zero)));
+        }
+        __syncthreads();
+        prof.mark(sg::kSetup);
+        if (a.iterations > 0) sg::forward_band<kThreads, kPow2>(g, mr, mi, prof);
+
+        for (int it = 0; it < a.iterations; ++it) {
+            const bool more = it + 1 < a.iterations;
+            const float an = more ? a.tab[4 * (it + 1)] : 0.f;
+            // the gradient step and the group threshold at pixel i of the
+            // band, from the normal op's (nr, ni); x_prev = x; the next m
+            auto finish = [&](int i, float nr, float ni) {
+                const float gr = rls::fsub(mr[i], rls::fmul(rho, rls::fsub(nr, __ldg(x0r + i))));
+                const float gi = rls::fsub(mi[i], rls::fmul(rho, rls::fsub(ni, __ldg(x0i + i))));
+                const float gn = __fsqrt_rn(rls::fadd(rls::fmul(gr, gr), rls::fmul(gi, gi)));
+                const float sc = fmaxf(rls::fdiv(rls::fsub(gn, t), gn == 0.f ? 1.f : gn), 0.f);
+                const float ur = xr[i], ui = xi[i];
+                const float vr = rls::fmul(gr, sc), vi = rls::fmul(gi, sc);
+                pr[i] = ur;
+                pi[i] = ui;
+                xr[i] = vr;
+                xi[i] = vi;
+                if (more) {
+                    mr[i] = rls::fadd(vr, rls::fmul(an, rls::fsub(vr, ur)));
+                    mi[i] = rls::fadd(vi, rls::fmul(an, rls::fsub(vi, ui)));
+                }
+            };
+            // the next iteration's (R) of the first round on the same rows
+            auto next = [&](int g0, int lines) {
+                if (more) sg::forward_chunk<kThreads, kPow2>(g, 0, mr, mi, g0, lines, prof);
+            };
+            sg::sense_normal_grid<kThreads, kPow2>(g, mr, mi, target, prof, finish, next);
+        }
+    }
+    prof.finish();
+}
+
+const void* grid_kernel(int H, int W) {
+    return rls::pow2_shape(H, W) ? reinterpret_cast<const void*>(&sense_grid_kernel<true>)
+                                 : reinterpret_cast<const void*>(&sense_grid_kernel<false>);
+}
+
 }  // namespace
 
 extern "C" {
-
-// x0hat, out: (B, 2, H, W) f32, the split [re; im] image; scal: (B, 2) [rho,
-// lam_eff]; tab: (iterations, 4), the momentum table; tw:
-// twiddle_floats(H, W) floats [Re_H, Im_H, Re_W, Im_W]; weights: (H, W) the
-// spectral weights; coils_r, coils_i: (C, H, W); scratch: 8 planes of (B,
-// H, W). H and W from 2 to 1024.
-int sense_fused_launch(const void* x0hat, const void* scal, const void* tab, const void* tw,
-                       const void* weights, const void* coils_r, const void* coils_i,
-                       void* out, void* scratch, int B, int H, int W, int C, int iterations,
-                       void* stream) {
-    if (!rls::valid_fft_size(H) || !rls::valid_fft_size(W) || C < 1)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const auto kernel =
-        rls::pow2_shape(H, W) ? sense_fused_kernel<true> : sense_fused_kernel<false>;
-    kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x0hat), static_cast<const float*>(scal),
-        static_cast<const float*>(tab), static_cast<const float*>(tw),
-        static_cast<const float*>(weights), static_cast<const float*>(coils_r),
-        static_cast<const float*>(coils_i), static_cast<float*>(out),
-        static_cast<float*>(scratch), B, H, W, C, iterations);
-    return static_cast<int>(cudaGetLastError());
-}
 
 // A cluster route's shared memory per CTA at H x W on teams of `team` CTAs
 // (1: the resident route; the planner's check), and how many clusters of
@@ -365,8 +421,11 @@ int sense_cluster_occupancy(int clusters, int team, int H, int W, long long* out
     return 0;
 }
 
-// The resident and split routes: as sense_fused_launch, with wt the
-// spectral weights transposed ((W, H)), scratch 6 planes of (B, H, W), prof
+// The resident and split routes: x0hat, out: (B, 2, H, W) f32, the split
+// [re; im] image; scal: (B, 2) [rho, lam_eff]; tab: (iterations, 4), the
+// momentum table; tw: twiddle_floats(H, W) floats [Re_H, Im_H, Re_W, Im_W];
+// wt: the spectral weights transposed ((W, H)); coils_r, coils_i: (C, H,
+// W); scratch 6 planes of (B, H, W); prof
 // null or kPhases int64 that receive CTA 0's clocks per phase, and the
 // plan: `clusters` CTAs per slice in teams of `team` CTAs a coil (team 1:
 // resident, one coil a CTA; valid_plan), `smem` bytes of shared memory per
@@ -394,6 +453,75 @@ int sense_cluster_launch(const void* x0hat, const void* scal, const void* tab, c
                            static_cast<float*>(scratch), static_cast<long long*>(prof), B, H, W,
                            C, iterations, clusters, team};
     e = cudaLaunchKernelEx(&cfg, kernel, args);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The grid route's CTAs of `smem` bytes of shared memory (a plane of
+// sg::plane_floats floats each, which must be a whole number of float4)
+// that the current device holds at once: out[0] a SM, out[1] on all of its
+// SMs.
+int sense_grid_occupancy(int H, int W, int smem, long long* out) {
+    out[0] = out[1] = 0;
+    if (!rls::valid_fft_size(H) || !rls::valid_fft_size(W) || smem < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t plane = sg::plane_floats(H, W, smem, 0, sg::kPhases);
+    if (plane == 0 || plane % 4 || grid_smem_bytes(H, W, plane) != static_cast<size_t>(smem))
+        return static_cast<int>(cudaErrorInvalidValue);
+    return sg::occupancy(grid_kernel(H, W), kThreads, smem, out);
+}
+
+// The grid route: x0hat, scal, tab, tw, wt, coils_r, coils_i and out as for
+// the cluster routes; scratch: slots x per_round spectra (H, W) of complex
+// f32 (interleaved), then slots x kGridPlanes planes (H, W) f32; bar: slots
+// uint32 counters, 0 at the launch; prof null or sg::kPhases int64 that
+// receive CTA 0's clocks per phase; the plan: a team of `team` CTAs a
+// slice, `slots` slices at once, per_round coils a round, chunks of
+// row_lines rows and col_lines columns, `smem` bytes of shared memory per
+// CTA (sg::valid_plan). One cooperative launch of team x slots CTAs, all
+// resident at once (the launch is refused otherwise). Returns
+// cudaErrorInvalidValue for a plan valid_plan refuses, else the launch's
+// error.
+int sense_grid_launch(const void* x0hat, const void* scal, const void* tab, const void* tw,
+                      const void* wt, const void* coils_r, const void* coils_i, void* out,
+                      void* scratch, void* bar, void* prof, int B, int H, int W, int C,
+                      int iterations, int team, int slots, int per_round, int row_lines,
+                      int col_lines, int smem, void* stream) {
+    if (B < 1 || iterations < 0 ||
+        !sg::valid_plan(B, H, W, C, team, slots, per_round, row_lines, col_lines, smem, 0,
+                        sg::kPhases))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const void* fn = grid_kernel(H, W);
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const size_t n = static_cast<size_t>(H) * W;
+    float2* spec = static_cast<float2*>(scratch);
+    GridArgs args{static_cast<const float*>(x0hat),
+                  static_cast<const float*>(scal),
+                  static_cast<const float*>(tab),
+                  static_cast<const float*>(tw),
+                  static_cast<const float*>(wt),
+                  static_cast<const float*>(coils_r),
+                  static_cast<const float*>(coils_i),
+                  static_cast<float*>(out),
+                  spec,
+                  reinterpret_cast<float*>(spec + static_cast<size_t>(slots) * per_round * n),
+                  static_cast<unsigned*>(bar),
+                  static_cast<long long*>(prof),
+                  B,
+                  H,
+                  W,
+                  C,
+                  iterations,
+                  team,
+                  slots,
+                  per_round,
+                  row_lines,
+                  col_lines,
+                  static_cast<int>(sg::plane_floats(H, W, smem, 0, sg::kPhases))};
+    void* kargs[] = {&args};
+    e = cudaLaunchCooperativeKernel(fn, dim3(team * slots), dim3(kThreads), kargs,
+                                    static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }

@@ -28,13 +28,19 @@ shapes whose padded spectrum fits no CTA (192², 256 × 128, 256²), the
 same cluster kernel with each coil's spectrum split over a team of k CTAs
 (each a band of its rows and a block of its columns, the transposes
 through distributed shared memory: ``csrc/sense_split.cuh``), ⌊16/k⌋
-coils a round at most; and **global**, one CTA per slice staging the
-spectrum through shared memory chunk by chunk, for shapes whose spectrum
-fits no team (512² and larger). The planner's pieces
+coils a round at most; and **grid**, for shapes whose spectrum fits no
+team of 16 (512², 1024²), one cooperative launch whose CTAs are all
+resident: each slice on a team of CTAs (66 a slice at 2 × 512² on an
+H100) that meet at a barrier of their own on a counter in global memory,
+`slots` slices at once, each coil's spectrum in global scratch (L2),
+`per_round` coils a round, the band's rows and the block's columns
+transformed in shared memory a chunk of lines at a time, two team
+barriers a round (``csrc/sense_grid.cuh``). The planner's pieces
 (:func:`cluster_size`, :func:`coil_plan`, :class:`SensePlan`,
-:func:`plan_coils`, :func:`card_plan`) also plan the SplitBregman kernel,
-whose cluster routes run the same SENSE normal op
-(``csrc/sense_cluster.cuh``, ``csrc/sense_split.cuh``).
+:func:`plan_coils`, :func:`plan_grid`, :func:`card_plan`) also plan the
+SplitBregman kernel, whose routes run the same SENSE normal op
+(``csrc/sense_cluster.cuh``, ``csrc/sense_split.cuh``,
+``csrc/sense_grid.cuh``).
 
 Not carried over: the TPU's bf16 hi/lo DFT factors, its VMEM gate
 ``_check_vmem_sense`` and ``interpret=``.
@@ -50,6 +56,7 @@ import torch
 
 from .. import _build
 from .._build import SMEM_MAX, SMS
+from ._bands import cdiv
 from ..models.prox import L21Regularization
 from ..models.solvers.fista import FISTA
 from ..ops.dft_real import SenseDFT2RealOperator
@@ -63,12 +70,14 @@ from ._dft_common import (
     split_part,
     twiddle_tensor,
 )
+from .fista_l1_dft_fused import grid_chunk, grid_pitch
 from .fista_tv_fused import momentum_tensor, problem_scalars
 
 __all__ = [
     "fista_l21_sense_fused",
     "fista_l21_sense_fused_torch",
     "plan_sense",
+    "plan_grid",
     "plan_on_card",
     "phase_clocks",
     "check_fista_l21_sense_fused",
@@ -120,13 +129,20 @@ THREADS, MAX_CLUSTER = 1024, 16
 # the phases of the cluster routes' timer (csrc/sense_fused.cu kPhases)
 PHASES = ("coil loads", "row ffts", "column ffts", "coil fold", "pixel update",
           "cluster barriers")
-# global scratch planes of (B, H, W). Resident and split: (re, im) of m,
-# x_prev and the coil sum between rounds. Global: (re, im) of m, x_prev,
-# the spectrum and the coil sum
-RESIDENT_SCRATCH, GLOBAL_SCRATCH = 6, 8
-# the global route's static shared memory (csrc/dft_common.cuh FftShared,
-# 2 × 4352 + 2 × 1024 floats)
-GLOBAL_SMEM = 4 * (2 * 4352 + 2 * 1024)
+# the phases of the grid route's timer (csrc/sense_grid.cuh, kSetup ..
+# kPhases)
+GRID_PHASES = ("set-up", "row loads", "rows back", "coil fold", "rows forward and store",
+               "column loads", "column transforms", "column stores", "barrier T1",
+               "barrier T2")
+# global scratch planes of (B, H, W) on the cluster routes: (re, im) of m,
+# x_prev and the coil sum between rounds; the grid route's planes of (H,
+# W) a slot: the same six (csrc/sense_fused.cu kGridPlanes)
+RESIDENT_SCRATCH, GRID_SCRATCH = 6, 6
+# the bytes of L2 that a grid plan's spectra, with the planes each slot's
+# normal op streams beside them (GRID_OP_PLANES f32 planes: the input and
+# the coil sum, re and im), may take: about 40 of the H100's 50 MB, so that
+# the coil maps and the rest keep some room
+GRID_L2, GRID_OP_PLANES = 40 * 2**20, 4
 
 
 def _ceil4(n):
@@ -176,8 +192,8 @@ def cluster_size(C, sms=SMS, team=1):
 
 
 def coil_plan(name, H, W, C, sms, smem_max, cluster_bytes, split=None):
-    """(team, c, rounds) of a cluster plan for C coils of H × W, or None for
-    the global route. Team 1 (resident) where a CTA holds a coil's padded
+    """(team, c, rounds) of a cluster plan for C coils of H × W, or None
+    where no team of 16 fits (the grid route). Team 1 (resident) where a CTA holds a coil's padded
     spectrum (``cluster_bytes(H, W, 1)`` ≤ `smem_max`), else the smallest
     team of 2 … min(16, sms, H, W) CTAs whose split CTA fits, each on the
     cluster of :func:`cluster_size`. `split`: a forced (team, coils a
@@ -202,11 +218,14 @@ class SensePlan:
     """How a launch of a SENSE kernel (rows 9 and 10) on B slices runs:
     `route` "resident" (a cluster of `clusters` CTAs per slice, a coil a
     CTA, coils in `rounds` rounds), "split" (the same with each coil's
-    spectrum split over a team of `team` CTAs) or "global" (one CTA per
-    slice, every coil in turn); `ctas` CTAs in all, `smem` bytes of shared
-    memory per CTA, `scratch` planes of (B, H, W) in global memory, and on
-    the cluster routes `resident_clusters`, the clusters the card holds at
-    once."""
+    spectrum split over a team of `team` CTAs) or "grid" (a team of `team`
+    = `clusters` CTAs a slice that meet in L2, `slots` slices at once,
+    `per_round` coils a round in `rounds` rounds, the band's rows
+    `row_lines` at a time and the block's columns `col_lines` at a time);
+    `ctas` CTAs in all, `smem` bytes of shared memory per CTA, `scratch`
+    planes of (B, H, W) in global memory on the cluster routes (of (H, W)
+    a slot on the grid route), and `resident_clusters`, the clusters the
+    card holds at once (on the grid route its grid CTAs)."""
 
     route: str
     clusters: int
@@ -218,6 +237,11 @@ class SensePlan:
     scratch: int
     resident_clusters: int | None
     team: int = 1
+    W: int = 0
+    slots: int = 0
+    per_round: int = 0
+    row_lines: int = 0
+    col_lines: int = 0
 
     def band(self, rank):
         """[r0, r1): the image rows CTA `rank` owns for the fold and the
@@ -225,42 +249,130 @@ class SensePlan:
         (empty where H < c)."""
         return split_part(self.H, self.clusters, rank)
 
+    def block(self, rank):
+        """[c0, c1): the spectrum columns CTA `rank` of a grid team
+        transforms."""
+        return split_part(self.W, self.team, rank)
 
-def plan_coils(name, B, H, W, C, resident, sms, smem_max, cluster_bytes, global_smem, scratch,
-               split=None) -> SensePlan:
+
+def grid_smem_bytes(H, W, plane, head=0, phases=len(GRID_PHASES)):
+    """Shared memory of a CTA of the grid route at H × W whose two planes
+    (re, im) hold `plane` f32 each, as ``smem_bytes`` in
+    csrc/sense_grid.cuh counts it: `head` bytes of the kernel's own (row
+    10's sums), the twiddles rounded up to 4 floats, the two planes, and
+    the phase timer (`phases` int64)."""
+    return head + 4 * (_ceil4(_dft_common.twiddle_floats(H, W)) + 2 * plane) + 8 * phases
+
+
+def grid_plane_cap(H, W, smem_max, head=0, phases=len(GRID_PHASES)):
+    """The most f32 of a grid CTA's plane (a multiple of 4) that `smem_max`
+    bytes of shared memory hold."""
+    return max(0, (smem_max - grid_smem_bytes(H, W, 0, head, phases)) // 8 // 4 * 4)
+
+
+def coils_per_round(H, W, C, slots):
+    """Coils a round of the grid route with `slots` slots: the fewest
+    rounds whose spectra (per_round × H·W complex f32 a slot), with the
+    GRID_OP_PLANES planes of each slot's normal op, fit GRID_L2 bytes, as
+    even as possible; at least one coil a round (2 × 512², 6 coils: all 6
+    in one round, 32 MiB; 1 × 1024²: two rounds of 3, 40 MiB)."""
+    fit = (GRID_L2 // slots - GRID_OP_PLANES * 4 * H * W) // (8 * H * W)
+    rounds = cdiv(C, max(1, min(C, fit)))
+    return cdiv(C, rounds)
+
+
+def grid_cost(B, H, W, C, team, slots):
+    """The grid route's cost of a team and slots: the rounds of slices ×
+    the points a CTA transforms a slice, ⌈B / slots⌉ · C · (⌈H/team⌉ · W +
+    ⌈W/team⌉ · H)."""
+    return cdiv(B, slots) * C * (cdiv(H, team) * W + cdiv(W, team) * H)
+
+
+def plan_grid(name, B, H, W, C, held, smem_max=SMEM_MAX, head=0, phases=len(GRID_PHASES),
+              scratch=GRID_SCRATCH, grid=None) -> SensePlan:
+    """The grid route's plan of kernel `name` for B slices of H × W with C
+    coils on a card that holds `held` grid CTAs at once: for each number of
+    slots s ≤ min(B, held), a team of min(⌊held / s⌋, H, W) CTAs a slice
+    and the coils a round of :func:`coils_per_round`; the least
+    :func:`grid_cost`, then the fewest rounds of coils one after the other
+    (⌈B / s⌉ · ⌈C / per_round⌉: two team barriers each), then more slots
+    (2 × 512² at 6 coils on 132 CTAs: 2 slots of 66, every coil in one
+    round). Each CTA's band and block pass through its shared memory in the
+    fewest chunks that fit (``fista_l1_dft_fused.grid_chunk``), and the CTA
+    takes the shared memory those chunks need (`head` bytes of the
+    kernel's own and `phases` clocks besides). `grid` forces (team, slots,
+    coils a round). Raises ValueError where a line fits no CTA, naming a
+    forced plan past the shape, and naming the plan where the card holds
+    fewer CTAs than it launches (no fallback)."""
+    cap = grid_plane_cap(H, W, smem_max, head, phases)
+    if cap < max(grid_pitch(H), grid_pitch(W)):
+        raise ValueError(f"{name}: a line of {B} x {H}x{W} fits no grid CTA of {smem_max} bytes "
+                         f"of shared memory")
+    if grid is not None:
+        team, slots, per = grid
+        if not (1 <= team <= min(H, W) and 1 <= slots <= B and 1 <= per <= C):
+            raise ValueError(f"{name}: a grid of {team} CTAs a slice in {slots} slots, {per} "
+                             f"coils a round does not fit {B} x {H}x{W} with {C} coils")
+    else:
+        team, slots, per, best = 1, 1, C, None
+        for s in range(1, min(B, held) + 1):
+            t, p = min(held // s, H, W), coils_per_round(H, W, C, s)
+            key = (grid_cost(B, H, W, C, t, s), cdiv(B, s) * cdiv(C, p), -s)
+            if best is None or key < best:
+                team, slots, per, best = t, s, p, key
+    row_lines = grid_chunk(cdiv(H, team), grid_pitch(W), cap)
+    col_lines = grid_chunk(cdiv(W, team), grid_pitch(H), cap)
+    plane = _ceil4(max(row_lines * grid_pitch(W), col_lines * grid_pitch(H)))
+    plan = SensePlan("grid", team, cdiv(C, per), H, C, team * slots,
+                     grid_smem_bytes(H, W, plane, head, phases), scratch, held, team, W, slots,
+                     per, row_lines, col_lines)
+    if plan.ctas > held:
+        raise ValueError(f"{name}: the card holds {held} CTAs, not the team of {plan} "
+                         f"({B} x {H}x{W}, {C} coils)")
+    return plan
+
+
+def plan_coils(name, B, H, W, C, resident, sms, smem_max, cluster_bytes, scratch, split=None,
+               grid_ctas=None, grid=None, head=0, phases=len(GRID_PHASES)) -> SensePlan:
     """The route of kernel `name`'s launch of B slices of H × W with C
     coils, on a card of `sms` SMs and `smem_max` bytes of shared memory per
     block that holds n clusters of c cluster CTAs at once for each pair
-    (c, n) of `resident` (a size not named is held 0 times);
-    `cluster_bytes(H, W, team)` is a cluster CTA's shared memory,
-    `global_smem` the global route's, and `scratch` (cluster, global)
-    global planes. Resident or split on the plan of :func:`coil_plan`
-    (`split` forces one); else global. Raises ValueError naming the shape
-    where it is empty or not the FFT's, and naming the plan where the card
-    holds no cluster of it (no fallback)."""
+    (c, n) of `resident` (a size not named is held 0 times) and
+    `grid_ctas` grid CTAs (None: one a SM); `cluster_bytes(H, W, team)` is
+    a cluster CTA's shared memory, `scratch` the (cluster, grid) planes,
+    and `head`, `phases` the grid CTA's own bytes and clocks. Resident or
+    split on the plan of :func:`coil_plan` (`split` forces one); else, or
+    where `grid` forces it, grid (:func:`plan_grid`). Raises ValueError
+    naming the shape where it is empty or not the FFT's, and naming the
+    plan where the card holds no cluster or team of it (no fallback)."""
     if min(B, C) < 1:
         raise ValueError(f"{name}: empty shape {B} x {H}x{W}, {C} coils")
     check_fft_shape(H, W)
-    shape = coil_plan(name, H, W, C, sms, smem_max, cluster_bytes, split)
+    if split is not None and grid is not None:
+        raise ValueError(f"{name}: a forced split plan and a forced grid plan at once")
+    shape = None if grid is not None else coil_plan(name, H, W, C, sms, smem_max, cluster_bytes,
+                                                    split)
     if shape is None:
-        return SensePlan("global", 1, C, H, C, B, global_smem, scratch[1], None)
+        return plan_grid(name, B, H, W, C, sms if grid_ctas is None else grid_ctas, smem_max,
+                         head, phases, scratch[1], grid)
     team, c, rounds = shape
     held = dict(resident).get(c, 0)
     plan = SensePlan("resident" if team == 1 else "split", c, rounds, H, C, B * c,
-                     cluster_bytes(H, W, team), scratch[0], held, team)
+                     cluster_bytes(H, W, team), scratch[0], held, team, W)
     if held < 1:
         raise ValueError(f"{name}: the card holds no cluster of {plan} ({B} x {H}x{W}, {C} coils)")
     return plan
 
 
 @functools.lru_cache(maxsize=256)
-def plan_sense(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX, split=None) -> SensePlan:
+def plan_sense(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX, split=None, grid_ctas=None,
+               grid=None) -> SensePlan:
     """The route of a fused FISTA-L21-SENSE launch (:func:`plan_coils`):
     resident where the timer, the twiddles and a coil's padded spectrum
     (:func:`resident_smem_bytes`) fit one CTA, else split where a team's
-    CTA (:func:`split_smem_bytes`) fits, else global."""
+    CTA (:func:`split_smem_bytes`) fits, else grid."""
     return plan_coils("fista_l21_sense_fused", B, H, W, C, resident, sms, smem_max,
-                      cluster_smem_bytes, GLOBAL_SMEM, (RESIDENT_SCRATCH, GLOBAL_SCRATCH), split)
+                      cluster_smem_bytes, (RESIDENT_SCRATCH, GRID_SCRATCH), split, grid_ctas, grid)
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,6 +386,17 @@ def cluster_limits(entry, index, clusters, team, H, W):
     return out[0], out[1]
 
 
+@functools.lru_cache(maxsize=None)
+def grid_limits(entry, index, H, W, smem):
+    """(grid CTAs of `smem` bytes of shared memory that device `index`
+    holds a SM, and on all of its SMs), by the C entry point `entry`
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    out = (ctypes.c_longlong * 2)()
+    with torch.cuda.device(index):
+        _build.check(getattr(_build.load_library(), entry)(H, W, smem, out), entry)
+    return out[0], out[1]
+
+
 def plan_limits(index, clusters, team, H, W):
     """:func:`cluster_limits` of the FISTA-L21-SENSE cluster kernel."""
     return cluster_limits("sense_cluster_occupancy", index, clusters, team, H, W)
@@ -284,64 +407,84 @@ def resident_limits(index, clusters, H, W):
     return plan_limits(index, clusters, 1, H, W)
 
 
-def card_plan(name, x0hat, C, plan, cluster_bytes, limits, split=None):
-    """``plan(B, H, W, C, held, sms, smem_max, split)`` for a launch on
-    x0hat's card ((B, 2, H, W), C coils), with the card's residency of the
-    cluster plan's size (``limits(index, c, team, H, W)``, which also
-    returns the kernel's count of ``cluster_bytes(H, W, team)``: a count
-    that differs raises RuntimeError)."""
+def card_plan(name, x0hat, C, plan, cluster_bytes, limits, grid_entry, head=0,
+              phases=len(GRID_PHASES), split=None, grid=None):
+    """``plan(B, H, W, C, held, sms, smem_max, split, grid_ctas, grid)`` for
+    a launch on x0hat's card ((B, 2, H, W), C coils), with the card's
+    residency of the cluster plan's size (``limits(index, c, team, H,
+    W)``, which also returns the kernel's count of ``cluster_bytes(H, W,
+    team)``: a count that differs raises RuntimeError), or, where no
+    cluster plan fits or `grid` forces the grid route, the grid CTAs the
+    card holds at the grid route's largest shared memory (C entry point
+    `grid_entry`)."""
     B, _, H, W = x0hat.shape
     index = x0hat.device.index or 0
     sms, smem_max = _build.device_limits(index)
     check_fft_shape(H, W)
-    held = ()
-    shape = coil_plan(name, H, W, max(C, 1), sms, smem_max, cluster_bytes, split)
-    if shape is not None:
-        team, c, _ = shape
-        smem, active = limits(index, c, team, H, W)
-        if smem != cluster_bytes(H, W, team):
-            raise RuntimeError(f"{name}: the kernel counts {smem} bytes of shared memory at "
-                               f"{H}x{W} on teams of {team}, the planner "
-                               f"{cluster_bytes(H, W, team)}")
-        held = ((c, active),)
-    return plan(B, H, W, C, held, sms, smem_max, split)
+    shape = None
+    if grid is None:
+        shape = coil_plan(name, H, W, max(C, 1), sms, smem_max, cluster_bytes, split)
+    if shape is None:
+        cap = grid_plane_cap(H, W, smem_max, head, phases)
+        held = (grid_limits(grid_entry, index, H, W, grid_smem_bytes(H, W, cap, head, phases))[1]
+                if cap else 0)
+        return plan(B, H, W, C, (), sms, smem_max, split, held, grid)
+    team, c, _ = shape
+    smem, active = limits(index, c, team, H, W)
+    if smem != cluster_bytes(H, W, team):
+        raise RuntimeError(f"{name}: the kernel counts {smem} bytes of shared memory at "
+                           f"{H}x{W} on teams of {team}, the planner "
+                           f"{cluster_bytes(H, W, team)}")
+    return plan(B, H, W, C, ((c, active),), sms, smem_max, split, None, grid)
 
 
-def plan_on_card(x0hat, C, split=None):
+def plan_on_card(x0hat, C, split=None, grid=None):
     """The plan of a launch on x0hat's card ((B, 2, H, W), C coils; `split`
-    a forced (team, coils a round)). Raises ValueError where the cluster
-    plan has no cluster the card can hold."""
+    a forced (team, coils a round) of the cluster routes, `grid` a forced
+    (team, slots, coils a round) of the grid route). Raises ValueError
+    where the plan has no cluster or team the card can hold."""
     return card_plan("fista_l21_sense_fused", x0hat, C, plan_sense, cluster_smem_bytes,
-                     plan_limits, split)
+                     plan_limits, "sense_grid_occupancy", split=split, grid=grid)
 
 
-def _launch(x0hat, scal, tab, coils, tables, prof=None, split=None):
+def grid_scratch(plan, H, W, planes, extra=0):
+    """The grid route's scratch as one f32 tensor's length: each slot's
+    per_round spectra (H × W complex f32) and its `planes` planes of H × W,
+    then `extra` floats."""
+    return plan.slots * (2 * plan.per_round + planes) * H * W + extra
+
+
+def _launch(x0hat, scal, tab, coils, tables, prof=None, split=None, grid=None):
     B, _, H, W = x0hat.shape
     C = coils[0].shape[0]
-    plan = plan_on_card(x0hat, C, split)
-    if prof is not None and plan.route == "global":
-        raise ValueError(f"fista_l21_sense_fused: the phase timer is on the resident route and "
-                         f"the split route, not {plan}")
+    plan = plan_on_card(x0hat, C, split, grid)
     lib = _build.load_library()
     dev = x0hat.device
     tw = twiddle_tensor(tables)
+    wt = tables[2].T.contiguous()  # read along a spectrum column
     out = torch.empty_like(x0hat)
-    scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
+    prof_ptr = None if prof is None else prof.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.route != "global":
-            wt = tables[2].T.contiguous()  # read along a spectrum column
+        if plan.route != "grid":
+            scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
             code = lib.sense_cluster_launch(
                 x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(),
                 wt.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), None if prof is None else prof.data_ptr(), B, H, W, C,
-                tab.shape[0], plan.clusters, plan.team, plan.smem, stream)
+                scratch.data_ptr(), prof_ptr, B, H, W, C, tab.shape[0], plan.clusters, plan.team,
+                plan.smem, stream)
         else:
-            weights = tables[2].contiguous()
-            code = lib.sense_fused_launch(
+            # each slot's spectra (complex, interleaved), then its planes;
+            # the teams' barrier counters
+            scratch = torch.empty(grid_scratch(plan, H, W, GRID_SCRATCH), dtype=torch.float32,
+                                  device=dev)
+            bar = torch.zeros(plan.slots, dtype=torch.int32, device=dev)
+            code = lib.sense_grid_launch(
                 x0hat.data_ptr(), scal.data_ptr(), tab.data_ptr(), tw.data_ptr(),
-                weights.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), B, H, W, C, tab.shape[0], stream)
+                wt.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), bar.data_ptr(), prof_ptr, B, H, W, C, tab.shape[0],
+                plan.team, plan.slots, plan.per_round, plan.row_lines, plan.col_lines,
+                plan.smem, stream)
     _build.check(code, f"fista_l21_sense_fused ({B} x {H}x{W}, {C} coils, {plan})")
     fista_l21_sense_fused.launches += 1
     fista_l21_sense_fused.route_launches[plan.route] += 1
@@ -356,43 +499,49 @@ def _kernel_args(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations):
     return (scal, tab, *sense_args(x0hat_b, (coils_r, coils_i), mask))
 
 
-def phase_clocks(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int, split=None):
-    """One launch of the cluster kernel (resident or split) with its phase
-    timer on: {phase: SM clocks that CTA 0 spent in it over the whole
-    solve} (``PHASES``; the launch counts in
-    ``fista_l21_sense_fused.launches``). Raises on the global route."""
+def phase_clocks(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int, split=None,
+                 grid=None):
+    """One launch of the kernel with its phase timer on: {phase: SM clocks
+    that CTA 0 spent in it over the whole solve} (``PHASES`` on the cluster
+    routes, ``GRID_PHASES`` on the grid route; the launch counts in
+    ``fista_l21_sense_fused.launches``), on the plan's route or the forced
+    `split` / `grid`."""
     scal, tab, coils, tables = _kernel_args(x0hat_b, mask, coils_r, coils_i, rho, lam,
                                             iterations)
     check_dft_cuda_input("fista_l21_sense_fused", x0hat_b, mask, *coils)
-    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
-    _launch(x0hat_b.contiguous(), scal, tab, coils, tables, prof, split)
-    return dict(zip(PHASES, prof.tolist()))
+    x0hat_b = x0hat_b.contiguous()
+    plan = plan_on_card(x0hat_b, coils[0].shape[0], split, grid)
+    phases = GRID_PHASES if plan.route == "grid" else PHASES
+    prof = torch.zeros(len(phases), dtype=torch.int64, device=x0hat_b.device)
+    _launch(x0hat_b, scal, tab, coils, tables, prof, split, grid)
+    return dict(zip(phases, prof.tolist()))
 
 
 def fista_l21_sense_fused(x0hat_b, mask, coils_r, coils_i, rho, lam, iterations: int,
-                          split=None):
+                          split=None, grid=None):
     """Batched FISTA-L21 on C-coil SENSE in one launch, on the route of
     :func:`plan_sense` (a cluster of CTAs per slice, one coil's spectrum in
-    each CTA's shared memory or split over a team of CTAs, or one CTA per
-    slice).
+    each CTA's shared memory or split over a team of CTAs, or a team of
+    CTAs per slice that meet in L2).
 
     x0hat_b: (B, 2, H, W) split [re; im] Aᴴb; mask (H, W); coils_r,
     coils_i (C, H, W); rho, lam: scalars or (B,) (λ already
     normalization-scaled); `split`: a forced cluster plan (team, coils a
-    round), for measuring. The plain version runs for a CPU tensor, the
-    CUDA kernel (float32) for a CUDA tensor.
-    ``fista_l21_sense_fused.launches`` counts the kernel's launches, and
-    ``fista_l21_sense_fused.route_launches`` the launches by route."""
+    round), `grid`: a forced grid plan (team, slots, coils a round), for
+    measuring. The plain version runs for a CPU tensor, the CUDA kernel
+    (float32) for a CUDA tensor. ``fista_l21_sense_fused.launches`` counts
+    the kernel's launches, and ``fista_l21_sense_fused.route_launches`` the
+    launches by route."""
     scal, tab, coils, tables = _kernel_args(x0hat_b, mask, coils_r, coils_i, rho, lam,
                                             iterations)
     if x0hat_b.device.type == "cpu":
         return fista_l21_sense_fused_torch(x0hat_b, scal, tab, coils, tables)
     check_dft_cuda_input("fista_l21_sense_fused", x0hat_b, mask, *coils)
-    return _launch(x0hat_b.contiguous(), scal, tab, coils, tables, split=split)
+    return _launch(x0hat_b.contiguous(), scal, tab, coils, tables, split=split, grid=grid)
 
 
 fista_l21_sense_fused.launches = 0
-fista_l21_sense_fused.route_launches = {"resident": 0, "split": 0, "global": 0}
+fista_l21_sense_fused.route_launches = {"resident": 0, "split": 0, "grid": 0}
 
 
 def check_fista_l21_sense_fused(solver):

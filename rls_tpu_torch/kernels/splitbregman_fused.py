@@ -36,9 +36,13 @@ each CTA owning a band of rows for the coil fold and the vector phases;
 **split**, for shapes whose padded spectrum fits no CTA (192², 256 × 128,
 256²), the same cluster kernel with each coil's spectrum split over a
 team of CTAs (``csrc/sense_split.cuh``; the plan of
-``sense_fused.coil_plan``); and **global**, one CTA per slice staging the
-spectrum through shared memory chunk by chunk (``csrc/dft_common.cuh``),
-for shapes whose spectrum fits no team (512² and larger).
+``sense_fused.coil_plan``); and **grid**, for shapes whose spectrum fits
+no team of 16 (512², 1024²), a team of CTAs per slice that meet in L2
+(``csrc/sense_grid.cuh``, the plan of ``sense_fused.plan_grid``): the
+CG's sums taken over the team (each CTA's block sum to global memory, a
+team barrier, the team's entries added in rank order and rounded once),
+the vector phases on each CTA's band, and the fold FGP of both planes
+swept band by band over the team with a team barrier between sweeps.
 
 Not carried over: the TPU's 3-way bf16 DFT factors (``_dft_cat3``) and
 the compensated seed built from them (:394-411): the seed here is the
@@ -64,8 +68,8 @@ from ._dft_common import (
     check_dft_cuda_input, check_fft_normal, seed_and_lam, twiddle_tensor,
 )
 from .sense_fused import (
-    THREADS, SensePlan, card_plan, cluster_limits, group_threshold, plan_coils, sense_args,
-    split_floats,
+    GRID_PHASES as SENSE_GRID_PHASES, THREADS, SensePlan, card_plan, cluster_limits,
+    grid_scratch, group_threshold, plan_coils, sense_args, split_floats,
 )
 # the cluster size rule and the largest cluster, the same for both SENSE kernels
 from .sense_fused import MAX_CLUSTER, cluster_size  # noqa: F401
@@ -169,14 +173,19 @@ def kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations, dtype=np.float32
 # the phases of the cluster routes' timer (csrc/splitbregman_fused.cu kPhases)
 PHASES = ("coil loads", "row ffts", "column ffts", "coil fold", "vector phases",
           "cluster sums", "fgp", "cluster barriers")
-# global scratch planes of (B, H, W). Resident and split: (re, im) of β_y, z₁, u₁,
-# z₂, u₂, β | v, r, p, q and the coil sum between rounds, and the FGP's pv,
-# ph, rv, rh, y for each plane. Global: (re, im) of β_y, z₁, u₁, z₂, u₂, β,
-# r, p, q, the spectrum and the coil sum, and one set of the FGP's five
-RESIDENT_SCRATCH, GLOBAL_SCRATCH = 30, 27
-# the global route's static shared memory (csrc/dft_common.cuh FftShared,
-# 2 × 4352 + 2 × 1024 floats, and the block sums)
-GLOBAL_SMEM = 4 * (2 * 4352 + 2 * 1024) + 8 * 3 * (THREADS // 32)
+# the phases of the grid route's timer (csrc/splitbregman_fused.cu
+# kGridPhases): csrc/sense_grid.cuh's, then its own
+GRID_PHASES = SENSE_GRID_PHASES + ("vector phases", "team sums", "fgp")
+# global scratch planes of (B, H, W) on the cluster routes: (re, im) of
+# β_y, z₁, u₁, z₂, u₂, β | v, r, p, q and the coil sum between rounds, and
+# the FGP's pv, ph, rv, rh, y for each plane. The grid route's planes of
+# (H, W) a slot: the same with v apart from β (csrc/splitbregman_fused.cu
+# kGridPlanes)
+RESIDENT_SCRATCH, GRID_SCRATCH = 30, 32
+# the grid CTA's own shared memory before the twiddles: the block sums (3 ×
+# 32 float64) and the team's (4 float64) (csrc/splitbregman_fused.cu
+# kGridHead)
+GRID_HEAD = 8 * (3 * (THREADS // 32) + 4)
 
 
 def _ceil4(n):
@@ -213,19 +222,22 @@ def cluster_smem_bytes(H, W, team):
 
 
 @functools.lru_cache(maxsize=256)
-def plan_splitbregman(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX,
-                      split=None) -> SensePlan:
+def plan_splitbregman(B, H, W, C, resident, sms=SMS, smem_max=SMEM_MAX, split=None,
+                      grid_ctas=None, grid=None) -> SensePlan:
     """The route of a fused SplitBregman launch of B slices of H × W with C
     coils (``sense_fused.plan_coils``, shared with the FISTA-L21-SENSE
     kernel): resident where a coil's padded spectrum and the rest of
     :func:`resident_smem_bytes` fit one CTA, on the cluster size of
     ``sense_fused.cluster_size``; else split on the smallest team whose CTA
-    (:func:`split_smem_bytes`) fits; else global; `split` forces a (team,
-    coils a round). Raises ValueError naming the shape where it is empty or
-    not the FFT's, and naming the plan where the card holds no cluster of
-    it (no fallback)."""
+    (:func:`split_smem_bytes`) fits; else grid (``sense_fused.plan_grid``
+    with the CTA's sums, GRID_HEAD, and GRID_PHASES clocks); `split` forces
+    a (team, coils a round), `grid` a (team, slots, coils a round). Raises
+    ValueError naming the shape where it is empty or not the FFT's, and
+    naming the plan where the card holds no cluster or team of it (no
+    fallback)."""
     return plan_coils("splitbregman_l1_tv_fused", B, H, W, C, resident, sms, smem_max,
-                      cluster_smem_bytes, GLOBAL_SMEM, (RESIDENT_SCRATCH, GLOBAL_SCRATCH), split)
+                      cluster_smem_bytes, (RESIDENT_SCRATCH, GRID_SCRATCH), split, grid_ctas,
+                      grid, GRID_HEAD, len(GRID_PHASES))
 
 
 def plan_limits(index, clusters, team, H, W):
@@ -240,46 +252,54 @@ def resident_limits(index, clusters, H, W):
     return plan_limits(index, clusters, 1, H, W)
 
 
-def plan_on_card(x0hat, C, split=None):
+def plan_on_card(x0hat, C, split=None, grid=None):
     """The plan of a launch on x0hat's card ((B, 2, H, W), C coils; `split`
-    a forced (team, coils a round)), with the card's residency of its
-    cluster size. Raises ValueError where the cluster plan has no cluster
-    the card can hold."""
+    a forced (team, coils a round), `grid` a forced (team, slots, coils a
+    round)), with the card's residency of its cluster size or grid CTAs.
+    Raises ValueError where the plan has no cluster or team the card can
+    hold."""
     return card_plan("splitbregman_l1_tv_fused", x0hat, C, plan_splitbregman,
-                     cluster_smem_bytes, plan_limits, split)
+                     cluster_smem_bytes, plan_limits, "splitbregman_grid_occupancy", GRID_HEAD,
+                     len(GRID_PHASES), split, grid)
 
 
 def _launch(x0hat, scal, t2tab, coils, tables, iterations, iterations_inner, cg_iterations,
-            tol_inner, prof=None, split=None):
+            tol_inner, prof=None, split=None, grid=None):
     B, _, H, W = x0hat.shape
     C = coils[0].shape[0]
-    plan = plan_on_card(x0hat, C, split)
-    if prof is not None and plan.route == "global":
-        raise ValueError(f"splitbregman_l1_tv_fused: the phase timer is on the resident route "
-                         f"and the split route, not {plan}")
+    plan = plan_on_card(x0hat, C, split, grid)
     lib = _build.load_library()
     dev = x0hat.device
     tw = twiddle_tensor(tables)
+    wt = tables[2].T.contiguous()  # read along a spectrum column
     out = torch.empty_like(x0hat)
     counts = torch.empty((B,), dtype=torch.int32, device=dev)
-    scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
     sched = (B, H, W, C, iterations, iterations_inner, cg_iterations, t2tab.shape[0],
              float(tol_inner))
+    prof_ptr = None if prof is None else prof.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.route != "global":
-            wt = tables[2].T.contiguous()  # read along a spectrum column
+        if plan.route != "grid":
+            scratch = torch.empty((plan.scratch, B, H, W), dtype=torch.float32, device=dev)
             code = lib.splitbregman_cluster_launch(
                 x0hat.data_ptr(), scal.data_ptr(), t2tab.data_ptr(), tw.data_ptr(),
                 wt.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), counts.data_ptr(), None if prof is None else prof.data_ptr(),
-                *sched, plan.clusters, plan.team, plan.smem, stream)
+                scratch.data_ptr(), counts.data_ptr(), prof_ptr, *sched, plan.clusters,
+                plan.team, plan.smem, stream)
         else:
-            weights = tables[2].contiguous()
-            code = lib.splitbregman_fused_launch(
+            # each slot's spectra (complex, interleaved), then its planes,
+            # then the team's sums (slots × 2 × team × 4 float64); the teams'
+            # barrier counters
+            sums = plan.slots * 2 * plan.team * 4 * 2
+            scratch = torch.empty(grid_scratch(plan, H, W, GRID_SCRATCH, sums),
+                                  dtype=torch.float32, device=dev)
+            bar = torch.zeros(plan.slots, dtype=torch.int32, device=dev)
+            code = lib.splitbregman_grid_launch(
                 x0hat.data_ptr(), scal.data_ptr(), t2tab.data_ptr(), tw.data_ptr(),
-                weights.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), counts.data_ptr(), *sched, stream)
+                wt.data_ptr(), coils[0].data_ptr(), coils[1].data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), bar.data_ptr(), counts.data_ptr(), prof_ptr, *sched,
+                plan.team, plan.slots, plan.per_round, plan.row_lines, plan.col_lines,
+                plan.smem, stream)
     _build.check(code, f"splitbregman_l1_tv_fused ({B} x {H}x{W}, {C} coils, {plan})")
     splitbregman_l1_tv_fused.launches += 1
     splitbregman_l1_tv_fused.route_launches[plan.route] += 1
@@ -288,39 +308,44 @@ def _launch(x0hat, scal, t2tab, coils, tables, iterations, iterations_inner, cg_
 
 def phase_clocks(x0hat_b, mask, coils_r, coils_i, rho1, rho2, lam1, lam2, iterations: int,
                  iterations_inner: int, cg_iterations: int, tv_iterations: int,
-                 tol_inner: float, split=None):
-    """One launch of the cluster kernel (resident or split) with its phase
-    timer on: {phase: SM clocks that CTA 0 spent in it over the whole
-    solve} (``PHASES``; the launch counts in
-    ``splitbregman_l1_tv_fused.launches``). Raises on the global route."""
+                 tol_inner: float, split=None, grid=None):
+    """One launch of the kernel with its phase timer on: {phase: SM clocks
+    that CTA 0 spent in it over the whole solve} (``PHASES`` on the cluster
+    routes, ``GRID_PHASES`` on the grid route; the launch counts in
+    ``splitbregman_l1_tv_fused.launches``), on the plan's route or the
+    forced `split` / `grid`."""
     scal, t2tab = kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations)
     coils, tables = sense_args(x0hat_b, (coils_r, coils_i), mask)
     check_dft_cuda_input("splitbregman_l1_tv_fused", x0hat_b, mask, *coils)
-    prof = torch.zeros(len(PHASES), dtype=torch.int64, device=x0hat_b.device)
-    _launch(x0hat_b.contiguous(), scal, t2tab, coils, tables, iterations, iterations_inner,
-            cg_iterations, tol_inner, prof, split)
-    return dict(zip(PHASES, prof.tolist()))
+    x0hat_b = x0hat_b.contiguous()
+    plan = plan_on_card(x0hat_b, coils[0].shape[0], split, grid)
+    phases = GRID_PHASES if plan.route == "grid" else PHASES
+    prof = torch.zeros(len(phases), dtype=torch.int64, device=x0hat_b.device)
+    _launch(x0hat_b, scal, t2tab, coils, tables, iterations, iterations_inner, cg_iterations,
+            tol_inner, prof, split, grid)
+    return dict(zip(phases, prof.tolist()))
 
 
 def splitbregman_l1_tv_fused(
     x0hat_b, mask, coils_r, coils_i, rho1, rho2, lam1, lam2, iterations: int,
     iterations_inner: int, cg_iterations: int, tv_iterations: int, tol_inner: float,
-    with_counts=False, split=None,
+    with_counts=False, split=None, grid=None,
 ):
     """Batched SplitBregman L21 + TV on C-coil SENSE in one launch, on the
     route of :func:`plan_splitbregman` (a cluster of CTAs per slice, one
     coil's spectrum in each CTA's shared memory or split over a team of
-    CTAs, or one CTA per slice).
+    CTAs, or a team of CTAs per slice that meet in L2).
 
     x0hat_b: (B, 2, H, W) split [re; im] Aᴴb; mask (H, W); coils_r,
     coils_i (C, H, W); rho1, rho2 the L21 and TV terms' ρ, lam1, lam2
     their λ (scalars or (B,), already normalization-scaled); `split`: a
-    forced cluster plan (team, coils a round), for measuring. The plain
-    version runs for a CPU tensor, the CUDA kernel (float32) for a CUDA
-    tensor. ``splitbregman_l1_tv_fused.launches`` counts the kernel's
-    launches, and ``splitbregman_l1_tv_fused.route_launches`` the launches
-    by route. Returns x, or ``(x, counts)`` with `with_counts`: the live CG
-    steps per problem."""
+    forced cluster plan (team, coils a round), `grid`: a forced grid plan
+    (team, slots, coils a round), for measuring. The plain version runs
+    for a CPU tensor, the CUDA kernel (float32) for a CUDA tensor.
+    ``splitbregman_l1_tv_fused.launches`` counts the kernel's launches, and
+    ``splitbregman_l1_tv_fused.route_launches`` the launches by route.
+    Returns x, or ``(x, counts)`` with `with_counts`: the live CG steps per
+    problem."""
     np_dt = torch.empty((), dtype=x0hat_b.dtype).numpy().dtype
     scal, t2tab = kernel_args(x0hat_b, rho1, rho2, lam1, lam2, tv_iterations, np_dt)
     coils, tables = sense_args(x0hat_b, (coils_r, coils_i), mask)
@@ -329,12 +354,13 @@ def splitbregman_l1_tv_fused(
         out = splitbregman_l1_tv_fused_torch(x0hat_b, scal, t2tab, coils, tables, *args)
     else:
         check_dft_cuda_input("splitbregman_l1_tv_fused", x0hat_b, mask, *coils)
-        out = _launch(x0hat_b.contiguous(), scal, t2tab, coils, tables, *args, split=split)
+        out = _launch(x0hat_b.contiguous(), scal, t2tab, coils, tables, *args, split=split,
+                      grid=grid)
     return out if with_counts else out[0]
 
 
 splitbregman_l1_tv_fused.launches = 0
-splitbregman_l1_tv_fused.route_launches = {"resident": 0, "split": 0, "global": 0}
+splitbregman_l1_tv_fused.route_launches = {"resident": 0, "split": 0, "grid": 0}
 
 
 def _term_order(solver):

@@ -1789,7 +1789,7 @@ def test_a_grid_plan_the_kernel_refuses_raises(dev):
 
 
 # FISTA-L21-SENSE's cases: every FFT_SHAPES shape at 1 and 3 coils (256 ×
-# 128 on the split route, 512² on the global one), and at 128² the resident route's cluster
+# 128 on the split route, 512² on the grid one), and at 128² the resident route's cluster
 # of 6 and 9 CTAs and 17 coils in two rounds on 9; 2 × 4 at 6 coils leaves
 # four of the six CTAs without a row of the image
 SENSE_CASES = [(shape, coils) for shape in FFT_SHAPES for coils in (1, 3)] + [
@@ -1799,9 +1799,9 @@ SENSE_CASES = [(shape, coils) for shape in FFT_SHAPES for coils in (1, 3)] + [
 def _sense_route(module, shape):
     """The route of a SENSE kernel's plan at `shape` on an H100: resident
     where a coil's padded spectrum fits a CTA, split where a team's CTA
-    does, else global."""
+    does, else grid."""
     fits = [k for k in range(1, 17) if module.cluster_smem_bytes(*shape, k) <= 232_448]
-    return "global" if not fits else "resident" if fits[0] == 1 else "split"
+    return "grid" if not fits else "resident" if fits[0] == 1 else "split"
 
 
 def _sense_inputs(dev, shape, coils):
@@ -1819,14 +1819,17 @@ def _sense_plain(x0, mask, cr, ci, lam, iterations):
 @pytest.mark.parametrize("shape,coils", SENSE_CASES)
 def test_sense_kernel_matches_plain(dev, shape, coils):
     """Every case on its planned route (the resident route where a coil's
-    spectrum fits one CTA, the split route where a team's share does), by
-    the route counter, bit for bit the plain version."""
+    spectrum fits one CTA, the split route where a team's share does, the
+    grid route where none does), by the route counter, bit for bit the
+    plain version."""
     x0, mask, cr, ci, lam = _sense_inputs(dev, shape, coils)
     plan = sense.plan_on_card(x0, coils)
     assert plan.route == _sense_route(sense, shape)
-    if plan.route != "global":
+    if plan.route != "grid":
         assert (plan.clusters, plan.rounds) == sense.cluster_size(coils, team=plan.team)
         assert plan.resident_clusters >= 1
+    else:
+        assert plan.ctas <= plan.resident_clusters
     before = sense.fista_l21_sense_fused.launches
     on_route = sense.fista_l21_sense_fused.route_launches[plan.route]
     got = sense.fista_l21_sense_fused(x0, mask, cr, ci, 0.9, lam, 9)
@@ -1865,22 +1868,20 @@ def test_sense_resident_route_repeats_bit_for_bit(dev, shape, coils):
 
 
 def test_sense_phase_clocks(dev):
-    """The cluster kernel's phase timer, resident (128²) and split (192²):
-    one launch, the same x as without the timer, clocks in every phase;
-    the global route has no timer and raises."""
-    for shape in ((128, 128), (192, 192)):
-        x0, mask, cr, ci, lam = _sense_inputs(dev, shape, 6)
+    """The kernel's phase timer, resident (128²), split (192²) and grid
+    (512², its own phases): one launch, the same x as without the timer,
+    clocks in every phase."""
+    for shape, coils, phases in (((128, 128), 6, sense.PHASES), ((192, 192), 6, sense.PHASES),
+                                 ((512, 512), 2, sense.GRID_PHASES)):
+        x0, mask, cr, ci, lam = _sense_inputs(dev, shape, coils)
         args = (x0, mask, cr, ci, 0.9, lam, 5)
         want = sense.fista_l21_sense_fused(*args)
         before = sense.fista_l21_sense_fused.launches
         clocks = sense.phase_clocks(*args)
         assert sense.fista_l21_sense_fused.launches == before + 1
-        assert list(clocks) == list(sense.PHASES)
+        assert list(clocks) == list(phases)
         assert all(v > 0 for v in clocks.values()), clocks
         assert torch.equal(sense.fista_l21_sense_fused(*args), want)
-    x0g, maskg, crg, cig, lamg = _sense_inputs(dev, (512, 512), 2)
-    with pytest.raises(ValueError, match="resident route"):
-        sense.phase_clocks(x0g, maskg, crg, cig, 0.9, lamg, 1)
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (1024, 16), (16, 1024), (2, 4), (64, 192)])
@@ -1924,7 +1925,7 @@ def test_split_cluster_counts_of_the_planner_tests(dev, module, shape, team):
 
 
 # SplitBregman's cases: every FFT_SHAPES shape at 3 coils (256 × 128 on the
-# split route, 512² on the global one), and at 128² the resident route's cluster of 1, 6 and 9
+# split route, 512² on the grid one), and at 128² the resident route's cluster of 1, 6 and 9
 # CTAs and 17 coils in two rounds on 9; 2 × 4 at 6 coils leaves four of the
 # six CTAs without a row of the image
 SB_CASES = [(shape, 3) for shape in FFT_SHAPES] + [
@@ -1943,9 +1944,11 @@ def test_splitbregman_kernel_matches_plain(dev, shape, coils, tol_inner, tv_iter
     x0, mask, cr, ci, rho1 = _sb_inputs(dev, shape, coils)
     plan = sb.plan_on_card(x0, coils)
     assert plan.route == _sense_route(sb, shape)
-    if plan.route != "global":
+    if plan.route != "grid":
         assert (plan.clusters, plan.rounds) == sb.cluster_size(coils, team=plan.team)
         assert plan.resident_clusters >= 1
+    else:
+        assert plan.ctas <= plan.resident_clusters
     sched = (2, 3, 4, tv_iterations, tol_inner)
     before = sb.splitbregman_l1_tv_fused.launches
     on_route = sb.splitbregman_l1_tv_fused.route_launches[plan.route]
@@ -1997,22 +2000,68 @@ def test_splitbregman_resident_route_repeats_bit_for_bit(dev, shape, coils):
 
 
 def test_splitbregman_phase_clocks(dev):
-    """The cluster kernel's phase timer, resident (128²) and split (192²):
-    one launch, the same x and counts as without the timer, clocks in
-    every phase; the global route has no timer and raises."""
-    for shape in ((128, 128), (192, 192)):
-        x0, mask, cr, ci, rho1 = _sb_inputs(dev, shape, 6)
+    """The kernel's phase timer, resident (128²), split (192²) and grid
+    (512², its own phases): one launch, the same x and counts as without
+    the timer, clocks in every phase."""
+    for shape, coils, phases in (((128, 128), 6, sb.PHASES), ((192, 192), 6, sb.PHASES),
+                                 ((512, 512), 2, sb.GRID_PHASES)):
+        x0, mask, cr, ci, rho1 = _sb_inputs(dev, shape, coils)
         args = (x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3, 2, 2, 3, 2, 1e-5)
         want = sb.splitbregman_l1_tv_fused(*args)
         before = sb.splitbregman_l1_tv_fused.launches
         clocks = sb.phase_clocks(*args)
         assert sb.splitbregman_l1_tv_fused.launches == before + 1
-        assert list(clocks) == list(sb.PHASES)
+        assert list(clocks) == list(phases)
         assert all(v > 0 for v in clocks.values()), clocks
         assert torch.equal(sb.splitbregman_l1_tv_fused(*args), want)
-    x0g, maskg, crg, cig, _ = _sb_inputs(dev, (512, 512), 2)
-    with pytest.raises(ValueError, match="resident route"):
-        sb.phase_clocks(x0g, maskg, crg, cig, rho1, 0.02, 1e-3, 2e-3, 1, 1, 1, 1, 1e-5)
+
+
+def test_sense_grid_routes_repeat_bit_for_bit(dev):
+    """Rows 9 and 10 at 2 × 512², 6 coils, on the grid route by the route
+    counter (row 10 on a short schedule): 20 launches each give the plain
+    version's bits (row 10: its live CG steps too); a race between the
+    CTAs of a team would show as a launch that differs."""
+    x0, mask, cr, ci, lam = _sense_inputs(dev, (512, 512), 6)
+    args = (x0, mask, cr, ci, 0.9, lam, 6)
+    want = _sense_plain(x0, mask, cr, ci, lam, 6)
+    sense.fista_l21_sense_fused.route_launches = dict.fromkeys(
+        sense.fista_l21_sense_fused.route_launches, 0)
+    for _ in range(20):
+        assert torch.equal(sense.fista_l21_sense_fused(*args), want)
+    assert sense.fista_l21_sense_fused.route_launches == {"resident": 0, "split": 0, "grid": 20}
+    x0, mask, cr, ci, rho1 = _sb_inputs(dev, (512, 512), 6)
+    sched = (1, 2, 3, 2, 1e-5)
+    scal, t2 = sb.kernel_args(x0, rho1, 0.02, 1e-3, 2e-3, 2)
+    want, want_counts = sb.splitbregman_l1_tv_fused_torch(
+        x0, scal, t2, (cr, ci), dft.dft_tables(mask), *sched[:3], sched[4])
+    sb.splitbregman_l1_tv_fused.route_launches = dict.fromkeys(
+        sb.splitbregman_l1_tv_fused.route_launches, 0)
+    for _ in range(20):
+        got, counts = sb.splitbregman_l1_tv_fused(x0, mask, cr, ci, rho1, 0.02, 1e-3, 2e-3,
+                                                  *sched, with_counts=True)
+        assert torch.equal(got, want) and counts.tolist() == want_counts.tolist()
+    assert sb.splitbregman_l1_tv_fused.route_launches == {"resident": 0, "split": 0, "grid": 20}
+
+
+def test_grid_counts_of_the_sense_grid_tests(dev):
+    """On an H100 the card holds one grid CTA of rows 9 and 10 a SM (132),
+    as tests/test_torch_sense_grid.py plans with, at the grid route's
+    largest shared memory and at 2 × 512²'s."""
+    from rls_tpu_torch import _build
+
+    limits = _build.device_limits(dev.index)
+    if "H100" not in torch.cuda.get_device_name(dev) or limits != (132, 232_448):
+        pytest.skip(f"the table is an H100's, not a {torch.cuda.get_device_name(dev)}'s")
+    for module, entry, head, phases in (
+            (sense, "sense_grid_occupancy", 0, len(sense.GRID_PHASES)),
+            (sb, "splitbregman_grid_occupancy", sb.GRID_HEAD, len(sb.GRID_PHASES))):
+        cap = sense.grid_plane_cap(512, 512, limits[1], head, phases)
+        assert sense.grid_limits(entry, dev.index, 512, 512,
+                                 sense.grid_smem_bytes(512, 512, cap, head, phases)) == (1, 132)
+        x0 = torch.zeros(2, 2, 512, 512, device=dev)
+        plan = module.plan_on_card(x0, 6)
+        assert plan.route == "grid" and plan.ctas == 132 == plan.resident_clusters
+        assert sense.grid_limits(entry, dev.index, 512, 512, plan.smem) == (1, 132)
 
 
 @pytest.mark.parametrize("shape", [(128, 128), (1024, 16), (16, 1024), (2, 4)])

@@ -352,12 +352,13 @@ def test_the_global_route_at_odd_factors():
     assert (plan.route, plan.clusters, plan.rows, plan.cols) == ("resident", 3, 33, 43)
     assert [plan.band(q) for q in range(3)] == [(0, 33), (33, 65), (65, 97)]
     # rows 9 and 10: 192² splits a coil's spectrum over a team of CTAs; a
-    # spectrum that fits no team of 16 (704²) keeps the global route
+    # spectrum that fits no team of 16 (704²) takes the grid route, which
+    # took the global route's place
     assert tsense.plan_sense(8, 192, 192, 6, H100_RESIDENT).route == "split"
-    assert tsense.plan_sense(8, 704, 704, 6, H100_RESIDENT).route == "global"
+    assert tsense.plan_sense(8, 704, 704, 6, H100_RESIDENT).route == "grid"
     assert tsense.plan_sense(8, 64, 192, 6, H100_RESIDENT).route == "resident"
     assert tsb.plan_splitbregman(8, 192, 192, 6, H100_RESIDENT).route == "split"
-    assert tsb.plan_splitbregman(8, 704, 704, 6, H100_RESIDENT).route == "global"
+    assert tsb.plan_splitbregman(8, 704, 704, 6, H100_RESIDENT).route == "grid"
     assert tsb.plan_splitbregman(8, 64, 192, 6, H100_RESIDENT).route == "resident"
 
 

@@ -42,14 +42,14 @@ H100_RESIDENT = tuple(zip(range(1, 17), (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 
 # on teams of 3 CTAs a coil)
 FFT_ROUTES = {(16, 32): "resident", (64, 8): "resident", (2, 4): "resident",
               (256, 128): "split", (1024, 16): "resident", (16, 1024): "resident",
-              (512, 512): "global"}
+              (512, 512): "grid"}
 # the card tests' SENSE cases (tests/test_torch_cuda.py SENSE_CASES): every
 # FFT shape at 1 and 3 coils, and 128² at 6, 9 and 17 coils (two rounds on
 # 9 CTAs) and 2 × 4 at 6 (four of the six bands empty), with the route,
 # cluster size and rounds each takes
 CARD_PLANS = {
     **{(shape, C): {"resident": (route, C, 1), "split": (route, 3 * C, 1),
-                    "global": (route, 1, C)}[route]
+                    "grid": (route, 66, 1)}[route]
        for shape, route in FFT_ROUTES.items() for C in (1, 3)},
     ((128, 128), 1): ("resident", 1, 1), ((128, 128), 6): ("resident", 6, 1),
     ((128, 128), 9): ("resident", 9, 1), ((128, 128), 17): ("resident", 9, 2),
@@ -80,10 +80,11 @@ def test_the_routes_of_the_card_tests_cases(case):
     plan = _plan(2, H, W, C)
     assert (plan.route, plan.clusters, plan.rounds) == CARD_PLANS[case]
     assert (sense.resident_smem_bytes(H, W) <= SMEM) == (plan.route == "resident")
-    if plan.route == "global":
-        assert (plan.ctas, plan.smem, plan.scratch, plan.resident_clusters) == (
-            2, sense.GLOBAL_SMEM, sense.GLOBAL_SCRATCH, None)
-        assert plan.band(0) == (0, H)
+    if plan.route == "grid":
+        # 2 slots of 66 CTAs (the card's 132), every coil in one round
+        assert (plan.ctas, plan.scratch, plan.resident_clusters) == (132, sense.GRID_SCRATCH, 132)
+        assert plan.smem == sense.grid_smem_bytes(H, W, 4104)
+        assert plan.band(0) == (0, 8) and plan.team == 66
     else:
         assert (plan.clusters, plan.rounds) == sense.cluster_size(C, team=plan.team)
         assert (plan.team == 1) == (plan.route == "resident")
@@ -96,11 +97,12 @@ def test_the_shared_memory_is_counted_piece_by_piece():
     assert sense.resident_smem_bytes(128, 128) == 48 + 1024 + 2 * 4 * 16_512
     # rounded up to 4 floats: 2 + 4 twiddles → 8, 2 · 5 = 10 → 12
     assert sense.resident_smem_bytes(2, 4) == 48 + 4 * 8 + 2 * 4 * 12
-    # the largest resident shapes and the smallest global one
+    # the largest resident shapes, and a grid CTA at 512² (twiddles, two
+    # planes of 8 lines of 513 floats, 10 phase clocks)
     assert sense.resident_smem_bytes(1024, 16) == 143_472 <= SMEM
     assert sense.resident_smem_bytes(16, 1024) == 135_408 <= SMEM
     assert sense.resident_smem_bytes(256, 128) == 265_776 > SMEM
-    assert sense.GLOBAL_SMEM == 4 * (2 * 4352 + 2 * 1024)
+    assert sense.grid_smem_bytes(512, 512, 4104) == 4 * (1024 + 2 * 4104) + 80
 
 
 def test_the_planner_reads_the_kernel_s_constants():
@@ -178,8 +180,12 @@ def test_a_resident_plan_the_card_cannot_hold_raises(resident):
 
 
 def test_the_global_route_needs_no_residency():
+    """512², once the global route's, now takes the grid route, which needs
+    no cluster the card holds (an empty table of clusters plans it) but
+    every CTA it launches resident at once: the card's 132 grid CTAs."""
     plan = _plan(8, 512, 512, 6, ())
-    assert (plan.route, plan.ctas, plan.resident_clusters) == ("global", 8, None)
+    assert (plan.route, plan.ctas, plan.resident_clusters) == ("grid", 132, 132)
+    assert _plan(8, 512, 512, 6, (), grid_ctas=40).ctas <= 40
 
 
 # ---- one banded iteration at a time, modelled in Python ---------------------

@@ -71,8 +71,9 @@ def test_the_plan_at_192_squared(module):
     ((256, 256), ("split", 5, 15, 2)),
     # 320²: 16 CTAs, 2 coils a round
     ((320, 320), ("split", 8, 16, 3)),
-    # 512² fits no team of 16 (270,384 bytes): the global route
-    ((512, 512), ("global", 1, 1, 6)),
+    # 512² fits no team of 16 (270,384 bytes): the grid route, 4 slots of 33
+    # CTAs, 3 coils a round
+    ((512, 512), ("grid", 33, 33, 2)),
     # a coil's padded spectrum fits one CTA: the resident route, unchanged
     ((128, 128), ("resident", 1, 6, 1)),
     ((64, 192), ("resident", 1, 6, 1)),
@@ -91,7 +92,7 @@ SIDES = [2, 3, 17, 64, 97, 128, 192, 256, 320, 448, 512, 640, 1021, 1024]
 def test_the_planner_s_choice_at_every_side(H):
     """Resident where a coil's padded spectrum fits a CTA; else the smallest
     team (2 … 16, no larger than a side) whose split CTA fits, on the
-    fewest rounds of at most ⌊16/team⌋ coils; else global, where no team
+    fewest rounds of at most ⌊16/team⌋ coils; else grid, where no team
     fits. A team need not divide a side: its bands and blocks differ by at
     most a line."""
     for W in SIDES:
@@ -100,7 +101,7 @@ def test_the_planner_s_choice_at_every_side(H):
             fits = [k for k in range(1, min(16, H, W) + 1)
                     if module.cluster_smem_bytes(H, W, k) <= SMEM]
             if not fits:
-                assert plan.route == "global", (H, W)
+                assert plan.route == "grid", (H, W)
                 continue
             team = fits[0]
             assert plan.route == ("resident" if team == 1 else "split"), (H, W)

@@ -43,7 +43,7 @@ H100_RESIDENT = tuple(zip(range(1, 17), (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 
 # on teams of 3 CTAs a coil)
 FFT_ROUTES = {(16, 32): "resident", (64, 8): "resident", (2, 4): "resident",
               (256, 128): "split", (1024, 16): "resident", (16, 1024): "resident",
-              (512, 512): "global"}
+              (512, 512): "grid"}
 
 
 # the longest sub-line a team of lanes keeps in registers
@@ -123,11 +123,12 @@ def test_the_routes_of_the_card_tests_shapes(shape, C):
     assert plan.route == FFT_ROUTES[shape]
     fits = sb.resident_smem_bytes(H, W) <= SMEM
     assert fits == (plan.route == "resident")
-    if plan.route == "global":
-        assert (plan.clusters, plan.rounds, plan.ctas) == (1, C, 3)
+    if plan.route == "grid":
+        # 3 slots of 44 CTAs, every coil in one round
+        assert (plan.clusters, plan.rounds, plan.ctas) == (44, 1, 132)
         assert (plan.smem, plan.scratch, plan.resident_clusters) == (
-            sb.GLOBAL_SMEM, sb.GLOBAL_SCRATCH, None)
-        assert plan.band(0) == (0, H)
+            sb.GRID_HEAD + 4 * (1024 + 2 * 6156) + 8 * len(sb.GRID_PHASES), sb.GRID_SCRATCH, 132)
+        assert plan.band(0) == (0, 12)
 
 
 @pytest.mark.parametrize("H,C", [(2, 3), (2, 6), (4, 9), (16, 6), (128, 6), (128, 16),
@@ -150,7 +151,7 @@ def test_the_shared_memory_is_counted_piece_by_piece():
     assert sb.resident_smem_bytes(128, 128) == 864 + 64 + 1024 + 2 * 4 * 16_512
     # rounded up to 4 floats: 2 + 4 twiddles → 8, 2 · 5 = 10 → 12
     assert sb.resident_smem_bytes(2, 4) == 864 + 64 + 4 * 8 + 2 * 4 * 12
-    # the largest resident shapes and the smallest global one
+    # the largest resident shapes
     assert sb.resident_smem_bytes(1024, 16) == 144_352 <= SMEM
     assert sb.resident_smem_bytes(16, 1024) == 136_288 <= SMEM
     assert sb.resident_smem_bytes(256, 128) == 266_656 > SMEM
@@ -192,7 +193,11 @@ def test_a_resident_plan_the_card_cannot_hold_raises(resident):
 
 
 def test_the_global_route_needs_no_residency():
-    assert _plan(8, 512, 512, 6, ()).route == "global"
+    """512², once the global route's, takes the grid route: no cluster the
+    card holds, but every CTA it launches resident at once."""
+    plan = _plan(8, 512, 512, 6, ())
+    assert (plan.route, plan.ctas, plan.resident_clusters) == ("grid", 132, 132)
+    assert _plan(8, 512, 512, 6, (), grid_ctas=40).ctas <= 40
 
 
 # ---- the register layout, modelled in Python --------------------------------
